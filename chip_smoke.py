@@ -16,8 +16,9 @@ prints no result, when there is no GPU or any check fails. Phases:
    counts exactly and sums within 1e-4 of each bucket's sum of |value|
    (f32 atomics change the order of the adds from run to run). Each is
    timed as a median over CUDA events with L2 flushed before every launch,
-   beside its byte bound, its plain version and one PyTorch library call
-   computing the same function.
+   beside its bound (the larger of its bytes over the memory rate and its
+   float32 operations over the peak rate), its plain version and one
+   PyTorch library call computing the same function.
 3. The write path through ``Node(device="cuda")``: ``bulk`` ~20k zipfian
    docs into 5 shards, ``refresh``, ~50 requests (match or/and/
    minimum_should_match, bool with term + range filters, match_all, a
@@ -30,13 +31,42 @@ prints no result, when there is no GPU or any check fails. Phases:
    totals and buckets exact, scores within rtol 1e-5); the 1M-doc match
    top-10 against ``reference_scores`` (recall@10 = 1.0); both kernels
    launched in each main-path phase (counts zeroed just before it). Prints
-   p50 latency per request kind and the per-segment host copy of the dense
-   scores and mask.
+   p50 latency per request kind and plane and the per-segment host copy of
+   the dense scores and mask.
 6. The kernel summary line, then the device line.
+
+Run between phases 2 and 3, and after phase 4:
+
+2b. Kernels 1b (dense, q_batch=16, with and without counts) and 1c (fused
+    per-tile top-k, q_batch 1 and 16, k=16) on the 1M-doc corpus, for 16
+    queries from ``query_draws`` and for the same batch with the top-10
+    rank ladder query in it: bit-equal to their plain versions, each
+    batched member bit-equal to its own q_batch=1 dense output; timed
+    beside the bound (the union's rows read once), the plain version and
+    the library call
+    (one ``index_add_`` of w_q * frac into [Q, nd_pad + 1], plus
+    ``torch.topk`` per tile for 1c).
+7. The mesh plane at real size, configuration ``pmc-4x256k``: a 4-shard
+   ``Node(device="cuda")`` index whose shards each adopt one 262,144-doc
+   segment (the same generator, seeds 7-10): 4 slots on one card. Phase
+   3's request kinds served serially; match, bool and
+   minimum_should_match must report ``"_plane": "mesh_pallas"`` (match_all
+   ``mesh``); every response equals a cpu node over the same arrays and
+   the same card node's host rung (``index.search.mesh: false``);
+   recall@10 = 1.0; deletes, refresh (the staging is rebuilt), again.
+8. Bursts: ``IndexService.search_batch`` with 16 match bodies on pmc-4x256k
+   (rung 1, mesh_pallas, kernel 1c) and on phase 3's 5-shard index (rung
+   2, host, kernel 1b), every member equal to its serial response, and
+   every 1b/1c launch of those bursts (the stacked 262k-doc slots, the
+   ingest index's small segments) bit-equal to its plain version on the
+   inputs the path gave it; then 16 threads at ``Node.search`` (three
+   rounds) to show that the micro-batcher forms batches; zero plane
+   faults on every index.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -50,8 +80,15 @@ VOCAB = 50_000
 N_ORDS = 2000
 BLOCK = 128
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 RTOL = 1e-5
 INGEST_DOCS = 20_000
+# pmc-4x256k: four shards of one 262,144-doc segment each (seeds 7-10)
+MESH_SHARD_DOCS = 262_144
+MESH_SEEDS = (7, 8, 9, 10)
+BURST = 16
+# the kernels each serial host-rung phase must launch
+HOST_PATH_KERNELS = ("tile_scoring", "segment_sum")
 
 FAILS = []
 
@@ -64,6 +101,15 @@ def check(ok: bool, what: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def bound(nbytes: float, ops: float):
+    """The least time in ms the card could take for a function that must
+    move ``nbytes`` and do ``ops`` float32 operations: the larger of the
+    two over the card's peak rates, and which one it is."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / F32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 # ----------------------------------------------------------------------
@@ -90,34 +136,34 @@ def pack_postings(term_ids, docs, tfs, vocab, nd_pad):
             term_df)
 
 
-def build_synthetic_corpus(seed=7):
+def build_synthetic_corpus(seed=7, n_docs=N_DOCS):
     rng = np.random.RandomState(seed)
     nd_pad = 1
-    while nd_pad < N_DOCS:
+    while nd_pad < n_docs:
         nd_pad *= 2
     doc_len = np.clip(
-        rng.lognormal(np.log(AVG_DOC_LEN), 0.4, N_DOCS), 5, 500
+        rng.lognormal(np.log(AVG_DOC_LEN), 0.4, n_docs), 5, 500
     ).astype(np.int64)
     total_tokens = int(doc_len.sum())
     ranks = np.arange(1, VOCAB + 1)
     probs = 1.0 / ranks
     probs /= probs.sum()
     tokens = rng.choice(VOCAB, total_tokens, p=probs).astype(np.int32)
-    doc_of_token = np.repeat(np.arange(N_DOCS, dtype=np.int32), doc_len)
-    keys = tokens.astype(np.int64) * N_DOCS + doc_of_token
+    doc_of_token = np.repeat(np.arange(n_docs, dtype=np.int32), doc_len)
+    keys = tokens.astype(np.int64) * n_docs + doc_of_token
     uniq, counts = np.unique(keys, return_counts=True)
-    term_ids = (uniq // N_DOCS).astype(np.int32)
-    docs = (uniq % N_DOCS).astype(np.int32)
+    term_ids = (uniq // n_docs).astype(np.int32)
+    docs = (uniq % n_docs).astype(np.int32)
     tfs = counts.astype(np.float32)
     (block_docs, block_tfs, term_block_start, n_blocks_per_term,
      term_df) = pack_postings(term_ids, docs, tfs, VOCAB, nd_pad)
     norms = np.ones((1, nd_pad + 1), dtype=np.float32)
-    norms[0, :N_DOCS] = doc_len.astype(np.float32)
+    norms[0, :n_docs] = doc_len.astype(np.float32)
     kranks = np.arange(1, N_ORDS + 1)
     kprobs = (1.0 / kranks) / (1.0 / kranks).sum()
-    keyword_ord = rng.choice(N_ORDS, N_DOCS, p=kprobs).astype(np.int32)
-    year = (1990 + rng.randint(0, 35, N_DOCS)).astype(np.float64)
-    return {
+    keyword_ord = rng.choice(N_ORDS, n_docs, p=kprobs).astype(np.int32)
+    year = (1990 + rng.randint(0, 35, n_docs)).astype(np.float64)
+    return {"n_docs": n_docs,
         "block_docs": block_docs, "block_tfs": block_tfs, "norms": norms,
         "term_block_start": term_block_start,
         "n_blocks_per_term": n_blocks_per_term, "term_df": term_df,
@@ -138,38 +184,39 @@ class _Sources:
         self._year = corpus["year"]
 
     def __len__(self):
-        return N_DOCS
+        return len(self._year)
 
     def __getitem__(self, d):
         return {"n": int(d), "venue": f"v{int(self._venue[d]):04d}",
                 "year": int(self._year[d])}
 
 
-def corpus_segment_arrays(corpus):
+def corpus_segment_arrays(corpus, id_prefix="p"):
     """The Segment.from_arrays fields for the corpus (one text field
     ``title``, keyword ``venue``, long ``year``)."""
     from elasticsearch_tpu_torch.index.segment import FIELD_SEP
 
+    n = corpus["n_docs"]
     nd_pad = corpus["nd_pad"]
-    cap = nd_pad  # next_pow2(N_DOCS)
+    cap = nd_pad  # next_pow2(n)
     flat_docs = np.full(cap, nd_pad, np.int32)
-    flat_docs[:N_DOCS] = np.arange(N_DOCS, dtype=np.int32)
+    flat_docs[:n] = np.arange(n, dtype=np.int32)
     flat_ords = np.zeros(cap, np.int32)
-    flat_ords[:N_DOCS] = corpus["keyword_ord"]
+    flat_ords[:n] = corpus["keyword_ord"]
     first_ord = np.full(nd_pad, -1, np.int32)
-    first_ord[:N_DOCS] = corpus["keyword_ord"]
+    first_ord[:n] = corpus["keyword_ord"]
     exists = np.zeros(nd_pad, bool)
-    exists[:N_DOCS] = True
+    exists[:n] = True
     vals = np.zeros(cap, np.float64)
-    vals[:N_DOCS] = corpus["year"]
+    vals[:n] = corpus["year"]
     first_value = np.zeros(nd_pad, np.float64)
-    first_value[:N_DOCS] = corpus["year"]
+    first_value[:n] = corpus["year"]
     minv = np.full(nd_pad, np.inf)
-    minv[:N_DOCS] = corpus["year"]
+    minv[:n] = corpus["year"]
     maxv = np.full(nd_pad, -np.inf)
-    maxv[:N_DOCS] = corpus["year"]
+    maxv[:n] = corpus["year"]
     live = np.zeros(nd_pad, bool)
-    live[:N_DOCS] = True
+    live[:n] = True
     return dict(
         term_keys=[f"title{FIELD_SEP}{term_token(i)}" for i in range(VOCAB)],
         term_block_start=corpus["term_block_start"],
@@ -177,18 +224,18 @@ def corpus_segment_arrays(corpus):
         term_doc_freq=corpus["term_df"],
         block_docs=corpus["block_docs"], block_tfs=corpus["block_tfs"],
         norms=corpus["norms"], live=live,
-        field_stats={"title": {"doc_count": N_DOCS,
+        field_stats={"title": {"doc_count": n,
                                "sum_ttf": corpus["sum_ttf"]}},
         field_norm_idx={"title": 0},
-        doc_ids=[f"p{i}" for i in range(N_DOCS)],
+        doc_ids=[f"{id_prefix}{i}" for i in range(n)],
         sources=_Sources(corpus),
         numeric_columns={"year": dict(
             flat_values=vals, flat_docs=flat_docs, first_value=first_value,
-            min_value=minv, max_value=maxv, exists=exists, count=N_DOCS)},
+            min_value=minv, max_value=maxv, exists=exists, count=n)},
         ordinal_columns={"venue": dict(
             terms=[f"v{o:04d}" for o in range(N_ORDS)], flat_ords=flat_ords,
             flat_docs=flat_docs, first_ord=first_ord, exists=exists,
-            count=N_DOCS)},
+            count=n)},
     )
 
 
@@ -289,29 +336,47 @@ def requests_for(queries, top_rank_term, venue_term, year_lo):
     return reqs
 
 
-def serve(gnode, cnode, index, reqs, label, lat, ref=None):
+def serve(gnode, cnode, index, reqs, label, lat, ref=None,
+          plane_of=lambda kind: "host", also=None):
     """Serve each request on the cuda node (timed) and the cpu node,
-    compare; ``ref(terms) -> (scores, live)`` checks recall@10."""
+    compare; check the plane each kind must be served by; ``also`` is a
+    second (node, index) whose responses must equal too; ``ref(terms) ->
+    (scores, index_of_id)`` checks recall@10."""
     import torch
 
     recalls = []
+    planes = {}
     for kind, body, terms in reqs:
         t0 = time.perf_counter()
         gr = gnode.search(index, body)
         torch.cuda.synchronize()
-        lat.setdefault(f"{label.split()[1]}/{kind}", []).append(
-            (time.perf_counter() - t0) * 1000)
+        lat.setdefault(f"{label.split()[1]}/{kind}@{gr['_plane']}",
+                       []).append((time.perf_counter() - t0) * 1000)
         cr = cnode.search(index, body)
-        same_response(gr, cr, f"{label} {kind} {json.dumps(body)[:120]}")
-        check(gr["_plane"] == "host", f"{label} host plane")
+        what = f"{label} {kind} {json.dumps(body)[:120]}"
+        same_response(gr, cr, what)
+        if also is not None:
+            t0 = time.perf_counter()
+            ar = also[0].search(also[1], body)
+            torch.cuda.synchronize()
+            lat.setdefault(
+                f"{label.split()[1]}/{kind}@{ar['_plane']} ({also[1]})",
+                []).append((time.perf_counter() - t0) * 1000)
+            same_response(gr, ar, f"{what} (vs {also[1]})")
+        planes.setdefault(kind, set()).add(gr["_plane"])
+        check(gr["_plane"] == cr["_plane"] == plane_of(kind),
+              f"{label} {kind}: plane {gr['_plane']} (cpu {cr['_plane']}), "
+              f"want {plane_of(kind)}")
         if ref is not None and terms is not None:
-            scores = ref(terms)
+            scores, index_of = ref(terms)
             k = min(10, int((scores > 0).sum()))
             if k:
                 kth = np.sort(scores)[::-1][k - 1]
-                got = [int(h["_id"][1:]) for h in gr["hits"]["hits"][:10]]
+                got = [index_of(h["_id"]) for h in gr["hits"]["hits"][:10]]
                 hit = sum(1 for d in got if scores[d] >= kth * (1 - 1e-6))
                 recalls.append(hit / k)
+    log(f"[{label}] planes per request kind: "
+        f"{ {k: sorted(v) for k, v in planes.items()} }")
     return recalls
 
 
@@ -345,6 +410,431 @@ def zero_searcher_counters(node):
             s.searcher.host_copy_seconds = 0.0
             s.searcher.host_copy_bytes = 0
             s.searcher.host_copy_segments = 0
+
+
+# ----------------------------------------------------------------------
+# Kernels 1b and 1c at bench shapes
+# ----------------------------------------------------------------------
+
+
+def _batched_tables(tsc, seg, sets):
+    """The union's tables on the geometry ladder (the walk of
+    batched_segment_scores); returns (geometry, live key, tables)."""
+    geom = seg.kernel_geom
+    sub = geom.tile_sub
+    while True:
+        g = geom if sub == geom.tile_sub else tsc.tile_geometry(
+            geom.nd_pad, sub)
+        try:
+            tables = tsc.build_tile_tables_batched(
+                sets, seg.kernel_bmin, seg.kernel_bmax, g)
+            break
+        except ValueError:
+            sub //= 2
+    live_key = ("k_live_t" if g.tile_sub == geom.tile_sub
+                else seg.kernel_live_t_for(g.tile_sub))
+    return g, live_key, tables
+
+
+def batch_kernels_phase(torch, dev, gseg, gdev, timer, queries,
+                        top_rank_term):
+    """Kernels 1b (dense, q_batch=16, with and without counts) and 1c
+    (fused top-k, q_batch 1 and 16, kk=16) against their plain versions,
+    each batched member against its own q_batch=1 dense output, and their
+    times beside the byte bound, the plain version and a library call."""
+    from elasticsearch_tpu_torch.ops import tile_scoring as tsc
+    from elasticsearch_tpu_torch.search import query_dsl as Q
+
+    def lanes_of(terms):
+        arrs = Q.term_blocks_arrays(
+            gseg, [("title", term_token(t), 1.0) for t in terms])
+        return [tsc.QueryLane(s, c, w) for s, c, w, _ in arrs["lanes_meta"]]
+
+    def on_dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    draws = [lanes_of(q) for q in queries[:BURST]]
+    batches = {"draws": draws,
+               "ladder": [lanes_of([top_rank_term] + list(queries[0][:2]))]
+               + draws[1:]}
+    errs = {"batched": 0.0, "topk": 0.0}
+    entries = {}
+    kk = 16
+    for name, sets in batches.items():
+        g, live_key, (rl, rh, w, cb) = _batched_tables(tsc, gseg, sets)
+        sub = g.tile_sub
+        qn = len(sets)
+        args = [gdev["k_docs"], gdev["k_frac"], gdev[live_key],
+                on_dev(rl), on_dev(rh), on_dev(w)]
+        kw = dict(t_pad=rl.shape[1], cb=cb, sub=sub)
+        for wc in (False, True):
+            k_out = tsc.score_tiles(*args, **kw, dense=True, with_counts=wc,
+                                    q_batch=qn)
+            p_out = tsc.score_tiles_plain(*args, sub=sub, with_counts=wc,
+                                          q_batch=qn)
+            torch.cuda.synchronize()
+            errs["batched"] = max(errs["batched"], float(
+                (k_out[0] - p_out[0]).abs().max()))
+            check(torch.equal(k_out[0], p_out[0]),
+                  f"1b scores bit-equal plain ({name}, counts={wc})")
+            if wc:
+                check(torch.equal(k_out[1], p_out[1]),
+                      f"1b counts equal plain ({name})")
+            for q in range(qn):
+                r1, h1, w1, cb1 = tsc.build_tile_tables(
+                    sets[q], gseg.kernel_bmin, gseg.kernel_bmax, g)
+                one = tsc.score_tiles(
+                    *args[:3], on_dev(r1), on_dev(h1), on_dev(w1),
+                    t_pad=r1.shape[1], cb=cb1, sub=sub, dense=True,
+                    with_counts=wc)
+                same = torch.equal(one[0], k_out[0][q]) and (
+                    not wc or torch.equal(one[1], k_out[1][q]))
+                check(same, f"1b member {q} bit-equal its q_batch=1 dense "
+                      f"output ({name}, counts={wc})")
+        for qb in (1, qn):
+            wq = args[5][:qb].contiguous()
+            k_out = tsc.score_tiles(*args[:5], wq, **kw, k=kk, dense=False,
+                                    q_batch=qb)
+            p_out = tsc.score_tiles_topk_plain(*args[:5], wq, sub=sub, k=kk)
+            torch.cuda.synchronize()
+            fin = torch.isfinite(p_out[0])
+            errs["topk"] = max(errs["topk"], float(
+                (k_out[0][fin] - p_out[0][fin]).abs().max()))
+            check(all(torch.equal(a, b) for a, b in zip(k_out, p_out)),
+                  f"1c scores, docs and hits equal plain ({name}, Q={qb})")
+        # bytes each function must move: the union's posting rows once
+        # (doc i32 + frac f32), the live mask, the tables, the outputs
+        union, wmat = tsc.union_query_lanes(sets)
+        rows = sum(ln.block_count for ln in union)
+        n_tiles = rl.shape[0]
+        nd_geom = n_tiles * sub * tsc.LANE
+        tables = rl.nbytes + rh.nbytes + w.nbytes
+        base = rows * tsc.LANE * 8 + nd_geom * 4 + tables
+        rows1 = sum(ln.block_count for ln in sets[0])
+        # operations: a multiply and an add per posting and query that
+        # weights its lane (one more add with counts); the top-k selects
+        # over every doc of each (tile, query): one compare a doc
+        postings_q = sum(ln.block_count for lanes in sets
+                         for ln in lanes) * tsc.LANE
+        select_ops = n_tiles * sub * tsc.LANE * qn
+        b_dense = bound(base + qn * nd_geom * 4, 2 * postings_q)
+        b_dense_c = bound(base + 2 * qn * nd_geom * 4, 3 * postings_q)
+        b_topk = bound(base + n_tiles * qn * (kk * 8 + 4),
+                       2 * postings_q + select_ops)
+        b_topk1 = bound(rows1 * tsc.LANE * 8 + nd_geom * 4 + rl.nbytes
+                        + rh.nbytes + w[:1].nbytes + n_tiles * (kk * 8 + 4),
+                        2 * rows1 * tsc.LANE + select_ops // qn)
+        # the library yardstick: one index_add_ of w_q * frac into a
+        # [Q, nd_pad + 1] buffer (and, for 1c, torch.topk per tile)
+        nd1 = gseg.nd_pad + 1
+        idx, val = [], []
+        for j, ln in enumerate(union):
+            r = slice(ln.block_start, ln.block_start + ln.block_count)
+            docs = gdev["k_docs"][r].reshape(-1).long()
+            frac = gdev["k_frac"][r].reshape(-1)
+            for q in range(qn):
+                if wmat[q, j] > 0:
+                    idx.append(docs + q * nd1)
+                    val.append(frac * float(wmat[q, j]))
+        idx, val = torch.cat(idx), torch.cat(val)
+        buf = torch.zeros(qn * nd1, device=dev)
+        w_tile = sub * tsc.LANE
+
+        def library_topk():
+            dense = buf.index_add_(0, idx, val).reshape(qn, nd1)
+            return torch.topk(dense[:, : n_tiles * w_tile].reshape(
+                qn, n_tiles, w_tile), kk, dim=2)
+
+        e = {
+            "sub": sub, "q_batch": qn, "t_pad": int(rl.shape[1]),
+            "n_tiles": int(n_tiles), "union_lanes": len(union),
+            "union_posting_rows": int(rows),
+            "batched_ms": timer.ms(lambda: tsc.score_tiles(
+                *args, **kw, dense=True, q_batch=qn)),
+            "batched_ms_with_counts": timer.ms(lambda: tsc.score_tiles(
+                *args, **kw, dense=True, with_counts=True, q_batch=qn)),
+            "batched_plain_ms": timer.ms(lambda: tsc.score_tiles_plain(
+                *args, sub=sub, q_batch=qn), reps=5, warmup=1),
+            "batched_library_ms": timer.ms(
+                lambda: buf.index_add_(0, idx, val)),
+            "batched_bound_ms": b_dense[0], "batched_bound_by": b_dense[1],
+            "batched_bound_ms_with_counts": b_dense_c[0],
+            "topk_ms": timer.ms(lambda: tsc.score_tiles(
+                *args, **kw, k=kk, dense=False, q_batch=qn)),
+            "topk_q1_ms": timer.ms(lambda: tsc.score_tiles(
+                *args[:5], args[5][:1].contiguous(), **kw, k=kk,
+                dense=False, q_batch=1)),
+            "topk_plain_ms": timer.ms(lambda: tsc.score_tiles_topk_plain(
+                *args, sub=sub, k=kk), reps=5, warmup=1),
+            "topk_library_ms": timer.ms(library_topk),
+            "topk_bound_ms": b_topk[0], "topk_bound_by": b_topk[1],
+            "topk_q1_bound_ms": b_topk1[0],
+        }
+        entries[name] = e
+        log(f"[phase 2b] batch {name}: {json.dumps(e)}")
+    return entries, errs
+
+
+# ----------------------------------------------------------------------
+# The mesh plane at real size (pmc-4x256k) and the bursts
+# ----------------------------------------------------------------------
+
+
+def _routing_for_shards(n_shards):
+    """A routing value per shard (docs adopted into a shard are deleted
+    through it)."""
+    from elasticsearch_tpu_torch.utils.murmur3 import shard_id_for
+
+    out, i = {}, 0
+    while len(out) < n_shards:
+        out.setdefault(shard_id_for(f"r{i}", n_shards), f"r{i}")
+        i += 1
+    return out
+
+
+def plane_failures(*svcs):
+    return [f for svc in svcs for f in svc.search_stats()["planes"][
+        "plane_failures_total"].values()]
+
+
+def mesh_phase(torch, Node, Segment, cuda_kernels, queries, top_rank_term,
+               lat, launches):
+    """pmc-4x256k: a 4-shard index whose shards each adopt one 262,144-doc
+    segment; served by the one-device mesh plane, checked against a cpu
+    node over the same arrays, against the same card node's host rung
+    (index.search.mesh: false), and for recall@10 against
+    reference_scores; then deletes, refresh (the staging is rebuilt) and
+    again. Returns (gnode, cpu node)."""
+    from elasticsearch_tpu_torch.ops import tile_scoring as tsc
+    from elasticsearch_tpu_torch.search import query_dsl as Q
+
+    t0 = time.perf_counter()
+    corpora = [build_synthetic_corpus(seed, MESH_SHARD_DOCS)
+               for seed in MESH_SEEDS]
+    log(f"[phase 7] pmc-4x256k corpora: {[c['block_docs'].shape[0] for c in corpora]} "
+        f"posting blocks ({time.perf_counter() - t0:.1f} s)")
+    mapping = {"_doc": {"properties": {
+        "title": {"type": "text"}, "venue": {"type": "keyword"},
+        "year": {"type": "long"}}}}
+    gnode, cnode = Node(device="cuda"), Node(device="cpu")
+    gnode.create_index("pmc4", {"settings": {"number_of_shards": 4},
+                                "mappings": mapping})
+    gnode.create_index("pmc4h", {"settings": {
+        "number_of_shards": 4, "search": {"mesh": False}},
+        "mappings": mapping})
+    cnode.create_index("pmc4", {"settings": {"number_of_shards": 4},
+                                "mappings": mapping})
+    gsegs = []
+    for sh, corpus in enumerate(corpora):
+        arrays = corpus_segment_arrays(corpus, id_prefix=f"s{sh}p")
+        gs = Segment.from_arrays(f"pmc4_{sh}_seg_1", device="cuda", **arrays)
+        cs = Segment.from_arrays(f"pmc4_{sh}_seg_1", device="cpu", **arrays)
+        for index in ("pmc4", "pmc4h"):
+            gnode.indices[index].shards[sh].engine.adopt_segment(gs)
+        cnode.indices["pmc4"].shards[sh].engine.adopt_segment(cs)
+        gsegs.append(gs)
+    fracs = [seg._block_frac() for seg in gsegs]
+
+    def ref(terms):
+        parts = []
+        for sh, seg in enumerate(gsegs):
+            lanes = [tsc.QueryLane(s, c, w) for s, c, w, _ in
+                     Q.term_blocks_arrays(seg, [
+                         ("title", term_token(t), 1.0) for t in terms])
+                     ["lanes_meta"]]
+            sc = tsc.reference_scores(corpora[sh]["block_docs"], fracs[sh],
+                                      lanes, seg.nd_pad)
+            sc[~seg.live] = 0.0
+            parts.append(sc)
+
+        def index_of(doc_id):
+            sh, d = doc_id[1:].split("p")
+            return int(sh) * MESH_SHARD_DOCS + int(d)
+
+        return np.concatenate(parts), index_of
+
+    def plane_of(kind):
+        return "mesh" if kind == "match_all" else "mesh_pallas"
+
+    reqs = requests_for(queries[:12], top_rank_term, "v0001", 2000)
+    svc = gnode.indices["pmc4"]
+    zero_searcher_counters(gnode)
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = serve(gnode, cnode, "pmc4", reqs, "phase 7", lat, ref, plane_of,
+                also=(gnode, "pmc4h"))
+    ktab = sum(t.numel() * t.element_size() for seg in gsegs
+               for t in seg.kernel_tables().values())
+    log(f"[phase 7] served {len(reqs)} requests in "
+        f"{time.perf_counter() - t0:.1f} s; mesh staging "
+        f"{svc._mesh_search._executor.staged_bytes() / 1e9:.3f} GB "
+        f"over {svc._mesh_search._executor.n_slots} slots, beside the "
+        f"segments' own kernel tables {ktab / 1e9:.3f} GB")
+    routing = _routing_for_shards(4)
+    restaged = svc._mesh_search.restage_total
+    for sh in range(4):
+        for i in range(0, MESH_SHARD_DOCS, 997):
+            for node, index in ((gnode, "pmc4"), (gnode, "pmc4h"),
+                                (cnode, "pmc4")):
+                node.delete_doc(index, f"s{sh}p{i}", routing=routing[sh])
+    for node, index in ((gnode, "pmc4"), (gnode, "pmc4h"), (cnode, "pmc4")):
+        node.refresh(index)
+    check(not gnode.get_doc("pmc4", "s2p997", routing=routing[2])["found"],
+          "pmc4 deleted doc gone")
+    rec += serve(gnode, cnode, "pmc4", reqs, "phase 7 after deletes", lat,
+                 ref, plane_of, also=(gnode, "pmc4h"))
+    check(svc._mesh_search.restage_total == restaged + 1,
+          "pmc4 staging rebuilt once after the deletes")
+    torch.cuda.synchronize()
+    p7 = dict(cuda_kernels.LAUNCHES)
+    log(f"[phase 7] kernel launches: {p7}")
+    for k in HOST_PATH_KERNELS:
+        check(p7[k] > 0, f"phase 7 launched {k}")
+    for k, v in p7.items():
+        launches[k] += v
+    check(len(rec) > 0 and min(rec) == 1.0,
+          f"pmc4 recall@10 = 1.0 against reference_scores ({len(rec)} queries)")
+    log(f"[phase 7] recall@10 over {len(rec)} match queries: min {min(rec)}")
+    host_copy_note(gnode, "pmc4", 2 * len(reqs), "phase 7 mesh plane")
+    host_copy_note(gnode, "pmc4h", 2 * len(reqs), "phase 7 host rung")
+    log(f"[phase 7] planes: {json.dumps(svc.search_stats()['planes'])}")
+    return gnode, cnode
+
+
+def _same_exact(got, want):
+    return (isinstance(got, dict) and got["hits"]["total"]
+            == want["hits"]["total"]
+            and got["hits"]["max_score"] == want["hits"]["max_score"]
+            and [(h["_id"], h["_score"]) for h in got["hits"]["hits"]]
+            == [(h["_id"], h["_score"]) for h in want["hits"]["hits"]])
+
+
+@contextlib.contextmanager
+def recording_batched_launches(tsc):
+    """While the block runs, keep (args, kwargs, outputs) of every
+    ``score_tiles`` call that launches kernel 1b (dense, q_batch > 1) or
+    1c (fused top-k), under "batched" / "topk". The wrapper calls the
+    kernel once per call, so the launch counts stay the path's own."""
+    orig = tsc.score_tiles
+    kept = {"batched": [], "topk": []}
+
+    def recording(*args, **kw):
+        out = orig(*args, **kw)
+        if not kw.get("dense", True):
+            kept["topk"].append((args, kw, out))
+        elif kw.get("q_batch", 1) > 1:
+            kept["batched"].append((args, kw, out))
+        return out
+
+    tsc.score_tiles = recording
+    try:
+        yield kept
+    finally:
+        tsc.score_tiles = orig
+
+
+def check_kept_launches(torch, tsc, kept, errs):
+    """Hold each kept main-path launch of 1b and 1c against its plain
+    version on the very inputs the path gave it, bit for bit."""
+    for kind, calls in kept.items():
+        for n, (args, kw, out) in enumerate(calls):
+            sub, qb = kw["sub"], kw.get("q_batch", 1)
+            if kind == "batched":
+                plain = tsc.score_tiles_plain(
+                    *args, sub=sub, with_counts=kw.get("with_counts", False),
+                    q_batch=qb)
+            else:
+                plain = tsc.score_tiles_topk_plain(
+                    *args, sub=sub, k=min(kw["k"], sub * tsc.LANE))
+            torch.cuda.synchronize()
+            fin = torch.isfinite(plain[0])
+            errs[kind] = max(errs[kind], float(
+                (out[0][fin] - plain[0][fin]).abs().max()))
+            check(len(out) == len(plain) and all(
+                torch.equal(a, b) for a, b in zip(out, plain)),
+                f"main-path {kind} launch {n} (rows {args[0].shape[0]}, "
+                f"tiles {args[3].shape[0]}, sub {sub}, Q {qb}) equals plain")
+        log(f"[phase 8] {len(calls)} main-path {kind} launches held "
+            f"against plain (rows per launch "
+            f"{sorted({a[0].shape[0] for a, _k, _o in calls})})")
+
+
+def burst_phase(torch, cuda_kernels, tsc, queries, lat, launches, targets,
+                errs):
+    """16 match bodies through IndexService.search_batch on each target
+    (node, index, plane): rung 1 (mesh_pallas, kernel 1c) on pmc4 and
+    rung 2 (host, kernel 1b) on the 5-shard ingest index; every member
+    must equal its serial response, and every 1b/1c launch of the run
+    equals its plain version on the same inputs. Then 16 threads at
+    Node.search."""
+    import threading
+
+    bodies = [{"query": {"match": {"title": " ".join(
+        term_token(t) for t in q)}}, "size": 10} for q in queries[:BURST]]
+    serial = {index: [node.search(index, dict(b)) for b in bodies]
+              for node, index, _plane in targets}
+    torch.cuda.synchronize()
+    cuda_kernels.reset_launch_counts()
+    outs = {}
+    with recording_batched_launches(tsc) as kept:
+        for node, index, plane in targets:
+            t0 = time.perf_counter()
+            outs[index] = node.indices[index].search_batch(
+                [dict(b) for b in bodies])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1000
+            lat.setdefault(f"8/search_batch[{BURST}]@{plane}", []).append(ms)
+            log(f"[phase 8] search_batch of {BURST} on {index}: {ms:.3f} ms")
+    torch.cuda.synchronize()
+    p8 = dict(cuda_kernels.LAUNCHES)
+    log(f"[phase 8] kernel launches: {p8}")
+    for k in ("tile_scoring_topk", "tile_scoring_batched"):
+        check(p8[k] > 0, f"phase 8 launched {k}")
+    for k, v in p8.items():
+        launches[k] += v
+    check(len(kept["topk"]) == p8["tile_scoring_topk"]
+          and len(kept["batched"]) == p8["tile_scoring_batched"],
+          "every 1b/1c launch of the bursts was kept for the plain check")
+    check_kept_launches(torch, tsc, kept, errs)
+    for node, index, plane in targets:
+        for i, (got, want) in enumerate(zip(outs[index], serial[index])):
+            check(isinstance(got, dict) and got["_plane"] == plane,
+                  f"burst member {i} on {index} served by {plane}")
+            check(_same_exact(got, want),
+                  f"burst member {i} on {index} equals its serial response")
+        log(f"[phase 8] {index} batch stats "
+            f"{json.dumps(node.indices[index].batch_stats.as_dict())}")
+    # threads at Node.search: the micro-batcher forms the batches
+    node, index, plane = targets[0]
+    svc = node.indices[index]
+    before = svc.batch_stats.as_dict()["batched_query_total"]
+    for _round in range(3):
+        got = {}
+        start = threading.Barrier(BURST)
+
+        def worker(i):
+            start.wait()
+            t0 = time.perf_counter()
+            got[i] = node.search(index, dict(bodies[i]))
+            torch.cuda.synchronize()
+            lat.setdefault(f"8/threaded@{got[i]['_plane']}", []).append(
+                (time.perf_counter() - t0) * 1000)
+
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(BURST)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300.0)
+            check(not t.is_alive(), "threaded search finished")
+        for i in range(BURST):
+            check(_same_exact(got.get(i), serial[index][i]),
+                  f"threaded member {i} equals its serial response")
+    stats = svc.batch_stats.as_dict()
+    log(f"[phase 8] threaded bursts on {index}: batch stats "
+        f"{json.dumps(stats)}")
+    check(stats["batched_query_total"] > before,
+          "the micro-batcher formed batches from concurrent Node.search")
 
 
 # ----------------------------------------------------------------------
@@ -444,13 +934,15 @@ def main() -> int:
         pf = (gdev["k_frac"][lane_rows] * lane_w[:, None]).reshape(-1)
         acc = torch.zeros(gseg.nd_pad + 1, device=dev)
         library_ms = timer.ms(lambda: acc.index_add_(0, pd, pf))
+        # operations: a multiply and an add per posting (one more add for
+        # the count)
+        b1 = bound(bytes_plain, 2 * rows * tsc.LANE)
+        b1c = bound(bytes_plain + nd_geom * 4, 3 * rows * tsc.LANE)
         entry = {"query": [int(t) for t in terms], "sub": node.sub,
                  "n_tiles": node.n_tiles, "posting_rows": rows, "ms": ms,
                  "ms_with_counts": ms_c, "plain_ms": plain_ms,
-                 "library_ms": library_ms,
-                 "bound_ms": bytes_plain / HBM_BYTES_PER_S * 1e3,
-                 "bound_ms_with_counts":
-                     (bytes_plain + nd_geom * 4) / HBM_BYTES_PER_S * 1e3}
+                 "library_ms": library_ms, "bound_ms": b1[0],
+                 "bound_by": b1[1], "bound_ms_with_counts": b1c[0]}
         tile_entries.append(entry)
         log(f"[phase 2] tile_scoring {json.dumps(entry)}")
 
@@ -481,6 +973,8 @@ def main() -> int:
     nd_seg = ords.shape[0]
     weighted = contrib * vals
     seg_bytes = nd_seg * 12 + N_ORDS * 8
+    # operations: per entry a multiply and two adds (count and sum)
+    seg_bound = bound(seg_bytes, 3 * nd_seg)
     seg_entry = {
         "nd": nd_seg, "n_ords": N_ORDS,
         "ms": timer.ms(lambda: ssum.segment_counts_sums(ords, contrib, vals,
@@ -492,10 +986,13 @@ def main() -> int:
             with_sum=True)),
         "library_ms": timer.ms(lambda: torch.bincount(
             ords, weights=weighted, minlength=N_ORDS)),
-        "bound_ms": seg_bytes / HBM_BYTES_PER_S * 1e3,
+        "bound_ms": seg_bound[0], "bound_by": seg_bound[1],
         "max_count": int(k_cnt.max()),
     }
     log(f"[phase 2] segment_sum {json.dumps(seg_entry)} max_abs_err {seg_err}")
+
+    batch_entries, batch_errs = batch_kernels_phase(
+        torch, dev, gseg, gdev, timer, queries, top_rank_term)
 
     lat = {}
     launches = {k: 0 for k in cuda_kernels.LAUNCHES}
@@ -546,8 +1043,9 @@ def main() -> int:
     torch.cuda.synchronize()
     p3 = dict(cuda_kernels.LAUNCHES)
     log(f"[phase 3] kernel launches: {p3}")
+    for k in HOST_PATH_KERNELS:
+        check(p3[k] > 0, f"phase 3 launched {k}")
     for k, v in p3.items():
-        check(v > 0, f"phase 3 launched {k}")
         launches[k] += v
     copy3 = host_copy_note(gnode, "docs", n3, "phase 3")
 
@@ -573,7 +1071,7 @@ def main() -> int:
         s = tsc.reference_scores(corpus["block_docs"], frac_host, lanes,
                                  gseg.nd_pad)
         s[~gseg.live] = 0.0
-        return s
+        return s, lambda doc_id: int(doc_id[1:])
 
     reqs4 = requests_for(queries[12:24], top_rank_term, "v0000", 2005)
     zero_searcher_counters(g4)
@@ -590,13 +1088,26 @@ def main() -> int:
     torch.cuda.synchronize()
     p4 = dict(cuda_kernels.LAUNCHES)
     log(f"[phase 4] kernel launches: {p4}")
+    for k in HOST_PATH_KERNELS:
+        check(p4[k] > 0, f"phase 4 launched {k}")
     for k, v in p4.items():
-        check(v > 0, f"phase 4 launched {k}")
         launches[k] += v
     check(len(rec) > 0 and min(rec) == 1.0,
           f"recall@10 = 1.0 against reference_scores ({len(rec)} queries)")
     log(f"[phase 4] recall@10 over {len(rec)} match queries: min {min(rec)}")
     copy4 = host_copy_note(g4, "pmc", 2 * len(reqs4), "phase 4")
+
+    # ---------------- phase 7: the mesh plane at real size ---------------
+    g7, c7 = mesh_phase(torch, Node, Segment, cuda_kernels, queries,
+                        top_rank_term, lat, launches)
+
+    # ---------------- phase 8: bursts on both batched rungs --------------
+    burst_phase(torch, cuda_kernels, tsc, queries, lat, launches,
+                [(g7, "pmc4", "mesh_pallas"), (gnode, "docs", "host")],
+                batch_errs)
+    fails = plane_failures(g7.indices["pmc4"], g7.indices["pmc4h"],
+                           c7.indices["pmc4"], gnode.indices["docs"])
+    check(not any(fails), f"zero plane faults (got {fails})")
 
     # ---------------- phase 5: latency summary ---------------------------
     for kind, xs in sorted(lat.items()):
@@ -607,13 +1118,14 @@ def main() -> int:
 
     # ---------------- phase 6: kernel summary ----------------------------
     rep = tile_entries[0]
+    bat = batch_entries["draws"]
     summary = {"kernels": [
         {"name": "tile_scoring_dense", "route": "cuda",
          "source": "elasticsearch_tpu_torch/csrc/tile_scoring.cu",
          "replaces": "elasticsearch_tpu/ops/pallas_scoring.py:871",
          "launches": launches["tile_scoring"], "max_abs_err": tile_err,
          "ms": rep["ms"], "plain_ms": rep["plain_ms"],
-         "bound_ms": rep["bound_ms"], "bound_by": "bytes",
+         "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
          "library_ms": rep["library_ms"],
          "with_counts": {"ms": rep["ms_with_counts"],
                          "bound_ms": rep["bound_ms_with_counts"]},
@@ -623,8 +1135,35 @@ def main() -> int:
          "replaces": "elasticsearch_tpu/ops/pallas_aggs.py:128",
          "launches": launches["segment_sum"], "max_abs_err": seg_err,
          "ms": seg_entry["ms"], "plain_ms": seg_entry["plain_ms"],
-         "bound_ms": seg_entry["bound_ms"], "bound_by": "bytes",
+         "bound_ms": seg_entry["bound_ms"],
+         "bound_by": seg_entry["bound_by"],
          "library_ms": seg_entry["library_ms"]},
+        {"name": "tile_scoring_batched", "route": "cuda",
+         "source": "elasticsearch_tpu_torch/csrc/tile_scoring.cu",
+         "replaces": "elasticsearch_tpu/ops/pallas_scoring.py:871",
+         "launches": launches["tile_scoring_batched"],
+         "max_abs_err": batch_errs["batched"],
+         "ms": bat["batched_ms"], "plain_ms": bat["batched_plain_ms"],
+         "bound_ms": bat["batched_bound_ms"],
+         "bound_by": bat["batched_bound_by"],
+         "library_ms": bat["batched_library_ms"],
+         "q_batch": bat["q_batch"],
+         "with_counts": {"ms": bat["batched_ms_with_counts"],
+                         "bound_ms": bat["batched_bound_ms_with_counts"]},
+         "ladder_batch": {k: v for k, v in batch_entries["ladder"].items()
+                          if k.startswith(("batched", "sub", "union"))}},
+        {"name": "tile_scoring_topk", "route": "cuda",
+         "source": "elasticsearch_tpu_torch/csrc/tile_scoring.cu",
+         "replaces": "elasticsearch_tpu/ops/pallas_scoring.py:871",
+         "launches": launches["tile_scoring_topk"],
+         "max_abs_err": batch_errs["topk"],
+         "ms": bat["topk_ms"], "plain_ms": bat["topk_plain_ms"],
+         "bound_ms": bat["topk_bound_ms"], "bound_by": bat["topk_bound_by"],
+         "library_ms": bat["topk_library_ms"], "q_batch": bat["q_batch"],
+         "k": 16, "q1": {"ms": bat["topk_q1_ms"],
+                         "bound_ms": bat["topk_q1_bound_ms"]},
+         "ladder_batch": {k: v for k, v in batch_entries["ladder"].items()
+                          if k.startswith(("topk", "sub", "union"))}},
     ]}
     log(f"[phase 6] total {time.perf_counter() - t_start:.1f} s")
     if FAILS:

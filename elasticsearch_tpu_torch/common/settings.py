@@ -1,8 +1,18 @@
 """Settings: an immutable flat key->value map with typed getters.
 
 Counterpart of ``elasticsearch_tpu/common/settings.py``, cut to what the
-index -> refresh -> search path reads: the shard count (default 5,
-``INDEX_NUMBER_OF_SHARDS``).
+port's path reads, each with the JAX package's default and validator:
+
+- ``index.number_of_shards`` (default 5);
+- the mesh data plane: ``index.search.mesh`` (true),
+  ``index.search.mesh.max_slots_per_device`` (4, 1..64),
+  ``index.search.mesh.plane`` (auto | pallas | scatter) and
+  ``index.search.plane_quarantine.cooldown`` (60s);
+- the cross-query micro-batcher (node scope, seeded into each index by
+  ``Node``): ``search.batch.enabled`` (true), ``search.batch.window_ms``
+  (0.2, >= 0) and ``search.batch.max_queries`` (16, 1..64).
+  ``search.batch.max_window_ms`` comes with admission control's adaptive
+  window, the only reader of it.
 """
 
 from __future__ import annotations
@@ -10,6 +20,39 @@ from __future__ import annotations
 from typing import Any, Dict, Iterable, Optional
 
 from elasticsearch_tpu_torch.common.errors import IllegalArgumentException
+
+_TIME_UNITS = {
+    "nanos": 1e-9,
+    "micros": 1e-6,
+    "ms": 1e-3,
+    "s": 1.0,
+    "m": 60.0,
+    "h": 3600.0,
+    "d": 86400.0,
+}
+
+
+def parse_time_value(value, setting_name: str = "") -> float:
+    """Parse '30s' / '1m' / '500ms' / -1 into seconds (float). -1 => -1.0."""
+    if isinstance(value, (int, float)):
+        if value == -1:
+            return -1.0
+        raise IllegalArgumentException(
+            f"failed to parse setting [{setting_name}] with value [{value}] "
+            "as a time value: unit is missing or unrecognized")
+    s = str(value).strip().lower()
+    if s in ("-1", "-1ms"):
+        return -1.0
+    for unit in sorted(_TIME_UNITS, key=len, reverse=True):
+        if s.endswith(unit):
+            num = s[: -len(unit)].strip()
+            try:
+                return float(num) * _TIME_UNITS[unit]
+            except ValueError:
+                break
+    raise IllegalArgumentException(
+        f"failed to parse setting [{setting_name}] with value [{value}] as a "
+        "time value")
 
 
 class Settings:
@@ -46,11 +89,25 @@ class Settings:
             out[k] = v
         return Settings(out)
 
+    def filtered_by_prefix(self, prefix: str) -> "Settings":
+        return Settings({k: v for k, v in self._data.items()
+                         if k.startswith(prefix)})
+
+    def merged_with(self, other: "Settings") -> "Settings":
+        """``other``'s keys win."""
+        d = dict(self._data)
+        d.update(other._data)
+        return Settings(d)
+
     def keys(self) -> Iterable[str]:
         return self._data.keys()
 
     def get(self, key: str, default: Any = None) -> Any:
         return self._data.get(key, default)
+
+    def get_str(self, key: str, default: Optional[str] = None) -> Optional[str]:
+        v = self._data.get(key)
+        return default if v is None else str(v)
 
     def get_int(self, key: str, default: Optional[int] = None) -> Optional[int]:
         v = self._data.get(key)
@@ -63,26 +120,99 @@ class Settings:
                 f"Failed to parse value [{v}] for setting [{key}]"
             ) from None
 
+    def get_float(self, key: str,
+                  default: Optional[float] = None) -> Optional[float]:
+        v = self._data.get(key)
+        if v is None:
+            return default
+        try:
+            return float(v)
+        except (TypeError, ValueError):
+            raise IllegalArgumentException(
+                f"Failed to parse value [{v}] for setting [{key}]"
+            ) from None
+
+    def get_bool(self, key: str,
+                 default: Optional[bool] = None) -> Optional[bool]:
+        v = self._data.get(key)
+        if v is None:
+            return default
+        if isinstance(v, bool):
+            return v
+        s = str(v).lower()
+        if s == "true":
+            return True
+        if s == "false":
+            return False
+        raise IllegalArgumentException(
+            f"Failed to parse value [{v}] as only [true] or [false] are "
+            f"allowed for setting [{key}]")
+
+    def get_time(self, key: str,
+                 default: Optional[float] = None) -> Optional[float]:
+        v = self._data.get(key)
+        return default if v is None else parse_time_value(v, key)
+
 
 Settings.EMPTY = Settings()
 
 
-class IntSetting:
-    """A typed integer setting with a default and bounds."""
+class Setting:
+    """A typed setting: key, default, and the JAX package's validator
+    (numeric bounds or a set of choices). ``get`` parses and validates."""
 
-    def __init__(self, key: str, default: int, min_value: int, max_value: int):
+    def __init__(self, key: str, default, kind: str, min_value=None,
+                 max_value=None, choices=None):
         self.key = key
         self.default = default
+        self.kind = kind
         self.min_value = min_value
         self.max_value = max_value
+        self.choices = choices
 
-    def get(self, settings: Settings) -> int:
-        v = settings.get_int(self.key, self.default)
-        if not self.min_value <= v <= self.max_value:
+    def get(self, settings: Settings):
+        if self.kind == "int":
+            v = settings.get_int(self.key, self.default)
+        elif self.kind == "float":
+            v = settings.get_float(self.key, self.default)
+        elif self.kind == "bool":
+            return settings.get_bool(self.key, self.default)
+        elif self.kind == "time":
+            return settings.get_time(self.key, parse_time_value(
+                self.default, self.key))
+        else:
+            v = settings.get_str(self.key, self.default)
+            if v not in self.choices:
+                raise IllegalArgumentException(
+                    f"Failed to parse value [{v}] for setting [{self.key}]: "
+                    f"must be one of {sorted(self.choices)}")
+            return v
+        if self.min_value is not None and v < self.min_value:
             raise IllegalArgumentException(
-                f"Failed to parse value [{v}] for setting [{self.key}] must be "
-                f"between {self.min_value} and {self.max_value}")
+                f"Failed to parse value [{v}] for setting [{self.key}] must "
+                f"be >= {self.min_value}")
+        if self.max_value is not None and v > self.max_value:
+            raise IllegalArgumentException(
+                f"Failed to parse value [{v}] for setting [{self.key}] must "
+                f"be <= {self.max_value}")
         return v
 
 
-INDEX_NUMBER_OF_SHARDS = IntSetting("index.number_of_shards", 5, 1, 1024)
+INDEX_NUMBER_OF_SHARDS = Setting("index.number_of_shards", 5, "int", 1, 1024)
+
+# --- mesh data plane (parallel/plan_exec.py) ---
+INDEX_SEARCH_MESH = Setting("index.search.mesh", True, "bool")
+INDEX_SEARCH_MESH_MAX_SLOTS = Setting(
+    "index.search.mesh.max_slots_per_device", 4, "int", 1, 64)
+INDEX_SEARCH_MESH_PLANE = Setting(
+    "index.search.mesh.plane", "auto", "str",
+    choices={"auto", "pallas", "scatter"})
+INDEX_SEARCH_PLANE_QUARANTINE_COOLDOWN = Setting(
+    "index.search.plane_quarantine.cooldown", "60s", "time")
+
+# --- cross-query micro-batching (search/batching.py) ---
+SEARCH_BATCH_ENABLED = Setting("search.batch.enabled", True, "bool")
+SEARCH_BATCH_WINDOW_MS = Setting("search.batch.window_ms", 0.2, "float",
+                                 min_value=0.0)
+SEARCH_BATCH_MAX_QUERIES = Setting("search.batch.max_queries", 16, "int",
+                                   1, 64)

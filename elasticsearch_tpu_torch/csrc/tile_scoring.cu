@@ -1,88 +1,284 @@
-// Tile scoring, dense variant: the BM25 scoring hot loop on Hopper.
+// Tile scoring: the BM25 scoring hot loop on Hopper.
 //
 // Replaces: elasticsearch_tpu/ops/pallas_scoring.py, score_tiles /
-// _make_kernel (raw codec, q_batch = 1, dense, with and without counts).
+// _make_kernel, raw codec, in three forms:
+//   - dense, q_batch = 1, with and without counts (launch count
+//     "tile_scoring");
+//   - dense, q_batch = Q > 1 over the union of Q queries' lanes, with and
+//     without counts ("tile_scoring_batched");
+//   - fused per-tile top-k, q_batch = Q >= 1 ("tile_scoring_topk").
 // On the TPU the scatter "acc[doc - base] += w * frac" became a radix
 // one-hot MXU matmul because a scatter runs serially there; a GPU has
-// cheap shared-memory scatters, so this kernel does the scatter directly.
+// cheap shared-memory scatters, so these kernels scatter directly.
 //
-// What bounds it on an H100: bytes. Per call it must read the query
-// lanes' posting rows (8 bytes a posting: doc i32 + frac f32), the live
-// mask (4 * nd_pad bytes) and write 4 * nd_pad bytes of scores (twice that
-// with counts). The arithmetic is one multiply and one add per posting.
+// What bounds it on an H100: bytes. A call must read the lanes' posting
+// rows (8 bytes a posting: doc i32 + frac f32) and the live mask, and
+// write the outputs: 4 * nd_pad bytes of scores per query for the dense
+// forms (twice that with counts), k scores + k docs + 1 hit count per
+// (tile, query) for the top-k form. The arithmetic is one multiply and
+// one add per posting and query.
 //
-// What the design does about it: one thread block owns one tile of
-// W = sub * 128 docs. Its accumulator (and the match counts) live in
-// shared memory for the whole tile, so device memory sees each output
-// exactly once. Lanes run in order with a barrier between them; inside a
-// lane the threads read the lane's posting rows coalesced (128 postings a
-// row) and, because one term's postings hit distinct docs, update the
-// accumulator without atomics. The adds are __fmul_rn/__fadd_rn (no FMA
-// contraction), so the result equals the plain PyTorch version bit for
-// bit. Each 128-float row of the accumulator is padded by one float so the
-// epilogue's transposed read (the JAX output layout) is free of bank
+// What the design does about it: one thread block owns one (tile, query)
+// pair, blocks ordered tile-major (block = tile * Q + query). The block
+// keeps that query's tile accumulator of W = sub * 128 floats (and its
+// match counts) in shared memory, so device memory sees each output once.
+// Shared memory is the reason for one query per block: Q accumulators of
+// W floats (1 MB at Q = 16, W = 16,384) do not fit the 227 KB a block may
+// use, one (64 KB, 128 KB with counts) does. The Q blocks of a tile run
+// next to each other, so a union lane's posting rows come from device
+// memory about once and from L2 for the other queries; a block reads only
+// the lanes its query weights (w_q != 0), so a query never pays for
+// another's terms.
+//
+// Arithmetic, and why a batched member equals its serial result bit for
+// bit: thread 0 lists the block's lanes that have rows and a nonzero
+// weight, sorted by their first posting row (stable). Different terms own
+// disjoint posting-row runs, so this order is the same in every tile and
+// does not depend on where a lane sits in the table: the serial table (a
+// query's own lanes) and the batched table (the union of Q queries'
+// lanes) give each query the same lanes in the same order. Lanes then run
+// in that order with a barrier between lanes; inside a lane the threads
+// read the lane's rows coalesced (128 postings a row) and, because one
+// term's postings hit distinct docs, update the accumulator without
+// atomics: acc = __fadd_rn(acc, __fmul_rn(w_q, frac)), no FMA contraction.
+// The plain PyTorch versions make the same adds in the same order. A count
+// is added only where w_q > 0 (a dead lane adds no count).
+//
+// Top-k epilogue, per (tile, query): matched = acc > 0 && live; the hit
+// count; then k rounds of a block-wide argmax by (score descending, local
+// doc ascending), each winner masked out, empty slots -inf / -1, doc ids
+// tile * W + local. Once a round finds nothing the rest are filled empty.
+//
+// Each 128-float row of the accumulator is padded by one float so the
+// transposed reads of the epilogue (the JAX output layout [n_tiles * 128,
+// sub], local doc s * 128 + lane at row lane, column s) are free of bank
 // conflicts.
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 namespace {
 
 constexpr int kLane = 128;
 constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ int padded(int local) { return local + (local >> 7); }
 
+// Thread 0 lists the live lanes of this (tile, query) in ascending order of
+// their first posting row (stable); returns the count to every thread.
+__device__ int lane_order(const int* __restrict__ row_lo_t,
+                          const int* __restrict__ row_hi_t,
+                          const float* __restrict__ w_q, int t_pad, int n_rows,
+                          int* order, int* key, int* n_live) {
+  if (threadIdx.x == 0) {
+    int n = 0;
+    for (int j = 0; j < t_pad; ++j) {
+      const int lo = row_lo_t[j];
+      const int hi = min(row_hi_t[j], n_rows);
+      if (hi <= lo || w_q[j] == 0.0f) continue;
+      int i = n++;
+      while (i > 0 && key[i - 1] > lo) {
+        key[i] = key[i - 1];
+        order[i] = order[i - 1];
+        --i;
+      }
+      key[i] = lo;
+      order[i] = j;
+    }
+    *n_live = n;
+  }
+  __syncthreads();
+  return *n_live;
+}
+
+// Adds every live lane's postings of tile [base, base + w) into acc (and
+// cnt, where given) in lane order; ends on a barrier.
+__device__ void accumulate(const int* __restrict__ docs,
+                           const float* __restrict__ frac,
+                           const int* __restrict__ row_lo_t,
+                           const int* __restrict__ row_hi_t,
+                           const float* __restrict__ w_q, const int* order,
+                           int n_live, long long base, int w, int n_rows,
+                           float* acc, float* cnt) {
+  for (int i = 0; i < n_live; ++i) {
+    const int j = order[i];
+    const long long p_end =
+        static_cast<long long>(min(row_hi_t[j], n_rows)) * kLane;
+    const float wj = w_q[j];
+    const bool count = cnt != nullptr && wj > 0.0f;
+    for (long long p = static_cast<long long>(row_lo_t[j]) * kLane +
+                       threadIdx.x;
+         p < p_end; p += blockDim.x) {
+      const long long local = static_cast<long long>(__ldg(docs + p)) - base;
+      const float f = __ldg(frac + p);
+      if (local >= 0 && local < w && f > 0.0f) {
+        const int k = padded(static_cast<int>(local));
+        acc[k] = __fadd_rn(acc[k], __fmul_rn(wj, f));
+        if (count) cnt[k] = __fadd_rn(cnt[k], 1.0f);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Shared memory: acc [w + sub] f32, cnt [w + sub] f32 (with counts),
+// order [t_pad] i32, key [t_pad] i32, n_live i32.
 __global__ void __launch_bounds__(kThreads) tile_scoring_dense_kernel(
     const int* __restrict__ docs, const float* __restrict__ frac,
     const float* __restrict__ live_t, const int* __restrict__ row_lo,
     const int* __restrict__ row_hi, const float* __restrict__ weights,
     float* __restrict__ out_scores, float* __restrict__ out_counts,
-    int t_pad, int sub, int n_rows) {
+    int n_tiles, int t_pad, int sub, int n_rows, int q_batch) {
   extern __shared__ float smem[];
   const int w = sub * kLane;
   const int w_padded = w + sub;
-  float* acc = smem;
-  float* cnt = smem + w_padded;
   const bool with_counts = out_counts != nullptr;
-  const int t = blockIdx.x;
+  float* acc = smem;
+  float* cnt = with_counts ? smem + w_padded : nullptr;
+  int* order = reinterpret_cast<int*>(smem + w_padded * (with_counts ? 2 : 1));
+  int* key = order + t_pad;
+  int* n_live_slot = key + t_pad;
+  const int t = blockIdx.x / q_batch;
+  const int q = blockIdx.x - t * q_batch;
 
   for (int i = threadIdx.x; i < w_padded; i += blockDim.x) {
     acc[i] = 0.0f;
     if (with_counts) cnt[i] = 0.0f;
   }
-  __syncthreads();
-
+  const int* rl = row_lo + static_cast<long long>(t) * t_pad;
+  const int* rh = row_hi + static_cast<long long>(t) * t_pad;
+  const float* wq = weights + static_cast<long long>(q) * t_pad;
+  const int n_live = lane_order(rl, rh, wq, t_pad, n_rows, order, key,
+                                n_live_slot);
   const long long base = static_cast<long long>(t) * w;
-  for (int j = 0; j < t_pad; ++j) {
-    const int rlo = row_lo[t * t_pad + j];
-    const int rhi = min(row_hi[t * t_pad + j], n_rows);
-    if (rhi > rlo) {
-      const float wj = weights[j];
-      const long long p_end = static_cast<long long>(rhi) * kLane;
-      for (long long p = static_cast<long long>(rlo) * kLane + threadIdx.x;
-           p < p_end; p += blockDim.x) {
-        const long long local = static_cast<long long>(__ldg(docs + p)) - base;
-        const float f = __ldg(frac + p);
-        if (local >= 0 && local < w && f > 0.0f) {
-          const int k = padded(static_cast<int>(local));
-          acc[k] = __fadd_rn(acc[k], __fmul_rn(wj, f));
-          if (with_counts) cnt[k] = __fadd_rn(cnt[k], 1.0f);
-        }
-      }
-    }
-    __syncthreads();
-  }
+  accumulate(docs, frac, rl, rh, wq, order, n_live, base, w, n_rows, acc, cnt);
 
   // epilogue: element o = lane * sub + s of this tile's [128, sub] block
   // holds local doc s * 128 + lane
-  const long long out_base = static_cast<long long>(t) * w;
+  const long long out_base = (static_cast<long long>(q) * n_tiles + t) * w;
   for (int o = threadIdx.x; o < w; o += blockDim.x) {
     const int lane = o / sub;
     const int s = o - lane * sub;
     const int k = padded(s * kLane + lane);
-    const bool alive = live_t[out_base + o] > 0.0f;
+    const bool alive = live_t[base + o] > 0.0f;
     out_scores[out_base + o] = alive ? acc[k] : 0.0f;
     if (with_counts) out_counts[out_base + o] = alive ? cnt[k] : 0.0f;
+  }
+}
+
+__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
+  return v > bv || (v == bv && i < bi);
+}
+
+// Shared memory: acc [w + sub] f32, order [t_pad] i32, key [t_pad] i32,
+// n_live i32, red_v [kWarps] f32, red_i [kWarps] i32, sel_v f32, sel_i i32.
+__global__ void __launch_bounds__(kThreads) tile_scoring_topk_kernel(
+    const int* __restrict__ docs, const float* __restrict__ frac,
+    const float* __restrict__ live_t, const int* __restrict__ row_lo,
+    const int* __restrict__ row_hi, const float* __restrict__ weights,
+    float* __restrict__ out_scores, int* __restrict__ out_docs,
+    float* __restrict__ out_hits, int n_tiles, int t_pad, int sub,
+    int n_rows, int q_batch, int k) {
+  extern __shared__ float smem[];
+  const int w = sub * kLane;
+  const int w_padded = w + sub;
+  float* acc = smem;
+  int* order = reinterpret_cast<int*>(smem + w_padded);
+  int* key = order + t_pad;
+  int* n_live_slot = key + t_pad;
+  float* red_v = reinterpret_cast<float*>(n_live_slot + 1);
+  int* red_i = reinterpret_cast<int*>(red_v + kWarps);
+  float* sel_v = reinterpret_cast<float*>(red_i + kWarps);
+  int* sel_i = reinterpret_cast<int*>(sel_v + 1);
+  const int t = blockIdx.x / q_batch;
+  const int q = blockIdx.x - t * q_batch;
+  const int warp = threadIdx.x >> 5;
+  const int lane_id = threadIdx.x & 31;
+
+  for (int i = threadIdx.x; i < w_padded; i += blockDim.x) acc[i] = 0.0f;
+  const int* rl = row_lo + static_cast<long long>(t) * t_pad;
+  const int* rh = row_hi + static_cast<long long>(t) * t_pad;
+  const float* wq = weights + static_cast<long long>(q) * t_pad;
+  const int n_live = lane_order(rl, rh, wq, t_pad, n_rows, order, key,
+                                n_live_slot);
+  const long long base = static_cast<long long>(t) * w;
+  accumulate(docs, frac, rl, rh, wq, order, n_live, base, w, n_rows, acc,
+             nullptr);
+
+  // matched = acc > 0 && live; unmatched slots become -inf in place
+  int my_hits = 0;
+  for (int o = threadIdx.x; o < w; o += blockDim.x) {
+    const int lane = o / sub;
+    const int s = o - lane * sub;
+    const int kk = padded(s * kLane + lane);
+    if (acc[kk] > 0.0f && live_t[base + o] > 0.0f) {
+      ++my_hits;
+    } else {
+      acc[kk] = -CUDART_INF_F;
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    my_hits += __shfl_down_sync(0xffffffffu, my_hits, off);
+  if (lane_id == 0) red_i[warp] = my_hits;
+  __syncthreads();
+  const long long row = static_cast<long long>(t) * q_batch + q;
+  if (threadIdx.x == 0) {
+    int hits = 0;
+    for (int i = 0; i < kWarps; ++i) hits += red_i[i];
+    out_hits[row] = static_cast<float>(hits);
+  }
+  __syncthreads();
+
+  float* s_out = out_scores + row * k;
+  int* d_out = out_docs + row * k;
+  for (int r = 0; r < k; ++r) {
+    float bv = -CUDART_INF_F;
+    int bi = w;  // loses every tie against a real doc
+    for (int local = threadIdx.x; local < w; local += blockDim.x) {
+      const float v = acc[padded(local)];
+      if (better(v, local, bv, bi)) {
+        bv = v;
+        bi = local;
+      }
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ov = __shfl_down_sync(0xffffffffu, bv, off);
+      const int oi = __shfl_down_sync(0xffffffffu, bi, off);
+      if (better(ov, oi, bv, bi)) {
+        bv = ov;
+        bi = oi;
+      }
+    }
+    if (lane_id == 0) {
+      red_v[warp] = bv;
+      red_i[warp] = bi;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float v = red_v[0];
+      int i = red_i[0];
+      for (int x = 1; x < kWarps; ++x) {
+        if (better(red_v[x], red_i[x], v, i)) {
+          v = red_v[x];
+          i = red_i[x];
+        }
+      }
+      if (v == -CUDART_INF_F) {
+        for (int rr = r; rr < k; ++rr) {
+          s_out[rr] = -CUDART_INF_F;
+          d_out[rr] = -1;
+        }
+      } else {
+        s_out[r] = v;
+        d_out[r] = static_cast<int>(t) * w + i;
+        acc[padded(i)] = -CUDART_INF_F;
+      }
+      *sel_v = v;
+      *sel_i = i;
+    }
+    __syncthreads();
+    if (*sel_v == -CUDART_INF_F) break;
   }
 }
 
@@ -92,22 +288,46 @@ extern "C" int estpu_tile_scoring_dense(
     const void* docs, const void* frac, const void* live_t,
     const void* row_lo, const void* row_hi, const void* weights,
     void* out_scores, void* out_counts, int n_tiles, int t_pad, int sub,
-    int n_rows, void* stream) {
-  if (n_tiles <= 0) return 0;
-  const int w_padded = sub * kLane + sub;
-  const size_t smem =
-      sizeof(float) * static_cast<size_t>(w_padded) * (out_counts ? 2 : 1);
+    int n_rows, int q_batch, void* stream) {
+  if (n_tiles <= 0 || q_batch <= 0) return 0;
+  const size_t w_padded = static_cast<size_t>(sub) * kLane + sub;
+  const size_t smem = sizeof(float) * w_padded * (out_counts ? 2 : 1) +
+                      sizeof(int) * (2 * static_cast<size_t>(t_pad) + 1);
   cudaError_t err = cudaFuncSetAttribute(
       tile_scoring_dense_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  tile_scoring_dense_kernel<<<n_tiles, kThreads, smem,
+  tile_scoring_dense_kernel<<<n_tiles * q_batch, kThreads, smem,
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(docs), static_cast<const float*>(frac),
       static_cast<const float*>(live_t), static_cast<const int*>(row_lo),
       static_cast<const int*>(row_hi), static_cast<const float*>(weights),
-      static_cast<float*>(out_scores), static_cast<float*>(out_counts), t_pad,
-      sub, n_rows);
+      static_cast<float*>(out_scores), static_cast<float*>(out_counts),
+      n_tiles, t_pad, sub, n_rows, q_batch);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int estpu_tile_scoring_topk(
+    const void* docs, const void* frac, const void* live_t,
+    const void* row_lo, const void* row_hi, const void* weights,
+    void* out_scores, void* out_docs, void* out_hits, int n_tiles, int t_pad,
+    int sub, int n_rows, int q_batch, int k, void* stream) {
+  if (n_tiles <= 0 || q_batch <= 0 || k <= 0) return 0;
+  const size_t w_padded = static_cast<size_t>(sub) * kLane + sub;
+  const size_t smem = sizeof(float) * w_padded +
+                      sizeof(int) * (2 * static_cast<size_t>(t_pad) + 1) +
+                      (sizeof(float) + sizeof(int)) * (kWarps + 1);
+  cudaError_t err = cudaFuncSetAttribute(
+      tile_scoring_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tile_scoring_topk_kernel<<<n_tiles * q_batch, kThreads, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(docs), static_cast<const float*>(frac),
+      static_cast<const float*>(live_t), static_cast<const int*>(row_lo),
+      static_cast<const int*>(row_hi), static_cast<const float*>(weights),
+      static_cast<float*>(out_scores), static_cast<int*>(out_docs),
+      static_cast<float*>(out_hits), n_tiles, t_pad, sub, n_rows, q_batch, k);
   return static_cast<int>(cudaGetLastError());
 }
 

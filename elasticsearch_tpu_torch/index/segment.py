@@ -146,6 +146,7 @@ class Segment:
         # doc-value columns staged on demand (key -> tensor)
         self.dev_cache: Dict[str, Any] = {}
         self.kernel_geom: Optional[tsc.TileGeometry] = None
+        self._kernel_tables: Optional[dict] = None
         self._stage_lock = threading.Lock()
 
     @classmethod
@@ -241,13 +242,36 @@ class Segment:
         tables on the segment's device (cached)."""
         dev = self._device
         if dev is None:
+            tables = self.kernel_tables()
             with self._stage_lock:
                 if self._device is None:
                     staged = self._stage_base_arrays()
-                    self._stage_kernel_arrays(staged)
+                    staged.update(tables)
+                    self.kernel_geom = tsc.tile_geometry(self.nd_pad)
+                    staged["k_live_t"] = self._build_live_t_device(
+                        self.kernel_geom.tile_sub)
                     self._device = staged
                 dev = self._device
         return dev
+
+    def kernel_tables(self) -> dict:
+        """The tile kernel's posting tables on the device, ``k_docs`` and
+        ``k_frac`` (``pad_segment_blocks``), staged once and shared by the
+        host rung and the mesh plane; sets ``kernel_bmin``/``kernel_bmax``."""
+        tables = self._kernel_tables
+        if tables is None:
+            with self._stage_lock:
+                if self._kernel_tables is None:
+                    frac = self._block_frac()
+                    self.kernel_bmin, self.kernel_bmax = tsc.block_min_max(
+                        self.block_docs, self.block_tfs, self.nd_pad)
+                    dp, fp = tsc.pad_segment_blocks(self.block_docs, frac,
+                                                    self.nd_pad)
+                    self._kernel_tables = {
+                        "k_docs": _to_device(dp, self.device),
+                        "k_frac": _to_device(fp, self.device)}
+                tables = self._kernel_tables
+        return tables
 
     def _stage_base_arrays(self) -> dict:
         live1 = np.concatenate([self.live, np.zeros(1, dtype=bool)])
@@ -258,22 +282,6 @@ class Segment:
             "live": _to_device(self.live, self.device),
             "live1": _to_device(live1, self.device),
         }
-
-    def _stage_kernel_arrays(self, dev: dict) -> None:
-        geom = tsc.tile_geometry(self.nd_pad)
-        frac = self._block_frac()
-        bmin, bmax = tsc.block_min_max(self.block_docs, self.block_tfs,
-                                       self.nd_pad)
-        dp, fp = tsc.pad_segment_blocks(self.block_docs, frac, self.nd_pad)
-        dev["k_docs"] = _to_device(dp, self.device)
-        dev["k_frac"] = _to_device(fp, self.device)
-        dev["k_live_t"] = _to_device(
-            tsc.build_live_t(self.live.astype(np.float32), geom), self.device)
-        self.kernel_postings_bytes = int(dp.nbytes + fp.nbytes)
-        self.kernel_bmin = bmin
-        self.kernel_bmax = bmax
-        self.kernel_codec = "raw"
-        self.kernel_geom = geom
 
     def _build_live_t_device(self, sub: int) -> torch.Tensor:
         return _to_device(tsc.build_live_t(
@@ -321,9 +329,11 @@ class Segment:
 
     def staged_bytes(self) -> int:
         """Bytes this segment holds on its device."""
-        tensors = list((self._device or {}).values()) + list(
-            self.dev_cache.values())
-        return sum(t.numel() * t.element_size() for t in tensors)
+        tensors = {id(t): t for t in (
+            *(self._device or {}).values(),
+            *(self._kernel_tables or {}).values(),
+            *self.dev_cache.values())}
+        return sum(t.numel() * t.element_size() for t in tensors.values())
 
 
 class SegmentBuilder:

@@ -10,6 +10,9 @@ Nothing builds on import: the CPU path never needs ``nvcc``.
 The library has a plain C interface and is loaded with ``ctypes``; every
 pointer and the stream pass as ``c_void_p``. Each C entry point returns
 the ``cudaError_t`` of its launch, which ``check`` turns into an error.
+Every build, load and launch failure raises ``KernelError``, which the
+search planes let through: a kernel fault is never served by another
+rung.
 
 ``LAUNCHES`` counts kernel launches per kernel name. Wrappers add one
 where they launch their kernel and nowhere else, so a caller can show that
@@ -41,16 +44,28 @@ _c_longlong = ctypes.c_longlong
 _SIGNATURES = {
     "estpu_tile_scoring_dense": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-        _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_void_p],
+        _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int,
+        _c_void_p],
+    "estpu_tile_scoring_topk": [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+        _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int,
+        _c_int, _c_int, _c_void_p],
     "estpu_segment_sum": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_longlong, _c_int, _c_void_p],
 }
 
-LAUNCHES: Dict[str, int] = {"tile_scoring": 0, "segment_sum": 0}
+LAUNCHES: Dict[str, int] = {"tile_scoring": 0, "tile_scoring_batched": 0,
+                            "tile_scoring_topk": 0, "segment_sum": 0}
 _launch_lock = threading.Lock()
 _build_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+
+
+class KernelError(RuntimeError):
+    """A hand-written kernel could not be built, loaded or launched."""
+
+
 # compiler output of the last build (ptxas register/shared-memory report)
 build_log: List[str] = []
 
@@ -78,7 +93,7 @@ def _nvcc() -> str:
     for c in candidates:
         if os.path.exists(c):
             return c
-    raise RuntimeError(
+    raise KernelError(
         "nvcc not found (set CUDA_HOME): the CUDA kernels cannot be built")
 
 
@@ -122,7 +137,7 @@ def build() -> str:
         if proc.returncode != 0:
             failed.append(src)
     if failed:
-        raise RuntimeError("nvcc failed for " + ", ".join(failed) + "\n"
+        raise KernelError("nvcc failed for " + ", ".join(failed) + "\n"
                            + "\n".join(log))
     tmp = lib_path + f".tmp{os.getpid()}"
     objs = [os.path.join(BUILD_DIR, os.path.basename(s) + ".o") for s in units]
@@ -130,7 +145,7 @@ def build() -> str:
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True)
     if link.returncode != 0:
-        raise RuntimeError("nvcc link failed\n" + link.stdout)
+        raise KernelError("nvcc link failed\n" + link.stdout)
     os.replace(tmp, lib_path)
     with open(stamp_path, "w") as f:
         f.write(digest)
@@ -143,7 +158,11 @@ def library() -> ctypes.CDLL:
     global _lib
     with _build_lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
+            path = build()
+            try:
+                lib = ctypes.CDLL(path)
+            except OSError as e:
+                raise KernelError(f"cannot load {path}: {e}") from e
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
@@ -157,7 +176,8 @@ def library() -> ctypes.CDLL:
 def check(rc: int, kernel: str) -> None:
     if rc != 0:
         msg = library().estpu_error_string(rc).decode()
-        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc} ({msg})")
+        raise KernelError(
+            f"{kernel} kernel launch failed: CUDA error {rc} ({msg})")
 
 
 def stream_ptr(device) -> int:

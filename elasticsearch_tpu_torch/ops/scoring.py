@@ -5,9 +5,10 @@ accumulator is ``[nd_pad + 1]`` with the sentinel slot last, so
 disjunctions, conjunction counting and filter masking are vector ops.
 Everything here runs on whatever device its tensors live on.
 
-``select_topk`` sorts explicitly — score descending, then doc id
-ascending — because ``torch.topk`` promises no order among ties and the
-JAX package's ``lax.top_k`` returns the lower index first.
+``top_k`` (also the tile merges' and the mesh plane's top-k) orders by
+score descending, then index ascending, because ``torch.topk`` promises no
+order among ties and the JAX package's ``lax.top_k`` returns the lower
+index first.
 """
 
 from __future__ import annotations
@@ -59,6 +60,38 @@ def combine_should(scores_list, matched_list, min_should_match):
     return total, count >= min_should_match
 
 
+def top_k(values, k: int):
+    """The ``k`` largest entries along the last axis and their indices,
+    ties to the lower index (the order of ``lax.top_k``; -0.0 ties +0.0
+    here, where ``lax.top_k`` ranks +0.0 first). Returns (values [...,
+    k'], indices [..., k'] int64), k' = min(k, n).
+
+    ``torch.topk`` gives the k-th value of each row; every entry at or
+    above it is a candidate. When a row holds more than k candidates (a
+    tie at the k-th value), it keeps the tied entries of lowest index.
+    A stable sort then orders the k of each row."""
+    k = min(int(k), values.shape[-1])
+    if k == 0:
+        return values[..., :0], torch.zeros(
+            values.shape[:-1] + (0,), dtype=torch.int64, device=values.device)
+    top = torch.topk(values, k, dim=-1, sorted=True).values
+    kth = top[..., -1:]
+    take = values >= kth
+    cand = torch.nonzero(take)
+    if cand.shape[0] != top.numel():
+        tied = values == kth
+        need = k - (top > kth).sum(dim=-1, keepdim=True)
+        take = (values > kth) | (tied & (
+            torch.cumsum(tied, dim=-1, dtype=torch.int32) <= need))
+        cand = torch.nonzero(take)
+    # exactly k per row, in ascending index order
+    idx = cand[:, -1].reshape(values.shape[:-1] + (k,))
+    order = torch.sort(torch.gather(values, -1, idx), dim=-1,
+                       descending=True, stable=True).indices
+    idx = torch.gather(idx, -1, order)
+    return torch.gather(values, -1, idx), idx
+
+
 def select_topk(scores, matched, live1, k: int):
     """Mask out non-matching/deleted docs and take the top-k by score,
     ties by ascending doc id (Lucene's collector order).
@@ -67,15 +100,7 @@ def select_topk(scores, matched, live1, k: int):
     non-matching slots have score = -inf."""
     masked = torch.where(matched & live1, scores,
                          torch.full_like(scores, float("-inf")))
-    k = min(int(k), masked.shape[0])
-    if k <= 0:
-        return masked[:0], torch.zeros(0, dtype=torch.int64,
-                                       device=masked.device)
-    kth = torch.topk(masked, k, sorted=True).values[-1]
-    cand = torch.nonzero(masked >= kth).squeeze(1)  # ascending doc ids
-    order = torch.sort(masked[cand], descending=True, stable=True).indices
-    top_docs = cand[order[:k]]
-    return masked[top_docs], top_docs
+    return top_k(masked, k)
 
 
 def count_matches(matched, live1):

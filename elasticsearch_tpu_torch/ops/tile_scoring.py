@@ -1,4 +1,4 @@
-"""Tile scoring: the BM25 scoring hot loop, dense variant.
+"""Tile scoring: the BM25 scoring hot loop.
 
 Counterpart of ``elasticsearch_tpu/ops/pallas_scoring.py``. The doc space
 is split into tiles of ``W = sub * 128`` docs. For each tile and each query
@@ -15,23 +15,39 @@ block ranges, the per-(tile, lane) row tables and the geometry ladder's
 constraints) are copied from the JAX package as numpy, so both packages
 take the same path for the same query.
 
+Variants of ``score_tiles`` (the JAX signature and output shapes):
+
+- dense (``dense=True``), ``q_batch=1`` or ``Q > 1``: scores (and match
+  counts) per doc; with ``Q > 1`` the row tables cover the UNION of Q
+  queries' lanes (``build_tile_tables_batched``) and ``weights`` is
+  ``[Q, t_pad]``, a zero weight killing that lane for that query;
+- fused per-tile top-k (``dense=False``), any ``q_batch``: per tile and
+  query the ``k`` best (score, doc) pairs and the hit count.
+
 ``score_tiles`` dispatches on the tensors' device: a CPU tensor runs the
 plain PyTorch version (``score_tiles_plain``); a CUDA tensor launches the
-hand-written kernel in ``csrc/tile_scoring.cu`` or raises. Both make the
-same f32 adds in the same lane order, so they agree bit for bit. Only the
-raw codec, ``q_batch=1`` and the dense variant are ported; the packed
-codec, batching, the fused top-k and tile subsets are later slices.
+hand-written kernel in ``csrc/tile_scoring.cu`` or raises. Both add each
+query's lanes in one canonical order (ascending first posting row, see
+``canonical_lane_order``) with the same f32 multiply and add, so they agree
+bit for bit, and a batched member equals its ``q_batch=1`` result bit for
+bit (except a member naming one posting run twice with different weights:
+the union merges the two lanes, as in the JAX package). The packed codec
+and tile subsets (block-max pruning) are later slices and raise.
+
+``merge_tile_topk`` / ``merge_tile_topk_batched`` merge the per-tile
+candidates with ``lax.top_k``'s tie order (lower flat index first), which
+``torch.topk`` does not promise, through ``scoring.top_k``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from elasticsearch_tpu_torch.ops import cuda_kernels
-from elasticsearch_tpu_torch.ops.scoring import B, K1
+from elasticsearch_tpu_torch.ops.scoring import B, K1, top_k
 
 LANE = 128
 DEFAULT_TILE_SUB = 128
@@ -228,12 +244,77 @@ def reference_scores(
 
 
 # ----------------------------------------------------------------------
-# The kernel, its plain version and the wrapper
+# Cross-query batching: the union of Q queries' lanes
+# ----------------------------------------------------------------------
+
+
+def union_query_lanes(
+    lane_sets: Sequence[Sequence[QueryLane]],
+) -> Tuple[List[QueryLane], np.ndarray]:
+    """Merge Q per-query lane sets into one union lane set plus a
+    per-query weight matrix: a query takes part in union lane j iff
+    weights[q, j] > 0. Lanes are keyed by their posting run (block_start,
+    block_count), so two queries naming the same term share one lane (and
+    one read of its posting rows)."""
+    union: List[QueryLane] = []
+    index: dict = {}
+    rows: List[dict] = []
+    for lanes in lane_sets:
+        row: dict = {}
+        for lane in lanes:
+            if lane.block_count <= 0 or lane.weight <= 0.0:
+                continue
+            key = (lane.block_start, lane.block_count)
+            j = index.get(key)
+            if j is None:
+                j = len(union)
+                index[key] = j
+                # coverage is built with weight 1.0: the union lane is
+                # live whenever any member uses it
+                union.append(QueryLane(lane.block_start, lane.block_count,
+                                       1.0))
+            row[j] = row.get(j, 0.0) + float(lane.weight)
+        rows.append(row)
+    t_pad = next_pow2(max(len(union), 1))
+    weights = np.zeros((len(lane_sets), t_pad), dtype=np.float32)
+    for q, row in enumerate(rows):
+        for j, w in row.items():
+            weights[q, j] = w
+    return union, weights
+
+
+def build_tile_tables_batched(
+    lane_sets: Sequence[Sequence[QueryLane]],
+    bmin: np.ndarray,
+    bmax: np.ndarray,
+    geom: TileGeometry,
+    t_pad: Optional[int] = None,
+    cb: Optional[int] = None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """Batched form of build_tile_tables: one shared (row_lo, row_hi)
+    covering the union of Q queries' lanes plus a [Q, t_pad] weight matrix
+    (zero = lane dead for that query). Raises ValueError like the
+    single-query form when the union's covering window exceeds the bound
+    at this tile size."""
+    union, weights = union_query_lanes(lane_sets)
+    t_pad = max(t_pad or 0, weights.shape[1])
+    row_lo, row_hi, _w1, cb_req = build_tile_tables(
+        union, bmin, bmax, geom, t_pad=t_pad, cb=cb)
+    if weights.shape[1] < t_pad:
+        weights = np.concatenate(
+            [weights,
+             np.zeros((weights.shape[0], t_pad - weights.shape[1]),
+                      np.float32)], axis=1)
+    return row_lo, row_hi, weights, cb_req
+
+
+# ----------------------------------------------------------------------
+# The kernels, their plain versions and the wrapper
 # ----------------------------------------------------------------------
 
 
 def _check_inputs(docs_padded, frac_padded, live_t, row_lo, row_hi,
-                  weights, t_pad: int, sub: int) -> None:
+                  weights, t_pad: int, sub: int, q_batch: int) -> None:
     tensors = {"docs_padded": docs_padded, "frac_padded": frac_padded,
                "live_t": live_t, "row_lo": row_lo, "row_hi": row_hi,
                "weights": weights}
@@ -258,68 +339,158 @@ def _check_inputs(docs_padded, frac_padded, live_t, row_lo, row_hi,
     n_tiles = row_lo.shape[0]
     if row_lo.shape != (n_tiles, t_pad) or row_hi.shape != (n_tiles, t_pad):
         raise ValueError(f"row tables must be [n_tiles, {t_pad}]")
-    if weights.shape != (1, t_pad):
-        raise ValueError(f"weights must be [1, {t_pad}] (q_batch=1)")
+    if weights.shape != (q_batch, t_pad):
+        raise ValueError(f"weights must be [q_batch={q_batch}, {t_pad}]")
     if live_t.shape != (n_tiles * LANE, sub):
         raise ValueError(f"live_t must be [{n_tiles * LANE}, {sub}]")
 
 
-def score_tiles_plain(docs_padded, frac_padded, live_t, row_lo, row_hi,
-                      weights, *, sub: int, with_counts: bool = False):
-    """Plain PyTorch version of the dense kernel: the same per-lane adds in
-    the same lane order, ``acc[doc] += w * frac`` through
-    ``index_put_(accumulate=True)``. Within a lane the postings hit
-    distinct docs, so each doc sees one f32 multiply and one f32 add per
-    lane, exactly as in the kernel."""
-    n_tiles, t_pad = row_lo.shape
-    w = sub * LANE
+def canonical_lane_order(row_lo, row_hi) -> List[int]:
+    """Lanes with rows, in ascending order of their first posting row
+    (stable). Different terms own disjoint posting-row runs, so this is
+    also each tile's order of its non-empty windows: the order in which the
+    kernels add a query's lanes, whatever the lanes' table positions."""
+    big = torch.iinfo(torch.int32).max
+    key = torch.where(row_hi > row_lo, row_lo,
+                      torch.full_like(row_lo, big)).amin(dim=0)
+    order = torch.sort(key.cpu(), stable=True).indices.tolist()
+    keys = key.cpu().tolist()
+    return [j for j in order if keys[j] != big]
+
+
+def _lane_postings(docs_padded, frac_padded, row_lo, row_hi, j: int,
+                   w: int):
+    """Lane j's valid postings over every tile (doc inside the tile,
+    frac > 0): (docs int64, frac f32)."""
     dev = docs_padded.device
-    acc = torch.zeros(n_tiles * w, dtype=torch.float32, device=dev)
+    n_tiles = row_lo.shape[0]
+    lens = (row_hi[:, j] - row_lo[:, j]).clamp(min=0).long()
+    total = int(lens.sum())
+    tile_of = torch.repeat_interleave(torch.arange(n_tiles, device=dev), lens)
+    first = torch.cumsum(lens, 0) - lens
+    rows = (row_lo[tile_of, j].long()
+            + torch.arange(total, device=dev) - first[tile_of])
+    docs = docs_padded[rows].long()
+    frac = frac_padded[rows]
+    local = docs - (tile_of * w)[:, None]
+    valid = (local >= 0) & (local < w) & (frac > 0.0)
+    return docs[valid], frac[valid]
+
+
+def _accumulate_plain(docs_padded, frac_padded, row_lo, row_hi, weights,
+                      w: int, with_counts: bool):
+    """Per-query accumulators [Q, n_tiles * w] in natural doc order: for
+    each lane in canonical order and each query with a nonzero weight,
+    ``acc[doc] += w_q * frac`` through ``index_put_(accumulate=True)``.
+    Within a lane the postings hit distinct docs, so each doc sees one f32
+    multiply and one f32 add per lane, exactly as in the kernels; counts
+    are added where w_q > 0."""
+    n_tiles = row_lo.shape[0]
+    q_batch = weights.shape[0]
+    dev = docs_padded.device
+    acc = torch.zeros((q_batch, n_tiles * w), dtype=torch.float32, device=dev)
     cnt = torch.zeros_like(acc) if with_counts else None
-    tiles = torch.arange(n_tiles, device=dev)
-    for j in range(t_pad):
-        lens = (row_hi[:, j] - row_lo[:, j]).clamp(min=0).long()
-        total = int(lens.sum())
-        if total == 0:
+    w_host = weights.cpu().tolist()
+    for j in canonical_lane_order(row_lo, row_hi):
+        live_q = [q for q in range(q_batch) if w_host[q][j] != 0.0]
+        if not live_q:
             continue
-        tile_of = torch.repeat_interleave(tiles, lens)
-        first = torch.cumsum(lens, 0) - lens
-        rows = (row_lo[tile_of, j].long()
-                + torch.arange(total, device=dev) - first[tile_of])
-        docs = docs_padded[rows].long()
-        frac = frac_padded[rows]
-        local = docs - (tile_of * w)[:, None]
-        valid = (local >= 0) & (local < w) & (frac > 0.0)
-        hit = docs[valid]
-        acc.index_put_((hit,), weights[0, j] * frac[valid], accumulate=True)
-        if with_counts:
-            cnt.index_put_((hit,), torch.ones_like(frac[valid]),
-                           accumulate=True)
+        hit, frac = _lane_postings(docs_padded, frac_padded, row_lo, row_hi,
+                                   j, w)
+        for q in live_q:
+            acc[q].index_put_((hit,), weights[q, j] * frac, accumulate=True)
+            if with_counts and w_host[q][j] > 0.0:
+                cnt[q].index_put_((hit,), torch.ones_like(frac),
+                                  accumulate=True)
+    return acc, cnt
+
+
+def score_tiles_plain(docs_padded, frac_padded, live_t, row_lo, row_hi,
+                      weights, *, sub: int, with_counts: bool = False,
+                      q_batch: int = 1):
+    """Plain PyTorch version of the dense kernels: (scores,) or (scores,
+    counts), each [n_tiles*128, sub] f32 for q_batch 1 and
+    [q_batch, n_tiles*128, sub] otherwise, live-masked."""
+    w = sub * LANE
+    acc, cnt = _accumulate_plain(docs_padded, frac_padded, row_lo, row_hi,
+                                 weights, w, with_counts)
     live = dense_to_flat(live_t, sub) > 0.0
     zero = torch.zeros_like(acc)
-    outs = (flat_to_dense(torch.where(live, acc, zero), sub),)
+
+    def layout(x):
+        x = torch.where(live, x, zero)
+        out = torch.stack([flat_to_dense(row, sub) for row in x])
+        return out[0] if q_batch == 1 else out
+
+    outs = (layout(acc),)
     if with_counts:
-        outs += (flat_to_dense(torch.where(live, cnt, zero), sub),)
+        outs += (layout(cnt),)
     return outs
 
 
+def score_tiles_topk_plain(docs_padded, frac_padded, live_t, row_lo, row_hi,
+                           weights, *, sub: int, k: int):
+    """Plain PyTorch version of the fused top-k kernel: per tile and query,
+    matched = acc > 0 & live, the hit count, and the top ``k`` by (score
+    descending, local doc ascending: a stable sort), empty slots -inf / -1.
+    Returns (tile_scores [n_tiles, Q, k] f32, tile_docs [n_tiles, Q, k]
+    i32, tile_hits [n_tiles, Q, 1] f32)."""
+    w = sub * LANE
+    n_tiles = row_lo.shape[0]
+    q_batch = weights.shape[0]
+    acc, _ = _accumulate_plain(docs_padded, frac_padded, row_lo, row_hi,
+                               weights, w, False)
+    live = dense_to_flat(live_t, sub) > 0.0
+    matched = (acc > 0.0) & live
+    hits = matched.reshape(q_batch, n_tiles, w).sum(dim=2).float()
+    masked = torch.where(matched, acc, torch.full_like(acc, float("-inf")))
+    vals, idx = torch.sort(masked.reshape(q_batch, n_tiles, w), dim=2,
+                           descending=True, stable=True)
+    vals, idx = vals[..., :k], idx[..., :k]
+    base = (torch.arange(n_tiles, device=acc.device) * w)[None, :, None]
+    docs = torch.where(vals == float("-inf"), torch.full_like(idx, -1),
+                       idx + base).to(torch.int32)
+    return (vals.permute(1, 0, 2).contiguous(),
+            docs.permute(1, 0, 2).contiguous(),
+            hits.t().contiguous()[..., None])
+
+
 def _score_tiles_cuda(docs_padded, frac_padded, live_t, row_lo, row_hi,
-                      weights, *, sub: int, with_counts: bool):
+                      weights, *, sub: int, with_counts: bool, dense: bool,
+                      q_batch: int, k: int):
     lib = cuda_kernels.library()
     n_tiles, t_pad = row_lo.shape
     dev = docs_padded.device
-    scores = torch.empty((n_tiles * LANE, sub), dtype=torch.float32,
-                         device=dev)
-    counts = torch.empty_like(scores) if with_counts else None
-    rc = lib.estpu_tile_scoring_dense(
-        docs_padded.data_ptr(), frac_padded.data_ptr(), live_t.data_ptr(),
-        row_lo.data_ptr(), row_hi.data_ptr(), weights.data_ptr(),
-        scores.data_ptr(), counts.data_ptr() if with_counts else None,
-        n_tiles, t_pad, sub, docs_padded.shape[0],
-        cuda_kernels.stream_ptr(dev))
-    cuda_kernels.check(rc, "tile_scoring")
-    cuda_kernels.note_launch("tile_scoring")
-    return (scores, counts) if with_counts else (scores,)
+    common = (docs_padded.data_ptr(), frac_padded.data_ptr(),
+              live_t.data_ptr(), row_lo.data_ptr(), row_hi.data_ptr(),
+              weights.data_ptr())
+    if dense:
+        shape = ((n_tiles * LANE, sub) if q_batch == 1
+                 else (q_batch, n_tiles * LANE, sub))
+        scores = torch.empty(shape, dtype=torch.float32, device=dev)
+        counts = torch.empty_like(scores) if with_counts else None
+        rc = lib.estpu_tile_scoring_dense(
+            *common, scores.data_ptr(),
+            counts.data_ptr() if with_counts else None,
+            n_tiles, t_pad, sub, docs_padded.shape[0], q_batch,
+            cuda_kernels.stream_ptr(dev))
+        name = "tile_scoring" if q_batch == 1 else "tile_scoring_batched"
+        cuda_kernels.check(rc, name)
+        cuda_kernels.note_launch(name)
+        return (scores, counts) if with_counts else (scores,)
+    tile_scores = torch.empty((n_tiles, q_batch, k), dtype=torch.float32,
+                              device=dev)
+    tile_docs = torch.empty((n_tiles, q_batch, k), dtype=torch.int32,
+                            device=dev)
+    tile_hits = torch.empty((n_tiles, q_batch, 1), dtype=torch.float32,
+                            device=dev)
+    rc = lib.estpu_tile_scoring_topk(
+        *common, tile_scores.data_ptr(), tile_docs.data_ptr(),
+        tile_hits.data_ptr(), n_tiles, t_pad, sub, docs_padded.shape[0],
+        q_batch, k, cuda_kernels.stream_ptr(dev))
+    cuda_kernels.check(rc, "tile_scoring_topk")
+    cuda_kernels.note_launch("tile_scoring_topk")
+    return tile_scores, tile_docs, tile_hits
 
 
 def score_tiles(
@@ -328,35 +499,70 @@ def score_tiles(
     live_t,  # [n_tiles * 128, sub] f32 (1.0 = live; build_live_t)
     row_lo,  # [n_tiles, t_pad] i32
     row_hi,  # [n_tiles, t_pad] i32
-    weights,  # [1, t_pad] f32
+    weights,  # [q_batch, t_pad] f32
     *,
     t_pad: int,
     cb: int,
     sub: int,
+    k: int = 10,
     dense: bool = True,
     with_counts: bool = False,
     tiles_per_step: int = 1,
     q_batch: int = 1,
     codec: str = "raw",
+    tile_ids=None,
 ):
-    """Score a segment's tiles; the JAX ``score_tiles`` signature (dense
-    variant). Returns (scores [n_tiles*128, sub] f32,) or, with_counts,
-    (scores, counts). ``cb`` and ``tiles_per_step`` are TPU DMA knobs that
-    do not change the outputs; they are accepted and ignored."""
+    """Score a segment's tiles; the JAX ``score_tiles`` signature.
+
+    dense: (scores,) or, with_counts, (scores, counts), each
+    [n_tiles*128, sub] f32, with a leading [q_batch] axis when q_batch > 1.
+    top-k (dense=False): (tile_scores [n_tiles, q_batch, k'] f32,
+    tile_docs [n_tiles, q_batch, k'] i32 (-1 = empty), tile_hits
+    [n_tiles, q_batch, 1] f32), k' = min(k, sub*128); with_counts does not
+    apply there. ``cb`` and ``tiles_per_step`` are TPU DMA knobs that do
+    not change the outputs; they are accepted and ignored."""
     del cb, tiles_per_step
-    if not dense or q_batch != 1 or codec != "raw":
+    if codec != "raw" or tile_ids is not None:
         raise NotImplementedError(
-            "only the dense, raw-codec, q_batch=1 tile-scoring variant is "
-            "ported (top-k, packed, batched and tile-subset variants are "
-            "later slices)")
+            "the packed codec and tile-subset (pruned) scoring are not "
+            "ported yet")
+    q_batch = max(1, int(q_batch))
+    k = min(int(k), sub * LANE)
     _check_inputs(docs_padded, frac_padded, live_t, row_lo, row_hi,
-                  weights, t_pad, sub)
+                  weights, t_pad, sub, q_batch)
     if docs_padded.device.type == "cpu":
-        return score_tiles_plain(docs_padded, frac_padded, live_t, row_lo,
-                                 row_hi, weights, sub=sub,
-                                 with_counts=with_counts)
+        if dense:
+            return score_tiles_plain(docs_padded, frac_padded, live_t,
+                                     row_lo, row_hi, weights, sub=sub,
+                                     with_counts=with_counts,
+                                     q_batch=q_batch)
+        return score_tiles_topk_plain(docs_padded, frac_padded, live_t,
+                                      row_lo, row_hi, weights, sub=sub, k=k)
     if docs_padded.device.type != "cuda":
         raise ValueError(f"unsupported device {docs_padded.device}")
     return _score_tiles_cuda(docs_padded, frac_padded, live_t, row_lo,
                              row_hi, weights, sub=sub,
-                             with_counts=with_counts)
+                             with_counts=with_counts, dense=dense,
+                             q_batch=q_batch, k=k)
+
+
+def merge_tile_topk(tile_scores, tile_docs, tile_hits, k: int):
+    """Merge per-tile candidates: global top-k by score and the total live
+    hit count (int32)."""
+    flat_s = tile_scores.reshape(-1)
+    flat_d = tile_docs.reshape(-1)
+    top_s, top_i = top_k(flat_s, min(k, flat_s.shape[0]))
+    return top_s, flat_d[top_i], tile_hits.sum().to(torch.int32)
+
+
+def merge_tile_topk_batched(tile_scores, tile_docs, tile_hits, k: int):
+    """Per-query merge of a batched top-k launch: tile_scores/tile_docs
+    [n_tiles, Q, k_in]; returns (top_s [Q, k'], top_d [Q, k'], hits [Q]
+    i32) with k' = min(k, n_tiles * k_in)."""
+    n_tiles, q, _ = tile_scores.shape
+    flat_s = tile_scores.transpose(0, 1).reshape(q, -1)
+    flat_d = tile_docs.transpose(0, 1).reshape(q, -1)
+    top_s, top_i = top_k(flat_s, min(k, flat_s.shape[1]))
+    top_d = torch.gather(flat_d, 1, top_i)
+    hits = tile_hits.reshape(n_tiles, q).sum(dim=0).to(torch.int32)
+    return top_s, top_d, hits

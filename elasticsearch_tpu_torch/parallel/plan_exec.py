@@ -1,0 +1,873 @@
+"""The mesh data plane on one device: a query over all of an index's
+(shard, segment) pairs as one stacked program.
+
+Counterpart of ``elasticsearch_tpu/parallel/plan_exec.py``, cut to one
+device and to what the port's requests reach. The JAX package shards a
+``[n_slots, ...]`` stacked copy of every segment over a device mesh and
+runs one ``shard_map`` program; here the slot axis is the only axis
+(``n_dev = 1``): the per-slot query phase runs slot by slot, and the
+collectives become plain reductions in slot order (``psum`` a sum,
+``all_gather`` a concatenation), so candidates merge in the JAX order.
+
+- ``MeshPlanExecutor`` stages the stacked segment tables once, the tile
+  kernel's plane (one shared tile geometry over the stacked doc space and
+  each slot's live mask in it; the posting tables stay each segment's
+  own) on first use, and runs
+  - the serial program: per slot ``emit`` -> live -> min_score ->
+    [agg view] -> post_filter -> total -> local top-k, then the global
+    top-k over the slots' candidates;
+  - (from ``IndexMeshSearch.query_batch``) the batched program: per slot
+    one fused top-k ``score_tiles`` launch for Q queries over the union
+    of their lanes, per-query tile merge, then the merge over slots.
+- ``IndexMeshSearch`` owns the staging (rebuilt whenever the segment set
+  or a live-doc count changes) and the plane ladder: ``mesh_pallas`` (the
+  tile kernel inside the program), then ``mesh`` (scatter nodes), then
+  None (the caller's host rung). ``PlaneHealth`` benches a plane that
+  raised, as in the JAX package, with one deviation: a ``KernelError``
+  (a kernel that fails to build, load or launch) is no plane fault and
+  raises to the caller, so no rung serves in the kernel's place.
+
+Left for later slices: delta staging, the memory accountant, the compile
+cache and telemetry, sort / search_after / slice / rescore /
+terminate_after on the mesh, fused aggregations (an agg-carrying serial
+query reduces over the program's per-slot views; an agg-carrying batch
+leaves the batched rung), block-max pruning, the packed codec and kNN.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time as _time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from elasticsearch_tpu_torch.common.errors import ElasticsearchTpuException
+from elasticsearch_tpu_torch.common.settings import (
+    INDEX_SEARCH_MESH_MAX_SLOTS,
+    INDEX_SEARCH_MESH_PLANE,
+    INDEX_SEARCH_PLANE_QUARANTINE_COOLDOWN,
+)
+from elasticsearch_tpu_torch.ops import tile_scoring as tsc
+from elasticsearch_tpu_torch.ops.cuda_kernels import KernelError
+from elasticsearch_tpu_torch.ops.scoring import top_k
+from elasticsearch_tpu_torch.search import plan as P
+
+_plane_logger = logging.getLogger("elasticsearch_tpu_torch.parallel.plane")
+
+NEG_INF = float("-inf")
+
+
+class PlanStructureMismatch(Exception):
+    """Per-segment plans for the same query diverged structurally; the
+    caller tries the next plane."""
+
+
+class PlaneHealth:
+    """Per-index execution-plane failure tracking + quarantine.
+
+    A mesh_pallas / mesh plane that RAISES (as opposed to a clean
+    PlanStructureMismatch shape fallback) is benched for ``cooldown_s``:
+    queries serve from the next rung of the ladder. After the cooldown the
+    plane is half-open: exactly one query is admitted as the probe while
+    its peers keep serving the healthy rung. The probe's success re-opens
+    the plane; its failure re-benches it. A probe that bails without
+    executing releases its admission; a prober that dies silently is
+    covered by a bounded lease (``PROBE_LEASE_S``)."""
+
+    PLANES = ("mesh_pallas", "mesh")
+    MAX_EVENTS = 32
+    PROBE_LEASE_S = 30.0
+
+    def __init__(self, cooldown_s: float = 60.0):
+        self.cooldown_s = float(cooldown_s)
+        self.failures_total: Dict[str, int] = {p: 0 for p in self.PLANES}
+        self.failures_by_reason: Dict[str, int] = {}
+        self.probes_total = 0
+        self._quarantined_until: Dict[str, float] = {}
+        self._probe_until: Dict[str, float] = {}
+        self._lock = threading.Lock()
+        self.events: List[dict] = []
+
+    def record_failure(self, plane: str,
+                       reason: str = "kernel_fault") -> None:
+        with self._lock:
+            self.failures_total[plane] = \
+                self.failures_total.get(plane, 0) + 1
+            self.failures_by_reason[reason] = \
+                self.failures_by_reason.get(reason, 0) + 1
+            self._quarantined_until[plane] = (_time.monotonic()
+                                              + self.cooldown_s)
+            self._probe_until.pop(plane, None)
+            self.events.append({
+                "plane": plane,
+                "reason": reason,
+                "timestamp_ms": int(_time.time() * 1000),
+                "cooldown_s": self.cooldown_s,
+            })
+            if len(self.events) > self.MAX_EVENTS:
+                del self.events[0]
+
+    def admit(self, plane: str) -> str:
+        """``"open"`` = healthy, attempt freely; ``"probe"`` = the caller
+        is THE post-cooldown probe (it must end in note_success /
+        record_failure / release_probe); ``""`` = benched, or a peer's
+        probe is in flight: serve the next rung."""
+        now = _time.monotonic()
+        with self._lock:
+            until = self._quarantined_until.get(plane)
+            if until is None:
+                return "open"
+            if now < until:
+                return ""
+            if now < self._probe_until.get(plane, 0.0):
+                return ""
+            self._probe_until[plane] = now + self.PROBE_LEASE_S
+            self.probes_total += 1
+            return "probe"
+
+    def note_success(self, plane: str) -> None:
+        if plane not in self._quarantined_until:
+            return
+        with self._lock:
+            self._quarantined_until.pop(plane, None)
+            self._probe_until.pop(plane, None)
+
+    def release_probe(self, plane: str) -> None:
+        """The probe bailed without executing the plane: hand the
+        admission back (and un-count it)."""
+        with self._lock:
+            if self._probe_until.pop(plane, None) is not None:
+                self.probes_total -= 1
+
+    def quarantined(self) -> List[str]:
+        now = _time.monotonic()
+        return [p for p, until in sorted(self._quarantined_until.items())
+                if now < until]
+
+    def stats(self) -> dict:
+        return {
+            "plane_failures_total": dict(self.failures_total),
+            "plane_failures_by_reason": dict(self.failures_by_reason),
+            "plane_probes_total": self.probes_total,
+            "plane_quarantined": self.quarantined(),
+            "quarantine_events": list(self.events),
+        }
+
+
+def _check_same_structure(plans: List[P.PlanNode]) -> None:
+    def skeleton(p: P.PlanNode):
+        return (type(p).__name__, len(p.arrays()), p.trace_statics(),
+                tuple(skeleton(c) for c in p.children()))
+
+    first = skeleton(plans[0])
+    for p in plans[1:]:
+        if skeleton(p) != first:
+            raise PlanStructureMismatch(f"{skeleton(p)} != {first}")
+
+
+_PAD_VALUES = {"z": 0, "o": 1, "n": float("nan"), "m1": -1}
+
+
+def _as_tensor(x, device: torch.device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(x))).to(device)
+
+
+def stack_plans(plans: List[P.PlanNode], local_nd_pads: List[int],
+                stacked_nd1: int, n_slots: int,
+                device: torch.device) -> List[torch.Tensor]:
+    """Stack per-slot plan arrays: a flat list aligned with
+    ``plans[0].flat_arrays()``, every entry a tensor on ``device`` with a
+    leading [n_slots] axis, padded by its ``pad_kinds`` entry. Slots
+    beyond len(plans) replicate slot 0's arrays."""
+    _check_same_structure(plans)
+    kinds = plans[0].flat_pad_kinds()
+    try:
+        flats = [[_as_tensor(a, device) for a in p.flat_arrays()]
+                 for p in plans]
+    except NotImplementedError:
+        raise PlanStructureMismatch("plan contains unfinalized arrays")
+    for f in flats:
+        if len(f) != len(kinds):
+            raise PlanStructureMismatch("flat array count mismatch")
+    sentinel = stacked_nd1 - 1
+    stacked: List[torch.Tensor] = []
+    for i, kind in enumerate(kinds):
+        parts = [f[i] for f in flats]
+        if kind == "k":
+            # kernel tables stack verbatim, and only when every slot's
+            # tables were harmonized to one shape
+            if len({(tuple(p.shape), p.dtype) for p in parts}) != 1:
+                raise PlanStructureMismatch("kernel table shapes diverge")
+            parts = parts + [parts[0]] * (n_slots - len(parts))
+            stacked.append(torch.stack(parts))
+            continue
+        parts = parts + [parts[0]] * (n_slots - len(parts))
+        if kind == "s" or parts[0].dim() == 0:
+            stacked.append(torch.stack(parts))
+            continue
+        max_shape = tuple(max(p.shape[j] for p in parts)
+                          for j in range(parts[0].dim()))
+        fill = sentinel if kind == "d" else _PAD_VALUES[kind]
+        out = torch.full((n_slots,) + max_shape, fill, dtype=parts[0].dtype,
+                         device=device)
+        for d, a in enumerate(parts):
+            if kind == "d":
+                # re-point the segment's own sentinel doc to the stacked
+                # one (filler slots came from slot 0)
+                src = d if d < len(plans) else 0
+                a = torch.where(a == local_nd_pads[src],
+                                torch.full_like(a, sentinel), a)
+            out[(d,) + tuple(slice(0, s) for s in a.shape)] = a
+        stacked.append(out)
+    return stacked
+
+
+class MeshPlanExecutor:
+    """Stage N sealed segments as ``[n_slots, ...]`` stacked tables on one
+    device (one slot per segment); run a query plan over every slot."""
+
+    def __init__(self, segments: List, device: torch.device):
+        from elasticsearch_tpu_torch.parallel.distributed import (
+            stack_shard_arrays,
+        )
+
+        self.device = device
+        self.segments = segments
+        # (shard_id, segment) per slot; IndexMeshSearch sets the real
+        # shard ids
+        self.pairs: List[Tuple[int, object]] = list(enumerate(segments))
+        self.n_slots = len(segments)
+        stacked = stack_shard_arrays(segments, self.n_slots)
+        self.nd_pad = stacked.pop("nd_pad")
+        self.nd1 = self.nd_pad + 1
+        self._seg_staged: Dict[str, torch.Tensor] = {
+            name: torch.from_numpy(arr).to(device)
+            for name, arr in stacked.items()}
+        # lazily staged tile-kernel plane (ensure_kernel): None = not yet,
+        # dict = {geom, meta: {id(seg): (bmin, bmax)}, codec}
+        self._kernel: Optional[dict] = None
+        # per slot {k_docs, k_frac}: the segment's own posting tables
+        self._kernel_tables: List[dict] = []
+        self.kernel_denied_reason: Optional[str] = None
+        self._kernel_stage_lock = threading.Lock()
+
+    def staged_bytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in self._seg_staged.values())
+
+    def ensure_kernel(self) -> Optional[dict]:
+        """Stage the tile-kernel plane over the stacked segment set: one
+        shared tile geometry covering the stacked doc space and the
+        per-slot live masks in its tile layout. Each slot's posting tables
+        are its segment's own (``Segment.kernel_tables``): every row
+        window is segment-local and the kernel skips the zero-``frac``
+        padding postings, so no stacked copy of them is needed. Returns
+        the kernel session, or None with ``kernel_denied_reason =
+        "staging_fault"`` when the staging raised (the caller quarantines
+        the plane)."""
+        self.kernel_denied_reason = None
+        if self._kernel is None:
+            with self._kernel_stage_lock:
+                if self._kernel is None:
+                    try:
+                        self._stage_kernel_plane()
+                    except Exception:  # noqa: BLE001 — staging fault:
+                        # the ladder's next rung serves, visibly
+                        _plane_logger.warning(
+                            "mesh kernel staging failed; plane demotes "
+                            "with reason staging_fault", exc_info=True)
+                        self.kernel_denied_reason = "staging_fault"
+                        return None
+        return self._kernel
+
+    def _stage_kernel_plane(self) -> None:
+        geom = tsc.tile_geometry(max(self.nd_pad, tsc.LANE))
+        live_t = np.zeros(
+            (self.n_slots, geom.n_tiles * tsc.LANE, geom.tile_sub),
+            np.float32)
+        tables, meta = [], {}
+        for i, seg in enumerate(self.segments):
+            tables.append(seg.kernel_tables())
+            live_t[i] = tsc.build_live_t(self._live(seg, geom.nd_pad), geom)
+            meta[id(seg)] = (seg.kernel_bmin, seg.kernel_bmax)
+        # commit only a complete plane
+        self._seg_staged["k_live_t"] = torch.from_numpy(live_t).to(
+            self.device)
+        self._kernel_tables = tables
+        self._kernel = {"geom": geom, "meta": meta, "codec": "raw"}
+
+    @staticmethod
+    def _live(seg, nd_pad: int) -> np.ndarray:
+        live = np.zeros(nd_pad, np.float32)
+        live[: seg.nd_pad] = seg.live.astype(np.float32)
+        return live
+
+    def ensure_kernel_live(self, sub: int) -> str:
+        """Per-sub live-mask layout for a shrunk tile geometry (the
+        geometry ladder), over the stacked slot axis."""
+        key = f"k_live_t_{sub}"
+        with self._kernel_stage_lock:
+            if key not in self._seg_staged:
+                geom = tsc.tile_geometry(self._kernel["geom"].nd_pad, sub)
+                live_t = np.zeros(
+                    (self.n_slots, geom.n_tiles * tsc.LANE, geom.tile_sub),
+                    np.float32)
+                for i, seg in enumerate(self.segments):
+                    live_t[i] = tsc.build_live_t(
+                        self._live(seg, geom.nd_pad), geom)
+                self._seg_staged[key] = torch.from_numpy(live_t).to(
+                    self.device)
+        return key
+
+    def harmonize_kernel_nodes(self, plans: List[P.PlanNode]) -> int:
+        """Finalize every deferred kernel node so table shapes agree over
+        the whole segment set: one (tile_sub, t_pad, cb) per aligned node
+        group, chosen by the geometry ladder collectively (a dense term on
+        any slot shrinks every slot's tile). Returns the number of groups
+        finalized; raises PlanStructureMismatch when no shared geometry
+        exists."""
+        groups: List[List[P.PlanNode]] = []
+
+        def walk(nodes):
+            if all(isinstance(n, P.PallasScoreTermsNode) for n in nodes):
+                groups.append(list(nodes))
+            kids = [n.children() for n in nodes]
+            if len({len(ks) for ks in kids}) != 1:
+                raise PlanStructureMismatch("tree arity diverges")
+            for child_set in zip(*kids):
+                walk(list(child_set))
+
+        walk(plans)
+        if not groups:
+            return 0
+        session = self._kernel
+        if not isinstance(session, dict):
+            raise PlanStructureMismatch("kernel plane not staged")
+        geom = session["geom"]
+        for nodes in groups:
+            if any(n._mesh_lanes is None for n in nodes):
+                raise PlanStructureMismatch(
+                    "kernel/scatter node mix across slots")
+            t_pad = max(tsc.next_pow2(max(len(n._mesh_lanes), 1))
+                        for n in nodes)
+            sub = geom.tile_sub
+            while True:
+                g = geom if sub == geom.tile_sub else tsc.tile_geometry(
+                    geom.nd_pad, sub)
+                try:
+                    tables = [tsc.build_tile_tables(
+                        n._mesh_lanes, n._mesh_bmin, n._mesh_bmax, g,
+                        t_pad=t_pad) for n in nodes]
+                    break
+                except ValueError:
+                    if sub <= 32 or g.tile_sub < sub:
+                        raise PlanStructureMismatch(
+                            "no shared kernel geometry for this query")
+                    sub //= 2
+            cb = max(t[3] for t in tables)
+            live_key = ("k_live_t" if g.tile_sub == geom.tile_sub
+                        else self.ensure_kernel_live(g.tile_sub))
+            for n, (rl, rh, w, _cb) in zip(nodes, tables):
+                n.finalize_mesh(rl, rh, w, cb=cb, sub=g.tile_sub,
+                                live_key=live_key)
+        return len(groups)
+
+    def _slot(self, i: int) -> dict:
+        slot = {name: a[i] for name, a in self._seg_staged.items()}
+        if self._kernel_tables:
+            slot.update(self._kernel_tables[i])
+        return slot
+
+    def execute(self, plans: List[P.PlanNode], k: int,
+                with_views: bool = False,
+                pf_plans: Optional[List[P.PlanNode]] = None,
+                min_score: Optional[float] = None) -> dict:
+        """The serial program. ``plans``: one per slot, same query.
+        Returns tensors {keys [k'], slots [k'], docs [k'], total, scores
+        [k'], counts [n_slots]} (doc ids per slot, i.e. segment-local),
+        plus {matched, scores_all} [n_slots, nd1] with ``with_views``."""
+        if len(plans) != len(self.segments):
+            raise ValueError("one plan per staged slot required")
+        local_pads = [s.nd_pad for s in self.segments]
+        stacked = stack_plans(plans, local_pads, self.nd1, self.n_slots,
+                              self.device)
+        stacked_pf = (stack_plans(pf_plans, local_pads, self.nd1,
+                                  self.n_slots, self.device)
+                      if pf_plans else [])
+        template = plans[0]
+        cand_keys, cand_docs, cand_scores, cand_slot, counts = \
+            [], [], [], [], []
+        views_m, views_s = [], []
+        for i in range(self.n_slots):
+            seg = self._slot(i)
+            scores, matched = P.execute(seg, template,
+                                        [a[i] for a in stacked])
+            if min_score is not None:
+                matched = matched & (scores >= torch.tensor(
+                    min_score, dtype=torch.float32, device=self.device))
+            if with_views:
+                views_m.append(matched)
+                views_s.append(scores)
+            if pf_plans:
+                _, pf_matched = P.execute(seg, pf_plans[0],
+                                          [a[i] for a in stacked_pf])
+                matched = matched & pf_matched
+            counts.append(matched.sum())
+            masked = torch.where(matched, scores,
+                                 torch.full_like(scores, NEG_INF))
+            loc_keys, loc_docs = top_k(masked, min(k, masked.shape[0]))
+            cand_keys.append(loc_keys)
+            cand_docs.append(loc_docs)
+            cand_scores.append(scores[loc_docs])
+            cand_slot.append(torch.full_like(loc_docs, i))
+        all_keys = torch.cat(cand_keys)
+        top_keys, top_idx = top_k(all_keys, min(k, all_keys.shape[0]))
+        counts_t = torch.stack(counts)
+        out = {"keys": top_keys, "slots": torch.cat(cand_slot)[top_idx],
+               "docs": torch.cat(cand_docs)[top_idx],
+               "scores": torch.cat(cand_scores)[top_idx],
+               "total": counts_t.sum(), "counts": counts_t}
+        if with_views:
+            out["matched"] = torch.stack(views_m)
+            out["scores_all"] = torch.stack(views_s)
+        return out
+
+    def execute_batched_topk(self, live_key: str, rl: np.ndarray,
+                             rh: np.ndarray, w_all: np.ndarray, *,
+                             q_pad: int, kk: int, t_pad: int, cb: int,
+                             sub: int):
+        """The batched program: per slot one fused top-k launch for the
+        q_pad queries, the per-query tile merge, then the merge over the
+        slots' candidates. Returns (top_s [Q, k'], top_d [Q, k'], top_slot
+        [Q, k'], total [Q]) tensors."""
+        rl_t = torch.from_numpy(rl).to(self.device)
+        rh_t = torch.from_numpy(rh).to(self.device)
+        w_t = torch.from_numpy(w_all).to(self.device)
+        live = self._seg_staged[live_key]
+        cand_s, cand_d, cand_slot = [], [], []
+        hits = None
+        for i in range(self.n_slots):
+            tables = self._kernel_tables[i]
+            ts_, td_, th_ = tsc.score_tiles(
+                tables["k_docs"], tables["k_frac"], live[i],
+                rl_t[i], rh_t[i], w_t[i], t_pad=t_pad, cb=cb, sub=sub, k=kk,
+                dense=False, q_batch=q_pad)
+            s_i, d_i, h_i = tsc.merge_tile_topk_batched(ts_, td_, th_, kk)
+            cand_s.append(s_i)
+            cand_d.append(d_i)
+            cand_slot.append(torch.full_like(d_i, i))
+            hits = h_i if hits is None else hits + h_i
+        pool_s = torch.cat(cand_s, dim=1)
+        top_s, top_i = top_k(pool_s, min(kk, pool_s.shape[1]))
+        top_d = torch.gather(torch.cat(cand_d, dim=1), 1, top_i)
+        top_slot = torch.gather(torch.cat(cand_slot, dim=1), 1, top_i)
+        return top_s, top_d, top_slot, hits
+
+
+class IndexMeshSearch:
+    """Routes an index's query phase through the stacked one-device mesh
+    program. Eligible searches run over all (shard, segment) pairs at once;
+    anything the program does not cover returns None and the caller uses
+    the host rung. Staging is cached against the identity of the segment
+    set and its live-doc counts, and rebuilt in full when either
+    changes."""
+
+    # request keys the batched mesh_pallas program covers
+    BATCHABLE_KEYS = frozenset({
+        "query", "size", "from", "timeout",
+        "allow_partial_search_results", "stats", "profile",
+    })
+
+    def __init__(self, index_service):
+        self.svc = index_service
+        self._executor: Optional[MeshPlanExecutor] = None
+        self._staged_key = None
+        self.query_total = 0
+        # queries whose scoring ran on the tile kernel inside the program
+        self.pallas_query_total = 0
+        self.batched_launch_total = 0
+        self.restage_total = 0
+        # plane-ladder decisions "plane.reason" -> count
+        self.decisions: Dict[str, int] = {}
+        settings = index_service.settings
+        self.max_slots = INDEX_SEARCH_MESH_MAX_SLOTS.get(settings)
+        self.plane_pref = INDEX_SEARCH_MESH_PLANE.get(settings)
+        self.plane_health = PlaneHealth(
+            INDEX_SEARCH_PLANE_QUARANTINE_COOLDOWN.get(settings))
+        self._counter_lock = threading.Lock()
+        self._stage_lock = threading.Lock()
+        self._staging_fault_until = 0.0
+        self.staging_denied_reason: Optional[str] = None
+
+    def _note(self, plane: str, reason: str, n: int = 1) -> None:
+        key = f"{plane}.{reason}"
+        with self._counter_lock:
+            self.decisions[key] = self.decisions.get(key, 0) + n
+
+    def _current_pairs(self) -> List[Tuple[int, object]]:
+        pairs = []
+        for sid in sorted(self.svc.shards):
+            eng = self.svc.shards[sid].engine
+            for seg in eng.searchable_segments():
+                if seg.num_docs > 0:
+                    pairs.append((sid, seg))
+        return pairs
+
+    @staticmethod
+    def _key_for(pairs) -> frozenset:
+        """Staged-set identity: the segments and their live-doc counts
+        (deletes mutate a sealed segment's live mask in place, which must
+        restage the stacked live masks)."""
+        return frozenset((sid, id(seg), seg.live_doc_count)
+                         for sid, seg in pairs)
+
+    def _ensure_staged(self) -> bool:
+        self.staging_denied_reason = None
+        if _time.monotonic() < self._staging_fault_until:
+            self.staging_denied_reason = "staging_fault"
+            return False
+        pairs = self._current_pairs()
+        if not pairs:
+            return False
+        if len(pairs) > 1 * max(self.max_slots, 1):
+            return False  # packing bound: n_dev (1) x max_slots_per_device
+        key = self._key_for(pairs)
+        if key != self._staged_key or self._executor is None:
+            with self._stage_lock:
+                if key == self._staged_key and self._executor is not None:
+                    return True  # a peer staged this set while we waited
+                if _time.monotonic() < self._staging_fault_until:
+                    self.staging_denied_reason = "staging_fault"
+                    return False
+                return self._stage_rebuild(pairs, key)
+        return True
+
+    def _stage_rebuild(self, pairs, key) -> bool:
+        """Full-generation build + install (caller holds _stage_lock)."""
+        try:
+            staged = MeshPlanExecutor([seg for _, seg in pairs],
+                                      self.svc.device)
+        except Exception:  # noqa: BLE001 — staging fault: bench the
+            # staging for the cooldown; the host rung serves, visibly
+            _plane_logger.warning(
+                "[%s] mesh staging failed; serving from the host rung "
+                "for %.1fs (reason staging_fault)", self.svc.name,
+                self.plane_health.cooldown_s, exc_info=True)
+            self._staging_fault_until = (
+                _time.monotonic() + self.plane_health.cooldown_s)
+            self.plane_health.record_failure("mesh_pallas",
+                                             reason="staging_fault")
+            self.staging_denied_reason = "staging_fault"
+            return False
+        staged.pairs = pairs
+        self._executor = staged
+        self._staged_key = key
+        self._staging_fault_until = 0.0
+        with self._counter_lock:
+            self.restage_total += 1
+        return True
+
+    def _ctx(self, sid: int, session):
+        from elasticsearch_tpu_torch.search.query_dsl import ShardQueryContext
+
+        ctx = ShardQueryContext(self.svc.shards[sid].mapper_service)
+        ctx.for_mesh = True
+        ctx.mesh_kernel = session
+        return ctx
+
+    def query(self, body: dict, k: int) -> Optional[dict]:
+        """Returns {total, refs, max_score, aggregations, plane} or None
+        when the mesh plane does not serve this request."""
+        from elasticsearch_tpu_torch.search.aggregations import (
+            SegmentView,
+            parse_aggs,
+            run_aggregations,
+        )
+        from elasticsearch_tpu_torch.search.query_dsl import parse_query
+        from elasticsearch_tpu_torch.search.service import DocRef
+
+        body = body or {}
+        if len(self.svc.shards) < 2:
+            self._note("host", "single_shard")
+            return None
+        if not self._ensure_staged():
+            self._note("host", self.staging_denied_reason
+                       or "staging_unavailable")
+            return None
+        executor = self._executor
+        self.plane_health.cooldown_s = \
+            INDEX_SEARCH_PLANE_QUARANTINE_COOLDOWN.get(self.svc.settings)
+        agg_specs = parse_aggs(body.get("aggs") or body.get("aggregations"))
+        min_score = body.get("min_score")
+        if min_score is not None:
+            ms = float(min_score)
+            if float(np.float32(ms)) != ms:
+                self._note("host", "feature_ineligible")
+                return None  # an f32 compare could move the cut
+            min_score = ms
+        qb = parse_query(body.get("query"))
+        pf_qb = (parse_query(body["post_filter"])
+                 if body.get("post_filter") else None)
+
+        admissions: Dict[str, str] = {}
+        kernel_session = None
+        if self.plane_pref in ("auto", "pallas"):
+            admissions["mesh_pallas"] = self.plane_health.admit(
+                "mesh_pallas")
+            if admissions["mesh_pallas"]:
+                kernel_session = executor.ensure_kernel()
+                if (kernel_session is None
+                        and executor.kernel_denied_reason):
+                    self._note("mesh_pallas", executor.kernel_denied_reason)
+                    self.plane_health.record_failure(
+                        "mesh_pallas", reason="staging_fault")
+            else:
+                self._note("mesh_pallas", "quarantined")
+        attempts = []
+        if kernel_session is not None:
+            attempts.append(("mesh_pallas", kernel_session))
+        if self.plane_pref != "pallas":
+            admissions["mesh"] = self.plane_health.admit("mesh")
+            if admissions["mesh"]:
+                attempts.append(("mesh", None))
+        outs = None
+        used_pallas = False
+        try:
+            for plane, session in attempts:
+                try:
+                    plans = []
+                    pf_plans = [] if pf_qb is not None else None
+                    for sid, seg in executor.pairs:
+                        ctx = self._ctx(sid, session)
+                        plans.append(qb.to_plan(ctx, seg))
+                        # post_filter plans stay on scatter nodes
+                        ctx.mesh_kernel = None
+                        if pf_qb is not None:
+                            pf_plans.append(pf_qb.to_plan(ctx, seg))
+                    used_pallas = (session is not None and
+                                   executor.harmonize_kernel_nodes(plans) > 0)
+                    outs = executor.execute(
+                        plans, k, with_views=bool(agg_specs),
+                        pf_plans=pf_plans, min_score=min_score)
+                    if self.svc.device.type == "cuda":
+                        torch.cuda.synchronize(self.svc.device)
+                    self.plane_health.note_success(plane)
+                    break
+                except (PlanStructureMismatch, NotImplementedError):
+                    self._note(plane, "shape_mismatch")
+                    continue
+                except KernelError:
+                    # a kernel that fails to build or launch raises: no
+                    # other rung serves in its place
+                    raise
+                except Exception as e:  # noqa: BLE001 — plane fault:
+                    # bench the plane for the cooldown, serve from the
+                    # next rung. A request error (4xx) is no plane fault:
+                    # it raises as it would on the host rung.
+                    if (isinstance(e, ElasticsearchTpuException)
+                            and e.status_code < 500):
+                        raise
+                    _plane_logger.warning(
+                        "[%s] execution plane [%s] failed; quarantined "
+                        "for %.1fs", self.svc.name, plane,
+                        self.plane_health.cooldown_s, exc_info=True)
+                    self.plane_health.record_failure(plane)
+                    self._note(plane, "fault")
+                    continue
+        finally:
+            for plane, adm in admissions.items():
+                if adm == "probe":
+                    self.plane_health.release_probe(plane)
+        if outs is None:
+            self._note("host", "no_mesh_plane")
+            return None
+        plane = "mesh_pallas" if used_pallas else "mesh"
+        with self._counter_lock:
+            self.query_total += 1
+            if used_pallas:
+                self.pallas_query_total += 1
+        self._note(plane, "served")
+        keys = outs["keys"].cpu().numpy()
+        slots = outs["slots"].cpu().numpy()
+        docs = outs["docs"].cpu().numpy()
+        scores = outs["scores"].cpu().numpy()
+        refs = []
+        max_score = None
+        for key, slot, d, score in zip(keys, slots, docs, scores):
+            if key == -np.inf:
+                continue
+            sid, seg = executor.pairs[int(slot)]
+            refs.append(DocRef(sid, seg.name, int(d), float(score)))
+            if max_score is None:
+                max_score = float(score)
+        aggregations = None
+        if agg_specs:
+            matched = outs["matched"].cpu().numpy()
+            views = [SegmentView(seg, matched[i, : seg.nd_pad + 1])
+                     for i, (_sid, seg) in enumerate(executor.pairs)]
+            aggregations = run_aggregations(agg_specs, views)
+        return {"total": int(outs["total"]), "refs": refs,
+                "max_score": max_score, "aggregations": aggregations,
+                "plane": plane}
+
+    def query_batch(self, bodies: List[dict]) -> Optional[list]:
+        """Cross-query micro-batching on the mesh_pallas rung: Q concurrent
+        queries scored by one fused top-k launch per slot over the union
+        of their lanes. Returns one {total, refs, max_score, plane} dict
+        per member, or None when the batch cannot run here (the caller
+        falls to the host-batched rung). A plane fault quarantines
+        mesh_pallas once for the whole batch."""
+        if self.plane_pref not in ("auto", "pallas"):
+            return None
+        adm = self.plane_health.admit("mesh_pallas")
+        if not adm:
+            self._note("mesh_pallas", "quarantined", len(bodies))
+            return None
+        try:
+            return self._query_batch_admitted(bodies)
+        finally:
+            if adm == "probe":
+                self.plane_health.release_probe("mesh_pallas")
+
+    def _query_batch_admitted(self, bodies) -> Optional[list]:
+        from elasticsearch_tpu_torch.search.query_dsl import parse_query
+        from elasticsearch_tpu_torch.search.service import DocRef
+
+        if len(self.svc.shards) < 2:
+            return None
+        for body in bodies:
+            body = body or {}
+            if not isinstance(body.get("query"), dict):
+                return None
+            if any(key not in self.BATCHABLE_KEYS for key in body):
+                # aggs included: fused aggregations are a later slice, so
+                # an agg-carrying batch leaves this rung
+                return None
+        if not self._ensure_staged():
+            self._note("host", self.staging_denied_reason
+                       or "staging_unavailable", len(bodies))
+            return None
+        executor = self._executor
+        session = executor.ensure_kernel()
+        if session is None:
+            self._note("host", executor.kernel_denied_reason
+                       or "staging_unavailable", len(bodies))
+            if executor.kernel_denied_reason == "staging_fault":
+                self.plane_health.record_failure("mesh_pallas",
+                                                 reason="staging_fault")
+            return None
+        q_batch = len(bodies)
+        ks = []
+        for body in bodies:
+            from_ = int(body.get("from", 0) or 0)
+            size = (int(body.get("size"))
+                    if body.get("size") is not None else 10)
+            ks.append(max(from_ + size, 1))
+        # pad the batch and kk to powers of two (the JAX package's
+        # compiled-program buckets; dead rows score nothing)
+        kk = tsc.next_pow2(max(ks))
+        q_pad = tsc.next_pow2(q_batch)
+        geom = session["geom"]
+        n_pairs = len(executor.pairs)
+        # per-member, per-slot lane sets from the same deferred plans as
+        # the serial mesh path: the plan must be exactly one
+        # kernel-scored disjunction. Built outside the fault handler: a
+        # malformed body is that member's request error, served serially.
+        try:
+            lane_sets = [[None] * q_batch for _ in range(n_pairs)]
+            for q, body in enumerate(bodies):
+                qb = parse_query(body.get("query"))
+                for slot, (sid, seg) in enumerate(executor.pairs):
+                    plan = qb.to_plan(self._ctx(sid, session), seg)
+                    if (not isinstance(plan, P.PallasScoreTermsNode)
+                            or plan._mesh_lanes is None
+                            or plan.with_counts):
+                        # minimum_should_match > 1 needs the dense-counts
+                        # variant the fused top-k kernel does not emit
+                        return None
+                    lane_sets[slot][q] = plan._mesh_lanes
+        except Exception:  # noqa: BLE001 — request-shaped error: serial
+            # execution surfaces it per member with the right status
+            return None
+        try:
+            # shared batched tables: per-slot unions on one collective
+            # geometry (a dense union on any slot shrinks every tile)
+            unions = [tsc.union_query_lanes(lane_sets[slot])[0]
+                      for slot in range(n_pairs)]
+            t_pad = max(tsc.next_pow2(max(len(u), 1)) for u in unions)
+            sub = geom.tile_sub
+            while True:
+                g = geom if sub == geom.tile_sub else tsc.tile_geometry(
+                    geom.nd_pad, sub)
+                try:
+                    tables = []
+                    for slot, (_sid, seg) in enumerate(executor.pairs):
+                        bmin, bmax = session["meta"][id(seg)]
+                        tables.append(tsc.build_tile_tables_batched(
+                            lane_sets[slot], bmin, bmax, g, t_pad=t_pad))
+                    break
+                except ValueError:
+                    if sub <= 32 or g.tile_sub < sub:
+                        return None  # no shared geometry: host rung
+                    sub //= 2
+            cb = max(t[3] for t in tables)
+            live_key = ("k_live_t" if g.tile_sub == geom.tile_sub
+                        else executor.ensure_kernel_live(g.tile_sub))
+            n_slots = executor.n_slots
+            n_tiles = tables[0][0].shape[0]
+            rl = np.zeros((n_slots, n_tiles, t_pad), np.int32)
+            rh = np.zeros((n_slots, n_tiles, t_pad), np.int32)
+            w_all = np.zeros((n_slots, q_pad, t_pad), np.float32)
+            for slot in range(n_pairs):
+                rl[slot] = tables[slot][0]
+                rh[slot] = tables[slot][1]
+                w_all[slot, :q_batch] = tables[slot][2]
+            top_s, top_d, top_slot, totals = executor.execute_batched_topk(
+                live_key, rl, rh, w_all, q_pad=q_pad, kk=kk, t_pad=t_pad,
+                cb=cb, sub=g.tile_sub)
+            keys = top_s.cpu().numpy()
+            docs = top_d.cpu().numpy()
+            slots = top_slot.cpu().numpy()
+            totals = totals.cpu().numpy()
+        except (PlanStructureMismatch, NotImplementedError):
+            self._note("mesh_pallas", "shape_mismatch", q_batch)
+            return None
+        except KernelError:
+            raise  # a kernel fault is never served by the next rung
+        except Exception:  # noqa: BLE001 — batch-wide plane fault: bench
+            # the plane once (not Q times), serve from the next rung
+            _plane_logger.warning(
+                "[%s] batched execution plane [mesh_pallas] failed; "
+                "quarantined for %.1fs", self.svc.name,
+                self.plane_health.cooldown_s, exc_info=True)
+            self.plane_health.record_failure("mesh_pallas")
+            self._note("mesh_pallas", "fault", q_batch)
+            return None
+        self.plane_health.note_success("mesh_pallas")
+        with self._counter_lock:
+            self.query_total += q_batch
+            self.pallas_query_total += q_batch
+            if q_batch > 1:
+                self.batched_launch_total += 1
+        self._note("mesh_pallas",
+                   "served_batched" if q_batch > 1 else "served", q_batch)
+        results = []
+        for q in range(q_batch):
+            refs = []
+            max_score = None
+            for key, slot, d in zip(keys[q][: ks[q]], slots[q][: ks[q]],
+                                    docs[q][: ks[q]]):
+                if key == -np.inf or d < 0:
+                    continue
+                sid, seg = executor.pairs[int(slot)]
+                refs.append(DocRef(sid, seg.name, int(d), float(key)))
+                if max_score is None:
+                    max_score = float(key)
+            results.append({"total": int(totals[q]), "refs": refs,
+                            "max_score": max_score, "plane": "mesh_pallas"})
+        return results

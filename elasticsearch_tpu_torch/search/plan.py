@@ -10,6 +10,12 @@ Nodes ported: ScoreTermsNode (scatter scoring), PallasScoreTermsNode (the
 tile-scoring kernel; the name is kept so the counterpart is easy to find),
 MatchAllNode, MatchNoneNode, NumericRangeNode, NumericTermsNode,
 OrdTermsNode, OrdRangeNode, BoolNode, ConstantScoreNode, BoostNode.
+
+For the mesh plane (parallel/plan_exec.py) every node declares how its
+arrays pad when per-segment plans of one query are stacked
+(``pad_kinds``) and which static attributes must agree across them
+(``trace_statics``); a stacked plan then runs per slot through the same
+``emit``.
 """
 
 from __future__ import annotations
@@ -39,6 +45,32 @@ class PlanNode:
         for c in self.children():
             out.extend(c.flat_arrays())
         return out
+
+    def pad_kinds(self) -> List[str]:
+        """How each entry of arrays() pads when per-segment plans for the
+        same query are stacked (parallel/plan_exec.stack_plans). Kinds:
+          "s"  scalar, stacked to [n_slots], never padded
+          "z"  pad with 0 / False
+          "o"  pad with 1 (divisors: avgdl, similarity params)
+          "n"  pad with nan (value columns: nan compares False)
+          "m1" pad with -1 (ordinal ids; -1 never matches a real ord)
+          "d"  doc-id array: pad with the stacked sentinel doc (nd1-1,
+               dead in live1) and re-point the segment's own sentinel
+          "k"  kernel tables: stacked verbatim, shapes must agree
+        """
+        return ["z"] * len(self.arrays())
+
+    def flat_pad_kinds(self) -> List[str]:
+        out = list(self.pad_kinds())
+        for c in self.children():
+            out.extend(c.flat_pad_kinds())
+        return out
+
+    def trace_statics(self) -> tuple:
+        """Static (non-array) attributes ``emit`` reads from ``self``.
+        Per-segment plans of one query stack onto one template only when
+        these agree; array lengths may differ (they pad)."""
+        return ()
 
 
 def _on_device(x, device: torch.device):
@@ -125,6 +157,12 @@ class ScoreTermsNode(PlanNode):
         return [self.q_blocks, self.q_weights, self.q_norm_rows, self.q_avgdl,
                 self.q_valid, self.min_match, self.q_p1, self.q_p2]
 
+    def pad_kinds(self):
+        return ["z", "z", "z", "o", "z", "s", "o", "o"]
+
+    def trace_statics(self):
+        return (self._fast,)
+
     def emit(self, ctx):
         from elasticsearch_tpu_torch.index.similarity import emit_contrib
 
@@ -155,7 +193,13 @@ class PallasScoreTermsNode(PlanNode):
     (ops/tile_scoring.py) — the CUDA kernel on a GPU segment, its plain
     version on a CPU one. Chosen by score_terms_node when every lane is
     default-constant BM25 with a positive weight; carries the per-(tile,
-    lane) covering-row tables built host-side."""
+    lane) covering-row tables built host-side (and, on the host rung, the
+    lane list in ``_host_lanes``, which the micro-batcher unions).
+
+    Mesh form: ``mesh_deferred`` builds the node with the segment's lane
+    set but no tables; the mesh executor's ``harmonize_kernel_nodes``
+    calls ``finalize_mesh`` with the geometry shared by every slot, so the
+    stacked tables have one shape."""
 
     def __init__(self, row_lo, row_hi, kweights, min_match, *, cb: int,
                  sub: int, live_key: str = "k_live_t"):
@@ -171,9 +215,54 @@ class PallasScoreTermsNode(PlanNode):
         # live-mask layout key in the segment device dict: the geometry
         # ladder stages per-sub variants for dense-term queries
         self.live_key = live_key
+        self._mesh_lanes = None
+        self._mesh_bmin = None
+        self._mesh_bmax = None
+
+    @classmethod
+    def mesh_deferred(cls, lanes, bmin, bmax,
+                      min_match) -> "PallasScoreTermsNode":
+        """Node for the mesh plane with table building deferred: lanes are
+        segment-local, but the table geometry (tile count, t_pad, cb, sub)
+        must be uniform over the stacked segment set and is only known once
+        every slot's plan exists. ``bmin``/``bmax`` are the segment's
+        per-block doc ranges."""
+        self = cls.__new__(cls)
+        self.row_lo = self.row_hi = self.kweights = None
+        self.min_match = np.float32(min_match)
+        self.cb = self.sub = self.t_pad = self.n_tiles = None
+        self.with_counts = min_match > 1
+        self.live_key = "k_live_t"
+        self._mesh_lanes = list(lanes)
+        self._mesh_bmin = bmin
+        self._mesh_bmax = bmax
+        return self
+
+    def finalize_mesh(self, row_lo, row_hi, kweights, *, cb: int, sub: int,
+                      live_key: str) -> None:
+        self.row_lo = row_lo
+        self.row_hi = row_hi
+        self.kweights = kweights
+        self.cb = cb
+        self.sub = sub
+        self.t_pad = int(row_lo.shape[1])
+        self.n_tiles = int(row_lo.shape[0])
+        self.live_key = live_key
+
+    def trace_statics(self):
+        return (self.cb, self.sub, self.t_pad, self.with_counts,
+                self.live_key)
 
     def arrays(self):
+        if self.row_lo is None:
+            # a mesh_deferred node escaped harmonization: callers treat
+            # this as "no plan form"
+            raise NotImplementedError(
+                "mesh kernel node used before finalize_mesh")
         return [self.row_lo, self.row_hi, self.kweights, self.min_match]
+
+    def pad_kinds(self):
+        return ["k", "k", "k", "s"]
 
     def emit(self, ctx):
         from elasticsearch_tpu_torch.ops import tile_scoring as tsc
@@ -201,6 +290,9 @@ class MatchAllNode(PlanNode):
     def arrays(self):
         return [self.boost]
 
+    def pad_kinds(self):
+        return ["s"]
+
     def emit(self, ctx):
         (boost,) = ctx.take(1)
         matched = ctx.seg["live1"]
@@ -223,6 +315,9 @@ class NumericRangeNode(PlanNode):
     def arrays(self):
         return [self.flat_docs, self.flat_values, self.lo, self.hi]
 
+    def pad_kinds(self):
+        return ["d", "n", "s", "s"]
+
     def emit(self, ctx):
         flat_docs, flat_values, lo, hi = ctx.take(4)
         cond = (flat_values >= lo) & (flat_values <= hi)
@@ -237,6 +332,9 @@ class NumericTermsNode(PlanNode):
 
     def arrays(self):
         return [self.flat_docs, self.flat_values, self.values]
+
+    def pad_kinds(self):
+        return ["d", "n", "n"]
 
     def emit(self, ctx):
         flat_docs, flat_values, values = ctx.take(3)
@@ -253,6 +351,9 @@ class OrdTermsNode(PlanNode):
     def arrays(self):
         return [self.flat_docs, self.flat_ords, self.ords]
 
+    def pad_kinds(self):
+        return ["d", "m1", "m1"]
+
     def emit(self, ctx):
         flat_docs, flat_ords, ords = ctx.take(3)
         cond = (flat_ords[:, None] == ords[None, :]).any(dim=1)
@@ -268,6 +369,9 @@ class OrdRangeNode(PlanNode):
 
     def arrays(self):
         return [self.flat_docs, self.flat_ords, self.lo_ord, self.hi_ord]
+
+    def pad_kinds(self):
+        return ["d", "m1", "s", "s"]
 
     def emit(self, ctx):
         flat_docs, flat_ords, lo, hi = ctx.take(4)
@@ -299,6 +403,9 @@ class BoolNode(PlanNode):
 
     def arrays(self):
         return [self.msm, self.boost]
+
+    def pad_kinds(self):
+        return ["s", "s"]
 
     def emit(self, ctx):
         msm, boost = ctx.take(2)
@@ -335,6 +442,9 @@ class ConstantScoreNode(PlanNode):
     def arrays(self):
         return [self.boost]
 
+    def pad_kinds(self):
+        return ["s"]
+
     def emit(self, ctx):
         (boost,) = ctx.take(1)
         _, m = self.child.emit(ctx)
@@ -352,6 +462,9 @@ class BoostNode(PlanNode):
     def arrays(self):
         return [self.boost]
 
+    def pad_kinds(self):
+        return ["s"]
+
     def emit(self, ctx):
         (boost,) = ctx.take(1)
         s, m = self.child.emit(ctx)
@@ -363,10 +476,12 @@ class BoostNode(PlanNode):
 # ---------------------------------------------------------------------------
 
 
-def execute(seg_device: dict, plan: PlanNode):
+def execute(seg_device: dict, plan: PlanNode, plan_arrays=None):
     """Run a plan against one segment's device tensors (block_docs,
-    block_tfs, norms, live1, kernel tables). Returns (scores f32[nd1],
-    matched bool[nd1]) on the segment's device."""
-    ctx = EmitCtx(seg_device, plan.flat_arrays())
+    block_tfs, norms, live1, kernel tables). ``plan_arrays`` replaces the
+    plan's own flat arrays (one slot of a stacked mesh plan). Returns
+    (scores f32[nd1], matched bool[nd1]) on the segment's device."""
+    ctx = EmitCtx(seg_device, plan.flat_arrays() if plan_arrays is None
+                  else plan_arrays)
     scores, matched = plan.emit(ctx)
     return scores, matched & ctx.seg["live1"]

@@ -11,6 +11,12 @@ segment's eligibility holds (every lane default-constant BM25 with a
 positive weight); the kernel wrapper then picks the CUDA kernel for a GPU
 segment and its plain version for a CPU one. There is no environment
 switch. Ineligible lane sets take the scatter node, as in the JAX package.
+
+A context built for the mesh plane (``ctx.for_mesh``) keeps one plan
+skeleton on every segment: a term missing from one segment's dictionary
+becomes an all-invalid scorer instead of ``MatchNoneNode``, and with the
+kernel plane staged (``ctx.mesh_kernel``) the kernel node defers its
+tables to the executor's shared geometry.
 """
 
 from __future__ import annotations
@@ -40,6 +46,10 @@ class ShardQueryContext:
     def __init__(self, mapper_service):
         self.mapper_service = mapper_service
         self.analyzers = mapper_service.analyzers
+        # mesh plane: plans must stack across segments (one skeleton), and
+        # mesh_kernel is the executor's staged kernel session, if any
+        self.for_mesh = False
+        self.mesh_kernel = None
 
     def field_type(self, name: str):
         return self.mapper_service.field_type(name)
@@ -111,9 +121,27 @@ def term_blocks_arrays(segment, weighted_terms, ctx=None):
 
 def score_terms_node(segment, weighted_terms, min_match=1, ctx=None) -> P.PlanNode:
     arrs = term_blocks_arrays(segment, weighted_terms, ctx=ctx)
+    for_mesh = getattr(ctx, "for_mesh", False)
     if arrs["n_present"] == 0 or min_match > arrs["n_present"]:
-        return P.MatchNoneNode()
-    node = _pallas_score_terms_node(segment, arrs, min_match)
+        if not for_mesh:
+            return P.MatchNoneNode()
+        # mesh plans keep the same skeleton on every segment: a term
+        # missing from one segment's dictionary must not turn its node
+        # into MatchNone (the plans would no longer stack); an
+        # all-invalid-lane scorer matches nothing through the same emit
+        if min_match > max(arrs["n_present"], 1):
+            # unsatisfiable even with every lane valid: pin the threshold
+            # above the padded lane count
+            min_match = arrs["q_valid"].shape[0] + 1
+    node = None
+    if not for_mesh:
+        node = _pallas_score_terms_node(segment, arrs, min_match)
+    elif getattr(ctx, "mesh_kernel", None) is not None:
+        # kernel plane staged: the stackable deferred-geometry node (the
+        # executor harmonizes table shapes across slots); ineligible lane
+        # sets fall through to the scatter node
+        node = _mesh_pallas_score_terms_node(segment, arrs, min_match,
+                                             ctx.mesh_kernel)
     if node is not None:
         return node
     return P.ScoreTermsNode(
@@ -155,8 +183,33 @@ def _pallas_score_terms_node(segment, arrs, min_match):
             sub //= 2
     live_key = ("k_live_t" if g.tile_sub == geom.tile_sub
                 else segment.kernel_live_t_for(g.tile_sub))
-    return P.PallasScoreTermsNode(row_lo, row_hi, kweights, min_match,
+    node = P.PallasScoreTermsNode(row_lo, row_hi, kweights, min_match,
                                   cb=cb, sub=g.tile_sub, live_key=live_key)
+    # the micro-batcher (search/batching.py) unions lane sets across
+    # concurrent queries and re-derives shared tables from these
+    node._host_lanes = qlanes
+    return node
+
+
+def _mesh_pallas_score_terms_node(segment, arrs, min_match, session):
+    """Stackable tile-kernel node for the mesh plane. ``session`` is the
+    executor's staged-kernel context ({geom, meta: {id(segment): (bmin,
+    bmax)}}). Same lane eligibility as _pallas_score_terms_node, but an
+    empty lane set stays on the kernel: a term missing from one segment's
+    dictionary must not flip that segment's node type."""
+    from elasticsearch_tpu_torch.ops import tile_scoring as tsc
+
+    lanes = arrs["lanes_meta"]
+    if not all(ok for _, _, _, ok in lanes):
+        return None
+    if not all(w > 0 for _, _, w, _ in lanes):
+        return None  # score > 0 is the match rule; see above
+    meta = session["meta"].get(id(segment))
+    if meta is None:
+        return None  # segment not part of the staged mesh set
+    qlanes = [tsc.QueryLane(s, c, w) for s, c, w, _ in lanes]
+    return P.PallasScoreTermsNode.mesh_deferred(qlanes, meta[0], meta[1],
+                                                min_match)
 
 
 def _numeric_csr(segment, field):

@@ -3,8 +3,9 @@
 Counterpart of ``elasticsearch_tpu/search/service.py``:
 
 - ``ShardSearcher.query(source)`` runs the query phase on one shard: plan
-  -> device execution per segment -> copy of the dense scores and mask to
-  the host (as the JAX host rung does) -> top-k selection -> agg views;
+  -> device execution per segment (or a score vector from a batched
+  launch, ``score_cache``) -> copy of the dense scores and mask to the
+  host (as the JAX host rung does) -> top-k selection -> agg views;
   returns a ``ShardQueryResult`` of doc refs.
 - ``merge_refs`` is the coordinator's global top-k; ``fetch_hits``
   materializes hits (``_source`` filtering, version).
@@ -19,7 +20,7 @@ from __future__ import annotations
 import fnmatch
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -92,14 +93,19 @@ class ShardSearcher:
         self.kernel_segments_total = 0
         self.scatter_segments_total = 0
         # the dense [nd1] scores + mask copy to the host, per segment
-        # (after the device finished the plan): what the top-k variant of
-        # the tile kernel, a later slice, exists to remove
+        # (after the device finished the plan); the mesh plane keeps its
+        # top-k on the device instead
         self.host_copy_seconds = 0.0
         self.host_copy_bytes = 0
         self.host_copy_segments = 0
 
     def query(self, source: dict, size_hint: Optional[int] = None,
-              segments=None) -> ShardQueryResult:
+              segments=None, score_cache: Optional[Dict[str, Tuple]] = None
+              ) -> ShardQueryResult:
+        """score_cache: {segment_name: (scores [nd1] f32, matched [nd1]
+        bool)} on the segment's device, from a cross-query batched kernel
+        launch (search/batching.py): a cached segment skips plan execution
+        and feeds the same downstream pipeline."""
         self.query_total += 1
         source = source or {}
         check_body(source)
@@ -119,12 +125,19 @@ class ShardSearcher:
         for seg in (segments if segments is not None
                     else self.engine.searchable_segments()):
             dev = seg.device_arrays()
-            node = qb.to_plan(self.ctx, seg)
-            if _plan_uses_kernel(node):
+            cached = score_cache.get(seg.name) if score_cache else None
+            if cached is not None:
+                # scored by a batched launch shared with the other members
+                # of this query's micro-batch
+                scores_d, matched_d = cached
                 self.kernel_segments_total += 1
             else:
-                self.scatter_segments_total += 1
-            scores_d, matched_d = P.execute(dev, node)
+                node = qb.to_plan(self.ctx, seg)
+                if _plan_uses_kernel(node):
+                    self.kernel_segments_total += 1
+                else:
+                    self.scatter_segments_total += 1
+                scores_d, matched_d = P.execute(dev, node)
             scores, matched = self._to_host(seg.device, scores_d, matched_d)
             live1 = np.concatenate([seg.live, np.zeros(1, bool)])
             matched = matched & live1

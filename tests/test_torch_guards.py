@@ -62,11 +62,32 @@ def test_default_device_raises_without_a_gpu():
             make()
 
 
+def test_no_gpu_raises_with_mesh_plane_and_batcher_on():
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a GPU")
+    from elasticsearch_tpu_torch.common.settings import Settings
+    from elasticsearch_tpu_torch.index.index_service import IndexService
+    from elasticsearch_tpu_torch.node import Node
+
+    on = {"search.batch.enabled": True, "search.batch.max_queries": 16,
+          "index.search.mesh": True, "index.number_of_shards": 3}
+    for make in (lambda: Node(Settings(on)),
+                 lambda: IndexService("i", Settings(on))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    # and the CPU index with both on serves from the mesh plane, not a
+    # silent fallback of the default device
+    svc = IndexService("i", Settings(on), device="cpu")
+    assert svc.device.type == "cpu" and svc._batcher.enabled
+
+
 def test_kernel_sources_present_and_not_built_on_import():
     names = sorted(os.path.basename(p) for p in cuda_kernels.sources())
     assert names == ["segment_sum.cu", "tile_scoring.cu"]
     assert cuda_kernels._lib is None
-    assert set(cuda_kernels.LAUNCHES) == {"tile_scoring", "segment_sum"}
+    assert set(cuda_kernels.LAUNCHES) == {
+        "tile_scoring", "tile_scoring_batched", "tile_scoring_topk",
+        "segment_sum"}
     for src in cuda_kernels.sources():
         text = open(src).read()
         assert "Replaces:" in text and "bounds it" in text

@@ -121,6 +121,7 @@ def run_request(nodes, name):
         body["size"] = N_DOCS  # every hit: no cut-off inside a tie group
     jr, tr = jn.search("idx", body), tn.search("idx", body)
     assert tr["_plane"] == jr["_plane"] == "host"
+    assert tr["_shards"] == jr["_shards"]
     assert isinstance(tr["hits"]["total"], int)
     assert_same_hits(jr, tr)
     assert jr.get("aggregations") == tr.get("aggregations")
@@ -189,3 +190,36 @@ def test_unported_requests_raise(nodes):
             "field": "year", "interval": 5}}}})
     with pytest.raises(IllegalArgumentException):
         tn.search("idx", {"query": {"match_all": {}}, "sort": ["year"]})
+
+
+def test_can_match_skips_shards_like_jax():
+    """A pure range query skips the shards whose doc-value bounds cannot
+    match (the JAX package's ``_can_match``), keeping at least one."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv("ES_TPU_PALLAS", "interpret")
+    body = {"settings": {"number_of_shards": 5, "refresh_interval": "-1"},
+            "mappings": MAPPING}
+    jn, tn = JNode(), Node(device="cpu")
+    try:
+        # (the JAX test process has 8 virtual devices, so its mesh plane
+        # would take a 5-shard index; the port's one device cannot)
+        jn.create_index("yr", {**body, "settings": {
+            **body["settings"], "search": {"mesh": False},
+            "requests": {"cache": {"enable": False}}}})
+        tn.create_index("yr", body)
+        ops = [("index", {"_index": "yr", "_id": str(i)},
+                {"title": f"w{i}", "year": 1990 + i}) for i in range(12)]
+        assert not jn.bulk(ops, refresh=True)["errors"]
+        assert not tn.bulk(ops, refresh=True)["errors"]
+        for q in ({"range": {"year": {"gte": 2000}}},
+                  {"range": {"year": {"gte": 2050}}},
+                  {"range": {"year": {"lt": 1991}}}):
+            jr = jn.search("yr", {"query": q})
+            tr = tn.search("yr", {"query": q})
+            assert tr["_plane"] == jr["_plane"] == "host"
+            assert tr["_shards"] == jr["_shards"]
+            assert tr["hits"]["total"] == jr["hits"]["total"]
+        jr = jn.search("yr", {"query": {"range": {"year": {"gte": 2000}}}})
+        assert jr["_shards"]["skipped"] == 3
+    finally:
+        mp.undo()

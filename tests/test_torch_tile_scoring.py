@@ -193,9 +193,13 @@ def test_wrapper_rejects_unported_variants_and_bad_inputs():
                                              nd_pad, tile_sub)
     args = [torch.from_numpy(x) for x in (dp, fp, lt, rl, rh, w)]
     kw = dict(t_pad=w.shape[1], cb=cb, sub=geom.tile_sub)
-    for bad in (dict(dense=False), dict(codec="packed"), dict(q_batch=2)):
+    for bad in (dict(codec="packed"),
+                dict(dense=False, tile_ids=np.arange(2, dtype=np.int32))):
         with pytest.raises(NotImplementedError):
             tts.score_tiles(*args, **kw, **bad)
+    # weights [1, t_pad] do not make a batch of two
+    with pytest.raises(ValueError):
+        tts.score_tiles(*args, **kw, q_batch=2)
     wrong = list(args)
     wrong[1] = wrong[1].double()
     with pytest.raises(TypeError):
