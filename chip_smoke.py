@@ -62,6 +62,30 @@ Run between phases 2 and 3, and after phase 4:
    inputs the path gave it; then 16 threads at ``Node.search`` (three
    rounds) to show that the micro-batcher forms batches; zero plane
    faults on every index.
+
+2c. Kernel 3 (kNN scoring, fused per-tile top-k) against its plain version
+    on the card, bit for bit (scores and docs), in three cases: 1,048,576
+    docs of 128 dims, cosine, Q = 1 and 16 (bench.py's knn_top10 shape);
+    262,144 docs of 768 dims, dot_product, Q = 4; three slots of 262,144 /
+    150,000 / 90,000 rows in one 262,144-doc geometry (rows beyond a
+    slot's count are dead), cosine, Q = 4. The vectors are bench.py's
+    generator (``RandomState(23)`` standard normal, bf16-rounded; here
+    every 97th doc has none). Each is timed beside its bound, the plain
+    version and the library call (``emb.float() @ q.T``, scale, mask and
+    ``torch.topk`` per tile, TF32 off).
+9. kNN through ``Node(device="cuda")`` on pmc-4x256k with the phase-2c
+   vectors as a ``dense_vector`` field ``emb`` (128 dims, cosine; 268 MB
+   of bf16 on the card): serial pure kNN on ``mesh_pallas`` (k 10 and
+   100, size/from), bit for bit equal to the cpu node; the same arrays on
+   the host rung (``index.search.mesh: false``, and a 1-shard index) and
+   filtered kNN, equal to the cpu node within the host rung's tolerance;
+   hybrid RRF and convex (``_hybrid`` names both planes); a 16-thread
+   burst and one ``search_batch`` of 16 (``knn_served_batched``, every
+   kernel-3 launch held bit for bit against its plain version on its real
+   inputs, every member equal to its serial response); deletes, then again
+   (no deleted doc returned, totals drop); recall@10 = 1.0 against
+   ``reference_knn_topk``; the mesh plane's kNN staging (the per-slot
+   masks) beside the segments' own vector arrays.
 """
 
 from __future__ import annotations
@@ -89,6 +113,12 @@ MESH_SEEDS = (7, 8, 9, 10)
 BURST = 16
 # the kernels each serial host-rung phase must launch
 HOST_PATH_KERNELS = ("tile_scoring", "segment_sum")
+# kNN vectors (bench.py's knn_top10 generator): 4 x 262,144 docs
+KNN_DIMS = 128
+KNN_SEED = 23
+KNN_MISSING_EVERY = 97
+# phase 2c's last case: three segments' rows in one 262,144-doc geometry
+KNN_SLOT_ROWS = (MESH_SHARD_DOCS, 150_000, 90_000)
 
 FAILS = []
 
@@ -598,13 +628,14 @@ def plane_failures(*svcs):
 
 
 def mesh_phase(torch, Node, Segment, cuda_kernels, queries, top_rank_term,
-               lat, launches):
+               lat, launches, vecs, exists):
     """pmc-4x256k: a 4-shard index whose shards each adopt one 262,144-doc
-    segment; served by the one-device mesh plane, checked against a cpu
-    node over the same arrays, against the same card node's host rung
-    (index.search.mesh: false), and for recall@10 against
-    reference_scores; then deletes, refresh (the staging is rebuilt) and
-    again. Returns (gnode, cpu node)."""
+    segment (with the kNN vectors ``vecs`` as its ``emb`` column); served
+    by the one-device mesh plane, checked against a cpu node over the same
+    arrays, against the same card node's host rung (index.search.mesh:
+    false), and for recall@10 against reference_scores; then deletes,
+    refresh (the staging is rebuilt) and again. Returns (gnode, cpu node,
+    the card's segments, the cpu node's segments)."""
     from elasticsearch_tpu_torch.ops import tile_scoring as tsc
     from elasticsearch_tpu_torch.search import query_dsl as Q
 
@@ -615,24 +646,30 @@ def mesh_phase(torch, Node, Segment, cuda_kernels, queries, top_rank_term,
         f"posting blocks ({time.perf_counter() - t0:.1f} s)")
     mapping = {"_doc": {"properties": {
         "title": {"type": "text"}, "venue": {"type": "keyword"},
-        "year": {"type": "long"}}}}
+        "year": {"type": "long"},
+        "emb": {"type": "dense_vector", "dims": KNN_DIMS,
+                "similarity": "cosine"}}}}
     gnode, cnode = Node(device="cuda"), Node(device="cpu")
-    gnode.create_index("pmc4", {"settings": {"number_of_shards": 4},
-                                "mappings": mapping})
-    gnode.create_index("pmc4h", {"settings": {
-        "number_of_shards": 4, "search": {"mesh": False}},
-        "mappings": mapping})
-    cnode.create_index("pmc4", {"settings": {"number_of_shards": 4},
-                                "mappings": mapping})
-    gsegs = []
+    for node in (gnode, cnode):
+        node.create_index("pmc4", {"settings": {"number_of_shards": 4},
+                                   "mappings": mapping})
+        node.create_index("pmc4h", {"settings": {
+            "number_of_shards": 4, "search": {"mesh": False}},
+            "mappings": mapping})
+    gsegs, csegs = [], []
     for sh, corpus in enumerate(corpora):
         arrays = corpus_segment_arrays(corpus, id_prefix=f"s{sh}p")
+        rows = slice(sh * MESH_SHARD_DOCS, (sh + 1) * MESH_SHARD_DOCS)
+        arrays["vector_columns"] = {"emb": dict(
+            vectors=vecs[rows], exists=exists[rows], dims=KNN_DIMS,
+            count=int(exists[rows].sum()))}
         gs = Segment.from_arrays(f"pmc4_{sh}_seg_1", device="cuda", **arrays)
         cs = Segment.from_arrays(f"pmc4_{sh}_seg_1", device="cpu", **arrays)
         for index in ("pmc4", "pmc4h"):
             gnode.indices[index].shards[sh].engine.adopt_segment(gs)
-        cnode.indices["pmc4"].shards[sh].engine.adopt_segment(cs)
+            cnode.indices[index].shards[sh].engine.adopt_segment(cs)
         gsegs.append(gs)
+        csegs.append(cs)
     fracs = [seg._block_frac() for seg in gsegs]
 
     def ref(terms):
@@ -675,9 +712,10 @@ def mesh_phase(torch, Node, Segment, cuda_kernels, queries, top_rank_term,
     for sh in range(4):
         for i in range(0, MESH_SHARD_DOCS, 997):
             for node, index in ((gnode, "pmc4"), (gnode, "pmc4h"),
-                                (cnode, "pmc4")):
+                                (cnode, "pmc4"), (cnode, "pmc4h")):
                 node.delete_doc(index, f"s{sh}p{i}", routing=routing[sh])
-    for node, index in ((gnode, "pmc4"), (gnode, "pmc4h"), (cnode, "pmc4")):
+    for node, index in ((gnode, "pmc4"), (gnode, "pmc4h"), (cnode, "pmc4"),
+                        (cnode, "pmc4h")):
         node.refresh(index)
     check(not gnode.get_doc("pmc4", "s2p997", routing=routing[2])["found"],
           "pmc4 deleted doc gone")
@@ -698,7 +736,7 @@ def mesh_phase(torch, Node, Segment, cuda_kernels, queries, top_rank_term,
     host_copy_note(gnode, "pmc4", 2 * len(reqs), "phase 7 mesh plane")
     host_copy_note(gnode, "pmc4h", 2 * len(reqs), "phase 7 host rung")
     log(f"[phase 7] planes: {json.dumps(svc.search_stats()['planes'])}")
-    return gnode, cnode
+    return gnode, cnode, gsegs, csegs
 
 
 def _same_exact(got, want):
@@ -838,6 +876,439 @@ def burst_phase(torch, cuda_kernels, tsc, queries, lat, launches, targets,
 
 
 # ----------------------------------------------------------------------
+# Kernel 3 (kNN) and the dense-vector path
+# ----------------------------------------------------------------------
+
+
+def knn_vectors(n, dims=KNN_DIMS, seed=KNN_SEED):
+    """bench.py's knn_top10 vectors: standard normal in 100k-row chunks,
+    rounded to bf16; every 97th doc has none (zero row, exists False).
+    Returns (vectors [n, dims] f32, exists [n] bool, the generator, which
+    goes on to draw the queries as bench.py's does)."""
+    from elasticsearch_tpu_torch.ops.knn_scoring import bf16_round
+
+    rng = np.random.RandomState(seed)
+    vecs = np.empty((n, dims), np.float32)
+    for lo in range(0, n, 100_000):
+        hi = min(lo + 100_000, n)
+        vecs[lo:hi] = bf16_round(
+            rng.standard_normal((hi - lo, dims)).astype(np.float32))
+    exists = np.ones(n, bool)
+    exists[::KNN_MISSING_EVERY] = False
+    vecs[~exists] = 0.0
+    return vecs, exists, rng
+
+
+def draw_qvec(rng, vecs):
+    """bench.py's draw_qvec: a random doc's vector plus 0.25 x noise."""
+    base = vecs[rng.randint(len(vecs))]
+    return base + 0.25 * rng.standard_normal(vecs.shape[1]).astype(np.float32)
+
+
+def knn_case(torch, dev, timer, name, slots, nd_geom, metric, qraw, k):
+    """Kernel 3 against its plain version on the card for one case.
+    ``slots``: [(vectors f32 [n_rows, dims], exists [n_rows] bool)], each a
+    segment's rows in one ``nd_geom``-doc geometry. Checks scores and docs
+    bit for bit; returns the case's entry (times, bound, max_abs_err)."""
+    from elasticsearch_tpu_torch.ops import knn_scoring as knn
+
+    dims = slots[0][0].shape[1]
+    d_pad = knn.pad_dims(dims)
+    geom = knn.knn_geometry(nd_geom, d_pad)
+    sub, w, n_tiles = geom.tile_sub, geom.tile_w, geom.n_tiles
+    qmat = torch.from_numpy(np.stack([
+        knn.normalize_query(q, metric, d_pad) for q in qraw])).to(dev)
+    q_batch = qmat.shape[0]
+    args = []
+    live_rows = 0
+    for vecs, exists in slots:
+        n_rows = vecs.shape[0]
+        emb = torch.zeros((n_rows, d_pad), dtype=torch.bfloat16, device=dev)
+        emb[:, :dims] = torch.from_numpy(vecs).to(dev)
+        scale = (torch.from_numpy(knn.vector_scale_column(vecs, metric)[:, 0])
+                 .to(dev) if metric == "cosine" else None)
+        mask = torch.zeros(nd_geom, dtype=torch.float32, device=dev)
+        mask[:n_rows] = torch.from_numpy(exists.astype(np.float32)).to(dev)
+        live_rows += int(exists.sum())
+        args.append((emb, scale, mask, n_rows))
+
+    def kernel():
+        return [knn.knn_score_tiles(e, sc, m, qmat, sub=sub, k=k,
+                                    q_batch=q_batch, n_rows=n)
+                for e, sc, m, n in args]
+
+    def plain():
+        return [knn.knn_score_tiles_plain(e, sc, m, qmat, sub=sub, k=k,
+                                          n_rows=n)
+                for e, sc, m, n in args]
+
+    def library():
+        out = []
+        for e, sc, m, n in args:
+            s = e.float() @ qmat.t()
+            if sc is not None:
+                s = s * sc[:n, None]
+            s = s * 0.5 + 0.5
+            full = torch.full((nd_geom, q_batch), float("-inf"),
+                              device=dev)
+            full[:n] = torch.where(m[:n, None] > 0, s,
+                                   torch.full_like(s, float("-inf")))
+            out.append(torch.topk(full.t().reshape(q_batch, n_tiles, w),
+                                  min(k, w), dim=2))
+        return out
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = 0.0
+    for (ks, kd), (ps, pd) in zip(got, want):
+        fin = torch.isfinite(ps)
+        if bool(fin.any()):
+            err = max(err, float((ks[fin] - ps[fin]).abs().max()))
+        check(torch.equal(ks, ps) and torch.equal(kd, pd),
+              f"knn_scoring bit-equal plain ({name}, Q={q_batch})")
+    # bytes each function must move: the embeddings (and inverse norms)
+    # of the rows it scores, each slot's mask, the queries, the
+    # candidates; operations: a multiply and an add per scored doc,
+    # dimension and query, and one compare per doc and query to select
+    nbytes = (live_rows * d_pad * 2 + (live_rows * 4 if metric == "cosine"
+                                       else 0)
+              + len(slots) * nd_geom * 4 + q_batch * d_pad * 4
+              + len(slots) * n_tiles * q_batch * min(k, w) * 8)
+    ops = 2 * live_rows * d_pad * q_batch + len(slots) * nd_geom * q_batch
+    b = bound(nbytes, ops)
+    entry = {"case": name, "docs": nd_geom, "slots": len(slots),
+             "rows": [a[3] for a in args], "live_rows": live_rows,
+             "dims": dims, "d_pad": d_pad, "metric": metric,
+             "q_batch": q_batch, "k": min(k, w), "sub": sub,
+             "n_tiles": n_tiles, "max_abs_err": err,
+             "ms": timer.ms(kernel),
+             "plain_ms": timer.ms(plain, reps=3, warmup=1),
+             "library_ms": timer.ms(library, reps=10),
+             "bound_ms": b[0], "bound_by": b[1],
+             "bound_bytes": nbytes, "bound_ops": ops}
+    log(f"[phase 2c] knn_scoring {json.dumps(entry)}")
+    return entry
+
+
+def knn_kernel_phase(torch, dev, timer, vecs, exists, qrng):
+    """Phase 2c: kernel 3 against its plain version in three cases."""
+    from elasticsearch_tpu_torch.ops.knn_scoring import bf16_round
+
+    entries = []
+    n = vecs.shape[0]
+    for q_batch in (1, 16):
+        qraw = [draw_qvec(qrng, vecs) for _ in range(q_batch)]
+        entries.append(knn_case(torch, dev, timer, "1M-d128-cosine",
+                                [(vecs, exists)], n, "cosine", qraw, 16))
+    rng = np.random.RandomState(KNN_SEED + 1)
+    wide = bf16_round(
+        rng.standard_normal((MESH_SHARD_DOCS, 768)).astype(np.float32))
+    wide_exists = exists[:MESH_SHARD_DOCS].copy()
+    wide[~wide_exists] = 0.0
+    qraw = [draw_qvec(rng, wide) for _ in range(4)]
+    entries.append(knn_case(torch, dev, timer, "262k-d768-dot_product",
+                            [(wide, wide_exists)], MESH_SHARD_DOCS,
+                            "dot_product", qraw, 16))
+    del wide
+    slots = []
+    for i, rows in enumerate(KNN_SLOT_ROWS):
+        lo = i * MESH_SHARD_DOCS
+        slots.append((vecs[lo: lo + rows], exists[lo: lo + rows]))
+    qraw = [draw_qvec(qrng, vecs) for _ in range(4)]
+    entries.append(knn_case(torch, dev, timer, "3-slots-n_rows-lt-geometry",
+                            slots, MESH_SHARD_DOCS, "cosine", qraw, 16))
+    torch.cuda.empty_cache()
+    return entries
+
+
+@contextlib.contextmanager
+def recording_knn_launches(knn):
+    """While the block runs, keep (args, kwargs, outputs) of every
+    ``knn_score_tiles`` call that launches kernel 3."""
+    orig = knn.knn_score_tiles
+    kept = []
+
+    def recording(*args, **kw):
+        out = orig(*args, **kw)
+        kept.append((args, kw, out))
+        return out
+
+    knn.knn_score_tiles = recording
+    try:
+        yield kept
+    finally:
+        knn.knn_score_tiles = orig
+
+
+def same_knn_response(gr, cr, tol, what):
+    """Totals exact, scores within ``tol`` (absolute), ids exact except
+    among hits whose scores tie within ``tol`` (the host rung sums in
+    cuBLAS's order on the card and BLAS's on the host)."""
+    ok = gr["hits"]["total"] == cr["hits"]["total"]
+    gh, ch = gr["hits"]["hits"], cr["hits"]["hits"]
+    ok = ok and len(gh) == len(ch)
+    if ok and gh:
+        gs = np.array([h["_score"] for h in gh])
+        cs = np.array([h["_score"] for h in ch])
+        ok = bool(np.all(np.abs(gs - cs) <= tol))
+        i = 0
+        while ok and i < len(ch):
+            j = i + 1
+            while j < len(ch) and abs(cs[j] - cs[i]) <= tol:
+                j += 1
+            ok = {h["_id"] for h in gh[i:j]} == {h["_id"] for h in ch[i:j]}
+            i = j
+    check(ok, f"cuda response equals cpu response within {tol}: {what}")
+
+
+def knn_phase(torch, cuda_kernels, gnode, cnode, gsegs, csegs, vecs, exists,
+              qrng, lat, launches, errs):
+    """Phase 9: kNN and hybrid through Node on pmc-4x256k + ``emb`` (the
+    nodes and segments of phase 7, with a 1-shard index over shard 0's
+    segment added); returns the kNN staging bytes."""
+    import threading
+
+    from elasticsearch_tpu_torch.ops import knn_scoring as knn
+
+    # cosine scores: |error| <= 1e-6 + 1e-6 * sum_j |x_j q_j| / |x| <= 2e-6
+    tol = 2e-6
+    mapping = {"_doc": {"properties": {
+        "title": {"type": "text"}, "venue": {"type": "keyword"},
+        "year": {"type": "long"},
+        "emb": {"type": "dense_vector", "dims": KNN_DIMS,
+                "similarity": "cosine"}}}}
+    for node, segs in ((gnode, gsegs), (cnode, csegs)):
+        node.create_index("pmc1", {"settings": {"number_of_shards": 1},
+                                   "mappings": mapping})
+        node.indices["pmc1"].shards[0].engine.adopt_segment(segs[0])
+    svc = gnode.indices["pmc4"]
+    routing = _routing_for_shards(4)
+
+    def index_of(doc_id):
+        sh, d = doc_id[1:].split("p")
+        return int(sh) * MESH_SHARD_DOCS + int(d)
+
+    def live_mask():
+        return np.concatenate([seg.live[: seg.num_docs] for seg in gsegs])
+
+    qs = [draw_qvec(qrng, vecs) for _ in range(6 + BURST)]
+
+    def spec(i, k=10, **kw):
+        return {"field": "emb", "query_vector": qs[i].tolist(), "k": k, **kw}
+
+    serial = [
+        ("knn_k10", {"knn": spec(0)}, 0),
+        ("knn_k100", {"knn": spec(1, k=100)}, 1),
+        ("knn_size_from", {"knn": spec(2), "size": 5, "from": 3}, None),
+        ("knn_clause", {"query": {"knn": spec(3)}, "size": 10}, 3),
+    ]
+    filtered = [("knn_filtered", {"knn": spec(
+        4, filter={"range": {"year": {"gte": 2000}}})}, None)]
+    hybrid = [
+        ("hybrid_rrf", {"query": {"match": {"title": "t00050 t00051"}},
+                        "knn": spec(5), "size": 10,
+                        "rank": {"rrf": {"rank_constant": 60,
+                                         "window_size": 50}}}),
+        ("hybrid_convex", {"query": {"match": {"title": "t00052 t00060"}},
+                           "knn": spec(5, boost=2.0), "size": 10}),
+    ]
+    recalls = []
+
+    def timed(node, index, body, label, reps=3):
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            r = node.search(index, dict(body))
+            torch.cuda.synchronize()
+            lat.setdefault(f"9/{label}@{r['_plane']}", []).append(
+                (time.perf_counter() - t0) * 1000)
+        return r
+
+    def serve_all(tag):
+        # the first kNN query after a (re)staging pays it: timed apart
+        t_first = time.perf_counter()
+        gnode.search("pmc4", {"knn": spec(0)})
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t_first) * 1000
+        lat.setdefault("9/knn_first_query_after_staging@mesh_pallas",
+                       []).append(ms)
+        log(f"[phase 9{tag}] first kNN query (mesh staging, and the "
+            f"segments' vector staging on the first) {ms:.1f} ms")
+        out = {}
+        for kind, body, qi in serial:
+            gr = timed(gnode, "pmc4", body, kind)
+            cr = cnode.search("pmc4", dict(body))
+            check(gr["_plane"] == cr["_plane"] == "mesh_pallas",
+                  f"phase 9{tag} {kind} on mesh_pallas (got {gr['_plane']}, "
+                  f"cpu {cr['_plane']})")
+            check(_same_exact(gr, cr),
+                  f"phase 9{tag} {kind}: mesh_pallas equals the cpu node "
+                  f"bit for bit")
+            for index, plane in (("pmc4h", "host"), ("pmc1", "host")):
+                ga = timed(gnode, index, body, f"{kind} ({index})")
+                ca = cnode.search(index, dict(body))
+                check(ga["_plane"] == ca["_plane"] == plane,
+                      f"phase 9{tag} {kind} on {index}: plane "
+                      f"{ga['_plane']}, want {plane}")
+                same_knn_response(ga, ca, tol, f"phase 9{tag} {kind} "
+                                  f"{index}")
+            same_knn_response(gr, gnode.search("pmc4h", dict(body)), tol,
+                              f"phase 9{tag} {kind}: mesh vs host rung")
+            if qi is not None:
+                ref_s, ref_i = knn.reference_knn_topk(
+                    vecs, exists & live_mask(), qs[qi], 10, "cosine")
+                got = [index_of(h["_id"]) for h in gr["hits"]["hits"][:10]]
+                ref = knn.reference_knn_scores(vecs, qs[qi], "cosine")
+                hit = sum(1 for d in got if ref[d] >= ref_s[-1] - tol)
+                recalls.append(hit / len(ref_i))
+            out[kind] = gr
+        for kind, body, _ in filtered:
+            gr = timed(gnode, "pmc4", body, kind)
+            cr = cnode.search("pmc4", dict(body))
+            check(gr["_plane"] == cr["_plane"] == "host",
+                  f"phase 9{tag} {kind} on host (got {gr['_plane']})")
+            same_knn_response(gr, cr, tol, f"phase 9{tag} {kind}")
+        for kind, body in hybrid:
+            gr = timed(gnode, "pmc4", body, kind)
+            cr = cnode.search("pmc4", dict(body))
+            want = {"lexical_plane": "mesh_pallas",
+                    "knn_plane": "mesh_pallas",
+                    "fusion": "rrf" if "rank" in body else "convex"}
+            check(gr.get("_hybrid") == cr.get("_hybrid") == want,
+                  f"phase 9{tag} {kind}: _hybrid {gr.get('_hybrid')}")
+            same_response(gr, cr, f"phase 9{tag} {kind}")
+        return out
+
+    torch.cuda.synchronize()
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    before = serve_all("")
+    # the mesh plane's kNN staging: per-slot masks only, the embeddings
+    # are the segments' own
+    executor = svc._mesh_search._executor
+    knn_entry = executor._knn.get("emb")
+    check(isinstance(knn_entry, dict), "pmc4 kNN plane staged")
+    mask_bytes = knn_entry["mask"].numel() * knn_entry["mask"].element_size()
+    own = 0
+    for i, seg in enumerate(executor.segments):
+        dev = seg.device_arrays()
+        check(knn_entry["slots"][i]["emb"] is dev["k_vec_emb"],
+              f"slot {i} reads its segment's own embeddings")
+        own += sum(dev[k].numel() * dev[k].element_size() for k in
+                   ("k_vec_emb", "k_vecnorm_emb", "k_vecexists_emb"))
+    check(mask_bytes <= 4 * MESH_SHARD_DOCS * 4 + 1024,
+          f"mesh kNN staging is the per-slot masks only ({mask_bytes} B)")
+    log(f"[phase 9] mesh kNN staging {mask_bytes / 1e6:.3f} MB (per-slot "
+        f"masks) beside the segments' own vector arrays {own / 1e6:.3f} MB; "
+        f"whole mesh staging {executor.staged_bytes() / 1e9:.3f} GB")
+
+    # bursts: one search_batch of 16 and 16 threads at Node.search
+    bodies = [{"knn": spec(6 + i)} for i in range(BURST)]
+    solo = [gnode.search("pmc4", dict(b)) for b in bodies]
+    dec = svc._mesh_search.decisions
+    served_before = dec.get("mesh_pallas.knn_served_batched", 0)
+    torch.cuda.synchronize()
+    launched_before = cuda_kernels.LAUNCHES["knn_scoring"]
+    with recording_knn_launches(knn) as kept:
+        t1 = time.perf_counter()
+        outs = svc.search_batch([dict(b) for b in bodies])
+        torch.cuda.synchronize()
+        lat.setdefault(f"9/search_batch[{BURST}]@knn", []).append(
+            (time.perf_counter() - t1) * 1000)
+        for i, (got, want) in enumerate(zip(outs, solo)):
+            check(isinstance(got, dict) and got["_plane"] == "mesh_pallas",
+                  f"kNN burst member {i} on mesh_pallas")
+            check(_same_exact(got, want),
+                  f"kNN burst member {i} equals its serial response")
+        for _round in range(3):
+            got = {}
+            start = threading.Barrier(BURST)
+
+            def worker(i):
+                start.wait()
+                t2 = time.perf_counter()
+                got[i] = gnode.search("pmc4", dict(bodies[i]))
+                torch.cuda.synchronize()
+                lat.setdefault(f"9/knn_threaded@{got[i]['_plane']}",
+                               []).append((time.perf_counter() - t2) * 1000)
+
+            threads = [threading.Thread(target=worker, args=(i,))
+                       for i in range(BURST)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(300.0)
+                check(not t.is_alive(), "threaded kNN search finished")
+            for i in range(BURST):
+                check(_same_exact(got.get(i), solo[i]),
+                      f"threaded kNN member {i} equals its serial response")
+    torch.cuda.synchronize()
+    check(len(kept) == cuda_kernels.LAUNCHES["knn_scoring"] - launched_before,
+          "every kernel-3 launch of the kNN bursts was kept for the plain "
+          "check")
+    served = dec.get("mesh_pallas.knn_served_batched", 0) - served_before
+    check(served >= BURST, f"kNN bursts served batched ({served} members)")
+    log(f"[phase 9] kNN bursts: {served} members knn_served_batched, "
+        f"{len(kept)} kernel-3 launches kept")
+    for n, (args, kw, out) in enumerate(kept):
+        plain = knn.knn_score_tiles_plain(
+            args[0], args[1], args[2], args[3], sub=kw["sub"],
+            k=min(kw["k"], kw["sub"] * knn.LANE), n_rows=kw["n_rows"])
+        torch.cuda.synchronize()
+        fin = torch.isfinite(plain[0])
+        if bool(fin.any()):
+            errs["knn"] = max(errs["knn"], float(
+                (out[0][fin] - plain[0][fin]).abs().max()))
+        check(torch.equal(out[0], plain[0]) and torch.equal(out[1], plain[1]),
+              f"main-path kNN launch {n} (rows {kw['n_rows']}, Q "
+              f"{args[3].shape[0]}, k {kw['k']}) equals plain")
+
+    # deletes, then again
+    n_deleted = n_vec_deleted = 0
+    for sh in range(4):
+        for i in range(991, MESH_SHARD_DOCS, 991):
+            doc_id = f"s{sh}p{i}"
+            hosts = [(gnode, "pmc4"), (gnode, "pmc4h"), (cnode, "pmc4"),
+                     (cnode, "pmc4h")]
+            if sh == 0:
+                hosts += [(gnode, "pmc1"), (cnode, "pmc1")]
+            res = [node.delete_doc(index, doc_id, routing=routing[sh])
+                   for node, index in hosts]
+            if res[0]["result"] == "deleted":
+                n_deleted += 1
+                n_vec_deleted += int(exists[sh * MESH_SHARD_DOCS + i])
+    for node in (gnode, cnode):
+        for index in ("pmc4", "pmc4h", "pmc1"):
+            node.refresh(index)
+    after = serve_all(" after deletes")
+    check(after["knn_k10"]["hits"]["total"]
+          == before["knn_k10"]["hits"]["total"] - n_vec_deleted,
+          f"kNN total drops by the {n_vec_deleted} deleted vector docs")
+    for kind, r in after.items():
+        ids = {h["_id"] for h in r["hits"]["hits"]}
+        check(not any(int(x.split("p")[1]) % 991 == 0
+                      and int(x.split("p")[1]) > 0 for x in ids),
+              f"phase 9 {kind}: no deleted doc returned")
+    torch.cuda.synchronize()
+    p9 = dict(cuda_kernels.LAUNCHES)
+    log(f"[phase 9] {time.perf_counter() - t0:.1f} s; deleted {n_deleted} "
+        f"docs ({n_vec_deleted} with a vector); kernel launches: {p9}")
+    check(p9["knn_scoring"] > 0, "phase 9 launched knn_scoring")
+    for k, v in p9.items():
+        launches[k] += v
+    check(len(recalls) > 0 and min(recalls) == 1.0,
+          f"kNN recall@10 = 1.0 against reference_knn_topk "
+          f"({len(recalls)} queries)")
+    log(f"[phase 9] recall@10 over {len(recalls)} queries: min "
+        f"{min(recalls) if recalls else None}")
+    fails = plane_failures(*(node.indices[i] for node in (gnode, cnode)
+                             for i in ("pmc4", "pmc4h", "pmc1")))
+    check(not any(fails), f"phase 9 zero plane faults (got {fails})")
+    log(f"[phase 9] planes: {json.dumps(svc.search_stats()['planes'])}")
+    return {"mesh_knn_staging_bytes": mask_bytes,
+            "segment_vector_bytes": own}
+
+
+# ----------------------------------------------------------------------
 
 
 def main() -> int:
@@ -855,6 +1326,9 @@ def main() -> int:
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
+    # full float32 products everywhere (the kNN host rung refuses TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     # ---------------- phase 1: device ----------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -994,6 +1468,16 @@ def main() -> int:
     batch_entries, batch_errs = batch_kernels_phase(
         torch, dev, gseg, gdev, timer, queries, top_rank_term)
 
+    # ---------------- phase 2c: kernel 3 vs plain --------------------------
+    t0 = time.perf_counter()
+    knn_vecs, knn_exists, knn_rng = knn_vectors(4 * MESH_SHARD_DOCS)
+    log(f"[phase 2c] {knn_vecs.shape[0]} x {KNN_DIMS} bf16-grid vectors "
+        f"({int(knn_exists.sum())} docs with one) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    knn_entries = knn_kernel_phase(torch, dev, timer, knn_vecs, knn_exists,
+                                   knn_rng)
+    batch_errs["knn"] = max(e["max_abs_err"] for e in knn_entries)
+
     lat = {}
     launches = {k: 0 for k in cuda_kernels.LAUNCHES}
 
@@ -1098,8 +1582,9 @@ def main() -> int:
     copy4 = host_copy_note(g4, "pmc", 2 * len(reqs4), "phase 4")
 
     # ---------------- phase 7: the mesh plane at real size ---------------
-    g7, c7 = mesh_phase(torch, Node, Segment, cuda_kernels, queries,
-                        top_rank_term, lat, launches)
+    g7, c7, g7segs, c7segs = mesh_phase(
+        torch, Node, Segment, cuda_kernels, queries, top_rank_term, lat,
+        launches, knn_vecs, knn_exists)
 
     # ---------------- phase 8: bursts on both batched rungs --------------
     burst_phase(torch, cuda_kernels, tsc, queries, lat, launches,
@@ -1108,6 +1593,11 @@ def main() -> int:
     fails = plane_failures(g7.indices["pmc4"], g7.indices["pmc4h"],
                            c7.indices["pmc4"], gnode.indices["docs"])
     check(not any(fails), f"zero plane faults (got {fails})")
+
+    # ---------------- phase 9: kNN and hybrid through Node ---------------
+    knn_staging = knn_phase(torch, cuda_kernels, g7, c7, g7segs, c7segs,
+                            knn_vecs, knn_exists, knn_rng, lat, launches,
+                            batch_errs)
 
     # ---------------- phase 5: latency summary ---------------------------
     for kind, xs in sorted(lat.items()):
@@ -1164,6 +1654,20 @@ def main() -> int:
                          "bound_ms": bat["topk_q1_bound_ms"]},
          "ladder_batch": {k: v for k, v in batch_entries["ladder"].items()
                           if k.startswith(("topk", "sub", "union"))}},
+        {"name": "knn_scoring", "route": "cuda",
+         "source": "elasticsearch_tpu_torch/csrc/knn_scoring.cu",
+         "replaces": "elasticsearch_tpu/ops/pallas_knn.py:204",
+         "launches": launches["knn_scoring"],
+         "max_abs_err": batch_errs["knn"],
+         "ms": knn_entries[0]["ms"], "plain_ms": knn_entries[0]["plain_ms"],
+         "bound_ms": knn_entries[0]["bound_ms"],
+         "bound_by": knn_entries[0]["bound_by"],
+         "library_ms": knn_entries[0]["library_ms"],
+         "q_batch": knn_entries[0]["q_batch"], "k": knn_entries[0]["k"],
+         "cases": [{key: e[key] for key in (
+             "case", "q_batch", "rows", "d_pad", "metric", "ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms")} for e in knn_entries],
+         **knn_staging},
     ]}
     log(f"[phase 6] total {time.perf_counter() - t_start:.1f} s")
     if FAILS:

@@ -12,7 +12,11 @@ port's path reads, each with the JAX package's default and validator:
   ``Node``): ``search.batch.enabled`` (true), ``search.batch.window_ms``
   (0.2, >= 0) and ``search.batch.max_queries`` (16, 1..64).
   ``search.batch.max_window_ms`` comes with admission control's adaptive
-  window, the only reader of it.
+  window, the only reader of it;
+- the dense-vector plane: ``search.knn.enabled`` (true) and
+  ``search.knn.tile_sub`` (64; one of 8, 16, 32, 64, 128), node scope and
+  seeded into each index like ``search.batch.*``, and
+  ``index.mapping.dense_vector.max_dims`` (1024, >= 1).
 """
 
 from __future__ import annotations
@@ -173,6 +177,11 @@ class Setting:
     def get(self, settings: Settings):
         if self.kind == "int":
             v = settings.get_int(self.key, self.default)
+            if self.choices is not None and v not in self.choices:
+                raise IllegalArgumentException(
+                    f"Failed to parse value [{v}] for setting [{self.key}]: "
+                    f"must be one of "
+                    f"{', '.join(str(c) for c in sorted(self.choices))}")
         elif self.kind == "float":
             v = settings.get_float(self.key, self.default)
         elif self.kind == "bool":
@@ -216,3 +225,13 @@ SEARCH_BATCH_WINDOW_MS = Setting("search.batch.window_ms", 0.2, "float",
                                  min_value=0.0)
 SEARCH_BATCH_MAX_QUERIES = Setting("search.batch.max_queries", 16, "int",
                                    1, 64)
+
+# --- dense-vector kNN (ops/knn_scoring.py, the mesh plane's kNN rung) ---
+# false: every vector query runs the host rung (same ids, scores within
+# the host rung's tolerance)
+SEARCH_KNN_ENABLED = Setting("search.knn.enabled", True, "bool")
+# doc-tile sublane count of the kNN kernel: W = tile_sub * 128 docs a tile
+SEARCH_KNN_TILE_SUB = Setting("search.knn.tile_sub", 64, "int",
+                              choices={8, 16, 32, 64, 128})
+INDEX_MAPPING_DENSE_VECTOR_MAX_DIMS = Setting(
+    "index.mapping.dense_vector.max_dims", 1024, "int", min_value=1)

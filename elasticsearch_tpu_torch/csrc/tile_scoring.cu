@@ -48,6 +48,7 @@
 // count; then k rounds of a block-wide argmax by (score descending, local
 // doc ascending), each winner masked out, empty slots -inf / -1, doc ids
 // tile * W + local. Once a round finds nothing the rest are filled empty.
+// The selection lives in block_topk.cuh, shared with the kNN kernel.
 //
 // Each 128-float row of the accumulator is padded by one float so the
 // transposed reads of the epilogue (the JAX output layout [n_tiles * 128,
@@ -56,6 +57,8 @@
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "block_topk.cuh"
 
 namespace {
 
@@ -167,12 +170,14 @@ __global__ void __launch_bounds__(kThreads) tile_scoring_dense_kernel(
   }
 }
 
-__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
-  return v > bv || (v == bv && i < bi);
-}
+// the accumulator position of local doc ``local`` (rows padded by one)
+struct PaddedAt {
+  __device__ int operator()(int local) const { return padded(local); }
+};
 
 // Shared memory: acc [w + sub] f32, order [t_pad] i32, key [t_pad] i32,
-// n_live i32, red_v [kWarps] f32, red_i [kWarps] i32, sel_v f32, sel_i i32.
+// n_live i32, red_v [kWarps] f32, red_i [kWarps] i32, sel_v f32 (and one
+// spare i32).
 __global__ void __launch_bounds__(kThreads) tile_scoring_topk_kernel(
     const int* __restrict__ docs, const float* __restrict__ frac,
     const float* __restrict__ live_t, const int* __restrict__ row_lo,
@@ -190,7 +195,6 @@ __global__ void __launch_bounds__(kThreads) tile_scoring_topk_kernel(
   float* red_v = reinterpret_cast<float*>(n_live_slot + 1);
   int* red_i = reinterpret_cast<int*>(red_v + kWarps);
   float* sel_v = reinterpret_cast<float*>(red_i + kWarps);
-  int* sel_i = reinterpret_cast<int*>(sel_v + 1);
   const int t = blockIdx.x / q_batch;
   const int q = blockIdx.x - t * q_batch;
   const int warp = threadIdx.x >> 5;
@@ -230,56 +234,9 @@ __global__ void __launch_bounds__(kThreads) tile_scoring_topk_kernel(
   }
   __syncthreads();
 
-  float* s_out = out_scores + row * k;
-  int* d_out = out_docs + row * k;
-  for (int r = 0; r < k; ++r) {
-    float bv = -CUDART_INF_F;
-    int bi = w;  // loses every tie against a real doc
-    for (int local = threadIdx.x; local < w; local += blockDim.x) {
-      const float v = acc[padded(local)];
-      if (better(v, local, bv, bi)) {
-        bv = v;
-        bi = local;
-      }
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(0xffffffffu, bv, off);
-      const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-      if (better(ov, oi, bv, bi)) {
-        bv = ov;
-        bi = oi;
-      }
-    }
-    if (lane_id == 0) {
-      red_v[warp] = bv;
-      red_i[warp] = bi;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      float v = red_v[0];
-      int i = red_i[0];
-      for (int x = 1; x < kWarps; ++x) {
-        if (better(red_v[x], red_i[x], v, i)) {
-          v = red_v[x];
-          i = red_i[x];
-        }
-      }
-      if (v == -CUDART_INF_F) {
-        for (int rr = r; rr < k; ++rr) {
-          s_out[rr] = -CUDART_INF_F;
-          d_out[rr] = -1;
-        }
-      } else {
-        s_out[r] = v;
-        d_out[r] = static_cast<int>(t) * w + i;
-        acc[padded(i)] = -CUDART_INF_F;
-      }
-      *sel_v = v;
-      *sel_i = i;
-    }
-    __syncthreads();
-    if (*sel_v == -CUDART_INF_F) break;
-  }
+  estpu::block_topk<kWarps>(acc, PaddedAt(), w, k, static_cast<int>(t) * w,
+                            out_scores + row * k, out_docs + row * k, red_v,
+                            red_i, sel_v);
 }
 
 }  // namespace

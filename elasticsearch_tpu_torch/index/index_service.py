@@ -13,9 +13,18 @@ shards by murmur3 of their id (or routing). A search goes:
    phase shard by shard, the merge of the shards' top-k, the
    aggregations over every shard's segment views, and fetch.
 
-``search_batch`` has two rungs: the mesh plane's batched fused top-k
-launch (``IndexMeshSearch.query_batch``), else one batched dense launch
-per segment (``_host_batch_scores``) feeding each member's host pipeline
+A ``knn`` section alone is a pure vector search, normalized into the
+``knn`` query clause: a plain top-k vector search goes to the mesh
+plane's kNN rung (kernel 3), anything else (a filter, a boost, one shard)
+to the host rung. With ``query`` beside it, the request is hybrid
+(``_search_hybrid``): each side runs its own plane ladder, then reciprocal
+rank fusion (``rank: {rrf: ...}``) or convex score fusion.
+
+``search_batch`` splits pure-kNN members off onto one batched kernel-3
+launch (``IndexMeshSearch.query_knn_batch``); the others take two rungs:
+the mesh plane's batched fused top-k launch
+(``IndexMeshSearch.query_batch``), else one batched dense launch per
+segment (``_host_batch_scores``) feeding each member's host pipeline
 through score caches; members neither rung can share run serially.
 Unlike the JAX package, ``_host_batch_scores`` catches nothing around the
 batched launch: a kernel fault raises instead of re-serving the members
@@ -34,7 +43,9 @@ from typing import Dict, List, Optional
 
 from elasticsearch_tpu_torch.analysis.analyzers import AnalysisRegistry
 from elasticsearch_tpu_torch.common.device import resolve_device
+from elasticsearch_tpu_torch.common.errors import IllegalArgumentException
 from elasticsearch_tpu_torch.common.settings import (
+    INDEX_MAPPING_DENSE_VECTOR_MAX_DIMS,
     INDEX_NUMBER_OF_SHARDS,
     INDEX_SEARCH_MESH,
     INDEX_SEARCH_MESH_MAX_SLOTS,
@@ -43,6 +54,8 @@ from elasticsearch_tpu_torch.common.settings import (
     SEARCH_BATCH_ENABLED,
     SEARCH_BATCH_MAX_QUERIES,
     SEARCH_BATCH_WINDOW_MS,
+    SEARCH_KNN_ENABLED,
+    SEARCH_KNN_TILE_SUB,
     Settings,
 )
 from elasticsearch_tpu_torch.index.shard import IndexShard
@@ -53,6 +66,7 @@ from elasticsearch_tpu_torch.search.batching import (
     BatchStats,
     MicroBatcher,
     batchable_body,
+    knn_batch_spec,
 )
 from elasticsearch_tpu_torch.search.service import (
     check_body,
@@ -72,12 +86,15 @@ class IndexService:
         # the mesh plane's settings are read when it first serves; parse
         # them now so a bad value fails index creation
         for setting in (INDEX_SEARCH_MESH_MAX_SLOTS, INDEX_SEARCH_MESH_PLANE,
-                        INDEX_SEARCH_PLANE_QUARANTINE_COOLDOWN):
+                        INDEX_SEARCH_PLANE_QUARANTINE_COOLDOWN,
+                        SEARCH_KNN_ENABLED, SEARCH_KNN_TILE_SUB):
             setting.get(settings)
         self.analyzers = AnalysisRegistry(settings)
         self.mapper_service = MapperService(
             self.analyzers, mapping,
-            similarity_service=SimilarityService(settings))
+            similarity_service=SimilarityService(settings),
+            dense_vector_max_dims=INDEX_MAPPING_DENSE_VECTOR_MAX_DIMS.get(
+                settings))
         self.shards: Dict[int, IndexShard] = {
             sid: IndexShard(name, sid, self.mapper_service, device=self.device)
             for sid in range(self.num_shards)
@@ -186,6 +203,15 @@ class IndexService:
             return None
         return self._mesh_response(body, out, t0)
 
+    def _try_mesh_knn(self, body: dict, spec: dict, k: int) -> Optional[dict]:
+        """kNN query phase on the mesh plane's kNN rung (kernel 3) + host
+        fetch phase. None = ineligible (the caller runs the host rung)."""
+        t0 = time.monotonic()
+        out = self._mesh_plane().query_knn(spec, max(k, 1))
+        if out is None:
+            return None
+        return self._mesh_response(body, out, t0)
+
     def _search_uncached(self, body: dict,
                          score_caches: Optional[dict] = None,
                          skip_mesh: bool = False) -> dict:
@@ -195,11 +221,32 @@ class IndexService:
         plane ladder."""
         t0 = time.monotonic()
         body = body or {}
+        if body.get("knn") is not None:
+            # the top-level knn section: alone, a pure vector search (the
+            # knn query clause); beside ``query``, hybrid ranking
+            if not isinstance(body["knn"], dict):
+                raise IllegalArgumentException(
+                    "[knn] must be an object with [field] and "
+                    "[query_vector]")
+            if body.get("query") is not None:
+                return self._search_hybrid(body)
+            body = dict(body)
+            spec = body.pop("knn")
+            if body.pop("rank", None) is not None:
+                raise IllegalArgumentException(
+                    "[rank] requires both [query] and [knn] sections")
+            body["query"] = {"knn": spec}
+            if body.get("size") is None and spec.get("k") is not None:
+                body["size"] = int(spec["k"])
         check_body(body)
         from_, size = self._window(body)
         k = from_ + size
         if self._mesh_enabled and not skip_mesh:
-            resp = self._try_mesh_search(body, k)
+            knn_clause = _pure_knn_mesh_clause(body)
+            if knn_clause is not None:
+                resp = self._try_mesh_knn(body, knn_clause, k)
+            else:
+                resp = self._try_mesh_search(body, k)
             if resp is not None:
                 return resp
         self.host_query_total += 1
@@ -261,6 +308,137 @@ class IndexService:
             resp["aggregations"] = aggregations
         return resp
 
+    def _search_hybrid(self, body: dict) -> dict:
+        """Hybrid ranking: the lexical ``query`` and the ``knn`` section
+        each retrieve a top-``window`` list through their own plane ladder,
+        then fuse:
+
+        - ``rank: {rrf: {...}}``: reciprocal rank fusion, score = sum over
+          the sides of 1 / (rank_constant + rank);
+        - default: convex score fusion, score = lexical score + knn boost *
+          knn score, where only the knn side's ``k`` nearest count.
+
+        The fused total is a lower bound (the union's exact count is not
+        computed), marked ``_total_relation: "gte"``; ``_hybrid`` names
+        each side's plane and the fusion."""
+        t0 = time.monotonic()
+        spec = body["knn"]
+        if not isinstance(spec, dict) or "field" not in spec \
+                or "query_vector" not in spec:
+            raise IllegalArgumentException(
+                "[knn] must be an object with [field] and [query_vector]")
+        rank = body.get("rank")
+        rrf = None
+        if rank is not None:
+            if not isinstance(rank, dict) or set(rank) != {"rrf"}:
+                raise IllegalArgumentException(
+                    "[rank] supports exactly one method: [rrf]")
+            rrf = dict(rank.get("rrf") or {})
+            unknown = set(rrf) - {"rank_constant", "window_size",
+                                  "rank_window_size"}
+            if unknown:
+                raise IllegalArgumentException(
+                    f"[rrf] unknown parameter(s) {sorted(unknown)}")
+            if "window_size" not in rrf and "rank_window_size" in rrf:
+                rrf["window_size"] = rrf["rank_window_size"]
+            if int(rrf.get("rank_constant", 60)) < 1:
+                raise IllegalArgumentException(
+                    "[rank_constant] must be >= 1")
+            if int(rrf.get("window_size", 1)) < 1:
+                raise IllegalArgumentException(
+                    "[window_size] must be >= 1")
+        from_, size = self._window(body)
+        k = max(from_ + size, 1)
+        knn_k = int(spec.get("k", 10) or 10)
+        window = max(k, knn_k)
+        if rrf is not None:
+            window = max(window, int(rrf.get("window_size", window)))
+        rank_constant = int(rrf.get("rank_constant", 60)) if rrf else 60
+        knn_boost = float(spec.get("boost", 1.0))
+
+        # the knn side fetches with the lexical side's fetch options, so a
+        # hit found only by the vector ranking shows the same fields
+        passthrough = ("timeout", "allow_partial_search_results", "stats",
+                       "_source", "docvalue_fields", "stored_fields",
+                       "script_fields", "highlight", "version")
+        lex_body = {key: v for key, v in body.items()
+                    if key not in ("knn", "rank", "from", "size")}
+        lex_body["size"] = window
+        knn_body = {"query": {"knn": {key: v for key, v in spec.items()
+                                      if key != "boost"}},
+                    "size": window}
+        for key in passthrough:
+            if key in body:
+                knn_body[key] = body[key]
+        lex_resp = self._search_uncached(lex_body)
+        knn_resp = self._search_uncached(knn_body)
+
+        def ranked(resp):
+            return {h["_id"]: (i + 1, h)
+                    for i, h in enumerate(resp["hits"]["hits"])}
+
+        lex_hits, knn_hits = ranked(lex_resp), ranked(knn_resp)
+        if rrf is None:
+            # only the k global nearest neighbors add a vector score
+            knn_hits = {doc_id: (r, h) for doc_id, (r, h)
+                        in knn_hits.items() if r <= knn_k}
+        fused = []
+        for doc_id in set(lex_hits) | set(knn_hits):
+            lex_rank, lex_hit = lex_hits.get(doc_id, (None, None))
+            knn_rank, knn_hit = knn_hits.get(doc_id, (None, None))
+            if rrf is not None:
+                score = sum(1.0 / (rank_constant + r)
+                            for r in (lex_rank, knn_rank) if r is not None)
+            else:
+                score = ((lex_hit["_score"] or 0.0)
+                         if lex_hit is not None else 0.0) \
+                    + knn_boost * ((knn_hit["_score"] or 0.0)
+                                   if knn_hit is not None else 0.0)
+            hit = dict(lex_hit if lex_hit is not None else knn_hit)
+            hit["_score"] = float(score)
+            hit.pop("sort", None)
+            fused.append(hit)
+        fused.sort(key=lambda h: (-h["_score"], h["_id"]))
+        page = fused[from_: from_ + size] if size >= 0 else fused[from_:]
+
+        # both sides query the same shards: merge the failure sets by shard
+        shards = dict(lex_resp["_shards"])
+        seen = set()
+        failures = []
+        for f in (list(lex_resp["_shards"].get("failures") or [])
+                  + list(knn_resp["_shards"].get("failures") or [])):
+            key = (f.get("index"), f.get("shard"))
+            if key not in seen:
+                seen.add(key)
+                failures.append(f)
+        shards["failed"] = len(failures)
+        shards["successful"] = max(
+            int(shards.get("total", len(self.shards))) - len(failures), 0)
+        shards.pop("failures", None)
+        if failures:
+            shards["failures"] = failures
+        total = max(int(lex_resp["hits"]["total"]),
+                    int(knn_resp["hits"]["total"]))
+        resp = {
+            "took": int((time.monotonic() - t0) * 1000),
+            "timed_out": bool(lex_resp.get("timed_out")
+                              or knn_resp.get("timed_out")),
+            "_plane": knn_resp.get("_plane", "host"),
+            "_hybrid": {"lexical_plane": lex_resp.get("_plane", "host"),
+                        "knn_plane": knn_resp.get("_plane", "host"),
+                        "fusion": "rrf" if rrf is not None else "convex"},
+            "_total_relation": "gte",
+            "_shards": shards,
+            "hits": {"total": total,
+                     "max_score": (page[0]["_score"] if page else None),
+                     "hits": page},
+        }
+        # aggregations are computed by the lexical side, whose window
+        # query saw the full matched set
+        if "aggregations" in lex_resp:
+            resp["aggregations"] = lex_resp["aggregations"]
+        return resp
+
     # ------------------------------------------------------------------
     # Cross-query micro-batching
     # ------------------------------------------------------------------
@@ -283,6 +461,12 @@ class IndexService:
                 results[i] = self._batch_member_single(body)
                 continue
             live.append(i)
+        # pure-kNN members split off onto one batched kernel-3 launch;
+        # members it cannot serve run their serial pipeline one by one
+        knn_live = [i for i in live if knn_batch_spec(bodies[i])]
+        if knn_live:
+            live = [i for i in live if i not in set(knn_live)]
+            self._dispatch_knn_batch(bodies, knn_live, results)
         if len(live) < 2:
             for i in live:
                 results[i] = self._batch_member_single(bodies[i])
@@ -310,6 +494,57 @@ class IndexService:
         if launches and shared:
             self.batch_stats.note_batch(shared)
         return results
+
+    @staticmethod
+    def _knn_member_body(body) -> dict:
+        """The serial path's top-level-knn size normalization (size
+        defaults to the spec's k), applied to a batch member, so a request
+        returns the same hits whether or not it shared a batch."""
+        body = dict(body or {})
+        spec = body.get("knn")
+        if (isinstance(spec, dict) and body.get("query") is None
+                and body.get("size") is None
+                and spec.get("k") is not None):
+            body["size"] = int(spec["k"])
+        return body
+
+    def _dispatch_knn_batch(self, bodies, knn_live, results) -> None:
+        """Serve a burst of pure-kNN members: one batched kernel-3 launch
+        when they target one field and the mesh plane serves them, else
+        each member's serial pipeline. Fills ``results`` in place."""
+        norm_bodies = {i: self._knn_member_body(bodies[i])
+                       for i in knn_live}
+        shared = []
+        for i in knn_live:
+            try:
+                check_body({key: v for key, v in norm_bodies[i].items()
+                            if key != "knn"})
+                shared.append(i)
+            except IllegalArgumentException:
+                # an unsupported request key: the serial path raises the
+                # member's own error
+                results[i] = self._batch_member_single(bodies[i])
+        specs = [knn_batch_spec(bodies[i]) for i in shared]
+        ks = []
+        for i in shared:
+            from_, size = self._window(norm_bodies[i])
+            ks.append(max(from_ + size, 1))
+        mesh_out = None
+        if (self._mesh_enabled and len(self.shards) >= 2
+                and len(shared) >= 2
+                and len({str(s.get("field")) for s in specs}) == 1):
+            mesh_out = self._mesh_plane().query_knn_batch(specs, ks)
+        if mesh_out is not None:
+            for j, i in enumerate(shared):
+                try:
+                    results[i] = self._mesh_response(
+                        norm_bodies[i], mesh_out[j], time.monotonic())
+                except Exception as e:  # noqa: BLE001 — per-member fetch
+                    results[i] = e  # isolation: raised in its own caller
+            self.batch_stats.note_batch(len(shared))
+            return
+        for i in shared:
+            results[i] = self._batch_member_single(bodies[i])
 
     def _batch_member_single(self, body, score_caches=None, skip_mesh=False):
         """One member's serial execution inside a batch: an exception is
@@ -384,6 +619,7 @@ class IndexService:
         planes = {
             "mesh_query_total": ms.query_total if ms else 0,
             "mesh_pallas_query_total": ms.pallas_query_total if ms else 0,
+            "knn_query_total": ms.knn_query_total if ms else 0,
             "mesh_batched_launch_total": ms.batched_launch_total if ms else 0,
             "mesh_restage_total": ms.restage_total if ms else 0,
             "host_query_total": self.host_query_total,
@@ -391,6 +627,17 @@ class IndexService:
             **(ms.plane_health.stats() if ms else PlaneHealth().stats()),
         }
         return {"planes": planes, "batch": self.batch_stats.as_dict()}
+
+
+def _pure_knn_mesh_clause(body: dict) -> Optional[dict]:
+    """The knn spec when this request is a plain top-k vector search that
+    the mesh kNN rung serves whole, else None: the sole knn clause (the
+    normalized form) under the rules it shares with the batched dispatch
+    (``batching.knn_batch_spec``), so the two paths cannot drift."""
+    q = body.get("query")
+    if not (isinstance(q, dict) and set(q) == {"knn"}):
+        return None
+    return knn_batch_spec(body)
 
 
 def _can_match(shard, body: dict) -> bool:

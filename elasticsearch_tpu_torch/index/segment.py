@@ -9,12 +9,16 @@ Counterpart of ``elasticsearch_tpu/index/segment.py``:
   (``[n_norm_fields, nd_pad + 1]``, last column 1).
 - Doc values are columnar: numerics as float64 CSR (value, doc) pairs,
   keywords as ordinal CSR against a sorted per-field term list.
+- Dense vectors are one ``[nd_pad, dims]`` column per field, rounded to
+  the bf16 grid once at seal (``VectorColumn``).
 - Stored fields (_source) stay on the host.
 
 ``device_arrays()`` stages the query tables on the segment's device once:
 the base tables (postings, norms, live masks) and the tile-scoring
 kernel's tables (padded docs, per-posting BM25 norm factors, the live mask
-in tile layout). A staging failure raises; there is no fallback engine.
+in tile layout). ``ensure_vector_staged`` stages a vector field's bf16
+embeddings (and the cosine inverse norms) on first use. A staging failure
+raises; there is no fallback engine.
 The memory ledger, staging retries and fault-injection hooks of the JAX
 package are later slices.
 """
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 
 from elasticsearch_tpu_torch.common.device import resolve_device
+from elasticsearch_tpu_torch.ops import knn_scoring as knn
 from elasticsearch_tpu_torch.ops import tile_scoring as tsc
 
 BLOCK = 128  # posting block width
@@ -89,6 +94,18 @@ class OrdinalColumn:
         return lo_ord, hi_ord
 
 
+@dataclass
+class VectorColumn:
+    """Dense-vector doc values: one fixed-dimension embedding per doc.
+    ``vectors`` is the host mirror on the bf16 grid, kept as f32 (what the
+    device stages as bf16 and the kNN kernel decodes)."""
+
+    vectors: np.ndarray  # [nd_pad, dims] f32, bf16-grid values, 0 = missing
+    exists: np.ndarray  # [nd_pad] bool
+    dims: int
+    count: int  # docs carrying a vector
+
+
 def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
@@ -117,6 +134,7 @@ class Segment:
         norms: np.ndarray,
         numeric_columns: Dict[str, NumericColumn],
         ordinal_columns: Dict[str, OrdinalColumn],
+        vector_columns: Optional[Dict[str, VectorColumn]] = None,
         device="cuda",
     ):
         self.name = name
@@ -138,6 +156,7 @@ class Segment:
         self.norms = norms  # [n_norm_fields, nd_pad + 1] float32
         self.numeric_columns = numeric_columns
         self.ordinal_columns = ordinal_columns
+        self.vector_columns = vector_columns or {}
         self.device = resolve_device(device)
         self.live = np.ones(self.nd_pad, dtype=bool)
         self.live[num_docs:] = False
@@ -154,12 +173,13 @@ class Segment:
                     term_block_count, term_doc_freq, block_docs, block_tfs,
                     norms, live, field_stats, field_norm_idx, doc_ids,
                     sources, numeric_columns=None, ordinal_columns=None,
-                    routings=None, seqnos=None, versions=None,
-                    device="cuda") -> "Segment":
+                    vector_columns=None, routings=None, seqnos=None,
+                    versions=None, device="cuda") -> "Segment":
         """Build a segment from plain host arrays — the fields a store load
         hands the JAX ``Segment`` — staged later on ``device``.
-        ``numeric_columns`` / ``ordinal_columns`` map a field to a dict of
-        the column's arrays (the dataclass fields)."""
+        ``numeric_columns`` / ``ordinal_columns`` / ``vector_columns`` map
+        a field to a dict of the column's arrays (the dataclass fields);
+        vectors are taken as they are (already on the bf16 grid)."""
         n = len(doc_ids)
         seg = cls(
             name=name, num_docs=n, doc_ids=doc_ids, sources=sources,
@@ -181,6 +201,8 @@ class Segment:
                              (numeric_columns or {}).items()},
             ordinal_columns={f: OrdinalColumn(**c) for f, c in
                              (ordinal_columns or {}).items()},
+            vector_columns={f: VectorColumn(**c) for f, c in
+                            (vector_columns or {}).items()},
             device=device,
         )
         live = np.asarray(live, bool)
@@ -317,6 +339,40 @@ class Segment:
                 self.norms[row], self.field_avgdl(field))
         return frac
 
+    def ensure_vector_staged(self, field: str, metric: str = "cosine"):
+        """Stage a dense_vector field's kNN arrays on the device (once) and
+        return their device-dict keys (emb bf16 [nd_pad, d_pad], the
+        inverse norms f32 [nd_pad] — staged for cosine only — and exists1
+        bool [nd_pad + 1]) and d_pad, or None when no doc of this segment
+        carries the field. Deletes ride the live mask, so the arrays never
+        restage."""
+        col = self.vector_columns.get(field)
+        if col is None:
+            return None
+        emb_key = f"k_vec_{field}"
+        norm_key = f"k_vecnorm_{field}"
+        exists_key = f"k_vecexists_{field}"
+        dev = self.device_arrays()
+        with self._stage_lock:
+            if emb_key not in dev:
+                d_pad = knn.pad_dims(col.dims)
+                emb = torch.zeros((self.nd_pad, d_pad), dtype=torch.bfloat16)
+                # the host mirror is on the bf16 grid: the cast is exact
+                emb[:, : col.dims] = torch.from_numpy(
+                    np.ascontiguousarray(col.vectors, np.float32))
+                exists1 = np.zeros(self.nd_pad + 1, bool)
+                exists1[: self.nd_pad] = col.exists
+                exists_t = _to_device(exists1, self.device)
+                # publish the embeddings last: a reader that finds them
+                # finds their mask too
+                dev[exists_key] = exists_t
+                dev[emb_key] = emb.to(self.device)
+            if metric == "cosine" and norm_key not in dev:
+                dev[norm_key] = _to_device(
+                    knn.vector_scale_column(col.vectors, "cosine")[:, 0],
+                    self.device)
+        return emb_key, norm_key, exists_key, int(dev[emb_key].shape[1])
+
     def device_column(self, key: str, build) -> torch.Tensor:
         """Cached device staging of a doc-value array (build() -> numpy)."""
         hit = self.dev_cache.get(key)
@@ -354,6 +410,9 @@ class SegmentBuilder:
         self.field_lengths: Dict[str, Dict[int, int]] = {}
         self.numeric_values: Dict[str, List[Tuple[int, float]]] = {}
         self.string_values: Dict[str, List[Tuple[int, str]]] = {}
+        # dense_vector field -> {doc: [dims] float list}, and dims per field
+        self.vector_values: Dict[str, Dict[int, list]] = {}
+        self.vector_dims: Dict[str, int] = {}
 
     @property
     def num_docs(self) -> int:
@@ -381,6 +440,9 @@ class SegmentBuilder:
         for field_name, vals in parsed.string_values.items():
             self.string_values.setdefault(field_name, []).extend(
                 (doc, v) for v in vals)
+        for field_name, vec in parsed.vector_values.items():
+            self.vector_values.setdefault(field_name, {})[doc] = vec
+            self.vector_dims[field_name] = len(vec)
         return doc
 
     def seal(self) -> Segment:
@@ -477,6 +539,20 @@ class SegmentBuilder:
             ordinal_columns[f] = OrdinalColumn(
                 terms, flat_ords, flat_docs, first_ord, exists, n_vals)
 
+        # --- dense_vector columns ---
+        vector_columns = {}
+        for f, per_doc in self.vector_values.items():
+            dims = self.vector_dims[f]
+            vecs = np.zeros((nd_pad, dims), np.float32)
+            exists = np.zeros(nd_pad, dtype=bool)
+            for doc, vec in per_doc.items():
+                vecs[doc] = vec
+                exists[doc] = True
+            # rounded to the bf16 grid once: the host mirror, the oracle
+            # and the device staging see the same values
+            vector_columns[f] = VectorColumn(
+                knn.bf16_round(vecs), exists, dims, len(per_doc))
+
         return Segment(
             name=self.name,
             num_docs=nd,
@@ -496,5 +572,6 @@ class SegmentBuilder:
             norms=norms,
             numeric_columns=numeric_columns,
             ordinal_columns=ordinal_columns,
+            vector_columns=vector_columns,
             device=self.device,
         )

@@ -1,8 +1,9 @@
 """Field types: JSON value -> indexable terms + columnar doc values.
 
 Counterpart of ``elasticsearch_tpu/mapper/field_types.py``, cut to the
-types this slice serves: ``text``, ``keyword``, ``long``, ``integer``,
-``double`` (and ``float``, which dynamic mapping picks for JSON floats).
+types the port serves: ``text``, ``keyword``, ``long``, ``integer``,
+``double`` (and ``float``, which dynamic mapping picks for JSON floats)
+and ``dense_vector``.
 Any other type raises the JAX package's "No handler for type" error.
 Numeric doc values are float64, as in the JAX package (x64 is on there).
 """
@@ -181,10 +182,81 @@ class FloatFieldType(DoubleFieldType):
     type_name = "float"
 
 
+class DenseVectorFieldType(FieldType):
+    """dense_vector: one fixed-dimension float embedding per document.
+    The values are neither inverted-index terms nor scalar doc values: they
+    land in a per-segment ``[nd_pad, dims]`` column on the bf16 grid
+    (``index/segment.VectorColumn``), scored by the kNN kernel. The
+    ``similarity`` mapping parameter picks the metric."""
+
+    type_name = "dense_vector"
+    has_doc_values = False
+
+    SIMILARITIES = ("cosine", "dot_product")
+
+    def __init__(self, name, params=None):
+        super().__init__(name, params)
+        dims = self.params.get("dims")
+        if dims is None:
+            raise MapperParsingException(
+                f"Field [{name}] of type [dense_vector] misses required "
+                f"parameter [dims]")
+        try:
+            self.dims = int(dims)
+        except (TypeError, ValueError):
+            raise MapperParsingException(
+                f"Field [{name}]: [dims] must be an integer, got "
+                f"[{dims!r}]") from None
+        if self.dims < 1:
+            raise MapperParsingException(
+                f"Field [{name}]: [dims] must be a positive integer, got "
+                f"[{self.dims}]")
+        self.similarity = self.params.get("similarity", "cosine")
+        if self.similarity not in self.SIMILARITIES:
+            raise MapperParsingException(
+                f"Field [{name}]: unknown [similarity] "
+                f"[{self.similarity}]; expected one of "
+                f"{list(self.SIMILARITIES)}")
+
+    def parse_vector(self, value) -> List[float]:
+        """One document's vector: a list of exactly ``dims`` finite
+        numbers; anything else is a 400 at index time."""
+        if not isinstance(value, (list, tuple)):
+            raise MapperParsingException(
+                f"failed to parse field [{self.name}] of type "
+                f"[dense_vector]: expected an array of {self.dims} "
+                f"numbers, got [{value!r}]")
+        if len(value) != self.dims:
+            raise MapperParsingException(
+                f"failed to parse field [{self.name}]: the [dims] of the "
+                f"vector [{len(value)}] does not match the mapping "
+                f"[{self.dims}]")
+        out = []
+        for v in value:
+            if isinstance(v, bool) or not isinstance(v, (int, float)):
+                raise MapperParsingException(
+                    f"failed to parse field [{self.name}] of type "
+                    f"[dense_vector]: non-numeric element [{v!r}]")
+            f = float(v)
+            if math.isnan(f) or math.isinf(f):
+                raise MapperParsingException(
+                    f"failed to parse field [{self.name}]: non-finite "
+                    f"vector element")
+            out.append(f)
+        return out
+
+    def index_terms(self, value, analyzers):
+        return []
+
+    def doc_value(self, value):
+        return None
+
+
 FIELD_TYPES = {
     t.type_name: t
     for t in [TextFieldType, KeywordFieldType, LongFieldType,
-              IntegerFieldType, DoubleFieldType, FloatFieldType]
+              IntegerFieldType, DoubleFieldType, FloatFieldType,
+              DenseVectorFieldType]
 }
 
 

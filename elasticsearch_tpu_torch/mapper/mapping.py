@@ -4,8 +4,11 @@ Counterpart of ``elasticsearch_tpu/mapper/mapping.py``: a mapping is a tree
 of properties; parsing a JSON doc produces inverted-index terms and doc
 values per field, and possibly a dynamic mapping update. Dynamic mapping
 follows 6.x: a string becomes ``text`` with a ``.keyword`` sub-field, an
-int ``long``, a float ``float``. Nested objects, dates, booleans and the
-other field types are later slices and raise.
+int ``long``, a float ``float``. A ``dense_vector`` field takes one whole
+vector per document (``ParsedDocument.vector_values``), its ``dims``
+bounded by ``index.mapping.dense_vector.max_dims`` at mapping compile.
+Nested objects, dates, booleans and the other field types are later slices
+and raise.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from elasticsearch_tpu_torch.common.errors import (
     MapperParsingException,
 )
 from elasticsearch_tpu_torch.mapper.field_types import (
+    DenseVectorFieldType,
     FieldType,
     create_field_type,
 )
@@ -41,6 +45,9 @@ class ParsedDocument:
     numeric_values: Dict[str, List[float]] = field(default_factory=dict)
     # field name -> list of string doc values (ordinal columns)
     string_values: Dict[str, List[str]] = field(default_factory=dict)
+    # dense vectors: field -> ONE [dims] float list per doc (a second
+    # vector for the same field in one document is a 400)
+    vector_values: Dict[str, List[float]] = field(default_factory=dict)
     mapping_update: Optional[dict] = None
 
 
@@ -48,10 +55,13 @@ class DocumentMapper:
     """A compiled mapping for one index: flat field-path -> FieldType."""
 
     def __init__(self, mapping: dict, analyzers: AnalysisRegistry,
-                 total_fields_limit: int = 1000):
+                 total_fields_limit: int = 1000,
+                 dense_vector_max_dims: int = 1024):
         self.mapping = mapping
         self.analyzers = analyzers
         self.total_fields_limit = total_fields_limit
+        # index.mapping.dense_vector.max_dims, checked at mapping compile
+        self.dense_vector_max_dims = dense_vector_max_dims
         self.fields: Dict[str, FieldType] = {}
         self._object_paths: set = set()
         self._compile("", mapping.get("properties", {}))
@@ -67,10 +77,27 @@ class DocumentMapper:
                 self._object_paths.add(path)
                 self._compile(path + ".", params["properties"])
                 continue
-            self.fields[path] = create_field_type(path, params)
+            ft = create_field_type(path, params)
+            self._check_vector_dims(ft)
+            self.fields[path] = ft
             for sub_name, sub_params in (params.get("fields") or {}).items():
                 sub_path = f"{path}.{sub_name}"
+                if (sub_params or {}).get("type") == "dense_vector":
+                    # a multi-field gets the parent's values one element
+                    # at a time, which can never carry a whole vector
+                    raise MapperParsingException(
+                        f"Field [{sub_path}]: [dense_vector] cannot be "
+                        f"used in multi-fields")
                 self.fields[sub_path] = create_field_type(sub_path, sub_params)
+
+    def _check_vector_dims(self, ft: FieldType) -> None:
+        if (isinstance(ft, DenseVectorFieldType)
+                and ft.dims > self.dense_vector_max_dims):
+            raise IllegalArgumentException(
+                f"The number of dimensions for field [{ft.name}] "
+                f"[{ft.dims}] exceeds "
+                f"[index.mapping.dense_vector.max_dims] "
+                f"[{self.dense_vector_max_dims}]")
 
     def field_type(self, path: str) -> Optional[FieldType]:
         return self.fields.get(path)
@@ -173,6 +200,15 @@ class DocumentMapper:
             self._index_value(ft, ft.null_value, out)
 
     def _index_value(self, ft: FieldType, value: Any, out: ParsedDocument) -> None:
+        if isinstance(ft, DenseVectorFieldType):
+            # the whole array is one value, never split into elements
+            if ft.name in out.vector_values:
+                raise MapperParsingException(
+                    f"Field [{ft.name}] of type [dense_vector] doesn't "
+                    f"support indexing multiple values for the same "
+                    f"field in one document")
+            out.vector_values[ft.name] = ft.parse_vector(value)
+            return
         values = value if isinstance(value, list) else [value]
         for v in values:
             if v is None:
@@ -209,15 +245,18 @@ class MapperService:
     merging an incompatible type change fails; new fields extend the tree."""
 
     def __init__(self, analyzers: AnalysisRegistry, mapping: Optional[dict] = None,
-                 total_fields_limit: int = 1000, similarity_service=None):
+                 total_fields_limit: int = 1000, similarity_service=None,
+                 dense_vector_max_dims: int = 1024):
         self.analyzers = analyzers
         self.total_fields_limit = total_fields_limit
+        self.dense_vector_max_dims = dense_vector_max_dims
         if similarity_service is None:
             from elasticsearch_tpu_torch.index.similarity import SimilarityService
             similarity_service = SimilarityService()
         self.similarity_service = similarity_service
         self._mapping = copy.deepcopy(mapping) if mapping else {"properties": {}}
-        self._mapper = DocumentMapper(self._mapping, analyzers, total_fields_limit)
+        self._mapper = DocumentMapper(self._mapping, analyzers, total_fields_limit,
+                                      dense_vector_max_dims)
         self._validate_similarities()
 
     def _validate_similarities(self) -> None:
@@ -249,7 +288,8 @@ class MapperService:
         )
         if "dynamic" in new_mapping:
             merged["dynamic"] = new_mapping["dynamic"]
-        self._mapper = DocumentMapper(merged, self.analyzers, self.total_fields_limit)
+        self._mapper = DocumentMapper(merged, self.analyzers, self.total_fields_limit,
+                                      self.dense_vector_max_dims)
         self._mapping = merged
         self._validate_similarities()
 

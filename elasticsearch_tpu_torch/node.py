@@ -3,8 +3,10 @@
 Counterpart of ``elasticsearch_tpu/node.py``, cut to this slice's entry
 points: ``create_index``, ``index_doc``, ``bulk``, ``refresh``,
 ``get_doc``, ``delete_doc`` and ``search`` over one index (through the
-index's micro-batcher and mesh plane; ``search.batch.*`` node settings
-pass to every index). ``Node()`` runs
+index's micro-batcher and mesh plane; ``search.batch.*`` and
+``search.knn.*`` node settings pass to every index). A search body may
+carry a top-level ``knn`` section: alone it is a vector search, beside
+``query`` a hybrid one (``IndexService._search_hybrid``). ``Node()`` runs
 on ``cuda`` and raises without a GPU; ``Node(device="cpu")`` runs the
 kernels' plain versions and exists for tests. Nothing is kept on disk (the
 translog, store, REST layer and cluster state are later slices).
@@ -67,10 +69,13 @@ class Node:
                 f"create-index sections {unknown} are not supported by the "
                 f"PyTorch port yet")
         settings = Settings.from_dict(body.get("settings") or {}).with_index_prefix()
-        # node-level micro-batching config (search.batch.*, node scope)
-        # seeds each index at the lowest precedence
-        settings = self.settings.filtered_by_prefix(
-            "search.batch.").merged_with(settings)
+        # node-level micro-batching and kNN config (search.batch.*,
+        # search.knn.*, node scope) seeds each index at the lowest
+        # precedence; index.mapping.dense_vector.max_dims comes with the
+        # index's own settings
+        for prefix in ("search.batch.", "search.knn."):
+            settings = self.settings.filtered_by_prefix(prefix).merged_with(
+                settings)
         mappings, _doc_type = _unwrap_typed_mapping(body.get("mappings") or {})
         self.indices[name] = IndexService(name, settings, mappings,
                                           device=self.device)

@@ -53,10 +53,14 @@ _SIGNATURES = {
     "estpu_segment_sum": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_longlong, _c_int, _c_void_p],
+    "estpu_knn_score_tiles": [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+        _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_void_p],
 }
 
 LAUNCHES: Dict[str, int] = {"tile_scoring": 0, "tile_scoring_batched": 0,
-                            "tile_scoring_topk": 0, "segment_sum": 0}
+                            "tile_scoring_topk": 0, "segment_sum": 0,
+                            "knn_scoring": 0}
 _launch_lock = threading.Lock()
 _build_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

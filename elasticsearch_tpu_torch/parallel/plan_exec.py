@@ -18,7 +18,11 @@ collectives become plain reductions in slot order (``psum`` a sum,
     top-k over the slots' candidates;
   - (from ``IndexMeshSearch.query_batch``) the batched program: per slot
     one fused top-k ``score_tiles`` launch for Q queries over the union
-    of their lanes, per-query tile merge, then the merge over slots.
+    of their lanes, per-query tile merge, then the merge over slots;
+  - (from ``IndexMeshSearch.query_knn_batch``) the kNN program: per slot
+    one ``knn_score_tiles`` launch (kernel 3) for Q query vectors,
+    ``merge_knn_topk``, then one top-k over the slots' pools; the total is
+    the sum of the slots' live-and-has-vector mask sums.
 - ``IndexMeshSearch`` owns the staging (rebuilt whenever the segment set
   or a live-doc count changes) and the plane ladder: ``mesh_pallas`` (the
   tile kernel inside the program), then ``mesh`` (scatter nodes), then
@@ -27,11 +31,19 @@ collectives become plain reductions in slot order (``psum`` a sum,
   (a kernel that fails to build, load or launch) is no plane fault and
   raises to the caller, so no rung serves in the kernel's place.
 
+The kNN plane stages no second copy of the embeddings: each slot reads
+its segment's own staged ``k_vec_*`` (and ``k_vecnorm_*`` for cosine,
+the arrays the host rung reads) with the slot's real row count, and the
+executor stages only each slot's live-and-has-vector mask in the shared
+geometry (``nd_knn = max(nd_pad, 128)``), rebuilt with the executor on
+any live-count change. As on the tile plane, a ``KernelError`` raises
+through ``query_knn_batch`` instead of benching the plane.
+
 Left for later slices: delta staging, the memory accountant, the compile
 cache and telemetry, sort / search_after / slice / rescore /
 terminate_after on the mesh, fused aggregations (an agg-carrying serial
 query reduces over the program's per-slot views; an agg-carrying batch
-leaves the batched rung), block-max pruning, the packed codec and kNN.
+leaves the batched rung), block-max pruning and the packed codec.
 """
 
 from __future__ import annotations
@@ -49,7 +61,10 @@ from elasticsearch_tpu_torch.common.settings import (
     INDEX_SEARCH_MESH_MAX_SLOTS,
     INDEX_SEARCH_MESH_PLANE,
     INDEX_SEARCH_PLANE_QUARANTINE_COOLDOWN,
+    SEARCH_KNN_ENABLED,
+    SEARCH_KNN_TILE_SUB,
 )
+from elasticsearch_tpu_torch.ops import knn_scoring as knn
 from elasticsearch_tpu_torch.ops import tile_scoring as tsc
 from elasticsearch_tpu_torch.ops.cuda_kernels import KernelError
 from elasticsearch_tpu_torch.ops.scoring import top_k
@@ -63,6 +78,11 @@ NEG_INF = float("-inf")
 class PlanStructureMismatch(Exception):
     """Per-segment plans for the same query diverged structurally; the
     caller tries the next plane."""
+
+
+class _KnnStructuralError(Exception):
+    """A vector field's segments disagree with its mapping (dims): the
+    kNN plane stays off for this segment set; no device fault."""
 
 
 class PlaneHealth:
@@ -197,6 +217,9 @@ def stack_plans(plans: List[P.PlanNode], local_nd_pads: List[int],
     sentinel = stacked_nd1 - 1
     stacked: List[torch.Tensor] = []
     for i, kind in enumerate(kinds):
+        if kind == "x":
+            # non-stackable node: the host rung serves these
+            raise PlanStructureMismatch("plan contains non-stackable arrays")
         parts = [f[i] for f in flats]
         if kind == "k":
             # kernel tables stack verbatim, and only when every slot's
@@ -253,12 +276,18 @@ class MeshPlanExecutor:
         self._kernel: Optional[dict] = None
         # per slot {k_docs, k_frac}: the segment's own posting tables
         self._kernel_tables: List[dict] = []
+        # lazily staged kNN planes (ensure_knn): field -> session dict, or
+        # False when the field cannot run here for this segment set
+        self._knn: Dict[str, object] = {}
         self.kernel_denied_reason: Optional[str] = None
         self._kernel_stage_lock = threading.Lock()
 
     def staged_bytes(self) -> int:
-        return sum(t.numel() * t.element_size()
-                   for t in self._seg_staged.values())
+        """Bytes the executor itself stages (the segments' own arrays are
+        not counted)."""
+        tensors = list(self._seg_staged.values()) + [
+            e["mask"] for e in self._knn.values() if isinstance(e, dict)]
+        return sum(t.numel() * t.element_size() for t in tensors)
 
     def ensure_kernel(self) -> Optional[dict]:
         """Stage the tile-kernel plane over the stacked segment set: one
@@ -323,6 +352,106 @@ class MeshPlanExecutor:
                 self._seg_staged[key] = torch.from_numpy(live_t).to(
                     self.device)
         return key
+
+    def ensure_knn(self, field: str, dims: int,
+                   metric: str) -> Optional[dict]:
+        """Stage a dense_vector field's kNN plane over the segment set: the
+        per-slot live-and-has-vector masks [n_slots, nd_knn] in one shared
+        geometry, and per slot the segment's own staged embeddings (and
+        inverse norms for cosine) with its row count. Deletes reach the
+        masks through IndexMeshSearch, which rebuilds the executor on any
+        live-count change. Returns the session dict, or None (with
+        ``kernel_denied_reason = "staging_fault"`` when the staging
+        raised)."""
+        self.kernel_denied_reason = None
+        entry = self._knn.get(field)
+        if entry is False:
+            return None
+        if entry is None:
+            with self._kernel_stage_lock:
+                entry = self._knn.get(field)
+                if entry is False:
+                    return None
+                if entry is None:
+                    try:
+                        entry = self._stage_knn_plane(field, dims, metric)
+                    except _KnnStructuralError:
+                        # mapping-shaped, permanent for this segment set:
+                        # the host rung serves quietly
+                        self._knn[field] = False
+                        return None
+                    except Exception:  # noqa: BLE001 — staging fault:
+                        # demote; the next executor restages
+                        _plane_logger.warning(
+                            "mesh kNN staging failed for [%s]; plane "
+                            "demotes with reason staging_fault", field,
+                            exc_info=True)
+                        self.kernel_denied_reason = "staging_fault"
+                        return None
+                    self._knn[field] = entry
+        return entry
+
+    def _stage_knn_plane(self, field: str, dims: int, metric: str) -> dict:
+        d_pad = knn.pad_dims(dims)
+        nd_knn = max(self.nd_pad, knn.LANE)
+        mask = np.zeros((self.n_slots, nd_knn), np.float32)
+        slots: List[Optional[dict]] = []
+        for i, seg in enumerate(self.segments):
+            col = seg.vector_columns.get(field)
+            if col is None:
+                slots.append(None)  # the slot stays dead (mask all zero)
+                continue
+            if col.dims != dims:
+                raise _KnnStructuralError(
+                    f"segment [{seg.name}] stores [{field}] at "
+                    f"dims={col.dims}, mapping says {dims}")
+            keys = seg.ensure_vector_staged(field, metric)
+            dev = seg.device_arrays()
+            emb_key, norm_key, _exists_key, _d = keys
+            slots.append({
+                "emb": dev[emb_key],
+                "scale": dev[norm_key] if metric == "cosine" else None,
+                "n_rows": seg.nd_pad})
+            mask[i, : seg.nd_pad] = (col.exists & seg.live).astype(
+                np.float32)
+        # commit only a complete plane
+        return {"mask": torch.from_numpy(mask).to(self.device),
+                "slots": slots, "d_pad": d_pad, "nd_pad": nd_knn,
+                "metric": metric, "dims": dims}
+
+    def execute_knn(self, session: dict, qmat: torch.Tensor, *, kk: int,
+                    sub: int):
+        """The kNN program: per slot one kernel-3 launch for the q_pad
+        query rows, ``merge_knn_topk``, then one top-k over the slots'
+        pools in slot order. Returns (top_s [Q, k'], top_d [Q, k'],
+        top_slot [Q, k'], total) tensors, total = live docs carrying the
+        vector over every slot."""
+        q_pad = qmat.shape[0]
+        n_tiles = session["nd_pad"] // (sub * knn.LANE)
+        k2 = min(kk, n_tiles * min(kk, sub * knn.LANE))
+        cand_s, cand_d, cand_slot = [], [], []
+        for i, slot in enumerate(session["slots"]):
+            if slot is None:
+                # a slot without the field: empty candidates, as the JAX
+                # kernel gives for an all-dead slot
+                s_i = torch.full((q_pad, k2), NEG_INF, dtype=torch.float32,
+                                 device=self.device)
+                d_i = torch.full((q_pad, k2), -1, dtype=torch.int32,
+                                 device=self.device)
+            else:
+                ts, td = knn.knn_score_tiles(
+                    slot["emb"], slot["scale"], session["mask"][i], qmat,
+                    sub=sub, k=kk, q_batch=q_pad, n_rows=slot["n_rows"])
+                s_i, d_i = knn.merge_knn_topk(ts, td, kk)
+            cand_s.append(s_i)
+            cand_d.append(d_i)
+            cand_slot.append(torch.full_like(d_i, i))
+        pool_s = torch.cat(cand_s, dim=1)
+        top_s, top_i = top_k(pool_s, min(kk, pool_s.shape[1]))
+        top_d = torch.gather(torch.cat(cand_d, dim=1), 1, top_i)
+        top_slot = torch.gather(torch.cat(cand_slot, dim=1), 1, top_i)
+        total = (session["mask"] > 0.0).sum()
+        return top_s, top_d, top_slot, total
 
     def harmonize_kernel_nodes(self, plans: List[P.PlanNode]) -> int:
         """Finalize every deferred kernel node so table shapes agree over
@@ -490,6 +619,8 @@ class IndexMeshSearch:
         self.query_total = 0
         # queries whose scoring ran on the tile kernel inside the program
         self.pallas_query_total = 0
+        # kNN queries served by kernel 3 on the mesh plane
+        self.knn_query_total = 0
         self.batched_launch_total = 0
         self.restage_total = 0
         # plane-ladder decisions "plane.reason" -> count
@@ -869,5 +1000,147 @@ class IndexMeshSearch:
                 if max_score is None:
                     max_score = float(key)
             results.append({"total": int(totals[q]), "refs": refs,
+                            "max_score": max_score, "plane": "mesh_pallas"})
+        return results
+
+    # ------------------------------------------------------------------
+    # The kNN rung
+    # ------------------------------------------------------------------
+
+    def _knn_config(self):
+        """(enabled, tile_sub preference) from the index settings."""
+        settings = self.svc.settings
+        return (SEARCH_KNN_ENABLED.get(settings),
+                SEARCH_KNN_TILE_SUB.get(settings))
+
+    def query_knn(self, spec: dict, k: int) -> Optional[dict]:
+        """One kNN query on the mesh plane (the Q == 1 form of
+        query_knn_batch). Returns {total, refs, max_score, plane} or None
+        when ineligible (the caller runs the host rung)."""
+        out = self.query_knn_batch([spec], [max(k, 1)])
+        return out[0] if out is not None else None
+
+    def query_knn_batch(self, specs: List[dict],
+                        ks: List[int]) -> Optional[list]:
+        """Q concurrent vector queries against one dense_vector field,
+        scored by one kernel-3 launch per slot (each slot's embeddings are
+        read once for the whole batch). Returns one {total, refs,
+        max_score, plane} dict per member, or None when the batch cannot
+        run here. A plane fault benches mesh_pallas once for the whole
+        batch; a ``KernelError`` raises."""
+        if self.plane_pref not in ("auto", "pallas"):
+            return None
+        adm = self.plane_health.admit("mesh_pallas")
+        if not adm:
+            self._note("mesh_pallas", "quarantined", len(specs))
+            return None
+        try:
+            return self._query_knn_batch_admitted(specs, ks)
+        finally:
+            if adm == "probe":
+                self.plane_health.release_probe("mesh_pallas")
+
+    def _query_knn_batch_admitted(self, specs, ks) -> Optional[list]:
+        from elasticsearch_tpu_torch.mapper.field_types import (
+            DenseVectorFieldType,
+        )
+        from elasticsearch_tpu_torch.search.service import DocRef
+
+        if len(self.svc.shards) < 2:
+            return None
+        enabled, sub_pref = self._knn_config()
+        if not enabled:
+            self._note("host", "knn_disabled", len(specs))
+            return None
+        # field uniformity and request validation outside the fault
+        # handler: a malformed spec is a request error that the serial
+        # path answers with its own 4xx, never a plane fault
+        try:
+            fields = {str(spec["field"]) for spec in specs}
+            if len(fields) != 1:
+                return None
+            field = next(iter(fields))
+            ft = self.svc.mapper_service.field_type(field)
+            if not isinstance(ft, DenseVectorFieldType):
+                return None
+            for spec in specs:
+                qv = spec["query_vector"]
+                if (not isinstance(qv, (list, tuple))
+                        or len(qv) != ft.dims
+                        or any(isinstance(v, bool)
+                               or not isinstance(v, (int, float))
+                               or not np.isfinite(v) for v in qv)):
+                    return None
+        except (KeyError, TypeError):
+            return None
+        if not self._ensure_staged():
+            self._note("host", self.staging_denied_reason
+                       or "knn_staging_unavailable", len(specs))
+            return None
+        executor = self._executor
+        session = executor.ensure_knn(field, ft.dims, ft.similarity)
+        if session is None:
+            reason = executor.kernel_denied_reason
+            self._note("host", reason or "knn_staging_unavailable",
+                       len(specs))
+            if reason == "staging_fault":
+                self.plane_health.record_failure("mesh_pallas",
+                                                 reason="staging_fault")
+            return None
+        q_batch = len(specs)
+        q_pad = tsc.next_pow2(q_batch)
+        kk = tsc.next_pow2(max(max(ks), 1))
+        d_pad = session["d_pad"]
+        nd_knn = session["nd_pad"]
+        g = knn.knn_geometry(nd_knn, d_pad, sub_pref)
+        qmat = np.zeros((q_pad, d_pad), np.float32)
+        for q, spec in enumerate(specs):
+            qmat[q] = knn.normalize_query(
+                np.asarray(spec["query_vector"], np.float32),
+                ft.similarity, d_pad)
+        try:
+            top_s, top_d, top_slot, total = executor.execute_knn(
+                session, torch.from_numpy(qmat).to(self.svc.device),
+                kk=kk, sub=g.tile_sub)
+            keys = top_s.cpu().numpy()
+            docs = top_d.cpu().numpy()
+            slots = top_slot.cpu().numpy()
+            total = int(total)
+        except (PlanStructureMismatch, NotImplementedError):
+            self._note("mesh_pallas", "shape_mismatch", q_batch)
+            return None
+        except KernelError:
+            raise  # a kernel fault is never served by the next rung
+        except Exception:  # noqa: BLE001 — batch-wide plane fault
+            _plane_logger.warning(
+                "[%s] kNN execution plane [mesh_pallas] failed; "
+                "quarantined for %.1fs", self.svc.name,
+                self.plane_health.cooldown_s, exc_info=True)
+            self.plane_health.record_failure("mesh_pallas")
+            self._note("mesh_pallas", "fault", q_batch)
+            return None
+        self.plane_health.note_success("mesh_pallas")
+        with self._counter_lock:
+            self.query_total += q_batch
+            self.pallas_query_total += q_batch
+            self.knn_query_total += q_batch
+            if q_batch > 1:
+                self.batched_launch_total += 1
+        self._note("mesh_pallas",
+                   "knn_served_batched" if q_batch > 1 else "knn_served",
+                   q_batch)
+        results = []
+        for q in range(q_batch):
+            refs = []
+            max_score = None
+            for key, slot, d in zip(keys[q][: ks[q]], slots[q][: ks[q]],
+                                    docs[q][: ks[q]]):
+                if key == -np.inf or d < 0:
+                    continue
+                sid, seg = executor.pairs[int(slot)]
+                refs.append(DocRef(sid, seg.name, int(d), float(key)))
+                if max_score is None:
+                    max_score = float(key)
+            results.append({"total": total, "refs": refs,
                             "max_score": max_score, "plane": "mesh_pallas"})
         return results

@@ -12,6 +12,10 @@ memory; queries in flight at the same time can share that pass. Pieces:
   own result (a member's exception reaches that member alone).
 - ``BatchStats``: the ``search.batch`` counters (batched_query_total,
   batch_size_histogram, batch_window_waits_total).
+- ``knn_batch_spec``: which pure-kNN requests one batched kernel-3 launch
+  can serve (``IndexService.search_batch`` splits them off onto the mesh
+  plane's kNN rung); a hybrid request (``query`` + ``knn``) rides no
+  batch as a whole.
 - ``batched_segment_scores``: the host rung's batched launch: given the
   per-query kernel plans for one segment, it unions their lanes, walks
   the single-query geometry ladder, and runs one ``score_tiles`` call
@@ -46,15 +50,65 @@ _BATCHABLE_KEYS = frozenset({
 })
 
 
+# pure-kNN request shapes the batched kNN launch covers: the top-level
+# ``knn`` section alone or the sole ``knn`` query clause
+_KNN_BATCHABLE_KEYS = frozenset({
+    "knn", "query", "size", "from", "timeout",
+    "allow_partial_search_results", "stats", "_source", "profile",
+})
+
+# the knn spec parameters the parser accepts (query_dsl strict-parses the
+# same set): anything else stays off the batched rung, so an unknown
+# parameter gets the parser's 400 whichever rung would serve
+_KNN_SPEC_KEYS = frozenset({
+    "field", "query_vector", "k", "num_candidates", "filter", "boost",
+    "_name",
+})
+
+
+def _knn_shaped(body: dict) -> Optional[dict]:
+    """The knn spec of a knn-shaped request (the top-level section with no
+    lexical query, or the sole knn query clause), eligible or not."""
+    if isinstance(body.get("knn"), dict) and body.get("query") is None:
+        return body["knn"]
+    q = body.get("query")
+    if (isinstance(q, dict) and set(q) == {"knn"}
+            and isinstance(q["knn"], dict) and "knn" not in body):
+        return q["knn"]
+    return None
+
+
+def knn_batch_spec(body: Optional[dict]) -> Optional[dict]:
+    """The knn spec when this request is a pure top-k vector search that a
+    batched kNN launch could serve (the shape the mesh kNN rung covers),
+    else None."""
+    body = body or {}
+    if any(key not in _KNN_BATCHABLE_KEYS for key in body):
+        return None
+    spec = _knn_shaped(body)
+    if spec is None or float(spec.get("boost", 1.0)) != 1.0:
+        return None
+    if spec.get("filter"):
+        return None  # filtered kNN runs the host rung
+    if any(key not in _KNN_SPEC_KEYS for key in spec):
+        return None  # unknown parameter: the parser owns the 400
+    return spec
+
+
 def batchable_body(body: Optional[dict]) -> bool:
     """Cheap body-shape precheck at submit time: can this request ride a
     micro-batch at all? (Per-segment kernel eligibility is decided later,
     per query; an ineligible member executes serially inside the batch.)"""
     body = body or {}
+    if _knn_shaped(body) is not None:
+        # pure kNN: batchable only when the kNN launch covers it; a
+        # filtered, boosted or malformed spec runs alone rather than
+        # joining a lexical batch
+        return knn_batch_spec(body) is not None
     if not isinstance(body.get("query"), dict):
         return False  # match_all / missing query: nothing to amortize
     if body.get("knn") is not None:
-        return False
+        return False  # hybrid: each side runs its own plane ladder
     return all(key in _BATCHABLE_KEYS for key in body)
 
 

@@ -8,8 +8,9 @@ sentinel that collects padding writes.
 
 Nodes ported: ScoreTermsNode (scatter scoring), PallasScoreTermsNode (the
 tile-scoring kernel; the name is kept so the counterpart is easy to find),
-MatchAllNode, MatchNoneNode, NumericRangeNode, NumericTermsNode,
-OrdTermsNode, OrdRangeNode, BoolNode, ConstantScoreNode, BoostNode.
+KnnScoreNode (dense-vector similarity, the kNN host rung), MatchAllNode,
+MatchNoneNode, NumericRangeNode, NumericTermsNode, OrdTermsNode,
+OrdRangeNode, BoolNode, ConstantScoreNode, BoostNode.
 
 For the mesh plane (parallel/plan_exec.py) every node declares how its
 arrays pad when per-segment plans of one query are stacked
@@ -57,6 +58,7 @@ class PlanNode:
           "d"  doc-id array: pad with the stacked sentinel doc (nd1-1,
                dead in live1) and re-point the segment's own sentinel
           "k"  kernel tables: stacked verbatim, shapes must agree
+          "x"  not stackable: the stacked mesh program cannot run the plan
         """
         return ["z"] * len(self.arrays())
 
@@ -281,6 +283,58 @@ class PallasScoreTermsNode(PlanNode):
                                 tail])
             return scores, counts >= min_match
         return scores, scores > 0.0
+
+
+class KnnScoreNode(PlanNode):
+    """Dense-vector similarity scoring against a segment's staged
+    embeddings: the host rung of the kNN plane ladder (the mesh_pallas rung
+    runs kernel 3, ops/knn_scoring.py).
+
+    score = (dot(x, q) * scale) * 0.5 + 0.5, with q pre-normalized for
+    cosine and scale the staged inverse norm (none for dot_product). Every
+    live doc carrying the field matches. The product is an f32
+    ``torch.matmul`` (``knn_scoring.host_knn_scores``), as the JAX package
+    leaves it to XLA: it sums in another order than the kernel, so the two
+    rungs agree in ids and within ``1e-6 + 1e-6 * sum_j |x_j * q_j|``, not
+    bit for bit.
+
+    The embeddings are segment-local device state (the ``ctx.seg`` keys
+    of ``Segment.ensure_vector_staged``), not plan arrays, so the node
+    cannot stack onto a mesh template (pad kind "x"): the generic mesh
+    program mismatches cleanly and the kNN rung of the mesh plane
+    (``IndexMeshSearch.query_knn``) owns the distributed form."""
+
+    def __init__(self, field: str, qvec, metric: str, boost: float,
+                 emb_key: str, norm_key: str, exists_key: str):
+        self.field = field
+        self.qvec = qvec  # [1, d_pad] f32 (normalize_query row)
+        self.metric = metric
+        self.boost = np.float32(boost)
+        self.emb_key = emb_key
+        self.norm_key = norm_key
+        self.exists_key = exists_key
+
+    def trace_statics(self):
+        return (self.field, self.metric, self.emb_key)
+
+    def arrays(self):
+        return [self.qvec, self.boost]
+
+    def pad_kinds(self):
+        return ["x", "s"]
+
+    def emit(self, ctx):
+        from elasticsearch_tpu_torch.ops.knn_scoring import host_knn_scores
+
+        qvec, boost = ctx.take(2)
+        s = host_knn_scores(ctx.seg[self.emb_key], qvec)
+        if self.metric == "cosine":
+            s = s * ctx.seg[self.norm_key]
+        s = s * 0.5 + 0.5
+        scores = torch.cat([s, torch.zeros(1, dtype=torch.float32,
+                                           device=ctx.device)])
+        matched = ctx.seg[self.exists_key]
+        return _where(matched, scores * boost), matched
 
 
 class MatchAllNode(PlanNode):

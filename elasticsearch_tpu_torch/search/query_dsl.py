@@ -1,10 +1,11 @@
 """The query DSL: JSON -> QueryBuilder tree -> per-segment PlanNode.
 
 Counterpart of ``elasticsearch_tpu/search/query_dsl.py``, cut to the
-queries of this slice: ``match_all``, ``match_none``, ``match`` (with
+queries the port serves: ``match_all``, ``match_none``, ``match`` (with
 ``operator`` and ``minimum_should_match``), ``term``, ``terms``, ``range``,
-``bool`` and ``constant_score``. Any other query type raises the JAX
-package's ``ParsingException`` for an unknown query.
+``bool``, ``constant_score`` and ``knn`` (exact dense-vector scoring of a
+``dense_vector`` field, with an optional ``filter``). Any other query type
+raises the JAX package's ``ParsingException`` for an unknown query.
 
 BM25 term disjunctions go to the tile-scoring kernel node whenever the
 segment's eligibility holds (every lane default-constant BM25 with a
@@ -26,11 +27,13 @@ from typing import List, Optional
 import numpy as np
 
 from elasticsearch_tpu_torch.common.errors import (
+    IllegalArgumentException,
     ParsingException,
     QueryShardException,
 )
 from elasticsearch_tpu_torch.index.similarity import BM25Similarity
 from elasticsearch_tpu_torch.mapper.field_types import (
+    DenseVectorFieldType,
     NumberFieldType,
     TextFieldType,
 )
@@ -262,6 +265,77 @@ class MatchNoneQueryBuilder(QueryBuilder):
 
     def to_plan(self, ctx, segment):
         return P.MatchNoneNode()
+
+
+class KnnQueryBuilder(QueryBuilder):
+    """Dense-vector kNN clause: every live doc carrying the field scores by
+    its embedding's similarity to ``query_vector`` (the mapped field's
+    ``similarity`` picks the metric). The top-level ``knn`` request section
+    normalizes into this clause (IndexService).
+
+    Scoring is exhaustive and exact (no ANN graph): the mesh_pallas rung
+    runs kernel 3 (ops/knn_scoring.py), the host rung ``KnnScoreNode``.
+    ``k`` sizes the result (the top-level section defaults the response
+    size to it); ``num_candidates`` is accepted for API compatibility and
+    has no effect under exact scoring. ``filter`` clauses gate which docs
+    may rank (BoolQuery must + filter semantics)."""
+
+    name = "knn"
+
+    def __init__(self, field: str, query_vector, k: int = 10,
+                 num_candidates: Optional[int] = None,
+                 filter: Optional[list] = None, **kw):
+        super().__init__(**kw)
+        self.field = field
+        self.query_vector = query_vector
+        self.k = int(k)
+        self.num_candidates = (int(num_candidates)
+                               if num_candidates is not None else None)
+        self.filter = list(filter or [])
+
+    def _field_type(self, ctx):
+        ft = ctx.field_type(self.field)
+        if ft is None:
+            raise QueryShardException(
+                f"failed to create query: field [{self.field}] does not "
+                f"exist in the mapping")
+        if not isinstance(ft, DenseVectorFieldType):
+            raise QueryShardException(
+                f"[knn] queries are only supported on [dense_vector] "
+                f"fields; [{self.field}] is [{ft.type_name}]")
+        qv = self.query_vector
+        if (not isinstance(qv, (list, tuple))
+                or len(qv) != ft.dims
+                or any(isinstance(v, bool) or not isinstance(v, (int, float))
+                       or not np.isfinite(v) for v in qv)):
+            # a NaN query would poison every score
+            raise IllegalArgumentException(
+                f"[knn] query_vector must be an array of {ft.dims} "
+                f"finite numbers for field [{self.field}]")
+        return ft
+
+    def to_plan(self, ctx, segment):
+        from elasticsearch_tpu_torch.ops import knn_scoring as knn
+
+        ft = self._field_type(ctx)
+        keys = segment.ensure_vector_staged(self.field, ft.similarity)
+        if keys is None:
+            # no doc of this segment carries the field: nothing can match
+            return P.MatchNoneNode()
+        emb_key, norm_key, exists_key, d_pad = keys
+        qvec = knn.normalize_query(
+            np.asarray(self.query_vector, np.float32), ft.similarity,
+            d_pad).reshape(1, d_pad)
+        node = P.KnnScoreNode(self.field, qvec, ft.similarity, self.boost,
+                              emb_key, norm_key, exists_key)
+        if self.filter:
+            # the vector score ranks, the filter gates (the mesh kNN rung
+            # does not take filtered specs: this plan runs the host rung)
+            node = P.BoolNode(
+                must=[node],
+                filter_=[f.to_plan(ctx, segment) for f in self.filter],
+                should=[], must_not=[], min_should_match=0)
+        return node
 
 
 class MatchQueryBuilder(QueryBuilder):
@@ -529,6 +603,29 @@ def parse_query(body) -> QueryBuilder:
             minimum_should_match=params.get("minimum_should_match"),
             analyzer=params.get("analyzer"),
             boost=float(params.get("boost", 1.0)),
+        )
+    if qtype == "knn":
+        if not isinstance(qbody, dict) or "field" not in qbody:
+            raise ParsingException("[knn] requires [field]")
+        if "query_vector" not in qbody:
+            raise ParsingException("[knn] requires [query_vector]")
+        unknown = set(qbody) - {"field", "query_vector", "k",
+                                "num_candidates", "filter", "boost",
+                                "_name"}
+        if unknown:
+            # strict parsing: a misspelled parameter is a 400
+            raise ParsingException(
+                f"[knn] unknown parameter(s) {sorted(unknown)}")
+        flt = qbody.get("filter")
+        filters = ([parse_query(f) for f in flt]
+                   if isinstance(flt, list)
+                   else [parse_query(flt)] if flt is not None else [])
+        return KnnQueryBuilder(
+            qbody["field"], qbody["query_vector"],
+            k=int(qbody.get("k", 10) or 10),
+            num_candidates=qbody.get("num_candidates"),
+            filter=filters,
+            boost=float(qbody.get("boost", 1.0)),
         )
     if qtype == "term":
         field, value, params = _field_and_params(qbody, "value")

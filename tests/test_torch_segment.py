@@ -3,7 +3,8 @@
 The same seeded documents go through both packages' analyzers, mappers
 and ``SegmentBuilder.seal``; the sealed arrays must be equal, array for
 array. ``Segment.from_arrays`` must round-trip a sealed JAX segment, and
-the staged kernel tables must equal what the JAX segment computes.
+the staged kernel tables and vector arrays must equal what the JAX segment
+computes.
 """
 
 import numpy as np
@@ -31,6 +32,7 @@ MAPPING = {"properties": {
     "year": {"type": "long"},
     "n": {"type": "integer"},
     "score": {"type": "double"},
+    "emb": {"type": "dense_vector", "dims": 12, "similarity": "cosine"},
 }}
 
 
@@ -58,6 +60,8 @@ def seeded_docs(seed, n):
             del d["venue"]
         if i % 11 == 0:
             d["venue"] = ["venue-1", "venue-2"]  # multi-valued keyword
+        if i % 3:
+            d["emb"] = [float(x) for x in rng.randn(12)]
         docs.append((f"d{i}", d))
     return docs
 
@@ -112,6 +116,14 @@ def test_seal_equal_arrays(seed, n):
             assert a.dtype == b.dtype == (np.float64 if "value" in name
                                           else a.dtype)
             np.testing.assert_array_equal(a, b)
+    assert sorted(t.vector_columns) == sorted(j.vector_columns) == ["emb"]
+    for f, tc in t.vector_columns.items():
+        jc = j.vector_columns[f]
+        assert (tc.dims, tc.count) == (jc.dims, jc.count)
+        assert tc.vectors.dtype == jc.vectors.dtype == np.float32
+        np.testing.assert_array_equal(tc.vectors.view(np.uint32),
+                                      jc.vectors.view(np.uint32))
+        np.testing.assert_array_equal(tc.exists, jc.exists)
 
 
 def _columns(cols, fields):
@@ -130,6 +142,8 @@ def from_jax(j, device="cpu"):
             "max_value", "exists", "count")),
         ordinal_columns=_columns(j.ordinal_columns, (
             "terms", "flat_ords", "flat_docs", "first_ord", "exists", "count")),
+        vector_columns=_columns(j.vector_columns, (
+            "vectors", "exists", "dims", "count")),
         seqnos=j.seqnos, versions=j.versions, device=device)
 
 
@@ -155,6 +169,33 @@ def test_from_arrays_round_trips_a_jax_segment():
         dev["k_live_t"].numpy(),
         jps.build_live_t(j.live.astype(np.float32), geom))
     assert tuple(t.kernel_geom) == tuple(geom)
+
+
+@pytest.mark.parametrize("metric", ["cosine", "dot_product"])
+def test_staged_vectors_bit_equal_to_the_jax_segment(metric):
+    """A JAX segment carried across by ``from_arrays`` stages the same
+    bf16 embeddings, inverse norms and exists mask as the JAX segment."""
+    _, j, _, _ = _seal_both(seeded_docs(7, 150))
+    j.delete_docs(np.asarray([2, 40]))
+    t = from_jax(j)
+    jkeys = j.ensure_vector_staged("emb", metric)
+    tkeys = t.ensure_vector_staged("emb", metric)
+    assert tkeys == jkeys
+    emb_key, norm_key, exists_key, d_pad = tkeys
+    jdev, tdev = j.device_arrays(), t.device_arrays()
+    assert tdev[emb_key].dtype == torch.bfloat16
+    assert tuple(tdev[emb_key].shape) == tuple(jdev[emb_key].shape)
+    np.testing.assert_array_equal(
+        tdev[emb_key].view(torch.int16).numpy(),
+        np.asarray(jdev[emb_key]).view(np.int16))
+    np.testing.assert_array_equal(tdev[exists_key].numpy(),
+                                  np.asarray(jdev[exists_key]))
+    if metric == "cosine":
+        np.testing.assert_array_equal(tdev[norm_key].numpy(),
+                                      np.asarray(jdev[norm_key]))
+    else:
+        assert norm_key not in tdev
+    assert t.ensure_vector_staged("nosuchfield", metric) is None
 
 
 def test_delete_docs_restages_every_live_layout():
