@@ -35,7 +35,7 @@ prints no result, when there is no GPU or any check fails. Phases:
    the dense scores and mask.
 6. The kernel summary line, then the device line.
 
-Run between phases 2 and 3, and after phase 4:
+Run between phases 2 and 3, and after phase 4 (phase 10 after phase 9):
 
 2b. Kernels 1b (dense, q_batch=16, with and without counts) and 1c (fused
     per-tile top-k, q_batch 1 and 16, k=16) on the 1M-doc corpus, for 16
@@ -73,6 +73,39 @@ Run between phases 2 and 3, and after phase 4:
     every 97th doc has none). Each is timed beside its bound, the plain
     version and the library call (``emb.float() @ q.T``, scale, mask and
     ``torch.topk`` per tile, TF32 off).
+2d. Kernels 1d (packed codec) and 1e (tile subsets) on the phase-2 corpus,
+    whose 2^20-doc space is exactly the packed word's doc cap (every doc at
+    or above 2^19 sets its word's sign bit): 1d dense Q=1 with and without
+    counts, dense Q=16, top-k Q=1 and 16; 1e raw and packed with an 8-tile
+    probe set and a rest set with about half its rows zeroed, Q=1 and 16;
+    the whole ``score_tiles_pruned`` orchestration (its plain form runs the
+    same orchestration over the plain versions). Each bit-equal to its
+    plain version, timed beside its byte bound (4 bytes a packed posting;
+    only the scored tiles' rows for 1e), the plain version and the library
+    call (the decode plus ``index_add_``, and ``torch.topk`` per tile for
+    the top-k forms, over the scored tiles for 1e).
+10. Packed postings and block-max pruning through ``Node(device="cuda")``
+    on pmc-4x256k (phase 7's arrays as new segments; node settings
+    ``search.pallas.postings_codec: packed``,
+    ``search.pallas.pruning.enabled: true``,
+    ``search.pallas.pruning.probe_tiles: 8``): serial match queries on
+    ``mesh_pallas`` with ``_pruned``, hits and scores equal to a packed
+    exhaustive index on the card and bit for bit to the cpu node,
+    recall@10 = 1.0 against ``reference_scores`` over the dequantized frac
+    (against the raw frac: reported); bool queries and the exhaustive
+    fallbacks (terms agg, operator and, minimum_should_match, size 0,
+    post_filter) exact and unmarked; the packed host rung (4 shards
+    without the mesh, one shard, phase 3's 5-shard index re-staged packed);
+    raw pruning on phase 7's own segments (kernel 1e raw); bursts (one
+    ``search_batch`` of 16 each on the pruned, the packed exhaustive and
+    the packed 5-shard index, then 16 threads at ``Node.search``, members
+    equal to their serial responses, serial total <= member total <=
+    exact total); deletes, then the match queries again. Every 1d / 1e
+    launch of the phase is held bit for bit against its plain version on
+    its real inputs; every new launch name must have moved; zero plane
+    faults. Prints the pruned
+    tile fraction, the staged posting bytes packed and raw, and p50 for
+    raw exhaustive, packed exhaustive and packed pruned matches.
 9. kNN through ``Node(device="cuda")`` on pmc-4x256k with the phase-2c
    vectors as a ``dense_vector`` field ``emb`` (128 dims, cosine; 268 MB
    of bf16 on the card): serial pure kNN on ``mesh_pallas`` (k 10 and
@@ -94,6 +127,7 @@ import contextlib
 import json
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -487,7 +521,7 @@ def batch_kernels_phase(torch, dev, gseg, gdev, timer, queries,
     batches = {"draws": draws,
                "ladder": [lanes_of([top_rank_term] + list(queries[0][:2]))]
                + draws[1:]}
-    errs = {"batched": 0.0, "topk": 0.0}
+    errs = {"tile_scoring_batched": 0.0, "tile_scoring_topk": 0.0}
     entries = {}
     kk = 16
     for name, sets in batches.items():
@@ -503,7 +537,8 @@ def batch_kernels_phase(torch, dev, gseg, gdev, timer, queries,
             p_out = tsc.score_tiles_plain(*args, sub=sub, with_counts=wc,
                                           q_batch=qn)
             torch.cuda.synchronize()
-            errs["batched"] = max(errs["batched"], float(
+            errs["tile_scoring_batched"] = max(
+                errs["tile_scoring_batched"], float(
                 (k_out[0] - p_out[0]).abs().max()))
             check(torch.equal(k_out[0], p_out[0]),
                   f"1b scores bit-equal plain ({name}, counts={wc})")
@@ -528,7 +563,7 @@ def batch_kernels_phase(torch, dev, gseg, gdev, timer, queries,
             p_out = tsc.score_tiles_topk_plain(*args[:5], wq, sub=sub, k=kk)
             torch.cuda.synchronize()
             fin = torch.isfinite(p_out[0])
-            errs["topk"] = max(errs["topk"], float(
+            errs["tile_scoring_topk"] = max(errs["tile_scoring_topk"], float(
                 (k_out[0][fin] - p_out[0][fin]).abs().max()))
             check(all(torch.equal(a, b) for a, b in zip(k_out, p_out)),
                   f"1c scores, docs and hits equal plain ({name}, Q={qb})")
@@ -606,6 +641,317 @@ def batch_kernels_phase(torch, dev, gseg, gdev, timer, queries,
 
 
 # ----------------------------------------------------------------------
+# Kernels 1d (packed codec) and 1e (tile subsets, pruning) at bench shapes
+# ----------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def plain_tile_kernels(tsc):
+    """While the block runs, ``score_tiles`` on a card tensor runs the plain
+    versions (the plain form of an orchestration built on it)."""
+    orig = tsc.score_tiles
+
+    def plain(docs, frac, live_t, rl, rh, w, **kw):
+        k = min(kw.get("k", 10), kw["sub"] * tsc.LANE)
+        if kw.get("dense", False):
+            return tsc.score_tiles_plain(
+                docs, frac, live_t, rl, rh, w, sub=kw["sub"],
+                with_counts=kw.get("with_counts", False),
+                q_batch=kw.get("q_batch", 1))
+        tid = kw.get("tile_ids")
+        return tsc.score_tiles_topk_plain(docs, frac, live_t, rl, rh, w,
+                                          sub=kw["sub"], k=k, tile_ids=tid)
+
+    tsc.score_tiles = plain
+    try:
+        yield
+    finally:
+        tsc.score_tiles = orig
+
+
+def rows_read(tsc, rl, rh, codec, keep=None):
+    """Bytes of the distinct posting rows a launch must read: the union of
+    every kept table row's windows, 4 bytes a packed posting, 8 raw."""
+    rl, rh = np.asarray(rl), np.asarray(rh)
+    if keep is not None:
+        rl, rh = rl[keep], rh[keep]
+    hi = int(rh.max()) if rh.size else 0
+    mark = np.zeros(hi + 1, bool)
+    for lo_, hi_ in zip(rl.ravel(), rh.ravel()):
+        if hi_ > lo_:
+            mark[lo_:hi_] = True
+    return int(mark.sum()) * tsc.LANE * (4 if codec == "packed" else 8)
+
+
+def packed_kernels_phase(torch, dev, gseg, gdev, timer, corpus, queries):
+    """Phase 2d: 1d (packed codec) dense Q=1 with and without counts, dense
+    Q=16, top-k Q=1 and 16, and 1e (tile subsets) raw and packed with an
+    8-tile probe set and a rest set with about half its rows zeroed, and
+    the whole score_tiles_pruned orchestration, on the 1M-doc corpus
+    (nd_pad = 2^20, the packed word's doc cap: half its docs set the
+    word's sign bit). Each against its plain version bit for bit, timed
+    beside its byte bound, the plain version and a library call."""
+    from elasticsearch_tpu_torch.ops import tile_scoring as tsc
+    from elasticsearch_tpu_torch.search import query_dsl as Q
+
+    t0 = time.perf_counter()
+    frac = gseg._block_frac()
+    fq = tsc.quantize_frac(frac)
+    words = torch.from_numpy(tsc.pack_segment_blocks(
+        corpus["block_docs"], frac, gseg.nd_pad, q=fq)).to(dev)
+    bf = {"raw": tsc.block_frac_max(frac),
+          "packed": tsc.block_frac_max(tsc.dequantize_frac(fq))}
+    del frac, fq
+    log(f"[phase 2d] packed words {tuple(words.shape)} staged in "
+        f"{time.perf_counter() - t0:.1f} s; {words.numel() * 4 / 1e9:.3f} GB "
+        f"against raw {(gdev['k_docs'].numel() * 8) / 1e9:.3f} GB")
+    corp = {"raw": (gdev["k_docs"], gdev["k_frac"]), "packed": (words, None)}
+
+    def on_dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def lanes_of(terms):
+        arrs = Q.term_blocks_arrays(
+            gseg, [("title", term_token(t), 1.0) for t in terms])
+        return [tsc.QueryLane(s_, c, w) for s_, c, w, _ in arrs["lanes_meta"]]
+
+    sets = [lanes_of(q) for q in queries[:BURST]]
+    g, live_key, (rl16, rh16, w16, cb) = _batched_tables(tsc, gseg, sets)
+    sub, n_tiles = g.tile_sub, g.n_tiles
+    w_tile = sub * tsc.LANE
+    live = gdev[live_key]
+    r1, h1, w1, cb1 = tsc.build_tile_tables(sets[0], gseg.kernel_bmin,
+                                            gseg.kernel_bmax, g)
+    nd_geom = n_tiles * w_tile
+    kk = 16
+    errs = {}
+    out = {}
+
+    def equal(a, b, what, key):
+        ok = len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+        fin = torch.isfinite(b[0])
+        errs[key] = max(errs.get(key, 0.0), float(
+            (a[0][fin] - b[0][fin]).abs().max()) if bool(fin.any()) else 0.0)
+        check(ok, f"{what} bit-equal plain")
+
+    # the single query's and the burst's tables as launch arguments
+    cases = {1: (r1, h1, w1, cb1), len(sets): (rl16, rh16, w16, cb)}
+    # ---- 1d dense, Q = 1 and 16, with and without counts
+    for qb, (rl, rh, w, cbq) in cases.items():
+        name = "tile_scoring_packed" if qb == 1 else \
+            "tile_scoring_batched_packed"
+        args = [words, None, live, on_dev(rl), on_dev(rh), on_dev(w)]
+        kw = dict(t_pad=rl.shape[1], cb=cbq, sub=sub, codec="packed",
+                  q_batch=qb)
+        for wc in (False, True):
+            equal(tsc.score_tiles(*args, **kw, dense=True, with_counts=wc),
+                  tsc.score_tiles_plain(*args, sub=sub, with_counts=wc,
+                                        q_batch=qb),
+                  f"1d dense Q={qb} counts={wc}", name)
+        rows = rows_read(tsc, rl, rh, "packed")
+        post = posting_count(tsc, rl, rh, w, np.ones(n_tiles, bool))
+        tables = rl.nbytes + rh.nbytes + w.nbytes
+        # operations: the decode's multiply, then a multiply and an add per
+        # posting and query (one more add with counts)
+        b = bound(rows + nd_geom * 4 + tables + qb * nd_geom * 4, 3 * post)
+        bc = bound(rows + nd_geom * 4 + tables + 2 * qb * nd_geom * 4,
+                   4 * post)
+        lib = _yardstick(torch, tsc, corp["packed"], range(n_tiles), rl, rh,
+                         w, gseg.nd_pad, sub, kk, dev, topk=False)
+        out[name] = {
+            "q_batch": qb, "sub": sub, "n_tiles": n_tiles,
+            "posting_rows": rows // 4 // tsc.LANE,
+            "ms": timer.ms(lambda a=args, k_=kw: tsc.score_tiles(
+                *a, **k_, dense=True)),
+            "ms_with_counts": timer.ms(lambda a=args, k_=kw: tsc.score_tiles(
+                *a, **k_, dense=True, with_counts=True)),
+            "plain_ms": timer.ms(lambda a=args, qb=qb: tsc.score_tiles_plain(
+                *a, sub=sub, q_batch=qb), reps=3, warmup=1),
+            "library_ms": timer.ms(lib),
+            "bound_ms": b[0], "bound_by": b[1], "bound_ms_with_counts": bc[0]}
+        # ---- 1d top-k
+        equal(tsc.score_tiles(*args, **kw, k=kk),
+              tsc.score_tiles_topk_plain(*args, sub=sub, k=kk),
+              f"1d top-k Q={qb}", "tile_scoring_topk_packed")
+        b = bound(rows + nd_geom * 4 + tables + n_tiles * qb * (kk * 8 + 4),
+                  3 * post + nd_geom * qb)
+        lib = _yardstick(torch, tsc, corp["packed"], range(n_tiles), rl, rh,
+                         w, gseg.nd_pad, sub, kk, dev, topk=True)
+        out[f"tile_scoring_topk_packed_q{qb}"] = {
+            "q_batch": qb, "k": kk,
+            "ms": timer.ms(lambda a=args, k_=kw: tsc.score_tiles(
+                *a, **k_, k=kk)),
+            "plain_ms": timer.ms(lambda a=args: tsc.score_tiles_topk_plain(
+                *a, sub=sub, k=kk), reps=3, warmup=1),
+            "library_ms": timer.ms(lib),
+            "bound_ms": b[0], "bound_by": b[1]}
+    # ---- 1e: an 8-tile probe set, and a rest set with about half its rows
+    # zeroed (the lower-bound half, what the gate drops), raw and packed;
+    # then the whole orchestration
+    keys = ("rl_probe", "rh_probe", "tid_probe", "rl_rest", "rh_rest",
+            "tid_rest", "bounds_rest")
+    for codec in ("raw", "packed"):
+        name = "tile_scoring_topk_sel" + ("_packed" if codec == "packed"
+                                          else "")
+        for qb, (rl, rh, w, cbq) in cases.items():
+            plan = tsc.plan_pruned_tiles(rl, rh, w, bf[codec], 8)
+            n_rest = len(plan["tid_rest"])
+            keep = np.arange(n_rest) < (n_rest + 1) // 2
+            parts = {
+                "probe": (plan["rl_probe"], plan["rh_probe"],
+                          plan["tid_probe"], np.ones(8, bool)),
+                "rest": (np.where(keep[:, None], plan["rl_rest"], 0),
+                         np.where(keep[:, None], plan["rh_rest"], 0),
+                         np.where(keep, plan["tid_rest"], 0), keep)}
+            wt = on_dev(w)
+            kq = dict(t_pad=rl.shape[1], cb=cbq, sub=sub, codec=codec,
+                      q_batch=qb, k=kk)
+            for part, (prl, prh, ptid, kept) in parts.items():
+                tid = on_dev(ptid.astype(np.int32))
+                args = [*corp[codec], live, on_dev(prl.astype(np.int32)),
+                        on_dev(prh.astype(np.int32)), wt]
+                equal(tsc.score_tiles(*args, **kq, tile_ids=tid),
+                      tsc.score_tiles_topk_plain(*args, sub=sub, k=kk,
+                                                 tile_ids=tid),
+                      f"1e {codec} {part} Q={qb}", name)
+                scored = ptid[kept]
+                on = np.zeros(n_tiles, bool)
+                on[scored] = True
+                rows = rows_read(tsc, rl, rh, codec, on)
+                post = posting_count(tsc, rl, rh, w, on)
+                b = bound(rows + len(scored) * w_tile * 4
+                          + len(ptid) * qb * (kk * 8 + 4),
+                          (3 if codec == "packed" else 2) * post
+                          + len(scored) * w_tile * qb)
+                lib = _yardstick(torch, tsc, corp[codec], scored, rl, rh, w,
+                                 gseg.nd_pad, sub, kk, dev, topk=True)
+                out[f"{name}_{part}_q{qb}"] = {
+                    "q_batch": qb, "k": kk, "rows_in_set": len(ptid),
+                    "tiles_scored": int(len(scored)),
+                    "ms": timer.ms(lambda a=args, t=tid: tsc.score_tiles(
+                        *a, **kq, tile_ids=t)),
+                    "plain_ms": timer.ms(
+                        lambda a=args, t=tid: tsc.score_tiles_topk_plain(
+                            *a, sub=sub, k=kk, tile_ids=t), reps=3, warmup=1),
+                    "library_ms": timer.ms(lib),
+                    "bound_ms": b[0], "bound_by": b[1]}
+            # the orchestration: probe pass, threshold, gate, rest pass
+            pa = [on_dev(plan[x]) for x in keys]
+            okw = dict(t_pad=rl.shape[1], cb=cbq, sub=sub, k=kk, q_batch=qb,
+                       codec=codec)
+            got = tsc.score_tiles_pruned(*corp[codec], live, *pa, wt, **okw)
+            with plain_tile_kernels(tsc):
+                want = tsc.score_tiles_pruned(*corp[codec], live, *pa, wt,
+                                              **okw)
+            equal(got, want, f"score_tiles_pruned {codec} Q={qb}", name)
+            ex = tsc.merge_tile_topk_batched(*tsc.score_tiles(
+                *corp[codec], live, on_dev(rl), on_dev(rh), wt, t_pad=rl.shape[1],
+                cb=cbq, sub=sub, k=kk, q_batch=qb, codec=codec), kk)
+            check(torch.equal(got[0], ex[0]) and bool((got[2] <= ex[2]).all()),
+                  f"score_tiles_pruned {codec} Q={qb}: the exhaustive top-k "
+                  f"scores, totals at most the exact ones")
+            # the tiles it scored: the same threshold and gate, read back
+            ts1 = tsc.score_tiles(*corp[codec], live, pa[0], pa[1], wt,
+                                  tile_ids=pa[2], **okw)[0]
+            theta = tsc.probe_threshold([ts1], kk, qb, qb)
+            surv = (pa[6] >= theta[None, :]).any(dim=1).cpu().numpy()
+            scored = np.concatenate([plan["tid_probe"],
+                                     plan["tid_rest"][surv]])
+            check(int(got[3]) == len(scored),
+                  f"score_tiles_pruned {codec} Q={qb} scored the gate's tiles")
+            on = np.zeros(n_tiles, bool)
+            on[scored] = True
+            post = posting_count(tsc, rl, rh, w, on)
+            b = bound(rows_read(tsc, rl, rh, codec, on)
+                      + len(scored) * w_tile * 4 + n_tiles * qb * (kk * 8 + 4),
+                      (3 if codec == "packed" else 2) * post
+                      + len(scored) * w_tile * qb)
+            lib = _yardstick(torch, tsc, corp[codec], scored, rl, rh, w,
+                             gseg.nd_pad, sub, kk, dev, topk=True)
+
+            def plain_run(pa=pa, wt=wt, okw=okw, codec=codec):
+                with plain_tile_kernels(tsc):
+                    return tsc.score_tiles_pruned(*corp[codec], live, *pa, wt,
+                                                  **okw)
+
+            out[f"score_tiles_pruned_{codec}_q{qb}"] = {
+                "q_batch": qb, "k": kk, "tiles_scored": int(got[3]),
+                "n_tiles": n_tiles,
+                "ms": timer.ms(lambda pa=pa, wt=wt, okw=okw, codec=codec:
+                               tsc.score_tiles_pruned(*corp[codec], live, *pa,
+                                                      wt, **okw)),
+                "plain_ms": timer.ms(plain_run, reps=3, warmup=1),
+                "library_ms": timer.ms(lib),
+                "bound_ms": b[0], "bound_by": b[1]}
+    for key, e in out.items():
+        log(f"[phase 2d] {key} {json.dumps(e)}")
+    log(f"[phase 2d] max_abs_err {json.dumps(errs)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del words, corp
+    torch.cuda.empty_cache()
+    return out, errs
+
+
+def posting_count(tsc, rl, rh, w, on):
+    """Postings times the queries that weight their lane, over the kept
+    tiles' windows (the multiply-adds a launch must make)."""
+    win = (np.asarray(rh) - np.asarray(rl)).clip(0)[on]  # [tiles, t_pad]
+    live_q = (np.asarray(w) > 0).sum(axis=0)  # queries per lane
+    return int((win * live_q[None, :]).sum()) * tsc.LANE
+
+
+def _yardstick(torch, tsc, corpus, tiles, rl, rh, w, nd_pad, sub, kk, dev,
+               topk):
+    """The library call beside 1d / 1e: the postings of the given tiles'
+    windows (decoded when packed), one index_add_ of w_q * frac into a
+    [Q, nd_pad + 1] accumulator, and, for a top-k form, torch.topk per
+    tile."""
+    tiles = np.asarray(list(tiles), np.int64)
+    qb = w.shape[0]
+    w_tile = sub * tsc.LANE
+    nd1 = nd_pad + 1
+    docs_t, frac_t = corpus
+    parts_r, parts_q, parts_w = [], [], []
+    for j in range(rl.shape[1]):
+        mark = np.zeros(int(rh.max()) + 1, bool)
+        for t in tiles:
+            mark[rl[t, j]: rh[t, j]] = True
+        rows = np.nonzero(mark)[0]
+        for q in range(qb):
+            if len(rows) and w[q, j] > 0:
+                parts_r.append(rows)
+                parts_q.append(np.full(len(rows) * tsc.LANE, q * nd1))
+                parts_w.append(np.full(len(rows) * tsc.LANE, w[q, j],
+                                       np.float32))
+    rows = torch.from_numpy(np.concatenate(parts_r)).to(dev)
+    qoff = torch.from_numpy(np.concatenate(parts_q)).to(dev)
+    wts = torch.from_numpy(np.concatenate(parts_w)).to(dev)
+    gathered = [docs_t[rows].reshape(-1)]
+    if frac_t is not None:
+        gathered.append(frac_t[rows].reshape(-1))
+    buf = torch.zeros(qb * nd1, device=dev)
+    tile_docs = (torch.from_numpy(tiles).to(dev)[:, None] * w_tile
+                 + torch.arange(w_tile, device=dev)[None, :]).reshape(-1)
+    scale = float(np.float32(tsc.PACK_FRAC_SCALE))
+
+    def library():
+        if frac_t is None:
+            wd = gathered[0]
+            d = ((wd.long() & 0xFFFFFFFF) >> 12) + qoff
+            f = (wd & 0xFFF).float() * scale * wts
+        else:
+            d = gathered[0].long() + qoff
+            f = gathered[1] * wts
+        dense = buf.index_add_(0, d, f)
+        if not topk:
+            return dense
+        sel = dense.reshape(qb, nd1)[:, tile_docs]
+        return torch.topk(sel.reshape(qb, len(tiles), w_tile), kk, dim=2)
+
+    return library
+
+
+# ----------------------------------------------------------------------
 # The mesh plane at real size (pmc-4x256k) and the bursts
 # ----------------------------------------------------------------------
 
@@ -635,7 +981,8 @@ def mesh_phase(torch, Node, Segment, cuda_kernels, queries, top_rank_term,
     arrays, against the same card node's host rung (index.search.mesh:
     false), and for recall@10 against reference_scores; then deletes,
     refresh (the staging is rebuilt) and again. Returns (gnode, cpu node,
-    the card's segments, the cpu node's segments)."""
+    the card's segments, the cpu node's segments, each shard's
+    Segment.from_arrays fields without the vectors)."""
     from elasticsearch_tpu_torch.ops import tile_scoring as tsc
     from elasticsearch_tpu_torch.search import query_dsl as Q
 
@@ -656,9 +1003,10 @@ def mesh_phase(torch, Node, Segment, cuda_kernels, queries, top_rank_term,
         node.create_index("pmc4h", {"settings": {
             "number_of_shards": 4, "search": {"mesh": False}},
             "mappings": mapping})
-    gsegs, csegs = [], []
+    gsegs, csegs, shard_arrays = [], [], []
     for sh, corpus in enumerate(corpora):
         arrays = corpus_segment_arrays(corpus, id_prefix=f"s{sh}p")
+        shard_arrays.append(dict(arrays))
         rows = slice(sh * MESH_SHARD_DOCS, (sh + 1) * MESH_SHARD_DOCS)
         arrays["vector_columns"] = {"emb": dict(
             vectors=vecs[rows], exists=exists[rows], dims=KNN_DIMS,
@@ -736,7 +1084,7 @@ def mesh_phase(torch, Node, Segment, cuda_kernels, queries, top_rank_term,
     host_copy_note(gnode, "pmc4", 2 * len(reqs), "phase 7 mesh plane")
     host_copy_note(gnode, "pmc4h", 2 * len(reqs), "phase 7 host rung")
     log(f"[phase 7] planes: {json.dumps(svc.search_stats()['planes'])}")
-    return gnode, cnode, gsegs, csegs
+    return gnode, cnode, gsegs, csegs, shard_arrays
 
 
 def _same_exact(got, want):
@@ -748,20 +1096,18 @@ def _same_exact(got, want):
 
 
 @contextlib.contextmanager
-def recording_batched_launches(tsc):
+def recording_tile_launches(tsc, keep):
     """While the block runs, keep (args, kwargs, outputs) of every
-    ``score_tiles`` call that launches kernel 1b (dense, q_batch > 1) or
-    1c (fused top-k), under "batched" / "topk". The wrapper calls the
-    kernel once per call, so the launch counts stay the path's own."""
+    ``score_tiles`` call on the card for which ``keep(kwargs)`` holds; the
+    wrapper calls the kernel once per call, so the launch counts stay the
+    path's own."""
     orig = tsc.score_tiles
-    kept = {"batched": [], "topk": []}
+    kept = []
 
     def recording(*args, **kw):
         out = orig(*args, **kw)
-        if not kw.get("dense", True):
-            kept["topk"].append((args, kw, out))
-        elif kw.get("q_batch", 1) > 1:
-            kept["batched"].append((args, kw, out))
+        if args[0].is_cuda and keep(kw):
+            kept.append((args, kw, out))
         return out
 
     tsc.score_tiles = recording
@@ -771,30 +1117,46 @@ def recording_batched_launches(tsc):
         tsc.score_tiles = orig
 
 
-def check_kept_launches(torch, tsc, kept, errs):
-    """Hold each kept main-path launch of 1b and 1c against its plain
-    version on the very inputs the path gave it, bit for bit."""
-    for kind, calls in kept.items():
-        for n, (args, kw, out) in enumerate(calls):
-            sub, qb = kw["sub"], kw.get("q_batch", 1)
-            if kind == "batched":
-                plain = tsc.score_tiles_plain(
-                    *args, sub=sub, with_counts=kw.get("with_counts", False),
-                    q_batch=qb)
-            else:
-                plain = tsc.score_tiles_topk_plain(
-                    *args, sub=sub, k=min(kw["k"], sub * tsc.LANE))
-            torch.cuda.synchronize()
-            fin = torch.isfinite(plain[0])
-            errs[kind] = max(errs[kind], float(
+def launch_name(kw):
+    """The launch counter a score_tiles call adds to."""
+    if kw.get("dense", False):
+        base = "tile_scoring" if kw.get("q_batch", 1) == 1 \
+            else "tile_scoring_batched"
+    else:
+        base = "tile_scoring_topk" + ("_sel" if kw.get("tile_ids") is not None
+                                      else "")
+    return base + ("_packed" if kw.get("codec", "raw") == "packed" else "")
+
+
+def check_kept_launches(torch, tsc, kept, errs, label):
+    """Hold each kept main-path launch against its plain version on the
+    very inputs the path gave it, bit for bit; errs[launch name] takes the
+    largest difference. Returns the launches held, by name."""
+    by_name = {}
+    for n, (args, kw, out) in enumerate(kept):
+        name = launch_name(kw)
+        by_name[name] = by_name.get(name, 0) + 1
+        sub, qb = kw["sub"], kw.get("q_batch", 1)
+        if kw.get("dense", False):
+            plain = tsc.score_tiles_plain(
+                *args, sub=sub, with_counts=kw.get("with_counts", False),
+                q_batch=qb)
+        else:
+            plain = tsc.score_tiles_topk_plain(
+                *args, sub=sub, k=min(kw["k"], sub * tsc.LANE),
+                tile_ids=kw.get("tile_ids"))
+        torch.cuda.synchronize()
+        fin = torch.isfinite(plain[0])
+        if bool(fin.any()):
+            errs[name] = max(errs.get(name, 0.0), float(
                 (out[0][fin] - plain[0][fin]).abs().max()))
-            check(len(out) == len(plain) and all(
-                torch.equal(a, b) for a, b in zip(out, plain)),
-                f"main-path {kind} launch {n} (rows {args[0].shape[0]}, "
-                f"tiles {args[3].shape[0]}, sub {sub}, Q {qb}) equals plain")
-        log(f"[phase 8] {len(calls)} main-path {kind} launches held "
-            f"against plain (rows per launch "
-            f"{sorted({a[0].shape[0] for a, _k, _o in calls})})")
+        check(len(out) == len(plain) and all(
+            torch.equal(a, b) for a, b in zip(out, plain)),
+            f"{label} main-path {name} launch {n} (rows {args[0].shape[0]}, "
+            f"table rows {args[3].shape[0]}, sub {sub}, Q {qb}) equals plain")
+    log(f"[{label}] {len(kept)} main-path launches held against plain: "
+        f"{by_name}")
+    return by_name
 
 
 def burst_phase(torch, cuda_kernels, tsc, queries, lat, launches, targets,
@@ -814,7 +1176,9 @@ def burst_phase(torch, cuda_kernels, tsc, queries, lat, launches, targets,
     torch.cuda.synchronize()
     cuda_kernels.reset_launch_counts()
     outs = {}
-    with recording_batched_launches(tsc) as kept:
+    with recording_tile_launches(
+            tsc, lambda kw: launch_name(kw) in (
+                "tile_scoring_batched", "tile_scoring_topk")) as kept:
         for node, index, plane in targets:
             t0 = time.perf_counter()
             outs[index] = node.indices[index].search_batch(
@@ -830,10 +1194,11 @@ def burst_phase(torch, cuda_kernels, tsc, queries, lat, launches, targets,
         check(p8[k] > 0, f"phase 8 launched {k}")
     for k, v in p8.items():
         launches[k] += v
-    check(len(kept["topk"]) == p8["tile_scoring_topk"]
-          and len(kept["batched"]) == p8["tile_scoring_batched"],
+    held = check_kept_launches(torch, tsc, kept, errs, "phase 8")
+    check(held.get("tile_scoring_topk", 0) == p8["tile_scoring_topk"]
+          and held.get("tile_scoring_batched", 0)
+          == p8["tile_scoring_batched"],
           "every 1b/1c launch of the bursts was kept for the plain check")
-    check_kept_launches(torch, tsc, kept, errs)
     for node, index, plane in targets:
         for i, (got, want) in enumerate(zip(outs[index], serial[index])):
             check(isinstance(got, dict) and got["_plane"] == plane,
@@ -1309,6 +1674,368 @@ def knn_phase(torch, cuda_kernels, gnode, cnode, gsegs, csegs, vecs, exists,
 
 
 # ----------------------------------------------------------------------
+# Packed postings and block-max pruning through Node (pmc-4x256k)
+# ----------------------------------------------------------------------
+
+
+def same_ranked(gr, wr, what):
+    """Hits and scores equal where the two rankings may order exact ties
+    differently (a pruned pool merges its probe tiles first): scores equal
+    exactly, ids equal per group of equal scores, except that the last
+    group may be cut at the window."""
+    gh, wh = gr["hits"]["hits"], wr["hits"]["hits"]
+    ok = len(gh) == len(wh) and [h["_score"] for h in gh] == [
+        h["_score"] for h in wh]
+    i = 0
+    while ok and i < len(wh):
+        j = i + 1
+        while j < len(wh) and wh[j]["_score"] == wh[i]["_score"]:
+            j += 1
+        if j < len(wh):
+            ok = {h["_id"] for h in gh[i:j]} == {h["_id"] for h in wh[i:j]}
+        i = j
+    check(ok, f"hits and scores equal: {what}")
+
+
+def pruned_phase(torch, Node, Segment, cuda_kernels, tsc, queries, lat,
+                 launches, errs, shard_arrays, raw_node, ingest_node):
+    """Phase 10: packed postings and block-max pruning through Node on
+    pmc-4x256k (phase 7's arrays, as new segments staged packed):
+
+    - serial match queries on ``mesh_pallas`` with ``_pruned``, hits and
+      scores equal to the packed exhaustive index on the card and bit for
+      bit to the cpu node; recall@10 against reference_scores over the
+      dequantized frac (gated) and the raw frac (reported); bool queries
+      and the exhaustive fallbacks (terms agg, operator and,
+      minimum_should_match, size 0, post_filter) exact, with no marker;
+    - the packed host rung: 4 shards with index.search.mesh false, one
+      shard, and phase 3's 5-shard ingest index re-staged packed;
+    - raw pruning (the raw sel kernel) on phase 7's own segments, equal to
+      phase 7's exhaustive index;
+    - bursts: one search_batch of 16 on the pruned index, one on the
+      packed exhaustive index, one on the packed ingest index (host
+      batched rung), and 16 threads at Node.search;
+    - deletes, then the match queries again.
+    Every 1d / 1e launch of the phase is held bit for bit against its
+    plain version on the inputs the path gave it. Returns the report."""
+    from elasticsearch_tpu_torch.common.settings import Settings
+    from elasticsearch_tpu_torch.search import query_dsl as Q
+
+    t_phase = time.perf_counter()
+    mapping = {"_doc": {"properties": {
+        "title": {"type": "text"}, "venue": {"type": "keyword"},
+        "year": {"type": "long"}}}}
+    pruning = {"search.pallas.pruning.enabled": True,
+               "search.pallas.pruning.probe_tiles": 8}
+    packed = {"search.pallas.postings_codec": "packed"}
+    gP = Node(Settings({**packed, **pruning}), device="cuda")
+    cP = Node(Settings({**packed, **pruning}), device="cpu")
+    gX = Node(Settings(packed), device="cuda")  # packed, exhaustive
+    gR = Node(Settings(pruning), device="cuda")  # raw, pruned
+
+    def make(node, index, shards, mesh=True):
+        settings = {"number_of_shards": shards}
+        if not mesh:
+            settings["search"] = {"mesh": False}
+        node.create_index(index, {"settings": settings, "mappings": mapping})
+        return node.indices[index]
+
+    t0 = time.perf_counter()
+    gsegs = [Segment.from_arrays(f"pmc4p_{sh}_seg_1", device="cuda", **a)
+             for sh, a in enumerate(shard_arrays)]
+    csegs = [Segment.from_arrays(f"pmc4p_{sh}_seg_1", device="cpu", **a)
+             for sh, a in enumerate(shard_arrays)]
+    for node, index, segs, shards, mesh in (
+            (gP, "pmc4p", gsegs, 4, True), (gP, "pmc4ph", gsegs, 4, False),
+            (gP, "pmc1p", gsegs[:1], 1, True), (gX, "pmc4x", gsegs, 4, True),
+            (cP, "pmc4p", csegs, 4, True), (cP, "pmc1p", csegs[:1], 1, True),
+            (gR, "pmc4r", raw_node[2], 4, True)):
+        svc = make(node, index, shards, mesh)
+        for sh, seg in enumerate(segs):
+            svc.shards[sh].engine.adopt_segment(seg)
+    # phase 3's 5-shard ingest index, its sealed segments re-staged packed
+    for node, device in ((gP, "cuda"), (cP, "cpu")):
+        make(node, "docs5p", 5)
+        _adopt_copies(ingest_node, node, "docs", Segment, device=device,
+                      index_to="docs5p")
+    log(f"[phase 10] indices built in {time.perf_counter() - t0:.1f} s")
+    svc = gP.indices["pmc4p"]
+    tok = term_token
+    matches = [{"query": {"match": {"title": " ".join(tok(t) for t in q)}},
+                "size": 10} for q in queries[:8]]
+    bools = [{"query": {"bool": {"must": [{"match": {"title": " ".join(
+        tok(t) for t in q)}}], "filter": [{"range": {"year": {
+            "gte": 2000}}}]}}, "size": 10} for q in queries[8:10]]
+    fallbacks = [
+        ("terms_agg", {"size": 0, "query": {"match": {"title": " ".join(
+            tok(t) for t in queries[10])}}, "aggs": {"venues": {
+                "terms": {"field": "venue", "size": 10}}}}),
+        ("match_and", {"query": {"match": {"title": {"query": " ".join(
+            tok(t) for t in queries[11][:2]), "operator": "and"}}}}),
+        ("match_msm", {"query": {"match": {"title": {"query": " ".join(
+            tok(t) for t in queries[12]), "minimum_should_match": 2}}}}),
+        ("size_0", {"size": 0, "query": {"match": {"title": " ".join(
+            tok(t) for t in queries[13])}}}),
+        ("post_filter", {"query": {"match": {"title": " ".join(
+            tok(t) for t in queries[14])}}, "post_filter": {
+                "term": {"venue": "v0001"}}})]
+    fracs = {}  # (shard, dequantized) -> the frac the oracle adds
+
+    def ref(terms, dequantized):
+        parts = []
+        for sh, seg in enumerate(gsegs):
+            if (sh, dequantized) not in fracs:
+                f = seg._block_frac()
+                fracs[(sh, False)] = f
+                fracs[(sh, True)] = tsc.dequantize_frac(tsc.quantize_frac(f))
+            f = fracs[(sh, dequantized)]
+            lanes = [tsc.QueryLane(s_, c, w) for s_, c, w, _ in
+                     Q.term_blocks_arrays(seg, [
+                         ("title", tok(t), 1.0) for t in terms])["lanes_meta"]]
+            sc = tsc.reference_scores(shard_arrays[sh]["block_docs"], f,
+                                      lanes, seg.nd_pad)
+            sc[~seg.live] = 0.0
+            parts.append(sc)
+        return np.concatenate(parts)
+
+    def recall(gr, scores):
+        k = min(10, int((scores > 0).sum()))
+        if not k:
+            return None
+        kth = np.sort(scores)[::-1][k - 1]
+        got = []
+        for h in gr["hits"]["hits"][:10]:
+            sh, d = h["_id"][1:].split("p")
+            got.append(int(sh) * MESH_SHARD_DOCS + int(d))
+        return sum(1 for d in got if scores[d] >= kth * (1 - 1e-6)) / k
+
+    def timed(node, index, body, label):
+        t1 = time.perf_counter()
+        r = node.search(index, dict(body))
+        torch.cuda.synchronize()
+        lat.setdefault(f"10/{label}@{r['_plane']}", []).append(
+            (time.perf_counter() - t1) * 1000)
+        return r
+
+    rec_dq, rec_raw = [], []
+
+    def serve_all(tag, full=True):
+        for n, body in enumerate(matches):
+            terms = queries[n]
+            gr = timed(gP, "pmc4p", body, "match packed pruned")
+            xr = timed(gX, "pmc4x", body, "match packed exhaustive")
+            rr = timed(raw_node[0], "pmc4", body, "match raw exhaustive")
+            cr = cP.search("pmc4p", dict(body))
+            check(gr["_plane"] == cr["_plane"] == "mesh_pallas"
+                  and "_pruned" in gr,
+                  f"phase 10{tag} match {n} pruned on mesh_pallas "
+                  f"({gr['_plane']}, {gr.get('_pruned')})")
+            check(_same_exact(gr, cr) and gr.get("_pruned") == cr.get(
+                "_pruned"), f"phase 10{tag} match {n}: the cpu node bit for "
+                f"bit, _pruned {gr.get('_pruned')} / {cr.get('_pruned')}")
+            same_ranked(gr, xr, f"phase 10{tag} match {n} pruned vs packed "
+                        f"exhaustive")
+            check("_pruned" not in xr and gr["hits"]["total"]
+                  <= xr["hits"]["total"],
+                  f"phase 10{tag} match {n}: total {gr['hits']['total']} <= "
+                  f"the exact {xr['hits']['total']}")
+            r = recall(gr, ref(terms, True))
+            if r is not None:
+                rec_dq.append(r)
+            r = recall(gr, ref(terms, False))
+            if r is not None:
+                rec_raw.append(r)
+            # raw pruning on phase 7's segments (the raw sel kernel)
+            pr = timed(gR, "pmc4r", body, "match raw pruned")
+            check("_pruned" in pr, f"phase 10{tag} match {n} raw pruned")
+            same_ranked(pr, rr, f"phase 10{tag} match {n} raw pruned vs raw "
+                        f"exhaustive")
+        if not full:
+            return
+        for n, body in enumerate(bools):
+            gr = timed(gP, "pmc4p", body, "bool packed")
+            xr = gX.search("pmc4x", dict(body))
+            cr = cP.search("pmc4p", dict(body))
+            # a bool query is no single kernel-scored disjunction: it runs
+            # exhaustively in both packages
+            check(gr["_plane"] == "mesh_pallas" and "_pruned" not in gr,
+                  f"phase 10{tag} bool {n} exhaustive on mesh_pallas")
+            same_response(gr, cr, f"phase 10{tag} bool {n}")
+            same_response(gr, xr, f"phase 10{tag} bool {n} vs pmc4x")
+        for kind, body in fallbacks:
+            gr = timed(gP, "pmc4p", body, kind)
+            cr = cP.search("pmc4p", dict(body))
+            xr = gX.search("pmc4x", dict(body))
+            check(gr["_plane"] == "mesh_pallas" and "_pruned" not in gr
+                  and "_pruned" not in cr,
+                  f"phase 10{tag} {kind}: exhaustive, no marker")
+            same_response(gr, cr, f"phase 10{tag} {kind}")
+            same_response(gr, xr, f"phase 10{tag} {kind} vs pmc4x")
+        # the packed host rung: 4 shards without the mesh, one shard, and
+        # the 5-shard ingest index (minimum_should_match: with counts)
+        host = [("pmc4ph", matches[0], None), ("pmc4ph", fallbacks[2][1],
+                                               None),
+                ("pmc1p", matches[1], "pmc1p"),
+                ("pmc1p", fallbacks[2][1], "pmc1p")]
+        for body in requests_for(queries[:3], 3, "v0001", 2000)[:3]:
+            host.append(("docs5p", body[1], "docs5p"))
+        for index, body, cpu_index in host:
+            gr = timed(gP, index, body, f"host packed ({index})")
+            check(gr["_plane"] == "host" and "_pruned" not in gr,
+                  f"phase 10{tag} {index} on the host rung "
+                  f"({gr['_plane']})")
+            if cpu_index is not None:
+                same_response(gr, cP.search(cpu_index, dict(body)),
+                              f"phase 10{tag} {index} host")
+            else:
+                same_response(gr, gX.search("pmc4x", dict(body)),
+                              f"phase 10{tag} {index} host vs pmc4x")
+
+    torch.cuda.synchronize()
+    cuda_kernels.reset_launch_counts()
+
+    def one_d_or_e(kw):
+        return kw.get("codec") == "packed" or kw.get("tile_ids") is not None
+
+    with recording_tile_launches(tsc, one_d_or_e) as kept:
+        t0 = time.perf_counter()
+        serve_all("")
+        log(f"[phase 10] serial requests served in "
+            f"{time.perf_counter() - t0:.1f} s")
+        # bursts of 16
+        bodies = [{"query": {"match": {"title": " ".join(
+            tok(t) for t in q)}}, "size": 10} for q in queries[:BURST]]
+        solo = [gP.search("pmc4p", dict(b)) for b in bodies]
+        exact = [gX.search("pmc4x", dict(b)) for b in bodies]
+        for node, index, plane in ((gP, "pmc4p", "mesh_pallas"),
+                                   (gX, "pmc4x", "mesh_pallas"),
+                                   (gP, "docs5p", "host")):
+            t1 = time.perf_counter()
+            outs = node.indices[index].search_batch([dict(b) for b in bodies])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1000
+            lat.setdefault(f"10/search_batch[{BURST}]@{plane} ({index})",
+                           []).append(ms)
+            log(f"[phase 10] search_batch of {BURST} on {index}: {ms:.3f} ms")
+            for i, got in enumerate(outs):
+                check(isinstance(got, dict) and got["_plane"] == plane,
+                      f"phase 10 burst member {i} on {index} served by "
+                      f"{plane}")
+            if index == "pmc4p":
+                for i, got in enumerate(outs):
+                    check("_pruned" in got, f"burst member {i} pruned")
+                    same_ranked(got, solo[i], f"pruned burst member {i} vs "
+                                f"its serial response")
+                    check(solo[i]["hits"]["total"] <= got["hits"]["total"]
+                          <= exact[i]["hits"]["total"],
+                          f"pruned burst member {i}: serial total "
+                          f"{solo[i]['hits']['total']} <= member "
+                          f"{got['hits']['total']} <= exact "
+                          f"{exact[i]['hits']['total']}")
+            elif index == "pmc4x":
+                for i, got in enumerate(outs):
+                    check(_same_exact(got, exact[i]),
+                          f"packed burst member {i} equals its serial "
+                          f"response")
+        for _round in range(2):
+            got = {}
+            start = threading.Barrier(BURST)
+
+            def worker(i):
+                start.wait()
+                t2 = time.perf_counter()
+                got[i] = gP.search("pmc4p", dict(bodies[i]))
+                torch.cuda.synchronize()
+                lat.setdefault(f"10/threaded@{got[i]['_plane']} (pmc4p)",
+                               []).append((time.perf_counter() - t2) * 1000)
+
+            threads = [threading.Thread(target=worker, args=(i,))
+                       for i in range(BURST)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(300.0)
+                check(not t.is_alive(), "threaded search finished")
+            for i in range(BURST):
+                r = got.get(i)
+                check(isinstance(r, dict) and "_pruned" in r,
+                      f"threaded member {i} pruned")
+                if isinstance(r, dict):
+                    same_ranked(r, solo[i], f"threaded member {i}")
+                    check(solo[i]["hits"]["total"] <= r["hits"]["total"]
+                          <= exact[i]["hits"]["total"],
+                          f"threaded member {i}: the totals relation")
+        # deletes, then again
+        routing = _routing_for_shards(4)
+        restaged = svc._mesh_search.restage_total
+        for sh in range(4):
+            for i in range(0, MESH_SHARD_DOCS, 1009):
+                for node, index in ((gP, "pmc4p"), (gP, "pmc4ph"),
+                                    (gX, "pmc4x"), (cP, "pmc4p")):
+                    node.delete_doc(index, f"s{sh}p{i}", routing=routing[sh])
+        for node, index in ((gP, "pmc4p"), (gP, "pmc4ph"), (gX, "pmc4x"),
+                            (cP, "pmc4p")):
+            node.refresh(index)
+        n_del = len(range(0, MESH_SHARD_DOCS, 1009))
+        check(gsegs[1].live_doc_count == MESH_SHARD_DOCS - n_del,
+              "phase 10 deletes applied")
+        serve_all(" after deletes", full=False)
+        check(svc._mesh_search.restage_total == restaged + 1,
+              "pmc4p staging rebuilt once after the deletes")
+        for body in matches:
+            ids = [h["_id"] for h in gP.search("pmc4p", dict(body))[
+                "hits"]["hits"]]
+            check(not any(int(x.split("p")[1]) % 1009 == 0 for x in ids),
+                  "phase 10: no deleted doc returned")
+    torch.cuda.synchronize()
+    p10 = dict(cuda_kernels.LAUNCHES)
+    log(f"[phase 10] kernel launches: {p10}")
+    for k, v in p10.items():
+        launches[k] += v
+    for name in ("tile_scoring_packed", "tile_scoring_batched_packed",
+                 "tile_scoring_topk_packed", "tile_scoring_topk_sel",
+                 "tile_scoring_topk_sel_packed"):
+        check(p10[name] > 0, f"phase 10 launched {name}")
+    by_name = check_kept_launches(torch, tsc, kept, errs, "phase 10")
+    check(all(by_name.get(n, 0) == p10[n] for n in p10
+              if "packed" in n or "_sel" in n),
+          f"every 1d/1e launch of phase 10 was kept for the plain check "
+          f"({by_name})")
+    check(len(rec_dq) > 0 and min(rec_dq) == 1.0,
+          f"phase 10 recall@10 = 1.0 against reference_scores over the "
+          f"dequantized frac ({len(rec_dq)} queries)")
+    planes = svc.search_stats()["planes"]
+    fails = plane_failures(*(node.indices[i] for node, i in (
+        (gP, "pmc4p"), (gP, "pmc4ph"), (gP, "pmc1p"), (gP, "docs5p"),
+        (gX, "pmc4x"), (gR, "pmc4r"), (cP, "pmc4p"), (cP, "pmc1p"),
+        (cP, "docs5p"))))
+    check(not any(fails), f"phase 10 zero plane faults (got {fails})")
+    raw_bytes = raw_node[0].indices["pmc4"].search_stats()["planes"][
+        "postings_bytes_staged"]
+    scored, pruned = planes["tiles_scored_total"], planes["tiles_pruned_total"]
+    report = {
+        "pruned_query_total": planes["pruned_query_total"],
+        "tiles_scored_total": scored, "tiles_pruned_total": pruned,
+        "tiles_pruned_fraction": pruned / max(scored + pruned, 1),
+        "postings_codec": planes["postings_codec"],
+        "postings_bytes_staged_packed": planes["postings_bytes_staged"],
+        "postings_bytes_staged_raw": raw_bytes,
+        "recall_at_10_dequantized_min": min(rec_dq) if rec_dq else None,
+        "recall_at_10_raw_oracle_min": min(rec_raw) if rec_raw else None,
+        "recall_at_10_raw_oracle_mean": (float(np.mean(rec_raw))
+                                         if rec_raw else None),
+        "seconds": time.perf_counter() - t_phase}
+    for label in ("match raw exhaustive", "match packed exhaustive",
+                  "match packed pruned", "match raw pruned"):
+        xs = [v for k, vs in lat.items() if k.startswith(f"10/{label}@")
+              for v in vs]
+        report[f"p50_ms {label}"] = float(np.median(xs)) if xs else None
+    log(f"[phase 10] report {json.dumps(report)}")
+    log(f"[phase 10] planes: {json.dumps(planes)}")
+    return report
+
+
+# ----------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1377,7 +2104,7 @@ def main() -> int:
             (node.row_lo, node.row_hi, node.kweights)]
         kw = dict(t_pad=node.t_pad, cb=node.cb, sub=node.sub)
         for wc in (False, True):
-            k_out = tsc.score_tiles(*args, **kw, with_counts=wc)
+            k_out = tsc.score_tiles(*args, **kw, dense=True, with_counts=wc)
             p_out = tsc.score_tiles_plain(*args, sub=node.sub, with_counts=wc)
             torch.cuda.synchronize()
             err = float((k_out[0] - p_out[0]).abs().max())
@@ -1394,8 +2121,9 @@ def main() -> int:
         nd_geom = node.n_tiles * node.sub * tsc.LANE
         tables = node.row_lo.nbytes * 2 + node.kweights.nbytes
         bytes_plain = rows * tsc.LANE * 8 + nd_geom * 4 + tables + nd_geom * 4
-        ms = timer.ms(lambda: tsc.score_tiles(*args, **kw))
-        ms_c = timer.ms(lambda: tsc.score_tiles(*args, **kw, with_counts=True))
+        ms = timer.ms(lambda: tsc.score_tiles(*args, **kw, dense=True))
+        ms_c = timer.ms(lambda: tsc.score_tiles(*args, **kw, dense=True,
+                                                with_counts=True))
         plain_ms = timer.ms(lambda: tsc.score_tiles_plain(*args, sub=node.sub),
                             reps=10)
         # the library yardstick: one index_add_ of w*frac over the lanes'
@@ -1467,6 +2195,11 @@ def main() -> int:
 
     batch_entries, batch_errs = batch_kernels_phase(
         torch, dev, gseg, gdev, timer, queries, top_rank_term)
+
+    # ---------------- phase 2d: kernels 1d and 1e vs plain ----------------
+    packed_entries, packed_errs = packed_kernels_phase(
+        torch, dev, gseg, gdev, timer, corpus, queries)
+    batch_errs.update(packed_errs)
 
     # ---------------- phase 2c: kernel 3 vs plain --------------------------
     t0 = time.perf_counter()
@@ -1582,7 +2315,7 @@ def main() -> int:
     copy4 = host_copy_note(g4, "pmc", 2 * len(reqs4), "phase 4")
 
     # ---------------- phase 7: the mesh plane at real size ---------------
-    g7, c7, g7segs, c7segs = mesh_phase(
+    g7, c7, g7segs, c7segs, shard_arrays = mesh_phase(
         torch, Node, Segment, cuda_kernels, queries, top_rank_term, lat,
         launches, knn_vecs, knn_exists)
 
@@ -1598,6 +2331,11 @@ def main() -> int:
     knn_staging = knn_phase(torch, cuda_kernels, g7, c7, g7segs, c7segs,
                             knn_vecs, knn_exists, knn_rng, lat, launches,
                             batch_errs)
+
+    # ---------------- phase 10: packed + pruning through Node ------------
+    pruned_report = pruned_phase(
+        torch, Node, Segment, cuda_kernels, tsc, queries, lat, launches,
+        batch_errs, shard_arrays, (g7, c7, g7segs), gnode)
 
     # ---------------- phase 5: latency summary ---------------------------
     for kind, xs in sorted(lat.items()):
@@ -1632,7 +2370,7 @@ def main() -> int:
          "source": "elasticsearch_tpu_torch/csrc/tile_scoring.cu",
          "replaces": "elasticsearch_tpu/ops/pallas_scoring.py:871",
          "launches": launches["tile_scoring_batched"],
-         "max_abs_err": batch_errs["batched"],
+         "max_abs_err": batch_errs["tile_scoring_batched"],
          "ms": bat["batched_ms"], "plain_ms": bat["batched_plain_ms"],
          "bound_ms": bat["batched_bound_ms"],
          "bound_by": bat["batched_bound_by"],
@@ -1646,7 +2384,7 @@ def main() -> int:
          "source": "elasticsearch_tpu_torch/csrc/tile_scoring.cu",
          "replaces": "elasticsearch_tpu/ops/pallas_scoring.py:871",
          "launches": launches["tile_scoring_topk"],
-         "max_abs_err": batch_errs["topk"],
+         "max_abs_err": batch_errs["tile_scoring_topk"],
          "ms": bat["topk_ms"], "plain_ms": bat["topk_plain_ms"],
          "bound_ms": bat["topk_bound_ms"], "bound_by": bat["topk_bound_by"],
          "library_ms": bat["topk_library_ms"], "q_batch": bat["q_batch"],
@@ -1669,6 +2407,41 @@ def main() -> int:
              "bound_ms", "bound_by", "library_ms")} for e in knn_entries],
          **knn_staging},
     ]}
+    for name, key, replaces, extra in (
+            ("tile_scoring_packed", "tile_scoring_packed", 656,
+             ("ms_with_counts", "bound_ms_with_counts")),
+            ("tile_scoring_batched_packed", "tile_scoring_batched_packed",
+             656, ("q_batch", "ms_with_counts")),
+            ("tile_scoring_topk_packed", "tile_scoring_topk_packed_q1", 656,
+             ("q_batch", "k")),
+            ("tile_scoring_topk_sel", "tile_scoring_topk_sel_rest_q1", 770,
+             ("q_batch", "k", "rows_in_set", "tiles_scored")),
+            ("tile_scoring_topk_sel_packed",
+             "tile_scoring_topk_sel_packed_rest_q1", 770,
+             ("q_batch", "k", "rows_in_set", "tiles_scored"))):
+        e = packed_entries[key]
+        entry = {"name": name, "route": "cuda",
+                 "source": "elasticsearch_tpu_torch/csrc/tile_scoring.cu",
+                 "replaces": f"elasticsearch_tpu/ops/pallas_scoring.py:"
+                             f"{replaces}",
+                 "launches": launches[name],
+                 "max_abs_err": batch_errs.get(name, 0.0),
+                 **{k: e[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")},
+                 **{k: e[k] for k in extra}}
+        # the other shapes of the same launch name
+        entry["cases"] = {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")}
+                          for k, v in packed_entries.items()
+                          if k != key and (k.startswith(name + "_q")
+                                           or k.startswith(name + "_probe")
+                                           or k.startswith(name + "_rest"))}
+        if name.startswith("tile_scoring_topk_sel"):
+            codec = "packed" if name.endswith("packed") else "raw"
+            entry["score_tiles_pruned"] = {
+                k: packed_entries[f"score_tiles_pruned_{codec}_q{q}"]
+                for k, q in (("q1", 1), (f"q{BURST}", BURST))}
+        summary["kernels"].append(entry)
     log(f"[phase 6] total {time.perf_counter() - t_start:.1f} s")
     if FAILS:
         print(f"chip_smoke: {len(FAILS)} checks failed", file=sys.stderr)
@@ -1682,10 +2455,13 @@ def main() -> int:
     return 0
 
 
-def _adopt_copies(gnode, cnode, index, Segment):
-    """Give the cpu node the cuda node's sealed segments, as host arrays."""
+def _adopt_copies(gnode, cnode, index, Segment, device="cpu",
+                  index_to=None):
+    """Give another node (the cpu node by default) the cuda node's sealed
+    segments as new segments over the same host arrays, on ``device``, in
+    index ``index_to`` (the same name by default)."""
     for sid, shard in gnode.indices[index].shards.items():
-        engine = cnode.indices[index].shards[sid].engine
+        engine = cnode.indices[index_to or index].shards[sid].engine
         for seg in shard.engine.segments:
             copy = Segment.from_arrays(
                 seg.name, term_keys=seg.term_keys,
@@ -1697,7 +2473,7 @@ def _adopt_copies(gnode, cnode, index, Segment):
                 doc_ids=seg.doc_ids, sources=seg.sources,
                 numeric_columns={f: vars(c) for f, c in seg.numeric_columns.items()},
                 ordinal_columns={f: vars(c) for f, c in seg.ordinal_columns.items()},
-                seqnos=seg.seqnos, versions=seg.versions, device="cpu")
+                seqnos=seg.seqnos, versions=seg.versions, device=device)
             engine.adopt_segment(copy)
         engine.mapper_service.merge(shard.engine.mapper_service.mapping_dict())
 

@@ -16,7 +16,16 @@ port's path reads, each with the JAX package's default and validator:
 - the dense-vector plane: ``search.knn.enabled`` (true) and
   ``search.knn.tile_sub`` (64; one of 8, 16, 32, 64, 128), node scope and
   seeded into each index like ``search.batch.*``, and
-  ``index.mapping.dense_vector.max_dims`` (1024, >= 1).
+  ``index.mapping.dense_vector.max_dims`` (1024, >= 1);
+- the tile kernel's postings codec and block-max pruning:
+  ``search.pallas.postings_codec`` (raw | packed, default raw; node scope,
+  seeded into each index like ``search.batch.*``),
+  ``index.search.pallas.postings_codec`` (default | raw | packed; default
+  follows the node), ``search.pallas.pruning.enabled`` (false) and
+  ``search.pallas.pruning.probe_tiles`` (8; one of 2, 4, 8, 16, 32). The
+  two pruning settings are dynamic in the JAX package (``PUT
+  _cluster/settings``); the port has no cluster-settings API yet, so they
+  are read from the index's settings as created.
 """
 
 from __future__ import annotations
@@ -235,3 +244,24 @@ SEARCH_KNN_TILE_SUB = Setting("search.knn.tile_sub", 64, "int",
                               choices={8, 16, 32, 64, 128})
 INDEX_MAPPING_DENSE_VECTOR_MAX_DIMS = Setting(
     "index.mapping.dense_vector.max_dims", 1024, "int", min_value=1)
+
+# --- postings codec and block-max pruning (ops/tile_scoring.py) ---
+# node-wide postings representation of the tile kernel's staging: "raw" =
+# (doc i32, frac f32) pairs, "packed" = one i32 word a posting (half the
+# bytes; frac quantized to 12 bits)
+SEARCH_PALLAS_POSTINGS_CODEC = Setting(
+    "search.pallas.postings_codec", "raw", "str", choices={"raw", "packed"})
+# per-index override; "default" follows the node. Read when a segment or
+# the mesh plane stages its tables
+INDEX_SEARCH_PALLAS_POSTINGS_CODEC = Setting(
+    "index.search.pallas.postings_codec", "default", "str",
+    choices={"default", "raw", "packed"})
+# skip the tiles whose summed block-max bound cannot beat the running
+# k-th score; totals become a lower bound (marked "gte"), so exact-total
+# and dense-output requests run exhaustively whatever this says
+SEARCH_PALLAS_PRUNING_ENABLED = Setting(
+    "search.pallas.pruning.enabled", False, "bool")
+# how many highest-bound tiles the probe pass scores to seed the threshold
+SEARCH_PALLAS_PRUNING_PROBE_TILES = Setting(
+    "search.pallas.pruning.probe_tiles", 8, "int",
+    choices={2, 4, 8, 16, 32})

@@ -41,6 +41,7 @@
 #include <math_constants.h>
 
 #include "block_topk.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -119,9 +120,7 @@ extern "C" int estpu_knn_score_tiles(const void* emb, const void* scale,
       sizeof(float) * (static_cast<size_t>(d_pad) +
                        static_cast<size_t>(sub) * kLane) +
       (sizeof(float) + sizeof(int)) * kWarps + sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      knn_score_tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  cudaError_t err = estpu::allow_max_dynamic_smem(knn_score_tiles_kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   knn_score_tiles_kernel<<<n_tiles * q_batch, kThreads, smem,
                            static_cast<cudaStream_t>(stream)>>>(

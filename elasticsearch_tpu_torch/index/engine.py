@@ -66,6 +66,10 @@ class Engine:
         self._seqno = -1
         self._lock = threading.RLock()
         self.refresh_count = 0
+        # postings-codec preference stamped on each searchable segment
+        # (IndexService sets both from the index settings)
+        self.postings_codec: Optional[str] = None
+        self.postings_codec_default: Optional[str] = None
 
     def _new_builder(self) -> SegmentBuilder:
         self._segment_counter += 1
@@ -189,8 +193,18 @@ class Engine:
 
     def searchable_segments(self) -> List[Segment]:
         with self._lock:
-            return [s for s in self.segments
+            segs = [s for s in self.segments
                     if s.live_doc_count > 0 or s.num_docs == 0]
+            if self.postings_codec is not None:
+                for s in segs:
+                    # the index's postings-codec preference
+                    # (index.search.pallas.postings_codec, and the node's
+                    # search.pallas.postings_codec behind "default"),
+                    # consulted when the segment stages its kernel tables:
+                    # a changed setting reaches segments staged after it
+                    s.postings_codec = self.postings_codec
+                    s.postings_codec_default = self.postings_codec_default
+            return segs
 
     @property
     def num_docs(self) -> int:

@@ -32,7 +32,11 @@ serially.
 
 Every response carries the plane that served it in ``"_plane"``
 (``mesh_pallas``, ``mesh`` or ``host``) and ``hits.total`` as a plain
-int (the 6.x shape). The request cache, admission control, scrubbing,
+int (the 6.x shape). A response whose query phase ran the block-max pruned
+program (``search.pallas.pruning.enabled``) carries ``"_pruned":
+{"tiles_scored", "tiles_pruned", "total_relation": "gte"}``: its total
+counts matches in scored tiles only (rendering it as a ``gte`` total
+object waits for REST). The request cache, admission control, scrubbing,
 compaction and telemetry are later slices.
 """
 
@@ -50,12 +54,16 @@ from elasticsearch_tpu_torch.common.settings import (
     INDEX_SEARCH_MESH,
     INDEX_SEARCH_MESH_MAX_SLOTS,
     INDEX_SEARCH_MESH_PLANE,
+    INDEX_SEARCH_PALLAS_POSTINGS_CODEC,
     INDEX_SEARCH_PLANE_QUARANTINE_COOLDOWN,
     SEARCH_BATCH_ENABLED,
     SEARCH_BATCH_MAX_QUERIES,
     SEARCH_BATCH_WINDOW_MS,
     SEARCH_KNN_ENABLED,
     SEARCH_KNN_TILE_SUB,
+    SEARCH_PALLAS_POSTINGS_CODEC,
+    SEARCH_PALLAS_PRUNING_ENABLED,
+    SEARCH_PALLAS_PRUNING_PROBE_TILES,
     Settings,
 )
 from elasticsearch_tpu_torch.index.shard import IndexShard
@@ -87,7 +95,9 @@ class IndexService:
         # them now so a bad value fails index creation
         for setting in (INDEX_SEARCH_MESH_MAX_SLOTS, INDEX_SEARCH_MESH_PLANE,
                         INDEX_SEARCH_PLANE_QUARANTINE_COOLDOWN,
-                        SEARCH_KNN_ENABLED, SEARCH_KNN_TILE_SUB):
+                        SEARCH_KNN_ENABLED, SEARCH_KNN_TILE_SUB,
+                        SEARCH_PALLAS_PRUNING_ENABLED,
+                        SEARCH_PALLAS_PRUNING_PROBE_TILES):
             setting.get(settings)
         self.analyzers = AnalysisRegistry(settings)
         self.mapper_service = MapperService(
@@ -99,6 +109,15 @@ class IndexService:
             sid: IndexShard(name, sid, self.mapper_service, device=self.device)
             for sid in range(self.num_shards)
         }
+        # the postings codec of the tile kernel's staging: the index's
+        # preference ("default" follows the node's search.pallas.
+        # postings_codec), stamped on each segment by its engine
+        self.postings_codec = INDEX_SEARCH_PALLAS_POSTINGS_CODEC.get(settings)
+        self.postings_codec_default = SEARCH_PALLAS_POSTINGS_CODEC.get(
+            settings)
+        for shard in self.shards.values():
+            shard.engine.postings_codec = self.postings_codec
+            shard.engine.postings_codec_default = self.postings_codec_default
         # the mesh data plane (parallel/plan_exec.IndexMeshSearch), staged
         # on the first eligible search
         self._mesh_enabled = INDEX_SEARCH_MESH.get(settings)
@@ -191,6 +210,10 @@ class IndexService:
             "hits": {"total": out["total"], "max_score": out["max_score"],
                      "hits": hits},
         }
+        if out.get("pruned") is not None:
+            # block-max pruned scoring served the query phase: the tile
+            # economy and the gte-total marker, beside _plane
+            resp["_pruned"] = out["pruned"]
         if out.get("aggregations") is not None:
             resp["aggregations"] = out["aggregations"]
         return resp
@@ -611,17 +634,30 @@ class IndexService:
         return caches, launches
 
     def search_stats(self) -> dict:
-        """Which plane served the queries, the mesh plane's health, and
-        the batcher's counters."""
+        """Which plane served the queries, the mesh plane's health, the
+        pruned scoring's tile economy, the postings codec and the posting
+        bytes staged, and the batcher's counters."""
         from elasticsearch_tpu_torch.parallel.plan_exec import PlaneHealth
 
         ms = self._mesh_search
+        executor = ms._executor if ms else None
+        # every searchable segment's staged kernel posting tables, each
+        # codec once (the mesh plane reads these; it stages none of its own)
+        segs = {id(seg): seg for shard in self.shards.values()
+                for seg in shard.engine.searchable_segments()}
         planes = {
             "mesh_query_total": ms.query_total if ms else 0,
             "mesh_pallas_query_total": ms.pallas_query_total if ms else 0,
             "knn_query_total": ms.knn_query_total if ms else 0,
             "mesh_batched_launch_total": ms.batched_launch_total if ms else 0,
             "mesh_restage_total": ms.restage_total if ms else 0,
+            "pruned_query_total": ms.pruned_query_total if ms else 0,
+            "tiles_scored_total": ms.tiles_scored_total if ms else 0,
+            "tiles_pruned_total": ms.tiles_pruned_total if ms else 0,
+            "postings_codec": (executor.postings_codec
+                               if executor is not None else None),
+            "postings_bytes_staged": sum(
+                seg.postings_bytes_staged() for seg in segs.values()),
             "host_query_total": self.host_query_total,
             "decisions": dict(ms.decisions) if ms else {},
             **(ms.plane_health.stats() if ms else PlaneHealth().stats()),

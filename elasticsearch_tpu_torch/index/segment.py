@@ -15,8 +15,12 @@ Counterpart of ``elasticsearch_tpu/index/segment.py``:
 
 ``device_arrays()`` stages the query tables on the segment's device once:
 the base tables (postings, norms, live masks) and the tile-scoring
-kernel's tables (padded docs, per-posting BM25 norm factors, the live mask
-in tile layout). ``ensure_vector_staged`` stages a vector field's bf16
+kernel's tables in the segment's postings codec (raw: padded docs and
+per-posting BM25 norm factors; packed: one bit-packed word a posting),
+with the live mask in tile layout. The codec follows the preference its
+engine stamps (``postings_codec``, the index setting, and
+``postings_codec_default``, the node's), resolved against the segment's
+doc space (``tile_scoring.resolve_postings_codec``). ``ensure_vector_staged`` stages a vector field's bf16
 embeddings (and the cosine inverse norms) on first use. A staging failure
 raises; there is no fallback engine.
 The memory ledger, staging retries and fault-injection hooks of the JAX
@@ -165,7 +169,20 @@ class Segment:
         # doc-value columns staged on demand (key -> tensor)
         self.dev_cache: Dict[str, Any] = {}
         self.kernel_geom: Optional[tsc.TileGeometry] = None
-        self._kernel_tables: Optional[dict] = None
+        # codec -> the tile kernel's posting tables on the device, and the
+        # per-block frac max of what that codec decodes
+        self._kernel_tables: Dict[str, dict] = {}
+        self._kernel_bfmax: Dict[str, np.ndarray] = {}
+        self.kernel_bmin: Optional[np.ndarray] = None
+        self.kernel_bmax: Optional[np.ndarray] = None
+        # the segment's own codec and its tables' bytes and bounds, set
+        # when they stage
+        self.kernel_codec: Optional[str] = None
+        self.kernel_postings_bytes = 0
+        self.kernel_bfmax: Optional[np.ndarray] = None
+        # the postings-codec preference its engine stamps
+        self.postings_codec: Optional[str] = None
+        self.postings_codec_default: Optional[str] = None
         self._stage_lock = threading.Lock()
 
     @classmethod
@@ -276,24 +293,65 @@ class Segment:
                 dev = self._device
         return dev
 
-    def kernel_tables(self) -> dict:
-        """The tile kernel's posting tables on the device, ``k_docs`` and
-        ``k_frac`` (``pad_segment_blocks``), staged once and shared by the
-        host rung and the mesh plane; sets ``kernel_bmin``/``kernel_bmax``."""
-        tables = self._kernel_tables
-        if tables is None:
+    def kernel_tables(self, codec: Optional[str] = None) -> dict:
+        """The tile kernel's posting tables on the device in ``codec``:
+        ``k_docs`` and ``k_frac`` (raw, ``pad_segment_blocks``) or
+        ``k_packed`` (packed, ``pack_segment_blocks``). Without ``codec``,
+        the segment's own, resolved from its stamp once and set as
+        ``kernel_codec`` with ``kernel_postings_bytes`` and
+        ``kernel_bfmax`` (``block_frac_max`` over the frac that codec
+        decodes: the dequantized one when packed). Each codec stages once
+        and is shared by the host rung and the mesh plane; the mesh plane
+        asks for another codec only when its stacked doc space demotes it
+        to raw. Sets ``kernel_bmin`` / ``kernel_bmax``."""
+        own = codec is None
+        if own:
+            codec = self.kernel_codec or tsc.resolve_postings_codec(
+                self.postings_codec, self.nd_pad,
+                self.postings_codec_default)
+        tables = self._kernel_tables.get(codec)
+        if tables is None or (own and self.kernel_codec is None):
             with self._stage_lock:
-                if self._kernel_tables is None:
-                    frac = self._block_frac()
-                    self.kernel_bmin, self.kernel_bmax = tsc.block_min_max(
-                        self.block_docs, self.block_tfs, self.nd_pad)
-                    dp, fp = tsc.pad_segment_blocks(self.block_docs, frac,
-                                                    self.nd_pad)
-                    self._kernel_tables = {
-                        "k_docs": _to_device(dp, self.device),
-                        "k_frac": _to_device(fp, self.device)}
-                tables = self._kernel_tables
+                tables = self._kernel_tables.get(codec)
+                if tables is None:
+                    tables = self._stage_kernel_tables(codec)
+                if own and self.kernel_codec is None:
+                    self.kernel_postings_bytes = sum(
+                        t.numel() * t.element_size() for t in tables.values())
+                    self.kernel_bfmax = self._kernel_bfmax[codec]
+                    self.kernel_codec = codec
         return tables
+
+    def _stage_kernel_tables(self, codec: str) -> dict:
+        """One codec's posting tables (caller holds ``_stage_lock``)."""
+        frac = self._block_frac()
+        if self.kernel_bmin is None:
+            self.kernel_bmin, self.kernel_bmax = tsc.block_min_max(
+                self.block_docs, self.block_tfs, self.nd_pad)
+        if codec == "packed":
+            q = tsc.quantize_frac(frac)
+            tables = {"k_packed": _to_device(tsc.pack_segment_blocks(
+                self.block_docs, frac, self.nd_pad, q=q), self.device)}
+            bfmax = tsc.block_frac_max(tsc.dequantize_frac(q))
+        else:
+            dp, fp = tsc.pad_segment_blocks(self.block_docs, frac, self.nd_pad)
+            tables = {"k_docs": _to_device(dp, self.device),
+                      "k_frac": _to_device(fp, self.device)}
+            bfmax = tsc.block_frac_max(frac)
+        self._kernel_bfmax[codec] = bfmax
+        self._kernel_tables[codec] = tables
+        return tables
+
+    def kernel_bfmax_for(self, codec: str) -> np.ndarray:
+        """The per-block frac max of ``codec``'s tables (staged first)."""
+        self.kernel_tables(codec)
+        return self._kernel_bfmax[codec]
+
+    def postings_bytes_staged(self) -> int:
+        """Bytes of the kernel posting tables staged, over every codec."""
+        return sum(t.numel() * t.element_size()
+                   for tables in list(self._kernel_tables.values())
+                   for t in tables.values())
 
     def _stage_base_arrays(self) -> dict:
         live1 = np.concatenate([self.live, np.zeros(1, dtype=bool)])
@@ -387,7 +445,8 @@ class Segment:
         """Bytes this segment holds on its device."""
         tensors = {id(t): t for t in (
             *(self._device or {}).values(),
-            *(self._kernel_tables or {}).values(),
+            *(t for tables in list(self._kernel_tables.values())
+              for t in tables.values()),
             *self.dev_cache.values())}
         return sum(t.numel() * t.element_size() for t in tensors.values())
 

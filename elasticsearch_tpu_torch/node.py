@@ -3,8 +3,10 @@
 Counterpart of ``elasticsearch_tpu/node.py``, cut to this slice's entry
 points: ``create_index``, ``index_doc``, ``bulk``, ``refresh``,
 ``get_doc``, ``delete_doc`` and ``search`` over one index (through the
-index's micro-batcher and mesh plane; ``search.batch.*`` and
-``search.knn.*`` node settings pass to every index). A search body may
+index's micro-batcher and mesh plane; ``search.batch.*``,
+``search.knn.*`` and ``search.pallas.*`` node settings pass to every
+index, the last being the postings codec's node default and block-max
+pruning). A search body may
 carry a top-level ``knn`` section: alone it is a vector search, beside
 ``query`` a hybrid one (``IndexService._search_hybrid``). ``Node()`` runs
 on ``cuda`` and raises without a GPU; ``Node(device="cpu")`` runs the
@@ -69,11 +71,12 @@ class Node:
                 f"create-index sections {unknown} are not supported by the "
                 f"PyTorch port yet")
         settings = Settings.from_dict(body.get("settings") or {}).with_index_prefix()
-        # node-level micro-batching and kNN config (search.batch.*,
-        # search.knn.*, node scope) seeds each index at the lowest
-        # precedence; index.mapping.dense_vector.max_dims comes with the
-        # index's own settings
-        for prefix in ("search.batch.", "search.knn."):
+        # node-level micro-batching, kNN, postings-codec and pruning config
+        # (search.batch.*, search.knn.*, search.pallas.*, node scope) seeds
+        # each index at the lowest precedence; the index's own settings
+        # (index.search.pallas.postings_codec,
+        # index.mapping.dense_vector.max_dims, ...) come with the body
+        for prefix in ("search.batch.", "search.knn.", "search.pallas."):
             settings = self.settings.filtered_by_prefix(prefix).merged_with(
                 settings)
         mappings, _doc_type = _unwrap_typed_mapping(body.get("mappings") or {})

@@ -39,17 +39,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
 _c_longlong = ctypes.c_longlong
+_c_float = ctypes.c_float
 
 # C entry point -> argument types (restype is always c_int = cudaError_t)
 _SIGNATURES = {
     "estpu_tile_scoring_dense": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int,
-        _c_void_p],
+        _c_int, _c_float, _c_void_p],
     "estpu_tile_scoring_topk": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-        _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int,
-        _c_int, _c_int, _c_void_p],
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int, _c_int,
+        _c_int, _c_int, _c_int, _c_int, _c_float, _c_void_p],
     "estpu_segment_sum": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_longlong, _c_int, _c_void_p],
@@ -58,9 +59,17 @@ _SIGNATURES = {
         _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_void_p],
 }
 
-LAUNCHES: Dict[str, int] = {"tile_scoring": 0, "tile_scoring_batched": 0,
-                            "tile_scoring_topk": 0, "segment_sum": 0,
-                            "knn_scoring": 0}
+# the tile kernel's launch names: "tile_scoring" (dense, Q = 1),
+# "tile_scoring_batched" (dense, Q > 1), "tile_scoring_topk", and
+# "tile_scoring_topk_sel" (a tile subset), each with a "_packed" form for
+# the packed codec
+TILE_SCORING_LAUNCHES = tuple(
+    base + suffix
+    for base in ("tile_scoring", "tile_scoring_batched", "tile_scoring_topk",
+                 "tile_scoring_topk_sel")
+    for suffix in ("", "_packed"))
+LAUNCHES: Dict[str, int] = {**{name: 0 for name in TILE_SCORING_LAUNCHES},
+                            "segment_sum": 0, "knn_scoring": 0}
 _launch_lock = threading.Lock()
 _build_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

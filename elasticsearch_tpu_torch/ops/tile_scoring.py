@@ -21,8 +21,17 @@ Variants of ``score_tiles`` (the JAX signature and output shapes):
   counts) per doc; with ``Q > 1`` the row tables cover the UNION of Q
   queries' lanes (``build_tile_tables_batched``) and ``weights`` is
   ``[Q, t_pad]``, a zero weight killing that lane for that query;
-- fused per-tile top-k (``dense=False``), any ``q_batch``: per tile and
-  query the ``k`` best (score, doc) pairs and the hit count.
+- fused per-tile top-k (``dense=False``, the default, as in JAX), any
+  ``q_batch``: per tile and query the ``k`` best (score, doc) pairs and the
+  hit count;
+- either form over the packed codec (``codec="packed"``): one i32 word a
+  posting, ``doc << 12 | frac_q``, passed as ``docs_padded`` with
+  ``frac_padded`` None (``pack_segment_blocks``), decoded with a logical
+  shift, a mask and ``frac_q * PACK_FRAC_SCALE`` in f32;
+- the top-k form over a tile subset (``tile_ids``, block-max pruning):
+  the row tables arrive gathered in subset order, the outputs hold one row
+  per subset entry, and a row whose windows are all empty gives empty
+  candidates (what an empty tile gives) without work.
 
 ``score_tiles`` dispatches on the tensors' device: a CPU tensor runs the
 plain PyTorch version (``score_tiles_plain``); a CUDA tensor launches the
@@ -31,8 +40,13 @@ query's lanes in one canonical order (ascending first posting row, see
 ``canonical_lane_order``) with the same f32 multiply and add, so they agree
 bit for bit, and a batched member equals its ``q_batch=1`` result bit for
 bit (except a member naming one posting run twice with different weights:
-the union merges the two lanes, as in the JAX package). The packed codec
-and tile subsets (block-max pruning) are later slices and raise.
+the union merges the two lanes, as in the JAX package).
+
+``score_tiles_pruned`` is block-max pruned top-k scoring: a probe pass
+over the highest-bound tiles (``plan_pruned_tiles``) sets each query's
+threshold, the rest tiles whose bound cannot reach it are zeroed on the
+device, and a rest pass scores the others; nothing crosses to the host
+between the passes.
 
 ``merge_tile_topk`` / ``merge_tile_topk_batched`` merge the per-tile
 candidates with ``lax.top_k``'s tie order (lower flat index first), which
@@ -106,6 +120,88 @@ def pad_segment_blocks(
         np.concatenate([block_docs.astype(np.int32), pad_docs]),
         np.concatenate([block_frac.astype(np.float32), pad_frac]),
     )
+
+
+# ----------------------------------------------------------------------
+# The packed postings codec: one i32 word a posting,
+#
+#     word = (doc << PACK_FRAC_BITS) | frac_q        (frac_q in [1, 4095])
+#
+# half the posting bytes of the raw (doc i32, frac f32) pair. BM25's frac
+# = tf (k1 + 1) / (tf + k1 norm) lies strictly below k1 + 1, so frac
+# quantizes linearly over (0, k1 + 1) with a static scale; frac_q == 0 is
+# the invalid / padding marker (the raw codec's frac > 0 rule), so real
+# postings clamp to frac_q >= 1. |dequant(q) - frac| <= PACK_FRAC_SCALE / 2.
+# Doc ids keep 20 bits: a doc space above 2^20 stays raw. A doc at or
+# above 2^19 sets the sign bit of its word, so the decode shifts
+# logically.
+# ----------------------------------------------------------------------
+
+PACK_FRAC_BITS = 12
+PACK_FRAC_MASK = (1 << PACK_FRAC_BITS) - 1
+PACK_MAX_FRAC = float(K1) + 1.0  # strict upper bound of BM25 frac
+PACK_FRAC_SCALE = PACK_MAX_FRAC / PACK_FRAC_MASK
+# doc ids must fit the remaining bits (sentinels store doc 0 + frac_q 0)
+PACKED_DOC_CAP = 1 << (32 - PACK_FRAC_BITS)
+
+
+def packed_codec_ok(nd_pad: int) -> bool:
+    """Real doc ids are < nd_pad, so any nd_pad <= 2^20 fits the packed
+    word (the 1M-doc corpus is exactly the boundary)."""
+    return nd_pad <= PACKED_DOC_CAP
+
+
+def quantize_frac(frac: np.ndarray) -> np.ndarray:
+    """frac f32 -> 12-bit code; 0 stays 0 (invalid marker), real postings
+    clamp to [1, PACK_FRAC_MASK] so frac > 0 survives the round trip."""
+    q = np.rint(frac / np.float32(PACK_FRAC_SCALE)).astype(np.int64)
+    q = np.clip(q, 1, PACK_FRAC_MASK)
+    return np.where(frac > 0.0, q, 0).astype(np.int32)
+
+
+def dequantize_frac(q: np.ndarray) -> np.ndarray:
+    """The exact f32 values the packed decode produces (the oracle for
+    packed parity)."""
+    return (q.astype(np.float32) * np.float32(PACK_FRAC_SCALE)).astype(
+        np.float32)
+
+
+def pack_segment_blocks(block_docs: np.ndarray, block_frac: np.ndarray,
+                        sentinel: int,
+                        q: Optional[np.ndarray] = None) -> np.ndarray:
+    """Bit-pack (docs, frac) into one padded i32 word array, the packed
+    form of pad_segment_blocks: CB_MAX all-zero rows after the last real
+    row (word 0 decodes to frac 0 = invalid). ``q``: a precomputed
+    quantize_frac(block_frac), for callers that also need the codes."""
+    if not packed_codec_ok(int(sentinel)):
+        raise ValueError(
+            f"doc space {sentinel} exceeds the packed codec's "
+            f"{32 - PACK_FRAC_BITS}-bit doc capacity")
+    if q is None:
+        q = quantize_frac(block_frac.astype(np.float32))
+    docs = np.where(q > 0, block_docs, 0).astype(np.int64)
+    words = ((docs.astype(np.uint32) << PACK_FRAC_BITS)
+             | q.astype(np.uint32)).view(np.int32)
+    pad = np.zeros((CB_MAX, LANE), dtype=np.int32)
+    return np.concatenate([words, pad])
+
+
+def resolve_postings_codec(pref, nd_pad: int,
+                           node_default: Optional[str] = "raw") -> str:
+    """Effective codec of a staging: the explicit preference (the index
+    setting or the caller), else the node's ``search.pallas.postings_codec``
+    (``node_default``, which the JAX package reads from an environment
+    variable its ``Node`` exports); an unknown value is raw, and packed
+    demotes to raw when the doc space exceeds the packed word's doc
+    capacity."""
+    codec = pref
+    if codec in (None, "default"):
+        codec = node_default or "raw"
+    if codec not in ("raw", "packed"):
+        codec = "raw"
+    if codec == "packed" and not packed_codec_ok(nd_pad):
+        codec = "raw"
+    return codec
 
 
 def compute_block_frac(
@@ -309,16 +405,107 @@ def build_tile_tables_batched(
 
 
 # ----------------------------------------------------------------------
+# Block-max pruning: per-(tile, lane) upper-bound impacts
+# ----------------------------------------------------------------------
+
+
+def block_frac_max(block_frac: np.ndarray) -> np.ndarray:
+    """Per-block max posting impact factor [n_blocks] f32, the block-max
+    metadata of WAND / MaxScore.
+
+    The max runs over every real posting whatever the live mask: deletes
+    change ``Segment.live`` after staging, and a bound that kept a deleted
+    doc is only too high (it scores a tile it could skip, never skips one
+    it needs). For the packed codec pass the DEQUANTIZED frac: rounding
+    can lift a posting up to half a step above its raw value, and the
+    bound must dominate what the kernel decodes."""
+    return block_frac.max(axis=1).astype(np.float32)
+
+
+def tile_lane_ub(row_lo: np.ndarray, row_hi: np.ndarray,
+                 bfmax: np.ndarray) -> np.ndarray:
+    """Per-(tile, lane) upper-bound frac over the tile's covering block
+    window [row_lo, row_hi): a superset of the tile's real postings, so its
+    max bounds any in-tile posting's frac. [n_tiles, t_pad] f32, 0 for
+    empty windows and dead lanes."""
+    n_tiles, t_pad = row_lo.shape
+    out = np.zeros((n_tiles, t_pad), np.float32)
+    n_blocks = len(bfmax)
+    for j in range(t_pad):
+        lo = row_lo[:, j].astype(np.int64)
+        hi = row_hi[:, j].astype(np.int64)
+        wmax = int((hi - lo).max()) if n_tiles else 0
+        if wmax <= 0:
+            continue
+        idx = lo[:, None] + np.arange(wmax)[None, :]
+        valid = idx < hi[:, None]
+        vals = np.where(valid,
+                        bfmax[np.minimum(idx, n_blocks - 1)], 0.0)
+        out[:, j] = vals.max(axis=1)
+    return out
+
+
+def plan_pruned_tiles(row_lo: np.ndarray, row_hi: np.ndarray,
+                      weights: np.ndarray, bfmax: np.ndarray,
+                      probe_tiles: int = 8,
+                      ub: Optional[np.ndarray] = None) -> Optional[dict]:
+    """Host half of block-max pruned scoring: order the tiles by their
+    summed block-max score bound and split them into a PROBE set (scored
+    unconditionally, it sets the running top-k threshold) and a REST set
+    (scored only if its bound can still reach the threshold, decided on
+    the device by score_tiles_pruned). None when there are too few tiles
+    to prune (callers run the exhaustive kernel).
+
+    ``weights`` is the [Q, t_pad] weight matrix; bounds[t, q] = sum_j
+    w[q, j] * ub[t, j] bounds any doc's score for query q in tile t. ``ub``
+    passes precomputed (cached) per-(tile, lane) bounds."""
+    n_tiles = row_lo.shape[0]
+    probe = max(1, min(int(probe_tiles), n_tiles))
+    if n_tiles - probe <= 0:
+        return None
+    if ub is None:
+        ub = tile_lane_ub(row_lo, row_hi, bfmax)
+    bounds = (ub @ weights.T).astype(np.float32)  # [n_tiles, Q]
+    order = np.argsort(-bounds.max(axis=1), kind="stable").astype(np.int32)
+    sel_p, sel_r = order[:probe], order[probe:]
+    return {
+        "tid_probe": sel_p,
+        "rl_probe": np.ascontiguousarray(row_lo[sel_p]),
+        "rh_probe": np.ascontiguousarray(row_hi[sel_p]),
+        "tid_rest": sel_r,
+        "rl_rest": np.ascontiguousarray(row_lo[sel_r]),
+        "rh_rest": np.ascontiguousarray(row_hi[sel_r]),
+        "bounds_rest": np.ascontiguousarray(bounds[sel_r]),
+        "n_tiles": n_tiles,
+    }
+
+
+# ----------------------------------------------------------------------
 # The kernels, their plain versions and the wrapper
 # ----------------------------------------------------------------------
 
 
 def _check_inputs(docs_padded, frac_padded, live_t, row_lo, row_hi,
-                  weights, t_pad: int, sub: int, q_batch: int) -> None:
-    tensors = {"docs_padded": docs_padded, "frac_padded": frac_padded,
-               "live_t": live_t, "row_lo": row_lo, "row_hi": row_hi,
-               "weights": weights}
-    dev = docs_padded.device
+                  weights, t_pad: int, sub: int, q_batch: int, codec: str,
+                  tile_ids) -> None:
+    if codec not in ("raw", "packed"):
+        raise ValueError(f"unknown postings codec [{codec}]")
+    tensors = {"docs_padded": docs_padded, "live_t": live_t,
+               "row_lo": row_lo, "row_hi": row_hi, "weights": weights}
+    want = {"docs_padded": torch.int32, "live_t": torch.float32,
+            "row_lo": torch.int32, "row_hi": torch.int32,
+            "weights": torch.float32}
+    if codec == "raw":
+        tensors["frac_padded"] = frac_padded
+        want["frac_padded"] = torch.float32
+    elif frac_padded is not None:
+        raise ValueError("the packed codec takes frac_padded=None (the "
+                         "words carry the quantized frac)")
+    if tile_ids is not None:
+        tensors["tile_ids"] = tile_ids
+        want["tile_ids"] = torch.int32
+    dev = docs_padded.device if isinstance(docs_padded, torch.Tensor) \
+        else None
     for name, t in tensors.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a tensor")
@@ -326,23 +513,26 @@ def _check_inputs(docs_padded, frac_padded, live_t, row_lo, row_hi,
             raise ValueError(f"{name} is on {t.device}, docs_padded on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name, want in (("docs_padded", torch.int32),
-                       ("frac_padded", torch.float32),
-                       ("live_t", torch.float32), ("row_lo", torch.int32),
-                       ("row_hi", torch.int32), ("weights", torch.float32)):
-        if tensors[name].dtype != want:
-            raise TypeError(f"{name} must be {want}, got {tensors[name].dtype}")
+        if t.dtype != want[name]:
+            raise TypeError(f"{name} must be {want[name]}, got {t.dtype}")
     if docs_padded.dim() != 2 or docs_padded.shape[1] != LANE:
         raise ValueError(f"docs_padded must be [rows, {LANE}]")
-    if frac_padded.shape != docs_padded.shape:
+    if codec == "raw" and frac_padded.shape != docs_padded.shape:
         raise ValueError("frac_padded must match docs_padded's shape")
     n_tiles = row_lo.shape[0]
     if row_lo.shape != (n_tiles, t_pad) or row_hi.shape != (n_tiles, t_pad):
         raise ValueError(f"row tables must be [n_tiles, {t_pad}]")
     if weights.shape != (q_batch, t_pad):
         raise ValueError(f"weights must be [q_batch={q_batch}, {t_pad}]")
-    if live_t.shape != (n_tiles * LANE, sub):
-        raise ValueError(f"live_t must be [{n_tiles * LANE}, {sub}]")
+    if tile_ids is None:
+        if live_t.shape != (n_tiles * LANE, sub):
+            raise ValueError(f"live_t must be [{n_tiles * LANE}, {sub}]")
+    else:
+        if tile_ids.shape != (n_tiles,):
+            raise ValueError(f"tile_ids must be [{n_tiles}], one a table row")
+        if live_t.dim() != 2 or live_t.shape[1] != sub \
+                or live_t.shape[0] % LANE:
+            raise ValueError(f"live_t must be [n_tiles * {LANE}, {sub}]")
 
 
 def canonical_lane_order(row_lo, row_hi) -> List[int]:
@@ -358,10 +548,23 @@ def canonical_lane_order(row_lo, row_hi) -> List[int]:
     return [j for j in order if keys[j] != big]
 
 
+def _decode(docs_padded, frac_padded, rows):
+    """Posting rows -> (docs int64, frac f32); frac_padded None is the
+    packed codec: doc = word >>> 12 (logical), frac = (word & 0xFFF) *
+    PACK_FRAC_SCALE in f32, the kernel's decode."""
+    if frac_padded is None:
+        word = docs_padded[rows]
+        docs = (word.long() & 0xFFFFFFFF) >> PACK_FRAC_BITS
+        scale = torch.tensor(np.float32(PACK_FRAC_SCALE))
+        return docs, (word & PACK_FRAC_MASK).float() * scale
+    return docs_padded[rows].long(), frac_padded[rows]
+
+
 def _lane_postings(docs_padded, frac_padded, row_lo, row_hi, j: int,
-                   w: int):
-    """Lane j's valid postings over every tile (doc inside the tile,
-    frac > 0): (docs int64, frac f32)."""
+                   w: int, base):
+    """Lane j's valid postings over every table row (doc inside the row's
+    tile [base, base + w), frac > 0): (accumulator positions row * w +
+    local, frac f32)."""
     dev = docs_padded.device
     n_tiles = row_lo.shape[0]
     lens = (row_hi[:, j] - row_lo[:, j]).clamp(min=0).long()
@@ -370,24 +573,27 @@ def _lane_postings(docs_padded, frac_padded, row_lo, row_hi, j: int,
     first = torch.cumsum(lens, 0) - lens
     rows = (row_lo[tile_of, j].long()
             + torch.arange(total, device=dev) - first[tile_of])
-    docs = docs_padded[rows].long()
-    frac = frac_padded[rows]
-    local = docs - (tile_of * w)[:, None]
+    docs, frac = _decode(docs_padded, frac_padded, rows)
+    local = docs - base[tile_of][:, None]
     valid = (local >= 0) & (local < w) & (frac > 0.0)
-    return docs[valid], frac[valid]
+    pos = local + (tile_of * w)[:, None]
+    return pos[valid], frac[valid]
 
 
 def _accumulate_plain(docs_padded, frac_padded, row_lo, row_hi, weights,
-                      w: int, with_counts: bool):
-    """Per-query accumulators [Q, n_tiles * w] in natural doc order: for
-    each lane in canonical order and each query with a nonzero weight,
-    ``acc[doc] += w_q * frac`` through ``index_put_(accumulate=True)``.
-    Within a lane the postings hit distinct docs, so each doc sees one f32
-    multiply and one f32 add per lane, exactly as in the kernels; counts
-    are added where w_q > 0."""
+                      w: int, with_counts: bool, base=None):
+    """Per-query accumulators [Q, n_rows * w], table row by table row in
+    natural doc order (``base``: each row's first doc, row * w by
+    default): for each lane in canonical order and each query with a
+    nonzero weight, ``acc[doc] += w_q * frac`` through
+    ``index_put_(accumulate=True)``. Within a lane the postings hit
+    distinct docs, so each doc sees one f32 multiply and one f32 add per
+    lane, exactly as in the kernels; counts are added where w_q > 0."""
     n_tiles = row_lo.shape[0]
     q_batch = weights.shape[0]
     dev = docs_padded.device
+    if base is None:
+        base = torch.arange(n_tiles, device=dev) * w
     acc = torch.zeros((q_batch, n_tiles * w), dtype=torch.float32, device=dev)
     cnt = torch.zeros_like(acc) if with_counts else None
     w_host = weights.cpu().tolist()
@@ -396,7 +602,7 @@ def _accumulate_plain(docs_padded, frac_padded, row_lo, row_hi, weights,
         if not live_q:
             continue
         hit, frac = _lane_postings(docs_padded, frac_padded, row_lo, row_hi,
-                                   j, w)
+                                   j, w, base)
         for q in live_q:
             acc[q].index_put_((hit,), weights[q, j] * frac, accumulate=True)
             if with_counts and w_host[q][j] > 0.0:
@@ -410,7 +616,8 @@ def score_tiles_plain(docs_padded, frac_padded, live_t, row_lo, row_hi,
                       q_batch: int = 1):
     """Plain PyTorch version of the dense kernels: (scores,) or (scores,
     counts), each [n_tiles*128, sub] f32 for q_batch 1 and
-    [q_batch, n_tiles*128, sub] otherwise, live-masked."""
+    [q_batch, n_tiles*128, sub] otherwise, live-masked. ``frac_padded``
+    None reads ``docs_padded`` as packed words."""
     w = sub * LANE
     acc, cnt = _accumulate_plain(docs_padded, frac_padded, row_lo, row_hi,
                                  weights, w, with_counts)
@@ -429,17 +636,27 @@ def score_tiles_plain(docs_padded, frac_padded, live_t, row_lo, row_hi,
 
 
 def score_tiles_topk_plain(docs_padded, frac_padded, live_t, row_lo, row_hi,
-                           weights, *, sub: int, k: int):
+                           weights, *, sub: int, k: int, tile_ids=None):
     """Plain PyTorch version of the fused top-k kernel: per tile and query,
     matched = acc > 0 & live, the hit count, and the top ``k`` by (score
     descending, local doc ascending: a stable sort), empty slots -inf / -1.
-    Returns (tile_scores [n_tiles, Q, k] f32, tile_docs [n_tiles, Q, k]
-    i32, tile_hits [n_tiles, Q, 1] f32)."""
+    With ``tile_ids`` the table rows score those tiles (the subset's doc
+    bases and live rows); a row with no window gives what an empty tile
+    gives. ``frac_padded`` None reads packed words. Returns (tile_scores
+    [n_rows, Q, k] f32, tile_docs [n_rows, Q, k] i32, tile_hits
+    [n_rows, Q, 1] f32)."""
     w = sub * LANE
     n_tiles = row_lo.shape[0]
     q_batch = weights.shape[0]
+    dev = docs_padded.device
+    if tile_ids is None:
+        base = torch.arange(n_tiles, device=dev) * w
+    else:
+        base = tile_ids.long() * w
+        live_t = live_t.reshape(-1, LANE, sub)[tile_ids.long()].reshape(
+            n_tiles * LANE, sub)
     acc, _ = _accumulate_plain(docs_padded, frac_padded, row_lo, row_hi,
-                               weights, w, False)
+                               weights, w, False, base)
     live = dense_to_flat(live_t, sub) > 0.0
     matched = (acc > 0.0) & live
     hits = matched.reshape(q_batch, n_tiles, w).sum(dim=2).float()
@@ -447,9 +664,8 @@ def score_tiles_topk_plain(docs_padded, frac_padded, live_t, row_lo, row_hi,
     vals, idx = torch.sort(masked.reshape(q_batch, n_tiles, w), dim=2,
                            descending=True, stable=True)
     vals, idx = vals[..., :k], idx[..., :k]
-    base = (torch.arange(n_tiles, device=acc.device) * w)[None, :, None]
     docs = torch.where(vals == float("-inf"), torch.full_like(idx, -1),
-                       idx + base).to(torch.int32)
+                       idx + base[None, :, None]).to(torch.int32)
     return (vals.permute(1, 0, 2).contiguous(),
             docs.permute(1, 0, 2).contiguous(),
             hits.t().contiguous()[..., None])
@@ -457,13 +673,17 @@ def score_tiles_topk_plain(docs_padded, frac_padded, live_t, row_lo, row_hi,
 
 def _score_tiles_cuda(docs_padded, frac_padded, live_t, row_lo, row_hi,
                       weights, *, sub: int, with_counts: bool, dense: bool,
-                      q_batch: int, k: int):
+                      q_batch: int, k: int, codec: str, tile_ids):
     lib = cuda_kernels.library()
     n_tiles, t_pad = row_lo.shape
     dev = docs_padded.device
-    common = (docs_padded.data_ptr(), frac_padded.data_ptr(),
+    packed = codec == "packed"
+    suffix = "_packed" if packed else ""
+    common = (docs_padded.data_ptr(),
+              None if packed else frac_padded.data_ptr(),
               live_t.data_ptr(), row_lo.data_ptr(), row_hi.data_ptr(),
               weights.data_ptr())
+    scale = float(np.float32(PACK_FRAC_SCALE))
     if dense:
         shape = ((n_tiles * LANE, sub) if q_batch == 1
                  else (q_batch, n_tiles * LANE, sub))
@@ -472,9 +692,10 @@ def _score_tiles_cuda(docs_padded, frac_padded, live_t, row_lo, row_hi,
         rc = lib.estpu_tile_scoring_dense(
             *common, scores.data_ptr(),
             counts.data_ptr() if with_counts else None,
-            n_tiles, t_pad, sub, docs_padded.shape[0], q_batch,
-            cuda_kernels.stream_ptr(dev))
-        name = "tile_scoring" if q_batch == 1 else "tile_scoring_batched"
+            n_tiles, t_pad, sub, docs_padded.shape[0], q_batch, int(packed),
+            scale, cuda_kernels.stream_ptr(dev))
+        name = ("tile_scoring" if q_batch == 1
+                else "tile_scoring_batched") + suffix
         cuda_kernels.check(rc, name)
         cuda_kernels.note_launch(name)
         return (scores, counts) if with_counts else (scores,)
@@ -485,19 +706,23 @@ def _score_tiles_cuda(docs_padded, frac_padded, live_t, row_lo, row_hi,
     tile_hits = torch.empty((n_tiles, q_batch, 1), dtype=torch.float32,
                             device=dev)
     rc = lib.estpu_tile_scoring_topk(
-        *common, tile_scores.data_ptr(), tile_docs.data_ptr(),
-        tile_hits.data_ptr(), n_tiles, t_pad, sub, docs_padded.shape[0],
-        q_batch, k, cuda_kernels.stream_ptr(dev))
-    cuda_kernels.check(rc, "tile_scoring_topk")
-    cuda_kernels.note_launch("tile_scoring_topk")
+        *common, None if tile_ids is None else tile_ids.data_ptr(),
+        tile_scores.data_ptr(), tile_docs.data_ptr(), tile_hits.data_ptr(),
+        n_tiles, t_pad, sub, docs_padded.shape[0], q_batch, k, int(packed),
+        scale, cuda_kernels.stream_ptr(dev))
+    name = ("tile_scoring_topk" + ("" if tile_ids is None else "_sel")
+            + suffix)
+    cuda_kernels.check(rc, name)
+    cuda_kernels.note_launch(name)
     return tile_scores, tile_docs, tile_hits
 
 
 def score_tiles(
-    docs_padded,  # [n_blocks + CB_MAX, 128] i32 (pad_segment_blocks)
-    frac_padded,  # [n_blocks + CB_MAX, 128] f32
+    docs_padded,  # [n_blocks + CB_MAX, 128] i32 (pad_segment_blocks);
+    # codec="packed": the packed words (pack_segment_blocks)
+    frac_padded,  # [n_blocks + CB_MAX, 128] f32; codec="packed": None
     live_t,  # [n_tiles * 128, sub] f32 (1.0 = live; build_live_t)
-    row_lo,  # [n_tiles, t_pad] i32
+    row_lo,  # [n_tiles, t_pad] i32 (tile_ids: [n_sel, t_pad], gathered)
     row_hi,  # [n_tiles, t_pad] i32
     weights,  # [q_batch, t_pad] f32
     *,
@@ -505,45 +730,143 @@ def score_tiles(
     cb: int,
     sub: int,
     k: int = 10,
-    dense: bool = True,
+    dense: bool = False,
     with_counts: bool = False,
     tiles_per_step: int = 1,
     q_batch: int = 1,
     codec: str = "raw",
-    tile_ids=None,
+    tile_ids=None,  # [n_sel] i32: score only these tiles; top-k only
 ):
     """Score a segment's tiles; the JAX ``score_tiles`` signature.
 
-    dense: (scores,) or, with_counts, (scores, counts), each
-    [n_tiles*128, sub] f32, with a leading [q_batch] axis when q_batch > 1.
     top-k (dense=False): (tile_scores [n_tiles, q_batch, k'] f32,
     tile_docs [n_tiles, q_batch, k'] i32 (-1 = empty), tile_hits
-    [n_tiles, q_batch, 1] f32), k' = min(k, sub*128); with_counts does not
-    apply there. ``cb`` and ``tiles_per_step`` are TPU DMA knobs that do
-    not change the outputs; they are accepted and ignored."""
+    [n_tiles, q_batch, 1] f32), k' = min(k, sub*128).
+    dense: (scores,) or, with_counts, (scores, counts), each
+    [n_tiles*128, sub] f32, with a leading [q_batch] axis when q_batch > 1.
+    codec="packed" reads the packed words in ``docs_padded`` (frac_padded
+    None). ``tile_ids`` scores a tile subset (top-k only): the row tables
+    are gathered in subset order and the outputs have one row per subset
+    entry. ``cb`` and ``tiles_per_step`` are TPU DMA knobs that do not
+    change the outputs; they are accepted and ignored."""
     del cb, tiles_per_step
-    if codec != "raw" or tile_ids is not None:
-        raise NotImplementedError(
-            "the packed codec and tile-subset (pruned) scoring are not "
-            "ported yet")
+    if tile_ids is not None and (dense or with_counts):
+        # dense and match-count consumers need every tile's output
+        raise ValueError(
+            "tile-subset scoring serves the fused top-k variant only")
     q_batch = max(1, int(q_batch))
     k = min(int(k), sub * LANE)
     _check_inputs(docs_padded, frac_padded, live_t, row_lo, row_hi,
-                  weights, t_pad, sub, q_batch)
+                  weights, t_pad, sub, q_batch, codec, tile_ids)
     if docs_padded.device.type == "cpu":
+        frac = frac_padded if codec == "raw" else None
         if dense:
-            return score_tiles_plain(docs_padded, frac_padded, live_t,
-                                     row_lo, row_hi, weights, sub=sub,
+            return score_tiles_plain(docs_padded, frac, live_t, row_lo,
+                                     row_hi, weights, sub=sub,
                                      with_counts=with_counts,
                                      q_batch=q_batch)
-        return score_tiles_topk_plain(docs_padded, frac_padded, live_t,
-                                      row_lo, row_hi, weights, sub=sub, k=k)
+        return score_tiles_topk_plain(docs_padded, frac, live_t, row_lo,
+                                      row_hi, weights, sub=sub, k=k,
+                                      tile_ids=tile_ids)
     if docs_padded.device.type != "cuda":
         raise ValueError(f"unsupported device {docs_padded.device}")
     return _score_tiles_cuda(docs_padded, frac_padded, live_t, row_lo,
                              row_hi, weights, sub=sub,
                              with_counts=with_counts, dense=dense,
-                             q_batch=q_batch, k=k)
+                             q_batch=q_batch, k=k, codec=codec,
+                             tile_ids=tile_ids)
+
+
+def score_tiles_pruned(
+    docs_padded,  # raw: padded docs; packed: the packed words
+    frac_padded,  # raw: padded frac; packed: None
+    live_t,
+    rl_probe, rh_probe, tid_probe,  # plan_pruned_tiles outputs
+    rl_rest, rh_rest, tid_rest,
+    bounds_rest,  # [n_rest, q_batch] f32 per-(tile, query) score bounds
+    weights,  # [q_batch, t_pad] f32
+    *,
+    t_pad: int,
+    cb: int,
+    sub: int,
+    k: int = 10,
+    q_batch: int = 1,
+    q_real: Optional[int] = None,
+    codec: str = "raw",
+    tiles_per_step: int = 1,
+):
+    """Block-max pruned top-k scoring, every step enqueued on the device
+    with no host round trip between the passes (a host-side threshold
+    exchange would cost a sync per query):
+
+    1. PROBE pass: score the ``probe`` highest-bound tiles (ordered on the
+       host by plan_pruned_tiles); the k-th best candidate score per query
+       is its threshold theta_q, a lower bound on the final k-th score
+       (the pool only grows). It is read with ``torch.topk`` over the
+       probe candidates: the k-th value needs no tie order.
+    2. Gate: a rest tile survives iff some real member's bound reaches its
+       threshold (bounds[t, q] >= theta_q). The others get their row
+       tables zeroed with ``torch.where``; the sel-mode kernel skips them.
+    3. REST pass over the masked tiles; both passes' pools merge per query
+       (probe pool first, the JAX pool order that decides ties).
+
+    No true top-k doc is ever skipped: a pruned tile's bound bounds each of
+    its docs' scores and lies strictly below theta_q <= the final k-th
+    score. ``hits`` counts matches in scored tiles only, a lower bound.
+    ``q_real``: the leading rows of ``weights`` that are real members; the
+    padding rows get theta = +inf and keep no tile alive. Returns (top_s
+    [Q, k'], top_d [Q, k'], hits [Q] i32, tiles_scored i32 scalar), all on
+    the device."""
+    if q_real is None:
+        q_real = q_batch
+    kw = dict(t_pad=t_pad, cb=cb, sub=sub, k=k, tiles_per_step=tiles_per_step,
+              q_batch=q_batch, codec=codec, dense=False)
+    ts1, td1, th1 = score_tiles(
+        docs_padded, frac_padded, live_t, rl_probe, rh_probe, weights,
+        tile_ids=tid_probe, **kw)
+    theta = probe_threshold([ts1], k, q_batch, q_real)
+    survive = (bounds_rest >= theta[None, :]).any(dim=1)  # [n_rest]
+    rl2, rh2, tid2 = gate_rows(survive, rl_rest, rh_rest, tid_rest)
+    ts2, td2, th2 = score_tiles(
+        docs_padded, frac_padded, live_t, rl2, rh2, weights,
+        tile_ids=tid2, **kw)
+    s1, d1, h1 = merge_tile_topk_batched(ts1, td1, th1, k)
+    s2, d2, h2 = merge_tile_topk_batched(ts2, td2, th2, k)
+    pool_s = torch.cat([s1, s2], dim=1)
+    pool_d = torch.cat([d1, d2], dim=1)
+    top_s, top_i = top_k(pool_s, min(k, pool_s.shape[1]))
+    top_d = torch.gather(pool_d, 1, top_i)
+    tiles_scored = (survive.sum(dtype=torch.int32)
+                    + int(tid_probe.shape[0]))
+    return top_s, top_d, h1 + h2, tiles_scored
+
+
+def gate_rows(survive, row_lo, row_hi, tile_ids):
+    """Zero the table rows (and tile ids) of the rest tiles that do not
+    survive, on the device: the sel-mode kernel skips a row whose windows
+    are all empty."""
+    keep = survive[:, None]
+    return (torch.where(keep, row_lo, torch.zeros_like(row_lo)),
+            torch.where(keep, row_hi, torch.zeros_like(row_hi)),
+            torch.where(survive, tile_ids, torch.zeros_like(tile_ids)))
+
+
+def probe_threshold(tile_scores: Sequence[torch.Tensor], k: int,
+                    q_batch: int, q_real: int) -> torch.Tensor:
+    """theta [Q] f32 from probe-pass candidates (each [n_tiles, Q, k']): the
+    k-th best score per query over all of them, -inf when they hold fewer
+    than k slots, +inf for padding members (q >= q_real). Equal to the
+    k-th score of the merged probe pool, computed without a host sync."""
+    pool = torch.cat([t.transpose(0, 1).reshape(q_batch, -1)
+                      for t in tile_scores], dim=1)
+    dev = pool.device
+    if pool.shape[1] >= k:
+        kth = torch.topk(pool, k, dim=1, sorted=True).values[:, k - 1]
+    else:
+        kth = torch.full((q_batch,), float("-inf"), dtype=torch.float32,
+                         device=dev)
+    real = torch.arange(q_batch, device=dev) < q_real
+    return torch.where(real, kth, torch.full_like(kth, float("inf")))
 
 
 def merge_tile_topk(tile_scores, tile_docs, tile_hits, k: int):

@@ -19,6 +19,14 @@ collectives become plain reductions in slot order (``psum`` a sum,
   - (from ``IndexMeshSearch.query_batch``) the batched program: per slot
     one fused top-k ``score_tiles`` launch for Q queries over the union
     of their lanes, per-query tile merge, then the merge over slots;
+  - (the same, with ``search.pallas.pruning.enabled``) the pruned batched
+    program, the one-device form of the JAX package's
+    ``_mesh_batched_pruned_program``: every slot scores its probe tiles,
+    the pools concatenate in slot order (``all_gather``'s order) and give
+    the global threshold per query, each slot's rest tiles whose block-max
+    bound cannot reach it are zeroed on the device, the rest pass runs,
+    and the pools merge (probe, then rest). Nothing crosses to the host
+    between the passes;
   - (from ``IndexMeshSearch.query_knn_batch``) the kNN program: per slot
     one ``knn_score_tiles`` launch (kernel 3) for Q query vectors,
     ``merge_knn_topk``, then one top-k over the slots' pools; the total is
@@ -30,6 +38,27 @@ collectives become plain reductions in slot order (``psum`` a sum,
   raised, as in the JAX package, with one deviation: a ``KernelError``
   (a kernel that fails to build, load or launch) is no plane fault and
   raises to the caller, so no rung serves in the kernel's place.
+
+Postings codec: the executor resolves its codec over the stacked doc
+space (``resolve_postings_codec`` of the index's preference, the node's
+default behind it), and each slot reads its segment's own tables in that
+codec (``Segment.kernel_tables(codec)``). A segment whose own codec
+differs (a small segment stamped packed in a stacked doc space above the
+packed word's 2^20 docs) stages a second, raw copy for the mesh; no other
+case copies. The session meta holds each slot's block-max column
+(``bfmax``) in that codec.
+
+Block-max pruning (``search.pallas.pruning.*``, docs/PRUNING.md of the
+JAX package): a plain relevance-ranked request (one kernel-scored
+disjunction, no counts, ``size > 0``, no aggs) is served by the pruned
+program, serially through ``query`` (``Q == 1``) or in a burst through
+``query_batch``; its totals count matches in scored tiles only, a lower
+bound marked by the member's ``pruned`` entry (``total_relation:
+"gte"``). The JAX package shrinks the tile for pruning (to reach ``2 *
+probe`` tiles) down to ``sub = 8`` on a TPU (a mosaic sublane bound) and
+to 1 in interpret mode; the port has no such bound and takes 1, what the
+JAX package does as its tests run it. The brownout that forces pruning
+under admission pressure waits for admission control.
 
 The kNN plane stages no second copy of the embeddings: each slot reads
 its segment's own staged ``k_vec_*`` (and ``k_vecnorm_*`` for cosine,
@@ -43,7 +72,8 @@ Left for later slices: delta staging, the memory accountant, the compile
 cache and telemetry, sort / search_after / slice / rescore /
 terminate_after on the mesh, fused aggregations (an agg-carrying serial
 query reduces over the program's per-slot views; an agg-carrying batch
-leaves the batched rung), block-max pruning and the packed codec.
+leaves the batched rung), the dynamic update of the pruning settings
+(``PUT _cluster/settings``, with the REST slice).
 """
 
 from __future__ import annotations
@@ -63,6 +93,8 @@ from elasticsearch_tpu_torch.common.settings import (
     INDEX_SEARCH_PLANE_QUARANTINE_COOLDOWN,
     SEARCH_KNN_ENABLED,
     SEARCH_KNN_TILE_SUB,
+    SEARCH_PALLAS_PRUNING_ENABLED,
+    SEARCH_PALLAS_PRUNING_PROBE_TILES,
 )
 from elasticsearch_tpu_torch.ops import knn_scoring as knn
 from elasticsearch_tpu_torch.ops import tile_scoring as tsc
@@ -162,6 +194,12 @@ class PlaneHealth:
             if self._probe_until.pop(plane, None) is not None:
                 self.probes_total -= 1
 
+    def available(self, plane: str) -> bool:
+        """Non-consuming view for cheap pre-checks: False only while
+        benched inside the cooldown (a half-open plane reads as available;
+        the serving path uses ``admit``)."""
+        return _time.monotonic() >= self._quarantined_until.get(plane, 0.0)
+
     def quarantined(self) -> List[str]:
         now = _time.monotonic()
         return [p for p, until in sorted(self._quarantined_until.items())
@@ -254,7 +292,9 @@ class MeshPlanExecutor:
     """Stage N sealed segments as ``[n_slots, ...]`` stacked tables on one
     device (one slot per segment); run a query plan over every slot."""
 
-    def __init__(self, segments: List, device: torch.device):
+    def __init__(self, segments: List, device: torch.device,
+                 postings_codec: Optional[str] = None,
+                 postings_codec_default: Optional[str] = None):
         from elasticsearch_tpu_torch.parallel.distributed import (
             stack_shard_arrays,
         )
@@ -272,10 +312,18 @@ class MeshPlanExecutor:
             name: torch.from_numpy(arr).to(device)
             for name, arr in stacked.items()}
         # lazily staged tile-kernel plane (ensure_kernel): None = not yet,
-        # dict = {geom, meta: {id(seg): (bmin, bmax)}, codec}
+        # dict = {geom, meta: {id(seg): (bmin, bmax, bfmax)}, codec}
         self._kernel: Optional[dict] = None
-        # per slot {k_docs, k_frac}: the segment's own posting tables
+        # per slot {k_docs, k_frac} or {k_packed}: the segment's own
+        # posting tables in the executor's codec
         self._kernel_tables: List[dict] = []
+        # the index's codec preference and the node default behind it;
+        # postings_codec is the codec resolved at the kernel staging
+        self.postings_codec_pref = postings_codec
+        self.postings_codec_default = postings_codec_default
+        self.postings_codec = "raw"
+        # (id(seg), sub, block_start, block_count) -> per-tile bound column
+        self._ub_cache: Dict[tuple, np.ndarray] = {}
         # lazily staged kNN planes (ensure_knn): field -> session dict, or
         # False when the field cannot run here for this segment set
         self._knn: Dict[str, object] = {}
@@ -291,11 +339,12 @@ class MeshPlanExecutor:
 
     def ensure_kernel(self) -> Optional[dict]:
         """Stage the tile-kernel plane over the stacked segment set: one
-        shared tile geometry covering the stacked doc space and the
-        per-slot live masks in its tile layout. Each slot's posting tables
-        are its segment's own (``Segment.kernel_tables``): every row
-        window is segment-local and the kernel skips the zero-``frac``
-        padding postings, so no stacked copy of them is needed. Returns
+        shared tile geometry covering the stacked doc space, the codec
+        resolved over it, and the per-slot live masks in its tile layout.
+        Each slot's posting tables are its segment's own in that codec
+        (``Segment.kernel_tables(codec)``): every row window is
+        segment-local and the kernel skips the zero-``frac`` padding
+        postings, so no stacked copy of them is needed. Returns
         the kernel session, or None with ``kernel_denied_reason =
         "staging_fault"`` when the staging raised (the caller quarantines
         the plane)."""
@@ -316,19 +365,25 @@ class MeshPlanExecutor:
 
     def _stage_kernel_plane(self) -> None:
         geom = tsc.tile_geometry(max(self.nd_pad, tsc.LANE))
+        # every slot's doc ids must fit the packed word's doc bits
+        codec = tsc.resolve_postings_codec(
+            self.postings_codec_pref, geom.nd_pad,
+            self.postings_codec_default)
         live_t = np.zeros(
             (self.n_slots, geom.n_tiles * tsc.LANE, geom.tile_sub),
             np.float32)
         tables, meta = [], {}
         for i, seg in enumerate(self.segments):
-            tables.append(seg.kernel_tables())
+            tables.append(seg.kernel_tables(codec))
             live_t[i] = tsc.build_live_t(self._live(seg, geom.nd_pad), geom)
-            meta[id(seg)] = (seg.kernel_bmin, seg.kernel_bmax)
+            meta[id(seg)] = (seg.kernel_bmin, seg.kernel_bmax,
+                             seg.kernel_bfmax_for(codec))
         # commit only a complete plane
         self._seg_staged["k_live_t"] = torch.from_numpy(live_t).to(
             self.device)
         self._kernel_tables = tables
-        self._kernel = {"geom": geom, "meta": meta, "codec": "raw"}
+        self.postings_codec = codec
+        self._kernel = {"geom": geom, "meta": meta, "codec": codec}
 
     @staticmethod
     def _live(seg, nd_pad: int) -> np.ndarray:
@@ -506,6 +561,33 @@ class MeshPlanExecutor:
                                 live_key=live_key)
         return len(groups)
 
+    def _corpus(self, i: int):
+        """Slot i's posting tables as score_tiles takes them: (docs, frac)
+        raw, (words, None) packed."""
+        tables = self._kernel_tables[i]
+        if self._kernel["codec"] == "packed":
+            return tables["k_packed"], None
+        return tables["k_docs"], tables["k_frac"]
+
+    def tile_lane_ub_cached(self, seg, union_lanes, row_lo, row_hi,
+                            bfmax, sub: int) -> np.ndarray:
+        """Per-(tile, lane) block-max bounds with a cache per lane: a
+        lane's column depends only on (segment, tile geometry, posting
+        run), so repeated queries on hot terms reuse it."""
+        n_tiles, t_pad = row_lo.shape
+        ub = np.zeros((n_tiles, t_pad), np.float32)
+        for j, lane in enumerate(union_lanes):
+            key = (id(seg), sub, lane.block_start, lane.block_count)
+            col = self._ub_cache.get(key)
+            if col is None or col.shape[0] != n_tiles:
+                if len(self._ub_cache) > 4096:  # runaway-vocabulary stop
+                    self._ub_cache.clear()
+                col = tsc.tile_lane_ub(row_lo[:, j: j + 1],
+                                       row_hi[:, j: j + 1], bfmax)[:, 0]
+                self._ub_cache[key] = col
+            ub[:, j] = col
+        return ub
+
     def _slot(self, i: int) -> dict:
         slot = {name: a[i] for name, a in self._seg_staged.items()}
         if self._kernel_tables:
@@ -578,24 +660,84 @@ class MeshPlanExecutor:
         rh_t = torch.from_numpy(rh).to(self.device)
         w_t = torch.from_numpy(w_all).to(self.device)
         live = self._seg_staged[live_key]
+        outs = []
+        for i in range(self.n_slots):
+            outs.append(tsc.score_tiles(
+                *self._corpus(i), live[i], rl_t[i], rh_t[i], w_t[i],
+                t_pad=t_pad, cb=cb, sub=sub, k=kk, dense=False,
+                q_batch=q_pad, codec=self._kernel["codec"]))
+        return self._merge_slots([outs], kk)
+
+    def _merge_slots(self, passes, kk: int):
+        """Merge per-slot top-k launches: ``passes`` is a list of passes,
+        each one launch output per slot. Per slot and pass the per-query
+        tile merge; the pools concatenate pass by pass, slot by slot (the
+        JAX program's pool order, which decides ties); one top-k. Returns
+        (top_s, top_d, top_slot, total [Q] i32)."""
         cand_s, cand_d, cand_slot = [], [], []
         hits = None
-        for i in range(self.n_slots):
-            tables = self._kernel_tables[i]
-            ts_, td_, th_ = tsc.score_tiles(
-                tables["k_docs"], tables["k_frac"], live[i],
-                rl_t[i], rh_t[i], w_t[i], t_pad=t_pad, cb=cb, sub=sub, k=kk,
-                dense=False, q_batch=q_pad)
-            s_i, d_i, h_i = tsc.merge_tile_topk_batched(ts_, td_, th_, kk)
-            cand_s.append(s_i)
-            cand_d.append(d_i)
-            cand_slot.append(torch.full_like(d_i, i))
-            hits = h_i if hits is None else hits + h_i
+        for outs in passes:
+            for i, (ts_, td_, th_) in enumerate(outs):
+                s_i, d_i, h_i = tsc.merge_tile_topk_batched(ts_, td_, th_,
+                                                            kk)
+                cand_s.append(s_i)
+                cand_d.append(d_i)
+                cand_slot.append(torch.full_like(d_i, i))
+                hits = h_i if hits is None else hits + h_i
         pool_s = torch.cat(cand_s, dim=1)
         top_s, top_i = top_k(pool_s, min(kk, pool_s.shape[1]))
         top_d = torch.gather(torch.cat(cand_d, dim=1), 1, top_i)
         top_slot = torch.gather(torch.cat(cand_slot, dim=1), 1, top_i)
         return top_s, top_d, top_slot, hits
+
+    def execute_batched_pruned(self, live_key: str, plans: List[dict],
+                               w_all: np.ndarray, *, q_pad: int, q_real: int,
+                               kk: int, t_pad: int, cb: int, sub: int):
+        """The pruned batched program (``plans``: one ``plan_pruned_tiles``
+        dict per slot, every one with the same probe and rest sizes):
+
+        - probe pass: every slot scores its probe tiles;
+        - the global threshold per query: the kk-th best of the slots'
+          probe candidates in slot order (``tile_scoring.probe_threshold``,
+          the kk-th score of the merged probe pool), +inf for padding
+          members (q >= q_real);
+        - gate: a slot's rest tile survives iff some member's bound
+          reaches its threshold; the others' row tables are zeroed with
+          ``torch.where`` (every slot is a real segment here: the one-device
+          executor stages no filler slots);
+        - rest pass; then the pools merge, probe before rest.
+
+        No host sync between the passes. Returns (top_s, top_d, top_slot,
+        total [Q] i32, tiles_scored i32, tiles_total int)."""
+        dev = self.device
+
+        def put(key):
+            return torch.from_numpy(np.ascontiguousarray(
+                np.stack([p[key] for p in plans]))).to(dev)
+
+        rl_p, rh_p, tid_p = put("rl_probe"), put("rh_probe"), put("tid_probe")
+        rl_r, rh_r, tid_r = put("rl_rest"), put("rh_rest"), put("tid_rest")
+        bounds_r = put("bounds_rest")  # [n_slots, n_rest, Q]
+        w_t = torch.from_numpy(w_all).to(dev)
+        live = self._seg_staged[live_key]
+        kw = dict(t_pad=t_pad, cb=cb, sub=sub, k=kk, dense=False,
+                  q_batch=q_pad, codec=self._kernel["codec"])
+        probe = [tsc.score_tiles(*self._corpus(i), live[i], rl_p[i], rh_p[i],
+                                 w_t[i], tile_ids=tid_p[i], **kw)
+                 for i in range(self.n_slots)]
+        theta = tsc.probe_threshold([o[0] for o in probe], kk, q_pad, q_real)
+        survive = (bounds_r >= theta[None, None, :]).any(dim=2)
+        rest = []
+        for i in range(self.n_slots):
+            rl2, rh2, tid2 = tsc.gate_rows(survive[i], rl_r[i], rh_r[i],
+                                           tid_r[i])
+            rest.append(tsc.score_tiles(*self._corpus(i), live[i], rl2, rh2,
+                                        w_t[i], tile_ids=tid2, **kw))
+        top_s, top_d, top_slot, hits = self._merge_slots([probe, rest], kk)
+        n_probe, n_rest = tid_p.shape[1], tid_r.shape[1]
+        scored = survive.sum(dtype=torch.int32) + self.n_slots * n_probe
+        return (top_s, top_d, top_slot, hits, scored,
+                self.n_slots * (n_probe + n_rest))
 
 
 class IndexMeshSearch:
@@ -622,6 +764,11 @@ class IndexMeshSearch:
         # kNN queries served by kernel 3 on the mesh plane
         self.knn_query_total = 0
         self.batched_launch_total = 0
+        # block-max pruned scoring: queries served pruned and the tiles
+        # they scored and skipped
+        self.pruned_query_total = 0
+        self.tiles_scored_total = 0
+        self.tiles_pruned_total = 0
         self.restage_total = 0
         # plane-ladder decisions "plane.reason" -> count
         self.decisions: Dict[str, int] = {}
@@ -681,8 +828,10 @@ class IndexMeshSearch:
     def _stage_rebuild(self, pairs, key) -> bool:
         """Full-generation build + install (caller holds _stage_lock)."""
         try:
-            staged = MeshPlanExecutor([seg for _, seg in pairs],
-                                      self.svc.device)
+            staged = MeshPlanExecutor(
+                [seg for _, seg in pairs], self.svc.device,
+                postings_codec=self.svc.postings_codec,
+                postings_codec_default=self.svc.postings_codec_default)
         except Exception:  # noqa: BLE001 — staging fault: bench the
             # staging for the cooldown; the host rung serves, visibly
             _plane_logger.warning(
@@ -702,6 +851,28 @@ class IndexMeshSearch:
         with self._counter_lock:
             self.restage_total += 1
         return True
+
+    @staticmethod
+    def _needs_counts(q) -> bool:
+        """Cheap body-level pre-check for the Q == 1 pruned path: a query
+        carrying minimum_should_match or operator is likely to need the
+        dense-counts variant, which query_batch rejects only after building
+        every slot's plan; skipping it here saves that planning (a false
+        positive only costs the pruned path, never correctness)."""
+        if isinstance(q, dict):
+            return any(k in ("minimum_should_match", "operator")
+                       or IndexMeshSearch._needs_counts(v)
+                       for k, v in q.items())
+        if isinstance(q, list):
+            return any(IndexMeshSearch._needs_counts(v) for v in q)
+        return False
+
+    def _pruning_config(self):
+        """(enabled, probe_tiles) from the index settings
+        (search.pallas.pruning.*, seeded from the node)."""
+        settings = self.svc.settings
+        return (SEARCH_PALLAS_PRUNING_ENABLED.get(settings),
+                SEARCH_PALLAS_PRUNING_PROBE_TILES.get(settings))
 
     def _ctx(self, sid: int, session):
         from elasticsearch_tpu_torch.search.query_dsl import ShardQueryContext
@@ -733,6 +904,25 @@ class IndexMeshSearch:
         executor = self._executor
         self.plane_health.cooldown_s = \
             INDEX_SEARCH_PLANE_QUARANTINE_COOLDOWN.get(self.svc.settings)
+        pruning_on, _probe = self._pruning_config()
+        if (pruning_on and isinstance(body.get("query"), dict)
+                and all(key in self.BATCHABLE_KEYS for key in body)
+                and int(body.get("size") if body.get("size") is not None
+                        else 10) > 0
+                and not self._needs_counts(body.get("query"))
+                and self.plane_pref in ("auto", "pallas")
+                and self.plane_health.available("mesh_pallas")):
+            # the block-max pruned single-query path: a plain
+            # relevance-ranked query rides the batched rung's pruned
+            # program with Q == 1. Anything needing every tile's dense
+            # output (aggs, counts, size 0, post_filter, min_score) fails
+            # the filter above and runs exhaustively below.
+            out = self.query_batch([body])
+            if out is not None:
+                r = out[0]
+                return {"total": r["total"], "refs": r["refs"],
+                        "max_score": r["max_score"], "aggregations": None,
+                        "plane": r["plane"], "pruned": r.get("pruned")}
         agg_specs = parse_aggs(body.get("aggs") or body.get("aggregations"))
         min_score = body.get("min_score")
         if min_score is not None:
@@ -849,10 +1039,12 @@ class IndexMeshSearch:
     def query_batch(self, bodies: List[dict]) -> Optional[list]:
         """Cross-query micro-batching on the mesh_pallas rung: Q concurrent
         queries scored by one fused top-k launch per slot over the union
-        of their lanes. Returns one {total, refs, max_score, plane} dict
-        per member, or None when the batch cannot run here (the caller
-        falls to the host-batched rung). A plane fault quarantines
-        mesh_pallas once for the whole batch."""
+        of their lanes, or, with pruning on, by the pruned program (a tile
+        survives when any member's bound reaches that member's threshold).
+        Returns one {total, refs, max_score, plane[, pruned]} dict per
+        member, or None when the batch cannot run here (the caller falls
+        to the host-batched rung). A plane fault quarantines mesh_pallas
+        once for the whole batch; a ``KernelError`` raises."""
         if self.plane_pref not in ("auto", "pallas"):
             return None
         adm = self.plane_health.admit("mesh_pallas")
@@ -925,6 +1117,15 @@ class IndexMeshSearch:
         except Exception:  # noqa: BLE001 — request-shaped error: serial
             # execution surfaces it per member with the right status
             return None
+        pruning, probe = self._pruning_config()
+        if pruning and any(
+                int(b.get("size") if b.get("size") is not None else 10) <= 0
+                for b in bodies):
+            # a size 0 member wants the exact total: the batch runs
+            # exhaustively (an agg-carrying member never reaches here)
+            pruning = False
+        codec = session["codec"]
+        pruned_stats = None
         try:
             # shared batched tables: per-slot unions on one collective
             # geometry (a dense union on any slot shrinks every tile)
@@ -932,13 +1133,26 @@ class IndexMeshSearch:
                       for slot in range(n_pairs)]
             t_pad = max(tsc.next_pow2(max(len(u), 1)) for u in unions)
             sub = geom.tile_sub
+            if pruning:
+                # pruning wants at least 2 * probe tiles: shrink the tile
+                # (down to sub = 1; the JAX package's floor of 8 is a TPU
+                # sublane bound), and if even that cannot give enough
+                # tiles, keep the geometry and run exhaustively
+                sub_p = sub
+                while (sub_p > 1 and tsc.tile_geometry(
+                        geom.nd_pad, sub_p).n_tiles < 2 * probe):
+                    sub_p //= 2
+                if tsc.tile_geometry(geom.nd_pad, sub_p).n_tiles >= 2 * probe:
+                    sub = sub_p
+                else:
+                    pruning = False
             while True:
                 g = geom if sub == geom.tile_sub else tsc.tile_geometry(
                     geom.nd_pad, sub)
                 try:
                     tables = []
                     for slot, (_sid, seg) in enumerate(executor.pairs):
-                        bmin, bmax = session["meta"][id(seg)]
+                        bmin, bmax = session["meta"][id(seg)][:2]
                         tables.append(tsc.build_tile_tables_batched(
                             lane_sets[slot], bmin, bmax, g, t_pad=t_pad))
                     break
@@ -958,9 +1172,37 @@ class IndexMeshSearch:
                 rl[slot] = tables[slot][0]
                 rh[slot] = tables[slot][1]
                 w_all[slot, :q_batch] = tables[slot][2]
-            top_s, top_d, top_slot, totals = executor.execute_batched_topk(
-                live_key, rl, rh, w_all, q_pad=q_pad, kk=kk, t_pad=t_pad,
-                cb=cb, sub=g.tile_sub)
+            plans_p = None
+            if pruning and n_tiles > probe:
+                # per-slot pruning plans (host side: order the tiles by
+                # bound, split probe / rest); the threshold exchange stays
+                # on the device
+                plans_p = []
+                for slot in range(n_pairs):
+                    seg = executor.pairs[slot][1]
+                    bfmax = session["meta"][id(seg)][2]
+                    ub = executor.tile_lane_ub_cached(
+                        seg, unions[slot], rl[slot], rh[slot], bfmax,
+                        g.tile_sub)
+                    plan = tsc.plan_pruned_tiles(
+                        rl[slot], rh[slot], w_all[slot], bfmax, probe, ub=ub)
+                    if plan is None:
+                        plans_p = None
+                        break
+                    plans_p.append(plan)
+            if plans_p is not None:
+                (top_s, top_d, top_slot, totals, scored,
+                 tiles_total) = executor.execute_batched_pruned(
+                    live_key, plans_p, w_all, q_pad=q_pad, q_real=q_batch,
+                    kk=kk, t_pad=t_pad, cb=cb, sub=g.tile_sub)
+                scored = int(scored)
+                pruned_stats = {"tiles_scored": scored,
+                                "tiles_pruned": tiles_total - scored}
+            else:
+                top_s, top_d, top_slot, totals = \
+                    executor.execute_batched_topk(
+                        live_key, rl, rh, w_all, q_pad=q_pad, kk=kk,
+                        t_pad=t_pad, cb=cb, sub=g.tile_sub)
             keys = top_s.cpu().numpy()
             docs = top_d.cpu().numpy()
             slots = top_slot.cpu().numpy()
@@ -984,9 +1226,16 @@ class IndexMeshSearch:
             self.query_total += q_batch
             self.pallas_query_total += q_batch
             if q_batch > 1:
+                # the Q == 1 pruned path is no cross-query batching
                 self.batched_launch_total += 1
+            if pruned_stats is not None:
+                self.pruned_query_total += q_batch
+                self.tiles_scored_total += pruned_stats["tiles_scored"]
+                self.tiles_pruned_total += pruned_stats["tiles_pruned"]
         self._note("mesh_pallas",
-                   "served_batched" if q_batch > 1 else "served", q_batch)
+                   "served_batched" if q_batch > 1 else
+                   ("served_pruned" if pruned_stats is not None
+                    else "served"), q_batch)
         results = []
         for q in range(q_batch):
             refs = []
@@ -999,8 +1248,13 @@ class IndexMeshSearch:
                 refs.append(DocRef(sid, seg.name, int(d), float(key)))
                 if max_score is None:
                     max_score = float(key)
-            results.append({"total": int(totals[q]), "refs": refs,
-                            "max_score": max_score, "plane": "mesh_pallas"})
+            result = {"total": int(totals[q]), "refs": refs,
+                      "max_score": max_score, "plane": "mesh_pallas"}
+            if pruned_stats is not None:
+                # under pruning the total counts matches in scored tiles
+                # only, a lower bound: the marker says so
+                result["pruned"] = dict(pruned_stats, total_relation="gte")
+            results.append(result)
         return results
 
     # ------------------------------------------------------------------

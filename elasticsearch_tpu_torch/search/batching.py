@@ -280,7 +280,8 @@ def batched_segment_scores(segment, nodes: Sequence) -> Optional[
     """One batched ``score_tiles`` launch for Q queries over one segment.
 
     ``nodes``: the per-query host-built ``PallasScoreTermsNode``s (each
-    carries its ``_host_lanes``). Returns one (scores [nd1] f32, matched
+    carries its ``_host_lanes``); the launch reads the segment's tables in
+    its own postings codec, as the nodes do. Returns one (scores [nd1] f32, matched
     [nd1] bool) pair per query on the segment's device, exactly what the
     node's serial ``emit`` gives (scores bit for bit), or None when no
     shared geometry exists (callers then run each member serially)."""
@@ -310,12 +311,15 @@ def batched_segment_scores(segment, nodes: Sequence) -> Optional[
                 else segment.kernel_live_t_for(g.tile_sub))
     with_counts = any(n.with_counts for n in nodes)
     on = segment.device
+    codec = segment.kernel_codec
+    corpus = ((dev["k_packed"], None) if codec == "packed"
+              else (dev["k_docs"], dev["k_frac"]))
     outs = tsc.score_tiles(
-        dev["k_docs"], dev["k_frac"], dev[live_key],
+        corpus[0], corpus[1], dev[live_key],
         torch.from_numpy(row_lo).to(on), torch.from_numpy(row_hi).to(on),
         torch.from_numpy(weights).to(on),
         t_pad=row_lo.shape[1], cb=cb, sub=g.tile_sub, dense=True,
-        with_counts=with_counts, q_batch=q_pad)
+        with_counts=with_counts, q_batch=q_pad, codec=codec)
     nd = segment.nd_pad
     tail = torch.zeros(1, dtype=torch.float32, device=on)
     results = []

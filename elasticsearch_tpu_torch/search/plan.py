@@ -201,10 +201,14 @@ class PallasScoreTermsNode(PlanNode):
     Mesh form: ``mesh_deferred`` builds the node with the segment's lane
     set but no tables; the mesh executor's ``harmonize_kernel_nodes``
     calls ``finalize_mesh`` with the geometry shared by every slot, so the
-    stacked tables have one shape."""
+    stacked tables have one shape.
+
+    ``codec``: the postings codec of the tables ``emit`` reads, the
+    segment's own on the host rung and the executor's on the mesh
+    ("packed" reads ``k_packed``, else ``k_docs`` / ``k_frac``)."""
 
     def __init__(self, row_lo, row_hi, kweights, min_match, *, cb: int,
-                 sub: int, live_key: str = "k_live_t"):
+                 sub: int, live_key: str = "k_live_t", codec: str = "raw"):
         self.row_lo = row_lo  # [n_tiles, t_pad] i32
         self.row_hi = row_hi
         self.kweights = kweights  # [1, t_pad] f32
@@ -217,13 +221,14 @@ class PallasScoreTermsNode(PlanNode):
         # live-mask layout key in the segment device dict: the geometry
         # ladder stages per-sub variants for dense-term queries
         self.live_key = live_key
+        self.codec = codec
         self._mesh_lanes = None
         self._mesh_bmin = None
         self._mesh_bmax = None
 
     @classmethod
-    def mesh_deferred(cls, lanes, bmin, bmax,
-                      min_match) -> "PallasScoreTermsNode":
+    def mesh_deferred(cls, lanes, bmin, bmax, min_match, *,
+                      codec: str = "raw") -> "PallasScoreTermsNode":
         """Node for the mesh plane with table building deferred: lanes are
         segment-local, but the table geometry (tile count, t_pad, cb, sub)
         must be uniform over the stacked segment set and is only known once
@@ -235,6 +240,7 @@ class PallasScoreTermsNode(PlanNode):
         self.cb = self.sub = self.t_pad = self.n_tiles = None
         self.with_counts = min_match > 1
         self.live_key = "k_live_t"
+        self.codec = codec
         self._mesh_lanes = list(lanes)
         self._mesh_bmin = bmin
         self._mesh_bmax = bmax
@@ -253,7 +259,7 @@ class PallasScoreTermsNode(PlanNode):
 
     def trace_statics(self):
         return (self.cb, self.sub, self.t_pad, self.with_counts,
-                self.live_key)
+                self.live_key, self.codec)
 
     def arrays(self):
         if self.row_lo is None:
@@ -270,11 +276,15 @@ class PallasScoreTermsNode(PlanNode):
         from elasticsearch_tpu_torch.ops import tile_scoring as tsc
 
         row_lo, row_hi, kweights, min_match = ctx.take(4)
+        if self.codec == "packed":
+            corpus = (ctx.seg["k_packed"], None)
+        else:
+            corpus = (ctx.seg["k_docs"], ctx.seg["k_frac"])
         outs = tsc.score_tiles(
-            ctx.seg["k_docs"], ctx.seg["k_frac"], ctx.seg[self.live_key],
+            corpus[0], corpus[1], ctx.seg[self.live_key],
             row_lo, row_hi, kweights,
             t_pad=self.t_pad, cb=self.cb, sub=self.sub,
-            dense=True, with_counts=self.with_counts)
+            dense=True, with_counts=self.with_counts, codec=self.codec)
         nd = ctx.nd1 - 1
         tail = torch.zeros(1, dtype=torch.float32, device=ctx.device)
         scores = torch.cat([tsc.dense_to_flat(outs[0], self.sub)[:nd], tail])

@@ -187,7 +187,8 @@ def _pallas_score_terms_node(segment, arrs, min_match):
     live_key = ("k_live_t" if g.tile_sub == geom.tile_sub
                 else segment.kernel_live_t_for(g.tile_sub))
     node = P.PallasScoreTermsNode(row_lo, row_hi, kweights, min_match,
-                                  cb=cb, sub=g.tile_sub, live_key=live_key)
+                                  cb=cb, sub=g.tile_sub, live_key=live_key,
+                                  codec=segment.kernel_codec)
     # the micro-batcher (search/batching.py) unions lane sets across
     # concurrent queries and re-derives shared tables from these
     node._host_lanes = qlanes
@@ -197,7 +198,8 @@ def _pallas_score_terms_node(segment, arrs, min_match):
 def _mesh_pallas_score_terms_node(segment, arrs, min_match, session):
     """Stackable tile-kernel node for the mesh plane. ``session`` is the
     executor's staged-kernel context ({geom, meta: {id(segment): (bmin,
-    bmax)}}). Same lane eligibility as _pallas_score_terms_node, but an
+    bmax, bfmax)}, codec}); the node reads the session's codec. Same lane
+    eligibility as _pallas_score_terms_node, but an
     empty lane set stays on the kernel: a term missing from one segment's
     dictionary must not flip that segment's node type."""
     from elasticsearch_tpu_torch.ops import tile_scoring as tsc
@@ -212,7 +214,8 @@ def _mesh_pallas_score_terms_node(segment, arrs, min_match, session):
         return None  # segment not part of the staged mesh set
     qlanes = [tsc.QueryLane(s, c, w) for s, c, w, _ in lanes]
     return P.PallasScoreTermsNode.mesh_deferred(qlanes, meta[0], meta[1],
-                                                min_match)
+                                                min_match,
+                                                codec=session["codec"])
 
 
 def _numeric_csr(segment, field):

@@ -87,12 +87,14 @@ def test_no_gpu_raises_with_mesh_plane_and_batcher_on():
 
 def test_kernel_sources_present_and_not_built_on_import():
     names = sorted(os.path.basename(p) for p in cuda_kernels.sources())
-    assert names == ["block_topk.cuh", "knn_scoring.cu", "segment_sum.cu",
-                     "tile_scoring.cu"]
+    assert names == ["block_topk.cuh", "knn_scoring.cu", "launch.cuh",
+                     "segment_sum.cu", "tile_scoring.cu"]
     assert cuda_kernels._lib is None
     assert set(cuda_kernels.LAUNCHES) == {
         "tile_scoring", "tile_scoring_batched", "tile_scoring_topk",
-        "segment_sum", "knn_scoring"}
+        "tile_scoring_topk_sel", "tile_scoring_packed",
+        "tile_scoring_batched_packed", "tile_scoring_topk_packed",
+        "tile_scoring_topk_sel_packed", "segment_sum", "knn_scoring"}
     assert "estpu_knn_score_tiles" in cuda_kernels._SIGNATURES
     for src in cuda_kernels.sources():
         text = open(src).read()

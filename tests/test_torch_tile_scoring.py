@@ -140,7 +140,7 @@ def test_plain_matches_reference_scores(case):
     (out,) = tts.score_tiles(
         torch.from_numpy(dp), torch.from_numpy(fp), torch.from_numpy(lt),
         torch.from_numpy(rl), torch.from_numpy(rh), torch.from_numpy(w),
-        t_pad=w.shape[1], cb=cb, sub=geom.tile_sub)
+        t_pad=w.shape[1], cb=cb, sub=geom.tile_sub, dense=True)
     flat = tts.dense_to_flat(out, geom.tile_sub).numpy()[:nd_pad]
     ref = tts.reference_scores(bd, frac, [tts.QueryLane(*ln) for ln in lanes],
                                nd_pad)
@@ -188,15 +188,27 @@ def test_ladder_bound_raises_like_jax():
 
 
 def test_wrapper_rejects_unported_variants_and_bad_inputs():
+    """What the wrapper refuses, as the JAX score_tiles does: tile subsets
+    serve the fused top-k form only (a dense or counting consumer needs
+    every tile), the packed codec takes no frac array, and malformed
+    inputs raise before any kernel."""
     bd, frac, live, lanes, nd_pad, tile_sub = _case("deletes")
     geom, rl, rh, w, cb, dp, fp, lt = tables(tts, bd, frac, live, lanes,
                                              nd_pad, tile_sub)
     args = [torch.from_numpy(x) for x in (dp, fp, lt, rl, rh, w)]
     kw = dict(t_pad=w.shape[1], cb=cb, sub=geom.tile_sub)
-    for bad in (dict(codec="packed"),
-                dict(dense=False, tile_ids=np.arange(2, dtype=np.int32))):
-        with pytest.raises(NotImplementedError):
+    tile_ids = np.arange(rl.shape[0], dtype=np.int32)
+    for bad in (dict(dense=True, tile_ids=tile_ids),
+                dict(dense=False, with_counts=True, tile_ids=tile_ids)):
+        with pytest.raises(ValueError):
             tts.score_tiles(*args, **kw, **bad)
+        with pytest.raises(ValueError):
+            jps.score_tiles(*[jnp.asarray(a.numpy()) for a in args], **kw,
+                            interpret=True, **bad)
+    with pytest.raises(ValueError):
+        tts.score_tiles(*args, **kw, codec="packed")
+    with pytest.raises(ValueError):
+        tts.score_tiles(*args, **kw, codec="bitpacked")
     # weights [1, t_pad] do not make a batch of two
     with pytest.raises(ValueError):
         tts.score_tiles(*args, **kw, q_batch=2)
