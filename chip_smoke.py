@@ -12,13 +12,23 @@ prints no result, when there is no GPU or any check fails. Phases:
    zipf vocabulary, lognormal lengths around 80, a 2000-value zipf keyword
    column), 3-term queries from ranks 50-1049, and one query holding a
    top-10 term (the geometry ladder shrinks its tile). Tile scoring must
-   match bit for bit (checked at rtol 1e-6) and counts exactly; segment-sum
-   counts exactly and sums within 1e-4 of each bucket's sum of |value|
-   (f32 atomics change the order of the adds from run to run). Each is
-   timed as a median over CUDA events with L2 flushed before every launch,
-   beside its bound (the larger of its bytes over the memory rate and its
-   float32 operations over the peak rate), its plain version and one
-   PyTorch library call computing the same function.
+   match bit for bit, scores and counts; segment-sum counts exactly and
+   sums within 1e-4 of each bucket's sum of |value| (f32 atomics change
+   the order of the adds from run to run). Each is timed as a median over
+   CUDA events with L2 flushed before every launch, beside its bound (the
+   larger of its bytes over the memory rate and its float32 operations
+   over the peak rate), its plain version and one PyTorch library call
+   computing the same function (a spin kernel keeps the card busy while
+   the host enqueues the call, so the events time device work, not the
+   host's enqueue). The dense kernel's launch plan (band of S columns,
+   group of G queries, block count) is logged beside each of its timings,
+   must reach 264 blocks (two an SM) at the 2^20-doc geometry for Q = 1
+   and 16, and torch.profiler reports its device time over 20 launches of
+   1a (and of 1b in phase 2b), the kernel body alone. Then the dense kernel is
+   held bit for bit against its plain version on ``band_edge_corpus``
+   (postings on both sides of every band edge, at the packed cap of 2^20
+   docs) on every rung of the ladder (sub 128 .. 1), Q 1, 2 and 16, with
+   and without counts, raw and packed, and on the bench corpus at Q = 2.
 3. The write path through ``Node(device="cuda")``: ``bulk`` ~20k zipfian
    docs into 5 shards, ``refresh``, ~50 requests (match or/and/
    minimum_should_match, bool with term + range filters, match_all, a
@@ -30,7 +40,9 @@ prints no result, when there is no GPU or any check fails. Phases:
    over the same host arrays (ids exact up to ties within rtol 1e-5,
    totals and buckets exact, scores within rtol 1e-5); the 1M-doc match
    top-10 against ``reference_scores`` (recall@10 = 1.0); both kernels
-   launched in each main-path phase (counts zeroed just before it). Prints
+   launched in each main-path phase (counts zeroed just before it), and
+   every 1a launch of phases 3, 4 and 7 held bit for bit against its plain
+   version on the inputs the path gave it. Prints
    p50 latency per request kind and plane and the per-segment host copy of
    the dense scores and mask.
 6. The kernel summary line, then the device line.
@@ -236,6 +248,79 @@ def build_synthetic_corpus(seed=7, n_docs=N_DOCS):
     }
 
 
+def band_edge_corpus(nd_pad=1 << 20, seed=3):
+    """Six terms whose postings sit where the dense kernel's bands meet:
+    both sides of every 128-doc edge (every band edge of every plan, tile
+    edges included), a uniform random term, the edges of 2048-doc bands
+    only, the doc space's ends and its middle (2^19 at the packed cap: the
+    first doc whose word has the sign bit set), a dense run across the
+    middle, and mid-band docs. tf 1-3, lognormal doc lengths, 10 % of the
+    docs deleted. Members (lanes as (term, weight)): the first has a dead
+    (zero-weight) lane, the second shares terms with it, the 16 include an
+    empty member and a repeat of the first. Returns a dict of the block
+    arrays, the terms' row runs, the live mask and the members."""
+    from elasticsearch_tpu_torch.ops import tile_scoring as tsc
+
+    rng = np.random.RandomState(seed)
+    edges = np.arange(BLOCK, nd_pad, BLOCK)
+    mid = nd_pad // 2
+    run = min(3000, nd_pad // 8)
+    terms = [np.union1d(edges - 1, edges),
+             rng.choice(nd_pad, nd_pad // 40, replace=False),
+             np.union1d(np.arange(0, nd_pad, 2048),
+                        np.arange(2047, nd_pad, 2048)),
+             np.array([0, 127, 128, mid - 1, mid, nd_pad - 2, nd_pad - 1]),
+             np.arange(mid - run, mid + run),
+             edges[::7] + 64]
+    docs_rows, tf_rows, start, count = [], [], [], []
+    for docs in terms:
+        docs = np.unique(docs).astype(np.int32)
+        n = -(-len(docs) // BLOCK)
+        d = np.full((n, BLOCK), nd_pad, np.int32)
+        tf = np.zeros((n, BLOCK), np.float32)
+        d.reshape(-1)[: len(docs)] = docs
+        tf.reshape(-1)[: len(docs)] = rng.randint(1, 4, len(docs))
+        start.append(sum(len(x) for x in docs_rows))
+        count.append(n)
+        docs_rows.append(d)
+        tf_rows.append(tf)
+    block_docs = np.concatenate(docs_rows)
+    block_tfs = np.concatenate(tf_rows)
+    doc_len = np.clip(rng.lognormal(np.log(40), 0.5, nd_pad + 1), 3,
+                      300).astype(np.float32)
+    frac = tsc.compute_block_frac(block_docs, block_tfs, doc_len,
+                                  float(doc_len.mean()))
+    live = rng.rand(nd_pad) >= 0.1
+    members = [[(0, 1.25), (1, 0.75), (3, 2.0), (4, 0.5), (5, 0.0)],
+               [(2, 1.5), (4, 0.25), (1, 1.0)]]
+    for q in range(2, BURST):
+        if q == 7:
+            members.append([])
+        elif q == 11:
+            members.append(list(members[0]))
+        else:
+            pick = rng.choice(len(terms), rng.randint(1, 5), replace=False)
+            members.append([(int(t), float(np.float32(rng.uniform(0.2, 3.0))))
+                            for t in pick])
+    return {"block_docs": block_docs, "block_tfs": block_tfs, "frac": frac,
+            "term_start": start, "term_rows": count, "nd_pad": nd_pad,
+            "live": live, "members": members}
+
+
+def band_edge_tables(tsc, corpus, sub, q_batch):
+    """(geometry, row_lo, row_hi, weights, cb) of the first ``q_batch``
+    members on the ``sub`` rung: a single query's table at Q = 1, the
+    union's otherwise."""
+    geom = tsc.tile_geometry(corpus["nd_pad"], sub)
+    bmin, bmax = tsc.block_min_max(corpus["block_docs"], corpus["block_tfs"],
+                                   corpus["nd_pad"])
+    sets = [[tsc.QueryLane(corpus["term_start"][t], corpus["term_rows"][t], w)
+             for t, w in m] for m in corpus["members"][:q_batch]]
+    build = (tsc.build_tile_tables if q_batch == 1 else
+             tsc.build_tile_tables_batched)
+    return (geom, *build(sets[0] if q_batch == 1 else sets, bmin, bmax, geom))
+
+
 def term_token(rank_index: int) -> str:
     return f"t{rank_index:05d}"
 
@@ -309,7 +394,12 @@ def corpus_segment_arrays(corpus, id_prefix="p"):
 
 
 class Timer:
-    """Median of CUDA-event timings, L2 flushed before each launch."""
+    """Median of CUDA-event timings, L2 flushed before each launch. A spin
+    kernel of SPIN_CYCLES runs between the flush and the start event, so
+    the card is still busy when the host has enqueued ``fn``: the events
+    time the device work of ``fn``, not the host's time to enqueue it."""
+
+    SPIN_CYCLES = 300_000  # about 0.17 ms at the H100's boost clock
 
     def __init__(self, torch, device):
         self.torch = torch
@@ -322,6 +412,7 @@ class Timer:
         times = []
         for _ in range(reps):
             self.flush.zero_()
+            torch.cuda._sleep(self.SPIN_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -634,10 +725,139 @@ def batch_kernels_phase(torch, dev, gseg, gdev, timer, queries,
             "topk_library_ms": timer.ms(library_topk),
             "topk_bound_ms": b_topk[0], "topk_bound_by": b_topk[1],
             "topk_q1_bound_ms": b_topk1[0],
+            "batched_plan": dense_plan(tsc, sub, qn, False, rl.shape[1],
+                                       n_tiles),
+            "batched_plan_with_counts": dense_plan(tsc, sub, qn, True,
+                                                   rl.shape[1], n_tiles),
         }
+        if name == "draws":
+            e["batched_profiler_ms"], e["batched_profiler_launches"] = \
+                profiled_dense_ms(torch, timer, lambda: tsc.score_tiles(
+                    *args, **kw, dense=True, q_batch=qn))
+            for key in ("batched_plan", "batched_plan_with_counts"):
+                check(nd_geom == 1 << 20 and e[key]["blocks"] >= 264,
+                      f"1b at the 2^20-doc bench geometry launches >= 264 "
+                      f"blocks ({key} {e[key]})")
         entries[name] = e
         log(f"[phase 2b] batch {name}: {json.dumps(e)}")
     return entries, errs
+
+
+# ----------------------------------------------------------------------
+# The dense kernel's bands: plans, the profiler, the band-edge corpus
+# ----------------------------------------------------------------------
+
+
+def dense_plan(tsc, sub, q_batch, with_counts, t_pad, n_tiles):
+    """The (S, G) plan the wrapper gives a dense launch, as a dict."""
+    p = tsc.dense_band_plan(sub, q_batch, with_counts, t_pad,
+                            n_tiles=n_tiles)
+    return {"band_sub": p.band_sub, "band_docs": p.band_sub * tsc.LANE,
+            "group": p.group, "blocks": p.blocks, "smem": p.smem}
+
+
+def profiled_dense_ms(torch, timer, fn, reps=20):
+    """The dense kernel's mean device time per launch over ``reps``
+    launches of ``fn`` (L2 flushed before each), from torch.profiler's
+    kernel records: the kernel body alone, beside the CUDA-event time of
+    the whole call. (None, 0) when the profiler records no device time
+    for it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            timer.flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if "tile_scoring_dense_kernel" not in ev.key:
+            continue
+        total += float(ev.device_time_total)  # microseconds
+        count += int(ev.count)
+    if count == 0 or total <= 0.0:
+        return None, count
+    return total / count / 1000.0, count
+
+
+def dense_band_phase(torch, dev, tsc, gseg, gdev, queries):
+    """The dense kernel against its plain version, bit for bit, on
+    band_edge_corpus at the packed cap (2^20 docs) on every rung of the
+    ladder (sub 128 .. 1), Q 1, 2 and 16, with and without counts, raw and
+    packed; and on the bench corpus at Q = 2, raw and packed. Logs each
+    launch's plan; returns the largest difference."""
+    from elasticsearch_tpu_torch.search import query_dsl as Q
+
+    t0 = time.perf_counter()
+    corpus = band_edge_corpus()
+    nd_pad = corpus["nd_pad"]
+    dp, fp = tsc.pad_segment_blocks(corpus["block_docs"], corpus["frac"],
+                                    nd_pad)
+    words = tsc.pack_segment_blocks(corpus["block_docs"], corpus["frac"],
+                                    nd_pad)
+
+    def on_dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    arrays = {"raw": (on_dev(dp), on_dev(fp)), "packed": (on_dev(words), None)}
+    err, plans, n_cases = 0.0, {}, 0
+
+    def hold(args, kw, what):
+        nonlocal err, n_cases
+        got = tsc.score_tiles(*args, **kw, dense=True)
+        want = tsc.score_tiles_plain(*args, sub=kw["sub"],
+                                     with_counts=kw["with_counts"],
+                                     q_batch=kw["q_batch"])
+        torch.cuda.synchronize()
+        err = max(err, float((got[0] - want[0]).abs().max()))
+        n_cases += 1
+        check(len(got) == len(want) and all(
+            torch.equal(a, b) for a, b in zip(got, want)),
+            f"dense kernel bit-equal plain ({what})")
+
+    for sub in (128, 64, 32, 16, 8, 4, 2, 1):
+        for qb in (1, 2, BURST):
+            geom, rl, rh, w, cb = band_edge_tables(tsc, corpus, sub, qb)
+            sub = geom.tile_sub  # the rung itself below 2^20 docs
+            live = on_dev(tsc.build_live_t(corpus["live"], geom))
+            tables = [on_dev(rl), on_dev(rh), on_dev(w)]
+            for codec in ("raw", "packed"):
+                for wc in (False, True):
+                    kw = dict(t_pad=rl.shape[1], cb=cb, sub=sub, q_batch=qb,
+                              codec=codec, with_counts=wc)
+                    hold([*arrays[codec], live, *tables], kw,
+                         f"band-edge corpus, sub {sub}, Q={qb}, {codec}, "
+                         f"counts={wc}")
+                    p = dense_plan(tsc, sub, qb, wc, rl.shape[1],
+                                   geom.n_tiles)
+                    plans[f"sub{sub}_q{qb}{'_counts' if wc else ''}"] = p
+    del arrays
+    # the bench corpus at Q = 2 (the first two draws), raw and packed
+    sets = [[tsc.QueryLane(s_, c, w_) for s_, c, w_, _ in
+             Q.term_blocks_arrays(gseg, [("title", term_token(t), 1.0)
+                                         for t in q])["lanes_meta"]]
+            for q in queries[:2]]
+    g, live_key, (rl, rh, w, cb) = _batched_tables(tsc, gseg, sets)
+    frac = gseg._block_frac()
+    bench = {"raw": (gdev["k_docs"], gdev["k_frac"]),
+             "packed": (on_dev(tsc.pack_segment_blocks(
+                 gseg.block_docs, frac, gseg.nd_pad)), None)}
+    tables = [gdev[live_key], on_dev(rl), on_dev(rh), on_dev(w)]
+    for codec in ("raw", "packed"):
+        for wc in (False, True):
+            hold([*bench[codec], *tables],
+                 dict(t_pad=rl.shape[1], cb=cb, sub=g.tile_sub, q_batch=2,
+                      codec=codec, with_counts=wc),
+                 f"bench corpus, Q=2, {codec}, counts={wc}")
+    del bench
+    torch.cuda.empty_cache()
+    log(f"[phase 2 bands] {n_cases} dense launches bit-equal to plain "
+        f"(max_abs_err {err}) in {time.perf_counter() - t0:.1f} s; plans "
+        f"{json.dumps(plans)}")
+    return err
 
 
 # ----------------------------------------------------------------------
@@ -768,7 +988,10 @@ def packed_kernels_phase(torch, dev, gseg, gdev, timer, corpus, queries):
             "plain_ms": timer.ms(lambda a=args, qb=qb: tsc.score_tiles_plain(
                 *a, sub=sub, q_batch=qb), reps=3, warmup=1),
             "library_ms": timer.ms(lib),
-            "bound_ms": b[0], "bound_by": b[1], "bound_ms_with_counts": bc[0]}
+            "bound_ms": b[0], "bound_by": b[1], "bound_ms_with_counts": bc[0],
+            "plan": dense_plan(tsc, sub, qb, False, rl.shape[1], n_tiles),
+            "plan_with_counts": dense_plan(tsc, sub, qb, True, rl.shape[1],
+                                           n_tiles)}
         # ---- 1d top-k
         equal(tsc.score_tiles(*args, **kw, k=kk),
               tsc.score_tiles_topk_plain(*args, sub=sub, k=kk),
@@ -974,13 +1197,15 @@ def plane_failures(*svcs):
 
 
 def mesh_phase(torch, Node, Segment, cuda_kernels, queries, top_rank_term,
-               lat, launches, vecs, exists):
+               lat, launches, vecs, exists, errs):
     """pmc-4x256k: a 4-shard index whose shards each adopt one 262,144-doc
     segment (with the kNN vectors ``vecs`` as its ``emb`` column); served
     by the one-device mesh plane, checked against a cpu node over the same
     arrays, against the same card node's host rung (index.search.mesh:
     false), and for recall@10 against reference_scores; then deletes,
-    refresh (the staging is rebuilt) and again. Returns (gnode, cpu node,
+    refresh (the staging is rebuilt) and again; every 1a launch held
+    against its plain version (errs takes the largest difference). Returns
+    (gnode, cpu node,
     the card's segments, the cpu node's segments, each shard's
     Segment.from_arrays fields without the vectors)."""
     from elasticsearch_tpu_torch.ops import tile_scoring as tsc
@@ -1046,8 +1271,10 @@ def mesh_phase(torch, Node, Segment, cuda_kernels, queries, top_rank_term,
     zero_searcher_counters(gnode)
     cuda_kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    rec = serve(gnode, cnode, "pmc4", reqs, "phase 7", lat, ref, plane_of,
-                also=(gnode, "pmc4h"))
+    held = {"tile_scoring": 0}
+    rec = serve_held(torch, tsc, errs, held, gnode, cnode, "pmc4", reqs,
+                     "phase 7", lat, ref=ref, plane_of=plane_of,
+                     also=(gnode, "pmc4h"))
     ktab = sum(t.numel() * t.element_size() for seg in gsegs
                for t in seg.kernel_tables().values())
     log(f"[phase 7] served {len(reqs)} requests in "
@@ -1067,8 +1294,9 @@ def mesh_phase(torch, Node, Segment, cuda_kernels, queries, top_rank_term,
         node.refresh(index)
     check(not gnode.get_doc("pmc4", "s2p997", routing=routing[2])["found"],
           "pmc4 deleted doc gone")
-    rec += serve(gnode, cnode, "pmc4", reqs, "phase 7 after deletes", lat,
-                 ref, plane_of, also=(gnode, "pmc4h"))
+    rec += serve_held(torch, tsc, errs, held, gnode, cnode, "pmc4", reqs,
+                      "phase 7 after deletes", lat, ref=ref,
+                      plane_of=plane_of, also=(gnode, "pmc4h"))
     check(svc._mesh_search.restage_total == restaged + 1,
           "pmc4 staging rebuilt once after the deletes")
     torch.cuda.synchronize()
@@ -1076,6 +1304,8 @@ def mesh_phase(torch, Node, Segment, cuda_kernels, queries, top_rank_term,
     log(f"[phase 7] kernel launches: {p7}")
     for k in HOST_PATH_KERNELS:
         check(p7[k] > 0, f"phase 7 launched {k}")
+    check(held["tile_scoring"] == p7["tile_scoring"],
+          f"every 1a launch of phase 7 held against plain ({held})")
     for k, v in p7.items():
         launches[k] += v
     check(len(rec) > 0 and min(rec) == 1.0,
@@ -1157,6 +1387,21 @@ def check_kept_launches(torch, tsc, kept, errs, label):
     log(f"[{label}] {len(kept)} main-path launches held against plain: "
         f"{by_name}")
     return by_name
+
+
+def serve_held(torch, tsc, errs, held, gnode, cnode, index, reqs, label,
+               lat, **kw):
+    """serve(), then every 1a launch (``tile_scoring``) it made held bit
+    for bit against its plain version on the very inputs it was given,
+    right away (a delete would change them). ``held`` counts the launches
+    held."""
+    with recording_tile_launches(
+            tsc, lambda k: launch_name(k) == "tile_scoring") as kept:
+        out = serve(gnode, cnode, index, reqs, label, lat, **kw)
+    torch.cuda.synchronize()
+    held["tile_scoring"] += check_kept_launches(
+        torch, tsc, kept, errs, label).get("tile_scoring", 0)
+    return out
 
 
 def burst_phase(torch, cuda_kernels, tsc, queries, lat, launches, targets,
@@ -2109,8 +2354,8 @@ def main() -> int:
             torch.cuda.synchronize()
             err = float((k_out[0] - p_out[0]).abs().max())
             tile_err = max(tile_err, err)
-            check(torch.allclose(k_out[0], p_out[0], rtol=1e-6, atol=0),
-                  f"tile scores vs plain, query {terms}, counts={wc}")
+            check(torch.equal(k_out[0], p_out[0]),
+                  f"tile scores bit-equal plain, query {terms}, counts={wc}")
             if wc:
                 check(torch.equal(k_out[1], p_out[1]),
                       f"tile counts vs plain, query {terms}")
@@ -2144,7 +2389,18 @@ def main() -> int:
                  "n_tiles": node.n_tiles, "posting_rows": rows, "ms": ms,
                  "ms_with_counts": ms_c, "plain_ms": plain_ms,
                  "library_ms": library_ms, "bound_ms": b1[0],
-                 "bound_by": b1[1], "bound_ms_with_counts": b1c[0]}
+                 "bound_by": b1[1], "bound_ms_with_counts": b1c[0],
+                 "plan": dense_plan(tsc, node.sub, 1, False, node.t_pad,
+                                    node.n_tiles),
+                 "plan_with_counts": dense_plan(tsc, node.sub, 1, True,
+                                                node.t_pad, node.n_tiles)}
+        if qi == 0:
+            entry["profiler_ms"], entry["profiler_launches"] = \
+                profiled_dense_ms(torch, timer, lambda: tsc.score_tiles(
+                    *args, **kw, dense=True))
+            check(nd_geom == 1 << 20 and entry["plan"]["blocks"] >= 264,
+                  f"1a at the 2^20-doc bench geometry launches >= 264 "
+                  f"blocks ({entry['plan']})")
         tile_entries.append(entry)
         log(f"[phase 2] tile_scoring {json.dumps(entry)}")
 
@@ -2192,6 +2448,8 @@ def main() -> int:
         "max_count": int(k_cnt.max()),
     }
     log(f"[phase 2] segment_sum {json.dumps(seg_entry)} max_abs_err {seg_err}")
+    tile_err = max(tile_err, dense_band_phase(torch, dev, tsc, gseg, gdev,
+                                              queries))
 
     batch_entries, batch_errs = batch_kernels_phase(
         torch, dev, gseg, gdev, timer, queries, top_rank_term)
@@ -2246,7 +2504,9 @@ def main() -> int:
     # the cpu node holds the same host arrays (each sealed segment adopted)
     _adopt_copies(gnode, cnode, "docs", Segment)
     reqs = requests_for(queries[:12], top_rank_term, "v0001", 2000)
-    serve(gnode, cnode, "docs", reqs, "phase 3", lat)
+    held = {"tile_scoring": 0}
+    serve_held(torch, tsc, batch_errs, held, gnode, cnode, "docs", reqs,
+               "phase 3", lat)
     del_ids = [f"d{i}" for i in range(0, INGEST_DOCS, 97)]
     for d in del_ids:
         check(gnode.delete_doc("docs", d)["result"] == "deleted", f"delete {d}")
@@ -2255,13 +2515,16 @@ def main() -> int:
     cnode.refresh("docs")
     check(not gnode.get_doc("docs", del_ids[0])["found"], "deleted doc gone")
     check(gnode.get_doc("docs", "d1")["found"], "kept doc found")
-    serve(gnode, cnode, "docs", reqs, "phase 3 after deletes", lat)
+    serve_held(torch, tsc, batch_errs, held, gnode, cnode, "docs", reqs,
+               "phase 3 after deletes", lat)
     n3 = 2 * len(reqs)
     torch.cuda.synchronize()
     p3 = dict(cuda_kernels.LAUNCHES)
     log(f"[phase 3] kernel launches: {p3}")
     for k in HOST_PATH_KERNELS:
         check(p3[k] > 0, f"phase 3 launched {k}")
+    check(held["tile_scoring"] == p3["tile_scoring"],
+          f"every 1a launch of phase 3 held against plain ({held})")
     for k, v in p3.items():
         launches[k] += v
     copy3 = host_copy_note(gnode, "docs", n3, "phase 3")
@@ -2293,7 +2556,9 @@ def main() -> int:
     reqs4 = requests_for(queries[12:24], top_rank_term, "v0000", 2005)
     zero_searcher_counters(g4)
     cuda_kernels.reset_launch_counts()
-    rec = serve(g4, c4, "pmc", reqs4, "phase 4", lat, ref)
+    held = {"tile_scoring": 0}
+    rec = serve_held(torch, tsc, batch_errs, held, g4, c4, "pmc", reqs4,
+                     "phase 4", lat, ref=ref)
     dels = [f"p{i}" for i in range(0, N_DOCS, 997)]
     for d in dels:
         g4.delete_doc("pmc", d)
@@ -2301,12 +2566,15 @@ def main() -> int:
     g4.refresh("pmc")
     c4.refresh("pmc")
     check(gseg.live_doc_count == N_DOCS - len(dels), "1M deletes applied")
-    rec += serve(g4, c4, "pmc", reqs4, "phase 4 after deletes", lat, ref)
+    rec += serve_held(torch, tsc, batch_errs, held, g4, c4, "pmc", reqs4,
+                      "phase 4 after deletes", lat, ref=ref)
     torch.cuda.synchronize()
     p4 = dict(cuda_kernels.LAUNCHES)
     log(f"[phase 4] kernel launches: {p4}")
     for k in HOST_PATH_KERNELS:
         check(p4[k] > 0, f"phase 4 launched {k}")
+    check(held["tile_scoring"] == p4["tile_scoring"],
+          f"every 1a launch of phase 4 held against plain ({held})")
     for k, v in p4.items():
         launches[k] += v
     check(len(rec) > 0 and min(rec) == 1.0,
@@ -2317,7 +2585,7 @@ def main() -> int:
     # ---------------- phase 7: the mesh plane at real size ---------------
     g7, c7, g7segs, c7segs, shard_arrays = mesh_phase(
         torch, Node, Segment, cuda_kernels, queries, top_rank_term, lat,
-        launches, knn_vecs, knn_exists)
+        launches, knn_vecs, knn_exists, batch_errs)
 
     # ---------------- phase 8: bursts on both batched rungs --------------
     burst_phase(torch, cuda_kernels, tsc, queries, lat, launches,
@@ -2351,12 +2619,15 @@ def main() -> int:
         {"name": "tile_scoring_dense", "route": "cuda",
          "source": "elasticsearch_tpu_torch/csrc/tile_scoring.cu",
          "replaces": "elasticsearch_tpu/ops/pallas_scoring.py:871",
-         "launches": launches["tile_scoring"], "max_abs_err": tile_err,
+         "launches": launches["tile_scoring"],
+         "max_abs_err": max(tile_err, batch_errs.get("tile_scoring", 0.0)),
          "ms": rep["ms"], "plain_ms": rep["plain_ms"],
          "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
          "library_ms": rep["library_ms"],
          "with_counts": {"ms": rep["ms_with_counts"],
-                         "bound_ms": rep["bound_ms_with_counts"]},
+                         "bound_ms": rep["bound_ms_with_counts"],
+                         "plan": rep["plan_with_counts"]},
+         "plan": rep["plan"], "profiler_ms": rep["profiler_ms"],
          "ladder_query": tile_entries[-1]},
         {"name": "segment_sum", "route": "cuda",
          "source": "elasticsearch_tpu_torch/csrc/segment_sum.cu",
@@ -2377,7 +2648,10 @@ def main() -> int:
          "library_ms": bat["batched_library_ms"],
          "q_batch": bat["q_batch"],
          "with_counts": {"ms": bat["batched_ms_with_counts"],
-                         "bound_ms": bat["batched_bound_ms_with_counts"]},
+                         "bound_ms": bat["batched_bound_ms_with_counts"],
+                         "plan": bat["batched_plan_with_counts"]},
+         "plan": bat["batched_plan"],
+         "profiler_ms": bat["batched_profiler_ms"],
          "ladder_batch": {k: v for k, v in batch_entries["ladder"].items()
                           if k.startswith(("batched", "sub", "union"))}},
         {"name": "tile_scoring_topk", "route": "cuda",
@@ -2409,9 +2683,9 @@ def main() -> int:
     ]}
     for name, key, replaces, extra in (
             ("tile_scoring_packed", "tile_scoring_packed", 656,
-             ("ms_with_counts", "bound_ms_with_counts")),
+             ("ms_with_counts", "bound_ms_with_counts", "plan")),
             ("tile_scoring_batched_packed", "tile_scoring_batched_packed",
-             656, ("q_batch", "ms_with_counts")),
+             656, ("q_batch", "ms_with_counts", "plan")),
             ("tile_scoring_topk_packed", "tile_scoring_topk_packed_q1", 656,
              ("q_batch", "k")),
             ("tile_scoring_topk_sel", "tile_scoring_topk_sel_rest_q1", 770,

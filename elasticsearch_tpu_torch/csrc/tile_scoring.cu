@@ -19,44 +19,98 @@
 // one-hot MXU matmul because a scatter runs serially there; a GPU has
 // cheap shared-memory scatters, so these kernels scatter directly.
 //
-// What bounds it on an H100: bytes. A call must read the lanes' posting
-// rows (8 bytes a posting: doc i32 + frac f32; 4 for a packed word) and
-// the live mask, and write the outputs: 4 * nd_pad bytes of scores per query for the dense
-// forms (twice that with counts), k scores + k docs + 1 hit count per
-// (tile, query) for the top-k form. The arithmetic is one multiply and
-// one add per posting and query.
+// Arithmetic, shared by every form, and why a batched member equals its
+// serial result bit for bit: a query's lanes (those with rows in the tile
+// and a nonzero weight) are added in ascending order of their first
+// posting row, ties by table index. Different terms own disjoint
+// posting-row runs, so this order is the same in every tile and does not
+// depend on where a lane sits in the table: the serial table (a query's
+// own lanes) and the batched table (the union of Q queries' lanes) give
+// each query the same lanes in the same order. One term's postings hit
+// distinct docs, so inside a lane the adds need no order and no atomics,
+// and a barrier between lanes orders them across lanes: acc =
+// __fadd_rn(acc, __fmul_rn(w_q, frac)), no FMA contraction. The plain
+// PyTorch versions make the same adds in the same order. A count is added
+// only where w_q > 0 (a dead lane adds no count).
 //
-// What the design does about it: one thread block owns one (tile, query)
-// pair, blocks ordered tile-major (block = tile * Q + query). The block
-// keeps that query's tile accumulator of W = sub * 128 floats (and its
-// match counts) in shared memory, so device memory sees each output once.
-// Shared memory is the reason for one query per block: Q accumulators of
-// W floats (1 MB at Q = 16, W = 16,384) do not fit the 227 KB a block may
-// use, one (64 KB, 128 KB with counts) does. The Q blocks of a tile run
-// next to each other, so a union lane's posting rows come from device
-// memory about once and from L2 for the other queries; a block reads only
-// the lanes its query weights (w_q != 0), so a query never pays for
-// another's terms.
+// ---- The dense forms (tile_scoring_dense_kernel) ----
 //
-// Arithmetic, and why a batched member equals its serial result bit for
-// bit: thread 0 lists the block's lanes that have rows and a nonzero
-// weight, sorted by their first posting row (stable). Different terms own
-// disjoint posting-row runs, so this order is the same in every tile and
-// does not depend on where a lane sits in the table: the serial table (a
-// query's own lanes) and the batched table (the union of Q queries'
-// lanes) give each query the same lanes in the same order. Lanes then run
-// in that order with a barrier between lanes; inside a lane the threads
-// read the lane's rows coalesced (128 postings a row) and, because one
-// term's postings hit distinct docs, update the accumulator without
-// atomics: acc = __fadd_rn(acc, __fmul_rn(w_q, frac)), no FMA contraction.
-// The plain PyTorch versions make the same adds in the same order. A count
-// is added only where w_q > 0 (a dead lane adds no count).
+// What bounds it on an H100: bytes. A call must read the live mask (4
+// bytes a doc of the geometry) and the lanes' posting rows (8 bytes a
+// posting raw, 4 packed), and write 4 bytes a doc per query (twice that
+// with counts). At q_batch 1 the mask read and the scores written are
+// about 70 % of those bytes (2^20 docs: 8 of 11.4 MB); at Q > 1 the Q
+// output slabs are. The arithmetic is one multiply and one add per
+// posting and query.
 //
-// Top-k epilogue, per (tile, query): matched = acc > 0 && live; the hit
-// count; then k rounds of a block-wide argmax by (score descending, local
-// doc ascending), each winner masked out, empty slots -inf / -1, doc ids
-// tile * W + local. Once a round finds nothing the rest are filled empty.
-// The selection lives in block_topk.cuh, shared with the kNN kernel.
+// The design, against what held the first version (one 512-thread block
+// per (tile, query): 64 blocks at 2^20 docs, a serial prologue, one
+// dependent load per lane, scalar epilogue, Q re-reads of every row):
+//   1. Bands fill the card. A block owns one band of D = S * 128
+//      consecutive local docs of one tile (columns [s0, s0 + S) of the
+//      tile's [128, sub] output block, every row) and a group of G
+//      queries. The grid is n_tiles * (sub / S) * ceil(Q / G) blocks, band
+//      fastest, so the blocks of one tile run together and share its rows
+//      in L2. (S, G) comes from tile_scoring.dense_band_plan: 256 threads
+//      and at most 64 registers a thread, and shared memory sized for four
+//      blocks an SM; the widest band that still gives 2 * 132 blocks, then
+//      as many queries as fit beside it. At 2^20 docs: Q = 1 gets D = 2048
+//      and 512 blocks; Q = 16 gets D = 4096 with two queries a block (2048
+//      blocks), one with counts (4096 blocks).
+//   2. One posting read serves every query of the group. The block walks
+//      the lanes its queries weight in the order above, reads each posting
+//      once, decodes it once and adds w_q * f for each query whose weight
+//      is nonzero (a 32-bit lane mask): the JAX kernel's "contribution
+//      once, one scale-add per query". The barrier between lanes is paid
+//      by the whole block, so a block holding the whole batch walks every
+//      lane of the union in every band; as batched queries share few terms,
+//      wide bands with few queries a block walk each lane over more docs
+//      and come out faster on the card, which is why G is what fits beside
+//      the widest band and not Q. (Staging each lane's f in a slot of its
+//      own and folding the slots per doc removes the barriers, but the fold
+//      over every slot cost more than they did.) A band reads only the rows
+//      that can hold its docs: one term's postings ascend by doc (every
+//      staging packs them so), so the first doc of each window row bounds
+//      the rows a band needs, found by one parallel probe of those first
+//      docs; a row is re-read from L2 only where it straddles a band edge.
+//      (A thread-block cluster per tile scattering into the owning block's
+//      shared memory over DSMEM would need a cluster barrier per lane and
+//      cap the bands of a tile at the cluster size; the probe keeps blocks
+//      independent.)
+//   3. The prologue is parallel and stays in shared memory: one coalesced
+//      pass loads the tile's row_lo / row_hi and the group's weights, a
+//      thread per lane builds its query masks and ranks it by (first row,
+//      index) among the live lanes; prefix sums are warp scans.
+//   4. Latency is overlapped. The band's live mask slice is issued as
+//      cp.async copies (16 bytes a thread) at block start and waited for
+//      only before the epilogue. Postings are read 16 bytes a thread, 1024
+//      postings of any lanes in flight per chunk, and the next chunk's
+//      loads are issued before the current one is added. The epilogue
+//      writes scores and counts with 16-byte stores: a band is S
+//      contiguous floats of each output row. S < 4 (segments under 512
+//      docs) takes a scalar mask copy and epilogue.
+// The accumulator keeps local-doc order, row s of the band padded by P =
+// 32 / S floats (S <= 32), so the scatter of a run of consecutive docs
+// and the epilogue's (row, 4 columns) reads are both free of bank
+// conflicts. Inputs: docs, frac and live_t start on 16-byte boundaries
+// (the wrapper checks).
+//
+// ---- The fused top-k forms (tile_scoring_topk_kernel) ----
+//
+// One thread block owns one (tile, query) pair, blocks ordered tile-major
+// (block = tile * Q + query), and keeps the query's tile accumulator of W
+// = sub * 128 floats in shared memory; thread 0 lists its lanes in the
+// order above, and the lanes run with a barrier between them. Bytes bound
+// it (posting rows, the mask, k scores + k docs + 1 hit count per (tile,
+// query)); its time goes to the selection. Epilogue, per (tile, query):
+// matched = acc > 0 && live; the hit count; then k rounds of a block-wide
+// argmax by (score descending, local doc ascending), each winner masked
+// out, empty slots -inf / -1, doc ids tile * W + local. Once a round finds
+// nothing the rest are filled empty. The selection lives in
+// block_topk.cuh, shared with the kNN kernel. Each 128-float row of the
+// accumulator is padded by one float so the transposed reads of the
+// epilogue (the JAX output layout [n_tiles * 128, sub], local doc s * 128
+// + lane at row lane, column s) are free of bank conflicts.
 //
 // Packed codec: the decode sits in the posting loop, so the packed forms
 // read half the posting bytes and are otherwise the raw kernels. doc =
@@ -72,11 +126,6 @@
 // orchestration zeroes the rows of the tiles it skips) writes -inf / -1 /
 // 0, what the kernel gives for an empty tile, and returns before the lane
 // sort and the accumulator clear: the work a pruned tile saves.
-//
-// Each 128-float row of the accumulator is padded by one float so the
-// transposed reads of the epilogue (the JAX output layout [n_tiles * 128,
-// sub], local doc s * 128 + lane at row lane, column s) are free of bank
-// conflicts.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -92,7 +141,21 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kPackFracBits = 12;
 constexpr int kPackFracMask = (1 << kPackFracBits) - 1;
 
+// the dense kernel: threads a block, queries a block may hold (one bit each
+// in a lane's query mask), groups of four postings a thread holds per chunk
+constexpr int kDenseThreads = 256;
+constexpr int kDenseMaxGroup = 32;
+constexpr int kChunkVec = 1;
+
 __device__ __forceinline__ int padded(int local) { return local + (local >> 7); }
+
+__device__ __forceinline__ int decode_doc(int word) {
+  return static_cast<int>(static_cast<unsigned>(word) >> kPackFracBits);
+}
+
+__device__ __forceinline__ float decode_frac(int word, float scale) {
+  return __fmul_rn(__int2float_rn(word & kPackFracMask), scale);
+}
 
 // Thread 0 lists the live lanes of this (tile, query) in ascending order of
 // their first posting row (stable); returns the count to every thread.
@@ -121,9 +184,9 @@ __device__ int lane_order(const int* __restrict__ row_lo_t,
   return *n_live;
 }
 
-// Adds every live lane's postings of tile [base, base + w) into acc (and
-// cnt, where given) in lane order; ends on a barrier. kPacked: ``docs``
-// holds packed words and ``frac`` is unused.
+// Adds every live lane's postings of tile [base, base + w) into acc in lane
+// order; ends on a barrier. kPacked: ``docs`` holds packed words and
+// ``frac`` is unused.
 template <bool kPacked>
 __device__ void accumulate(const int* __restrict__ docs,
                            const float* __restrict__ frac, float scale,
@@ -131,13 +194,12 @@ __device__ void accumulate(const int* __restrict__ docs,
                            const int* __restrict__ row_hi_t,
                            const float* __restrict__ w_q, const int* order,
                            int n_live, long long base, int w, int n_rows,
-                           float* acc, float* cnt) {
+                           float* acc) {
   for (int i = 0; i < n_live; ++i) {
     const int j = order[i];
     const long long p_end =
         static_cast<long long>(min(row_hi_t[j], n_rows)) * kLane;
     const float wj = w_q[j];
-    const bool count = cnt != nullptr && wj > 0.0f;
     for (long long p = static_cast<long long>(row_lo_t[j]) * kLane +
                        threadIdx.x;
          p < p_end; p += blockDim.x) {
@@ -145,8 +207,8 @@ __device__ void accumulate(const int* __restrict__ docs,
       float f;
       if (kPacked) {
         const int word = __ldg(docs + p);
-        doc = static_cast<int>(static_cast<unsigned>(word) >> kPackFracBits);
-        f = __fmul_rn(__int2float_rn(word & kPackFracMask), scale);
+        doc = decode_doc(word);
+        f = decode_frac(word, scale);
       } else {
         doc = __ldg(docs + p);
         f = __ldg(frac + p);
@@ -155,59 +217,369 @@ __device__ void accumulate(const int* __restrict__ docs,
       if (local >= 0 && local < w && f > 0.0f) {
         const int k = padded(static_cast<int>(local));
         acc[k] = __fadd_rn(acc[k], __fmul_rn(wj, f));
-        if (count) cnt[k] = __fadd_rn(cnt[k], 1.0f);
       }
     }
     __syncthreads();
   }
 }
 
-// Shared memory: acc [w + sub] f32, cnt [w + sub] f32 (with counts),
-// order [t_pad] i32, key [t_pad] i32, n_live i32.
+// ---------------------------------------------------------------------
+// The dense kernel
+// ---------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Padding of one accumulator row of a band of S columns (see the note).
+__host__ __device__ inline int band_pad(int band_sub) {
+  return band_sub < 4 ? 0 : (band_sub <= 32 ? 32 / band_sub : 1);
+}
+
+// Shared memory of one dense block in 4-byte words: the mask slice
+// [128][S], the accumulators [G][S][128 + P] (twice with counts), the
+// weights [G][t_pad], seven lane tables of t_pad, a prefix of t_pad + 1
+// and two scalars. Kept in step with tile_scoring.dense_band_smem.
+__host__ __device__ inline size_t dense_smem_words(int band_sub, int group,
+                                                   int t_pad, bool counts) {
+  const size_t acc = static_cast<size_t>(group) * band_sub *
+                     (kLane + band_pad(band_sub));
+  return static_cast<size_t>(band_sub) * kLane + acc * (counts ? 2 : 1) +
+         static_cast<size_t>(group) * t_pad + 8 * static_cast<size_t>(t_pad) +
+         3;
+}
+
+// out[i] = value(0) + ... + value(i - 1) for i in [0, n]: warp 0 scans 32
+// entries at a time; ends on a barrier.
+template <typename F>
+__device__ void block_exclusive_scan(F value, int n, int* out) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int carry = 0;
+    for (int b0 = 0; b0 < n; b0 += 32) {
+      const int i = b0 + lane;
+      const int v = i < n ? value(i) : 0;
+      int x = v;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, x, off);
+        if (lane >= off) x += y;
+      }
+      if (i < n) out[i] = carry + x - v;
+      carry += __shfl_sync(0xffffffffu, x, 31);
+    }
+    if (lane == 0) out[n] = carry;
+  }
+  __syncthreads();
+}
+
+// The last lane rank L in [0, n) with pre[L] <= i: the lane whose range of
+// the flattened list holds entry i (lanes with empty ranges are skipped).
+__device__ __forceinline__ int find_lane(const int* pre, int n, int i) {
+  int lo = 0, hi = n - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (pre[mid] <= i) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  return lo;
+}
+
+// Postings a thread holds between their load and their add: kChunkVec
+// groups of four consecutive postings of one row, and each group's lane
+// rank (-1: none).
+struct PostingChunk {
+  int4 doc[kChunkVec];
+  float4 frac[kChunkVec];
+  int lane[kChunkVec];
+};
+
+// Block = (tile t, group z, band): band fastest. Shared memory: see
+// dense_smem_words.
 template <bool kPacked>
-__global__ void __launch_bounds__(kThreads) tile_scoring_dense_kernel(
+__global__ void __launch_bounds__(kDenseThreads, 4) tile_scoring_dense_kernel(
     const int* __restrict__ docs, const float* __restrict__ frac, float scale,
     const float* __restrict__ live_t, const int* __restrict__ row_lo,
     const int* __restrict__ row_hi, const float* __restrict__ weights,
     float* __restrict__ out_scores, float* __restrict__ out_counts,
-    int n_tiles, int t_pad, int sub, int n_rows, int q_batch) {
-  extern __shared__ float smem[];
+    int n_tiles, int t_pad, int sub, int n_rows, int q_batch, int band_sub,
+    int group) {
+  extern __shared__ __align__(16) float dense_smem[];
+  const int tid = threadIdx.x;
+  const int nth = blockDim.x;
+  const int S = band_sub;
+  const int n_bands = sub / S;
+  const int n_groups = (q_batch + group - 1) / group;
+  const int band = blockIdx.x % n_bands;
+  const int z = (blockIdx.x / n_bands) % n_groups;
+  const int t = blockIdx.x / n_bands / n_groups;
+  const int q0 = z * group;
+  const int gn = min(group, q_batch - q0);
   const int w = sub * kLane;
-  const int w_padded = w + sub;
+  const int d = S * kLane;  // docs in the band
+  const int s0 = band * S;  // the band's first output column
+  const int blo = s0 * kLane;  // and its first local doc
+  const long long base = static_cast<long long>(t) * w;
+  const int stride = kLane + band_pad(S);
+  const int slab = S * stride;  // one query's accumulator
   const bool with_counts = out_counts != nullptr;
-  float* acc = smem;
-  float* cnt = with_counts ? smem + w_padded : nullptr;
-  int* order = reinterpret_cast<int*>(smem + w_padded * (with_counts ? 2 : 1));
-  int* key = order + t_pad;
-  int* n_live_slot = key + t_pad;
-  const int t = blockIdx.x / q_batch;
-  const int q = blockIdx.x - t * q_batch;
 
-  for (int i = threadIdx.x; i < w_padded; i += blockDim.x) {
-    acc[i] = 0.0f;
-    if (with_counts) cnt[i] = 0.0f;
+  float* mask = dense_smem;  // [128][S]: the band's live_t slice, output order
+  float* acc = mask + d;  // [group][S][stride]: local doc s * 128 + lane
+  float* cnt = acc + group * slab;
+  float* wsm = acc + group * slab * (with_counts ? 2 : 1);  // [group][t_pad]
+  int* lo_s = reinterpret_cast<int*>(wsm + group * t_pad);
+  int* hi_s = lo_s + t_pad;
+  unsigned* qm_s = reinterpret_cast<unsigned*>(hi_s + t_pad);  // w != 0
+  unsigned* cm_s = qm_s + t_pad;  // w > 0: counted
+  int* order = reinterpret_cast<int*>(cm_s + t_pad);  // rank -> lane
+  int* n_le = order + t_pad;  // probe: window rows starting at or below
+  int* n_lt = n_le + t_pad;   // the band's first doc / below its end
+  int* pre = n_lt + t_pad;    // [t_pad + 1] prefix over ranks
+  int* n_live_s = pre + t_pad + 1;
+
+  // 1. the band's mask slice, in flight until the epilogue
+  const bool vec = S >= 4;
+  const int lt = vec ? __ffs(S >> 2) - 1 : 0;  // log2(S / 4)
+  const float* live_rows = live_t + static_cast<long long>(t) * kLane * sub;
+  if (vec) {
+    for (int i = tid; i < (kLane << lt); i += nth) {
+      const int lane = i >> lt;
+      const int c = i & ((1 << lt) - 1);
+      cp_async16(mask + lane * S + 4 * c,
+                 live_rows + static_cast<long long>(lane) * sub + s0 + 4 * c);
+    }
+  } else {
+    for (int i = tid; i < d; i += nth) {
+      const int lane = i / S;
+      const int s = i - lane * S;
+      cp_async4(mask + i,
+                live_rows + static_cast<long long>(lane) * sub + s0 + s);
+    }
   }
+  asm volatile("cp.async.commit_group;\n" ::);
+
+  // 2. clear the accumulators; the tile's windows and the group's weights
+  float4* acc4 = reinterpret_cast<float4*>(acc);
+  for (int i = tid; i < group * slab * (with_counts ? 2 : 1) / 4; i += nth)
+    acc4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   const int* rl = row_lo + static_cast<long long>(t) * t_pad;
   const int* rh = row_hi + static_cast<long long>(t) * t_pad;
-  const float* wq = weights + static_cast<long long>(q) * t_pad;
-  const int n_live = lane_order(rl, rh, wq, t_pad, n_rows, order, key,
-                                n_live_slot);
-  const long long base = static_cast<long long>(t) * w;
-  accumulate<kPacked>(docs, frac, scale, rl, rh, wq, order, n_live, base, w,
-                      n_rows, acc, cnt);
+  for (int j = tid; j < t_pad; j += nth) {
+    lo_s[j] = rl[j];
+    hi_s[j] = min(rh[j], n_rows);
+    n_le[j] = 0;
+    n_lt[j] = 0;
+  }
+  const float* wq = weights + static_cast<long long>(q0) * t_pad;
+  for (int i = tid; i < gn * t_pad; i += nth) wsm[i] = wq[i];
+  if (tid == 0) *n_live_s = 0;
+  __syncthreads();
 
-  // epilogue: element o = lane * sub + s of this tile's [128, sub] block
-  // holds local doc s * 128 + lane
-  const long long out_base = (static_cast<long long>(q) * n_tiles + t) * w;
-  for (int o = threadIdx.x; o < w; o += blockDim.x) {
-    const int lane = o / sub;
-    const int s = o - lane * sub;
-    const int k = padded(s * kLane + lane);
-    const bool alive = live_t[base + o] > 0.0f;
-    out_scores[out_base + o] = alive ? acc[k] : 0.0f;
-    if (with_counts) out_counts[out_base + o] = alive ? cnt[k] : 0.0f;
+  // 3. per lane: which of the group's queries weight it, which count it;
+  // a lane is live with rows in this tile and some query's weight
+  for (int j = tid; j < t_pad; j += nth) {
+    unsigned qm = 0u, cm = 0u;
+    for (int g = 0; g < gn; ++g) {
+      const float x = wsm[g * t_pad + j];
+      if (x != 0.0f) qm |= 1u << g;
+      if (x > 0.0f) cm |= 1u << g;
+    }
+    if (hi_s[j] <= lo_s[j]) qm = 0u;
+    qm_s[j] = qm;
+    cm_s[j] = cm;
+    if (qm) atomicAdd(n_live_s, 1);
+  }
+  __syncthreads();
+  const int n_live = *n_live_s;
+
+  if (n_live > 0) {
+    // 4. rank each live lane by (first row, index)
+    for (int j = tid; j < t_pad; j += nth) {
+      if (!qm_s[j]) continue;
+      const int lo = lo_s[j];
+      int rank = 0;
+      for (int k = 0; k < t_pad; ++k)
+        rank += (qm_s[k] != 0u) && (lo_s[k] < lo || (lo_s[k] == lo && k < j));
+      order[rank] = j;
+    }
+    __syncthreads();
+
+    // 5. probe the first doc of every window row: the rows that can hold
+    // the band's docs are [lo + max(n_le - 1, 0), lo + n_lt)
+    block_exclusive_scan(
+        [&](int L) { return hi_s[order[L]] - lo_s[order[L]]; }, n_live, pre);
+    const int n_probe = pre[n_live];
+    for (int i0 = tid; i0 < n_probe; i0 += 4 * nth) {
+      int first[4], lane_of[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * nth;
+        lane_of[u] = -1;
+        if (i < n_probe) {
+          const int L = find_lane(pre, n_live, i);
+          const long long row = lo_s[order[L]] + (i - pre[L]);
+          const int word = __ldg(docs + row * kLane);
+          first[u] = kPacked ? decode_doc(word) : word;
+          lane_of[u] = L;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (lane_of[u] < 0) continue;
+        const long long local = first[u] - base;
+        if (local <= blo) atomicAdd(n_le + lane_of[u], 1);
+        if (local < blo + d) atomicAdd(n_lt + lane_of[u], 1);
+      }
+    }
+    __syncthreads();
+
+    // 6. the band's candidate postings, flattened in rank order
+    block_exclusive_scan(
+        [&](int L) { return max(0, n_lt[L] - max(n_le[L] - 1, 0)) * kLane; },
+        n_live, pre);
+    const int n_vec = pre[n_live] >> 2;
+    const int per_chunk = nth * kChunkVec;
+    const int n_chunks = (n_vec + per_chunk - 1) / per_chunk;
+
+    auto load = [&](int c, PostingChunk& pc) {
+#pragma unroll
+      for (int k = 0; k < kChunkVec; ++k) {
+        const int v = c * per_chunk + k * nth + tid;
+        pc.lane[k] = -1;
+        if (v < n_vec) {
+          const int i = v << 2;
+          const int L = find_lane(pre, n_live, i);
+          const long long p =
+              (static_cast<long long>(lo_s[order[L]]) + max(n_le[L] - 1, 0)) *
+                  kLane +
+              (i - pre[L]);
+          pc.doc[k] = __ldg(reinterpret_cast<const int4*>(docs + p));
+          if (!kPacked)
+            pc.frac[k] = __ldg(reinterpret_cast<const float4*>(frac + p));
+          pc.lane[k] = L;
+        }
+      }
+    };
+    auto add = [&](int doc, float f, int j, unsigned qm, unsigned cm) {
+      const long long bl = static_cast<long long>(doc) - base - blo;
+      if (bl < 0 || bl >= d || !(f > 0.0f)) return;
+      const int b = static_cast<int>(bl);
+      const int idx = (b >> 7) * stride + (b & (kLane - 1));
+      while (qm) {
+        const int g = __ffs(qm) - 1;
+        qm &= qm - 1u;
+        float* a = acc + g * slab + idx;
+        *a = __fadd_rn(*a, __fmul_rn(wsm[g * t_pad + j], f));
+        if ((cm >> g) & 1u) {
+          float* cc = cnt + g * slab + idx;
+          *cc = __fadd_rn(*cc, 1.0f);
+        }
+      }
+    };
+    // the chunk's lanes in rank order, a barrier after each
+    auto apply = [&](int c, const PostingChunk& pc) {
+      const int v_first = c * per_chunk;
+      const int v_last = min(v_first + per_chunk, n_vec) - 1;
+      const int l_first = find_lane(pre, n_live, v_first << 2);
+      const int l_last = find_lane(pre, n_live, v_last << 2);
+      for (int L = l_first; L <= l_last; ++L) {
+        const int j = order[L];
+        const unsigned qm = qm_s[j];
+        const unsigned cm = with_counts ? cm_s[j] : 0u;
+#pragma unroll
+        for (int k = 0; k < kChunkVec; ++k) {
+          if (pc.lane[k] != L) continue;
+          const int4 dw = pc.doc[k];
+          if (kPacked) {
+            add(decode_doc(dw.x), decode_frac(dw.x, scale), j, qm, cm);
+            add(decode_doc(dw.y), decode_frac(dw.y, scale), j, qm, cm);
+            add(decode_doc(dw.z), decode_frac(dw.z, scale), j, qm, cm);
+            add(decode_doc(dw.w), decode_frac(dw.w, scale), j, qm, cm);
+          } else {
+            const float4 fv = pc.frac[k];
+            add(dw.x, fv.x, j, qm, cm);
+            add(dw.y, fv.y, j, qm, cm);
+            add(dw.z, fv.z, j, qm, cm);
+            add(dw.w, fv.w, j, qm, cm);
+          }
+        }
+        __syncthreads();
+      }
+    };
+
+    // 7. the next chunk's loads go out before the current chunk's adds
+    PostingChunk cur, nxt;
+    if (n_chunks > 0) load(0, cur);
+    for (int c = 0; c < n_chunks; ++c) {
+      if (c + 1 < n_chunks) load(c + 1, nxt);
+      apply(c, cur);
+      cur = nxt;
+    }
+  }
+
+  // 8. epilogue: row lane, columns s0 + [4c, 4c + 4) of query q0 + g's
+  // tile block hold local docs (s0 + 4c + e) * 128 + lane
+  cp_async_wait_all();
+  __syncthreads();
+  const long long tile_out = static_cast<long long>(t) * w + s0;
+  if (vec) {
+    const int per_g = kLane << lt;  // 16-byte chunks of one query's band
+    for (int i = tid; i < gn * per_g; i += nth) {
+      const int g = i >> (7 + lt);
+      const int r = i & (per_g - 1);
+      const int lane = r >> lt;
+      const int c = r & ((1 << lt) - 1);
+      const float4 m = *reinterpret_cast<const float4*>(mask + lane * S + 4 * c);
+      const int at = g * slab + 4 * c * stride + lane;
+      const long long o = static_cast<long long>(q0 + g) * n_tiles * w +
+                          tile_out + static_cast<long long>(lane) * sub + 4 * c;
+      const float* a = acc + at;
+      *reinterpret_cast<float4*>(out_scores + o) = make_float4(
+          m.x > 0.0f ? a[0] : 0.0f, m.y > 0.0f ? a[stride] : 0.0f,
+          m.z > 0.0f ? a[2 * stride] : 0.0f, m.w > 0.0f ? a[3 * stride] : 0.0f);
+      if (with_counts) {
+        const float* n = cnt + at;
+        *reinterpret_cast<float4*>(out_counts + o) = make_float4(
+            m.x > 0.0f ? n[0] : 0.0f, m.y > 0.0f ? n[stride] : 0.0f,
+            m.z > 0.0f ? n[2 * stride] : 0.0f,
+            m.w > 0.0f ? n[3 * stride] : 0.0f);
+      }
+    }
+  } else {
+    for (int i = tid; i < gn * d; i += nth) {
+      const int g = i / d;
+      const int r = i - g * d;
+      const int lane = r / S;
+      const int s = r - lane * S;
+      const bool alive = mask[r] > 0.0f;
+      const int at = g * slab + s * stride + lane;
+      const long long o = static_cast<long long>(q0 + g) * n_tiles * w +
+                          tile_out + static_cast<long long>(lane) * sub + s;
+      out_scores[o] = alive ? acc[at] : 0.0f;
+      if (with_counts) out_counts[o] = alive ? cnt[at] : 0.0f;
+    }
   }
 }
+
+// ---------------------------------------------------------------------
+// The fused top-k kernel
+// ---------------------------------------------------------------------
 
 // the accumulator position of local doc ``local`` (rows padded by one)
 struct PaddedAt {
@@ -264,7 +636,7 @@ __global__ void __launch_bounds__(kThreads) tile_scoring_topk_kernel(
                                 n_live_slot);
   const long long base = static_cast<long long>(t) * w;
   accumulate<kPacked>(docs, frac, scale, rl, rh, wq, order, n_live, base, w,
-                      n_rows, acc, nullptr);
+                      n_rows, acc);
 
   // matched = acc > 0 && live; unmatched slots become -inf in place
   int my_hits = 0;
@@ -296,26 +668,35 @@ __global__ void __launch_bounds__(kThreads) tile_scoring_topk_kernel(
 
 }  // namespace
 
+// band_sub (S) and group (G): tile_scoring.dense_band_plan. S is a power
+// of two dividing sub, 1 <= G <= 32; anything else is refused.
 extern "C" int estpu_tile_scoring_dense(
     const void* docs, const void* frac, const void* live_t,
     const void* row_lo, const void* row_hi, const void* weights,
     void* out_scores, void* out_counts, int n_tiles, int t_pad, int sub,
-    int n_rows, int q_batch, int packed, float scale, void* stream) {
+    int n_rows, int q_batch, int band_sub, int group, int packed, float scale,
+    void* stream) {
   if (n_tiles <= 0 || q_batch <= 0) return 0;
-  const size_t w_padded = static_cast<size_t>(sub) * kLane + sub;
-  const size_t smem = sizeof(float) * w_padded * (out_counts ? 2 : 1) +
-                      sizeof(int) * (2 * static_cast<size_t>(t_pad) + 1);
+  if (sub <= 0 || band_sub <= 0 || (band_sub & (band_sub - 1)) != 0 ||
+      sub % band_sub != 0 || group < 1 || group > kDenseMaxGroup || t_pad < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = static_cast<long long>(n_tiles) *
+                           (sub / band_sub) *
+                           ((q_batch + group - 1) / group);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem =
+      sizeof(float) * dense_smem_words(band_sub, group, t_pad, out_counts);
   auto kernel = packed ? tile_scoring_dense_kernel<true>
                        : tile_scoring_dense_kernel<false>;
   cudaError_t err = estpu::allow_max_dynamic_smem(kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<n_tiles * q_batch, kThreads, smem,
+  kernel<<<static_cast<unsigned>(blocks), kDenseThreads, smem,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(docs), static_cast<const float*>(frac), scale,
       static_cast<const float*>(live_t), static_cast<const int*>(row_lo),
       static_cast<const int*>(row_hi), static_cast<const float*>(weights),
       static_cast<float*>(out_scores), static_cast<float*>(out_counts),
-      n_tiles, t_pad, sub, n_rows, q_batch);
+      n_tiles, t_pad, sub, n_rows, q_batch, band_sub, group);
   return static_cast<int>(cudaGetLastError());
 }
 

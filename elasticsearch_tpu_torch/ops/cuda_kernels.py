@@ -46,7 +46,7 @@ _SIGNATURES = {
     "estpu_tile_scoring_dense": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int,
-        _c_int, _c_float, _c_void_p],
+        _c_int, _c_int, _c_int, _c_float, _c_void_p],
     "estpu_tile_scoring_topk": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int, _c_int,

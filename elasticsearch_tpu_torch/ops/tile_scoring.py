@@ -35,7 +35,10 @@ Variants of ``score_tiles`` (the JAX signature and output shapes):
 
 ``score_tiles`` dispatches on the tensors' device: a CPU tensor runs the
 plain PyTorch version (``score_tiles_plain``); a CUDA tensor launches the
-hand-written kernel in ``csrc/tile_scoring.cu`` or raises. Both add each
+hand-written kernel in ``csrc/tile_scoring.cu`` or raises. The dense
+kernel's split of a launch into blocks (a band of each tile's columns and
+a group of queries a block) is planned here, by ``dense_band_plan``, so
+that the CPU tests reach it. Both add each
 query's lanes in one canonical order (ascending first posting row, see
 ``canonical_lane_order``) with the same f32 multiply and add, so they agree
 bit for bit, and a batched member equals its ``q_batch=1`` result bit for
@@ -55,6 +58,7 @@ candidates with ``lax.top_k``'s tie order (lower flat index first), which
 
 from __future__ import annotations
 
+import functools
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -481,6 +485,115 @@ def plan_pruned_tiles(row_lo: np.ndarray, row_hi: np.ndarray,
 
 
 # ----------------------------------------------------------------------
+# The dense kernel's launch plan (csrc/tile_scoring.cu)
+# ----------------------------------------------------------------------
+
+H100_SMS = 132
+H100_SM_SHARED_BYTES = 228 * 1024  # shared memory of one H100 SM
+BLOCK_RESERVED_SMEM = 1024  # shared memory the card keeps per resident block
+DENSE_MAX_GROUP = 32  # queries a block holds: one bit each in a lane mask
+DENSE_MIN_BLOCKS = 2 * H100_SMS  # a launch fills the card with two an SM
+
+
+class BandPlan(NamedTuple):
+    """How the dense kernel splits a launch: each block owns a band of
+    ``band_sub`` columns (``band_sub * 128`` consecutive local docs) of one
+    tile's ``[128, sub]`` output block and a group of ``group`` queries."""
+
+    band_sub: int  # S, a power of two dividing sub
+    group: int  # G; the last group of a launch may hold fewer
+    smem: int  # dynamic shared bytes of one block
+    blocks: int  # grid size: n_tiles * (sub / S) * ceil(Q / G)
+
+
+def band_pad(band_sub: int) -> int:
+    """Floats padding each 128-doc accumulator row of a band, so the
+    scatter and the 16-byte epilogue are free of bank conflicts."""
+    if band_sub < 4:
+        return 0
+    return 32 // band_sub if band_sub <= 32 else 1
+
+
+def dense_band_smem(band_sub: int, group: int, t_pad: int,
+                    with_counts: bool) -> int:
+    """Dynamic shared bytes of one dense block, as the C entry point
+    computes them (``dense_smem_words``): the band's mask slice, G
+    accumulators (twice with counts), G weight rows, the lane tables."""
+    acc = group * band_sub * (LANE + band_pad(band_sub))
+    words = (band_sub * LANE + acc * (2 if with_counts else 1)
+             + group * t_pad + 8 * t_pad + 3)
+    return 4 * words
+
+
+def dense_band_plan(sub: int, q_batch: int, with_counts: bool, t_pad: int,
+                    smem_bytes: int = H100_SM_SHARED_BYTES, *,
+                    n_tiles: int = 1) -> BandPlan:
+    """Pick (S, G) for a dense launch of ``n_tiles`` tiles of ``sub``
+    columns. ``smem_bytes`` is one SM's shared memory.
+
+    A block's shared memory is sized for four blocks an SM (the kernel's
+    register bound), else for two. A block walks every lane its queries
+    weight with a barrier between lanes, so a wide band pays for its
+    lanes once over many docs: S is the widest band (at least min(4,
+    sub) columns, below which the epilogue is scalar) that fits with some
+    G and still gives DENSE_MIN_BLOCKS blocks, else the
+    narrowest that fits. G is then as many queries as fit beside that
+    band (at most DENSE_MAX_GROUP, in near-equal groups, the last one
+    ragged). S drops under min(4, sub) only when nothing else fits;
+    raises ValueError when not even S = 1, G = 1 fits two blocks an SM."""
+    q_batch = max(1, int(q_batch))
+    sizes = []
+    s = sub
+    while s >= 1:
+        sizes.append(s)  # widest first
+        s //= 2
+
+    def widest_group(s, per_block):
+        # the largest near-equal group that fits beside a band of s
+        for n_groups in range(-(-q_batch // DENSE_MAX_GROUP), q_batch + 1):
+            group = -(-q_batch // n_groups)
+            if dense_band_smem(s, group, t_pad, with_counts) <= per_block:
+                return group
+        return 0
+
+    def fitting(narrowest, per_block):
+        out = []
+        for s in sizes:
+            group = widest_group(s, per_block) if s >= narrowest else 0
+            if group:
+                out.append((s, group))
+        return out
+
+    fits = []
+    for per_sm in (4, 2):
+        per_block = smem_bytes // per_sm - BLOCK_RESERVED_SMEM
+        fits = fitting(min(4, sub), per_block)
+        if fits:
+            break
+    if not fits:
+        fits = fitting(1, per_block)
+    if not fits:
+        raise ValueError(
+            f"{smem_bytes} bytes of shared memory an SM hold no dense block "
+            f"(sub={sub}, t_pad={t_pad}, with_counts={with_counts})")
+
+    def blocks(s, group):
+        return n_tiles * (sub // s) * -(-q_batch // group)
+
+    reach = [sg for sg in fits if blocks(*sg) >= DENSE_MIN_BLOCKS]
+    s, group = reach[0] if reach else fits[-1]
+    return BandPlan(s, group, dense_band_smem(s, group, t_pad, with_counts),
+                    blocks(s, group))
+
+
+@functools.lru_cache(maxsize=1024)
+def _launch_plan(sub: int, q_batch: int, with_counts: bool, t_pad: int,
+                 n_tiles: int) -> BandPlan:
+    # a launch's plan depends on its shapes alone: planned once per shape
+    return dense_band_plan(sub, q_batch, with_counts, t_pad, n_tiles=n_tiles)
+
+
+# ----------------------------------------------------------------------
 # The kernels, their plain versions and the wrapper
 # ----------------------------------------------------------------------
 
@@ -685,6 +798,12 @@ def _score_tiles_cuda(docs_padded, frac_padded, live_t, row_lo, row_hi,
               weights.data_ptr())
     scale = float(np.float32(PACK_FRAC_SCALE))
     if dense:
+        # the dense kernel reads postings and the mask 16 bytes at a time
+        for what, t in (("docs_padded", docs_padded),
+                        ("frac_padded", frac_padded), ("live_t", live_t)):
+            if t is not None and t.data_ptr() % 16:
+                raise ValueError(f"{what} must start on a 16-byte boundary")
+        plan = _launch_plan(sub, q_batch, with_counts, t_pad, n_tiles)
         shape = ((n_tiles * LANE, sub) if q_batch == 1
                  else (q_batch, n_tiles * LANE, sub))
         scores = torch.empty(shape, dtype=torch.float32, device=dev)
@@ -692,8 +811,9 @@ def _score_tiles_cuda(docs_padded, frac_padded, live_t, row_lo, row_hi,
         rc = lib.estpu_tile_scoring_dense(
             *common, scores.data_ptr(),
             counts.data_ptr() if with_counts else None,
-            n_tiles, t_pad, sub, docs_padded.shape[0], q_batch, int(packed),
-            scale, cuda_kernels.stream_ptr(dev))
+            n_tiles, t_pad, sub, docs_padded.shape[0], q_batch,
+            plan.band_sub, plan.group, int(packed), scale,
+            cuda_kernels.stream_ptr(dev))
         name = ("tile_scoring" if q_batch == 1
                 else "tile_scoring_batched") + suffix
         cuda_kernels.check(rc, name)
@@ -748,7 +868,13 @@ def score_tiles(
     None). ``tile_ids`` scores a tile subset (top-k only): the row tables
     are gathered in subset order and the outputs have one row per subset
     entry. ``cb`` and ``tiles_per_step`` are TPU DMA knobs that do not
-    change the outputs; they are accepted and ignored."""
+    change the outputs; they are accepted and ignored.
+
+    On the card the dense forms split each tile into bands
+    (``dense_band_plan``) and a band reads only the rows whose first
+    postings can reach it, so a lane's postings must ascend by doc across
+    and within its rows, as every staging packs them; docs_padded,
+    frac_padded and live_t must start on 16-byte boundaries."""
     del cb, tiles_per_step
     if tile_ids is not None and (dense or with_counts):
         # dense and match-count consumers need every tile's output
