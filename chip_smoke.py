@@ -29,6 +29,14 @@ prints no result, when there is no GPU or any check fails. Phases:
    (postings on both sides of every band edge, at the packed cap of 2^20
    docs) on every rung of the ladder (sub 128 .. 1), Q 1, 2 and 16, with
    and without counts, raw and packed, and on the bench corpus at Q = 2.
+   "[phase 2 select]" holds the fused top-k kernels' selection on
+   tie-heavy inputs (``tie_corpus``: equal frac and weights;
+   ``tie_vectors``: duplicated embedding rows, a dead tail) at every
+   cluster size a plan can take there, k 1, 10, 16, 100 and W, Q 1, 2 and
+   16: the top-k tile kernel raw and packed, all rows and sel mode with
+   zeroed rows, and kernel 3 cosine and dot_product, each bit-equal to its
+   plain version. Every fused top-k timing logs its plan (cluster size C,
+   band docs, query group, CTAs).
 3. The write path through ``Node(device="cuda")``: ``bulk`` ~20k zipfian
    docs into 5 shards, ``refresh``, ~50 requests (match or/and/
    minimum_should_match, bool with term + range filters, match_all, a
@@ -76,8 +84,10 @@ Run between phases 2 and 3, and after phase 4 (phase 10 after phase 9):
    faults on every index.
 
 2c. Kernel 3 (kNN scoring, fused per-tile top-k) against its plain version
-    on the card, bit for bit (scores and docs), in three cases: 1,048,576
+    on the card, bit for bit (scores and docs), in these cases: 1,048,576
     docs of 128 dims, cosine, Q = 1 and 16 (bench.py's knn_top10 shape);
+    one 262,144-doc slot (the mesh rung's shape) at Q = 1 with k 10 (>= 256
+    CTAs) and 100, and at Q = 16 with k 10 (one query group of 16);
     262,144 docs of 768 dims, dot_product, Q = 4; three slots of 262,144 /
     150,000 / 90,000 rows in one 262,144-doc geometry (rows beyond a
     slot's count are dead), cosine, Q = 4. The vectors are bench.py's
@@ -114,8 +124,10 @@ Run between phases 2 and 3, and after phase 4 (phase 10 after phase 9):
     equal to their serial responses, serial total <= member total <=
     exact total); deletes, then the match queries again. Every 1d / 1e
     launch of the phase is held bit for bit against its plain version on
-    its real inputs; every new launch name must have moved; zero plane
-    faults. Prints the pruned
+    its real inputs, and the first 1e packed and 1e raw launches at Q = 1
+    and at Q > 1 are timed on those inputs (plan, bound, plain version,
+    library call; an 8-tile set at Q = 1 must launch >= 128 CTAs); every
+    new launch name must have moved; zero plane faults. Prints the pruned
     tile fraction, the staged posting bytes packed and raw, and p50 for
     raw exhaustive, packed exhaustive and packed pruned matches.
 9. kNN through ``Node(device="cuda")`` on pmc-4x256k with the phase-2c
@@ -683,7 +695,7 @@ def batch_kernels_phase(torch, dev, gseg, gdev, timer, queries,
         # the library yardstick: one index_add_ of w_q * frac into a
         # [Q, nd_pad + 1] buffer (and, for 1c, torch.topk per tile)
         nd1 = gseg.nd_pad + 1
-        idx, val = [], []
+        idx, val, q_parts = [], [], []
         for j, ln in enumerate(union):
             r = slice(ln.block_start, ln.block_start + ln.block_count)
             docs = gdev["k_docs"][r].reshape(-1).long()
@@ -692,6 +704,8 @@ def batch_kernels_phase(torch, dev, gseg, gdev, timer, queries,
                 if wmat[q, j] > 0:
                     idx.append(docs + q * nd1)
                     val.append(frac * float(wmat[q, j]))
+                    q_parts.append(q)
+        idx_parts, val_parts = idx, val
         idx, val = torch.cat(idx), torch.cat(val)
         buf = torch.zeros(qn * nd1, device=dev)
         w_tile = sub * tsc.LANE
@@ -700,6 +714,17 @@ def batch_kernels_phase(torch, dev, gseg, gdev, timer, queries,
             dense = buf.index_add_(0, idx, val).reshape(qn, nd1)
             return torch.topk(dense[:, : n_tiles * w_tile].reshape(
                 qn, n_tiles, w_tile), kk, dim=2)
+
+        # the same for the first query alone (1c at Q=1)
+        first = torch.cat([d for d, q in zip(idx_parts, q_parts) if q == 0])
+        first_val = torch.cat([v for v, q in zip(val_parts, q_parts)
+                               if q == 0])
+        buf1 = torch.zeros(nd1, device=dev)
+
+        def library_topk_q1():
+            dense = buf1.index_add_(0, first, first_val)
+            return torch.topk(dense[: n_tiles * w_tile].reshape(
+                n_tiles, w_tile), kk, dim=1)
 
         e = {
             "sub": sub, "q_batch": qn, "t_pad": int(rl.shape[1]),
@@ -723,8 +748,13 @@ def batch_kernels_phase(torch, dev, gseg, gdev, timer, queries,
             "topk_plain_ms": timer.ms(lambda: tsc.score_tiles_topk_plain(
                 *args, sub=sub, k=kk), reps=5, warmup=1),
             "topk_library_ms": timer.ms(library_topk),
+            "topk_q1_library_ms": timer.ms(library_topk_q1),
             "topk_bound_ms": b_topk[0], "topk_bound_by": b_topk[1],
             "topk_q1_bound_ms": b_topk1[0],
+            "topk_plan": topk_plan(tsc, "tile", sub, qn, kk, n_tiles,
+                                   rl.shape[1], False, dev),
+            "topk_q1_plan": topk_plan(tsc, "tile", sub, 1, kk, n_tiles,
+                                      rl.shape[1], False, dev),
             "batched_plan": dense_plan(tsc, sub, qn, False, rl.shape[1],
                                        n_tiles),
             "batched_plan_with_counts": dense_plan(tsc, sub, qn, True,
@@ -865,6 +895,210 @@ def dense_band_phase(torch, dev, tsc, gseg, gdev, queries):
 # ----------------------------------------------------------------------
 
 
+# ----------------------------------------------------------------------
+# The selection's edge cases: tie-heavy inputs at every cluster size
+# ----------------------------------------------------------------------
+
+SELECT_KS = (1, 10, 16, 100, None)  # None: k = W, the whole tile
+SELECT_QS = (1, 2, 16)
+
+
+def tie_corpus(nd_pad=1 << 16, seed=5):
+    """Postings that tie on purpose: six terms (every other doc, every
+    third, every fifth from 1, a random quarter, a dense run across the
+    middle, every seventh), every posting's frac 1.0 and every member's
+    weights 1.0 (one member 0.5), so a doc's score is the count of its
+    matched terms and thousands of docs share each score; 5 % of the docs
+    deleted. Returns the block arrays, the terms' row runs, the live mask
+    and 16 members (lanes as (term, weight))."""
+    rng = np.random.RandomState(seed)
+    mid = nd_pad // 2
+    terms = [np.arange(0, nd_pad, 2), np.arange(0, nd_pad, 3),
+             np.arange(1, nd_pad, 5),
+             rng.choice(nd_pad, nd_pad // 4, replace=False),
+             np.arange(mid - 3000, mid + 3000), np.arange(0, nd_pad, 7)]
+    docs_rows, frac_rows, start, count = [], [], [], []
+    for docs in terms:
+        docs = np.unique(docs).astype(np.int32)
+        n = -(-len(docs) // BLOCK)
+        d = np.full((n, BLOCK), nd_pad, np.int32)
+        f = np.zeros((n, BLOCK), np.float32)
+        d.reshape(-1)[: len(docs)] = docs
+        f.reshape(-1)[: len(docs)] = 1.0
+        start.append(sum(len(x) for x in docs_rows))
+        count.append(n)
+        docs_rows.append(d)
+        frac_rows.append(f)
+    members = [[(t, 1.0) for t in range(len(terms))], [(0, 1.0), (1, 0.5)]]
+    for _ in range(2, BURST):
+        pick = rng.choice(len(terms), rng.randint(1, 5), replace=False)
+        members.append([(int(t), 1.0) for t in pick])
+    return {"block_docs": np.concatenate(docs_rows),
+            "frac": np.concatenate(frac_rows), "term_start": start,
+            "term_rows": count, "nd_pad": nd_pad,
+            "live": rng.rand(nd_pad) >= 0.05, "members": members}
+
+
+def tie_vectors(n, dims=KNN_DIMS, distinct=512, seed=29):
+    """Vectors that tie on purpose: each row is one of ``distinct`` bf16
+    rows, so every score repeats about n / distinct times; every 31st row
+    has no vector."""
+    from elasticsearch_tpu_torch.ops.knn_scoring import bf16_round
+
+    rng = np.random.RandomState(seed)
+    base = bf16_round(rng.standard_normal((distinct, dims)).astype(np.float32))
+    vecs = base[rng.randint(0, distinct, n)]
+    exists = np.ones(n, bool)
+    exists[::31] = False
+    vecs[~exists] = 0.0
+    return vecs, exists, rng
+
+
+@contextlib.contextmanager
+def forced_clusters(tsc, cluster):
+    """While the block runs, every fused top-k launch plans with a cluster
+    of exactly ``cluster`` bands (a KernelError where no plan has one)."""
+    orig = tsc.topk_launch_plan
+
+    def forced(*args, **kw):
+        kw["clusters"] = (cluster,)
+        return orig(*args, **kw)
+
+    tsc.topk_launch_plan = forced
+    try:
+        yield
+    finally:
+        tsc.topk_launch_plan = orig
+
+
+def topk_plan(tsc, kind, sub, q_batch, k, n_tiles, width, packed, dev):
+    """The plan a fused top-k launch takes on the card, as a dict."""
+    p = tsc.topk_launch_plan(kind, sub, q_batch, min(k, sub * tsc.LANE),
+                             n_tiles, width, packed, dev)
+    return {"cluster": p.cluster, "band_docs": p.band_docs,
+            "group": p.group, "ctas": p.blocks, "smem": p.smem}
+
+
+def select_phase(torch, dev):
+    """[phase 2 select]: the top-k tile kernel (all rows and sel mode with
+    half the rows zeroed, raw and packed) on ``tie_corpus`` and kernel 3
+    (cosine and dot_product, rows past n_rows dead) on ``tie_vectors``, at
+    Q 1, 2 and 16, k 1, 10, 16, 100 and W, each at every cluster size a
+    plan can take there; each launch bit-equal to its plain version."""
+    from elasticsearch_tpu_torch.ops import knn_scoring as knn
+    from elasticsearch_tpu_torch.ops import tile_scoring as tsc
+    from elasticsearch_tpu_torch.ops.cuda_kernels import KernelError
+
+    t0 = time.perf_counter()
+    runs = {"tile": {}, "knn": {}}
+    n_cases = 0
+    err = 0.0
+
+    def held(got, want, what, kind, c):
+        nonlocal n_cases, err
+        n_cases += 1
+        runs[kind][c] = runs[kind].get(c, 0) + 1
+        fin = torch.isfinite(want[0])
+        if bool(fin.any()):
+            err = max(err, float((got[0][fin] - want[0][fin]).abs().max()))
+        check(len(got) == len(want)
+              and all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"[phase 2 select] {what} C={c} bit-equal plain")
+
+    def each_cluster(kind, launch, want, what):
+        for c in tsc.TOPK_CLUSTERS:
+            with forced_clusters(tsc, c):
+                try:
+                    got = launch()
+                except KernelError as e:
+                    if "no fused top-k plan" in str(e):
+                        continue  # no plan takes this size here
+                    raise
+            torch.cuda.synchronize()
+            held(got, want, what, kind, c)
+
+    def on_dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    corpus = tie_corpus()
+    nd = corpus["nd_pad"]
+    geom = tsc.tile_geometry(nd, 32)  # 16 tiles of 4,096 docs
+    sub, n_tiles = geom.tile_sub, geom.n_tiles
+    w_tile = geom.tile_w
+    block_tfs = (corpus["frac"] > 0).astype(np.float32)
+    bmin, bmax = tsc.block_min_max(corpus["block_docs"], block_tfs, nd)
+    docs_r, frac_r = tsc.pad_segment_blocks(corpus["block_docs"],
+                                            corpus["frac"], nd)
+    words = tsc.pack_segment_blocks(corpus["block_docs"], corpus["frac"], nd)
+    postings = {"raw": (on_dev(docs_r), on_dev(frac_r)),
+                "packed": (on_dev(words), None)}
+    live_t = on_dev(tsc.build_live_t(corpus["live"], geom))
+    rng = np.random.RandomState(41)
+    for qb in SELECT_QS:
+        sets = [[tsc.QueryLane(corpus["term_start"][t],
+                               corpus["term_rows"][t], wt) for t, wt in m]
+                for m in corpus["members"][:qb]]
+        rl, rh, wts, cb = tsc.build_tile_tables_batched(sets, bmin, bmax,
+                                                        geom)
+        sel = rng.permutation(n_tiles).astype(np.int32)
+        zero = np.arange(n_tiles) % 2 == 1
+        rls = np.where(zero[:, None], 0, rl[sel])
+        rhs = np.where(zero[:, None], 0, rh[sel])
+        modes = {"all": (on_dev(rl), on_dev(rh), None),
+                 "sel": (on_dev(rls), on_dev(rhs), on_dev(sel))}
+        wt = on_dev(wts)
+        for codec, (dk, fk) in postings.items():
+            for k in SELECT_KS:
+                k = w_tile if k is None else k
+                for mode, (mrl, mrh, tid) in modes.items():
+                    kw = dict(t_pad=rl.shape[1], cb=cb, sub=sub, k=k,
+                              q_batch=qb, codec=codec, tile_ids=tid)
+                    want = tsc.score_tiles_topk_plain(
+                        dk, fk, live_t, mrl, mrh, wt, sub=sub, k=k,
+                        tile_ids=tid)
+                    each_cluster(
+                        "tile",
+                        lambda: tsc.score_tiles(dk, fk, live_t, mrl, mrh, wt,
+                                                **kw),
+                        want, f"tile top-k {codec} {mode} Q={qb} k={k}")
+    del postings, live_t
+    # kernel 3: 8 tiles of 8,192 docs, the last 1,000 rows dead
+    vecs, exists, vrng = tie_vectors(nd)
+    d_pad = knn.pad_dims(vecs.shape[1])
+    kgeom = knn.knn_geometry(nd, d_pad)
+    ksub = kgeom.tile_sub
+    n_rows = nd - 1000
+    emb = torch.zeros((nd, d_pad), dtype=torch.bfloat16, device=dev)
+    emb[:, : vecs.shape[1]] = on_dev(vecs)
+    mask = on_dev(exists.astype(np.float32))
+    for metric in ("cosine", "dot_product"):
+        scale = (on_dev(knn.vector_scale_column(vecs, metric)[:, 0])
+                 if metric == "cosine" else None)
+        for qb in SELECT_QS:
+            qmat = on_dev(np.stack([knn.normalize_query(
+                vecs[vrng.randint(nd)], metric, d_pad) for _ in range(qb)]))
+            for k in SELECT_KS:
+                k = kgeom.tile_w if k is None else k
+                want = knn.knn_score_tiles_plain(emb, scale, mask, qmat,
+                                                 sub=ksub, k=k, n_rows=n_rows)
+                each_cluster(
+                    "knn",
+                    lambda: knn.knn_score_tiles(emb, scale, mask, qmat,
+                                                sub=ksub, k=k, q_batch=qb,
+                                                n_rows=n_rows),
+                    want, f"knn {metric} Q={qb} k={k}")
+    for kind, sizes in runs.items():
+        check(sorted(sizes) == list(tsc.TOPK_CLUSTERS),
+              f"[phase 2 select] {kind} ran every cluster size "
+              f"(ran {sorted(sizes)})")
+    log(f"[phase 2 select] {n_cases} launches bit-equal to plain; launches "
+        f"by cluster size {json.dumps(runs)}; max_abs_err {err} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del emb
+    torch.cuda.empty_cache()
+    return {"cases": n_cases, "by_cluster": runs, "max_abs_err": err}
+
+
 @contextlib.contextmanager
 def plain_tile_kernels(tsc):
     """While the block runs, ``score_tiles`` on a card tensor runs the plain
@@ -1002,6 +1236,8 @@ def packed_kernels_phase(torch, dev, gseg, gdev, timer, corpus, queries):
                          w, gseg.nd_pad, sub, kk, dev, topk=True)
         out[f"tile_scoring_topk_packed_q{qb}"] = {
             "q_batch": qb, "k": kk,
+            "plan": topk_plan(tsc, "tile", sub, qb, kk, n_tiles, rl.shape[1],
+                              True, dev),
             "ms": timer.ms(lambda a=args, k_=kw: tsc.score_tiles(
                 *a, **k_, k=kk)),
             "plain_ms": timer.ms(lambda a=args: tsc.score_tiles_topk_plain(
@@ -1048,8 +1284,15 @@ def packed_kernels_phase(torch, dev, gseg, gdev, timer, corpus, queries):
                           + len(scored) * w_tile * qb)
                 lib = _yardstick(torch, tsc, corp[codec], scored, rl, rh, w,
                                  gseg.nd_pad, sub, kk, dev, topk=True)
+                tplan = topk_plan(tsc, "tile", sub, qb, kk, len(ptid),
+                                  rl.shape[1], codec == "packed", dev)
+                if qb == 1 and len(ptid) == 8:
+                    check(tplan["ctas"] >= 128,
+                          f"1e {codec} {part}: an 8-tile set at Q=1 launches "
+                          f">= 128 CTAs ({tplan})")
                 out[f"{name}_{part}_q{qb}"] = {
                     "q_batch": qb, "k": kk, "rows_in_set": len(ptid),
+                    "plan": tplan,
                     "tiles_scored": int(len(scored)),
                     "ms": timer.ms(lambda a=args, t=tid: tsc.score_tiles(
                         *a, **kq, tile_ids=t)),
@@ -1172,6 +1415,72 @@ def _yardstick(torch, tsc, corpus, tiles, rl, rh, w, nd_pad, sub, kk, dev,
         return torch.topk(sel.reshape(qb, len(tiles), w_tile), kk, dim=2)
 
     return library
+
+
+def time_kept_topk(torch, tsc, kept, names):
+    """For each launch name, the first kept main-path launch at Q = 1 and
+    the first at Q > 1, re-run on the very inputs the path gave it: its
+    plan (logged), its time beside its byte bound, the plain version and
+    the library call (the decode, index_add_ over the scored tiles'
+    windows and torch.topk per tile). Returns {name: {"q1": ..., "qN":
+    ...}}."""
+    timer = Timer(torch, kept[0][0][0].device) if kept else None
+    out = {}
+    for name in names:
+        picks = {}
+        for args, kw, _out in kept:
+            qb = kw.get("q_batch", 1)
+            key = "q1" if qb == 1 else "qN"
+            if launch_name(kw) == name and key not in picks:
+                picks[key] = (args, kw)
+        for key, (args, kw) in picks.items():
+            docs, frac, live_t, rl, rh, w = args
+            sub, qb = kw["sub"], kw.get("q_batch", 1)
+            k = min(kw["k"], sub * tsc.LANE)
+            w_tile = sub * tsc.LANE
+            tid = kw["tile_ids"].cpu().numpy().astype(np.int64)
+            rl_n, rh_n, w_n = (x.cpu().numpy() for x in (rl, rh, w))
+            scored_rows = (rh_n > rl_n).any(axis=1)
+            n_geom = live_t.shape[0] // tsc.LANE
+            # the tables by tile id, as the exhaustive launch would see them
+            rl_f = np.zeros((n_geom, rl_n.shape[1]), np.int32)
+            rh_f = np.zeros_like(rl_f)
+            rl_f[tid[scored_rows]] = rl_n[scored_rows]
+            rh_f[tid[scored_rows]] = rh_n[scored_rows]
+            on = np.zeros(n_geom, bool)
+            on[tid[scored_rows]] = True
+            codec = kw.get("codec", "raw")
+            post = posting_count(tsc, rl_f, rh_f, w_n, on)
+            b = bound(rows_read(tsc, rl_f, rh_f, codec, on)
+                      + int(on.sum()) * w_tile * 4
+                      + len(tid) * qb * (k * 8 + 4),
+                      (3 if codec == "packed" else 2) * post
+                      + int(on.sum()) * w_tile * qb)
+            lib = _yardstick(torch, tsc, (docs, frac), np.nonzero(on)[0],
+                             rl_f, rh_f, w_n, n_geom * w_tile, sub, k,
+                             docs.device, topk=True)
+            plan = topk_plan(tsc, "tile", sub, qb, k, len(tid), rl_n.shape[1],
+                             codec == "packed", docs.device)
+            e = {"q_batch": qb, "k": k, "sub": sub, "rows_in_set": len(tid),
+                 "tiles_scored": int(on.sum()), "plan": plan,
+                 "ms": timer.ms(lambda a=args, k_=kw: tsc.score_tiles(
+                     *a, **k_)),
+                 "plain_ms": timer.ms(
+                     lambda a=args, k_=kw: tsc.score_tiles_topk_plain(
+                         *a, sub=k_["sub"], k=min(k_["k"], w_tile),
+                         tile_ids=k_["tile_ids"]), reps=3, warmup=1),
+                 "library_ms": timer.ms(lib),
+                 "bound_ms": b[0], "bound_by": b[1]}
+            if qb == 1 and len(tid) == 8:
+                check(plan["ctas"] >= 128,
+                      f"phase 10 {name}: an 8-tile set at Q=1 launches >= "
+                      f"128 CTAs ({plan})")
+            out.setdefault(name, {})[key] = e
+            log(f"[phase 10] main-path {name} {key} {json.dumps(e)}")
+    if timer is not None:
+        del timer
+        torch.cuda.empty_cache()
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -1521,6 +1830,7 @@ def knn_case(torch, dev, timer, name, slots, nd_geom, metric, qraw, k):
     segment's rows in one ``nd_geom``-doc geometry. Checks scores and docs
     bit for bit; returns the case's entry (times, bound, max_abs_err)."""
     from elasticsearch_tpu_torch.ops import knn_scoring as knn
+    from elasticsearch_tpu_torch.ops import tile_scoring as tsc
 
     dims = slots[0][0].shape[1]
     d_pad = knn.pad_dims(dims)
@@ -1586,7 +1896,9 @@ def knn_case(torch, dev, timer, name, slots, nd_geom, metric, qraw, k):
               + len(slots) * n_tiles * q_batch * min(k, w) * 8)
     ops = 2 * live_rows * d_pad * q_batch + len(slots) * nd_geom * q_batch
     b = bound(nbytes, ops)
-    entry = {"case": name, "docs": nd_geom, "slots": len(slots),
+    plan = topk_plan(tsc, "knn", sub, q_batch, min(k, w), n_tiles, d_pad,
+                     False, dev)
+    entry = {"case": name, "docs": nd_geom, "slots": len(slots), "plan": plan,
              "rows": [a[3] for a in args], "live_rows": live_rows,
              "dims": dims, "d_pad": d_pad, "metric": metric,
              "q_batch": q_batch, "k": min(k, w), "sub": sub,
@@ -1601,7 +1913,9 @@ def knn_case(torch, dev, timer, name, slots, nd_geom, metric, qraw, k):
 
 
 def knn_kernel_phase(torch, dev, timer, vecs, exists, qrng):
-    """Phase 2c: kernel 3 against its plain version in three cases."""
+    """Phase 2c: kernel 3 against its plain version: 1M docs at Q 1 and
+    16, one 262,144-doc slot (the mesh rung's shape) at Q 1 (k 10 and 100)
+    and 16, 768 dims, and three slots with rows short of the geometry."""
     from elasticsearch_tpu_torch.ops.knn_scoring import bf16_round
 
     entries = []
@@ -1610,6 +1924,21 @@ def knn_kernel_phase(torch, dev, timer, vecs, exists, qrng):
         qraw = [draw_qvec(qrng, vecs) for _ in range(q_batch)]
         entries.append(knn_case(torch, dev, timer, "1M-d128-cosine",
                                 [(vecs, exists)], n, "cosine", qraw, 16))
+    # the mesh rung's own shape: one 262,144-doc slot (32 tiles of 8,192)
+    slot = [(vecs[:MESH_SHARD_DOCS], exists[:MESH_SHARD_DOCS])]
+    for q_batch, k in ((1, 10), (1, 100), (16, 10)):
+        qraw = [draw_qvec(qrng, vecs) for _ in range(q_batch)]
+        e = knn_case(torch, dev, timer, f"262k-slot-d128-cosine-k{k}", slot,
+                     MESH_SHARD_DOCS, "cosine", qraw, k)
+        entries.append(e)
+        if q_batch == 1 and k == 10:
+            check(e["plan"]["ctas"] >= 256,
+                  f"kernel 3 on a 262,144-doc slot at Q=1 launches >= 256 "
+                  f"CTAs ({e['plan']})")
+        if q_batch == 16:
+            check(e["plan"]["group"] == 16,
+                  f"kernel 3 at Q=16 reads each row once for all 16 queries "
+                  f"({e['plan']})")
     rng = np.random.RandomState(KNN_SEED + 1)
     wide = bf16_round(
         rng.standard_normal((MESH_SHARD_DOCS, 768)).astype(np.float32))
@@ -2242,6 +2571,8 @@ def pruned_phase(torch, Node, Segment, cuda_kernels, tsc, queries, lat,
                  "tile_scoring_topk_sel_packed"):
         check(p10[name] > 0, f"phase 10 launched {name}")
     by_name = check_kept_launches(torch, tsc, kept, errs, "phase 10")
+    main_path = time_kept_topk(torch, tsc, kept, (
+        "tile_scoring_topk_sel_packed", "tile_scoring_topk_sel"))
     check(all(by_name.get(n, 0) == p10[n] for n in p10
               if "packed" in n or "_sel" in n),
           f"every 1d/1e launch of phase 10 was kept for the plain check "
@@ -2269,7 +2600,7 @@ def pruned_phase(torch, Node, Segment, cuda_kernels, tsc, queries, lat,
         "recall_at_10_raw_oracle_min": min(rec_raw) if rec_raw else None,
         "recall_at_10_raw_oracle_mean": (float(np.mean(rec_raw))
                                          if rec_raw else None),
-        "seconds": time.perf_counter() - t_phase}
+        "seconds": time.perf_counter() - t_phase, "main_path": main_path}
     for label in ("match raw exhaustive", "match packed exhaustive",
                   "match packed pruned", "match raw pruned"):
         xs = [v for k, vs in lat.items() if k.startswith(f"10/{label}@")
@@ -2450,6 +2781,7 @@ def main() -> int:
     log(f"[phase 2] segment_sum {json.dumps(seg_entry)} max_abs_err {seg_err}")
     tile_err = max(tile_err, dense_band_phase(torch, dev, tsc, gseg, gdev,
                                               queries))
+    select_report = select_phase(torch, dev)
 
     batch_entries, batch_errs = batch_kernels_phase(
         torch, dev, gseg, gdev, timer, queries, top_rank_term)
@@ -2662,8 +2994,11 @@ def main() -> int:
          "ms": bat["topk_ms"], "plain_ms": bat["topk_plain_ms"],
          "bound_ms": bat["topk_bound_ms"], "bound_by": bat["topk_bound_by"],
          "library_ms": bat["topk_library_ms"], "q_batch": bat["q_batch"],
-         "k": 16, "q1": {"ms": bat["topk_q1_ms"],
-                         "bound_ms": bat["topk_q1_bound_ms"]},
+         "k": 16, "plan": bat["topk_plan"],
+         "q1": {"ms": bat["topk_q1_ms"], "bound_ms": bat["topk_q1_bound_ms"],
+                "library_ms": bat["topk_q1_library_ms"],
+                "plan": bat["topk_q1_plan"]},
+         "select_phase": select_report,
          "ladder_batch": {k: v for k, v in batch_entries["ladder"].items()
                           if k.startswith(("topk", "sub", "union"))}},
         {"name": "knn_scoring", "route": "cuda",
@@ -2676,9 +3011,11 @@ def main() -> int:
          "bound_by": knn_entries[0]["bound_by"],
          "library_ms": knn_entries[0]["library_ms"],
          "q_batch": knn_entries[0]["q_batch"], "k": knn_entries[0]["k"],
+         "plan": knn_entries[0]["plan"],
          "cases": [{key: e[key] for key in (
-             "case", "q_batch", "rows", "d_pad", "metric", "ms", "plain_ms",
-             "bound_ms", "bound_by", "library_ms")} for e in knn_entries],
+             "case", "q_batch", "k", "rows", "d_pad", "metric", "plan", "ms",
+             "plain_ms", "bound_ms", "bound_by", "library_ms")}
+             for e in knn_entries],
          **knn_staging},
     ]}
     for name, key, replaces, extra in (
@@ -2687,12 +3024,12 @@ def main() -> int:
             ("tile_scoring_batched_packed", "tile_scoring_batched_packed",
              656, ("q_batch", "ms_with_counts", "plan")),
             ("tile_scoring_topk_packed", "tile_scoring_topk_packed_q1", 656,
-             ("q_batch", "k")),
+             ("q_batch", "k", "plan")),
             ("tile_scoring_topk_sel", "tile_scoring_topk_sel_rest_q1", 770,
-             ("q_batch", "k", "rows_in_set", "tiles_scored")),
+             ("q_batch", "k", "rows_in_set", "tiles_scored", "plan")),
             ("tile_scoring_topk_sel_packed",
              "tile_scoring_topk_sel_packed_rest_q1", 770,
-             ("q_batch", "k", "rows_in_set", "tiles_scored"))):
+             ("q_batch", "k", "rows_in_set", "tiles_scored", "plan"))):
         e = packed_entries[key]
         entry = {"name": name, "route": "cuda",
                  "source": "elasticsearch_tpu_torch/csrc/tile_scoring.cu",
@@ -2711,6 +3048,7 @@ def main() -> int:
                                            or k.startswith(name + "_probe")
                                            or k.startswith(name + "_rest"))}
         if name.startswith("tile_scoring_topk_sel"):
+            entry["main_path"] = pruned_report["main_path"].get(name, {})
             codec = "packed" if name.endswith("packed") else "raw"
             entry["score_tiles_pruned"] = {
                 k: packed_entries[f"score_tiles_pruned_{codec}_q{q}"]

@@ -40,6 +40,7 @@ _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
 _c_longlong = ctypes.c_longlong
 _c_float = ctypes.c_float
+_c_int_p = ctypes.POINTER(ctypes.c_int)
 
 # C entry point -> argument types (restype is always c_int = cudaError_t)
 _SIGNATURES = {
@@ -50,13 +51,18 @@ _SIGNATURES = {
     "estpu_tile_scoring_topk": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int, _c_int,
-        _c_int, _c_int, _c_int, _c_int, _c_float, _c_void_p],
+        _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_void_p],
+    "estpu_tile_topk_max_clusters": [
+        _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int_p],
     "estpu_segment_sum": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_longlong, _c_int, _c_void_p],
     "estpu_knn_score_tiles": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-        _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_void_p],
+        _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
+        _c_void_p],
+    "estpu_knn_max_clusters": [
+        _c_int, _c_int, _c_int, _c_int, _c_int, _c_int_p],
 }
 
 # the tile kernel's launch names: "tile_scoring" (dense, Q = 1),

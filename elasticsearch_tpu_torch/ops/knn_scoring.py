@@ -17,7 +17,10 @@ them tile-major per query, the JAX package's pool order).
 
 ``knn_score_tiles`` dispatches on the tensors' device: a CPU tensor runs
 the plain PyTorch version (``knn_score_tiles_plain``); a CUDA tensor
-launches the hand-written kernel in ``csrc/knn_scoring.cu`` or raises.
+launches the hand-written kernel in ``csrc/knn_scoring.cu`` or raises;
+``tile_scoring.topk_cluster_plan`` splits the launch (each tile's docs into
+a cluster of bands, the queries into groups that read each embedding row
+once).
 Both sum ``x_j * q_j`` over ``j`` in ascending order, each product and
 each sum rounded to f32 on its own, then apply the scale, the ``* 0.5``
 and the ``+ 0.5`` one rounding at a time, so they agree bit for bit.
@@ -44,6 +47,7 @@ import torch
 
 from elasticsearch_tpu_torch.ops import cuda_kernels
 from elasticsearch_tpu_torch.ops.scoring import top_k
+from elasticsearch_tpu_torch.ops import tile_scoring
 
 LANE = 128
 NEG_INF = float("-inf")
@@ -240,11 +244,13 @@ def _knn_score_tiles_cuda(emb, scale, mask, qvecs, *, sub: int, k: int,
                               device=dev)
     tile_docs = torch.empty((n_tiles, q_batch, k), dtype=torch.int32,
                             device=dev)
+    plan = tile_scoring.topk_launch_plan("knn", sub, q_batch, k, n_tiles,
+                                         emb.shape[1], False, dev)
     rc = lib.estpu_knn_score_tiles(
         emb.data_ptr(), scale.data_ptr() if scale is not None else None,
         mask.data_ptr(), qvecs.data_ptr(), tile_scores.data_ptr(),
         tile_docs.data_ptr(), n_tiles, sub, emb.shape[1], n_rows, q_batch, k,
-        cuda_kernels.stream_ptr(dev))
+        plan.cluster, plan.group, cuda_kernels.stream_ptr(dev))
     cuda_kernels.check(rc, "knn_scoring")
     cuda_kernels.note_launch("knn_scoring")
     return tile_scores, tile_docs

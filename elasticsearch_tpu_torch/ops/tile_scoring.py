@@ -35,10 +35,12 @@ Variants of ``score_tiles`` (the JAX signature and output shapes):
 
 ``score_tiles`` dispatches on the tensors' device: a CPU tensor runs the
 plain PyTorch version (``score_tiles_plain``); a CUDA tensor launches the
-hand-written kernel in ``csrc/tile_scoring.cu`` or raises. The dense
-kernel's split of a launch into blocks (a band of each tile's columns and
-a group of queries a block) is planned here, by ``dense_band_plan``, so
-that the CPU tests reach it. Both add each
+hand-written kernel in ``csrc/tile_scoring.cu`` or raises. Both kernels'
+split of a launch into blocks (a band of each tile's columns and a group
+of queries a block) is planned here, so that the CPU tests reach it:
+``dense_band_plan`` for the dense forms, ``topk_cluster_plan`` for the
+top-k forms (and for kernel 3), whose bands of one tile form one
+thread-block cluster. Both add each
 query's lanes in one canonical order (ascending first posting row, see
 ``canonical_lane_order``) with the same f32 multiply and add, so they agree
 bit for bit, and a batched member equals its ``q_batch=1`` result bit for
@@ -58,6 +60,7 @@ candidates with ``lax.top_k``'s tie order (lower flat index first), which
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
@@ -594,6 +597,178 @@ def _launch_plan(sub: int, q_batch: int, with_counts: bool, t_pad: int,
 
 
 # ----------------------------------------------------------------------
+# The fused top-k kernels' launch plan (csrc/block_topk.cuh, the top-k
+# kernel of csrc/tile_scoring.cu and kernel 3 in csrc/knn_scoring.cu)
+# ----------------------------------------------------------------------
+
+TOPK_CLUSTERS = (1, 2, 4, 8, 16)  # 16 needs the non-portable cluster size
+TOPK_MAX_GROUP = {"tile": 4, "knn": 16}  # queries a CTA holds
+# the most candidates rank 0 of a cluster merges per query (C * k)
+TOPK_MERGE_CANDIDATES = 512
+H100_BLOCK_SMEM_OPTIN = 232448  # the most one H100 block may opt into
+SELECT_THREADS = 256
+SELECT_WARPS = SELECT_THREADS // 32
+WARP_K = 32  # the largest k the selection's warp path takes
+# the selection's scratch: a 256-bin histogram, two warp-sum rows and 16
+# scalars (block_topk.cuh kSelectWords)
+SELECT_WORDS = 256 + 2 * SELECT_WARPS + 16
+# kernel 3's ring: 2 stages of 256 rows by 64 bf16 columns, each row padded
+# by 8 bf16 (knn_scoring.cu kRingWords)
+KNN_RING_WORDS = 2 * 256 * (64 + 8) // 2
+
+
+class TopkPlan(NamedTuple):
+    """How a fused top-k launch splits: each tile's docs into ``cluster``
+    bands of ``band_docs`` (one CTA each, the bands of a tile one
+    thread-block cluster), and the queries into groups of ``group``."""
+
+    cluster: int  # C, a power of two <= 16
+    group: int  # G; the last group of a launch may hold fewer
+    band_docs: int  # D = W / C
+    smem: int  # dynamic shared bytes of one CTA
+    blocks: int  # grid size: n_tiles * ceil(Q / G) * C
+
+
+def _align4(words: int) -> int:
+    return (words + 3) & ~3
+
+
+def topk_select_smem(cluster: int, group: int, k: int,
+                     band_docs: int) -> int:
+    """Shared bytes of the selection (``topk_select_words``), k' = min(k,
+    band docs): rank 0's gather buffer of G * C * k' 64-bit candidates
+    (clusters only); for k' <= WARP_K the queries' lists and the warps'
+    segment lists and scratch, WARP_K 64-bit words each (G + 4 * 8 of
+    them), else
+    one list of next_pow2(k') u32 indices;
+    the scratch; a list count and hit count per query and per (query,
+    rank)."""
+    kp = min(k, band_docs)
+    gather = 2 * group * cluster * kp if cluster > 1 else 0
+    lists = (2 * WARP_K * (group + 4 * SELECT_WARPS) if kp <= WARP_K
+             else next_pow2(kp))
+    return 4 * (_align4(gather) + _align4(lists)
+                + _align4(SELECT_WORDS + 2 * group + 2 * group * cluster))
+
+
+def topk_tile_smem(cluster: int, group: int, k: int, sub: int,
+                   t_pad: int) -> int:
+    """Shared bytes of one top-k tile CTA (``topk_smem_words``): the
+    selection's, then a dense band block's without counts."""
+    s = sub // cluster
+    return (topk_select_smem(cluster, group, k, s * LANE)
+            + dense_band_smem(s, group, t_pad, False))
+
+
+def topk_knn_smem(cluster: int, group: int, k: int, sub: int,
+                  d_pad: int) -> int:
+    """Shared bytes of one kernel-3 CTA (``knn_smem_words``): the
+    selection's, the ring, the group's query rows and its keys."""
+    d = sub * LANE // cluster
+    return (topk_select_smem(cluster, group, k, d)
+            + 4 * (KNN_RING_WORDS + group * d_pad + group * d))
+
+
+def topk_cluster_plan(kind: str, sub: int, q_batch: int, k: int,
+                      n_tiles: int, *, t_pad: int = 0, d_pad: int = LANE,
+                      smem_bytes: int = H100_SM_SHARED_BYTES,
+                      schedulable=None,
+                      clusters: Sequence[int] = TOPK_CLUSTERS) -> TopkPlan:
+    """Pick (C, G) for a fused top-k launch of ``n_tiles`` tiles of ``sub``
+    columns: ``kind`` "tile" (the top-k tile kernel, ``t_pad`` lanes) or
+    "knn" (kernel 3, ``d_pad`` dims). ``smem_bytes`` is one SM's shared
+    memory; ``schedulable(C, G, smem)``, where given, says whether the
+    device can schedule such a cluster (``cudaOccupancyMaxActiveClusters``
+    on the card); ``clusters`` the sizes it may pick from.
+
+    - A cluster of C > 1 bands is allowed while each band keeps at most
+      half its docs (k <= D / 2: above that the merge would take in as
+      many candidates as the tile has docs) and rank 0 merges at most
+      TOPK_MERGE_CANDIDATES (C * k), so C shrinks as k grows, down to C =
+      1 at k = W, where one CTA holds the whole tile. C <= sub keeps a
+      band at 128 docs or more.
+    - G is as many queries as fit (at most TOPK_MAX_GROUP[kind], in
+      near-equal groups, the last one ragged): each group reads the tile's
+      postings or embedding rows once. Shared memory is sized for two
+      CTAs an SM, else for one (at most what a block may opt into).
+    - C is the smallest allowed size that gives one CTA an SM (132), else
+      the largest that fits.
+
+    Raises ValueError when nothing fits."""
+    if kind not in TOPK_MAX_GROUP:
+        raise ValueError(f"unknown top-k kernel [{kind}]")
+    q_batch = max(1, int(q_batch))
+    w = sub * LANE
+    k = max(1, min(int(k), w))
+    clusters = [c for c in clusters
+                if c in TOPK_CLUSTERS and c <= sub
+                and (c == 1 or (k <= (w // c) // 2
+                                and c * k <= TOPK_MERGE_CANDIDATES))]
+
+    def smem(c, g):
+        if kind == "tile":
+            return topk_tile_smem(c, g, k, sub, t_pad)
+        return topk_knn_smem(c, g, k, sub, d_pad)
+
+    first = -(-q_batch // TOPK_MAX_GROUP[kind])
+    for n_groups in range(first, q_batch + 1):
+        g = -(-q_batch // n_groups)
+        for per_sm in (2, 1):
+            budget = min(smem_bytes // per_sm - BLOCK_RESERVED_SMEM,
+                         H100_BLOCK_SMEM_OPTIN)
+            fits = [c for c in clusters if smem(c, g) <= budget
+                    and (schedulable is None or schedulable(c, g, smem(c, g)))]
+            if not fits:
+                continue
+            groups = -(-q_batch // g)
+            reach = [c for c in fits if n_tiles * groups * c >= H100_SMS]
+            c = reach[0] if reach else fits[-1]
+            return TopkPlan(c, g, w // c, smem(c, g), n_tiles * groups * c)
+    raise ValueError(
+        f"no fused top-k plan fits {smem_bytes} bytes of shared memory an SM "
+        f"(kind={kind}, sub={sub}, q_batch={q_batch}, k={k}, t_pad={t_pad}, "
+        f"d_pad={d_pad})")
+
+
+@functools.lru_cache(maxsize=1024)
+def _topk_launch_plan(kind: str, sub: int, q_batch: int, k: int,
+                      n_tiles: int, width: int, packed: bool, device: int,
+                      clusters: Tuple[int, ...]) -> TopkPlan:
+    # planned once per shape and device; the card says which clusters it
+    # can schedule (width: t_pad for the tile kernel, d_pad for kernel 3)
+    lib = cuda_kernels.library()
+    n = ctypes.c_int(0)
+
+    def schedulable(c, g, _smem):
+        with torch.cuda.device(device):
+            if kind == "tile":
+                rc = lib.estpu_tile_topk_max_clusters(
+                    sub, width, k, c, g, int(packed), ctypes.byref(n))
+            else:
+                rc = lib.estpu_knn_max_clusters(sub, width, k, c, g,
+                                                ctypes.byref(n))
+        cuda_kernels.check(rc, f"{kind} top-k occupancy")
+        return n.value > 0
+
+    kw = {"t_pad": width} if kind == "tile" else {"d_pad": width}
+    return topk_cluster_plan(kind, sub, q_batch, k, n_tiles,
+                             schedulable=schedulable, clusters=clusters, **kw)
+
+
+def topk_launch_plan(kind: str, sub: int, q_batch: int, k: int, n_tiles: int,
+                     width: int, packed: bool, device,
+                     clusters: Sequence[int] = TOPK_CLUSTERS) -> TopkPlan:
+    """The plan a launch on ``device`` takes (cached per shape): raises
+    KernelError when the card can schedule none."""
+    try:
+        return _topk_launch_plan(kind, sub, q_batch, k, n_tiles, width,
+                                 packed, torch.device(device).index or 0,
+                                 tuple(clusters))
+    except ValueError as e:
+        raise cuda_kernels.KernelError(str(e)) from e
+
+
+# ----------------------------------------------------------------------
 # The kernels, their plain versions and the wrapper
 # ----------------------------------------------------------------------
 
@@ -797,12 +972,12 @@ def _score_tiles_cuda(docs_padded, frac_padded, live_t, row_lo, row_hi,
               live_t.data_ptr(), row_lo.data_ptr(), row_hi.data_ptr(),
               weights.data_ptr())
     scale = float(np.float32(PACK_FRAC_SCALE))
+    # both kernels read postings and the mask 16 bytes at a time
+    for what, t in (("docs_padded", docs_padded),
+                    ("frac_padded", frac_padded), ("live_t", live_t)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{what} must start on a 16-byte boundary")
     if dense:
-        # the dense kernel reads postings and the mask 16 bytes at a time
-        for what, t in (("docs_padded", docs_padded),
-                        ("frac_padded", frac_padded), ("live_t", live_t)):
-            if t is not None and t.data_ptr() % 16:
-                raise ValueError(f"{what} must start on a 16-byte boundary")
         plan = _launch_plan(sub, q_batch, with_counts, t_pad, n_tiles)
         shape = ((n_tiles * LANE, sub) if q_batch == 1
                  else (q_batch, n_tiles * LANE, sub))
@@ -825,11 +1000,13 @@ def _score_tiles_cuda(docs_padded, frac_padded, live_t, row_lo, row_hi,
                             device=dev)
     tile_hits = torch.empty((n_tiles, q_batch, 1), dtype=torch.float32,
                             device=dev)
+    plan = topk_launch_plan("tile", sub, q_batch, k, n_tiles, t_pad, packed,
+                            dev)
     rc = lib.estpu_tile_scoring_topk(
         *common, None if tile_ids is None else tile_ids.data_ptr(),
         tile_scores.data_ptr(), tile_docs.data_ptr(), tile_hits.data_ptr(),
-        n_tiles, t_pad, sub, docs_padded.shape[0], q_batch, k, int(packed),
-        scale, cuda_kernels.stream_ptr(dev))
+        n_tiles, t_pad, sub, docs_padded.shape[0], q_batch, k, plan.cluster,
+        plan.group, int(packed), scale, cuda_kernels.stream_ptr(dev))
     name = ("tile_scoring_topk" + ("" if tile_ids is None else "_sel")
             + suffix)
     cuda_kernels.check(rc, name)
@@ -870,11 +1047,13 @@ def score_tiles(
     entry. ``cb`` and ``tiles_per_step`` are TPU DMA knobs that do not
     change the outputs; they are accepted and ignored.
 
-    On the card the dense forms split each tile into bands
-    (``dense_band_plan``) and a band reads only the rows whose first
-    postings can reach it, so a lane's postings must ascend by doc across
-    and within its rows, as every staging packs them; docs_padded,
-    frac_padded and live_t must start on 16-byte boundaries."""
+    On the card every form splits each tile into bands (the dense forms
+    by ``dense_band_plan``, the top-k form by ``topk_cluster_plan``, a
+    tile's bands one thread-block cluster) and a band reads only the rows
+    whose first postings can reach it, so a lane's postings must ascend by
+    doc across and within its rows, as every staging packs them;
+    docs_padded, frac_padded and live_t must start on 16-byte
+    boundaries."""
     del cb, tiles_per_step
     if tile_ids is not None and (dense or with_counts):
         # dense and match-count consumers need every tile's output

@@ -23,7 +23,7 @@ side only; the port's plain versions on the CPU):
 import numpy as np
 import pytest
 import torch
-from hypothesis import given, settings
+from hypothesis import example, given, settings
 from hypothesis import strategies as st
 
 import jax.numpy as jnp
@@ -247,12 +247,38 @@ def test_pruning_fires_on_skewed_postings():
     assert fired >= 3
 
 
+# Two docs of one query tie exactly here, at ranks 9 and 10: the pruned
+# pool (probe tiles first) and the exhaustive pool (tile order) list them
+# in different orders, and JAX's pruned order is the probe-first one.
+TIE_EXAMPLE = dict(seed=615583862, probe=1, codec="packed")
+
+
+def assert_same_ranking(got_s, got_d, want_s, want_d):
+    """Scores equal exactly; ids equal exactly across distinct scores and
+    as sets within each run of equal scores (the order of exact ties
+    depends on the order in which the pools were merged)."""
+    np.testing.assert_array_equal(got_s, want_s)
+    for q in range(want_s.shape[0]):
+        i = 0
+        while i < want_s.shape[1]:
+            j = i
+            while j + 1 < want_s.shape[1] and want_s[q, j + 1] == want_s[q, i]:
+                j += 1
+            assert sorted(got_d[q, i: j + 1]) == sorted(want_d[q, i: j + 1]), (
+                f"query {q}, ranks {i}..{j}: {got_d[q, i: j + 1]} against "
+                f"{want_d[q, i: j + 1]}")
+            i = j + 1
+
+
 @settings(max_examples=25, deadline=None)
 @given(seed=st.integers(0, 2 ** 31 - 1), probe=st.sampled_from([1, 2, 4]),
        codec=st.sampled_from(["raw", "packed"]))
+@example(**TIE_EXAMPLE)
 def test_no_true_topk_doc_is_ever_pruned(seed, probe, codec):
     """Property: over random skewed corpora, queries and probe sizes, the
-    pruned top-k (scores and ids) equals the exhaustive top-k."""
+    pruned top-k equals the exhaustive top-k: scores exactly, ids up to
+    the order of exact ties. On the example with a tie, the pruned ids
+    equal the JAX package's pruned ids in order."""
     bd, bt, frac, live, starts, counts, nd_pad, rng = skewed_corpus(
         seed, nd=1500, vocab=12)
     q = int(rng.randint(1, 4))
@@ -270,9 +296,14 @@ def test_no_true_topk_doc_is_ever_pruned(seed, probe, codec):
         _t(wp), t_pad=wp.shape[1], cb=cb, sub=geom.tile_sub, k=10,
         q_batch=q, codec=codec)
     es, ed, eh = _exhaustive(corpus, lt, rl, rh, wp, cb, geom, q, codec)
-    np.testing.assert_array_equal(out[0].numpy(), es)
-    np.testing.assert_array_equal(out[1].numpy(), ed)
+    assert_same_ranking(out[0].numpy(), out[1].numpy(), es, ed)
     assert (out[2].numpy() <= eh).all()
+    if dict(seed=seed, probe=probe, codec=codec) == TIE_EXAMPLE:
+        (js, jd, _jh, _jn), (ts_, td, _th, _tn) = _pruned_both(
+            corpus, lt, plan, wp, cb, geom, q, q, codec)
+        np.testing.assert_array_equal(td, jd)
+        np.testing.assert_allclose(ts_, js, rtol=RTOL, atol=1e-7)
+        assert not np.array_equal(td, ed), "the example holds no tie"
 
 
 def test_signature_defaults_to_topk_like_jax():
