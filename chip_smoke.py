@@ -12,9 +12,7 @@ prints no result, when there is no GPU or any check fails. Phases:
    zipf vocabulary, lognormal lengths around 80, a 2000-value zipf keyword
    column), 3-term queries from ranks 50-1049, and one query holding a
    top-10 term (the geometry ladder shrinks its tile). Tile scoring must
-   match bit for bit, scores and counts; segment-sum counts exactly and
-   sums within 1e-4 of each bucket's sum of |value| (f32 atomics change
-   the order of the adds from run to run). Each is timed as a median over
+   match bit for bit, scores and counts. Each is timed as a median over
    CUDA events with L2 flushed before every launch, beside its bound (the
    larger of its bytes over the memory rate and its float32 operations
    over the peak rate), its plain version and one PyTorch library call
@@ -29,6 +27,21 @@ prints no result, when there is no GPU or any check fails. Phases:
    (postings on both sides of every band edge, at the packed cap of 2^20
    docs) on every rung of the ladder (sub 128 .. 1), Q 1, 2 and 16, with
    and without counts, raw and packed, and on the bench corpus at Q = 2.
+   "[phase 2 segsum]" holds kernel 2 (segment sum) against its plain
+   version on the card in seven cases: the f32-mask form at the 1M bench
+   geometry (the venue column's 2,000 zipf ordinals over queries[0]'s
+   matched docs, year values times noise), count + sum and count only;
+   the gather form (the main path's: flat_docs, flat_ords and the matched
+   bytes, gathered inside the kernel) count only, and with sums over the
+   f64 year column; 2^18 zipf ordinals over the same 1M docs (a keyword
+   field of ids: the atomic path); an ingest shard's 4,096 docs (one
+   CTA); and the atomic path pinned at the bench geometry. Counts
+   bit-equal, sums within 1e-4 x sum |value| + 1e-3 of plain, and on the
+   shared-memory path two launches give bit-equal sums; each case logs
+   its plan (path, grid, threads, kernels) and says when it is not the
+   main path's. The combine pass is held bit for bit alone, and
+   torch.profiler counts the device kernels of one ``ordinal_counts``
+   call (at most two, both the segment sum's).
    "[phase 2 select]" holds the fused top-k kernels' selection on
    tie-heavy inputs (``tie_corpus``: equal frac and weights;
    ``tie_vectors``: duplicated embedding rows, a dead tail) at every
@@ -50,7 +63,9 @@ prints no result, when there is no GPU or any check fails. Phases:
    top-10 against ``reference_scores`` (recall@10 = 1.0); both kernels
    launched in each main-path phase (counts zeroed just before it), and
    every 1a launch of phases 3, 4 and 7 held bit for bit against its plain
-   version on the inputs the path gave it. Prints
+   version on the inputs the path gave it, and every segment-sum call of
+   their terms aggregations replayed through its plain version (counts
+   equal); the device kernels of one phase-4 terms_agg request. Prints
    p50 latency per request kind and plane and the per-segment host copy of
    the dense scores and mask.
 6. The kernel summary line, then the device line.
@@ -771,6 +786,298 @@ def batch_kernels_phase(torch, dev, gseg, gdev, timer, queries,
         entries[name] = e
         log(f"[phase 2b] batch {name}: {json.dumps(e)}")
     return entries, errs
+
+
+# ----------------------------------------------------------------------
+# Kernel 2 (segment sum) in both forms, at the shapes the path gives it
+# ----------------------------------------------------------------------
+
+# a keyword field of ids: 2^18 ordinals, zipf s=1, over the 1M-doc column
+HIGH_CARD_ORDS = 1 << 18
+# an ingest shard's ordinal column (phase 3: ~4,000 docs a shard)
+SMALL_DOCS = 4096
+# the kernels ordinal_counts issued a call before this design, read from
+# the code: the i32 -> i64 copy, the gather, the bool -> f32 convert, the
+# zero-fill of the counts, the kernel
+ORDINAL_COUNTS_KERNELS_BEFORE = 5
+
+
+def zipf_ords(n, n_ords, seed):
+    rng = np.random.RandomState(seed)
+    p = 1.0 / np.arange(1, n_ords + 1)
+    return rng.choice(n_ords, n, p=p / p.sum()).astype(np.int32)
+
+
+def plan_note(plan, main):
+    """Which of the plan's choices differ from the main path's plan."""
+    diff = [f"{k} {getattr(plan, k)} (main path {getattr(main, k)})"
+            for k in ("path", "grid", "threads") if getattr(plan, k)
+            != getattr(main, k)]
+    return "the main path's plan" if not diff else \
+        "plan differs from the main path's: " + ", ".join(diff)
+
+
+def device_kernels(torch, fn):
+    """Names of the device kernels, and of the copies and fills, that one
+    call of ``fn`` issued, from torch.profiler (fn runs once before, so
+    nothing builds or allocates for the first time inside)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if getattr(e, "device_type", None) == DeviceType.CUDA]
+    kernels = [n for n in names if not n.startswith(("Memcpy", "Memset"))]
+    return kernels, [n for n in names if n.startswith(("Memcpy", "Memset"))]
+
+
+def segment_sum_phase(torch, dev, timer, gseg, matched):
+    """[phase 2 segsum]: kernel 2 against its plain version on the card, in
+    seven cases (the f32-mask form at the 1M bench geometry, with and
+    without sums; the gather form, the main path's, with and without sums;
+    2^18 ordinals; an ingest shard's 4,096 docs; the atomic path pinned at
+    the bench geometry), then the combine pass alone. Counts bit-equal to
+    plain, sums within ``SUM_RTOL * sum |value| + SUM_ATOL``, and on the
+    shared-memory path two launches give bit-equal sums. Returns (cases,
+    combine entry, device kernels of one ordinal_counts call)."""
+    from elasticsearch_tpu_torch.ops import aggs as agg_ops
+    from elasticsearch_tpu_torch.ops import segment_sum as ssum
+
+    t_phase = time.perf_counter()
+
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    ocol = gseg.ordinal_columns["venue"]
+    flat_docs = torch.from_numpy(ocol.flat_docs).to(dev)
+    ords = torch.from_numpy(ocol.flat_ords).to(dev)
+    nd, nd1 = ords.shape[0], matched.shape[0]
+    main = ssum.segment_sum_plan(nd, N_ORDS, True, False, n_sm)
+    contrib = matched[flat_docs.long()].float().contiguous()
+    vals = torch.from_numpy(
+        gseg.numeric_columns["year"].flat_values.astype(np.float32)).to(dev)
+    vals = (vals * torch.randn(vals.shape[0], device=dev,
+                               generator=torch.Generator(dev).manual_seed(3)))
+    year_by_doc = torch.from_numpy(np.concatenate([
+        gseg.numeric_columns["year"].first_value, [0.0]])).to(dev)
+    check(year_by_doc.dtype == torch.float64 and year_by_doc.shape[0] == nd1,
+          "the year column by doc is [nd1] float64")
+    high = torch.from_numpy(zipf_ords(nd, HIGH_CARD_ORDS, 17)).to(dev)
+    cases = []
+
+    def run_case(name, form, args, n_ords, with_sum, plan=None):
+        nd_case = args[0].shape[0]
+        p = plan or ssum.segment_sum_plan(nd_case, n_ords, True, with_sum,
+                                          n_sm)
+        if form == "mask":
+            o, m, v = args
+            v = v if with_sum else None
+
+            def kernel():
+                return ssum.segment_counts_sums(o, m, v, n_ords=n_ords,
+                                                plan=plan)
+
+            def plain():
+                return ssum.segment_sum_plain(o, m, v, n_ords=n_ords,
+                                              with_count=True,
+                                              with_sum=with_sum)
+            c_mask, c_vals = m, v
+            nbytes = nd_case * (8 + 4 * with_sum) + n_ords * (4 + 4 * with_sum)
+        else:
+            di, o, mt, vbd = args
+            vbd = vbd if with_sum else None
+
+            def kernel():
+                return ssum.segment_counts_sums_gathered(
+                    di, o, mt, vbd, n_ords=n_ords, plan=plan)
+
+            def plain():
+                return ssum.segment_sum_gathered_plain(di, o, mt, vbd,
+                                                       n_ords=n_ords)
+            inside = (di >= 0) & (di < mt.shape[0])
+            j = torch.where(inside, di, 0).long()
+            c_mask = (mt[j] & inside).float()
+            c_vals = vbd[j].float() if with_sum else None
+            nbytes = (nd_case * 8 + mt.shape[0] * (1 + 8 * with_sum)
+                      + n_ords * (4 + 8 * with_sum))
+        weights = c_mask * c_vals if with_sum else c_mask
+
+        def library():
+            return torch.bincount(o, weights=weights, minlength=n_ords)
+
+        note = plan_note(p, main)
+        k1, k2, pl = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        check(torch.equal(k1[0], pl[0]),
+              f"[phase 2 segsum] {name}: counts bit-equal plain ({note})")
+        e = {"case": name, "form": form, "with_sum": with_sum, "nd": nd_case,
+             "n_ords": n_ords, "plan": {**p._asdict(), "kernels": p.kernels},
+             "max_count": int(k1[0].max()) if n_ords else 0}
+        if with_sum:
+            valid = (c_mask > 0) & (o >= 0) & (o < n_ords)
+            abs_sum = torch.bincount(
+                o[valid].long(), weights=ssum.sanitize_values(
+                    c_vals)[valid].abs().double(), minlength=n_ords)
+            got, want = k1[1].double(), pl[1].double()
+            diff = (got - want).abs()
+            ok = bool(((got == want) | (diff <= ssum.SUM_RTOL * abs_sum
+                                        + ssum.SUM_ATOL)).all())
+            check(ok, f"[phase 2 segsum] {name}: sums within "
+                      f"{ssum.SUM_RTOL} x sum|value| + {ssum.SUM_ATOL} of "
+                      f"plain ({note})")
+            bits = torch.int64 if k1[1].dtype == torch.float64 \
+                else torch.int32
+            same = torch.equal(k1[1].view(bits), k2[1].view(bits))
+            if p.path == "smem":
+                check(same, f"[phase 2 segsum] {name}: two launches give "
+                            f"bit-equal sums on the shared-memory path "
+                            f"({note})")
+            else:
+                log(f"[phase 2 segsum] {name}: atomic path, sums "
+                    f"{'bit-equal' if same else 'vary'} between two "
+                    f"launches ({note})")
+            fin = torch.isfinite(diff)
+            e["max_abs_err"] = float(diff[fin].max()) if bool(fin.any()) \
+                else 0.0
+            e["deterministic"] = same
+        else:
+            e["max_abs_err"] = 0.0
+        b = bound(nbytes, nd_case * (1 + with_sum))
+        e.update({"ms": timer.ms(kernel), "plain_ms": timer.ms(plain, reps=10),
+                  "library_ms": timer.ms(library), "bound_ms": b[0],
+                  "bound_by": b[1], "plan_note": note})
+        cases.append(e)
+        log(f"[phase 2 segsum] {json.dumps(e)}")
+        return e
+
+    bench = run_case("bench_1m", "mask", (ords, contrib, vals), N_ORDS, True)
+    run_case("bench_1m_count_only", "mask", (ords, contrib, vals), N_ORDS,
+             False)
+    gather = run_case("gather_count", "gather",
+                      (flat_docs, ords, matched, year_by_doc), N_ORDS, False)
+    gather["ordinal_counts_ms"] = timer.ms(
+        lambda: agg_ops.ordinal_counts(flat_docs, ords, matched, N_ORDS))
+    # the same counts with the gather outside the kernel, as ordinal_counts
+    # ran them before: an i64 copy, a gather, an f32 convert, the f32-mask
+    # form
+    gather["outside_gather_ms"] = timer.ms(
+        lambda: ssum.segment_counts_sums(
+            ords, matched[flat_docs.long()].to(torch.float32), n_ords=N_ORDS))
+    log(f"[phase 2 segsum] main-path form: ordinal_counts "
+        f"{gather['ordinal_counts_ms']} ms, its kernels alone "
+        f"{gather['ms']} ms, with the gather outside the kernel "
+        f"{gather['outside_gather_ms']} ms")
+    run_case("gather_sum_year", "gather",
+             (flat_docs, ords, matched, year_by_doc), N_ORDS, True)
+    run_case("high_card_2^18", "mask", (high, contrib, vals), HIGH_CARD_ORDS,
+             True)
+    run_case("small_4096", "gather",
+             (flat_docs[:SMALL_DOCS].contiguous(),
+              ords[:SMALL_DOCS].contiguous(), matched, year_by_doc), N_ORDS,
+             True)
+    # the atomic path at the bench geometry, pinned
+    forced = ssum.segment_sum_plan(nd, HIGH_CARD_ORDS, True, True, n_sm)
+    forced = forced._replace(combine_blocks=max(1, min(
+        -(-N_ORDS // (ssum.COMBINE_SLICES * 32)), 4 * n_sm)))
+    run_case("bench_1m_atomic_path", "gather",
+             (flat_docs, ords, matched, year_by_doc), N_ORDS, True,
+             plan=forced)
+    check(bench["plan"]["path"] == "smem" and gather["plan"]["path"] == "smem"
+          and cases[4]["plan"]["path"] == "global",
+          "the 1M cases take the shared-memory path and 2^18 ordinals the "
+          "atomic path")
+    check(cases[5]["plan"]["grid"] == 1 and cases[5]["plan"]["kernels"] == 1,
+          "an ingest shard's 4,096 docs run as one CTA and one kernel")
+
+    # what the timer allows: one tiny kernel, and one PyTorch reduction
+    # over the gather count form's 8 bytes a doc
+    tiny = torch.zeros(N_ORDS, dtype=torch.int32, device=dev)
+    stream = torch.cat([flat_docs, ords])
+    floor = {"one_tiny_kernel_ms": timer.ms(tiny.zero_),
+             "sum_of_8_bytes_a_doc_ms": timer.ms(stream.sum)}
+    log(f"[phase 2 segsum] timer floor {json.dumps(floor)}")
+
+    # the combine pass alone, at the partials of the 1M count + sum plan
+    p1m = ssum.segment_sum_plan(nd, N_ORDS, True, True, n_sm)
+    g = torch.Generator(dev).manual_seed(5)
+    pc = torch.randint(0, 1 << 12, (p1m.grid, N_ORDS), generator=g,
+                       device=dev, dtype=torch.int32)
+    pt = torch.randn(p1m.grid, N_ORDS, generator=g, device=dev) * 1e4
+    kc, kt = ssum.combine_partials(pc, pt)
+    qc, qt = ssum.combine_partials_plain(pc, pt)
+    torch.cuda.synchronize()
+    check(torch.equal(kc, qc) and torch.equal(kt.view(torch.int32),
+                                              qt.view(torch.int32)),
+          f"[phase 2 segsum] combine pass bit-equal plain over "
+          f"{p1m.grid} partials")
+    cb = bound(p1m.grid * N_ORDS * 8 + N_ORDS * 8, 2 * p1m.grid * N_ORDS)
+    combine = {"n_parts": p1m.grid, "n_ords": N_ORDS,
+               "max_abs_err": float((kt - qt).abs().max()),
+               "ms": timer.ms(lambda: ssum.combine_partials(pc, pt)),
+               "plain_ms": timer.ms(lambda: ssum.combine_partials_plain(
+                   pc, pt), reps=5),
+               "library_ms": timer.ms(lambda: torch.sum(pt, 0)),
+               "bound_ms": cb[0], "bound_by": cb[1]}
+    log(f"[phase 2 segsum] combine {json.dumps(combine)}")
+
+    # the device kernels one ordinal_counts call issues
+    kernels, copies = device_kernels(
+        torch, lambda: agg_ops.ordinal_counts(flat_docs, ords, matched,
+                                              N_ORDS))
+    profile = {"before": ORDINAL_COUNTS_KERNELS_BEFORE,
+               "after": len(kernels), "kernels": kernels,
+               "copies_and_fills": copies}
+    log(f"[phase 2 segsum] device kernels of one ordinal_counts call: "
+        f"{json.dumps(profile)}")
+    check(1 <= len(kernels) <= 2 and not copies
+          and all("segment_sum" in k for k in kernels),
+          f"ordinal_counts issues at most two device kernels, both the "
+          f"segment sum's, and no copy or fill ({kernels}, {copies})")
+    profile["timer_floor"] = floor
+    log(f"[phase 2 segsum] {time.perf_counter() - t_phase:.1f} s")
+    return cases, combine, profile
+
+
+@contextlib.contextmanager
+def recording_segsum_calls(ssum):
+    """While the block runs, keep (args, kwargs, outputs) of every gather-
+    form segment-sum call on the card (``ordinal_counts`` and
+    ``ordinal_sums``): one main pass each, so the count of calls is the
+    ``segment_sum`` launch count."""
+    orig = ssum.segment_counts_sums_gathered
+    kept = []
+
+    def recording(*args, **kw):
+        out = orig(*args, **kw)
+        if args[0].is_cuda:
+            kept.append((args, kw, out))
+        return out
+
+    ssum.segment_counts_sums_gathered = recording
+    try:
+        yield kept
+    finally:
+        ssum.segment_counts_sums_gathered = orig
+
+
+def check_kept_segsum(torch, ssum, kept, label):
+    """Replay each kept main-path segment-sum call through the plain version
+    on the same inputs: counts equal, sums within tolerance."""
+    for n, (args, kw, out) in enumerate(kept):
+        plain = ssum.segment_sum_gathered_plain(
+            *args, n_ords=kw["n_ords"], with_count=kw.get("with_count", True))
+        torch.cuda.synchronize()
+        ok = out[0] is None or torch.equal(out[0], plain[0])
+        if out[1] is not None:
+            ok = ok and bool(torch.allclose(out[1], plain[1],
+                                            rtol=ssum.SUM_RTOL,
+                                            atol=ssum.SUM_ATOL))
+        check(ok, f"{label} main-path segment_sum launch {n} (nd "
+                  f"{args[0].shape[0]}, n_ords {kw['n_ords']}) equals plain")
+    return len(kept)
 
 
 # ----------------------------------------------------------------------
@@ -1615,6 +1922,10 @@ def mesh_phase(torch, Node, Segment, cuda_kernels, queries, top_rank_term,
         check(p7[k] > 0, f"phase 7 launched {k}")
     check(held["tile_scoring"] == p7["tile_scoring"],
           f"every 1a launch of phase 7 held against plain ({held})")
+    check(held["segment_sum"] == p7["segment_sum"]
+          and p7["segment_sum_combine"] > 0,
+          f"every segment_sum launch of phase 7 held against plain, and the "
+          f"combine pass ran ({held}, {p7['segment_sum_combine']})")
     for k, v in p7.items():
         launches[k] += v
     check(len(rec) > 0 and min(rec) == 1.0,
@@ -1623,7 +1934,7 @@ def mesh_phase(torch, Node, Segment, cuda_kernels, queries, top_rank_term,
     host_copy_note(gnode, "pmc4", 2 * len(reqs), "phase 7 mesh plane")
     host_copy_note(gnode, "pmc4h", 2 * len(reqs), "phase 7 host rung")
     log(f"[phase 7] planes: {json.dumps(svc.search_stats()['planes'])}")
-    return gnode, cnode, gsegs, csegs, shard_arrays
+    return gnode, cnode, gsegs, csegs, shard_arrays, held["segment_sum"]
 
 
 def _same_exact(got, want):
@@ -1702,14 +2013,22 @@ def serve_held(torch, tsc, errs, held, gnode, cnode, index, reqs, label,
                lat, **kw):
     """serve(), then every 1a launch (``tile_scoring``) it made held bit
     for bit against its plain version on the very inputs it was given,
-    right away (a delete would change them). ``held`` counts the launches
-    held."""
+    right away (a delete would change them), and every segment-sum call
+    (the terms aggregations) replayed through its plain version. ``held``
+    counts the launches held, by launch name."""
+    from elasticsearch_tpu_torch.ops import segment_sum as ssum
+
     with recording_tile_launches(
-            tsc, lambda k: launch_name(k) == "tile_scoring") as kept:
+            tsc, lambda k: launch_name(k) == "tile_scoring") as kept, \
+            recording_segsum_calls(ssum) as kept_seg:
         out = serve(gnode, cnode, index, reqs, label, lat, **kw)
     torch.cuda.synchronize()
     held["tile_scoring"] += check_kept_launches(
         torch, tsc, kept, errs, label).get("tile_scoring", 0)
+    n_seg = check_kept_segsum(torch, ssum, kept_seg, label)
+    held["segment_sum"] = held.get("segment_sum", 0) + n_seg
+    log(f"[{label}] {n_seg} main-path segment_sum launches held against "
+        f"plain")
     return out
 
 
@@ -2735,50 +3054,14 @@ def main() -> int:
         tile_entries.append(entry)
         log(f"[phase 2] tile_scoring {json.dumps(entry)}")
 
-    # segment sum at bench shape: the venue ordinal column over a match
-    # query's matched mask, with the year values for the sums
+    # segment sum: the venue ordinal column over a match query's matched
+    # mask, with the year values for the sums
     mnode, _ = kernel_node(queries[0])
     from elasticsearch_tpu_torch.search import plan as P
 
     _, matched = P.execute(gdev, mnode)
-    ocol = gseg.ordinal_columns["venue"]
-    flat_docs = torch.from_numpy(ocol.flat_docs).to(dev)
-    ords = torch.from_numpy(ocol.flat_ords).to(dev)
-    contrib = matched[flat_docs.long()].float().contiguous()
-    vals = torch.from_numpy(
-        gseg.numeric_columns["year"].flat_values.astype(np.float32)).to(dev)
-    vals = (vals * torch.randn(vals.shape[0], device=dev,
-                               generator=torch.Generator(dev).manual_seed(3)))
-    k_cnt, k_tot = ssum.segment_counts_sums(ords, contrib, vals, n_ords=N_ORDS)
-    p_cnt, p_tot = ssum.segment_sum_plain(ords, contrib, vals, n_ords=N_ORDS,
-                                          with_count=True, with_sum=True)
-    abs_sum = torch.bincount(ords.long(), weights=(contrib * vals.abs()).double(),
-                             minlength=N_ORDS).float()
-    torch.cuda.synchronize()
-    seg_err = float((k_tot - p_tot).abs().max())
-    check(torch.equal(k_cnt, p_cnt), "segment_sum counts vs plain")
-    check(bool(((k_tot - p_tot).abs() <= 1e-4 * abs_sum + 1e-3).all()),
-          "segment_sum sums vs plain within 1e-4 of sum |value|")
-    nd_seg = ords.shape[0]
-    weighted = contrib * vals
-    seg_bytes = nd_seg * 12 + N_ORDS * 8
-    # operations: per entry a multiply and two adds (count and sum)
-    seg_bound = bound(seg_bytes, 3 * nd_seg)
-    seg_entry = {
-        "nd": nd_seg, "n_ords": N_ORDS,
-        "ms": timer.ms(lambda: ssum.segment_counts_sums(ords, contrib, vals,
-                                                        n_ords=N_ORDS)),
-        "ms_count_only": timer.ms(lambda: ssum.segment_counts_sums(
-            ords, contrib, n_ords=N_ORDS)),
-        "plain_ms": timer.ms(lambda: ssum.segment_sum_plain(
-            ords, contrib, vals, n_ords=N_ORDS, with_count=True,
-            with_sum=True)),
-        "library_ms": timer.ms(lambda: torch.bincount(
-            ords, weights=weighted, minlength=N_ORDS)),
-        "bound_ms": seg_bound[0], "bound_by": seg_bound[1],
-        "max_count": int(k_cnt.max()),
-    }
-    log(f"[phase 2] segment_sum {json.dumps(seg_entry)} max_abs_err {seg_err}")
+    seg_cases, seg_combine, seg_profile = segment_sum_phase(
+        torch, dev, timer, gseg, matched)
     tile_err = max(tile_err, dense_band_phase(torch, dev, tsc, gseg, gdev,
                                               queries))
     select_report = select_phase(torch, dev)
@@ -2857,6 +3140,9 @@ def main() -> int:
         check(p3[k] > 0, f"phase 3 launched {k}")
     check(held["tile_scoring"] == p3["tile_scoring"],
           f"every 1a launch of phase 3 held against plain ({held})")
+    check(held["segment_sum"] == p3["segment_sum"],
+          f"every segment_sum launch of phase 3 held against plain ({held})")
+    seg_held = {"phase 3": held["segment_sum"]}
     for k, v in p3.items():
         launches[k] += v
     copy3 = host_copy_note(gnode, "docs", n3, "phase 3")
@@ -2907,15 +3193,36 @@ def main() -> int:
         check(p4[k] > 0, f"phase 4 launched {k}")
     check(held["tile_scoring"] == p4["tile_scoring"],
           f"every 1a launch of phase 4 held against plain ({held})")
+    check(held["segment_sum"] == p4["segment_sum"]
+          and p4["segment_sum_combine"] > 0,
+          f"every segment_sum launch of phase 4 held against plain, and the "
+          f"combine pass ran ({held}, {p4['segment_sum_combine']})")
+    seg_held["phase 4"] = held["segment_sum"]
     for k, v in p4.items():
         launches[k] += v
     check(len(rec) > 0 and min(rec) == 1.0,
           f"recall@10 = 1.0 against reference_scores ({len(rec)} queries)")
     log(f"[phase 4] recall@10 over {len(rec)} match queries: min {min(rec)}")
     copy4 = host_copy_note(g4, "pmc", 2 * len(reqs4), "phase 4")
+    # the device kernels of one terms aggregation request on the 1M-doc
+    # segment (one segment: its segment-sum kernels are the per-segment
+    # count)
+    agg_body = next(b for k, b, _t in reqs4 if k == "terms_agg")
+    req_kernels, req_copies = device_kernels(
+        torch, lambda: g4.search("pmc", agg_body))
+    by_name = {}
+    for k in req_kernels:
+        by_name[k] = by_name.get(k, 0) + 1
+    seg_profile["terms_agg_request"] = {
+        "segments": len(g4.indices["pmc"].shards[0].engine.segments),
+        "segment_sum_kernels": sum("segment_sum" in k for k in req_kernels),
+        "kernels": len(req_kernels), "copies_and_fills": len(req_copies),
+        "by_name": by_name}
+    log(f"[phase 4] device kernels of one terms_agg request: "
+        f"{json.dumps(seg_profile['terms_agg_request'])}")
 
     # ---------------- phase 7: the mesh plane at real size ---------------
-    g7, c7, g7segs, c7segs, shard_arrays = mesh_phase(
+    g7, c7, g7segs, c7segs, shard_arrays, seg_held["phase 7"] = mesh_phase(
         torch, Node, Segment, cuda_kernels, queries, top_rank_term, lat,
         launches, knn_vecs, knn_exists, batch_errs)
 
@@ -2941,6 +3248,9 @@ def main() -> int:
     for kind, xs in sorted(lat.items()):
         log(f"[phase 5] p50 phase {kind}: {float(np.median(xs)):.3f} ms over "
             f"{len(xs)} requests ({smi})")
+    log(f"[phase 5] terms_agg p50 beside the other kinds: " + json.dumps({
+        kind: float(np.median(xs)) for kind, xs in sorted(lat.items())
+        if "terms_agg" in kind or "match_or" in kind}))
     log(f"[phase 5] host copy: phase 3 {json.dumps(copy3)}, "
         f"phase 4 {json.dumps(copy4)}")
 
@@ -2964,11 +3274,26 @@ def main() -> int:
         {"name": "segment_sum", "route": "cuda",
          "source": "elasticsearch_tpu_torch/csrc/segment_sum.cu",
          "replaces": "elasticsearch_tpu/ops/pallas_aggs.py:128",
-         "launches": launches["segment_sum"], "max_abs_err": seg_err,
-         "ms": seg_entry["ms"], "plain_ms": seg_entry["plain_ms"],
-         "bound_ms": seg_entry["bound_ms"],
-         "bound_by": seg_entry["bound_by"],
-         "library_ms": seg_entry["library_ms"]},
+         "launches": launches["segment_sum"],
+         "max_abs_err": max(e["max_abs_err"] for e in seg_cases),
+         **{k: seg_cases[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms", "plan",
+                                         "deterministic")},
+         "gather_ms": seg_cases[2]["ms"],
+         "ordinal_counts_ms": seg_cases[2]["ordinal_counts_ms"],
+         "outside_gather_ms": seg_cases[2]["outside_gather_ms"],
+         "main_path_held": seg_held, "device_kernels": seg_profile,
+         "cases": [{k: e[k] for k in (
+             "case", "form", "with_sum", "nd", "n_ords", "ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms", "max_abs_err")}
+             | {"plan": {k: e["plan"][k] for k in (
+                 "path", "grid", "threads", "kernels")},
+                "deterministic": e.get("deterministic")}
+             for e in seg_cases]},
+        {"name": "segment_sum_combine", "route": "cuda",
+         "source": "elasticsearch_tpu_torch/csrc/segment_sum.cu",
+         "replaces": "elasticsearch_tpu/ops/pallas_aggs.py:213",
+         "launches": launches["segment_sum_combine"], **seg_combine},
         {"name": "tile_scoring_batched", "route": "cuda",
          "source": "elasticsearch_tpu_torch/csrc/tile_scoring.cu",
          "replaces": "elasticsearch_tpu/ops/pallas_scoring.py:871",

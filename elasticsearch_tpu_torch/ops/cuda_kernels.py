@@ -55,8 +55,16 @@ _SIGNATURES = {
     "estpu_tile_topk_max_clusters": [
         _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int_p],
     "estpu_segment_sum": [
-        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-        _c_longlong, _c_int, _c_void_p],
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+        _c_void_p, _c_longlong, _c_int, _c_int, _c_int, _c_int, _c_int,
+        _c_longlong, _c_void_p],
+    "estpu_segment_sum_gathered": [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+        _c_void_p, _c_void_p, _c_longlong, _c_longlong, _c_int, _c_int,
+        _c_int, _c_int, _c_int, _c_longlong, _c_void_p],
+    "estpu_segment_sum_combine": [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int, _c_int,
+        _c_int, _c_void_p],
     "estpu_knn_score_tiles": [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
         _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
@@ -74,8 +82,11 @@ TILE_SCORING_LAUNCHES = tuple(
     for base in ("tile_scoring", "tile_scoring_batched", "tile_scoring_topk",
                  "tile_scoring_topk_sel")
     for suffix in ("", "_packed"))
+# the segment sum's main pass ("segment_sum") and its combine pass
+SEGMENT_SUM_LAUNCHES = ("segment_sum", "segment_sum_combine")
 LAUNCHES: Dict[str, int] = {**{name: 0 for name in TILE_SCORING_LAUNCHES},
-                            "segment_sum": 0, "knn_scoring": 0}
+                            **{name: 0 for name in SEGMENT_SUM_LAUNCHES},
+                            "knn_scoring": 0}
 _launch_lock = threading.Lock()
 _build_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

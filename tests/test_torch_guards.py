@@ -94,8 +94,11 @@ def test_kernel_sources_present_and_not_built_on_import():
         "tile_scoring", "tile_scoring_batched", "tile_scoring_topk",
         "tile_scoring_topk_sel", "tile_scoring_packed",
         "tile_scoring_batched_packed", "tile_scoring_topk_packed",
-        "tile_scoring_topk_sel_packed", "segment_sum", "knn_scoring"}
+        "tile_scoring_topk_sel_packed", "segment_sum", "segment_sum_combine",
+        "knn_scoring"}
     assert "estpu_knn_score_tiles" in cuda_kernels._SIGNATURES
+    assert {"estpu_segment_sum", "estpu_segment_sum_gathered",
+            "estpu_segment_sum_combine"} <= set(cuda_kernels._SIGNATURES)
     for src in cuda_kernels.sources():
         text = open(src).read()
         if src.endswith(".cu"):
