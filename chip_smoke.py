@@ -28,14 +28,14 @@ prints no result, when there is no GPU or any check fails. Phases:
    docs) on every rung of the ladder (sub 128 .. 1), Q 1, 2 and 16, with
    and without counts, raw and packed, and on the bench corpus at Q = 2.
    "[phase 2 segsum]" holds kernel 2 (segment sum) against its plain
-   version on the card in seven cases: the f32-mask form at the 1M bench
+   version on the card in six cases: the f32-mask form at the 1M bench
    geometry (the venue column's 2,000 zipf ordinals over queries[0]'s
    matched docs, year values times noise), count + sum and count only;
    the gather form (the main path's: flat_docs, flat_ords and the matched
    bytes, gathered inside the kernel) count only, and with sums over the
    f64 year column; 2^18 zipf ordinals over the same 1M docs (a keyword
-   field of ids: the atomic path); an ingest shard's 4,096 docs (one
-   CTA); and the atomic path pinned at the bench geometry. Counts
+   field of ids: the atomic path); and an ingest shard's 4,096 docs (one
+   CTA). Counts
    bit-equal, sums within 1e-4 x sum |value| + 1e-3 of plain, and on the
    shared-memory path two launches give bit-equal sums; each case logs
    its plan (path, grid, threads, kernels) and says when it is not the
@@ -838,10 +838,10 @@ def device_kernels(torch, fn):
 
 def segment_sum_phase(torch, dev, timer, gseg, matched):
     """[phase 2 segsum]: kernel 2 against its plain version on the card, in
-    seven cases (the f32-mask form at the 1M bench geometry, with and
+    six cases (the f32-mask form at the 1M bench geometry, with and
     without sums; the gather form, the main path's, with and without sums;
-    2^18 ordinals; an ingest shard's 4,096 docs; the atomic path pinned at
-    the bench geometry), then the combine pass alone. Counts bit-equal to
+    2^18 ordinals; an ingest shard's 4,096 docs), then the combine pass
+    alone. Counts bit-equal to
     plain, sums within ``SUM_RTOL * sum |value| + SUM_ATOL``, and on the
     shared-memory path two launches give bit-equal sums. Returns (cases,
     combine entry, device kernels of one ordinal_counts call)."""
@@ -868,17 +868,15 @@ def segment_sum_phase(torch, dev, timer, gseg, matched):
     high = torch.from_numpy(zipf_ords(nd, HIGH_CARD_ORDS, 17)).to(dev)
     cases = []
 
-    def run_case(name, form, args, n_ords, with_sum, plan=None):
+    def run_case(name, form, args, n_ords, with_sum):
         nd_case = args[0].shape[0]
-        p = plan or ssum.segment_sum_plan(nd_case, n_ords, True, with_sum,
-                                          n_sm)
+        p = ssum.segment_sum_plan(nd_case, n_ords, True, with_sum, n_sm)
         if form == "mask":
             o, m, v = args
             v = v if with_sum else None
 
             def kernel():
-                return ssum.segment_counts_sums(o, m, v, n_ords=n_ords,
-                                                plan=plan)
+                return ssum.segment_counts_sums(o, m, v, n_ords=n_ords)
 
             def plain():
                 return ssum.segment_sum_plain(o, m, v, n_ords=n_ords,
@@ -892,7 +890,7 @@ def segment_sum_phase(torch, dev, timer, gseg, matched):
 
             def kernel():
                 return ssum.segment_counts_sums_gathered(
-                    di, o, mt, vbd, n_ords=n_ords, plan=plan)
+                    di, o, mt, vbd, n_ords=n_ords)
 
             def plain():
                 return ssum.segment_sum_gathered_plain(di, o, mt, vbd,
@@ -901,7 +899,10 @@ def segment_sum_phase(torch, dev, timer, gseg, matched):
             j = torch.where(inside, di, 0).long()
             c_mask = (mt[j] & inside).float()
             c_vals = vbd[j].float() if with_sum else None
-            nbytes = (nd_case * 8 + mt.shape[0] * (1 + 8 * with_sum)
+            # match and values are read only at the docs this call's
+            # doc_index reaches inside [0, nd1)
+            touched = int(torch.unique(di[inside]).numel())
+            nbytes = (nd_case * 8 + touched * (1 + 8 * with_sum)
                       + n_ords * (4 + 8 * with_sum))
         weights = c_mask * c_vals if with_sum else c_mask
 
@@ -978,13 +979,6 @@ def segment_sum_phase(torch, dev, timer, gseg, matched):
              (flat_docs[:SMALL_DOCS].contiguous(),
               ords[:SMALL_DOCS].contiguous(), matched, year_by_doc), N_ORDS,
              True)
-    # the atomic path at the bench geometry, pinned
-    forced = ssum.segment_sum_plan(nd, HIGH_CARD_ORDS, True, True, n_sm)
-    forced = forced._replace(combine_blocks=max(1, min(
-        -(-N_ORDS // (ssum.COMBINE_SLICES * 32)), 4 * n_sm)))
-    run_case("bench_1m_atomic_path", "gather",
-             (flat_docs, ords, matched, year_by_doc), N_ORDS, True,
-             plan=forced)
     check(bench["plan"]["path"] == "smem" and gather["plan"]["path"] == "smem"
           and cases[4]["plan"]["path"] == "global",
           "the 1M cases take the shared-memory path and 2^18 ordinals the "

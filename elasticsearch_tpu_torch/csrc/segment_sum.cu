@@ -278,8 +278,11 @@ __global__ void __launch_bounds__(kMaxWarps * 32) segment_sum_kernel(
 
   // One round: the 32 queued entries from ``at`` (the first ``n`` of them
   // valid). Lanes with the same ordinal form a group; its lowest lane sums
-  // the group's values in lane order and adds once.
+  // the group's values in lane order and adds once. The __syncwarp
+  // orders the last round's read-modify-write of my_hist before this
+  // round's: another lane may lead the same ordinal's group now.
   auto round = [&](int at, int n) {
+    __syncwarp();
     const int o = lane < n ? q_key[at + lane] : -1;
     const unsigned peers = __match_any_sync(kFullMask, o);
     if (o < 0 || lane != __ffs(peers) - 1) return;

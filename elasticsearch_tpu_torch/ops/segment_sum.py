@@ -234,7 +234,7 @@ def _launch_combine(lib, part_cnt, part_tot, count, total, n_parts: int,
 
 
 def _segment_sum_cuda(vectors, main, nd: int, n_ords: int, with_count: bool,
-                      with_sum: bool, total_dtype, plan):
+                      with_sum: bool, total_dtype):
     """Allocate outputs and scratch, then launch the plan's passes;
     ``main(lib, count, total, part_cnt, part_tot, plan, stream)`` calls the
     form's C entry point. ``vectors`` are the tensors the kernel reads 16
@@ -243,9 +243,8 @@ def _segment_sum_cuda(vectors, main, nd: int, n_ords: int, with_count: bool,
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
     dev = vectors[0][1].device
-    if plan is None:
-        plan = segment_sum_plan(nd, n_ords, with_count, with_sum,
-                                _sm_count(dev.index or 0))
+    plan = segment_sum_plan(nd, n_ords, with_count, with_sum,
+                            _sm_count(dev.index or 0))
     count = (torch.empty(n_ords, dtype=torch.int32, device=dev)
              if with_count else None)
     total = (torch.empty(n_ords, dtype=total_dtype, device=dev)
@@ -287,12 +286,10 @@ def _device_of(t: torch.Tensor) -> str:
 
 
 def segment_counts_sums(ords, mask, values=None, *, n_ords: int,
-                        with_count: bool = True,
-                        plan: Optional[SegmentSumPlan] = None
+                        with_count: bool = True
                         ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """The f32-mask form: (count [n_ords] int32 or None, total [n_ords]
-    f32 or None). ``plan`` pins a launch plan on the card (the default is
-    ``segment_sum_plan``'s)."""
+    f32 or None)."""
     with_sum = values is not None
     if not (with_sum or with_count):
         raise ValueError("segment sum needs counts, sums or both")
@@ -311,12 +308,11 @@ def segment_counts_sums(ords, mask, values=None, *, n_ords: int,
 
     return _segment_sum_cuda(
         (("ords", ords), ("mask", mask), ("values", values)), main, nd,
-        n_ords, with_count, with_sum, torch.float32, plan)
+        n_ords, with_count, with_sum, torch.float32)
 
 
 def segment_counts_sums_gathered(doc_index, ords, match, values_by_doc=None,
-                                 *, n_ords: int, with_count: bool = True,
-                                 plan: Optional[SegmentSumPlan] = None
+                                 *, n_ords: int, with_count: bool = True
                                  ) -> Tuple[Optional[torch.Tensor],
                                             Optional[torch.Tensor]]:
     """The gather form over the ordinal CSR column: ``doc_index`` [nd]
@@ -347,7 +343,7 @@ def segment_counts_sums_gathered(doc_index, ords, match, values_by_doc=None,
 
     return _segment_sum_cuda(
         (("doc_index", doc_index), ("ords", ords)), main, nd, n_ords,
-        with_count, with_sum, torch.float64, plan)
+        with_count, with_sum, torch.float64)
 
 
 def combine_partials(part_cnt, part_tot):

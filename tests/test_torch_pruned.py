@@ -252,7 +252,8 @@ def test_pruning_fires_on_skewed_postings():
 # in different orders, and JAX's pruned order is the probe-first one.
 TIE_EXAMPLE = dict(seed=615583862, probe=1, codec="packed")
 # Three docs of one query tie exactly at ranks 9, 10 and 11: which two the
-# pruned and the exhaustive pools keep in their top-10 differs.
+# pruned and the exhaustive pools keep in their top-10 differs, and JAX's
+# pruned pool keeps the same two as the port's.
 CUT_TIE_EXAMPLE = dict(seed=57, probe=1, codec="packed")
 
 
@@ -291,8 +292,8 @@ def assert_same_ranking(got_s, got_d, want_s, want_d, deep_s, deep_d):
 def test_no_true_topk_doc_is_ever_pruned(seed, probe, codec):
     """Property: over random skewed corpora, queries and probe sizes, the
     pruned top-k equals the exhaustive top-k: scores exactly, ids up to
-    the order of exact ties. On the example with a tie, the pruned ids
-    equal the JAX package's pruned ids in order."""
+    the order of exact ties. On the two examples with a tie, the pruned
+    ids equal the JAX package's pruned ids in order."""
     bd, bt, frac, live, starts, counts, nd_pad, rng = skewed_corpus(
         seed, nd=1500, vocab=12)
     q = int(rng.randint(1, 4))
@@ -315,7 +316,8 @@ def test_no_true_topk_doc_is_ever_pruned(seed, probe, codec):
     assert_same_ranking(out[0].numpy(), out[1].numpy(), es, ed, deep_s,
                         deep_d)
     assert (out[2].numpy() <= eh).all()
-    if dict(seed=seed, probe=probe, codec=codec) == TIE_EXAMPLE:
+    if dict(seed=seed, probe=probe, codec=codec) in (TIE_EXAMPLE,
+                                                     CUT_TIE_EXAMPLE):
         (js, jd, _jh, _jn), (ts_, td, _th, _tn) = _pruned_both(
             corpus, lt, plan, wp, cb, geom, q, q, codec)
         np.testing.assert_array_equal(td, jd)
