@@ -68,9 +68,11 @@ prints no result, when there is no GPU or any check fails. Phases:
    equal); the device kernels of one phase-4 terms_agg request. Prints
    p50 latency per request kind and plane and the per-segment host copy of
    the dense scores and mask.
-6. The kernel summary line, then the device line.
+6. The kernel summary line (with phase 11's ``rest`` entry), then the
+   device line.
 
-Run between phases 2 and 3, and after phase 4 (phase 10 after phase 9):
+Run between phases 2 and 3, and after phase 4 (phase 10 after phase 9,
+phase 11 last):
 
 2b. Kernels 1b (dense, q_batch=16, with and without counts) and 1c (fused
     per-tile top-k, q_batch 1 and 16, k=16) on the 1M-doc corpus, for 16
@@ -158,6 +160,22 @@ Run between phases 2 and 3, and after phase 4 (phase 10 after phase 9):
    (no deleted doc returned, totals drop); recall@10 = 1.0 against
    ``reference_knn_topk``; the mesh plane's kNN staging (the per-slot
    masks) beside the segments' own vector arrays.
+11. REST on the card, after phase 10: the port's ``HttpServer`` on
+    127.0.0.1 (ephemeral ports) and an ``http.client`` client. 11a: a
+    fresh ``Node(device="cuda")`` takes phase 3's 20,000 docs as NDJSON
+    ``_bulk`` bodies of 1,000 (docs/s beside phase 3's in-process rate),
+    ``_cat/count`` and a document GET; 11b: phase 3's requests on that
+    index (host rung), phase 7's on pmc4 through ``HttpServer(g7)``
+    (mesh_pallas), phase 9's kNN and hybrid bodies and one pruned match on
+    phase 10's index, each equal to the in-process response of the same
+    node (hybrid and pruned totals as ``{"value", "relation": "gte"}``);
+    11c: 16 concurrent HTTP clients coalesced by the micro-batcher through
+    the ``search`` pool, then ``_msearch``; 11d: ``DELETE`` returns
+    ``memory_allocated`` to its level before the index; 11e: p50 in
+    process, through the controller without a socket, and over HTTP, per
+    request kind. The launch counters of tile_scoring*, segment_sum and
+    knn_scoring must move; the summary line's ``rest`` entry holds the
+    numbers.
 """
 
 from __future__ import annotations
@@ -2556,8 +2574,9 @@ def knn_phase(torch, cuda_kernels, gnode, cnode, gsegs, csegs, vecs, exists,
                              for i in ("pmc4", "pmc4h", "pmc1")))
     check(not any(fails), f"phase 9 zero plane faults (got {fails})")
     log(f"[phase 9] planes: {json.dumps(svc.search_stats()['planes'])}")
+    rest_bodies = [(kind, body) for kind, body, _i in serial[:1]] + hybrid
     return {"mesh_knn_staging_bytes": mask_bytes,
-            "segment_vector_bytes": own}
+            "segment_vector_bytes": own}, rest_bodies
 
 
 # ----------------------------------------------------------------------
@@ -2921,10 +2940,354 @@ def pruned_phase(torch, Node, Segment, cuda_kernels, tsc, queries, lat,
         report[f"p50_ms {label}"] = float(np.median(xs)) if xs else None
     log(f"[phase 10] report {json.dumps(report)}")
     log(f"[phase 10] planes: {json.dumps(planes)}")
-    return report
+    return report, gP
 
 
 # ----------------------------------------------------------------------
+# Phase 11: REST on the card
+# ----------------------------------------------------------------------
+
+
+class HttpClient:
+    """One keep-alive HTTP/1.1 connection (a client thread's own), with
+    TCP_NODELAY as the Elasticsearch clients set it (urllib3's default;
+    ``nodelay=False`` keeps http.client's own socket): http.client sends
+    a request's headers and body in two writes."""
+
+    def __init__(self, port, nodelay=True):
+        import http.client
+        import socket
+
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        self.conn.connect()
+        if nodelay:
+            self.conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY,
+                                      1)
+
+    def call(self, method, path, body=None, ctype="application/json"):
+        """-> (status, decoded body); the body is JSON or NDJSON bytes."""
+        if body is not None and not isinstance(body, bytes):
+            body = json.dumps(body).encode()
+        headers = {"Content-Type": ctype} if body is not None else {}
+        self.conn.request(method, path, body=body, headers=headers)
+        resp = self.conn.getresponse()
+        raw = resp.read()
+        return resp.status, (json.loads(raw) if raw else None)
+
+    def close(self):
+        self.conn.close()
+
+
+def _as_json(resp):
+    """What a response looks like after the wire: a JSON round trip."""
+    return json.loads(json.dumps(resp))
+
+
+def _same_but_took(a, b):
+    a = {k: v for k, v in a.items() if k != "took"}
+    b = {k: v for k, v in b.items() if k != "took"}
+    return a == b
+
+
+def rest_phase(torch, Node, cuda_kernels, ops, inproc_rate, reqs, g7, c7, gP,
+               queries, top_rank_term, knn_bodies, launches):
+    """Phase 11: the port's HttpServer on 127.0.0.1 (ephemeral ports), a
+    plain http.client client.
+
+    11a. A fresh Node(device="cuda"): PUT /docs_http (phase 3's mapping, 5
+         shards), phase 3's 20,000 docs as NDJSON _bulk bodies of 1,000,
+         _refresh; _cat/count says 20,000; GET /docs_http/_doc/d1 equals
+         node.get_doc. Docs/s over HTTP beside phase 3's in-process rate.
+    11b. Requests over HTTP, each equal to json.loads(json.dumps(
+         node.search(...))) of the same body on the same node (took
+         aside; hybrid and pruned totals as the REST layer renders them):
+         phase 3's requests on docs_http (host rung, 1a, kernel 2); phase
+         7's on pmc4 through HttpServer(g7) (mesh_pallas, 1c, kernel 2),
+         also equal to the cpu node c7; phase 9's pure-kNN and hybrid
+         bodies (kernel 3); one pruned match on phase 10's pmc4p, whose
+         total renders {"value", "relation": "gte"}.
+    11c. 16 client threads POST different match bodies to /pmc4/_search at
+         once: every response equals its serial one and the micro-batcher
+         forms a batch of >= 2 (through the search pool); then one
+         _msearch of the same 16 bodies equals them.
+    11d. torch.cuda.memory_allocated() before 11a's PUT, after its first
+         search, after DELETE /docs_http: the third within 1 MB of the
+         first; then GET /docs_http/_search is a 404.
+    11e. p50 over 20 runs (after 3 warm-ups) in process, through the
+         controller without a socket, and over HTTP, for match_or and
+         terms_agg on pmc4 (mesh_pallas), kNN k 10 on pmc4, and match_or
+         on docs_http (host rung); and the fixed cost of a request whose
+         handler does no search (GET /_cluster/health).
+    The launch counters of tile_scoring*, segment_sum and knn_scoring
+    must move during the phase. Returns the report."""
+    import threading
+
+    from elasticsearch_tpu_torch.common.xcontent import JSON, serialize
+    from elasticsearch_tpu_torch.rest.handlers import _render_total_hits
+    from elasticsearch_tpu_torch.rest.http_server import HttpServer
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    cuda_kernels.reset_launch_counts()
+    report = {}
+    inproc_ms, dispatch_ms, http_ms, nagle_ms = {}, {}, {}, {}
+
+    def timed_pair(node, srv, client, index, body, label, reps=20, warm=3):
+        """In process, through the controller with no socket (the pool
+        hop, the handler and the response's json.dumps), over HTTP, and
+        over HTTP from a client without TCP_NODELAY."""
+        raw = json.dumps(body).encode()
+        plain = HttpClient(srv.port, nodelay=False)
+        for i in range(warm + reps):
+            t0 = time.perf_counter()
+            node.search(index, dict(body))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            st, payload = srv.controller.dispatch(
+                "POST", f"/{index}/_search", {}, raw, "application/json")
+            serialize(payload, JSON)
+            t2 = time.perf_counter()
+            st2, _ = client.call("POST", f"/{index}/_search", body)
+            t3 = time.perf_counter()
+            st3, _ = plain.call("POST", f"/{index}/_search", body)
+            t4 = time.perf_counter()
+            check(st == st2 == st3 == 200, f"phase 11e {label}: 200")
+            if i >= warm:
+                inproc_ms.setdefault(label, []).append((t1 - t0) * 1000)
+                dispatch_ms.setdefault(label, []).append((t2 - t1) * 1000)
+                http_ms.setdefault(label, []).append((t3 - t2) * 1000)
+                nagle_ms.setdefault(label, []).append((t4 - t3) * 1000)
+        plain.close()
+
+    def timed_fixed(srv, client, reps=20, warm=3):
+        """The HTTP layer's fixed cost: GET /_cluster/health, whose
+        handler does no search."""
+        for i in range(warm + reps):
+            t0 = time.perf_counter()
+            srv.controller.dispatch("GET", "/_cluster/health", {}, b"")
+            t1 = time.perf_counter()
+            st, _ = client.call("GET", "/_cluster/health")
+            t2 = time.perf_counter()
+            check(st == 200, "phase 11e GET /_cluster/health: 200")
+            if i >= warm:
+                dispatch_ms.setdefault("health", []).append((t1 - t0) * 1000)
+                http_ms.setdefault("health", []).append((t2 - t1) * 1000)
+
+    def held(node, client, index, body, what, also=None):
+        """One body over HTTP against the same node in process."""
+        st, got = client.call("POST", f"/{index}/_search", body)
+        want = _as_json(node.search(index, dict(body)))
+        _render_total_hits(want, body)
+        check(st == 200 and _same_but_took(got, want),
+              f"phase 11b {what}: HTTP response equals the in-process one")
+        if also is not None:
+            same_response(got, _as_json(also.search(index, dict(body))),
+                          f"phase 11b {what} (vs the cpu node)")
+        return got
+
+    # ---- 11a: the write path over HTTP ----
+    mem0 = torch.cuda.memory_allocated()
+    gH = Node(device="cuda")
+    srv = HttpServer(gH, port=0)
+    srv.start()
+    client = HttpClient(srv.port)
+    try:
+        t0 = time.perf_counter()
+        st, r = client.call("PUT", "/docs_http", {
+            "settings": {"number_of_shards": 5},
+            "mappings": {"_doc": {"properties": {
+                "title": {"type": "text"}, "venue": {"type": "keyword"},
+                "year": {"type": "long"}}}}})
+        check(st == 200 and r["acknowledged"], "phase 11a PUT /docs_http")
+        errors = False
+        for lo in range(0, len(ops), 1000):
+            lines = []
+            for _action, meta, src in ops[lo: lo + 1000]:
+                lines.append(json.dumps(
+                    {"index": {"_index": "docs_http", "_id": meta["_id"]}}))
+                lines.append(json.dumps(src))
+            st, r = client.call("POST", "/_bulk",
+                                ("\n".join(lines) + "\n").encode(),
+                                "application/x-ndjson")
+            errors = errors or st != 200 or r["errors"]
+        st, _ = client.call("POST", "/docs_http/_refresh")
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        check(not errors and st == 200, "phase 11a bulk over HTTP")
+        report["ingest_docs_per_s_http"] = len(ops) / ingest_s
+        report["ingest_docs_per_s_inprocess"] = inproc_rate
+        log(f"[phase 11a] bulk {len(ops)} docs over HTTP + refresh in "
+            f"{ingest_s:.2f} s: {len(ops) / ingest_s:.0f} docs/s (phase 3 "
+            f"in process: {inproc_rate:.0f} docs/s)")
+        st, r = client.call("GET", "/_cat/count/docs_http?format=json")
+        check(st == 200 and r[0]["count"] == len(ops),
+              f"phase 11a _cat/count = {len(ops)} (got {r})")
+        st, r = client.call("GET", "/docs_http/_doc/d1")
+        check(st == 200 and r == _as_json(gH.get_doc("docs_http", "d1")),
+              "phase 11a GET /docs_http/_doc/d1 equals node.get_doc")
+        st, _ = client.call("POST", "/docs_http/_search", reqs[0][1])
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated()
+        # ---- 11b on the host rung ----
+        for kind, body, _t in reqs:
+            got = held(gH, client, "docs_http", body, f"docs_http {kind}")
+            check(got.get("_plane") == "host",
+                  f"phase 11b docs_http {kind} on the host rung")
+        # ---- 11e on the host rung ----
+        timed_pair(gH, srv, client, "docs_http", reqs[0][1],
+                   "match_or docs_http")
+        # ---- 11d: delete ----
+        st, r = client.call("DELETE", "/docs_http")
+        check(st == 200 and r == {"acknowledged": True},
+              "phase 11d DELETE /docs_http")
+        torch.cuda.synchronize()
+        mem2 = torch.cuda.memory_allocated()
+        st, r = client.call("GET", "/docs_http/_search")
+        check(st == 404 and r["error"]["type"] == "index_not_found_exception",
+              f"phase 11d deleted index answers 404 ({st}, {r})")
+    finally:
+        client.close()
+        srv.stop()
+        gH.close()
+    report["memory_allocated"] = {"before_put": mem0,
+                                  "after_first_search": mem1,
+                                  "after_delete": mem2}
+    check(abs(mem2 - mem0) <= 1 << 20,
+          f"phase 11d DELETE returned device memory to within 1 MB "
+          f"({mem0} -> {mem1} -> {mem2} bytes)")
+    log(f"[phase 11d] memory_allocated before PUT {mem0}, after the first "
+        f"search {mem1} (+{(mem1 - mem0) / 1e6:.3f} MB), after DELETE {mem2} "
+        f"({(mem2 - mem0) / 1e6:+.6f} MB)")
+
+    # ---- 11b on pmc4 (mesh_pallas, kNN, hybrid) and pmc4p (pruned) ----
+    s7, sP = HttpServer(g7, port=0), HttpServer(gP, port=0)
+    s7.start()
+    sP.start()
+    c7c, cPc = HttpClient(s7.port), HttpClient(sP.port)
+    try:
+        for kind, body, _t in requests_for(queries[:12], top_rank_term,
+                                           "v0001", 2000):
+            got = held(g7, c7c, "pmc4", body, f"pmc4 {kind}", also=c7)
+            check(got.get("_plane") == ("mesh" if kind == "match_all"
+                                        else "mesh_pallas"),
+                  f"phase 11b pmc4 {kind} plane ({got.get('_plane')})")
+        for kind, body in knn_bodies:
+            got = held(g7, c7c, "pmc4", body, f"pmc4 {kind}")
+            if kind.startswith("hybrid"):
+                check(got["hits"]["total"].get("relation") == "gte",
+                      f"phase 11b {kind}: total renders as gte "
+                      f"({got['hits']['total']})")
+        pruned_body = {"query": {"match": {"title": " ".join(
+            term_token(t) for t in queries[0])}}, "size": 10}
+        got = held(gP, cPc, "pmc4p", pruned_body, "pmc4p pruned match")
+        total = got["hits"]["total"]
+        check("_pruned" in got and isinstance(total, dict)
+              and set(total) == {"value", "relation"}
+              and total["relation"] == "gte",
+              f"phase 11b pruned total renders {{value, relation: gte}} "
+              f"({total})")
+
+        # ---- 11c: concurrency through the search pool ----
+        bodies = [{"query": {"match": {"title": " ".join(
+            term_token(t) for t in q)}}, "size": 10} for q in queries[:BURST]]
+        serial = [_as_json(g7.search("pmc4", dict(b))) for b in bodies]
+        svc = g7.indices["pmc4"]
+        hist0 = dict(svc.batch_stats.batch_size_histogram)
+        clients = [HttpClient(s7.port) for _ in range(BURST)]
+        rounds = 0
+        try:
+            for rounds in range(1, 4):
+                got = {}
+                start = threading.Barrier(BURST)
+
+                def worker(i):
+                    start.wait()
+                    got[i] = clients[i].call("POST", "/pmc4/_search",
+                                             bodies[i])
+
+                threads = [threading.Thread(target=worker, args=(i,))
+                           for i in range(BURST)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(300.0)
+                    check(not t.is_alive(), "phase 11c client finished")
+                for i in range(BURST):
+                    st, r = got.get(i, (None, None))
+                    check(st == 200 and _same_exact(r, serial[i]),
+                          f"phase 11c member {i} equals its serial response")
+                hist = svc.batch_stats.batch_size_histogram
+                if any(int(n) >= 2 and hist.get(n, 0) > hist0.get(n, 0)
+                       for n in hist):
+                    break
+        finally:
+            for c in clients:
+                c.close()
+        hist = dict(svc.batch_stats.batch_size_histogram)
+        gained = {n: hist[n] - hist0.get(n, 0) for n in hist
+                  if hist[n] > hist0.get(n, 0)}
+        check(any(int(n) >= 2 for n in gained),
+              f"phase 11c HTTP concurrency formed a batch of >= 2 "
+              f"(histogram gained {gained})")
+        pool = g7.thread_pool.executor("search")
+        report["burst"] = {"clients": BURST, "rounds": rounds,
+                           "histogram_gained": gained,
+                           "search_pool_threads": pool.threads,
+                           "search_pool_queue": pool.queue_size}
+        log(f"[phase 11c] {BURST} HTTP clients, {rounds} round(s): batch "
+            f"sizes gained {gained}; search pool {pool.threads} threads, "
+            f"queue {pool.queue_size}")
+        lines = []
+        for b in bodies:
+            lines += [json.dumps({"index": "pmc4"}), json.dumps(b)]
+        st, r = c7c.call("POST", "/_msearch", ("\n".join(lines) + "\n"
+                                               ).encode(),
+                         "application/x-ndjson")
+        check(st == 200 and len(r["responses"]) == BURST
+              and all(_same_exact(x, serial[i])
+                      for i, x in enumerate(r["responses"])),
+              "phase 11c _msearch of the 16 bodies equals their serial "
+              "responses")
+
+        # ---- 11e: latency over HTTP and in process ----
+        agg_body = next(b for k, b, _t in reqs if k == "terms_agg")
+        timed_pair(g7, s7, c7c, "pmc4", bodies[0], "match_or pmc4")
+        timed_pair(g7, s7, c7c, "pmc4", agg_body, "terms_agg pmc4")
+        timed_pair(g7, s7, c7c, "pmc4", knn_bodies[0][1], "knn_k10 pmc4")
+        timed_fixed(s7, c7c)
+    finally:
+        c7c.close()
+        cPc.close()
+        s7.stop()
+        sP.stop()
+    overhead = {}
+    for label in http_ms:
+        a = (float(np.median(inproc_ms[label])) if label in inproc_ms
+             else 0.0)
+        d = float(np.median(dispatch_ms[label]))
+        b = float(np.median(http_ms[label]))
+        overhead[label] = {"inprocess_p50_ms": a, "dispatch_p50_ms": d,
+                           "http_p50_ms": b, "overhead_ms": b - a}
+        if label in nagle_ms:
+            overhead[label]["http_client_nagle_p50_ms"] = float(
+                np.median(nagle_ms[label]))
+        log(f"[phase 11e] {label}: in process p50 {a:.3f} ms, controller "
+            f"dispatch (no socket) p50 {d:.3f} ms, HTTP p50 {b:.3f} ms, "
+            f"REST overhead {b - a:.3f} ms; {json.dumps(overhead[label])}")
+    report["latency"] = overhead
+    torch.cuda.synchronize()
+    p11 = dict(cuda_kernels.LAUNCHES)
+    log(f"[phase 11] kernel launches: {p11}")
+    check(sum(v for k, v in p11.items() if k.startswith("tile_scoring")) > 0
+          and p11["segment_sum"] > 0 and p11["knn_scoring"] > 0,
+          f"phase 11 launched tile_scoring*, segment_sum and knn_scoring "
+          f"over REST ({p11})")
+    for k, v in p11.items():
+        launches[k] += v
+    report["launches"] = {k: v for k, v in p11.items() if v}
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[phase 11] {report['seconds']:.1f} s")
+    return report
 
 
 def main() -> int:
@@ -3229,14 +3592,19 @@ def main() -> int:
     check(not any(fails), f"zero plane faults (got {fails})")
 
     # ---------------- phase 9: kNN and hybrid through Node ---------------
-    knn_staging = knn_phase(torch, cuda_kernels, g7, c7, g7segs, c7segs,
-                            knn_vecs, knn_exists, knn_rng, lat, launches,
-                            batch_errs)
+    knn_staging, knn_bodies = knn_phase(
+        torch, cuda_kernels, g7, c7, g7segs, c7segs, knn_vecs, knn_exists,
+        knn_rng, lat, launches, batch_errs)
 
     # ---------------- phase 10: packed + pruning through Node ------------
-    pruned_report = pruned_phase(
+    pruned_report, gP = pruned_phase(
         torch, Node, Segment, cuda_kernels, tsc, queries, lat, launches,
         batch_errs, shard_arrays, (g7, c7, g7segs), gnode)
+
+    # ---------------- phase 11: REST on the card -------------------------
+    rest_report = rest_phase(
+        torch, Node, cuda_kernels, ops, INGEST_DOCS / ingest_s, reqs, g7, c7,
+        gP, queries, top_rank_term, knn_bodies, launches)
 
     # ---------------- phase 5: latency summary ---------------------------
     for kind, xs in sorted(lat.items()):
@@ -3336,7 +3704,7 @@ def main() -> int:
              "plain_ms", "bound_ms", "bound_by", "library_ms")}
              for e in knn_entries],
          **knn_staging},
-    ]}
+    ], "rest": rest_report}
     for name, key, replaces, extra in (
             ("tile_scoring_packed", "tile_scoring_packed", 656,
              ("ms_with_counts", "bound_ms_with_counts", "plan")),

@@ -91,3 +91,22 @@ class VersionConflictEngineException(ElasticsearchTpuException):
             f"[{doc_id}]: version conflict, current version [{current_version}] "
             f"is different than the one provided [{expected}]"
         )
+
+
+class InvalidIndexNameException(ElasticsearchTpuException):
+    status_code = 400
+
+    def __init__(self, index: str, reason: str):
+        super().__init__(f"Invalid index name [{index}], {reason}", index=index)
+
+
+class ResourceNotFoundException(ElasticsearchTpuException):
+    status_code = 404
+
+
+class EsRejectedExecutionException(ElasticsearchTpuException):
+    """A named thread pool's queue is full: HTTP 429
+    (RestStatus.TOO_MANY_REQUESTS). ``retry_after_s``, where set, becomes
+    the response's Retry-After header."""
+
+    status_code = 429

@@ -115,6 +115,24 @@ class Settings:
     def keys(self) -> Iterable[str]:
         return self._data.keys()
 
+    def as_dict(self) -> Dict[str, Any]:
+        return dict(self._data)
+
+    def as_nested_dict(self) -> Dict[str, Any]:
+        """Dotted keys -> nested dicts (the ``GET /{index}`` shape)."""
+        out: Dict[str, Any] = {}
+        for key, value in sorted(self._data.items()):
+            node = out
+            parts = key.split(".")
+            for p in parts[:-1]:
+                nxt = node.get(p)
+                if not isinstance(nxt, dict):
+                    nxt = {}
+                    node[p] = nxt
+                node = nxt
+            node[parts[-1]] = value
+        return out
+
     def get(self, key: str, default: Any = None) -> Any:
         return self._data.get(key, default)
 
@@ -217,6 +235,9 @@ class Setting:
 
 
 INDEX_NUMBER_OF_SHARDS = Setting("index.number_of_shards", 5, "int", 1, 1024)
+# replicas are never allocated on one node: the count only shapes health
+# (yellow while any are unassigned) and the write responses' _shards
+INDEX_NUMBER_OF_REPLICAS = Setting("index.number_of_replicas", 1, "int", 0)
 
 # --- mesh data plane (parallel/plan_exec.py) ---
 INDEX_SEARCH_MESH = Setting("index.search.mesh", True, "bool")

@@ -101,8 +101,10 @@ class Engine:
             if version is not None and current_version != version:
                 raise VersionConflictEngineException(doc_id, current_version, version)
             new_version = current_version + 1
-            parsed = self.mapper_service.parse_document(doc_id, source, routing)
+            # the seqno is taken before parsing, as in the JAX package: a
+            # document that fails to parse still uses one up
             seqno = self._next_seqno()
+            parsed = self.mapper_service.parse_document(doc_id, source, routing)
             created = existing is None or existing.deleted
             if existing is not None and not existing.deleted:
                 self._tombstone(existing)
@@ -210,6 +212,12 @@ class Engine:
     def num_docs(self) -> int:
         """Live, searchable doc count (excludes the unrefreshed buffer)."""
         return sum(s.live_doc_count for s in self.segments)
+
+    def close(self) -> None:
+        """Release every segment's device arrays (the index closed)."""
+        with self._lock:
+            for seg in self.segments:
+                seg.release_device()
 
     # ------------------------------------------------------------------
     # Refresh

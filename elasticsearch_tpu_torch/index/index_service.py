@@ -35,9 +35,11 @@ Every response carries the plane that served it in ``"_plane"``
 int (the 6.x shape). A response whose query phase ran the block-max pruned
 program (``search.pallas.pruning.enabled``) carries ``"_pruned":
 {"tiles_scored", "tiles_pruned", "total_relation": "gte"}``: its total
-counts matches in scored tiles only (rendering it as a ``gte`` total
-object waits for REST). The request cache, admission control, scrubbing,
-compaction and telemetry are later slices.
+counts matches in scored tiles only, and the REST layer renders it as
+``{"value", "relation": "gte"}`` (``rest/handlers._render_total_hits``).
+``close`` releases the index's device memory (``Node.delete_index``). The
+request cache, admission control, scrubbing, compaction and telemetry are
+later slices.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from elasticsearch_tpu_torch.common.device import resolve_device
 from elasticsearch_tpu_torch.common.errors import IllegalArgumentException
 from elasticsearch_tpu_torch.common.settings import (
     INDEX_MAPPING_DENSE_VECTOR_MAX_DIMS,
+    INDEX_NUMBER_OF_REPLICAS,
     INDEX_NUMBER_OF_SHARDS,
     INDEX_SEARCH_MESH,
     INDEX_SEARCH_MESH_MAX_SLOTS,
@@ -91,6 +94,12 @@ class IndexService:
         self.settings = settings
         self.device = resolve_device(device)
         self.num_shards = INDEX_NUMBER_OF_SHARDS.get(settings)
+        self.num_replicas = INDEX_NUMBER_OF_REPLICAS.get(settings)
+        self.creation_date = int(time.time() * 1000)
+        self.uuid = f"{name}-{self.creation_date:x}"
+        # the 6.x type name responses echo: the create body's typed
+        # mapping names it, else the first typed-path write (REST)
+        self.doc_type = "_doc"
         # the mesh plane's settings are read when it first serves; parse
         # them now so a bad value fails index creation
         for setting in (INDEX_SEARCH_MESH_MAX_SLOTS, INDEX_SEARCH_MESH_PLANE,
@@ -161,12 +170,26 @@ class IndexService:
     def mapping_dict(self) -> dict:
         return self.mapper_service.mapping_dict()
 
+    def close(self) -> None:
+        """Release what the index holds on its device (the counterpart of
+        ``elasticsearch_tpu/index/index_service.py``'s ``close``): the
+        micro-batcher stops forming groups, the mesh plane drops its
+        staging, and every shard's segments drop their device arrays
+        and kernel tables. The card's memory is the state this index
+        keeps: a delete that left it staged would leak it."""
+        self._batcher.enabled = False
+        self._mesh_enabled = False
+        if self._mesh_search is not None:
+            self._mesh_search._drop_staging()
+        for shard in self.shards.values():
+            shard.close()
+
     # ------------------------------------------------------------------
     # Search
     # ------------------------------------------------------------------
 
     def search(self, body: Optional[dict] = None) -> dict:
-        return self._admitted_dispatch(body or {})
+        return self._admitted_dispatch(_without_relevance_sort(body or {}))
 
     def _admitted_dispatch(self, body: dict) -> dict:
         """Route the query phase through the cross-query micro-batcher
@@ -663,6 +686,20 @@ class IndexService:
             **(ms.plane_health.stats() if ms else PlaneHealth().stats()),
         }
         return {"planes": planes, "batch": self.batch_stats.as_dict()}
+
+
+def _without_relevance_sort(body: dict) -> dict:
+    """A ``sort`` on ``_score`` descending alone is the default relevance
+    order (``?sort=_score`` over REST): served as if absent, like the JAX
+    package does. Any other sort stays, and the search raises."""
+    sort = body.get("sort")
+    if sort is None:
+        return body
+    specs = sort if isinstance(sort, list) else [sort]
+    if specs and all(s in ("_score", {"_score": "desc"},
+                           {"_score": {"order": "desc"}}) for s in specs):
+        return {k: v for k, v in body.items() if k != "sort"}
+    return body
 
 
 def _pure_knn_mesh_clause(body: dict) -> Optional[dict]:

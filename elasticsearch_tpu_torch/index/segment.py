@@ -441,6 +441,34 @@ class Segment:
                     hit = self.dev_cache[key] = _to_device(build(), self.device)
         return hit
 
+    def release_device(self) -> None:
+        """Drop every device array this segment staged (postings, norms,
+        live masks, kernel tables, doc-value and vector columns): the
+        index that owns it closed. The host arrays stay; a later search
+        would stage them again."""
+        with self._stage_lock:
+            self._device = None
+            self._kernel_tables = {}
+            self._kernel_bfmax = {}
+            self.dev_cache = {}
+            self.kernel_codec = None
+            self.kernel_postings_bytes = 0
+            self.kernel_bfmax = None
+
+    def memory_bytes(self) -> int:
+        """Host bytes of the segment's postings, norms and doc-value
+        columns, as the JAX package's ``Segment.memory_bytes`` counts
+        them (``_cat/indices`` store size)."""
+        total = self.block_docs.nbytes + self.block_tfs.nbytes + self.norms.nbytes
+        for c in self.numeric_columns.values():
+            total += c.flat_values.nbytes + c.flat_docs.nbytes + c.first_value.nbytes
+        for c in self.ordinal_columns.values():
+            total += c.flat_ords.nbytes + c.flat_docs.nbytes + c.first_ord.nbytes
+        for c in self.vector_columns.values():
+            # device staging is bf16: half the host mirror's f32 bytes
+            total += c.vectors.nbytes // 2 + c.exists.nbytes
+        return total
+
     def staged_bytes(self) -> int:
         """Bytes this segment holds on its device."""
         tensors = {id(t): t for t in (

@@ -1,8 +1,9 @@
 """IndexShard: one shard's write entry points and its searcher.
 
 Counterpart of ``elasticsearch_tpu/index/shard.py``, cut to an in-memory
-primary: the engine, the ShardSearcher, and the document ops. Recovery,
-operation permits, primary terms and the slow logs are later slices.
+primary: the engine, the ShardSearcher, and the document ops (write
+responses carry primary term 1: nothing fails over). Recovery, operation
+permits and the slow logs are later slices.
 """
 
 from __future__ import annotations
@@ -11,6 +12,9 @@ from typing import Optional
 
 from elasticsearch_tpu_torch.index.engine import Engine
 from elasticsearch_tpu_torch.search.service import ShardSearcher
+
+# the one primary never fails over, so its term stays the first
+PRIMARY_TERM = 1
 
 
 class IndexShard:
@@ -30,11 +34,13 @@ class IndexShard:
         r = self.engine.index(doc_id, source, routing, version, op_type)
         r["_index"] = self.index_name
         r["_shard"] = self.shard_id
+        r["_primary_term"] = PRIMARY_TERM
         return r
 
     def delete_doc(self, doc_id: str, version: Optional[int] = None) -> dict:
         r = self.engine.delete(doc_id, version)
         r["_index"] = self.index_name
+        r["_primary_term"] = PRIMARY_TERM
         return r
 
     def get_doc(self, doc_id: str, realtime: bool = True):
@@ -46,3 +52,6 @@ class IndexShard:
     @property
     def num_docs(self) -> int:
         return self.engine.num_docs
+
+    def close(self) -> None:
+        self.engine.close()

@@ -1,21 +1,29 @@
 """Node: the in-process server API.
 
 Counterpart of ``elasticsearch_tpu/node.py``, cut to this slice's entry
-points: ``create_index``, ``index_doc``, ``bulk``, ``refresh``,
-``get_doc``, ``delete_doc`` and ``search`` over one index (through the
-index's micro-batcher and mesh plane; ``search.batch.*``,
+points: ``create_index``, ``delete_index``, ``index_doc``, ``bulk``,
+``refresh``, ``get_doc``, ``delete_doc``, ``search`` over one index
+(through the index's micro-batcher and mesh plane; ``search.batch.*``,
 ``search.knn.*`` and ``search.pallas.*`` node settings pass to every
 index, the last being the postings codec's node default and block-max
-pruning). A search body may
-carry a top-level ``knn`` section: alone it is a vector search, beside
-``query`` a hybrid one (``IndexService._search_hybrid``). ``Node()`` runs
-on ``cuda`` and raises without a GPU; ``Node(device="cpu")`` runs the
-kernels' plain versions and exists for tests. Nothing is kept on disk (the
-translog, store, REST layer and cluster state are later slices).
+pruning), ``msearch`` (each entry served serially through ``search``) and
+``health``. A search body may carry a top-level ``knn`` section: alone it
+is a vector search, beside ``query`` a hybrid one
+(``IndexService._search_hybrid``). The node owns the named thread pools
+(``common/thread_pool.py``) that the REST layer runs handlers on:
+``rest.http_server.HttpServer(node, port=...)`` serves the
+Elasticsearch-compatible HTTP API over it.
+
+``Node()`` runs on ``cuda`` and raises without a GPU;
+``Node(device="cpu")`` runs the kernels' plain versions and exists for
+tests. Nothing is kept on disk, and there is no cluster state beside the
+``indices`` dict, so no aliases or templates: the translog, store and
+cluster state are later slices.
 """
 
 from __future__ import annotations
 
+import fnmatch
 import time
 import uuid as _uuid
 from typing import Dict, List, Optional
@@ -27,9 +35,13 @@ from elasticsearch_tpu_torch.common.errors import (
     IllegalArgumentException,
     IndexAlreadyExistsException,
     IndexNotFoundException,
+    InvalidIndexNameException,
 )
 from elasticsearch_tpu_torch.common.settings import Settings
+from elasticsearch_tpu_torch.common.thread_pool import ThreadPool
 from elasticsearch_tpu_torch.index.index_service import IndexService
+
+_INVALID_INDEX_CHARS = set(' "*\\<>|,/?#')
 
 MAPPING_TOP_LEVEL_KEYS = {
     "properties", "dynamic", "dynamic_templates", "_source", "_meta",
@@ -53,16 +65,44 @@ class Node:
     def __init__(self, settings: Settings = Settings.EMPTY, device="cuda"):
         self.settings = settings
         self.device = resolve_device(device)
+        self.node_id = _uuid.uuid4().hex[:20]
+        self.node_name = settings.get_str("node.name", "node-0")
+        self.cluster_name = settings.get_str("cluster.name",
+                                             "elasticsearch-tpu")
         self.indices: Dict[str, IndexService] = {}
+        # named bounded executors: the REST layer runs handler work on the
+        # action's pool, and a full queue rejects with 429.
+        # search.queue.size bounds the search pool's queue, as in
+        # elasticsearch_tpu/node.py. Workers start on the first submit.
+        self.thread_pool = ThreadPool(overrides={
+            "search": {"queue_size": settings.get_int(
+                "search.queue.size", 1000)}})
+
+    def close(self) -> None:
+        """Stop the thread pools and release every index's device
+        memory."""
+        self.thread_pool.shutdown()
+        for name in list(self.indices):
+            self.indices.pop(name).close()
 
     # ------------------------------------------------------------------
     # Index APIs
     # ------------------------------------------------------------------
 
+    @staticmethod
+    def _validate_index_name(name: str) -> None:
+        if not name or name != name.lower():
+            raise InvalidIndexNameException(name, "must be lowercase")
+        if name.startswith(("_", "-", "+")):
+            raise InvalidIndexNameException(
+                name, "must not start with '_', '-', or '+'")
+        if any(c in _INVALID_INDEX_CHARS for c in name):
+            raise InvalidIndexNameException(
+                name, "must not contain special characters")
+
     def create_index(self, name: str, body: Optional[dict] = None) -> dict:
         body = body or {}
-        if not name or name != name.lower() or name.startswith(("_", "-", "+")):
-            raise IllegalArgumentException(f"Invalid index name [{name}]")
+        self._validate_index_name(name)
         if name in self.indices:
             raise IndexAlreadyExistsException(name)
         unknown = sorted(set(body) - {"settings", "mappings"})
@@ -79,10 +119,89 @@ class Node:
         for prefix in ("search.batch.", "search.knn.", "search.pallas."):
             settings = self.settings.filtered_by_prefix(prefix).merged_with(
                 settings)
-        mappings, _doc_type = _unwrap_typed_mapping(body.get("mappings") or {})
-        self.indices[name] = IndexService(name, settings, mappings,
-                                          device=self.device)
+        mappings, doc_type = _unwrap_typed_mapping(body.get("mappings") or {})
+        svc = IndexService(name, settings, mappings, device=self.device)
+        svc.doc_type = doc_type
+        self.indices[name] = svc
         return {"acknowledged": True, "shards_acknowledged": True, "index": name}
+
+    def resolve_index_names(self, expression: Optional[str]) -> List[str]:
+        """Index-name expressions: names, wildcards, comma lists, ``_all``
+        (the JAX package's ``ClusterState.resolve_index_names``, without
+        aliases: the port has none). A missing concrete name raises 404;
+        a wildcard may match nothing."""
+        if expression in ("_all", "*", "", None):
+            return sorted(self.indices)
+        out: List[str] = []
+        for part in str(expression).split(","):
+            part = part.strip()
+            if not part:
+                continue
+            if "*" in part:
+                out.extend(n for n in sorted(self.indices)
+                           if fnmatch.fnmatchcase(n, part))
+            elif part in self.indices:
+                out.append(part)
+            else:
+                raise IndexNotFoundException(part)
+        return list(dict.fromkeys(out))
+
+    def delete_index(self, expression: str, ignore_unavailable: bool = False,
+                     allow_no_indices: bool = True) -> dict:
+        """Delete concrete indices, wildcards or ``_all``
+        (``elasticsearch_tpu/node.py``'s ``delete_index`` without
+        aliases). Each deleted index is closed: its device memory is
+        released before the call returns."""
+        names = []
+        for p in str(expression).split(","):
+            if not p:
+                continue
+            if "*" in p or p == "_all":
+                pat = "*" if p == "_all" else p
+                matched = [n for n in sorted(self.indices)
+                           if fnmatch.fnmatchcase(n, pat)]
+                if not matched and not allow_no_indices:
+                    # a dead wildcard fails the whole request before any
+                    # deletion
+                    raise IndexNotFoundException(p)
+                names.extend(matched)
+            else:
+                try:
+                    names.extend(self.resolve_index_names(p))
+                except IndexNotFoundException:
+                    if not ignore_unavailable:
+                        raise
+        names = list(dict.fromkeys(names))
+        if not names and not allow_no_indices:
+            raise IndexNotFoundException(str(expression))
+        for name in names:
+            svc = self.indices.pop(name, None)
+            if svc is not None:
+                svc.close()
+        return {"acknowledged": True}
+
+    def index_metadata(self, name: str) -> dict:
+        """One index's ``GET /{index}`` entry: its create-time settings
+        (nested), its current mapping, aliases (none) and state."""
+        svc = self.index_service(name)
+        return {"settings": svc.settings.as_nested_dict(),
+                "mappings": {"_doc": svc.mapping_dict()},
+                "aliases": {}, "state": "open"}
+
+    def index_settings(self, name: str) -> Dict[str, object]:
+        """One index's flat settings with the defaults ``GET _settings``
+        shows (shard and replica counts, uuid)."""
+        svc = self.index_service(name)
+        settings = svc.settings.as_dict()
+        settings.setdefault("index.number_of_shards", svc.num_shards)
+        settings.setdefault("index.number_of_replicas", svc.num_replicas)
+        settings.setdefault("index.uuid", svc.uuid)
+        return settings
+
+    def index_mapping(self, name: str) -> dict:
+        """One index's ``{type: mapping}`` (the 6.x typed shape)."""
+        svc = self.index_service(name)
+        return {svc.doc_type: svc.mapping_dict()}
 
     def index_service(self, name: str, auto_create: bool = False) -> IndexService:
         svc = self.indices.get(name)
@@ -131,8 +250,11 @@ class Node:
                 f"refresh [{refresh}] is not supported by the PyTorch port yet")
 
     def get_doc(self, index: str, doc_id: str, routing=None,
-                realtime=True) -> dict:
+                realtime=True, refresh=None) -> dict:
         svc = self.index_service(index)
+        if refresh in (True, "true", ""):
+            # GET ?refresh=true refreshes the index before reading
+            svc.refresh()
         g = svc.get_doc(doc_id, routing, realtime=realtime)
         out = {"_index": svc.name, "_type": "_doc", "_id": doc_id,
                "found": g.found}
@@ -172,6 +294,10 @@ class Node:
                 elif action == "delete":
                     r = self.delete_doc(index, doc_id, routing)
                     status = 200 if r.get("found") else 404
+                elif action == "update":
+                    raise IllegalArgumentException(
+                        "bulk [update] is not supported by the PyTorch port "
+                        "yet")
                 else:
                     raise ActionRequestValidationException(
                         f"Malformed action/metadata line, expected one of "
@@ -201,3 +327,47 @@ class Node:
             raise IllegalArgumentException(
                 "multi-index search is not supported by the PyTorch port yet")
         return self.index_service(index).search(body or {})
+
+    def msearch(self, searches: List[tuple]) -> dict:
+        """searches: list of (header, body), each served serially through
+        ``search``; a failed entry answers with its error body."""
+        responses = []
+        for header, body in searches:
+            try:
+                responses.append(self.search(header.get("index", "_all"), body))
+            except ElasticsearchTpuException as e:
+                responses.append(e.to_dict())
+            except Exception as e:  # noqa: BLE001 — one entry's fault
+                responses.append({"error": {"type": type(e).__name__,
+                                            "reason": str(e)}, "status": 500})
+        return {"responses": responses}
+
+    # ------------------------------------------------------------------
+    # Cluster APIs
+    # ------------------------------------------------------------------
+
+    def health(self) -> dict:
+        """_cluster/health on one node: every primary active, no replica
+        assignable, so yellow unless every index has 0 replicas."""
+        n_shards = sum(s.num_shards for s in self.indices.values())
+        unassigned = sum(s.num_shards * s.num_replicas
+                         for s in self.indices.values())
+        total = n_shards + unassigned
+        return {
+            "cluster_name": self.cluster_name,
+            "status": "green" if unassigned == 0 else "yellow",
+            "timed_out": False,
+            "number_of_nodes": 1,
+            "number_of_data_nodes": 1,
+            "active_primary_shards": n_shards,
+            "active_shards": n_shards,
+            "relocating_shards": 0,
+            "initializing_shards": 0,
+            "unassigned_shards": unassigned,
+            "delayed_unassigned_shards": 0,
+            "number_of_pending_tasks": 0,
+            "number_of_in_flight_fetch": 0,
+            "task_max_waiting_in_queue_millis": 0,
+            "active_shards_percent_as_number": (
+                100.0 * n_shards / total if total else 100.0),
+        }

@@ -337,6 +337,18 @@ class MeshPlanExecutor:
             e["mask"] for e in self._knn.values() if isinstance(e, dict)]
         return sum(t.numel() * t.element_size() for t in tensors)
 
+    def release(self) -> None:
+        """Drop everything the executor staged (the stacked tables, the
+        kernel plane's live layouts and slot tables, the kNN masks)."""
+        with self._kernel_stage_lock:
+            self._seg_staged = {}
+            self._kernel = None
+            self._kernel_tables = []
+            self._knn = {}
+            self._ub_cache = {}
+            self.segments = []
+            self.pairs = []
+
     def ensure_kernel(self) -> Optional[dict]:
         """Stage the tile-kernel plane over the stacked segment set: one
         shared tile geometry covering the stacked doc space, the codec
@@ -851,6 +863,15 @@ class IndexMeshSearch:
         with self._counter_lock:
             self.restage_total += 1
         return True
+
+    def _drop_staging(self) -> None:
+        """Drop the staged mesh plane (the index closed); an eligible
+        query after this would stage it again."""
+        with self._stage_lock:
+            executor, self._executor = self._executor, None
+            self._staged_key = None
+        if executor is not None:
+            executor.release()
 
     @staticmethod
     def _needs_counts(q) -> bool:
