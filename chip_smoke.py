@@ -68,11 +68,11 @@ prints no result, when there is no GPU or any check fails. Phases:
    equal); the device kernels of one phase-4 terms_agg request. Prints
    p50 latency per request kind and plane and the per-segment host copy of
    the dense scores and mask.
-6. The kernel summary line (with phase 11's ``rest`` entry), then the
-   device line.
+6. The kernel summary line (with phase 11's ``rest`` entry and phase
+   12's ``aggs`` entry), then the device line.
 
 Run between phases 2 and 3, and after phase 4 (phase 10 after phase 9,
-phase 11 last):
+then phases 11 and 12):
 
 2b. Kernels 1b (dense, q_batch=16, with and without counts) and 1c (fused
     per-tile top-k, q_batch 1 and 16, k=16) on the 1M-doc corpus, for 16
@@ -176,6 +176,32 @@ phase 11 last):
     request kind. The launch counters of tile_scoring*, segment_sum and
     knn_scoring must move; the summary line's ``rest`` entry holds the
     numbers.
+12. Aggregations on the card, after phase 11 (``aggs_phase``): phase 7's
+    pmc-4x256k arrays as new segments with two more doc-value columns
+    (``ts``, a date over one year; ``citations``, a long missing on 3% of
+    docs; drawn from RandomState(seed + 100)), in three indices of one
+    ``Node(device="cuda")``: agg4 (the mesh plane, fused aggregations),
+    agg4h (``search.aggs.fused: false``, the host reduce) and agg4x
+    (``search.mesh: false``, the host rung), and a cpu node. A fused
+    dashboard (terms, date_histogram 1d, histogram, stats, avg,
+    value_count) under a time filter and under match queries equals the
+    host reduce byte for byte; aggregations outside the fused envelope
+    (sub-aggregations, calendar intervals, a sum past 2^53, 8,760 hourly
+    buckets, range, date_range, filters, missing, global, cardinality,
+    percentiles past the sampling threshold, extended_stats, top_hits,
+    pipelines) are counted under the JAX package's reason names; every
+    response equals the cpu node's; a 16-member ``search_batch`` of
+    agg-carrying bodies runs as one dense 1b launch a slot (1d on a
+    packed-codec index over the same segments) and 16 threads at
+    ``Node.search`` form batches, each member equal to its serial
+    response; deletes, then again; one request of each kind over HTTP.
+    Every kernel-2 call (mask form and gather form) is replayed through
+    its plain version and every 1b launch held bit for bit; prints p50
+    per kind on the three indices, the host reduce's copied bytes, the
+    staged doc_values bytes, the fused launches' kernel-2 plans (and one
+    launch over the four slots timed against one launch a slot) and
+    host-clock spans of fused requests and bursts; the summary line's
+    ``aggs`` entry holds them.
 """
 
 from __future__ import annotations
@@ -1090,6 +1116,62 @@ def check_kept_segsum(torch, ssum, kept, label):
         check(ok, f"{label} main-path segment_sum launch {n} (nd "
                   f"{args[0].shape[0]}, n_ords {kw['n_ords']}) equals plain")
     return len(kept)
+
+
+@contextlib.contextmanager
+def recording_mask_segsum(ssum):
+    """While the block runs, keep (args, kwargs, outputs) of every f32-mask
+    segment-sum call on the card (the fused bucket counts, the histogram
+    ops)."""
+    orig = ssum.segment_counts_sums
+    kept = []
+
+    def recording(*args, **kw):
+        out = orig(*args, **kw)
+        if args[0].is_cuda:
+            kept.append((args, kw, out))
+        return out
+
+    ssum.segment_counts_sums = recording
+    try:
+        yield kept
+    finally:
+        ssum.segment_counts_sums = orig
+
+
+def check_kept_mask_segsum(torch, ssum, kept, label):
+    """Replay each kept f32-mask call through the plain version: counts
+    equal, sums within SUM_RTOL / SUM_ATOL of each bucket's sum of |v|."""
+    plans = {}
+    for n, (args, kw, out) in enumerate(kept):
+        ords, mask = args[0], args[1]
+        values = args[2] if len(args) > 2 else kw.get("values")
+        plain = ssum.segment_sum_plain(
+            ords, mask, values, n_ords=kw["n_ords"],
+            with_count=kw.get("with_count", True),
+            with_sum=values is not None)
+        torch.cuda.synchronize()
+        ok = out[0] is None or torch.equal(out[0], plain[0])
+        if out[1] is not None:
+            valid = (mask > 0) & (ords >= 0) & (ords < kw["n_ords"])
+            absum = torch.bincount(
+                ords[valid].long(), weights=ssum.sanitize_values(
+                    values)[valid].abs().double(),
+                minlength=kw["n_ords"]).float()
+            ok = ok and bool(((out[1] - plain[1]).abs()
+                              <= ssum.SUM_RTOL * absum + ssum.SUM_ATOL).all())
+        check(ok, f"{label} segment_sum mask-form launch {n} (nd "
+                  f"{ords.shape[0]}, n_ords {kw['n_ords']}) equals plain")
+        p = ssum.segment_sum_plan(ords.shape[0], kw["n_ords"],
+                                  kw.get("with_count", True),
+                                  values is not None,
+                                  torch.cuda.get_device_properties(
+                                      0).multi_processor_count)
+        key = f"nd {ords.shape[0]} n_ords {kw['n_ords']}"
+        plans[key] = {"path": p.path, "grid": p.grid, "threads": p.threads,
+                      "kernels": p.kernels, "launches":
+                      plans.get(key, {}).get("launches", 0) + 1}
+    return plans
 
 
 # ----------------------------------------------------------------------
@@ -2026,21 +2108,26 @@ def serve_held(torch, tsc, errs, held, gnode, cnode, index, reqs, label,
     """serve(), then every 1a launch (``tile_scoring``) it made held bit
     for bit against its plain version on the very inputs it was given,
     right away (a delete would change them), and every segment-sum call
-    (the terms aggregations) replayed through its plain version. ``held``
+    (the terms aggregations: the gather form of the host reduce, the mask
+    form of the fused plane) replayed through its plain version. ``held``
     counts the launches held, by launch name."""
     from elasticsearch_tpu_torch.ops import segment_sum as ssum
 
     with recording_tile_launches(
             tsc, lambda k: launch_name(k) == "tile_scoring") as kept, \
-            recording_segsum_calls(ssum) as kept_seg:
+            recording_segsum_calls(ssum) as kept_seg, \
+            recording_mask_segsum(ssum) as kept_mask:
         out = serve(gnode, cnode, index, reqs, label, lat, **kw)
     torch.cuda.synchronize()
     held["tile_scoring"] += check_kept_launches(
         torch, tsc, kept, errs, label).get("tile_scoring", 0)
     n_seg = check_kept_segsum(torch, ssum, kept_seg, label)
-    held["segment_sum"] = held.get("segment_sum", 0) + n_seg
-    log(f"[{label}] {n_seg} main-path segment_sum launches held against "
-        f"plain")
+    check_kept_mask_segsum(torch, ssum, kept_mask, label)
+    held["segment_sum"] = (held.get("segment_sum", 0) + n_seg
+                           + len(kept_mask))
+    log(f"[{label}] {n_seg} gather-form and {len(kept_mask)} mask-form "
+        f"(fused bucket counts) main-path segment_sum launches held "
+        f"against plain")
     return out
 
 
@@ -3290,6 +3377,622 @@ def rest_phase(torch, Node, cuda_kernels, ops, inproc_rate, reqs, g7, c7, gP,
     return report
 
 
+# ----------------------------------------------------------------------
+# Aggregations on the card (pmc-4x256k with doc-value columns)
+# ----------------------------------------------------------------------
+
+AGG_T0 = 1_672_531_200_000  # 2023-01-01T00:00:00Z
+AGG_DAY = 86_400_000
+AGG_MISSING = 0.03  # citations: the share of docs without a value
+
+
+def agg_columns(sh, nd_pad, n):
+    """The phase-12 doc-value columns of shard ``sh`` (their own
+    RandomState, seed + 100, so phases 2-11's corpus is unchanged): ``ts``,
+    integer epoch-millis over one year; ``citations``, a zipf count missing
+    on about 3% of docs. Returns Segment.from_arrays numeric columns."""
+    rng = np.random.RandomState(MESH_SEEDS[sh] + 100)
+    ts = AGG_T0 + rng.randint(0, 365 * AGG_DAY, n).astype(np.int64)
+    cit = np.minimum(rng.zipf(1.8, n), 100_000).astype(np.int64)
+    has = rng.rand(n) >= AGG_MISSING
+
+    def column(values, present):
+        docs = np.flatnonzero(present).astype(np.int32)
+        cap = 1
+        while cap < max(len(docs), 1):
+            cap *= 2
+        flat_docs = np.full(cap, nd_pad, np.int32)
+        flat_docs[: len(docs)] = docs
+        flat_values = np.zeros(cap, np.float64)
+        flat_values[: len(docs)] = values[docs]
+        exists = np.zeros(nd_pad, bool)
+        exists[docs] = True
+        first = np.zeros(nd_pad, np.float64)
+        first[docs] = values[docs]
+        lo = np.full(nd_pad, np.inf)
+        lo[docs] = values[docs]
+        hi = np.full(nd_pad, -np.inf)
+        hi[docs] = values[docs]
+        return dict(flat_values=flat_values, flat_docs=flat_docs,
+                    first_value=first, min_value=lo, max_value=hi,
+                    exists=exists, count=len(docs))
+
+    return {"ts": column(ts.astype(np.float64), np.ones(n, bool)),
+            "citations": column(cit.astype(np.float64), has)}
+
+
+def agg_requests(queries):
+    """Phase 12's requests: (kind, body, expected fallback reason or None
+    for the fused plane)."""
+    tok = term_token
+    dash = {
+        "venues": {"terms": {"field": "venue", "size": 10}},
+        "per_day": {"date_histogram": {"field": "ts", "interval": "1d"}},
+        "years": {"histogram": {"field": "year", "interval": 5}},
+        "year_stats": {"stats": {"field": "year"}},
+        "cit_stats": {"stats": {"field": "citations"}},
+        "cit_avg": {"avg": {"field": "citations"}},
+        "ts_count": {"value_count": {"field": "ts"}}}
+    # a dashboard's time filter: the last quarter of the year
+    window = {"range": {"ts": {"gte": "2023-10-01T00:00:00Z"}}}
+    reqs = [("dashboard", {"size": 0, "query": window, "aggs": dash}, None)]
+    for q in queries[:4]:
+        reqs.append(("dashboard_match", {"size": 10, "query": {"match": {
+            "title": " ".join(tok(t) for t in q)}}, "aggs": dash}, None))
+    match = {"match": {"title": " ".join(tok(t) for t in queries[4])}}
+    wide = {"range": {"year": {"gte": 1996}}}  # > 100k matched a segment
+    day_hist = {"date_histogram": {"field": "ts", "interval": "1d"}}
+    other = [
+        ("terms_sub_avg", match, {"v": {"terms": {"field": "venue"}, "aggs": {
+            "c": {"avg": {"field": "citations"}}}}}, "sub_aggs"),
+        ("calendar_month", window, {"m": {"date_histogram": {
+            "field": "ts", "interval": "month"}}}, "unsupported_params"),
+        ("stats_ts", match, {"s": {"stats": {"field": "ts"}}},
+         "values_not_fusable"),
+        ("hourly", window, {"h": {"date_histogram": {
+            "field": "ts", "interval": "1h"}}}, "bucket_range"),
+        ("range", match, {"r": {"range": {"field": "citations", "ranges": [
+            {"to": 2}, {"from": 2, "to": 10}, {"from": 10}]}}},
+         "unsupported_agg"),
+        ("date_range", wide, {"r": {"date_range": {"field": "ts", "ranges": [
+            {"to": "2023-04-01"}, {"from": "2023-04-01", "to": "2023-07-01"},
+            {"from": "2023-07-01"}]}}}, "unsupported_agg"),
+        ("filters", match, {"f": {"filters": {"filters": {
+            "old": {"range": {"year": {"lt": 2000}}},
+            "cited": {"range": {"citations": {"gte": 5}}}}}}},
+         "unsupported_agg"),
+        ("missing", match, {"m": {"missing": {"field": "citations"}}},
+         "unsupported_agg"),
+        ("global", match, {"g": {"global": {}, "aggs": {
+            "v": {"terms": {"field": "venue", "size": 3}}}}},
+         "unsupported_agg"),
+        ("cardinality", wide, {"c": {"cardinality": {"field": "venue"}},
+                               "cy": {"cardinality": {"field": "citations"}}},
+         "unsupported_agg"),
+        ("percentiles", wide, {"p": {"percentiles": {
+            "field": "citations", "percents": [50, 90, 99]}}},
+         "unsupported_agg"),
+        ("extended_stats", match, {"e": {"extended_stats": {
+            "field": "citations"}}}, "unsupported_agg"),
+        ("top_hits", match, {"t": {"top_hits": {"size": 3}}},
+         "unsupported_agg"),
+        ("pipelines", window, {"d": dict(day_hist, aggs={
+            "s": {"sum": {"field": "citations"}},
+            "der": {"derivative": {"buckets_path": "s"}},
+            "cum": {"cumulative_sum": {"buckets_path": "s"}},
+            "mov": {"moving_avg": {"buckets_path": "s", "window": 7}},
+            "sel": {"bucket_selector": {"buckets_path": {"n": "_count"},
+                                        "script": "params.n > 0"}},
+            "srt": {"bucket_sort": {"sort": [{"s": {"order": "desc"}}],
+                                    "size": 5}}})}, "sub_aggs"),
+        ("avg_bucket", window, {"d": day_hist, "a": {"avg_bucket": {
+            "buckets_path": "d>_count"}}}, "unsupported_agg"),
+    ]
+    for kind, query, aggs, reason in other:
+        reqs.append((kind, {"size": 0 if query is not match else 5,
+                            "query": query, "aggs": aggs}, reason))
+    return reqs
+
+
+def same_aggs(a, b, tol_scores=False):
+    """Aggregations equal; with ``tol_scores`` the top_hits scores within
+    RTOL (ids exact)."""
+    if not tol_scores:
+        return a == b
+    if isinstance(a, dict) and isinstance(b, dict):
+        if set(a) != set(b):
+            return False
+        return all(
+            np.allclose(a[k], b[k], rtol=RTOL) if k == "_score"
+            else same_aggs(a[k], b[k], True) for k in a)
+    if isinstance(a, list) and isinstance(b, list):
+        return len(a) == len(b) and all(same_aggs(x, y, True)
+                                        for x, y in zip(a, b))
+    return a == b
+
+
+@contextlib.contextmanager
+def timed_spans(torch, targets):
+    """While the block runs, each (owner, attribute) callable of
+    ``targets`` adds its host-clock ms, the device synced before and
+    after, to ``spans[label]``."""
+    spans = {}
+    saved = []
+    for owner, attr, label in targets:
+        orig = getattr(owner, attr)
+        saved.append((owner, attr, orig))
+
+        def timed(*args, _orig=orig, _label=label, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _orig(*args, **kw)
+            torch.cuda.synchronize()
+            spans[_label] = spans.get(_label, 0.0) + (
+                time.perf_counter() - t0) * 1000
+            return out
+
+        setattr(owner, attr, timed)
+    try:
+        yield spans
+    finally:
+        for owner, attr, orig in saved:
+            setattr(owner, attr, orig)
+
+
+def agg_spans(torch, gnode, reqs, queries, reps=5):
+    """Where a fused request's time goes, as host-clock spans with the
+    device synced at each end: the serial dashboards (10 of each kind) and
+    ``reps`` agg bursts of 16 on agg4. Spans: the whole request, the
+    resolution (with staging), the program (``execute``, or
+    ``execute_batched_dense_agg``: kernels and torch ops), the partials'
+    finalize, and the host fetch. Returns ms per request (per burst)."""
+    from elasticsearch_tpu_torch.index import index_service
+    from elasticsearch_tpu_torch.parallel import plan_exec
+    from elasticsearch_tpu_torch.search import fused_aggs
+
+    Ex = plan_exec.MeshPlanExecutor
+    targets = [(plan_exec.IndexMeshSearch, "_resolve_fused_aggs", "resolve"),
+               (Ex, "execute", "program"),
+               (Ex, "execute_batched_dense_agg", "batched_program"),
+               (fused_aggs, "finalize_fused", "finalize"),
+               (index_service, "fetch_hits", "fetch")]
+    out = {}
+    svc = gnode.indices["agg4"]
+    dash = reqs[0][1]["aggs"]
+    bodies = [{"query": {"match": {"title": " ".join(
+        term_token(t) for t in q)}}, "size": 10, "aggs": dash}
+        for q in queries[:BURST]]
+    cases = [("dashboard", [b for k, b, _r in reqs if k == "dashboard"]),
+             ("dashboard_match", [b for k, b, _r in reqs
+                                  if k == "dashboard_match"])]
+    for kind, kind_bodies in cases:
+        with timed_spans(torch, targets) as spans:
+            t0 = time.perf_counter()
+            n = 0
+            for _ in range(10 // len(kind_bodies) + 1):
+                for body in kind_bodies:
+                    gnode.search("agg4", dict(body))
+                    n += 1
+            torch.cuda.synchronize()
+            total = (time.perf_counter() - t0) * 1000
+        out[kind] = {"request": total / n,
+                     **{k: v / n for k, v in spans.items()}}
+    with timed_spans(torch, targets) as spans:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            svc.search_batch([dict(b) for b in bodies])
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1000
+    out[f"search_batch[{BURST}]"] = {"burst": total / reps,
+                                     **{k: v / reps for k, v in spans.items()}}
+    return out
+
+
+def time_bucket_forms(torch, ssum, timer, kept_m):
+    """The fused bucket counts as the plane launches them (one f32-mask
+    launch over every slot, codes offset by slot * nb) against one launch
+    a slot (the codes rebased to [0, nb)), on the largest kept call's real
+    inputs; and bincount over the valid entries (the library call). Counts
+    must agree."""
+    args, kw, _out = max(kept_m, key=lambda e: e[2][0].shape[0])
+    ords, mask = args[0], args[1]
+    n_ords = kw["n_ords"]
+    n_slots = 4
+    nb = n_ords // n_slots
+    per = ords.reshape(n_slots, -1)
+    base = (torch.arange(n_slots, device=ords.device, dtype=torch.int32)
+            * nb)[:, None]
+    rebased = [torch.where(per[i] >= 0, per[i] - base[i], per[i]).contiguous()
+               for i in range(n_slots)]
+    # copies: a slot's row of the stacked mask need not start on the
+    # 16-byte boundary the kernel reads from
+    masks = [m.clone() for m in mask.reshape(n_slots, -1)]
+    whole = ssum.segment_counts_sums(ords, mask, n_ords=n_ords)[0]
+    split = torch.cat([ssum.segment_counts_sums(
+        rebased[i], masks[i], n_ords=nb)[0] for i in range(n_slots)])
+    torch.cuda.synchronize()
+    check(torch.equal(whole, split),
+          "phase 12 fused bucket counts: one launch equals one a slot")
+    valid = (mask > 0) & (ords >= 0)
+    one_ms = timer.ms(lambda: ssum.segment_counts_sums(ords, mask,
+                                                       n_ords=n_ords))
+    per_slot_ms = timer.ms(lambda: [ssum.segment_counts_sums(
+        rebased[i], masks[i], n_ords=nb) for i in range(n_slots)])
+    library_ms = timer.ms(lambda: torch.bincount(
+        ords[valid].long(), minlength=n_ords))
+    # bytes: the codes and the mask read once, the counts written once
+    b = bound(ords.numel() * 8 + n_ords * 4, ords.numel())
+    return {"nd": int(ords.numel()), "n_ords": int(n_ords),
+            "one_launch_ms": one_ms, "per_slot_ms": per_slot_ms,
+            "library_ms": library_ms, "bound_ms": b[0], "bound_by": b[1]}
+
+
+def aggs_phase(torch, Node, Segment, cuda_kernels, tsc, queries, lat,
+               launches, errs, shard_arrays):
+    """Phase 12: aggregations on the card.
+
+    pmc-4x256k (phase 7's arrays as new segments) with doc-value columns
+    ``ts`` (date) and ``citations`` (long, 3% missing) beside ``venue``
+    and ``year``, on a Node(device="cuda") in three indices over the same
+    segments: agg4 (the mesh plane, fused aggregations), agg4h
+    (``search.aggs.fused: false``: the host reduce over the program's
+    views) and agg4x (``search.mesh: false``: the host rung); and a
+    Node(device="cpu") over the same arrays.
+
+    12a. A fused dashboard, size 0 under a time filter; 12b the same
+         aggregations under match queries, size 10: fused on agg4
+         (``agg_fused_query_total`` moves), byte for byte the agg4h
+         response, equal to agg4x and to the cpu node.
+    12c. Aggregations the fused plane does not take, each counted under
+         the JAX package's reason name, equal on every index and node.
+    12d. One search_batch of 16 agg-carrying match bodies on agg4 (the
+         batched dense agg program: one 1b launch a slot), each member
+         equal to its serial response; then 16 threads at Node.search;
+         before the deletes, the same burst on agg4p, a packed-codec index
+         over the same segments (one 1d launch a slot).
+    12e. Deletes, refresh, 12a-12d again.
+    12f. One 12a and one 12c request over HTTP (an HttpServer as phase 11
+         starts), equal to the in-process response.
+    Every kernel-2 call (mask form: the fused bucket counts; gather form:
+    the terms host reduce) is replayed through its plain version; every
+    1b launch of the batched agg program is held bit for bit; the launch
+    counters of segment_sum and tile_scoring_batched must move; zero plane
+    faults. Prints p50 per request kind on the three indices, the host
+    mask bytes a host-reduce request copies, the staged doc_values bytes
+    per column and the kernel-2 plan of the fused bucket launches, the
+    venue bucket counts' one launch over the slots timed against one
+    launch a slot, and host-clock spans (resolve, program, finalize,
+    fetch) of the fused dashboards and bursts. Also runs histogram_counts
+    / value_histogram_sums on the card at a shard's ts column against
+    their plain versions. Returns the report."""
+    import threading
+
+    from elasticsearch_tpu_torch.ops import aggs as agg_ops
+    from elasticsearch_tpu_torch.ops import segment_sum as ssum
+    from elasticsearch_tpu_torch.rest.http_server import HttpServer
+
+    t_phase = time.perf_counter()
+    mapping = {"_doc": {"properties": {
+        "title": {"type": "text"}, "venue": {"type": "keyword"},
+        "year": {"type": "long"}, "ts": {"type": "date"},
+        "citations": {"type": "long"}}}}
+    indices = {"agg4": {}, "agg4h": {"search": {"aggs": {"fused": False}}},
+               "agg4x": {"search": {"mesh": False}}}
+    gnode, cnode = Node(device="cuda"), Node(device="cpu")
+    for name, extra in indices.items():
+        gnode.create_index(name, {"settings": {"number_of_shards": 4,
+                                               **extra},
+                                  "mappings": mapping})
+    cnode.create_index("agg4", {"settings": {"number_of_shards": 4},
+                                "mappings": mapping})
+    gsegs = []
+    for sh, arrays in enumerate(shard_arrays):
+        arrays = dict(arrays)
+        nd_pad = arrays["numeric_columns"]["year"]["exists"].shape[0]
+        n = len(arrays["doc_ids"])
+        arrays["numeric_columns"] = {**arrays["numeric_columns"],
+                                     **agg_columns(sh, nd_pad, n)}
+        gs = Segment.from_arrays(f"agg4_{sh}_seg_1", device="cuda", **arrays)
+        cs = Segment.from_arrays(f"agg4_{sh}_seg_1", device="cpu", **arrays)
+        for name in indices:
+            gnode.indices[name].shards[sh].engine.adopt_segment(gs)
+        cnode.indices["agg4"].shards[sh].engine.adopt_segment(cs)
+        gsegs.append(gs)
+    svc, svch = gnode.indices["agg4"], gnode.indices["agg4h"]
+    reqs = agg_requests(queries)
+    report = {"p50_ms": {}, "fallbacks": {}}
+    p12 = {}
+
+    def serve_all(label):
+        """Every request on agg4, agg4h, agg4x and the cpu node, compared;
+        the fallback reason of each non-fused kind checked."""
+        for kind, body, reason in reqs:
+            ms = svc._mesh_search
+            fused0 = ms.agg_fused_query_total if ms else 0
+            by0 = dict(ms.agg_host_fallback_by_reason) if ms else {}
+            out = {}
+            for name in indices:
+                t0 = time.perf_counter()
+                out[name] = gnode.search(name, dict(body))
+                torch.cuda.synchronize()
+                lat.setdefault(f"12/{kind}@{name}", []).append(
+                    (time.perf_counter() - t0) * 1000)
+            cr = cnode.search("agg4", dict(body))
+            gr = out["agg4"]
+            what = f"{label} {kind}"
+            ms = svc._mesh_search
+            by = {k: v - by0.get(k, 0) for k, v in
+                  ms.agg_host_fallback_by_reason.items()
+                  if v != by0.get(k, 0)}
+            if reason is None:
+                check(ms.agg_fused_query_total == fused0 + 1 and not by,
+                      f"{what}: served fused ({by})")
+                # the fused plane against the host reduce of the same
+                # card node: byte for byte
+                check(_same_exact(gr, out["agg4h"])
+                      and gr["aggregations"] == out["agg4h"]["aggregations"],
+                      f"{what}: fused equals the host reduce byte for byte")
+            else:
+                check(by == {reason: 1}
+                      and ms.agg_fused_query_total == fused0,
+                      f"{what}: host reduce counted as {reason} (got {by})")
+                report["fallbacks"][kind] = reason
+            check(gr["_plane"] == out["agg4h"]["_plane"] == cr["_plane"]
+                  and out["agg4x"]["_plane"] == "host"
+                  and gr["_plane"] in ("mesh", "mesh_pallas"),
+                  f"{what}: planes {gr['_plane']} / "
+                  f"{out['agg4h']['_plane']} / {out['agg4x']['_plane']} / "
+                  f"cpu {cr['_plane']}")
+            same_response(gr, cr, f"{what} (cpu node)")
+            for name in ("agg4h", "agg4x"):
+                r = out[name]
+                check(r["hits"]["total"] == gr["hits"]["total"]
+                      and same_aggs(r["aggregations"], gr["aggregations"],
+                                    tol_scores=name == "agg4x"),
+                      f"{what}: {name} equals agg4")
+
+    def burst(label):
+        """search_batch of 16 agg-carrying match bodies, then 16 threads."""
+        dash = reqs[0][1]["aggs"]
+        small = {"venues": dash["venues"], "per_day": dash["per_day"],
+                 "cit_stats": dash["cit_stats"]}
+        bodies = [{"query": {"match": {"title": " ".join(
+            term_token(t) for t in q)}}, "size": 10,
+            "aggs": dash if i % 2 == 0 else small}
+            for i, q in enumerate(queries[:BURST])]
+        serial = [gnode.search("agg4", dict(b)) for b in bodies]
+        ms = svc._mesh_search
+        launches0 = ms.batched_launch_total
+        fused0 = ms.agg_fused_query_total
+        t0 = time.perf_counter()
+        out = svc.search_batch([dict(b) for b in bodies])
+        torch.cuda.synchronize()
+        lat.setdefault(f"12/search_batch[{BURST}]@agg4", []).append(
+            (time.perf_counter() - t0) * 1000)
+        check(ms.batched_launch_total == launches0 + 1
+              and ms.agg_fused_query_total == fused0 + BURST,
+              f"{label}: one batched dense agg launch served the "
+              f"{BURST} members fused")
+        for i, (got, want) in enumerate(zip(out, serial)):
+            check(isinstance(got, dict) and got["_plane"] == "mesh_pallas"
+                  and _same_exact(got, want)
+                  and got["aggregations"] == want["aggregations"],
+                  f"{label} batch member {i} equals its serial response")
+        before = svc.batch_stats.as_dict()["batched_query_total"]
+        got = {}
+        start = threading.Barrier(BURST)
+
+        def worker(i):
+            start.wait()
+            t1 = time.perf_counter()
+            got[i] = gnode.search("agg4", dict(bodies[i]))
+            torch.cuda.synchronize()
+            lat.setdefault(f"12/threaded@{got[i]['_plane']}", []).append(
+                (time.perf_counter() - t1) * 1000)
+
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(BURST)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300.0)
+            check(not t.is_alive(), f"{label} threaded search finished")
+        for i in range(BURST):
+            check(_same_exact(got.get(i), serial[i])
+                  and got[i]["aggregations"] == serial[i]["aggregations"],
+                  f"{label} threaded member {i} equals its serial response")
+        log(f"[phase 12] {label} threaded: batched_query_total "
+            f"{before} -> {svc.batch_stats.as_dict()['batched_query_total']}")
+
+    def packed_burst():
+        """The same burst on a packed-codec index over the same segments
+        (kernel 1d dense at Q = 16): members equal their serial responses
+        there, and their aggregations equal agg4's (the same matched
+        docs)."""
+        gnode.create_index("agg4p", {"settings": {
+            "number_of_shards": 4,
+            "search": {"pallas": {"postings_codec": "packed"}}},
+            "mappings": mapping})
+        for sh, gs in enumerate(gsegs):
+            gnode.indices["agg4p"].shards[sh].engine.adopt_segment(gs)
+        dash = reqs[0][1]["aggs"]
+        bodies = [{"query": {"match": {"title": " ".join(
+            term_token(t) for t in q)}}, "size": 10, "aggs": dash}
+            for q in queries[:BURST]]
+        serial = [gnode.search("agg4p", dict(b)) for b in bodies]
+        raw = [gnode.search("agg4", dict(b)) for b in bodies]
+        out = gnode.indices["agg4p"].search_batch([dict(b) for b in bodies])
+        torch.cuda.synchronize()
+        ms = gnode.indices["agg4p"]._mesh_search
+        check(ms.batched_launch_total == 1
+              and ms.agg_fused_query_total == 2 * BURST,
+              "phase 12 packed: one batched dense agg launch, fused")
+        for i, got in enumerate(out):
+            check(isinstance(got, dict) and got["_plane"] == "mesh_pallas"
+                  and _same_exact(got, serial[i])
+                  and got["aggregations"] == serial[i]["aggregations"]
+                  == raw[i]["aggregations"],
+                  f"phase 12 packed batch member {i} equals its serial "
+                  f"response, its aggregations the raw index's")
+
+    torch.cuda.synchronize()
+    cuda_kernels.reset_launch_counts()
+    with recording_tile_launches(
+            tsc, lambda k: launch_name(k).startswith(
+                "tile_scoring_batched")) as kept_b, \
+            recording_segsum_calls(ssum) as kept_g, \
+            recording_mask_segsum(ssum) as kept_m:
+        serve_all("phase 12")
+        burst("phase 12")
+        packed_burst()
+        routing = _routing_for_shards(4)
+        for sh in range(4):
+            for i in range(0, MESH_SHARD_DOCS, 1009):
+                for node, names in ((gnode, indices), (cnode, ("agg4",))):
+                    for name in names:
+                        node.delete_doc(name, f"s{sh}p{i}",
+                                        routing=routing[sh])
+        for name in indices:
+            gnode.refresh(name)
+        cnode.refresh("agg4")
+        serve_all("phase 12 after deletes")
+        burst("phase 12 after deletes")
+    torch.cuda.synchronize()
+    p12 = dict(cuda_kernels.LAUNCHES)
+    log(f"[phase 12] kernel launches: {p12}")
+    for k in ("segment_sum", "tile_scoring_batched",
+              "tile_scoring_batched_packed", "tile_scoring"):
+        check(p12.get(k, 0) > 0, f"phase 12 launched {k}")
+    for k, v in p12.items():
+        launches[k] += v
+    held_b = check_kept_launches(torch, tsc, kept_b, errs, "phase 12")
+    check(sum(held_b.values()) == p12["tile_scoring_batched"]
+          + p12.get("tile_scoring_batched_packed", 0),
+          f"every 1b / 1d launch of phase 12 held against plain "
+          f"({held_b})")
+    n_g = check_kept_segsum(torch, ssum, kept_g, "phase 12")
+    plans = check_kept_mask_segsum(torch, ssum, kept_m, "phase 12")
+    n_m = len(kept_m)
+    check(n_g + n_m == p12["segment_sum"],
+          f"every segment_sum launch of phase 12 held against plain (gather "
+          f"{n_g} + mask {n_m} of {p12['segment_sum']})")
+    report["launches"] = {"segment_sum_mask_form": n_m,
+                          "segment_sum_gather_form": n_g,
+                          "segment_sum_combine": p12.get(
+                              "segment_sum_combine", 0),
+                          "tile_scoring": p12.get("tile_scoring", 0),
+                          "tile_scoring_batched": p12["tile_scoring_batched"],
+                          "tile_scoring_batched_packed": p12[
+                              "tile_scoring_batched_packed"]}
+    report["fused_bucket_plans"] = plans
+    log(f"[phase 12] kernel-2 plans of the mask-form launches "
+        f"(the fused bucket counts): {json.dumps(plans)}")
+    report["bucket_launch_forms"] = time_bucket_forms(
+        torch, ssum, Timer(torch, torch.device("cuda", 0)), kept_m)
+    log(f"[phase 12] fused bucket counts, one launch over the slots "
+        f"against one a slot: {json.dumps(report['bucket_launch_forms'])}")
+    for name in indices:
+        planes = gnode.indices[name].search_stats()["planes"]
+        log(f"[phase 12] {name} planes: " + json.dumps({
+            k: planes[k] for k in (
+                "agg_fused_query_total", "agg_host_fallback_total",
+                "agg_host_fallback_by_reason", "agg_host_mask_bytes_total",
+                "mesh_query_total", "mesh_batched_launch_total",
+                "host_query_total", "plane_failures_total")}))
+    planes_h = svch.search_stats()["planes"]
+    report["host_mask_bytes_per_request"] = (
+        planes_h["agg_host_mask_bytes_total"]
+        / max(planes_h["agg_host_fallback_total"], 1))
+    executor = svc._mesh_search._executor
+    report["doc_values_bytes"] = {
+        k: t.numel() * t.element_size()
+        for k, t in sorted(executor._seg_staged.items())
+        if k.startswith("maggs.")}
+    log(f"[phase 12] host reduce copies "
+        f"{report['host_mask_bytes_per_request']:.0f} bytes of masks and "
+        f"scores a request; staged doc_values bytes per column: "
+        f"{json.dumps(report['doc_values_bytes'])}")
+    fails = plane_failures(*(gnode.indices[n] for n in indices),
+                           cnode.indices["agg4"])
+    check(not any(fails), f"phase 12: zero plane faults (got {fails})")
+
+    # the p50s: 5 more runs of the dashboard kinds, 3 of the others, per
+    # index
+    for kind, body, _reason in reqs:
+        reps = 5 if kind.startswith("dashboard") else 3
+        for name in indices:
+            xs = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                gnode.search(name, dict(body))
+                torch.cuda.synchronize()
+                xs.append((time.perf_counter() - t0) * 1000)
+            lat.setdefault(f"12/{kind}@{name}", []).extend(xs)
+    for kind in dict.fromkeys(kind for kind, _b, _r in reqs):
+        row = {name: float(np.median(lat[f"12/{kind}@{name}"]))
+               for name in indices}
+        report["p50_ms"][kind] = row
+        log(f"[phase 12] p50 {kind}: fused rung (agg4) {row['agg4']:.3f} ms, "
+            f"host reduce (agg4h) {row['agg4h']:.3f} ms, host rung (agg4x) "
+            f"{row['agg4x']:.3f} ms")
+    report["spans_ms"] = agg_spans(torch, gnode, reqs, queries)
+    log(f"[phase 12] where a request's time goes (host clock, device synced "
+        f"at each span's ends): {json.dumps(report['spans_ms'])}")
+
+    # the histogram ops on the card: shard 0's ts column at daily buckets,
+    # a match query's matched mask; each against its plain version
+    seg = gsegs[0]
+    col = seg.numeric_columns["ts"]
+    dev = seg.device
+    docs = torch.from_numpy(col.flat_docs).to(dev)
+    vals = torch.from_numpy(col.flat_values).to(dev)
+    m = np.zeros(seg.nd_pad + 1, bool)
+    m[: seg.nd_pad] = seg.live & (np.arange(seg.nd_pad) % 3 == 0)
+    mask = torch.from_numpy(m).to(dev)
+    cit = seg.numeric_columns["citations"]
+    by_doc = torch.from_numpy(np.concatenate([cit.first_value, [0.0]])).to(dev)
+    mkey = AGG_T0 // AGG_DAY
+    with recording_mask_segsum(ssum) as kept_h:
+        hc = agg_ops.histogram_counts(docs, vals, mask, float(AGG_DAY), 0.0,
+                                      mkey, 366)
+        hs = agg_ops.value_histogram_sums(docs, vals, by_doc, mask,
+                                          float(AGG_DAY), 0.0, mkey, 366)
+    torch.cuda.synchronize()
+    hplans = check_kept_mask_segsum(torch, ssum, kept_h, "phase 12 histogram")
+    cpu = [x.cpu() for x in (docs, vals, mask, by_doc)]
+    hc_p = agg_ops.histogram_counts(cpu[0], cpu[1], cpu[2], float(AGG_DAY),
+                                    0.0, mkey, 366)
+    check(torch.equal(hc.cpu(), hc_p) and int(hc.sum()) == int(
+        m[col.flat_docs[: col.count]].sum()),
+          "phase 12 histogram_counts on the card equals plain")
+    report["histogram_ops"] = {"plans": hplans,
+                               "buckets": 366, "docs": int(col.count),
+                               "sum_max": float(hs.abs().max())}
+    log(f"[phase 12] histogram_counts / value_histogram_sums on the card: "
+        f"{json.dumps(report['histogram_ops'])}")
+
+    # 12f: over HTTP
+    srv = HttpServer(gnode, port=0)
+    srv.start()
+    try:
+        client = HttpClient(srv.port)
+        for kind, body, _reason in (reqs[0], next(
+                r for r in reqs if r[0] == "date_range")):
+            st, got = client.call("POST", "/agg4/_search", body)
+            want = _as_json(gnode.search("agg4", dict(body)))
+            check(st == 200 and _same_but_took(got, want),
+                  f"phase 12f {kind} over HTTP equals the in-process "
+                  f"response")
+        client.close()
+    finally:
+        srv.stop()
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[phase 12] done in {report['seconds']:.1f} s")
+    for node in (gnode, cnode):
+        node.close()
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -3606,6 +4309,13 @@ def main() -> int:
         torch, Node, cuda_kernels, ops, INGEST_DOCS / ingest_s, reqs, g7, c7,
         gP, queries, top_rank_term, knn_bodies, launches)
 
+    # ---------------- phase 12: aggregations on the card -----------------
+    aggs_report = aggs_phase(torch, Node, Segment, cuda_kernels, tsc, queries,
+                             lat, launches, batch_errs, shard_arrays)
+    seg_held["phase 12"] = (aggs_report["launches"]["segment_sum_mask_form"]
+                            + aggs_report["launches"]
+                            ["segment_sum_gather_form"])
+
     # ---------------- phase 5: latency summary ---------------------------
     for kind, xs in sorted(lat.items()):
         log(f"[phase 5] p50 phase {kind}: {float(np.median(xs)):.3f} ms over "
@@ -3704,7 +4414,7 @@ def main() -> int:
              "plain_ms", "bound_ms", "bound_by", "library_ms")}
              for e in knn_entries],
          **knn_staging},
-    ], "rest": rest_report}
+    ], "rest": rest_report, "aggs": aggs_report}
     for name, key, replaces, extra in (
             ("tile_scoring_packed", "tile_scoring_packed", 656,
              ("ms_with_counts", "bound_ms_with_counts", "plan")),

@@ -286,3 +286,13 @@ SEARCH_PALLAS_PRUNING_ENABLED = Setting(
 SEARCH_PALLAS_PRUNING_PROBE_TILES = Setting(
     "search.pallas.pruning.probe_tiles", 8, "int",
     choices={2, 4, 8, 16, 32})
+
+# --- fused aggregations (search/fused_aggs.py, the mesh plane) ---
+# reduce eligible aggregations inside the mesh program instead of copying
+# the per-slot matched masks to the host; false: every aggregation runs
+# the host reduce (the same bytes either way)
+SEARCH_AGGS_FUSED = Setting("search.aggs.fused", True, "bool")
+# per-index override; "default" follows the node
+INDEX_SEARCH_AGGS_FUSED = Setting(
+    "index.search.aggs.fused", "default", "str",
+    choices={"default", "true", "false"})

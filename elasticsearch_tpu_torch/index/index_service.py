@@ -22,7 +22,8 @@ rank fusion (``rank: {rrf: ...}``) or convex score fusion.
 
 ``search_batch`` splits pure-kNN members off onto one batched kernel-3
 launch (``IndexMeshSearch.query_knn_batch``); the others take two rungs:
-the mesh plane's batched fused top-k launch
+the mesh plane's batched fused top-k launch, or for agg-carrying members
+its batched dense agg launch with fused aggregations
 (``IndexMeshSearch.query_batch``), else one batched dense launch per
 segment (``_host_batch_scores``) feeding each member's host pipeline
 through score caches; members neither rung can share run serially.
@@ -659,7 +660,8 @@ class IndexService:
     def search_stats(self) -> dict:
         """Which plane served the queries, the mesh plane's health, the
         pruned scoring's tile economy, the postings codec and the posting
-        bytes staged, and the batcher's counters."""
+        bytes staged, the fused aggregations and the host reduce's
+        fallbacks by reason, and the batcher's counters."""
         from elasticsearch_tpu_torch.parallel.plan_exec import PlaneHealth
 
         ms = self._mesh_search
@@ -681,6 +683,13 @@ class IndexService:
                                if executor is not None else None),
             "postings_bytes_staged": sum(
                 seg.postings_bytes_staged() for seg in segs.values()),
+            "agg_fused_query_total": ms.agg_fused_query_total if ms else 0,
+            "agg_host_fallback_total": (ms.agg_host_fallback_total
+                                        if ms else 0),
+            "agg_host_fallback_by_reason": (
+                dict(ms.agg_host_fallback_by_reason) if ms else {}),
+            "agg_host_mask_bytes_total": (ms.host_mask_bytes_total
+                                          if ms else 0),
             "host_query_total": self.host_query_total,
             "decisions": dict(ms.decisions) if ms else {},
             **(ms.plane_health.stats() if ms else PlaneHealth().stats()),

@@ -165,6 +165,7 @@ class Segment:
         self.live = np.ones(self.nd_pad, dtype=bool)
         self.live[num_docs:] = False
         self._id_to_doc: Optional[Dict[str, int]] = None
+        self._exists_masks: Optional[Dict[str, np.ndarray]] = None
         self._device: Optional[dict] = None
         # doc-value columns staged on demand (key -> tensor)
         self.dev_cache: Dict[str, Any] = {}
@@ -258,6 +259,32 @@ class Segment:
                 sub = (self.kernel_geom.tile_sub if key == "k_live_t"
                        else int(key.rsplit("_", 1)[1]))
                 dev[key] = self._build_live_t_device(sub)
+
+    def terms_for_field(self, field_name: str) -> List[Tuple[str, int]]:
+        """All (token, term_id) of a field, in sorted token order."""
+        prefix = f"{field_name}{FIELD_SEP}"
+        lo = bisect.bisect_left(self.term_keys, prefix)
+        hi = bisect.bisect_left(self.term_keys, prefix + "\uffff")
+        return [(self.term_keys[i][len(prefix):], i) for i in range(lo, hi)]
+
+    @property
+    def exists_masks(self) -> Dict[str, np.ndarray]:
+        """field -> [nd_pad] bool: the docs that hold a value of the field
+        (the JAX package's ``exists_masks``, built at seal from the fields
+        each doc indexed): a term of it (its norms row counts the doc's
+        tokens) or a doc value or vector. Derived once from the columns."""
+        masks = self._exists_masks
+        if masks is None:
+            masks = {}
+            for f, i in self.field_norm_idx.items():
+                masks[f] = self.norms[i, : self.nd_pad] > 0
+            for cols in (self.numeric_columns, self.ordinal_columns,
+                         self.vector_columns):
+                for f, col in cols.items():
+                    masks[f] = (masks[f] | col.exists if f in masks
+                                else col.exists.copy())
+            self._exists_masks = masks
+        return masks
 
     def term_id(self, field_name: str, token: str) -> int:
         key = f"{field_name}{FIELD_SEP}{token}"

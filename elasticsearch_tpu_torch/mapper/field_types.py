@@ -2,14 +2,16 @@
 
 Counterpart of ``elasticsearch_tpu/mapper/field_types.py``, cut to the
 types the port serves: ``text``, ``keyword``, ``long``, ``integer``,
-``double`` (and ``float``, which dynamic mapping picks for JSON floats)
-and ``dense_vector``.
+``double`` (and ``float``, which dynamic mapping picks for JSON floats),
+``date``, ``boolean`` and ``dense_vector``.
 Any other type raises the JAX package's "No handler for type" error.
-Numeric doc values are float64, as in the JAX package (x64 is on there).
+Numeric doc values are float64, as in the JAX package (x64 is on there): a
+``date`` is its epoch milliseconds (UTC), a ``boolean`` 1.0 or 0.0.
 """
 
 from __future__ import annotations
 
+import datetime as _dt
 import math
 from typing import Any, List, Optional
 
@@ -22,6 +24,74 @@ _INT_RANGES = {
     "long": (-(2**63), 2**63 - 1),
     "integer": (-(2**31), 2**31 - 1),
 }
+
+
+def parse_date(value: Any, formats: Optional[List[str]] = None) -> int:
+    """Parse a date value to epoch milliseconds (UTC): the formats given
+    (``||``-separated in the mapping), else ISO-8601
+    (``strict_date_optional_time``) or epoch_millis, as the JAX package
+    does."""
+    if isinstance(value, bool):
+        raise MapperParsingException(f"failed to parse date field [{value}]")
+    if isinstance(value, (int, float)):
+        return int(value)
+    s = str(value).strip()
+    if formats:
+        for fmt in formats:
+            if fmt == "epoch_millis":
+                try:
+                    return int(s)
+                except ValueError:
+                    continue
+            if fmt == "epoch_second":
+                try:
+                    return int(s) * 1000
+                except ValueError:
+                    continue
+            try:
+                dt = _dt.datetime.strptime(s, _java_to_strptime(fmt))
+                return _to_millis(dt)
+            except ValueError:
+                continue
+        raise MapperParsingException(
+            f"failed to parse date field [{s}] with format [{'||'.join(formats)}]"
+        )
+    try:
+        return int(s)
+    except ValueError:
+        pass
+    try:
+        iso = s.replace("Z", "+00:00")
+        if len(iso) == 10:  # yyyy-MM-dd
+            dt = _dt.datetime.fromisoformat(iso + "T00:00:00+00:00")
+        else:
+            dt = _dt.datetime.fromisoformat(iso)
+        return _to_millis(dt)
+    except ValueError:
+        raise MapperParsingException(f"failed to parse date field [{s}]") from None
+
+
+def _to_millis(dt: _dt.datetime) -> int:
+    if dt.tzinfo is None:
+        dt = dt.replace(tzinfo=_dt.timezone.utc)
+    return int(dt.timestamp() * 1000)
+
+
+_JAVA_FMT = {
+    "yyyy": "%Y", "MM": "%m", "dd": "%d", "HH": "%H", "mm": "%M", "ss": "%S",
+}
+
+
+def _java_to_strptime(fmt: str) -> str:
+    out = fmt
+    for j, p in _JAVA_FMT.items():
+        out = out.replace(j, p)
+    return out
+
+
+def format_epoch_millis(millis: int) -> str:
+    dt = _dt.datetime.fromtimestamp(millis / 1000.0, tz=_dt.timezone.utc)
+    return dt.strftime("%Y-%m-%dT%H:%M:%S.") + f"{dt.microsecond // 1000:03d}Z"
 
 
 class FieldType:
@@ -182,6 +252,52 @@ class FloatFieldType(DoubleFieldType):
     type_name = "float"
 
 
+class DateFieldType(FieldType):
+    type_name = "date"
+
+    def __init__(self, name, params=None):
+        super().__init__(name, params)
+        fmt = self.params.get("format")
+        self.formats = fmt.split("||") if isinstance(fmt, str) else None
+
+    def index_terms(self, value, analyzers):
+        return []
+
+    def doc_value(self, value):
+        return float(parse_date(value, self.formats))
+
+    def numeric_for_query(self, value):
+        return float(parse_date(value, self.formats))
+
+
+class BooleanFieldType(FieldType):
+    type_name = "boolean"
+
+    def _parse(self, value) -> bool:
+        if isinstance(value, bool):
+            return value
+        s = str(value)
+        if s == "true":
+            return True
+        if s == "false":
+            return False
+        raise MapperParsingException(
+            f"Failed to parse value [{value}] as only [true] or [false] are allowed."
+        )
+
+    def index_terms(self, value, analyzers):
+        return ["T" if self._parse(value) else "F"]
+
+    def doc_value(self, value):
+        return 1.0 if self._parse(value) else 0.0
+
+    def term_for_query(self, value, analyzers):
+        return "T" if self._parse(value) else "F"
+
+    def numeric_for_query(self, value):
+        return 1.0 if self._parse(value) else 0.0
+
+
 class DenseVectorFieldType(FieldType):
     """dense_vector: one fixed-dimension float embedding per document.
     The values are neither inverted-index terms nor scalar doc values: they
@@ -256,7 +372,7 @@ FIELD_TYPES = {
     t.type_name: t
     for t in [TextFieldType, KeywordFieldType, LongFieldType,
               IntegerFieldType, DoubleFieldType, FloatFieldType,
-              DenseVectorFieldType]
+              DateFieldType, BooleanFieldType, DenseVectorFieldType]
 }
 
 

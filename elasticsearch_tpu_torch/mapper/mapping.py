@@ -3,12 +3,13 @@
 Counterpart of ``elasticsearch_tpu/mapper/mapping.py``: a mapping is a tree
 of properties; parsing a JSON doc produces inverted-index terms and doc
 values per field, and possibly a dynamic mapping update. Dynamic mapping
-follows 6.x: a string becomes ``text`` with a ``.keyword`` sub-field, an
-int ``long``, a float ``float``. A ``dense_vector`` field takes one whole
+follows 6.x: a string becomes ``text`` with a ``.keyword`` sub-field (an
+ISO-8601 date string ``date``), an int ``long``, a float ``float``, a bool
+``boolean``. A ``dense_vector`` field takes one whole
 vector per document (``ParsedDocument.vector_values``), its ``dims``
 bounded by ``index.mapping.dense_vector.max_dims`` at mapping compile.
-Nested objects, dates, booleans and the other field types are later slices
-and raise.
+Nested objects and the other field types (geo, ip, range, join, ...) are
+later slices and raise.
 """
 
 from __future__ import annotations

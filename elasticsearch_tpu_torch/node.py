@@ -4,9 +4,10 @@ Counterpart of ``elasticsearch_tpu/node.py``, cut to this slice's entry
 points: ``create_index``, ``delete_index``, ``index_doc``, ``bulk``,
 ``refresh``, ``get_doc``, ``delete_doc``, ``search`` over one index
 (through the index's micro-batcher and mesh plane; ``search.batch.*``,
-``search.knn.*`` and ``search.pallas.*`` node settings pass to every
-index, the last being the postings codec's node default and block-max
-pruning), ``msearch`` (each entry served serially through ``search``) and
+``search.knn.*``, ``search.pallas.*`` and ``search.aggs.*`` node settings
+pass to every index: ``search.pallas.*`` is the postings codec's node
+default and block-max pruning, ``search.aggs.fused`` the fused
+aggregations), ``msearch`` (each entry served serially through ``search``) and
 ``health``. A search body may carry a top-level ``knn`` section: alone it
 is a vector search, beside ``query`` a hybrid one
 (``IndexService._search_hybrid``). The node owns the named thread pools
@@ -111,12 +112,14 @@ class Node:
                 f"create-index sections {unknown} are not supported by the "
                 f"PyTorch port yet")
         settings = Settings.from_dict(body.get("settings") or {}).with_index_prefix()
-        # node-level micro-batching, kNN, postings-codec and pruning config
-        # (search.batch.*, search.knn.*, search.pallas.*, node scope) seeds
-        # each index at the lowest precedence; the index's own settings
-        # (index.search.pallas.postings_codec,
+        # node-level micro-batching, kNN, postings-codec, pruning and
+        # fused-aggregation config (search.batch.*, search.knn.*,
+        # search.pallas.*, search.aggs.*, node scope) seeds each index at
+        # the lowest precedence; the index's own settings
+        # (index.search.pallas.postings_codec, index.search.aggs.fused,
         # index.mapping.dense_vector.max_dims, ...) come with the body
-        for prefix in ("search.batch.", "search.knn.", "search.pallas."):
+        for prefix in ("search.batch.", "search.knn.", "search.pallas.",
+                       "search.aggs."):
             settings = self.settings.filtered_by_prefix(prefix).merged_with(
                 settings)
         mappings, doc_type = _unwrap_typed_mapping(body.get("mappings") or {})

@@ -68,12 +68,28 @@ geometry (``nd_knn = max(nd_pad, 128)``), rebuilt with the executor on
 any live-count change. As on the tile plane, a ``KernelError`` raises
 through ``query_knn_batch`` instead of benching the plane.
 
+Aggregations (``search.aggs.fused``, ``index.search.aggs.fused``): when
+every spec of a request is inside the fused envelope
+(``search/fused_aggs.py``), its doc-value columns stage per slot
+(``stage_doc_value_columns``: register then commit) and the slots'
+matched masks reduce on the device in the same program: the serial
+program's ``agg_static``, and for an agg-carrying burst the batched dense
+agg program (``execute_batched_dense_agg``: one dense ``score_tiles``
+launch a slot for the whole burst, kernel 1b raw or 1d packed, whose
+scores both rank and aggregate; each member's mask reduces its own specs;
+pruning never runs with aggregations). Otherwise the serial program hands
+the per-slot matched masks and scores to the host reduce, counted per
+reason in ``agg_host_fallback_by_reason``; a batch with such a member
+leaves the batched rung. Deviations from the JAX package: the memory
+accountant is not ported (no ``hbm_budget`` reason; the ``doc_values``
+columns are freed with the executor's generation and by
+``IndexService.close``), and a staging error raises instead of
+becoming a ``staging_fault`` fallback.
+
 Left for later slices: delta staging, the memory accountant, the compile
 cache and telemetry, sort / search_after / slice / rescore /
-terminate_after on the mesh, fused aggregations (an agg-carrying serial
-query reduces over the program's per-slot views; an agg-carrying batch
-leaves the batched rung), the dynamic update of the pruning settings
-(``PUT _cluster/settings``, with the REST slice).
+terminate_after on the mesh, the dynamic update of the pruning and
+fused-aggregation settings (``PUT _cluster/settings``).
 """
 
 from __future__ import annotations
@@ -88,9 +104,11 @@ import torch
 
 from elasticsearch_tpu_torch.common.errors import ElasticsearchTpuException
 from elasticsearch_tpu_torch.common.settings import (
+    INDEX_SEARCH_AGGS_FUSED,
     INDEX_SEARCH_MESH_MAX_SLOTS,
     INDEX_SEARCH_MESH_PLANE,
     INDEX_SEARCH_PLANE_QUARANTINE_COOLDOWN,
+    SEARCH_AGGS_FUSED,
     SEARCH_KNN_ENABLED,
     SEARCH_KNN_TILE_SUB,
     SEARCH_PALLAS_PRUNING_ENABLED,
@@ -329,6 +347,8 @@ class MeshPlanExecutor:
         self._knn: Dict[str, object] = {}
         self.kernel_denied_reason: Optional[str] = None
         self._kernel_stage_lock = threading.Lock()
+        # fused-aggregation eligibility facts of this generation's columns
+        self._agg_field_checks: Dict = {}
 
     def staged_bytes(self) -> int:
         """Bytes the executor itself stages (the segments' own arrays are
@@ -346,8 +366,29 @@ class MeshPlanExecutor:
             self._kernel_tables = []
             self._knn = {}
             self._ub_cache = {}
+            self._agg_field_checks = {}
             self.segments = []
             self.pairs = []
+
+    def stage_doc_value_columns(self, builds: Dict[str, object]) -> None:
+        """Stage fused-aggregation doc-value columns: ``builds`` maps a
+        table name to a callable giving ``{name: np.ndarray}`` groups of
+        per-slot columns ([n_slots, nd1, ...]). Register then commit:
+        every array is built and transferred first, and the columns
+        publish together only after every transfer landed, so a fault
+        leaves nothing behind (and raises). They live as long as this
+        executor's generation."""
+        with self._kernel_stage_lock:
+            arrays: Dict[str, np.ndarray] = {}
+            for fn in builds.values():
+                for name, arr in fn().items():
+                    if name not in self._seg_staged:
+                        arrays[name] = arr
+            staged = {name: torch.from_numpy(np.ascontiguousarray(a)).to(
+                self.device) for name, a in arrays.items()}
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._seg_staged.update(staged)
 
     def ensure_kernel(self) -> Optional[dict]:
         """Stage the tile-kernel plane over the stacked segment set: one
@@ -609,11 +650,14 @@ class MeshPlanExecutor:
     def execute(self, plans: List[P.PlanNode], k: int,
                 with_views: bool = False,
                 pf_plans: Optional[List[P.PlanNode]] = None,
-                min_score: Optional[float] = None) -> dict:
+                min_score: Optional[float] = None,
+                agg_static: tuple = ()) -> dict:
         """The serial program. ``plans``: one per slot, same query.
         Returns tensors {keys [k'], slots [k'], docs [k'], total, scores
         [k'], counts [n_slots]} (doc ids per slot, i.e. segment-local),
-        plus {matched, scores_all} [n_slots, nd1] with ``with_views``."""
+        plus {matched, scores_all} [n_slots, nd1] with ``with_views``, and
+        ``aggs`` (the fused partials of ``agg_static``, each [n_slots,
+        ...]) with ``agg_static``."""
         if len(plans) != len(self.segments):
             raise ValueError("one plan per staged slot required")
         local_pads = [s.nd_pad for s in self.segments]
@@ -633,8 +677,9 @@ class MeshPlanExecutor:
             if min_score is not None:
                 matched = matched & (scores >= torch.tensor(
                     min_score, dtype=torch.float32, device=self.device))
-            if with_views:
+            if with_views or agg_static:
                 views_m.append(matched)
+            if with_views:
                 views_s.append(scores)
             if pf_plans:
                 _, pf_matched = P.execute(seg, pf_plans[0],
@@ -658,6 +703,13 @@ class MeshPlanExecutor:
         if with_views:
             out["matched"] = torch.stack(views_m)
             out["scores_all"] = torch.stack(views_s)
+        if agg_static:
+            from elasticsearch_tpu_torch.search.fused_aggs import (
+                emit_agg_partials,
+            )
+
+            out["aggs"] = emit_agg_partials(agg_static, self._seg_staged,
+                                            torch.stack(views_m))
         return out
 
     def execute_batched_topk(self, live_key: str, rl: np.ndarray,
@@ -679,6 +731,66 @@ class MeshPlanExecutor:
                 t_pad=t_pad, cb=cb, sub=sub, k=kk, dense=False,
                 q_batch=q_pad, codec=self._kernel["codec"]))
         return self._merge_slots([outs], kk)
+
+    def execute_batched_dense_agg(self, live_key: str, rl: np.ndarray,
+                                  rh: np.ndarray, w_all: np.ndarray, *,
+                                  q_pad: int, kk: int, t_pad: int, cb: int,
+                                  sub: int, agg_statics: tuple):
+        """The batched program for agg-carrying bursts: per slot one dense
+        ``score_tiles`` launch for the q_pad queries (kernel 1b raw, 1d
+        packed), whose scores both rank and aggregate. Per member the
+        dense scores give the matched mask (``> 0``: live is folded in the
+        kernel); per slot a top-k over doc-ordered scores (lowest doc
+        first among ties, as the serial program's), the pools concatenate
+        in slot order, one top-k. ``agg_statics``: one fused descriptor
+        tuple per member (empty: no aggs); each member's mask over the
+        slots reduces its own specs (``emit_agg_partials``). Returns
+        (top_s [Q, k'], top_d, top_slot, total [Q] i32, partials: one list
+        per member)."""
+        from elasticsearch_tpu_torch.search.fused_aggs import (
+            emit_agg_partials,
+        )
+
+        dev = self.device
+        rl_t = torch.from_numpy(rl).to(dev)
+        rh_t = torch.from_numpy(rh).to(dev)
+        w_t = torch.from_numpy(w_all).to(dev)
+        live = self._seg_staged[live_key]
+        nd = self.nd1 - 1
+        cand_s, cand_d, cand_slot, matched_all = [], [], [], []
+        total = None
+        for i in range(self.n_slots):
+            (dense,) = tsc.score_tiles(
+                *self._corpus(i), live[i], rl_t[i], rh_t[i], w_t[i],
+                t_pad=t_pad, cb=cb, sub=sub, dense=True, q_batch=q_pad,
+                codec=self._kernel["codec"])
+            if q_pad == 1:
+                dense = dense[None]
+            n_tiles = dense.shape[1] // tsc.LANE
+            flat = dense.reshape(q_pad, n_tiles, tsc.LANE, sub).transpose(
+                2, 3).reshape(q_pad, -1)[:, :nd]
+            # the sentinel column is dead, as the serial program's live1
+            flat = torch.cat([flat, torch.zeros((q_pad, 1),
+                                                dtype=flat.dtype,
+                                                device=dev)], dim=1)
+            matched = flat > 0.0
+            masked = torch.where(matched, flat,
+                                 torch.full_like(flat, NEG_INF))
+            s_i, d_i = top_k(masked, min(kk, masked.shape[1]))
+            cand_s.append(s_i)
+            cand_d.append(d_i.to(torch.int32))
+            cand_slot.append(torch.full_like(d_i, i, dtype=torch.int32))
+            c = matched.sum(dim=1, dtype=torch.int32)
+            total = c if total is None else total + c
+            matched_all.append(matched)
+        pool_s = torch.cat(cand_s, dim=1)
+        top_s, top_i = top_k(pool_s, min(kk, pool_s.shape[1]))
+        top_d = torch.gather(torch.cat(cand_d, dim=1), 1, top_i)
+        top_slot = torch.gather(torch.cat(cand_slot, dim=1), 1, top_i)
+        stacked = torch.stack(matched_all, dim=1)  # [Q, n_slots, nd1]
+        partials = [emit_agg_partials(statics, self._seg_staged, stacked[q])
+                    if statics else [] for q, statics in enumerate(agg_statics)]
+        return top_s, top_d, top_slot, total, partials
 
     def _merge_slots(self, passes, kk: int):
         """Merge per-slot top-k launches: ``passes`` is a list of passes,
@@ -782,6 +894,13 @@ class IndexMeshSearch:
         self.tiles_scored_total = 0
         self.tiles_pruned_total = 0
         self.restage_total = 0
+        # aggregations reduced inside the mesh program, and those served by
+        # the host reduce instead, by reason
+        self.agg_fused_query_total = 0
+        self.agg_host_fallback_total = 0
+        self.agg_host_fallback_by_reason: Dict[str, int] = {}
+        # bytes of the per-slot masks and scores a host reduce copied
+        self.host_mask_bytes_total = 0
         # plane-ladder decisions "plane.reason" -> count
         self.decisions: Dict[str, int] = {}
         settings = index_service.settings
@@ -895,6 +1014,36 @@ class IndexMeshSearch:
         return (SEARCH_PALLAS_PRUNING_ENABLED.get(settings),
                 SEARCH_PALLAS_PRUNING_PROBE_TILES.get(settings))
 
+    def _fused_aggs_enabled(self) -> bool:
+        """The index's ``index.search.aggs.fused`` ("default" follows the
+        node's ``search.aggs.fused``, seeded into the index settings)."""
+        settings = self.svc.settings
+        idx = settings.get(INDEX_SEARCH_AGGS_FUSED.key)
+        if isinstance(idx, bool):  # a body's boolean through with_index_prefix
+            return idx
+        idx = INDEX_SEARCH_AGGS_FUSED.get(settings)
+        if idx in ("true", "false"):
+            return idx == "true"
+        return SEARCH_AGGS_FUSED.get(settings)
+
+    def _note_agg_fallback(self, reason: str, n: int = 1) -> None:
+        with self._counter_lock:
+            self.agg_host_fallback_total += n
+            self.agg_host_fallback_by_reason[reason] = \
+                self.agg_host_fallback_by_reason.get(reason, 0) + n
+
+    def _resolve_fused_aggs(self, agg_specs, executor):
+        """(FusedAggPlan or None, fallback reason or None) for a mesh-
+        served request's agg set: all or nothing. A staging error
+        raises."""
+        if not self._fused_aggs_enabled():
+            return None, "disabled"
+        from elasticsearch_tpu_torch.search.fused_aggs import (
+            resolve_fused_aggs,
+        )
+
+        return resolve_fused_aggs(agg_specs, executor)
+
     def _ctx(self, sid: int, session):
         from elasticsearch_tpu_torch.search.query_dsl import ShardQueryContext
 
@@ -945,6 +1094,13 @@ class IndexMeshSearch:
                         "max_score": r["max_score"], "aggregations": None,
                         "plane": r["plane"], "pruned": r.get("pruned")}
         agg_specs = parse_aggs(body.get("aggs") or body.get("aggregations"))
+        # fused aggregations: when every spec is inside the envelope, the
+        # reduction runs in the program and the [n_slots, nd1] masks never
+        # cross to the host; otherwise the host reduce over the views
+        agg_plan = agg_reason = None
+        if agg_specs:
+            agg_plan, agg_reason = self._resolve_fused_aggs(agg_specs,
+                                                            executor)
         min_score = body.get("min_score")
         if min_score is not None:
             ms = float(min_score)
@@ -994,8 +1150,11 @@ class IndexMeshSearch:
                     used_pallas = (session is not None and
                                    executor.harmonize_kernel_nodes(plans) > 0)
                     outs = executor.execute(
-                        plans, k, with_views=bool(agg_specs),
-                        pf_plans=pf_plans, min_score=min_score)
+                        plans, k,
+                        with_views=bool(agg_specs) and agg_plan is None,
+                        pf_plans=pf_plans, min_score=min_score,
+                        agg_static=(agg_plan.statics
+                                    if agg_plan is not None else ()))
                     if self.svc.device.type == "cuda":
                         torch.cuda.synchronize(self.svc.device)
                     self.plane_health.note_success(plane)
@@ -1048,11 +1207,35 @@ class IndexMeshSearch:
             if max_score is None:
                 max_score = float(score)
         aggregations = None
-        if agg_specs:
+        if agg_plan is not None:
+            from elasticsearch_tpu_torch.search.fused_aggs import (
+                finalize_fused,
+            )
+
+            aggregations = finalize_fused(
+                agg_plan, [o.cpu().numpy() for o in outs["aggs"]],
+                len(executor.pairs))
+            with self._counter_lock:
+                self.agg_fused_query_total += 1
+        elif agg_specs:
+            from elasticsearch_tpu_torch.search.query_dsl import (
+                ShardQueryContext,
+            )
+
             matched = outs["matched"].cpu().numpy()
-            views = [SegmentView(seg, matched[i, : seg.nd_pad + 1])
-                     for i, (_sid, seg) in enumerate(executor.pairs)]
+            scores_all = outs["scores_all"].cpu().numpy()
+            with self._counter_lock:
+                self.host_mask_bytes_total += (matched.nbytes
+                                               + scores_all.nbytes)
+            views = []
+            for i, (sid, seg) in enumerate(executor.pairs):
+                nd1 = seg.nd_pad + 1
+                views.append(SegmentView(
+                    seg, matched[i, :nd1],
+                    ShardQueryContext(self.svc.shards[sid].mapper_service),
+                    scores_all[i, :nd1]))
             aggregations = run_aggregations(agg_specs, views)
+            self._note_agg_fallback(agg_reason or "field_ineligible")
         return {"total": int(outs["total"]), "refs": refs,
                 "max_score": max_score, "aggregations": aggregations,
                 "plane": plane}
@@ -1061,8 +1244,12 @@ class IndexMeshSearch:
         """Cross-query micro-batching on the mesh_pallas rung: Q concurrent
         queries scored by one fused top-k launch per slot over the union
         of their lanes, or, with pruning on, by the pruned program (a tile
-        survives when any member's bound reaches that member's threshold).
-        Returns one {total, refs, max_score, plane[, pruned]} dict per
+        survives when any member's bound reaches that member's threshold),
+        or, when a member carries aggregations, by the batched dense agg
+        program (one dense launch per slot; every member's agg set must be
+        fused-eligible, else the batch leaves this rung).
+        Returns one {total, refs, max_score, plane[, pruned][,
+        aggregations]} dict per
         member, or None when the batch cannot run here (the caller falls
         to the host-batched rung). A plane fault quarantines mesh_pallas
         once for the whole batch; a ``KernelError`` raises."""
@@ -1088,9 +1275,10 @@ class IndexMeshSearch:
             body = body or {}
             if not isinstance(body.get("query"), dict):
                 return None
-            if any(key not in self.BATCHABLE_KEYS for key in body):
-                # aggs included: fused aggregations are a later slice, so
-                # an agg-carrying batch leaves this rung
+            # an agg-carrying member rides the batched dense agg program
+            # when its whole agg set is fused-eligible (resolved below)
+            if any(key not in self.BATCHABLE_KEYS
+                   and key not in ("aggs", "aggregations") for key in body):
                 return None
         if not self._ensure_staged():
             self._note("host", self.staging_denied_reason
@@ -1138,12 +1326,46 @@ class IndexMeshSearch:
         except Exception:  # noqa: BLE001 — request-shaped error: serial
             # execution surfaces it per member with the right status
             return None
+        # fused aggs for the members: all or nothing per batch. If any
+        # member's agg set is not fused-eligible, the whole batch goes to
+        # the host rung, whose per-member pipeline serves every agg; each
+        # eligible member reduces its own specs in the shared launch
+        member_agg_plans = [None] * q_batch
+        agg_members = [bool(b.get("aggs") or b.get("aggregations"))
+                       for b in bodies]
+        if any(agg_members):
+            if not self._fused_aggs_enabled():
+                self._note_agg_fallback("disabled", sum(agg_members))
+                return None
+            from elasticsearch_tpu_torch.search.aggregations import (
+                parse_aggs,
+            )
+
+            for q, body in enumerate(bodies):
+                if not agg_members[q]:
+                    continue
+                try:
+                    specs = parse_aggs(body.get("aggs")
+                                       or body.get("aggregations"))
+                except Exception:  # noqa: BLE001 — request error: serial
+                    # execution surfaces the member's 400
+                    return None
+                plan, reason = self._resolve_fused_aggs(specs, executor)
+                if plan is None:
+                    self._note_agg_fallback(reason or "field_ineligible")
+                    return None
+                member_agg_plans[q] = plan
+        has_aggs = any(p is not None for p in member_agg_plans)
         pruning, probe = self._pruning_config()
+        if has_aggs:
+            # skipped tiles would drop docs from the buckets: aggregations
+            # always run the exhaustive dense form
+            pruning = False
         if pruning and any(
                 int(b.get("size") if b.get("size") is not None else 10) <= 0
                 for b in bodies):
             # a size 0 member wants the exact total: the batch runs
-            # exhaustively (an agg-carrying member never reaches here)
+            # exhaustively
             pruning = False
         codec = session["codec"]
         pruned_stats = None
@@ -1211,6 +1433,7 @@ class IndexMeshSearch:
                         plans_p = None
                         break
                     plans_p.append(plan)
+            agg_raw = None
             if plans_p is not None:
                 (top_s, top_d, top_slot, totals, scored,
                  tiles_total) = executor.execute_batched_pruned(
@@ -1219,6 +1442,20 @@ class IndexMeshSearch:
                 scored = int(scored)
                 pruned_stats = {"tiles_scored": scored,
                                 "tiles_pruned": tiles_total - scored}
+            elif has_aggs:
+                # one dense launch a slot both ranks and aggregates the
+                # burst; the matched masks reduce on the device
+                agg_statics = tuple(
+                    member_agg_plans[q].statics
+                    if q < q_batch and member_agg_plans[q] is not None
+                    else () for q in range(q_pad))
+                top_s, top_d, top_slot, totals, agg_parts = \
+                    executor.execute_batched_dense_agg(
+                        live_key, rl, rh, w_all, q_pad=q_pad, kk=kk,
+                        t_pad=t_pad, cb=cb, sub=g.tile_sub,
+                        agg_statics=agg_statics)
+                agg_raw = [[o.cpu().numpy() for o in parts]
+                           for parts in agg_parts]
             else:
                 top_s, top_d, top_slot, totals = \
                     executor.execute_batched_topk(
@@ -1257,6 +1494,19 @@ class IndexMeshSearch:
                    "served_batched" if q_batch > 1 else
                    ("served_pruned" if pruned_stats is not None
                     else "served"), q_batch)
+        member_aggs = [None] * q_batch
+        if agg_raw is not None:
+            from elasticsearch_tpu_torch.search.fused_aggs import (
+                finalize_fused,
+            )
+
+            for q in range(q_batch):
+                if member_agg_plans[q] is not None:
+                    member_aggs[q] = finalize_fused(
+                        member_agg_plans[q], agg_raw[q], n_pairs)
+            with self._counter_lock:
+                self.agg_fused_query_total += sum(
+                    1 for p in member_agg_plans if p is not None)
         results = []
         for q in range(q_batch):
             refs = []
@@ -1271,6 +1521,8 @@ class IndexMeshSearch:
                     max_score = float(key)
             result = {"total": int(totals[q]), "refs": refs,
                       "max_score": max_score, "plane": "mesh_pallas"}
+            if member_aggs[q] is not None:
+                result["aggregations"] = member_aggs[q]
             if pruned_stats is not None:
                 # under pruning the total counts matches in scored tiles
                 # only, a lower bound: the marker says so

@@ -33,6 +33,8 @@ from elasticsearch_tpu_torch.common.errors import (
 )
 from elasticsearch_tpu_torch.index.similarity import BM25Similarity
 from elasticsearch_tpu_torch.mapper.field_types import (
+    BooleanFieldType,
+    DateFieldType,
     DenseVectorFieldType,
     NumberFieldType,
     TextFieldType,
@@ -371,7 +373,8 @@ class MatchQueryBuilder(QueryBuilder):
 
     def to_plan(self, ctx, segment):
         ft = ctx.field_type(self.field)
-        if ft is not None and isinstance(ft, NumberFieldType):
+        if ft is not None and isinstance(ft, (NumberFieldType, DateFieldType,
+                                              BooleanFieldType)):
             return TermQueryBuilder(self.field, self.query,
                                     boost=self.boost).to_plan(ctx, segment)
         terms = self._analyzed_terms(ctx)
@@ -401,7 +404,7 @@ class TermQueryBuilder(QueryBuilder):
                 "[term] on [_id] (an ids query) is not supported by the "
                 "PyTorch port yet")
         ft = ctx.field_type(self.field)
-        if isinstance(ft, NumberFieldType):
+        if isinstance(ft, (NumberFieldType, DateFieldType)):
             csr = _numeric_csr(segment, self.field)
             if csr is None:
                 return P.MatchNoneNode()
@@ -431,7 +434,7 @@ class TermsQueryBuilder(QueryBuilder):
                 "[terms] on [_id] (an ids query) is not supported by the "
                 "PyTorch port yet")
         ft = ctx.field_type(self.field)
-        if isinstance(ft, NumberFieldType):
+        if isinstance(ft, (NumberFieldType, DateFieldType)):
             csr = _numeric_csr(segment, self.field)
             if csr is None:
                 return P.MatchNoneNode()
@@ -478,7 +481,8 @@ class RangeQueryBuilder(QueryBuilder):
 
     def to_plan(self, ctx, segment):
         ft = ctx.field_type(self.field)
-        if isinstance(ft, NumberFieldType) or (
+        if isinstance(ft, (NumberFieldType, DateFieldType,
+                           BooleanFieldType)) or (
             ft is None and segment.numeric_columns.get(self.field) is not None
         ):
             csr = _numeric_csr(segment, self.field)

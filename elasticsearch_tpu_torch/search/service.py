@@ -5,7 +5,9 @@ Counterpart of ``elasticsearch_tpu/search/service.py``:
 - ``ShardSearcher.query(source)`` runs the query phase on one shard: plan
   -> device execution per segment (or a score vector from a batched
   launch, ``score_cache``) -> copy of the dense scores and mask to the
-  host (as the JAX host rung does) -> top-k selection -> agg views;
+  host (as the JAX host rung does) -> top-k selection -> agg views (the
+  mask, the shard's query context for filter aggregations, the scores
+  for ``top_hits``);
   returns a ``ShardQueryResult`` of doc refs.
 - ``merge_refs`` is the coordinator's global top-k; ``fetch_hits``
   materializes hits (``_source`` filtering, version).
@@ -144,7 +146,8 @@ class ShardSearcher:
             if min_score is not None:
                 matched = matched & (scores >= float(min_score))
             if agg_specs:
-                agg_views.append(SegmentView(seg, matched.copy()))
+                agg_views.append(SegmentView(seg, matched.copy(), self.ctx,
+                                             scores))
             if post_qb is not None:
                 _, post_m = P.execute(dev, post_qb.to_plan(self.ctx, seg))
                 matched = matched & post_m.cpu().numpy()

@@ -263,6 +263,43 @@ def test_search(loaded, name):
     both(loaded, "POST", "/idx/paper/_search", body, status=200)
 
 
+def test_search_dates_and_aggregations(servers):
+    """Dates, booleans and the aggregation framework over HTTP: dynamic
+    date mapping, ``key_as_string``, a ``date_range`` with string bounds,
+    ``typed_keys`` (both servers ignore it), and an unported aggregation's
+    400."""
+    both(servers, "PUT", "/ev", {"settings": {"number_of_shards": 2,
+                                              "refresh_interval": "-1"}},
+         status=200)
+    lines = []
+    for i in range(40):
+        lines += [{"index": {"_index": "ev", "_id": str(i)}},
+                  {"when": f"2021-0{1 + i % 3}-{1 + i % 27:02d}T0{i % 9}:00:00Z",
+                   "ok": i % 4 == 0, "n": i % 7}]
+    both(servers, "POST", "/_bulk?refresh=true", ndjson(lines),
+         "application/x-ndjson", status=200)
+    both(servers, "GET", "/ev/_mapping", status=200)
+    aggs = {"size": 0, "query": {"range": {"when": {"gte": "2021-01-15"}}},
+            "aggs": {"m": {"date_histogram": {"field": "when",
+                                              "interval": "month"},
+                           "aggs": {"s": {"sum": {"field": "n"}},
+                                    "d": {"derivative": {
+                                        "buckets_path": "s"}}}},
+                     "r": {"date_range": {"field": "when", "ranges": [
+                         {"to": "2021-02-01"}, {"from": "2021-02-01"}]}},
+                     "b": {"avg": {"field": "ok"}},
+                     "c": {"cardinality": {"field": "n"}}}}
+    both(servers, "POST", "/ev/_search", aggs, status=200)
+    both(servers, "POST", "/ev/_search?typed_keys=true", aggs, status=200)
+    both(servers, "POST", "/ev/_search", {"aggs": {"x": {"no_such": {}}}},
+         status=400)
+    _jn, tn, _jport, tport = servers
+    st, _, r = call(tport, "POST", "/ev/_search", {
+        "aggs": {"g": {"geohash_grid": {"field": "when"}}}})
+    assert st == 400 and "PyTorch port" in r["error"]["reason"]
+    both(servers, "DELETE", "/ev", status=200)
+
+
 def test_search_uri_params(loaded):
     q = {"query": {"match": {"title": "w3 w17"}}}
     both(loaded, "GET", "/idx/_search?size=7&from=3", q, status=200)
@@ -433,6 +470,13 @@ def test_delete_index_releases_staging():
         r = tn.search("m", {"query": {"match": {"title": "w3 w17"}},
                             "aggs": {"v": {"terms": {"field": "venue"}}}})
         assert r["_plane"] == "mesh_pallas"
+        # a host reduce (the sub-aggregation keeps it off the fused plane)
+        # stages the segments' doc-value columns too
+        r = tn.search("m", {"query": {"match": {"title": "w3 w17"}},
+                            "aggs": {"v": {"terms": {"field": "venue"},
+                                           "aggs": {"y": {"cardinality": {
+                                               "field": "year"}}}}}})
+        assert r["_plane"] == "mesh_pallas"
         svc = tn.indices["m"]
         segs = [seg for sh in svc.shards.values() for seg in sh.engine.segments]
         executor = svc._mesh_search._executor
@@ -442,6 +486,7 @@ def test_delete_index_releases_staging():
         staged += [t for seg in segs for t in seg.dev_cache.values()]
         staged += list(executor._seg_staged.values())
         assert any(seg.dev_cache for seg in segs)
+        assert any(k.startswith("maggs.") for k in executor._seg_staged)
         refs = [weakref.ref(t) for t in staged]
         del staged, r
         assert tn.delete_index("m") == {"acknowledged": True}

@@ -186,8 +186,8 @@ def test_unported_requests_raise(nodes):
     with pytest.raises(ParsingException):
         tn.search("idx", {"query": {"fuzzy": {"title": "w1"}}})
     with pytest.raises(ParsingException):
-        tn.search("idx", {"size": 0, "aggs": {"h": {"histogram": {
-            "field": "year", "interval": 5}}}})
+        tn.search("idx", {"size": 0, "aggs": {"g": {"geohash_grid": {
+            "field": "venue", "precision": 3}}}})
     with pytest.raises(IllegalArgumentException):
         tn.search("idx", {"query": {"match_all": {}}, "sort": ["year"]})
 

@@ -217,7 +217,7 @@ def test_delete_docs_restages_every_live_layout():
 def test_unported_field_type_raises():
     m = MapperService(AnalysisRegistry())
     with pytest.raises(MapperParsingException):
-        m.parse_document("1", {"when": "2020-01-02"})  # dynamic date
+        MapperService(AnalysisRegistry(), {"properties": {"a": {"type": "ip"}}})
     with pytest.raises(MapperParsingException):
         MapperService(AnalysisRegistry(), {"properties": {"g": {"type": "geo_point"}}})
 
