@@ -68,11 +68,12 @@ prints no result, when there is no GPU or any check fails. Phases:
    equal); the device kernels of one phase-4 terms_agg request. Prints
    p50 latency per request kind and plane and the per-segment host copy of
    the dense scores and mask.
-6. The kernel summary line (with phase 11's ``rest`` entry and phase
-   12's ``aggs`` entry), then the device line.
+6. The kernel summary line (with phase 11's ``rest`` entry, phase 12's
+   ``aggs`` entry and phase 13's ``durability`` entry), then the device
+   line.
 
 Run between phases 2 and 3, and after phase 4 (phase 10 after phase 9,
-then phases 11 and 12):
+then phases 11, 12 and 13):
 
 2b. Kernels 1b (dense, q_batch=16, with and without counts) and 1c (fused
     per-tile top-k, q_batch 1 and 16, k=16) on the 1M-doc corpus, for 16
@@ -202,14 +203,41 @@ then phases 11 and 12):
     launch over the four slots timed against one launch a slot) and
     host-clock spans of fused requests and bursts; the summary line's
     ``aggs`` entry holds them.
+13. Durability on the card, after phase 12 (``durability_phase``), every
+    data path under a fresh ``tempfile.mkdtemp()`` removed at the end.
+    13a: a ``Node(data_path=..., device="cuda")`` takes phase 3's 20,000
+    docs under ``index.translog.durability: async`` and 4,000 under
+    ``request`` (docs/s beside phase 3's), ``_flush``, 100 deletes,
+    ``close()``; reopened, phase 3's requests answer byte for byte as
+    before on the host rung (1a, kernel 2 and its combine held against
+    plain), seqnos
+    continue, deletes stay, ``_forcemerge`` keeps totals and buckets and
+    equals a cpu node over the same path. 13b: a child ``python3`` on the
+    card is killed with SIGKILL mid-bulk under ``request`` durability;
+    reopened, every acknowledged doc is found (GET, ``terms`` on its id),
+    none twice, totals equal an in-memory node over the recovered docs.
+    13c: pmc-4x256k at full width (``ts``, ``citations``, ``emb``) in one
+    durable index: phase 7's, 9's and 12's bodies and two bursts
+    recorded, synced flush, close (``memory_allocated`` back to its
+    level), reopen timed as load, staging and first answer (host clock
+    with spans; the device split from a second, profiled answer after
+    the mesh staging is dropped), every response bit for bit as before
+    with ``_plane`` unchanged, every 1a, 1b, 1c, kernel-2 (and combine)
+    and kernel-3 launch held against plain; bytes on disk. The summary line's ``durability``
+    entry holds the numbers.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import os
+import select
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -1101,9 +1129,31 @@ def recording_segsum_calls(ssum):
         ssum.segment_counts_sums_gathered = orig
 
 
-def check_kept_segsum(torch, ssum, kept, label):
+def note_segsum_held(torch, ssum, nd, kw, out, plain, errs, held):
+    """One segment-sum call replayed against plain: each kernel its plan
+    launched (the main pass, and the combine pass that wrote or zeroed
+    the outputs) is held through the call's outputs; ``held[name]``
+    counts it, ``errs[name]`` takes the call's largest difference."""
+    n_ords = kw["n_ords"]
+    if n_ords == 0:
+        return
+    p = ssum.segment_sum_plan(nd, n_ords, kw.get("with_count", True),
+                              out[1] is not None,
+                              torch.cuda.get_device_properties(
+                                  0).multi_processor_count)
+    err = 0.0
+    for a, b in zip(out, plain):
+        if a is not None:
+            err = max(err, float((a.double() - b.double()).abs().max()))
+    for name in ("segment_sum", "segment_sum_combine")[: p.kernels]:
+        held[name] = held.get(name, 0) + 1
+        errs[name] = max(errs.get(name, 0.0), err)
+
+
+def check_kept_segsum(torch, ssum, kept, label, errs=None, held=None):
     """Replay each kept main-path segment-sum call through the plain version
-    on the same inputs: counts equal, sums within tolerance."""
+    on the same inputs: counts equal, sums within tolerance. With ``errs``
+    and ``held``, note each call's kernels (note_segsum_held)."""
     for n, (args, kw, out) in enumerate(kept):
         plain = ssum.segment_sum_gathered_plain(
             *args, n_ords=kw["n_ords"], with_count=kw.get("with_count", True))
@@ -1115,6 +1165,9 @@ def check_kept_segsum(torch, ssum, kept, label):
                                             atol=ssum.SUM_ATOL))
         check(ok, f"{label} main-path segment_sum launch {n} (nd "
                   f"{args[0].shape[0]}, n_ords {kw['n_ords']}) equals plain")
+        if held is not None:
+            note_segsum_held(torch, ssum, args[0].shape[0], kw, out, plain,
+                             errs, held)
     return len(kept)
 
 
@@ -1139,9 +1192,12 @@ def recording_mask_segsum(ssum):
         ssum.segment_counts_sums = orig
 
 
-def check_kept_mask_segsum(torch, ssum, kept, label):
+def check_kept_mask_segsum(torch, ssum, kept, label, errs=None,
+                           held=None):
     """Replay each kept f32-mask call through the plain version: counts
-    equal, sums within SUM_RTOL / SUM_ATOL of each bucket's sum of |v|."""
+    equal, sums within SUM_RTOL / SUM_ATOL of each bucket's sum of |v|.
+    With ``errs`` and ``held``, note each call's kernels
+    (note_segsum_held)."""
     plans = {}
     for n, (args, kw, out) in enumerate(kept):
         ords, mask = args[0], args[1]
@@ -1162,6 +1218,9 @@ def check_kept_mask_segsum(torch, ssum, kept, label):
                               <= ssum.SUM_RTOL * absum + ssum.SUM_ATOL).all())
         check(ok, f"{label} segment_sum mask-form launch {n} (nd "
                   f"{ords.shape[0]}, n_ords {kw['n_ords']}) equals plain")
+        if held is not None:
+            note_segsum_held(torch, ssum, ords.shape[0], kw, out, plain,
+                             errs, held)
         p = ssum.segment_sum_plan(ords.shape[0], kw["n_ords"],
                                   kw.get("with_count", True),
                                   values is not None,
@@ -3993,6 +4052,609 @@ def aggs_phase(torch, Node, Segment, cuda_kernels, tsc, queries, lat,
     return report
 
 
+# ----------------------------------------------------------------------
+# Durability on the card: translog, store, restart recovery
+# ----------------------------------------------------------------------
+
+# 13b's child: indexes the docs of a JSON-lines file into a durable node on
+# the card, one bulk of 1,000 at a time under the default request
+# durability, and prints each bulk's acknowledged ids
+CRASH_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[3])
+from elasticsearch_tpu_torch.node import Node
+node = Node(data_path=sys.argv[1], device="cuda")
+node.create_index("docs", {"settings": {"number_of_shards": 5},
+                           "mappings": {"_doc": {"properties": {
+                               "id": {"type": "keyword"},
+                               "title": {"type": "text"},
+                               "venue": {"type": "keyword"},
+                               "year": {"type": "long"}}}}})
+print(json.dumps({"ready": True}), flush=True)
+with open(sys.argv[2], encoding="utf-8") as f:
+    docs = [json.loads(line) for line in f]
+for b in range(0, len(docs), 1000):
+    r = node.bulk([("index", {"_index": "docs", "_id": d["id"]}, d)
+                   for d in docs[b: b + 1000]])
+    assert not r["errors"]
+    print(json.dumps([next(iter(it.values()))["_id"] for it in r["items"]]),
+          flush=True)
+"""
+CRASH_ACKED_BULKS = 3
+
+
+def _readline(proc, timeout=600.0):
+    """The child's next stdout line, or '' if it said nothing in
+    ``timeout`` seconds."""
+    ready, _w, _x = select.select([proc.stdout], [], [], timeout)
+    return proc.stdout.readline() if ready else ""
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _s, files in os.walk(path) for f in files)
+
+
+def _no_took(resp):
+    """A response as JSON without ``took``: what must come back equal, byte
+    for byte, after a restart."""
+    return json.dumps({k: v for k, v in resp.items() if k != "took"},
+                      sort_keys=True)
+
+
+def _shard_seqnos(node, index):
+    return {sid: sh.seq_no_stats()["max_seq_no"]
+            for sid, sh in node.indices[index].shards.items()}
+
+
+@contextlib.contextmanager
+def recording_recovered_path(tsc, ssum, knn):
+    """Every kernel call on the card while the block runs: score_tiles
+    (every variant), the segment sum's gather and mask forms, kernel 3."""
+    with recording_tile_launches(tsc, lambda k: True) as tiles, \
+            recording_segsum_calls(ssum) as gathered, \
+            recording_mask_segsum(ssum) as masked, \
+            recording_knn_launches(knn) as knns:
+        yield tiles, gathered, masked, knns
+
+
+def hold_recovered_path(torch, tsc, ssum, knn, kept, launches, errs, label):
+    """Hold every kept launch against its plain version on its inputs, and
+    check that every launch the counters saw (``launches``) was held.
+    Returns (launches held, largest difference), by launch name, both of
+    this block alone; ``errs`` takes the largest differences too (kNN
+    under ``knn``)."""
+    tiles, gathered, masked, knns = kept
+    here = {}
+    held = dict(check_kept_launches(torch, tsc, tiles, here, label))
+    for name in held:
+        # a launch with no finite plain score is held by torch.equal alone
+        here.setdefault(name, 0.0)
+    check_kept_segsum(torch, ssum, gathered, label, here, held)
+    check_kept_mask_segsum(torch, ssum, masked, label, here, held)
+    for n, (args, kw, out) in enumerate(knns):
+        plain = knn.knn_score_tiles_plain(
+            args[0], args[1], args[2], args[3], sub=kw["sub"],
+            k=min(kw["k"], kw["sub"] * knn.LANE), n_rows=kw["n_rows"])
+        torch.cuda.synchronize()
+        fin = torch.isfinite(plain[0])
+        here["knn_scoring"] = max(here.get("knn_scoring", 0.0), float(
+            (out[0][fin] - plain[0][fin]).abs().max()) if bool(fin.any())
+            else 0.0)
+        check(torch.equal(out[0], plain[0]) and torch.equal(out[1], plain[1]),
+              f"{label} kNN launch {n} (rows {kw['n_rows']}) equals plain")
+    held["knn_scoring"] = len(knns)
+    for k, v in launches.items():
+        if v:
+            check(held.get(k, 0) == v,
+                  f"{label} every {k} launch held against plain ({v}, "
+                  f"held {held.get(k, 0)})")
+    for k, v in here.items():
+        key = "knn" if k == "knn_scoring" else k
+        errs[key] = max(errs.get(key, 0.0), v)
+    return held, here
+
+
+def durability_phase(torch, Node, cuda_kernels, tsc, ops, inproc_rate, reqs3,
+                     reqs7, knn_bodies, shard_arrays, vecs, exists, queries,
+                     errs):
+    """Phase 13: durability on the card, every data path under a fresh
+    ``tempfile.mkdtemp()``, removed at the end.
+
+    13a. A ``Node(data_path=..., device="cuda")`` takes phase 3's 20,000
+         docs in bulks of 1,000 under ``index.translog.durability: async``
+         and the first 4,000 into a second index under ``request`` (one
+         fsync per op): docs/s for each beside phase 3's in-memory rate.
+         ``_flush``, 100 deletes, phase 3's requests recorded, ``close()``;
+         a new Node over the path answers them equal byte for byte (bar
+         ``took``) on the host rung, every launch (1a, kernel 2 and its
+         combine pass) held against plain; each shard's next ``_seq_no`` continues from its
+         last; deleted docs stay deleted; ``_forcemerge`` leaves every
+         total and bucket as it was and the merged index equals a cpu node
+         opened over the same data path.
+    13b. A child ``python3`` on the card indexes phase 3's docs (with an
+         ``id`` keyword) under ``request`` durability, printing each
+         bulk's acknowledged ids, and is killed with SIGKILL in the middle
+         of its fourth bulk. Reopened on the card: every acknowledged doc
+         is found by GET and by a ``terms`` query on ``id``, no doc twice,
+         each shard's local checkpoint at its max seqno, and the match
+         totals equal an in-memory node that took exactly the recovered
+         docs.
+    13c. pmc-4x256k at full width (phase 7's arrays, phase 12's ``ts`` /
+         ``citations``, phase 9's ``emb``) in one durable 4-shard index:
+         phase 7's, 9's and 12's bodies and two ``search_batch`` bursts
+         of 16 (phase 8's matches, 1c; phase 12's agg bodies, 1b)
+         recorded, synced flush, ``close()`` (``memory_allocated`` back to
+         its level before the index); the reopen timed as Node
+         construction (load, checksums, version maps), staging, then the
+         first answer (host clock, no profiler, with host-clock spans of
+         its mesh staging, program and fetch); then the mesh plane's
+         staging dropped and the same body answered again under
+         torch.profiler, for the device split into copies and kernels;
+         every recorded response equal bit for bit with ``_plane``
+         unchanged, and every launch (1a, 1b, 1c, kernel 2 and its
+         combine pass, kernel 3) held against plain, with 13c's own
+         largest difference per kernel.
+    Returns the report (the summary line's ``durability`` entry)."""
+    from elasticsearch_tpu_torch.ops import knn_scoring as knn
+    from elasticsearch_tpu_torch.ops import segment_sum as ssum
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="estpu-durable-")
+    report = {"data_root_free_bytes": shutil.disk_usage(root).free}
+    try:
+        report["13a"] = _durable_ingest(torch, Node, cuda_kernels, tsc, ssum,
+                                        knn, ops, inproc_rate, reqs3, errs,
+                                        os.path.join(root, "a"))
+        report["13b"] = _crash_recovery(torch, Node, ops, reqs3,
+                                        os.path.join(root, "b"))
+        report["13c"] = _recover_full_width(
+            torch, Node, cuda_kernels, tsc, ssum, knn, reqs7, knn_bodies,
+            shard_arrays, vecs, exists, queries, errs,
+            os.path.join(root, "c"))
+    finally:
+        shutil.rmtree(root)
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[phase 13] done in {report['seconds']:.1f} s")
+    return report
+
+
+def _durable_ingest(torch, Node, cuda_kernels, tsc, ssum, knn, ops,
+                    inproc_rate, reqs, errs, path):
+    mapping = {"_doc": {"properties": {
+        "title": {"type": "text"}, "venue": {"type": "keyword"},
+        "year": {"type": "long"}}}}
+    g = Node(data_path=path, device="cuda")
+    g.create_index("docs", {"settings": {
+        "number_of_shards": 5, "translog": {"durability": "async"}},
+        "mappings": mapping})
+    g.create_index("docs_req", {"settings": {"number_of_shards": 5},
+                                "mappings": mapping})
+    rates = {}
+    for index, docs in (("docs", ops), ("docs_req", ops[:4000])):
+        t0 = time.perf_counter()
+        for b in range(0, len(docs), 1000):
+            r = g.bulk([(a, {**meta, "_index": index}, src)
+                        for a, meta, src in docs[b: b + 1000]])
+            check(not r["errors"], f"phase 13a bulk into {index}")
+        g.refresh(index)
+        torch.cuda.synchronize()
+        rates[index] = len(docs) / (time.perf_counter() - t0)
+    log(f"[phase 13a] durable ingest + refresh: async {rates['docs']:.0f} "
+        f"docs/s (20,000 docs), request {rates['docs_req']:.0f} docs/s "
+        f"(4,000 docs, one fsync per op), in memory (phase 3) "
+        f"{inproc_rate:.0f} docs/s")
+    t0 = time.perf_counter()
+    g.flush("docs")
+    flush_s = time.perf_counter() - t0
+    deleted = [f"d{i}" for i in range(0, INGEST_DOCS, 200)]
+    for d in deleted:
+        check(g.delete_doc("docs", d)["result"] == "deleted",
+              f"phase 13a delete {d}")
+    g.refresh("docs")
+    before = [_no_took(g.search("docs", dict(body))) for _k, body, _t in reqs]
+    last = _shard_seqnos(g, "docs")
+    t0 = time.perf_counter()
+    g.close()
+    close_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    g2 = Node(data_path=path, device="cuda")
+    reopen_s = time.perf_counter() - t0
+    svc = g2.indices["docs"]
+    check(sorted(g2.indices) == ["docs", "docs_req"],
+          f"phase 13a reopened both indices ({sorted(g2.indices)})")
+    check(sum(svc.recovered_ops.values()) == 0,
+          f"phase 13a close's synced flush left nothing to replay "
+          f"({svc.recovered_ops})")
+    check(g2.indices["docs_req"].num_docs() == 4000,
+          "phase 13a request-durability index reopened with 4,000 docs")
+    cuda_kernels.reset_launch_counts()
+    with recording_recovered_path(tsc, ssum, knn) as kept:
+        after = [_no_took(g2.search("docs", dict(body)))
+                 for _k, body, _t in reqs]
+    torch.cuda.synchronize()
+    launches = dict(cuda_kernels.LAUNCHES)
+    held, _ = hold_recovered_path(torch, tsc, ssum, knn, kept, launches,
+                                  errs, "phase 13a")
+    del kept
+    same = sum(a == b for a, b in zip(after, before))
+    check(same == len(reqs),
+          f"phase 13a: {same} of {len(reqs)} responses after the reopen "
+          f"equal those before the close")
+    check(all(json.loads(a)["_plane"] == "host" for a in after),
+          "phase 13a served on the host rung")
+    for k in HOST_PATH_KERNELS:
+        check(launches[k] > 0,
+              f"phase 13a launched {k} on the recovered path "
+              f"({launches[k]})")
+    for d in deleted[:10]:
+        check(not g2.get_doc("docs", d)["found"],
+              f"phase 13a deleted {d} stays deleted")
+    # each shard's next seqno continues from its last
+    routing = _routing_for_shards(5)
+    for sid, seq in last.items():
+        r = g2.index_doc("docs", f"n{sid}", {"title": "t00001"},
+                         routing=routing[sid])
+        check(r["_seq_no"] == seq + 1,
+              f"phase 13a shard {sid} next _seq_no {r['_seq_no']} after "
+              f"{seq}")
+        g2.delete_doc("docs", f"n{sid}", routing=routing[sid])
+    g2.refresh("docs")
+    # force merge: the deleted docs leave the segments, and with them
+    # their share of each segment's BM25 statistics; totals and buckets
+    # stay, and the merged index equals a cpu node over the same path
+    check(g2.force_merge("docs")["_shards"]["successful"] == 5,
+          "phase 13a _forcemerge")
+    g2.flush("docs")
+    shutil.copytree(path, path + "-cpu")
+    c2 = Node(data_path=path + "-cpu", device="cpu")
+    merged_same = 0
+    for (kind, body, _t), b in zip(reqs, before):
+        gr = g2.search("docs", dict(body))
+        want = json.loads(b)
+        merged_same += (gr["hits"]["total"] == want["hits"]["total"]
+                        and gr.get("aggregations")
+                        == want.get("aggregations"))
+        same_response(gr, c2.search("docs", dict(body)),
+                      f"phase 13a merged {kind}")
+    check(merged_same == len(reqs),
+          f"phase 13a _forcemerge kept {merged_same} of {len(reqs)} totals "
+          f"and buckets")
+    c2.close()
+    g2.close()
+    out = {"async_docs_per_s": rates["docs"],
+           "request_docs_per_s": rates["docs_req"],
+           "inproc_docs_per_s": inproc_rate, "flush_s": flush_s,
+           "close_s": close_s, "reopen_s": reopen_s,
+           "responses_equal": same, "launches": launches, "held": held}
+    log(f"[phase 13a] {json.dumps(out)}")
+    return out
+
+
+def _crash_recovery(torch, Node, ops, reqs, path):
+    os.makedirs(path)
+    docs_file = os.path.join(path, "docs.jsonl")
+    with open(docs_file, "w", encoding="utf-8") as f:
+        for _a, meta, src in ops:
+            f.write(json.dumps({**src, "id": meta["_id"]}) + "\n")
+    data = os.path.join(path, "node")
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen([sys.executable, "-c", CRASH_CHILD, data,
+                             docs_file, root], stdout=subprocess.PIPE,
+                            text=True)
+    acked = []
+    t0 = time.perf_counter()
+    bulk_s = []
+    try:
+        check(json.loads(_readline(proc) or "{}").get("ready", False),
+              "phase 13b child ready")
+        t_bulk = time.perf_counter()
+        for _ in range(CRASH_ACKED_BULKS):
+            line = _readline(proc)
+            check(bool(line), "phase 13b child acknowledged a bulk")
+            if not line:
+                break
+            acked += json.loads(line)
+            bulk_s.append(time.perf_counter() - t_bulk)
+            t_bulk = time.perf_counter()
+        # the next bulk is in flight: a third of a bulk's time into it,
+        # some of its ops are in the translog and none is acknowledged
+        time.sleep(min(bulk_s[1:] or [0.3]) / 3)
+    finally:
+        proc.send_signal(signal.SIGKILL)
+        proc.wait()
+    child_s = time.perf_counter() - t0
+    sent = {meta["_id"] for _a, meta, _s in
+            ops[: (CRASH_ACKED_BULKS + 1) * 1000]}
+    in_flight = sent - set(acked)
+    t0 = time.perf_counter()
+    g = Node(data_path=data, device="cuda")
+    reopen_s = time.perf_counter() - t0
+    svc = g.indices["docs"]
+    g.refresh("docs")
+    replayed = sum(svc.recovered_ops.values())
+    found = sum(g.get_doc("docs", d)["found"] for d in acked)
+    check(found == len(acked) == CRASH_ACKED_BULKS * 1000,
+          f"phase 13b every acknowledged doc found by GET ({found} of "
+          f"{len(acked)})")
+    by_terms = 0
+    for b in range(0, len(acked), 500):
+        chunk = acked[b: b + 500]
+        r = g.search("docs", {"query": {"terms": {"id": chunk}},
+                              "size": len(chunk)})
+        by_terms += (r["hits"]["total"] == len(chunk) and sorted(
+            h["_id"] for h in r["hits"]["hits"]) == sorted(chunk))
+    check(by_terms == -(-len(acked) // 500),
+          "phase 13b every acknowledged doc found once by a terms query on "
+          "its id")
+    for d in acked[::97]:
+        r = g.search("docs", {"query": {"term": {"id": d}}})
+        check(r["hits"]["total"] == 1 and r["hits"]["hits"][0]["_id"] == d,
+              f"phase 13b term query on id {d}")
+    everything = g.search("docs", {"query": {"match_all": {}},
+                                   "size": 10_000})
+    got = [h["_id"] for h in everything["hits"]["hits"]]
+    check(len(got) == len(set(got)) == everything["hits"]["total"],
+          "phase 13b no doc twice")
+    check(set(acked) <= set(got) <= sent,
+          f"phase 13b recovered the acknowledged docs and only docs of the "
+          f"bulk in flight ({len(got)} docs, {len(acked)} acknowledged)")
+    for sid, sh in svc.shards.items():
+        s = sh.seq_no_stats()
+        check(s["local_checkpoint"] == s["max_seq_no"],
+              f"phase 13b shard {sid} local checkpoint {s}")
+    # an in-memory node that took exactly the recovered docs, in seqno order
+    mem = Node(device="cuda")
+    mem.create_index("docs", {"settings": {"number_of_shards": 5},
+                              "mappings": {"_doc": {"properties": {
+                                  "id": {"type": "keyword"},
+                                  "title": {"type": "text"},
+                                  "venue": {"type": "keyword"},
+                                  "year": {"type": "long"}}}}})
+    order = sorted(got, key=lambda d: g.get_doc("docs", d)["_seq_no"])
+    srcs = {h["_id"]: h["_source"] for h in everything["hits"]["hits"]}
+    mem.bulk([("index", {"_index": "docs", "_id": d}, srcs[d])
+              for d in order], refresh=True)
+    totals_same = sum(
+        g.search("docs", dict(body))["hits"]["total"]
+        == mem.search("docs", dict(body))["hits"]["total"]
+        for _k, body, _t in reqs)
+    check(totals_same == len(reqs),
+          f"phase 13b {totals_same} of {len(reqs)} match totals equal an "
+          f"in-memory node over the recovered docs")
+    mem.close()
+    g.close()
+    out = {"acked": len(acked), "recovered": len(got),
+           "recovered_of_bulk_in_flight": len(set(got) & in_flight),
+           "replayed_ops": replayed, "child_s": child_s,
+           "bulk_s": bulk_s, "reopen_s": reopen_s}
+    log(f"[phase 13b] {json.dumps(out)}")
+    return out
+
+
+def _first_answer(torch, fn):
+    """Run ``fn`` once, with no profiler: its host-clock ms ending in a
+    device sync, and host-clock spans of the mesh plane's steps inside it
+    (each span syncs the card at its ends): the staging of the slot
+    structures (``_stage_rebuild``), of the kernel plane
+    (``ensure_kernel``), the program (``execute``) and the fetch. What the
+    spans leave is the rest of the host work (routing, plan building,
+    reduce)."""
+    from elasticsearch_tpu_torch.index import index_service
+    from elasticsearch_tpu_torch.parallel import plan_exec
+
+    targets = [(plan_exec.IndexMeshSearch, "_stage_rebuild", "mesh_stage"),
+               (plan_exec.MeshPlanExecutor, "ensure_kernel",
+                "kernel_plane_stage"),
+               (plan_exec.MeshPlanExecutor, "execute", "program"),
+               (index_service, "fetch_hits", "fetch")]
+    with timed_spans(torch, targets) as spans:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1000
+    spans = dict(spans)
+    spans["rest"] = wall - sum(spans.values())
+    return out, wall, spans
+
+
+def _device_split(torch, fn):
+    """Run ``fn`` once under torch.profiler: the device time of the port's
+    kernels, of copies and fills (staging), and of the other device work,
+    in ms. The profiler's own host cost makes its wall time no answer
+    time, so none is returned."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    split = {"kernels_ms": 0.0, "copies_ms": 0.0, "other_ms": 0.0,
+             "kernel_launches": 0, "copies": 0}
+    ours = ("tile_scoring", "segment_sum", "knn_scoring")
+    for ev in prof.events():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        ms = ev.time_range.elapsed_us() / 1000.0
+        if any(k in ev.name for k in ours):
+            split["kernels_ms"] += ms
+            split["kernel_launches"] += 1
+        elif ev.name.startswith(("Memcpy", "Memset")):
+            split["copies_ms"] += ms
+            split["copies"] += 1
+        else:
+            split["other_ms"] += ms
+    return out, split
+
+
+def _recover_full_width(torch, Node, cuda_kernels, tsc, ssum, knn, reqs7,
+                        knn_bodies, shard_arrays, vecs, exists, queries, errs,
+                        path):
+    from elasticsearch_tpu_torch.index.segment import Segment
+
+    mapping = {"_doc": {"properties": {
+        "title": {"type": "text"}, "venue": {"type": "keyword"},
+        "year": {"type": "long"}, "ts": {"type": "date"},
+        "citations": {"type": "long"},
+        "emb": {"type": "dense_vector", "dims": KNN_DIMS,
+                "similarity": "cosine"}}}}
+    aggs12 = agg_requests(queries)
+    bodies = ([(f"7/{i}/{k}", b) for i, (k, b, _t) in enumerate(reqs7)]
+              + [(f"9/{k}", b) for k, b in knn_bodies]
+              + [(f"12/{i}/{k}", b) for i, (k, b, _r) in enumerate(aggs12)])
+    # phase 8's match burst (one batched fused top-k launch a slot, 1c)
+    # and phase 12's agg burst (one batched dense launch a slot, 1b)
+    dash = aggs12[0][1]["aggs"]
+    small = {k: dash[k] for k in ("venues", "per_day", "cit_stats")}
+    matches = [{"match": {"title": " ".join(term_token(t) for t in q)}}
+               for q in queries[:BURST]]
+    bursts = {"burst_match": [{"query": m, "size": 10} for m in matches],
+              "burst_aggs": [{"query": m, "size": 10,
+                              "aggs": dash if i % 2 == 0 else small}
+                             for i, m in enumerate(matches)]}
+
+    def serve_bursts(svc):
+        out = {}
+        for name, members in bursts.items():
+            got = svc.search_batch([dict(b) for b in members])
+            check(all(isinstance(r, dict) for r in got),
+                  f"phase 13c {name}: every member answered")
+            for i, r in enumerate(got):
+                if isinstance(r, dict):
+                    out[f"{name}/{i}"] = _no_took(r)
+        return out
+
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    g = Node(data_path=path, device="cuda")
+    g.create_index("dur4", {"settings": {"number_of_shards": 4},
+                            "mappings": mapping})
+    for sh, arrays in enumerate(shard_arrays):
+        arrays = dict(arrays)
+        nd_pad = arrays["numeric_columns"]["year"]["exists"].shape[0]
+        n = len(arrays["doc_ids"])
+        arrays["numeric_columns"] = {**arrays["numeric_columns"],
+                                     **agg_columns(sh, nd_pad, n)}
+        rows = slice(sh * MESH_SHARD_DOCS, (sh + 1) * MESH_SHARD_DOCS)
+        arrays["vector_columns"] = {"emb": dict(
+            vectors=vecs[rows], exists=exists[rows], dims=KNN_DIMS,
+            count=int(exists[rows].sum()))}
+        g.indices["dur4"].shards[sh].engine.adopt_segment(
+            Segment.from_arrays(f"dur4_{sh}_seg_1", device="cuda", **arrays))
+    build_s = time.perf_counter() - t0
+    before = {}
+    for label, body in bodies:
+        before[label] = _no_took(g.search("dur4", dict(body)))
+    before.update(serve_bursts(g.indices["dur4"]))
+    planes = {label: json.loads(r)["_plane"] for label, r in before.items()}
+    t0 = time.perf_counter()
+    g.indices["dur4"].synced_flush()
+    flush_s = time.perf_counter() - t0
+    disk = _dir_bytes(path)
+    by_kind = {}
+    for d, _s, files in os.walk(path):
+        for f in files:
+            by_kind[f] = by_kind.get(f, 0) + os.path.getsize(
+                os.path.join(d, f))
+    # what arrays.npz holds, by kind
+    segs = [seg for sh in g.indices["dur4"].shards.values()
+            for seg in sh.engine.segments]
+    by_kind["arrays.npz: postings"] = sum(
+        s.block_docs.nbytes + s.block_tfs.nbytes for s in segs)
+    by_kind["arrays.npz: vectors"] = sum(
+        c.vectors.nbytes for s in segs for c in s.vector_columns.values())
+    t0 = time.perf_counter()
+    g.close()
+    torch.cuda.synchronize()
+    close_s = time.perf_counter() - t0
+    mem_closed = torch.cuda.memory_allocated()
+    check(abs(mem_closed - mem0) <= 1 << 20,
+          f"phase 13c close returned device memory to within 1 MB of its "
+          f"level before the index ({mem0} -> {mem_closed} bytes)")
+    del g
+
+    # the reopen: construction (load, checksums, version maps), staging,
+    # the first answer
+    t0 = time.perf_counter()
+    g2 = Node(data_path=path, device="cuda")
+    load_s = time.perf_counter() - t0
+    svc = g2.indices["dur4"]
+    check(sum(svc.recovered_ops.values()) == 0,
+          "phase 13c synced flush left nothing to replay")
+    t0 = time.perf_counter()
+    for sh in svc.shards.values():
+        for seg in sh.engine.searchable_segments():
+            check(seg.device == torch.device("cuda", 0),
+                  f"phase 13c recovered {seg.name} on the node's card")
+            seg.device_arrays()
+            seg.ensure_vector_staged("emb")
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    cuda_kernels.reset_launch_counts()
+    with recording_recovered_path(tsc, ssum, knn) as kept:
+        first_label, first_body = bodies[0]
+        first, first_ms, first_spans = _first_answer(
+            torch, lambda: g2.search("dur4", dict(first_body)))
+        after = {first_label: _no_took(first)}
+        # the device split in a separate pass: the mesh plane's staging
+        # dropped, so the same body stages it again under the profiler
+        svc._mesh_search._drop_staging()
+        again, split = _device_split(
+            torch, lambda: g2.search("dur4", dict(first_body)))
+        check(_no_took(again) == before[first_label],
+              "phase 13c the profiled restaged answer equals the first")
+        for label, body in bodies[1:]:
+            after[label] = _no_took(g2.search("dur4", dict(body)))
+        after.update(serve_bursts(svc))
+    torch.cuda.synchronize()
+    launches = dict(cuda_kernels.LAUNCHES)
+    held, errs13 = hold_recovered_path(torch, tsc, ssum, knn, kept, launches,
+                                       errs, "phase 13c")
+    del kept
+    same = [label for label in before if after.get(label) == before[label]]
+    check(len(same) == len(before) == len(bodies) + 2 * BURST,
+          f"phase 13c: {len(same)} of {len(before)} responses after the "
+          f"reopen equal those before, bit for bit (differ: "
+          f"{[k for k in before if k not in same][:5]})")
+    check(all(json.loads(after[k])["_plane"] == planes[k] for k in after),
+          "phase 13c every response on the plane it was served by before")
+    moved = {"tile_scoring": launches["tile_scoring"],
+             "tile_scoring_topk": launches["tile_scoring_topk"],
+             "tile_scoring_batched": launches["tile_scoring_batched"],
+             "segment_sum": launches["segment_sum"],
+             "knn_scoring": launches["knn_scoring"]}
+    for k, v in moved.items():
+        check(v > 0, f"phase 13c launched {k} on the recovered path ({v})")
+    g2.close()
+    torch.cuda.synchronize()
+    mem_end = torch.cuda.memory_allocated()
+    check(abs(mem_end - mem0) <= 1 << 20,
+          f"phase 13c close after the recovery returned device memory "
+          f"({mem0} -> {mem_end} bytes)")
+    # every launched kernel was held (hold_recovered_path checks it), so
+    # each has its held count and its largest difference of 13c alone
+    kernels = [{"name": k, "launches": v, "held": held[k],
+                "max_abs_err": errs13[k]}
+               for k, v in sorted(launches.items()) if v]
+    out = {"docs": 4 * MESH_SHARD_DOCS, "bytes_on_disk": disk,
+           "bytes_by_file": by_kind, "build_s": build_s,
+           "synced_flush_s": flush_s, "close_s": close_s,
+           "load_s": load_s, "stage_s": stage_s,
+           "first_answer_ms": first_ms, "first_answer_spans_ms": first_spans,
+           "restaged_answer_device_split": split,
+           "first_request": first_label, "responses_equal": len(same),
+           "responses": len(before), "planes": sorted(set(planes.values())),
+           "memory_allocated": {"before": mem0, "after_close": mem_closed,
+                                "after_recovered_close": mem_end},
+           "launches": launches, "held": held, "kernels": kernels}
+    log(f"[phase 13c] {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4316,6 +4978,18 @@ def main() -> int:
                             + aggs_report["launches"]
                             ["segment_sum_gather_form"])
 
+    # ---------------- phase 13: durability on the card -------------------
+    durability_report = durability_phase(
+        torch, Node, cuda_kernels, tsc, ops, INGEST_DOCS / ingest_s, reqs,
+        reqs, knn_bodies, shard_arrays, knn_vecs, knn_exists, queries,
+        batch_errs)
+    seg_held["phase 13"] = (durability_report["13a"]["held"]["segment_sum"]
+                            + durability_report["13c"]["held"]
+                            ["segment_sum"])
+    for part in ("13a", "13c"):
+        for k, v in durability_report[part]["launches"].items():
+            launches[k] += v
+
     # ---------------- phase 5: latency summary ---------------------------
     for kind, xs in sorted(lat.items()):
         log(f"[phase 5] p50 phase {kind}: {float(np.median(xs)):.3f} ms over "
@@ -4414,7 +5088,8 @@ def main() -> int:
              "plain_ms", "bound_ms", "bound_by", "library_ms")}
              for e in knn_entries],
          **knn_staging},
-    ], "rest": rest_report, "aggs": aggs_report}
+    ], "rest": rest_report, "aggs": aggs_report,
+        "durability": durability_report}
     for name, key, replaces, extra in (
             ("tile_scoring_packed", "tile_scoring_packed", 656,
              ("ms_with_counts", "bound_ms_with_counts", "plan")),

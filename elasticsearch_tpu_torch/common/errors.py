@@ -110,3 +110,36 @@ class EsRejectedExecutionException(ElasticsearchTpuException):
     the response's Retry-After header."""
 
     status_code = 429
+
+
+class UnavailableShardsException(ElasticsearchTpuException):
+    """wait_for_active_shards not met (action/UnavailableShardsException)."""
+
+    status_code = 503
+
+
+class TranslogCorruptedException(ElasticsearchTpuException):
+    """Unreadable translog data at or below the checkpointed seqno: acked
+    (possibly committed) operations cannot be replayed. A torn final line
+    of the newest generation is not this: that is an unacked in-flight
+    append cut by a crash, which recovery tolerates."""
+
+    status_code = 500
+
+
+class SearchPhaseExecutionException(ElasticsearchTpuException):
+    """Every shard of a search failed; ``failed_shards`` lists why."""
+
+    status_code = 500
+
+    def __init__(self, phase: str, reason: str, shard_failures=()):
+        super().__init__(reason, phase=phase)
+        self.shard_failures = list(shard_failures)
+
+    def to_dict(self) -> dict:
+        d = super().to_dict()
+        d["error"]["failed_shards"] = [
+            {"shard": f.get("shard"), "index": f.get("index"),
+             "reason": f.get("reason")}
+            for f in self.shard_failures]
+        return d

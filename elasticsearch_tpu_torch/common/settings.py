@@ -218,7 +218,7 @@ class Setting:
                 self.default, self.key))
         else:
             v = settings.get_str(self.key, self.default)
-            if v not in self.choices:
+            if self.choices is not None and v not in self.choices:
                 raise IllegalArgumentException(
                     f"Failed to parse value [{v}] for setting [{self.key}]: "
                     f"must be one of {sorted(self.choices)}")
@@ -296,3 +296,16 @@ SEARCH_AGGS_FUSED = Setting("search.aggs.fused", True, "bool")
 INDEX_SEARCH_AGGS_FUSED = Setting(
     "index.search.aggs.fused", "default", "str",
     choices={"default", "true", "false"})
+
+# --- durability (index/translog.py, index/store.py, node.py) ---
+# the node's data directory; a Node given neither this nor data_path keeps
+# nothing on disk
+PATH_DATA = Setting("path.data", "data", "str")
+# request: one fsync per op before it is acknowledged; async: the buffer
+# is synced at flush and close
+INDEX_TRANSLOG_DURABILITY = Setting(
+    "index.translog.durability", "request", "str",
+    choices={"request", "async"})
+# registered only, as in the JAX package: no size-triggered flush yet
+INDEX_TRANSLOG_FLUSH_THRESHOLD = Setting(
+    "index.translog.flush_threshold_size", "512mb", "str")

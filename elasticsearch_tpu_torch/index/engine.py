@@ -1,24 +1,33 @@
-"""The per-shard write engine: buffer + segments + version map, in memory.
+"""The per-shard write engine: buffer + segments + version map + translog.
 
 Counterpart of ``elasticsearch_tpu/index/engine.py`` (InternalEngine with
 Lucene's IndexWriter replaced by the block-packing ``SegmentBuilder``):
 
 - ``index()``: version-check against the version map, assign a seqno,
-  buffer the doc.
+  buffer the doc, append the op to the translog.
 - ``refresh()``: seal the buffer into an immutable Segment on the
   engine's device and apply buffered deletes — searches see only sealed
   segments.
+- ``flush()``: refresh, write a commit point to the store, then trim the
+  translog; ``synced_flush()`` stamps the commit with a sync id, so a
+  restart over it replays nothing.
+- ``force_merge()``: rebuild the live docs into one segment.
+- ``recover_from_translog()``: replay the uncommitted ops after a restart
+  (the seqno staleness guard makes a replay idempotent).
 - updates/deletes tombstone the old doc; against a sealed segment the
   tombstone becomes search-visible at the next refresh.
 - realtime GET reads unrefreshed docs straight from the buffer.
 
-The translog, the store and flush are later slices (the JAX ``Node()``
-without ``data_path`` keeps nothing on disk either).
+An engine without a translog and a store (a ``Node`` without a data
+path) keeps nothing on disk: flush refreshes and counts, and there is
+nothing to replay. The JAX package opens a translog in a temporary
+directory for such a shard; nothing on one node reads it back.
 """
 
 from __future__ import annotations
 
 import threading
+import uuid as _uuid
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
@@ -27,6 +36,7 @@ import numpy as np
 from elasticsearch_tpu_torch.common.device import resolve_device
 from elasticsearch_tpu_torch.common.errors import VersionConflictEngineException
 from elasticsearch_tpu_torch.index.segment import Segment, SegmentBuilder
+from elasticsearch_tpu_torch.index.translog import Translog, TranslogOp
 
 
 @dataclass
@@ -37,6 +47,9 @@ class VersionEntry:
     segment: Optional[str]
     local_doc: int
     deleted: bool = False
+    # primary term of the op that produced this entry: equal-seqno ties
+    # in the staleness guard break by term
+    term: int = 1
 
 
 @dataclass
@@ -51,10 +64,15 @@ class GetResult:
 
 class Engine:
     def __init__(self, shard_id, mapper_service, segment_prefix: str = "seg",
-                 device="cuda"):
+                 device="cuda", translog: Optional[Translog] = None,
+                 store=None):
         self.shard_id = shard_id
         self.mapper_service = mapper_service
         self.device = resolve_device(device)
+        # the write-ahead log and the store (index/store.py), or None for
+        # an engine that keeps nothing on disk
+        self.translog = translog
+        self.store = store
         self._segment_prefix = segment_prefix
         self._segment_counter = 0
         self.segments: List[Segment] = []
@@ -64,8 +82,12 @@ class Engine:
         self._pending_seg_deletes: List[tuple] = []
         self.version_map: Dict[str, VersionEntry] = {}
         self._seqno = -1
+        self._local_checkpoint = -1
         self._lock = threading.RLock()
         self.refresh_count = 0
+        self.flush_count = 0
+        self.indexing_total = 0
+        self.delete_total = 0
         # postings-codec preference stamped on each searchable segment
         # (IndexService sets both from the index settings)
         self.postings_codec: Optional[str] = None
@@ -78,39 +100,79 @@ class Engine:
 
     def _next_seqno(self) -> int:
         self._seqno += 1
+        self._local_checkpoint = self._seqno  # single writer: contiguous
         return self._seqno
 
     @property
     def max_seqno(self) -> int:
         return self._seqno
 
+    @property
+    def local_checkpoint(self) -> int:
+        return self._local_checkpoint
+
+    def note_external_seqno(self, seqno: int) -> None:
+        """An op that carries its seqno (translog replay, recovery)."""
+        self._seqno = max(self._seqno, seqno)
+        self._local_checkpoint = self._seqno
+
+    def _stale(self, existing: Optional[VersionEntry], seqno: Optional[int],
+               primary_term: int) -> bool:
+        """A replayed op older than what the version map holds for its id
+        (a newer op, or a delete tombstone, already applied): skipped.
+        Equal seqnos break by primary term."""
+        return (seqno is not None and existing is not None
+                and (existing.seqno > seqno
+                     or (existing.seqno == seqno
+                         and existing.term >= primary_term)))
+
     # ------------------------------------------------------------------
     # Write path
     # ------------------------------------------------------------------
 
     def index(self, doc_id: str, source: dict, routing: Optional[str] = None,
-              version: Optional[int] = None, op_type: str = "index") -> dict:
+              version: Optional[int] = None, op_type: str = "index",
+              seqno: Optional[int] = None, add_to_translog: bool = True,
+              replicated_version: Optional[int] = None,
+              primary_term: int = 1) -> dict:
         """Index one document (create or update). Returns
-        {_id, _version, _seq_no, result: created|updated}."""
+        {_id, _version, _seq_no, result: created|updated|noop}.
+
+        ``seqno`` and ``replicated_version``: a replayed op keeps the
+        seqno and version it was assigned, with no version check; one
+        that is stale against the version map is a no-op."""
         with self._lock:
             existing = self.version_map.get(doc_id)
+            if self._stale(existing, seqno, primary_term):
+                self.note_external_seqno(seqno)
+                return {"_id": doc_id, "_version": existing.version,
+                        "_seq_no": seqno, "result": "noop"}
             current_version = (
                 existing.version if existing and not existing.deleted else 0)
             if op_type == "create" and existing is not None and not existing.deleted:
                 raise VersionConflictEngineException(doc_id, current_version, 0)
             if version is not None and current_version != version:
                 raise VersionConflictEngineException(doc_id, current_version, version)
-            new_version = current_version + 1
+            new_version = (replicated_version if replicated_version is not None
+                           else current_version + 1)
             # the seqno is taken before parsing, as in the JAX package: a
             # document that fails to parse still uses one up
-            seqno = self._next_seqno()
+            if seqno is None:
+                seqno = self._next_seqno()
+            else:
+                self.note_external_seqno(seqno)
             parsed = self.mapper_service.parse_document(doc_id, source, routing)
             created = existing is None or existing.deleted
             if existing is not None and not existing.deleted:
                 self._tombstone(existing)
             local_doc = self.buffer.add_document(parsed, seqno, new_version)
             self.version_map[doc_id] = VersionEntry(
-                new_version, seqno, None, local_doc)
+                new_version, seqno, None, local_doc, term=primary_term)
+            if add_to_translog and self.translog is not None:
+                self.translog.add(TranslogOp(
+                    TranslogOp.INDEX, seqno, doc_id, source, routing,
+                    new_version, primary_term))
+            self.indexing_total += 1
             return {
                 "_id": doc_id,
                 "_version": new_version,
@@ -118,24 +180,44 @@ class Engine:
                 "result": "created" if created else "updated",
             }
 
-    def delete(self, doc_id: str, version: Optional[int] = None) -> dict:
+    def delete(self, doc_id: str, version: Optional[int] = None,
+               seqno: Optional[int] = None, add_to_translog: bool = True,
+               replicated_version: Optional[int] = None,
+               primary_term: int = 1) -> dict:
         with self._lock:
             existing = self.version_map.get(doc_id)
+            if self._stale(existing, seqno, primary_term):
+                self.note_external_seqno(seqno)
+                return {"_id": doc_id, "_version": existing.version,
+                        "_seq_no": seqno, "result": "noop",
+                        "found": not existing.deleted}
             found = existing is not None and not existing.deleted
             current_version = existing.version if found else 0
             if version is not None and current_version != version:
                 raise VersionConflictEngineException(
                     doc_id, current_version, version)
-            seqno = self._next_seqno()
-            new_version = current_version + 1
+            if seqno is None:
+                seqno = self._next_seqno()
+            else:
+                self.note_external_seqno(seqno)
+            new_version = (replicated_version if replicated_version is not None
+                           else current_version + 1)
             if found:
                 self._tombstone(existing)
                 self.version_map[doc_id] = VersionEntry(
                     new_version, seqno, existing.segment, existing.local_doc,
-                    deleted=True)
+                    deleted=True, term=primary_term)
             else:
+                # a tombstone even for a missing doc: the staleness guard
+                # needs it to refuse an older index op replayed after it
                 self.version_map[doc_id] = VersionEntry(
-                    new_version, seqno, None, -1, deleted=True)
+                    new_version, seqno, None, -1, deleted=True,
+                    term=primary_term)
+            if add_to_translog and self.translog is not None:
+                self.translog.add(TranslogOp(
+                    TranslogOp.DELETE, seqno, doc_id, version=new_version,
+                    primary_term=primary_term))
+            self.delete_total += 1
             return {
                 "_id": doc_id,
                 "_version": new_version,
@@ -165,7 +247,7 @@ class Engine:
                     int(seg.versions[local]), int(seg.seqnos[local]),
                     seg.name, local)
             if seg.num_docs:
-                self._seqno = max(self._seqno, int(seg.seqnos.max()))
+                self.note_external_seqno(int(seg.seqnos.max()))
             self.segments.append(seg)
 
     # ------------------------------------------------------------------
@@ -213,11 +295,36 @@ class Engine:
         """Live, searchable doc count (excludes the unrefreshed buffer)."""
         return sum(s.live_doc_count for s in self.segments)
 
+    def stats(self) -> dict:
+        """Doc, write, refresh, flush, segment, translog and seqno
+        counters (the JAX engine's ``stats``; the translog's is None
+        without a data path)."""
+        with self._lock:
+            return {
+                "docs": {"count": self.num_docs,
+                         "buffered": (self.buffer.num_docs
+                                      - len(self._buffer_deletes))},
+                "indexing": {"index_total": self.indexing_total,
+                             "delete_total": self.delete_total},
+                "refresh": {"total": self.refresh_count},
+                "flush": {"total": self.flush_count},
+                "segments": {"count": len(self.segments),
+                             "memory_in_bytes": sum(
+                                 s.memory_bytes() for s in self.segments)},
+                "translog": (self.translog.stats()
+                             if self.translog is not None else None),
+                "seq_no": {"max_seq_no": self.max_seqno,
+                           "local_checkpoint": self.local_checkpoint},
+            }
+
     def close(self) -> None:
-        """Release every segment's device arrays (the index closed)."""
+        """Release every segment's device arrays (the index closed) and
+        sync and close the translog."""
         with self._lock:
             for seg in self.segments:
                 seg.release_device()
+            if self.translog is not None:
+                self.translog.close()
 
     # ------------------------------------------------------------------
     # Refresh
@@ -250,3 +357,73 @@ class Engine:
             self.buffer = self._new_builder()
             self._buffer_deletes = set()
             return True
+
+    # ------------------------------------------------------------------
+    # Flush / merge / translog replay
+    # ------------------------------------------------------------------
+
+    def flush(self, sync_id: Optional[str] = None) -> None:
+        """Refresh, write a commit point covering every op, then trim the
+        translog (InternalEngine.flush). ``sync_id`` stamps the commit
+        with a synced-flush marker."""
+        with self._lock:
+            self.refresh()
+            if self.store is not None:
+                self.store.commit(self.segments, self.max_seqno,
+                                  self.version_map, sync_id=sync_id)
+            if self.translog is not None:
+                self.translog.mark_committed(self.max_seqno)
+                self.translog.roll_generation()
+            self.flush_count += 1
+
+    def synced_flush(self) -> str:
+        """Flush with a fresh synced-flush marker: the commit then covers
+        every acked op, and a restart over it replays no translog op."""
+        sync_id = _uuid.uuid4().hex
+        self.flush(sync_id=sync_id)
+        return sync_id
+
+    def force_merge(self) -> None:
+        """Rebuild the live docs into one segment from their stored
+        sources (expunges deletes). The retired segments drop their
+        device arrays; the merged one stages lazily."""
+        with self._lock:
+            self.refresh()
+            builder = self._new_builder()
+            for seg in self.segments:
+                for local in np.flatnonzero(seg.live[: seg.num_docs]):
+                    local = int(local)
+                    doc_id = seg.doc_ids[local]
+                    parsed = self.mapper_service.parse_document(
+                        doc_id, seg.sources[local], seg.routings[local])
+                    seqno = int(seg.seqnos[local])
+                    version = int(seg.versions[local])
+                    new_local = builder.add_document(parsed, seqno, version)
+                    old = self.version_map.get(doc_id)
+                    self.version_map[doc_id] = VersionEntry(
+                        version, seqno, builder.name, new_local,
+                        term=old.term if old is not None else 1)
+            merged = builder.seal()
+            for old_seg in self.segments:
+                old_seg.release_device()
+            self.segments = [merged] if merged.num_docs else []
+
+    def recover_from_translog(self) -> int:
+        """Replay the uncommitted translog ops (engine open after a
+        restart or a crash); returns how many were replayed."""
+        if self.translog is None:
+            return 0
+        ops = self.translog.uncommitted_ops()
+        for op in ops:
+            if op.op_type == TranslogOp.INDEX:
+                self.index(op.doc_id, op.source, op.routing, seqno=op.seqno,
+                           add_to_translog=False,
+                           replicated_version=op.version,
+                           primary_term=op.primary_term)
+            elif op.op_type == TranslogOp.DELETE:
+                self.delete(op.doc_id, seqno=op.seqno, add_to_translog=False,
+                            replicated_version=op.version,
+                            primary_term=op.primary_term)
+        if ops:
+            self.refresh()
+        return len(ops)

@@ -38,19 +38,34 @@ program (``search.pallas.pruning.enabled``) carries ``"_pruned":
 {"tiles_scored", "tiles_pruned", "total_relation": "gte"}``: its total
 counts matches in scored tiles only, and the REST layer renders it as
 ``{"value", "relation": "gte"}`` (``rest/handlers._render_total_hits``).
-``close`` releases the index's device memory (``Node.delete_index``). The
-request cache, admission control, scrubbing, compaction and telemetry are
-later slices.
+``close`` releases the index's device memory (``Node.delete_index``).
+
+With a ``data_path`` each shard keeps its translog and store under
+``<data_path>/<shard id>``, and an index opened over an existing one
+recovers each shard from its store and translog (``recover_from_store``)
+before it serves. A shard whose store fails verification, or carries a
+corruption marker, is quarantined: the marker is written, its device
+arrays are released, and every search fails it into
+``_shards.failures`` from the host rung (the mesh plane cannot report a
+shard's failure, so it stands aside while any shard is quarantined);
+the other shards answer. ``flush``, ``synced_flush`` and ``force_merge``
+run on every shard. The request cache, admission control, scrubbing,
+compaction and telemetry are later slices.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, List, Optional
 
 from elasticsearch_tpu_torch.analysis.analyzers import AnalysisRegistry
 from elasticsearch_tpu_torch.common.device import resolve_device
-from elasticsearch_tpu_torch.common.errors import IllegalArgumentException
+from elasticsearch_tpu_torch.common.errors import (
+    IllegalArgumentException,
+    SearchPhaseExecutionException,
+    es_type_name,
+)
 from elasticsearch_tpu_torch.common.settings import (
     INDEX_MAPPING_DENSE_VECTOR_MAX_DIMS,
     INDEX_NUMBER_OF_REPLICAS,
@@ -60,6 +75,7 @@ from elasticsearch_tpu_torch.common.settings import (
     INDEX_SEARCH_MESH_PLANE,
     INDEX_SEARCH_PALLAS_POSTINGS_CODEC,
     INDEX_SEARCH_PLANE_QUARANTINE_COOLDOWN,
+    INDEX_TRANSLOG_DURABILITY,
     SEARCH_BATCH_ENABLED,
     SEARCH_BATCH_MAX_QUERIES,
     SEARCH_BATCH_WINDOW_MS,
@@ -72,6 +88,7 @@ from elasticsearch_tpu_torch.common.settings import (
 )
 from elasticsearch_tpu_torch.index.shard import IndexShard
 from elasticsearch_tpu_torch.index.similarity import SimilarityService
+from elasticsearch_tpu_torch.index.store import CorruptIndexException
 from elasticsearch_tpu_torch.mapper.mapping import MapperService
 from elasticsearch_tpu_torch.search.aggregations import parse_aggs, run_aggregations
 from elasticsearch_tpu_torch.search.batching import (
@@ -90,7 +107,8 @@ from elasticsearch_tpu_torch.utils.murmur3 import shard_id_for
 
 class IndexService:
     def __init__(self, name: str, settings: Settings = Settings.EMPTY,
-                 mapping: Optional[dict] = None, device="cuda"):
+                 mapping: Optional[dict] = None, device="cuda",
+                 data_path: Optional[str] = None):
         self.name = name
         self.settings = settings
         self.device = resolve_device(device)
@@ -115,23 +133,44 @@ class IndexService:
             similarity_service=SimilarityService(settings),
             dense_vector_max_dims=INDEX_MAPPING_DENSE_VECTOR_MAX_DIMS.get(
                 settings))
-        self.shards: Dict[int, IndexShard] = {
-            sid: IndexShard(name, sid, self.mapper_service, device=self.device)
-            for sid in range(self.num_shards)
-        }
+        self.data_path = data_path
+        # a durable node's _meta.json keeps these as it read them (the port
+        # has no alias API), and the mapping it last wrote
+        self.aliases: dict = {}
+        self.persisted_mapping: Optional[dict] = None
+        durability = INDEX_TRANSLOG_DURABILITY.get(settings)
         # the postings codec of the tile kernel's staging: the index's
         # preference ("default" follows the node's search.pallas.
         # postings_codec), stamped on each segment by its engine
         self.postings_codec = INDEX_SEARCH_PALLAS_POSTINGS_CODEC.get(settings)
         self.postings_codec_default = SEARCH_PALLAS_POSTINGS_CODEC.get(
             settings)
-        for shard in self.shards.values():
-            shard.engine.postings_codec = self.postings_codec
-            shard.engine.postings_codec_default = self.postings_codec_default
         # the mesh data plane (parallel/plan_exec.IndexMeshSearch), staged
         # on the first eligible search
         self._mesh_enabled = INDEX_SEARCH_MESH.get(settings)
         self._mesh_search = None
+        self.shards: Dict[int, IndexShard] = {}
+        # ops replayed from each shard's translog when it recovered
+        self.recovered_ops: Dict[int, int] = {}
+        for sid in range(self.num_shards):
+            shard = IndexShard(
+                name, sid, self.mapper_service, device=self.device,
+                data_path=(os.path.join(data_path, str(sid))
+                           if data_path else None),
+                durability=durability)
+            shard.engine.postings_codec = self.postings_codec
+            shard.engine.postings_codec_default = self.postings_codec_default
+            self.shards[sid] = shard
+            try:
+                if not shard.has_disk_state():
+                    shard.start_fresh()
+                    continue
+                self.recovered_ops[sid] = shard.recover_from_store()
+            except CorruptIndexException as e:
+                # a corrupt or marked store: quarantine the shard instead
+                # of failing the index's open; its searches fail into
+                # _shards.failures, never as empty hits
+                self._quarantine_shard(sid, e, site="load")
         self.host_query_total = 0
         self.batch_stats = BatchStats()
         self._batcher = MicroBatcher(
@@ -164,6 +203,47 @@ class IndexService:
     def refresh(self) -> None:
         for shard in self.shards.values():
             shard.refresh()
+
+    def _healthy_shards(self) -> List[IndexShard]:
+        """The shards a flush or merge may commit: a quarantined shard
+        loaded nothing, and a commit of its empty segment set would delete
+        the bytes its marker holds for a re-recovery."""
+        return [s for _sid, s in sorted(self.shards.items())
+                if not s.store_corrupted]
+
+    def flush(self) -> None:
+        for shard in self._healthy_shards():
+            shard.flush()
+
+    def synced_flush(self) -> Dict[int, str]:
+        """Flush with a synced-flush marker on every healthy shard;
+        returns {shard_id: sync_id}."""
+        return {shard.shard_id: shard.synced_flush()
+                for shard in self._healthy_shards()}
+
+    def force_merge(self) -> None:
+        for shard in self._healthy_shards():
+            shard.force_merge()
+
+    def _quarantine_shard(self, sid: int, exc: Exception,
+                          site: str = "query") -> None:
+        """Quarantine a corrupt shard copy: write the store's corruption
+        marker (once; the first cause wins), flag the shard, and release
+        its device arrays and the mesh plane's staging."""
+        shard = self.shards[sid]
+        shard.engine.store.mark_corrupted(str(exc), site=site)
+        shard.store_corrupted = True
+        for seg in shard.engine.segments:
+            seg.release_device()
+        if self._mesh_search is not None:
+            self._mesh_search._drop_staging()
+
+    def _mesh_allowed(self) -> bool:
+        """The mesh plane serves every shard as one program and cannot
+        report one shard's failure: it stands aside while a shard is
+        quarantined."""
+        return self._mesh_enabled and not any(
+            s.store_corrupted for s in self.shards.values())
 
     def num_docs(self) -> int:
         return sum(s.num_docs for s in self.shards.values())
@@ -288,7 +368,7 @@ class IndexService:
         check_body(body)
         from_, size = self._window(body)
         k = from_ + size
-        if self._mesh_enabled and not skip_mesh:
+        if self._mesh_allowed() and not skip_mesh:
             knn_clause = _pure_knn_mesh_clause(body)
             if knn_clause is not None:
                 resp = self._try_mesh_knn(body, knn_clause, k)
@@ -312,13 +392,26 @@ class IndexService:
             active_ids = [shard_ids[0]]
             skipped -= 1
         shard_results = []
+        failures = []
         for sid in active_ids:
+            if self.shards[sid].store_corrupted:
+                # a quarantined shard fails into _shards.failures, never
+                # as silently empty hits
+                failures.append(_shard_failure_entry(
+                    self.name, sid, CorruptIndexException(
+                        f"shard [{self.name}][{sid}] store is marked "
+                        f"corrupted — awaiting re-recovery from a healthy "
+                        f"copy")))
+                continue
             shard_cache = None
             if score_caches:
                 shard_cache = {name: pair for (s, name), pair
                                in score_caches.items() if s == sid}
             shard_results.append(self.shards[sid].searcher.query(
                 body, size_hint=max(k, 1), score_cache=shard_cache))
+        if failures and not shard_results:
+            raise SearchPhaseExecutionException(
+                "query", "all shards failed", failures)
         total = sum(r.total_hits for r in shard_results)
         max_score = None
         for r in shard_results:
@@ -341,9 +434,9 @@ class IndexService:
             "_plane": "host",
             "_shards": {
                 "total": len(shard_ids),
-                "successful": len(shard_ids),
+                "successful": len(shard_ids) - len(failures),
                 "skipped": skipped,
-                "failed": 0,
+                "failed": len(failures),
             },
             "hits": {
                 "total": total,
@@ -351,6 +444,8 @@ class IndexService:
                 "hits": hits,
             },
         }
+        if failures:
+            resp["_shards"]["failures"] = failures
         if aggregations is not None:
             resp["aggregations"] = aggregations
         return resp
@@ -520,7 +615,7 @@ class IndexService:
             return results
         live_bodies = [bodies[i] for i in live]
         mesh_out = None
-        if self._mesh_enabled and len(self.shards) >= 2:
+        if self._mesh_allowed() and len(self.shards) >= 2:
             mesh_out = self._mesh_plane().query_batch(live_bodies)
         if mesh_out is not None:
             for j, i in enumerate(live):
@@ -577,7 +672,7 @@ class IndexService:
             from_, size = self._window(norm_bodies[i])
             ks.append(max(from_ + size, 1))
         mesh_out = None
-        if (self._mesh_enabled and len(self.shards) >= 2
+        if (self._mesh_allowed() and len(self.shards) >= 2
                 and len(shared) >= 2
                 and len({str(s.get("field")) for s in specs}) == 1):
             mesh_out = self._mesh_plane().query_knn_batch(specs, ks)
@@ -695,6 +790,13 @@ class IndexService:
             **(ms.plane_health.stats() if ms else PlaneHealth().stats()),
         }
         return {"planes": planes, "batch": self.batch_stats.as_dict()}
+
+
+def _shard_failure_entry(index: str, shard_id: int, exc) -> dict:
+    """One ``_shards.failures`` entry (ShardSearchFailure's shape)."""
+    return {"shard": shard_id, "index": index,
+            "reason": {"type": es_type_name(type(exc).__name__),
+                       "reason": exc.reason}}
 
 
 def _without_relevance_sort(body: dict) -> dict:

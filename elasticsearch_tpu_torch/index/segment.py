@@ -140,6 +140,7 @@ class Segment:
         ordinal_columns: Dict[str, OrdinalColumn],
         vector_columns: Optional[Dict[str, VectorColumn]] = None,
         device="cuda",
+        exists_masks: Optional[Dict[str, np.ndarray]] = None,
     ):
         self.name = name
         self.num_docs = num_docs
@@ -165,7 +166,9 @@ class Segment:
         self.live = np.ones(self.nd_pad, dtype=bool)
         self.live[num_docs:] = False
         self._id_to_doc: Optional[Dict[str, int]] = None
-        self._exists_masks: Optional[Dict[str, np.ndarray]] = None
+        # a store load hands the masks it read; a sealed segment derives
+        # them on first use (exists_masks)
+        self._exists_masks: Optional[Dict[str, np.ndarray]] = exists_masks
         self._device: Optional[dict] = None
         # doc-value columns staged on demand (key -> tensor)
         self.dev_cache: Dict[str, Any] = {}
@@ -192,12 +195,15 @@ class Segment:
                     norms, live, field_stats, field_norm_idx, doc_ids,
                     sources, numeric_columns=None, ordinal_columns=None,
                     vector_columns=None, routings=None, seqnos=None,
-                    versions=None, device="cuda") -> "Segment":
+                    versions=None, exists_masks=None,
+                    device="cuda") -> "Segment":
         """Build a segment from plain host arrays — the fields a store load
         hands the JAX ``Segment`` — staged later on ``device``.
         ``numeric_columns`` / ``ordinal_columns`` / ``vector_columns`` map
         a field to a dict of the column's arrays (the dataclass fields);
-        vectors are taken as they are (already on the bf16 grid)."""
+        vectors are taken as they are (already on the bf16 grid).
+        ``exists_masks`` (field -> [nd_pad] bool) are the masks a store
+        holds; without them they are derived from the columns."""
         n = len(doc_ids)
         seg = cls(
             name=name, num_docs=n, doc_ids=doc_ids, sources=sources,
@@ -222,6 +228,9 @@ class Segment:
             vector_columns={f: VectorColumn(**c) for f, c in
                             (vector_columns or {}).items()},
             device=device,
+            exists_masks=({f: np.asarray(m, bool)
+                           for f, m in exists_masks.items()}
+                          if exists_masks is not None else None),
         )
         live = np.asarray(live, bool)
         seg.live[: min(len(live), seg.nd_pad)] = live[: seg.nd_pad]
@@ -272,7 +281,8 @@ class Segment:
         """field -> [nd_pad] bool: the docs that hold a value of the field
         (the JAX package's ``exists_masks``, built at seal from the fields
         each doc indexed): a term of it (its norms row counts the doc's
-        tokens) or a doc value or vector. Derived once from the columns."""
+        tokens) or a doc value or vector. The masks a store load read, or
+        derived once from the columns."""
         masks = self._exists_masks
         if masks is None:
             masks = {}

@@ -277,6 +277,10 @@ class MapperService:
     def mapping_dict(self) -> dict:
         return copy.deepcopy(self._mapping)
 
+    def mapping_equals(self, other: dict) -> bool:
+        """Whether the current mapping equals ``other`` (no copy)."""
+        return self._mapping == other
+
     def field_type(self, path: str) -> Optional[FieldType]:
         return self._mapper.field_type(path)
 

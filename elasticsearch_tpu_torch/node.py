@@ -17,14 +17,29 @@ Elasticsearch-compatible HTTP API over it.
 
 ``Node()`` runs on ``cuda`` and raises without a GPU;
 ``Node(device="cpu")`` runs the kernels' plain versions and exists for
-tests. Nothing is kept on disk, and there is no cluster state beside the
-``indices`` dict, so no aliases or templates: the translog, store and
-cluster state are later slices.
+tests.
+
+``Node(settings, data_path=..., device=...)`` (or a ``path.data``
+setting) is durable, in the JAX package's layout: each index keeps
+``<data_path>/indices/<name>/_meta.json`` (its settings, mapping and
+aliases) and one translog and store a shard under it. Opening a node over
+an existing data path recovers every index before it returns, and a
+recovered index stages its segments on the node's device lazily, as a
+new one does. ``flush``, ``synced_flush`` and ``force_merge`` take an
+index expression; ``close`` synced-flushes every index of a durable node
+before it releases them, so the next open replays nothing. Without a data
+path nothing is kept on disk (no translog either). There is no cluster
+state beside the ``indices`` dict, so no aliases or templates: a
+``_meta.json``'s ``aliases`` are kept as read and written back
+unchanged, and the JAX package's ``_state/`` directory is left unread.
 """
 
 from __future__ import annotations
 
 import fnmatch
+import json
+import os
+import shutil
 import time
 import uuid as _uuid
 from typing import Dict, List, Optional
@@ -38,9 +53,10 @@ from elasticsearch_tpu_torch.common.errors import (
     IndexNotFoundException,
     InvalidIndexNameException,
 )
-from elasticsearch_tpu_torch.common.settings import Settings
+from elasticsearch_tpu_torch.common.settings import PATH_DATA, Settings
 from elasticsearch_tpu_torch.common.thread_pool import ThreadPool
 from elasticsearch_tpu_torch.index.index_service import IndexService
+from elasticsearch_tpu_torch.index.seqno import check_active_shards
 
 _INVALID_INDEX_CHARS = set(' "*\\<>|,/?#')
 
@@ -63,9 +79,13 @@ def _unwrap_typed_mapping(mappings):
 
 
 class Node:
-    def __init__(self, settings: Settings = Settings.EMPTY, device="cuda"):
+    def __init__(self, settings: Settings = Settings.EMPTY,
+                 data_path: Optional[str] = None, device="cuda"):
         self.settings = settings
         self.device = resolve_device(device)
+        self.data_path = data_path or PATH_DATA.get(settings)
+        self.persistent_path = (data_path is not None
+                                or settings.get("path.data") is not None)
         self.node_id = _uuid.uuid4().hex[:20]
         self.node_name = settings.get_str("node.name", "node-0")
         self.cluster_name = settings.get_str("cluster.name",
@@ -78,13 +98,77 @@ class Node:
         self.thread_pool = ThreadPool(overrides={
             "search": {"queue_size": settings.get_int(
                 "search.queue.size", 1000)}})
+        if self.persistent_path:
+            self._recover_indices_from_disk()
 
     def close(self) -> None:
-        """Stop the thread pools and release every index's device
-        memory."""
+        """Synced-flush every index of a durable node (its metadata
+        first), so a restart replays nothing; then stop the thread pools
+        and release every index's device memory."""
+        if self.persistent_path:
+            for name in list(self.indices):
+                self._persist_index_meta(name)
+                self.indices[name].synced_flush()
         self.thread_pool.shutdown()
         for name in list(self.indices):
             self.indices.pop(name).close()
+
+    # ------------------------------------------------------------------
+    # Data path (the gateway: per-index metadata and shard recovery)
+    # ------------------------------------------------------------------
+
+    def _index_data_path(self, name: str) -> Optional[str]:
+        if not self.persistent_path:
+            return None
+        return os.path.join(self.data_path, "indices", name)
+
+    def _recover_indices_from_disk(self) -> None:
+        """Open every index under ``<data_path>/indices`` that has a
+        ``_meta.json``; each shard recovers from its store and translog
+        (``IndexService``)."""
+        root = os.path.join(self.data_path, "indices")
+        if not os.path.isdir(root):
+            return
+        for name in sorted(os.listdir(root)):
+            meta_path = os.path.join(root, name, "_meta.json")
+            if not os.path.exists(meta_path):
+                continue
+            with open(meta_path, encoding="utf-8") as f:
+                meta = json.load(f)
+            svc = IndexService(name, Settings(meta.get("settings", {})),
+                               meta.get("mappings"), device=self.device,
+                               data_path=self._index_data_path(name))
+            svc.aliases = meta.get("aliases", {})
+            self.indices[name] = svc
+            # replayed ops may have grown the mapping
+            self._maybe_update_mapping_meta(svc)
+
+    def _persist_index_meta(self, name: str) -> None:
+        """Write ``_meta.json`` atomically: the index's settings, its
+        current mapping and the aliases it was opened with."""
+        svc = self.indices.get(name)
+        if not self.persistent_path or svc is None:
+            return
+        path = self._index_data_path(name)
+        os.makedirs(path, exist_ok=True)
+        mapping = svc.mapping_dict()
+        tmp = os.path.join(path, "_meta.json.tmp")
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump({"settings": svc.settings.as_dict(),
+                       "mappings": mapping,
+                       "aliases": svc.aliases}, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, os.path.join(path, "_meta.json"))
+        svc.persisted_mapping = mapping
+
+    def _maybe_update_mapping_meta(self, svc: IndexService) -> None:
+        """A write that grew the mapping (dynamic fields) rewrites the
+        index's ``_meta.json``."""
+        if (self.persistent_path
+                and not svc.mapper_service.mapping_equals(
+                    svc.persisted_mapping)):
+            self._persist_index_meta(svc.name)
 
     # ------------------------------------------------------------------
     # Index APIs
@@ -123,9 +207,13 @@ class Node:
             settings = self.settings.filtered_by_prefix(prefix).merged_with(
                 settings)
         mappings, doc_type = _unwrap_typed_mapping(body.get("mappings") or {})
-        svc = IndexService(name, settings, mappings, device=self.device)
+        svc = IndexService(name, settings, mappings, device=self.device,
+                           data_path=self._index_data_path(name))
         svc.doc_type = doc_type
         self.indices[name] = svc
+        # written at creation, so that an index survives a crash before
+        # its first flush
+        self._persist_index_meta(name)
         return {"acknowledged": True, "shards_acknowledged": True, "index": name}
 
     def resolve_index_names(self, expression: Optional[str]) -> List[str]:
@@ -181,6 +269,9 @@ class Node:
             svc = self.indices.pop(name, None)
             if svc is not None:
                 svc.close()
+            path = self._index_data_path(name)
+            if path is not None and os.path.exists(path):
+                shutil.rmtree(path)
         return {"acknowledged": True}
 
     def index_metadata(self, name: str) -> dict:
@@ -221,12 +312,42 @@ class Node:
         n = svc.num_shards
         return {"_shards": {"total": n, "successful": n, "failed": 0}}
 
+    def flush(self, expression: Optional[str] = "_all") -> dict:
+        """Flush each index the expression names: refresh, commit, trim
+        the translog."""
+        names = self.resolve_index_names(expression)
+        for name in names:
+            self.indices[name].flush()
+        n = sum(self.indices[x].num_shards for x in names)
+        return {"_shards": {"total": n, "successful": n, "failed": 0}}
+
+    def synced_flush(self, expression: Optional[str] = "_all") -> dict:
+        """Flush with a synced-flush marker, in the per-index shape of
+        ``_flush/synced``."""
+        out = {"_shards": {"total": 0, "successful": 0, "failed": 0}}
+        for name in self.resolve_index_names(expression):
+            self.indices[name].synced_flush()
+            n = self.indices[name].num_shards
+            out["_shards"]["total"] += n
+            out["_shards"]["successful"] += n
+            out[name] = {"total": n, "successful": n, "failed": 0}
+        return out
+
+    def force_merge(self, expression: Optional[str] = "_all") -> dict:
+        """Merge each shard of each named index into one segment."""
+        names = self.resolve_index_names(expression)
+        for name in names:
+            self.indices[name].force_merge()
+        n = sum(self.indices[x].num_shards for x in names)
+        return {"_shards": {"total": n, "successful": n, "failed": 0}}
+
     # ------------------------------------------------------------------
     # Document APIs
     # ------------------------------------------------------------------
 
     def index_doc(self, index: str, doc_id: Optional[str], source: dict,
-                  routing: Optional[str] = None, refresh=None, **kw) -> dict:
+                  routing: Optional[str] = None, refresh=None,
+                  wait_for_active_shards=None, **kw) -> dict:
         if doc_id is not None:
             if doc_id == "":
                 raise IllegalArgumentException(
@@ -237,11 +358,16 @@ class Node:
                     f"longer than 512 bytes but was: "
                     f"{len(doc_id.encode('utf-8'))};")
         svc = self.index_service(index, auto_create=True)
+        if wait_for_active_shards is not None:
+            # one node: each shard has its primary active and no replica
+            check_active_shards(wait_for_active_shards, 1,
+                                1 + svc.num_replicas, f"[{svc.name}]")
         if doc_id is None:
             doc_id = _uuid.uuid4().hex[:20]
             kw.setdefault("op_type", "create")
         r = svc.index_doc(doc_id, source, routing, **kw)
         self._maybe_refresh(svc, refresh, doc_id, routing)
+        self._maybe_update_mapping_meta(svc)
         return r
 
     def _maybe_refresh(self, svc: IndexService, refresh, doc_id, routing) -> None:

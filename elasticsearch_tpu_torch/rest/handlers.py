@@ -10,7 +10,8 @@ document CRUD (index, create, auto-id, get, head, ``_source``, delete;
 ``version``, ``op_type``, ``routing``, ``refresh``, ``_source``
 filtering, the typed-path deprecation warning), ``_bulk`` (index, create,
 delete), ``_search`` with the URI parameters, ``_count``, ``_msearch``,
-``_refresh``, index create/delete/get/head, ``_mapping``, ``_settings``,
+``_refresh``, ``_flush``, ``_flush/synced``, ``_forcemerge``, index
+create/delete/get/head, ``_mapping``, ``_settings``,
 ``_analyze`` over the built-in analyzers, ``_cluster/health`` and the cat
 tables ``indices``, ``count``, ``health``, ``nodes``, ``master``,
 ``thread_pool`` and the empty ones. Handlers are (node, request) ->
@@ -149,14 +150,14 @@ def register_all(c) -> None:
     r("POST", "/{index}/_refresh", _refresh)
     r("GET", "/{index}/_refresh", _refresh)
     r("POST", "/_refresh", _refresh)
-    r("POST", "/{index}/_flush", _unported)
-    r("GET", "/{index}/_flush", _unported)
-    r("POST", "/_flush", _unported)
-    r("POST", "/{index}/_flush/synced", _unported)
-    r("POST", "/_flush/synced", _unported)
-    r("GET", "/{index}/_flush/synced", _unported)
-    r("POST", "/{index}/_forcemerge", _unported)
-    r("POST", "/_forcemerge", _unported)
+    r("POST", "/{index}/_flush", _flush)
+    r("GET", "/{index}/_flush", _flush)
+    r("POST", "/_flush", _flush)
+    r("POST", "/{index}/_flush/synced", _flush_synced)
+    r("POST", "/_flush/synced", _flush_synced)
+    r("GET", "/{index}/_flush/synced", _flush_synced)
+    r("POST", "/{index}/_forcemerge", _forcemerge)
+    r("POST", "/_forcemerge", _forcemerge)
     r("GET", "/{index}/_stats", _unported)
     r("GET", "/_stats", _unported)
     r("GET", "/{index}/_stats/{metric}", _unported)
@@ -394,8 +395,6 @@ def _routing(req):
         raise _not_supported("the [parent] parameter")
     if req.param("pipeline") is not None:
         raise _not_supported("ingest pipelines")
-    if req.param("wait_for_active_shards") is not None:
-        raise _not_supported("the [wait_for_active_shards] parameter")
     return req.param("routing")
 
 
@@ -419,7 +418,8 @@ def _index_doc(node, req, force_create: bool = False):
         kw["op_type"] = "create"
     r = node.index_doc(req.param("index"), req.param("id"), body,
                        routing=_routing(req), refresh=req.param("refresh"),
-                       **kw)
+                       wait_for_active_shards=req.param(
+                           "wait_for_active_shards"), **kw)
     _record_doc_type(node, req)
     _echo_type(req, _forced_refresh(req, _write_shards_header(node, req, r)))
     return (201 if r.get("result") == "created" else 200), r
@@ -440,7 +440,9 @@ def _index_doc_auto_id(node, req):
         raise ActionRequestValidationException(
             "Validation Failed: 1: source is missing;")
     r = node.index_doc(req.param("index"), None, body,
-                       routing=_routing(req), refresh=req.param("refresh"))
+                       routing=_routing(req), refresh=req.param("refresh"),
+                       wait_for_active_shards=req.param(
+                           "wait_for_active_shards"))
     _record_doc_type(node, req)
     _echo_type(req, _forced_refresh(req, _write_shards_header(node, req, r)))
     return 201, r
@@ -694,6 +696,20 @@ def _refresh(node, req):
         node.indices[name].refresh()
     n = sum(node.indices[x].num_shards for x in names)
     return 200, {"_shards": {"total": n, "successful": n, "failed": 0}}
+
+
+def _flush(node, req):
+    return 200, node.flush(req.param("index", "_all"))
+
+
+def _flush_synced(node, req):
+    """``_flush/synced``: a flush that stamps a sync id on every shard, in
+    the per-index shape."""
+    return 200, node.synced_flush(req.param("index", "_all"))
+
+
+def _forcemerge(node, req):
+    return 200, node.force_merge(req.param("index", "_all"))
 
 
 def _get_mapping(node, req):

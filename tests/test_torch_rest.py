@@ -353,6 +353,41 @@ def test_errors(loaded):
     both(loaded, "POST", "/_bulk", b"", "application/x-ndjson", status=400)
 
 
+def test_flush_synced_flush_and_forcemerge(loaded):
+    for method, path in (("POST", "/idx/_flush"), ("GET", "/idx/_flush"),
+                         ("POST", "/_flush"), ("POST", "/idx/_flush/synced"),
+                         ("POST", "/_flush/synced"),
+                         ("GET", "/idx/_flush/synced"),
+                         ("POST", "/idx/_forcemerge"),
+                         ("POST", "/_forcemerge")):
+        both(loaded, method, path, status=200)
+    for path in ("/nope/_flush", "/nope/_flush/synced", "/nope/_forcemerge"):
+        both(loaded, "POST", path, status=404)
+    # both packages merged their shards alike: the answers still agree
+    both(loaded, "POST", "/idx/_search",
+         {"query": {"match": {"title": "w3 w17"}}, "size": 50}, status=200)
+    _jn, tn, _, _ = loaded
+    assert all(len(s.engine.segments) <= 1
+               for s in tn.indices["idx"].shards.values())
+
+
+def test_wait_for_active_shards(loaded):
+    # one node: each shard's primary is its one active copy, and idx has
+    # one replica that cannot be assigned
+    both(loaded, "PUT", "/idx/_doc/w1?wait_for_active_shards=2",
+         {"title": "w1"}, status=503)
+    both(loaded, "PUT", "/idx/_doc/w1?wait_for_active_shards=all",
+         {"title": "w1"}, status=503)
+    both(loaded, "POST", "/idx/_doc?wait_for_active_shards=3",
+         {"title": "w1"}, status=503)
+    both(loaded, "PUT", "/idx/_doc/w1?wait_for_active_shards=many",
+         {"title": "w1"}, status=400)
+    both(loaded, "PUT", "/idx/_doc/w1?wait_for_active_shards=1",
+         {"title": "w1"}, status=201)
+    both(loaded, "GET", "/idx/_doc/w1?wait_for_active_shards=2",
+         status=200)
+
+
 def test_delete_index_last(loaded):
     both(loaded, "DELETE", "/auto", status=200)
     both(loaded, "DELETE", "/nope", status=404)

@@ -1,0 +1,347 @@
+"""Store: the port's segment writer and reader against the JAX package's.
+
+The same seeded documents (text, keyword, long, date, boolean and a
+cosine ``dense_vector``) are parsed and sealed by each package's own
+mapper and ``SegmentBuilder``. A segment directory each package writes
+must read back in the other with every array equal, dtype included
+(doc values ``float64``, vectors the bf16-grid ``float32`` mirror), and
+the same ``meta.json`` keys. Commit points round-trip; a checksum
+mismatch, a missing or torn file and a corruption marker refuse the load
+with ``CorruptIndexException``; data the port cannot hold (geo, shapes,
+nested, ``_parent``) refuses it naming the kind.
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+
+from elasticsearch_tpu.analysis.analyzers import AnalysisRegistry as JAnalysis
+from elasticsearch_tpu.index import store as jstore
+from elasticsearch_tpu.index.segment import SegmentBuilder as JBuilder
+from elasticsearch_tpu.mapper.mapping import MapperService as JMapper
+from elasticsearch_tpu_torch.analysis.analyzers import AnalysisRegistry
+from elasticsearch_tpu_torch.index import store as tstore
+from elasticsearch_tpu_torch.index.engine import VersionEntry
+from elasticsearch_tpu_torch.index.segment import SegmentBuilder
+from elasticsearch_tpu_torch.mapper.mapping import MapperService
+
+MAPPING = {"properties": {
+    "title": {"type": "text"},
+    "venue": {"type": "keyword"},
+    "year": {"type": "long"},
+    "ts": {"type": "date"},
+    "open": {"type": "boolean"},
+    "emb": {"type": "dense_vector", "dims": 5, "similarity": "cosine"},
+}}
+
+
+def seeded_docs(n=60, seed=17):
+    rng = np.random.RandomState(seed)
+    docs = []
+    for i in range(n):
+        src = {"title": " ".join(f"w{int(x)}" for x in
+                                 rng.zipf(1.5, rng.randint(2, 12)) % 40),
+               "venue": f"v{int(rng.randint(7))}",
+               "year": int(1990 + rng.randint(30)),
+               "ts": f"2023-{1 + int(rng.randint(12)):02d}-"
+                     f"{1 + int(rng.randint(28)):02d}",
+               "open": bool(rng.rand() < 0.5)}
+        if i % 5:
+            src["emb"] = [float(x) for x in rng.randn(5)]
+        if i % 11 == 0:
+            del src["year"]  # a missing doc value
+        docs.append((f"doc-{i}", src))
+    return docs
+
+
+def jax_segment(name="i_0_seg_1", docs=None):
+    mapper = JMapper(JAnalysis(None), MAPPING)
+    b = JBuilder(name)
+    for s, (doc_id, src) in enumerate(docs or seeded_docs()):
+        b.add_document(mapper.parse_document(doc_id, src, None), s, 1)
+    seg = b.seal()
+    seg.live[3] = False
+    return seg
+
+
+def torch_segment(name="i_0_seg_1", docs=None):
+    mapper = MapperService(AnalysisRegistry(None), MAPPING)
+    b = SegmentBuilder(name, device="cpu")
+    for s, (doc_id, src) in enumerate(docs or seeded_docs()):
+        b.add_document(mapper.parse_document(doc_id, src, None), s, 1)
+    seg = b.seal()
+    seg.live[3] = False
+    return seg
+
+
+def seg_arrays(seg):
+    """Every array a store keeps, by its npz key, plus the live mask."""
+    out = {k: getattr(seg, k) for k in (
+        "term_block_start", "term_block_count", "term_doc_freq", "block_docs",
+        "block_tfs", "norms", "seqnos", "versions", "live")}
+    for f, c in seg.numeric_columns.items():
+        for k in ("flat_values", "flat_docs", "first_value", "min_value",
+                  "max_value", "exists"):
+            out[f"num.{f}.{k}"] = getattr(c, k)
+    for f, c in seg.ordinal_columns.items():
+        for k in ("flat_ords", "flat_docs", "first_ord", "exists"):
+            out[f"ord.{f}.{k}"] = getattr(c, k)
+    for f, c in seg.vector_columns.items():
+        out[f"vec.{f}.vectors"] = c.vectors
+        out[f"vec.{f}.exists"] = c.exists
+    for f, m in seg.exists_masks.items():
+        out[f"exists.{f}"] = m
+    return out
+
+
+def seg_meta(seg):
+    return {
+        "num_docs": seg.num_docs, "term_keys": list(seg.term_keys),
+        "field_stats": seg.field_stats, "field_norm_idx": seg.field_norm_idx,
+        "doc_ids": list(seg.doc_ids), "routings": list(seg.routings),
+        "sources": [seg.sources[i] for i in range(seg.num_docs)],
+        "ordinal_terms": {f: (list(c.terms), c.count)
+                          for f, c in seg.ordinal_columns.items()},
+        "numeric_counts": {f: c.count
+                           for f, c in seg.numeric_columns.items()},
+        "vector_info": {f: (c.dims, c.count)
+                        for f, c in seg.vector_columns.items()},
+    }
+
+
+def assert_same_segment(a, b):
+    aa, ba = seg_arrays(a), seg_arrays(b)
+    assert sorted(aa) == sorted(ba)
+    for k in aa:
+        assert aa[k].dtype == ba[k].dtype, k
+        assert aa[k].shape == ba[k].shape, k
+        np.testing.assert_array_equal(aa[k], ba[k], err_msg=k)
+    assert seg_meta(a) == seg_meta(b)
+
+
+def test_both_packages_seal_the_same_segment():
+    """The premise of a shared layout: the same docs give the same arrays
+    in both packages."""
+    assert_same_segment(jax_segment(), torch_segment())
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_segment_written_by_one_reads_in_the_other(tmp_path, writer):
+    if writer == "jax":
+        seg = jax_segment()
+        jstore.Store(str(tmp_path)).write_segment(seg)
+        jstore.Store(str(tmp_path))._refresh_live(
+            seg, str(tmp_path / seg.name))
+        back = tstore.Store(str(tmp_path)).read_segment(seg.name, "cpu")
+        assert back.device.type == "cpu"
+    else:
+        seg = torch_segment()
+        tstore.Store(str(tmp_path)).write_segment(seg)
+        back = jstore.Store(str(tmp_path)).read_segment(seg.name)
+    assert_same_segment(seg, back)
+    assert back.num_docs == seg.num_docs and back.live_doc_count == 59
+    for f in ("year", "ts"):
+        assert back.numeric_columns[f].flat_values.dtype == np.float64
+    assert back.vector_columns["emb"].vectors.dtype == np.float32
+
+
+def test_segment_files_and_meta_keys_match_jax(tmp_path):
+    seg_j, seg_t = jax_segment(), torch_segment()
+    jstore.Store(str(tmp_path / "j")).write_segment(seg_j)
+    tstore.Store(str(tmp_path / "t")).write_segment(seg_t)
+    jd, td = tmp_path / "j" / seg_j.name, tmp_path / "t" / seg_t.name
+    assert sorted(os.listdir(jd)) == sorted(os.listdir(td))
+    jm = json.loads((jd / "meta.json").read_text())
+    tm = json.loads((td / "meta.json").read_text())
+    assert list(jm) == list(tm)
+    for key in jm:
+        assert jm[key] == tm[key], key
+    assert (jd / "sources.jsonl").read_bytes() == \
+        (td / "sources.jsonl").read_bytes()
+    assert json.loads((jd / "checksums.json").read_text()).keys() == \
+        json.loads((td / "checksums.json").read_text()).keys()
+    jz, tz = np.load(jd / "arrays.npz"), np.load(td / "arrays.npz")
+    # the same keys (the exists masks' order follows each package's seal)
+    assert sorted(jz.files) == sorted(tz.files)
+    for k in jz.files:
+        assert jz[k].dtype == tz[k].dtype, k
+        np.testing.assert_array_equal(jz[k], tz[k], err_msg=k)
+    # the port writes no positions; the JAX package's are ignored on read
+    assert json.loads((td / "positions.json").read_text()) == {}
+
+
+def test_commit_round_trip_and_gc(tmp_path):
+    st = tstore.Store(str(tmp_path))
+    a, b = torch_segment("i_0_seg_1"), torch_segment("i_0_seg_2")
+    vmap = {"gone": VersionEntry(3, 70, None, -1, deleted=True),
+            "doc-1": VersionEntry(1, 1, "i_0_seg_1", 1, term=2)}
+    st.commit([a, b], 71, vmap, sync_id="abc")
+    c = st.read_commit()
+    assert c == {"segments": ["i_0_seg_1", "i_0_seg_2"], "max_seq_no": 71,
+                 "sync_id": "abc",
+                 "tombstones": {"gone": {"seq_no": 70, "version": 3,
+                                         "term": 1}},
+                 "doc_terms": {"doc-1": 2}}
+    loaded = st.load_segments("cpu")
+    assert [s.name for s in loaded] == ["i_0_seg_1", "i_0_seg_2"]
+    assert_same_segment(a, loaded[0])
+    # a later commit refreshes the live masks and drops merged-away dirs
+    b.live[5] = False
+    st.commit([b], 72)
+    assert not os.path.exists(tmp_path / "i_0_seg_1")
+    again = st.load_segments("cpu")
+    assert [s.name for s in again] == ["i_0_seg_2"]
+    assert not again[0].live[5] and again[0].live_doc_count == 58
+    # a JAX store reads the same commit
+    assert jstore.Store(str(tmp_path)).read_commit() == st.read_commit()
+
+
+def _written(tmp_path):
+    st = tstore.Store(str(tmp_path))
+    seg = torch_segment()
+    st.commit([seg], seg.num_docs - 1)
+    return st, tmp_path / seg.name
+
+
+@pytest.mark.parametrize("damage,match", [
+    ("flip", "checksum failed"),
+    ("missing", "missing on disk"),
+    ("no_manifest", "missing checksums"),
+    ("torn_manifest", "torn checksums"),
+])
+def test_damaged_segment_raises_corrupt_index(tmp_path, damage, match):
+    st, d = _written(tmp_path)
+    if damage == "flip":
+        raw = bytearray((d / "arrays.npz").read_bytes())
+        raw[len(raw) // 2] ^= 0xFF
+        (d / "arrays.npz").write_bytes(bytes(raw))
+    elif damage == "missing":
+        os.remove(d / "sources.jsonl")
+    elif damage == "no_manifest":
+        os.remove(d / "checksums.json")
+    else:
+        (d / "checksums.json").write_text('{"arrays.npz": "ab')
+    with pytest.raises(tstore.CorruptIndexException, match=match):
+        st.load_segments("cpu")
+    # the JAX package refuses the same bytes
+    with pytest.raises(jstore.CorruptIndexException):
+        jstore.Store(str(tmp_path)).load_segments()
+
+
+@pytest.mark.parametrize("damage", ["truncated", "garbage", "empty"])
+def test_torn_live_mask_raises_corrupt_index(tmp_path, damage):
+    # live.npy carries no checksum: a torn one is corruption all the same
+    st, d = _written(tmp_path)
+    raw = (d / "live.npy").read_bytes()
+    (d / "live.npy").write_bytes({"truncated": raw[: len(raw) - 7],
+                                  "garbage": b"\x93NUMPY" + raw[12:40],
+                                  "empty": b""}[damage])
+    with pytest.raises(tstore.CorruptIndexException,
+                       match="live mask unreadable"):
+        st.load_segments("cpu")
+
+
+def test_torn_commit_point_raises_corrupt_index(tmp_path):
+    st, _ = _written(tmp_path)
+    (tmp_path / "commit.json").write_text('{"segments": ["i_0_')
+    with pytest.raises(tstore.CorruptIndexException,
+                       match="unreadable commit point"):
+        st.read_commit()
+
+
+def test_commit_is_on_disk_before_its_commit_point(tmp_path, monkeypatch):
+    # every file a commit point names, and the directories holding them,
+    # are fsynced before commit.json is written, and the store directory
+    # after its rename: the engine trims the translog on that word
+    events = []
+    real_fsync, real_json = tstore._fsync_path, tstore._fsync_json
+    monkeypatch.setattr(tstore, "_fsync_path", lambda p: (
+        events.append(("fsync", os.path.relpath(p, tmp_path))),
+        real_fsync(p))[1])
+    monkeypatch.setattr(tstore, "_fsync_json", lambda p, x: (
+        events.append(("commit", os.path.relpath(p, tmp_path))),
+        real_json(p, x))[1])
+    st = tstore.Store(str(tmp_path))
+    a, b = torch_segment("i_0_seg_1"), torch_segment("i_0_seg_2")
+    st.commit([a, b], 71)
+    at = events.index(("commit", "commit.json"))
+    synced = {p for kind, p in events[:at] if kind == "fsync"}
+    for seg in ("i_0_seg_1", "i_0_seg_2"):
+        for fn in os.listdir(tmp_path / seg):
+            # live.npy is fsynced under its tmp name, then renamed
+            fn += ".tmp" if fn == "live.npy" else ""
+            assert os.path.join(seg, fn) in synced, fn
+        assert seg in synced
+    assert "." in synced and events[at + 1:] == [("fsync", ".")]
+    # a later commit replaces each live mask atomically, then commits
+    events.clear()
+    b.live[3] = False
+    st.commit([a, b], 72)
+    at = events.index(("commit", "commit.json"))
+    assert {"i_0_seg_1", "i_0_seg_2", "."} <= {p for _k, p in events[:at]}
+    assert not any(fn.endswith(".tmp") for seg in ("i_0_seg_1", "i_0_seg_2")
+                   for fn in os.listdir(tmp_path / seg))
+    assert not st.load_segments("cpu")[1].live[3]
+
+
+def test_marker_refuses_load_in_both_packages(tmp_path):
+    st, _ = _written(tmp_path)
+    assert not st.is_corrupted()
+    m = st.mark_corrupted("checksum failed for [x]", site="load")
+    assert st.mark_corrupted("a second cause") == m  # the first cause wins
+    assert st.is_corrupted() and len(st.corruption_markers()) == 1
+    with pytest.raises(tstore.CorruptIndexException, match="marked corrupted"):
+        st.load_segments("cpu")
+    assert jstore.Store(str(tmp_path)).is_corrupted()
+    with pytest.raises(jstore.CorruptIndexException, match="marked corrupted"):
+        jstore.Store(str(tmp_path)).load_segments()
+    # a marker the JAX package wrote refuses the port's load too
+    other = tmp_path / "other"
+    jst = jstore.Store(str(other))
+    jst.mark_corrupted("scrubber found a bad block")
+    with pytest.raises(tstore.CorruptIndexException, match="bad block"):
+        tstore.Store(str(other)).load_segments("cpu")
+
+
+def test_wrong_dtype_raises(tmp_path):
+    st, d = _written(tmp_path)
+    data = dict(np.load(d / "arrays.npz"))
+    data["num.year.flat_values"] = data["num.year.flat_values"].astype(
+        np.float32)
+    np.savez(d / "arrays.npz", **data)
+    sums = json.loads((d / "checksums.json").read_text())
+    sums["arrays.npz"] = tstore._sha256(str(d / "arrays.npz"))
+    (d / "checksums.json").write_text(json.dumps(sums))
+    with pytest.raises(tstore.CorruptIndexException,
+                       match=r"num\.year\.flat_values.*float32"):
+        st.load_segments("cpu")
+
+
+@pytest.mark.parametrize("kind", ["geo_point", "geo_shape", "nested",
+                                  "_parent"])
+def test_unported_columns_refuse_the_load(tmp_path, kind):
+    """A JAX segment with a column the port has no type for fails the
+    load naming the kind; it never opens without that column."""
+    mapping = {"properties": {"title": {"type": "text"},
+                              "loc": {"type": "geo_point"},
+                              "area": {"type": "geo_shape"},
+                              "kids": {"type": "nested", "properties": {
+                                  "k": {"type": "keyword"}}}}}
+    mapper = JMapper(JAnalysis(None), mapping)
+    b = JBuilder("i_0_seg_1")
+    src = {"title": "hello"}
+    if kind == "geo_point":
+        src["loc"] = {"lat": 1.5, "lon": 2.5}
+    elif kind == "geo_shape":
+        src["area"] = {"type": "point", "coordinates": [1.0, 2.0]}
+    elif kind == "nested":
+        src["kids"] = [{"k": "a"}, {"k": "b"}]
+    parsed = mapper.parse_document("1", src, None)
+    b.add_document(parsed, 0, 1,
+                   parent="p1" if kind == "_parent" else None)
+    seg = b.seal()
+    jstore.Store(str(tmp_path)).commit([seg], 0)
+    with pytest.raises(tstore.CorruptIndexException, match=kind):
+        tstore.Store(str(tmp_path)).load_segments("cpu")
