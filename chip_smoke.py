@@ -69,11 +69,11 @@ prints no result, when there is no GPU or any check fails. Phases:
    p50 latency per request kind and plane and the per-segment host copy of
    the dense scores and mask.
 6. The kernel summary line (with phase 11's ``rest`` entry, phase 12's
-   ``aggs`` entry and phase 13's ``durability`` entry), then the device
-   line.
+   ``aggs`` entry, phase 13's ``durability`` entry and phase 14's
+   ``staging`` entry), then the device line.
 
 Run between phases 2 and 3, and after phase 4 (phase 10 after phase 9,
-then phases 11, 12 and 13):
+then phases 11, 12, 13 and 14):
 
 2b. Kernels 1b (dense, q_batch=16, with and without counts) and 1c (fused
     per-tile top-k, q_batch 1 and 16, k=16) on the 1M-doc corpus, for 16
@@ -206,7 +206,7 @@ then phases 11, 12 and 13):
 13. Durability on the card, after phase 12 (``durability_phase``), every
     data path under a fresh ``tempfile.mkdtemp()`` removed at the end.
     13a: a ``Node(data_path=..., device="cuda")`` takes phase 3's 20,000
-    docs under ``index.translog.durability: async`` and 4,000 under
+    docs under ``index.translog.durability: async`` and 1,000 under
     ``request`` (docs/s beside phase 3's), ``_flush``, 100 deletes,
     ``close()``; reopened, phase 3's requests answer byte for byte as
     before on the host rung (1a, kernel 2 and its combine held against
@@ -225,6 +225,27 @@ then phases 11, 12 and 13):
     with ``_plane`` unchanged, every 1a, 1b, 1c, kernel-2 (and combine)
     and kernel-3 launch held against plain; bytes on disk. The summary line's ``durability``
     entry holds the numbers.
+14. The staging lifecycle on the card, after phase 13 (``staging_phase``):
+    pmc-4x256k at full width (phase 12's columns, phase 9's ``emb``) in
+    three indices, delta staging on (``stg4``), off (``stg4f``, every
+    change a rebuild) and on the cpu (``stg4c``), with
+    ``index.search.mesh.max_slots_per_device: 8`` and pruning on. 14a the
+    initial staging: the device-memory ledger equals the staged tensors'
+    bytes and the allocator's requested bytes. 14b 4,096 docs a shard
+    appended (one segment each): the next answer timed with its spans
+    against the rebuild's, bytes restaged, amplification, reasons; every
+    request kind of phases 7, 9 and 12 and three bursts (pruned, exact,
+    aggs) equal byte for byte on both indices. 14c 1% of one shard
+    deleted: only that slot's live rows restaged (reason ``tombstone``),
+    timed against the rebuild. 14d the HBM budget: LRU eviction, the host
+    rung with reason ``hbm_budget``, then a ``probe`` restage. 14e a
+    transient staging fault retried, a deterministic one benched (reason
+    ``staging_fault``), the ledger exact, the probe after the cooldown.
+    14f compaction at a smaller depth (10,000 indexed docs: the adopted
+    corpus keeps no text to re-analyze). Every launch of 14a-14f held
+    against its plain version; the serial kinds equal the cpu node's;
+    14g ``memory_allocated`` back to its level before the indices and the
+    ledger at 0 bytes for them.
 """
 
 from __future__ import annotations
@@ -252,6 +273,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 RTOL = 1e-5
 INGEST_DOCS = 20_000
+# 13a's request-durability index: the first of phase 3's docs, one fsync
+# pair an op (its rate needs no more)
+REQUEST_DURABLE_DOCS = 1_000
 # pmc-4x256k: four shards of one 262,144-doc segment each (seeds 7-10)
 MESH_SHARD_DOCS = 262_144
 MESH_SEEDS = (7, 8, 9, 10)
@@ -2053,6 +2077,7 @@ def mesh_phase(torch, Node, Segment, cuda_kernels, queries, top_rank_term,
         f"segments' own kernel tables {ktab / 1e9:.3f} GB")
     routing = _routing_for_shards(4)
     restaged = svc._mesh_search.restage_total
+    tombstoned = svc._mesh_search.tombstone_update_total
     for sh in range(4):
         for i in range(0, MESH_SHARD_DOCS, 997):
             for node, index in ((gnode, "pmc4"), (gnode, "pmc4h"),
@@ -2066,8 +2091,10 @@ def mesh_phase(torch, Node, Segment, cuda_kernels, queries, top_rank_term,
     rec += serve_held(torch, tsc, errs, held, gnode, cnode, "pmc4", reqs,
                       "phase 7 after deletes", lat, ref=ref,
                       plane_of=plane_of, also=(gnode, "pmc4h"))
-    check(svc._mesh_search.restage_total == restaged + 1,
-          "pmc4 staging rebuilt once after the deletes")
+    check(svc._mesh_search.tombstone_update_total == tombstoned + 1
+          and svc._mesh_search.restage_total == restaged,
+          "pmc4 deletes reached the staging once, as a tombstone of the "
+          "slots' live rows (no rebuild)")
     torch.cuda.synchronize()
     p7 = dict(cuda_kernels.LAUNCHES)
     log(f"[phase 7] kernel launches: {p7}")
@@ -3020,6 +3047,7 @@ def pruned_phase(torch, Node, Segment, cuda_kernels, tsc, queries, lat,
         # deletes, then again
         routing = _routing_for_shards(4)
         restaged = svc._mesh_search.restage_total
+        tombstoned = svc._mesh_search.tombstone_update_total
         for sh in range(4):
             for i in range(0, MESH_SHARD_DOCS, 1009):
                 for node, index in ((gP, "pmc4p"), (gP, "pmc4ph"),
@@ -3032,8 +3060,10 @@ def pruned_phase(torch, Node, Segment, cuda_kernels, tsc, queries, lat,
         check(gsegs[1].live_doc_count == MESH_SHARD_DOCS - n_del,
               "phase 10 deletes applied")
         serve_all(" after deletes", full=False)
-        check(svc._mesh_search.restage_total == restaged + 1,
-              "pmc4p staging rebuilt once after the deletes")
+        check(svc._mesh_search.tombstone_update_total == tombstoned + 1
+              and svc._mesh_search.restage_total == restaged,
+              "pmc4p deletes reached the staging once, as a tombstone of "
+              "the slots' live rows (no rebuild)")
         for body in matches:
             ids = [h["_id"] for h in gP.search("pmc4p", dict(body))[
                 "hits"]["hits"]]
@@ -3445,12 +3475,14 @@ AGG_DAY = 86_400_000
 AGG_MISSING = 0.03  # citations: the share of docs without a value
 
 
-def agg_columns(sh, nd_pad, n):
+def agg_columns(sh, nd_pad, n, seed=None):
     """The phase-12 doc-value columns of shard ``sh`` (their own
-    RandomState, seed + 100, so phases 2-11's corpus is unchanged): ``ts``,
-    integer epoch-millis over one year; ``citations``, a zipf count missing
-    on about 3% of docs. Returns Segment.from_arrays numeric columns."""
-    rng = np.random.RandomState(MESH_SEEDS[sh] + 100)
+    RandomState, seed + 100, so phases 2-11's corpus is unchanged; phase
+    14's appended docs pass a ``seed`` of their own): ``ts``, integer
+    epoch-millis over one year; ``citations``, a zipf count missing on
+    about 3% of docs. Returns Segment.from_arrays numeric columns."""
+    rng = np.random.RandomState(MESH_SEEDS[sh] + 100 if seed is None
+                                else seed)
     ts = AGG_T0 + rng.randint(0, 365 * AGG_DAY, n).astype(np.int64)
     cit = np.minimum(rng.zipf(1.8, n), 100_000).astype(np.int64)
     has = rng.rand(n) >= AGG_MISSING
@@ -3579,7 +3611,10 @@ def timed_spans(torch, targets):
     saved = []
     for owner, attr, label in targets:
         orig = getattr(owner, attr)
-        saved.append((owner, attr, orig))
+        # the class's own descriptor (a staticmethod or classmethod stays
+        # one after the block)
+        saved.append((owner, attr, vars(owner).get(attr, orig)
+                      if isinstance(owner, type) else orig))
 
         def timed(*args, _orig=orig, _label=label, **kw):
             torch.cuda.synchronize()
@@ -3975,10 +4010,11 @@ def aggs_phase(torch, Node, Segment, cuda_kernels, tsc, queries, lat,
                            cnode.indices["agg4"])
     check(not any(fails), f"phase 12: zero plane faults (got {fails})")
 
-    # the p50s: 5 more runs of the dashboard kinds, 3 of the others, per
-    # index
+    # the p50s: 5 more runs of the dashboard kinds, 3 of the others but
+    # the slowest (pipelines, about 0.8 s a request: one), per index
     for kind, body, _reason in reqs:
-        reps = 5 if kind.startswith("dashboard") else 3
+        reps = (5 if kind.startswith("dashboard")
+                else 1 if kind == "pipelines" else 3)
         for name in indices:
             xs = []
             for _ in range(reps):
@@ -4163,7 +4199,7 @@ def durability_phase(torch, Node, cuda_kernels, tsc, ops, inproc_rate, reqs3,
 
     13a. A ``Node(data_path=..., device="cuda")`` takes phase 3's 20,000
          docs in bulks of 1,000 under ``index.translog.durability: async``
-         and the first 4,000 into a second index under ``request`` (one
+         and the first 1,000 into a second index under ``request`` (one
          fsync per op): docs/s for each beside phase 3's in-memory rate.
          ``_flush``, 100 deletes, phase 3's requests recorded, ``close()``;
          a new Node over the path answers them equal byte for byte (bar
@@ -4231,7 +4267,8 @@ def _durable_ingest(torch, Node, cuda_kernels, tsc, ssum, knn, ops,
     g.create_index("docs_req", {"settings": {"number_of_shards": 5},
                                 "mappings": mapping})
     rates = {}
-    for index, docs in (("docs", ops), ("docs_req", ops[:4000])):
+    for index, docs in (("docs", ops),
+                        ("docs_req", ops[:REQUEST_DURABLE_DOCS])):
         t0 = time.perf_counter()
         for b in range(0, len(docs), 1000):
             r = g.bulk([(a, {**meta, "_index": index}, src)
@@ -4242,7 +4279,8 @@ def _durable_ingest(torch, Node, cuda_kernels, tsc, ssum, knn, ops,
         rates[index] = len(docs) / (time.perf_counter() - t0)
     log(f"[phase 13a] durable ingest + refresh: async {rates['docs']:.0f} "
         f"docs/s (20,000 docs), request {rates['docs_req']:.0f} docs/s "
-        f"(4,000 docs, one fsync per op), in memory (phase 3) "
+        f"({REQUEST_DURABLE_DOCS:,} docs, one fsync per op), in memory "
+        f"(phase 3) "
         f"{inproc_rate:.0f} docs/s")
     t0 = time.perf_counter()
     g.flush("docs")
@@ -4267,8 +4305,9 @@ def _durable_ingest(torch, Node, cuda_kernels, tsc, ssum, knn, ops,
     check(sum(svc.recovered_ops.values()) == 0,
           f"phase 13a close's synced flush left nothing to replay "
           f"({svc.recovered_ops})")
-    check(g2.indices["docs_req"].num_docs() == 4000,
-          "phase 13a request-durability index reopened with 4,000 docs")
+    check(g2.indices["docs_req"].num_docs() == REQUEST_DURABLE_DOCS,
+          f"phase 13a request-durability index reopened with "
+          f"{REQUEST_DURABLE_DOCS:,} docs")
     cuda_kernels.reset_launch_counts()
     with recording_recovered_path(tsc, ssum, knn) as kept:
         after = [_no_took(g2.search("docs", dict(body)))
@@ -4437,14 +4476,21 @@ def _first_answer(torch, fn):
     """Run ``fn`` once, with no profiler: its host-clock ms ending in a
     device sync, and host-clock spans of the mesh plane's steps inside it
     (each span syncs the card at its ends): the staging of the slot
-    structures (``_stage_rebuild``), of the kernel plane
-    (``ensure_kernel``), the program (``execute``) and the fetch. What the
-    spans leave is the rest of the host work (routing, plan building,
-    reduce)."""
+    structures (``_stage_rebuild``), a delta (``_apply_delta``, inside it
+    the appended segments' own staging, the successor's build and the
+    tombstones), of the kernel plane (``ensure_kernel``), the program
+    (``execute``) and the fetch. What the spans leave is the rest of the
+    host work (routing, plan building, reduce)."""
     from elasticsearch_tpu_torch.index import index_service
     from elasticsearch_tpu_torch.parallel import plan_exec
 
     targets = [(plan_exec.IndexMeshSearch, "_stage_rebuild", "mesh_stage"),
+               (plan_exec.IndexMeshSearch, "_apply_delta", "delta_stage"),
+               (plan_exec.MeshPlanExecutor, "stage_delta_segments",
+                "delta_segments_stage"),
+               (plan_exec.MeshPlanExecutor, "delta_append", "delta_append"),
+               (plan_exec.MeshPlanExecutor, "apply_tombstones",
+                "tombstones"),
                (plan_exec.MeshPlanExecutor, "ensure_kernel",
                 "kernel_plane_stage"),
                (plan_exec.MeshPlanExecutor, "execute", "program"),
@@ -4456,7 +4502,10 @@ def _first_answer(torch, fn):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1000
     spans = dict(spans)
-    spans["rest"] = wall - sum(spans.values())
+    # the delta spans run inside delta_stage: the rest leaves them out
+    nested = ("delta_segments_stage", "delta_append", "tombstones")
+    spans["rest"] = wall - sum(v for k, v in spans.items()
+                               if k not in nested)
     return out, wall, spans
 
 
@@ -4655,6 +4704,565 @@ def _recover_full_width(torch, Node, cuda_kernels, tsc, ssum, knn, reqs7,
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 14: the staging lifecycle (delta append, tombstones, budget,
+# faults, compaction) on pmc-4x256k at full width
+# ----------------------------------------------------------------------
+
+APPEND_DOCS = 4096  # a refresh's worth a shard: each shard seals one segment
+APPEND_SEED = 200  # the appended docs' corpus seeds: MESH_SEEDS[sh] + 200
+STAGING_MAX_SLOTS = 8
+
+
+def _staged_tensors(torch, svc):
+    """The index's tensors on the card, each once (the segments' own
+    stagings and the mesh generation's): {(data_ptr, numel): tensor}."""
+    groups = []
+    for sh in svc.shards.values():
+        for seg in sh.engine.segments:
+            groups += list((seg._device or {}).values())
+            for tables in list(seg._kernel_tables.values()):
+                groups += list(tables.values())
+            groups += list(seg.dev_cache.values())
+    ms = svc._mesh_search
+    ex = ms._executor if ms is not None else None
+    if ex is not None:
+        groups += list(ex._seg_staged.values())
+        groups += [e["mask"] for e in ex._knn.values() if isinstance(e, dict)]
+    return {(t.data_ptr(), t.numel()): t for t in groups
+            if torch.is_tensor(t) and t.is_cuda}
+
+
+def _active_blocks(torch):
+    """{address: size} of the caching allocator's allocated blocks."""
+    return {b["address"]: b["size"] for seg in torch.cuda.memory_snapshot()
+            for b in seg["blocks"] if b["state"] == "active_allocated"}
+
+
+def _leftover_note(torch, blocks0):
+    """The blocks allocated since ``blocks0`` and the Python tensors that
+    live in them, with their referrers' types: what keeps memory after a
+    close."""
+    import gc
+
+    new = {a: n for a, n in _active_blocks(torch).items() if a not in blocks0}
+    found = []
+    for o in gc.get_objects():
+        if isinstance(o, torch.Tensor) and o.is_cuda:
+            ptr = o.data_ptr()
+            if any(a <= ptr < a + n for a, n in new.items()):
+                found.append({"shape": list(o.shape), "dtype": str(o.dtype),
+                              "referrers": [type(r).__name__ for r in
+                                            gc.get_referrers(o)][:6]})
+    return {"blocks": sorted(new.values()), "tensors": found[:8]}
+
+
+def _append_segments(sh, vecs, exists):
+    """Shard ``sh``'s appended segment: APPEND_DOCS docs from the corpus
+    generator with a seed of its own, their ts / citations columns and
+    their emb vectors (rows of ``vecs``)."""
+    corpus = build_synthetic_corpus(MESH_SEEDS[sh] + APPEND_SEED,
+                                    n_docs=APPEND_DOCS)
+    arrays = corpus_segment_arrays(corpus, id_prefix=f"s{sh}n")
+    arrays["numeric_columns"] = {
+        **arrays["numeric_columns"],
+        **agg_columns(sh, corpus["nd_pad"], APPEND_DOCS,
+                      seed=MESH_SEEDS[sh] + APPEND_SEED + 100)}
+    rows = slice(sh * APPEND_DOCS, (sh + 1) * APPEND_DOCS)
+    arrays["vector_columns"] = {"emb": dict(
+        vectors=vecs[rows], exists=exists[rows], dims=KNN_DIMS,
+        count=int(exists[rows].sum()))}
+    return arrays
+
+
+def staging_phase(torch, Segment, cuda_kernels, tsc, ssum, knn, reqs7,
+                  knn_bodies, shard_arrays, vecs, exists, queries, ops,
+                  errs):
+    """Phase 14: pmc-4x256k at full width in three indices over the same
+    arrays: ``stg4`` (delta staging on), ``stg4f`` (``index.staging.delta
+    .enabled: false``, every change a full rebuild) and ``stg4c`` on the
+    cpu; ``index.search.mesh.max_slots_per_device: 8`` and block-max
+    pruning on all three. 14a the initial staging against the allocator;
+    14b an append of APPEND_DOCS docs a shard, timed against the full
+    rebuild; 14c a 1% delete of one shard. At a smaller depth, on
+    ``stgc`` (10,000 of phase 3's docs over 4 shards on the card: the
+    adopted corpus keeps no title text to re-analyze, and the full-width
+    restages of a budget and fault cycle would cost the script's time
+    limit): 14d the HBM budget; 14e transient and deterministic staging
+    faults; 14f compaction. 14g close. Every launch of phase 14 is held
+    against its plain version."""
+    from elasticsearch_tpu_torch.common.memory import memory_accountant
+    from elasticsearch_tpu_torch.common.settings import Settings
+    from elasticsearch_tpu_torch.index.index_service import IndexService
+    from elasticsearch_tpu_torch.search.aggregations import parse_aggs
+    from elasticsearch_tpu_torch.search.fused_aggs import resolve_fused_aggs
+    from elasticsearch_tpu_torch.testing.disruption import (
+        StagingFailScheme,
+        clear_search_disruptions,
+    )
+
+    t_phase = time.perf_counter()
+    acct = memory_accountant()
+    mapping = {"properties": {
+        "title": {"type": "text"}, "venue": {"type": "keyword"},
+        "year": {"type": "long"}, "ts": {"type": "date"},
+        "citations": {"type": "long"},
+        "emb": {"type": "dense_vector", "dims": KNN_DIMS,
+                "similarity": "cosine"}}}
+    aggs12 = agg_requests(queries)
+    # one body of each of phase 7's, 9's and 12's request kinds
+    seen = set()
+    bodies = []
+    for i, (k, b, _t) in enumerate(reqs7):
+        if k not in seen:
+            seen.add(k)
+            bodies.append((f"7/{k}", b))
+    bodies += [(f"9/{k}", b) for k, b in knn_bodies]
+    bodies += [(f"12/{k}", b) for k, b, _r in aggs12 if k != "pipelines"]
+    dash = aggs12[0][1]["aggs"]
+    small = {k: dash[k] for k in ("venues", "per_day", "cit_stats")}
+    matches = [{"match": {"title": " ".join(term_token(t) for t in q)}}
+               for q in queries[:BURST]]
+    # a pruned burst (1e), an exhaustive one (a size-0 member: 1c) and an
+    # agg burst (1b with the fused columns)
+    bursts = {
+        "burst_pruned": [{"query": m, "size": 10} for m in matches],
+        "burst_exact": [{"query": m, "size": 0 if i == 0 else 10}
+                        for i, m in enumerate(matches)],
+        "burst_aggs": [{"query": m, "size": 10,
+                        "aggs": dash if i % 2 == 0 else small}
+                       for i, m in enumerate(matches)]}
+    routing = _routing_for_shards(4)
+
+    def norm(svc, r):
+        """A response without ``took`` and its index's name."""
+        return _no_took(r).replace(f'"_index": "{svc.name}"',
+                                   '"_index": "-"')
+
+    def answers(svc, with_bursts=True):
+        out = {label: norm(svc, svc.search(dict(b))) for label, b in bodies}
+        for name, members in (bursts.items() if with_bursts else ()):
+            got = svc.search_batch([dict(b) for b in members])
+            for i, r in enumerate(got):
+                check(isinstance(r, dict),
+                      f"phase 14 {svc.name} {name}/{i} answered")
+                out[f"{name}/{i}"] = norm(svc, r) if isinstance(r, dict) \
+                    else None
+        return out
+
+    def new_events(name, before):
+        """The index's generation events that ``before`` (an earlier
+        ``staging_events`` list) does not hold: the event ring is bounded,
+        so no count marks a position in it."""
+        return [e for e in acct.stats(name)["staging_events"]
+                if e not in before and e["segment"].startswith("mesh#")]
+
+    def same_answers(a, b, what):
+        differ = [k for k in a if a[k] != b.get(k)]
+        check(not differ and len(a) == len(b),
+              f"phase 14 {what}: {len(a) - len(differ)} of {len(a)} "
+              f"responses equal byte for byte (differ: {differ[:4]})")
+
+    # stagings the earlier phases left are evicted first, so the budget of
+    # 14d and the memory level of 14g see this phase's indices alone
+    acct.set_budget(1)
+    acct.set_budget(0)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    blocks0 = _active_blocks(torch)
+
+    def make(name, device, delta):
+        svc = IndexService(name, Settings({
+            "index.number_of_shards": 4, "index.refresh_interval": -1,
+            "index.search.mesh.max_slots_per_device": STAGING_MAX_SLOTS,
+            "index.staging.delta.enabled": delta,
+            "index.staging.compact.threshold": 0,
+            "index.search.plane_quarantine.cooldown": "200ms",
+            "search.pallas.pruning.enabled": True}),
+            mapping=mapping, device=device)
+        for sh, arrays in enumerate(shard_arrays):
+            arrays = dict(arrays)
+            nd_pad = arrays["numeric_columns"]["year"]["exists"].shape[0]
+            n = len(arrays["doc_ids"])
+            arrays["numeric_columns"] = {**arrays["numeric_columns"],
+                                         **agg_columns(sh, nd_pad, n)}
+            rows = slice(sh * MESH_SHARD_DOCS, (sh + 1) * MESH_SHARD_DOCS)
+            arrays["vector_columns"] = {"emb": dict(
+                vectors=vecs[rows], exists=exists[rows], dims=KNN_DIMS,
+                count=int(exists[rows].sum()))}
+            svc.shards[sh].engine.adopt_segment(Segment.from_arrays(
+                f"{name}_{sh}_seg_1", device=device, **arrays))
+        return svc
+
+    t0 = time.perf_counter()
+    gD = make("stg4", "cuda", True)
+    gF = make("stg4f", "cuda", False)
+    cC = make("stg4c", "cpu", True)
+    build_s = time.perf_counter() - t0
+    out = {"docs": 4 * MESH_SHARD_DOCS, "append_docs": 4 * APPEND_DOCS,
+           "max_slots_per_device": STAGING_MAX_SLOTS, "build_s": build_s}
+
+    # ---- 14a: the initial staging, the ledger against the allocator ----
+    torch.cuda.synchronize()
+    m_before = torch.cuda.memory_allocated()
+    r_before = torch.cuda.memory_stats().get("requested_bytes.all.current")
+    t0 = time.perf_counter()
+    ms = gD._mesh_plane()
+    ex = ms._ensure_staged()
+    check(ex is not None and ex.ensure_kernel() is not None
+          and ex.ensure_knn("emb", KNN_DIMS, "cosine") is not None,
+          "phase 14a the generation, its kernel plane and kNN plane staged")
+    plan, reason = resolve_fused_aggs(parse_aggs(dash), ex)
+    check(plan is not None, f"phase 14a the dashboard's doc-value columns "
+                            f"staged ({reason})")
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    m_after = torch.cuda.memory_allocated()
+    r_after = torch.cuda.memory_stats().get("requested_bytes.all.current")
+    by_kind = acct.staged_bytes_by_kind("stg4")
+    tensors = _staged_tensors(torch, gD)
+    walked = sum(t.numel() * t.element_size() for t in tensors.values())
+    # bound_tables are host arrays, counted as the JAX package counts them
+    ledger_dev = sum(v for k, v in by_kind.items() if k != "bound_tables")
+    # the caching allocator rounds a block to 512 B, and keeps a large
+    # block (1 MiB or more) whole when splitting it would leave 1 MiB or
+    # less: memory_allocated may exceed the tensors' bytes by that much a
+    # tensor; the bytes the tensors requested are exact
+    sizes = [t.numel() * t.element_size() for t in tensors.values()]
+    tol = sum(512 + (1 << 20 if n >= 1 << 20 else 0) for n in sizes)
+    check(ledger_dev == walked,
+          f"phase 14a the ledger's device kinds equal the staged tensors' "
+          f"bytes ({ledger_dev} vs {walked})")
+    check(r_before is not None and r_after - r_before == ledger_dev,
+          f"phase 14a the ledger equals the allocator's requested bytes, "
+          f"exactly ({ledger_dev} vs {None if r_before is None else r_after - r_before})")
+    check(0 <= (m_after - m_before) - ledger_dev <= tol,
+          f"phase 14a memory_allocated's delta exceeds the ledger by at "
+          f"most the allocator's rounding ({ledger_dev} vs "
+          f"{m_after - m_before}, bound {tol} over {len(tensors)} tensors)")
+    reasons = {e["reason"] for e in new_events("stg4", [])}
+    check(reasons == {"initial"}, f"phase 14a reason initial ({reasons})")
+    n_tensors = len(tensors)
+    del tensors
+    out["14a"] = {"stage_s": stage_s, "ledger_by_kind": by_kind,
+                  "allocator_delta": m_after - m_before,
+                  "requested_delta": (None if r_before is None
+                                      else r_after - r_before),
+                  "ledger_device_bytes": ledger_dev, "tensors": n_tensors,
+                  "tolerance": tol, "n_slots": ex.n_slots,
+                  "free_slots": ex.free_slots(), "scope": ex.scope}
+    out['14a']["t_s"] = time.perf_counter() - t_phase
+    log(f"[phase 14a] {json.dumps(out['14a'])}")
+
+    cuda_kernels.reset_launch_counts()
+    with recording_recovered_path(tsc, ssum, knn) as kept:
+        # the rebuild twin stages its generation before the append
+        first_label, first_body = bodies[0]
+        check(gF.search(dict(first_body))["_plane"] == "mesh_pallas",
+              "phase 14a stg4f staged its generation")
+
+        # ---- 14b: append a refresh's worth a shard ----------------------
+        avecs, aexists, _r = knn_vectors(4 * APPEND_DOCS, seed=KNN_SEED + 1)
+        appended = [_append_segments(sh, avecs, aexists) for sh in range(4)]
+        for svc, device in ((gD, "cuda"), (gF, "cuda"), (cC, "cpu")):
+            for sh in range(4):
+                svc.shards[sh].engine.adopt_segment(Segment.from_arrays(
+                    f"{svc.name}_{sh}_seg_2", device=device, **appended[sh]))
+        del appended
+        st0 = acct.stats("stg4")
+        rD, ms_d, spans_d = _first_answer(
+            torch, lambda: gD.search(dict(first_body)))
+        rF, ms_f, spans_f = _first_answer(
+            torch, lambda: gF.search(dict(first_body)))
+        st1 = acct.stats("stg4")
+        restaged = st1["restaged_bytes_total"] - st0["restaged_bytes_total"]
+        logical = (st1["bytes_logically_changed_total"]
+                   - st0["bytes_logically_changed_total"])
+        ev = new_events("stg4", st0["staging_events"])
+        check(ms.delta_restage_total == 1 and ms.restage_total == 1,
+              f"phase 14b the append served as a delta "
+              f"(delta_restage_total {ms.delta_restage_total}, "
+              f"restage_total {ms.restage_total})")
+        check(any(e["reason"] == "delta_append" for e in ev),
+              "phase 14b reason delta_append")
+        check(gF._mesh_search.restage_total == 2
+              and gF._mesh_search.delta_restage_total == 0,
+              "phase 14b stg4f rebuilt its generation")
+        check(norm(gD, rD) == norm(gF, rF),
+              "phase 14b the appended answer equals the rebuilt one")
+        after_d = answers(gD)
+        after_f = answers(gF)
+        same_answers(after_d, after_f, "14b stg4 (appended) vs stg4f")
+        ex_b = ms._executor
+        out["14b"] = {
+            "first_request": first_label,
+            "appended_answer_ms": ms_d, "appended_spans_ms": spans_d,
+            "rebuilt_answer_ms": ms_f, "rebuilt_spans_ms": spans_f,
+            "restaged_bytes": restaged, "logically_changed_bytes": logical,
+            "amplification": (restaged / logical) if logical else None,
+            "reasons": sorted({e["reason"] for e in ev}),
+            "delta_events_bytes": {f"{e['kind']}/{e['table']}": e["bytes"]
+                                   for e in ev},
+            "n_slots": ex_b.n_slots, "free_slots": ex_b.free_slots(),
+            "rebuilt_n_slots": gF._mesh_search._executor.n_slots}
+        out['14b']["t_s"] = time.perf_counter() - t_phase
+        log(f"[phase 14b] {json.dumps(out['14b'])}")
+
+        # ---- 14c: tombstones, 1% of one shard's docs --------------------
+        dead = [f"s1p{i}" for i in range(0, MESH_SHARD_DOCS, 100)]
+        for svc in (gD, gF, cC):
+            for d in dead:
+                svc.delete_doc(d, routing=routing[1])
+            svc.refresh()
+        tomb0 = ms.tombstone_update_total
+        ev0 = acct.stats("stg4")["staging_events"]
+        rD, ms_t, spans_t = _first_answer(
+            torch, lambda: gD.search(dict(first_body)))
+        rF, ms_tf, spans_tf = _first_answer(
+            torch, lambda: gF.search(dict(first_body)))
+        ev = new_events("stg4", ev0)
+        ex_c = ms._executor
+        slot = next(i for i, (sid, seg) in enumerate(ex_c.pairs)
+                    if sid == 1 and seg.name.endswith("seg_1"))
+        # one slot's row of each live layout (a comprehension: no loop
+        # variable keeps a tensor of the generation alive)
+        rows = {key: t[slot].numel() * t.element_size()
+                for key, t in ex_c._seg_staged.items()
+                if key == "live1" or key.startswith("k_live_t")}
+        rows["seg_stacked"] = rows.pop("live1")
+        rows["knn_mask:emb"] = ex_c._knn["emb"]["mask"][slot].numel() * 4
+        check(ms.tombstone_update_total == tomb0 + 1
+              and ms.restage_total == 1 and ex_c is ex_b,
+              "phase 14c the deletes tombstoned the live generation in "
+              "place (tombstone_update_total + 1, no rebuild)")
+        check(bool(ev) and all(e["reason"] == "tombstone" for e in ev)
+              and all(e["bytes"] == rows.get(e["table"]) for e in ev),
+              f"phase 14c only the live rows of slot {slot} restaged "
+              f"({[(e['table'], e['bytes']) for e in ev]} vs {rows})")
+        check(norm(gD, rD) == norm(gF, rF),
+              "phase 14c the tombstoned answer equals the rebuilt one")
+        after_c = answers(gD)
+        same_answers(after_c, answers(gF), "14c stg4 (tombstoned) vs stg4f")
+        out["14c"] = {"deleted": len(dead), "slot": slot,
+                      "tombstoned_answer_ms": ms_t,
+                      "tombstoned_spans_ms": spans_t,
+                      "rebuilt_answer_ms": ms_tf,
+                      "rebuilt_spans_ms": spans_tf,
+                      "restaged_bytes": sum(e["bytes"] for e in ev),
+                      "events": [(e["table"], e["bytes"]) for e in ev]}
+        out['14c']["t_s"] = time.perf_counter() - t_phase
+        log(f"[phase 14c] {json.dumps(out['14c'])}")
+
+        # ---- 14d-14f at a smaller depth: 10,000 of phase 3's docs ---------
+        t_small = time.perf_counter()
+        cp = IndexService("stgc", Settings({
+            "index.number_of_shards": 4, "index.refresh_interval": -1,
+            "index.search.mesh.max_slots_per_device": STAGING_MAX_SLOTS,
+            "index.staging.compact.threshold": 0,
+            "index.search.plane_quarantine.cooldown": "200ms"}),
+            mapping={"properties": {"title": {"type": "text"},
+                                    "venue": {"type": "keyword"},
+                                    "year": {"type": "long"}}}, device="cuda")
+        for _op, meta, src in ops[:8000]:
+            cp.index_doc(meta["_id"], src)
+        cp.refresh()
+        cbodies = [(label, b) for label, b in bodies
+                   if label.startswith("7/") and "aggs" not in b]
+        cbodies.append(("agg", {"size": 0, "aggs": {
+            "v": {"terms": {"field": "venue", "size": 10}},
+            "y": {"stats": {"field": "year"}}}}))
+        small_answers = {label: norm(cp, cp.search(dict(b)))
+                         for label, b in cbodies}
+        cms = cp._mesh_search
+
+        # ---- 14d: the budget --------------------------------------------
+        probe = [next(lb for lb in cbodies if lb[0] == "7/match_or"),
+                 cbodies[-1]]
+        mesh_answers = {label: json.loads(small_answers[label])
+                        for label, _b in probe}
+        check(all(a["_plane"] in ("mesh", "mesh_pallas")
+                  for a in mesh_answers.values()),
+              "phase 14d the probes served on the mesh plane")
+        ev0, den0 = acct.evictions_total, acct.budget_denials_total
+        acct.set_budget(1)
+        check(acct.evictions_total > ev0 and cms._executor is None,
+              "phase 14d the budget evicted the generation (LRU)")
+        for label, b in probe:
+            r = cp.search(dict(b))
+            check(r["_plane"] == "host",
+                  f"phase 14d {label} demoted to the host rung "
+                  f"({r['_plane']})")
+            same_ranked(r, mesh_answers[label], f"phase 14d {label}")
+            check((r.get("aggregations") or {}).get("v")
+                  == (mesh_answers[label].get("aggregations") or {}).get("v"),
+                  f"phase 14d {label} buckets equal the mesh answer's")
+        decisions = cp.search_stats()["planes"]["decisions"]
+        check(decisions.get("host.hbm_budget", 0) >= len(probe)
+              and acct.budget_denials_total > den0,
+              f"phase 14d decisions host.hbm_budget ({decisions})")
+        acct.set_budget(0)
+        evs0 = acct.stats("stgc")["staging_events"]
+        for label, b in probe:
+            r = cp.search(dict(b))
+            check(r["_plane"] == mesh_answers[label]["_plane"]
+                  and norm(cp, r) == small_answers[label],
+                  f"phase 14d {label} restaged, byte for byte")
+        ev = new_events("stgc", evs0)
+        check(any(e["reason"] == "probe" and e["kind"] == "mesh_slot_tables"
+                  for e in ev), "phase 14d the restage's reason is probe")
+        out["14d"] = {"docs": 8000,
+                      "evictions": acct.evictions_total - ev0,
+                      "denials": acct.budget_denials_total - den0,
+                      "restage_reasons": sorted({e["reason"] for e in ev})}
+        out['14d']["t_s"] = time.perf_counter() - t_phase
+        log(f"[phase 14d] {json.dumps(out['14d'])}")
+
+        # ---- 14e: staging faults ----------------------------------------
+        label, b = probe[0]
+        retries = acct.staging_retries_total
+        cms._drop_staging()
+        scheme = StagingFailScheme(kinds=["mesh_slot_tables"],
+                                   transient=True, times=1,
+                                   indices=["stgc"]).install()
+        r = cp.search(dict(b))
+        check(scheme.hits == 1 and r["_plane"] == "mesh_pallas"
+              and acct.staging_retries_total == retries + 1
+              and norm(cp, r) == small_answers[label],
+              "phase 14e a transient staging fault retried, served on "
+              "mesh_pallas byte for byte")
+        clear_search_disruptions()
+        cms._drop_staging()
+        # the host rung's own tables staged first (the budget of 14d
+        # evicted them): the snapshot then holds all the rung stages
+        cp._search_uncached(dict(b), skip_mesh=True)
+        snap = acct.staged_bytes_by_kind("stgc")
+        faults = acct.staging_faults_deterministic_total
+        scheme = StagingFailScheme(kinds=["mesh_slot_tables"],
+                                   transient=False, times=1,
+                                   indices=["stgc"]).install()
+        r = cp.search(dict(b))
+        check(scheme.hits == 1 and r["_plane"] == "host"
+              and acct.staging_faults_deterministic_total == faults + 1,
+              "phase 14e a deterministic staging fault benched the staging")
+        same_ranked(r, mesh_answers[label], f"phase 14e host {label}")
+        check(acct.staged_bytes_by_kind("stgc") == snap,
+              "phase 14e the ledger exact after the fault")
+        check(cp.search_stats()["planes"]["plane_failures_by_reason"].get(
+            "staging_fault", 0) >= 1, "phase 14e reason staging_fault")
+        clear_search_disruptions()
+        # past the staging's bench and the plane's quarantine (200 ms, set
+        # when the faulted search ran)
+        time.sleep(0.3)
+        r = cp.search(dict(b))
+        check(r["_plane"] == "mesh_pallas"
+              and norm(cp, r) == small_answers[label],
+              "phase 14e after the cooldown the probe restaged, byte for "
+              "byte")
+        out["14e"] = {"docs": 8000,
+                      "retries": acct.staging_retries_total - retries,
+                      "deterministic_faults":
+                          acct.staging_faults_deterministic_total - faults}
+        out['14e']["t_s"] = time.perf_counter() - t_phase
+        log(f"[phase 14e] {json.dumps(out['14e'])}")
+
+        # ---- 14f: compaction --------------------------------------------
+        t0 = time.perf_counter()
+        for _label, b in cbodies:
+            cp.search(dict(b))
+        for _op, meta, src in ops[8000:10000]:
+            cp.index_doc(meta["_id"], src)
+        cp.refresh()
+        pre = {label: json.loads(_no_took(cp.search(dict(b))))
+               for label, b in cbodies}
+        check(cms.delta_restage_total == 1,
+              "phase 14f the refresh appended into the generation")
+        old_scope, old_slots = cms._executor.scope, cms._executor.n_occupied
+        cp._compact_threshold = lambda: 0.25
+        check(cp._compaction_due(), "phase 14f the fragmentation crossed 0.25")
+        res = cp.compact_now()
+        post = {label: json.loads(_no_took(cp.search(dict(b))))
+                for label, b in cbodies}
+        new = cms._executor
+        check(res["ran"] and res["restaged"] and new.scope != old_scope
+              and new.n_occupied < old_slots,
+              f"phase 14f compaction shrank the generation ({old_slots} -> "
+              f"{new.n_occupied} slots, {res})")
+        check(not [row for row in acct.table() if row["index"] == "stgc"
+                   and row["segment"] == old_scope],
+              "phase 14f the old generation's scope released")
+        check(all(pre[k]["hits"]["total"] == post[k]["hits"]["total"]
+                  and pre[k].get("aggregations") == post[k].get("aggregations")
+                  and post[k]["_plane"] == pre[k]["_plane"] for k in pre),
+              "phase 14f totals, aggregations and planes unchanged")
+        check(any(e["reason"] == "compaction"
+                  for e in acct.stats("stgc")["staging_events"]),
+              "phase 14f reason compaction")
+        out["14f"] = {"docs": 10000, "slots_before": old_slots,
+                      "slots_after": new.n_occupied,
+                      "merged_shards": res["merged_shards"],
+                      "compaction_runs_total": cms.compaction_runs_total,
+                      "s": time.perf_counter() - t0,
+                      "small_index_s": time.perf_counter() - t_small}
+        out['14f']["t_s"] = time.perf_counter() - t_phase
+        log(f"[phase 14f] {json.dumps(out['14f'])}")
+        del new, cms
+        cp.close()
+    torch.cuda.synchronize()
+    launches = dict(cuda_kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    held, errs14 = hold_recovered_path(torch, tsc, ssum, knn, kept, launches,
+                                       errs, "phase 14")
+    del kept
+    out["hold_s"] = time.perf_counter() - t0
+    # the cpu node: every kind of 14b and 14c, byte for byte (its plain
+    # versions against the card's kernels)
+    t0 = time.perf_counter()
+    serial = {k: v for k, v in after_c.items() if not k.startswith("burst")}
+    same_answers(serial, answers(cC, with_bursts=False),
+                 "14c stg4 vs the cpu node (serial kinds)")
+    out["cpu_node_s"] = time.perf_counter() - t0
+    for k in ("tile_scoring", "tile_scoring_batched", "tile_scoring_topk",
+              "tile_scoring_topk_sel", "segment_sum", "segment_sum_combine",
+              "knn_scoring"):
+        check(launches.get(k, 0) > 0,
+              f"phase 14 launched {k} ({launches.get(k, 0)})")
+
+    # ---- 14g: close -------------------------------------------------------
+    for svc in (gD, gF, cC):
+        svc.close()
+    del gD, gF, cC, ex, ex_b, ex_c, ms
+    torch.cuda.synchronize()
+    mem_end = torch.cuda.memory_allocated()
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_gc = torch.cuda.memory_allocated()
+    left = {name: acct.staged_bytes(name)
+            for name in ("stg4", "stg4f", "stg4c", "stgc")}
+    if mem_gc != mem0:
+        log(f"[phase 14g] left on the card: "
+            f"{json.dumps(_leftover_note(torch, blocks0))}")
+    check(mem_end == mem0,
+          f"phase 14g memory_allocated back to its level before the indices "
+          f"({mem0} -> {mem_end}; {mem_gc} after a cycle collection)")
+    check(not any(left.values()), f"phase 14g the ledger holds 0 bytes "
+                                  f"for them ({left})")
+    out["14g"] = {"memory_allocated_before": mem0,
+                  "memory_allocated_after_close": mem_end,
+                  "memory_allocated_after_gc": mem_gc,
+                  "ledger_after_close": left}
+    out["launches"] = launches
+    out["held"] = held
+    out["kernels"] = [{"name": k, "launches": v, "held": held.get(k, 0),
+                       "max_abs_err": errs14.get(k, 0.0)}
+                      for k, v in sorted(launches.items()) if v]
+    out["s"] = time.perf_counter() - t_phase
+    log(f"[phase 14] launches {json.dumps(launches)} held {json.dumps(held)}"
+        f" in {out['s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4669,11 +5277,19 @@ def main() -> int:
     from elasticsearch_tpu_torch.search import query_dsl as Q
 
     t_start = time.perf_counter()
+
+    def clock(phase: str) -> None:
+        """Where the script's time goes: the elapsed seconds as a phase
+        starts."""
+        log(f"[clock] {phase} starts at "
+            f"{time.perf_counter() - t_start:.1f} s")
+
     dev = torch.device("cuda", 0)
     # full float32 products everywhere (the kNN host rung refuses TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # ---------------- phase 1: device ----------------
+    clock("phase 1")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -4689,6 +5305,7 @@ def main() -> int:
                 log(f"[phase 1] {ln.strip()}")
 
     # ---------------- phase 2: kernels vs plain at bench shapes ----------
+    clock("phase 2")
     t0 = time.perf_counter()
     corpus = build_synthetic_corpus(7)
     arrays = corpus_segment_arrays(corpus)
@@ -4792,11 +5409,13 @@ def main() -> int:
         torch, dev, gseg, gdev, timer, queries, top_rank_term)
 
     # ---------------- phase 2d: kernels 1d and 1e vs plain ----------------
+    clock("phase 2d")
     packed_entries, packed_errs = packed_kernels_phase(
         torch, dev, gseg, gdev, timer, corpus, queries)
     batch_errs.update(packed_errs)
 
     # ---------------- phase 2c: kernel 3 vs plain --------------------------
+    clock("phase 2c")
     t0 = time.perf_counter()
     knn_vecs, knn_exists, knn_rng = knn_vectors(4 * MESH_SHARD_DOCS)
     log(f"[phase 2c] {knn_vecs.shape[0]} x {KNN_DIMS} bf16-grid vectors "
@@ -4810,6 +5429,7 @@ def main() -> int:
     launches = {k: 0 for k in cuda_kernels.LAUNCHES}
 
     # ---------------- phase 3: write path through Node(device="cuda") ----
+    clock("phase 3")
     rng = np.random.RandomState(21)
     ranks = np.arange(1, VOCAB + 1)
     probs = (1.0 / ranks) / (1.0 / ranks).sum()
@@ -4870,6 +5490,7 @@ def main() -> int:
     copy3 = host_copy_note(gnode, "docs", n3, "phase 3")
 
     # ---------------- phase 4: the 1M-doc segment through Node -----------
+    clock("phase 4")
     g4 = node_with_mapping(Node, "cuda", 1)
     c4 = node_with_mapping(Node, "cpu", 1)
     cseg = Segment.from_arrays("pmc_0_seg_1", device="cpu", **arrays)
@@ -4944,11 +5565,13 @@ def main() -> int:
         f"{json.dumps(seg_profile['terms_agg_request'])}")
 
     # ---------------- phase 7: the mesh plane at real size ---------------
+    clock("phase 7")
     g7, c7, g7segs, c7segs, shard_arrays, seg_held["phase 7"] = mesh_phase(
         torch, Node, Segment, cuda_kernels, queries, top_rank_term, lat,
         launches, knn_vecs, knn_exists, batch_errs)
 
     # ---------------- phase 8: bursts on both batched rungs --------------
+    clock("phase 8")
     burst_phase(torch, cuda_kernels, tsc, queries, lat, launches,
                 [(g7, "pmc4", "mesh_pallas"), (gnode, "docs", "host")],
                 batch_errs)
@@ -4957,21 +5580,25 @@ def main() -> int:
     check(not any(fails), f"zero plane faults (got {fails})")
 
     # ---------------- phase 9: kNN and hybrid through Node ---------------
+    clock("phase 9")
     knn_staging, knn_bodies = knn_phase(
         torch, cuda_kernels, g7, c7, g7segs, c7segs, knn_vecs, knn_exists,
         knn_rng, lat, launches, batch_errs)
 
     # ---------------- phase 10: packed + pruning through Node ------------
+    clock("phase 10")
     pruned_report, gP = pruned_phase(
         torch, Node, Segment, cuda_kernels, tsc, queries, lat, launches,
         batch_errs, shard_arrays, (g7, c7, g7segs), gnode)
 
     # ---------------- phase 11: REST on the card -------------------------
+    clock("phase 11")
     rest_report = rest_phase(
         torch, Node, cuda_kernels, ops, INGEST_DOCS / ingest_s, reqs, g7, c7,
         gP, queries, top_rank_term, knn_bodies, launches)
 
     # ---------------- phase 12: aggregations on the card -----------------
+    clock("phase 12")
     aggs_report = aggs_phase(torch, Node, Segment, cuda_kernels, tsc, queries,
                              lat, launches, batch_errs, shard_arrays)
     seg_held["phase 12"] = (aggs_report["launches"]["segment_sum_mask_form"]
@@ -4979,6 +5606,7 @@ def main() -> int:
                             ["segment_sum_gather_form"])
 
     # ---------------- phase 13: durability on the card -------------------
+    clock("phase 13")
     durability_report = durability_phase(
         torch, Node, cuda_kernels, tsc, ops, INGEST_DOCS / ingest_s, reqs,
         reqs, knn_bodies, shard_arrays, knn_vecs, knn_exists, queries,
@@ -4990,7 +5618,19 @@ def main() -> int:
         for k, v in durability_report[part]["launches"].items():
             launches[k] += v
 
+    # ---------------- phase 14: the staging lifecycle on the card --------
+    clock("phase 14")
+    from elasticsearch_tpu_torch.ops import knn_scoring as knn
+
+    staging_report = staging_phase(
+        torch, Segment, cuda_kernels, tsc, ssum, knn, reqs, knn_bodies,
+        shard_arrays, knn_vecs, knn_exists, queries, ops, batch_errs)
+    seg_held["phase 14"] = staging_report["held"].get("segment_sum", 0)
+    for k, v in staging_report["launches"].items():
+        launches[k] += v
+
     # ---------------- phase 5: latency summary ---------------------------
+    clock("phase 5")
     for kind, xs in sorted(lat.items()):
         log(f"[phase 5] p50 phase {kind}: {float(np.median(xs)):.3f} ms over "
             f"{len(xs)} requests ({smi})")
@@ -5001,6 +5641,7 @@ def main() -> int:
         f"phase 4 {json.dumps(copy4)}")
 
     # ---------------- phase 6: kernel summary ----------------------------
+    clock("phase 6")
     rep = tile_entries[0]
     bat = batch_entries["draws"]
     summary = {"kernels": [
@@ -5089,7 +5730,7 @@ def main() -> int:
              for e in knn_entries],
          **knn_staging},
     ], "rest": rest_report, "aggs": aggs_report,
-        "durability": durability_report}
+        "durability": durability_report, "staging": staging_report}
     for name, key, replaces, extra in (
             ("tile_scoring_packed", "tile_scoring_packed", 656,
              ("ms_with_counts", "bound_ms_with_counts", "plan")),

@@ -112,6 +112,17 @@ class EsRejectedExecutionException(ElasticsearchTpuException):
     status_code = 429
 
 
+class CircuitBreakingException(ElasticsearchTpuException):
+    """A memory circuit breaker tripped (``common/breaker.py``): HTTP 429."""
+
+    status_code = 429
+
+    def __init__(self, reason: str, bytes_wanted: int = 0,
+                 byte_limit: int = 0):
+        super().__init__(reason, bytes_wanted=bytes_wanted,
+                         bytes_limit=byte_limit)
+
+
 class UnavailableShardsException(ElasticsearchTpuException):
     """wait_for_active_shards not met (action/UnavailableShardsException)."""
 

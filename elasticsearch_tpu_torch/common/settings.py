@@ -25,7 +25,18 @@ port's path reads, each with the JAX package's default and validator:
   ``search.pallas.pruning.probe_tiles`` (8; one of 2, 4, 8, 16, 32). The
   two pruning settings are dynamic in the JAX package (``PUT
   _cluster/settings``); the port has no cluster-settings API yet, so they
-  are read from the index's settings as created.
+  are read from the index's settings as created;
+- the memory breakers and the device-memory ledger (node scope):
+  ``indices.breaker.{total,request,fielddata}.limit`` (byte sizes; the
+  JAX package's "70%" / "60%" of a JVM heap become the absolute
+  defaults of ``common/breaker.py``), ``search.memory.hbm_budget_bytes``
+  (0 = unlimited) and the staging retry ``search.staging.retry.
+  max_attempts`` (3, 1..10) and ``.backoff_ms`` (10.0, >= 0);
+- delta staging of the mesh plane (index scope):
+  ``index.staging.delta.enabled`` (true) and
+  ``index.staging.compact.threshold`` (0.25; <= 0 turns compaction off).
+  These are dynamic in the JAX package (``PUT _cluster/settings``); the
+  port reads them from the node's and the index's settings as created.
 """
 
 from __future__ import annotations
@@ -33,6 +44,15 @@ from __future__ import annotations
 from typing import Any, Dict, Iterable, Optional
 
 from elasticsearch_tpu_torch.common.errors import IllegalArgumentException
+
+_BYTE_UNITS = {
+    "b": 1,
+    "kb": 1024,
+    "mb": 1024**2,
+    "gb": 1024**3,
+    "tb": 1024**4,
+    "pb": 1024**5,
+}
 
 _TIME_UNITS = {
     "nanos": 1e-9,
@@ -66,6 +86,28 @@ def parse_time_value(value, setting_name: str = "") -> float:
     raise IllegalArgumentException(
         f"failed to parse setting [{setting_name}] with value [{value}] as a "
         "time value")
+
+
+def parse_byte_size(value, setting_name: str = "") -> int:
+    """Parse '10gb' / '512mb' / a bare int (bytes) into bytes."""
+    if isinstance(value, int) and not isinstance(value, bool):
+        return value
+    s = str(value).strip().lower()
+    if s == "-1":
+        return -1
+    for unit in sorted(_BYTE_UNITS, key=len, reverse=True):
+        if s.endswith(unit):
+            num = s[: -len(unit)].strip()
+            try:
+                return int(float(num) * _BYTE_UNITS[unit])
+            except ValueError:
+                break
+    try:
+        return int(s)
+    except ValueError:
+        raise IllegalArgumentException(
+            f"failed to parse setting [{setting_name}] with value [{value}] "
+            "as a size in bytes") from None
 
 
 class Settings:
@@ -184,6 +226,11 @@ class Settings:
         v = self._data.get(key)
         return default if v is None else parse_time_value(v, key)
 
+    def get_bytes(self, key: str,
+                  default: Optional[int] = None) -> Optional[int]:
+        v = self._data.get(key)
+        return default if v is None else parse_byte_size(v, key)
+
 
 Settings.EMPTY = Settings()
 
@@ -215,6 +262,9 @@ class Setting:
             return settings.get_bool(self.key, self.default)
         elif self.kind == "time":
             return settings.get_time(self.key, parse_time_value(
+                self.default, self.key))
+        elif self.kind == "bytes":
+            v = settings.get_bytes(self.key, parse_byte_size(
                 self.default, self.key))
         else:
             v = settings.get_str(self.key, self.default)
@@ -309,3 +359,38 @@ INDEX_TRANSLOG_DURABILITY = Setting(
 # registered only, as in the JAX package: no size-triggered flush yet
 INDEX_TRANSLOG_FLUSH_THRESHOLD = Setting(
     "index.translog.flush_threshold_size", "512mb", "str")
+
+# --- memory breakers and the device-memory ledger (common/breaker.py,
+# common/memory.py); node scope ---
+BREAKER_TOTAL_LIMIT = Setting("indices.breaker.total.limit", 1_500_000_000,
+                              "bytes", min_value=0)
+BREAKER_REQUEST_LIMIT = Setting("indices.breaker.request.limit",
+                                900_000_000, "bytes", min_value=0)
+BREAKER_FIELDDATA_LIMIT = Setting("indices.breaker.fielddata.limit",
+                                  900_000_000, "bytes", min_value=0)
+# the device staging budget: over it a staging first LRU-evicts the coldest
+# evictable scopes, then the mesh plane demotes to the host rung with
+# decision reason hbm_budget (never a 429 or a 5xx); 0 = unlimited
+SEARCH_MEMORY_HBM_BUDGET = Setting("search.memory.hbm_budget_bytes", "0b",
+                                   "bytes", min_value=0)
+
+# --- device-staging retry (common/staging.py); node scope ---
+# total attempts of one staging whose fault classifies transient (an out
+# of memory, a transfer error); a deterministic fault never retries
+SEARCH_STAGING_RETRY_MAX_ATTEMPTS = Setting(
+    "search.staging.retry.max_attempts", 3, "int", 1, 10)
+# the first retry's backoff; doubles on each retry
+SEARCH_STAGING_RETRY_BACKOFF_MS = Setting(
+    "search.staging.retry.backoff_ms", 10.0, "float", min_value=0.0)
+
+# --- delta staging of the mesh plane (parallel/plan_exec.py) ---
+# a refresh that adds segments within the generation's free slots stages
+# only the new slots; a delete rewrites only the live-mask rows of its
+# slot. false: every change rebuilds the generation
+INDEX_STAGING_DELTA_ENABLED = Setting("index.staging.delta.enabled", True,
+                                      "bool")
+# background compaction: when a staged slot's tombstone density (or the
+# slot fragmentation) reaches this fraction, a single-flight pass merges
+# the shards and restages a compact generation; <= 0 turns it off
+INDEX_STAGING_COMPACT_THRESHOLD = Setting(
+    "index.staging.compact.threshold", 0.25, "float")

@@ -11,7 +11,9 @@ Lucene's IndexWriter replaced by the block-packing ``SegmentBuilder``):
 - ``flush()``: refresh, write a commit point to the store, then trim the
   translog; ``synced_flush()`` stamps the commit with a sync id, so a
   restart over it replays nothing.
-- ``force_merge()``: rebuild the live docs into one segment.
+- ``force_merge()``: rebuild the live docs into one segment (their
+  positions come from the analyzer again, under the new doc ids); the
+  retired segments return their device bytes to the ledger.
 - ``recover_from_translog()``: replay the uncommitted ops after a restart
   (the seqno staleness guard makes a replay idempotent).
 - updates/deletes tombstone the old doc; against a sealed segment the
@@ -92,6 +94,13 @@ class Engine:
         # (IndexService sets both from the index settings)
         self.postings_codec: Optional[str] = None
         self.postings_codec_default: Optional[str] = None
+        # the index the device-memory ledger attributes stagings to
+        # (IndexShard sets it)
+        self.index_name: Optional[str] = None
+
+    def _stamp_owner(self, seg: Segment) -> None:
+        if self.index_name is not None and seg.owner_index != self.index_name:
+            seg.owner_index = self.index_name
 
     def _new_builder(self) -> SegmentBuilder:
         self._segment_counter += 1
@@ -241,6 +250,7 @@ class Engine:
                 f"segment [{seg.name}] lives on {seg.device}, the engine on "
                 f"{self.device}")
         with self._lock:
+            self._stamp_owner(seg)
             for local in np.flatnonzero(seg.live[: seg.num_docs]):
                 local = int(local)
                 self.version_map[seg.doc_ids[local]] = VersionEntry(
@@ -279,6 +289,9 @@ class Engine:
         with self._lock:
             segs = [s for s in self.segments
                     if s.live_doc_count > 0 or s.num_docs == 0]
+            for s in segs:
+                # stamped before any lazy staging runs
+                self._stamp_owner(s)
             if self.postings_codec is not None:
                 for s in segs:
                     # the index's postings-codec preference
@@ -348,6 +361,7 @@ class Engine:
             if self.buffer.num_docs == 0:
                 return applied_deletes
             seg = self.buffer.seal()
+            self._stamp_owner(seg)
             for local_doc in self._buffer_deletes:
                 seg.delete_doc(local_doc)
             for entry in self.version_map.values():
@@ -383,10 +397,13 @@ class Engine:
         self.flush(sync_id=sync_id)
         return sync_id
 
-    def force_merge(self) -> None:
+    def force_merge(self, stage_reason: str = "refresh") -> None:
         """Rebuild the live docs into one segment from their stored
         sources (expunges deletes). The retired segments drop their
-        device arrays; the merged one stages lazily."""
+        device arrays and ledger bytes; the merged one stages lazily, and
+        ``stage_reason`` classifies its first staging in the ledger's
+        event ring ("refresh", or "compaction" for the compaction pass):
+        it restages the retired segments' corpus."""
         with self._lock:
             self.refresh()
             builder = self._new_builder()
@@ -406,6 +423,8 @@ class Engine:
             merged = builder.seal()
             for old_seg in self.segments:
                 old_seg.release_device()
+            merged.stage_reason_initial = stage_reason
+            self._stamp_owner(merged)
             self.segments = [merged] if merged.num_docs else []
 
     def recover_from_translog(self) -> int:

@@ -38,7 +38,8 @@ program (``search.pallas.pruning.enabled``) carries ``"_pruned":
 {"tiles_scored", "tiles_pruned", "total_relation": "gte"}``: its total
 counts matches in scored tiles only, and the REST layer renders it as
 ``{"value", "relation": "gte"}`` (``rest/handlers._render_total_hits``).
-``close`` releases the index's device memory (``Node.delete_index``).
+``close`` releases the index's device memory (``Node.delete_index``) and
+its device-memory ledger (``release_index``).
 
 With a ``data_path`` each shard keeps its translog and store under
 ``<data_path>/<shard id>``, and an index opened over an existing one
@@ -49,18 +50,27 @@ arrays are released, and every search fails it into
 ``_shards.failures`` from the host rung (the mesh plane cannot report a
 shard's failure, so it stands aside while any shard is quarantined);
 the other shards answer. ``flush``, ``synced_flush`` and ``force_merge``
-run on every shard. The request cache, admission control, scrubbing,
-compaction and telemetry are later slices.
+run on every shard.
+
+Compaction (``index.staging.compact.threshold``): after a delta commit the
+mesh plane calls ``maybe_compact_async``, which starts one background
+``compact_now`` pass (single flight, never on the query path) when a
+staged slot's tombstone density or the slot fragmentation reaches the
+threshold; the pass force-merges the dense or fragmented shards and
+restages a compact generation. The request cache, admission control,
+scrubbing and telemetry are later slices.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 import time
 from typing import Dict, List, Optional
 
 from elasticsearch_tpu_torch.analysis.analyzers import AnalysisRegistry
 from elasticsearch_tpu_torch.common.device import resolve_device
+from elasticsearch_tpu_torch.common.memory import memory_accountant
 from elasticsearch_tpu_torch.common.errors import (
     IllegalArgumentException,
     SearchPhaseExecutionException,
@@ -75,6 +85,8 @@ from elasticsearch_tpu_torch.common.settings import (
     INDEX_SEARCH_MESH_PLANE,
     INDEX_SEARCH_PALLAS_POSTINGS_CODEC,
     INDEX_SEARCH_PLANE_QUARANTINE_COOLDOWN,
+    INDEX_STAGING_COMPACT_THRESHOLD,
+    INDEX_STAGING_DELTA_ENABLED,
     INDEX_TRANSLOG_DURABILITY,
     SEARCH_BATCH_ENABLED,
     SEARCH_BATCH_MAX_QUERIES,
@@ -125,7 +137,9 @@ class IndexService:
                         INDEX_SEARCH_PLANE_QUARANTINE_COOLDOWN,
                         SEARCH_KNN_ENABLED, SEARCH_KNN_TILE_SUB,
                         SEARCH_PALLAS_PRUNING_ENABLED,
-                        SEARCH_PALLAS_PRUNING_PROBE_TILES):
+                        SEARCH_PALLAS_PRUNING_PROBE_TILES,
+                        INDEX_STAGING_DELTA_ENABLED,
+                        INDEX_STAGING_COMPACT_THRESHOLD):
             setting.get(settings)
         self.analyzers = AnalysisRegistry(settings)
         self.mapper_service = MapperService(
@@ -149,6 +163,12 @@ class IndexService:
         # on the first eligible search
         self._mesh_enabled = INDEX_SEARCH_MESH.get(settings)
         self._mesh_search = None
+        # the plane is created once: threads racing an index's first
+        # searches must share one instance (and its counters)
+        self._mesh_lock = threading.Lock()
+        # background compaction: single flight; close stops it
+        self._compact_lock = threading.Lock()
+        self._closing = False
         self.shards: Dict[int, IndexShard] = {}
         # ops replayed from each shard's translog when it recovered
         self.recovered_ops: Dict[int, int] = {}
@@ -260,10 +280,16 @@ class IndexService:
         keeps: a delete that left it staged would leak it."""
         self._batcher.enabled = False
         self._mesh_enabled = False
+        self._closing = True
+        # a compaction pass in flight finishes its shard and stops
+        with self._compact_lock:
+            pass
         if self._mesh_search is not None:
             self._mesh_search._drop_staging()
         for shard in self.shards.values():
             shard.close()
+        # the ledger backstop: whatever the structured releases left
+        memory_accountant().release_index(self.name)
 
     # ------------------------------------------------------------------
     # Search
@@ -283,13 +309,101 @@ class IndexService:
                                  batch_fn=self.search_batch)
 
     def _mesh_plane(self):
-        if self._mesh_search is None:
-            from elasticsearch_tpu_torch.parallel.plan_exec import (
-                IndexMeshSearch,
-            )
+        ms = self._mesh_search
+        if ms is None:
+            with self._mesh_lock:
+                if self._mesh_search is None:
+                    from elasticsearch_tpu_torch.parallel.plan_exec import (
+                        IndexMeshSearch,
+                    )
 
-            self._mesh_search = IndexMeshSearch(self)
-        return self._mesh_search
+                    self._mesh_search = IndexMeshSearch(self)
+                ms = self._mesh_search
+        return ms
+
+    # ------------------------------------------------------------------
+    # Background slot compaction
+    # ------------------------------------------------------------------
+
+    def _compact_threshold(self) -> float:
+        """``index.staging.compact.threshold``; <= 0 turns compaction off
+        (its dynamic update waits for the cluster settings API)."""
+        return float(INDEX_STAGING_COMPACT_THRESHOLD.get(self.settings))
+
+    def _compaction_due(self) -> bool:
+        """A staged slot's tombstone density, or the slot fragmentation,
+        reached the threshold (host counters only, no device work)."""
+        threshold = self._compact_threshold()
+        if threshold <= 0:
+            return False
+        ms = self._mesh_search
+        stats = ms.staging_slot_stats() if ms is not None else None
+        if not stats or not stats["slots"]:
+            return False
+        if any(s["tombstone_density"] >= threshold for s in stats["slots"]):
+            return True
+        # fragmentation: occupied slots beyond what the live docs need
+        occupied = len(stats["slots"])
+        needed = max(1, -(-sum(s["live"] for s in stats["slots"])
+                          // max(max(s["docs"] for s in stats["slots"]), 1)))
+        return occupied > needed and (
+            (occupied - needed) / occupied >= threshold)
+
+    def maybe_compact_async(self) -> bool:
+        """The delta-commit hook (the mesh plane calls it, possibly under
+        its stage lock): decide cheaply, then run the pass on a background
+        thread, never on the query path. True when a pass started."""
+        if self._closing or not self._compaction_due():
+            return False
+        if self._compact_lock.locked():
+            return False  # single flight: a pass is already running
+        threading.Thread(target=self.compact_now, daemon=True,
+                         name=f"compact[{self.name}]").start()
+        return True
+
+    def compact_now(self) -> dict:
+        """One synchronous compaction pass (the background thread's body;
+        tests call it directly): force-merge the tombstone-dense and the
+        fragmented shards (expunging deletes), then restage a fresh
+        generation with fresh slot headroom and release the old one.
+        Single flight through ``_compact_lock``. The JAX package also
+        aborts between shards when the node starts to drain; the port has
+        no admission control yet, so only ``close`` (``_closing``) aborts
+        a pass."""
+        if not self._compact_lock.acquire(blocking=False):
+            return {"ran": False, "reason": "already_running"}
+        try:
+            if self._closing:
+                return {"ran": False, "reason": "closing"}
+            threshold = self._compact_threshold()
+            merged_shards = []
+            for sid, shard in sorted(self.shards.items()):
+                if self._closing:
+                    return {"ran": False, "reason": "closing",
+                            "merged_shards": merged_shards}
+                if shard.store_corrupted:
+                    continue
+                eng = shard.engine
+                total = sum(int(s.num_docs) for s in eng.segments)
+                live = sum(int(s.live_doc_count) for s in eng.segments)
+                dense = (total > 0 and threshold > 0
+                         and (total - live) / total >= threshold)
+                frag = len(eng.segments) > 1
+                if dense or frag:
+                    eng.force_merge(stage_reason="compaction")
+                    merged_shards.append(sid)
+            if self._closing:
+                return {"ran": False, "reason": "closing",
+                        "merged_shards": merged_shards}
+            ms = self._mesh_search
+            restaged = (ms.restage_for_compaction()
+                        if ms is not None else False)
+            if ms is not None:
+                ms.note_compaction_run()
+            return {"ran": True, "merged_shards": merged_shards,
+                    "restaged": bool(restaged)}
+        finally:
+            self._compact_lock.release()
 
     @staticmethod
     def _window(body: dict):
@@ -756,7 +870,11 @@ class IndexService:
         """Which plane served the queries, the mesh plane's health, the
         pruned scoring's tile economy, the postings codec and the posting
         bytes staged, the fused aggregations and the host reduce's
-        fallbacks by reason, and the batcher's counters."""
+        fallbacks by reason, the staging lifecycle's counters (rebuilds,
+        delta appends, tombstone updates, compaction passes), the
+        batcher's counters, and the ``memory`` block: the index's
+        device-memory ledger (bytes by kind, restage amplification, the
+        event rings and the budget's and retries' counters)."""
         from elasticsearch_tpu_torch.parallel.plan_exec import PlaneHealth
 
         ms = self._mesh_search
@@ -771,6 +889,10 @@ class IndexService:
             "knn_query_total": ms.knn_query_total if ms else 0,
             "mesh_batched_launch_total": ms.batched_launch_total if ms else 0,
             "mesh_restage_total": ms.restage_total if ms else 0,
+            "delta_restage_total": ms.delta_restage_total if ms else 0,
+            "tombstone_update_total": (ms.tombstone_update_total
+                                       if ms else 0),
+            "compaction_runs_total": ms.compaction_runs_total if ms else 0,
             "pruned_query_total": ms.pruned_query_total if ms else 0,
             "tiles_scored_total": ms.tiles_scored_total if ms else 0,
             "tiles_pruned_total": ms.tiles_pruned_total if ms else 0,
@@ -789,7 +911,8 @@ class IndexService:
             "decisions": dict(ms.decisions) if ms else {},
             **(ms.plane_health.stats() if ms else PlaneHealth().stats()),
         }
-        return {"planes": planes, "batch": self.batch_stats.as_dict()}
+        return {"planes": planes, "batch": self.batch_stats.as_dict(),
+                "memory": memory_accountant().stats(self.name)}
 
 
 def _shard_failure_entry(index: str, shard_id: int, exc) -> dict:

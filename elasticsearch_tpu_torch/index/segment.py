@@ -21,16 +21,38 @@ with the live mask in tile layout. The codec follows the preference its
 engine stamps (``postings_codec``, the index setting, and
 ``postings_codec_default``, the node's), resolved against the segment's
 doc space (``tile_scoring.resolve_postings_codec``). ``ensure_vector_staged`` stages a vector field's bf16
-embeddings (and the cosine inverse norms) on first use. A staging failure
-raises; there is no fallback engine.
-The memory ledger, staging retries and fault-injection hooks of the JAX
-package are later slices.
+embeddings (and the cosine inverse norms) on first use.
+
+Every staged tensor registers in the device-memory ledger
+(``common/memory.py``) under the segment's scope (``ledger_scope``) and
+the index that owns it (``owner_index``, stamped by the engine): the base
+postings (``postings_raw``), norms (``scale_norm``), every live-mask
+layout (``live_mask``), the kernel posting tables in each codec staged
+(``postings_raw`` / ``postings_packed``) with their block bounds
+(``bound_tables``: host arrays, counted as the JAX package counts them),
+the embeddings and inverse norms (``embeddings`` / ``scale_norm``) and
+doc-value columns (``doc_values``). The scope is evictable: over the HBM
+budget the accountant drops the segment's stagings, which restage lazily.
+Each staging runs its transfer group through ``common/staging.run_staged``
+(transient faults retry, the fault-injection hook sits just before the
+transfers) and publishes only after every transfer landed; a terminal
+fault raises to the caller (the port has no scatter engine to fall back
+to). ``release_device`` returns the scope's bytes.
+
+``positions`` holds each term's positions per doc (``{term_id: {doc:
+int32 array}}``, the analyzer's token index), as the JAX segment keeps
+them for phrase queries; the store writes and reads them.
 """
 
 from __future__ import annotations
 
 import bisect
+import itertools
+import json
 import threading
+import time as _time
+from array import array
+from collections.abc import Mapping
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -38,6 +60,16 @@ import numpy as np
 import torch
 
 from elasticsearch_tpu_torch.common.device import resolve_device
+from elasticsearch_tpu_torch.common.memory import (
+    KIND_BOUND_TABLES,
+    KIND_DOC_VALUES,
+    KIND_EMBEDDINGS,
+    KIND_LIVE_MASK,
+    KIND_POSTINGS_RAW,
+    KIND_SCALE_NORM,
+    memory_accountant,
+)
+from elasticsearch_tpu_torch.common.staging import run_staged
 from elasticsearch_tpu_torch.ops import knn_scoring as knn
 from elasticsearch_tpu_torch.ops import tile_scoring as tsc
 
@@ -114,6 +146,111 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
 
+class SegmentPositions(Mapping):
+    """A segment's phrase positions, ``{term_id: {doc: int32 array}}``,
+    built on first access from what the segment was made of: a sealed
+    segment's three flat int32 columns sorted by (term, doc, position)
+    (``from_flat``), or a store's ``positions.json`` bytes as read
+    (``from_json_bytes``), decoded on first access. The port serves no
+    phrase query yet, so indexing and a store load pay no Python object a
+    (term, doc) and a load parses no JSON; ``json_bytes`` gives the
+    store's form without building the nested arrays (a loaded segment's
+    bytes as they were read)."""
+
+    def __init__(self, flat=None, text: Optional[bytes] = None):
+        self._flat = flat
+        self._text = text
+        self._raw: Optional[dict] = None
+        self._nested: Optional[Dict[int, Dict[int, np.ndarray]]] = None
+
+    @classmethod
+    def from_flat(cls, tids: np.ndarray, docs: np.ndarray,
+                  at: np.ndarray) -> "SegmentPositions":
+        return cls(flat=(tids, docs, at))
+
+    @classmethod
+    def from_json_bytes(cls, text: bytes) -> "SegmentPositions":
+        return cls(text=text)
+
+    def _groups(self):
+        """(term, doc, lo, hi) runs of the flat columns."""
+        tids, docs, _at = self._flat
+        if not len(tids):
+            return []
+        cut = np.flatnonzero((tids[1:] != tids[:-1])
+                             | (docs[1:] != docs[:-1])) + 1
+        starts = np.concatenate([[0], cut]).tolist()
+        ends = np.append(cut, len(tids)).tolist()
+        return zip(tids[starts].tolist(), docs[starts].tolist(), starts, ends)
+
+    def _build(self) -> Dict[int, Dict[int, np.ndarray]]:
+        nested = self._nested
+        if nested is None:
+            nested = {}
+            if self._flat is not None:
+                at = self._flat[2]
+                for tid, doc, lo, hi in self._groups():
+                    nested.setdefault(tid, {})[doc] = at[lo:hi]
+            elif self._text is not None:
+                nested = {int(tid): {int(doc): np.asarray(pos, np.int32)
+                                     for doc, pos in per_doc.items()}
+                          for tid, per_doc in self.json_dict().items()}
+            self._nested = nested
+        return nested
+
+    def json_bytes(self) -> bytes:
+        """The store's ``positions.json`` bytes."""
+        if self._text is not None:
+            return self._text
+        # json.dumps, not json.dump: one pass of the C encoder
+        return json.dumps(self.json_dict()).encode("utf-8")
+
+    def json_dict(self) -> dict:
+        """``{str(term_id): {str(doc): [positions]}}``, the store's form."""
+        if self._text is not None:
+            if self._raw is None:
+                self._raw = json.loads(self._text)
+            return self._raw
+        tids, docs, at = self._flat
+        if not len(tids):
+            return {}
+        # one (term, doc) run a group, one term run a dict: built with
+        # C-level maps and zips, no Python statement a (term, doc)
+        cut = np.flatnonzero((tids[1:] != tids[:-1])
+                             | (docs[1:] != docs[:-1])) + 1
+        starts = np.concatenate([[0], cut])
+        ends = np.append(cut, len(tids))
+        at_l = at.tolist()
+        runs = list(map(at_l.__getitem__, map(slice, starts.tolist(),
+                                              ends.tolist())))
+        doc_keys = list(map(str, docs[starts].tolist()))
+        g_tids = tids[starts]
+        tcut = np.flatnonzero(g_tids[1:] != g_tids[:-1]) + 1
+        t_lo = np.concatenate([[0], tcut]).tolist()
+        t_hi = np.append(tcut, len(g_tids)).tolist()
+        return {str(int(g_tids[lo])): dict(zip(doc_keys[lo:hi], runs[lo:hi]))
+                for lo, hi in zip(t_lo, t_hi)}
+
+    def __getitem__(self, tid):
+        return self._build()[tid]
+
+    def __iter__(self):
+        return iter(self._build())
+
+    def __len__(self):
+        return len(self._build())
+
+
+def tensor_bytes(t: torch.Tensor) -> int:
+    """A staged tensor's bytes as the ledger counts them."""
+    return int(t.numel() * t.element_size())
+
+
+# generation-unique ledger scopes: a segment name can come back (a store
+# reload), its staging history must not
+_LEDGER_SEQ = itertools.count(1)
+
+
 class Segment:
     """An immutable sealed segment: host numpy arrays, staged once to
     ``device`` by ``device_arrays()``."""
@@ -141,6 +278,7 @@ class Segment:
         vector_columns: Optional[Dict[str, VectorColumn]] = None,
         device="cuda",
         exists_masks: Optional[Dict[str, np.ndarray]] = None,
+        positions: Optional[Mapping] = None,
     ):
         self.name = name
         self.num_docs = num_docs
@@ -162,6 +300,8 @@ class Segment:
         self.numeric_columns = numeric_columns
         self.ordinal_columns = ordinal_columns
         self.vector_columns = vector_columns or {}
+        # term_id -> {local_doc: int32 positions}, for phrase queries
+        self.positions = positions if positions is not None else {}
         self.device = resolve_device(device)
         self.live = np.ones(self.nd_pad, dtype=bool)
         self.live[num_docs:] = False
@@ -188,6 +328,12 @@ class Segment:
         self.postings_codec: Optional[str] = None
         self.postings_codec_default: Optional[str] = None
         self._stage_lock = threading.Lock()
+        # the device-memory ledger's owner and scope; a merge product's
+        # first staging is a restage of the retired segments' corpus
+        # ("refresh", or "compaction" for the compaction pass)
+        self.owner_index: Optional[str] = None
+        self.ledger_scope = f"{name}@{next(_LEDGER_SEQ)}"
+        self.stage_reason_initial = "initial"
 
     @classmethod
     def from_arrays(cls, name: str, *, term_keys, term_block_start,
@@ -195,7 +341,7 @@ class Segment:
                     norms, live, field_stats, field_norm_idx, doc_ids,
                     sources, numeric_columns=None, ordinal_columns=None,
                     vector_columns=None, routings=None, seqnos=None,
-                    versions=None, exists_masks=None,
+                    versions=None, exists_masks=None, positions=None,
                     device="cuda") -> "Segment":
         """Build a segment from plain host arrays — the fields a store load
         hands the JAX ``Segment`` — staged later on ``device``.
@@ -203,7 +349,8 @@ class Segment:
         a field to a dict of the column's arrays (the dataclass fields);
         vectors are taken as they are (already on the bf16 grid).
         ``exists_masks`` (field -> [nd_pad] bool) are the masks a store
-        holds; without them they are derived from the columns."""
+        holds; without them they are derived from the columns.
+        ``positions`` maps a term id to ``{doc: positions}``."""
         n = len(doc_ids)
         seg = cls(
             name=name, num_docs=n, doc_ids=doc_ids, sources=sources,
@@ -231,6 +378,9 @@ class Segment:
             exists_masks=({f: np.asarray(m, bool)
                            for f, m in exists_masks.items()}
                           if exists_masks is not None else None),
+            positions={int(t): {int(d): np.asarray(p, np.int32)
+                                for d, p in per_doc.items()}
+                       for t, per_doc in (positions or {}).items()},
         )
         live = np.asarray(live, bool)
         seg.live[: min(len(live), seg.nd_pad)] = live[: seg.nd_pad]
@@ -252,7 +402,9 @@ class Segment:
 
     def delete_docs(self, locals_: np.ndarray) -> None:
         """Tombstone docs and restage every live-mask layout (live, live1,
-        and each staged tile layout) if the segment is staged."""
+        and each staged tile layout) if the segment is staged: each
+        replacement is built first and published by swapping its dict
+        entry, and the ledger records a ``delete_invalidation``."""
         if locals_.size == 0:
             return
         self.live[locals_] = False
@@ -260,6 +412,7 @@ class Segment:
         if dev is None:
             return
         with self._stage_lock:
+            t0 = _time.monotonic()
             dev["live"] = _to_device(self.live, self.device)
             dev["live1"] = _to_device(
                 np.concatenate([self.live, np.zeros(1, dtype=bool)]),
@@ -268,6 +421,13 @@ class Segment:
                 sub = (self.kernel_geom.tile_sub if key == "k_live_t"
                        else int(key.rsplit("_", 1)[1]))
                 dev[key] = self._build_live_t_device(sub)
+            # the logical change is one tombstone bit a doc; the restaged
+            # bytes are every dependent mask layout
+            memory_accountant().note_logical_change(
+                self._owner(), int(locals_.size))
+            self._account_live_masks(
+                dev, "delete_invalidation",
+                duration_ms=(_time.monotonic() - t0) * 1000.0)
 
     def terms_for_field(self, field_name: str) -> List[Tuple[str, int]]:
         """All (token, term_id) of a field, in sorted token order."""
@@ -313,6 +473,29 @@ class Segment:
     # Device staging
     # ------------------------------------------------------------------
 
+    def _owner(self) -> str:
+        return self.owner_index or "_unassigned"
+
+    def _account(self, kind: str, table: str, nbytes: int,
+                 reason: str = "initial", duration_ms: float = 0.0) -> None:
+        """Register one staged table group under the segment's scope (one
+        LRU-evictable scope for the whole segment)."""
+        if reason == "initial":
+            reason = self.stage_reason_initial
+        memory_accountant().register(
+            self._owner(), self.ledger_scope, kind, table, int(nbytes),
+            reason=reason, duration_ms=duration_ms, plane="host",
+            evict=self._evict_staging)
+
+    def _account_live_masks(self, dev: dict, reason: str,
+                            duration_ms: float = 0.0) -> None:
+        """(Re-)register every staged live-mask layout, one ledger entry
+        each."""
+        for key, t in list(dev.items()):
+            if key in ("live", "live1") or key.startswith("k_live_t"):
+                self._account(KIND_LIVE_MASK, key, tensor_bytes(t),
+                              reason=reason, duration_ms=duration_ms)
+
     def device_arrays(self) -> dict:
         """Stage postings, norms, live masks and the tile-scoring kernel's
         tables on the segment's device (cached)."""
@@ -320,14 +503,16 @@ class Segment:
         if dev is None:
             tables = self.kernel_tables()
             with self._stage_lock:
-                if self._device is None:
-                    staged = self._stage_base_arrays()
-                    staged.update(tables)
-                    self.kernel_geom = tsc.tile_geometry(self.nd_pad)
-                    staged["k_live_t"] = self._build_live_t_device(
-                        self.kernel_geom.tile_sub)
-                    self._device = staged
                 dev = self._device
+                if dev is None:
+                    # the dict this staging made: an eviction may drop
+                    # ``_device`` at once, and this caller still holds it
+                    dev = run_staged(
+                        lambda: self._stage_base_arrays(tables),
+                        index=self._owner(), kind=KIND_POSTINGS_RAW,
+                        plane="host")
+        else:
+            memory_accountant().touch(self._owner(), self.ledger_scope)
         return dev
 
     def kernel_tables(self, codec: Optional[str] = None) -> dict:
@@ -350,21 +535,40 @@ class Segment:
         if tables is None or (own and self.kernel_codec is None):
             with self._stage_lock:
                 tables = self._kernel_tables.get(codec)
-                if tables is None:
+                restaged = tables is None
+                if restaged:
                     tables = self._stage_kernel_tables(codec)
-                if own and self.kernel_codec is None:
+                if own and (restaged or self.kernel_codec is None):
                     self.kernel_postings_bytes = sum(
-                        t.numel() * t.element_size() for t in tables.values())
+                        tensor_bytes(t) for t in tables.values())
                     self.kernel_bfmax = self._kernel_bfmax[codec]
                     self.kernel_codec = codec
         return tables
 
     def _stage_kernel_tables(self, codec: str) -> dict:
-        """One codec's posting tables (caller holds ``_stage_lock``)."""
+        """One codec's posting tables (caller holds ``_stage_lock``): one
+        staging attempt, retried on a transient fault."""
+        kind = f"postings_{codec}"
+        # a mandatory reservation (the host rung scores through these
+        # tables): it may LRU-evict colder scopes, a denial never blocks it
+        memory_accountant().try_reserve(
+            self._owner(), self.block_docs.nbytes + self.block_tfs.nbytes,
+            exclude_scope=self.ledger_scope, mandatory=True)
+        return run_staged(lambda: self._stage_kernel_attempt(codec, kind),
+                          index=self._owner(), kind=kind, plane="host")
+
+    def _stage_kernel_attempt(self, codec: str, kind: str) -> dict:
+        from elasticsearch_tpu_torch.testing.disruption import (
+            on_device_staging,
+        )
+
+        t0 = _time.monotonic()
         frac = self._block_frac()
-        if self.kernel_bmin is None:
-            self.kernel_bmin, self.kernel_bmax = tsc.block_min_max(
+        bmin, bmax = self.kernel_bmin, self.kernel_bmax
+        if bmin is None:
+            bmin, bmax = tsc.block_min_max(
                 self.block_docs, self.block_tfs, self.nd_pad)
+        on_device_staging(self._owner(), kind, "k_postings")
         if codec == "packed":
             q = tsc.quantize_frac(frac)
             tables = {"k_packed": _to_device(tsc.pack_segment_blocks(
@@ -375,8 +579,18 @@ class Segment:
             tables = {"k_docs": _to_device(dp, self.device),
                       "k_frac": _to_device(fp, self.device)}
             bfmax = tsc.block_frac_max(frac)
+        # publish after every transfer landed; the bounds register with
+        # the scope's first codec
+        first_bounds = not self._kernel_tables
+        self.kernel_bmin, self.kernel_bmax = bmin, bmax
         self._kernel_bfmax[codec] = bfmax
         self._kernel_tables[codec] = tables
+        self._account(kind, f"k_postings.{codec}",
+                      sum(tensor_bytes(t) for t in tables.values()),
+                      duration_ms=(_time.monotonic() - t0) * 1000.0)
+        if first_bounds:
+            self._account(KIND_BOUND_TABLES, "k_bounds",
+                          int(bmin.nbytes + bmax.nbytes))
         return tables
 
     def kernel_bfmax_for(self, codec: str) -> np.ndarray:
@@ -390,15 +604,37 @@ class Segment:
                    for tables in list(self._kernel_tables.values())
                    for t in tables.values())
 
-    def _stage_base_arrays(self) -> dict:
+    def _stage_base_arrays(self, tables: dict) -> dict:
+        """One staging attempt of the base tables (caller holds
+        ``_stage_lock``): every transfer first, then publish and
+        register. Returns the staged dict."""
+        from elasticsearch_tpu_torch.testing.disruption import (
+            on_device_staging,
+        )
+
+        t0 = _time.monotonic()
         live1 = np.concatenate([self.live, np.zeros(1, dtype=bool)])
-        return {
+        on_device_staging(self._owner(), KIND_POSTINGS_RAW, "base_postings")
+        staged = {
             "block_docs": _to_device(self.block_docs, self.device),
             "block_tfs": _to_device(self.block_tfs, self.device),
             "norms": _to_device(self.norms, self.device),
             "live": _to_device(self.live, self.device),
             "live1": _to_device(live1, self.device),
         }
+        geom = tsc.tile_geometry(self.nd_pad)
+        on_device_staging(self._owner(), KIND_LIVE_MASK, "k_live_t")
+        staged["k_live_t"] = self._build_live_t_device(geom.tile_sub)
+        staged.update(tables)
+        self.kernel_geom = geom
+        self._device = staged
+        dur = (_time.monotonic() - t0) * 1000.0
+        self._account(KIND_POSTINGS_RAW, "base_postings",
+                      tensor_bytes(staged["block_docs"])
+                      + tensor_bytes(staged["block_tfs"]), duration_ms=dur)
+        self._account(KIND_SCALE_NORM, "norms", tensor_bytes(staged["norms"]))
+        self._account_live_masks(staged, "initial", duration_ms=dur)
+        return staged
 
     def _build_live_t_device(self, sub: int) -> torch.Tensor:
         return _to_device(tsc.build_live_t(
@@ -413,7 +649,12 @@ class Segment:
         dev = self.device_arrays()
         with self._stage_lock:
             if key not in dev:
+                t0 = _time.monotonic()
                 dev[key] = self._build_live_t_device(sub)
+                # the same mask in a new layout: a geometry change
+                self._account(KIND_LIVE_MASK, key, tensor_bytes(dev[key]),
+                              reason="geometry_change",
+                              duration_ms=(_time.monotonic() - t0) * 1000.0)
         return key
 
     def _block_frac(self) -> np.ndarray:
@@ -451,38 +692,103 @@ class Segment:
         with self._stage_lock:
             if emb_key not in dev:
                 d_pad = knn.pad_dims(col.dims)
-                emb = torch.zeros((self.nd_pad, d_pad), dtype=torch.bfloat16)
-                # the host mirror is on the bf16 grid: the cast is exact
-                emb[:, : col.dims] = torch.from_numpy(
-                    np.ascontiguousarray(col.vectors, np.float32))
-                exists1 = np.zeros(self.nd_pad + 1, bool)
-                exists1[: self.nd_pad] = col.exists
-                exists_t = _to_device(exists1, self.device)
-                # publish the embeddings last: a reader that finds them
-                # finds their mask too
-                dev[exists_key] = exists_t
-                dev[emb_key] = emb.to(self.device)
+                # a mandatory reservation: the host kNN rung reads these
+                memory_accountant().try_reserve(
+                    self._owner(), self.nd_pad * d_pad * 2,
+                    exclude_scope=self.ledger_scope, mandatory=True)
+                run_staged(lambda: self._stage_vector_attempt(
+                    dev, col, d_pad, emb_key, exists_key),
+                    index=self._owner(), kind=KIND_EMBEDDINGS, plane="host")
             if metric == "cosine" and norm_key not in dev:
-                dev[norm_key] = _to_device(
-                    knn.vector_scale_column(col.vectors, "cosine")[:, 0],
-                    self.device)
+                run_staged(lambda: self._stage_norm_attempt(
+                    dev, col, norm_key), index=self._owner(),
+                    kind=KIND_SCALE_NORM, plane="host")
         return emb_key, norm_key, exists_key, int(dev[emb_key].shape[1])
 
+    def _stage_vector_attempt(self, dev: dict, col, d_pad: int,
+                              emb_key: str, exists_key: str) -> None:
+        from elasticsearch_tpu_torch.testing.disruption import (
+            on_device_staging,
+        )
+
+        t0 = _time.monotonic()
+        emb = torch.zeros((self.nd_pad, d_pad), dtype=torch.bfloat16)
+        # the host mirror is on the bf16 grid: the cast is exact
+        emb[:, : col.dims] = torch.from_numpy(
+            np.ascontiguousarray(col.vectors, np.float32))
+        exists1 = np.zeros(self.nd_pad + 1, bool)
+        exists1[: self.nd_pad] = col.exists
+        on_device_staging(self._owner(), KIND_EMBEDDINGS, emb_key)
+        exists_t = _to_device(exists1, self.device)
+        emb_t = emb.to(self.device)
+        # publish the embeddings last: a reader that finds them finds
+        # their mask too
+        dev[exists_key] = exists_t
+        dev[emb_key] = emb_t
+        dur = (_time.monotonic() - t0) * 1000.0
+        self._account(KIND_EMBEDDINGS, emb_key, tensor_bytes(emb_t),
+                      duration_ms=dur)
+        self._account(KIND_LIVE_MASK, exists_key, tensor_bytes(exists_t),
+                      duration_ms=dur)
+
+    def _stage_norm_attempt(self, dev: dict, col, norm_key: str) -> None:
+        from elasticsearch_tpu_torch.testing.disruption import (
+            on_device_staging,
+        )
+
+        inv = knn.vector_scale_column(col.vectors, "cosine")[:, 0]
+        on_device_staging(self._owner(), KIND_SCALE_NORM, norm_key)
+        dev[norm_key] = _to_device(inv, self.device)
+        self._account(KIND_SCALE_NORM, norm_key, tensor_bytes(dev[norm_key]))
+
     def device_column(self, key: str, build) -> torch.Tensor:
-        """Cached device staging of a doc-value array (build() -> numpy)."""
-        hit = self.dev_cache.get(key)
+        """Cached device staging of a doc-value array (build() -> numpy),
+        registered as ``doc_values``."""
+        cache = self.dev_cache
+        hit = cache.get(key)
         if hit is None:
             with self._stage_lock:
-                hit = self.dev_cache.get(key)
+                hit = cache.get(key)
                 if hit is None:
-                    hit = self.dev_cache[key] = _to_device(build(), self.device)
+                    hit = run_staged(
+                        lambda: self._stage_column_attempt(cache, key, build),
+                        index=self._owner(), kind=KIND_DOC_VALUES,
+                        plane="host")
         return hit
+
+    def _stage_column_attempt(self, cache: dict, key: str,
+                              build) -> torch.Tensor:
+        from elasticsearch_tpu_torch.testing.disruption import (
+            on_device_staging,
+        )
+
+        t0 = _time.monotonic()
+        arr = build()
+        on_device_staging(self._owner(), KIND_DOC_VALUES, f"col:{key}")
+        t = cache[key] = _to_device(arr, self.device)
+        self._account(KIND_DOC_VALUES, f"col:{key}", tensor_bytes(t),
+                      duration_ms=(_time.monotonic() - t0) * 1000.0)
+        return t
+
+    def _evict_staging(self) -> None:
+        """The ledger's eviction callback (run under the accountant's
+        lock, so it takes no segment lock; plain rebinds): drop every
+        staged tensor and return the scope. The host-side facts of the
+        staging (its codec and block bounds) stay for concurrent readers.
+        An in-flight query keeps the tensors it holds until it drops them;
+        the next use restages."""
+        self._device = None
+        self._kernel_tables = {}
+        self.dev_cache = {}
+        self.kernel_postings_bytes = 0
+        memory_accountant().release_scope(self._owner(), self.ledger_scope)
 
     def release_device(self) -> None:
         """Drop every device array this segment staged (postings, norms,
-        live masks, kernel tables, doc-value and vector columns): the
-        index that owns it closed. The host arrays stay; a later search
-        would stage them again."""
+        live masks, kernel tables, doc-value and vector columns) and
+        return its ledger bytes: the index that owns it closed, or a merge
+        retired it. The host arrays stay; a later search would stage them
+        again."""
         with self._stage_lock:
             self._device = None
             self._kernel_tables = {}
@@ -491,6 +797,8 @@ class Segment:
             self.kernel_codec = None
             self.kernel_postings_bytes = 0
             self.kernel_bfmax = None
+            memory_accountant().release_scope(self._owner(),
+                                              self.ledger_scope)
 
     def memory_bytes(self) -> int:
         """Host bytes of the segment's postings, norms and doc-value
@@ -537,6 +845,13 @@ class SegmentBuilder:
         # dense_vector field -> {doc: [dims] float list}, and dims per field
         self.vector_values: Dict[str, Dict[int, list]] = {}
         self.vector_dims: Dict[str, int] = {}
+        # each token's index in its field's analyzed token list, as the JAX
+        # builder records them: flat (term key id, doc, position) columns
+        self._pos_keys: Dict[str, int] = {}
+        self._pos_tok_kid: Dict[str, Dict[str, int]] = {}
+        self._pos_kid = array("i")
+        self._pos_doc = array("i")
+        self._pos_at = array("i")
 
     @property
     def num_docs(self) -> int:
@@ -555,9 +870,17 @@ class SegmentBuilder:
             counts: Dict[str, int] = {}
             for tok in tokens:
                 counts[tok] = counts.get(tok, 0) + 1
+            tok_kid = self._pos_tok_kid.setdefault(field_name, {})
             for tok, tf in counts.items():
                 key = f"{field_name}{FIELD_SEP}{tok}"
                 self.postings.setdefault(key, []).append((doc, tf))
+                if tok not in tok_kid:
+                    tok_kid[tok] = self._pos_keys.setdefault(
+                        key, len(self._pos_keys))
+            # every token's (term, doc, position)
+            self._pos_kid.extend(map(tok_kid.__getitem__, tokens))
+            self._pos_doc.extend(itertools.repeat(doc, len(tokens)))
+            self._pos_at.extend(range(len(tokens)))
         for field_name, vals in parsed.numeric_values.items():
             self.numeric_values.setdefault(field_name, []).extend(
                 (doc, v) for v in vals)
@@ -677,6 +1000,17 @@ class SegmentBuilder:
             vector_columns[f] = VectorColumn(
                 knn.bf16_round(vecs), exists, dims, len(per_doc))
 
+        key_tid = np.zeros(max(len(self._pos_keys), 1), np.int32)
+        term_ids = {key: tid for tid, key in enumerate(term_keys)}
+        for key, kid in self._pos_keys.items():
+            key_tid[kid] = term_ids[key]
+        tids = key_tid[np.frombuffer(self._pos_kid, np.int32)]
+        pdocs = np.frombuffer(self._pos_doc, np.int32)
+        pat = np.frombuffer(self._pos_at, np.int32)
+        order = np.lexsort((pat, pdocs, tids))
+        positions = SegmentPositions.from_flat(tids[order], pdocs[order],
+                                               pat[order])
+
         return Segment(
             name=self.name,
             num_docs=nd,
@@ -698,4 +1032,5 @@ class SegmentBuilder:
             ordinal_columns=ordinal_columns,
             vector_columns=vector_columns,
             device=self.device,
+            positions=positions,
         )

@@ -54,6 +54,8 @@ class IndexShard:
         self.engine = Engine(f"{index_name}[{shard_id}]", mapper_service,
                              segment_prefix=f"{index_name}_{shard_id}_seg",
                              device=device, translog=translog, store=store)
+        # the device-memory ledger attributes the segments' stagings here
+        self.engine.index_name = index_name
         self.searcher = ShardSearcher(shard_id, self.engine, mapper_service,
                                       index_name=index_name)
         # set when the store carries a corruption marker: the query path

@@ -21,12 +21,15 @@ directory:
 
 The names, npz keys, ``meta.json`` keys and dtypes are the JAX package's,
 so a store one package wrote opens in the other for the field types both
-have. The port has no geo, geo_shape, nested, positions or ``_parent``
-data: it writes those parts empty (``"geo_fields": {}``, ``"shapes": {}``,
-``positions.json`` ``{}``), ignores ``positions.json`` on read (it serves
-no phrase query), and raises ``CorruptIndexException`` naming the field
-kind for a segment that holds any of the others, rather than drop a
-column. Loaded segments are host numpy on the engine's device and stage
+have. ``positions.json`` (``{term_id: {doc: [positions]}}``) is read into
+the segment's ``positions`` as its bytes (parsed only on first access)
+and written from them, so a segment the port writes or merges keeps the
+phrase positions the JAX package's ``match_phrase`` reads (the port
+serves no phrase query yet). The port
+has no geo, geo_shape, nested or ``_parent`` data: it writes those parts
+empty (``"geo_fields": {}``, ``"shapes": {}``) and raises
+``CorruptIndexException`` naming the field kind for a segment that holds
+any of them, rather than drop a column. Loaded segments are host numpy on the engine's device and stage
 lazily, as sealed ones do.
 """
 
@@ -47,6 +50,7 @@ from elasticsearch_tpu_torch.index.segment import (
     NumericColumn,
     OrdinalColumn,
     Segment,
+    SegmentPositions,
     VectorColumn,
 )
 
@@ -301,9 +305,18 @@ class Store:
             for i in range(n):
                 f.write(json.dumps(seg.sources[i], separators=(",", ":"))
                         + "\n")
-        with open(os.path.join(d, "positions.json"), "w",
-                  encoding="utf-8") as f:
-            json.dump({}, f)
+        # positions sidecar (phrase queries): term_id -> {doc: [pos...]}
+        with open(os.path.join(d, "positions.json"), "wb") as f:
+            positions = seg.positions
+            # json.dumps, not json.dump: one pass of the C encoder (dump
+            # runs the pure-Python one, chunk by chunk)
+            f.write(
+                positions.json_bytes()
+                if isinstance(positions, SegmentPositions) else
+                json.dumps({str(tid): {str(doc): np.asarray(pos).tolist()
+                                       for doc, pos in per_doc.items()}
+                            for tid, per_doc in positions.items()}
+                           ).encode("utf-8"))
         sums = {}
         for fn in _CHECKSUMMED:
             p = os.path.join(d, fn)
@@ -359,6 +372,9 @@ class Store:
             for f, info in (meta.get("vector_fields") or {}).items()}
         exists_masks = {k[len("exists."):]: arr(k, np.bool_)
                         for k in data.files if k.startswith("exists.")}
+        # kept as read: parsed only when something reads the positions
+        with open(os.path.join(d, "positions.json"), "rb") as f:
+            positions = SegmentPositions.from_json_bytes(f.read())
         seg = Segment(
             name=meta["name"],
             num_docs=meta["num_docs"],
@@ -373,6 +389,7 @@ class Store:
             ordinal_columns=ordinal_columns,
             vector_columns=vector_columns,
             exists_masks=exists_masks,
+            positions=positions,
             device=device,
         )
         live_path = os.path.join(d, "live.npy")

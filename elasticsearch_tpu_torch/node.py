@@ -15,6 +15,12 @@ is a vector search, beside ``query`` a hybrid one
 ``rest.http_server.HttpServer(node, port=...)`` serves the
 Elasticsearch-compatible HTTP API over it.
 
+The node configures the process-wide memory breakers
+(``indices.breaker.*``, ``node.breaker_service``: the REST in-flight
+breaker and the aggregations' request breaker read it), the device-memory
+ledger's budget (``search.memory.hbm_budget_bytes``) and the staging
+retry (``search.staging.retry.*``) from its settings at startup.
+
 ``Node()`` runs on ``cuda`` and raises without a GPU;
 ``Node(device="cpu")`` runs the kernels' plain versions and exists for
 tests.
@@ -53,7 +59,16 @@ from elasticsearch_tpu_torch.common.errors import (
     IndexNotFoundException,
     InvalidIndexNameException,
 )
-from elasticsearch_tpu_torch.common.settings import PATH_DATA, Settings
+from elasticsearch_tpu_torch.common.breaker import configure_breaker_service
+from elasticsearch_tpu_torch.common.memory import memory_accountant
+from elasticsearch_tpu_torch.common.settings import (
+    PATH_DATA,
+    SEARCH_MEMORY_HBM_BUDGET,
+    SEARCH_STAGING_RETRY_BACKOFF_MS,
+    SEARCH_STAGING_RETRY_MAX_ATTEMPTS,
+    Settings,
+)
+from elasticsearch_tpu_torch.common.staging import configure_staging_retry
 from elasticsearch_tpu_torch.common.thread_pool import ThreadPool
 from elasticsearch_tpu_torch.index.index_service import IndexService
 from elasticsearch_tpu_torch.index.seqno import check_active_shards
@@ -98,6 +113,15 @@ class Node:
         self.thread_pool = ThreadPool(overrides={
             "search": {"queue_size": settings.get_int(
                 "search.queue.size", 1000)}})
+        # the hierarchical memory breakers (indices.breaker.*): one
+        # process-wide accounting, this node's limits
+        self.breaker_service = configure_breaker_service(settings)
+        # the device staging budget: over it, stagings LRU-evict, then the
+        # mesh plane demotes to the host rung (never a 429 or a 5xx)
+        memory_accountant().set_budget(SEARCH_MEMORY_HBM_BUDGET.get(settings))
+        configure_staging_retry(
+            max_attempts=SEARCH_STAGING_RETRY_MAX_ATTEMPTS.get(settings),
+            backoff_ms=SEARCH_STAGING_RETRY_BACKOFF_MS.get(settings))
         if self.persistent_path:
             self._recover_indices_from_disk()
 

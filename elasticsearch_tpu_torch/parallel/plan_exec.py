@@ -31,13 +31,33 @@ collectives become plain reductions in slot order (``psum`` a sum,
     one ``knn_score_tiles`` launch (kernel 3) for Q query vectors,
     ``merge_knn_topk``, then one top-k over the slots' pools; the total is
     the sum of the slots' live-and-has-vector mask sums.
-- ``IndexMeshSearch`` owns the staging (rebuilt whenever the segment set
-  or a live-doc count changes) and the plane ladder: ``mesh_pallas`` (the
-  tile kernel inside the program), then ``mesh`` (scatter nodes), then
-  None (the caller's host rung). ``PlaneHealth`` benches a plane that
-  raised, as in the JAX package, with one deviation: a ``KernelError``
-  (a kernel that fails to build, load or launch) is no plane fault and
-  raises to the caller, so no rung serves in the kernel's place.
+- ``IndexMeshSearch`` owns the staging lifecycle and the plane ladder:
+  ``mesh_pallas`` (the tile kernel inside the program), then ``mesh``
+  (scatter nodes), then None (the caller's host rung). ``PlaneHealth``
+  benches a plane that raised, as in the JAX package, with one deviation:
+  a ``KernelError`` (a kernel that fails to build, load or launch) is no
+  plane fault and raises to the caller, so no rung serves in the kernel's
+  place.
+
+The staging lifecycle, as in the JAX package. A generation is staged with
+slot headroom (``index.staging.delta.enabled``: one refresh's worth of
+dead slots, up to ``index.search.mesh.max_slots_per_device``). A refresh
+that adds segments within the free slots is a delta append: the successor
+generation is built copy on write (a device-to-device gather of the old
+rows into the canonical slot order, then the new slots' rows from the new
+segments' own staged tensors), so its answers equal a rebuild's byte for
+byte, ties included; the JAX package appends at the tail of the slot
+order instead. A delete rewrites only its slots' live rows
+(``apply_tombstones``). Anything else (a merge, exhausted slots, a codec
+change) rebuilds. Every staged table registers in the device-memory ledger
+(``common/memory.py``) under the generation's scope; the rebuild is gated
+by ``search.memory.hbm_budget_bytes`` (a denial demotes with reason
+``hbm_budget``) and runs through ``common/staging.run_staged`` (a terminal
+fault benches the staging with reason ``staging_fault``; after the
+cooldown one query probes the restage while its peers serve the host
+rung). A budget eviction drops the generation; the next staging is a
+``probe``. The owner's compaction pass (``IndexService.compact_now``)
+restages a compact generation (reason ``compaction``).
 
 Postings codec: the executor resolves its codec over the stacked doc
 space (``resolve_postings_codec`` of the index's preference, the node's
@@ -64,8 +84,8 @@ The kNN plane stages no second copy of the embeddings: each slot reads
 its segment's own staged ``k_vec_*`` (and ``k_vecnorm_*`` for cosine,
 the arrays the host rung reads) with the slot's real row count, and the
 executor stages only each slot's live-and-has-vector mask in the shared
-geometry (``nd_knn = max(nd_pad, 128)``), rebuilt with the executor on
-any live-count change. As on the tile plane, a ``KernelError`` raises
+geometry (``nd_knn = max(nd_pad, 128)``), whose rows a tombstone or an
+append rewrites. As on the tile plane, a ``KernelError`` raises
 through ``query_knn_batch`` instead of benching the plane.
 
 Aggregations (``search.aggs.fused``, ``index.search.aggs.fused``): when
@@ -80,40 +100,46 @@ scores both rank and aggregate; each member's mask reduces its own specs;
 pruning never runs with aggregations). Otherwise the serial program hands
 the per-slot matched masks and scores to the host reduce, counted per
 reason in ``agg_host_fallback_by_reason``; a batch with such a member
-leaves the batched rung. Deviations from the JAX package: the memory
-accountant is not ported (no ``hbm_budget`` reason; the ``doc_values``
-columns are freed with the executor's generation and by
-``IndexService.close``), and a staging error raises instead of
-becoming a ``staging_fault`` fallback.
+leaves the batched rung. The ``doc_values`` columns register in the ledger
+under the generation's scope; a budget denial or a terminal staging fault
+demotes the aggregations to the host reduce (``hbm_budget``,
+``staging_fault``), and a delta append drops them (they restage lazily).
 
-Left for later slices: delta staging, the memory accountant, the compile
-cache and telemetry, sort / search_after / slice / rescore /
-terminate_after on the mesh, the dynamic update of the pruning and
-fused-aggregation settings (``PUT _cluster/settings``).
+Left for later slices: the compile cache and telemetry, sort /
+search_after / slice / rescore / terminate_after on the mesh, stacking a
+full rebuild on the card instead of through host numpy (a ``perf_opt``),
+and the dynamic update of the pruning, fused-aggregation, delta-staging,
+compaction, budget and retry settings (``PUT _cluster/settings``).
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import threading
 import time as _time
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from elasticsearch_tpu_torch.common.errors import ElasticsearchTpuException
+from elasticsearch_tpu_torch.common.memory import memory_accountant
 from elasticsearch_tpu_torch.common.settings import (
     INDEX_SEARCH_AGGS_FUSED,
     INDEX_SEARCH_MESH_MAX_SLOTS,
     INDEX_SEARCH_MESH_PLANE,
     INDEX_SEARCH_PLANE_QUARANTINE_COOLDOWN,
+    INDEX_STAGING_DELTA_ENABLED,
     SEARCH_AGGS_FUSED,
     SEARCH_KNN_ENABLED,
     SEARCH_KNN_TILE_SUB,
     SEARCH_PALLAS_PRUNING_ENABLED,
     SEARCH_PALLAS_PRUNING_PROBE_TILES,
 )
+from elasticsearch_tpu_torch.common.staging import StagingBail, run_staged
+from elasticsearch_tpu_torch.index.segment import tensor_bytes
 from elasticsearch_tpu_torch.ops import knn_scoring as knn
 from elasticsearch_tpu_torch.ops import tile_scoring as tsc
 from elasticsearch_tpu_torch.ops.cuda_kernels import KernelError
@@ -306,34 +332,123 @@ def stack_plans(plans: List[P.PlanNode], local_nd_pads: List[int],
     return stacked
 
 
+class _DeltaIneligible(StagingBail):
+    """A structural surprise the delta pre-check missed: the owner falls
+    back to the full rebuild (no retry, no fault accounting)."""
+
+
+# the fill of a dead (unoccupied) slot's rows in the stacked base tables;
+# block_docs takes the stacked sentinel doc
+_DEAD_FILL = {"block_tfs": 0.0, "norms": 1.0, "live1": False}
+
+
+def _stage_slot_rows(name: str, arr: np.ndarray, n_slots: int,
+                     nd_pad: int, device: torch.device) -> torch.Tensor:
+    """One stacked base table on the device with ``n_slots`` rows: the
+    occupied rows copy from the host stack, the dead rows fill on the
+    device (their bytes never cross the bus)."""
+    host = torch.from_numpy(arr)
+    if arr.shape[0] == n_slots:
+        return host.to(device)
+    out = torch.empty((n_slots,) + tuple(arr.shape[1:]), dtype=host.dtype,
+                      device=device)
+    out[: arr.shape[0]].copy_(host)
+    out[arr.shape[0]:].fill_(nd_pad if name == "block_docs"
+                             else _DEAD_FILL[name])
+    return out
+
+
+def _live_row(seg, width: int) -> np.ndarray:
+    """A segment's live mask as f32 over ``width`` docs (0 past its own)."""
+    live = np.zeros(width, np.float32)
+    live[: seg.nd_pad] = seg.live.astype(np.float32)
+    return live
+
+
+def _knn_mask_row(seg, field: str, width: int) -> np.ndarray:
+    """A slot's kNN mask row: live docs that carry the vector."""
+    row = np.zeros(width, np.float32)
+    col = seg.vector_columns.get(field)
+    if col is not None:
+        row[: seg.nd_pad] = (col.exists & seg.live).astype(np.float32)
+    return row
+
+
 class MeshPlanExecutor:
-    """Stage N sealed segments as ``[n_slots, ...]`` stacked tables on one
-    device (one slot per segment); run a query plan over every slot."""
+    """One staged generation: N sealed segments as ``[n_slots, ...]``
+    stacked tables on one device, one slot a segment in the index's
+    canonical pair order, plus ``n_slots - N`` dead slots of headroom
+    (all-zero live masks) for a later refresh to append into. Runs a query
+    plan over every occupied slot.
+
+    Each generation is one device-memory ledger scope (``mesh#N``): the
+    stacked slot tables (``mesh_slot_tables``), the kernel plane's and the
+    kNN planes' live layouts (``live_mask``) and the fused aggregations'
+    doc-value columns (``doc_values``). The posting tables and embeddings
+    the programs read are the segments' own (their scopes)."""
+
+    _SCOPE_SEQ = itertools.count(1)
 
     def __init__(self, segments: List, device: torch.device,
                  postings_codec: Optional[str] = None,
-                 postings_codec_default: Optional[str] = None):
+                 postings_codec_default: Optional[str] = None,
+                 index_name: Optional[str] = None,
+                 stage_reason: str = "initial",
+                 slots_per_dev: Optional[int] = None):
         from elasticsearch_tpu_torch.parallel.distributed import (
             stack_shard_arrays,
+        )
+        from elasticsearch_tpu_torch.testing.disruption import (
+            on_device_staging,
         )
 
         self.device = device
         self.segments = segments
+        # the ledger scope: a fresh one a generation, so releasing the old
+        # generation is exact (next() is atomic)
+        self.index_name = index_name or "_unassigned"
+        self.scope = f"mesh#{next(self._SCOPE_SEQ)}"
         # (shard_id, segment) per slot; IndexMeshSearch sets the real
         # shard ids
         self.pairs: List[Tuple[int, object]] = list(enumerate(segments))
-        self.n_slots = len(segments)
-        stacked = stack_shard_arrays(segments, self.n_slots)
+        # armed by the owner (make_evictable) only after install
+        self._evict_cb = None
+        # why this generation staged; its tables inherit it
+        self._stage_reason = stage_reason
+        # set by release(): a query still pinned to this generation may
+        # stage more lazily, and must not register under the released scope
+        self._released = False
+        self.n_dev = 1
+        # slot headroom: the owner may ask for more slots than segments
+        self.slots_per_dev = max(1, len(segments))
+        if slots_per_dev is not None:
+            self.slots_per_dev = max(self.slots_per_dev, int(slots_per_dev))
+        self.n_slots = self.slots_per_dev * self.n_dev
+        self._kernel_stage_lock = threading.Lock()
+        # the reason a staging turned away (hbm_budget / staging_fault),
+        # thread-local: each query reads its own
+        self._denied = threading.local()
+        t0 = _time.monotonic()
+        stacked = stack_shard_arrays(segments, len(segments))
         self.nd_pad = stacked.pop("nd_pad")
         self.nd1 = self.nd_pad + 1
+        # a raise here aborts the constructor with nothing registered; the
+        # owner's run_staged loop retries or classifies it
+        on_device_staging(self.index_name, "mesh_slot_tables", "seg_stacked")
+        # copy on write: every change publishes a new dict, so a query
+        # reads one snapshot of the tables from its start to its end
         self._seg_staged: Dict[str, torch.Tensor] = {
-            name: torch.from_numpy(arr).to(device)
+            name: _stage_slot_rows(name, arr, self.n_slots, self.nd_pad,
+                                   device)
             for name, arr in stacked.items()}
+        self._account("mesh_slot_tables", "seg_stacked",
+                      sum(tensor_bytes(t) for t in self._seg_staged.values()),
+                      duration_ms=(_time.monotonic() - t0) * 1000.0)
         # lazily staged tile-kernel plane (ensure_kernel): None = not yet,
         # dict = {geom, meta: {id(seg): (bmin, bmax, bfmax)}, codec}
         self._kernel: Optional[dict] = None
-        # per slot {k_docs, k_frac} or {k_packed}: the segment's own
-        # posting tables in the executor's codec
+        # per occupied slot {k_docs, k_frac} or {k_packed}: the segment's
+        # own posting tables in the executor's codec
         self._kernel_tables: List[dict] = []
         # the index's codec preference and the node default behind it;
         # postings_codec is the codec resolved at the kernel staging
@@ -345,21 +460,59 @@ class MeshPlanExecutor:
         # lazily staged kNN planes (ensure_knn): field -> session dict, or
         # False when the field cannot run here for this segment set
         self._knn: Dict[str, object] = {}
-        self.kernel_denied_reason: Optional[str] = None
-        self._kernel_stage_lock = threading.Lock()
         # fused-aggregation eligibility facts of this generation's columns
         self._agg_field_checks: Dict = {}
 
-    def staged_bytes(self) -> int:
-        """Bytes the executor itself stages (the segments' own arrays are
-        not counted)."""
-        tensors = list(self._seg_staged.values()) + [
-            e["mask"] for e in self._knn.values() if isinstance(e, dict)]
-        return sum(t.numel() * t.element_size() for t in tensors)
+    @property
+    def kernel_denied_reason(self) -> Optional[str]:
+        return getattr(self._denied, "reason", None)
 
-    def release(self) -> None:
-        """Drop everything the executor staged (the stacked tables, the
-        kernel plane's live layouts and slot tables, the kNN masks)."""
+    @kernel_denied_reason.setter
+    def kernel_denied_reason(self, value: Optional[str]) -> None:
+        self._denied.reason = value
+
+    @property
+    def n_occupied(self) -> int:
+        """Occupied slots (rows 0..n_occupied-1); the rest are dead."""
+        return len(self.segments)
+
+    # ------------------------------------------------------------------
+    # Device-memory accounting
+    # ------------------------------------------------------------------
+
+    def make_evictable(self, evict) -> None:
+        """Arm the budget's eviction callback, called by the owner after
+        this generation is installed as current: armed during
+        construction, another thread's reservation could evict this scope
+        while the owner still points at the previous generation."""
+        self._evict_cb = evict
+        memory_accountant().set_evict(self.index_name, self.scope, evict)
+
+    def _account(self, kind: str, table: str, nbytes: int,
+                 reason: Optional[str] = None, duration_ms: float = 0.0,
+                 amplify_bytes: Optional[int] = None) -> None:
+        if self._released:
+            # a query pinned to a replaced generation may stage more while
+            # it finishes; registering would resurrect the released scope
+            # (its tensors free with the query's references)
+            return
+        memory_accountant().register(
+            self.index_name, self.scope, kind, table, int(nbytes),
+            reason=reason or self._stage_reason, duration_ms=duration_ms,
+            plane="mesh", evict=self._evict_cb,
+            amplify_bytes=amplify_bytes)
+
+    def release(self) -> int:
+        """This generation is replaced or dropped: return its ledger bytes
+        at once. The tensors free when the last query holding them drops
+        its references."""
+        self._released = True
+        return memory_accountant().release_scope(self.index_name, self.scope)
+
+    def drop(self) -> None:
+        """Release the ledger bytes and drop every tensor reference (the
+        index closed: nothing serves from this generation again)."""
+        self.release()
         with self._kernel_stage_lock:
             self._seg_staged = {}
             self._kernel = None
@@ -370,79 +523,455 @@ class MeshPlanExecutor:
             self.segments = []
             self.pairs = []
 
-    def stage_doc_value_columns(self, builds: Dict[str, object]) -> None:
+    def touch(self) -> None:
+        memory_accountant().touch(self.index_name, self.scope)
+
+    def staged_bytes(self) -> int:
+        """Bytes the executor itself stages (the segments' own tables are
+        not counted)."""
+        tensors = list(self._seg_staged.values()) + [
+            e["mask"] for e in self._knn.values() if isinstance(e, dict)]
+        return sum(tensor_bytes(t) for t in tensors)
+
+    # ------------------------------------------------------------------
+    # Delta staging: append into free slots, tombstone in place
+    # ------------------------------------------------------------------
+
+    def free_slots(self) -> int:
+        """Unoccupied slots in this generation (the append headroom)."""
+        return self.n_slots - len(self.segments)
+
+    @staticmethod
+    def delta_append_compatible(old: "MeshPlanExecutor",
+                                new_segments: List) -> bool:
+        """Can ``new_segments`` append into ``old``'s free slots without a
+        geometry rebuild? False when the slots are exhausted or a new
+        segment exceeds the stacked shapes (doc space, posting blocks,
+        norm rows); a codec change is the owner's check."""
+        if old._released:
+            return False
+        if len(old.segments) + len(new_segments) > old.n_slots:
+            return False  # slots exhausted
+        bd = old._seg_staged.get("block_docs")
+        nm = old._seg_staged.get("norms")
+        if bd is None or nm is None:
+            return False
+        n_blocks, blk = int(bd.shape[1]), int(bd.shape[2])
+        n_norm = int(nm.shape[1])
+        for seg in new_segments:
+            if (seg.nd_pad > old.nd_pad
+                    or seg.block_docs.shape[0] > n_blocks
+                    or seg.block_docs.shape[1] != blk
+                    or seg.norms.shape[0] > n_norm):
+                return False  # tile-geometry mismatch
+        return True
+
+    @staticmethod
+    def stage_delta_segments(old: "MeshPlanExecutor",
+                             new_segments: List) -> None:
+        """Stage the appended segments' own tensors (base tables, kernel
+        tables in the generation's codec, the staged kNN fields'
+        embeddings) in their own scopes and retry loops, before the
+        append's transactional attempt reads them."""
+        kernel = old._kernel if isinstance(old._kernel, dict) else None
+        for seg in new_segments:
+            seg.device_arrays()
+            if kernel is not None:
+                seg.kernel_bfmax_for(kernel["codec"])
+            for field, entry in old._knn.items():
+                if isinstance(entry, dict) and field in seg.vector_columns:
+                    seg.ensure_vector_staged(field, entry["metric"])
+
+    @classmethod
+    def delta_append(cls, old: "MeshPlanExecutor", pairs: List,
+                     changed: frozenset = frozenset()
+                     ) -> "MeshPlanExecutor":
+        """The successor generation of an incremental refresh, copy on
+        write. ``pairs``: the new segment set in canonical order (the
+        order a rebuild stages); ``changed``: the (shard, id(segment)) of
+        already staged segments whose live masks changed (deletes riding
+        along).
+
+        Each stacked table of the successor is a new tensor: one
+        device-to-device gather of ``old``'s rows into the canonical order
+        (new segments take a dead row), then the new slots' rows written
+        on the device from the new segments' own staged tensors, and the
+        live rows of new and tombstoned slots from their host masks. Old
+        queries keep reading ``old``'s intact tensors, and the successor
+        merges its slots in a rebuild's order, so its answers equal a
+        rebuild's byte for byte, ties included. The derived doc-value
+        columns are dropped and restage lazily.
+
+        One transactional attempt inside the owner's run_staged loop:
+        nothing publishes or registers until every tensor is built. The
+        delta rows' bytes feed the amplification counters (reason
+        ``delta_append``); the successor scope registers its tables' full
+        bytes. Raises ``_DeltaIneligible`` on a structural surprise."""
+        from elasticsearch_tpu_torch.testing.disruption import (
+            on_device_staging,
+        )
+
+        old_row = {(sid, id(seg)): i for i, (sid, seg) in enumerate(old.pairs)}
+        new_segs = [seg for sid, seg in pairs if (sid, id(seg)) not in old_row]
+        if not new_segs or not cls.delta_append_compatible(old, new_segs):
+            raise _DeltaIneligible("segment set cannot delta-append")
+        self = cls.__new__(cls)
+        self.device = dev = old.device
+        self.index_name = old.index_name
+        self.scope = f"mesh#{next(cls._SCOPE_SEQ)}"
+        self.pairs = list(pairs)
+        self.segments = [seg for _sid, seg in pairs]
+        self._evict_cb = None
+        # lazy stagings after install are refresh restages; the delta rows
+        # below register as delta_append
+        self._stage_reason = "refresh"
+        self._released = False
+        self.n_dev = old.n_dev
+        self.slots_per_dev = old.slots_per_dev
+        self.n_slots = old.n_slots
+        self.nd_pad = nd_pad = old.nd_pad
+        self.nd1 = old.nd1
+        self._kernel_stage_lock = threading.Lock()
+        self._denied = threading.local()
+        self.postings_codec_pref = old.postings_codec_pref
+        self.postings_codec_default = old.postings_codec_default
+        self.postings_codec = old.postings_codec
+        self._ub_cache = dict(old._ub_cache)  # keyed by segment
+        self._agg_field_checks = {}
+        self._kernel = None
+        self._kernel_tables = []
+        self._knn = {}
+
+        t0 = _time.monotonic()
+        dead = len(old.segments)  # an unoccupied row of ``old``
+        src = [old_row.get((sid, id(seg)), dead) for sid, seg in pairs]
+        src += [dead] * (self.n_slots - len(pairs))
+        new_rows = [r for r, (sid, seg) in enumerate(pairs)
+                    if (sid, id(seg)) not in old_row]
+        live_rows = sorted(set(new_rows) | {
+            r for r, (sid, seg) in enumerate(pairs)
+            if (sid, id(seg)) in changed})
+        idx = torch.tensor(src, dtype=torch.long, device=dev)
+        base = old._seg_staged
+        kernel = old._kernel if isinstance(old._kernel, dict) else None
+
+        # a raise here aborts the attempt with nothing registered and the
+        # old generation intact
+        on_device_staging(self.index_name, "mesh_slot_tables", "delta_append")
+
+        # --- base slot tables: gather, then the delta rows on the device
+        staged = {name: base[name].index_select(0, idx)
+                  for name in ("block_docs", "block_tfs", "norms", "live1")}
+        amp_base = 0
+        for r in new_rows:
+            seg = self.segments[r]
+            sdev = seg.device_arrays()
+            bd = sdev["block_docs"]
+            nb = int(bd.shape[0])
+            # the gathered dead row holds the sentinel, 0 and 1 fills; the
+            # segment's own sentinel doc re-points to the stacked one
+            staged["block_docs"][r, :nb] = bd.masked_fill(bd == seg.nd_pad,
+                                                          nd_pad)
+            staged["block_tfs"][r, :nb] = sdev["block_tfs"]
+            nm = sdev["norms"]
+            staged["norms"][r, : nm.shape[0], : seg.nd_pad] = nm[:, :-1]
+            amp_base += sum(tensor_bytes(staged[k][r])
+                            for k in ("block_docs", "block_tfs", "norms"))
+        for r in live_rows:
+            seg = self.segments[r]
+            row = np.zeros(self.nd1, bool)
+            row[: seg.live.shape[0]] = seg.live
+            staged["live1"][r].copy_(torch.from_numpy(row))
+            amp_base += tensor_bytes(staged["live1"][r])
+
+        # --- kernel plane: the new slots' own tables, live layout rows
+        live_t_amp: Dict[str, int] = {}
+        if kernel is not None:
+            geom, codec = kernel["geom"], kernel["codec"]
+            meta = dict(kernel["meta"])
+            tables = []
+            for sid, seg in pairs:
+                i = old_row.get((sid, id(seg)))
+                if i is not None:
+                    tables.append(old._kernel_tables[i])
+                    continue
+                tables.append(seg.kernel_tables(codec))
+                meta[id(seg)] = (seg.kernel_bmin, seg.kernel_bmax,
+                                 seg.kernel_bfmax_for(codec))
+            for key in [k for k in base if k.startswith("k_live_t")]:
+                g = (geom if key == "k_live_t" else tsc.tile_geometry(
+                    geom.nd_pad, int(key.rsplit("_", 1)[1])))
+                lt = base[key].index_select(0, idx)
+                for r in live_rows:
+                    lt[r].copy_(torch.from_numpy(tsc.build_live_t(
+                        _live_row(self.segments[r], g.nd_pad), g)))
+                staged[key] = lt
+                live_t_amp[key] = len(live_rows) * tensor_bytes(lt[0])
+
+        # --- kNN planes: the new slots' own embeddings, mask rows
+        knn_new: Dict[str, dict] = {}
+        knn_amp: Dict[str, int] = {}
+        for field, entry in old._knn.items():
+            if not isinstance(entry, dict):
+                continue  # re-evaluated lazily for the new segment set
+            dims = entry["dims"]
+            if any(field in seg.vector_columns
+                   and seg.vector_columns[field].dims != dims
+                   for seg in new_segs):
+                continue  # a dims surprise: the lazy staging decides
+            slots = []
+            for sid, seg in pairs:
+                i = old_row.get((sid, id(seg)))
+                if i is not None:
+                    slots.append(entry["slots"][i])
+                    continue
+                if field not in seg.vector_columns:
+                    slots.append(None)  # the slot stays dead
+                    continue
+                emb_key, norm_key, _ex, _d = seg.ensure_vector_staged(
+                    field, entry["metric"])
+                sdev = seg.device_arrays()
+                slots.append({
+                    "emb": sdev[emb_key],
+                    "scale": (sdev[norm_key] if entry["metric"] == "cosine"
+                              else None),
+                    "n_rows": seg.nd_pad})
+            mask = entry["mask"].index_select(0, idx)
+            for r in live_rows:
+                mask[r].copy_(torch.from_numpy(_knn_mask_row(
+                    self.segments[r], field, entry["nd_pad"])))
+            knn_new[field] = dict(entry, mask=mask, slots=slots)
+            knn_amp[field] = len(live_rows) * tensor_bytes(mask[0])
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+        # --- commit: publish, then register
+        self._seg_staged = staged
+        self._knn = knn_new
+        if kernel is not None:
+            self._kernel_tables = tables
+            self._kernel = {"geom": kernel["geom"], "meta": meta,
+                            "codec": kernel["codec"]}
+        dur = (_time.monotonic() - t0) * 1000.0
+        self._account("mesh_slot_tables", "seg_stacked",
+                      sum(tensor_bytes(staged[k]) for k in
+                          ("block_docs", "block_tfs", "norms", "live1")),
+                      reason="delta_append", amplify_bytes=amp_base,
+                      duration_ms=dur)
+        for key, amp in live_t_amp.items():
+            self._account("live_mask", key, tensor_bytes(staged[key]),
+                          reason="delta_append", amplify_bytes=amp,
+                          duration_ms=dur)
+        for field, entry in knn_new.items():
+            self._account("live_mask", f"knn_mask:{field}",
+                          tensor_bytes(entry["mask"]), reason="delta_append",
+                          amplify_bytes=knn_amp[field], duration_ms=dur)
+        return self
+
+    def apply_tombstones(self, slots: List[int]) -> int:
+        """Tombstone deletes: rebuild only the given slots' live rows (the
+        stacked ``live1``, which the serial program and the fused
+        aggregations' masks read, every staged kernel live layout, and
+        each staged kNN field's exists-and-live mask) and publish them on
+        this generation by swapping each table's dict entry for a copy
+        holding the new rows (one reference assignment: a kernel already
+        queued on the old tensor reads it intact). The same ledger keys
+        re-register at their unchanged full bytes, with the changed rows'
+        bytes as the amplification (reason ``tombstone``).
+
+        One transactional attempt inside the owner's run_staged loop: a
+        fault leaves the old masks serving and the ledger as it was.
+        Returns the row bytes restaged."""
+        from elasticsearch_tpu_torch.testing.disruption import (
+            on_device_staging,
+        )
+
+        with self._kernel_stage_lock:
+            if self._released or not slots:
+                return 0
+            t0 = _time.monotonic()
+            slots = sorted(slots)
+            on_device_staging(self.index_name, "live_mask", "tombstone_masks")
+            lv = self._seg_staged["live1"].clone()
+            for r in slots:
+                seg = self.segments[r]
+                row = np.zeros(self.nd1, bool)
+                row[: seg.live.shape[0]] = seg.live
+                lv[r].copy_(torch.from_numpy(row))
+            updates = {"live1": lv}
+            amp = {"live1": len(slots) * tensor_bytes(lv[0])}
+            if isinstance(self._kernel, dict):
+                geom = self._kernel["geom"]
+                for key in [k for k in self._seg_staged
+                            if k.startswith("k_live_t")]:
+                    g = (geom if key == "k_live_t" else tsc.tile_geometry(
+                        geom.nd_pad, int(key.rsplit("_", 1)[1])))
+                    lt = self._seg_staged[key].clone()
+                    for r in slots:
+                        lt[r].copy_(torch.from_numpy(tsc.build_live_t(
+                            _live_row(self.segments[r], g.nd_pad), g)))
+                    updates[key] = lt
+                    amp[key] = len(slots) * tensor_bytes(lt[0])
+            knn_updates: Dict[str, dict] = {}
+            for field, entry in self._knn.items():
+                if not isinstance(entry, dict):
+                    continue
+                mask = entry["mask"].clone()
+                for r in slots:
+                    mask[r].copy_(torch.from_numpy(_knn_mask_row(
+                        self.segments[r], field, entry["nd_pad"])))
+                knn_updates[field] = dict(entry, mask=mask)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            knn_amp = {f: len(slots) * tensor_bytes(e["mask"][0])
+                       for f, e in knn_updates.items()}
+            restaged = sum(amp.values()) + sum(knn_amp.values())
+            # commit: publish every replacement in one assignment a dict
+            # (a running query holds the dict it read at its start, so
+            # it never mixes old and new masks), then re-register
+            self._seg_staged = {**self._seg_staged, **updates}
+            self._knn = {**self._knn, **knn_updates}
+            dur = (_time.monotonic() - t0) * 1000.0
+            self._account(
+                "mesh_slot_tables", "seg_stacked",
+                sum(tensor_bytes(self._seg_staged[k]) for k in
+                    ("block_docs", "block_tfs", "norms", "live1")),
+                reason="tombstone", amplify_bytes=amp.pop("live1"),
+                duration_ms=dur)
+            for key, a in amp.items():
+                self._account("live_mask", key,
+                              tensor_bytes(self._seg_staged[key]),
+                              reason="tombstone", amplify_bytes=a,
+                              duration_ms=dur)
+            for field, entry in knn_updates.items():
+                self._account("live_mask", f"knn_mask:{field}",
+                              tensor_bytes(entry["mask"]),
+                              reason="tombstone",
+                              amplify_bytes=knn_amp[field], duration_ms=dur)
+            return restaged
+
+    # ------------------------------------------------------------------
+    # Lazily staged planes: doc values, the tile kernel, kNN
+    # ------------------------------------------------------------------
+
+    def stage_doc_value_columns(self, builds: Dict[str, object]) -> bool:
         """Stage fused-aggregation doc-value columns: ``builds`` maps a
         table name to a callable giving ``{name: np.ndarray}`` groups of
-        per-slot columns ([n_slots, nd1, ...]). Register then commit:
-        every array is built and transferred first, and the columns
-        publish together only after every transfer landed, so a fault
-        leaves nothing behind (and raises). They live as long as this
-        executor's generation."""
+        per-slot columns ([n_occupied, nd1, ...]). Budget-gated (a denial
+        returns False: the caller demotes the aggregations to the host
+        reduce with reason ``hbm_budget``) and transactional: every array
+        is built and transferred first, and the columns publish and
+        register (kind ``doc_values``) together only after every transfer
+        landed, so a fault leaves nothing behind. A transient fault
+        retries; a terminal one raises (the caller's ``staging_fault``).
+        They live as long as this generation."""
+        from elasticsearch_tpu_torch.testing.disruption import (
+            on_device_staging,
+        )
+
         with self._kernel_stage_lock:
             arrays: Dict[str, np.ndarray] = {}
             for fn in builds.values():
                 for name, arr in fn().items():
                     if name not in self._seg_staged:
                         arrays[name] = arr
-            staged = {name: torch.from_numpy(np.ascontiguousarray(a)).to(
-                self.device) for name, a in arrays.items()}
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self._seg_staged.update(staged)
+            if not arrays:
+                return True
+            if not memory_accountant().try_reserve(
+                    self.index_name,
+                    sum(int(a.nbytes) for a in arrays.values()),
+                    exclude_scope=self.scope):
+                return False
+
+            def attempt():
+                t0 = _time.monotonic()
+                on_device_staging(self.index_name, "doc_values",
+                                  "agg_columns")
+                staged = {name: torch.from_numpy(np.ascontiguousarray(a)).to(
+                    self.device) for name, a in arrays.items()}
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                self._seg_staged = {**self._seg_staged, **staged}
+                dur = (_time.monotonic() - t0) * 1000.0
+                for name, t in staged.items():
+                    self._account("doc_values", name, tensor_bytes(t),
+                                  duration_ms=dur)
+
+            run_staged(attempt, index=self.index_name, kind="doc_values",
+                       plane="mesh")
+        return True
 
     def ensure_kernel(self) -> Optional[dict]:
         """Stage the tile-kernel plane over the stacked segment set: one
         shared tile geometry covering the stacked doc space, the codec
         resolved over it, and the per-slot live masks in its tile layout.
         Each slot's posting tables are its segment's own in that codec
-        (``Segment.kernel_tables(codec)``): every row window is
-        segment-local and the kernel skips the zero-``frac`` padding
-        postings, so no stacked copy of them is needed. Returns
-        the kernel session, or None with ``kernel_denied_reason =
-        "staging_fault"`` when the staging raised (the caller quarantines
-        the plane)."""
+        (``Segment.kernel_tables(codec)``, staged in the segment's scope):
+        every row window is segment-local and the kernel skips the
+        zero-``frac`` padding postings, so no stacked copy of them is
+        needed. Returns the kernel session, or None with
+        ``kernel_denied_reason`` "hbm_budget" (the budget turned it away)
+        or "staging_fault" (a terminal staging fault: the caller
+        quarantines the plane). A ``KernelError`` raises."""
         self.kernel_denied_reason = None
         if self._kernel is None:
             with self._kernel_stage_lock:
                 if self._kernel is None:
+                    geom = tsc.tile_geometry(max(self.nd_pad, tsc.LANE))
+                    # every slot's doc ids must fit the packed word's bits
+                    codec = tsc.resolve_postings_codec(
+                        self.postings_codec_pref, geom.nd_pad,
+                        self.postings_codec_default)
+                    estimate = (self.n_slots * geom.n_tiles * tsc.LANE
+                                * geom.tile_sub * 4)
+                    if not memory_accountant().try_reserve(
+                            self.index_name, estimate,
+                            exclude_scope=self.scope):
+                        self.kernel_denied_reason = "hbm_budget"
+                        return None
                     try:
-                        self._stage_kernel_plane()
-                    except Exception:  # noqa: BLE001 — staging fault:
-                        # the ladder's next rung serves, visibly
+                        tables = [seg.kernel_tables(codec)
+                                  for seg in self.segments]
+                        run_staged(lambda: self._stage_kernel_plane(
+                            geom, codec, tables), index=self.index_name,
+                            kind="live_mask", plane="mesh")
+                    except KernelError:
+                        raise
+                    except Exception:  # noqa: BLE001 — a terminal
+                        # staging fault: the ladder's next rung serves
                         _plane_logger.warning(
-                            "mesh kernel staging failed; plane demotes "
-                            "with reason staging_fault", exc_info=True)
+                            "[%s] mesh kernel staging failed; plane demotes "
+                            "with reason staging_fault", self.index_name,
+                            exc_info=True)
                         self.kernel_denied_reason = "staging_fault"
                         return None
         return self._kernel
 
-    def _stage_kernel_plane(self) -> None:
-        geom = tsc.tile_geometry(max(self.nd_pad, tsc.LANE))
-        # every slot's doc ids must fit the packed word's doc bits
-        codec = tsc.resolve_postings_codec(
-            self.postings_codec_pref, geom.nd_pad,
-            self.postings_codec_default)
+    def _stage_kernel_plane(self, geom, codec: str,
+                            tables: List[dict]) -> None:
+        """One staging attempt of the kernel plane's live layout; commits
+        only a complete plane."""
+        from elasticsearch_tpu_torch.testing.disruption import (
+            on_device_staging,
+        )
+
+        t0 = _time.monotonic()
         live_t = np.zeros(
             (self.n_slots, geom.n_tiles * tsc.LANE, geom.tile_sub),
             np.float32)
-        tables, meta = [], {}
+        meta = {}
         for i, seg in enumerate(self.segments):
-            tables.append(seg.kernel_tables(codec))
-            live_t[i] = tsc.build_live_t(self._live(seg, geom.nd_pad), geom)
+            live_t[i] = tsc.build_live_t(_live_row(seg, geom.nd_pad), geom)
             meta[id(seg)] = (seg.kernel_bmin, seg.kernel_bmax,
                              seg.kernel_bfmax_for(codec))
-        # commit only a complete plane
-        self._seg_staged["k_live_t"] = torch.from_numpy(live_t).to(
-            self.device)
+        on_device_staging(self.index_name, "live_mask", "k_live_t")
+        live_dev = torch.from_numpy(live_t).to(self.device)
+        self._seg_staged = {**self._seg_staged, "k_live_t": live_dev}
         self._kernel_tables = tables
         self.postings_codec = codec
         self._kernel = {"geom": geom, "meta": meta, "codec": codec}
-
-    @staticmethod
-    def _live(seg, nd_pad: int) -> np.ndarray:
-        live = np.zeros(nd_pad, np.float32)
-        live[: seg.nd_pad] = seg.live.astype(np.float32)
-        return live
+        self._account("live_mask", "k_live_t", tensor_bytes(live_dev),
+                      duration_ms=(_time.monotonic() - t0) * 1000.0)
 
     def ensure_kernel_live(self, sub: int) -> str:
         """Per-sub live-mask layout for a shrunk tile geometry (the
@@ -456,21 +985,23 @@ class MeshPlanExecutor:
                     np.float32)
                 for i, seg in enumerate(self.segments):
                     live_t[i] = tsc.build_live_t(
-                        self._live(seg, geom.nd_pad), geom)
-                self._seg_staged[key] = torch.from_numpy(live_t).to(
-                    self.device)
+                        _live_row(seg, geom.nd_pad), geom)
+                t = torch.from_numpy(live_t).to(self.device)
+                self._seg_staged = {**self._seg_staged, key: t}
+                # the same masks in a new layout: a geometry change
+                self._account("live_mask", key, tensor_bytes(t),
+                              reason="geometry_change")
         return key
 
     def ensure_knn(self, field: str, dims: int,
                    metric: str) -> Optional[dict]:
         """Stage a dense_vector field's kNN plane over the segment set: the
         per-slot live-and-has-vector masks [n_slots, nd_knn] in one shared
-        geometry, and per slot the segment's own staged embeddings (and
-        inverse norms for cosine) with its row count. Deletes reach the
-        masks through IndexMeshSearch, which rebuilds the executor on any
-        live-count change. Returns the session dict, or None (with
-        ``kernel_denied_reason = "staging_fault"`` when the staging
-        raised)."""
+        geometry (kind ``live_mask``), and per slot the segment's own
+        staged embeddings (and inverse norms for cosine) with its row
+        count. Deletes reach the masks through ``apply_tombstones``.
+        Returns the session dict, or None (with ``kernel_denied_reason``
+        "hbm_budget" or "staging_fault")."""
         self.kernel_denied_reason = None
         entry = self._knn.get(field)
         if entry is False:
@@ -481,15 +1012,28 @@ class MeshPlanExecutor:
                 if entry is False:
                     return None
                 if entry is None:
+                    nd_knn = max(self.nd_pad, knn.LANE)
+                    if not memory_accountant().try_reserve(
+                            self.index_name, self.n_slots * nd_knn * 4,
+                            exclude_scope=self.scope):
+                        self.kernel_denied_reason = "hbm_budget"
+                        return None
                     try:
-                        entry = self._stage_knn_plane(field, dims, metric)
+                        slots = self._knn_slots(field, dims, metric)
+                        entry = run_staged(
+                            lambda: self._stage_knn_mask(
+                                field, dims, metric, slots, nd_knn),
+                            index=self.index_name, kind="live_mask",
+                            plane="mesh")
                     except _KnnStructuralError:
                         # mapping-shaped, permanent for this segment set:
                         # the host rung serves quietly
                         self._knn[field] = False
                         return None
+                    except KernelError:
+                        raise
                     except Exception:  # noqa: BLE001 — staging fault:
-                        # demote; the next executor restages
+                        # demote; the probe restages
                         _plane_logger.warning(
                             "mesh kNN staging failed for [%s]; plane "
                             "demotes with reason staging_fault", field,
@@ -497,14 +1041,15 @@ class MeshPlanExecutor:
                         self.kernel_denied_reason = "staging_fault"
                         return None
                     self._knn[field] = entry
+                    self._account("live_mask", f"knn_mask:{field}",
+                                  tensor_bytes(entry["mask"]))
         return entry
 
-    def _stage_knn_plane(self, field: str, dims: int, metric: str) -> dict:
-        d_pad = knn.pad_dims(dims)
-        nd_knn = max(self.nd_pad, knn.LANE)
-        mask = np.zeros((self.n_slots, nd_knn), np.float32)
+    def _knn_slots(self, field: str, dims: int, metric: str) -> list:
+        """Per occupied slot the segment's own staged embeddings (staged in
+        the segment's scope), or None for a slot without the field."""
         slots: List[Optional[dict]] = []
-        for i, seg in enumerate(self.segments):
+        for seg in self.segments:
             col = seg.vector_columns.get(field)
             if col is None:
                 slots.append(None)  # the slot stays dead (mask all zero)
@@ -513,19 +1058,30 @@ class MeshPlanExecutor:
                 raise _KnnStructuralError(
                     f"segment [{seg.name}] stores [{field}] at "
                     f"dims={col.dims}, mapping says {dims}")
-            keys = seg.ensure_vector_staged(field, metric)
+            emb_key, norm_key, _exists_key, _d = seg.ensure_vector_staged(
+                field, metric)
             dev = seg.device_arrays()
-            emb_key, norm_key, _exists_key, _d = keys
             slots.append({
                 "emb": dev[emb_key],
                 "scale": dev[norm_key] if metric == "cosine" else None,
                 "n_rows": seg.nd_pad})
-            mask[i, : seg.nd_pad] = (col.exists & seg.live).astype(
-                np.float32)
-        # commit only a complete plane
+        return slots
+
+    def _stage_knn_mask(self, field: str, dims: int, metric: str,
+                        slots: list, nd_knn: int) -> dict:
+        """One staging attempt of a kNN plane's mask; commits only a
+        complete plane."""
+        from elasticsearch_tpu_torch.testing.disruption import (
+            on_device_staging,
+        )
+
+        mask = np.zeros((self.n_slots, nd_knn), np.float32)
+        for i, seg in enumerate(self.segments):
+            mask[i] = _knn_mask_row(seg, field, nd_knn)
+        on_device_staging(self.index_name, "live_mask", f"knn_mask:{field}")
         return {"mask": torch.from_numpy(mask).to(self.device),
-                "slots": slots, "d_pad": d_pad, "nd_pad": nd_knn,
-                "metric": metric, "dims": dims}
+                "slots": slots, "d_pad": knn.pad_dims(dims),
+                "nd_pad": nd_knn, "metric": metric, "dims": dims}
 
     def execute_knn(self, session: dict, qmat: torch.Tensor, *, kk: int,
                     sub: int):
@@ -641,8 +1197,14 @@ class MeshPlanExecutor:
             ub[:, j] = col
         return ub
 
-    def _slot(self, i: int) -> dict:
-        slot = {name: a[i] for name, a in self._seg_staged.items()}
+    def _slot(self, i: int,
+              staged: Optional[Dict[str, torch.Tensor]] = None) -> dict:
+        """Slot i's tables: its rows of ``staged`` (a query's snapshot of
+        the stacked tables; the live one by default) and its segment's
+        kernel tables."""
+        if staged is None:
+            staged = self._seg_staged
+        slot = {name: a[i] for name, a in staged.items()}
         if self._kernel_tables:
             slot.update(self._kernel_tables[i])
         return slot
@@ -660,18 +1222,24 @@ class MeshPlanExecutor:
         ...]) with ``agg_static``."""
         if len(plans) != len(self.segments):
             raise ValueError("one plan per staged slot required")
+        # one snapshot of the stacked tables for the whole query: a
+        # tombstone update publishes a new dict, never into this one
+        staged = self._seg_staged
+        n_occ = self.n_occupied
         local_pads = [s.nd_pad for s in self.segments]
-        stacked = stack_plans(plans, local_pads, self.nd1, self.n_slots,
+        stacked = stack_plans(plans, local_pads, self.nd1, n_occ,
                               self.device)
         stacked_pf = (stack_plans(pf_plans, local_pads, self.nd1,
-                                  self.n_slots, self.device)
+                                  n_occ, self.device)
                       if pf_plans else [])
         template = plans[0]
         cand_keys, cand_docs, cand_scores, cand_slot, counts = \
             [], [], [], [], []
         views_m, views_s = [], []
-        for i in range(self.n_slots):
-            seg = self._slot(i)
+        # occupied slots only: a dead slot launches nothing and gives no
+        # candidate
+        for i in range(n_occ):
+            seg = self._slot(i, staged)
             scores, matched = P.execute(seg, template,
                                         [a[i] for a in stacked])
             if min_score is not None:
@@ -708,7 +1276,7 @@ class MeshPlanExecutor:
                 emit_agg_partials,
             )
 
-            out["aggs"] = emit_agg_partials(agg_static, self._seg_staged,
+            out["aggs"] = emit_agg_partials(agg_static, staged,
                                             torch.stack(views_m))
         return out
 
@@ -725,7 +1293,7 @@ class MeshPlanExecutor:
         w_t = torch.from_numpy(w_all).to(self.device)
         live = self._seg_staged[live_key]
         outs = []
-        for i in range(self.n_slots):
+        for i in range(self.n_occupied):
             outs.append(tsc.score_tiles(
                 *self._corpus(i), live[i], rl_t[i], rh_t[i], w_t[i],
                 t_pad=t_pad, cb=cb, sub=sub, k=kk, dense=False,
@@ -755,11 +1323,12 @@ class MeshPlanExecutor:
         rl_t = torch.from_numpy(rl).to(dev)
         rh_t = torch.from_numpy(rh).to(dev)
         w_t = torch.from_numpy(w_all).to(dev)
-        live = self._seg_staged[live_key]
+        staged = self._seg_staged
+        live = staged[live_key]
         nd = self.nd1 - 1
         cand_s, cand_d, cand_slot, matched_all = [], [], [], []
         total = None
-        for i in range(self.n_slots):
+        for i in range(self.n_occupied):
             (dense,) = tsc.score_tiles(
                 *self._corpus(i), live[i], rl_t[i], rh_t[i], w_t[i],
                 t_pad=t_pad, cb=cb, sub=sub, dense=True, q_batch=q_pad,
@@ -788,7 +1357,7 @@ class MeshPlanExecutor:
         top_d = torch.gather(torch.cat(cand_d, dim=1), 1, top_i)
         top_slot = torch.gather(torch.cat(cand_slot, dim=1), 1, top_i)
         stacked = torch.stack(matched_all, dim=1)  # [Q, n_slots, nd1]
-        partials = [emit_agg_partials(statics, self._seg_staged, stacked[q])
+        partials = [emit_agg_partials(statics, staged, stacked[q])
                     if statics else [] for q, statics in enumerate(agg_statics)]
         return top_s, top_d, top_slot, total, partials
 
@@ -827,8 +1396,8 @@ class MeshPlanExecutor:
           members (q >= q_real);
         - gate: a slot's rest tile survives iff some member's bound
           reaches its threshold; the others' row tables are zeroed with
-          ``torch.where`` (every slot is a real segment here: the one-device
-          executor stages no filler slots);
+          ``torch.where`` (the program runs the occupied slots only: a
+          dead slot of the generation's headroom launches nothing);
         - rest pass; then the pools merge, probe before rest.
 
         No host sync between the passes. Returns (top_s, top_d, top_slot,
@@ -848,29 +1417,33 @@ class MeshPlanExecutor:
                   q_batch=q_pad, codec=self._kernel["codec"])
         probe = [tsc.score_tiles(*self._corpus(i), live[i], rl_p[i], rh_p[i],
                                  w_t[i], tile_ids=tid_p[i], **kw)
-                 for i in range(self.n_slots)]
+                 for i in range(self.n_occupied)]
         theta = tsc.probe_threshold([o[0] for o in probe], kk, q_pad, q_real)
         survive = (bounds_r >= theta[None, None, :]).any(dim=2)
         rest = []
-        for i in range(self.n_slots):
+        for i in range(self.n_occupied):
             rl2, rh2, tid2 = tsc.gate_rows(survive[i], rl_r[i], rh_r[i],
                                            tid_r[i])
             rest.append(tsc.score_tiles(*self._corpus(i), live[i], rl2, rh2,
                                         w_t[i], tile_ids=tid2, **kw))
         top_s, top_d, top_slot, hits = self._merge_slots([probe, rest], kk)
         n_probe, n_rest = tid_p.shape[1], tid_r.shape[1]
-        scored = survive.sum(dtype=torch.int32) + self.n_slots * n_probe
+        n_occ = self.n_occupied
+        scored = survive.sum(dtype=torch.int32) + n_occ * n_probe
         return (top_s, top_d, top_slot, hits, scored,
-                self.n_slots * (n_probe + n_rest))
+                n_occ * (n_probe + n_rest))
 
 
 class IndexMeshSearch:
     """Routes an index's query phase through the stacked one-device mesh
     program. Eligible searches run over all (shard, segment) pairs at once;
     anything the program does not cover returns None and the caller uses
-    the host rung. Staging is cached against the identity of the segment
-    set and its live-doc counts, and rebuilt in full when either
-    changes."""
+    the host rung. The staged generation is keyed by the segment set and
+    its live-doc counts: a refresh that adds segments appends them into
+    free slots (``delta_append``), a delete rewrites its slot's live rows
+    (``apply_tombstones``), and anything else (a merge, exhausted slots,
+    a codec change, ``index.staging.delta.enabled: false``) rebuilds the
+    generation."""
 
     # request keys the batched mesh_pallas program covers
     BATCHABLE_KEYS = frozenset({
@@ -893,7 +1466,12 @@ class IndexMeshSearch:
         self.pruned_query_total = 0
         self.tiles_scored_total = 0
         self.tiles_pruned_total = 0
+        # full generation rebuilds, delta appends, tombstone updates and
+        # compaction passes
         self.restage_total = 0
+        self.delta_restage_total = 0
+        self.tombstone_update_total = 0
+        self.compaction_runs_total = 0
         # aggregations reduced inside the mesh program, and those served by
         # the host reduce instead, by reason
         self.agg_fused_query_total = 0
@@ -906,12 +1484,31 @@ class IndexMeshSearch:
         settings = index_service.settings
         self.max_slots = INDEX_SEARCH_MESH_MAX_SLOTS.get(settings)
         self.plane_pref = INDEX_SEARCH_MESH_PLANE.get(settings)
+        self.delta_enabled = INDEX_STAGING_DELTA_ENABLED.get(settings)
         self.plane_health = PlaneHealth(
             INDEX_SEARCH_PLANE_QUARANTINE_COOLDOWN.get(settings))
         self._counter_lock = threading.Lock()
         self._stage_lock = threading.Lock()
+        # a terminal staging fault benches the staging until this monotonic
+        # deadline; after it exactly one query probes the restage
+        # (_stage_probing) while its peers serve the host rung
         self._staging_fault_until = 0.0
-        self.staging_denied_reason: Optional[str] = None
+        self._staging_faulted = False
+        self._stage_probing = False
+        # a budget eviction dropped the generation: the next staging is a
+        # probe restage
+        self._evicted_since = False
+        self._denied = threading.local()
+
+    @property
+    def staging_denied_reason(self) -> Optional[str]:
+        """Why the last staging attempt of this thread turned away
+        (``hbm_budget`` / ``staging_fault``), thread-local."""
+        return getattr(self._denied, "reason", None)
+
+    @staging_denied_reason.setter
+    def staging_denied_reason(self, value: Optional[str]) -> None:
+        self._denied.reason = value
 
     def _note(self, plane: str, reason: str, n: int = 1) -> None:
         key = f"{plane}.{reason}"
@@ -929,14 +1526,155 @@ class IndexMeshSearch:
 
     @staticmethod
     def _key_for(pairs) -> frozenset:
-        """Staged-set identity: the segments and their live-doc counts
-        (deletes mutate a sealed segment's live mask in place, which must
-        restage the stacked live masks)."""
+        """Staged-set identity, order-independent: the segments and their
+        live-doc counts (deletes mutate a sealed segment's live mask in
+        place, which must tombstone the staged live rows)."""
         return frozenset((sid, id(seg), seg.live_doc_count)
                          for sid, seg in pairs)
 
-    def _ensure_staged(self) -> bool:
+    def _restage_reason(self, old_key, new_key, old_executor,
+                        n_slots_needed: int) -> str:
+        """Why the generation restages (the ledger's event reason): a slot
+        geometry change, a segment-set change (refresh or merge), a
+        live-mask invalidation (deletes), or a restage after a budget
+        eviction (probe: each generation is a fresh scope, so the
+        accountant cannot infer it)."""
+        if old_key is None or old_executor is None:
+            if self._evicted_since:
+                self._evicted_since = False
+                return "probe"
+            return "initial"
+        if old_executor.n_slots != n_slots_needed:
+            return "geometry_change"
+        if ({(sid, seg_id) for sid, seg_id, _n in old_key}
+                != {(sid, seg_id) for sid, seg_id, _n in new_key}):
+            return "refresh"
+        return "delete_invalidation"
+
+    def _delta_enabled(self) -> bool:
+        """``index.staging.delta.enabled`` (its dynamic update waits for
+        the cluster settings API)."""
+        return bool(self.delta_enabled)
+
+    def _classify_delta(self, old: MeshPlanExecutor, pairs):
+        """Whether the staged-key change can be served as a delta on the
+        live generation: ``("tombstone", changed_slots)`` when only
+        live-doc counts changed, ``("append", changed)`` when segments
+        were added within the free slots (deletes may ride along), or None
+        for the full rebuild (segments retired, slots exhausted, a
+        tile-geometry mismatch, a codec change)."""
+        staged_counts = {(sid, kid): n for sid, kid, n in self._staged_key}
+        slot_of = {(sid, id(seg)): slot
+                   for slot, (sid, seg) in enumerate(old.pairs)}
+        if set(slot_of) != set(staged_counts):
+            return None  # key and generation disagree: rebuild from truth
+        new_ids = {(sid, id(seg)) for sid, seg in pairs}
+        if not set(slot_of) <= new_ids:
+            return None  # segments retired (a merge): rebuild
+        if self.svc.postings_codec != old.postings_codec_pref:
+            return None  # codec change: rebuild
+        appended = [seg for sid, seg in pairs if (sid, id(seg)) not in slot_of]
+        changed = frozenset(
+            (sid, id(seg)) for sid, seg in pairs
+            if (sid, id(seg)) in slot_of
+            and staged_counts[(sid, id(seg))] != seg.live_doc_count)
+        if not appended:
+            if not changed:
+                return None
+            return ("tombstone", sorted(slot_of[c] for c in changed))
+        if not MeshPlanExecutor.delta_append_compatible(old, appended):
+            return None
+        return ("append", changed)
+
+    def _bench_staging(self, what: str) -> None:
+        """A terminal staging fault: bench the staging for the cooldown and
+        quarantine the plane (reason ``staging_fault``); the host rung
+        serves, visibly."""
+        _plane_logger.warning(
+            "[%s] mesh %s failed; serving from the host rung for %.1fs "
+            "(reason staging_fault)", self.svc.name, what,
+            self.plane_health.cooldown_s, exc_info=True)
+        self._staging_faulted = True
+        self._staging_fault_until = (_time.monotonic()
+                                     + self.plane_health.cooldown_s)
+        self.plane_health.record_failure("mesh_pallas",
+                                         reason="staging_fault")
+        self.staging_denied_reason = "staging_fault"
+
+    def _apply_delta(self, old: MeshPlanExecutor, delta, pairs,
+                     key) -> Optional[bool]:
+        """Serve a classified delta on (tombstone) or over (append) the
+        live generation (caller holds ``_stage_lock``). True on success,
+        False on a terminal fault or a budget denial (the host rung
+        serves), None when a structural surprise says rebuild."""
         self.staging_denied_reason = None
+        kind_of, arg = delta
+        try:
+            if kind_of == "tombstone":
+                run_staged(lambda: old.apply_tombstones(arg),
+                           index=self.svc.name, kind="live_mask",
+                           plane="mesh")
+                self._staged_key = key
+                with self._counter_lock:
+                    self.tombstone_update_total += 1
+                old.touch()
+                self._maybe_compact()
+                return True
+            slot_of = {(sid, id(seg)) for sid, seg in old.pairs}
+            appended = [seg for sid, seg in pairs
+                        if (sid, id(seg)) not in slot_of]
+            # budget-gate the delta rows only: the carried tables are in
+            # the ledger under the old scope
+            estimate = sum(seg.block_docs.nbytes + seg.block_tfs.nbytes
+                           + seg.norms.nbytes + seg.nd_pad + 1
+                           for seg in appended)
+            if not memory_accountant().try_reserve(
+                    self.svc.name, estimate, exclude_scope=old.scope):
+                self.staging_denied_reason = "hbm_budget"
+                return False
+            MeshPlanExecutor.stage_delta_segments(old, appended)
+            staged = run_staged(
+                lambda: MeshPlanExecutor.delta_append(old, pairs, arg),
+                index=self.svc.name, kind="mesh_slot_tables", plane="mesh")
+        except _DeltaIneligible:
+            return None
+        except KernelError:
+            raise
+        except Exception:  # noqa: BLE001 — a terminal classified staging
+            # fault: the attempt published nothing, the pre-attempt ledger
+            # is exact; bench as a rebuild fault would
+            self._bench_staging("delta staging")
+            return False
+        old.release()
+        self._executor = staged
+        self._staged_key = key
+        with self._counter_lock:
+            self.delta_restage_total += 1
+            if arg:
+                self.tombstone_update_total += 1
+        staged.make_evictable(self._evict_generation(staged))
+        self._maybe_compact()
+        return True
+
+    def _maybe_compact(self) -> None:
+        """After a delta commit, the owner decides whether to compact and
+        runs it off the query path."""
+        hook = getattr(self.svc, "maybe_compact_async", None)
+        if hook is not None:
+            hook()
+
+    def _ensure_staged(self) -> Optional[MeshPlanExecutor]:
+        """The current generation, staged (appended, tombstoned or
+        rebuilt) for the current segment set, or None with
+        ``staging_denied_reason`` when the host rung must serve."""
+        ok = self._ensure_staged_ok()
+        return self._executor if ok else None
+
+    def _ensure_staged_ok(self) -> bool:
+        self.staging_denied_reason = None
+        # after a terminal staging fault the staging is benched for the
+        # quarantine cooldown: every query until then serves the host rung
+        # instead of paying the staging attempt again
         if _time.monotonic() < self._staging_fault_until:
             self.staging_denied_reason = "staging_fault"
             return False
@@ -947,50 +1685,168 @@ class IndexMeshSearch:
             return False  # packing bound: n_dev (1) x max_slots_per_device
         key = self._key_for(pairs)
         if key != self._staged_key or self._executor is None:
+            if self._stage_probing:
+                # single flight: a restage probe after a fault is in flight
+                # on a peer; serve the host rung until it commits
+                self.staging_denied_reason = "staging_fault"
+                return False
             with self._stage_lock:
-                if key == self._staged_key and self._executor is not None:
+                executor = self._executor
+                if key == self._staged_key and executor is not None:
+                    executor.touch()
                     return True  # a peer staged this set while we waited
                 if _time.monotonic() < self._staging_fault_until:
                     self.staging_denied_reason = "staging_fault"
                     return False
+                old = self._executor
+                if (old is not None and self._staged_key is not None
+                        and not self._staging_faulted
+                        and self._delta_enabled()):
+                    delta = self._classify_delta(old, pairs)
+                    if delta is not None:
+                        handled = self._apply_delta(old, delta, pairs, key)
+                        if handled is not None:
+                            return handled
                 return self._stage_rebuild(pairs, key)
-        return True
+        executor = self._executor
+        if executor is not None:
+            executor.touch()
+        return executor is not None
 
-    def _stage_rebuild(self, pairs, key) -> bool:
-        """Full-generation build + install (caller holds _stage_lock)."""
-        try:
-            staged = MeshPlanExecutor(
-                [seg for _, seg in pairs], self.svc.device,
-                postings_codec=self.svc.postings_codec,
-                postings_codec_default=self.svc.postings_codec_default)
-        except Exception:  # noqa: BLE001 — staging fault: bench the
-            # staging for the cooldown; the host rung serves, visibly
-            _plane_logger.warning(
-                "[%s] mesh staging failed; serving from the host rung "
-                "for %.1fs (reason staging_fault)", self.svc.name,
-                self.plane_health.cooldown_s, exc_info=True)
-            self._staging_fault_until = (
-                _time.monotonic() + self.plane_health.cooldown_s)
-            self.plane_health.record_failure("mesh_pallas",
-                                             reason="staging_fault")
-            self.staging_denied_reason = "staging_fault"
+    def _stage_rebuild(self, pairs, key, reason: Optional[str] = None) -> bool:
+        """Full-generation build and install (caller holds _stage_lock):
+        the delta paths' fallback and the compaction pass's restage."""
+        self.staging_denied_reason = None
+        spd = len(pairs)
+        if self._delta_enabled() and spd < max(self.max_slots, 1):
+            # headroom for one refresh's worth of appended segments (a
+            # refresh seals at most one a shard), bounded by the packing
+            # limit
+            spd = min(spd + max(1, len(self.svc.shards)),
+                      max(self.max_slots, 1))
+        n_slots = spd
+        # the budget gate: a per-slot estimate (the ledger then records the
+        # exact bytes); a denial demotes to the host rung, never an error
+        estimate = n_slots * max(
+            seg.block_docs.nbytes + seg.block_tfs.nbytes
+            + seg.norms.nbytes + seg.nd_pad + 1 for _sid, seg in pairs)
+        if not memory_accountant().try_reserve(self.svc.name, estimate):
+            self.staging_denied_reason = "hbm_budget"
             return False
+        if reason is None:
+            reason = self._restage_reason(self._staged_key, key,
+                                          self._executor, n_slots)
+        if self._staging_faulted:
+            self._stage_probing = True
+        old = self._executor
+        try:
+            # constructed unarmed (not evictable), installed, then armed
+            # (make_evictable); one transactional attempt through the
+            # classified retry loop
+            staged = run_staged(
+                lambda: MeshPlanExecutor(
+                    [seg for _, seg in pairs], self.svc.device,
+                    postings_codec=self.svc.postings_codec,
+                    postings_codec_default=self.svc.postings_codec_default,
+                    index_name=self.svc.name, stage_reason=reason,
+                    slots_per_dev=spd),
+                index=self.svc.name, kind="mesh_slot_tables", plane="mesh")
+        except KernelError:
+            raise
+        except Exception:  # noqa: BLE001 — a terminal staging fault
+            self._bench_staging("staging")
+            return False
+        finally:
+            self._stage_probing = False
         staged.pairs = pairs
+        if old is not None:
+            old.release()
         self._executor = staged
         self._staged_key = key
+        self._staging_faulted = False
         self._staging_fault_until = 0.0
         with self._counter_lock:
             self.restage_total += 1
+        staged.make_evictable(self._evict_generation(staged))
         return True
 
+    def _evict_generation(self, executor: MeshPlanExecutor):
+        """The budget's eviction callback for one generation (run under
+        the accountant's lock, so it takes no lock of its own): drop the
+        generation if it is still the current one and return its ledger
+        bytes. Queries holding it finish on its tensors. The generation
+        holds its callback, so the callback holds the generation weakly: a
+        replaced generation frees when its last reference drops, not at
+        the next cycle collection."""
+        ref = weakref.ref(executor)
+
+        def evict() -> None:
+            victim = ref()
+            if victim is None:
+                return
+            if self._executor is victim:
+                self._executor = None
+                self._staged_key = None
+                self._evicted_since = True
+            victim.release()
+
+        return evict
+
     def _drop_staging(self) -> None:
-        """Drop the staged mesh plane (the index closed); an eligible
-        query after this would stage it again."""
+        """Drop the staged generation and its tensors (the index closed, or
+        a shard was quarantined); an eligible query after this would stage
+        it again. The budget's eviction runs ``_evict_generation``
+        instead: under the accountant's lock it takes no lock of its own
+        and leaves the tensors to the queries that hold them."""
         with self._stage_lock:
             executor, self._executor = self._executor, None
             self._staged_key = None
         if executor is not None:
-            executor.release()
+            executor.drop()
+
+    def staging_slot_stats(self) -> Optional[dict]:
+        """The live generation's slot occupancy: free slots and each
+        slot's tombstone density (the ``_cat/staging`` surface and the
+        compaction trigger's inputs). None when nothing is staged."""
+        executor = self._executor
+        if executor is None:
+            return None
+        slots = []
+        for slot, (sid, seg) in enumerate(executor.pairs):
+            total = int(seg.num_docs)
+            live = int(seg.live_doc_count)
+            slots.append({
+                "slot": slot, "shard": int(sid), "segment": seg.name,
+                "docs": total, "live": live,
+                "tombstone_density": (round(1.0 - live / total, 4)
+                                      if total else 0.0),
+            })
+        free = executor.free_slots()
+        return {
+            "n_slots": executor.n_slots,
+            "slots_per_device": executor.slots_per_dev,
+            "free_slots": free,
+            "free_slots_per_device": round(free / executor.n_dev, 2),
+            "slots": slots,
+        }
+
+    def note_compaction_run(self) -> None:
+        with self._counter_lock:
+            self.compaction_runs_total += 1
+
+    def restage_for_compaction(self) -> bool:
+        """The compaction pass's restage: a fresh generation over the
+        current segment set with fresh headroom, classified
+        ``compaction``; the old generation is released. Off the query
+        path (the owner's single-flight pass calls it)."""
+        pairs = self._current_pairs()
+        if not pairs or len(pairs) > max(self.max_slots, 1):
+            return False
+        key = self._key_for(pairs)
+        with self._stage_lock:
+            if self._executor is None:
+                return False  # nothing staged: the next query stages cold
+            return self._stage_rebuild(pairs, key, reason="compaction")
 
     @staticmethod
     def _needs_counts(q) -> bool:
@@ -1034,8 +1890,10 @@ class IndexMeshSearch:
 
     def _resolve_fused_aggs(self, agg_specs, executor):
         """(FusedAggPlan or None, fallback reason or None) for a mesh-
-        served request's agg set: all or nothing. A staging error
-        raises."""
+        served request's agg set: all or nothing. A doc-value staging the
+        budget turns away or that faults terminally demotes the
+        aggregations (not the query) to the host reduce (``hbm_budget``,
+        ``staging_fault``)."""
         if not self._fused_aggs_enabled():
             return None, "disabled"
         from elasticsearch_tpu_torch.search.fused_aggs import (
@@ -1067,11 +1925,11 @@ class IndexMeshSearch:
         if len(self.svc.shards) < 2:
             self._note("host", "single_shard")
             return None
-        if not self._ensure_staged():
+        executor = self._ensure_staged()
+        if executor is None:
             self._note("host", self.staging_denied_reason
                        or "staging_unavailable")
             return None
-        executor = self._executor
         self.plane_health.cooldown_s = \
             INDEX_SEARCH_PLANE_QUARANTINE_COOLDOWN.get(self.svc.settings)
         pruning_on, _probe = self._pruning_config()
@@ -1119,11 +1977,14 @@ class IndexMeshSearch:
                 "mesh_pallas")
             if admissions["mesh_pallas"]:
                 kernel_session = executor.ensure_kernel()
-                if (kernel_session is None
-                        and executor.kernel_denied_reason):
-                    self._note("mesh_pallas", executor.kernel_denied_reason)
-                    self.plane_health.record_failure(
-                        "mesh_pallas", reason="staging_fault")
+                reason = executor.kernel_denied_reason
+                if kernel_session is None and reason:
+                    # the budget or a staging fault turned the kernel
+                    # staging away: the ladder's next rung serves
+                    self._note("mesh_pallas", reason)
+                    if reason == "staging_fault":
+                        self.plane_health.record_failure(
+                            "mesh_pallas", reason="staging_fault")
             else:
                 self._note("mesh_pallas", "quarantined")
         attempts = []
@@ -1203,7 +2064,7 @@ class IndexMeshSearch:
             if key == -np.inf:
                 continue
             sid, seg = executor.pairs[int(slot)]
-            refs.append(DocRef(sid, seg.name, int(d), float(score)))
+            refs.append(DocRef(sid, seg.name, int(d), float(score), seg))
             if max_score is None:
                 max_score = float(score)
         aggregations = None
@@ -1280,11 +2141,11 @@ class IndexMeshSearch:
             if any(key not in self.BATCHABLE_KEYS
                    and key not in ("aggs", "aggregations") for key in body):
                 return None
-        if not self._ensure_staged():
+        executor = self._ensure_staged()
+        if executor is None:
             self._note("host", self.staging_denied_reason
                        or "staging_unavailable", len(bodies))
             return None
-        executor = self._executor
         session = executor.ensure_kernel()
         if session is None:
             self._note("host", executor.kernel_denied_reason
@@ -1406,7 +2267,7 @@ class IndexMeshSearch:
             cb = max(t[3] for t in tables)
             live_key = ("k_live_t" if g.tile_sub == geom.tile_sub
                         else executor.ensure_kernel_live(g.tile_sub))
-            n_slots = executor.n_slots
+            n_slots = n_pairs
             n_tiles = tables[0][0].shape[0]
             rl = np.zeros((n_slots, n_tiles, t_pad), np.int32)
             rh = np.zeros((n_slots, n_tiles, t_pad), np.int32)
@@ -1516,7 +2377,7 @@ class IndexMeshSearch:
                 if key == -np.inf or d < 0:
                     continue
                 sid, seg = executor.pairs[int(slot)]
-                refs.append(DocRef(sid, seg.name, int(d), float(key)))
+                refs.append(DocRef(sid, seg.name, int(d), float(key), seg))
                 if max_score is None:
                     max_score = float(key)
             result = {"total": int(totals[q]), "refs": refs,
@@ -1600,11 +2461,11 @@ class IndexMeshSearch:
                     return None
         except (KeyError, TypeError):
             return None
-        if not self._ensure_staged():
+        executor = self._ensure_staged()
+        if executor is None:
             self._note("host", self.staging_denied_reason
                        or "knn_staging_unavailable", len(specs))
             return None
-        executor = self._executor
         session = executor.ensure_knn(field, ft.dims, ft.similarity)
         if session is None:
             reason = executor.kernel_denied_reason
@@ -1665,7 +2526,7 @@ class IndexMeshSearch:
                 if key == -np.inf or d < 0:
                     continue
                 sid, seg = executor.pairs[int(slot)]
-                refs.append(DocRef(sid, seg.name, int(d), float(key)))
+                refs.append(DocRef(sid, seg.name, int(d), float(key), seg))
                 if max_score is None:
                     max_score = float(key)
             results.append({"total": total, "refs": refs,

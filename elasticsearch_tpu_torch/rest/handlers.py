@@ -258,7 +258,7 @@ def register_all(c) -> None:
     r("GET", "/_cat/nodes", _cat_nodes)
     r("GET", "/_cat/shards", _unported)
     r("GET", "/_cat/shards/{index}", _unported)
-    r("GET", "/_cat/staging", _unported)
+    r("GET", "/_cat/staging", _cat_staging)
     r("GET", "/_cat/count", _cat_count)
     r("GET", "/_cat/count/{index}", _cat_count)
     r("GET", "/_cat/aliases", _unported)
@@ -868,6 +868,46 @@ def _cat_health(node, req):
     return _cat_table(
         req, [[int(time.time()), time.strftime("%H:%M:%S")] + row],
         ["epoch", "timestamp"] + headers)
+
+
+def _cat_staging(node, req):
+    """``_cat/staging``: the device-memory ledger one row an (index,
+    scope, kind): what is staged on the card, how big, how recently used,
+    and whether the budget may evict it; plus, for each index's staged
+    mesh generation, its free slots a device on the scope's rows and one
+    summary row a slot (live/total docs and tombstone density, the
+    compaction trigger's inputs)."""
+    from elasticsearch_tpu_torch.common.memory import memory_accountant
+
+    scope_meta: dict = {}
+    for name in sorted(node.indices):
+        ms = node.indices[name]._mesh_search
+        stats = ms.staging_slot_stats() if ms is not None else None
+        executor = ms._executor if ms is not None else None
+        if not stats or executor is None:
+            continue
+        scope_meta[(name, executor.scope)] = (stats,
+                                              stats["free_slots_per_device"])
+    rows = []
+    for row in memory_accountant().table():
+        meta = scope_meta.get((row["index"], row["segment"]))
+        rows.append([
+            row["index"], row["segment"], row["kind"], f"{row['bytes']}b",
+            row["tables"], row["stage_count"],
+            "-" if row["idle_s"] is None else f"{row['idle_s']:.1f}s",
+            "*" if row["evictable"] else "-",
+            "-" if meta is None else f"{meta[1]}", "-",
+        ])
+    for (name, scope), (stats, free_dev) in sorted(scope_meta.items()):
+        for sl in stats["slots"]:
+            rows.append([
+                name, f"{scope}/slot{sl['slot']}", "slot",
+                f"{sl['live']}/{sl['docs']}d", 1, "-", "-", "-",
+                f"{free_dev}", f"{sl['tombstone_density']}",
+            ])
+    return _cat_table(req, rows, [
+        "index", "segment", "kind", "bytes", "tables", "stage_count",
+        "idle", "evictable", "free_slots_per_dev", "tombstone_density"])
 
 
 def _cat_nodes(node, req):

@@ -32,9 +32,9 @@ Not ported, each waiting for its module, and raising ``ParsingException``:
 ``geo_bounds``, ``geo_centroid`` and ``geohash_grid`` (``geo_point``),
 ``nested`` and ``reverse_nested`` (nested objects), ``children`` (the join
 field), ``scripted_metric`` (``script/``), terms on a text field (text
-fielddata). The request circuit breaker around ``run_aggregations`` waits
-for ``common/breaker.py`` and the ``CUSTOM_AGGS`` plugin hook for
-``plugins/``.
+fielddata). ``run_aggregations`` holds its request estimate on the request
+circuit breaker (``common/breaker.py``) while it runs. The
+``CUSTOM_AGGS`` plugin hook waits for ``plugins/``.
 """
 
 from __future__ import annotations
@@ -621,18 +621,39 @@ def _finalize_metric(spec: AggSpec, partials: List[dict]) -> dict:
     raise ParsingException(f"cannot finalize metric [{t}]")
 
 
+def _agg_request_estimate(specs: List[AggSpec], views) -> int:
+    """The request breaker's estimate for one aggregation request: the
+    bucket machinery scales with aggs x segments x docs touched."""
+    n_specs = sum(1 + len(s.subs) for s in specs)
+    n_docs = sum(int(v.segment.nd_pad) for v in views)
+    return n_specs * (n_docs * 4 + 4096)
+
+
 def run_aggregations(specs: List[AggSpec], views: List[SegmentView]) -> dict:
     """Execute an agg tree over segment views; returns the response dict
-    keyed by agg name (segments of one or more shards)."""
-    out = {}
-    pipeline_specs = [s for s in specs if s.type in PIPELINE_TYPES]
-    for spec in specs:
-        if spec.type in PIPELINE_TYPES:
-            continue
-        out[spec.name] = _run_one(spec, views)
-    for spec in pipeline_specs:
-        _apply_pipeline(spec, out)
-    return out
+    keyed by agg name (segments of one or more shards). The request's
+    estimate is held on the request breaker while it runs (a trip is a
+    429 ``circuit_breaking_exception``)."""
+    from elasticsearch_tpu_torch.common.breaker import (
+        CircuitBreaker,
+        breaker_service,
+    )
+
+    breaker = breaker_service().get_breaker(CircuitBreaker.REQUEST)
+    est = _agg_request_estimate(specs, views)
+    breaker.add_estimate_bytes_and_maybe_break(est, "<agg_request>")
+    try:
+        out = {}
+        pipeline_specs = [s for s in specs if s.type in PIPELINE_TYPES]
+        for spec in specs:
+            if spec.type in PIPELINE_TYPES:
+                continue
+            out[spec.name] = _run_one(spec, views)
+        for spec in pipeline_specs:
+            _apply_pipeline(spec, out)
+        return out
+    finally:
+        breaker.add_without_breaking(-est)
 
 
 def _run_one(spec: AggSpec, views: List[SegmentView]) -> dict:

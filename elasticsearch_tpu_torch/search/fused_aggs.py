@@ -33,12 +33,16 @@ Anything outside that envelope (sub-aggregations, multi-valued fields,
 calendar intervals, non-integer metric values, text fielddata, bucket
 ranges past the caps, other agg types) keeps the host reduce over the
 program's matched views, counted by the JAX package's reason names in
-``agg_host_fallback_by_reason``. Deviations: the memory accountant is not
-ported, so there is no ``hbm_budget`` reason; a staging error raises
-instead of becoming a ``staging_fault`` fallback.
+``agg_host_fallback_by_reason``, among them ``hbm_budget`` (the device
+budget turned the doc-value columns away) and ``staging_fault`` (their
+staging faulted terminally). The columns register in the device-memory
+ledger as kind ``doc_values`` under the generation's scope; they hold
+one row an occupied slot (``executor.n_occupied``).
 """
 
 from __future__ import annotations
+
+import logging
 
 import math
 from typing import Dict, List, Optional, Tuple
@@ -214,9 +218,9 @@ def _metric_field_checks(executor, field: str) -> dict:
 
 
 def _build_bucket_codes(executor, per_seg_codes, nb: int) -> np.ndarray:
-    """[n_slots, nd1] int32 codes from per-segment local codes (length
+    """[n_occupied, nd1] int32 codes from per-segment local codes (length
     seg.nd_pad, -1 = no value), each slot's offset by ``slot * nb``."""
-    out = np.full((executor.n_slots, executor.nd1), -1, np.int32)
+    out = np.full((executor.n_occupied, executor.nd1), -1, np.int32)
     for i, codes in enumerate(per_seg_codes):
         if codes is not None:
             out[i, : codes.shape[0]] = np.where(codes >= 0, codes + i * nb,
@@ -419,7 +423,7 @@ def _resolve_metric(spec, executor, ops, metas, builds) -> Optional[str]:
             entry.names.update(missing)
         else:
             def build_all(cols=list(cols)):
-                n_slots, nd1 = executor.n_slots, executor.nd1
+                n_slots, nd1 = executor.n_occupied, executor.nd1
                 names = build_all.names
                 out = {}
                 if base + ".ex" in names:
@@ -464,7 +468,9 @@ def resolve_fused_aggs(specs: List[AggSpec], executor
     Returns ``(plan, None)`` when EVERY spec is fused-eligible (staging any
     missing doc-value columns as a side effect), else ``(None, reason)``:
     all or nothing, so a response never mixes fused and host-reduced
-    frames. A staging error raises."""
+    frames. A doc-value staging the budget turns away gives
+    ``hbm_budget``, a terminal staging fault ``staging_fault``; a
+    ``KernelError`` raises."""
     ops: List[tuple] = []
     metas: List[dict] = []
     builds: Dict[str, object] = {}
@@ -487,7 +493,22 @@ def resolve_fused_aggs(specs: List[AggSpec], executor
         if reason is not None:
             return None, reason
     if builds:
-        executor.stage_doc_value_columns(builds)
+        from elasticsearch_tpu_torch.ops.cuda_kernels import KernelError
+
+        try:
+            staged = executor.stage_doc_value_columns(builds)
+        except KernelError:
+            raise
+        except Exception:  # noqa: BLE001 — a terminal classified staging
+            # fault (run_staged retried and recorded it): only the device
+            # staging step reports staging_fault
+            logging.getLogger("elasticsearch_tpu_torch.search.fused_aggs"
+                              ).warning(
+                "fused-agg doc-value staging failed; aggregations serve "
+                "from the host reduce", exc_info=True)
+            return None, "staging_fault"
+        if not staged:
+            return None, "hbm_budget"
     return FusedAggPlan(list(specs), ops, metas), None
 
 

@@ -57,12 +57,16 @@ def check_body(body: dict) -> None:
 
 @dataclass
 class DocRef:
-    """A hit before fetch: which shard/segment/local doc + ranking keys."""
+    """A hit before fetch: which shard/segment/local doc + ranking keys.
+    ``segment`` is the segment the query phase read, when it knows it: a
+    background compaction may retire it from the engine before the fetch,
+    and its host arrays still answer."""
 
     shard_id: int
     segment_name: str
     local_doc: int
     score: float
+    segment: Any = None
 
 
 @dataclass
@@ -180,7 +184,8 @@ class ShardSearcher:
         for sc, d in zip(top_scores.tolist(), top_docs.tolist()):
             if sc == -np.inf:
                 break
-            out.append(DocRef(self.shard_id, seg.name, int(d), float(sc)))
+            out.append(DocRef(self.shard_id, seg.name, int(d), float(sc),
+                              seg))
         return out
 
 
@@ -264,7 +269,7 @@ def fetch_hits(refs: List[DocRef], shards: Dict[int, Any], source_body: dict,
     for ref in refs:
         shard = shards[ref.shard_id]
         seg = next((s for s in shard.engine.segments
-                    if s.name == ref.segment_name), None)
+                    if s.name == ref.segment_name), ref.segment)
         if seg is None:
             continue
         d = ref.local_doc

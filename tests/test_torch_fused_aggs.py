@@ -4,8 +4,8 @@ the JAX package's and against the port's own host reduce.
 Three indices take the same seeded documents: a JAX ``IndexService`` on a
 one-device mesh (tile kernel in interpret mode, ``ES_TPU_PALLAS=
 interpret``; ``search.aggs.fused`` left on, unlike tests/test_torch_mesh.py;
-delta staging off, which the port does not have), a port
-``IndexService(device="cpu")``, and a port index with
+delta staging off on all three, so a delete rebuilds each generation), a
+port ``IndexService(device="cpu")``, and a port index with
 ``index.search.aggs.fused: false`` (the host reduce over the program's
 per-slot views). Every fused aggregation must equal both byte for byte
 (the fused plane's counts, digit sums and min/max pairs are exact, so the
@@ -77,10 +77,14 @@ class Trio:
             "index.requests.cache.enable": False}), mapping=MAPPING)
         # the port serves one device: give the JAX plane a one-device mesh
         self.j._mesh_search = JMesh(self.j, mesh=shard_mesh(1))
-        self.t = IndexService(name, Settings(common), mapping=MAPPING,
+        # the port's index mirrors the JAX one's staging (delta off): its
+        # deletes rebuild the generation, as the JAX plane's do
+        self.t = IndexService(name, Settings({
+            **common, "index.staging.delta.enabled": False}), mapping=MAPPING,
                               device="cpu")
         self.h = IndexService(name, Settings({
-            **common, "index.search.aggs.fused": "false"}),
+            **common, "index.search.aggs.fused": "false",
+            "index.staging.delta.enabled": False}),
             mapping=MAPPING, device="cpu")
         docs = _docs(n_docs)
         per = n_docs // refreshes
@@ -198,11 +202,12 @@ def test_every_fused_type_byte_identical(trio):
 
     plan, reason = resolve_fused_aggs(parse_aggs(ALL_FUSED_AGGS), ex)
     assert reason is None
-    mask = torch.zeros((ex.n_slots, ex.nd1), dtype=torch.bool)
+    # one row an occupied slot (a generation's headroom slots hold none)
+    mask = torch.zeros((ex.n_occupied, ex.nd1), dtype=torch.bool)
     mask[:, :5] = True
     outs = emit_agg_partials(plan.statics, ex._seg_staged, mask)
     assert len(outs) == n_agg_outputs(plan.statics) == 24
-    assert all(o.shape[0] == ex.n_slots for o in outs)
+    assert all(o.shape[0] == ex.n_occupied for o in outs)
 
 
 @pytest.mark.parametrize("size", [0, 7])
@@ -427,7 +432,13 @@ def test_kernel_fault_on_fused_rung_raises(trio, monkeypatch):
 
 
 def test_staging_error_raises_and_publishes_nothing(trio, monkeypatch):
+    """A doc-value staging fault: a deterministic one publishes nothing and
+    demotes the aggregations (not the query) to the host reduce with
+    reason staging_fault; a transient one (a transfer error) is retried
+    and the columns publish once. Both answer as the JAX package does."""
     import torch
+
+    from elasticsearch_tpu_torch.common.memory import memory_accountant
 
     t3 = trio("fstage")
     body = {"query": {"match": {"body": "t0"}}, "size": 4,
@@ -436,21 +447,39 @@ def test_staging_error_raises_and_publishes_nothing(trio, monkeypatch):
     t3.t.search({"query": {"match": {"body": "t0"}}})  # stage the executor
     ex = t3.t._mesh_search._executor
     real = torch.Tensor.to
-    calls = []
 
-    def failing_to(self, *args, **kwargs):
-        calls.append(1)
-        if len(calls) == 2:  # the second column's transfer
-            raise RuntimeError("device transfer failed")
-        return real(self, *args, **kwargs)
+    def failing_to(exc):
+        calls = []
 
-    monkeypatch.setattr(torch.Tensor, "to", failing_to)
-    with pytest.raises(RuntimeError):
-        t3.t.search(dict(body))
+        def to(self, *args, **kwargs):
+            calls.append(1)
+            if len(calls) == 2:  # the second column's transfer
+                raise exc
+            return real(self, *args, **kwargs)
+
+        return to
+
+    acct = memory_accountant()
+    faults = acct.staging_faults_deterministic_total
+    monkeypatch.setattr(torch.Tensor, "to",
+                        failing_to(ValueError("bad column shape")))
+    tr = t3.t.search(dict(body))
     monkeypatch.setattr(torch.Tensor, "to", real)
     assert not any(k.startswith("maggs.") for k in ex._seg_staged)
-    assert t3.t._mesh_search.agg_host_fallback_total == 0
-    jr, tr, hr = t3.search(body)
+    assert t3.t._mesh_search.agg_host_fallback_by_reason == {
+        "staging_fault": 1}
+    assert acct.staging_faults_deterministic_total == faults + 1
+    jr = t3.j.search(dict(body))
+    assert_parity(tr, jr)
+
+    retries = acct.staging_retries_total
+    monkeypatch.setattr(torch.Tensor, "to",
+                        failing_to(RuntimeError("device transfer failed")))
+    tr = t3.t.search(dict(body))
+    monkeypatch.setattr(torch.Tensor, "to", real)
+    assert acct.staging_retries_total == retries + 1
+    assert any(k.startswith("maggs.") for k in ex._seg_staged)
+    assert t3.t._mesh_search.agg_fused_query_total == 1
     assert_parity(tr, jr)
 
 
@@ -496,3 +525,50 @@ def test_concurrent_first_queries_stage_once_and_agree(trio):
     assert ms.agg_host_fallback_total == 0
     cols = [k for k in ms._executor._seg_staged if k.startswith("maggs.")]
     assert len(cols) == len(set(cols)) == 5  # ord.tag, hist.ts, n.{ex,mm,dig}
+
+
+def test_racing_first_queries_build_one_mesh_plane(trio, monkeypatch):
+    """The mesh plane of an index is created once, under a lock: a sleep
+    inside ``IndexMeshSearch.__init__`` widens the window in which 24
+    threads race an index's first aggregation queries, and exactly one
+    instance is built, which counts all 24 fused queries."""
+    import threading
+    import time
+
+    from elasticsearch_tpu_torch.parallel import plan_exec
+
+    t3 = trio("frace")
+    bodies = [{"query": {"match": {"body": f"t{i % 5} t{(i + 3) % 7}"}},
+               "size": 3, "aggs": {"tags": {"terms": {"field": "tag"}},
+                                   "st": {"stats": {"field": "n"}}}}
+              for i in range(24)]
+    want = [t3.h.search(dict(b)) for b in bodies]
+    assert t3.t._mesh_search is None
+    built = []
+    real_init = plan_exec.IndexMeshSearch.__init__
+
+    def slow_init(self, index_service):
+        built.append(self)
+        time.sleep(0.002)
+        real_init(self, index_service)
+
+    monkeypatch.setattr(plan_exec.IndexMeshSearch, "__init__", slow_init)
+    got = [None] * len(bodies)
+    start = threading.Barrier(len(bodies))
+
+    def worker(i):
+        start.wait()
+        got[i] = t3.t.search(dict(bodies[i]))
+
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(len(bodies))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(120.0)
+        assert not th.is_alive()
+    assert len(built) == 1
+    assert t3.t._mesh_search is built[0]
+    for g, w in zip(got, want):
+        assert g["aggregations"] == w["aggregations"]
+    assert t3.t._mesh_search.agg_fused_query_total == 24

@@ -3,9 +3,9 @@ the JAX package.
 
 A JAX ``IndexService`` (tile kernel in interpret mode,
 ``ES_TPU_PALLAS=interpret``; a one-device mesh; ``search.aggs.fused:
-false`` and ``index.staging.delta.enabled: false``, the features the port
-does not have yet) and a port ``IndexService(device="cpu")`` take the same
-seeded documents. Responses must agree: ``_plane`` and ``_shards``
+false`` and ``index.staging.delta.enabled: false``) and a port
+``IndexService(device="cpu")`` (delta staging on, its default) take the
+same seeded documents. Responses must agree: ``_plane`` and ``_shards``
 exactly, totals and aggregation buckets exactly, ids exactly except among
 hits whose scores tie within rtol 1e-5, scores within rtol 1e-5 (the JAX
 kernel's bf16 split, about 2^-17 relative). Inside the port, a batched
@@ -183,6 +183,7 @@ def test_batched_member_scores_bit_equal_to_serial(pair3):
 def test_same_after_deletes_and_refresh(pair3):
     jidx, tidx = pair3
     restaged = tidx._mesh_search.restage_total
+    tombstoned = tidx._mesh_search.tombstone_update_total
     rng = np.random.RandomState(9)
     for d in sorted(rng.choice(240, 30, replace=False)):
         assert (jidx.delete_doc(str(d))["result"]
@@ -196,8 +197,10 @@ def test_same_after_deletes_and_refresh(pair3):
     for jr, tr in zip(jidx.search_batch([dict(b) for b in bodies]),
                       tidx.search_batch([dict(b) for b in bodies])):
         compare(jr, tr, "mesh_pallas")
-    # the staging was rebuilt for the new live masks
-    assert tidx._mesh_search.restage_total == restaged + 1
+    # the deletes reached the staging once, as a tombstone update of the
+    # live rows (delta staging), not a rebuild
+    assert tidx._mesh_search.tombstone_update_total == tombstoned + 1
+    assert tidx._mesh_search.restage_total == restaged
     stats = tidx.search_stats()["planes"]
     assert stats["plane_failures_total"] == {"mesh_pallas": 0, "mesh": 0}
 

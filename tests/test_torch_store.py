@@ -168,8 +168,9 @@ def test_segment_files_and_meta_keys_match_jax(tmp_path):
     for k in jz.files:
         assert jz[k].dtype == tz[k].dtype, k
         np.testing.assert_array_equal(jz[k], tz[k], err_msg=k)
-    # the port writes no positions; the JAX package's are ignored on read
-    assert json.loads((td / "positions.json").read_text()) == {}
+    # the phrase positions sidecar: the same term ids, docs and positions
+    assert json.loads((td / "positions.json").read_text()) == \
+        json.loads((jd / "positions.json").read_text()) != {}
 
 
 def test_commit_round_trip_and_gc(tmp_path):
@@ -345,3 +346,75 @@ def test_unported_columns_refuse_the_load(tmp_path, kind):
     jstore.Store(str(tmp_path)).commit([seg], 0)
     with pytest.raises(tstore.CorruptIndexException, match=kind):
         tstore.Store(str(tmp_path)).load_segments("cpu")
+
+
+def test_port_merge_keeps_the_phrase_positions_jax_reads(tmp_path):
+    """A data path shared by both packages: the JAX node writes two
+    segments, the port adds a third, force-merges and closes, and the
+    reopened JAX node's ``match_phrase`` finds all three docs."""
+    from elasticsearch_tpu.common.memory import memory_accountant as jacct
+    from elasticsearch_tpu.common.settings import Settings as JSettings
+    from elasticsearch_tpu.node import Node as JNode
+    from elasticsearch_tpu_torch.node import Node
+
+    jbytes = jacct().staged_bytes()
+    path = str(tmp_path / "data")
+    phrase = {"query": {"match_phrase": {"body": "brown fox"}}}
+    body = {"settings": {"number_of_shards": 1},
+            "mappings": {"_doc": {"properties": {"body": {"type": "text"}}}}}
+
+    def jax_node():
+        return JNode(JSettings({"search.compile.warm_on_start": False}),
+                     data_path=path)
+
+    jn = jax_node()
+    try:
+        jn.create_index("tpos", body)
+        for i in (1, 2):
+            jn.index_doc("tpos", f"j{i}", {"body": "the quick brown fox"},
+                         refresh=True)
+        assert jn.search("tpos", dict(phrase))["hits"]["total"] == 2
+    finally:
+        jn.close()
+    tn = Node(data_path=path, device="cpu")
+    try:
+        tn.index_doc("tpos", "t1", {"body": "a quick brown fox jumps"},
+                     refresh=True)
+        tn.force_merge("tpos")
+        seg, = tn.indices["tpos"].shards[0].engine.segments
+        assert seg.num_docs == 3
+        tid = seg.term_id("body", "fox")
+        assert sorted(seg.positions[tid]) == list(range(3))
+    finally:
+        tn.close()
+    jn = jax_node()
+    try:
+        got = jn.search("tpos", dict(phrase))
+        assert got["hits"]["total"] == 3
+        assert sorted(h["_id"] for h in got["hits"]["hits"]) == \
+            ["j1", "j2", "t1"]
+        assert jn.search("tpos", {"query": {"match_phrase": {
+            "body": "fox brown"}}})["hits"]["total"] == 0
+    finally:
+        jn.close()
+    assert jacct().staged_bytes() <= jbytes  # no JAX staging outlives it
+
+
+def test_loaded_positions_parse_on_first_access(tmp_path):
+    """A load keeps ``positions.json`` as its bytes: no JSON parse until
+    something reads the positions, and a write of the loaded segment
+    copies the bytes as they were read."""
+    seg = jax_segment()
+    jstore.Store(str(tmp_path / "a")).write_segment(seg)
+    back = tstore.Store(str(tmp_path / "a")).read_segment(seg.name, "cpu")
+    assert back.positions._raw is None and back.positions._nested is None
+    tstore.Store(str(tmp_path / "b")).write_segment(back)
+    assert back.positions._raw is None
+    raw = (tmp_path / "a" / seg.name / "positions.json").read_bytes()
+    assert (tmp_path / "b" / seg.name / "positions.json").read_bytes() == raw
+    assert len(seg.positions) > 0
+    for tid, per_doc in seg.positions.items():
+        assert sorted(back.positions[tid]) == sorted(per_doc)
+        for doc, pos in per_doc.items():
+            np.testing.assert_array_equal(back.positions[tid][doc], pos)
+            assert back.positions[tid][doc].dtype == np.int32
