@@ -69,11 +69,12 @@ prints no result, when there is no GPU or any check fails. Phases:
    p50 latency per request kind and plane and the per-segment host copy of
    the dense scores and mask.
 6. The kernel summary line (with phase 11's ``rest`` entry, phase 12's
-   ``aggs`` entry, phase 13's ``durability`` entry and phase 14's
-   ``staging`` entry), then the device line.
+   ``aggs`` entry, phase 13's ``durability`` entry, phase 14's
+   ``staging`` entry and phase 15's ``query_dsl`` entry), then the device
+   line.
 
 Run between phases 2 and 3, and after phase 4 (phase 10 after phase 9,
-then phases 11, 12, 13 and 14):
+then phases 11, 12, 13, 14 and 15):
 
 2b. Kernels 1b (dense, q_batch=16, with and without counts) and 1c (fused
     per-tile top-k, q_batch 1 and 16, k=16) on the 1M-doc corpus, for 16
@@ -246,6 +247,31 @@ then phases 11, 12, 13 and 14):
     against its plain version; the serial kinds equal the cpu node's;
     14g ``memory_allocated`` back to its level before the indices and the
     ledger at 0 bytes for them.
+15. The query DSL beyond ``match`` on the card, after phase 14
+    (``query_dsl_phase``). 15a: pmcq, pmc-4x256k's title (phase 7's
+    corpora and token streams) beside an ``abstract`` from the same
+    generator (seeds 17-20, empty on 3% of docs) under an LM-Dirichlet
+    similarity (mu 2000), both with positions as flat columns, venue,
+    year and emb as phase 7's, in three twins: ``pmcq`` on the card node
+    (the mesh plane), ``pmcqh`` on it with ``search.mesh: false`` (the host
+    rung) and ``pmcq`` on a cpu node. multi_match (best_fields over
+    ``title^2, abstract`` with tie_breaker 0.3, most_fields), dis_max,
+    prefix, wildcard, regexp, fuzzy, exists, ids, function_score
+    (field_value_factor with log1p, random_score), match_phrase (at slop 0
+    and 2), match_phrase_prefix, query_string, a terms aggregation under
+    the multi_match (the fused plane) and more_like_this answer equally on
+    the three (ids, totals, buckets exact; scores rtol 1e-5), with the
+    plane each took; ``?q=`` over HTTP on ``_search`` and ``_count``;
+    totals held against references of their own (exists, ids, the
+    bigram count of the token streams). Every 1a launch held bit for bit
+    and every kernel-2 call (with its combine) replayed through its plain
+    version; then p50 per kind on pmcq and pmcqh over two runs, each
+    phrase kind's host intersection ms apart from the rest, and each
+    multi-term kind's expanded lanes. 15b: phase 3's 20,000 docs into an
+    index with a custom analyzer (html_strip, standard, lowercase, stop,
+    stemmer) on ``title`` and ``english`` on ``title.en`` (docs/s beside
+    phase 3's); match, match_phrase and query_string equal on the cpu
+    node. The summary line's ``query_dsl`` entry holds the numbers.
 """
 
 from __future__ import annotations
@@ -335,7 +361,21 @@ def pack_postings(term_ids, docs, tfs, vocab, nd_pad):
             term_df)
 
 
-def build_synthetic_corpus(seed=7, n_docs=N_DOCS):
+def unique_counts(keys):
+    """``np.unique(keys, return_counts=True)`` of an int64 array, sorted on
+    the card (tens of millions of keys a corpus)."""
+    import torch
+
+    u, c = torch.unique(torch.from_numpy(keys).to("cuda"), sorted=True,
+                        return_counts=True)
+    return u.cpu().numpy(), c.cpu().numpy()
+
+
+def build_synthetic_corpus(seed=7, n_docs=N_DOCS, empty_share=0.0,
+                           keep_stream=False):
+    """``empty_share``: the share of docs drawn empty (no token: the field
+    is missing there). ``keep_stream``: also return the token stream
+    (``tokens``, in doc order) and ``doc_len``, the positions' source."""
     rng = np.random.RandomState(seed)
     nd_pad = 1
     while nd_pad < n_docs:
@@ -343,6 +383,8 @@ def build_synthetic_corpus(seed=7, n_docs=N_DOCS):
     doc_len = np.clip(
         rng.lognormal(np.log(AVG_DOC_LEN), 0.4, n_docs), 5, 500
     ).astype(np.int64)
+    if empty_share:
+        doc_len[rng.rand(n_docs) < empty_share] = 0
     total_tokens = int(doc_len.sum())
     ranks = np.arange(1, VOCAB + 1)
     probs = 1.0 / ranks
@@ -350,7 +392,7 @@ def build_synthetic_corpus(seed=7, n_docs=N_DOCS):
     tokens = rng.choice(VOCAB, total_tokens, p=probs).astype(np.int32)
     doc_of_token = np.repeat(np.arange(n_docs, dtype=np.int32), doc_len)
     keys = tokens.astype(np.int64) * n_docs + doc_of_token
-    uniq, counts = np.unique(keys, return_counts=True)
+    uniq, counts = unique_counts(keys)
     term_ids = (uniq // n_docs).astype(np.int32)
     docs = (uniq % n_docs).astype(np.int32)
     tfs = counts.astype(np.float32)
@@ -362,7 +404,8 @@ def build_synthetic_corpus(seed=7, n_docs=N_DOCS):
     kprobs = (1.0 / kranks) / (1.0 / kranks).sum()
     keyword_ord = rng.choice(N_ORDS, n_docs, p=kprobs).astype(np.int32)
     year = (1990 + rng.randint(0, 35, n_docs)).astype(np.float64)
-    return {"n_docs": n_docs,
+    stream = {"tokens": tokens, "doc_len": doc_len} if keep_stream else {}
+    return {"n_docs": n_docs, **stream,
         "block_docs": block_docs, "block_tfs": block_tfs, "norms": norms,
         "term_block_start": term_block_start,
         "n_blocks_per_term": n_blocks_per_term, "term_df": term_df,
@@ -2000,12 +2043,14 @@ def mesh_phase(torch, Node, Segment, cuda_kernels, queries, top_rank_term,
     against its plain version (errs takes the largest difference). Returns
     (gnode, cpu node,
     the card's segments, the cpu node's segments, each shard's
-    Segment.from_arrays fields without the vectors)."""
+    Segment.from_arrays fields without the vectors, the held segment-sum
+    launches, each shard's title token stream and doc lengths)."""
     from elasticsearch_tpu_torch.ops import tile_scoring as tsc
     from elasticsearch_tpu_torch.search import query_dsl as Q
 
     t0 = time.perf_counter()
-    corpora = [build_synthetic_corpus(seed, MESH_SHARD_DOCS)
+    corpora = [build_synthetic_corpus(seed, MESH_SHARD_DOCS,
+                                      keep_stream=True)
                for seed in MESH_SEEDS]
     log(f"[phase 7] pmc-4x256k corpora: {[c['block_docs'].shape[0] for c in corpora]} "
         f"posting blocks ({time.perf_counter() - t0:.1f} s)")
@@ -2114,7 +2159,9 @@ def mesh_phase(torch, Node, Segment, cuda_kernels, queries, top_rank_term,
     host_copy_note(gnode, "pmc4", 2 * len(reqs), "phase 7 mesh plane")
     host_copy_note(gnode, "pmc4h", 2 * len(reqs), "phase 7 host rung")
     log(f"[phase 7] planes: {json.dumps(svc.search_stats()['planes'])}")
-    return gnode, cnode, gsegs, csegs, shard_arrays, held["segment_sum"]
+    streams = [(c["tokens"], c["doc_len"]) for c in corpora]
+    return (gnode, cnode, gsegs, csegs, shard_arrays, held["segment_sum"],
+            streams)
 
 
 def _same_exact(got, want):
@@ -5263,6 +5310,489 @@ def staging_phase(torch, Segment, cuda_kernels, tsc, ssum, knn, reqs7,
     return out
 
 
+# ----------------------------------------------------------------------
+# Phase 15: the query DSL beyond match (pmcq)
+# ----------------------------------------------------------------------
+
+# pmcq's abstract: the corpus generator with these seeds, empty on 3% of
+# docs (the field missing there), under an LM-Dirichlet similarity
+QDSL_ABSTRACT_SEEDS = (17, 18, 19, 20)
+QDSL_EMPTY_SHARE = 0.03
+QDSL_REPS = 2  # samples a kind and twin: the main path's run and one more
+
+
+def stream_positions(torch, tokens, doc_len, tid_base):
+    """The flat (term id, doc, position) int32 columns of a token stream
+    in doc order, sorted by (term, doc, position): a stable sort by term
+    on the card keeps each term's tokens in stream order. A token's
+    position is its index within its doc."""
+    dev = torch.device("cuda", 0)
+    lens = torch.from_numpy(np.asarray(doc_len, np.int64)).to(dev)
+    starts = torch.cumsum(lens, 0) - lens
+    n = int(lens.sum())
+    docs = torch.repeat_interleave(
+        torch.arange(len(doc_len), device=dev, dtype=torch.int32), lens,
+        output_size=n)
+    pos = (torch.arange(n, device=dev, dtype=torch.int64)
+           - torch.repeat_interleave(starts, lens, output_size=n))
+    terms, order = torch.sort(torch.from_numpy(tokens).to(dev), stable=True)
+    return ((terms + tid_base).int().cpu().numpy(),
+            docs[order].cpu().numpy(), pos[order].int().cpu().numpy())
+
+
+class _QSources(_Sources):
+    """pmcq's stored sources: venue and year as phase 7's, the title and
+    abstract text rebuilt from the token streams on demand."""
+
+    def __init__(self, corpus, title, abstract):
+        super().__init__(corpus)
+        self._words = [term_token(i) for i in range(VOCAB)]
+        self._fields = []
+        for name, (tokens, lens) in (("title", title), ("abstract", abstract)):
+            ends = np.cumsum(lens)
+            self._fields.append((name, tokens, ends - lens, ends))
+
+    def __getitem__(self, d):
+        src = super().__getitem__(d)
+        for name, tokens, lo, hi in self._fields:
+            if hi[d] > lo[d]:
+                src[name] = " ".join(self._words[t]
+                                     for t in tokens[lo[d]: hi[d]].tolist())
+        return src
+
+
+def qdsl_segment_arrays(torch, title_arrays, title_stream, abstract, sh,
+                        vecs, exists):
+    """pmcq's shard ``sh``: phase 7's title, venue, year and emb beside
+    the ``abstract`` corpus, both fields with positions as flat columns
+    (the abstract's term ids first: its keys sort first)."""
+    from elasticsearch_tpu_torch.index.segment import FIELD_SEP
+
+    n = abstract["n_docs"]
+    n_abs_blocks = abstract["block_docs"].shape[0]
+    a = dict(title_arrays)
+    abs_cols = stream_positions(torch, abstract["tokens"],
+                                abstract["doc_len"], 0)
+    title_cols = stream_positions(torch, *title_stream, VOCAB)
+    a.update(
+        term_keys=[f"abstract{FIELD_SEP}{term_token(i)}"
+                   for i in range(VOCAB)] + title_arrays["term_keys"],
+        term_block_start=np.concatenate([
+            abstract["term_block_start"],
+            title_arrays["term_block_start"] + n_abs_blocks]),
+        term_block_count=np.concatenate([
+            abstract["n_blocks_per_term"],
+            title_arrays["term_block_count"]]),
+        term_doc_freq=np.concatenate([abstract["term_df"],
+                                      title_arrays["term_doc_freq"]]),
+        block_docs=np.concatenate([abstract["block_docs"],
+                                   title_arrays["block_docs"]]),
+        block_tfs=np.concatenate([abstract["block_tfs"],
+                                  title_arrays["block_tfs"]]),
+        norms=np.concatenate([abstract["norms"], title_arrays["norms"]]),
+        field_stats={"abstract": {
+            "doc_count": int((abstract["doc_len"] > 0).sum()),
+            "sum_ttf": abstract["sum_ttf"]},
+            **title_arrays["field_stats"]},
+        field_norm_idx={"abstract": 0, "title": 1},
+        doc_ids=[f"q{sh}p{i}" for i in range(n)],
+        sources=_QSources(abstract, title_stream,
+                          (abstract["tokens"], abstract["doc_len"])),
+        positions=tuple(np.concatenate([x, y])
+                        for x, y in zip(abs_cols, title_cols)),
+    )
+    rows = slice(sh * MESH_SHARD_DOCS, (sh + 1) * MESH_SHARD_DOCS)
+    a["vector_columns"] = {"emb": dict(
+        vectors=vecs[rows], exists=exists[rows], dims=KNN_DIMS,
+        count=int(exists[rows].sum()))}
+    return a
+
+
+def qdsl_requests(queries):
+    """Phase 15's (kind, body) requests, phase 7's draws where a term is
+    needed."""
+    tok = term_token
+
+    def text(q):
+        return " ".join(tok(t) for t in q)
+
+    rng = np.random.RandomState(15)
+    ids = [f"q{sh}p{int(d)}" for sh in range(4)
+           for d in rng.choice(MESH_SHARD_DOCS, 25, replace=False)]
+    mm_best = {"multi_match": {"query": text(queries[0]),
+                               "fields": ["title^2", "abstract"],
+                               "tie_breaker": 0.3}}
+    return [
+        ("multi_match_best", {"query": mm_best}),
+        ("multi_match_most", {"query": {"multi_match": {
+            "query": text(queries[1]), "fields": ["title", "abstract"],
+            "type": "most_fields"}}}),
+        ("dis_max", {"query": {"dis_max": {"queries": [
+            {"match": {"title": text(queries[2])}},
+            {"match": {"abstract": text(queries[3])}}]}}}),
+        ("prefix", {"query": {"prefix": {"title": "t0012"}}}),
+        ("wildcard", {"query": {"wildcard": {"title": "t00?7*"}}}),
+        ("regexp", {"query": {"regexp": {"title": "t0[0-2]5[0-9]{2}"}}}),
+        ("fuzzy", {"query": {"fuzzy": {"title": {"value": "t00123",
+                                                 "fuzziness": 1}}}}),
+        ("exists", {"query": {"exists": {"field": "abstract"}}}),
+        ("ids", {"query": {"ids": {"values": ids}}, "size": 100}),
+        ("function_score_fvf", {"query": {"function_score": {
+            "query": {"match": {"title": text(queries[4])}},
+            "field_value_factor": {"field": "year", "modifier": "log1p"},
+            "boost_mode": "sum"}}}),
+        ("function_score_random", {"query": {"function_score": {
+            "query": {"match": {"title": text(queries[5])}},
+            "random_score": {"seed": 15}}}}),
+        ("match_phrase_big", {"query": {"match_phrase": {
+            "title": "t00000 t00001"}}}),
+        ("match_phrase", {"query": {"match_phrase": {
+            "title": "t00050 t00051"}}}),
+        ("match_phrase_slop2", {"query": {"match_phrase": {"title": {
+            "query": "t00050 t00051", "slop": 2}}}}),
+        ("match_phrase_prefix", {"query": {"match_phrase_prefix": {
+            "title": "t00000 t0001"}}}),
+        ("query_string", {"query": {"query_string": {
+            "query": "title:(t00050 OR t00051) AND NOT abstract:t00007"}}}),
+        ("query_string_not", {"query": {"query_string": {
+            "query": "title:(t00050 OR t00051) -abstract:t00007"}}}),
+        ("query_string_phrase", {"query": {"query_string": {
+            "query": 'title:"t00050 t00051"'}}}),
+        ("terms_agg_multi_match", {"size": 0, "query": mm_best, "aggs": {
+            "venues": {"terms": {"field": "venue", "size": 10}}}}),
+        ("more_like_this", {"query": {"more_like_this": {
+            "fields": ["title", "abstract"], "like": [{"_id": "q1p77"}]}}}),
+    ]
+
+
+def bigram_docs(torch, tokens, doc_len, a, b):
+    """The reference count of docs holding term ``b`` right after ``a``,
+    straight from a token stream (on the card)."""
+    dev = torch.device("cuda", 0)
+    t = torch.from_numpy(tokens).to(dev)
+    lens = torch.from_numpy(np.asarray(doc_len, np.int64)).to(dev)
+    doc = torch.repeat_interleave(torch.arange(len(doc_len), device=dev),
+                                  lens, output_size=t.numel())
+    hit = (t[:-1] == a) & (t[1:] == b) & (doc[:-1] == doc[1:])
+    return int(torch.unique(doc[:-1][hit]).numel())
+
+
+@contextlib.contextmanager
+def timing_phrase_intersections(Q):
+    """While the block runs, the host seconds of every phrase position
+    intersection (``query_dsl.phrase_freqs``) add to ``spent[0]``."""
+    orig = Q.phrase_freqs
+    spent = [0.0]
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return orig(*args, **kw)
+        finally:
+            spent[0] += time.perf_counter() - t0
+
+    Q.phrase_freqs = timed
+    try:
+        yield spent
+    finally:
+        Q.phrase_freqs = orig
+
+
+def query_dsl_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, queries,
+                    shard_arrays, title_streams, vecs, exists, ops,
+                    ingest_rate, errs):
+    """Phase 15: the query DSL beyond ``match`` at full width (pmcq), and
+    custom analysis on ingest-20k.
+
+    15a: pmc-4x256k's title (phase 7's corpora) beside an ``abstract``
+    (the generator with seeds 17-20, empty on 3% of docs, under an
+    LM-Dirichlet similarity), both with positions from their token
+    streams, in three twins: ``pmcq`` on the card node (the mesh plane),
+    ``pmcqh`` on the card node (``search.mesh: false``, the host rung) and
+    ``pmcq`` on a cpu node. Every request kind answers equally on the
+    three (ids, totals and buckets exact, scores rtol 1e-5), its plane
+    logged; p50 per kind on pmcq and pmcqh; each phrase kind's host
+    intersection ms apart from the rest; each multi-term kind's expanded
+    lanes per shard; ``?q=`` over HTTP on ``_search`` and ``_count``.
+    Every 1a launch held bit for bit against its plain version, every
+    kernel-2 call (and its combine) replayed through its plain version.
+    15b: phase 3's docs bulked into an index with a custom analyzer
+    (html_strip, standard, lowercase, stop, stemmer) on ``title`` and the
+    ``english`` analyzer on ``title.en`` (docs/s beside phase 3's), the
+    cpu node adopting its segments; match, match_phrase and query_string
+    answer equally on both."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from elasticsearch_tpu_torch.rest.http_server import HttpServer
+    from elasticsearch_tpu_torch.search import query_dsl as Q
+
+    t_phase = time.perf_counter()
+    report = {}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(4) as pool:
+        abstracts = list(pool.map(lambda seed: build_synthetic_corpus(
+            seed, MESH_SHARD_DOCS, empty_share=QDSL_EMPTY_SHARE,
+            keep_stream=True), QDSL_ABSTRACT_SEEDS))
+    report["abstract_corpora_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    arrays = [qdsl_segment_arrays(torch, shard_arrays[sh], title_streams[sh],
+                                  abstracts[sh], sh, vecs, exists)
+              for sh in range(4)]
+    report["segment_arrays_s"] = time.perf_counter() - t0
+    log(f"[phase 15] pmcq arrays: abstract corpora "
+        f"{report['abstract_corpora_s']:.1f} s, positions and segment "
+        f"arrays {report['segment_arrays_s']:.1f} s; positions per shard "
+        f"{[len(a['positions'][0]) for a in arrays]}; abstract docs "
+        f"{[a['field_stats']['abstract']['doc_count'] for a in arrays]}")
+    mapping = {"_doc": {"properties": {
+        "title": {"type": "text"},
+        "abstract": {"type": "text", "similarity": "lm"},
+        "venue": {"type": "keyword"}, "year": {"type": "long"},
+        "emb": {"type": "dense_vector", "dims": KNN_DIMS,
+                "similarity": "cosine"}}}}
+    sim = {"lm": {"type": "LMDirichlet", "mu": 2000}}
+    gnode, cnode = Node(device="cuda"), Node(device="cpu")
+    for node in (gnode, cnode):
+        node.create_index("pmcq", {"settings": {
+            "number_of_shards": 4, "similarity": sim}, "mappings": mapping})
+    gnode.create_index("pmcqh", {"settings": {
+        "number_of_shards": 4, "similarity": sim,
+        "search": {"mesh": False}}, "mappings": mapping})
+    for sh, a in enumerate(arrays):
+        gs = Segment.from_arrays(f"pmcq_{sh}_seg_1", device="cuda", **a)
+        cs = Segment.from_arrays(f"pmcq_{sh}_seg_1", device="cpu", **a)
+        for index in ("pmcq", "pmcqh"):
+            gnode.indices[index].shards[sh].engine.adopt_segment(gs)
+        cnode.indices["pmcq"].shards[sh].engine.adopt_segment(cs)
+    segs = [gnode.indices["pmcq"].shards[sh].engine.segments[0]
+            for sh in range(4)]
+    csegs = [cnode.indices["pmcq"].shards[sh].engine.segments[0]
+             for sh in range(4)]
+    # each segment's own tables (postings, norms, the kernel's tables over
+    # both fields) staged side by side: host numpy, then the copies
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda seg: seg.device_arrays(), segs + csegs))
+    torch.cuda.synchronize()
+    # the mesh planes stage their generations, and the segments their id
+    # maps, before the main path's run: its first sample times the query
+    for node in (gnode, cnode):
+        node.search("pmcq", {"query": {"match": {"title": "t00001"}},
+                             "size": 1})
+    for seg in segs + csegs:
+        seg.id_to_doc()
+    report["stage_s"] = time.perf_counter() - t0
+    report["build_s"] = time.perf_counter() - t_phase
+    log(f"[phase 15] the 8 segments' own tables and both mesh generations "
+        f"staged in {report['stage_s']:.1f} s; pmcq built in "
+        f"{report['build_s']:.1f} s")
+
+    reqs = qdsl_requests(queries)
+    # expanded lanes per shard of each multi-term kind
+    expansions = {}
+    for kind, body in reqs:
+        qb = Q.parse_query(body["query"])
+        if isinstance(qb, Q.MultiTermExpandingBuilder):
+            expansions[kind] = [len(qb.expand(seg)[:Q.MAX_EXPANSIONS])
+                                for seg in segs]
+    log(f"[phase 15] expanded lanes per shard: {json.dumps(expansions)}")
+    check(expansions["prefix"] == [10] * 4,
+          f"phase 15 prefix t0012 expands to 10 terms a shard "
+          f"({expansions['prefix']})")
+    report["expansions"] = expansions
+
+    planes, p50, phrase_ms, cpu_ms, first = {}, {}, {}, {}, {}
+    cuda_kernels.reset_launch_counts()
+    zero_searcher_counters(gnode)
+    t0 = time.perf_counter()
+    samples = {}  # (kind, index) -> [(ms, host intersection ms)]
+
+    def timed_search(kind, index, body, spent):
+        spent[0] = 0.0
+        t1 = time.perf_counter()
+        r = gnode.search(index, dict(body))
+        torch.cuda.synchronize()
+        samples.setdefault((kind, index), []).append(
+            ((time.perf_counter() - t1) * 1000, spent[0] * 1000))
+        return r
+
+    # the main path: each request once on each twin, every launch kept
+    with recording_tile_launches(
+            tsc, lambda k: launch_name(k) == "tile_scoring") as kept, \
+            recording_segsum_calls(ssum) as kept_seg, \
+            recording_mask_segsum(ssum) as kept_mask, \
+            timing_phrase_intersections(Q) as spent:
+        for kind, body in reqs:
+            gr = timed_search(kind, "pmcq", body, spent)
+            hr = timed_search(kind, "pmcqh", body, spent)
+            t1 = time.perf_counter()
+            cr = cnode.search("pmcq", dict(body))
+            cpu_ms[kind] = (time.perf_counter() - t1) * 1000
+            same_response(gr, cr, f"phase 15 {kind} (mesh vs cpu)")
+            same_response(hr, cr, f"phase 15 {kind} (host rung vs cpu)")
+            check(gr["_plane"] == cr["_plane"],
+                  f"phase 15 {kind}: the card and the cpu node serve from "
+                  f"one plane ({gr['_plane']}, {cr['_plane']})")
+            check(hr["_plane"] == "host",
+                  f"phase 15 {kind} on pmcqh: host ({hr['_plane']})")
+            planes[kind] = gr["_plane"]
+            first[(kind, "resp")] = gr
+        # ?q= over HTTP on _search and _count
+        srv = HttpServer(gnode, port=0)
+        srv.start()
+        try:
+            client = HttpClient(srv.port)
+            st, r = client.call("GET", "/pmcq/_search?q=title:t00050")
+            cr = cnode.search("pmcq", {"query": {"query_string": {
+                "query": "title:t00050"}}})
+            check(st == 200, f"phase 15 GET _search?q=: {st}")
+            same_response(r, _as_json(cr), "phase 15 _search?q= over HTTP")
+            qs = "title:t00050%20AND%20abstract:t00007"
+            st, r = client.call("GET", f"/pmcq/_count?q={qs}")
+            cr = cnode.search("pmcq", {"size": 0, "query": {"query_string": {
+                "query": "title:t00050 AND abstract:t00007"}}})
+            check(st == 200 and r["count"] == cr["hits"]["total"] > 0,
+                  f"phase 15 _count?q= over HTTP: {r} == "
+                  f"{cr['hits']['total']}")
+            client.close()
+        finally:
+            srv.stop()
+    report["serve_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    p15 = dict(cuda_kernels.LAUNCHES)
+    log(f"[phase 15] kernel launches: {p15}")
+    t0 = time.perf_counter()
+    held = {}
+    held["tile_scoring"] = check_kept_launches(
+        torch, tsc, kept, errs, "phase 15").get("tile_scoring", 0)
+    check_kept_segsum(torch, ssum, kept_seg, "phase 15", errs, held)
+    check_kept_mask_segsum(torch, ssum, kept_mask, "phase 15", errs, held)
+    del kept, kept_seg, kept_mask
+    report["hold_s"] = time.perf_counter() - t0
+    for k in ("tile_scoring", "segment_sum", "segment_sum_combine"):
+        check(p15[k] > 0, f"phase 15 launched {k}")
+        check(held.get(k, 0) == p15[k],
+              f"every {k} launch of phase 15 held against plain "
+              f"({held.get(k, 0)} of {p15[k]})")
+    # what comes out is right: totals against references of their own
+    gx = first[("exists", "resp")]["hits"]["total"]
+    want = sum(a["field_stats"]["abstract"]["doc_count"] for a in arrays)
+    check(gx == want, f"phase 15 exists total {gx} == docs holding an "
+                      f"abstract {want}")
+    check(first[("ids", "resp")]["hits"]["total"] == 100,
+          "phase 15 ids: 100 docs")
+    want = sum(bigram_docs(torch, *title_streams[sh], 50, 51)
+               for sh in range(4))
+    got = first[("match_phrase", "resp")]["hits"]["total"]
+    check(got == want and got > 0,
+          f"phase 15 match_phrase total {got} == the bigram count of the "
+          f"token streams {want}")
+    # the latency of each kind: the main path's run and QDSL_REPS - 1 more
+    # on each card twin (after the main path's count; p50 of two runs is
+    # their mean), the phrase intersection timed apart
+    t0 = time.perf_counter()
+    with timing_phrase_intersections(Q) as spent:
+        for kind, body in reqs:
+            times = {}
+            for index in ("pmcq", "pmcqh"):
+                for _ in range(QDSL_REPS - 1):
+                    timed_search(kind, index, body, spent)
+                ms, host_ms = zip(*samples[(kind, index)])
+                times[index] = float(np.median(ms))
+                if "phrase" in kind:
+                    phrase_ms.setdefault(kind, {})[index] = {
+                        "intersection_ms": float(np.median(host_ms)),
+                        "rest_ms": float(np.median(ms)
+                                         - np.median(host_ms))}
+            p50[kind] = times
+            log(f"[phase 15] {kind}: plane {planes[kind]}, total "
+                f"{first[(kind, 'resp')]['hits']['total']}, p50 pmcq "
+                f"{times['pmcq']:.3f} ms, pmcqh {times['pmcqh']:.3f} ms "
+                f"(first on pmcq {samples[(kind, 'pmcq')][0][0]:.1f} ms, "
+                f"cpu node {cpu_ms[kind]:.1f} ms)")
+    report["time_s"] = time.perf_counter() - t0
+    fails = plane_failures(gnode.indices["pmcq"], gnode.indices["pmcqh"],
+                           cnode.indices["pmcq"])
+    check(not any(fails), f"phase 15 zero plane faults (got {fails})")
+    log(f"[phase 15] planes: {json.dumps(planes)}")
+    log(f"[phase 15] ladder: "
+        f"{json.dumps(gnode.indices['pmcq'].search_stats()['planes'])}")
+    log(f"[phase 15] phrase intersection on the host: "
+        f"{json.dumps(phrase_ms)}")
+    report.update(planes=planes, p50_ms=p50, phrase_ms=phrase_ms,
+                  cpu_ms={k: v for k, v in cpu_ms.items()},
+                  launches=dict(p15), held=held)
+    gnode.close()
+    cnode.close()
+    del arrays, abstracts
+
+    # 15b: custom analysis on phase 3's docs
+    t0 = time.perf_counter()
+    analysis = {"filter": {"en_stop": {"type": "stop",
+                                       "stopwords": "_english_"}},
+                "analyzer": {"prose": {
+                    "type": "custom", "char_filter": ["html_strip"],
+                    "tokenizer": "standard",
+                    "filter": ["lowercase", "en_stop", "stemmer"]}}}
+    body = {"settings": {"number_of_shards": 5, "analysis": analysis},
+            "mappings": {"_doc": {"properties": {
+                "title": {"type": "text", "analyzer": "prose", "fields": {
+                    "en": {"type": "text", "analyzer": "english"}}},
+                "venue": {"type": "keyword"}, "year": {"type": "long"}}}}}
+    gA, cA = Node(device="cuda"), Node(device="cpu")
+    for node in (gA, cA):
+        node.create_index("docs_an", body)
+    an_ops = [(a, {**m, "_index": "docs_an"}, src) for a, m, src in ops]
+    cuda_kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    r = gA.bulk(an_ops)
+    gA.refresh("docs_an")
+    torch.cuda.synchronize()
+    rate = len(an_ops) / (time.perf_counter() - t1)
+    check(not r["errors"], "phase 15b bulk without errors")
+    _adopt_copies(gA, cA, "docs_an", Segment)
+    log(f"[phase 15b] bulk {len(an_ops)} docs into two analyzed fields "
+        f"(custom prose, english) + refresh: {rate:.0f} docs/s; phase 3's "
+        f"standard analyzer in this call: {ingest_rate:.0f} docs/s")
+    q = " ".join(term_token(t) for t in queries[6])
+    with recording_tile_launches(
+            tsc, lambda k: launch_name(k) == "tile_scoring") as kept, \
+            recording_segsum_calls(ssum) as kept_seg:
+        answers = [(kind, {"query": qbody, "size": 20}) for kind, qbody in (
+            ("match", {"match": {"title": q}}),
+            ("match_en", {"match": {"title.en": q}}),
+            ("match_phrase", {"match_phrase": {"title": "t00000 t00001"}}),
+            ("match_phrase_en", {"match_phrase": {
+                "title.en": {"query": "t00002 t00000", "slop": 1}}}),
+            ("query_string", {"query_string": {
+                "query": "title:t00003 AND title.en:\"t00000 t00001\""}}))]
+        for kind, b in answers:
+            gr, cr = gA.search("docs_an", b), cA.search("docs_an", b)
+            same_response(gr, cr, f"phase 15b {kind}")
+            check(gr["hits"]["total"] > 0, f"phase 15b {kind} matches")
+    torch.cuda.synchronize()
+    pa = dict(cuda_kernels.LAUNCHES)
+    n_held = check_kept_launches(torch, tsc, kept, errs,
+                                 "phase 15b").get("tile_scoring", 0)
+    check_kept_segsum(torch, ssum, kept_seg, "phase 15b", errs, held)
+    check(pa["tile_scoring"] > 0 and n_held == pa["tile_scoring"],
+          f"every 1a launch of phase 15b held against plain ({n_held} of "
+          f"{pa['tile_scoring']})")
+    held["tile_scoring"] += n_held
+    for k, v in pa.items():
+        report["launches"][k] = report["launches"].get(k, 0) + v
+    gA.close()
+    cA.close()
+    report["analysis"] = {"docs_per_s": rate, "phase3_docs_per_s": ingest_rate,
+                          "seconds": time.perf_counter() - t0}
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[phase 15] {report['seconds']:.1f} s (build "
+        f"{report['build_s']:.1f}, serve {report['serve_s']:.1f}, hold "
+        f"{report['hold_s']:.1f}, timing {report['time_s']:.1f}, 15b "
+        f"{report['analysis']['seconds']:.1f})")
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -5566,7 +6096,8 @@ def main() -> int:
 
     # ---------------- phase 7: the mesh plane at real size ---------------
     clock("phase 7")
-    g7, c7, g7segs, c7segs, shard_arrays, seg_held["phase 7"] = mesh_phase(
+    (g7, c7, g7segs, c7segs, shard_arrays, seg_held["phase 7"],
+     title_streams) = mesh_phase(
         torch, Node, Segment, cuda_kernels, queries, top_rank_term, lat,
         launches, knn_vecs, knn_exists, batch_errs)
 
@@ -5627,6 +6158,16 @@ def main() -> int:
         shard_arrays, knn_vecs, knn_exists, queries, ops, batch_errs)
     seg_held["phase 14"] = staging_report["held"].get("segment_sum", 0)
     for k, v in staging_report["launches"].items():
+        launches[k] += v
+
+    # ---------------- phase 15: the query DSL on the card -----------------
+    clock("phase 15")
+    qdsl_report = query_dsl_phase(
+        torch, Node, Segment, cuda_kernels, tsc, ssum, queries, shard_arrays,
+        title_streams, knn_vecs, knn_exists, ops, INGEST_DOCS / ingest_s,
+        batch_errs)
+    seg_held["phase 15"] = qdsl_report["held"].get("segment_sum", 0)
+    for k, v in qdsl_report["launches"].items():
         launches[k] += v
 
     # ---------------- phase 5: latency summary ---------------------------
@@ -5730,7 +6271,8 @@ def main() -> int:
              for e in knn_entries],
          **knn_staging},
     ], "rest": rest_report, "aggs": aggs_report,
-        "durability": durability_report, "staging": staging_report}
+        "durability": durability_report, "staging": staging_report,
+        "query_dsl": qdsl_report}
     for name, key, replaces, extra in (
             ("tile_scoring_packed", "tile_scoring_packed", 656,
              ("ms_with_counts", "bound_ms_with_counts", "plan")),
@@ -5798,7 +6340,8 @@ def _adopt_copies(gnode, cnode, index, Segment, device="cpu",
                 doc_ids=seg.doc_ids, sources=seg.sources,
                 numeric_columns={f: vars(c) for f, c in seg.numeric_columns.items()},
                 ordinal_columns={f: vars(c) for f, c in seg.ordinal_columns.items()},
-                seqnos=seg.seqnos, versions=seg.versions, device=device)
+                seqnos=seg.seqnos, versions=seg.versions,
+                positions=seg.positions, device=device)
             engine.adopt_segment(copy)
         engine.mapper_service.merge(shard.engine.mapper_service.mapping_dict())
 

@@ -221,6 +221,16 @@ class Settings:
             f"Failed to parse value [{v}] as only [true] or [false] are "
             f"allowed for setting [{key}]")
 
+    def get_list(self, key: str,
+                 default: Optional[list] = None) -> Optional[list]:
+        """A list value, or a comma-separated string split on commas."""
+        v = self._data.get(key)
+        if v is None:
+            return default
+        if isinstance(v, (list, tuple)):
+            return list(v)
+        return [p.strip() for p in str(v).split(",") if p.strip()]
+
     def get_time(self, key: str,
                  default: Optional[float] = None) -> Optional[float]:
         v = self._data.get(key)

@@ -28,6 +28,8 @@ directory for such a shard; nothing on one node reads it back.
 
 from __future__ import annotations
 
+import itertools
+
 import threading
 import uuid as _uuid
 from dataclasses import dataclass
@@ -251,11 +253,15 @@ class Engine:
                 f"{self.device}")
         with self._lock:
             self._stamp_owner(seg)
-            for local in np.flatnonzero(seg.live[: seg.num_docs]):
-                local = int(local)
-                self.version_map[seg.doc_ids[local]] = VersionEntry(
-                    int(seg.versions[local]), int(seg.seqnos[local]),
-                    seg.name, local)
+            # one entry a live doc, built by C-level maps (a full-width
+            # segment holds 262,144 of them)
+            lives = np.flatnonzero(seg.live[: seg.num_docs])
+            at = lives.tolist()
+            self.version_map.update(zip(
+                map(seg.doc_ids.__getitem__, at),
+                map(VersionEntry, seg.versions[lives].tolist(),
+                    seg.seqnos[lives].tolist(), itertools.repeat(seg.name),
+                    at)))
             if seg.num_docs:
                 self.note_external_seqno(int(seg.seqnos.max()))
             self.segments.append(seg)

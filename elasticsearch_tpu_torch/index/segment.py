@@ -41,7 +41,10 @@ to). ``release_device`` returns the scope's bytes.
 
 ``positions`` holds each term's positions per doc (``{term_id: {doc:
 int32 array}}``, the analyzer's token index), as the JAX segment keeps
-them for phrase queries; the store writes and reads them.
+them for phrase queries; the store writes and reads them. A phrase query
+reads one term's run at a time (``SegmentPositions.term_run``).
+``term_ttf`` (a term's total frequency, for the DFR, IB and LM
+similarities) sums its tf blocks on first use, cached per term.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ import json
 import threading
 import time as _time
 from array import array
+from collections import Counter
 from collections.abc import Mapping
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -148,55 +152,123 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 
 class SegmentPositions(Mapping):
     """A segment's phrase positions, ``{term_id: {doc: int32 array}}``,
-    built on first access from what the segment was made of: a sealed
+    read a term at a time from what the segment was made of: a sealed
     segment's three flat int32 columns sorted by (term, doc, position)
     (``from_flat``), or a store's ``positions.json`` bytes as read
-    (``from_json_bytes``), decoded on first access. The port serves no
-    phrase query yet, so indexing and a store load pay no Python object a
-    (term, doc) and a load parses no JSON; ``json_bytes`` gives the
-    store's form without building the nested arrays (a loaded segment's
-    bytes as they were read)."""
+    (``from_json_bytes``, parsed on the first access). ``term_run(tid)``
+    slices one term's (docs, positions) run out of the flat columns with a
+    ``np.searchsorted`` on the term column, and ``tid in`` / ``[tid]``
+    build that term's nested form alone, cached per term: a phrase query
+    decodes the two or three terms it reads, never the whole segment.
+    ``json_bytes`` gives the store's form without building the nested
+    arrays (a loaded segment's bytes as they were read)."""
+
+    # the int64 phrase keys kept per segment (the hottest terms of recent
+    # phrases)
+    KEYS_CACHE_BYTES = 64 << 20
 
     def __init__(self, flat=None, text: Optional[bytes] = None):
         self._flat = flat
         self._text = text
         self._raw: Optional[dict] = None
-        self._nested: Optional[Dict[int, Dict[int, np.ndarray]]] = None
+        self._terms: Dict[int, Dict[int, np.ndarray]] = {}
+        self._runs: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+        self._keys: Dict[int, np.ndarray] = {}
+        self._keys_bytes = 0
+        self._tids: Optional[List[int]] = None
 
     @classmethod
     def from_flat(cls, tids: np.ndarray, docs: np.ndarray,
                   at: np.ndarray) -> "SegmentPositions":
-        return cls(flat=(tids, docs, at))
+        return cls(flat=(np.asarray(tids, np.int32),
+                         np.asarray(docs, np.int32),
+                         np.asarray(at, np.int32)))
 
     @classmethod
     def from_json_bytes(cls, text: bytes) -> "SegmentPositions":
         return cls(text=text)
 
-    def _groups(self):
-        """(term, doc, lo, hi) runs of the flat columns."""
-        tids, docs, _at = self._flat
-        if not len(tids):
-            return []
-        cut = np.flatnonzero((tids[1:] != tids[:-1])
-                             | (docs[1:] != docs[:-1])) + 1
-        starts = np.concatenate([[0], cut]).tolist()
-        ends = np.append(cut, len(tids)).tolist()
-        return zip(tids[starts].tolist(), docs[starts].tolist(), starts, ends)
+    @classmethod
+    def from_mapping(cls, positions: Mapping) -> "SegmentPositions":
+        """From ``{term_id: {doc: positions}}``: the flat columns, sorted
+        by (term, doc, position)."""
+        tids, docs, at = [], [], []
+        for tid, per_doc in sorted((int(t), d) for t, d in positions.items()):
+            for doc, pos in sorted((int(d), p) for d, p in per_doc.items()):
+                pos = np.sort(np.asarray(pos, np.int32))
+                tids.append(np.full(len(pos), tid, np.int32))
+                docs.append(np.full(len(pos), doc, np.int32))
+                at.append(pos)
+        if not at:
+            return cls.from_flat(*(np.zeros(0, np.int32),) * 3)
+        return cls.from_flat(np.concatenate(tids), np.concatenate(docs),
+                             np.concatenate(at))
 
-    def _build(self) -> Dict[int, Dict[int, np.ndarray]]:
-        nested = self._nested
-        if nested is None:
-            nested = {}
+    def term_run(self, tid: int) -> Tuple[np.ndarray, np.ndarray]:
+        """One term's (docs, positions) int32 columns, sorted by (doc,
+        position); empty when the term has no positions."""
+        tid = int(tid)
+        run = self._runs.get(tid)
+        if run is None:
             if self._flat is not None:
-                at = self._flat[2]
-                for tid, doc, lo, hi in self._groups():
-                    nested.setdefault(tid, {})[doc] = at[lo:hi]
-            elif self._text is not None:
-                nested = {int(tid): {int(doc): np.asarray(pos, np.int32)
-                                     for doc, pos in per_doc.items()}
-                          for tid, per_doc in self.json_dict().items()}
-            self._nested = nested
+                tids, docs, at = self._flat
+                # needles of the column's dtype: int64 needles would make
+                # numpy convert the whole column on every call
+                lo, hi = np.searchsorted(
+                    tids, np.asarray([tid, tid + 1], tids.dtype))
+                run = (docs[lo:hi], at[lo:hi])
+            else:
+                per_doc = self.json_dict().get(str(tid), {}) \
+                    if self._text is not None else {}
+                keys = sorted(per_doc, key=int)
+                lens = [len(per_doc[k]) for k in keys]
+                run = (np.repeat(np.asarray([int(k) for k in keys], np.int32),
+                                 lens),
+                       np.asarray([p for k in keys for p in per_doc[k]],
+                                  np.int32))
+            self._runs[tid] = run
+        return run
+
+    def term_keys(self, tid: int) -> np.ndarray:
+        """One term's positions as int64 keys ``doc << 32 | position``,
+        ascending: what a phrase intersection searches. The keys of the
+        terms read last are kept, up to ``KEYS_CACHE_BYTES``."""
+        tid = int(tid)
+        keys = self._keys.pop(tid, None)
+        if keys is None:
+            docs, at = self.term_run(tid)
+            keys = (docs.astype(np.int64) << 32) | at.astype(np.int64)
+            self._keys_bytes += keys.nbytes
+            while self._keys and self._keys_bytes > self.KEYS_CACHE_BYTES:
+                self._keys_bytes -= self._keys.pop(
+                    next(iter(self._keys))).nbytes
+        self._keys[tid] = keys  # the newest last
+        return keys
+
+    def _term(self, tid: int) -> Dict[int, np.ndarray]:
+        nested = self._terms.get(tid)
+        if nested is None:
+            docs, at = self.term_run(tid)
+            nested = {}
+            if len(docs):
+                cut = np.flatnonzero(docs[1:] != docs[:-1]) + 1
+                starts = np.concatenate([[0], cut]).tolist()
+                ends = np.append(cut, len(docs)).tolist()
+                nested = {d: at[lo:hi] for d, lo, hi in
+                          zip(docs[starts].tolist(), starts, ends)}
+            self._terms[tid] = nested
         return nested
+
+    def term_ids(self) -> List[int]:
+        """The term ids that hold positions, ascending."""
+        if self._tids is None:
+            if self._flat is not None:
+                self._tids = np.unique(self._flat[0]).tolist()
+            elif self._text is not None:
+                self._tids = sorted(int(t) for t in self.json_dict())
+            else:
+                self._tids = []
+        return self._tids
 
     def json_bytes(self) -> bytes:
         """The store's ``positions.json`` bytes."""
@@ -232,13 +304,16 @@ class SegmentPositions(Mapping):
                 for lo, hi in zip(t_lo, t_hi)}
 
     def __getitem__(self, tid):
-        return self._build()[tid]
+        nested = self._term(int(tid))
+        if not nested:
+            raise KeyError(tid)
+        return nested
 
     def __iter__(self):
-        return iter(self._build())
+        return iter(self.term_ids())
 
     def __len__(self):
-        return len(self._build())
+        return len(self.term_ids())
 
 
 def tensor_bytes(t: torch.Tensor) -> int:
@@ -301,11 +376,14 @@ class Segment:
         self.ordinal_columns = ordinal_columns
         self.vector_columns = vector_columns or {}
         # term_id -> {local_doc: int32 positions}, for phrase queries
-        self.positions = positions if positions is not None else {}
+        self.positions = (positions if isinstance(positions, SegmentPositions)
+                          else SegmentPositions.from_mapping(positions or {}))
         self.device = resolve_device(device)
         self.live = np.ones(self.nd_pad, dtype=bool)
         self.live[num_docs:] = False
         self._id_to_doc: Optional[Dict[str, int]] = None
+        self._ttf_cache: Dict[int, int] = {}
+        self._field_tokens: Dict[str, List[str]] = {}
         # a store load hands the masks it read; a sealed segment derives
         # them on first use (exists_masks)
         self._exists_masks: Optional[Dict[str, np.ndarray]] = exists_masks
@@ -350,7 +428,10 @@ class Segment:
         vectors are taken as they are (already on the bf16 grid).
         ``exists_masks`` (field -> [nd_pad] bool) are the masks a store
         holds; without them they are derived from the columns.
-        ``positions`` maps a term id to ``{doc: positions}``."""
+        ``positions`` is a ``SegmentPositions`` or the three flat int32
+        columns ``(term_ids, docs, positions)`` sorted by (term, doc,
+        position), both taken as they are, or a mapping of a term id to
+        ``{doc: positions}``."""
         n = len(doc_ids)
         seg = cls(
             name=name, num_docs=n, doc_ids=doc_ids, sources=sources,
@@ -378,9 +459,8 @@ class Segment:
             exists_masks=({f: np.asarray(m, bool)
                            for f, m in exists_masks.items()}
                           if exists_masks is not None else None),
-            positions={int(t): {int(d): np.asarray(p, np.int32)
-                                for d, p in per_doc.items()}
-                       for t, per_doc in (positions or {}).items()},
+            positions=(SegmentPositions.from_flat(*positions)
+                       if isinstance(positions, (tuple, list)) else positions),
         )
         live = np.asarray(live, bool)
         seg.live[: min(len(live), seg.nd_pad)] = live[: seg.nd_pad]
@@ -435,6 +515,28 @@ class Segment:
         lo = bisect.bisect_left(self.term_keys, prefix)
         hi = bisect.bisect_left(self.term_keys, prefix + "\uffff")
         return [(self.term_keys[i][len(prefix):], i) for i in range(lo, hi)]
+
+    def field_tokens(self, field_name: str) -> List[str]:
+        """A field's tokens in sorted order, cached: the term dictionary a
+        multi-term query (prefix, wildcard, regexp, fuzzy) expands
+        against."""
+        toks = self._field_tokens.get(field_name)
+        if toks is None:
+            toks = self._field_tokens[field_name] = [
+                t for t, _ in self.terms_for_field(field_name)]
+        return toks
+
+    def term_ttf(self, tid: int) -> int:
+        """Total term frequency (the sum of the term's tfs), the collection
+        statistic of the DFR, IB and LM similarities: summed from the tf
+        blocks on first use, cached per term."""
+        hit = self._ttf_cache.get(tid)
+        if hit is None:
+            start = int(self.term_block_start[tid])
+            cnt = int(self.term_block_count[tid])
+            hit = self._ttf_cache[tid] = int(
+                self.block_tfs[start:start + cnt].sum())
+        return hit
 
     @property
     def exists_masks(self) -> Dict[str, np.ndarray]:
@@ -867,9 +969,7 @@ class SegmentBuilder:
         self.versions.append(version)
         for field_name, tokens in parsed.terms.items():
             self.field_lengths.setdefault(field_name, {})[doc] = len(tokens)
-            counts: Dict[str, int] = {}
-            for tok in tokens:
-                counts[tok] = counts.get(tok, 0) + 1
+            counts = Counter(tokens)  # first-seen order, as the dict loop
             tok_kid = self._pos_tok_kid.setdefault(field_name, {})
             for tok, tf in counts.items():
                 key = f"{field_name}{FIELD_SEP}{tok}"
@@ -897,32 +997,28 @@ class SegmentBuilder:
         nd_pad = next_pow2(max(nd, 1))
         term_keys = sorted(self.postings.keys())
 
-        # --- block-pack postings ---
+        # --- block-pack postings: each term's (doc, tf) list in order, from
+        # its first block on, one scatter for all terms ---
         n_terms = len(term_keys)
-        term_block_start = np.zeros(n_terms, dtype=np.int32)
-        term_block_count = np.zeros(n_terms, dtype=np.int32)
-        term_doc_freq = np.zeros(n_terms, dtype=np.int32)
-        total_blocks = sum(
-            (len(p) + BLOCK - 1) // BLOCK for p in self.postings.values())
-        total_blocks = max(total_blocks, 1)
+        plists = [self.postings[key] for key in term_keys]
+        df = np.fromiter(map(len, plists), np.int64, n_terms)
+        nblocks = (df + BLOCK - 1) // BLOCK
+        term_doc_freq = df.astype(np.int32)
+        term_block_count = nblocks.astype(np.int32)
+        term_block_start = (np.cumsum(nblocks) - nblocks).astype(np.int32)
+        total_blocks = max(int(nblocks.sum()), 1)
+        flat = np.fromiter(itertools.chain.from_iterable(
+            itertools.chain.from_iterable(plists)), np.int64,
+            2 * int(df.sum())).reshape(-1, 2)
+        within = (np.arange(len(flat), dtype=np.int64)
+                  - np.repeat(np.cumsum(df) - df, df))
+        rows = np.repeat(term_block_start.astype(np.int64), df) \
+            + within // BLOCK
+        lanes = within % BLOCK
         block_docs = np.full((total_blocks, BLOCK), nd_pad, dtype=np.int32)
         block_tfs = np.zeros((total_blocks, BLOCK), dtype=np.float32)
-        b = 0
-        for tid, key in enumerate(term_keys):
-            plist = self.postings[key]
-            term_doc_freq[tid] = len(plist)
-            term_block_start[tid] = b
-            nblocks = (len(plist) + BLOCK - 1) // BLOCK
-            term_block_count[tid] = nblocks
-            docs = np.fromiter((d for d, _ in plist), dtype=np.int32,
-                               count=len(plist))
-            tfs = np.fromiter((t for _, t in plist), dtype=np.float32,
-                              count=len(plist))
-            for i in range(nblocks):
-                chunk = docs[i * BLOCK: (i + 1) * BLOCK]
-                block_docs[b, : len(chunk)] = chunk
-                block_tfs[b, : len(chunk)] = tfs[i * BLOCK: (i + 1) * BLOCK]
-                b += 1
+        block_docs[rows, lanes] = flat[:, 0]
+        block_tfs[rows, lanes] = flat[:, 1]
 
         # --- norms (per text field doc-length columns) ---
         field_norm_idx = {f: i for i, f in enumerate(sorted(self.field_lengths))}

@@ -136,7 +136,8 @@ class TextFieldType(FieldType):
             raise MapperParsingException(
                 f"Field [{name}]: [fielddata] on text fields is not supported "
                 f"by the PyTorch port yet")
-        # per-field similarity name (only the default BM25 is ported)
+        # per-field similarity name, resolved by the index's
+        # SimilarityService (BM25 unless the mapping or index names another)
         self.similarity_name = self.params.get("similarity")
 
     def index_terms(self, value, analyzers):

@@ -103,6 +103,13 @@ class DocumentMapper:
     def field_type(self, path: str) -> Optional[FieldType]:
         return self.fields.get(path)
 
+    def simple_match_to_fields(self, pattern: str) -> List[str]:
+        """Expand a field pattern ('*', 'user.*') to concrete field names."""
+        if "*" not in pattern:
+            return [pattern] if pattern in self.fields else []
+        rx = re.compile("^" + re.escape(pattern).replace(r"\*", ".*") + "$")
+        return sorted(f for f in self.fields if rx.match(f))
+
     def parse(self, doc_id: str, source: dict, routing: Optional[str] = None,
               dynamic: str = "true") -> ParsedDocument:
         out = ParsedDocument(doc_id=doc_id, source=source, routing=routing)

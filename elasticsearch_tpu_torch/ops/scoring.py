@@ -69,7 +69,15 @@ def top_k(values, k: int):
     ``torch.topk`` gives the k-th value of each row; every entry at or
     above it is a candidate. When a row holds more than k candidates (a
     tie at the k-th value), it keeps the tied entries of lowest index.
-    A stable sort then orders the k of each row."""
+    A stable sort then orders the k of each row.
+
+    A NaN ranks below every number and comes back as -inf, so a caller
+    that stops at -inf never returns it: the IB similarity's SPL formula
+    gives NaN when its lambda exceeds 1, and the JAX package's top-k on
+    the CPU ranks that NaN last too."""
+    if values.is_floating_point():
+        values = torch.where(torch.isnan(values),
+                             torch.full_like(values, float("-inf")), values)
     k = min(int(k), values.shape[-1])
     if k == 0:
         return values[..., :0], torch.zeros(

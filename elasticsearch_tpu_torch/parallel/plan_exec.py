@@ -315,6 +315,15 @@ def stack_plans(plans: List[P.PlanNode], local_nd_pads: List[int],
         if kind == "s" or parts[0].dim() == 0:
             stacked.append(torch.stack(parts))
             continue
+        if kind == "dense":
+            # a dense [nd1, ...] column (a mask, a factor column): zeros
+            # beyond the slot's own rows, as the JAX package pads it
+            out = torch.zeros((n_slots, stacked_nd1) + tuple(
+                parts[0].shape[1:]), dtype=parts[0].dtype, device=device)
+            for d, a in enumerate(parts):
+                out[d, : a.shape[0]] = a
+            stacked.append(out)
+            continue
         max_shape = tuple(max(p.shape[j] for p in parts)
                           for j in range(parts[0].dim()))
         fill = sentinel if kind == "d" else _PAD_VALUES[kind]

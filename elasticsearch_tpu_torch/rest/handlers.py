@@ -557,8 +557,19 @@ def _bulk(node, req):
 
 def _search_body(req):
     body = req.json_body({}) or {}
-    if req.param("q") is not None:
-        raise _not_supported("URI search (?q=, a [query_string] query)")
+    # URI search: ?q= (with df, default_operator, analyzer, lenient) is a
+    # query_string query
+    q = req.param("q")
+    if q is not None:
+        qs = {"query": q}
+        for name, key in (("df", "default_field"),
+                          ("default_operator", "default_operator"),
+                          ("analyzer", "analyzer")):
+            if req.param(name) is not None:
+                qs[key] = req.param(name)
+        if req.param("lenient") is not None:
+            qs["lenient"] = req.bool_param("lenient")
+        body["query"] = {"query_string": qs}
     for p in ("size", "from"):
         if req.param(p) is not None:
             body[p] = int(req.param(p))

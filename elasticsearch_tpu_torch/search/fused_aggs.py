@@ -422,9 +422,13 @@ def _resolve_metric(spec, executor, ops, metas, builds) -> Optional[str]:
         if entry is not None:
             entry.names.update(missing)
         else:
-            def build_all(cols=list(cols)):
+            names = set(missing)
+
+            # the name set travels as a default argument: a closure over
+            # its own function would be a reference cycle holding the
+            # generation (and its staged tensors) until a cycle collection
+            def build_all(cols=list(cols), names=names):
                 n_slots, nd1 = executor.n_occupied, executor.nd1
-                names = build_all.names
                 out = {}
                 if base + ".ex" in names:
                     out[base + ".ex"] = np.zeros((n_slots, nd1), bool)
@@ -454,7 +458,7 @@ def _resolve_metric(spec, executor, ops, metas, builds) -> Optional[str]:
                                 & (DIGIT_BASE - 1)).astype(np.int16)
                 return out
 
-            build_all.names = set(missing)
+            build_all.names = names
             builds[base] = build_all
     ops.append(("metric", base, want_mm, want_dig))
     metas.append({"kind": "metric"})

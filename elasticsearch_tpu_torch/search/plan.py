@@ -6,11 +6,15 @@ the tree once into one jitted XLA program; PyTorch runs eagerly, so
 matched bool[nd1])`` with ``nd1 = nd_pad + 1``, the trailing slot a
 sentinel that collects padding writes.
 
-Nodes ported: ScoreTermsNode (scatter scoring), PallasScoreTermsNode (the
-tile-scoring kernel; the name is kept so the counterpart is easy to find),
-KnnScoreNode (dense-vector similarity, the kNN host rung), MatchAllNode,
-MatchNoneNode, NumericRangeNode, NumericTermsNode, OrdTermsNode,
-OrdRangeNode, BoolNode, ConstantScoreNode, BoostNode.
+Nodes ported: ScoreTermsNode (scatter scoring under any similarity),
+PallasScoreTermsNode (the tile-scoring kernel; the name is kept so the
+counterpart is easy to find), KnnScoreNode (dense-vector similarity, the
+kNN host rung), PhraseScoreNode (host-verified phrase frequencies scored
+on the device), MatchAllNode, MatchNoneNode, NumericRangeNode,
+NumericTermsNode, OrdTermsNode, OrdRangeNode, DenseMaskNode (exists,
+ids), BoolNode, ConstantScoreNode, BoostNode, DisMaxNode and
+FunctionScoreNode. DenseScoreNode and RangePairNode wait for the join,
+nested and range-field builders that make them.
 
 For the mesh plane (parallel/plan_exec.py) every node declares how its
 arrays pad when per-segment plans of one query are stacked
@@ -58,6 +62,8 @@ class PlanNode:
           "d"  doc-id array: pad with the stacked sentinel doc (nd1-1,
                dead in live1) and re-point the segment's own sentinel
           "k"  kernel tables: stacked verbatim, shapes must agree
+          "dense" a dense [nd1, ...] column: zero-filled to the stacked
+               nd1 rows
           "x"  not stackable: the stacked mesh program cannot run the plan
         """
         return ["z"] * len(self.arrays())
@@ -133,13 +139,25 @@ def _where(mask, values, fill=0.0):
 
 
 class ScoreTermsNode(PlanNode):
-    """Weighted disjunction of term posting blocks with per-lane BM25
-    scoring and a minimum-distinct-match threshold, by scatter-add. Taken
-    for lane sets the tile kernel does not serve (a zero weight)."""
+    """Weighted disjunction of term posting blocks with per-lane similarity
+    scoring (BM25 by default) and a minimum-distinct-match threshold, by
+    scatter-add. Taken for lane sets the tile kernel does not serve: a
+    zero weight, a similarity other than BM25, or BM25 with other
+    constants than the default ``k1`` / ``b``.
+
+    Each posting-block lane carries its similarity's host-folded constants
+    (weight and p1..p3, see index/similarity.py) and the index of its kind
+    in ``kinds`` (``q_kinds``); ``emit`` runs the formula of each distinct
+    kind, so a plain BM25 query runs the BM25 arithmetic alone."""
 
     def __init__(self, q_blocks, q_weights, q_norm_rows, q_avgdl, q_valid,
                  min_match, k1: float = K1, b: float = B,
-                 q_p1=None, q_p2=None):
+                 q_p1=None, q_p2=None, q_p3=None, q_kinds=None,
+                 kinds: tuple = ("bm25",)):
+        from elasticsearch_tpu_torch.index.similarity import (
+            STRICTLY_POSITIVE_KINDS,
+        )
+
         n = len(q_blocks)
         self.q_blocks = q_blocks
         self.q_weights = q_weights
@@ -147,29 +165,37 @@ class ScoreTermsNode(PlanNode):
         self.q_avgdl = q_avgdl
         self.q_valid = q_valid
         self.min_match = np.float32(min_match)
+        # default lane params reproduce classic BM25(k1, b)
         self.q_p1 = q_p1 if q_p1 is not None else np.full(n, k1, np.float32)
         self.q_p2 = q_p2 if q_p2 is not None else np.full(n, b, np.float32)
+        self.q_p3 = q_p3 if q_p3 is not None else np.zeros(n, np.float32)
+        self.q_kinds = (q_kinds if q_kinds is not None
+                        else np.zeros(n, np.int32))
+        self.kinds = tuple(kinds)
         # single-scatter fast path: "matched == score > 0" holds for a
-        # plain disjunction with every live weight strictly positive
+        # plain disjunction with every live weight strictly positive and
+        # every similarity in play strictly positive on a match
         self._fast = (
             bool(min_match <= 1)
-            and bool((np.asarray(q_weights)[np.asarray(q_valid)] > 0).all()))
+            and bool((np.asarray(q_weights)[np.asarray(q_valid)] > 0).all())
+            and all(k in STRICTLY_POSITIVE_KINDS for k in self.kinds))
 
     def arrays(self):
         return [self.q_blocks, self.q_weights, self.q_norm_rows, self.q_avgdl,
-                self.q_valid, self.min_match, self.q_p1, self.q_p2]
+                self.q_valid, self.min_match, self.q_p1, self.q_p2, self.q_p3,
+                self.q_kinds]
 
     def pad_kinds(self):
-        return ["z", "z", "z", "o", "z", "s", "o", "o"]
+        return ["z", "z", "z", "o", "z", "s", "o", "o", "z", "z"]
 
     def trace_statics(self):
-        return (self._fast,)
+        return (self.kinds, self._fast)
 
     def emit(self, ctx):
         from elasticsearch_tpu_torch.index.similarity import emit_contrib
 
         (q_blocks, q_weights, q_norm_rows, q_avgdl, q_valid, min_match,
-         q_p1, q_p2) = ctx.take(8)
+         q_p1, q_p2, q_p3, q_kinds) = ctx.take(10)
         q_blocks = q_blocks.long()
         docs = ctx.seg["block_docs"][q_blocks].long()
         tfs = ctx.seg["block_tfs"][q_blocks]
@@ -178,8 +204,18 @@ class ScoreTermsNode(PlanNode):
         flat_idx = (q_norm_rows.long()[:, None] * nd1 + docs).reshape(-1)
         doc_len = norms.reshape(-1)[flat_idx].reshape(docs.shape)
         matched = (tfs > 0.0) & q_valid[:, None]
-        contrib = emit_contrib("bm25", tfs, doc_len, q_weights[:, None],
-                               q_avgdl[:, None], q_p1[:, None], q_p2[:, None])
+        w = q_weights[:, None]
+        avgdl = q_avgdl[:, None]
+        p1, p2, p3 = q_p1[:, None], q_p2[:, None], q_p3[:, None]
+        if len(self.kinds) == 1:
+            contrib = emit_contrib(self.kinds[0], tfs, doc_len, w, avgdl,
+                                   p1, p2, p3)
+        else:
+            contrib = torch.zeros_like(tfs)
+            for i, kind in enumerate(self.kinds):
+                lane = (q_kinds == i)[:, None]
+                val = emit_contrib(kind, tfs, doc_len, w, avgdl, p1, p2, p3)
+                contrib = contrib + _where(lane, val)
         contrib = _where(matched, contrib)
         scores = ctx.zeros_f().index_add_(0, docs.reshape(-1),
                                           contrib.reshape(-1))
@@ -347,6 +383,53 @@ class KnnScoreNode(PlanNode):
         return _where(matched, scores * boost), matched
 
 
+class PhraseScoreNode(PlanNode):
+    """Phrase matches verified on the host (position intersection) and
+    scored by the field's similarity over the phrase frequency: the
+    ``match_phrase`` semantics. ``docs`` / ``freqs`` are [K]-padded (doc =
+    the segment's sentinel, freq = 0)."""
+
+    def __init__(self, docs, freqs, weight, norm_row, avgdl,
+                 k1: float = K1, b: float = B, kind: str = "bm25",
+                 p1=None, p2=None, p3=0.0):
+        self.docs = docs
+        self.freqs = freqs
+        self.weight = np.float32(weight)
+        self.norm_row = int(norm_row)
+        self.avgdl = np.float32(avgdl)
+        self.kind = kind
+        # default params reproduce classic BM25(k1, b)
+        self.p1 = np.float32(k1 if p1 is None else p1)
+        self.p2 = np.float32(b if p2 is None else p2)
+        self.p3 = np.float32(p3)
+
+    def trace_statics(self):
+        return (self.norm_row, self.kind)
+
+    def arrays(self):
+        return [self.docs, self.freqs, self.weight, self.avgdl,
+                self.p1, self.p2, self.p3]
+
+    def pad_kinds(self):
+        return ["d", "z", "s", "s", "s", "s", "s"]
+
+    def emit(self, ctx):
+        from elasticsearch_tpu_torch.index.similarity import emit_contrib
+
+        docs, freqs, *scalars = ctx.take(7)
+        # the per-phrase constants as f32 scalars, as the JAX node's
+        weight, avgdl, p1, p2, p3 = (
+            torch.as_tensor(x, dtype=torch.float32, device=ctx.device)
+            for x in scalars)
+        docs = docs.long()
+        doc_len = ctx.seg["norms"][self.norm_row][docs]
+        matched_v = freqs > 0
+        contrib = _where(matched_v, emit_contrib(
+            self.kind, freqs, doc_len, weight, avgdl, p1, p2, p3))
+        scores = ctx.zeros_f().index_add_(0, docs, contrib)
+        return scores, ctx.mark(docs, matched_v)
+
+
 class MatchAllNode(PlanNode):
     def __init__(self, boost: float = 1.0):
         self.boost = np.float32(boost)
@@ -443,6 +526,24 @@ class OrdRangeNode(PlanNode):
         return ctx.zeros_f(), ctx.mark(flat_docs, cond)
 
 
+class DenseMaskNode(PlanNode):
+    """A precomputed [nd1] bool mask (the exists and ids queries)."""
+
+    def __init__(self, mask, label: str = "mask"):
+        self.mask = mask
+        self.label = label
+
+    def arrays(self):
+        return [self.mask]
+
+    def pad_kinds(self):
+        return ["dense"]
+
+    def emit(self, ctx):
+        (mask,) = ctx.take(1)
+        return ctx.zeros_f(), mask
+
+
 # ---------------------------------------------------------------------------
 # Combiners
 # ---------------------------------------------------------------------------
@@ -533,6 +634,87 @@ class BoostNode(PlanNode):
         (boost,) = ctx.take(1)
         s, m = self.child.emit(ctx)
         return s * boost, m
+
+
+class DisMaxNode(PlanNode):
+    """dis_max: the best child score plus ``tie_breaker`` times the sum of
+    the others; matched when any child matched."""
+
+    def __init__(self, nodes: List[PlanNode], tie_breaker: float = 0.0):
+        self.nodes = nodes
+        self.tie_breaker = np.float32(tie_breaker)
+
+    def children(self):
+        return self.nodes
+
+    def arrays(self):
+        return [self.tie_breaker]
+
+    def pad_kinds(self):
+        return ["s"]
+
+    def emit(self, ctx):
+        (tie,) = ctx.take(1)
+        best = None
+        total = ctx.zeros_f()
+        matched = ctx.zeros_b()
+        for c in self.nodes:
+            s, m = c.emit(ctx)
+            s = _where(m, s)
+            best = s if best is None else torch.maximum(best, s)
+            total = total + s
+            matched = matched | m
+        tie = torch.as_tensor(tie, dtype=torch.float32, device=ctx.device)
+        return best + tie * (total - best), matched
+
+
+class FunctionScoreNode(PlanNode):
+    """function_score: the child's score combined with a function value,
+    ``weight`` times each factor column in turn ([nd1] f32 columns:
+    field_value_factor, random_score), by ``boost_mode``."""
+
+    MODES = ("multiply", "replace", "sum", "avg", "max", "min")
+
+    def __init__(self, child: PlanNode, factor_columns: List, weight: float,
+                 boost_mode: str = "multiply"):
+        self.child = child
+        self.factor_columns = factor_columns
+        self.weight = np.float32(weight)
+        self.boost_mode = boost_mode
+
+    def trace_statics(self):
+        return (self.boost_mode,)
+
+    def children(self):
+        return [self.child]
+
+    def arrays(self):
+        return [self.weight] + list(self.factor_columns)
+
+    def pad_kinds(self):
+        return ["s"] + ["dense"] * len(self.factor_columns)
+
+    def emit(self, ctx):
+        taken = ctx.take(1 + len(self.factor_columns))
+        weight, cols = taken[0], taken[1:]
+        s, m = self.child.emit(ctx)
+        fn = torch.full_like(s, 1.0) * torch.as_tensor(
+            weight, dtype=torch.float32, device=ctx.device)
+        for col in cols:
+            fn = fn * col
+        if self.boost_mode == "multiply":
+            out = s * fn
+        elif self.boost_mode == "replace":
+            out = fn
+        elif self.boost_mode == "sum":
+            out = s + fn
+        elif self.boost_mode == "avg":
+            out = (s + fn) / 2.0
+        elif self.boost_mode == "max":
+            out = torch.maximum(s, fn)
+        else:
+            out = torch.minimum(s, fn)
+        return _where(m, out), m
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,19 @@
 """The query DSL: JSON -> QueryBuilder tree -> per-segment PlanNode.
 
 Counterpart of ``elasticsearch_tpu/search/query_dsl.py``, cut to the
-queries the port serves: ``match_all``, ``match_none``, ``match`` (with
-``operator`` and ``minimum_should_match``), ``term``, ``terms``, ``range``,
-``bool``, ``constant_score`` and ``knn`` (exact dense-vector scoring of a
-``dense_vector`` field, with an optional ``filter``). Any other query type
-raises the JAX package's ``ParsingException`` for an unknown query.
+queries the port serves: ``match_all``, ``match_none``, ``match``,
+``match_phrase`` (slop too), ``match_phrase_prefix``, ``multi_match``,
+``term``, ``terms``, ``range``, ``exists``, ``ids``, ``prefix``,
+``wildcard``, ``regexp``, ``fuzzy``, ``bool``, ``constant_score``,
+``dis_max``, ``function_score`` (weight, field_value_factor,
+random_score), ``query_string`` and ``simple_query_string``,
+``more_like_this`` and ``knn``. Any other query type (span, geo, script,
+percolate, join and nested queries) raises the JAX package's
+``ParsingException`` for an unknown query.
+
+Multi-term expansion (prefix, wildcard, regexp, fuzzy) runs on the host
+against the segment's sorted term dictionary, as does a phrase's
+position intersection (``phrase_freqs``); both then score on the device.
 
 BM25 term disjunctions go to the tile-scoring kernel node whenever the
 segment's eligibility holds (every lane default-constant BM25 with a
@@ -22,6 +30,9 @@ tables to the executor's shared geometry.
 
 from __future__ import annotations
 
+import bisect
+import fnmatch
+import re
 from typing import List, Optional
 
 import numpy as np
@@ -39,10 +50,13 @@ from elasticsearch_tpu_torch.mapper.field_types import (
     NumberFieldType,
     TextFieldType,
 )
-from elasticsearch_tpu_torch.ops.scoring import B, K1
+from elasticsearch_tpu_torch.ops.scoring import B, K1, bm25_idf
 from elasticsearch_tpu_torch.search import plan as P
 
 _DEFAULT_BM25 = BM25Similarity(k1=K1, b=B)
+
+# the default max_expansions of a multi-term query's rewrite
+MAX_EXPANSIONS = 1024
 
 
 class ShardQueryContext:
@@ -66,6 +80,12 @@ class ShardQueryContext:
         ft = self.mapper_service.field_type(field)
         return svc.get(getattr(ft, "similarity_name", None))
 
+    def default_fields(self) -> List[str]:
+        """Every text field: the fields a ``query_string`` without a field
+        searches (the JAX package's stand-in for ``all_fields`` mode)."""
+        return [f for f, ft in self.mapper_service.mapper.fields.items()
+                if isinstance(ft, TextFieldType)]
+
 
 def _pad_pow2(lst, pad_value, min_len=8, dtype=None):
     n = max(min_len, 1)
@@ -78,8 +98,13 @@ def _pad_pow2(lst, pad_value, min_len=8, dtype=None):
 def term_blocks_arrays(segment, weighted_terms, ctx=None):
     """weighted_terms: list of (field, token, boost). Builds the gather
     arrays for ScoreTermsNode plus the lane metadata the kernel node
-    needs: (block_start, block_count, weight, kernel_eligible)."""
-    blocks, weights, rows, avgdls, p1s, p2s = [], [], [], [], [], []
+    needs: (block_start, block_count, weight, kernel_eligible). With
+    ``ctx``, each field's mapped similarity folds its per-term constants
+    into the lane parameters (index/similarity.py); without it, BM25 with
+    the default constants."""
+    blocks, weights, rows, avgdls = [], [], [], []
+    p1s, p2s, p3s, kind_ids = [], [], [], []
+    kinds: List[str] = []
     lanes_meta = []
     n_terms_present = 0
     for field, token, boost in weighted_terms:
@@ -94,13 +119,21 @@ def term_blocks_arrays(segment, weighted_terms, ctx=None):
         sim = (ctx.similarity(field) if ctx is not None else None) or _DEFAULT_BM25
         kind, w, p1, p2, p3 = sim.lane_params({
             "df": int(segment.term_doc_freq[tid]),
-            "ttf": 0,
+            # the total term frequency costs a pass over the term's
+            # postings: only the DFR, IB and LM similarities read it
+            "ttf": segment.term_ttf(tid) if sim.needs_ttf else 0,
             "doc_count": doc_count,
             "sum_ttf": st.get("sum_ttf", 0),
             "avgdl": avgdl,
             "boost": boost,
         })
+        if kind not in kinds:
+            kinds.append(kind)
+        kid = kinds.index(kind)
         start = int(segment.term_block_start[tid])
+        # the tile kernel's per-posting norm factors are default-constant
+        # BM25 over the segment's own statistics: any other similarity or
+        # constants take the scatter node
         lanes_meta.append((start, int(segment.term_block_count[tid]),
                            float(w),
                            kind == "bm25" and p1 == K1 and p2 == B))
@@ -111,6 +144,8 @@ def term_blocks_arrays(segment, weighted_terms, ctx=None):
             avgdls.append(avgdl)
             p1s.append(p1)
             p2s.append(p2)
+            p3s.append(p3)
+            kind_ids.append(kid)
     return {
         "q_blocks": _pad_pow2(blocks, 0, dtype=np.int32),
         "q_weights": _pad_pow2(weights, 0.0, dtype=np.float32),
@@ -119,6 +154,9 @@ def term_blocks_arrays(segment, weighted_terms, ctx=None):
         "q_valid": _pad_pow2([True] * len(blocks), False, dtype=bool),
         "q_p1": _pad_pow2(p1s, 1.0, dtype=np.float32),
         "q_p2": _pad_pow2(p2s, 1.0, dtype=np.float32),
+        "q_p3": _pad_pow2(p3s, 0.0, dtype=np.float32),
+        "q_kinds": _pad_pow2(kind_ids, 0, dtype=np.int32),
+        "kinds": tuple(kinds) if kinds else ("bm25",),
         "n_present": n_terms_present,
         "lanes_meta": lanes_meta,
     }
@@ -152,7 +190,8 @@ def score_terms_node(segment, weighted_terms, min_match=1, ctx=None) -> P.PlanNo
     return P.ScoreTermsNode(
         arrs["q_blocks"], arrs["q_weights"], arrs["q_norm_rows"],
         arrs["q_avgdl"], arrs["q_valid"], min_match,
-        q_p1=arrs["q_p1"], q_p2=arrs["q_p2"],
+        q_p1=arrs["q_p1"], q_p2=arrs["q_p2"], q_p3=arrs["q_p3"],
+        q_kinds=arrs["q_kinds"], kinds=arrs["kinds"],
     )
 
 
@@ -390,6 +429,209 @@ class MatchQueryBuilder(QueryBuilder):
         return self._wrap_boost(node)
 
 
+class MatchPhraseQueryBuilder(QueryBuilder):
+    """match_phrase: the terms at consecutive positions (``slop`` 0) or
+    each within ``slop`` of its place. The phrase frequency comes from a
+    position intersection on the host (``phrase_freqs``, over the terms'
+    position runs, one term at a time), the score from
+    ``PhraseScoreNode`` on the device."""
+
+    name = "match_phrase"
+
+    def __init__(self, field: str, query, slop: int = 0,
+                 analyzer: Optional[str] = None, **kw):
+        super().__init__(**kw)
+        self.field = field
+        self.query = query
+        self.slop = slop
+        self.analyzer = analyzer
+
+    def to_plan(self, ctx, segment):
+        ft = ctx.field_type(self.field)
+        if self.analyzer is not None:
+            terms = ctx.analyzers.get(self.analyzer).analyze(str(self.query))
+        elif isinstance(ft, TextFieldType):
+            terms = ft.query_terms(self.query, ctx.analyzers)
+        else:
+            terms = [str(self.query)]
+        if not terms:
+            return P.MatchNoneNode()
+        if len(terms) == 1:
+            return MatchQueryBuilder(self.field, self.query,
+                                     boost=self.boost).to_plan(ctx, segment)
+        tids = [segment.term_id(self.field, t) for t in terms]
+        if any(t < 0 for t in tids):
+            return P.MatchNoneNode()
+        positions = segment.positions
+        docs, freqs = phrase_freqs(
+            [(*positions.term_run(t), positions.term_keys(t)) for t in tids],
+            self.slop)
+        if not len(docs):
+            return P.MatchNoneNode()
+        # the phrase weight under the field's similarity: the sum of the
+        # per-term weights; the other lane parameters come from the
+        # heaviest term
+        st = segment.field_stats.get(self.field, {})
+        doc_count = st.get("doc_count", 0)
+        sim = (ctx.similarity(self.field) if ctx is not None else None) \
+            or _DEFAULT_BM25
+        lanes = [
+            sim.lane_params({
+                "df": int(segment.term_doc_freq[t]),
+                "ttf": segment.term_ttf(t) if sim.needs_ttf else 0,
+                "doc_count": doc_count,
+                "sum_ttf": st.get("sum_ttf", 0),
+                "avgdl": segment.field_avgdl(self.field),
+                "boost": 1.0,
+            })
+            for t in tids
+        ]
+        kind = lanes[0][0]
+        weight = sum(lane[1] for lane in lanes) * self.boost
+        _, _, p1, p2, p3 = max(lanes, key=lambda lane: lane[1])
+        return P.PhraseScoreNode(
+            _pad_pow2(docs.tolist(), segment.nd_pad, dtype=np.int32),
+            _pad_pow2(freqs.tolist(), 0.0, dtype=np.float32),
+            weight,
+            segment.field_norm_idx.get(self.field, 0),
+            segment.field_avgdl(self.field),
+            kind=kind, p1=p1, p2=p2, p3=p3,
+        )
+
+
+def phrase_freqs(runs, slop: int):
+    """Phrase frequencies of every doc at once: ``runs`` holds each
+    term's (docs, positions) columns sorted by (doc, position), as
+    ``SegmentPositions.term_run`` gives them, and their int64 keys
+    ``doc << 32 | position`` (``SegmentPositions.term_keys``).
+    Returns (docs ascending, freqs) for the docs whose frequency is above
+    0, each frequency the JAX package's ``_phrase_freq`` of that doc's
+    positions: the exact count at slop 0, else its greedy sloppy count
+    (an approximation of Lucene's sloppy frequency).
+
+    A position looks up its neighbours' places as one ``searchsorted``
+    over the keys. Slop 0 counts aligned tuples, so the shortest run
+    drives (each of its positions q names the tuple that starts at q - its
+    index) and the others need an exact hit. The sloppy count is the
+    first term's: each of its positions p needs, in term j, the nearest
+    position of the same doc (one of the two neighbours of the insertion
+    point) within ``slop`` of p + j."""
+    if any(not len(docs) for docs, _, _ in runs):
+        return np.zeros(0, np.int32), np.zeros(0, np.float32)
+    if slop == 0:
+        lead = int(np.argmin([len(docs) for docs, _, _ in runs]))
+        _, lead_pos, lead_keys = runs[lead]
+        ok = np.ones(len(lead_keys), bool)
+        for j, (_, _, keys) in enumerate(runs):
+            if j == lead:
+                continue
+            off = j - lead
+            if off < 0:
+                ok &= lead_pos >= -off  # the tuple starts at position >= 0
+            q = lead_keys + off
+            idx = np.minimum(np.searchsorted(keys, q), len(keys) - 1)
+            ok &= keys[idx] == q
+        hit = runs[lead][0][ok]
+    else:
+        d0 = np.asarray(runs[0][0], np.int64)
+        p0 = np.asarray(runs[0][1], np.int64)
+        ok = np.ones(len(d0), bool)
+        far = np.iinfo(np.int64).max
+        for j, (dj, pj, keys) in enumerate(runs[1:], start=1):
+            target = p0 + j
+            idx = np.searchsorted(keys, (d0 << 32) | target)
+            hi = np.minimum(idx, len(keys) - 1)
+            lo = np.maximum(idx - 1, 0)
+            near = np.minimum(
+                np.where(dj[lo] == d0, np.abs(pj[lo] - target), far),
+                np.where(dj[hi] == d0, np.abs(pj[hi] - target), far))
+            ok &= near <= slop
+        hit = runs[0][0][ok]
+    if not len(hit):
+        return np.zeros(0, np.int32), np.zeros(0, np.float32)
+    # hit ascends (the driving run is sorted by doc): count each doc's run
+    starts = np.flatnonzero(np.concatenate([[True], hit[1:] != hit[:-1]]))
+    freqs = np.diff(np.append(starts, len(hit)))
+    return hit[starts].astype(np.int32), freqs.astype(np.float32)
+
+
+class MatchPhrasePrefixQueryBuilder(QueryBuilder):
+    """match_phrase_prefix: the last term a prefix, expanded against the
+    segment's terms (at most ``max_expansions``); one phrase per
+    expansion, OR-ed."""
+
+    name = "match_phrase_prefix"
+
+    def __init__(self, field: str, query, max_expansions: int = 50, **kw):
+        super().__init__(**kw)
+        self.field = field
+        self.query = query
+        self.max_expansions = max_expansions
+
+    def to_plan(self, ctx, segment):
+        ft = ctx.field_type(self.field)
+        terms = (ft.query_terms(self.query, ctx.analyzers)
+                 if isinstance(ft, TextFieldType) else [str(self.query)])
+        if not terms:
+            return P.MatchNoneNode()
+        expansions = _prefix_terms(segment, self.field,
+                                   terms[-1])[: self.max_expansions]
+        if len(terms) == 1:
+            if not expansions:
+                return P.MatchNoneNode()
+            return score_terms_node(
+                segment, [(self.field, t, self.boost) for t in expansions], 1,
+                ctx=ctx)
+        subs = [MatchPhraseQueryBuilder(
+            self.field, " ".join(terms[:-1] + [exp]), boost=self.boost)
+            for exp in expansions]
+        if not subs:
+            return P.MatchNoneNode()
+        return BoolQueryBuilder(should=subs).to_plan(ctx, segment)
+
+
+class MultiMatchQueryBuilder(QueryBuilder):
+    """multi_match: ``best_fields`` (a dis_max over one match a field, the
+    default), ``most_fields`` (their sum), and ``cross_fields`` (taken as
+    ``most_fields``). A field may carry a boost (``title^2``) and be a
+    pattern (``*``)."""
+
+    name = "multi_match"
+
+    def __init__(self, query, fields: List[str], type_: str = "best_fields",
+                 operator: str = "or", tie_breaker: float = 0.0,
+                 analyzer: Optional[str] = None, **kw):
+        super().__init__(**kw)
+        self.query = query
+        self.fields = fields
+        self.type = type_
+        self.operator = operator
+        self.tie_breaker = tie_breaker
+        self.analyzer = analyzer
+
+    def to_plan(self, ctx, segment):
+        mapper = ctx.mapper_service.mapper
+        field_boosts = []
+        for f in self.fields:
+            name, boost = (f.split("^", 1) if "^" in f else (f, 1.0))
+            for resolved in mapper.simple_match_to_fields(name) or [name]:
+                field_boosts.append((resolved, float(boost)))
+        per_field = [
+            MatchQueryBuilder(f, self.query, operator=self.operator,
+                              analyzer=self.analyzer, boost=b)
+            .to_plan(ctx, segment)
+            for f, b in field_boosts
+        ]
+        per_field = [n for n in per_field if not isinstance(n, P.MatchNoneNode)]
+        if not per_field:
+            return P.MatchNoneNode()
+        if self.type in ("best_fields", "phrase", "phrase_prefix"):
+            node = P.DisMaxNode(per_field, self.tie_breaker)
+        else:  # most_fields / cross_fields: the sum of the field scores
+            node = P.BoolNode([], [], per_field, [], 1)
+        return self._wrap_boost(node)
+
+
 class TermQueryBuilder(QueryBuilder):
     name = "term"
 
@@ -400,9 +642,11 @@ class TermQueryBuilder(QueryBuilder):
 
     def to_plan(self, ctx, segment):
         if self.field == "_id":
-            raise ParsingException(
-                "[term] on [_id] (an ids query) is not supported by the "
-                "PyTorch port yet")
+            # a term on the _id metadata field is an ids query
+            vals = (self.value if isinstance(self.value, list)
+                    else [self.value])
+            return IdsQueryBuilder([str(v) for v in vals],
+                                   boost=self.boost).to_plan(ctx, segment)
         ft = ctx.field_type(self.field)
         if isinstance(ft, (NumberFieldType, DateFieldType)):
             csr = _numeric_csr(segment, self.field)
@@ -430,9 +674,8 @@ class TermsQueryBuilder(QueryBuilder):
 
     def to_plan(self, ctx, segment):
         if self.field == "_id":
-            raise ParsingException(
-                "[terms] on [_id] (an ids query) is not supported by the "
-                "PyTorch port yet")
+            return IdsQueryBuilder([str(v) for v in self.values],
+                                   boost=self.boost).to_plan(ctx, segment)
         ft = ctx.field_type(self.field)
         if isinstance(ft, (NumberFieldType, DateFieldType)):
             csr = _numeric_csr(segment, self.field)
@@ -520,6 +763,179 @@ class RangeQueryBuilder(QueryBuilder):
             "(no doc values in this segment)")
 
 
+class ExistsQueryBuilder(QueryBuilder):
+    name = "exists"
+
+    def __init__(self, field: str, **kw):
+        super().__init__(**kw)
+        self.field = field
+
+    def to_plan(self, ctx, segment):
+        fields = (ctx.mapper_service.mapper.simple_match_to_fields(self.field)
+                  or [self.field])
+        masks = []
+        for f in fields:
+            if f in segment.exists_masks:
+                masks.append(segment.device_column(
+                    f"exists.{f}",
+                    lambda f=f: np.concatenate(
+                        [segment.exists_masks[f], np.zeros(1, dtype=bool)])))
+        if not masks:
+            return P.MatchNoneNode()
+        combined = masks[0]
+        for m in masks[1:]:
+            combined = combined | m
+        return P.ConstantScoreNode(
+            P.DenseMaskNode(combined, f"exists:{self.field}"), self.boost)
+
+
+class IdsQueryBuilder(QueryBuilder):
+    name = "ids"
+
+    def __init__(self, values: List[str], **kw):
+        super().__init__(**kw)
+        self.values = values
+
+    def to_plan(self, ctx, segment):
+        id_map = segment.id_to_doc()
+        docs = [id_map[v] for v in self.values if v in id_map]
+        if not docs:
+            return P.MatchNoneNode()
+        mask = np.zeros(segment.nd_pad + 1, dtype=bool)
+        mask[docs] = True
+        return P.ConstantScoreNode(P.DenseMaskNode(mask, "ids"), self.boost)
+
+
+def _prefix_terms(segment, field: str, prefix: str) -> List[str]:
+    """The field's terms that start with ``prefix``, in sorted order: the
+    run of its sorted tokens from the first one at or after ``prefix``."""
+    toks = segment.field_tokens(field)
+    lo = hi = bisect.bisect_left(toks, prefix)
+    while hi < len(toks) and toks[hi].startswith(prefix):
+        hi += 1
+    return toks[lo:hi]
+
+
+class MultiTermExpandingBuilder(QueryBuilder):
+    """The base of prefix, wildcard, regexp and fuzzy: expand against the
+    segment's term dictionary on the host (at most ``MAX_EXPANSIONS``
+    terms, in sorted order), then a constant-score disjunction (Lucene's
+    MultiTermQuery CONSTANT_SCORE rewrite) over the kernel's lanes."""
+
+    def __init__(self, field: str, **kw):
+        super().__init__(**kw)
+        self.field = field
+
+    def matches(self, token: str) -> bool:
+        raise NotImplementedError
+
+    def expand(self, segment) -> List[str]:
+        return list(filter(self.matches, segment.field_tokens(self.field)))
+
+    def to_plan(self, ctx, segment):
+        expansions = self.expand(segment)[:MAX_EXPANSIONS]
+        if not expansions:
+            return P.MatchNoneNode()
+        node = score_terms_node(
+            segment, [(self.field, t, 1.0) for t in expansions], 1, ctx=ctx)
+        return P.ConstantScoreNode(node, self.boost)
+
+
+class PrefixQueryBuilder(MultiTermExpandingBuilder):
+    name = "prefix"
+
+    def __init__(self, field: str, value: str, **kw):
+        super().__init__(field, **kw)
+        self.value = str(value)
+
+    def expand(self, segment):
+        return _prefix_terms(segment, self.field, self.value)
+
+
+class WildcardQueryBuilder(MultiTermExpandingBuilder):
+    name = "wildcard"
+
+    def __init__(self, field: str, value: str, **kw):
+        super().__init__(field, **kw)
+        self.value = str(value)
+        # fnmatch.fnmatchcase's own pattern, compiled once
+        self._rx = re.compile(fnmatch.translate(self.value))
+
+    def matches(self, token):
+        return self._rx.match(token) is not None
+
+
+class RegexpQueryBuilder(MultiTermExpandingBuilder):
+    name = "regexp"
+
+    def __init__(self, field: str, value: str, **kw):
+        super().__init__(field, **kw)
+        try:
+            self._rx = re.compile(value)
+        except re.error as e:
+            raise ParsingException(
+                f"failed to parse regexp [{value}]: {e}") from e
+
+    def matches(self, token):
+        return self._rx.fullmatch(token) is not None
+
+
+def _levenshtein_leq_many(tokens: List[str], b: str, k: int) -> np.ndarray:
+    """Whether each token is within ``k`` edits of ``b``: the JAX package's
+    ``_levenshtein_leq`` (a banded DP with an early exit that never
+    changes the answer) for every token at once, the DP row by row over
+    all tokens of one length together (numpy columns)."""
+    out = np.zeros(len(tokens), bool)
+    lens = np.fromiter(map(len, tokens), np.int64, len(tokens))
+    bc = np.array([ord(c) for c in b], np.int64)
+    for n in range(max(len(b) - k, 0), len(b) + k + 1):
+        idx = np.flatnonzero(lens == n)
+        if not len(idx):
+            continue
+        if n == 0:
+            out[idx] = len(b) <= k
+            continue
+        # the tokens' code points, one row a token
+        chars = np.array([tokens[i] for i in idx], f"<U{n}").view(
+            np.uint32).reshape(len(idx), n).astype(np.int64)
+        prev = np.broadcast_to(np.arange(len(b) + 1),
+                               (len(idx), len(b) + 1)).copy()
+        for i in range(n):
+            cur = np.empty_like(prev)
+            cur[:, 0] = i + 1
+            sub = prev[:, :-1] + (chars[:, i: i + 1] != bc[None, :])
+            ins_del = np.minimum(prev[:, 1:] + 1, sub)
+            for j in range(1, len(b) + 1):
+                cur[:, j] = np.minimum(ins_del[:, j - 1], cur[:, j - 1] + 1)
+            prev = cur
+        out[idx] = prev[:, -1] <= k
+    return out
+
+
+class FuzzyQueryBuilder(MultiTermExpandingBuilder):
+    name = "fuzzy"
+
+    def __init__(self, field: str, value: str, fuzziness="AUTO",
+                 prefix_length: int = 0, **kw):
+        super().__init__(field, **kw)
+        self.value = str(value)
+        self.prefix_length = prefix_length
+        if fuzziness in ("AUTO", "auto", None):
+            n = len(self.value)
+            self.max_edits = 0 if n <= 2 else (1 if n <= 5 else 2)
+        else:
+            self.max_edits = int(fuzziness)
+
+    def expand(self, segment):
+        if self.prefix_length:
+            tokens = _prefix_terms(segment, self.field,
+                                   self.value[: self.prefix_length])
+        else:
+            tokens = segment.field_tokens(self.field)
+        keep = _levenshtein_leq_many(tokens, self.value, self.max_edits)
+        return [t for t, ok in zip(tokens, keep) if ok]
+
+
 class BoolQueryBuilder(QueryBuilder):
     name = "bool"
 
@@ -555,6 +971,268 @@ class ConstantScoreQueryBuilder(QueryBuilder):
 
     def to_plan(self, ctx, segment):
         return P.ConstantScoreNode(self.filter.to_plan(ctx, segment), self.boost)
+
+
+class DisMaxQueryBuilder(QueryBuilder):
+    name = "dis_max"
+
+    def __init__(self, queries: List[QueryBuilder], tie_breaker: float = 0.0,
+                 **kw):
+        super().__init__(**kw)
+        self.queries = queries
+        self.tie_breaker = tie_breaker
+
+    def to_plan(self, ctx, segment):
+        nodes = [q.to_plan(ctx, segment) for q in self.queries]
+        return self._wrap_boost(P.DisMaxNode(nodes, self.tie_breaker))
+
+
+class FunctionScoreQueryBuilder(QueryBuilder):
+    """function_score with ``weight``, ``field_value_factor`` (``factor``,
+    ``missing``, ``modifier``) and ``random_score`` (``seed``), combined
+    multiplicatively, then with the query's score by ``boost_mode``. Any
+    other function (``script_score`` too) is a ParsingException."""
+
+    name = "function_score"
+
+    def __init__(self, query: QueryBuilder, functions: List[dict],
+                 boost_mode: str = "multiply", score_mode: str = "multiply",
+                 **kw):
+        super().__init__(**kw)
+        self.query = query
+        self.functions = functions
+        self.boost_mode = boost_mode
+        self.score_mode = score_mode
+
+    def to_plan(self, ctx, segment):
+        child = self.query.to_plan(ctx, segment)
+        weight = 1.0
+        factor_columns = []
+        for fn in self.functions:
+            if "weight" in fn and len(fn) == 1:
+                weight *= float(fn["weight"])
+                continue
+            if "field_value_factor" in fn:
+                spec = fn["field_value_factor"]
+                col = segment.numeric_columns.get(spec["field"])
+                factor = float(spec.get("factor", 1.0))
+                missing = float(spec.get("missing", 1.0))
+                modifier = spec.get("modifier", "none")
+                if col is None:
+                    vals = np.full(segment.nd_pad + 1, missing,
+                                   dtype=np.float32)
+                else:
+                    # the f64 doc values, as f32 before the modifier (the
+                    # JAX package's order)
+                    base = np.where(col.exists, col.first_value, missing)
+                    vals = np.concatenate([base, [missing]]).astype(
+                        np.float32)
+                vals = vals * factor
+                if modifier == "log1p":
+                    vals = np.log1p(np.maximum(vals, 0))
+                elif modifier == "ln":
+                    vals = np.log(np.maximum(vals, 1e-9))
+                elif modifier == "sqrt":
+                    vals = np.sqrt(np.maximum(vals, 0))
+                elif modifier == "square":
+                    vals = vals * vals
+                elif modifier == "reciprocal":
+                    vals = 1.0 / np.maximum(vals, 1e-9)
+                factor_columns.append(vals.astype(np.float32))
+                if "weight" in fn:
+                    weight *= float(fn["weight"])
+            elif "random_score" in fn:
+                # drawn on the host with numpy, per segment, as the JAX
+                # package draws them
+                seed = int(fn["random_score"].get("seed", 0))
+                rng = np.random.RandomState(seed if seed else 42)
+                factor_columns.append(
+                    rng.uniform(0, 1, segment.nd_pad + 1).astype(np.float32))
+            elif "weight" in fn:
+                weight *= float(fn["weight"])
+            else:
+                raise ParsingException(
+                    f"unsupported function_score function: {sorted(fn)}")
+        return self._wrap_boost(P.FunctionScoreNode(
+            child, factor_columns, weight, self.boost_mode))
+
+
+class QueryStringQueryBuilder(QueryBuilder):
+    """The common subset of query_string: ``field:value``, quoted
+    phrases, AND / OR / NOT, + / -, and wildcards in terms
+    (``simple_query_string`` maps here too). A clause without a field
+    searches ``fields``, else ``default_field``, else every text field."""
+
+    name = "query_string"
+
+    def __init__(self, query: str, default_field: Optional[str] = None,
+                 fields: Optional[List[str]] = None,
+                 default_operator: str = "or",
+                 analyzer: Optional[str] = None,
+                 lenient: bool = False, **kw):
+        super().__init__(**kw)
+        self.query = query
+        self.default_field = default_field
+        self.fields = fields
+        self.default_operator = default_operator.lower()
+        self.analyzer = analyzer
+        self.lenient = lenient
+
+    def _leaf(self, field: Optional[str], text: str, is_phrase: bool,
+              ctx) -> QueryBuilder:
+        if field is None:
+            fields = self.fields or (
+                [self.default_field] if self.default_field else None)
+            if fields is None:
+                fields = ctx.default_fields() or ["*"]
+            if len(fields) > 1:
+                return MultiMatchQueryBuilder(text, fields,
+                                              analyzer=self.analyzer)
+            field = fields[0]
+        if self.lenient:
+            # lenient: a clause whose value does not parse for its field's
+            # type matches nothing instead of failing the request
+            ft = ctx.field_type(field) if field else None
+            if ft is not None and not isinstance(ft, TextFieldType):
+                try:
+                    ft.term_for_query(text.strip('"'), ctx.analyzers)
+                    if isinstance(ft, NumberFieldType):
+                        float(text.strip('"'))
+                except Exception:  # noqa: BLE001 — the lenient contract
+                    return MatchNoneQueryBuilder()
+        if is_phrase:
+            return MatchPhraseQueryBuilder(field, text,
+                                           analyzer=self.analyzer)
+        if "*" in text or "?" in text:
+            # analyzed fields hold lowercased terms: a wildcard term is
+            # lowercased to match them
+            ft = ctx.field_type(field)
+            if ft is None or isinstance(ft, TextFieldType):
+                text = text.lower()
+            return WildcardQueryBuilder(field, text)
+        return MatchQueryBuilder(field, text, analyzer=self.analyzer)
+
+    def to_plan(self, ctx, segment):
+        tokens = re.findall(r'\S*"[^"]*"|\S+', self.query)
+        # clauses with their modifiers; AND makes its neighbours must
+        clauses = []  # [builder, kind], kind in must / should / must_not
+        i = 0
+        while i < len(tokens):
+            tok = tokens[i]
+            if tok.upper() == "AND":
+                if clauses:
+                    clauses[-1][1] = ("must" if clauses[-1][1] == "should"
+                                      else clauses[-1][1])
+                i += 1
+                if i < len(tokens):
+                    nxt, kind = self._clause(tokens[i], ctx)
+                    if nxt is not None:
+                        clauses.append(
+                            [nxt, "must" if kind == "should" else kind])
+                    i += 1
+                continue
+            if tok.upper() == "OR":
+                i += 1
+                continue
+            if tok.upper() == "NOT":
+                i += 1
+                if i < len(tokens):
+                    qb, _ = self._clause(tokens[i], ctx)
+                    if qb is not None:
+                        clauses.append([qb, "must_not"])
+                    i += 1
+                continue
+            qb, kind = self._clause(tok, ctx)
+            if qb is not None:
+                clauses.append([qb, kind])
+            i += 1
+        must = [c for c, k in clauses if k == "must"]
+        should = [c for c, k in clauses if k == "should"]
+        must_not = [c for c, k in clauses if k == "must_not"]
+        if self.default_operator == "and" and should:
+            must.extend(should)
+            should = []
+        return BoolQueryBuilder(must=must, should=should, must_not=must_not,
+                                boost=self.boost).to_plan(ctx, segment)
+
+    def _clause(self, tok: str, ctx):
+        """-> (builder or None, kind)."""
+        kind = "should"
+        if tok.startswith("+"):
+            tok, kind = tok[1:], "must"
+        elif tok.startswith("-"):
+            tok, kind = tok[1:], "must_not"
+        field = None
+        if ":" in tok and not tok.startswith('"'):
+            field, tok = tok.split(":", 1)
+            if not tok:
+                return None, kind
+        is_phrase = tok.startswith('"') and tok.endswith('"') and len(tok) > 1
+        text = tok.strip('"')
+        if not text:
+            return None, kind
+        return self._leaf(field, text, is_phrase, ctx), kind
+
+
+class MoreLikeThisQueryBuilder(QueryBuilder):
+    """more_like_this: the highest-idf terms of the liked texts and docs
+    (a doc by ``_id`` in this segment), as one disjunction with
+    ``minimum_should_match``."""
+
+    name = "more_like_this"
+
+    def __init__(self, fields: List[str], like, max_query_terms: int = 25,
+                 min_term_freq: int = 2, minimum_should_match: str = "30%",
+                 **kw):
+        super().__init__(**kw)
+        self.fields = fields
+        self.like = like if isinstance(like, list) else [like]
+        self.max_query_terms = max_query_terms
+        self.min_term_freq = min_term_freq
+        self.minimum_should_match = minimum_should_match
+
+    def to_plan(self, ctx, segment):
+        from collections import Counter
+
+        texts: List[str] = []
+        for item in self.like:
+            if isinstance(item, str):
+                texts.append(item)
+            elif isinstance(item, dict) and "_id" in item:
+                local = segment.id_to_doc().get(item["_id"])
+                if local is not None:
+                    src = segment.sources[local]
+                    for f in self.fields:
+                        v = src.get(f)
+                        if isinstance(v, str):
+                            texts.append(v)
+        selected: List[tuple] = []
+        for field in self.fields:
+            ft = ctx.field_type(field)
+            counts: Counter = Counter()
+            for text in texts:
+                if isinstance(ft, TextFieldType):
+                    counts.update(ft.query_terms(text, ctx.analyzers))
+                else:
+                    counts.update(ctx.analyzers.get("standard").analyze(text))
+            doc_count = segment.field_stats.get(field, {}).get("doc_count", 0)
+            for tok, tf in counts.items():
+                if (tf < self.min_term_freq and len(texts) > 0
+                        and len(counts) > 10):
+                    continue
+                tid = segment.term_id(field, tok)
+                if tid < 0:
+                    continue
+                idf = bm25_idf(int(segment.term_doc_freq[tid]), doc_count)
+                selected.append((idf, field, tok))
+        selected.sort(reverse=True)
+        selected = selected[: self.max_query_terms]
+        if not selected:
+            return P.MatchNoneNode()
+        msm = parse_min_should_match(self.minimum_should_match,
+                                     len(selected)) or 1
+        return self._wrap_boost(score_terms_node(
+            segment, [(f, t, 1.0) for _, f, t in selected], msm, ctx=ctx))
 
 
 # ---------------------------------------------------------------------------
@@ -634,6 +1312,26 @@ def parse_query(body) -> QueryBuilder:
             filter=filters,
             boost=float(qbody.get("boost", 1.0)),
         )
+    if qtype == "match_phrase":
+        field, value, params = _field_and_params(qbody, "query")
+        return MatchPhraseQueryBuilder(
+            field, value, slop=int(params.get("slop", 0)),
+            boost=float(params.get("boost", 1.0)),
+        )
+    if qtype == "match_phrase_prefix":
+        field, value, params = _field_and_params(qbody, "query")
+        return MatchPhrasePrefixQueryBuilder(
+            field, value, max_expansions=int(params.get("max_expansions", 50)),
+            boost=float(params.get("boost", 1.0)),
+        )
+    if qtype == "multi_match":
+        return MultiMatchQueryBuilder(
+            qbody.get("query"), qbody.get("fields") or ["*"],
+            type_=qbody.get("type", "best_fields"),
+            operator=qbody.get("operator", "or"),
+            tie_breaker=float(qbody.get("tie_breaker", 0.0)),
+            boost=float(qbody.get("boost", 1.0)),
+        )
     if qtype == "term":
         field, value, params = _field_and_params(qbody, "value")
         return TermQueryBuilder(field, value, boost=float(params.get("boost", 1.0)))
@@ -655,6 +1353,32 @@ def parse_query(body) -> QueryBuilder:
             field, boost=float(params.get("boost", 1.0)),
             relation=params.get("relation", "intersects"), **known,
         )
+    if qtype == "exists":
+        return ExistsQueryBuilder(qbody["field"],
+                                  boost=float(qbody.get("boost", 1.0)))
+    if qtype == "ids":
+        return IdsQueryBuilder(qbody.get("values", []))
+    if qtype == "prefix":
+        field, value, params = _field_and_params(qbody, "value")
+        return PrefixQueryBuilder(field, value,
+                                  boost=float(params.get("boost", 1.0)))
+    if qtype == "wildcard":
+        field, value, params = _field_and_params(qbody, "value")
+        if value is None:
+            value = params.pop("wildcard", None)
+        return WildcardQueryBuilder(field, value,
+                                    boost=float(params.get("boost", 1.0)))
+    if qtype == "regexp":
+        field, value, params = _field_and_params(qbody, "value")
+        return RegexpQueryBuilder(field, value,
+                                  boost=float(params.get("boost", 1.0)))
+    if qtype == "fuzzy":
+        field, value, params = _field_and_params(qbody, "value")
+        return FuzzyQueryBuilder(
+            field, value, fuzziness=params.get("fuzziness", "AUTO"),
+            prefix_length=int(params.get("prefix_length", 0)),
+            boost=float(params.get("boost", 1.0)),
+        )
     if qtype == "bool":
         def many(key):
             v = qbody.get(key)
@@ -673,4 +1397,39 @@ def parse_query(body) -> QueryBuilder:
     if qtype == "constant_score":
         return ConstantScoreQueryBuilder(
             parse_query(qbody["filter"]), boost=float(qbody.get("boost", 1.0)))
+    if qtype == "dis_max":
+        return DisMaxQueryBuilder(
+            [parse_query(q) for q in qbody.get("queries", [])],
+            tie_breaker=float(qbody.get("tie_breaker", 0.0)),
+            boost=float(qbody.get("boost", 1.0)),
+        )
+    if qtype == "function_score":
+        inner = (parse_query(qbody.get("query")) if qbody.get("query")
+                 else MatchAllQueryBuilder())
+        functions = qbody.get("functions")
+        if functions is None:
+            functions = [{k: qbody[k]} for k in (
+                "field_value_factor", "random_score", "script_score",
+                "weight") if k in qbody]
+        return FunctionScoreQueryBuilder(
+            inner, functions, boost_mode=qbody.get("boost_mode", "multiply"),
+            score_mode=qbody.get("score_mode", "multiply"),
+            boost=float(qbody.get("boost", 1.0)),
+        )
+    if qtype in ("query_string", "simple_query_string"):
+        return QueryStringQueryBuilder(
+            qbody["query"], default_field=qbody.get("default_field"),
+            fields=qbody.get("fields"),
+            default_operator=qbody.get("default_operator", "or"),
+            analyzer=qbody.get("analyzer"),
+            lenient=bool(qbody.get("lenient", False)),
+            boost=float(qbody.get("boost", 1.0)),
+        )
+    if qtype == "more_like_this":
+        return MoreLikeThisQueryBuilder(
+            qbody.get("fields", []), qbody.get("like", []),
+            max_query_terms=int(qbody.get("max_query_terms", 25)),
+            min_term_freq=int(qbody.get("min_term_freq", 2)),
+            minimum_should_match=qbody.get("minimum_should_match", "30%"),
+        )
     raise ParsingException(f"no [query] registered for [{qtype}]")

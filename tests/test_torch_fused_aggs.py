@@ -572,3 +572,34 @@ def test_racing_first_queries_build_one_mesh_plane(trio, monkeypatch):
     for g, w in zip(got, want):
         assert g["aggregations"] == w["aggregations"]
     assert t3.t._mesh_search.agg_fused_query_total == 24
+
+
+def test_closed_generation_frees_without_a_cycle_collection():
+    """A fused metric staged its columns through a builder that closes
+    over the generation: that closure must not be a reference cycle, or a
+    replaced or closed generation keeps its staged tensors until the next
+    cycle collection (the card's memory stays allocated after a close)."""
+    import gc
+    import weakref
+
+    svc = IndexService("free", Settings({"index.number_of_shards": 3,
+                                         "index.refresh_interval": -1}),
+                       mapping=MAPPING, device="cpu")
+    for doc_id, src in _docs(60):
+        svc.index_doc(doc_id, src)
+    svc.refresh()
+    gc.collect()
+    gc.disable()
+    try:
+        r = svc.search({"size": 0, "aggs": {
+            "s": {"stats": {"field": "n"}}, "m": {"min": {"field": "n"}}}})
+        assert r["aggregations"]["s"]["count"] == 60
+        planes = svc.search_stats()["planes"]
+        assert planes["agg_fused_query_total"] == 1
+        generation = weakref.ref(svc._mesh_search._executor)
+        assert any(k.startswith("maggs.num.n")
+                   for k in generation()._seg_staged)
+        svc.close()
+        assert generation() is None
+    finally:
+        gc.enable()

@@ -290,3 +290,51 @@ def test_mesh_slots_read_the_segments_own_kernel_tables():
         assert slot["k_frac"] is seg.kernel_tables()["k_frac"]
         assert slot["k_live_t"].shape[0] == (
             executor._kernel["geom"].n_tiles * 128)
+
+
+def test_stack_plans_pads_dense_columns_like_jax():
+    """The "dense" pad kind (exists / ids masks, function_score factor
+    columns): each slot's [nd1] column zero-filled to the stacked nd1
+    rows, as the JAX package stacks it."""
+    import torch
+
+    from elasticsearch_tpu.parallel.plan_exec import stack_plans as jstack
+    from elasticsearch_tpu.search import plan as JP
+    from elasticsearch_tpu_torch.parallel.plan_exec import stack_plans
+    from elasticsearch_tpu_torch.search import plan as P
+
+    rng = np.random.RandomState(2)
+    pads = [64, 128, 32]
+    masks = [rng.rand(n + 1) < 0.4 for n in pads]
+    cols = [rng.rand(n + 1).astype(np.float32) for n in pads]
+
+    def plans(m):
+        return [m.FunctionScoreNode(
+            m.ConstantScoreNode(m.DenseMaskNode(mask, "ids"), 2.0), [col],
+            1.5, "sum") for mask, col in zip(masks, cols)]
+
+    got = stack_plans(plans(P), pads, 129, 4, torch.device("cpu"))
+    want = jstack(plans(JP), pads, 129, 4)
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        # a scalar stacks as [n_slots, 1] in the port, [n_slots] in JAX
+        np.testing.assert_array_equal(g.numpy().reshape(w.shape), w)
+        assert g.numpy().dtype == w.dtype
+
+
+def test_exists_and_ids_serve_from_the_mesh_plane(pair3):
+    jidx, tidx = pair3
+    for body, plane in (({"query": {"exists": {"field": "tag"}}, "size": 30},
+                         "mesh"),
+                        ({"query": {"bool": {
+                            "must": [{"match": {"body": "t2"}}],
+                            "filter": [{"exists": {"field": "body"}}]}},
+                          "size": 30}, "mesh_pallas"),
+                        ({"query": {"function_score": {
+                            "query": {"match": {"body": "t1 t5"}},
+                            "functions": [{"random_score": {"seed": 3}}]}},
+                          "size": 30}, "mesh_pallas")):
+        compare(jidx.search(dict(body)), tidx.search(dict(body)), plane)
+    stats = tidx.search_stats()["planes"]
+    assert stats["plane_failures_total"] == {"mesh_pallas": 0, "mesh": 0}

@@ -325,6 +325,21 @@ def test_count_and_msearch(loaded):
         [200, 200, 200, 404, 400]
 
 
+def test_uri_search_q_on_search_and_count(loaded):
+    """``?q=`` is a query_string query, with ``df``, ``default_operator``,
+    ``analyzer`` and ``lenient``, on ``_search`` and on ``_count``."""
+    for path in ("/idx/_search?q=title:w3&size=50",
+                 "/idx/_search?q=w3%20w17&default_operator=AND&size=50",
+                 "/idx/_search?q=w5&df=title&size=50",
+                 "/idx/_search?q=%22w0%20w1%22&df=title&size=50",
+                 "/idx/_search?q=W2&df=title&analyzer=whitespace",
+                 "/idx/_search?q=year:abc&lenient=true",
+                 "/idx/_count?q=title:w3",
+                 "/idx/_count?q=venue:venue1%20AND%20title:w2"):
+        both(loaded, "GET", path, status=200)
+    both(loaded, "GET", "/idx/_search?q=year:abc")
+
+
 def test_cat_and_cluster(loaded):
     both(loaded, "GET", "/_cat/indices?format=json", status=200)
     both(loaded, "GET", "/_cat/indices/idx?format=json&h=index,docs.count",
@@ -420,7 +435,7 @@ def test_unported_route_answers_400():
         tn.create_index("i", {"settings": {"number_of_shards": 1}})
         for method, path in (("POST", "/i/_update/1"),
                              ("GET", "/_nodes/stats"),
-                             ("GET", "/i/_search?q=w1"),
+                             ("GET", "/_mget"),
                              ("GET", "/i/_search?track_total_hits=true"),
                              ("POST", "/_search/scroll"),
                              ("GET", "/_search")):

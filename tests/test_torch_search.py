@@ -184,7 +184,7 @@ def test_documents_and_routing(nodes):
 def test_unported_requests_raise(nodes):
     _, tn = nodes
     with pytest.raises(ParsingException):
-        tn.search("idx", {"query": {"fuzzy": {"title": "w1"}}})
+        tn.search("idx", {"query": {"span_term": {"title": "w1"}}})
     with pytest.raises(ParsingException):
         tn.search("idx", {"size": 0, "aggs": {"g": {"geohash_grid": {
             "field": "venue", "precision": 3}}}})

@@ -171,6 +171,74 @@ def test_from_arrays_round_trips_a_jax_segment():
     assert tuple(t.kernel_geom) == tuple(geom)
 
 
+def _same_positions(per_doc, want):
+    assert sorted(per_doc) == sorted(want)
+    for doc, pos in want.items():
+        np.testing.assert_array_equal(per_doc[doc], pos)
+        assert per_doc[doc].dtype == np.int32
+
+
+def test_phrase_query_decodes_only_its_terms():
+    """A phrase query on a sealed (flat-built) segment slices its terms'
+    runs out of the flat position columns: no other term is decoded, and
+    each decoded term equals the JAX segment's nested positions."""
+    from elasticsearch_tpu_torch.search.query_dsl import (
+        MatchPhraseQueryBuilder,
+        ShardQueryContext,
+    )
+
+    t, j, tm, _ = _seal_both(seeded_docs(3, 200))
+    ctx = ShardQueryContext(tm)
+    pos = t.positions
+    assert not pos._runs and not pos._terms
+    MatchPhraseQueryBuilder("body", "search engine").to_plan(ctx, t)
+    tids = {t.term_id("body", "search"), t.term_id("body", "engine")}
+    assert set(pos._runs) == tids and not pos._terms
+    for tid in sorted(tids):
+        _same_positions(pos[tid], j.positions[tid])
+    assert set(pos._terms) == tids and set(pos._runs) == tids
+    # iteration and len read the term column, and still build nothing else
+    assert sorted(pos) == sorted(j.positions) and len(pos) == len(j.positions)
+    assert set(pos._terms) == tids
+    assert (t.term_id("body", "kernel") in pos) == \
+        (t.term_id("body", "kernel") in j.positions)
+
+
+@pytest.mark.parametrize("form", ["positions", "flat", "mapping"])
+def test_from_arrays_takes_positions_as_they_are(form):
+    """``from_arrays(positions=...)`` keeps a ``SegmentPositions`` and the
+    three flat int32 columns as they are (no nested build), and a
+    mapping ``{term: {doc: positions}}`` keeps working."""
+    from elasticsearch_tpu_torch.index.segment import SegmentPositions
+
+    t, j, _, _ = _seal_both(seeded_docs(4, 120))
+    cols = t.positions._flat
+    given = {"positions": t.positions, "flat": cols,
+             "mapping": j.positions}[form]
+    seg = Segment.from_arrays(
+        j.name, term_keys=j.term_keys, term_block_start=j.term_block_start,
+        term_block_count=j.term_block_count, term_doc_freq=j.term_doc_freq,
+        block_docs=j.block_docs, block_tfs=j.block_tfs, norms=j.norms,
+        live=j.live, field_stats=j.field_stats,
+        field_norm_idx=j.field_norm_idx, doc_ids=j.doc_ids,
+        sources=j.sources, positions=given, device="cpu")
+    assert isinstance(seg.positions, SegmentPositions)
+    if form == "positions":
+        assert seg.positions is t.positions
+    elif form == "flat":
+        assert all(a is b for a, b in zip(seg.positions._flat, cols))
+    assert not seg.positions._terms
+    for tid in j.positions:
+        _same_positions(seg.positions[tid], j.positions[tid])
+    assert seg.positions.json_dict() == t.positions.json_dict()
+
+
+def test_term_ttf_equals_jax():
+    t, j, _, _ = _seal_both(seeded_docs(6, 90))
+    for tid in range(0, len(t.term_keys), 7):
+        assert t.term_ttf(tid) == j.term_ttf(tid)
+
+
 @pytest.mark.parametrize("metric", ["cosine", "dot_product"])
 def test_staged_vectors_bit_equal_to_the_jax_segment(metric):
     """A JAX segment carried across by ``from_arrays`` stages the same

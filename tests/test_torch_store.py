@@ -407,7 +407,7 @@ def test_loaded_positions_parse_on_first_access(tmp_path):
     seg = jax_segment()
     jstore.Store(str(tmp_path / "a")).write_segment(seg)
     back = tstore.Store(str(tmp_path / "a")).read_segment(seg.name, "cpu")
-    assert back.positions._raw is None and back.positions._nested is None
+    assert back.positions._raw is None and not back.positions._terms
     tstore.Store(str(tmp_path / "b")).write_segment(back)
     assert back.positions._raw is None
     raw = (tmp_path / "a" / seg.name / "positions.json").read_bytes()
