@@ -70,11 +70,11 @@ prints no result, when there is no GPU or any check fails. Phases:
    the dense scores and mask.
 6. The kernel summary line (with phase 11's ``rest`` entry, phase 12's
    ``aggs`` entry, phase 13's ``durability`` entry, phase 14's
-   ``staging`` entry and phase 15's ``query_dsl`` entry), then the device
-   line.
+   ``staging`` entry, phase 15's ``query_dsl`` entry and phase 16's
+   ``sort_paging`` entry), then the device line.
 
 Run between phases 2 and 3, and after phase 4 (phase 10 after phase 9,
-then phases 11, 12, 13, 14 and 15):
+then phases 11, 12, 13, 14, 15 and 16):
 
 2b. Kernels 1b (dense, q_batch=16, with and without counts) and 1c (fused
     per-tile top-k, q_batch 1 and 16, k=16) on the 1M-doc corpus, for 16
@@ -272,6 +272,21 @@ then phases 11, 12, 13, 14 and 15):
     stemmer) on ``title`` and ``english`` on ``title.en`` (docs/s beside
     phase 3's); match, match_phrase and query_string equal on the cpu
     node. The summary line's ``query_dsl`` entry holds the numbers.
+16. Sort and paging on the card, after phase 15 (``sort_paging_phase``):
+    pmc-4x256k's doc-values form (phase 12's ``ts`` and ``citations``,
+    ``venue``, the title text rebuilt for highlighting) in ``srt4`` (the
+    mesh plane) and ``srt4h`` (the host rung), each against a cpu node's
+    twin. 16a every sort kind (field, missing policy, keyword by global
+    ordinals, ``_doc``; ``ts`` and two fields on the host rung), its p50
+    and plane, and the tie case's top-k candidates; 16b 20 search_after
+    pages of 100 on the mesh and the host rung against one request; 16c
+    slices of 2, 4 and 8; 16d rescore in each mode, terminate_after,
+    collapse with inner_hits, highlight over HTTP; 16e a 1,000-hit scroll
+    on ingest-20k's segments with deletes, appends, a refresh and a force
+    merge between its pages, a sliced scroll over HTTP, and the memory
+    ``clear_scroll`` and a reaped expiry return. Every 1a launch and
+    kernel-2 call of its main path held against plain; the summary line's
+    ``sort_paging`` entry holds the numbers.
 """
 
 from __future__ import annotations
@@ -5793,6 +5808,573 @@ def query_dsl_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, queries,
     return report
 
 
+# ----------------------------------------------------------------------
+# Phase 16: sort and paging
+# ----------------------------------------------------------------------
+
+SRT_PAGE = 100  # 16b's page
+SRT_PAGES = 20
+SRT_REPS = 3  # samples a 16a kind and index (the main path's run and two)
+SCROLL_PAGE = 100  # 16e's page
+SCROLL_HITS = 1000
+SCROLL_APPEND = 4096  # docs indexed while 16e's scroll is open
+RARE_RANK = 1000  # a term of about 7,000 docs in pmc-4x256k
+RESCORE_RANK = 60
+
+
+class _TitledSources:
+    """pmc-4x256k's stored sources with the title text rebuilt from its
+    token stream on demand (phase 16 highlights it)."""
+
+    def __init__(self, base, title_stream):
+        tokens, lens = title_stream
+        ends = np.cumsum(lens)
+        self._base, self._tokens = base, tokens
+        self._lo, self._hi = ends - lens, ends
+        self._words = [term_token(i) for i in range(VOCAB)]
+
+    def __len__(self):
+        return len(self._base)
+
+    def __getitem__(self, d):
+        src = self._base[d]
+        src["title"] = " ".join(self._words[t] for t in
+                                self._tokens[self._lo[d]: self._hi[d]].tolist())
+        return src
+
+
+def same_sorted(gr, cr, what):
+    """A field-sorted response: totals, ids, sort arrays and planes
+    exact."""
+    check(gr["hits"]["total"] == cr["hits"]["total"]
+          and gr["_plane"] == cr["_plane"]
+          and gr.get("terminated_early") == cr.get("terminated_early")
+          and [(h["_id"], h["sort"]) for h in gr["hits"]["hits"]]
+          == [(h["_id"], h["sort"]) for h in cr["hits"]["hits"]],
+          f"cuda response equals cpu response: {what}")
+
+
+def strict_after_walk(hits, page, pages):
+    """The pages a one-field search_after walk returns over ``hits`` (one
+    request's hits in sort order): each page starts at the first hit whose
+    key is strictly after the previous page's last key, so the hits tied
+    with that key are skipped (the cut's contract)."""
+    out, pos = [], 0
+    for _ in range(pages):
+        cur = hits[pos: pos + page]
+        if not cur:
+            break
+        out.append(cur)
+        last = cur[-1]["sort"]
+        pos += len(cur)
+        while pos < len(hits) and hits[pos]["sort"] == last:
+            pos += 1
+    return out
+
+
+def sort_paging_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, queries,
+                      shard_arrays, title_streams, ingest_node, errs,
+                      device="cuda"):
+    """Phase 16: sort and paging at full width, on pmc-4x256k's doc-values
+    form (phase 12's ``ts`` over one year and ``citations`` missing on 3%,
+    with ``venue`` and the ``title`` text rebuilt for highlighting) in
+    ``srt4`` (the mesh plane) and ``srt4h`` (``search.mesh: false``, the
+    host rung) on the card node, each held against a cpu node's twin:
+
+    16a. Sorts: ``citations`` desc and asc with missing ``_first``,
+         ``_last`` and a number, ``venue`` asc by global ordinals, ``_doc``
+         on the mesh; ``ts`` desc (not f32-exact: ``sort_ineligible``) and
+         ``[venue, citations]`` on the host rung; each kind's p50 and
+         plane; the tie case (``citations`` asc over every doc, k 10): the
+         top-k candidates a slot keeps and the top-k's device ms.
+    16b. search_after: 20 pages of 100 under a match, on the mesh by
+         ``citations`` desc (equal to the strict-after walk over one
+         request: a one-field cursor skips the ties of a page's last key)
+         and on the host rung by ``[citations desc, ts asc]`` (equal to
+         one size-2000 request hit for hit and sort value for sort value).
+    16c. Slices of a match (``max`` 2, 4, 8): disjoint, their union every
+         hit.
+    16d. Rescore (window 50, each score mode), ``terminate_after: 1000``,
+         ``collapse`` on ``venue`` with ``inner_hits``, ``highlight`` on
+         ``title`` (plain and unified) over HTTP.
+    16e. On ``scr`` (ingest-20k's segments: the port's force merge
+         re-parses every stored source, which at 262,144 docs a shard
+         would take minutes), a 1,000-hit scroll over a match whose first
+         page carries a terms aggregation; between its pages 1% of a shard
+         is deleted, 4,096 matching docs indexed, refreshed and that shard
+         force-merged: the pages equal the snapshot taken at open, no
+         duplicates and no gaps, and the cpu node's pages; pages/s and the
+         first page's ms against the deeper pages'; a sliced scroll over
+         HTTP. Then, apart from the main path: ``clear_scroll`` and a
+         reaped keep-alive expiry return ``memory_allocated`` to its level
+         before each scroll opened.
+    Every 1a launch of the main path (mesh, host rung, pinned views,
+    rescore) is held bit for bit against its plain version and every
+    kernel-2 call replayed through its plain version. Returns the
+    report."""
+    from elasticsearch_tpu_torch.ops.scoring import top_k
+    from elasticsearch_tpu_torch.rest.http_server import HttpServer
+
+    t_phase = time.perf_counter()
+    report = {}
+    tok = term_token
+    mapping = {"_doc": {"properties": {
+        "title": {"type": "text"}, "venue": {"type": "keyword"},
+        "year": {"type": "long"}, "ts": {"type": "date"},
+        "citations": {"type": "long"}}}}
+    gnode, cnode = Node(device=device), Node(device="cpu")
+    for node in (gnode, cnode):
+        for name, extra in (("srt4", {}),
+                            ("srt4h", {"search": {"mesh": False}})):
+            node.create_index(name, {"settings": {"number_of_shards": 4,
+                                                  **extra},
+                                     "mappings": mapping})
+        node.create_index("scr", {"settings": {"number_of_shards": 5},
+                                  "mappings": {"_doc": {"properties": {
+                                      "title": {"type": "text"},
+                                      "venue": {"type": "keyword"},
+                                      "year": {"type": "long"}}}}})
+    segs = []
+    for sh, arrays in enumerate(shard_arrays):
+        arrays = dict(arrays)
+        nd_pad = arrays["numeric_columns"]["year"]["exists"].shape[0]
+        n = len(arrays["doc_ids"])
+        arrays["numeric_columns"] = {**arrays["numeric_columns"],
+                                     **agg_columns(sh, nd_pad, n)}
+        arrays["sources"] = _TitledSources(arrays["sources"],
+                                           title_streams[sh])
+        for node, dev in ((gnode, device), (cnode, "cpu")):
+            seg = Segment.from_arrays(f"srt4_{sh}_seg_1", device=dev,
+                                      **arrays)
+            for name in ("srt4", "srt4h"):
+                node.indices[name].shards[sh].engine.adopt_segment(seg)
+            segs.append(seg)
+    _adopt_copies(ingest_node, gnode, "docs", Segment, device=device,
+                  index_to="scr")
+    _adopt_copies(ingest_node, cnode, "docs", Segment, index_to="scr")
+    t0 = time.perf_counter()
+    for seg in segs:
+        seg.device_arrays()
+    # the mesh generations stage before the main path's run
+    for node in (gnode, cnode):
+        node.search("srt4", {"query": {"match": {"title": tok(1)}},
+                             "size": 1})
+    if device == "cuda":
+        torch.cuda.synchronize()
+    report["stage_s"] = time.perf_counter() - t0
+    log(f"[phase 16] srt4 and scr built, staged in {report['stage_s']:.1f} "
+        f"s ({time.perf_counter() - t_phase:.1f} s in all)")
+
+    def match(q):
+        return {"match": {"title": " ".join(tok(t) for t in q)}}
+
+    q_rare = {"match": {"title": tok(RARE_RANK)}}
+    sorts = [  # (kind, query, sort, plane)
+        ("citations_desc", match(queries[0]), [{"citations": "desc"}],
+         "mesh_pallas"),
+        ("citations_asc_first", match(queries[0]),
+         [{"citations": {"order": "asc", "missing": "_first"}}],
+         "mesh_pallas"),
+        ("citations_asc_last", match(queries[0]),
+         [{"citations": {"order": "asc", "missing": "_last"}}],
+         "mesh_pallas"),
+        ("citations_desc_missing_5", match(queries[0]),
+         [{"citations": {"order": "desc", "missing": 5}}], "mesh_pallas"),
+        ("venue_asc", match(queries[0]), [{"venue": "asc"}], "mesh_pallas"),
+        ("doc", match(queries[0]), ["_doc"], "mesh_pallas"),
+        ("ties_citations_asc_all", {"match_all": {}},
+         [{"citations": "asc"}], "mesh"),
+        ("ts_desc", match(queries[0]), [{"ts": "desc"}], "host"),
+        ("venue_citations", match(queries[0]),
+         [{"venue": "asc"}, {"citations": "desc"}], "host"),
+    ]
+    samples = {}
+
+    def timed(index, body, kind):
+        t1 = time.perf_counter()
+        r = gnode.search(index, dict(body))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        samples.setdefault((kind, index), []).append(
+            (time.perf_counter() - t1) * 1000)
+        return r
+
+    ms0 = gnode.indices["srt4"]._mesh_plane()
+    dec0 = dict(ms0.decisions)
+    cuda_kernels.reset_launch_counts()
+    t_main = time.perf_counter()
+    with recording_tile_launches(
+            tsc, lambda k: launch_name(k) == "tile_scoring") as kept, \
+            recording_segsum_calls(ssum) as kept_seg, \
+            recording_mask_segsum(ssum) as kept_mask:
+        # ---- 16a ----
+        planes = {}
+        for kind, query, sort, plane in sorts:
+            body = {"query": query, "sort": sort, "size": 10}
+            for index in ("srt4", "srt4h"):
+                gr = timed(index, body, kind)
+                cr = cnode.search(index, dict(body))
+                same_sorted(gr, cr, f"phase 16a {kind} on {index}")
+                want = plane if index == "srt4" else "host"
+                check(gr["_plane"] == want,
+                      f"phase 16a {kind} on {index}: plane {gr['_plane']}, "
+                      f"want {want}")
+                if index == "srt4":
+                    planes[kind] = gr["_plane"]
+                    check(gr["hits"]["max_score"] is None and all(
+                        h["_score"] is None for h in gr["hits"]["hits"]),
+                          f"phase 16a {kind}: no scores under a field sort")
+        dec = {k: v - dec0.get(k, 0) for k, v in ms0.decisions.items()
+               if v != dec0.get(k, 0)}
+        check(dec.get("host.sort_ineligible") == 2,
+              f"phase 16a: ts and the two-field sort decline the mesh as "
+              f"sort_ineligible ({dec})")
+        report["planes"] = planes
+        # ---- 16b ----
+        walks = {}
+        for plane, index, sort in (
+                ("mesh", "srt4", [{"citations": "desc"}]),
+                ("host", "srt4", [{"citations": "desc"}, {"ts": "asc"}])):
+            base = {"query": match(queries[1]), "sort": sort,
+                    "_source": False}
+            pages, cpages, after = [], [], None
+            for _ in range(SRT_PAGES):
+                body = dict(base, size=SRT_PAGE)
+                if after is not None:
+                    body["search_after"] = after
+                gr = gnode.search(index, dict(body))
+                cr = cnode.search(index, dict(body))
+                same_sorted(gr, cr, f"phase 16b {plane} page {len(pages)}")
+                check(gr["_plane"] == ("host" if plane == "host"
+                                       else "mesh_pallas"),
+                      f"phase 16b {plane} page plane {gr['_plane']}")
+                if not gr["hits"]["hits"]:
+                    break
+                pages.append(gr["hits"]["hits"])
+                after = gr["hits"]["hits"][-1]["sort"]
+            joined = [(h["_id"], h["sort"]) for p in pages for h in p]
+            if plane == "host":
+                one = gnode.search(index, dict(base, size=SRT_PAGE
+                                               * SRT_PAGES))
+                want = [(h["_id"], h["sort"]) for h in one["hits"]["hits"]]
+            else:
+                one = gnode.search(index, dict(base, size=2 * SRT_PAGE
+                                               * SRT_PAGES))
+                want = [(h["_id"], h["sort"]) for p in strict_after_walk(
+                    one["hits"]["hits"], SRT_PAGE, SRT_PAGES) for h in p]
+            check(len(pages) == SRT_PAGES and joined == want,
+                  f"phase 16b {plane}: {len(pages)} pages joined equal the "
+                  f"one-request reference ({len(joined)} / {len(want)} "
+                  f"hits)")
+            check(len({i for i, _ in joined}) == len(joined),
+                  f"phase 16b {plane}: no hit twice")
+            walks[plane] = {"pages": len(pages), "hits": len(joined),
+                            "plane": one["_plane"]}
+        report["search_after"] = walks
+        # ---- 16c ----
+        whole = gnode.search("srt4", {"query": q_rare, "size": 0})
+        total = whole["hits"]["total"]
+        every = gnode.search("srt4", {"query": q_rare, "size": total,
+                                      "_source": False})
+        every_ids = {h["_id"] for h in every["hits"]["hits"]}
+        slices = {}
+        for smax in (2, 4, 8):
+            union, n_hits = set(), 0
+            for sid in range(smax):
+                body = {"query": q_rare, "slice": {"id": sid, "max": smax},
+                        "size": total, "_source": False}
+                gr = gnode.search("srt4", dict(body))
+                cr = cnode.search("srt4", dict(body))
+                same_response(gr, cr, f"phase 16c slice {sid}/{smax}")
+                check(gr["_plane"] == "mesh_pallas",
+                      f"phase 16c slice {sid}/{smax} plane {gr['_plane']}")
+                ids = {h["_id"] for h in gr["hits"]["hits"]}
+                check(not ids & union, f"phase 16c slices of {smax} "
+                                       f"disjoint")
+                union |= ids
+                n_hits += gr["hits"]["total"]
+            check(union == every_ids and n_hits == total,
+                  f"phase 16c slices of {smax}: union is every hit "
+                  f"({len(union)} of {total})")
+            slices[smax] = len(union)
+        report["slices"] = {"total": total, **slices}
+        # ---- 16d ----
+        for mode in ("total", "multiply", "avg", "max", "min"):
+            body = {"query": match(queries[2]), "size": 10, "rescore": {
+                "window_size": 50, "query": {
+                    "rescore_query": {"match": {"title": tok(RESCORE_RANK)}},
+                    "query_weight": 0.7, "rescore_query_weight": 1.3,
+                    "score_mode": mode}}}
+            gr = timed("srt4", body, f"rescore_{mode}")
+            same_response(gr, cnode.search("srt4", dict(body)),
+                          f"phase 16d rescore {mode}")
+            check(gr["_plane"] == "mesh_pallas",
+                  f"phase 16d rescore {mode} plane {gr['_plane']}")
+            hr = gnode.search("srt4h", dict(body))
+            same_response(hr, cnode.search("srt4h", dict(body)),
+                          f"phase 16d rescore {mode} (host rung)")
+        body = {"query": match(queries[3]), "size": 10,
+                "terminate_after": 1000}
+        gr = timed("srt4", body, "terminate_after")
+        cr = cnode.search("srt4", dict(body))
+        same_response(gr, cr, "phase 16d terminate_after")
+        check(gr["terminated_early"] is True and gr["hits"]["total"]
+              == cr["hits"]["total"] == 4000,
+              f"phase 16d terminate_after: terminated_early "
+              f"{gr.get('terminated_early')}, total {gr['hits']['total']}")
+        body = {"query": q_rare, "size": 10, "collapse": {
+            "field": "venue", "inner_hits": {
+                "name": "top", "size": 2, "sort": [{"citations": "desc"}]}}}
+        gr = timed("srt4", body, "collapse")
+        cr = cnode.search("srt4", dict(body))
+        same_response(gr, cr, "phase 16d collapse")
+        check(gr["_plane"] == "host"
+              and [(h["fields"], [x["_id"] for x in
+                                  h["inner_hits"]["top"]["hits"]["hits"]])
+                   for h in gr["hits"]["hits"]]
+              == [(h["fields"], [x["_id"] for x in
+                                 h["inner_hits"]["top"]["hits"]["hits"]])
+                  for h in cr["hits"]["hits"]]
+              and len({h["fields"]["venue"][0]
+                       for h in gr["hits"]["hits"]}) == 10,
+              "phase 16d collapse: ten distinct venues, inner hits equal")
+        srv = HttpServer(gnode, port=0)
+        srv.start()
+        try:
+            client = HttpClient(srv.port)
+            for hl_type in ("plain", "unified"):
+                body = {"query": match(queries[4]), "size": 5, "highlight": {
+                    "type": hl_type, "fields": {"title": {}}}}
+                st, r = client.call("POST", "/srt4/_search", body)
+                cr = cnode.search("srt4", dict(body))
+                same_response(r, cr, f"phase 16d {hl_type} highlight")
+                check(st == 200 and r["hits"]["hits"]
+                      and {h["_id"]: h.get("highlight")
+                           for h in r["hits"]["hits"]}
+                      == {h["_id"]: h.get("highlight")
+                          for h in cr["hits"]["hits"]}
+                      and all("<em>" in h["highlight"]["title"][0]
+                              for h in r["hits"]["hits"]),
+                      f"phase 16d {hl_type} highlight over HTTP equals the "
+                      f"cpu node's")
+            # ---- 16e ----
+            scroll = scroll_phase(torch, gnode, cnode, client, match(
+                queries[5]), device)
+            report["scroll"] = scroll
+            client.close()
+        finally:
+            srv.stop()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    report["main_s"] = time.perf_counter() - t_main
+    p16 = dict(cuda_kernels.LAUNCHES)
+    log(f"[phase 16] kernel launches: {p16}")
+    t0 = time.perf_counter()
+    held = {}
+    held["tile_scoring"] = check_kept_launches(
+        torch, tsc, kept, errs, "phase 16").get("tile_scoring", 0)
+    check_kept_segsum(torch, ssum, kept_seg, "phase 16", errs, held)
+    check_kept_mask_segsum(torch, ssum, kept_mask, "phase 16", errs, held)
+    del kept, kept_seg, kept_mask
+    report["hold_s"] = time.perf_counter() - t0
+    for k in ("tile_scoring", "segment_sum"):
+        check(p16[k] > 0, f"phase 16 launched {k}")
+    for k, v in p16.items():
+        check(held.get(k, 0) == v, f"every {k} launch of phase 16 held "
+                                   f"against plain ({held.get(k, 0)} of {v})")
+    # the tie case: candidates a slot's top-k keeps, and its device time
+    ex = gnode.indices["srt4"]._mesh_search._executor
+    name = "msort.citations.asc._last"
+    keys = ex._seg_staged[name][: ex.n_occupied]
+    masked = torch.where(ex._seg_staged["live1"][: ex.n_occupied], keys,
+                         torch.full_like(keys, float("-inf")))
+    kth = torch.topk(masked, 10, dim=1).values[:, -1:]
+    cands = (masked >= kth).sum(dim=1).tolist()
+    timer = Timer(torch, torch.device(device)) if device == "cuda" else None
+    ties = {"k": 10, "candidates_per_slot": cands,
+            "slot_docs": int(masked.shape[1])}
+    if timer is not None:
+        ties["top_k_ms"] = timer.ms(lambda: top_k(masked[0], 10), reps=10)
+        ties["torch_topk_ms"] = timer.ms(
+            lambda: torch.topk(masked[0], 10), reps=10)
+    report["ties"] = ties
+    log(f"[phase 16a] tie case (citations asc, k 10): {json.dumps(ties)}")
+    # each kind's p50: the main path's run and SRT_REPS - 1 more
+    t0 = time.perf_counter()
+    p50 = {}
+    for kind, query, sort, _plane in sorts:
+        body = {"query": query, "sort": sort, "size": 10}
+        row = {}
+        for index in ("srt4", "srt4h"):
+            for _ in range(SRT_REPS - 1):
+                timed(index, body, kind)
+            row[index] = float(np.median(samples[(kind, index)]))
+        p50[kind] = row
+        log(f"[phase 16a] {kind}: plane {planes[kind]}, p50 srt4 "
+            f"{row['srt4']:.3f} ms, srt4h {row['srt4h']:.3f} ms")
+    for kind in ("rescore_total", "rescore_max", "terminate_after",
+                 "collapse"):
+        p50[kind] = {"srt4": float(np.median(samples[(kind, "srt4")]))}
+    report["time_s"] = time.perf_counter() - t0
+    # apart from the main path: the pinned tensors return their memory
+    report["memory"] = scroll_memory_phase(torch, gnode, match(queries[5]),
+                                           device)
+    fails = plane_failures(gnode.indices["srt4"], gnode.indices["srt4h"],
+                           cnode.indices["srt4"])
+    check(not any(fails), f"phase 16 zero plane faults (got {fails})")
+    log(f"[phase 16] ladder: "
+        f"{json.dumps(gnode.indices['srt4'].search_stats()['planes']['decisions'])}")
+    report.update(p50_ms=p50, launches=p16, held=held)
+    gnode.close()
+    cnode.close()
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[phase 16] {report['seconds']:.1f} s (main path "
+        f"{report['main_s']:.1f}, hold {report['hold_s']:.1f}, timing "
+        f"{report['time_s']:.1f})")
+    return report
+
+
+def scroll_phase(torch, gnode, cnode, client, query, device):
+    """16e's main path on ``scr``: the mutated 1,000-hit scroll and a
+    sliced scroll over HTTP. Returns its report."""
+    body = {"query": query, "size": SCROLL_PAGE,
+            "aggs": {"v": {"terms": {"field": "venue", "size": 5}}}}
+    snap = gnode.search("scr", {"query": query, "size": SCROLL_HITS,
+                                "_source": False})
+    check(snap["hits"]["total"] > SCROLL_HITS + SCROLL_PAGE,
+          f"phase 16e scroll query matches over {SCROLL_HITS} docs "
+          f"({snap['hits']['total']})")
+    pages, ms = {}, []
+    firsts = {}
+    for name, node in (("cuda", gnode), ("cpu", cnode)):
+        t1 = time.perf_counter()
+        first = node.search("scr", dict(body), scroll="1m")
+        if name == "cuda" and device == "cuda":
+            torch.cuda.synchronize()
+        if name == "cuda":
+            ms.append((time.perf_counter() - t1) * 1000)
+        firsts[name] = first
+        pages[name] = [first]
+    same_response(firsts["cuda"], firsts["cpu"], "phase 16e first page")
+    check(firsts["cuda"]["_plane"] == "host"
+          and firsts["cuda"]["aggregations"]["v"]["buckets"],
+          "phase 16e the first page: host rung, with its aggregation")
+    shard0 = gnode.indices["scr"].shards[0].engine.segments[0]
+    live = np.flatnonzero(shard0.live[: shard0.num_docs])
+    doomed = [shard0.doc_ids[d] for d in live[:: 100]]
+    title = query["match"]["title"]
+    t_all = time.perf_counter()
+    while sum(len(p["hits"]["hits"]) for p in pages["cuda"]) < SCROLL_HITS:
+        if len(pages["cuda"]) == 3:
+            for node in (gnode, cnode):
+                for d in doomed:
+                    node.delete_doc("scr", d)
+                for i in range(SCROLL_APPEND):
+                    node.index_doc("scr", f"late{i}", {
+                        "title": f"{title} t00001", "venue": "v0001",
+                        "year": 2024})
+                node.refresh("scr")
+                node.indices["scr"].shards[0].force_merge()
+        for name, node in (("cuda", gnode), ("cpu", cnode)):
+            t1 = time.perf_counter()
+            page = node.scroll(firsts[name]["_scroll_id"])
+            if name == "cuda":
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t1) * 1000)
+            pages[name].append(page)
+    seconds = time.perf_counter() - t_all
+    for i, (gp, cp) in enumerate(zip(pages["cuda"], pages["cpu"])):
+        same_response(gp, cp, f"phase 16e scroll page {i}")
+    got = [(h["_id"], h["_score"]) for p in pages["cuda"]
+           for h in p["hits"]["hits"]]
+    want = [(h["_id"], h["_score"]) for h in snap["hits"]["hits"]]
+    check(got == want and len({i for i, _ in got}) == len(got),
+          f"phase 16e {len(pages['cuda'])} pages equal the snapshot at open "
+          f"({len(got)} hits), no duplicate, no gap")
+    check(not any(i.startswith("late") for i, _ in got),
+          "phase 16e docs indexed after open stay invisible")
+    for name, node in (("cuda", gnode), ("cpu", cnode)):
+        check(node.clear_scroll([firsts[name]["_scroll_id"]])["num_freed"]
+              == 1, f"phase 16e clear_scroll ({name})")
+    # a sliced scroll over HTTP, after the writes: the slices' union is
+    # every hit of the same query now
+    now = gnode.search("scr", {"query": query, "size": 0})["hits"]["total"]
+    union, n_pages = set(), 0
+    for sid in range(2):
+        st, r = client.call("POST", "/scr/_search?scroll=1m", {
+            "query": query, "size": 500, "_source": False,
+            "slice": {"id": sid, "max": 2}})
+        check(st == 200, f"phase 16e sliced scroll over HTTP: {st}")
+        while r["hits"]["hits"]:
+            ids = {h["_id"] for h in r["hits"]["hits"]}
+            check(not ids & union, "phase 16e slices disjoint")
+            union |= ids
+            n_pages += 1
+            st, r = client.call("POST", "/_search/scroll", {
+                "scroll": "1m", "scroll_id": r["_scroll_id"]})
+    st, r = client.call("DELETE", "/_search/scroll")
+    check(st == 200 and r["num_freed"] == 2 and len(union) == now,
+          f"phase 16e sliced scroll over HTTP: {len(union)} of {now} hits "
+          f"in {n_pages} pages, both contexts cleared")
+    # pages/s over the card node's own page times (the writes between the
+    # pages and the cpu twin's pages are not the scroll's)
+    out = {"pages": len(pages["cuda"]), "hits": len(got),
+           "pages_per_s": len(ms) / (sum(ms) / 1000.0),
+           "seconds_with_writes": seconds,
+           "first_page_ms": ms[0], "deeper_page_ms": float(np.median(ms[1:])),
+           "page_ms": ms, "deleted": len(doomed),
+           "deleted_in_snapshot": len(set(doomed) & {i for i, _ in want}),
+           "appended": SCROLL_APPEND,
+           "sliced_hits": len(union)}
+    log(f"[phase 16e] {json.dumps(out)}")
+    return out
+
+
+def scroll_memory_phase(torch, gnode, query, device):
+    """16e apart from the main path: ``memory_allocated`` before a scroll
+    opens, while it is open, after ``clear_scroll``; and again for a
+    keep-alive expiry the reaper's sweep drops."""
+    import gc
+
+    if device != "cuda":
+        return {}
+
+    def level():
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    body = {"query": query, "size": SCROLL_PAGE,
+            "aggs": {"v": {"terms": {"field": "venue", "size": 5}}}}
+    gnode.search("scr", dict(body))  # its columns stage before the levels
+    out = {}
+    m0 = level()
+    first = gnode.search("scr", dict(body), scroll="1m")
+    for _ in range(3):
+        gnode.scroll(first["_scroll_id"])
+    m_open = level()
+    gnode.clear_scroll([first["_scroll_id"]])
+    del first
+    m1 = level()
+    check(m_open > m0 and m1 == m0,
+          f"phase 16e clear_scroll returns memory_allocated to its level "
+          f"(before {m0}, open {m_open}, after {m1})")
+    first = gnode.search("scr", dict(body), scroll="100ms")
+    sid = first["_scroll_id"]
+    del first
+    time.sleep(0.2)
+    reaped = gnode._reap_expired_scrolls()
+    m2 = level()
+    check(reaped == 1 and sid not in gnode.scrolls and m2 == m0,
+          f"phase 16e keep-alive expiry reaped ({reaped}), memory_allocated "
+          f"back to its level ({m2} against {m0})")
+    out.update(before=m0, open=m_open, after_clear=m1, after_expiry=m2,
+               pinned_bytes=m_open - m0)
+    log(f"[phase 16e] memory: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6170,6 +6752,15 @@ def main() -> int:
     for k, v in qdsl_report["launches"].items():
         launches[k] += v
 
+    # ---------------- phase 16: sort and paging on the card --------------
+    clock("phase 16")
+    sort_report = sort_paging_phase(
+        torch, Node, Segment, cuda_kernels, tsc, ssum, queries, shard_arrays,
+        title_streams, gnode, batch_errs)
+    seg_held["phase 16"] = sort_report["held"].get("segment_sum", 0)
+    for k, v in sort_report["launches"].items():
+        launches[k] += v
+
     # ---------------- phase 5: latency summary ---------------------------
     clock("phase 5")
     for kind, xs in sorted(lat.items()):
@@ -6272,7 +6863,7 @@ def main() -> int:
          **knn_staging},
     ], "rest": rest_report, "aggs": aggs_report,
         "durability": durability_report, "staging": staging_report,
-        "query_dsl": qdsl_report}
+        "query_dsl": qdsl_report, "sort_paging": sort_report}
     for name, key, replaces, extra in (
             ("tile_scoring_packed", "tile_scoring_packed", 656,
              ("ms_with_counts", "bound_ms_with_counts", "plan")),

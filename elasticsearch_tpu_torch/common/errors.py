@@ -69,6 +69,13 @@ class QueryShardException(ElasticsearchTpuException):
     status_code = 400
 
 
+class QueryPhaseExecutionException(ElasticsearchTpuException):
+    """The query phase failed executing (500): a slice count over
+    ``index.max_slices_per_scroll``."""
+
+    status_code = 500
+
+
 class MapperParsingException(ElasticsearchTpuException):
     status_code = 400
 

@@ -316,6 +316,20 @@ class DeviceMemoryAccountant:
             self._mirror(-freed)
             return freed
 
+    def release_tables(self, index: str, scope: str,
+                       tables: List[str]) -> int:
+        """Release some tables of one scope (derived columns its owner
+        dropped); the scope stays. Returns the bytes released."""
+        index = index or "_unassigned"
+        names = set(tables)
+        with self._lock:
+            keys = [k for k in self._entries
+                    if k[0] == index and k[1] == scope and k[3] in names]
+            freed = sum(self._entries.pop(k).bytes for k in keys)
+            self._total -= freed
+            self._mirror(-freed)
+            return freed
+
     def release_index(self, index: str) -> int:
         """Index close/delete: release everything it still holds (the
         structured per-scope releases should have run already — this is

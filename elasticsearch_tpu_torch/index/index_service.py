@@ -10,8 +10,15 @@ shards by murmur3 of their id (or routing). A search goes:
    all (shard, segment) pairs as one stacked program on the device when
    they fit ``index.search.mesh.max_slots_per_device`` slots (one
    device); then the host rung: the ``_can_match`` prefilter, the query
-   phase shard by shard, the merge of the shards' top-k, the
-   aggregations over every shard's segment views, and fetch.
+   phase shard by shard, the merge of the shards' top-k (by score or by
+   the request's sort values), collapse (every candidate kept, then cut
+   to k groups, each expanded with its ``inner_hits``), the
+   aggregations over every shard's segment views, and fetch. A response
+   with ``terminate_after`` says ``terminated_early``.
+
+``search(body, pinned_segments=...)`` is a scroll's page: the query
+phase reads the scroll's pinned segment views on the host rung,
+bypassing the micro-batcher, the mesh plane and ``_can_match``.
 
 A ``knn`` section alone is a pure vector search, normalized into the
 ``knn`` query clause: a plain top-k vector search goes to the mesh
@@ -111,8 +118,11 @@ from elasticsearch_tpu_torch.search.batching import (
 )
 from elasticsearch_tpu_torch.search.service import (
     check_body,
+    collapse_refs,
+    expand_collapsed_hits,
     fetch_hits,
     merge_refs,
+    normalize_sort,
 )
 from elasticsearch_tpu_torch.utils.murmur3 import shard_id_for
 
@@ -180,6 +190,10 @@ class IndexService:
                 durability=durability)
             shard.engine.postings_codec = self.postings_codec
             shard.engine.postings_codec_default = self.postings_codec_default
+            # slice resolution is shard-count aware (SliceBuilder)
+            shard.searcher.num_shards = self.num_shards
+            shard.searcher.max_slices = settings.get_int(
+                "index.max_slices_per_scroll", 1024)
             self.shards[sid] = shard
             try:
                 if not shard.has_disk_state():
@@ -295,15 +309,24 @@ class IndexService:
     # Search
     # ------------------------------------------------------------------
 
-    def search(self, body: Optional[dict] = None) -> dict:
-        return self._admitted_dispatch(_without_relevance_sort(body or {}))
+    def search(self, body: Optional[dict] = None,
+               pinned_segments: Optional[Dict[int, list]] = None) -> dict:
+        """pinned_segments: {shard_id: [PinnedSegmentView]} of an open
+        scroll: the query phase reads those views and bypasses the
+        micro-batcher, the mesh plane and can_match (all keyed to the
+        live segment set)."""
+        return self._admitted_dispatch(body or {}, pinned_segments)
 
-    def _admitted_dispatch(self, body: dict) -> dict:
+    def _admitted_dispatch(self, body: dict,
+                           pinned_segments: Optional[Dict[int, list]] = None
+                           ) -> dict:
         """Route the query phase through the cross-query micro-batcher
         when eligible: a concurrent burst of compatible queries shares one
         batched kernel launch; a lone query runs at once."""
-        if not self._batcher.enabled or not batchable_body(body):
-            return self._search_uncached(body)
+        if (not self._batcher.enabled or pinned_segments is not None
+                or not batchable_body(body)):
+            return self._search_uncached(body,
+                                         pinned_segments=pinned_segments)
         return self._batcher.run(self.name, body,
                                  single_fn=self._search_uncached,
                                  batch_fn=self.search_batch)
@@ -428,6 +451,8 @@ class IndexService:
             "hits": {"total": out["total"], "max_score": out["max_score"],
                      "hits": hits},
         }
+        if out.get("terminated_early") is not None:
+            resp["terminated_early"] = bool(out["terminated_early"])
         if out.get("pruned") is not None:
             # block-max pruned scoring served the query phase: the tile
             # economy and the gte-total marker, beside _plane
@@ -455,11 +480,14 @@ class IndexService:
 
     def _search_uncached(self, body: dict,
                          score_caches: Optional[dict] = None,
-                         skip_mesh: bool = False) -> dict:
+                         skip_mesh: bool = False,
+                         pinned_segments: Optional[Dict[int, list]] = None
+                         ) -> dict:
         """score_caches: {(shard_id, segment_name): (scores, matched)} from
         a batched kernel launch (search_batch); cached segments skip plan
         execution. skip_mesh: the query already went through the batch's
-        plane ladder."""
+        plane ladder. pinned_segments: a scroll's views (host rung
+        only)."""
         t0 = time.monotonic()
         body = body or {}
         if body.get("knn") is not None:
@@ -482,7 +510,11 @@ class IndexService:
         check_body(body)
         from_, size = self._window(body)
         k = from_ + size
-        if self._mesh_allowed() and not skip_mesh:
+        sort_spec = normalize_sort(body.get("sort"))
+        # a pinned (scroll) search stays on the host rung: the mesh plane
+        # stages the live segment set
+        if (self._mesh_allowed() and not skip_mesh
+                and pinned_segments is None):
             knn_clause = _pure_knn_mesh_clause(body)
             if knn_clause is not None:
                 resp = self._try_mesh_knn(body, knn_clause, k)
@@ -498,7 +530,10 @@ class IndexService:
         skipped = 0
         active_ids = []
         for sid in shard_ids:
-            if not _can_match(self.shards[sid], body):
+            # a pinned search bypasses can_match: its bounds come from the
+            # live segment set, not the pinned views
+            if (pinned_segments is None
+                    and not _can_match(self.shards[sid], body)):
                 skipped += 1
                 continue
             active_ids.append(sid)
@@ -522,7 +557,9 @@ class IndexService:
                 shard_cache = {name: pair for (s, name), pair
                                in score_caches.items() if s == sid}
             shard_results.append(self.shards[sid].searcher.query(
-                body, size_hint=max(k, 1), score_cache=shard_cache))
+                body, size_hint=max(k, 1), score_cache=shard_cache,
+                segments=(pinned_segments.get(sid, [])
+                          if pinned_segments is not None else None)))
         if failures and not shard_results:
             raise SearchPhaseExecutionException(
                 "query", "all shards failed", failures)
@@ -531,8 +568,14 @@ class IndexService:
         for r in shard_results:
             if r.max_score is not None:
                 max_score = r.max_score if max_score is None else max(max_score, r.max_score)
+        collapse_body = body.get("collapse") or {}
+        collapse_field = collapse_body.get("field")
+        # collapse keeps every candidate, then cuts to k groups
+        merge_k = 0 if collapse_field else max(k, 0)
         all_refs = [ref for r in shard_results for ref in r.refs]
-        refs = merge_refs(all_refs, max(k, 0) or len(all_refs))
+        refs = merge_refs(all_refs, sort_spec, merge_k or len(all_refs))
+        if collapse_field:
+            refs = collapse_refs(refs, collapse_field)[: max(k, 0)]
         refs_window = refs[from_: from_ + size] if size >= 0 else refs[from_:]
 
         aggregations = None
@@ -541,7 +584,11 @@ class IndexService:
             views = [v for r in shard_results for v in r.agg_views]
             aggregations = run_aggregations(agg_specs, views)
 
-        hits = fetch_hits(refs_window, self.shards, body, self.name)
+        hits = fetch_hits(refs_window, self.shards, body, self.name,
+                          pinned_segments=pinned_segments)
+        if collapse_field:
+            expand_collapsed_hits(hits, refs_window, collapse_body, body,
+                                  self.search)
         resp = {
             "took": int((time.monotonic() - t0) * 1000),
             "timed_out": False,
@@ -560,6 +607,9 @@ class IndexService:
         }
         if failures:
             resp["_shards"]["failures"] = failures
+        if any(r.terminated_early is not None for r in shard_results):
+            resp["terminated_early"] = any(
+                bool(r.terminated_early) for r in shard_results)
         if aggregations is not None:
             resp["aggregations"] = aggregations
         return resp
@@ -920,20 +970,6 @@ def _shard_failure_entry(index: str, shard_id: int, exc) -> dict:
     return {"shard": shard_id, "index": index,
             "reason": {"type": es_type_name(type(exc).__name__),
                        "reason": exc.reason}}
-
-
-def _without_relevance_sort(body: dict) -> dict:
-    """A ``sort`` on ``_score`` descending alone is the default relevance
-    order (``?sort=_score`` over REST): served as if absent, like the JAX
-    package does. Any other sort stays, and the search raises."""
-    sort = body.get("sort")
-    if sort is None:
-        return body
-    specs = sort if isinstance(sort, list) else [sort]
-    if specs and all(s in ("_score", {"_score": "desc"},
-                           {"_score": {"order": "desc"}}) for s in specs):
-        return {k: v for k, v in body.items() if k != "sort"}
-    return body
 
 
 def _pure_knn_mesh_clause(body: dict) -> Optional[dict]:

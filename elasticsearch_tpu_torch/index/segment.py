@@ -45,6 +45,9 @@ them for phrase queries; the store writes and reads them. A phrase query
 reads one term's run at a time (``SegmentPositions.term_run``).
 ``term_ttf`` (a term's total frequency, for the DFR, IB and LM
 similarities) sums its tf blocks on first use, cached per term.
+
+``PinnedSegmentView`` is a scroll's point-in-time view of a segment: the
+segment's immutable tensors, its own frozen live mask and live tensors.
 """
 
 from __future__ import annotations
@@ -390,6 +393,9 @@ class Segment:
         self._device: Optional[dict] = None
         # doc-value columns staged on demand (key -> tensor)
         self.dev_cache: Dict[str, Any] = {}
+        # host arrays derived from the immutable columns on demand (slice
+        # masks, keyword sort strings)
+        self.host_cache: Dict[str, Any] = {}
         self.kernel_geom: Optional[tsc.TileGeometry] = None
         # codec -> the tile kernel's posting tables on the device, and the
         # per-block frac max of what that codec decodes
@@ -924,6 +930,97 @@ class Segment:
               for t in tables.values()),
             *self.dev_cache.values())}
         return sum(t.numel() * t.element_size() for t in tensors.values())
+
+
+class PinnedSegmentView:
+    """A point-in-time view of a sealed segment, for a scroll (the JAX
+    package's ``PinnedSegmentView``). It shares every immutable staged
+    tensor (postings, norms, kernel tables, doc values, embeddings) with
+    the segment, but freezes ``live`` when it is built: deletes and
+    updates rewrite ``Segment.live`` in place and merges swap the
+    engine's segment list, yet the scroll keeps seeing exactly the docs
+    visible when it opened. The view stages its own ``live``, ``live1``
+    and ``k_live_t[_sub]`` tensors from the frozen mask, so the tile
+    kernel reads the pinned live tiles, never the segment's current ones.
+    A segment a merge retired (its staging released) is not restaged: the
+    view keeps serving the tensors it captured. Dropping the view
+    (``clear_scroll``, keep-alive expiry) frees what only it holds; its
+    own tensors are not in the device-memory ledger."""
+
+    def __init__(self, seg: "Segment"):
+        self._seg = seg
+        self.live = seg.live.copy()
+        self._pin_device: dict = {}
+        # device_arrays() returns the same dict every call and grows it in
+        # place: a plan built after a caller captured it reads its
+        # live_key from that dict
+        self._merged: dict = {}
+        self._codec: Optional[str] = None
+        self._lock = threading.Lock()
+
+    def __getattr__(self, name):
+        return getattr(self._seg, name)
+
+    @property
+    def live_doc_count(self) -> int:
+        return int(self.live[: self._seg.num_docs].sum())
+
+    @property
+    def kernel_codec(self) -> Optional[str]:
+        """The codec of the kernel tables the view captured (a retired
+        segment forgets its own)."""
+        return self._codec if self._codec is not None \
+            else self._seg.kernel_codec
+
+    def device_arrays(self) -> dict:
+        seg = self._seg
+        with self._lock:
+            if not self._merged or seg._device is not None:
+                base = seg.device_arrays()
+                self._codec = seg.kernel_codec
+                # shared immutable tables from the segment; every live
+                # layout (the segment restages them on deletes) only from
+                # the pin
+                for key, val in base.items():
+                    if key in ("live", "live1") or key.startswith("k_live_t"):
+                        continue
+                    self._merged[key] = val
+            if "live1" not in self._pin_device:
+                live1 = np.concatenate([self.live, np.zeros(1, dtype=bool)])
+                self._pin_device["live"] = _to_device(self.live, seg.device)
+                self._pin_device["live1"] = _to_device(live1, seg.device)
+                self._pin_device["k_live_t"] = self._pinned_live_t(
+                    seg.kernel_geom.tile_sub)
+            self._merged.update(self._pin_device)
+            return self._merged
+
+    def kernel_live_t_for(self, sub: int) -> str:
+        key = f"k_live_t_{sub}"
+        self.device_arrays()
+        with self._lock:
+            if key not in self._pin_device:
+                self._pin_device[key] = self._pinned_live_t(sub)
+                self._merged[key] = self._pin_device[key]
+        return key
+
+    def ensure_vector_staged(self, field: str, metric: str = "cosine"):
+        """Vector stagings are immutable, so the view shares the
+        segment's, copied into the view's dict (a plan built after a
+        caller captured it reads from there)."""
+        keys = self._seg.ensure_vector_staged(field, metric)
+        if keys is not None:
+            base = self._seg.device_arrays()
+            with self._lock:
+                for key in keys[:3]:
+                    if key in base:
+                        self._merged[key] = base[key]
+        return keys
+
+    def _pinned_live_t(self, sub: int) -> torch.Tensor:
+        seg = self._seg
+        return _to_device(tsc.build_live_t(
+            self.live.astype(np.float32), tsc.tile_geometry(seg.nd_pad, sub)),
+            seg.device)
 
 
 class SegmentBuilder:

@@ -100,6 +100,9 @@ class FieldType:
 
     type_name = "object"
     has_doc_values = True
+    # doc values kept as ordinals against a sorted term list (a sort on
+    # the field compares strings)
+    ordinal_doc_values = False
 
     def __init__(self, name: str, params: Optional[dict] = None):
         self.name = name
@@ -156,6 +159,7 @@ class TextFieldType(FieldType):
 
 class KeywordFieldType(FieldType):
     type_name = "keyword"
+    ordinal_doc_values = True
 
     def __init__(self, name, params=None):
         super().__init__(name, params)

@@ -38,6 +38,19 @@ path nothing is kept on disk (no translog either). There is no cluster
 state beside the ``indices`` dict, so no aliases or templates: a
 ``_meta.json``'s ``aliases`` are kept as read and written back
 unchanged, and the JAX package's ``_state/`` directory is left unread.
+
+Scroll is point in time, as in the JAX package: ``search(index, body,
+scroll="1m")`` pins every shard's segment set and live masks
+(``PinnedSegmentView``) before the first page, and every page reads that
+snapshot. The ordered result is a lazily extended prefix
+(``_extend_pit_entries``): each extension re-queries the pinned views
+with a geometrically growing top-k and appends the refs it has not
+served, so pages neither skip nor repeat a doc, across ties too.
+``scroll`` serves the next page, ``clear_scroll`` drops contexts (ids or
+``_all``), and a keep-alive reaper thread drops expired ones on time;
+``close`` stops and joins it. Dropping a context frees its pinned live
+tensors. The JAX package's cursor scroll serves cross-cluster search
+only, and the port has no remote clusters.
 """
 
 from __future__ import annotations
@@ -46,6 +59,7 @@ import fnmatch
 import json
 import os
 import shutil
+import threading
 import time
 import uuid as _uuid
 from typing import Dict, List, Optional
@@ -58,6 +72,7 @@ from elasticsearch_tpu_torch.common.errors import (
     IndexAlreadyExistsException,
     IndexNotFoundException,
     InvalidIndexNameException,
+    ResourceNotFoundException,
 )
 from elasticsearch_tpu_torch.common.breaker import configure_breaker_service
 from elasticsearch_tpu_torch.common.memory import memory_accountant
@@ -67,6 +82,7 @@ from elasticsearch_tpu_torch.common.settings import (
     SEARCH_STAGING_RETRY_BACKOFF_MS,
     SEARCH_STAGING_RETRY_MAX_ATTEMPTS,
     Settings,
+    parse_time_value,
 )
 from elasticsearch_tpu_torch.common.staging import configure_staging_retry
 from elasticsearch_tpu_torch.common.thread_pool import ThreadPool
@@ -122,13 +138,29 @@ class Node:
         configure_staging_retry(
             max_attempts=SEARCH_STAGING_RETRY_MAX_ATTEMPTS.get(settings),
             backoff_ms=SEARCH_STAGING_RETRY_BACKOFF_MS.get(settings))
+        # open scroll contexts: each pins its segment views (and their
+        # device live tensors) until cleared or expired
+        self.scrolls: Dict[str, dict] = {}
+        self._scroll_lock = threading.Lock()
+        # the keep-alive reaper frees expired contexts on time, not only
+        # when another scroll request arrives
+        self._reaper_stop = threading.Event()
+        self._reaper = threading.Thread(
+            target=self._reap_expired_scrolls_loop,
+            name=f"scroll-reaper[{self.node_name}]", daemon=True)
+        self._reaper.start()
         if self.persistent_path:
             self._recover_indices_from_disk()
 
     def close(self) -> None:
-        """Synced-flush every index of a durable node (its metadata
-        first), so a restart replays nothing; then stop the thread pools
-        and release every index's device memory."""
+        """Stop and join the scroll reaper and drop every scroll context;
+        synced-flush every index of a durable node (its metadata first),
+        so a restart replays nothing; then stop the thread pools and
+        release every index's device memory."""
+        self._reaper_stop.set()
+        self._reaper.join()
+        with self._scroll_lock:
+            self.scrolls.clear()
         if self.persistent_path:
             for name in list(self.indices):
                 self._persist_index_meta(name)
@@ -475,11 +507,197 @@ class Node:
     # Search
     # ------------------------------------------------------------------
 
-    def search(self, index: str, body: Optional[dict] = None) -> dict:
+    def search(self, index: str, body: Optional[dict] = None,
+               scroll: Optional[str] = None) -> dict:
+        """One index's search; ``scroll`` (a keep-alive such as "1m")
+        opens a point-in-time scroll and the response carries its
+        ``_scroll_id``."""
         if "," in index or "*" in index or index == "_all":
             raise IllegalArgumentException(
                 "multi-index search is not supported by the PyTorch port yet")
-        return self.index_service(index).search(body or {})
+        body = body or {}
+        svc = self.index_service(index)
+        if not scroll:
+            return svc.search(body)
+        if body.get("collapse"):
+            raise IllegalArgumentException(
+                "cannot use `collapse` in a scroll context")
+        if int(body.get("from", 0) or 0):
+            # paging within a scroll is the scroll itself: an offset would
+            # desync the pages
+            raise IllegalArgumentException(
+                "using [from] is not allowed in a scroll context")
+        # pin every shard's segment set and live masks before the first
+        # page, so every page (this one too) reads the same snapshot
+        pinned = self._pin_scroll_segments(svc)
+        resp = svc.search(body, pinned_segments=pinned)
+        resp["_scroll_id"] = self._open_pit_scroll(svc, body, resp, scroll,
+                                                   pinned)
+        return resp
+
+    # ------------------------------------------------------------------
+    # Scroll: point-in-time contexts
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _pin_scroll_segments(svc: IndexService) -> Dict[int, list]:
+        from elasticsearch_tpu_torch.index.segment import PinnedSegmentView
+
+        return {sid: [PinnedSegmentView(seg) for seg in
+                      svc.shards[sid].engine.searchable_segments()]
+                for sid in sorted(svc.shards)}
+
+    def _reap_expired_scrolls(self) -> int:
+        now = time.time()
+        with self._scroll_lock:
+            expired = [sid for sid, ctx in self.scrolls.items()
+                       if ctx["expire_at"] < now]
+            for sid in expired:
+                del self.scrolls[sid]
+        return len(expired)
+
+    def _reap_expired_scrolls_loop(self, interval: float = 5.0) -> None:
+        while not self._reaper_stop.wait(interval):
+            self._reap_expired_scrolls()
+
+    def _register_scroll(self, ctx: dict, keep_alive: str) -> str:
+        scroll_id = _uuid.uuid4().hex
+        now = time.time()
+        ctx["expire_at"] = now + parse_time_value(keep_alive or "5m",
+                                                  "scroll")
+        with self._scroll_lock:
+            # opening a scroll also sweeps the expired contexts
+            for sid in [sid for sid, c in self.scrolls.items()
+                        if c["expire_at"] < now]:
+                del self.scrolls[sid]
+            self.scrolls[scroll_id] = ctx
+        return scroll_id
+
+    def _open_pit_scroll(self, svc: IndexService, body: dict,
+                         first_resp: dict, keep_alive: str,
+                         pinned: Dict[int, list]) -> str:
+        """Register a context whose ordered result is a lazily extended
+        prefix over the pinned snapshot: opening a size-10 scroll over a
+        large index materializes only the first pages' refs. The first
+        page is served from that same prefix, so page boundaries never
+        skip or repeat across ties."""
+        size = int(body.get("size")) if body.get("size") is not None else 10
+        size = max(size, 0)
+        # the aggregations came with the first page; the prefix needs only
+        # the ordered refs
+        q_body = {key: v for key, v in body.items()
+                  if key not in ("aggs", "aggregations")}
+        nd_total = sum(v.live_doc_count for views in pinned.values()
+                       for v in views)
+        ctx = {
+            "index": svc.name,
+            "entries": [],        # the materialized ordered prefix
+            "seen": set(),        # identities of the materialized refs
+            "nd_total": nd_total,
+            "last_target": 0,
+            "exhausted": nd_total == 0,
+            "lock": threading.Lock(),  # one pager of this scroll at a time
+            "pos": size,
+            "body": dict(body),
+            "q_body": q_body,
+            "pinned": pinned,
+            "total": first_resp["hits"]["total"],
+            "max_score": first_resp["hits"]["max_score"],
+        }
+        self._extend_pit_entries(ctx, size)
+        first_resp["hits"]["hits"] = self._fetch_scroll_page(
+            ctx, ctx["entries"][:size])
+        return self._register_scroll(ctx, keep_alive)
+
+    def _extend_pit_entries(self, ctx: dict, upto: int) -> None:
+        """Grow the prefix to cover [0, upto): each round re-queries every
+        pinned shard with a geometrically larger top-k and appends the
+        unseen refs in merged order (identity: shard, segment, local
+        doc), so the re-query work stays O(final depth); a drained target
+        marks the context exhausted."""
+        from elasticsearch_tpu_torch.search.service import (
+            merge_refs,
+            normalize_sort,
+        )
+
+        sort_spec = normalize_sort(ctx["q_body"].get("sort"))
+        while len(ctx["entries"]) < upto and not ctx["exhausted"]:
+            target = min(ctx["nd_total"],
+                         max(upto, 2 * ctx["last_target"], 32))
+            svc = self.indices.get(ctx["index"])
+            refs = []
+            if svc is not None:  # a deleted index's docs drop
+                for sid in sorted(svc.shards):
+                    views = ctx["pinned"].get(sid, [])
+                    nd = sum(v.live_doc_count for v in views)
+                    if nd == 0:
+                        continue
+                    res = svc.shards[sid].searcher.query(
+                        dict(ctx["q_body"]), size_hint=min(target, nd),
+                        segments=views)
+                    refs.extend(res.refs)
+            merged = merge_refs(refs, sort_spec, target)
+            for r in merged:
+                key = (r.shard_id, r.segment_name, r.local_doc)
+                if key in ctx["seen"]:
+                    continue
+                ctx["seen"].add(key)
+                ctx["entries"].append(r)
+            if target >= ctx["nd_total"] or len(merged) < target:
+                ctx["exhausted"] = True
+            ctx["last_target"] = target
+
+    def _fetch_scroll_page(self, ctx: dict, entries: list) -> List[dict]:
+        from elasticsearch_tpu_torch.search.service import fetch_hits
+
+        svc = self.indices.get(ctx["index"])
+        if svc is None:
+            return []  # the index was deleted mid-scroll
+        return fetch_hits(entries, svc.shards, ctx["body"], svc.name,
+                          pinned_segments=ctx["pinned"])
+
+    def scroll(self, scroll_id: str, keep_alive: Optional[str] = None) -> dict:
+        """The next page of an open scroll; ``keep_alive`` extends it."""
+        with self._scroll_lock:
+            ctx = self.scrolls.get(scroll_id)
+            if ctx is None or ctx["expire_at"] < time.time():
+                self.scrolls.pop(scroll_id, None)
+                raise ResourceNotFoundException(
+                    f"No search context found for id [{scroll_id}]")
+        t0 = time.monotonic()
+        size = (int(ctx["body"].get("size"))
+                if ctx["body"].get("size") is not None else 10)
+        size = max(size, 0)
+        # extension re-queries the pinned views outside the node's lock;
+        # the context's own lock serializes the pagers of this scroll
+        with ctx["lock"]:
+            pos = ctx["pos"]
+            self._extend_pit_entries(ctx, pos + size)
+            page = ctx["entries"][pos: pos + size]
+            ctx["pos"] = pos + len(page)
+        if keep_alive:
+            with self._scroll_lock:
+                ctx["expire_at"] = time.time() + parse_time_value(
+                    keep_alive, "scroll")
+        hits = self._fetch_scroll_page(ctx, page)
+        return {
+            "_scroll_id": scroll_id,
+            "took": int((time.monotonic() - t0) * 1000),
+            "timed_out": False,
+            "hits": {"total": ctx["total"], "max_score": ctx["max_score"],
+                     "hits": hits},
+        }
+
+    def clear_scroll(self, scroll_ids: List[str]) -> dict:
+        """Drop scroll contexts by id, or every one with ``["_all"]``."""
+        with self._scroll_lock:
+            if scroll_ids == ["_all"]:
+                n = len(self.scrolls)
+                self.scrolls.clear()
+            else:
+                n = sum(self.scrolls.pop(sid, None) is not None
+                        for sid in scroll_ids)
+        return {"succeeded": True, "num_freed": n}
 
     def msearch(self, searches: List[tuple]) -> dict:
         """searches: list of (header, body), each served serially through

@@ -61,42 +61,34 @@ def combine_should(scores_list, matched_list, min_should_match):
 
 
 def top_k(values, k: int):
-    """The ``k`` largest entries along the last axis and their indices,
-    ties to the lower index (the order of ``lax.top_k``; -0.0 ties +0.0
-    here, where ``lax.top_k`` ranks +0.0 first). Returns (values [...,
-    k'], indices [..., k'] int64), k' = min(k, n).
+    """The ``k`` largest entries along the last axis of a float32 tensor
+    and their indices, ties to the lower index (the order of
+    ``lax.top_k``; -0.0 ties +0.0 here, where ``lax.top_k`` ranks +0.0
+    first). Returns (values [..., k'], indices [..., k'] int64), k' =
+    min(k, n), n < 2^32.
 
-    ``torch.topk`` gives the k-th value of each row; every entry at or
-    above it is a candidate. When a row holds more than k candidates (a
-    tie at the k-th value), it keeps the tied entries of lowest index.
-    A stable sort then orders the k of each row.
+    One ``torch.topk`` over a two-key int64 composite selects and orders
+    them: the value's bits mapped to an order-preserving int32 (after
+    ``+ 0.0``, so -0.0 ties +0.0) in the high half, the index reversed in
+    the low half. However many entries tie at the k-th value (a keyword
+    or a count sort ties most of a slot), no second pass runs and nothing
+    waits on the host.
 
     A NaN ranks below every number and comes back as -inf, so a caller
     that stops at -inf never returns it: the IB similarity's SPL formula
     gives NaN when its lambda exceeds 1, and the JAX package's top-k on
     the CPU ranks that NaN last too."""
-    if values.is_floating_point():
-        values = torch.where(torch.isnan(values),
-                             torch.full_like(values, float("-inf")), values)
-    k = min(int(k), values.shape[-1])
-    if k == 0:
-        return values[..., :0], torch.zeros(
-            values.shape[:-1] + (0,), dtype=torch.int64, device=values.device)
-    top = torch.topk(values, k, dim=-1, sorted=True).values
-    kth = top[..., -1:]
-    take = values >= kth
-    cand = torch.nonzero(take)
-    if cand.shape[0] != top.numel():
-        tied = values == kth
-        need = k - (top > kth).sum(dim=-1, keepdim=True)
-        take = (values > kth) | (tied & (
-            torch.cumsum(tied, dim=-1, dtype=torch.int32) <= need))
-        cand = torch.nonzero(take)
-    # exactly k per row, in ascending index order
-    idx = cand[:, -1].reshape(values.shape[:-1] + (k,))
-    order = torch.sort(torch.gather(values, -1, idx), dim=-1,
-                       descending=True, stable=True).indices
-    idx = torch.gather(idx, -1, order)
+    if values.dtype != torch.float32:
+        raise TypeError(f"top_k ranks float32 values, got {values.dtype}")
+    values = torch.where(torch.isnan(values),
+                         torch.full_like(values, float("-inf")), values)
+    n = values.shape[-1]
+    k = min(int(k), n)
+    bits = (values + 0.0).view(torch.int32)
+    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).long()
+    rev = (n - 1) - torch.arange(n, dtype=torch.int64, device=values.device)
+    top = torch.topk(ordered * (1 << 32) + rev, k, dim=-1, sorted=True).values
+    idx = (n - 1) - (top & 0xFFFFFFFF)
     return torch.gather(values, -1, idx), idx
 
 

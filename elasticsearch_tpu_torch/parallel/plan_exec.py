@@ -13,9 +13,12 @@ collectives become plain reductions in slot order (``psum`` a sum,
   kernel's plane (one shared tile geometry over the stacked doc space and
   each slot's live mask in it; the posting tables stay each segment's
   own) on first use, and runs
-  - the serial program: per slot ``emit`` -> live -> min_score ->
-    [agg view] -> post_filter -> total -> local top-k, then the global
-    top-k over the slots' candidates;
+  - the serial program: per slot ``emit`` -> live -> min_score -> slice
+    -> [agg view] -> post_filter -> count -> rank key (the score, or a
+    staged sort key column) -> the search_after cut -> the rescore window
+    pass -> local top-k, then the global top-k over the slots' candidates
+    in slot order (ties to the lower slot, then the lower doc), with each
+    top hit's raw sort value;
   - (from ``IndexMeshSearch.query_batch``) the batched program: per slot
     one fused top-k ``score_tiles`` launch for Q queries over the union
     of their lanes, per-query tile merge, then the merge over slots;
@@ -105,10 +108,24 @@ under the generation's scope; a budget denial or a terminal staging fault
 demotes the aggregations to the host reduce (``hbm_budget``,
 ``staging_fault``), and a delta append drops them (they restage lazily).
 
-Left for later slices: the compile cache and telemetry, sort /
-search_after / slice / rescore / terminate_after on the mesh, stacking a
-full rebuild on the card instead of through host numpy (a ``perf_opt``),
-and the dynamic update of the pruning, fused-aggregation, delta-staging,
+Sort and paging, as in the JAX package: a one-field sort ranks by a
+staged key column (``ensure_sort_column``: numeric and ``_doc`` columns
+only when every value is exact in f32, keywords by global ordinals
+below 2^24 terms, the missing fills at +-3e38; kind ``doc_values``), a
+slice by a staged partition mask (``ensure_slice_column``, kind
+``mesh_slot_tables``), both budget-gated; a delta append or a tombstone
+drops them (a keyword sort's vocabulary spans every slot) and the next
+request restages them. ``IndexMeshSearch.query`` maps the search_after
+cursor into the key's oriented space (``_search_after_key``), runs one
+rescorer's window per slot, groups the slots' counts by shard for
+``terminate_after``, and sends a multi-field, ``ts``-like or custom
+string-missing sort to the host rung (``sort_ineligible``), an inexact
+cursor or chained rescorers (``feature_ineligible``) and collapse
+(``unsupported_body``).
+
+Left for later slices: the compile cache and telemetry, stacking a full
+rebuild on the card instead of through host numpy (a ``perf_opt``), and
+the dynamic update of the pruning, fused-aggregation, delta-staging,
 compaction, budget and retry settings (``PUT _cluster/settings``).
 """
 
@@ -149,6 +166,11 @@ from elasticsearch_tpu_torch.search import plan as P
 _plane_logger = logging.getLogger("elasticsearch_tpu_torch.parallel.plane")
 
 NEG_INF = float("-inf")
+# the missing fills of a staged sort key (finite: -inf means "not matched")
+_SORT_BIG = 3.0e38
+# the executor's columns derived from the segments' values, dropped by a
+# tombstone or an append and restaged on demand
+_DERIVED_COLUMNS = ("msort.", "mslice.")
 
 
 class PlanStructureMismatch(Exception):
@@ -471,6 +493,9 @@ class MeshPlanExecutor:
         self._knn: Dict[str, object] = {}
         # fused-aggregation eligibility facts of this generation's columns
         self._agg_field_checks: Dict = {}
+        # staged sort key columns -> {"vocab": the global-ordinal terms of
+        # a keyword sort, or None}
+        self.sort_meta: Dict[str, dict] = {}
 
     @property
     def kernel_denied_reason(self) -> Optional[str]:
@@ -529,6 +554,7 @@ class MeshPlanExecutor:
             self._knn = {}
             self._ub_cache = {}
             self._agg_field_checks = {}
+            self.sort_meta = {}
             self.segments = []
             self.pairs = []
 
@@ -647,6 +673,9 @@ class MeshPlanExecutor:
         self.postings_codec = old.postings_codec
         self._ub_cache = dict(old._ub_cache)  # keyed by segment
         self._agg_field_checks = {}
+        # the sort and slice columns are not carried over (a keyword
+        # sort's vocabulary spans the new segments): they restage lazily
+        self.sort_meta = {}
         self._kernel = None
         self._kernel_tables = []
         self._knn = {}
@@ -835,10 +864,20 @@ class MeshPlanExecutor:
             knn_amp = {f: len(slots) * tensor_bytes(e["mask"][0])
                        for f, e in knn_updates.items()}
             restaged = sum(amp.values()) + sum(knn_amp.values())
+            # the sort and slice columns drop with the tombstone and
+            # restage lazily on the next query that needs one
+            derived = [key for key in self._seg_staged
+                       if key.startswith(_DERIVED_COLUMNS)]
             # commit: publish every replacement in one assignment a dict
             # (a running query holds the dict it read at its start, so
             # it never mixes old and new masks), then re-register
-            self._seg_staged = {**self._seg_staged, **updates}
+            self._seg_staged = {
+                key: t for key, t in {**self._seg_staged, **updates}.items()
+                if key not in derived}
+            self.sort_meta = {}
+            memory_accountant().release_tables(
+                self.index_name, self.scope,
+                [key for key in derived if not key.endswith(".raw")])
             self._knn = {**self._knn, **knn_updates}
             dur = (_time.monotonic() - t0) * 1000.0
             self._account(
@@ -909,6 +948,202 @@ class MeshPlanExecutor:
             run_staged(attempt, index=self.index_name, kind="doc_values",
                        plane="mesh")
         return True
+
+    def ensure_sort_column(self, field: str, order: str,
+                           missing) -> Optional[dict]:
+        """Stage the (oriented key, raw value) columns of a one-field sort.
+        Returns {"key": name, "raw": name, "columns": {name: tensor},
+        "vocab": the keyword sort's global-ordinal terms or None}, or None
+        when the field cannot rank exactly on the mesh (or
+        ``kernel_denied_reason`` says the budget or a staging fault turned
+        the staging away). A query holds the returned tensors: a tombstone
+        may drop the columns from the generation meanwhile.
+
+        The rank key is f32: a float64 column qualifies only if every
+        value round-trips through f32 (timestamps usually do not, and
+        near-tied dates reordered at f32 would be wrong, so they take the
+        host rung). The oriented key follows ``_sort_keys``: negated for
+        asc, missing docs filled with +-3e38 so -inf stays reserved for
+        "not matched". A keyword field ranks by global ordinals (the
+        position in the sorted union of every slot's terms), exact in f32
+        below 2^24 terms."""
+        self.kernel_denied_reason = None
+        token = (repr(missing) if isinstance(missing, (int, float))
+                 else str(missing or "_last"))
+        name = f"msort.{field}.{order}.{token}"
+        raw_name = name + ".raw"
+        with self._kernel_stage_lock:
+            staged, meta = self._seg_staged, self.sort_meta.get(name)
+            if name in staged and meta is not None:
+                return {"key": name, "raw": raw_name, "vocab": meta["vocab"],
+                        "columns": {n: staged[n] for n in (name, raw_name)}}
+        ords = [s.ordinal_columns.get(field)
+                or s.ordinal_columns.get(f"{field}.keyword")
+                for s in self.segments]
+        if any(o is not None for o in ords):
+            built = self._keyword_sort_columns(ords, order, missing)
+        else:
+            built = self._numeric_sort_columns(field, order, missing)
+        if built is None:
+            return None
+        keys, raws, vocab = built
+        columns = self._stage_derived("doc_values", name,
+                                      {name: keys, raw_name: raws},
+                                      meta={"vocab": vocab})
+        if columns is None:
+            return None
+        return {"key": name, "raw": raw_name, "vocab": vocab,
+                "columns": columns}
+
+    def _numeric_sort_columns(self, field: str, order: str, missing):
+        """([n_slots, nd1] f32 keys, raws, None) of a numeric or ``_doc``
+        sort, or None when a value is not f32-exact."""
+        keys = np.zeros((self.n_slots, self.nd1), np.float32)
+        raws = np.zeros((self.n_slots, self.nd1), np.float32)
+        for i, seg in enumerate(self.segments):
+            if field == "_doc":
+                if seg.nd_pad > (1 << 24):
+                    return None  # a doc id not f32-exact
+                raw = np.arange(seg.nd_pad, dtype=np.float64)
+                exists = np.ones(seg.nd_pad, bool)
+            else:
+                col = seg.numeric_columns.get(field)
+                if col is None:
+                    return None
+                raw = (col.min_value if order == "asc"
+                       else col.max_value).astype(np.float64)
+                exists = col.exists
+                vals = raw[exists]
+                if not np.array_equal(
+                        vals, vals.astype(np.float32).astype(np.float64)):
+                    return None  # not exactly f32-representable
+            if missing is None or missing == "_last":
+                fill = np.float64(-_SORT_BIG if order == "desc"
+                                  else _SORT_BIG)
+            elif missing == "_first":
+                fill = np.float64(_SORT_BIG if order == "desc"
+                                  else -_SORT_BIG)
+            else:
+                fill = np.float64(missing)
+            raw = np.where(exists, raw, fill)
+            self._sort_rows(keys, raws, i, seg, raw, order)
+        return keys, raws, None
+
+    def _keyword_sort_columns(self, ords: List, order: str, missing):
+        """([n_slots, nd1] f32 global-ordinal keys, raws, vocab) of a
+        keyword sort; ``ords``: each slot's ordinal column or None (every
+        doc of that slot is missing). None for a custom string missing
+        (it ranks mid-vocabulary: the host rung) or 2^24 terms and more."""
+        if missing not in (None, "_last", "_first"):
+            return None
+        vocab: List[str] = sorted(
+            set().union(*(o.terms for o in ords if o is not None)))
+        if len(vocab) >= (1 << 24):
+            return None  # an ordinal not f32-exact
+        if missing == "_first":
+            fill = np.float64(_SORT_BIG if order == "desc" else -_SORT_BIG)
+        else:
+            fill = np.float64(-_SORT_BIG if order == "desc" else _SORT_BIG)
+        keys = np.zeros((self.n_slots, self.nd1), np.float32)
+        raws = np.zeros((self.n_slots, self.nd1), np.float32)
+        for i, (seg, ocol) in enumerate(zip(self.segments, ords)):
+            if ocol is None:
+                raw = np.full(seg.nd_pad, fill)
+            else:
+                # local ordinal -> global ordinal (both term lists sorted:
+                # searchsorted is the ordinal map)
+                g = np.searchsorted(vocab, ocol.terms).astype(np.float64)
+                raw = np.where(ocol.exists, g[ocol.first_ord], fill)
+            self._sort_rows(keys, raws, i, seg, raw, order)
+        return keys, raws, vocab
+
+    @staticmethod
+    def _sort_rows(keys, raws, i, seg, raw, order) -> None:
+        key = np.clip(raw if order == "desc" else -raw, -_SORT_BIG,
+                      _SORT_BIG)
+        keys[i, : seg.nd_pad] = key.astype(np.float32)
+        keys[i, seg.nd_pad:] = -_SORT_BIG  # padding never outranks a doc
+        raws[i, : seg.nd_pad] = raw.astype(np.float32)
+
+    def ensure_slice_column(self, slice_spec: dict, num_shards: int
+                            ) -> Optional[Dict[str, torch.Tensor]]:
+        """Stage a slice's doc partition as a [n_slots, nd1] bool column,
+        shard-aware like the host rung (``resolve_slice``), from the host
+        rung's per-segment mask cache. Returns {name: tensor}, or None
+        when the budget or a staging fault turned it away
+        (``kernel_denied_reason``)."""
+        from elasticsearch_tpu_torch.search.service import (
+            resolve_slice,
+            slice_mask,
+        )
+
+        self.kernel_denied_reason = None
+        name = f"mslice.{int(slice_spec['max'])}.{int(slice_spec['id'])}." \
+               f"{num_shards}"
+        with self._kernel_stage_lock:
+            staged = self._seg_staged
+            if name in staged:
+                return {name: staged[name]}
+        out = np.zeros((self.n_slots, self.nd1), bool)
+        for i, (sid, seg) in enumerate(self.pairs):
+            resolved = resolve_slice(slice_spec, sid, num_shards)
+            if resolved == "skip":
+                continue  # an all-False row
+            if resolved is None:
+                out[i, : seg.nd_pad] = True  # the whole shard
+                continue
+            mask = slice_mask(seg, int(resolved["id"]), int(resolved["max"]))
+            out[i, : mask.shape[0]] = mask
+        return self._stage_derived("mesh_slot_tables", name, {name: out})
+
+    def _stage_derived(self, kind: str, table: str,
+                       arrays: Dict[str, np.ndarray],
+                       meta: Optional[dict] = None
+                       ) -> Optional[Dict[str, torch.Tensor]]:
+        """Stage columns derived from the segments' host arrays (sort keys
+        with their ``sort_meta``, slice masks) under this generation's
+        scope, budget-gated like ``stage_doc_value_columns``. Returns the
+        staged tensors; None on a budget denial (``kernel_denied_reason``
+        "hbm_budget") or a terminal staging fault ("staging_fault").
+        Publishes copy on write."""
+        from elasticsearch_tpu_torch.testing.disruption import (
+            on_device_staging,
+        )
+
+        nbytes = sum(int(a.nbytes) for a in arrays.values())
+        with self._kernel_stage_lock:
+            if not memory_accountant().try_reserve(
+                    self.index_name, nbytes, exclude_scope=self.scope):
+                self.kernel_denied_reason = "hbm_budget"
+                return None
+            staged: Dict[str, torch.Tensor] = {}
+
+            def attempt():
+                t0 = _time.monotonic()
+                on_device_staging(self.index_name, kind, table)
+                staged.update({name: torch.from_numpy(a).to(self.device)
+                               for name, a in arrays.items()})
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                self._seg_staged = {**self._seg_staged, **staged}
+                if meta is not None:
+                    self.sort_meta[table] = meta
+                self._account(kind, table, nbytes,
+                              duration_ms=(_time.monotonic() - t0) * 1000.0)
+
+            try:
+                run_staged(attempt, index=self.index_name, kind=kind,
+                           plane="mesh")
+            except KernelError:
+                raise
+            except Exception:  # noqa: BLE001 — a terminal staging fault:
+                # the host rung serves this request
+                _plane_logger.warning(
+                    "[%s] mesh staging of %s failed; the host rung serves",
+                    self.index_name, table, exc_info=True)
+                self.kernel_denied_reason = "staging_fault"
+                return None
+        return staged
 
     def ensure_kernel(self) -> Optional[dict]:
         """Stage the tile-kernel plane over the stacked segment set: one
@@ -1222,18 +1457,38 @@ class MeshPlanExecutor:
                 with_views: bool = False,
                 pf_plans: Optional[List[P.PlanNode]] = None,
                 min_score: Optional[float] = None,
-                agg_static: tuple = ()) -> dict:
-        """The serial program. ``plans``: one per slot, same query.
+                agg_static: tuple = (),
+                columns: Optional[Dict[str, torch.Tensor]] = None,
+                sort_keys: Optional[Tuple[str, str]] = None,
+                slice_col: Optional[str] = None,
+                search_after: Optional[float] = None,
+                rs_plans: Optional[List[P.PlanNode]] = None,
+                rescore: Optional[dict] = None) -> dict:
+        """The serial program. ``plans``: one per slot, same query. Per
+        slot, in the JAX program's order: emit -> live -> min_score ->
+        slice (``slice_col``) -> [agg view] -> post_filter -> count -> rank
+        key (the score, or the staged ``sort_keys`` column) -> the
+        ``search_after`` cut (key < cursor, in oriented-key space) -> the
+        rescore window pass (``rs_plans`` with ``rescore`` {window,
+        score_mode, query_weight, rescore_query_weight}) -> local top-k;
+        then the top-k over the slots' candidates in slot order.
+
+        ``columns``: the derived columns (sort keys, slice masks) the
+        query staged, by name, read beside the generation's tables.
+
         Returns tensors {keys [k'], slots [k'], docs [k'], total, scores
-        [k'], counts [n_slots]} (doc ids per slot, i.e. segment-local),
-        plus {matched, scores_all} [n_slots, nd1] with ``with_views``, and
-        ``aggs`` (the fused partials of ``agg_static``, each [n_slots,
-        ...]) with ``agg_static``."""
+        [k'], counts [n_occupied]} (doc ids per slot, i.e.
+        segment-local), ``raws`` [k'] (each top hit's raw sort value) with
+        ``sort_keys``, {matched, scores_all} [n_slots, nd1] with
+        ``with_views``, and ``aggs`` (the fused partials of
+        ``agg_static``, each [n_slots, ...]) with ``agg_static``."""
         if len(plans) != len(self.segments):
             raise ValueError("one plan per staged slot required")
         # one snapshot of the stacked tables for the whole query: a
         # tombstone update publishes a new dict, never into this one
         staged = self._seg_staged
+        if columns:
+            staged = {**staged, **columns}
         n_occ = self.n_occupied
         local_pads = [s.nd_pad for s in self.segments]
         stacked = stack_plans(plans, local_pads, self.nd1, n_occ,
@@ -1241,9 +1496,17 @@ class MeshPlanExecutor:
         stacked_pf = (stack_plans(pf_plans, local_pads, self.nd1,
                                   n_occ, self.device)
                       if pf_plans else [])
+        stacked_rs = (stack_plans(rs_plans, local_pads, self.nd1,
+                                  n_occ, self.device)
+                      if rs_plans else [])
         template = plans[0]
+
+        def f32(x):
+            return torch.tensor(x, dtype=torch.float32, device=self.device)
+
         cand_keys, cand_docs, cand_scores, cand_slot, counts = \
             [], [], [], [], []
+        cand_raw = []
         views_m, views_s = [], []
         # occupied slots only: a dead slot launches nothing and gives no
         # candidate
@@ -1252,8 +1515,9 @@ class MeshPlanExecutor:
             scores, matched = P.execute(seg, template,
                                         [a[i] for a in stacked])
             if min_score is not None:
-                matched = matched & (scores >= torch.tensor(
-                    min_score, dtype=torch.float32, device=self.device))
+                matched = matched & (scores >= f32(min_score))
+            if slice_col is not None:
+                matched = matched & seg[slice_col]
             if with_views or agg_static:
                 views_m.append(matched)
             if with_views:
@@ -1263,13 +1527,29 @@ class MeshPlanExecutor:
                                           [a[i] for a in stacked_pf])
                 matched = matched & pf_matched
             counts.append(matched.sum())
-            masked = torch.where(matched, scores,
-                                 torch.full_like(scores, NEG_INF))
-            loc_keys, loc_docs = top_k(masked, min(k, masked.shape[0]))
+            rank_key = scores if sort_keys is None else seg[sort_keys[0]]
+            masked = torch.where(matched, rank_key,
+                                 torch.full_like(rank_key, NEG_INF))
+            if search_after is not None:
+                # the strict "after" cut: desc keys are the raw values and
+                # asc keys their negation, so "comes after the cursor" is
+                # key < cursor; the total is unaffected
+                masked = torch.where(rank_key < f32(search_after), masked,
+                                     torch.full_like(masked, NEG_INF))
+            nd = masked.shape[0]
+            if rescore is not None:
+                loc_keys, loc_docs = self._rescore_window(
+                    seg, masked, stacked_rs, rs_plans[0], i, k, rescore)
+                loc_scores = loc_keys  # the rescored score is the score
+            else:
+                loc_keys, loc_docs = top_k(masked, min(k, nd))
+                loc_scores = scores[loc_docs]
             cand_keys.append(loc_keys)
             cand_docs.append(loc_docs)
-            cand_scores.append(scores[loc_docs])
+            cand_scores.append(loc_scores)
             cand_slot.append(torch.full_like(loc_docs, i))
+            if sort_keys is not None:
+                cand_raw.append(seg[sort_keys[1]][loc_docs])
         all_keys = torch.cat(cand_keys)
         top_keys, top_idx = top_k(all_keys, min(k, all_keys.shape[0]))
         counts_t = torch.stack(counts)
@@ -1277,6 +1557,8 @@ class MeshPlanExecutor:
                "docs": torch.cat(cand_docs)[top_idx],
                "scores": torch.cat(cand_scores)[top_idx],
                "total": counts_t.sum(), "counts": counts_t}
+        if sort_keys is not None:
+            out["raws"] = torch.cat(cand_raw)[top_idx]
         if with_views:
             out["matched"] = torch.stack(views_m)
             out["scores_all"] = torch.stack(views_s)
@@ -1288,6 +1570,51 @@ class MeshPlanExecutor:
             out["aggs"] = emit_agg_partials(agg_static, staged,
                                             torch.stack(views_m))
         return out
+
+    def _rescore_window(self, seg: dict, masked: torch.Tensor, stacked_rs,
+                        rs_template, i: int, k: int, rescore: dict):
+        """QueryRescorer's window pass on one slot (the host rung's
+        window is per segment too): the candidates are the top
+        ``max(k, window)``; the first ``window`` of them take combined
+        scores, the rest keep theirs, and the candidates re-rank by
+        (-score, doc). Returns (keys [k'], docs [k'])."""
+        window = rescore["window"]
+        nd = masked.shape[0]
+        ksel = min(max(k, window), nd)
+        sel_keys, sel_docs = top_k(masked, ksel)
+        rs_scores, _ = P.execute(seg, rs_template,
+                                 [a[i] for a in stacked_rs])
+        w = min(window, ksel)
+        rs_sel = rs_scores[sel_docs[:w]]
+        qw = torch.tensor(rescore["query_weight"], dtype=torch.float32,
+                          device=masked.device)
+        rqw = torch.tensor(rescore["rescore_query_weight"],
+                           dtype=torch.float32, device=masked.device)
+        base = sel_keys[:w] * qw
+        resc = rs_sel * rqw
+        mode = rescore["score_mode"]
+        if mode == "total":
+            comb = base + resc
+        elif mode == "multiply":
+            comb = torch.where(rs_sel != 0.0, base * rs_sel, base)
+        elif mode == "avg":
+            comb = (base + resc) / 2.0
+        elif mode == "max":
+            comb = torch.maximum(base, resc)
+        elif mode == "min":
+            comb = torch.minimum(base, resc)
+        else:
+            raise ValueError(f"score_mode {mode}")
+        # max / min could lift an unmatched (-inf) candidate
+        comb = torch.where(sel_keys[:w] == NEG_INF,
+                           torch.full_like(comb, NEG_INF), comb)
+        cand = torch.cat([comb, sel_keys[w:]])
+        # the combined scores tie routinely (max / min): ties re-break by
+        # doc, as the host rung's (-score, local_doc) sort does
+        by_doc = torch.argsort(sel_docs, stable=True)
+        order = by_doc[torch.argsort(-cand[by_doc], stable=True)]
+        kk = min(k, ksel)
+        return cand[order][:kk], sel_docs[order][:kk]
 
     def execute_batched_topk(self, live_key: str, rl: np.ndarray,
                              rh: np.ndarray, w_all: np.ndarray, *,
@@ -1454,11 +1781,14 @@ class IndexMeshSearch:
     a codec change, ``index.staging.delta.enabled: false``) rebuilds the
     generation."""
 
-    # request keys the batched mesh_pallas program covers
+    # request keys the batched mesh_pallas program covers (and the pruned
+    # single-query shortcut): plain relevance-ranked queries
     BATCHABLE_KEYS = frozenset({
         "query", "size", "from", "timeout",
         "allow_partial_search_results", "stats", "profile",
     })
+    # request keys the mesh program does not cover: the host rung serves
+    UNSUPPORTED = ("collapse",)
 
     def __init__(self, index_service):
         self.svc = index_service
@@ -1919,18 +2249,116 @@ class IndexMeshSearch:
         ctx.mesh_kernel = session
         return ctx
 
+    def _sort_plan(self, body: dict, executor: MeshPlanExecutor):
+        """Resolve the request's sort to staged key columns: (sort,
+        sort_spec) with ``sort`` None for relevance or the column dict of
+        ``ensure_sort_column``; ("fallback", reason) when the sort cannot
+        run on the mesh (``sort_ineligible``, or the staging's
+        ``hbm_budget`` / ``staging_fault``)."""
+        from elasticsearch_tpu_torch.search.service import normalize_sort
+
+        sort_spec = normalize_sort(body.get("sort"))
+        if sort_spec is None:
+            return None, None
+        if len(sort_spec) != 1:
+            return "fallback", "sort_ineligible"
+        field, order, missing = sort_spec[0]
+        if not isinstance(field, str):
+            return "fallback", "sort_ineligible"
+        # (a lone _score sort never gets here: normalize_sort makes it
+        # relevance ranking)
+        if isinstance(missing, dict):
+            return "fallback", "sort_ineligible"
+        if isinstance(missing, str) and missing not in ("_last", "_first"):
+            return "fallback", "sort_ineligible"  # the host rung's errors
+        if isinstance(missing, (int, float)) and not isinstance(
+                missing, bool):
+            # the fill is a rank key like any value
+            if float(np.float32(missing)) != float(missing):
+                return "fallback", "sort_ineligible"
+        sort = executor.ensure_sort_column(field, order, missing)
+        if sort is None:
+            return "fallback", (executor.kernel_denied_reason
+                                or "sort_ineligible")
+        return sort, sort_spec
+
+    @staticmethod
+    def _search_after_key(search_after, sort_spec,
+                          sort) -> Optional[float]:
+        """The request's search_after cursor in the oriented-key space of
+        the staged rank column (strictly after == key < value), or None
+        when the cursor cannot cut exactly on the mesh."""
+        import bisect
+
+        from elasticsearch_tpu_torch.search.service import _missing_fill
+
+        if not isinstance(search_after, (list, tuple)):
+            return None
+        if len(search_after) != 1:
+            return None  # one value for the one-field sort
+        after = search_after[0]
+        if sort_spec is None:
+            # relevance paging: scores strictly below the cursor's
+            try:
+                v = float(after)
+            except (TypeError, ValueError):
+                return None
+            if float(np.float32(v)) != v:
+                return None  # f32 rounding could move the boundary
+            return v
+        _field, order, missing = sort_spec[0]
+        vocab = sort["vocab"]
+        if vocab is not None:
+            if after is None:
+                # a null cursor is a missing doc's rendered key: the fill
+                # the column staged
+                if missing == "_first":
+                    anchor = _SORT_BIG if order == "desc" else -_SORT_BIG
+                else:
+                    anchor = -_SORT_BIG if order == "desc" else _SORT_BIG
+            else:
+                # the cursor string in global-ordinal space; a string
+                # between terms sits at its bisect position - 0.5
+                text = str(after)
+                pos = bisect.bisect_left(vocab, text)
+                present = pos < len(vocab) and vocab[pos] == text
+                anchor = float(pos) if present else pos - 0.5
+                if float(np.float32(anchor)) != anchor:
+                    return None  # pos - 0.5 loses exactness past 2^23
+            oriented = anchor if order == "desc" else -anchor
+            return float(np.clip(oriented, -_SORT_BIG, _SORT_BIG))
+        if after is None:
+            anchor = _missing_fill(missing, order)
+        else:
+            try:
+                anchor = float(after)
+            except (TypeError, ValueError):
+                return None
+            if float(np.float32(anchor)) != anchor:
+                return None
+        oriented = anchor if order == "desc" else -anchor
+        return float(np.clip(oriented, -_SORT_BIG, _SORT_BIG))
+
     def query(self, body: dict, k: int) -> Optional[dict]:
-        """Returns {total, refs, max_score, aggregations, plane} or None
-        when the mesh plane does not serve this request."""
+        """Returns {total, refs, max_score, aggregations, terminated_early,
+        plane} or None when the mesh plane does not serve this request."""
         from elasticsearch_tpu_torch.search.aggregations import (
             SegmentView,
             parse_aggs,
             run_aggregations,
         )
         from elasticsearch_tpu_torch.search.query_dsl import parse_query
-        from elasticsearch_tpu_torch.search.service import DocRef
+        from elasticsearch_tpu_torch.search.service import (
+            _STR_SENTINEL_HIGH,
+            _STR_SENTINEL_LOW,
+            DocRef,
+            _normalize_rescore,
+        )
 
         body = body or {}
+        if any(body.get(key) is not None for key in self.UNSUPPORTED):
+            self._note("host", "unsupported_body")
+            return None
         if len(self.svc.shards) < 2:
             self._note("host", "single_shard")
             return None
@@ -1952,15 +2380,21 @@ class IndexMeshSearch:
             # the block-max pruned single-query path: a plain
             # relevance-ranked query rides the batched rung's pruned
             # program with Q == 1. Anything needing every tile's dense
-            # output (aggs, counts, size 0, post_filter, min_score) fails
+            # output (aggs, counts, size 0, post_filter, min_score, a
+            # sort, search_after, slice, rescore, terminate_after) fails
             # the filter above and runs exhaustively below.
             out = self.query_batch([body])
             if out is not None:
                 r = out[0]
                 return {"total": r["total"], "refs": r["refs"],
                         "max_score": r["max_score"], "aggregations": None,
-                        "plane": r["plane"], "pruned": r.get("pruned")}
+                        "terminated_early": None, "plane": r["plane"],
+                        "pruned": r.get("pruned")}
         agg_specs = parse_aggs(body.get("aggs") or body.get("aggregations"))
+        sort, sort_spec = self._sort_plan(body, executor)
+        if sort == "fallback":
+            self._note("host", sort_spec)
+            return None
         # fused aggregations: when every spec is inside the envelope, the
         # reduction runs in the program and the [n_slots, nd1] masks never
         # cross to the host; otherwise the host reduce over the views
@@ -1975,6 +2409,50 @@ class IndexMeshSearch:
                 self._note("host", "feature_ineligible")
                 return None  # an f32 compare could move the cut
             min_score = ms
+        columns: Dict[str, torch.Tensor] = {}
+        if sort is not None:
+            columns.update(sort["columns"])
+        slice_col = None
+        slice_spec = body.get("slice")
+        if slice_spec is not None:
+            if (not isinstance(slice_spec, dict)
+                    or "id" not in slice_spec or "max" not in slice_spec):
+                return None  # the host rung owns the error
+            try:
+                cols = executor.ensure_slice_column(
+                    slice_spec, len(self.svc.shards))
+            except KernelError:
+                raise
+            except Exception:  # noqa: BLE001 — the host rung owns errors
+                return None
+            if cols is None:
+                self._note("host", executor.kernel_denied_reason
+                           or "staging_unavailable")
+                return None
+            (slice_col,) = cols
+            columns.update(cols)
+        after_key = None
+        search_after = body.get("search_after")
+        if search_after is not None:
+            after_key = self._search_after_key(search_after, sort_spec, sort)
+            if after_key is None:
+                self._note("host", "feature_ineligible")
+                return None
+        terminate_after = body.get("terminate_after")
+        rescore = rs_qb = None
+        rescore_specs = _normalize_rescore(body.get("rescore"))
+        if rescore_specs and sort_spec is None:
+            if len(rescore_specs) != 1:
+                self._note("host", "feature_ineligible")
+                return None  # chained rescorers: the host rung
+            spec = rescore_specs[0]
+            rescore = {"window": spec["window_size"],
+                       "score_mode": spec["score_mode"],
+                       "query_weight": spec["query_weight"],
+                       "rescore_query_weight": spec["rescore_query_weight"]}
+            rs_qb = parse_query(spec["rescore_query"])
+        # (a rescore beside an explicit sort does nothing on the host
+        # rung either)
         qb = parse_query(body.get("query"))
         pf_qb = (parse_query(body["post_filter"])
                  if body.get("post_filter") else None)
@@ -2010,13 +2488,17 @@ class IndexMeshSearch:
                 try:
                     plans = []
                     pf_plans = [] if pf_qb is not None else None
+                    rs_plans = [] if rs_qb is not None else None
                     for sid, seg in executor.pairs:
                         ctx = self._ctx(sid, session)
                         plans.append(qb.to_plan(ctx, seg))
-                        # post_filter plans stay on scatter nodes
+                        # post_filter and rescore plans stay on scatter
+                        # nodes
                         ctx.mesh_kernel = None
                         if pf_qb is not None:
                             pf_plans.append(pf_qb.to_plan(ctx, seg))
+                        if rs_qb is not None:
+                            rs_plans.append(rs_qb.to_plan(ctx, seg))
                     used_pallas = (session is not None and
                                    executor.harmonize_kernel_nodes(plans) > 0)
                     outs = executor.execute(
@@ -2024,7 +2506,12 @@ class IndexMeshSearch:
                         with_views=bool(agg_specs) and agg_plan is None,
                         pf_plans=pf_plans, min_score=min_score,
                         agg_static=(agg_plan.statics
-                                    if agg_plan is not None else ()))
+                                    if agg_plan is not None else ()),
+                        columns=columns,
+                        sort_keys=((sort["key"], sort["raw"])
+                                   if sort is not None else None),
+                        slice_col=slice_col, search_after=after_key,
+                        rs_plans=rs_plans, rescore=rescore)
                     if self.svc.device.type == "cuda":
                         torch.cuda.synchronize(self.svc.device)
                     self.plane_health.note_success(plane)
@@ -2067,15 +2554,48 @@ class IndexMeshSearch:
         slots = outs["slots"].cpu().numpy()
         docs = outs["docs"].cpu().numpy()
         scores = outs["scores"].cpu().numpy()
+        total = int(outs["total"])
+        # terminate_after caps per shard and a slot holds one segment:
+        # the slots' counts group by shard before the cap, as the host
+        # rung's per-shard contract has it
+        terminated_early = None
+        if terminate_after:
+            ta = int(terminate_after)
+            counts = outs["counts"].cpu().numpy()
+            by_shard: Dict[int, int] = {}
+            for i, (sid, _seg) in enumerate(executor.pairs):
+                by_shard[sid] = by_shard.get(sid, 0) + int(counts[i])
+            total = sum(min(c, ta) for c in by_shard.values())
+            terminated_early = any(c >= ta for c in by_shard.values())
+        raws = outs["raws"].cpu().numpy() if sort is not None else None
+        vocab = sort["vocab"] if sort is not None else None
         refs = []
         max_score = None
-        for key, slot, d, score in zip(keys, slots, docs, scores):
+        for i, (key, slot, d, score) in enumerate(
+                zip(keys, slots, docs, scores)):
             if key == -np.inf:
                 continue
             sid, seg = executor.pairs[int(slot)]
-            refs.append(DocRef(sid, seg.name, int(d), float(score), seg))
-            if max_score is None:
-                max_score = float(score)
+            score = float(score)
+            if sort is None:
+                sv = (score,) if rescore is not None else ()
+            else:
+                # the missing fills come back as the host rung's
+                # sentinels (+-inf, the string sentinels): all render null
+                raw = float(raws[i])
+                if vocab is not None:
+                    if abs(raw) >= _SORT_BIG:
+                        sv = (_STR_SENTINEL_HIGH if raw > 0
+                              else _STR_SENTINEL_LOW,)
+                    else:
+                        sv = (vocab[int(round(raw))],)
+                else:
+                    if abs(raw) >= _SORT_BIG:
+                        raw = np.inf if raw > 0 else -np.inf
+                    sv = (raw,)
+            refs.append(DocRef(sid, seg.name, int(d), score, seg, sv))
+            if max_score is None and sort_spec is None:
+                max_score = score
         aggregations = None
         if agg_plan is not None:
             from elasticsearch_tpu_torch.search.fused_aggs import (
@@ -2106,9 +2626,9 @@ class IndexMeshSearch:
                     scores_all[i, :nd1]))
             aggregations = run_aggregations(agg_specs, views)
             self._note_agg_fallback(agg_reason or "field_ineligible")
-        return {"total": int(outs["total"]), "refs": refs,
+        return {"total": total, "refs": refs,
                 "max_score": max_score, "aggregations": aggregations,
-                "plane": plane}
+                "terminated_early": terminated_early, "plane": plane}
 
     def query_batch(self, bodies: List[dict]) -> Optional[list]:
         """Cross-query micro-batching on the mesh_pallas rung: Q concurrent

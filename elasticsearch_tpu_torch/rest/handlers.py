@@ -9,10 +9,11 @@ port yet (no route is dropped). Ported here: ``GET /`` and ``HEAD /``,
 document CRUD (index, create, auto-id, get, head, ``_source``, delete;
 ``version``, ``op_type``, ``routing``, ``refresh``, ``_source``
 filtering, the typed-path deprecation warning), ``_bulk`` (index, create,
-delete), ``_search`` with the URI parameters, ``_count``, ``_msearch``,
-``_refresh``, ``_flush``, ``_flush/synced``, ``_forcemerge``, index
-create/delete/get/head, ``_mapping``, ``_settings``,
-``_analyze`` over the built-in analyzers, ``_cluster/health`` and the cat
+delete), ``_search`` with the URI parameters (``?scroll=`` opens a
+point-in-time scroll), ``_search/scroll`` (next page, clear), ``_count``,
+``_msearch``, ``_refresh``, ``_flush``, ``_flush/synced``,
+``_forcemerge``, index create/delete/get/head, ``_mapping``,
+``_settings``, ``_analyze`` over the built-in analyzers, ``_cluster/health`` and the cat
 tables ``indices``, ``count``, ``health``, ``nodes``, ``master``,
 ``thread_pool`` and the empty ones. Handlers are (node, request) ->
 (status, payload); the cat API returns text tables unless
@@ -94,12 +95,12 @@ def register_all(c) -> None:
     r("POST", "/_search", _search)
     r("GET", "/{index}/_search", _search)
     r("POST", "/{index}/_search", _search)
-    r("POST", "/_search/scroll", _unported)
-    r("GET", "/_search/scroll", _unported)
-    r("POST", "/_search/scroll/{scroll_id}", _unported)
-    r("GET", "/_search/scroll/{scroll_id}", _unported)
-    r("DELETE", "/_search/scroll", _unported)
-    r("DELETE", "/_search/scroll/{scroll_id}", _unported)
+    r("POST", "/_search/scroll", _scroll)
+    r("GET", "/_search/scroll", _scroll)
+    r("POST", "/_search/scroll/{scroll_id}", _scroll)
+    r("GET", "/_search/scroll/{scroll_id}", _scroll)
+    r("DELETE", "/_search/scroll", _clear_scroll)
+    r("DELETE", "/_search/scroll/{scroll_id}", _clear_scroll)
     r("POST", "/_msearch", _msearch)
     r("GET", "/_msearch", _msearch)
     r("POST", "/{index}/_msearch", _msearch)
@@ -604,12 +605,29 @@ def _search_body(req):
 
 def _search(node, req):
     body = _search_body(req)
-    if req.param("scroll") is not None:
-        raise _not_supported("scroll")
-    resp = node.search(req.param("index", "_all"), body)
+    resp = node.search(req.param("index", "_all"), body,
+                       scroll=req.param("scroll"))
     _echo_hit_types(node, resp)
     _render_total_hits(resp, body)
     return 200, resp
+
+
+def _scroll(node, req):
+    body = req.json_body({}) or {}
+    scroll_id = body.get("scroll_id") or req.param("scroll_id")
+    return 200, node.scroll(scroll_id,
+                            body.get("scroll") or req.param("scroll"))
+
+
+def _clear_scroll(node, req):
+    body = req.json_body({}) or {}
+    ids = body.get("scroll_id") or req.param("scroll_id") or ["_all"]
+    if isinstance(ids, str):
+        ids = [i for i in ids.split(",") if i]
+    r = node.clear_scroll(ids)
+    # clearing ids of which none existed is a 404; _all always answers 200
+    status = 200 if (r.get("num_freed", 0) > 0 or ids == ["_all"]) else 404
+    return status, r
 
 
 def _render_total_hits(resp, body) -> None:

@@ -5,21 +5,32 @@ Counterpart of ``elasticsearch_tpu/search/service.py``:
 - ``ShardSearcher.query(source)`` runs the query phase on one shard: plan
   -> device execution per segment (or a score vector from a batched
   launch, ``score_cache``) -> copy of the dense scores and mask to the
-  host (as the JAX host rung does) -> top-k selection -> agg views (the
-  mask, the shard's query context for filter aggregations, the scores
-  for ``top_hits``);
-  returns a ``ShardQueryResult`` of doc refs.
-- ``merge_refs`` is the coordinator's global top-k; ``fetch_hits``
-  materializes hits (``_source`` filtering, version).
+  host (as the JAX host rung does) -> live, ``min_score``, ``slice``,
+  [agg view], ``post_filter`` -> top-k selection by score or by the
+  request's sort keys (``search_after`` cuts before it) -> the
+  ``rescore`` window per segment; then the shard's merge, ``collapse``
+  and ``terminate_after``. Returns a ``ShardQueryResult`` of doc refs.
+  ``segments=`` searches a scroll's pinned views instead of the engine's
+  current segment set.
+- ``merge_refs`` is the coordinator's global top-k by score or by sort
+  values; ``collapse_refs`` / ``expand_collapsed_hits`` are field
+  collapsing; ``fetch_hits`` materializes hits (``_source`` filtering,
+  version, each hit's ``sort`` array, ``highlight``).
 
-Relevance order only: sort, search_after, rescore, collapse, slice,
-profile, scroll, highlight and suggest are later slices, and a request
-carrying one raises.
+Sort keys, the missing fills and the string sentinels, ``search_after``,
+``resolve_slice``, rescore, collapse and the plain and unified
+highlighters follow the JAX package line for line. ``_geo_distance`` and
+nested sorts, profile, suggest, ``stored_fields``, ``docvalue_fields``
+and ``script_fields`` are later slices, and a request carrying one
+raises.
 """
 
 from __future__ import annotations
 
+import bisect
 import fnmatch
+import math
+import re
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
@@ -30,7 +41,9 @@ import torch
 from elasticsearch_tpu_torch.common.errors import (
     IllegalArgumentException,
     ParsingException,
+    QueryPhaseExecutionException,
 )
+from elasticsearch_tpu_torch.mapper.field_types import TextFieldType
 from elasticsearch_tpu_torch.ops.scoring import select_topk
 from elasticsearch_tpu_torch.search import plan as P
 from elasticsearch_tpu_torch.search.aggregations import (
@@ -41,10 +54,13 @@ from elasticsearch_tpu_torch.search.query_dsl import (
     ShardQueryContext,
     parse_query,
 )
+from elasticsearch_tpu_torch.utils.murmur3 import hash_slice_ids
 
-# request-body keys this slice serves; anything else raises
+# request-body keys the port serves; anything else raises
 SUPPORTED_BODY_KEYS = {"query", "from", "size", "aggs", "aggregations",
-                       "_source", "min_score", "post_filter", "version"}
+                       "_source", "min_score", "post_filter", "version",
+                       "sort", "search_after", "slice", "rescore",
+                       "terminate_after", "collapse", "highlight"}
 
 
 def check_body(body: dict) -> None:
@@ -60,13 +76,16 @@ class DocRef:
     """A hit before fetch: which shard/segment/local doc + ranking keys.
     ``segment`` is the segment the query phase read, when it knows it: a
     background compaction may retire it from the engine before the fetch,
-    and its host arrays still answer."""
+    and its host arrays still answer (a scroll's pinned view, for its
+    pages)."""
 
     shard_id: int
     segment_name: str
     local_doc: int
     score: float
     segment: Any = None
+    sort_values: Tuple = ()
+    collapse_value: Any = None
 
 
 @dataclass
@@ -76,6 +95,8 @@ class ShardQueryResult:
     refs: List[DocRef]
     max_score: Optional[float] = None
     agg_views: List[SegmentView] = field(default_factory=list)
+    # set (true/false) only when terminate_after was requested
+    terminated_early: Optional[bool] = None
 
 
 def _plan_uses_kernel(node) -> bool:
@@ -94,6 +115,9 @@ class ShardSearcher:
         self.engine = engine
         self.mapper_service = mapper_service
         self.ctx = ShardQueryContext(mapper_service)
+        # slice resolution is shard-count aware (the owner sets both)
+        self.num_shards = 1
+        self.max_slices = 1024
         self.query_total = 0
         # which engine scored each segment: the tile kernel or the scatter
         self.kernel_segments_total = 0
@@ -108,7 +132,9 @@ class ShardSearcher:
     def query(self, source: dict, size_hint: Optional[int] = None,
               segments=None, score_cache: Optional[Dict[str, Tuple]] = None
               ) -> ShardQueryResult:
-        """score_cache: {segment_name: (scores [nd1] f32, matched [nd1]
+        """segments: an explicit segment list (a scroll's pinned views);
+        None searches the engine's current segments.
+        score_cache: {segment_name: (scores [nd1] f32, matched [nd1]
         bool)} on the segment's device, from a cross-query batched kernel
         launch (search/batching.py): a cached segment skips plan execution
         and feeds the same downstream pipeline."""
@@ -122,6 +148,16 @@ class ShardSearcher:
         qb = parse_query(source.get("query"))
         post_qb = parse_query(source["post_filter"]) if source.get("post_filter") else None
         min_score = source.get("min_score")
+        sort_spec = normalize_sort(source.get("sort"))
+        search_after = source.get("search_after")
+        # shard-level collapse: every group's shard-best must reach the
+        # coordinator, so selection is uncapped and collapsed to k groups
+        collapse_field = validate_collapse(source)
+        slice_spec = source.get("slice")
+        rescore_specs = _normalize_rescore(source.get("rescore"))
+        k_select = k
+        if rescore_specs:
+            k_select = max(k, max(r["window_size"] for r in rescore_specs))
         agg_specs = parse_aggs(source.get("aggs") or source.get("aggregations"))
 
         refs: List[DocRef] = []
@@ -149,6 +185,15 @@ class ShardSearcher:
             matched = matched & live1
             if min_score is not None:
                 matched = matched & (scores >= float(min_score))
+            if slice_spec is not None:
+                resolved = resolve_slice(
+                    dict(slice_spec, _limit=self.max_slices),
+                    self.shard_id, self.num_shards)
+                if resolved == "skip":
+                    matched = np.zeros_like(matched)
+                elif resolved is not None:
+                    matched = matched & slice_mask(
+                        seg, int(resolved["id"]), int(resolved["max"]))
             if agg_specs:
                 agg_views.append(SegmentView(seg, matched.copy(), self.ctx,
                                              scores))
@@ -156,13 +201,37 @@ class ShardSearcher:
                 _, post_m = P.execute(dev, post_qb.to_plan(self.ctx, seg))
                 matched = matched & post_m.cpu().numpy()
             total += int(matched[: seg.num_docs].sum())
-            seg_refs = self._select(seg, scores, matched, k)
+            if collapse_field:
+                seg_refs = self._select_all(seg, scores, matched, sort_spec)
+            else:
+                seg_refs = self._select(seg, scores, matched, sort_spec,
+                                        search_after, k_select)
+            if rescore_specs and sort_spec is None:
+                seg_refs = self._rescore(seg, dev, seg_refs, rescore_specs)
             refs.extend(seg_refs)
-            if seg_refs:
+            if seg_refs and sort_spec is None:
                 m = max(r.score for r in seg_refs)
                 max_score = m if max_score is None else max(max_score, m)
-        refs = merge_refs(refs, k)
-        return ShardQueryResult(self.shard_id, total, refs, max_score, agg_views)
+        if collapse_field:
+            refs = merge_refs(refs, sort_spec, len(refs))
+            refs = collapse_refs(refs, collapse_field)[:k]
+        else:
+            refs = merge_refs(refs, sort_spec,
+                              k_select if rescore_specs else k)
+        if rescore_specs and sort_spec is None:
+            refs.sort(key=lambda r: (-r.score, r.local_doc))
+            refs = refs[:k]
+            if refs:
+                max_score = refs[0].score
+        terminate_after = source.get("terminate_after")
+        terminated_early = None
+        if terminate_after:
+            # the scan is exhaustive: cap the reported total and say
+            # whether the cap was reached (the observable contract)
+            terminated_early = total >= int(terminate_after)
+            total = min(total, int(terminate_after))
+        return ShardQueryResult(self.shard_id, total, refs, max_score,
+                                agg_views, terminated_early=terminated_early)
 
     def _to_host(self, device, scores_d, matched_d):
         if device.type == "cuda":
@@ -175,23 +244,451 @@ class ShardSearcher:
         self.host_copy_segments += 1
         return scores, matched
 
-    def _select(self, seg, scores, matched, k) -> List[DocRef]:
-        """Relevance top-k on the host copy, ties by ascending doc id."""
-        s = torch.from_numpy(scores)
-        m = torch.from_numpy(matched)
-        top_scores, top_docs = select_topk(s, m, torch.ones_like(m), int(k))
-        out = []
-        for sc, d in zip(top_scores.tolist(), top_docs.tolist()):
-            if sc == -np.inf:
-                break
-            out.append(DocRef(self.shard_id, seg.name, int(d), float(sc),
-                              seg))
+    def _rescore(self, seg, dev, seg_refs: List[DocRef],
+                 rescore_specs: List[dict]) -> List[DocRef]:
+        """QueryRescorer: re-rank the top-window hits by combining the
+        original score with the rescore query's score. The window applies
+        per segment, as on the JAX host rung."""
+        for spec in rescore_specs:
+            window = spec["window_size"]
+            rqb = parse_query(spec["rescore_query"])
+            r_scores = P.execute(dev, rqb.to_plan(self.ctx, seg))[0]
+            r_scores = r_scores.cpu().numpy()
+            qw, rqw = spec["query_weight"], spec["rescore_query_weight"]
+            mode = spec["score_mode"]
+            for ref in seg_refs[:window]:
+                rs = float(r_scores[ref.local_doc])
+                base = ref.score * qw
+                resc = rs * rqw
+                if mode == "total":
+                    ref.score = base + resc
+                elif mode == "multiply":
+                    ref.score = base * rs if rs else base
+                elif mode == "avg":
+                    ref.score = (base + resc) / 2.0
+                elif mode == "max":
+                    ref.score = max(base, resc)
+                elif mode == "min":
+                    ref.score = min(base, resc)
+                ref.sort_values = (ref.score,)
+        seg_refs.sort(key=lambda r: (-r.score, r.local_doc))
+        return seg_refs
+
+    def _select_all(self, seg, scores, matched, sort_spec) -> List[DocRef]:
+        """Uncapped selection of every matching doc, ordered by the
+        request's sort: collapse needs the full candidate set so no
+        group's best doc is cut by a top-k window (search_after is
+        refused with collapse upstream)."""
+        live_matched = matched[: seg.nd_pad] & seg.live
+        idx = np.flatnonzero(live_matched)
+        if sort_spec is None:
+            out = [DocRef(self.shard_id, seg.name, int(d), float(scores[d]),
+                          seg, (float(scores[d]),)) for d in idx]
+            out.sort(key=lambda r: (-r.score, r.local_doc))
+            return out
+        _keys, all_key_arrays = self._sort_keys(seg, scores, sort_spec)
+        out = [DocRef(self.shard_id, seg.name, int(d), float(scores[d]), seg,
+                      tuple(arr[d] for arr in all_key_arrays)) for d in idx]
+        sort_refs(out, sort_spec)
         return out
 
+    def _select(self, seg, scores, matched, sort_spec, search_after,
+                k) -> List[DocRef]:
+        if sort_spec is None:
+            # relevance: top-k by score on the host copy, ties by
+            # ascending doc id
+            if search_after is not None:
+                cutoff = float(search_after[0])
+                matched = matched & (scores < cutoff)
+            top_scores, top_docs = select_topk(
+                torch.from_numpy(scores), torch.from_numpy(matched),
+                torch.ones(matched.shape, dtype=torch.bool), int(k))
+            out = []
+            for sc, d in zip(top_scores.tolist(), top_docs.tolist()):
+                if sc == -np.inf:
+                    break
+                out.append(DocRef(self.shard_id, seg.name, int(d), float(sc),
+                                  seg, (float(sc),)))
+            return out
+        # field sort: the primary key selects, the full sort tuple orders
+        keys, all_key_arrays = self._sort_keys(seg, scores, sort_spec)
+        primary = keys[0]
+        if search_after is not None:
+            matched = matched & _search_after_mask(all_key_arrays, sort_spec,
+                                                   search_after)
+        masked = np.where(matched[: seg.nd_pad] & seg.live, primary, -np.inf)
+        kk = min(k, masked.size)
+        idx = (np.argpartition(-masked, kk - 1)[:kk] if kk < masked.size
+               else np.arange(masked.size))
+        out = []
+        for d in idx:
+            d = int(d)
+            if masked[d] == -np.inf:
+                continue
+            sv = tuple(arr[d] for arr in all_key_arrays)
+            out.append(DocRef(self.shard_id, seg.name, d, float(scores[d]),
+                              seg, sv))
+        sort_refs(out, sort_spec)
+        return out[:k]
 
-def merge_refs(refs: List[DocRef], k: int) -> List[DocRef]:
-    """Coordinator-side top-k merge (SearchPhaseController.sortDocs)."""
-    refs.sort(key=lambda r: (-r.score, r.shard_id, r.local_doc))
+    def _sort_keys(self, seg, scores, sort_spec):
+        """(oriented key arrays [nd_pad], raw per-field value arrays for
+        each hit's sort values)."""
+        raw_arrays = []
+        oriented = []
+        for field_name, order, missing in sort_spec:
+            if field_name == "_score":
+                raw = scores[: seg.nd_pad].astype(np.float64)
+            elif field_name == "_doc":
+                raw = np.arange(seg.nd_pad, dtype=np.float64)
+            else:
+                col = seg.numeric_columns.get(field_name)
+                if col is not None:
+                    base = col.min_value if order == "asc" else col.max_value
+                    fill = _missing_fill(missing, order)
+                    raw = np.where(col.exists, base, fill)
+                else:
+                    ocol = (seg.ordinal_columns.get(field_name)
+                            or seg.ordinal_columns.get(f"{field_name}.keyword"))
+                    ft = self.mapper_service.field_type(field_name)
+                    string_typed = (ocol is not None or (
+                        ft is not None
+                        and getattr(ft, "ordinal_doc_values", False)))
+                    if not string_typed:
+                        # numeric or unmapped: a float fill (a custom
+                        # missing must be a number here)
+                        fill = _missing_fill(missing, order)
+                        raw = np.full(seg.nd_pad, fill, dtype=np.float64)
+                    elif ocol is None:
+                        # a keyword field with no column in this segment:
+                        # every doc is missing, and the values stay
+                        # strings so the merge never mixes floats into a
+                        # string sort
+                        sfill = _missing_fill_str(missing, order)
+                        raw = np.full(seg.nd_pad, sfill, dtype=object)
+                        fillf = (np.inf if sfill == _STR_SENTINEL_HIGH
+                                 else -np.inf)
+                        key = fillf if order == "desc" else -fillf
+                        oriented.append(np.full(
+                            seg.nd_pad, float(np.clip(key, -1e300, 1e300))))
+                        raw_arrays.append(raw)
+                        continue
+                    else:
+                        # ordinals order the selection inside the segment
+                        # (local ordinal order is string order), but the
+                        # merge across segments compares the strings. A
+                        # custom string missing ranks at its bisect
+                        # position between ordinals.
+                        if missing in (None, "_last", "_first"):
+                            fill = _missing_fill(missing, order)
+                        else:
+                            pos = bisect.bisect_left(ocol.terms, str(missing))
+                            fill = pos - 0.5
+                        ord_key = np.where(
+                            ocol.exists, ocol.first_ord.astype(np.float64),
+                            fill)
+                        sfill = _missing_fill_str(missing, order)
+                        cache_key = (f"sortstr.{field_name}.{order}."
+                                     f"{missing!r}")
+                        raw = seg.host_cache.get(cache_key)
+                        if raw is None:
+                            terms_arr = np.asarray(ocol.terms + [sfill],
+                                                   dtype=object)
+                            raw = terms_arr[np.where(
+                                ocol.exists, ocol.first_ord,
+                                len(ocol.terms))]
+                            seg.host_cache[cache_key] = raw
+                        raw_arrays.append(raw)
+                        oriented.append(np.clip(
+                            ord_key if order == "desc" else -ord_key,
+                            -1e300, 1e300))
+                        continue
+            raw_arrays.append(raw)
+            # clamp the +-inf missing fills to large finite sentinels: -inf
+            # in the oriented key is reserved for "not matched", and a
+            # missing doc in an asc sort must still be selectable
+            oriented.append(np.clip(raw if order == "desc" else -raw,
+                                    -1e300, 1e300))
+        return oriented, raw_arrays
+
+
+def slice_mask(seg, sid: int, smax: int) -> np.ndarray:
+    """Docs of ``seg`` in slice ``sid`` of ``smax``: ``hash_slice_id(_id)
+    % smax == sid`` (floorMod), ``[nd_pad + 1]`` bool, cached on the
+    segment's host with the ids' hashes (the mesh plane's slice column
+    reads the same cache)."""
+    key = f"slice.{smax}.{sid}"
+    mask = seg.host_cache.get(key)
+    if mask is None:
+        hashes = seg.host_cache.get("slice.hash")
+        if hashes is None:
+            hashes = seg.host_cache["slice.hash"] = hash_slice_ids(
+                seg.doc_ids)
+        mask = np.zeros(seg.nd_pad + 1, dtype=bool)
+        mask[: len(hashes)] = hashes % smax == sid
+        seg.host_cache[key] = mask
+    return mask
+
+
+def _sort_value_out(v):
+    """Sort value -> response form: the missing fills (infinite floats,
+    the string sentinels) render as null."""
+    if isinstance(v, str):
+        return None if v in (_STR_SENTINEL_HIGH, _STR_SENTINEL_LOW) else v
+    return v if not np.isinf(v) else None
+
+
+def _missing_fill(missing, order) -> float:
+    if missing in (None, "_last"):
+        return -np.inf if order == "desc" else np.inf
+    if missing == "_first":
+        return np.inf if order == "desc" else -np.inf
+    return float(missing)
+
+
+# string-sort missing sentinels: HIGH sorts after every practical term,
+# LOW (a NUL) before; both render as null in the sort values
+_STR_SENTINEL_HIGH = "\U0010ffff\U0010ffff\U0010ffff\U0010ffff"
+_STR_SENTINEL_LOW = "\x00"
+
+
+def _missing_fill_str(missing, order) -> str:
+    if missing in (None, "_last"):
+        # "_last" is the end of the result order: largest for asc,
+        # smallest for desc
+        return _STR_SENTINEL_HIGH if order == "asc" else _STR_SENTINEL_LOW
+    if missing == "_first":
+        return _STR_SENTINEL_LOW if order == "asc" else _STR_SENTINEL_HIGH
+    return str(missing)
+
+
+def multi_pass_sort(items, sort_spec, values_of, tiebreak=None):
+    """Stable multi-pass sort over per-field sort values: strings cannot
+    be negated for desc and per-segment ordinals are no merge keys, so
+    the list is sorted once a field, least significant first, relying on
+    stability. A tiebreak key, when given, runs first. Mixed value types
+    within one field (string against number) are a request error."""
+    if tiebreak is not None:
+        items.sort(key=tiebreak)
+    try:
+        for i in reversed(range(len(sort_spec))):
+            _f, order, _m = sort_spec[i]
+            items.sort(key=lambda x, i=i: values_of(x)[i],
+                       reverse=order == "desc")
+    except TypeError:
+        raise IllegalArgumentException(
+            "can't sort across indices mapping the sort field to "
+            "different types (string vs numeric)") from None
+
+
+def sort_refs(refs: List[DocRef], sort_spec, with_shard: bool = False) -> None:
+    multi_pass_sort(
+        refs, sort_spec, lambda r: r.sort_values,
+        tiebreak=(lambda r: (r.shard_id, r.local_doc)) if with_shard
+        else (lambda r: r.local_doc))
+
+
+def _search_after_mask(key_arrays, sort_spec, after_values) -> np.ndarray:
+    """Strict lexicographic 'after' filter over full sort tuples."""
+    n = key_arrays[0].shape[0]
+    gt = np.zeros(n, dtype=bool)
+    eq = np.ones(n, dtype=bool)
+    for arr, (_fname, order, missing), after in zip(key_arrays, sort_spec,
+                                                    after_values):
+        # a null cursor value is a missing doc's sort key (fetch renders
+        # the fill as null): map it back to the fill
+        if arr.dtype == object:  # keyword sort: string comparisons
+            a = (_missing_fill_str(missing, order) if after is None
+                 else str(after))
+        else:
+            a = (_missing_fill(missing, order)
+                 if after is None else float(after))
+        if order == "desc":
+            gt |= eq & (arr < a)
+        else:
+            gt |= eq & (arr > a)
+        eq &= arr == a
+    return np.concatenate([gt, np.zeros(1, dtype=bool)])
+
+
+def resolve_slice(spec: dict, shard_id: int, num_shards: int):
+    """SliceBuilder.toFilter's shard-aware slice resolution. Returns
+    "skip" (this shard is not in the slice), None (the whole shard is)
+    or {"id", "max"} (a doc-hash partition inside the shard). Regimes: one
+    shard, a plain doc hash; max >= shards, shards round-robin over the
+    slices with a partition inside; max < shards, whole shards grouped a
+    slice."""
+    sid, smax = int(spec["id"]), int(spec["max"])
+    if smax <= 1:
+        raise IllegalArgumentException("max must be greater than 1")
+    if sid < 0 or sid >= smax:
+        raise IllegalArgumentException(
+            f"id must be in [0, {smax}), got {sid}")
+    limit = int(spec.get("_limit", 1024))
+    if smax > limit:
+        raise QueryPhaseExecutionException(
+            f"The number of slices [{smax}] is too large. It must be "
+            f"less than [{limit}]. This limit can be set by changing "
+            f"the [index.max_slices_per_scroll] index level setting.")
+    if num_shards == 1:
+        return {"id": sid, "max": smax}
+    if smax >= num_shards:
+        target = sid % num_shards
+        if target != shard_id:
+            return "skip"
+        n_in_shard = smax // num_shards + (
+            1 if smax % num_shards > target else 0)
+        if n_in_shard == 1:
+            return None
+        return {"id": sid // num_shards, "max": n_in_shard}
+    return None if shard_id % smax == sid else "skip"
+
+
+def _normalize_rescore(body) -> List[dict]:
+    """rescore body -> [{window_size, rescore_query, weights, mode}]."""
+    if body is None:
+        return []
+    specs = body if isinstance(body, list) else [body]
+    out = []
+    for spec in specs:
+        q = spec.get("query") or {}
+        out.append({
+            "window_size": int(spec.get("window_size", 10)),
+            "rescore_query": q.get("rescore_query"),
+            "query_weight": float(q.get("query_weight", 1.0)),
+            "rescore_query_weight": float(q.get("rescore_query_weight", 1.0)),
+            "score_mode": q.get("score_mode", "total"),
+        })
+    return out
+
+
+def collapse_refs(refs: List[DocRef], field_name: str) -> List[DocRef]:
+    """Field collapsing: keep the best hit a distinct field value (a doc's
+    first numeric value, else its first keyword term, else the null
+    group), in result order."""
+    seen = set()
+    out = []
+    for ref in refs:
+        seg, d = ref.segment, ref.local_doc
+        value = None
+        col = seg.numeric_columns.get(field_name)
+        ocol = (seg.ordinal_columns.get(field_name)
+                or seg.ordinal_columns.get(f"{field_name}.keyword"))
+        if col is not None and col.exists[d]:
+            value = float(col.first_value[d])
+        elif ocol is not None and ocol.exists[d]:
+            value = ocol.terms[ocol.first_ord[d]]
+        if value in seen:
+            continue
+        seen.add(value)
+        ref.collapse_value = value
+        out.append(ref)
+    return out
+
+
+def expand_collapsed_hits(hits: List[dict], refs: List[DocRef],
+                          collapse_body: dict, body: dict, search_fn) -> None:
+    """ExpandSearchPhase: put the collapse value in each hit's fields and,
+    when the collapse declares ``inner_hits``, run one group search (the
+    original query AND the group's value) a top hit a spec through
+    ``search_fn(sub_body) -> response``."""
+    field_name = collapse_body["field"]
+    specs = collapse_body.get("inner_hits")
+    if isinstance(specs, dict):
+        specs = [specs]
+    if specs:
+        names = [spec.get("name", field_name) for spec in specs]
+        dupes = {n for n in names if names.count(n) > 1}
+        if dupes:
+            raise IllegalArgumentException(
+                f"[inner_hits] already contains an entry for key "
+                f"[{dupes.pop()}]")
+    orig_query = body.get("query") or {"match_all": {}}
+    for hit, ref in zip(hits, refs):
+        value = ref.collapse_value
+        hit.setdefault("fields", {})[field_name] = [value]
+        if not specs:
+            continue
+        if value is None:
+            group_filter = {"bool": {"must_not": [
+                {"exists": {"field": field_name}}]}}
+        else:
+            group_filter = {"term": {field_name: value}}
+        for spec in specs:
+            name = spec.get("name", field_name)
+            sub = {
+                "query": {"bool": {"must": [orig_query],
+                                   "filter": [group_filter]}},
+                "from": int(spec.get("from", 0)),
+                # InnerHitBuilder's default size
+                "size": int(spec.get("size", 3)),
+            }
+            for key in ("sort", "_source", "docvalue_fields", "script_fields",
+                        "stored_fields", "version", "highlight"):
+                if key in spec:
+                    sub[key] = spec[key]
+            hit.setdefault("inner_hits", {})[name] = {
+                "hits": search_fn(sub)["hits"]}
+
+
+def validate_collapse(body: dict) -> Optional[str]:
+    """Body-shape validation for collapse before any shard runs. Returns
+    the collapse field or None."""
+    collapse_field = (body.get("collapse") or {}).get("field")
+    if collapse_field and body.get("search_after") is not None:
+        raise IllegalArgumentException(
+            "cannot use `collapse` in conjunction with `search_after`")
+    if collapse_field and body.get("rescore"):
+        raise IllegalArgumentException(
+            "cannot use `collapse` in conjunction with `rescore`")
+    return collapse_field
+
+
+def normalize_sort(sort_body) -> Optional[List[Tuple[str, str, Any]]]:
+    """-> [(field, order, missing)], or None for relevance (a lone
+    ``_score`` sort included). ``_geo_distance`` and nested sorts raise:
+    their columns are not staged by the port yet."""
+    if sort_body is None:
+        return None
+    if not isinstance(sort_body, list):
+        sort_body = [sort_body]
+    out = []
+    for entry in sort_body:
+        if isinstance(entry, str):
+            if entry == "_score":
+                out.append(("_score", "desc", None))
+            else:
+                out.append((entry, "asc", None))
+        elif isinstance(entry, dict):
+            ((fname, spec),) = entry.items()
+            if fname == "_geo_distance" or (isinstance(spec, dict) and (
+                    "nested" in spec or "nested_path" in spec)):
+                kind = ("[_geo_distance]" if fname == "_geo_distance"
+                        else "nested")
+                raise IllegalArgumentException(
+                    f"{kind} sort is not supported by the PyTorch port yet")
+            if isinstance(spec, str):
+                out.append((fname, spec, None))
+            else:
+                out.append((
+                    fname,
+                    spec.get("order", "desc" if fname == "_score" else "asc"),
+                    spec.get("missing"),
+                ))
+        else:
+            raise ParsingException(f"malformed sort entry {entry!r}")
+    if len(out) == 1 and out[0][0] == "_score":
+        return None  # plain relevance
+    return out
+
+
+def merge_refs(refs: List[DocRef], sort_spec, k: int) -> List[DocRef]:
+    """Coordinator-side top-k merge (SearchPhaseController.sortDocs): by
+    score, or by sort values; ties by (shard, doc)."""
+    if sort_spec is None:
+        refs.sort(key=lambda r: (-r.score, r.shard_id, r.local_doc))
+    else:
+        sort_refs(refs, sort_spec, with_shard=True)
     return refs[:k]
 
 
@@ -257,6 +754,25 @@ def _parse_source_spec(spec):
     raise ParsingException(f"unsupported _source spec {spec!r}")
 
 
+def _parse_source_spec(spec):
+    """-> (includes, excludes, enabled)."""
+    if spec is True or spec is None:
+        return [], [], True
+    if spec is False:
+        return [], [], False
+    if isinstance(spec, str):
+        return [spec], [], True
+    if isinstance(spec, list):
+        return list(spec), [], True
+    if isinstance(spec, dict):
+        return (
+            list(spec.get("includes") or spec.get("include") or []),
+            list(spec.get("excludes") or spec.get("exclude") or []),
+            True,
+        )
+    raise ParsingException(f"unsupported _source spec {spec!r}")
+
+
 def fetch_hits(refs: List[DocRef], shards: Dict[int, Any], source_body: dict,
                index_name: str) -> List[dict]:
     """Fetch phase: materialize hits from doc refs.
@@ -286,5 +802,259 @@ def fetch_hits(refs: List[DocRef], shards: Dict[int, Any], source_body: dict,
             hit["_source"] = src
         if want_version:
             hit["_version"] = int(seg.versions[d])
+        hits.append(hit)
+    return hits
+
+
+_HL_PRE = "<em>"
+_HL_POST = "</em>"
+_SENTENCE_BREAK = re.compile(r"(?<=[.!?])\s+|\n+")
+
+
+def highlight_fields(source: dict, mapper_service, query_terms: Dict[str, set],
+                     highlight_body: dict) -> Dict[str, List[str]]:
+    """The highlight sub-phase, one highlighter a field by ``type``:
+    "unified" (the default) scores sentence passages by unique-term
+    coverage with log tf saturation, takes the top passages and wraps
+    their matches; "plain" cuts token-window fragments around matches."""
+    out = {}
+    fields_spec = highlight_body.get("fields", {})
+    pre = (highlight_body.get("pre_tags") or [_HL_PRE])[0]
+    post = (highlight_body.get("post_tags") or [_HL_POST])[0]
+    require_match = highlight_body.get("require_field_match", True)
+    default_type = highlight_body.get("type", "unified")
+    all_terms = set().union(*query_terms.values()) if query_terms else set()
+    for fname, fspec in fields_spec.items():
+        fspec = fspec or {}
+        fragment_size = int(fspec.get("fragment_size", 100))
+        n_frags = int(fspec.get("number_of_fragments", 5))
+        hl_type = fspec.get("type", default_type)
+        order = fspec.get("order", highlight_body.get("order", "none"))
+        for resolved in (mapper_service.mapper.simple_match_to_fields(fname)
+                         or [fname]):
+            value = _source_value(source, resolved)
+            if value is None:
+                continue
+            text = value if isinstance(value, str) else str(value)
+            ft = mapper_service.field_type(resolved)
+            analyzer_name = (ft.analyzer if isinstance(ft, TextFieldType)
+                             else "keyword")
+            analyzer = mapper_service.analyzers.get(analyzer_name)
+            terms = query_terms.get(resolved, set()) if require_match else all_terms
+            if not terms:
+                continue
+            spans = [(s, e, tok) for tok, s, e in analyzer.analyze_tokens(text)
+                     if tok in terms]
+            if not spans:
+                continue
+            if hl_type == "plain":
+                fragments = _build_fragments(
+                    text, [(s, e) for s, e, _ in spans], fragment_size,
+                    n_frags, pre, post)
+            else:
+                fragments = _unified_fragments(
+                    text, spans, fragment_size, n_frags, pre, post, order)
+            if fragments:
+                out[resolved] = fragments
+    return out
+
+
+def _split_passages(text: str, max_len: int) -> List[tuple]:
+    """Sentence-bounded passages [(start, end)], long sentences split at
+    word boundaries near ``max_len`` (a BreakIterator stand-in)."""
+    bounds = []
+    start = 0
+    for m in _SENTENCE_BREAK.finditer(text):
+        bounds.append((start, m.start()))
+        start = m.end()
+    if start < len(text):
+        bounds.append((start, len(text)))
+    out = []
+    for s, e in bounds:
+        while e - s > max_len * 2:
+            cut = text.rfind(" ", s, s + max_len)
+            if cut <= s:
+                cut = s + max_len
+            out.append((s, cut))
+            s = cut + 1
+        if e > s:
+            out.append((s, e))
+    return out
+
+
+def _unified_fragments(text, spans, fragment_size, n_frags, pre, post,
+                       order) -> List[str]:
+    """The unified highlighter: score each sentence passage by its unique
+    terms with log tf saturation (PassageScorer), keep the top passages
+    and wrap their matches."""
+    passages = _split_passages(text, fragment_size)
+    scored = []
+    for idx, (ps, pe) in enumerate(passages):
+        inside = [(s, e) for s, e, _tok in spans if s >= ps and e <= pe]
+        if not inside:
+            continue
+        tfs: Dict[str, int] = {}
+        for s, e, tok in spans:
+            if s >= ps and e <= pe:
+                tfs[tok] = tfs.get(tok, 0) + 1
+        score = sum(1.0 + math.log1p(tf) for tf in tfs.values())
+        scored.append((score, idx, ps, pe, inside))
+    if not scored:
+        return []
+    scored.sort(key=lambda t: (-t[0], t[1]))
+    chosen = scored[:n_frags]
+    if order != "score":
+        chosen.sort(key=lambda t: t[1])  # document order (the default)
+    fragments = []
+    for _score, _idx, ps, pe, inside in chosen:
+        frag = []
+        pos = ps
+        for a, b in sorted(inside):
+            frag.append(text[pos:a])
+            frag.append(pre + text[a:b] + post)
+            pos = b
+        frag.append(text[pos:pe])
+        fragments.append("".join(frag))
+    return fragments
+
+
+def _source_value(source: dict, path: str):
+    node = source
+    for part in path.split("."):
+        if not isinstance(node, dict) or part not in node:
+            return None
+        node = node[part]
+    return node
+
+
+def _build_fragments(text, spans, fragment_size, n_frags, pre, post):
+    """The plain highlighter: a ``fragment_size`` window around each
+    match, one a window, matches wrapped."""
+    spans = sorted(spans)
+    fragments = []
+    used = set()
+    for s, e in spans:
+        frag_start = max(0, s - fragment_size // 2)
+        frag_id = frag_start // max(fragment_size, 1)
+        if frag_id in used:
+            continue
+        used.add(frag_id)
+        frag_end = min(len(text), frag_start + fragment_size)
+        in_frag = [(a, b) for a, b in spans if a >= frag_start and b <= frag_end]
+        frag = []
+        pos = frag_start
+        for a, b in in_frag:
+            frag.append(text[pos:a])
+            frag.append(pre + text[a:b] + post)
+            pos = b
+        frag.append(text[pos:frag_end])
+        fragments.append("".join(frag))
+        if len(fragments) >= n_frags:
+            break
+    return fragments
+
+
+def extract_query_terms(qb, ctx, terms: Optional[Dict[str, set]] = None
+                        ) -> Dict[str, set]:
+    """(field -> tokens) of a builder tree, for highlighting: the match,
+    phrase, term, terms and multi_match leaves under bool, constant_score,
+    dis_max and function_score (the JAX package's set)."""
+    from elasticsearch_tpu_torch.search import query_dsl as Q
+
+    if terms is None:
+        terms = {}
+
+    def add(field_name, toks):
+        terms.setdefault(field_name, set()).update(toks)
+
+    if isinstance(qb, Q.MatchQueryBuilder):
+        ft = ctx.field_type(qb.field)
+        if isinstance(ft, TextFieldType):
+            add(qb.field, ft.query_terms(qb.query, ctx.analyzers))
+        else:
+            add(qb.field, [str(qb.query)])
+    elif isinstance(qb, Q.MatchPhraseQueryBuilder):
+        ft = ctx.field_type(qb.field)
+        if isinstance(ft, TextFieldType):
+            add(qb.field, ft.query_terms(qb.query, ctx.analyzers))
+    elif isinstance(qb, Q.TermQueryBuilder):
+        add(qb.field, [str(qb.value)])
+    elif isinstance(qb, Q.TermsQueryBuilder):
+        add(qb.field, [str(v) for v in qb.values])
+    elif isinstance(qb, Q.MultiMatchQueryBuilder):
+        for f in qb.fields:
+            name = f.split("^")[0]
+            for resolved in (ctx.mapper_service.mapper.simple_match_to_fields(
+                    name) or [name]):
+                ft = ctx.field_type(resolved)
+                if isinstance(ft, TextFieldType):
+                    add(resolved, ft.query_terms(qb.query, ctx.analyzers))
+    elif isinstance(qb, Q.BoolQueryBuilder):
+        for sub in qb.must + qb.should + qb.filter:
+            extract_query_terms(sub, ctx, terms)
+    elif isinstance(qb, Q.ConstantScoreQueryBuilder):
+        extract_query_terms(qb.filter, ctx, terms)
+    elif isinstance(qb, Q.DisMaxQueryBuilder):
+        for sub in qb.queries:
+            extract_query_terms(sub, ctx, terms)
+    elif isinstance(qb, Q.FunctionScoreQueryBuilder):
+        extract_query_terms(qb.query, ctx, terms)
+    return terms
+
+
+def fetch_hits(refs: List[DocRef], shards: Dict[int, Any], source_body: dict,
+               index_name: str,
+               pinned_segments: Optional[Dict[int, list]] = None
+               ) -> List[dict]:
+    """Fetch phase: materialize hits from doc refs.
+
+    shards: shard_id -> object with .engine and .mapper_service.
+    pinned_segments: {shard_id: [segment views]} of an open scroll: refs
+    of a pinned query phase fetch from those views (a merge may have
+    dropped the segment from the engine since)."""
+    source_body = source_body or {}
+    includes, excludes, enabled = _parse_source_spec(
+        source_body.get("_source", True))
+    want_version = bool(source_body.get("version", False))
+    highlight_body = source_body.get("highlight")
+    sort_spec = normalize_sort(source_body.get("sort"))
+    query_terms: Dict[str, set] = {}
+    hits = []
+    for ref in refs:
+        shard = shards[ref.shard_id]
+        seg = None
+        if pinned_segments is not None:
+            seg = next((s for s in pinned_segments.get(ref.shard_id, [])
+                        if s.name == ref.segment_name), None)
+        if seg is None:
+            seg = next((s for s in shard.engine.segments
+                        if s.name == ref.segment_name), ref.segment)
+        if seg is None:
+            continue
+        d = ref.local_doc
+        hit = {
+            "_index": index_name,
+            "_type": "_doc",
+            "_id": seg.doc_ids[d],
+            "_score": None if sort_spec is not None else ref.score,
+        }
+        if enabled:
+            src = seg.sources[d]
+            if includes or excludes:
+                src = filter_source(src, includes, excludes)
+            hit["_source"] = src
+        if want_version:
+            hit["_version"] = int(seg.versions[d])
+        if sort_spec is not None:
+            hit["sort"] = [_sort_value_out(v) for v in ref.sort_values]
+        if highlight_body:
+            if not query_terms:
+                query_terms = extract_query_terms(
+                    parse_query(source_body.get("query")),
+                    ShardQueryContext(shard.mapper_service))
+            hl = highlight_fields(seg.sources[d], shard.mapper_service,
+                                  query_terms, highlight_body)
+            if hl:
+                hit["highlight"] = hl
         hits.append(hit)
     return hits

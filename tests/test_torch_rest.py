@@ -340,6 +340,82 @@ def test_uri_search_q_on_search_and_count(loaded):
     both(loaded, "GET", "/idx/_search?q=year:abc")
 
 
+SORT_BODIES = {
+    "sort_year": {"query": {"match": {"title": "w3"}},
+                  "sort": [{"year": "desc"}, {"venue": "asc"}], "size": 9},
+    "search_after": {"query": {"match": {"title": "w3"}},
+                     "sort": [{"year": "desc"}, {"venue": "asc"}],
+                     "search_after": [2010, "venue3"], "size": 9},
+    "keyword_missing": {"query": {"match_all": {}}, "size": 12,
+                        "sort": [{"venue": {"order": "desc",
+                                            "missing": "_first"}}]},
+    "slice": {"query": {"match_all": {}}, "slice": {"id": 1, "max": 3},
+              "size": 20},
+    "rescore": {"query": {"match": {"title": "w3 w5"}}, "size": 6,
+                "rescore": {"window_size": 4, "query": {
+                    "rescore_query": {"match": {"title": "w7"}},
+                    "score_mode": "max"}}},
+    "terminate_after": {"query": {"match": {"title": "w2"}},
+                        "terminate_after": 3},
+    "collapse": {"query": {"match": {"title": "w1"}}, "size": 4,
+                 "collapse": {"field": "venue", "inner_hits": {
+                     "name": "v", "size": 2, "sort": [{"year": "asc"}]}}},
+    "highlight": {"query": {"match": {"title": "w1 w4"}}, "size": 3,
+                  "highlight": {"fields": {"title": {}}}},
+}
+
+
+@pytest.mark.parametrize("name", sorted(SORT_BODIES))
+def test_search_sort_and_paging_bodies(loaded, name):
+    both(loaded, "POST", "/idx/_search", SORT_BODIES[name], status=200)
+
+
+def test_scroll_routes(loaded):
+    """``?scroll=`` opens a scroll; the four next-page routes (POST and
+    GET, id in the body or the path) page through it; the two DELETE
+    routes clear one id, a list, or every context; an unknown id is a 404.
+    Each page equals the JAX server's (the scroll ids differ)."""
+    _jn, _tn, jport, tport = loaded
+    body = {"query": {"match": {"title": "w1"}}, "size": 7,
+            "sort": [{"year": "desc"}, {"venue": "asc"}]}
+    pages = {}
+    for key, port in (("jax", jport), ("port", tport)):
+        st, _, first = call(port, "POST", "/idx/_search?scroll=1m", body)
+        assert st == 200
+        sid = first.pop("_scroll_id")
+        got = [first]
+        for method, path, b in (
+                ("POST", "/_search/scroll", {"scroll": "1m",
+                                             "scroll_id": sid}),
+                ("GET", f"/_search/scroll/{sid}?scroll=1m", None),
+                ("POST", f"/_search/scroll/{sid}", None),
+                ("GET", "/_search/scroll", {"scroll_id": sid})):
+            st, _, page = call(port, method, path, b)
+            assert st == 200, (path, page)
+            assert page.pop("_scroll_id") == sid
+            got.append(page)
+        st, _, second = call(port, "GET", "/idx/_search?scroll=1m&size=3")
+        sid2 = second.pop("_scroll_id")
+        got.append(second)
+        got.append(call(port, "DELETE", f"/_search/scroll/{sid}")[::2])
+        got.append(call(port, "DELETE", f"/_search/scroll/{sid}")[::2])
+        st, _, err = call(port, "GET", f"/_search/scroll/{sid}")
+        assert sid in err["error"]["reason"]
+        err["error"]["reason"] = err["error"]["reason"].replace(sid, "<id>")
+        got.append((st, err))
+        got.append(call(port, "DELETE", "/_search/scroll",
+                        {"scroll_id": [sid2]})[::2])
+        call(port, "POST", "/idx/_search?scroll=1m", body)
+        got.append(call(port, "DELETE", "/_search/scroll")[::2])
+        pages[key] = got
+    assert len(pages["port"]) == len(pages["jax"])
+    for i, (jp, tp) in enumerate(zip(pages["jax"], pages["port"])):
+        assert_same_body(strip(jp), strip(tp), f"scroll step {i}")
+    ids = [h["_id"] for p in pages["port"][:5] for h in p["hits"]["hits"]]
+    assert len(ids) == len(set(ids)) == 35
+    assert [p[0] for p in pages["port"][6:]] == [200, 404, 404, 200, 200]
+
+
 def test_cat_and_cluster(loaded):
     both(loaded, "GET", "/_cat/indices?format=json", status=200)
     both(loaded, "GET", "/_cat/indices/idx?format=json&h=index,docs.count",
@@ -437,7 +513,7 @@ def test_unported_route_answers_400():
                              ("GET", "/_nodes/stats"),
                              ("GET", "/_mget"),
                              ("GET", "/i/_search?track_total_hits=true"),
-                             ("POST", "/_search/scroll"),
+                             ("GET", "/i/_explain/1"),
                              ("GET", "/_search")):
             st, _, b = call(srv.port, method, path, {})
             assert st == 400, (path, b)

@@ -189,7 +189,10 @@ def test_unported_requests_raise(nodes):
         tn.search("idx", {"size": 0, "aggs": {"g": {"geohash_grid": {
             "field": "venue", "precision": 3}}}})
     with pytest.raises(IllegalArgumentException):
-        tn.search("idx", {"query": {"match_all": {}}, "sort": ["year"]})
+        tn.search("idx", {"query": {"match_all": {}}, "sort": [
+            {"_geo_distance": {"loc": [0.0, 0.0], "order": "asc"}}]})
+    with pytest.raises(IllegalArgumentException):
+        tn.search("idx", {"query": {"match_all": {}}, "profile": True})
 
 
 def test_can_match_skips_shards_like_jax():
