@@ -70,11 +70,12 @@ prints no result, when there is no GPU or any check fails. Phases:
    the dense scores and mask.
 6. The kernel summary line (with phase 11's ``rest`` entry, phase 12's
    ``aggs`` entry, phase 13's ``durability`` entry, phase 14's
-   ``staging`` entry, phase 15's ``query_dsl`` entry and phase 16's
-   ``sort_paging`` entry), then the device line.
+   ``staging`` entry, phase 15's ``query_dsl`` entry, phase 16's
+   ``sort_paging`` entry and phase 17's ``field_types`` entry), then the
+   device line.
 
 Run between phases 2 and 3, and after phase 4 (phase 10 after phase 9,
-then phases 11, 12, 13, 14, 15 and 16):
+then phases 11, 12, 13, 14, 15, 16 and 17):
 
 2b. Kernels 1b (dense, q_batch=16, with and without counts) and 1c (fused
     per-tile top-k, q_batch 1 and 16, k=16) on the 1M-doc corpus, for 16
@@ -206,9 +207,9 @@ then phases 11, 12, 13, 14, 15 and 16):
     ``aggs`` entry holds them.
 13. Durability on the card, after phase 12 (``durability_phase``), every
     data path under a fresh ``tempfile.mkdtemp()`` removed at the end.
-    13a: a ``Node(data_path=..., device="cuda")`` takes phase 3's 20,000
-    docs under ``index.translog.durability: async`` and 1,000 under
-    ``request`` (docs/s beside phase 3's), ``_flush``, 100 deletes,
+    13a: a ``Node(data_path=..., device="cuda")`` takes phase 3's first
+    10,000 docs under ``index.translog.durability: async`` and 1,000
+    under ``request`` (docs/s beside phase 3's), ``_flush``, 100 deletes,
     ``close()``; reopened, phase 3's requests answer byte for byte as
     before on the host rung (1a, kernel 2 and its combine held against
     plain), seqnos
@@ -267,7 +268,8 @@ then phases 11, 12, 13, 14, 15 and 16):
     and every kernel-2 call (with its combine) replayed through its plain
     version; then p50 per kind on pmcq and pmcqh over two runs, each
     phrase kind's host intersection ms apart from the rest, and each
-    multi-term kind's expanded lanes. 15b: phase 3's 20,000 docs into an
+    multi-term kind's expanded lanes. 15b: phase 3's first 10,000 docs
+    into an
     index with a custom analyzer (html_strip, standard, lowercase, stop,
     stemmer) on ``title`` and ``english`` on ``title.en`` (docs/s beside
     phase 3's); match, match_phrase and query_string equal on the cpu
@@ -287,6 +289,33 @@ then phases 11, 12, 13, 14, 15 and 16):
     ``clear_scroll`` and a reaped expiry return. Every 1a launch and
     kernel-2 call of its main path held against plain; the summary line's
     ``sort_paging`` entry holds the numbers.
+17. Field types and text fielddata on the card, after phase 16
+    (``geo_fields_phase``): pmc-4x256k's doc-values form with ``loc``
+    (geo_point: one point for 93% of docs, two for 5%, none for 2%,
+    around 500 zipf-weighted centres over the land masses, Rally
+    geonames' shape), ``clientip`` (ip: 50,000 zipf-weighted addresses,
+    10% IPv6, Rally http_logs' shape), ``active`` (a date_range of 1-90
+    days in ``ts``'s year), ``title.length`` (token_count) and text
+    fielddata on ``title``, in ``geo4`` (the mesh plane) and ``geo4h``
+    (the host rung), each against a cpu node's twin. 17a geo_distance
+    (50 km, 1,000 km), geo_bounding_box (one across the antimeridian) and
+    geo_polygon under a match: p50, plane, the tile form's launches, the
+    float64 boundary band left out of the comparison and counted; 17b
+    ``_geo_distance`` sorts (host rung, ``sort_ineligible``) and 10
+    search_after pages against one request; 17c geo_bounds, geo_centroid
+    and geohash_grid (3, 5), and the vectorized geohash against the
+    scalar loop; 17d ``active``'s relations, ip term / CIDR / range
+    against a numpy oracle (ROADMAP C12), ip terms, ``title.length``;
+    17e ``terms`` on ``title``: each segment's fielddata build and its
+    breaker bytes, the kernel-2 gather plans over about 50,000
+    ordinals, ``field_ineligible`` on the fused plane, and after
+    ``DELETE`` the fielddata breaker and ``memory_allocated`` back to
+    their levels; 17f ingest-20k over ``bulk`` with every new type in
+    each accepted form and one malformed value of each kind (a 400 with
+    the JAX package's message), a flush and a restart through
+    ``Node(data_path=...)`` answering as before. Every 1a (and mesh
+    tile-form) launch and kernel-2 call held against plain; the summary
+    line's ``field_types`` entry holds the numbers.
 """
 
 from __future__ import annotations
@@ -317,6 +346,10 @@ INGEST_DOCS = 20_000
 # 13a's request-durability index: the first of phase 3's docs, one fsync
 # pair an op (its rate needs no more)
 REQUEST_DURABLE_DOCS = 1_000
+# 13a's async ingest and 15b's analyzed ingest: phase 3's first 10,000
+# docs (cut from 20,000 to keep the script's time as phase 17 joined)
+ASYNC_DURABLE_DOCS = 10_000
+ANALYZED_DOCS = 10_000
 # pmc-4x256k: four shards of one 262,144-doc segment each (seeds 7-10)
 MESH_SHARD_DOCS = 262_144
 MESH_SEEDS = (7, 8, 9, 10)
@@ -980,12 +1013,18 @@ def device_kernels(torch, fn):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if getattr(e, "device_type", None) == DeviceType.CUDA]
+    names = []
+    # a trace that caught no device event at all is a failed capture (the
+    # tracer, not fn): take it again, at most three times
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if getattr(e, "device_type", None) == DeviceType.CUDA]
+        if names:
+            break
     kernels = [n for n in names if not n.startswith(("Memcpy", "Memset"))]
     return kernels, [n for n in names if n.startswith(("Memcpy", "Memset"))]
 
@@ -3537,6 +3576,29 @@ AGG_DAY = 86_400_000
 AGG_MISSING = 0.03  # citations: the share of docs without a value
 
 
+def _numeric_column(values, present, nd_pad):
+    """A single-valued Segment.from_arrays numeric column."""
+    docs = np.flatnonzero(present).astype(np.int32)
+    cap = 1
+    while cap < max(len(docs), 1):
+        cap *= 2
+    flat_docs = np.full(cap, nd_pad, np.int32)
+    flat_docs[: len(docs)] = docs
+    flat_values = np.zeros(cap, np.float64)
+    flat_values[: len(docs)] = values[docs]
+    exists = np.zeros(nd_pad, bool)
+    exists[docs] = True
+    first = np.zeros(nd_pad, np.float64)
+    first[docs] = values[docs]
+    lo = np.full(nd_pad, np.inf)
+    lo[docs] = values[docs]
+    hi = np.full(nd_pad, -np.inf)
+    hi[docs] = values[docs]
+    return dict(flat_values=flat_values, flat_docs=flat_docs,
+                first_value=first, min_value=lo, max_value=hi, exists=exists,
+                count=len(docs))
+
+
 def agg_columns(sh, nd_pad, n, seed=None):
     """The phase-12 doc-value columns of shard ``sh`` (their own
     RandomState, seed + 100, so phases 2-11's corpus is unchanged; phase
@@ -3548,30 +3610,10 @@ def agg_columns(sh, nd_pad, n, seed=None):
     ts = AGG_T0 + rng.randint(0, 365 * AGG_DAY, n).astype(np.int64)
     cit = np.minimum(rng.zipf(1.8, n), 100_000).astype(np.int64)
     has = rng.rand(n) >= AGG_MISSING
-
-    def column(values, present):
-        docs = np.flatnonzero(present).astype(np.int32)
-        cap = 1
-        while cap < max(len(docs), 1):
-            cap *= 2
-        flat_docs = np.full(cap, nd_pad, np.int32)
-        flat_docs[: len(docs)] = docs
-        flat_values = np.zeros(cap, np.float64)
-        flat_values[: len(docs)] = values[docs]
-        exists = np.zeros(nd_pad, bool)
-        exists[docs] = True
-        first = np.zeros(nd_pad, np.float64)
-        first[docs] = values[docs]
-        lo = np.full(nd_pad, np.inf)
-        lo[docs] = values[docs]
-        hi = np.full(nd_pad, -np.inf)
-        hi[docs] = values[docs]
-        return dict(flat_values=flat_values, flat_docs=flat_docs,
-                    first_value=first, min_value=lo, max_value=hi,
-                    exists=exists, count=len(docs))
-
-    return {"ts": column(ts.astype(np.float64), np.ones(n, bool)),
-            "citations": column(cit.astype(np.float64), has)}
+    return {"ts": _numeric_column(ts.astype(np.float64), np.ones(n, bool),
+                                  nd_pad),
+            "citations": _numeric_column(cit.astype(np.float64), has,
+                                         nd_pad)}
 
 
 def agg_requests(queries):
@@ -4072,11 +4114,11 @@ def aggs_phase(torch, Node, Segment, cuda_kernels, tsc, queries, lat,
                            cnode.indices["agg4"])
     check(not any(fails), f"phase 12: zero plane faults (got {fails})")
 
-    # the p50s: 5 more runs of the dashboard kinds, 3 of the others but
-    # the slowest (pipelines, about 0.8 s a request: one), per index
+    # the p50s: 3 more runs of the dashboard kinds, 2 of the others but
+    # the slowest (pipelines, about 1.2 s a request: one), per index
     for kind, body, _reason in reqs:
-        reps = (5 if kind.startswith("dashboard")
-                else 1 if kind == "pipelines" else 3)
+        reps = (3 if kind.startswith("dashboard")
+                else 1 if kind == "pipelines" else 2)
         for name in indices:
             xs = []
             for _ in range(reps):
@@ -4178,7 +4220,7 @@ for b in range(0, len(docs), 1000):
     print(json.dumps([next(iter(it.values()))["_id"] for it in r["items"]]),
           flush=True)
 """
-CRASH_ACKED_BULKS = 3
+CRASH_ACKED_BULKS = 2
 
 
 def _readline(proc, timeout=600.0):
@@ -4259,8 +4301,9 @@ def durability_phase(torch, Node, cuda_kernels, tsc, ops, inproc_rate, reqs3,
     """Phase 13: durability on the card, every data path under a fresh
     ``tempfile.mkdtemp()``, removed at the end.
 
-    13a. A ``Node(data_path=..., device="cuda")`` takes phase 3's 20,000
-         docs in bulks of 1,000 under ``index.translog.durability: async``
+    13a. A ``Node(data_path=..., device="cuda")`` takes phase 3's first
+         10,000 docs in bulks of 1,000 under
+         ``index.translog.durability: async``
          and the first 1,000 into a second index under ``request`` (one
          fsync per op): docs/s for each beside phase 3's in-memory rate.
          ``_flush``, 100 deletes, phase 3's requests recorded, ``close()``;
@@ -4273,7 +4316,7 @@ def durability_phase(torch, Node, cuda_kernels, tsc, ops, inproc_rate, reqs3,
     13b. A child ``python3`` on the card indexes phase 3's docs (with an
          ``id`` keyword) under ``request`` durability, printing each
          bulk's acknowledged ids, and is killed with SIGKILL in the middle
-         of its fourth bulk. Reopened on the card: every acknowledged doc
+         of its third bulk. Reopened on the card: every acknowledged doc
          is found by GET and by a ``terms`` query on ``id``, no doc twice,
          each shard's local checkpoint at its max seqno, and the match
          totals equal an in-memory node that took exactly the recovered
@@ -4329,7 +4372,7 @@ def _durable_ingest(torch, Node, cuda_kernels, tsc, ssum, knn, ops,
     g.create_index("docs_req", {"settings": {"number_of_shards": 5},
                                 "mappings": mapping})
     rates = {}
-    for index, docs in (("docs", ops),
+    for index, docs in (("docs", ops[:ASYNC_DURABLE_DOCS]),
                         ("docs_req", ops[:REQUEST_DURABLE_DOCS])):
         t0 = time.perf_counter()
         for b in range(0, len(docs), 1000):
@@ -4340,14 +4383,15 @@ def _durable_ingest(torch, Node, cuda_kernels, tsc, ssum, knn, ops,
         torch.cuda.synchronize()
         rates[index] = len(docs) / (time.perf_counter() - t0)
     log(f"[phase 13a] durable ingest + refresh: async {rates['docs']:.0f} "
-        f"docs/s (20,000 docs), request {rates['docs_req']:.0f} docs/s "
+        f"docs/s ({ASYNC_DURABLE_DOCS:,} docs), request "
+        f"{rates['docs_req']:.0f} docs/s "
         f"({REQUEST_DURABLE_DOCS:,} docs, one fsync per op), in memory "
         f"(phase 3) "
         f"{inproc_rate:.0f} docs/s")
     t0 = time.perf_counter()
     g.flush("docs")
     flush_s = time.perf_counter() - t0
-    deleted = [f"d{i}" for i in range(0, INGEST_DOCS, 200)]
+    deleted = [f"d{i}" for i in range(0, ASYNC_DURABLE_DOCS, 100)]
     for d in deleted:
         check(g.delete_doc("docs", d)["result"] == "deleted",
               f"phase 13a delete {d}")
@@ -5757,7 +5801,8 @@ def query_dsl_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, queries,
     gA, cA = Node(device="cuda"), Node(device="cpu")
     for node in (gA, cA):
         node.create_index("docs_an", body)
-    an_ops = [(a, {**m, "_index": "docs_an"}, src) for a, m, src in ops]
+    an_ops = [(a, {**m, "_index": "docs_an"}, src)
+              for a, m, src in ops[:ANALYZED_DOCS]]
     cuda_kernels.reset_launch_counts()
     t1 = time.perf_counter()
     r = gA.bulk(an_ops)
@@ -6375,6 +6420,846 @@ def scroll_memory_phase(torch, gnode, query, device):
     return out
 
 
+GEO_SEED_OFFSET = 400  # loc: RandomState(MESH_SEEDS[sh] + 400)
+IP_SEED_OFFSET = 500  # clientip draws
+ACTIVE_SEED_OFFSET = 600  # active's date ranges
+GEO_CENTRES = 500
+GEO_SIGMA_DEG = 12.5 / 111.2  # about 50 km across (two sigma each way)
+IP_POOL = 50_000
+IP_V6_SHARE = 0.10
+GEO_REPS = 2  # samples a 17a-17e kind and index (the main path's and one)
+GEO_PAGE = 100  # 17b's page
+GEO_PAGES = 10
+GEO_BREAKER = {"indices.breaker.total.limit": "16gb",
+               "indices.breaker.fielddata.limit": "8gb"}
+# land masses' bounding boxes (lat lo, lat hi, lon lo, lon hi) and their
+# share of the centres
+LAND_BOXES = ((25.0, 70.0, -168.0, -55.0, 0.22),  # North America
+              (-55.0, 12.0, -81.0, -35.0, 0.12),  # South America
+              (36.0, 70.0, -10.0, 40.0, 0.15),  # Europe
+              (-34.0, 36.0, -17.0, 51.0, 0.17),  # Africa
+              (5.0, 72.0, 40.0, 179.5, 0.28),  # Asia, to the antimeridian
+              (-44.0, -11.0, 113.0, 154.0, 0.06))  # Australia
+
+
+def geo_centres():
+    """The 500 centres (lat, lon) and their zipf weights, one world for
+    every shard (``RandomState(MESH_SEEDS[0] + 400)``): the shapes of
+    Rally's geonames ``location`` field."""
+    rng = np.random.RandomState(MESH_SEEDS[0] + GEO_SEED_OFFSET)
+    boxes = np.asarray(LAND_BOXES)
+    pick = rng.choice(len(boxes), GEO_CENTRES, p=boxes[:, 4] / boxes[:, 4].sum())
+    lat = rng.uniform(boxes[pick, 0], boxes[pick, 1])
+    lon = rng.uniform(boxes[pick, 2], boxes[pick, 3])
+    w = 1.0 / np.arange(1, GEO_CENTRES + 1)
+    return lat, lon, rng.permutation(w / w.sum())
+
+
+def ip_pool():
+    """50,000 addresses (90% IPv4, 10% IPv6 in 2001:db8::/32), in their
+    ``format_ip`` form, with exact ints and zipf weights: the shape of
+    Rally's http_logs ``clientip``."""
+    import ipaddress
+
+    rng = np.random.RandomState(MESH_SEEDS[0] + IP_SEED_OFFSET)
+    n6 = int(IP_POOL * IP_V6_SHARE)
+    v4 = np.unique(rng.randint(0, 1 << 32, 2 * IP_POOL, dtype=np.int64))
+    v4 = rng.permutation(v4)[: IP_POOL - n6]
+    addrs = [str(ipaddress.IPv4Address(int(a))) for a in v4]
+    hi = rng.randint(0, 1 << 31, n6, dtype=np.int64)
+    lo = rng.randint(0, 1 << 62, n6, dtype=np.int64)
+    addrs += [str(ipaddress.IPv6Address((0x20010db8 << 96) | (int(h) << 64)
+                                        | int(l))) for h, l in zip(hi, lo)]
+    ints = [int(ipaddress.IPv6Address(f"::ffff:{a}")) if ":" not in a
+            else int(ipaddress.IPv6Address(a)) for a in addrs]
+    order = rng.permutation(IP_POOL)
+    w = 1.0 / np.arange(1, IP_POOL + 1) ** 0.9
+    return ([addrs[i] for i in order], [ints[i] for i in order],
+            w / w.sum())
+
+
+def geo_shard_columns(sh, nd_pad, n, doc_len, centres, pool):
+    """Phase 17's columns of shard ``sh``: ``loc`` (one point for 93% of
+    docs, two for 5%, none for 2%, around zipf-weighted centres),
+    ``clientip`` (zipf over the pool), ``active`` (a date range of 1-90
+    days inside ``ts``'s year) and ``title.length`` (the doc's token
+    count). Returns (geo_columns, numeric_columns, ordinal_columns, the
+    doc -> pool index array)."""
+    from elasticsearch_tpu_torch.index.segment import build_geo_column
+
+    rng = np.random.RandomState(MESH_SEEDS[sh] + GEO_SEED_OFFSET)
+    k = rng.choice(3, n, p=[0.02, 0.93, 0.05])
+    m = int(k.sum())
+    docs = np.repeat(np.arange(n, dtype=np.int32), k)
+    c = rng.choice(GEO_CENTRES, m, p=centres[2])
+    lat = np.clip(centres[0][c] + rng.randn(m) * GEO_SIGMA_DEG, -90, 90)
+    lon = centres[1][c] + rng.randn(m) * GEO_SIGMA_DEG / np.maximum(
+        np.cos(np.radians(lat)), 0.05)
+    lon = (lon + 180.0) % 360.0 - 180.0
+    geo = {"loc": vars(build_geo_column(docs, lat, lon, nd_pad))}
+    # clientip: an ordinal column over the addresses this shard uses
+    irng = np.random.RandomState(MESH_SEEDS[sh] + IP_SEED_OFFSET)
+    pidx = irng.choice(IP_POOL, n, p=pool[2])
+    used = np.unique(pidx)
+    terms = sorted(pool[0][i] for i in used.tolist())
+    ord_of = {t: o for o, t in enumerate(terms)}
+    pool_ord = np.full(IP_POOL, -1, np.int64)
+    pool_ord[used] = [ord_of[pool[0][i]] for i in used.tolist()]
+    ords = pool_ord[pidx].astype(np.int32)
+    cap = 1
+    while cap < n:
+        cap *= 2
+    ip_docs = np.full(cap, nd_pad, np.int32)
+    ip_docs[:n] = np.arange(n, dtype=np.int32)
+    ip_ords = np.zeros(cap, np.int32)
+    ip_ords[:n] = ords
+    first_ord = np.full(nd_pad, -1, np.int32)
+    first_ord[:n] = ords
+    present = np.zeros(nd_pad, bool)
+    present[:n] = True
+    ordinal = {"clientip": dict(terms=terms, flat_ords=ip_ords,
+                                flat_docs=ip_docs, first_ord=first_ord,
+                                exists=present, count=n)}
+    # active: [start, start + days) inside the year of ts
+    arng = np.random.RandomState(MESH_SEEDS[sh] + ACTIVE_SEED_OFFSET)
+    days = arng.randint(1, 91, n)
+    start = AGG_T0 + arng.randint(0, 365 - days) * AGG_DAY \
+        + arng.randint(0, AGG_DAY, n)
+    alo = np.zeros(nd_pad, np.float64)
+    ahi = np.zeros(nd_pad, np.float64)
+    alo[:n] = start
+    ahi[:n] = start + days * AGG_DAY - 1
+    tl = np.zeros(nd_pad, np.float64)
+    tl[:n] = doc_len
+    numeric = {"active#lo": _numeric_column(alo, present, nd_pad),
+               "active#hi": _numeric_column(ahi, present, nd_pad),
+               "title.length": _numeric_column(tl, present, nd_pad)}
+    return geo, numeric, ordinal, pidx
+
+
+def _hav64(lat, lon, clat, clon):
+    """Float64 haversine (m) with the geo_distance query's radius."""
+    r1, r2 = np.radians(lat), np.radians(clat)
+    a = (np.sin((r2 - r1) / 2) ** 2 + np.cos(r1) * np.cos(r2)
+         * np.sin(np.radians(clon - lon) / 2) ** 2)
+    return 2 * 6371008.8 * np.arcsin(np.sqrt(a))
+
+
+def geo_band(segs, center, radius):
+    """The docs (ids) with a point whose float64 distance lies within
+    1e-5 * radius of the radius: the float32 test may flip there between
+    devices."""
+    out = set()
+    for seg in segs:
+        col = seg.geo_columns["loc"]
+        m = col.count
+        d = _hav64(col.lat[:m].astype(np.float64),
+                   col.lon[:m].astype(np.float64), center[0], center[1])
+        for doc in np.unique(col.flat_docs[:m][np.abs(d - radius)
+                                               <= 1e-5 * radius]).tolist():
+            out.add(seg.doc_ids[doc])
+    return out
+
+
+def same_banded(gr, cr, band, what):
+    """Equal responses, leaving out the band's docs: totals may differ by
+    the band docs each side holds, every other hit is the same."""
+    if not band:
+        same_response(gr, cr, what)
+        return
+    gi = [h["_id"] for h in gr["hits"]["hits"] if h["_id"] not in band]
+    ci = [h["_id"] for h in cr["hits"]["hits"] if h["_id"] not in band]
+    check(gi == ci and abs(gr["hits"]["total"] - cr["hits"]["total"])
+          <= len(band), f"cuda response equals cpu response outside "
+                        f"{len(band)} band docs: {what}")
+
+
+def geo_fields_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, queries,
+                     shard_arrays, title_streams, ingest_ops, errs,
+                     device="cuda"):
+    """Phase 17: the field types and text fielddata at full width, on
+    pmc-4x256k's doc-values form (phase 16's ``ts``, ``citations``,
+    ``venue``) with ``loc`` (geo_point), ``clientip`` (ip), ``active``
+    (date_range), ``title.length`` (token_count) and text fielddata on
+    ``title``, in ``geo4`` (the mesh plane) and ``geo4h`` (the host rung)
+    on the card node, each request of both held against the same request
+    on a cpu node's ``geo4h`` (its host rung, over the same host arrays):
+
+    17a. geo_distance (50 km, 1,000 km), geo_bounding_box (inside a
+         hemisphere; across the antimeridian) and a 5-point geo_polygon
+         under a match: p50, plane, the tile form that scored it, and the
+         boundary band (docs within 1e-5 of the radius in float64, left
+         out of the comparison and counted).
+    17b. ``_geo_distance`` sorts: asc/min, desc/max, avg over two points,
+         km; 10 search_after pages of 100 equal one 1,000-hit request;
+         the host rung with ``sort_ineligible``.
+    17c. geo_bounds, geo_centroid, geohash_grid (precision 3 and 5) under
+         a match and over every doc; the vectorized geohash against the
+         scalar loop on one segment.
+    17d. ``term`` and ``range`` (intersects, within, contains) on
+         ``active``; ``term`` on ``clientip`` (v4, v6), a /16 block as a
+         CIDR term and as a range, ``terms`` on ``clientip``, each total
+         held against a numpy oracle over the sources; ``range`` on
+         ``title.length``.
+    17e. ``terms`` on ``title`` (text fielddata) under a match and over
+         every doc: the fielddata breaker's bytes, each segment's build
+         ms, the kernel-2 plans of the gather over about 50,000
+         ordinals; the fused plane declines with ``field_ineligible``.
+    17f. ingest-20k over ``bulk`` with every new type in each accepted
+         form and one malformed value of each kind (a 400 with the JAX
+         package's message), a flush and a restart through
+         ``Node(data_path=...)``: the reopened node answers 17a-17d's kinds
+         as before (the geo store round trip).
+    Every 1a (and mesh tile-form) launch and every kernel-2 call of the
+    main path is held against its plain version. After ``DELETE`` the
+    fielddata breaker is back to its level and ``memory_allocated`` too.
+    Returns the report."""
+    import gc
+    import ipaddress
+
+    from elasticsearch_tpu_torch.common.breaker import breaker_service
+    from elasticsearch_tpu_torch.common.settings import Settings
+    from elasticsearch_tpu_torch.search import aggregations as A
+    from elasticsearch_tpu_torch.search import query_dsl as Q
+    from elasticsearch_tpu_torch.utils import geohash
+
+    t_phase = time.perf_counter()
+    report = {}
+    tok = term_token
+    fd_breaker = breaker_service().get_breaker("fielddata")
+
+    def level():
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            return torch.cuda.memory_allocated()
+        return 0
+
+    mem0, fd0 = level(), fd_breaker.used_bytes
+    mapping = {"_doc": {"properties": {
+        "title": {"type": "text",
+                  "fields": {"length": {"type": "token_count"}}},
+        "venue": {"type": "keyword"}, "year": {"type": "long"},
+        "ts": {"type": "date"}, "citations": {"type": "long"},
+        "loc": {"type": "geo_point"}, "clientip": {"type": "ip"},
+        "active": {"type": "date_range"}}}}
+    settings = Settings(GEO_BREAKER)
+    gnode = Node(settings, device=device)
+    cnode = Node(settings, device="cpu")
+    twins = {gnode: ("geo4", "geo4h"), cnode: ("geo4h",)}
+    for node, names in twins.items():
+        for name in names:
+            extra = {"search": {"mesh": False}} if name == "geo4h" else {}
+            node.create_index(name, {"settings": {"number_of_shards": 4,
+                                                  **extra},
+                                     "mappings": mapping})
+    t0 = time.perf_counter()
+    centres, pool = geo_centres(), ip_pool()
+    gsegs, csegs, pidx_of = [], [], []
+    adopt_s = 0.0
+    for sh, arrays in enumerate(shard_arrays):
+        arrays = dict(arrays)
+        nd_pad = arrays["numeric_columns"]["year"]["exists"].shape[0]
+        n = len(arrays["doc_ids"])
+        geo, numeric, ordinal, pidx = geo_shard_columns(
+            sh, nd_pad, n, title_streams[sh][1], centres, pool)
+        pidx_of.append(pidx)
+        arrays["numeric_columns"] = {**arrays["numeric_columns"],
+                                     **agg_columns(sh, nd_pad, n), **numeric}
+        arrays["ordinal_columns"] = {**arrays["ordinal_columns"], **ordinal}
+        arrays["geo_columns"] = geo
+        t1 = time.perf_counter()
+        for node, segs, dev in ((gnode, gsegs, device),
+                                (cnode, csegs, "cpu")):
+            seg = Segment.from_arrays(f"geo4_{sh}_seg_1", device=dev,
+                                      **arrays)
+            for name in twins[node]:
+                node.indices[name].shards[sh].engine.adopt_segment(seg)
+            segs.append(seg)
+        adopt_s += time.perf_counter() - t1
+    report["columns_s"] = time.perf_counter() - t0
+    report["adopt_s"] = adopt_s
+    report["points"] = sum(s.geo_columns["loc"].count for s in gsegs)
+    # text fielddata: each card segment's build, charged before it; the
+    # cpu twin's segments hold the same host arrays, so they take the same
+    # columns (uncharged) instead of building them again
+    builds = []
+    for seg, cseg in zip(gsegs, csegs):
+        before = fd_breaker.used_bytes
+        t1 = time.perf_counter()
+        col = A._text_fielddata(seg, "title")
+        builds.append({"ms": (time.perf_counter() - t1) * 1000,
+                       "ords": len(col.terms), "pairs": col.count,
+                       "breaker_bytes": fd_breaker.used_bytes - before})
+        cseg.host_cache["fielddata.title"] = col
+    # the same for clientip's vocabulary as parse_ip ints (the ip term and
+    # range queries map it once a segment)
+    for seg, cseg in zip(gsegs, csegs):
+        cseg.host_cache["ipints.clientip"] = Q.ip_vocabulary_ints(
+            seg, "clientip")
+    report["fielddata_builds"] = builds
+    log(f"[phase 17e] title fielddata builds: {json.dumps(builds)}")
+    # the segments' terms are all title's: the JAX estimate is 8 bytes a
+    # posting and 5 a doc
+    check(all(b["breaker_bytes"] == 8 * int(seg.term_doc_freq.sum())
+              + 5 * seg.nd_pad for b, seg in zip(builds, gsegs)),
+          "phase 17e: each build charged the JAX estimate")
+    for seg in gsegs + csegs:
+        seg.device_arrays()
+    gnode.search("geo4", {"query": {"match": {"title": tok(1)}}, "size": 1})
+    if device == "cuda":
+        torch.cuda.synchronize()
+    log(f"[phase 17] geo4 built ({report['points']} points, columns "
+        f"{report['columns_s']:.1f} s, of it segments adopted "
+        f"{report['adopt_s']:.1f} s), staged "
+        f"({time.perf_counter() - t_phase:.1f} s in all)")
+
+    def match(q):
+        return {"match": {"title": " ".join(tok(t) for t in q)}}
+
+    heavy = int(np.argmax(centres[2]))
+    hc = (float(centres[0][heavy]), float(centres[1][heavy]))
+    filters = [  # (kind, filter, band (center, radius m) or None)
+        ("geo_distance_50km", {"geo_distance": {
+            "distance": "50km", "loc": {"lat": hc[0], "lon": hc[1]}}},
+         (hc, 50_000.0)),
+        ("geo_distance_1000km", {"geo_distance": {
+            "distance": "1000km", "loc": f"{hc[0]},{hc[1]}"}},
+         (hc, 1_000_000.0)),
+        ("geo_box", {"geo_bounding_box": {"loc": {
+            "top_left": {"lat": 60.0, "lon": -10.0},
+            "bottom_right": {"lat": 35.0, "lon": 30.0}}}}, None),
+        ("geo_box_antimeridian", {"geo_bounding_box": {"loc": {
+            "top_left": [150.0, 72.0], "bottom_right": [-150.0, 45.0]}}},
+         None),
+        ("geo_polygon", {"geo_polygon": {"loc": {"points": [
+            [-10, 36], [30, 36], [40, 55], [10, 70], [-12, 58]]}}}, None),
+    ]
+    samples, forms, planes, bands = {}, {}, {}, {}
+
+    def timed(index, body, kind):
+        before = dict(cuda_kernels.LAUNCHES)
+        t1 = time.perf_counter()
+        r = gnode.search(index, dict(body))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        samples.setdefault((kind, index), []).append(
+            (time.perf_counter() - t1) * 1000)
+        forms[(kind, index)] = {k: v - before.get(k, 0) for k, v in
+                                cuda_kernels.LAUNCHES.items()
+                                if v != before.get(k, 0)}
+        return r
+
+    cpu_s = {}
+
+    def both(index, body, kind, band=None):
+        gr = timed(index, body, kind)
+        cr = cpu_answer(body)
+        same_banded(gr, cr, band or set(), f"phase 17 {kind} on {index}")
+        return gr, cr
+
+    cpu_cache = {}
+
+    def cpu_answer(body):
+        """The cpu node's host-rung answer to ``body`` (once a body: both
+        card indices are held against it)."""
+        key = json.dumps(body, sort_keys=True)
+        if key not in cpu_cache:
+            t1 = time.perf_counter()
+            cpu_cache[key] = cnode.search("geo4h", dict(body))
+            cpu_s[sub[0]] = cpu_s.get(sub[0], 0.0) \
+                + time.perf_counter() - t1
+            check(cpu_cache[key]["_plane"] == "host",
+                  f"phase 17: the cpu twin answers on its host rung "
+                  f"({cpu_cache[key]['_plane']})")
+        return cpu_cache[key]
+
+    ms0 = gnode.indices["geo4"]._mesh_plane()
+    dec0 = dict(ms0.decisions)
+    fb0 = dict(ms0.agg_host_fallback_by_reason)
+    cuda_kernels.reset_launch_counts()
+    t_main = time.perf_counter()
+    bodies = {}
+    sub, sub_s = ["17a"], {}
+
+    def mark(name):
+        """Close the running subphase's clock and start ``name``'s."""
+        now = time.perf_counter()
+        sub_s[sub[0]] = now - sub_s.pop("_t", t_main)
+        sub_s["_t"] = now
+        sub[0] = name
+    with recording_tile_launches(
+            tsc, lambda k: True) as kept, \
+            recording_segsum_calls(ssum) as kept_seg, \
+            recording_mask_segsum(ssum) as kept_mask:
+        # ---- 17a ----
+        for kind, flt, circle in filters:
+            band = geo_band(gsegs, *circle) if circle else set()
+            bands[kind] = len(band)
+            body = {"query": {"bool": {"must": match(queries[0]),
+                                       "filter": flt}}, "size": 10}
+            bodies[kind] = body
+            for index in ("geo4", "geo4h"):
+                gr, _cr = both(index, body, kind, band)
+                planes[(kind, index)] = gr["_plane"]
+                want = ("host",) if index == "geo4h" else (
+                    "mesh", "mesh_pallas")
+                check(gr["_plane"] in want,
+                      f"phase 17a {kind} on {index}: plane {gr['_plane']}")
+            # the filter alone: every hit over the card's float32 test
+            alone = {"query": flt, "size": 0}
+            gr, cr = both("geo4", alone, kind + "_count", band)
+            bands[kind + "_total"] = gr["hits"]["total"]
+        # ---- 17b ----
+        mark("17b")
+        two = [{"lat": hc[0], "lon": hc[1]}, {"lat": -33.9, "lon": 151.2}]
+        sorts = [
+            ("sort_asc_min", [{"_geo_distance": {
+                "loc": {"lat": hc[0], "lon": hc[1]}, "order": "asc",
+                "unit": "km"}}]),
+            ("sort_desc_max", [{"_geo_distance": {
+                "loc": [hc[1], hc[0]], "order": "desc", "unit": "km"}}]),
+            ("sort_avg_two", [{"_geo_distance": {
+                "loc": two, "order": "asc", "mode": "avg", "unit": "km"}}]),
+        ]
+        for kind, sort in sorts:
+            body = {"query": match(queries[1]), "sort": sort, "size": 10}
+            bodies[kind] = body
+            for index in ("geo4", "geo4h"):
+                gr = timed(index, body, kind)
+                same_sorted(gr, cpu_answer(body),
+                            f"phase 17b {kind} on {index}")
+                planes[(kind, index)] = gr["_plane"]
+                check(gr["_plane"] == "host",
+                      f"phase 17b {kind} on {index}: plane {gr['_plane']}")
+        dec = {k: v - dec0.get(k, 0) for k, v in ms0.decisions.items()
+               if v != dec0.get(k, 0)}
+        check(dec.get("host.sort_ineligible", 0) >= len(sorts),
+              f"phase 17b: the geo sorts decline the mesh as "
+              f"sort_ineligible ({dec})")
+        base = {"query": match(queries[2]), "sort": sorts[0][1],
+                "_source": False}
+        pages, after = [], None
+        for _ in range(GEO_PAGES):
+            body = dict(base, size=GEO_PAGE)
+            if after is not None:
+                body["search_after"] = after
+            gr = gnode.search("geo4", dict(body))
+            same_sorted(gr, cpu_answer(body), f"phase 17b page {len(pages)}")
+            if not gr["hits"]["hits"]:
+                break
+            pages.append(gr["hits"]["hits"])
+            after = gr["hits"]["hits"][-1]["sort"]
+        one = gnode.search("geo4", dict(base, size=GEO_PAGE * GEO_PAGES))
+        joined = [(h["_id"], h["sort"]) for p in pages for h in p]
+        check(len(pages) == GEO_PAGES and joined == [
+            (h["_id"], h["sort"]) for h in one["hits"]["hits"]],
+              f"phase 17b: {len(pages)} search_after pages equal one "
+              f"{GEO_PAGE * GEO_PAGES}-hit request hit for hit")
+        report["search_after"] = {"pages": len(pages), "hits": len(joined),
+                                  "total": one["hits"]["total"]}
+        # ---- 17c ----
+        mark("17c")
+        aggs = [("geo_bounds", {"b": {"geo_bounds": {"field": "loc"}}}),
+                ("geo_centroid", {"c": {"geo_centroid": {"field": "loc"}}}),
+                ("geohash_3", {"g": {"geohash_grid": {"field": "loc",
+                                                      "precision": 3}}}),
+                ("geohash_5", {"g": {"geohash_grid": {"field": "loc",
+                                                      "precision": 5,
+                                                      "size": 100}}})]
+        for kind, agg in aggs:
+            for qname, query in (("match", match(queries[3])),
+                                 ("all", {"match_all": {}})):
+                body = {"size": 0, "query": query, "aggs": agg}
+                bodies[f"{kind}_{qname}"] = body
+                for index in ("geo4", "geo4h"):
+                    gr, _cr = both(index, body, f"{kind}_{qname}")
+                    planes[(f"{kind}_{qname}", index)] = gr["_plane"]
+        check(ms0.agg_host_fallback_by_reason.get("unsupported_agg", 0)
+              > fb0.get("unsupported_agg", 0),
+              "phase 17c: geo aggregations decline the fused plane "
+              "(unsupported_agg)")
+        # ---- 17d ----
+        mark("17d")
+        oracle = {}
+        v4 = next(i for i in np.argsort(-pool[2]) if ":" not in pool[0][i])
+        v6 = next(i for i in np.argsort(-pool[2]) if ":" in pool[0][i])
+        net = ipaddress.ip_network(f"{pool[0][v4]}/16", strict=False)
+        n_lo = int(ipaddress.IPv6Address(f"::ffff:{net.network_address}"))
+        n_hi = int(ipaddress.IPv6Address(f"::ffff:{net.broadcast_address}"))
+        ip_ints = pool[1]
+        in_net = np.asarray([n_lo <= v <= n_hi for v in ip_ints])
+
+        def ip_total(pred):
+            return int(sum(int(pred[p].sum()) for p in pidx_of))
+
+        is_v4 = np.arange(IP_POOL) == v4
+        is_v6 = np.arange(IP_POOL) == v6
+        day = AGG_T0 + 180 * AGG_DAY
+        ranges = [
+            ("active_term", {"term": {"active": day}}, None),
+            ("active_intersects", {"range": {"active": {
+                "gte": day, "lte": day + 7 * AGG_DAY}}}, None),
+            ("active_within", {"range": {"active": {
+                "gte": day, "lte": day + 60 * AGG_DAY,
+                "relation": "within"}}}, None),
+            ("active_contains", {"range": {"active": {
+                "gte": day, "lte": day + 10 * AGG_DAY,
+                "relation": "contains"}}}, None),
+            ("ip_term_v4", {"term": {"clientip": pool[0][v4]}}, is_v4),
+            ("ip_term_v6", {"term": {"clientip": pool[0][v6]}}, is_v6),
+            ("ip_cidr_term", {"term": {"clientip": str(net)}}, in_net),
+            ("ip_cidr_range", {"range": {"clientip": {
+                "gte": str(net.network_address),
+                "lte": str(net.broadcast_address)}}}, in_net),
+            ("title_length", {"range": {"title.length": {"gte": 150}}},
+             None),
+        ]
+        for kind, q, pred in ranges:
+            shapes = [("alone", {"query": q, "size": 10})]
+            if kind in ("active_intersects", "active_contains",
+                        "ip_term_v6", "ip_cidr_range", "title_length"):
+                shapes.append(("match", {"query": {"bool": {
+                    "must": match(queries[4]), "filter": q}}, "size": 10}))
+            for shape, body in shapes:
+                bodies[f"{kind}_{shape}"] = body
+                for index in ("geo4", "geo4h"):
+                    gr, _cr = both(index, body, f"{kind}_{shape}")
+                    planes[(f"{kind}_{shape}", index)] = gr["_plane"]
+                    if pred is not None and shape == "alone":
+                        want = ip_total(pred)
+                        oracle[kind] = want
+                        check(gr["hits"]["total"] == want and want > 0,
+                              f"phase 17d {kind} on {index}: total "
+                              f"{gr['hits']['total']}, oracle {want}")
+        body = {"size": 0, "aggs": {"ip": {"terms": {"field": "clientip",
+                                                     "size": 10}}}}
+        bodies["ip_terms"] = body
+        for index in ("geo4", "geo4h"):
+            gr, _cr = both(index, body, "ip_terms")
+            planes[("ip_terms", index)] = gr["_plane"]
+            counts = np.bincount(np.concatenate(pidx_of), minlength=IP_POOL)
+            top = sorted(((-c, pool[0][i]) for i, c in enumerate(counts)
+                          if c))[:10]
+            check([(b["key"], b["doc_count"]) for b in
+                   gr["aggregations"]["ip"]["buckets"]]
+                  == [(k, -c) for c, k in top],
+                  f"phase 17d ip terms on {index} equal the oracle's top 10")
+        report["ip_oracle"] = oracle
+        # ---- 17e ----
+        mark("17e")
+        fb1 = ms0.agg_host_fallback_by_reason.get("field_ineligible", 0)
+        for qname, query in (("match", match(queries[5])),
+                             ("all", {"match_all": {}})):
+            body = {"size": 0, "query": query, "aggs": {"t": {"terms": {
+                "field": "title", "size": 10}}}}
+            bodies[f"fielddata_{qname}"] = body
+            for index in ("geo4", "geo4h"):
+                gr, _cr = both(index, body, f"fielddata_{qname}")
+                planes[(f"fielddata_{qname}", index)] = gr["_plane"]
+        report["field_ineligible"] = \
+            ms0.agg_host_fallback_by_reason.get("field_ineligible", 0) - fb1
+        check(report["field_ineligible"] == 2,
+              f"phase 17e: the fused plane declines text fielddata as "
+              f"field_ineligible ({report['field_ineligible']} of 2)")
+        mark("end")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    report["main_s"] = time.perf_counter() - t_main
+    sub_s.pop("_t", None)
+    report["subphase_s"] = sub_s
+    report["cpu_twin_s"] = cpu_s
+    log(f"[phase 17] main path by subphase (s): {json.dumps(sub_s)}; of "
+        f"it the cpu twin's answers: {json.dumps(cpu_s)}")
+    p17 = dict(cuda_kernels.LAUNCHES)
+    log(f"[phase 17] kernel launches: {p17}")
+    t0 = time.perf_counter()
+    held = dict(check_kept_launches(torch, tsc, kept, errs, "phase 17"))
+    check_kept_segsum(torch, ssum, kept_seg, "phase 17", errs, held)
+    mask_plans = check_kept_mask_segsum(torch, ssum, kept_mask, "phase 17",
+                                        errs, held)
+    sm = torch.cuda.get_device_properties(0).multi_processor_count \
+        if device == "cuda" else 132
+    gather, call = {}, None
+    for call in kept_seg:
+        nd, kw = call[0][0].shape[0], call[1]
+        if kw["n_ords"] >= 10_000:
+            p = ssum.segment_sum_plan(nd, kw["n_ords"],
+                                      kw.get("with_count", True), False, sm)
+            key = f"nd {nd} n_ords {kw['n_ords']}"
+            g = gather.setdefault(key, {"path": p.path, "grid": p.grid,
+                                        "threads": p.threads,
+                                        "kernels": p.kernels, "launches": 0})
+            g["launches"] += 1
+    report["fielddata_gather_plans"] = gather
+    report["mask_plans"] = mask_plans
+    log(f"[phase 17e] kernel-2 gathers over 10,000 ordinals or more (the "
+        f"title fielddata's 50,000, clientip's about 38,800 a segment): "
+        f"{json.dumps(gather)}")
+    del kept, kept_seg, kept_mask, call
+    report["hold_s"] = time.perf_counter() - t0
+    for k in ("tile_scoring", "segment_sum"):
+        check(p17.get(k, 0) > 0, f"phase 17 launched {k}")
+    for k, v in p17.items():
+        check(held.get(k, 0) == v, f"every {k} launch of phase 17 held "
+                                   f"against plain ({held.get(k, 0)} of {v})")
+    check(any(k.endswith("n_ords 50000") for k in gather),
+          "phase 17e: the title terms gathered over 50,000 ordinals "
+          "through kernel 2")
+    report["fielddata_breaker_bytes"] = fd_breaker.used_bytes - fd0
+    log(f"[phase 17e] fielddata breaker {report['fielddata_breaker_bytes']}"
+        f" bytes over both nodes' segments")
+    # the tile form each kind's card request launched, and p50s
+    t0 = time.perf_counter()
+    p50 = {}
+    for key, body in bodies.items():
+        row = {}
+        for index in ("geo4", "geo4h"):
+            for _ in range(GEO_REPS - 1):
+                timed(index, body, key)
+            row[index] = {"p50_ms": float(np.median(samples[(key, index)])),
+                          "plane": planes.get((key, index)),
+                          "launches": forms.get((key, index), {})}
+        p50[key] = row
+        if key in bands:
+            row["band"] = bands[key]
+            row["filter_total"] = bands[key + "_total"]
+        log(f"[phase 17] {key}: " + json.dumps(row))
+    report["time_s"] = time.perf_counter() - t0
+    # one segment's geohash_grid partial at precision 5: the vectorized
+    # cells (what the aggregation runs: codes, their counts, the cells'
+    # strings) against the JAX package's scalar loop
+    from collections import Counter
+
+    col = gsegs[0].geo_columns["loc"]
+    lat, lon = col.lat[: col.count], col.lon[: col.count]
+    t1 = time.perf_counter()
+    codes, counts = np.unique(geohash.encode_cells(lat, lon, 5),
+                              return_counts=True)
+    cells = dict(zip(geohash.cell_strings(codes, 5), counts.tolist()))
+    vec_ms = (time.perf_counter() - t1) * 1000
+    t1 = time.perf_counter()
+    loop = Counter(geohash.encode(a, b, 5) for a, b in zip(lat.tolist(),
+                                                            lon.tolist()))
+    loop_ms = (time.perf_counter() - t1) * 1000
+    check(cells == dict(loop), "phase 17c: the vectorized geohash cells "
+                               "equal the scalar encode's on every point "
+                               "of a segment")
+    report["geohash_encode"] = {"points": int(col.count),
+                                "vectorized_ms": vec_ms, "loop_ms": loop_ms}
+    log(f"[phase 17c] geohash precision 5 over {col.count} points: "
+        f"vectorized {vec_ms:.1f} ms, scalar loop {loop_ms:.1f} ms")
+    fails = plane_failures(gnode.indices["geo4"], gnode.indices["geo4h"],
+                           cnode.indices["geo4h"])
+    check(not any(fails), f"phase 17 zero plane faults (got {fails})")
+    log(f"[phase 17] ladder: "
+        f"{json.dumps(gnode.indices['geo4'].search_stats()['planes']['decisions'])}")
+    # ---- 17f ----
+    report["ingest"] = geo_ingest_phase(torch, Node, Segment, ingest_ops,
+                                        bodies, device)
+    # DELETE: the fielddata charges and the card's memory come back
+    for node, names in twins.items():
+        for name in names:
+            node.delete_index(name)
+        node.close()
+    del twins
+    del gsegs, csegs, gnode, cnode, ms0
+    mem1, fd1 = level(), fd_breaker.used_bytes
+    check(fd1 == fd0, f"phase 17e: the fielddata breaker back to its level "
+                      f"after DELETE ({fd1} against {fd0})")
+    check(device != "cuda" or mem1 == mem0,
+          f"phase 17e: memory_allocated back to its level after DELETE "
+          f"({mem1} against {mem0})")
+    report["memory"] = {"before": mem0, "after_delete": mem1,
+                        "fielddata_before": fd0, "fielddata_after": fd1}
+    report.update(p50=p50, launches=p17, held=held)
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[phase 17] {report['seconds']:.1f} s (main path "
+        f"{report['main_s']:.1f}, hold {report['hold_s']:.1f}, timing "
+        f"{report['time_s']:.1f})")
+    return report
+
+
+# the JAX package's messages for one malformed value of each new kind
+GEO_BAD_VALUES = [
+    ("loc", {"lat": 91.0, "lon": 0.0},
+     "illegal latitude/longitude value [91.0, 0.0]"),
+    ("loc", "1,2,3", "failed to parse geo_point [1,2,3]"),
+    ("clientip", "300.1.2.3", "'300.1.2.3' is not an IP string literal."),
+    ("active", {"gte": "2023-01-01", "until": "x"},
+     "error parsing field [active], unknown range parameter [until]"),
+    ("active", 17, "error parsing field [active], expected an object but "
+                   "got [17]"),
+    ("s", 40000, "failed to parse field [s]: value [40000] is out of range "
+                 "for type [short]"),
+    ("b", -200, "failed to parse field [b]: value [-200] is out of range "
+                "for type [byte]"),
+    ("h", "warm", "failed to parse field [h] of type [half_float] value "
+                  "[warm]"),
+    ("price", True, "failed to parse field [price] of type [scaled_float]: "
+                    "booleans are not numbers"),
+    ("blob", "not base64!", "failed to parse field [blob]: invalid base64"),
+]
+
+
+def geo_ingest_phase(torch, Node, Segment, ingest_ops, bodies, device):
+    """17f: phase 3's 20,000 docs (``ingest_ops``) with the new types in
+    each accepted form through ``bulk`` into a ``Node(data_path=...)``;
+    the malformed values; a flush, a restart, and the request kinds of
+    17a-17d answered as before and as a cpu node holding the same
+    segments answers them."""
+    from elasticsearch_tpu_torch.utils import murmur3
+
+    out = {}
+    mapping = {"_doc": {"properties": {
+        "title": {"type": "text",
+                  "fields": {"length": {"type": "token_count"}}},
+        "venue": {"type": "keyword", "fields": {"hash": {"type": "murmur3"}}},
+        "year": {"type": "long"}, "loc": {"type": "geo_point"},
+        "clientip": {"type": "ip"}, "active": {"type": "date_range"},
+        "span": {"type": "integer_range"}, "temp": {"type": "float_range"},
+        "net": {"type": "ip_range"}, "s": {"type": "short"},
+        "b": {"type": "byte"}, "h": {"type": "half_float"},
+        "price": {"type": "scaled_float", "scaling_factor": 100},
+        "blob": {"type": "binary", "doc_values": True}}}}
+    rng = np.random.RandomState(MESH_SEEDS[0] + 700)
+    ops = []
+    for i, (op, meta, src) in enumerate(ingest_ops):
+        src = dict(src)
+        lat, lon = float(rng.uniform(-60, 70)), float(rng.uniform(-179, 179))
+        form = i % 4
+        if form == 0:
+            src["loc"] = {"lat": lat, "lon": lon}
+        elif form == 1:
+            src["loc"] = f"{lat},{lon}"
+        elif form == 2:
+            src["loc"] = [{"lat": lat, "lon": lon},
+                          f"{-lat / 2},{lon / 2}"]
+        a = int(rng.randint(0, 1 << 24))
+        src["clientip"] = (f"10.{a >> 16}.{(a >> 8) & 255}.{a & 255}"
+                           if i % 3 else
+                           f"2001:db8::{a >> 16:x}:{a & 0xffff:x}"
+                           if i % 2 else
+                           f"::ffff:10.{a >> 16}.{(a >> 8) & 255}.{a & 255}")
+        start = AGG_T0 + int(rng.randint(0, 300)) * AGG_DAY
+        src["active"] = ({"gte": start, "lte": start + 5 * AGG_DAY}
+                         if i % 2 else
+                         {"gt": "2023-03-01", "lt": "2023-04-01"})
+        # the other types a doc in turn, each in every accepted form
+        other = i % 8
+        if other == 0:
+            src["span"] = {"gte": i % 50, "lt": i % 50 + 10}
+        elif other == 1:
+            src["temp"] = {"gt": -1.5, "lte": float(i % 7)}
+        elif other == 2:
+            src["net"] = ("10.0.0.0/8" if i % 3 else
+                          {"gte": "10.0.0.0", "lt": "10.1.0.0"})
+        elif other == 3:
+            src["s"], src["b"] = int(i % 30000) - 15000, int(i % 200) - 100
+        elif other == 4:
+            src["h"] = float(i % 11) / 4 if i % 3 else str(i % 11)
+        elif other == 5:
+            src["price"] = f"{i % 97}.4567" if i % 3 else i % 97 + 0.125
+        elif other == 6:
+            src["blob"] = "aGVsbG8="
+        ops.append((op, {**meta, "_index": "gi"}, src))
+    for j, (field, value, _msg) in enumerate(GEO_BAD_VALUES):
+        ops.append(("index", {"_index": "gi", "_id": f"bad{j}"},
+                    {"title": "bad", field: value}))
+    tmp = tempfile.mkdtemp(prefix="geo17f_")
+    try:
+        node = Node(data_path=tmp, device=device)
+        # per-op fsyncs would time the disk, not the parsing (phase 13a
+        # measures the durability's cost)
+        node.create_index("gi", {"settings": {
+            "number_of_shards": 5,
+            "index": {"translog": {"durability": "async"}}},
+            "mappings": mapping})
+        t0 = time.perf_counter()
+        r = node.bulk(ops)
+        node.refresh("gi")
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out["ingest_s"] = time.perf_counter() - t0
+        out["docs_per_s"] = len(ingest_ops) / out["ingest_s"]
+        items = [next(iter(it.values())) for it in r["items"]]
+        good = items[: len(ingest_ops)]
+        bad = [it for it in good if it["status"] not in (200, 201)]
+        if bad:
+            log(f"[phase 17f] first refused doc: {json.dumps(bad[0])}")
+        check(all(it["status"] in (200, 201) for it in good),
+              f"phase 17f: every accepted form indexed ({sum(it['status'] in (200, 201) for it in good)} of {len(good)})")
+        for it, (field, value, msg) in zip(items[len(ingest_ops):],
+                                           GEO_BAD_VALUES):
+            err = it.get("error") or {}
+            check(it["status"] == 400 and err.get("type")
+                  == "mapper_parsing_exception"
+                  and err.get("reason") == msg,
+                  f"phase 17f: {field}={value!r} is a 400 with the JAX "
+                  f"message ({it['status']}, {err.get('reason')!r})")
+        log(f"[phase 17f] bulk {len(ingest_ops)} docs with the new types "
+            f"+ {len(GEO_BAD_VALUES)} malformed in {out['ingest_s']:.1f} s:"
+            f" {out['docs_per_s']:.0f} docs/s")
+        # one request of each of 17a-17e's kinds
+        kinds = {k: bodies[k] for k in (
+            "geo_distance_1000km", "geo_box_antimeridian", "geo_polygon",
+            "sort_avg_two", "geo_centroid_match", "geohash_3_all",
+            "active_contains_match", "ip_cidr_range_alone", "ip_terms",
+            "fielddata_match")}
+        h = murmur3.murmur3_32(b"v0001")
+        extra = {
+            "span_term": {"query": {"term": {"span": 12}}, "size": 10},
+            "net_term": {"query": {"term": {"net": "10.0.200.1"}},
+                         "size": 0},
+            "hash_term": {"query": {"term": {"venue.hash": h}}, "size": 0},
+            "blob_cardinality": {"size": 0, "aggs": {"c": {
+                "cardinality": {"field": "blob"}}}},
+            "price_stats": {"size": 0, "aggs": {"p": {
+                "stats": {"field": "price"}}}}}
+        kinds.update(extra)
+
+        def answers(n):
+            return {k: _no_took(n.search("gi", dict(b)))
+                    for k, b in kinds.items()}
+
+        t0 = time.perf_counter()
+        before = answers(node)
+        out["answers_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cnode = Node(device="cpu")
+        cnode.create_index("gi", {"settings": {"number_of_shards": 5},
+                                  "mappings": mapping})
+        _adopt_copies(node, cnode, "gi", Segment)
+        for k, b in kinds.items():
+            same = same_sorted if "sort" in b else same_response
+            same(node.search("gi", dict(b)), cnode.search("gi", dict(b)),
+                 f"phase 17f {k}")
+        cnode.close()
+        out["cpu_twin_s"] = time.perf_counter() - t0
+        check(all(json.loads(before[k])["hits"]["total"] > 0
+                  for k in ("net_term", "span_term", "hash_term")),
+              "phase 17f: the range and murmur3 fields answer")
+        t0 = time.perf_counter()
+        node.flush("gi")
+        node.close()
+        out["flush_close_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        node = Node(data_path=tmp, device=device)
+        out["reopen_s"] = time.perf_counter() - t0
+        after = answers(node)
+        check(after == before, "phase 17f: the reopened node answers every "
+                               "kind as before the restart (the geo store "
+                               "round trip)")
+        out["kinds"] = len(kinds)
+        log(f"[phase 17f] flush and close {out['flush_close_s']:.1f} s, "
+            f"reopen {out['reopen_s']:.1f} s; {len(kinds)} kinds equal "
+            f"after the restart")
+        node.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6761,6 +7646,15 @@ def main() -> int:
     for k, v in sort_report["launches"].items():
         launches[k] += v
 
+    # ---------------- phase 17: field types and fielddata on the card ----
+    clock("phase 17")
+    geo_report = geo_fields_phase(
+        torch, Node, Segment, cuda_kernels, tsc, ssum, queries, shard_arrays,
+        title_streams, ops, batch_errs)
+    seg_held["phase 17"] = geo_report["held"].get("segment_sum", 0)
+    for k, v in geo_report["launches"].items():
+        launches[k] += v
+
     # ---------------- phase 5: latency summary ---------------------------
     clock("phase 5")
     for kind, xs in sorted(lat.items()):
@@ -6863,7 +7757,8 @@ def main() -> int:
          **knn_staging},
     ], "rest": rest_report, "aggs": aggs_report,
         "durability": durability_report, "staging": staging_report,
-        "query_dsl": qdsl_report, "sort_paging": sort_report}
+        "query_dsl": qdsl_report, "sort_paging": sort_report,
+        "field_types": geo_report}
     for name, key, replaces, extra in (
             ("tile_scoring_packed", "tile_scoring_packed", 656,
              ("ms_with_counts", "bound_ms_with_counts", "plan")),
@@ -6931,6 +7826,7 @@ def _adopt_copies(gnode, cnode, index, Segment, device="cpu",
                 doc_ids=seg.doc_ids, sources=seg.sources,
                 numeric_columns={f: vars(c) for f, c in seg.numeric_columns.items()},
                 ordinal_columns={f: vars(c) for f, c in seg.ordinal_columns.items()},
+                geo_columns={f: vars(c) for f, c in seg.geo_columns.items()},
                 seqnos=seg.seqnos, versions=seg.versions,
                 positions=seg.positions, device=device)
             engine.adopt_segment(copy)

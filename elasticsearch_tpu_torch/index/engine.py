@@ -43,7 +43,7 @@ from elasticsearch_tpu_torch.index.segment import Segment, SegmentBuilder
 from elasticsearch_tpu_torch.index.translog import Translog, TranslogOp
 
 
-@dataclass
+@dataclass(slots=True)
 class VersionEntry:
     version: int
     seqno: int
@@ -337,10 +337,11 @@ class Engine:
             }
 
     def close(self) -> None:
-        """Release every segment's device arrays (the index closed) and
-        sync and close the translog."""
+        """Release every segment's device arrays and fielddata breaker
+        bytes (the index closed) and sync and close the translog."""
         with self._lock:
             for seg in self.segments:
+                seg.release_breaker_charges()
                 seg.release_device()
             if self.translog is not None:
                 self.translog.close()
@@ -428,6 +429,7 @@ class Engine:
                         term=old.term if old is not None else 1)
             merged = builder.seal()
             for old_seg in self.segments:
+                old_seg.release_breaker_charges()
                 old_seg.release_device()
             merged.stage_reason_initial = stage_reason
             self._stamp_owner(merged)

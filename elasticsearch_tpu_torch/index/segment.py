@@ -11,6 +11,8 @@ Counterpart of ``elasticsearch_tpu/index/segment.py``:
   keywords as ordinal CSR against a sorted per-field term list.
 - Dense vectors are one ``[nd_pad, dims]`` column per field, rounded to
   the bf16 grid once at seal (``VectorColumn``).
+- Geo points are float32 (lat, lon) CSR columns (``GeoColumn``); a range
+  field is two aligned numeric columns ``<f>#lo`` / ``<f>#hi``.
 - Stored fields (_source) stay on the host.
 
 ``device_arrays()`` stages the query tables on the segment's device once:
@@ -48,6 +50,11 @@ similarities) sums its tf blocks on first use, cached per term.
 
 ``PinnedSegmentView`` is a scroll's point-in-time view of a segment: the
 segment's immutable tensors, its own frozen live mask and live tensors.
+
+``breaker_charges`` holds the fielddata breaker bytes charged for what an
+aggregation built on the segment's host (text fielddata);
+``release_breaker_charges`` gives them back when the segment is dropped
+(a merge retires it, its shard closes, its index is deleted).
 """
 
 from __future__ import annotations
@@ -135,6 +142,20 @@ class OrdinalColumn:
             hi_ord = (bisect.bisect_right(self.terms, hi) if include_hi
                       else bisect.bisect_left(self.terms, hi))
         return lo_ord, hi_ord
+
+
+@dataclass
+class GeoColumn:
+    """Geo-point doc values: float32 (lat, lon) pairs in CSR, padded to a
+    power of two with the sentinel doc, plus each doc's first point."""
+
+    lat: np.ndarray  # [n_vals] float32, padded with 0
+    lon: np.ndarray  # [n_vals] float32, padded with 0
+    flat_docs: np.ndarray  # [n_vals] int32, padded with the sentinel doc
+    first_lat: np.ndarray  # [nd_pad] float32
+    first_lon: np.ndarray  # [nd_pad] float32
+    exists: np.ndarray  # [nd_pad] bool
+    count: int
 
 
 @dataclass
@@ -357,6 +378,7 @@ class Segment:
         device="cuda",
         exists_masks: Optional[Dict[str, np.ndarray]] = None,
         positions: Optional[Mapping] = None,
+        geo_columns: Optional[Dict[str, GeoColumn]] = None,
     ):
         self.name = name
         self.num_docs = num_docs
@@ -378,6 +400,10 @@ class Segment:
         self.numeric_columns = numeric_columns
         self.ordinal_columns = ordinal_columns
         self.vector_columns = vector_columns or {}
+        self.geo_columns = geo_columns or {}
+        # fielddata breaker bytes charged for host structures built on this
+        # segment (key -> bytes), released with the segment
+        self.breaker_charges: Dict[str, int] = {}
         # term_id -> {local_doc: int32 positions}, for phrase queries
         self.positions = (positions if isinstance(positions, SegmentPositions)
                           else SegmentPositions.from_mapping(positions or {}))
@@ -424,13 +450,14 @@ class Segment:
                     term_block_count, term_doc_freq, block_docs, block_tfs,
                     norms, live, field_stats, field_norm_idx, doc_ids,
                     sources, numeric_columns=None, ordinal_columns=None,
-                    vector_columns=None, routings=None, seqnos=None,
-                    versions=None, exists_masks=None, positions=None,
-                    device="cuda") -> "Segment":
+                    vector_columns=None, geo_columns=None, routings=None,
+                    seqnos=None, versions=None, exists_masks=None,
+                    positions=None, device="cuda") -> "Segment":
         """Build a segment from plain host arrays — the fields a store load
         hands the JAX ``Segment`` — staged later on ``device``.
-        ``numeric_columns`` / ``ordinal_columns`` / ``vector_columns`` map
-        a field to a dict of the column's arrays (the dataclass fields);
+        ``numeric_columns`` / ``ordinal_columns`` / ``vector_columns`` /
+        ``geo_columns`` map a field to a dict of the column's arrays (the
+        dataclass fields);
         vectors are taken as they are (already on the bf16 grid).
         ``exists_masks`` (field -> [nd_pad] bool) are the masks a store
         holds; without them they are derived from the columns.
@@ -461,6 +488,8 @@ class Segment:
                              (ordinal_columns or {}).items()},
             vector_columns={f: VectorColumn(**c) for f, c in
                             (vector_columns or {}).items()},
+            geo_columns={f: GeoColumn(**c) for f, c in
+                         (geo_columns or {}).items()},
             device=device,
             exists_masks=({f: np.asarray(m, bool)
                            for f, m in exists_masks.items()}
@@ -549,16 +578,19 @@ class Segment:
         """field -> [nd_pad] bool: the docs that hold a value of the field
         (the JAX package's ``exists_masks``, built at seal from the fields
         each doc indexed): a term of it (its norms row counts the doc's
-        tokens) or a doc value or vector. The masks a store load read, or
-        derived once from the columns."""
+        tokens) or a doc value, vector or geo point; a range field's two
+        columns give one mask under the field's name. The masks a store
+        load read, or derived once from the columns."""
         masks = self._exists_masks
         if masks is None:
             masks = {}
             for f, i in self.field_norm_idx.items():
                 masks[f] = self.norms[i, : self.nd_pad] > 0
             for cols in (self.numeric_columns, self.ordinal_columns,
-                         self.vector_columns):
+                         self.vector_columns, self.geo_columns):
                 for f, col in cols.items():
+                    if f.endswith(("#lo", "#hi")):
+                        f = f[:-3]
                     masks[f] = (masks[f] | col.exists if f in masks
                                 else col.exists.copy())
             self._exists_masks = masks
@@ -908,6 +940,21 @@ class Segment:
             memory_accountant().release_scope(self._owner(),
                                               self.ledger_scope)
 
+    def release_breaker_charges(self) -> None:
+        """The segment is dropped (a merge replaced it, its shard closed):
+        give its fielddata breaker bytes back."""
+        if not self.breaker_charges:
+            return
+        from elasticsearch_tpu_torch.common.breaker import (
+            CircuitBreaker,
+            breaker_service,
+        )
+
+        total = sum(self.breaker_charges.values())
+        self.breaker_charges.clear()
+        breaker_service().get_breaker(
+            CircuitBreaker.FIELDDATA).add_without_breaking(-total)
+
     def memory_bytes(self) -> int:
         """Host bytes of the segment's postings, norms and doc-value
         columns, as the JAX package's ``Segment.memory_bytes`` counts
@@ -1044,6 +1091,8 @@ class SegmentBuilder:
         # dense_vector field -> {doc: [dims] float list}, and dims per field
         self.vector_values: Dict[str, Dict[int, list]] = {}
         self.vector_dims: Dict[str, int] = {}
+        # geo_point field -> [(doc, lat, lon)]
+        self.geo_values: Dict[str, List[Tuple[int, float, float]]] = {}
         # each token's index in its field's analyzed token list, as the JAX
         # builder records them: flat (term key id, doc, position) columns
         self._pos_keys: Dict[str, int] = {}
@@ -1087,6 +1136,16 @@ class SegmentBuilder:
         for field_name, vec in parsed.vector_values.items():
             self.vector_values.setdefault(field_name, {})[doc] = vec
             self.vector_dims[field_name] = len(vec)
+        for field_name, pts in parsed.geo_values.items():
+            self.geo_values.setdefault(field_name, []).extend(
+                (doc, lat, lon) for lat, lon in pts)
+        for field_name, pairs in parsed.range_values.items():
+            # two aligned numeric columns: both appended once a value, in
+            # the same order (the seal's doc sort is stable)
+            self.numeric_values.setdefault(f"{field_name}#lo", []).extend(
+                (doc, lo) for lo, _ in pairs)
+            self.numeric_values.setdefault(f"{field_name}#hi", []).extend(
+                (doc, hi) for _, hi in pairs)
         return doc
 
     def seal(self) -> Segment:
@@ -1193,6 +1252,12 @@ class SegmentBuilder:
             vector_columns[f] = VectorColumn(
                 knn.bf16_round(vecs), exists, dims, len(per_doc))
 
+        geo_columns = {}
+        for f, triples in self.geo_values.items():
+            arr = np.asarray(triples, np.float64).reshape(len(triples), 3)
+            geo_columns[f] = build_geo_column(
+                arr[:, 0].astype(np.int32), arr[:, 1], arr[:, 2], nd_pad)
+
         key_tid = np.zeros(max(len(self._pos_keys), 1), np.int32)
         term_ids = {key: tid for tid, key in enumerate(term_keys)}
         for key, kid in self._pos_keys.items():
@@ -1226,4 +1291,31 @@ class SegmentBuilder:
             vector_columns=vector_columns,
             device=self.device,
             positions=positions,
+            geo_columns=geo_columns,
         )
+
+
+def build_geo_column(docs, lat, lon, nd_pad: int) -> GeoColumn:
+    """A ``GeoColumn`` from each value's doc, lat and lon, sorted stably
+    by doc: float32 values, the flat arrays padded to a power of two with
+    the sentinel doc, each doc's first point."""
+    order = np.argsort(docs, kind="stable")
+    docs = np.asarray(docs, np.int32)[order]
+    n_vals = len(docs)
+    cap = next_pow2(max(n_vals, 1))
+    flat_docs = np.full(cap, nd_pad, dtype=np.int32)
+    flat_lat = np.zeros(cap, dtype=np.float32)
+    flat_lon = np.zeros(cap, dtype=np.float32)
+    flat_docs[:n_vals] = docs
+    flat_lat[:n_vals] = np.asarray(lat)[order]
+    flat_lon[:n_vals] = np.asarray(lon)[order]
+    first_lat = np.zeros(nd_pad, dtype=np.float32)
+    first_lon = np.zeros(nd_pad, dtype=np.float32)
+    exists = np.zeros(nd_pad, dtype=bool)
+    first = np.ones(n_vals, dtype=bool)
+    first[1:] = docs[1:] != docs[:-1]
+    first_lat[docs[first]] = flat_lat[:n_vals][first]
+    first_lon[docs[first]] = flat_lon[:n_vals][first]
+    exists[docs] = True
+    return GeoColumn(flat_lat, flat_lon, flat_docs, first_lat, first_lon,
+                     exists, n_vals)

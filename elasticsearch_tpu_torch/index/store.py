@@ -10,8 +10,8 @@ directory:
   names is fsynced, and the directory fsynced after the rename, because
   the engine trims the translog on its word;
 - ``<segment>/``: ``arrays.npz`` (postings, norms, seqnos, versions, and
-  the ``num.<f>.*``, ``ord.<f>.*``, ``vec.<f>.*`` and ``exists.<f>``
-  columns), ``live.npy`` (the tombstone mask, rewritten atomically at
+  the ``num.<f>.*``, ``ord.<f>.*``, ``geo.<f>.*``, ``vec.<f>.*`` and
+  ``exists.<f>`` columns), ``live.npy`` (the tombstone mask, rewritten atomically at
   every commit),
   ``meta.json``, ``sources.jsonl``, ``positions.json`` and
   ``checksums.json`` (SHA-256 of each file but ``live.npy``, verified on
@@ -24,12 +24,14 @@ so a store one package wrote opens in the other for the field types both
 have. ``positions.json`` (``{term_id: {doc: [positions]}}``) is read into
 the segment's ``positions`` as its bytes (parsed only on first access)
 and written from them, so a segment the port writes or merges keeps the
-phrase positions the JAX package's ``match_phrase`` reads (the port
-serves no phrase query yet). The port
-has no geo, geo_shape, nested or ``_parent`` data: it writes those parts
-empty (``"geo_fields": {}``, ``"shapes": {}``) and raises
-``CorruptIndexException`` naming the field kind for a segment that holds
-any of them, rather than drop a column. Loaded segments are host numpy on the engine's device and stage
+phrase positions the JAX package's ``match_phrase`` reads. Geo points
+are the ``geo.<f>.*`` arrays with ``"geo_fields"`` counts; range,
+scaled, short, byte, token-count and murmur3 values are numeric columns,
+ip and binary values ordinal columns, as the JAX package writes them. The
+port has no geo_shape, nested or ``_parent`` data: it writes those parts
+empty (``"shapes": {}``) and raises ``CorruptIndexException`` naming the
+field kind for a segment that holds any of them, rather than drop a
+column. Loaded segments are host numpy on the engine's device and stage
 lazily, as sealed ones do.
 """
 
@@ -47,6 +49,7 @@ import numpy as np
 
 from elasticsearch_tpu_torch.common.errors import ElasticsearchTpuException
 from elasticsearch_tpu_torch.index.segment import (
+    GeoColumn,
     NumericColumn,
     OrdinalColumn,
     Segment,
@@ -81,6 +84,9 @@ _NUM_DTYPES = {"flat_values": np.float64, "flat_docs": np.int32,
 _ORD_DTYPES = {"flat_ords": np.int32, "flat_docs": np.int32,
                "first_ord": np.int32, "exists": np.bool_}
 _VEC_DTYPES = {"vectors": np.float32, "exists": np.bool_}
+_GEO_DTYPES = {"lat": np.float32, "lon": np.float32, "flat_docs": np.int32,
+               "first_lat": np.float32, "first_lon": np.float32,
+               "exists": np.bool_}
 
 
 def _fsync_json(path: str, payload) -> None:
@@ -267,6 +273,9 @@ class Store:
         for f, col in seg.ordinal_columns.items():
             for key in _ORD_DTYPES:
                 arrays[f"ord.{f}.{key}"] = getattr(col, key)
+        for f, col in seg.geo_columns.items():
+            for key in _GEO_DTYPES:
+                arrays[f"geo.{f}.{key}"] = getattr(col, key)
         for f, col in seg.vector_columns.items():
             # the bf16-grid f32 host mirror as it is: reloading it stages
             # the same bf16 embeddings
@@ -289,7 +298,8 @@ class Store:
             "ordinal_fields": {
                 f: {"terms": list(c.terms), "count": int(c.count)}
                 for f, c in seg.ordinal_columns.items()},
-            "geo_fields": {},
+            "geo_fields": {f: int(c.count)
+                           for f, c in seg.geo_columns.items()},
             "vector_fields": {
                 f: {"dims": int(c.dims), "count": int(c.count)}
                 for f, c in seg.vector_columns.items()},
@@ -370,6 +380,11 @@ class Store:
                                for k, t in _VEC_DTYPES.items()},
                             dims=int(info["dims"]), count=int(info["count"]))
             for f, info in (meta.get("vector_fields") or {}).items()}
+        geo_columns = {
+            f: GeoColumn(**{k: arr(f"geo.{f}.{k}", t)
+                            for k, t in _GEO_DTYPES.items()},
+                         count=int(count))
+            for f, count in (meta.get("geo_fields") or {}).items()}
         exists_masks = {k[len("exists."):]: arr(k, np.bool_)
                         for k in data.files if k.startswith("exists.")}
         # kept as read: parsed only when something reads the positions
@@ -388,6 +403,7 @@ class Store:
             numeric_columns=numeric_columns,
             ordinal_columns=ordinal_columns,
             vector_columns=vector_columns,
+            geo_columns=geo_columns,
             exists_masks=exists_masks,
             positions=positions,
             device=device,
@@ -446,8 +462,6 @@ def _refuse_unported(name: str, d: str, meta: dict) -> None:
     """A segment holding data the port has no column for fails its load,
     naming the kind, instead of opening without that column."""
     kinds = []
-    if meta.get("geo_fields"):
-        kinds.append(f"geo_point {sorted(meta['geo_fields'])}")
     if meta.get("shapes"):
         kinds.append(f"geo_shape {sorted(meta['shapes'])}")
     if os.path.exists(os.path.join(d, "nested", "index.json")):

@@ -1,17 +1,29 @@
 """Field types: JSON value -> indexable terms + columnar doc values.
 
 Counterpart of ``elasticsearch_tpu/mapper/field_types.py``, cut to the
-types the port serves: ``text``, ``keyword``, ``long``, ``integer``,
-``double`` (and ``float``, which dynamic mapping picks for JSON floats),
-``date``, ``boolean`` and ``dense_vector``.
-Any other type raises the JAX package's "No handler for type" error.
+types the port serves: ``text`` (``fielddata`` too), ``keyword``, the
+numbers (``long``, ``integer``, ``short``, ``byte``, ``double``,
+``float``, ``half_float``, ``scaled_float``), ``date``, ``boolean``,
+``ip``, ``geo_point``, the range family (``integer_range``,
+``long_range``, ``float_range``, ``double_range``, ``date_range``,
+``ip_range``), ``token_count``, ``binary``, ``murmur3`` and
+``dense_vector``. Any other type (``geo_shape``, ``join``, ``nested``,
+``percolator``, ``completion``) raises the JAX package's "No handler for
+type" error.
+
 Numeric doc values are float64, as in the JAX package (x64 is on there): a
-``date`` is its epoch milliseconds (UTC), a ``boolean`` 1.0 or 0.0.
+``date`` is its epoch milliseconds (UTC), a ``boolean`` 1.0 or 0.0, a
+``half_float`` its float64 value (no float16 rounding, as in JAX). An
+``ip`` is an ordinal column of formatted addresses (``format_ip``); a
+range value two aligned numeric columns ``<f>#lo`` and ``<f>#hi``; a
+geo point a ``GeoColumn`` (``index/segment.py``).
 """
 
 from __future__ import annotations
 
+import base64
 import datetime as _dt
+import ipaddress
 import math
 from typing import Any, List, Optional
 
@@ -23,6 +35,8 @@ from elasticsearch_tpu_torch.common.errors import (
 _INT_RANGES = {
     "long": (-(2**63), 2**63 - 1),
     "integer": (-(2**31), 2**31 - 1),
+    "short": (-(2**15), 2**15 - 1),
+    "byte": (-(2**7), 2**7 - 1),
 }
 
 
@@ -94,6 +108,25 @@ def format_epoch_millis(millis: int) -> str:
     return dt.strftime("%Y-%m-%dT%H:%M:%S.") + f"{dt.microsecond // 1000:03d}Z"
 
 
+def parse_ip(value: Any) -> int:
+    """An address as an exact int: IPv4 mapped into the IPv6 space
+    (``::ffff:a.b.c.d``), as Lucene's 16-byte encoding orders them."""
+    try:
+        addr = ipaddress.ip_address(str(value))
+    except ValueError:
+        raise MapperParsingException(
+            f"'{value}' is not an IP string literal.") from None
+    if isinstance(addr, ipaddress.IPv4Address):
+        addr = ipaddress.IPv6Address(f"::ffff:{addr}")
+    return int(addr)
+
+
+def format_ip(value: int) -> str:
+    addr = ipaddress.IPv6Address(int(value))
+    v4 = addr.ipv4_mapped
+    return str(v4) if v4 is not None else str(addr)
+
+
 class FieldType:
     """Base field type; mirrors the mapping parameters (index, doc_values,
     boost, null_value)."""
@@ -135,10 +168,10 @@ class TextFieldType(FieldType):
         super().__init__(name, params)
         self.analyzer = self.params.get("analyzer", "standard")
         self.search_analyzer = self.params.get("search_analyzer", self.analyzer)
-        if self.params.get("fielddata"):
-            raise MapperParsingException(
-                f"Field [{name}]: [fielddata] on text fields is not supported "
-                f"by the PyTorch port yet")
+        # fielddata: the analyzed tokens also land in an ordinal column at
+        # seal (a text field without it builds one from its postings when
+        # an aggregation first asks, search/aggregations.py)
+        self.fielddata = bool(self.params.get("fielddata", False))
         # per-field similarity name, resolved by the index's
         # SimilarityService (BM25 unless the mapping or index names another)
         self.similarity_name = self.params.get("similarity")
@@ -246,6 +279,14 @@ class IntegerFieldType(IntegerLikeFieldType):
     type_name = "integer"
 
 
+class ShortFieldType(IntegerLikeFieldType):
+    type_name = "short"
+
+
+class ByteFieldType(IntegerLikeFieldType):
+    type_name = "byte"
+
+
 class DoubleFieldType(NumberFieldType):
     type_name = "double"
 
@@ -255,6 +296,29 @@ class DoubleFieldType(NumberFieldType):
 
 class FloatFieldType(DoubleFieldType):
     type_name = "float"
+
+
+class HalfFloatFieldType(DoubleFieldType):
+    type_name = "half_float"
+
+
+class ScaledFloatFieldType(NumberFieldType):
+    type_name = "scaled_float"
+
+    def __init__(self, name, params=None):
+        super().__init__(name, params)
+        if "scaling_factor" not in self.params:
+            raise MapperParsingException(
+                f"Field [{name}] misses required parameter [scaling_factor]")
+        self.scaling_factor = float(self.params["scaling_factor"])
+
+    def doc_value(self, value):
+        # kept scaled and rounded: round(value * factor) / factor
+        return (float(round(self._parse(value) * self.scaling_factor))
+                / self.scaling_factor)
+
+    def numeric_for_query(self, value):
+        return self._parse(value)
 
 
 class DateFieldType(FieldType):
@@ -301,6 +365,234 @@ class BooleanFieldType(FieldType):
 
     def numeric_for_query(self, value):
         return 1.0 if self._parse(value) else 0.0
+
+
+class IpFieldType(FieldType):
+    """ip: the formatted address as a term and an ordinal doc value; the
+    queries compare ``parse_ip`` ints (search/query_dsl.py)."""
+
+    type_name = "ip"
+    ordinal_doc_values = True
+
+    def index_terms(self, value, analyzers):
+        return [format_ip(parse_ip(value))]
+
+    def doc_value(self, value):
+        return format_ip(parse_ip(value))
+
+    def term_for_query(self, value, analyzers):
+        return format_ip(parse_ip(value))
+
+
+class GeoPointFieldType(FieldType):
+    """geo_point: each value a (lat, lon) pair in the segment's geo column;
+    the distance, box and polygon filters are vector math over it."""
+
+    type_name = "geo_point"
+
+    def index_terms(self, value, analyzers):
+        return []
+
+    def doc_value(self, value):
+        return self.parse_point(value)
+
+    @staticmethod
+    def parse_point(value):
+        """An object ``{"lat", "lon"}``, a GeoJSON ``[lon, lat]`` pair or a
+        ``"lat,lon"`` string -> (lat, lon), bounds checked."""
+        if isinstance(value, dict):
+            lat, lon = value.get("lat"), value.get("lon")
+        elif isinstance(value, (list, tuple)) and len(value) == 2:
+            lon, lat = value
+        elif isinstance(value, str):
+            parts = value.split(",")
+            if len(parts) != 2:
+                raise MapperParsingException(
+                    f"failed to parse geo_point [{value}]")
+            lat, lon = float(parts[0]), float(parts[1])
+        else:
+            raise MapperParsingException(f"failed to parse geo_point [{value}]")
+        lat, lon = float(lat), float(lon)
+        if not (-90.0 <= lat <= 90.0) or not (-180.0 <= lon <= 180.0):
+            raise MapperParsingException(
+                f"illegal latitude/longitude value [{lat}, {lon}]")
+        return (lat, lon)
+
+
+class RangeFieldType(FieldType):
+    """The range family: a value is a {gte, gt, lte, lt} object, kept as an
+    inclusive (lo, hi) float pair in two aligned numeric columns
+    (``<field>#lo``, ``<field>#hi``), so the intersects, contains and
+    within relations are elementwise comparisons. An open side is
+    +-inf."""
+
+    has_doc_values = True
+
+    def __init__(self, name, params=None):
+        super().__init__(name, params)
+        self.coerce = bool(self.params.get("coerce", True))
+
+    def _bound(self, v):
+        raise NotImplementedError
+
+    # the exclusive-bound step: one float64 ulp (whole units for the
+    # integer and date ranges)
+    def _next_up(self, v: float) -> float:
+        return math.nextafter(v, math.inf)
+
+    def _next_down(self, v: float) -> float:
+        return math.nextafter(v, -math.inf)
+
+    def parse_range(self, value) -> tuple:
+        """-> (lo, hi), the inclusive float bounds."""
+        if not isinstance(value, dict):
+            raise MapperParsingException(
+                f"error parsing field [{self.name}], expected an object but "
+                f"got [{value!r}]")
+        lo, hi = -math.inf, math.inf
+        for k, v in value.items():
+            if k == "gte":
+                lo = self._bound(v)
+            elif k == "gt":
+                lo = self._next_up(self._bound(v))
+            elif k == "lte":
+                hi = self._bound(v)
+            elif k == "lt":
+                hi = self._next_down(self._bound(v))
+            else:
+                raise MapperParsingException(
+                    f"error parsing field [{self.name}], unknown range "
+                    f"parameter [{k}]")
+        return lo, hi
+
+    def index_terms(self, value, analyzers):
+        return []
+
+    def doc_value(self, value):
+        return None
+
+    def numeric_for_query(self, value):
+        return self._bound(value)
+
+
+class IntegerRangeFieldType(RangeFieldType):
+    type_name = "integer_range"
+
+    def _bound(self, v):
+        return float(int(float(v)))
+
+    def _next_up(self, v):
+        return v + 1.0
+
+    def _next_down(self, v):
+        return v - 1.0
+
+
+class LongRangeFieldType(IntegerRangeFieldType):
+    type_name = "long_range"
+
+
+class FloatRangeFieldType(RangeFieldType):
+    type_name = "float_range"
+
+    def _bound(self, v):
+        return float(v)
+
+
+class DoubleRangeFieldType(FloatRangeFieldType):
+    type_name = "double_range"
+
+
+class DateRangeFieldType(RangeFieldType):
+    type_name = "date_range"
+
+    def __init__(self, name, params=None):
+        super().__init__(name, params)
+        fmt = self.params.get("format")
+        self.formats = fmt.split("||") if isinstance(fmt, str) else None
+
+    def _bound(self, v):
+        return float(parse_date(v, self.formats))
+
+    def _next_up(self, v):  # one millisecond
+        return v + 1.0
+
+    def _next_down(self, v):
+        return v - 1.0
+
+
+class IpRangeFieldType(RangeFieldType):
+    type_name = "ip_range"
+
+    def _bound(self, v):
+        return float(parse_ip(v))
+
+    # exclusive bounds step one float64 ulp (the base class's): a +1 step
+    # is below the ulp at IPv6 magnitudes and would turn gt into gte
+
+    def parse_range(self, value):
+        # the CIDR shorthand "10.0.0.0/8"
+        if isinstance(value, str) and "/" in value:
+            net = ipaddress.ip_network(value, strict=False)
+            lo = net.network_address
+            hi = net.broadcast_address
+            if isinstance(lo, ipaddress.IPv4Address):
+                lo = ipaddress.IPv6Address(f"::ffff:{lo}")
+                hi = ipaddress.IPv6Address(f"::ffff:{hi}")
+            return float(int(lo)), float(int(hi))
+        return super().parse_range(value)
+
+
+class TokenCountFieldType(NumberFieldType):
+    """token_count: the analyzed token count as a numeric doc value, so
+    term and range queries run against the column."""
+
+    type_name = "token_count"
+
+    def __init__(self, name, params=None):
+        super().__init__(name, params)
+        self.analyzer = self.params.get("analyzer", "standard")
+
+    def doc_value(self, value):  # counted by count_tokens at parse time
+        return None
+
+    def count_tokens(self, value, analyzers) -> float:
+        return float(len(analyzers.get(self.analyzer).analyze(str(value))))
+
+
+class BinaryFieldType(FieldType):
+    """binary: a base64 payload, not searchable; with ``doc_values`` the
+    string lands in an ordinal column."""
+
+    type_name = "binary"
+    has_doc_values = False
+    ordinal_doc_values = True
+
+    def index_terms(self, value, analyzers):
+        return []
+
+    def doc_value(self, value):
+        if not self.doc_values:
+            return None
+        s = str(value)
+        try:
+            base64.b64decode(s, validate=True)
+        except Exception:
+            raise MapperParsingException(
+                f"failed to parse field [{self.name}]: invalid base64") from None
+        return s
+
+
+class Murmur3FieldType(NumberFieldType):
+    """murmur3: the value's murmur3 hash as a numeric doc value, so a
+    cardinality aggregation skips hashing at query time."""
+
+    type_name = "murmur3"
+
+    def doc_value(self, value):
+        from elasticsearch_tpu_torch.utils.murmur3 import murmur3_32
+
+        return float(murmur3_32(str(value).encode("utf-8")))
 
 
 class DenseVectorFieldType(FieldType):
@@ -376,8 +668,13 @@ class DenseVectorFieldType(FieldType):
 FIELD_TYPES = {
     t.type_name: t
     for t in [TextFieldType, KeywordFieldType, LongFieldType,
-              IntegerFieldType, DoubleFieldType, FloatFieldType,
-              DateFieldType, BooleanFieldType, DenseVectorFieldType]
+              IntegerFieldType, ShortFieldType, ByteFieldType,
+              DoubleFieldType, FloatFieldType, HalfFloatFieldType,
+              ScaledFloatFieldType, DateFieldType, BooleanFieldType,
+              IpFieldType, GeoPointFieldType, IntegerRangeFieldType,
+              LongRangeFieldType, FloatRangeFieldType, DoubleRangeFieldType,
+              DateRangeFieldType, IpRangeFieldType, TokenCountFieldType,
+              BinaryFieldType, Murmur3FieldType, DenseVectorFieldType]
 }
 
 

@@ -8,8 +8,15 @@ ISO-8601 date string ``date``), an int ``long``, a float ``float``, a bool
 ``boolean``. A ``dense_vector`` field takes one whole
 vector per document (``ParsedDocument.vector_values``), its ``dims``
 bounded by ``index.mapping.dense_vector.max_dims`` at mapping compile.
-Nested objects and the other field types (geo, ip, range, join, ...) are
-later slices and raise.
+A ``geo_point`` value lands in ``geo_values`` as (lat, lon), a range
+value in ``range_values`` as its inclusive (lo, hi) bounds, a
+``token_count`` as its token count among the numeric values, and a text
+field with ``fielddata`` adds its analyzed tokens to the string values.
+One document's analysis is memoized by (analyzer, text): a text field,
+its fielddata and a ``token_count`` multi-field over the same value
+analyze it once.
+Nested objects and the other field types (geo_shape, join, percolator,
+completion) are later slices and raise.
 """
 
 from __future__ import annotations
@@ -17,7 +24,7 @@ from __future__ import annotations
 import copy
 import re
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from elasticsearch_tpu_torch.analysis.analyzers import AnalysisRegistry
 from elasticsearch_tpu_torch.common.errors import (
@@ -27,8 +34,46 @@ from elasticsearch_tpu_torch.common.errors import (
 from elasticsearch_tpu_torch.mapper.field_types import (
     DenseVectorFieldType,
     FieldType,
+    GeoPointFieldType,
+    RangeFieldType,
+    TextFieldType,
+    TokenCountFieldType,
     create_field_type,
 )
+
+class _DocAnalyzers:
+    """The index's analyzers with one document's analysis memoized by
+    (analyzer, text): analysis is deterministic, so a value analyzed
+    again (fielddata, a token_count multi-field) gets the same tokens."""
+
+    __slots__ = ("_registry", "_memo")
+
+    def __init__(self, registry, memo: dict):
+        self._registry = registry
+        self._memo = memo
+
+    def get(self, name):
+        return _MemoAnalyzer(self._registry.get(name), name, self._memo)
+
+
+class _MemoAnalyzer:
+    __slots__ = ("_analyzer", "_name", "_memo")
+
+    def __init__(self, analyzer, name, memo: dict):
+        self._analyzer = analyzer
+        self._name = name
+        self._memo = memo
+
+    def analyze(self, text):
+        key = (self._name, text)
+        toks = self._memo.get(key)
+        if toks is None:
+            toks = self._memo[key] = self._analyzer.analyze(text)
+        return toks
+
+    def __getattr__(self, attr):
+        return getattr(self._analyzer, attr)
+
 
 _ISO_DATE_RE = re.compile(r"^\d{4}-\d{2}-\d{2}([T ]\d{2}:\d{2}(:\d{2}(\.\d+)?)?(Z|[+-]\d{2}:?\d{2})?)?$")
 
@@ -46,10 +91,17 @@ class ParsedDocument:
     numeric_values: Dict[str, List[float]] = field(default_factory=dict)
     # field name -> list of string doc values (ordinal columns)
     string_values: Dict[str, List[str]] = field(default_factory=dict)
+    # geo points: field -> [(lat, lon)]
+    geo_values: Dict[str, List[Tuple[float, float]]] = field(default_factory=dict)
+    # range fields: field -> [(lo, hi)], inclusive float bounds
+    range_values: Dict[str, List[Tuple[float, float]]] = field(default_factory=dict)
     # dense vectors: field -> ONE [dims] float list per doc (a second
     # vector for the same field in one document is a 400)
     vector_values: Dict[str, List[float]] = field(default_factory=dict)
     mapping_update: Optional[dict] = None
+    # (analyzer, text) -> tokens while the document parses
+    analysis_memo: dict = field(default_factory=dict, repr=False,
+                                compare=False)
 
 
 class DocumentMapper:
@@ -234,8 +286,19 @@ class DocumentMapper:
                         self._index_single(sub_ft, v, out)
 
     def _index_single(self, ft: FieldType, v: Any, out: ParsedDocument) -> None:
+        analyzers = _DocAnalyzers(self.analyzers, out.analysis_memo)
+        if isinstance(ft, GeoPointFieldType):
+            out.geo_values.setdefault(ft.name, []).append(ft.parse_point(v))
+            return
+        if isinstance(ft, RangeFieldType):
+            out.range_values.setdefault(ft.name, []).append(ft.parse_range(v))
+            return
+        if isinstance(ft, TokenCountFieldType):
+            out.numeric_values.setdefault(ft.name, []).append(
+                ft.count_tokens(v, analyzers))
+            return
         if ft.index:
-            terms = ft.index_terms(v, self.analyzers)
+            terms = ft.index_terms(v, analyzers)
             if terms:
                 out.terms.setdefault(ft.name, []).extend(terms)
         if ft.doc_values:
@@ -246,6 +309,11 @@ class DocumentMapper:
                 out.string_values.setdefault(ft.name, []).append(dv)
             else:
                 out.numeric_values.setdefault(ft.name, []).append(float(dv))
+        elif isinstance(ft, TextFieldType) and ft.fielddata:
+            # text fielddata: the terms double as string values for the
+            # aggregations
+            out.string_values.setdefault(ft.name, []).extend(
+                ft.index_terms(v, analyzers))
 
 
 class MapperService:

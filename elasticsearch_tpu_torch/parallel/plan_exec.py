@@ -2263,7 +2263,7 @@ class IndexMeshSearch:
         if len(sort_spec) != 1:
             return "fallback", "sort_ineligible"
         field, order, missing = sort_spec[0]
-        if not isinstance(field, str):
+        if not isinstance(field, str) or field == "_geo_distance":
             return "fallback", "sort_ineligible"
         # (a lone _score sort never gets here: normalize_sort makes it
         # relevance ranking)

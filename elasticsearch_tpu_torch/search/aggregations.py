@@ -13,9 +13,12 @@ Served:
   ``ops/aggs.hll_*``), ``percentiles`` (exact over a sample of at most
   100,000 matched values a segment, ``RandomState(13)`` as in JAX),
   ``top_hits`` (by the view's scores) and ``matrix_stats``;
-- buckets, each with sub-aggregations: ``terms`` (keyword ordinals on the
-  device through the segment-sum kernel, folded in global ordinal space;
-  numeric terms on the host), ``histogram``, ``date_histogram`` (fixed and
+- geo metrics: ``geo_bounds`` and ``geo_centroid`` (float32 sums on the
+  host, in numpy's order, as the JAX package sums them);
+- buckets, each with sub-aggregations: ``terms`` (keyword and ip
+  ordinals, and text fielddata, on the device through the segment-sum
+  kernel, folded in global ordinal space; numeric terms on the host),
+  ``geohash_grid`` (``utils/geohash.encode_cells``), ``histogram``, ``date_histogram`` (fixed and
   calendar intervals, ``offset``, ``min_doc_count``, ``key_as_string``),
   ``range``, ``date_range``, ``filter``, ``filters``, ``global``,
   ``missing``, ``significant_terms``, ``sampler``,
@@ -28,18 +31,25 @@ Served:
 shared with the fused doc-values plane (``search/fused_aggs.py``), so both
 assemble their responses through one function.
 
+Text fielddata: a text field with no ordinal column (no ``fielddata:
+true`` at index time) gets one built from its host postings on the first
+aggregation that asks (``_text_fielddata``, as the JAX package builds it,
+without the ``fielddata`` gate): vectorized, under a build lock, its
+bytes charged to the fielddata breaker before the build with the JAX
+estimate and recorded in ``segment.breaker_charges``, the column kept in
+the segment's ``host_cache``.
+
 Not ported, each waiting for its module, and raising ``ParsingException``:
-``geo_bounds``, ``geo_centroid`` and ``geohash_grid`` (``geo_point``),
 ``nested`` and ``reverse_nested`` (nested objects), ``children`` (the join
-field), ``scripted_metric`` (``script/``), terms on a text field (text
-fielddata). ``run_aggregations`` holds its request estimate on the request
-circuit breaker (``common/breaker.py``) while it runs. The
-``CUSTOM_AGGS`` plugin hook waits for ``plugins/``.
+field), ``scripted_metric`` (``script/``). ``run_aggregations`` holds its
+request estimate on the request circuit breaker (``common/breaker.py``)
+while it runs. The ``CUSTOM_AGGS`` plugin hook waits for ``plugins/``.
 """
 
 from __future__ import annotations
 
 import math
+import threading
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -68,8 +78,7 @@ PIPELINE_TYPES = {"derivative", "cumulative_sum", "moving_avg", "avg_bucket",
                   "sum_bucket", "min_bucket", "max_bucket", "stats_bucket",
                   "bucket_script", "bucket_selector", "bucket_sort", "serial_diff"}
 # the JAX package's types whose modules the port does not have yet
-UNPORTED_TYPES = {"geo_bounds", "geo_centroid", "geohash_grid", "nested",
-                  "reverse_nested", "children", "scripted_metric"}
+UNPORTED_TYPES = {"nested", "reverse_nested", "children", "scripted_metric"}
 
 
 class AggSpec:
@@ -130,11 +139,82 @@ def _resolve_ordinal_field(segment, field: str):
         return col
     # terms on "myfield" where the mapping used text + .keyword multi-field
     col = segment.ordinal_columns.get(f"{field}.keyword")
-    if col is None and field in segment.field_norm_idx:
-        # the JAX package builds text fielddata from the postings here
-        raise ParsingException(
-            f"aggregation on text field [{field}] (text fielddata) is "
-            f"not supported by the PyTorch port yet")
+    if col is not None:
+        return col
+    return _text_fielddata(segment, field)
+
+
+_fielddata_build_lock = threading.Lock()
+
+
+def _text_fielddata(segment, field: str):
+    """The ordinal view of a text field, built from its postings on first
+    use and cached on the segment's host (the reference's heap-loaded
+    text fielddata; the JAX package builds it without the ``fielddata``
+    gate, and so does the port). Built under a lock: racing first
+    aggregations would build twice and charge the breaker twice."""
+    key = f"fielddata.{field}"
+    hit = segment.host_cache.get(key)
+    if hit is not None:
+        return hit
+    with _fielddata_build_lock:
+        hit = segment.host_cache.get(key)
+        if hit is not None:
+            return hit
+        return _build_text_fielddata(segment, field, key)
+
+
+def _build_text_fielddata(segment, field: str, key: str):
+    """The JAX package's column, vectorized: (doc, ord) pairs of every
+    posting of the field's terms (ordinal = the token's rank), sorted by
+    (doc, ord), padded to a power of two with the sentinel doc;
+    ``first_ord`` is a doc's lowest ordinal. The fielddata breaker is
+    charged first, with the JAX estimate (8 bytes a posting, 5 a doc)."""
+    from elasticsearch_tpu_torch.common.breaker import (
+        CircuitBreaker,
+        breaker_service,
+    )
+    from elasticsearch_tpu_torch.index.segment import OrdinalColumn, next_pow2
+
+    tokens = segment.field_tokens(field)
+    if not tokens:
+        return None
+    lo = segment.term_id(field, tokens[0])
+    hi = lo + len(tokens)
+    est_bytes = int(segment.term_doc_freq[lo:hi].sum()) * 8 \
+        + segment.nd_pad * 5
+    breaker_service().get_breaker(
+        CircuitBreaker.FIELDDATA).add_estimate_bytes_and_maybe_break(
+        est_bytes, f"fielddata [{field}]")
+    segment.breaker_charges[key] = est_bytes
+    nd_pad = segment.nd_pad
+    b0 = int(segment.term_block_start[lo])
+    counts = segment.term_block_count[lo:hi].astype(np.int64)
+    blocks = segment.block_docs[b0: b0 + int(counts.sum())].reshape(-1)
+    ords = np.repeat(np.arange(len(tokens), dtype=np.int64),
+                     counts * segment.block_docs.shape[1])
+    valid = blocks < nd_pad
+    # one sort of (doc, ord) keys, the ordinal in the low bits: a term's
+    # postings hit distinct docs, so the keys are distinct
+    shift = max(len(tokens) - 1, 1).bit_length()
+    keys = (blocks[valid].astype(np.int64) << shift) | ords[valid]
+    keys.sort()
+    n_vals = int(keys.size)
+    cap = next_pow2(max(n_vals, 1))
+    flat_docs = np.full(cap, nd_pad, dtype=np.int32)
+    flat_ords = np.zeros(cap, dtype=np.int32)
+    flat_docs[:n_vals] = keys >> shift
+    flat_ords[:n_vals] = keys & ((1 << shift) - 1)
+    first_ord = np.full(nd_pad, -1, dtype=np.int32)
+    exists = np.zeros(nd_pad, dtype=bool)
+    d = flat_docs[:n_vals]
+    first = np.ones(n_vals, dtype=bool)
+    first[1:] = d[1:] != d[:-1]
+    first_ord[d[first]] = flat_ords[:n_vals][first]
+    exists[d] = True
+    col = OrdinalColumn(list(tokens), flat_ords, flat_docs, first_ord,
+                        exists, n_vals)
+    segment.host_cache[key] = col
     return col
 
 
@@ -499,6 +579,48 @@ def _partial_matrix_stats(spec, view):
     return {"n": n, "fields": fields, "sums": sums, "prods": prods}
 
 
+# --- geo metrics ---
+
+
+def _geo_values(spec, view):
+    """The float32 (lat, lon) values of the matched docs."""
+    col = view.segment.geo_columns.get(spec.body["field"])
+    if col is None or col.count == 0:
+        return np.empty(0, np.float32), np.empty(0, np.float32)
+    sel = view.mask[col.flat_docs[: col.count]]
+    return col.lat[: col.count][sel], col.lon[: col.count][sel]
+
+
+def _partial_geo_bounds(spec, view):
+    lat, lon = _geo_values(spec, view)
+    if lat.size == 0:
+        return {"top": None}
+    return {"top": float(lat.max()), "bottom": float(lat.min()),
+            "left": float(lon.min()), "right": float(lon.max())}
+
+
+def _partial_geo_centroid(spec, view):
+    # float32 sums in numpy's order: the JAX package's bits
+    lat, lon = _geo_values(spec, view)
+    return {"count": int(lat.size), "lat_sum": float(lat.sum()),
+            "lon_sum": float(lon.sum())}
+
+
+def _partial_geohash_grid(spec, view):
+    """Points (not docs) a geohash cell, as the JAX package counts them."""
+    from elasticsearch_tpu_torch.utils.geohash import (
+        cell_strings,
+        encode_cells,
+    )
+
+    precision = int(spec.body.get("precision", 5))
+    lat, lon = _geo_values(spec, view)
+    cells, counts = np.unique(encode_cells(lat, lon, precision),
+                              return_counts=True)
+    return {"counts": dict(zip(cell_strings(cells, precision),
+                               counts.tolist()))}
+
+
 _PARTIAL_FNS: Dict[str, Callable] = {
     "matrix_stats": _partial_matrix_stats,
     "min": _partial_stats, "max": _partial_stats, "sum": _partial_stats,
@@ -516,6 +638,9 @@ _PARTIAL_FNS: Dict[str, Callable] = {
     "filters": _partial_filters,
     "global": _partial_global,
     "missing": _partial_missing,
+    "geo_bounds": _partial_geo_bounds,
+    "geo_centroid": _partial_geo_centroid,
+    "geohash_grid": _partial_geohash_grid,
 }
 
 
@@ -594,6 +719,24 @@ def _finalize_metric(spec: AggSpec, partials: List[dict]) -> dict:
         return {"hits": {
             "total": len(all_hits),
             "hits": all_hits[:size],
+        }}
+    if t == "geo_bounds":
+        tops = [p for p in partials if p.get("top") is not None]
+        if not tops:
+            return {"bounds": None}
+        return {"bounds": {
+            "top_left": {"lat": max(p["top"] for p in tops),
+                         "lon": min(p["left"] for p in tops)},
+            "bottom_right": {"lat": min(p["bottom"] for p in tops),
+                             "lon": max(p["right"] for p in tops)},
+        }}
+    if t == "geo_centroid":
+        count = sum(p["count"] for p in partials)
+        if count == 0:
+            return {"count": 0, "location": None}
+        return {"count": count, "location": {
+            "lat": sum(p["lat_sum"] for p in partials) / count,
+            "lon": sum(p["lon_sum"] for p in partials) / count,
         }}
     if t == "matrix_stats":
         live = [p for p in partials if p.get("n")]
@@ -765,6 +908,15 @@ def _run_one_inner(spec: AggSpec, views: List[SegmentView]) -> dict:
 
     if spec.type == "adjacency_matrix":
         return _run_adjacency_matrix(spec, views)
+
+    if spec.type == "geohash_grid":
+        merged: Dict[str, int] = {}
+        for p in (compute_partial(spec, v) for v in views):
+            for k, c in p["counts"].items():
+                merged[k] = merged.get(k, 0) + c
+        size = int(spec.body.get("size", 10000))
+        items = sorted(merged.items(), key=lambda kv: (-kv[1], kv[0]))[:size]
+        return {"buckets": [{"key": k, "doc_count": c} for k, c in items]}
 
     if spec.type in ("range", "date_range"):
         is_date = spec.type == "date_range"

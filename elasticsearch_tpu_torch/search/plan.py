@@ -11,10 +11,12 @@ PallasScoreTermsNode (the tile-scoring kernel; the name is kept so the
 counterpart is easy to find), KnnScoreNode (dense-vector similarity, the
 kNN host rung), PhraseScoreNode (host-verified phrase frequencies scored
 on the device), MatchAllNode, MatchNoneNode, NumericRangeNode,
-NumericTermsNode, OrdTermsNode, OrdRangeNode, DenseMaskNode (exists,
-ids), BoolNode, ConstantScoreNode, BoostNode, DisMaxNode and
-FunctionScoreNode. DenseScoreNode and RangePairNode wait for the join,
-nested and range-field builders that make them.
+NumericTermsNode, OrdTermsNode, OrdRangeNode, OrdSetNode (ip term and
+range), RangePairNode (range
+fields), GeoDistanceNode and GeoBoxNode (geo points), DenseMaskNode
+(exists, ids, geo_polygon), BoolNode, ConstantScoreNode, BoostNode,
+DisMaxNode and FunctionScoreNode. DenseScoreNode waits for the join and
+nested builders that make it.
 
 For the mesh plane (parallel/plan_exec.py) every node declares how its
 arrays pad when per-segment plans of one query are stacked
@@ -526,8 +528,141 @@ class OrdRangeNode(PlanNode):
         return ctx.zeros_f(), ctx.mark(flat_docs, cond)
 
 
+class OrdSetNode(PlanNode):
+    """Docs holding an ordinal of a set given as a per-ordinal bool table
+    (the ip term and range queries: the set is any subset of a
+    vocabulary sorted as strings, so no ordinal range holds it)."""
+
+    def __init__(self, flat_docs, flat_ords, table):
+        self.flat_docs = flat_docs
+        self.flat_ords = flat_ords
+        self.table = table  # [n_ords_pad] bool, padded with False
+
+    def arrays(self):
+        return [self.flat_docs, self.flat_ords, self.table]
+
+    def pad_kinds(self):
+        return ["d", "m1", "z"]
+
+    def emit(self, ctx):
+        flat_docs, flat_ords, table = ctx.take(3)
+        cond = table[flat_ords.clamp(min=0).long()] & (flat_ords >= 0)
+        return ctx.zeros_f(), ctx.mark(flat_docs, cond)
+
+
+class RangePairNode(PlanNode):
+    """A query on a range field: each value is an inclusive (lo, hi) pair
+    in the aligned ``#lo`` / ``#hi`` columns, and the relation picks the
+    test against the query interval [q_lo, q_hi] (float64)."""
+
+    def __init__(self, flat_docs, lo_vals, hi_vals, q_lo: float, q_hi: float,
+                 relation: str = "intersects"):
+        self.flat_docs = flat_docs
+        self.lo_vals = lo_vals
+        self.hi_vals = hi_vals
+        self.q_lo = np.float64(q_lo)
+        self.q_hi = np.float64(q_hi)
+        self.relation = relation
+
+    def trace_statics(self):
+        return (self.relation,)
+
+    def arrays(self):
+        return [self.flat_docs, self.lo_vals, self.hi_vals, self.q_lo,
+                self.q_hi]
+
+    def pad_kinds(self):
+        return ["d", "n", "n", "s", "s"]
+
+    def emit(self, ctx):
+        flat_docs, lo_vals, hi_vals, q_lo, q_hi = ctx.take(5)
+        if self.relation == "within":
+            cond = (lo_vals >= q_lo) & (hi_vals <= q_hi)
+        elif self.relation == "contains":
+            cond = (lo_vals <= q_lo) & (hi_vals >= q_hi)
+        else:  # intersects
+            cond = (lo_vals <= q_hi) & (hi_vals >= q_lo)
+        return ctx.zeros_f(), ctx.mark(flat_docs, cond)
+
+
+EARTH_RADIUS_M = 6371008.8
+_DEG_TO_RAD = np.float32(np.pi / 180)
+
+
+def haversine_distance_m(lat1, lon1, lat2, lon2):
+    """Great-circle distance in meters, float32 throughout, in the JAX
+    package's order of operations (``ops/masks.py``): radians as a
+    multiply by f32(pi / 180), then the haversine with the 6371008.8 m
+    radius."""
+    rl1, rl2 = lat1 * _DEG_TO_RAD, lat2 * _DEG_TO_RAD
+    dlat = rl2 - rl1
+    dlon = (lon2 - lon1) * _DEG_TO_RAD
+    s_lat = torch.sin(dlat / 2)
+    s_lon = torch.sin(dlon / 2)
+    a = s_lat * s_lat + torch.cos(rl1) * torch.cos(rl2) * (s_lon * s_lon)
+    return 2 * EARTH_RADIUS_M * torch.asin(torch.sqrt(a))
+
+
+def _f32(x, device):
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+class GeoDistanceNode(PlanNode):
+    """Docs with a point within ``radius_m`` of the center (float32)."""
+
+    def __init__(self, flat_docs, lat, lon, center_lat, center_lon, radius_m):
+        self.flat_docs = flat_docs
+        self.lat = lat
+        self.lon = lon
+        self.center_lat = np.float32(center_lat)
+        self.center_lon = np.float32(center_lon)
+        self.radius_m = np.float32(radius_m)
+
+    def arrays(self):
+        return [self.flat_docs, self.lat, self.lon, self.center_lat,
+                self.center_lon, self.radius_m]
+
+    def pad_kinds(self):
+        return ["d", "z", "z", "s", "s", "s"]
+
+    def emit(self, ctx):
+        flat_docs, lat, lon, clat, clon, radius = ctx.take(6)
+        d = haversine_distance_m(lat, lon, _f32(clat, ctx.device),
+                                 _f32(clon, ctx.device))
+        return ctx.zeros_f(), ctx.mark(flat_docs,
+                                       d <= _f32(radius, ctx.device))
+
+
+class GeoBoxNode(PlanNode):
+    """Docs with a point inside the box [top, left, bottom, right]
+    (float32; a box whose left lies east of its right crosses the
+    antimeridian)."""
+
+    def __init__(self, flat_docs, lat, lon, top, left, bottom, right):
+        self.flat_docs = flat_docs
+        self.lat = lat
+        self.lon = lon
+        self.box = np.asarray([top, left, bottom, right], dtype=np.float32)
+
+    def arrays(self):
+        return [self.flat_docs, self.lat, self.lon, self.box]
+
+    def pad_kinds(self):
+        return ["d", "z", "z", "z"]
+
+    def emit(self, ctx):
+        flat_docs, lat, lon, box = ctx.take(4)
+        top, left, bottom, right = box[0], box[1], box[2], box[3]
+        in_lat = (lat <= top) & (lat >= bottom)
+        crosses = left > right
+        in_lon = torch.where(crosses, (lon >= left) | (lon <= right),
+                             (lon >= left) & (lon <= right))
+        return ctx.zeros_f(), ctx.mark(flat_docs, in_lat & in_lon)
+
+
 class DenseMaskNode(PlanNode):
-    """A precomputed [nd1] bool mask (the exists and ids queries)."""
+    """A precomputed [nd1] bool mask (the exists, ids and geo_polygon
+    queries)."""
 
     def __init__(self, mask, label: str = "mask"):
         self.mask = mask

@@ -7,9 +7,17 @@ queries the port serves: ``match_all``, ``match_none``, ``match``,
 ``wildcard``, ``regexp``, ``fuzzy``, ``bool``, ``constant_score``,
 ``dis_max``, ``function_score`` (weight, field_value_factor,
 random_score), ``query_string`` and ``simple_query_string``,
-``more_like_this`` and ``knn``. Any other query type (span, geo, script,
-percolate, join and nested queries) raises the JAX package's
-``ParsingException`` for an unknown query.
+``more_like_this``, ``knn``, ``geo_distance``, ``geo_bounding_box`` and
+``geo_polygon``. ``term`` and ``range`` on a range field test its (lo,
+hi) pairs (point containment; ``relation``). Any other query type (span,
+geo_shape, script, percolate, join and nested queries) raises the JAX
+package's ``ParsingException`` for an unknown query.
+
+``term`` and ``range`` on an ``ip`` field answer as Elasticsearch does,
+through the field's ordinal column of formatted addresses: each
+segment's vocabulary maps once through ``parse_ip`` to exact ints, and
+the matching ordinals go to an ``OrdSetNode``. (The JAX package reads a
+numeric column an ip field never has there and matches nothing.)
 
 Multi-term expansion (prefix, wildcard, regexp, fuzzy) runs on the host
 against the segment's sorted term dictionary, as does a phrase's
@@ -32,6 +40,7 @@ from __future__ import annotations
 
 import bisect
 import fnmatch
+import ipaddress
 import re
 from typing import List, Optional
 
@@ -47,8 +56,12 @@ from elasticsearch_tpu_torch.mapper.field_types import (
     BooleanFieldType,
     DateFieldType,
     DenseVectorFieldType,
+    GeoPointFieldType,
+    IpFieldType,
     NumberFieldType,
+    RangeFieldType,
     TextFieldType,
+    parse_ip,
 )
 from elasticsearch_tpu_torch.ops.scoring import B, K1, bm25_idf
 from elasticsearch_tpu_torch.search import plan as P
@@ -275,6 +288,60 @@ def _ordinal_csr(segment, field):
     docs = segment.device_column(f"ord.{field}.docs", lambda: col.flat_docs)
     ords = segment.device_column(f"ord.{field}.ords", lambda: col.flat_ords)
     return docs, ords, col
+
+
+def _range_pair_node(segment, field, q_lo, q_hi, relation, boost) -> P.PlanNode:
+    """A RangePairNode over a range field's aligned #lo / #hi columns."""
+    lo_col = segment.numeric_columns.get(f"{field}#lo")
+    hi_col = segment.numeric_columns.get(f"{field}#hi")
+    if lo_col is None or hi_col is None:
+        return P.MatchNoneNode()
+    docs = segment.device_column(f"num.{field}#lo.docs",
+                                 lambda: lo_col.flat_docs)
+    lo_vals = segment.device_column(f"num.{field}#lo.vals",
+                                    lambda: lo_col.flat_values)
+    hi_vals = segment.device_column(f"num.{field}#hi.vals",
+                                    lambda: hi_col.flat_values)
+    return P.ConstantScoreNode(
+        P.RangePairNode(docs, lo_vals, hi_vals, q_lo, q_hi, relation), boost)
+
+
+def ip_vocabulary_ints(segment, field: str) -> List[int]:
+    """The ip field's ordinal vocabulary as exact ``parse_ip`` ints,
+    mapped once a segment (cached on its host)."""
+    key = f"ipints.{field}"
+    ints = segment.host_cache.get(key)
+    if ints is None:
+        col = segment.ordinal_columns[field]
+        ints = segment.host_cache[key] = [parse_ip(t) for t in col.terms]
+    return ints
+
+
+def ip_bounds(value) -> tuple:
+    """An ip term as inclusive exact int bounds: one address, or a CIDR
+    block ``10.0.0.0/16`` from its network to its broadcast address."""
+    if isinstance(value, str) and "/" in value:
+        try:
+            net = ipaddress.ip_network(value, strict=False)
+        except ValueError:
+            raise QueryShardException(
+                f"failed to parse ip prefix [{value}]") from None
+        lo, hi = net.network_address, net.broadcast_address
+        return parse_ip(str(lo)), parse_ip(str(hi))
+    v = parse_ip(value)
+    return v, v
+
+
+def _ip_set_node(segment, field: str, lo: int, hi: int, boost) -> P.PlanNode:
+    """The docs holding an address in [lo, hi] (exact ints), as an
+    OrdSetNode over the segment's ordinal column."""
+    if segment.ordinal_columns.get(field) is None:
+        return P.MatchNoneNode()
+    docs, ords, col = _ordinal_csr(segment, field)
+    ints = ip_vocabulary_ints(segment, field)
+    table = np.zeros(max(8, 1 << max(len(ints) - 1, 0).bit_length()), bool)
+    table[: len(ints)] = [lo <= v <= hi for v in ints]
+    return P.ConstantScoreNode(P.OrdSetNode(docs, ords, table), boost)
 
 
 # ---------------------------------------------------------------------------
@@ -648,6 +715,11 @@ class TermQueryBuilder(QueryBuilder):
             return IdsQueryBuilder([str(v) for v in vals],
                                    boost=self.boost).to_plan(ctx, segment)
         ft = ctx.field_type(self.field)
+        if isinstance(ft, RangeFieldType):
+            # point containment: the stored range must hold the term
+            v = ft.numeric_for_query(self.value)
+            return _range_pair_node(segment, self.field, v, v, "intersects",
+                                    self.boost)
         if isinstance(ft, (NumberFieldType, DateFieldType)):
             csr = _numeric_csr(segment, self.field)
             if csr is None:
@@ -657,6 +729,9 @@ class TermQueryBuilder(QueryBuilder):
             return P.ConstantScoreNode(P.NumericTermsNode(
                 docs, vals, _pad_pow2([v], np.nan, min_len=1, dtype=np.float64)
             ), self.boost)
+        if isinstance(ft, IpFieldType):
+            lo, hi = ip_bounds(self.value)
+            return _ip_set_node(segment, self.field, lo, hi, self.boost)
         token = (ft.term_for_query(self.value, ctx.analyzers)
                  if ft is not None and not isinstance(ft, TextFieldType)
                  else str(self.value))
@@ -724,6 +799,24 @@ class RangeQueryBuilder(QueryBuilder):
 
     def to_plan(self, ctx, segment):
         ft = ctx.field_type(self.field)
+        if isinstance(ft, RangeFieldType):
+            spec = {k: v for k, v in (("gte", self.gte), ("gt", self.gt),
+                                      ("lte", self.lte), ("lt", self.lt))
+                    if v is not None}
+            q_lo, q_hi = ft.parse_range(spec)
+            return _range_pair_node(segment, self.field, q_lo, q_hi,
+                                    self.relation, self.boost)
+        if isinstance(ft, IpFieldType):
+            lo, hi = -1, 1 << 128
+            if self.gte is not None:
+                lo = parse_ip(self.gte)
+            if self.gt is not None:
+                lo = parse_ip(self.gt) + 1
+            if self.lte is not None:
+                hi = parse_ip(self.lte)
+            if self.lt is not None:
+                hi = parse_ip(self.lt) - 1
+            return _ip_set_node(segment, self.field, lo, hi, self.boost)
         if isinstance(ft, (NumberFieldType, DateFieldType,
                            BooleanFieldType)) or (
             ft is None and segment.numeric_columns.get(self.field) is not None
@@ -804,6 +897,86 @@ class IdsQueryBuilder(QueryBuilder):
         mask = np.zeros(segment.nd_pad + 1, dtype=bool)
         mask[docs] = True
         return P.ConstantScoreNode(P.DenseMaskNode(mask, "ids"), self.boost)
+
+
+class GeoDistanceQueryBuilder(QueryBuilder):
+    name = "geo_distance"
+
+    def __init__(self, field: str, center, distance, **kw):
+        super().__init__(**kw)
+        self.field = field
+        self.center = GeoPointFieldType.parse_point(center)
+        self.distance_m = parse_distance(distance)
+
+    def to_plan(self, ctx, segment):
+        col = segment.geo_columns.get(self.field)
+        if col is None:
+            return P.MatchNoneNode()
+        docs, lat, lon = _geo_csr(segment, self.field, col)
+        return P.ConstantScoreNode(P.GeoDistanceNode(
+            docs, lat, lon, self.center[0], self.center[1], self.distance_m
+        ), self.boost)
+
+
+def _geo_csr(segment, field, col):
+    return (segment.device_column(f"geo.{field}.docs", lambda: col.flat_docs),
+            segment.device_column(f"geo.{field}.lat", lambda: col.lat),
+            segment.device_column(f"geo.{field}.lon", lambda: col.lon))
+
+
+class GeoBoundingBoxQueryBuilder(QueryBuilder):
+    name = "geo_bounding_box"
+
+    def __init__(self, field: str, top_left, bottom_right, **kw):
+        super().__init__(**kw)
+        self.field = field
+        self.top, self.left = GeoPointFieldType.parse_point(top_left)
+        self.bottom, self.right = GeoPointFieldType.parse_point(bottom_right)
+
+    def to_plan(self, ctx, segment):
+        col = segment.geo_columns.get(self.field)
+        if col is None:
+            return P.MatchNoneNode()
+        docs, lat, lon = _geo_csr(segment, self.field, col)
+        return P.ConstantScoreNode(P.GeoBoxNode(
+            docs, lat, lon, self.top, self.left, self.bottom, self.right
+        ), self.boost)
+
+
+class GeoPolygonQueryBuilder(QueryBuilder):
+    """Docs with a point inside the polygon: a ray cast on the host over
+    the geo column, vectorized over the points an edge, into a dense
+    mask."""
+
+    name = "geo_polygon"
+
+    def __init__(self, field: str, points, **kw):
+        super().__init__(**kw)
+        self.field = field
+        if not points or len(points) < 3:
+            raise ParsingException("too few points defined for geo_polygon query")
+        self.points = [GeoPointFieldType.parse_point(p) for p in points]
+
+    def to_plan(self, ctx, segment):
+        col = segment.geo_columns.get(self.field)
+        if col is None:
+            return P.MatchNoneNode()
+        n = col.count
+        lat = col.lat[:n].astype(np.float64)
+        lon = col.lon[:n].astype(np.float64)
+        inside = np.zeros(n, dtype=bool)
+        # count the edge crossings of a ray along the latitude line
+        pts = self.points + [self.points[0]]
+        for (lat1, lon1), (lat2, lon2) in zip(pts[:-1], pts[1:]):
+            cond = (lat1 > lat) != (lat2 > lat)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                x = (lon2 - lon1) * (lat - lat1) / (lat2 - lat1) + lon1
+            inside ^= cond & (lon < x)
+        mask = np.zeros(segment.nd_pad + 1, dtype=bool)
+        mask[col.flat_docs[:n][inside]] = True
+        mask[segment.nd_pad] = False
+        return P.ConstantScoreNode(P.DenseMaskNode(mask, "geo_polygon"),
+                                   self.boost)
 
 
 def _prefix_terms(segment, field: str, prefix: str) -> List[str]:
@@ -1240,6 +1413,14 @@ class MoreLikeThisQueryBuilder(QueryBuilder):
 # ---------------------------------------------------------------------------
 
 
+def parse_distance(d) -> float:
+    """'10km', '500m' or a number of meters -> meters: one unit table for
+    the geo_distance query and the _geo_distance sort."""
+    from elasticsearch_tpu_torch.utils.geometry import _parse_radius
+
+    return _parse_radius(d)
+
+
 def parse_min_should_match(spec, n_clauses: int) -> int:
     """'2', '30%', '-25%' -> concrete clause count (Queries.calculateMinShouldMatch)."""
     if spec is None:
@@ -1425,6 +1606,32 @@ def parse_query(body) -> QueryBuilder:
             lenient=bool(qbody.get("lenient", False)),
             boost=float(qbody.get("boost", 1.0)),
         )
+    if qtype == "geo_distance":
+        params = dict(qbody)
+        distance = params.pop("distance")
+        params.pop("distance_type", None)
+        params.pop("validation_method", None)
+        if len(params) != 1:
+            raise ParsingException("[geo_distance] requires exactly one field")
+        field, center = next(iter(params.items()))
+        return GeoDistanceQueryBuilder(field, center, distance)
+    if qtype == "geo_bounding_box":
+        params = dict(qbody)
+        params.pop("validation_method", None)
+        params.pop("type", None)
+        if len(params) != 1:
+            raise ParsingException(
+                "[geo_bounding_box] requires exactly one field")
+        field, box = next(iter(params.items()))
+        return GeoBoundingBoxQueryBuilder(field, box["top_left"],
+                                          box["bottom_right"])
+    if qtype == "geo_polygon":
+        params = dict(qbody)
+        params.pop("validation_method", None)
+        if len(params) != 1:
+            raise ParsingException("[geo_polygon] requires exactly one field")
+        field, spec = next(iter(params.items()))
+        return GeoPolygonQueryBuilder(field, spec.get("points") or [])
     if qtype == "more_like_this":
         return MoreLikeThisQueryBuilder(
             qbody.get("fields", []), qbody.get("like", []),

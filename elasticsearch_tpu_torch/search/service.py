@@ -19,10 +19,12 @@ Counterpart of ``elasticsearch_tpu/search/service.py``:
 
 Sort keys, the missing fills and the string sentinels, ``search_after``,
 ``resolve_slice``, rescore, collapse and the plain and unified
-highlighters follow the JAX package line for line. ``_geo_distance`` and
-nested sorts, profile, suggest, ``stored_fields``, ``docvalue_fields``
-and ``script_fields`` are later slices, and a request carrying one
-raises.
+highlighters follow the JAX package line for line. A ``_geo_distance``
+sort is a float64 haversine on the host (``_geo_distance_sort_values``,
+the 6371008.7714 m radius), a doc without the field +inf in either
+order. Nested sorts, profile, suggest, ``stored_fields``,
+``docvalue_fields`` and ``script_fields`` are later slices, and a
+request carrying one raises.
 """
 
 from __future__ import annotations
@@ -43,7 +45,10 @@ from elasticsearch_tpu_torch.common.errors import (
     ParsingException,
     QueryPhaseExecutionException,
 )
-from elasticsearch_tpu_torch.mapper.field_types import TextFieldType
+from elasticsearch_tpu_torch.mapper.field_types import (
+    GeoPointFieldType,
+    TextFieldType,
+)
 from elasticsearch_tpu_torch.ops.scoring import select_topk
 from elasticsearch_tpu_torch.search import plan as P
 from elasticsearch_tpu_torch.search.aggregations import (
@@ -52,6 +57,7 @@ from elasticsearch_tpu_torch.search.aggregations import (
 )
 from elasticsearch_tpu_torch.search.query_dsl import (
     ShardQueryContext,
+    parse_distance,
     parse_query,
 )
 from elasticsearch_tpu_torch.utils.murmur3 import hash_slice_ids
@@ -341,6 +347,8 @@ class ShardSearcher:
                 raw = scores[: seg.nd_pad].astype(np.float64)
             elif field_name == "_doc":
                 raw = np.arange(seg.nd_pad, dtype=np.float64)
+            elif field_name == "_geo_distance":
+                raw = _geo_distance_sort_values(seg, missing)
             else:
                 col = seg.numeric_columns.get(field_name)
                 if col is not None:
@@ -410,6 +418,44 @@ class ShardSearcher:
             oriented.append(np.clip(raw if order == "desc" else -raw,
                                     -1e300, 1e300))
         return oriented, raw_arrays
+
+
+def _geo_distance_sort_values(seg, spec: dict) -> np.ndarray:
+    """Each doc's arc distance to the reference point(s) in ``unit_m``
+    units: float64 haversine with the 6371008.7714 m radius, each stored
+    point's least distance over the reference points, reduced over a
+    doc's points by ``mode`` (min, max, sum, avg); a doc without the
+    field +inf."""
+    col = seg.geo_columns.get(spec["field"])
+    mode = spec.get("mode", "min")
+    out = np.full(seg.nd_pad, np.inf, dtype=np.float64)
+    if col is not None:
+        n = col.count
+        lat = np.radians(col.lat[:n].astype(np.float64))
+        lon = np.radians(col.lon[:n].astype(np.float64))
+        per_val = np.full(n, np.inf, dtype=np.float64)
+        for plat, plon in spec["points"]:
+            plat_r, plon_r = np.radians(plat), np.radians(plon)
+            a = (np.sin((lat - plat_r) / 2.0) ** 2
+                 + np.cos(lat) * np.cos(plat_r)
+                 * np.sin((lon - plon_r) / 2.0) ** 2)
+            d = 2.0 * 6371008.7714 * np.arcsin(np.sqrt(np.clip(a, 0.0, 1.0)))
+            per_val = np.minimum(per_val, d)
+        docs = col.flat_docs[:n]
+        if mode == "min":
+            np.minimum.at(out, docs, per_val)
+        elif mode == "max":
+            neg = np.full(seg.nd_pad, -np.inf, dtype=np.float64)
+            np.maximum.at(neg, docs, per_val)
+            out = np.where(np.isfinite(neg), neg, np.inf)
+        else:  # sum, avg
+            tot = np.zeros(seg.nd_pad, dtype=np.float64)
+            cnt = np.zeros(seg.nd_pad, dtype=np.float64)
+            np.add.at(tot, docs, per_val)
+            np.add.at(cnt, docs, 1.0)
+            vals = tot / np.maximum(cnt, 1.0) if mode == "avg" else tot
+            out = np.where(cnt > 0, vals, np.inf)
+    return out / float(spec["unit_m"])
 
 
 def slice_mask(seg, sid: int, smax: int) -> np.ndarray:
@@ -500,6 +546,10 @@ def _search_after_mask(key_arrays, sort_spec, after_values) -> np.ndarray:
         if arr.dtype == object:  # keyword sort: string comparisons
             a = (_missing_fill_str(missing, order) if after is None
                  else str(after))
+        elif isinstance(missing, dict):
+            # _geo_distance: the missing slot carries the geo spec, and a
+            # doc without a point fills +inf in either order
+            a = np.inf if after is None else float(after)
         else:
             a = (_missing_fill(missing, order)
                  if after is None else float(after))
@@ -646,8 +696,9 @@ def validate_collapse(body: dict) -> Optional[str]:
 
 def normalize_sort(sort_body) -> Optional[List[Tuple[str, str, Any]]]:
     """-> [(field, order, missing)], or None for relevance (a lone
-    ``_score`` sort included). ``_geo_distance`` and nested sorts raise:
-    their columns are not staged by the port yet."""
+    ``_score`` sort included). A ``_geo_distance`` entry carries its spec
+    (field, points, ``unit_m``, mode) in the missing slot. Nested sorts
+    raise: their columns are not staged by the port yet."""
     if sort_body is None:
         return None
     if not isinstance(sort_body, list):
@@ -661,12 +712,13 @@ def normalize_sort(sort_body) -> Optional[List[Tuple[str, str, Any]]]:
                 out.append((entry, "asc", None))
         elif isinstance(entry, dict):
             ((fname, spec),) = entry.items()
-            if fname == "_geo_distance" or (isinstance(spec, dict) and (
-                    "nested" in spec or "nested_path" in spec)):
-                kind = ("[_geo_distance]" if fname == "_geo_distance"
-                        else "nested")
+            if fname == "_geo_distance":
+                out.append(("_geo_distance",) + _geo_sort_spec(spec))
+                continue
+            if isinstance(spec, dict) and (
+                    "nested" in spec or "nested_path" in spec):
                 raise IllegalArgumentException(
-                    f"{kind} sort is not supported by the PyTorch port yet")
+                    "nested sort is not supported by the PyTorch port yet")
             if isinstance(spec, str):
                 out.append((fname, spec, None))
             else:
@@ -680,6 +732,33 @@ def normalize_sort(sort_body) -> Optional[List[Tuple[str, str, Any]]]:
     if len(out) == 1 and out[0][0] == "_score":
         return None  # plain relevance
     return out
+
+
+def _geo_sort_spec(spec: dict) -> tuple:
+    """A ``_geo_distance`` sort entry -> (order, geo spec): ``order``,
+    ``unit``, ``mode`` (min for asc, max for desc by default; sum and avg
+    too), one or several points; the distance type, validation and nested
+    keys are accepted and ignored."""
+    params = dict(spec)
+    order = params.pop("order", "asc")
+    unit = params.pop("unit", "m")
+    mode = params.pop("mode", "min" if order == "asc" else "max")
+    if mode not in ("min", "max", "sum", "avg"):
+        raise ParsingException(
+            f"Unsupported sort mode [{mode}] for [_geo_distance]")
+    for k in ("distance_type", "validation_method", "ignore_unmapped",
+              "nested_path", "nested"):
+        params.pop(k, None)
+    if len(params) != 1:
+        raise ParsingException(
+            "[_geo_distance] sort requires exactly one field")
+    ((gfield, pts),) = params.items()
+    if not isinstance(pts, list) or (
+            pts and isinstance(pts[0], (int, float))):
+        pts = [pts]
+    return order, {"field": gfield,
+                   "points": [GeoPointFieldType.parse_point(p) for p in pts],
+                   "unit_m": parse_distance(f"1{unit}"), "mode": mode}
 
 
 def merge_refs(refs: List[DocRef], sort_spec, k: int) -> List[DocRef]:

@@ -365,13 +365,11 @@ def test_date_and_boolean_mapping(nodes):
 
 def test_unported_aggregations_raise(nodes):
     _, tn = nodes
-    for aggs in ({"g": {"geo_bounds": {"field": "venue"}}},
-                 {"n": {"nested": {"path": "x"}}},
+    for aggs in ({"n": {"nested": {"path": "x"}}},
+                 {"r": {"reverse_nested": {}}},
                  {"s": {"scripted_metric": {"map_script": "1"}}},
                  {"v": {"terms": {"field": "venue"},
-                        "aggs": {"c": {"children": {"type": "x"}}}}},
-                 # text fielddata (the JAX package builds it from postings)
-                 {"t": {"terms": {"field": "title"}}}):
+                        "aggs": {"c": {"children": {"type": "x"}}}}}):
         with pytest.raises(ParsingException):
             tn.search("aggs", {"size": 0, "aggs": aggs})
 

@@ -11,6 +11,8 @@ no larger than it began, and both packages' breaker limits are reset
 after each test.
 """
 
+import re
+
 import pytest
 
 from elasticsearch_tpu.common import breaker as jbreaker
@@ -126,12 +128,22 @@ def test_request_breaker_trips_aggregations_as_429():
     jn, tn = _nodes({"indices.breaker.total.limit": "5kb",
                      "indices.breaker.request.limit": "2kb"})
     try:
+        # each package's request breaker is process-wide: another test
+        # file in this worker may have left bytes on either one, so each
+        # message is read against its own breaker's bytes before the trip
+        ju = jn.breaker_service.get_breaker("request").used_bytes
+        tu = tn.breaker_service.get_breaker("request").used_bytes
         with pytest.raises(JCircuitBreakingException) as je:
             jn.search("tbrk_logs", dict(AGG))
         with pytest.raises(TCircuitBreakingException) as te:
             tn.search("tbrk_logs", dict(AGG))
         assert te.value.status_code == je.value.status_code == 429
-        assert str(te.value) == str(je.value)
+        wanted = [int(re.search(r"would be \[(\d+)/", str(e.value))[1])
+                  for e in (je, te)]
+        # the same estimate, the same message
+        assert wanted[1] - tu == wanted[0] - ju
+        assert str(te.value) == str(je.value).replace(
+            f"[{wanted[0]}/{wanted[0]}b]", f"[{wanted[1]}/{wanted[1]}b]")
         assert te.value.to_dict()["error"]["type"] == \
             "circuit_breaking_exception"
         # the failed reservation held nothing

@@ -295,7 +295,7 @@ def test_search_dates_and_aggregations(servers):
          status=400)
     _jn, tn, _jport, tport = servers
     st, _, r = call(tport, "POST", "/ev/_search", {
-        "aggs": {"g": {"geohash_grid": {"field": "when"}}}})
+        "aggs": {"g": {"nested": {"path": "when"}}}})
     assert st == 400 and "PyTorch port" in r["error"]["reason"]
     both(servers, "DELETE", "/ev", status=200)
 

@@ -186,11 +186,14 @@ def test_unported_requests_raise(nodes):
     with pytest.raises(ParsingException):
         tn.search("idx", {"query": {"span_term": {"title": "w1"}}})
     with pytest.raises(ParsingException):
-        tn.search("idx", {"size": 0, "aggs": {"g": {"geohash_grid": {
-            "field": "venue", "precision": 3}}}})
+        tn.search("idx", {"query": {"geo_shape": {"loc": {"shape": {
+            "type": "point", "coordinates": [0.0, 0.0]}}}}})
+    with pytest.raises(ParsingException):
+        tn.search("idx", {"size": 0, "aggs": {"n": {"nested": {
+            "path": "x"}}}})
     with pytest.raises(IllegalArgumentException):
         tn.search("idx", {"query": {"match_all": {}}, "sort": [
-            {"_geo_distance": {"loc": [0.0, 0.0], "order": "asc"}}]})
+            {"year": {"order": "asc", "nested_path": "x"}}]})
     with pytest.raises(IllegalArgumentException):
         tn.search("idx", {"query": {"match_all": {}}, "profile": True})
 

@@ -285,9 +285,9 @@ def test_delete_docs_restages_every_live_layout():
 def test_unported_field_type_raises():
     m = MapperService(AnalysisRegistry())
     with pytest.raises(MapperParsingException):
-        MapperService(AnalysisRegistry(), {"properties": {"a": {"type": "ip"}}})
+        MapperService(AnalysisRegistry(), {"properties": {"a": {"type": "join"}}})
     with pytest.raises(MapperParsingException):
-        MapperService(AnalysisRegistry(), {"properties": {"g": {"type": "geo_point"}}})
+        MapperService(AnalysisRegistry(), {"properties": {"g": {"type": "geo_shape"}}})
 
 
 def test_routing_hash_matches_jax():

@@ -527,8 +527,15 @@ def test_geo_and_nested_sorts_raise():
     )
     from elasticsearch_tpu_torch.search.service import normalize_sort
 
-    with pytest.raises(IllegalArgumentException, match="PyTorch port"):
-        normalize_sort([{"_geo_distance": {"loc": [0, 0]}}])
+    from elasticsearch_tpu.search.service import normalize_sort as jnormalize
+
+    # a _geo_distance sort is ported: its spec rides in the missing slot,
+    # as in the JAX package
+    for spec in ({"loc": [0, 0]},
+                 {"loc": [{"lat": 1, "lon": 2}, "3,4"], "order": "desc",
+                  "unit": "km", "mode": "avg", "distance_type": "arc"}):
+        assert normalize_sort([{"_geo_distance": dict(spec)}]) == \
+            jnormalize([{"_geo_distance": dict(spec)}])
     with pytest.raises(IllegalArgumentException, match="PyTorch port"):
         normalize_sort([{"a.b": {"order": "asc", "nested_path": "a"}}])
     assert normalize_sort("_score") is None

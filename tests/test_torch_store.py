@@ -5,10 +5,14 @@ cosine ``dense_vector``) are parsed and sealed by each package's own
 mapper and ``SegmentBuilder``. A segment directory each package writes
 must read back in the other with every array equal, dtype included
 (doc values ``float64``, vectors the bf16-grid ``float32`` mirror), and
-the same ``meta.json`` keys. Commit points round-trip; a checksum
-mismatch, a missing or torn file and a corruption marker refuse the load
-with ``CorruptIndexException``; data the port cannot hold (geo, shapes,
-nested, ``_parent``) refuses it naming the kind.
+the same ``meta.json`` keys; so must a segment of the field types the
+port added (geo points, ip, the range family, token_count, short, byte,
+half and scaled floats, binary, murmur3 and text fielddata), and a data
+path holding geo and range data serves the same answers in either
+package. Commit points round-trip; a checksum mismatch, a missing or torn
+file and a corruption marker refuse the load with
+``CorruptIndexException``; data the port cannot hold (shapes, nested,
+``_parent``) refuses it naming the kind.
 """
 
 import json
@@ -56,8 +60,51 @@ def seeded_docs(n=60, seed=17):
     return docs
 
 
-def jax_segment(name="i_0_seg_1", docs=None):
-    mapper = JMapper(JAnalysis(None), MAPPING)
+NEW_TYPES_MAPPING = {"properties": {
+    "title": {"type": "text", "fielddata": True,
+              "fields": {"length": {"type": "token_count"}}},
+    "loc": {"type": "geo_point"},
+    "ip": {"type": "ip"},
+    "span": {"type": "integer_range"},
+    "window": {"type": "date_range"},
+    "net": {"type": "ip_range"},
+    "temp": {"type": "double_range"},
+    "s": {"type": "short"},
+    "b": {"type": "byte"},
+    "h": {"type": "half_float"},
+    "price": {"type": "scaled_float", "scaling_factor": 100},
+    "blob": {"type": "binary", "doc_values": True},
+    "tag": {"type": "keyword", "fields": {"hash": {"type": "murmur3"}}},
+}}
+
+
+def new_types_docs(n=50, seed=23):
+    rng = np.random.RandomState(seed)
+    docs = []
+    for i in range(n):
+        src = {"title": " ".join(f"w{int(x)}" for x in
+                                 rng.randint(0, 20, rng.randint(1, 8))),
+               "s": int(rng.randint(-300, 300)), "b": int(rng.randint(-9, 9)),
+               "h": float(rng.rand()), "price": float(rng.rand() * 50),
+               "tag": f"k{i % 6}", "blob": "aGVsbG8="}
+        k = i % 4
+        if k:
+            pts = [{"lat": float(rng.uniform(-80, 80)),
+                    "lon": float(rng.uniform(-170, 170))} for _ in range(k)]
+            src["loc"] = pts if k > 1 else f"{pts[0]['lat']},{pts[0]['lon']}"
+        if i % 5:
+            src["ip"] = (f"10.0.{i % 3}.{i}" if i % 2 else f"2001:db8::{i:x}")
+            lo = int(rng.randint(0, 50))
+            src["span"] = [{"gte": lo, "lt": lo + 9}, {"gt": lo + 20}]
+            src["window"] = {"gte": f"2023-0{1 + i % 9}-01", "lte": "2023-12-31"}
+            src["net"] = "192.168.0.0/16"
+            src["temp"] = {"gt": -1.5, "lte": float(rng.rand())}
+        docs.append((f"n{i}", src))
+    return docs
+
+
+def jax_segment(name="i_0_seg_1", docs=None, mapping=MAPPING):
+    mapper = JMapper(JAnalysis(None), mapping)
     b = JBuilder(name)
     for s, (doc_id, src) in enumerate(docs or seeded_docs()):
         b.add_document(mapper.parse_document(doc_id, src, None), s, 1)
@@ -66,8 +113,8 @@ def jax_segment(name="i_0_seg_1", docs=None):
     return seg
 
 
-def torch_segment(name="i_0_seg_1", docs=None):
-    mapper = MapperService(AnalysisRegistry(None), MAPPING)
+def torch_segment(name="i_0_seg_1", docs=None, mapping=MAPPING):
+    mapper = MapperService(AnalysisRegistry(None), mapping)
     b = SegmentBuilder(name, device="cpu")
     for s, (doc_id, src) in enumerate(docs or seeded_docs()):
         b.add_document(mapper.parse_document(doc_id, src, None), s, 1)
@@ -91,6 +138,10 @@ def seg_arrays(seg):
     for f, c in seg.vector_columns.items():
         out[f"vec.{f}.vectors"] = c.vectors
         out[f"vec.{f}.exists"] = c.exists
+    for f, c in seg.geo_columns.items():
+        for k in ("lat", "lon", "flat_docs", "first_lat", "first_lon",
+                  "exists"):
+            out[f"geo.{f}.{k}"] = getattr(c, k)
     for f, m in seg.exists_masks.items():
         out[f"exists.{f}"] = m
     return out
@@ -108,6 +159,7 @@ def seg_meta(seg):
                            for f, c in seg.numeric_columns.items()},
         "vector_info": {f: (c.dims, c.count)
                         for f, c in seg.vector_columns.items()},
+        "geo_counts": {f: c.count for f, c in seg.geo_columns.items()},
     }
 
 
@@ -147,8 +199,43 @@ def test_segment_written_by_one_reads_in_the_other(tmp_path, writer):
     assert back.vector_columns["emb"].vectors.dtype == np.float32
 
 
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_new_field_types_round_trip_both_ways(tmp_path, writer):
+    """Geo points, ip, ranges, token counts, the scalar types, binary,
+    murmur3 and text fielddata seal to the same arrays in both packages,
+    and a segment one package writes reads back whole in the other."""
+    docs = new_types_docs()
+    seg_j = jax_segment(docs=docs, mapping=NEW_TYPES_MAPPING)
+    seg_t = torch_segment(docs=docs, mapping=NEW_TYPES_MAPPING)
+    assert_same_segment(seg_j, seg_t)
+    assert set(seg_t.geo_columns) == {"loc"}
+    assert {"span#lo", "span#hi", "title.length", "tag.hash"} \
+        <= set(seg_t.numeric_columns)
+    assert {"ip", "blob", "title"} <= set(seg_t.ordinal_columns)
+    if writer == "jax":
+        jstore.Store(str(tmp_path)).write_segment(seg_j)
+        jstore.Store(str(tmp_path))._refresh_live(
+            seg_j, str(tmp_path / seg_j.name))
+        back = tstore.Store(str(tmp_path)).read_segment(seg_j.name, "cpu")
+    else:
+        tstore.Store(str(tmp_path)).write_segment(seg_t)
+        back = jstore.Store(str(tmp_path)).read_segment(seg_t.name)
+    assert_same_segment(seg_j, back)
+    assert back.geo_columns["loc"].lat.dtype == np.float32
+
+
+def test_new_field_types_write_the_jax_layout(tmp_path):
+    docs = new_types_docs()
+    check_jax_layout(tmp_path,
+                     jax_segment(docs=docs, mapping=NEW_TYPES_MAPPING),
+                     torch_segment(docs=docs, mapping=NEW_TYPES_MAPPING))
+
+
 def test_segment_files_and_meta_keys_match_jax(tmp_path):
-    seg_j, seg_t = jax_segment(), torch_segment()
+    check_jax_layout(tmp_path, jax_segment(), torch_segment())
+
+
+def check_jax_layout(tmp_path, seg_j, seg_t):
     jstore.Store(str(tmp_path / "j")).write_segment(seg_j)
     tstore.Store(str(tmp_path / "t")).write_segment(seg_t)
     jd, td = tmp_path / "j" / seg_j.name, tmp_path / "t" / seg_t.name
@@ -324,7 +411,8 @@ def test_wrong_dtype_raises(tmp_path):
                                   "_parent"])
 def test_unported_columns_refuse_the_load(tmp_path, kind):
     """A JAX segment with a column the port has no type for fails the
-    load naming the kind; it never opens without that column."""
+    load naming the kind; it never opens without that column. Geo points
+    are ported: that segment loads with its column."""
     mapping = {"properties": {"title": {"type": "text"},
                               "loc": {"type": "geo_point"},
                               "area": {"type": "geo_shape"},
@@ -344,6 +432,13 @@ def test_unported_columns_refuse_the_load(tmp_path, kind):
                    parent="p1" if kind == "_parent" else None)
     seg = b.seal()
     jstore.Store(str(tmp_path)).commit([seg], 0)
+    if kind == "geo_point":
+        back, = tstore.Store(str(tmp_path)).load_segments("cpu")
+        col, jcol = back.geo_columns["loc"], seg.geo_columns["loc"]
+        for k in ("lat", "lon", "flat_docs", "first_lat", "first_lon",
+                  "exists"):
+            np.testing.assert_array_equal(getattr(col, k), getattr(jcol, k))
+        return
     with pytest.raises(tstore.CorruptIndexException, match=kind):
         tstore.Store(str(tmp_path)).load_segments("cpu")
 
@@ -418,3 +513,65 @@ def test_loaded_positions_parse_on_first_access(tmp_path):
         for doc, pos in per_doc.items():
             np.testing.assert_array_equal(back.positions[tid][doc], pos)
             assert back.positions[tid][doc].dtype == np.int32
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_geo_data_path_serves_the_same_answers_in_both(tmp_path, writer):
+    """A node of one package indexes geo, ip and range docs and closes; a
+    node of the other opens its data path and answers the geo queries,
+    the geo sort, the range relations and the geo aggregations as the
+    writer did (ip term and range aside: ROADMAP C12)."""
+    from elasticsearch_tpu.common.settings import Settings as JSettings
+    from elasticsearch_tpu.node import Node as JNode
+    from elasticsearch_tpu_torch.node import Node
+
+    path = str(tmp_path / "data")
+
+    def make(kind):
+        if kind == "jax":
+            return JNode(JSettings({"search.compile.warm_on_start": False}),
+                         data_path=path)
+        return Node(data_path=path, device="cpu")
+
+    bodies = [
+        {"query": {"geo_distance": {"distance": "2000km",
+                                    "loc": {"lat": 10, "lon": 10}}},
+         "size": 60},
+        {"query": {"geo_bounding_box": {"loc": {
+            "top_left": {"lat": 60, "lon": -100},
+            "bottom_right": {"lat": -20, "lon": 40}}}}, "size": 60},
+        {"query": {"range": {"span": {"gte": 10, "lte": 30,
+                                      "relation": "within"}}}, "size": 60},
+        {"query": {"term": {"window": "2023-06-15"}}, "size": 60},
+        {"query": {"match_all": {}}, "size": 60, "sort": [
+            {"_geo_distance": {"loc": [0, 0], "order": "asc"}}]},
+        {"size": 0, "aggs": {
+            "b": {"geo_bounds": {"field": "loc"}},
+            "c": {"geo_centroid": {"field": "loc"}},
+            "g": {"geohash_grid": {"field": "loc", "precision": 2}},
+            "t": {"terms": {"field": "title"}},
+            "i": {"terms": {"field": "ip"}}}},
+    ]
+    first = make(writer)
+    try:
+        first.create_index("geo", {
+            "settings": {"number_of_shards": 1},
+            "mappings": {"_doc": NEW_TYPES_MAPPING}})
+        for i, (doc_id, src) in enumerate(new_types_docs()):
+            first.index_doc("geo", doc_id, src, refresh=(i % 20 == 19))
+        first.indices["geo"].refresh()
+        want = [first.search("geo", dict(b)) for b in bodies]
+        first.indices["geo"].flush()
+    finally:
+        first.close()
+    second = make("torch" if writer == "jax" else "jax")
+    try:
+        for b, w in zip(bodies, want):
+            got = second.search("geo", dict(b))
+            assert got["hits"]["total"] == w["hits"]["total"]
+            assert [(h["_id"], h.get("sort")) for h in got["hits"]["hits"]] \
+                == [(h["_id"], h.get("sort")) for h in w["hits"]["hits"]]
+            assert got.get("aggregations") == w.get("aggregations")
+        assert want[0]["hits"]["total"] > 0 and want[2]["hits"]["total"] > 0
+    finally:
+        second.close()
