@@ -71,11 +71,11 @@ prints no result, when there is no GPU or any check fails. Phases:
 6. The kernel summary line (with phase 11's ``rest`` entry, phase 12's
    ``aggs`` entry, phase 13's ``durability`` entry, phase 14's
    ``staging`` entry, phase 15's ``query_dsl`` entry, phase 16's
-   ``sort_paging`` entry and phase 17's ``field_types`` entry), then the
-   device line.
+   ``sort_paging`` entry, phase 17's ``field_types`` entry and phase 18's
+   ``nested`` entry), then the device line.
 
 Run between phases 2 and 3, and after phase 4 (phase 10 after phase 9,
-then phases 11, 12, 13, 14, 15, 16 and 17):
+then phases 11, 12, 13, 14, 15, 16, 17 and 18):
 
 2b. Kernels 1b (dense, q_batch=16, with and without counts) and 1c (fused
     per-tile top-k, q_batch 1 and 16, k=16) on the 1M-doc corpus, for 16
@@ -208,8 +208,9 @@ then phases 11, 12, 13, 14, 15, 16 and 17):
 13. Durability on the card, after phase 12 (``durability_phase``), every
     data path under a fresh ``tempfile.mkdtemp()`` removed at the end.
     13a: a ``Node(data_path=..., device="cuda")`` takes phase 3's first
-    10,000 docs under ``index.translog.durability: async`` and 1,000
-    under ``request`` (docs/s beside phase 3's), ``_flush``, 100 deletes,
+    5,000 docs under ``index.translog.durability: async`` and 1,000
+    under ``request`` (docs/s beside phase 3's), ``_flush``, every 100th
+    doc deleted,
     ``close()``; reopened, phase 3's requests answer byte for byte as
     before on the host rung (1a, kernel 2 and its combine held against
     plain), seqnos
@@ -268,7 +269,7 @@ then phases 11, 12, 13, 14, 15, 16 and 17):
     and every kernel-2 call (with its combine) replayed through its plain
     version; then p50 per kind on pmcq and pmcqh over two runs, each
     phrase kind's host intersection ms apart from the rest, and each
-    multi-term kind's expanded lanes. 15b: phase 3's first 10,000 docs
+    multi-term kind's expanded lanes. 15b: phase 3's first 5,000 docs
     into an
     index with a custom analyzer (html_strip, standard, lowercase, stop,
     stemmer) on ``title`` and ``english`` on ``title.en`` (docs/s beside
@@ -310,12 +311,34 @@ then phases 11, 12, 13, 14, 15, 16 and 17):
     breaker bytes, the kernel-2 gather plans over about 50,000
     ordinals, ``field_ineligible`` on the fused plane, and after
     ``DELETE`` the fielddata breaker and ``memory_allocated`` back to
-    their levels; 17f ingest-20k over ``bulk`` with every new type in
-    each accepted form and one malformed value of each kind (a 400 with
-    the JAX package's message), a flush and a restart through
-    ``Node(data_path=...)`` answering as before. Every 1a (and mesh
-    tile-form) launch and kernel-2 call held against plain; the summary
-    line's ``field_types`` entry holds the numbers.
+    their levels; 17f ingest-20k's first 5,000 docs over ``bulk`` with
+    every new type in each accepted form and one malformed value of each
+    kind (a 400 with the JAX package's message), a flush and a restart
+    through ``Node(data_path=...)`` answering as before. Every 1a (and
+    mesh tile-form) launch and kernel-2 call held against plain; the
+    summary line's ``field_types`` entry holds the numbers.
+18. Nested documents and the parent-join field on the card, after phase
+    17 (``nested_phase``): sonested-4x256k, the shape of Rally's
+    ``nested`` track (pmc-4x256k's titles as StackOverflow questions with
+    ``qid``, ``user``, 1-5 zipf ``tag``s and ``creationDate``; 0-8
+    ``answers`` as nested objects, about 1.78M, each with a zipf
+    ``answers.user`` of 200,000 and an ``answers.date``), in ``sonested``
+    (the mesh plane) and ``sonestedh`` (the host rung), and its join form
+    (the same questions as ``question`` parents and a segment a shard of
+    ``answer`` children routed by qid, about 2.8M docs) in ``sojoin`` /
+    ``sojoinh``, each request against a cpu node's twin. 18a nested
+    queries alone and under a match, every score_mode, inner_hits; 18b
+    nested sorts (host rung, ``sort_ineligible``) and 10 search_after
+    pages against one request; 18c nested date_histogram and nested
+    terms -> reverse_nested -> terms (``unsupported_agg``), the kernel-2
+    plans over the users' ordinals; 18d has_child, has_parent, parent_id,
+    inner_hits, children -> terms, ROADMAP C13 on both indices, the
+    join's own host ms; 18e deletes, a 4 x 4,096-question append and
+    ``memory_allocated`` and the ledger after ``DELETE``; 18f bulk ingest
+    of the nested, join and legacy ``_parent`` forms with one malformed
+    doc of each kind, a force merge, a restart and ``stored_fields=
+    _parent``. Every 1a, kernel-2 and kernel-3 launch held against plain;
+    the summary line's ``nested`` entry holds the numbers.
 """
 
 from __future__ import annotations
@@ -346,10 +369,13 @@ INGEST_DOCS = 20_000
 # 13a's request-durability index: the first of phase 3's docs, one fsync
 # pair an op (its rate needs no more)
 REQUEST_DURABLE_DOCS = 1_000
-# 13a's async ingest and 15b's analyzed ingest: phase 3's first 10,000
-# docs (cut from 20,000 to keep the script's time as phase 17 joined)
-ASYNC_DURABLE_DOCS = 10_000
-ANALYZED_DOCS = 10_000
+# 13a's async ingest, 15b's analyzed ingest and 17f's ingest with the
+# field types: phase 3's first 5,000 docs (cut from 20,000 to 10,000 as
+# phase 17 joined, and to 5,000 as phase 18 joined, to keep the script's
+# time)
+ASYNC_DURABLE_DOCS = 5_000
+ANALYZED_DOCS = 5_000
+GEO_INGEST_DOCS = 5_000
 # pmc-4x256k: four shards of one 262,144-doc segment each (seeds 7-10)
 MESH_SHARD_DOCS = 262_144
 MESH_SEEDS = (7, 8, 9, 10)
@@ -4114,11 +4140,10 @@ def aggs_phase(torch, Node, Segment, cuda_kernels, tsc, queries, lat,
                            cnode.indices["agg4"])
     check(not any(fails), f"phase 12: zero plane faults (got {fails})")
 
-    # the p50s: 3 more runs of the dashboard kinds, 2 of the others but
-    # the slowest (pipelines, about 1.2 s a request: one), per index
+    # the p50s: 2 more runs of the dashboard kinds, 1 of the others (cut
+    # from 3 and 2 as phase 18 joined), per index
     for kind, body, _reason in reqs:
-        reps = (3 if kind.startswith("dashboard")
-                else 1 if kind == "pipelines" else 2)
+        reps = 2 if kind.startswith("dashboard") else 1
         for name in indices:
             xs = []
             for _ in range(reps):
@@ -4302,11 +4327,12 @@ def durability_phase(torch, Node, cuda_kernels, tsc, ops, inproc_rate, reqs3,
     ``tempfile.mkdtemp()``, removed at the end.
 
     13a. A ``Node(data_path=..., device="cuda")`` takes phase 3's first
-         10,000 docs in bulks of 1,000 under
+         5,000 docs in bulks of 1,000 under
          ``index.translog.durability: async``
          and the first 1,000 into a second index under ``request`` (one
          fsync per op): docs/s for each beside phase 3's in-memory rate.
-         ``_flush``, 100 deletes, phase 3's requests recorded, ``close()``;
+         ``_flush``, every 100th doc deleted, phase 3's requests
+         recorded, ``close()``;
          a new Node over the path answers them equal byte for byte (bar
          ``took``) on the host rung, every launch (1a, kernel 2 and its
          combine pass) held against plain; each shard's next ``_seq_no`` continues from its
@@ -5377,7 +5403,9 @@ def staging_phase(torch, Segment, cuda_kernels, tsc, ssum, knn, reqs7,
 # docs (the field missing there), under an LM-Dirichlet similarity
 QDSL_ABSTRACT_SEEDS = (17, 18, 19, 20)
 QDSL_EMPTY_SHARE = 0.03
-QDSL_REPS = 2  # samples a kind and twin: the main path's run and one more
+# samples a kind and twin: the main path's run (one more until phase 18
+# joined)
+QDSL_REPS = 1
 
 
 def stream_positions(torch, tokens, doc_len, tid_base):
@@ -5747,8 +5775,8 @@ def query_dsl_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, queries,
           f"phase 15 match_phrase total {got} == the bigram count of the "
           f"token streams {want}")
     # the latency of each kind: the main path's run and QDSL_REPS - 1 more
-    # on each card twin (after the main path's count; p50 of two runs is
-    # their mean), the phrase intersection timed apart
+    # on each card twin (after the main path's count), the phrase
+    # intersection timed apart
     t0 = time.perf_counter()
     with timing_phrase_intersections(Q) as spent:
         for kind, body in reqs:
@@ -6427,7 +6455,9 @@ GEO_CENTRES = 500
 GEO_SIGMA_DEG = 12.5 / 111.2  # about 50 km across (two sigma each way)
 IP_POOL = 50_000
 IP_V6_SHARE = 0.10
-GEO_REPS = 2  # samples a 17a-17e kind and index (the main path's and one)
+# samples a 17a-17e kind and index: the main path's (one more until phase
+# 18 joined)
+GEO_REPS = 1
 GEO_PAGE = 100  # 17b's page
 GEO_PAGES = 10
 GEO_BREAKER = {"indices.breaker.total.limit": "16gb",
@@ -6605,7 +6635,8 @@ def geo_fields_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, queries,
          every doc: the fielddata breaker's bytes, each segment's build
          ms, the kernel-2 plans of the gather over about 50,000
          ordinals; the fused plane declines with ``field_ineligible``.
-    17f. ingest-20k over ``bulk`` with every new type in each accepted
+    17f. ingest-20k's first 5,000 docs over ``bulk`` with every new type
+         in each accepted
          form and one malformed value of each kind (a 400 with the JAX
          package's message), a flush and a restart through
          ``Node(data_path=...)``: the reopened node answers 17a-17d's kinds
@@ -7103,7 +7134,7 @@ GEO_BAD_VALUES = [
 
 
 def geo_ingest_phase(torch, Node, Segment, ingest_ops, bodies, device):
-    """17f: phase 3's 20,000 docs (``ingest_ops``) with the new types in
+    """17f: phase 3's first 5,000 docs (``ingest_ops``) with the new types in
     each accepted form through ``bulk`` into a ``Node(data_path=...)``;
     the malformed values; a flush, a restart, and the request kinds of
     17a-17d answered as before and as a cpu node holding the same
@@ -7254,6 +7285,1156 @@ def geo_ingest_phase(torch, Node, Segment, ingest_ops, bodies, device):
         log(f"[phase 17f] flush and close {out['flush_close_s']:.1f} s, "
             f"reopen {out['reopen_s']:.1f} s; {len(kinds)} kinds equal "
             f"after the restart")
+        node.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+# ----------------------------------------------------------------------
+# Phase 18: nested documents and the parent-join field
+# ----------------------------------------------------------------------
+
+# sonested-4x256k: Rally's nested track (StackOverflow questions with their
+# answers as nested objects), one shard a pmc-4x256k segment's title
+SO_SEEDS = (21, 22, 23, 24)
+SO_T0 = 1_199_145_600_000  # 2008-01-01T00:00:00Z
+SO_T1 = 1_483_228_800_000  # 2017-01-01T00:00:00Z
+SO_DAY = 86_400_000
+SO_TAGS = 5_000
+SO_ASKERS = 50_000
+SO_USERS = 200_000  # the answerers' pool (askers are its first 50,000)
+SO_NO_ANSWER = 0.15  # the share of questions without an answer
+SO_MAX_ANSWERS = 8
+SO_REPS = 2  # samples a kind and index (the main path's run and one more)
+SO_PAGE, SO_PAGES = 100, 10
+SO_APPEND = 4096  # 18e's appended questions a shard
+SO_BULK = 10_000  # 18f's questions through bulk
+SO_JOIN_BULK = 2_000  # 18f's join-form questions through bulk
+SO_PARENT_BULK = 500  # 18f's legacy _parent children
+SO_EMB_DIMS = 16
+SO_NESTED_MAPPING = {"_doc": {"properties": {
+    "title": {"type": "text"}, "qid": {"type": "keyword"},
+    "user": {"type": "keyword"}, "tag": {"type": "keyword"},
+    "creationDate": {"type": "date"},
+    "answers": {"type": "nested", "properties": {
+        "user": {"type": "keyword"}, "date": {"type": "date"}}}}}}
+SO_JOIN_MAPPING = {"_doc": {"properties": {
+    "title": {"type": "text"}, "qid": {"type": "keyword"},
+    "user": {"type": "keyword"}, "tag": {"type": "keyword"},
+    "creationDate": {"type": "date"}, "date": {"type": "date"},
+    "qa": {"type": "join", "relations": {"question": "answer"}}}}}
+# the JAX package's 400 for one malformed doc of each kind:
+# (index, source, routing, error type, reason)
+SO_BAD_DOCS = [
+    ("soi", {"title": "bad", "answers": "oops"}, None,
+     "mapper_parsing_exception",
+     "object mapping for [answers] tried to parse field [answers] as "
+     "object, but found a concrete value"),
+    ("soj", {"qa": "comment"}, "q0", "mapper_parsing_exception",
+     "unknown join name [comment] for field [qa]"),
+    ("soj", {"qa": {"name": "answer"}}, "q0", "mapper_parsing_exception",
+     "[parent] is missing for join field [qa]"),
+    ("soj", {"qa": {"name": "answer", "parent": "q0"}}, None,
+     "illegal_argument_exception",
+     "[routing] is missing for join field [qa]: child document [bad3] must "
+     "be routed to its parent's shard"),
+]
+
+
+class _Lazy:
+    """A read-only sequence whose items are made on access (the stored
+    sources and the nested objects' ids of a full-width segment)."""
+
+    def __init__(self, n, fn):
+        self._n, self._fn = n, fn
+
+    def __len__(self):
+        return self._n
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return [self._fn(j) for j in range(*i.indices(self._n))]
+        if i < 0:
+            i += self._n
+        if not 0 <= i < self._n:
+            raise IndexError(i)
+        return self._fn(i)
+
+    def __iter__(self):
+        return (self._fn(i) for i in range(self._n))
+
+
+def _zipf_draw(rng, n_values, size):
+    p = 1.0 / np.arange(1, n_values + 1)
+    return rng.choice(n_values, size, p=p / p.sum())
+
+
+def _pow2(n):
+    p = 1
+    while p < max(n, 1):
+        p *= 2
+    return p
+
+
+def _ord_column(docs, ords, terms, nd_pad):
+    """A Segment.from_arrays ordinal column from (doc, ord) pairs over
+    sorted ``terms``: each distinct pair once, by doc then ord, against
+    the terms present (as a segment builder's column holds them)."""
+    present, ords = np.unique(ords, return_inverse=True)
+    terms = [terms[p] for p in present.tolist()]
+    key = np.unique(docs.astype(np.int64) * len(terms) + ords)
+    d = (key // len(terms)).astype(np.int32)
+    o = (key % len(terms)).astype(np.int32)
+    cap = _pow2(len(key))
+    flat_docs = np.full(cap, nd_pad, np.int32)
+    flat_docs[: len(key)] = d
+    flat_ords = np.zeros(cap, np.int32)
+    flat_ords[: len(key)] = o
+    first = np.full(nd_pad, -1, np.int32)
+    first[d[::-1]] = o[::-1]  # a doc's smallest ord wins
+    exists = np.zeros(nd_pad, bool)
+    exists[d] = True
+    return dict(terms=terms, flat_ords=flat_ords, flat_docs=flat_docs,
+                first_ord=first, exists=exists, count=len(key))
+
+
+def _keyword_postings(field, docs, ords, terms, nd_pad):
+    """A keyword field's term keys and block-packed postings (tf 1) from
+    (doc, ord) pairs, one a doc and term."""
+    from elasticsearch_tpu_torch.index.segment import FIELD_SEP
+
+    order = np.lexsort((docs, ords))
+    present, tid = np.unique(ords[order], return_inverse=True)
+    block_docs, block_tfs, start, count, df = pack_postings(
+        tid.astype(np.int64), docs[order].astype(np.int32),
+        np.ones(len(order), np.float32), len(present), nd_pad)
+    keys = [f"{field}{FIELD_SEP}{terms[p]}" for p in present]
+    return keys, start, count, df, block_docs, block_tfs
+
+
+def so_columns(sh, n, ids, seed=None):
+    """sonested's draws for the ``n`` questions of shard ``sh`` (ids
+    ``ids``): asker, 1-5 zipf tags of 5,000, the creation date (2008-2016),
+    0-8 answers (15% none, a mean near 1.7), each with a zipf user of
+    200,000 and a date after its question's."""
+    rng = np.random.RandomState(SO_SEEDS[sh] if seed is None else seed)
+    asker = _zipf_draw(rng, SO_ASKERS, n)
+    ntag = rng.randint(1, 6, n)
+    tag_docs = np.repeat(np.arange(n), ntag)
+    tags = _zipf_draw(rng, SO_TAGS, int(ntag.sum()))
+    created = SO_T0 + (rng.rand(n) * (SO_T1 - SO_T0 - 400 * SO_DAY)
+                       ).astype(np.int64)
+    k = np.where(rng.rand(n) < SO_NO_ANSWER, 0,
+                 np.minimum(rng.geometric(0.5, n), SO_MAX_ANSWERS))
+    parent_of = np.repeat(np.arange(n), k).astype(np.int32)
+    starts = np.cumsum(k) - k
+    offset_of = (np.arange(len(parent_of)) - np.repeat(starts, k)
+                 ).astype(np.int32)
+    auser = _zipf_draw(rng, SO_USERS, len(parent_of))
+    adate = created[parent_of] + rng.randint(3_600_000, 400 * SO_DAY,
+                                             len(parent_of))
+    tag_start = np.cumsum(ntag) - ntag
+    return dict(n=n, ids=ids, asker=asker, ntag=ntag, tag_docs=tag_docs,
+                tags=tags, tag_start=tag_start, created=created, k=k,
+                starts=starts, parent_of=parent_of, offset_of=offset_of,
+                auser=auser, adate=adate)
+
+
+SO_USER_TERMS = [f"u{i:06d}" for i in range(SO_USERS)]
+SO_TAG_TERMS = [f"tag{i:04d}" for i in range(SO_TAGS)]
+
+
+def _so_question(c, i):
+    a, b = int(c["tag_start"][i]), int(c["tag_start"][i] + c["ntag"][i])
+    return {"qid": c["ids"][i], "user": SO_USER_TERMS[c["asker"][i]],
+            "tag": [SO_TAG_TERMS[t] for t in c["tags"][a:b]],
+            "creationDate": int(c["created"][i])}
+
+
+def _qid_rank(c):
+    """Each question's rank in the sorted ids, and the sorted ids (once a
+    shard's draws)."""
+    if "qid_rank" not in c:
+        arr = np.asarray(c["ids"])
+        order = np.argsort(arr, kind="stable")
+        rank = np.empty(len(arr), np.int64)
+        rank[order] = np.arange(len(arr))
+        c["qid_rank"], c["qid_terms"] = rank, arr[order].tolist()
+    return c["qid_rank"], c["qid_terms"]
+
+
+def so_nested_arrays(arrays, c):
+    """The nested form's Segment.from_arrays fields: the pmc title segment
+    with sonested's root columns and its ``answers`` sub-segment."""
+    n = c["n"]
+    nd_pad = arrays["norms"].shape[1] - 1
+    m = len(c["parent_of"])
+    sub_nd = _pow2(m)
+    objs = np.arange(m)
+    keys, start, count, df, bdocs, btfs = _keyword_postings(
+        "answers.user", objs, c["auser"], SO_USER_TERMS, sub_nd)
+    norms = np.zeros((1, sub_nd + 1), np.float32)
+    norms[0, :m] = 1.0
+    norms[0, sub_nd] = 1.0
+    live = np.zeros(sub_nd, bool)
+    live[:m] = True
+    ids, parent_of, auser, adate = (c["ids"], c["parent_of"], c["auser"],
+                                    c["adate"])
+    answers = dict(
+        term_keys=keys, term_block_start=start, term_block_count=count,
+        term_doc_freq=df, block_docs=bdocs, block_tfs=btfs, norms=norms,
+        live=live,
+        field_stats={"answers.user": {"doc_count": m, "sum_ttf": m}},
+        field_norm_idx={"answers.user": 0},
+        doc_ids=_Lazy(m, lambda o: ids[parent_of[o]]),
+        sources=_Lazy(m, lambda o: {"user": SO_USER_TERMS[auser[o]],
+                                    "date": int(adate[o])}),
+        seqnos=np.full(m, -1, np.int64),
+        ordinal_columns={"answers.user": _ord_column(
+            objs, auser, SO_USER_TERMS, sub_nd)},
+        numeric_columns={"answers.date": _numeric_column(
+            adate.astype(np.float64), np.ones(m, bool), sub_nd)},
+        parent_of=parent_of, offset_of=c["offset_of"])
+    rank, qterms = _qid_rank(c)
+    qcol = _ord_column(np.arange(n), rank, qterms, nd_pad)
+    out = dict(arrays)
+    out["numeric_columns"] = {"creationDate": _numeric_column(
+        c["created"].astype(np.float64), np.ones(n, bool), nd_pad)}
+    out["ordinal_columns"] = {
+        "qid": qcol,
+        "user": _ord_column(np.arange(n), c["asker"], SO_USER_TERMS, nd_pad),
+        "tag": _ord_column(c["tag_docs"], c["tags"], SO_TAG_TERMS, nd_pad),
+        # the join form's relation (its questions are this segment)
+        "qa": _ord_column(np.arange(n), np.ones(n, np.int64),
+                          ["answer", "question"], nd_pad)}
+    starts, k = c["starts"], c["k"]
+
+    def source(i):
+        src = _so_question(c, i)
+        a = int(starts[i])
+        src["answers"] = [{"user": SO_USER_TERMS[auser[o]],
+                           "date": int(adate[o])}
+                          for o in range(a, a + int(k[i]))]
+        return src
+
+    out["sources"] = _Lazy(n, source)
+    out["nested"] = {"answers": answers}
+    return out
+
+
+def so_answer_arrays(c, sh):
+    """The join form's answers segment of a shard: each answer an
+    ``answer`` doc (ids ``s<shard>a<j>``, routed by its question's qid)
+    whose ``qa#parent`` is its question's qid, with ``user`` (postings and
+    ordinals) and ``date``. The questions are the nested form's root
+    segment, which carries the ``qa`` column too: a shard of the join
+    form holds two segments, as two refreshes leave them."""
+    m = len(c["parent_of"])
+    nd = _pow2(m)
+    docs = np.arange(m)
+    parent_of, auser, adate, ids = (c["parent_of"], c["auser"], c["adate"],
+                                    c["ids"])
+    keys, start, count, df, bdocs, btfs = _keyword_postings(
+        "user", docs, auser, SO_USER_TERMS, nd)
+    norms = np.zeros((1, nd + 1), np.float32)
+    norms[0, :m] = 1.0
+    norms[0, nd] = 1.0
+    live = np.zeros(nd, bool)
+    live[:m] = True
+    rank, qterms = _qid_rank(c)
+    parent_ids = np.asarray(ids, dtype=object)[parent_of].tolist()
+    return dict(
+        term_keys=keys, term_block_start=start, term_block_count=count,
+        term_doc_freq=df, block_docs=bdocs, block_tfs=btfs, norms=norms,
+        live=live, field_stats={"user": {"doc_count": m, "sum_ttf": m}},
+        field_norm_idx={"user": 0},
+        doc_ids=[f"s{sh}a{j}" for j in range(m)],
+        sources=_Lazy(m, lambda o: {
+            "qa": {"name": "answer", "parent": parent_ids[o]},
+            "user": SO_USER_TERMS[auser[o]], "date": int(adate[o])}),
+        routings=parent_ids,
+        numeric_columns={"date": _numeric_column(
+            adate.astype(np.float64), np.ones(m, bool), nd)},
+        ordinal_columns={
+            "qa": _ord_column(docs, np.zeros(m, np.int64),
+                              ["answer", "question"], nd),
+            "qa#parent": _ord_column(docs, rank[parent_of], qterms, nd),
+            "user": _ord_column(docs, auser, SO_USER_TERMS, nd)})
+
+
+def so_bulk_sources(n, seed, prefix):
+    """``n`` sonested questions for bulk: a title of pmc tokens, the root
+    fields, 0-8 answers, and an ``accepted`` nested object (one, with a
+    16-dim vector flattened to the root) on about half of them."""
+    rng = np.random.RandomState(seed)
+    ids = [f"{prefix}{i}" for i in range(n)]
+    c = so_columns(0, n, ids, seed=seed)
+    ranks = np.arange(1, VOCAB + 1)
+    p = (1.0 / ranks) / (1.0 / ranks).sum()
+    lens = rng.randint(5, 30, n)
+    toks = rng.choice(VOCAB, int(lens.sum()), p=p)
+    at = np.cumsum(lens) - lens
+    out = []
+    for i in range(n):
+        src = _so_question(c, i)
+        src["title"] = " ".join(term_token(int(t))
+                                for t in toks[at[i]: at[i] + lens[i]])
+        a = int(c["starts"][i])
+        if c["k"][i]:
+            src["answers"] = [{"user": SO_USER_TERMS[c["auser"][o]],
+                               "date": int(c["adate"][o])}
+                              for o in range(a, a + int(c["k"][i]))]
+        if i % 2:
+            src["accepted"] = [{"emb": [float(x) for x in
+                                        rng.randn(SO_EMB_DIMS)]}]
+        out.append((ids[i], src))
+    return out, c
+
+
+def same_inner_hits(gr, cr, what):
+    """The inner hits of equal ids: totals, ids and offsets exact, scores
+    within RTOL."""
+    ch = {h["_id"]: h for h in cr["hits"]["hits"]}
+    ok = True
+    for h in gr["hits"]["hits"]:
+        other = ch.get(h["_id"])
+        if other is None:
+            continue
+        a, b = h.get("inner_hits") or {}, other.get("inner_hits") or {}
+        ok = ok and sorted(a) == sorted(b)
+        for name in a if ok else ():
+            x, y = a[name]["hits"], b[name]["hits"]
+            ok = ok and x["total"] == y["total"] and [
+                (e["_id"], e.get("_nested")) for e in x["hits"]] == [
+                (e["_id"], e.get("_nested")) for e in y["hits"]] and (
+                not x["hits"] or np.allclose(
+                    [e["_score"] for e in x["hits"]],
+                    [e["_score"] for e in y["hits"]], rtol=RTOL))
+    check(ok, f"cuda inner hits equal cpu inner hits: {what}")
+
+
+def _kernel_table_ptrs(segments) -> set:
+    """The device addresses of the segments' staged posting tables (a
+    launch whose first argument is one of them scored that segment)."""
+    return {t.data_ptr() for seg in segments
+            for tables in seg._kernel_tables.values()
+            for key, t in tables.items() if key in ("k_docs", "k_packed")}
+
+
+def _gather_plans(torch, ssum, calls, min_ords) -> dict:
+    """The kernel-2 plan of each kept gather-form call over ``min_ords``
+    ordinals or more, with its launches, by (docs, ordinals)."""
+    plans = {}
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for args, kw, _out in calls:
+        if kw["n_ords"] < min_ords:
+            continue
+        nd = args[0].shape[0]
+        p = ssum.segment_sum_plan(nd, kw["n_ords"],
+                                  kw.get("with_count", True), False, sm)
+        g = plans.setdefault(f"nd {nd} n_ords {kw['n_ords']}", {
+            "path": p.path, "grid": p.grid, "threads": p.threads,
+            "kernels": p.kernels, "launches": 0})
+        g["launches"] += 1
+    return plans
+
+
+def _timed_wraps(Q):
+    """Wrap the join builders to clock, on the host, each join's whole
+    plan build and, inside it, its inner query's pass: the join's own host
+    ms is the difference. Returns (clocks, undo)."""
+    clocks = {"join_s": 0.0, "inner_s": 0.0}
+    saved = {}
+
+    def wrap(owner, name, key):
+        orig = getattr(owner, name)
+        saved[(owner, name)] = orig
+
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return orig(*a, **kw)
+            finally:
+                clocks[key] += time.perf_counter() - t
+        setattr(owner, name, timed)
+
+    wrap(Q, "_matched_by_relation", "inner_s")
+    wrap(Q.HasChildQueryBuilder, "to_plan", "join_s")
+    wrap(Q.HasParentQueryBuilder, "to_plan", "join_s")
+
+    def undo():
+        for (owner, name), orig in saved.items():
+            setattr(owner, name, orig)
+    return clocks, undo
+
+
+def nested_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, knn,
+                 queries, shard_arrays, errs, device="cuda"):
+    """Phase 18: nested documents and the parent-join field at full width,
+    on sonested-4x256k (Rally's ``nested`` track: pmc-4x256k's titles as
+    StackOverflow questions with ``qid``, ``user``, 1-5 zipf ``tag``s of
+    5,000 and ``creationDate``, and 0-8 ``answers`` as nested objects,
+    about 1.8M, each with a zipf ``answers.user`` of 200,000 and an
+    ``answers.date``) in ``sonested`` (the mesh plane) and ``sonestedh``
+    (the host rung), and its join form in ``sojoin`` / ``sojoinh``: the
+    same questions segment as ``question`` parents beside a segment a
+    shard of the answers as ``answer`` child docs routed by their
+    question's qid (about 2.8M docs). Every request runs twice on the
+    mesh index (its p50's samples) and once on the host twin, each held
+    against the same request on a cpu node's host-rung twin over the
+    same host arrays:
+
+    18a. Rally's randomized nested queries (``term`` answers.user and
+         ``range`` answers.date in one object) alone and under a match,
+         every score_mode, inner_hits at 3 and 100: p50, plane and
+         decision, the node and kernel that scored the inner query, the
+         1a launches on the sub-segments.
+    18b. nested sorts (answers.date max desc, min asc) under a match:
+         ``host`` with ``sort_ineligible``; 10 search_after pages of 100
+         equal one 1,000-hit request.
+    18c. nested -> date_histogram by month (Rally's nested-date-histo) and
+         nested -> terms answers.user -> reverse_nested -> terms tag, under
+         a match and over every doc: p50, the fused plane's decision, the
+         kernel-2 plans over the sub-segments' user ordinals.
+    18d. has_child (term on an answer's user; score_mode none, max, sum;
+         min_children 2), has_parent (a match on title, score), parent_id,
+         inner_hits on both sides, children -> terms user; ROADMAP C13: a
+         has_child and a has_parent whose matches lie outside the first
+         shard answer the host rung's answer on both indices. The join's
+         own host ms apart from its inner query's.
+    18e. 1% of the questions deleted (a nested count drops by exactly
+         their objects; it and the nested queries alone equal the cpu
+         twin's), 4 x 4,096 questions appended (a delta append), 18a's
+         nested clauses again; after ``DELETE`` ``memory_allocated`` and
+         the ledger back to their levels with the sub-segments' scopes
+         released.
+    18f. 10,000 questions through ``bulk`` (an ``accepted`` nested object
+         with a 16-dim vector flattened to the root: kernel 3 through
+         include_in_parent), the join form with routing, a legacy
+         ``_parent`` index with ``parent``, one malformed doc of each kind
+         (a 400 with the JAX package's message); one shard force-merged
+         with its nested answers unchanged; a flush and a restart through
+         ``Node(data_path=...)`` answering 18a-18d's kinds as before, and
+         ``stored_fields=_parent`` over HTTP.
+    Every 1a (and tile-form), kernel-2 and kernel-3 launch of the phase's
+    main path is held against its plain version. Returns the report."""
+    import gc
+
+    from elasticsearch_tpu_torch.common.memory import memory_accountant
+    from elasticsearch_tpu_torch.common.settings import Settings
+    from elasticsearch_tpu_torch.search import query_dsl as Q
+
+    t_phase = time.perf_counter()
+    report = {}
+    tok = term_token
+    acct = memory_accountant()
+
+    def level():
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            return torch.cuda.memory_allocated()
+        return 0
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    mem0 = level()
+    gnode = Node(Settings.EMPTY, device=device)
+    cnode = Node(Settings.EMPTY, device="cpu")
+    names = {"sonested": SO_NESTED_MAPPING, "sojoin": SO_JOIN_MAPPING}
+    for node, twins in ((gnode, ("", "h")), (cnode, ("h",))):
+        for base, mapping in names.items():
+            for suffix in twins:
+                # the mesh twin: slot headroom for 18e's append, and no
+                # background compaction (a merge re-parses the stored
+                # sources, which hold no title here)
+                extra = ({"search": {"mesh": False}} if suffix else
+                         {"search": {"mesh": {"max_slots_per_device": 8}},
+                          "staging": {"compact": {"threshold": 0}}})
+                node.create_index(base + suffix, {"settings": {
+                    "number_of_shards": 4, **extra}, "mappings": mapping})
+    t0 = time.perf_counter()
+    split = {"columns": 0.0, "nested_arrays": 0.0, "join_arrays": 0.0,
+             "segments": 0.0, "adopt": 0.0}
+
+    def clocked(key, fn, *a, **kw):
+        t1 = time.perf_counter()
+        out = fn(*a, **kw)
+        split[key] += time.perf_counter() - t1
+        return out
+
+    cols, gsegs, csegs, gjoin, cjoin = [], [], [], [], []
+    # millions of long-lived objects (version-map entries, lists): no
+    # cycle collection while they are made
+    gc.disable()
+    try:
+        for sh, arrays in enumerate(shard_arrays):
+            n = len(arrays["doc_ids"])
+            c = clocked("columns", so_columns, sh, n, arrays["doc_ids"])
+            cols.append(c)
+            nested = clocked("nested_arrays", so_nested_arrays, arrays, c)
+            answers = clocked("join_arrays", so_answer_arrays, c, sh)
+            for node, dev, segs, jsegs, twins in (
+                    (gnode, device, gsegs, gjoin, ("", "h")),
+                    (cnode, "cpu", csegs, cjoin, ("h",))):
+                seg = clocked("segments", Segment.from_arrays,
+                              f"sonested_{sh}_seg_1", device=dev, **nested)
+                jseg = clocked("segments", Segment.from_arrays,
+                               f"sojoin_{sh}_seg_2", device=dev, **answers)
+                for suffix in twins:
+                    # the questions segment is both forms' (one staging)
+                    for base in ("sonested", "sojoin"):
+                        clocked("adopt", node.indices[base + suffix]
+                                .shards[sh].engine.adopt_segment, seg)
+                    clocked("adopt", node.indices["sojoin" + suffix]
+                            .shards[sh].engine.adopt_segment, jseg)
+                segs.append(seg)
+                jsegs.append(jseg)
+    finally:
+        gc.enable()
+    # the corpus lives to the phase's end: keep the collector off it
+    gc.freeze()
+    report["build_split_s"] = split
+    report["questions"] = sum(c["n"] for c in cols)
+    report["answers"] = sum(len(c["parent_of"]) for c in cols)
+    report["join_docs"] = sum(s.num_docs for s in gsegs + gjoin)
+    report["build_s"] = time.perf_counter() - t0
+    log(f"[phase 18] sonested-4x256k: {report['questions']} questions, "
+        f"{report['answers']} answers as nested objects (mean "
+        f"{report['answers'] / report['questions']:.3f}), the join form "
+        f"{report['join_docs']} docs; built in {report['build_s']:.1f} s "
+        f"({json.dumps({k: round(v, 2) for k, v in split.items()})})")
+    # every segment and sub-segment staged before the clocks start (each
+    # sub-segment under its own ledger scope)
+    t0 = time.perf_counter()
+    stage_split = {}
+    for label, segs in (("card", gsegs + gjoin), ("cpu", csegs + cjoin)):
+        t1 = time.perf_counter()
+        for seg in segs:
+            seg.device_arrays()
+            for nctx in seg.nested.values():
+                nctx.segment.device_arrays()
+        sync()
+        stage_split[label] = time.perf_counter() - t1
+    report["stage_s"] = time.perf_counter() - t0
+    report["stage_split_s"] = stage_split
+    sub_scopes = {s.nested["answers"].segment.ledger_scope for s in gsegs}
+    # (the questions segment is adopted by the four indices: the ledger
+    # names the one whose engine stamped it last)
+    scopes = {k[1] for k in acct._entries if k[0] in (
+        "sonested", "sonestedh", "sojoin", "sojoinh")}
+    check(sub_scopes <= scopes, "phase 18: each answers sub-segment staged "
+                                "under its own ledger scope of an index")
+    report["sub_segment_bytes"] = sum(
+        s.nested["answers"].segment.staged_bytes() for s in gsegs)
+    log(f"[phase 18] staged in {report['stage_s']:.1f} s "
+        f"({json.dumps({k: round(v, 2) for k, v in stage_split.items()})}); "
+        f"the answers "
+        f"sub-segments hold {report['sub_segment_bytes']} bytes on the "
+        f"card")
+
+    def match(q):
+        return {"match": {"title": " ".join(tok(t) for t in q)}}
+
+    # answerers by rank: a common one and a middling one
+    users = [SO_USER_TERMS[r] for r in (40, 300)]
+    d0 = 1_325_376_000_000  # 2012-01-01
+
+    def nested_user(u, **kw):
+        return {"nested": {"path": "answers", **kw, "query": {"bool": {
+            "must": [{"term": {"answers.user": u}}],
+            "filter": [{"range": {"answers.date": {"gte": d0}}}]}}}}
+
+    samples, planes, decisions, forms = {}, {}, {}, {}
+    cpu_cache = {}
+    ms_nested = gnode.indices["sonested"]._mesh_plane()
+    ms_join = gnode.indices["sojoin"]._mesh_plane()
+
+    def cpu_answer(index, body):
+        key = (index, json.dumps(body, sort_keys=True))
+        if key not in cpu_cache:
+            cpu_cache[key] = cnode.search(index + "h", dict(body))
+            check(cpu_cache[key]["_plane"] == "host",
+                  f"phase 18: the cpu twin answers on its host rung "
+                  f"({cpu_cache[key]['_plane']})")
+        return cpu_cache[key]
+
+    def timed(index, body, kind):
+        """One request on the card node, timed; the first of a kind and
+        index records its plane, launches and ladder decisions."""
+        base = index.rstrip("h")
+        ms = ms_nested if base == "sonested" else ms_join
+        before = dict(cuda_kernels.LAUNCHES)
+        dec = dict(ms.decisions)
+        fb = dict(ms.agg_host_fallback_by_reason)
+        t1 = time.perf_counter()
+        r = gnode.search(index, dict(body))
+        sync()
+        samples.setdefault((kind, index), []).append(
+            (time.perf_counter() - t1) * 1000)
+        if (kind, index) in planes:
+            return r
+        forms[(kind, index)] = {k: v - before.get(k, 0) for k, v in
+                                cuda_kernels.LAUNCHES.items()
+                                if v != before.get(k, 0)}
+        if not index.endswith("h"):
+            decisions[kind] = {
+                **{k: v - dec.get(k, 0) for k, v in ms.decisions.items()
+                   if v != dec.get(k, 0)},
+                **{f"agg_fallback.{k}": v - fb.get(k, 0) for k, v in
+                   ms.agg_host_fallback_by_reason.items()
+                   if v != fb.get(k, 0)}}
+        planes[(kind, index)] = r["_plane"]
+        return r
+
+    def both(base, body, kind, sorted_=False, reps=SO_REPS, twin=True):
+        """The request ``reps`` times on the mesh index (the p50's samples)
+        and once on the host twin (``twin``), every answer held against
+        the cpu twin's."""
+        out = {}
+        for index in (base, base + "h") if twin else (base,):
+            gr = timed(index, body, kind)
+            for _ in range(reps - 1 if index == base else 0):
+                timed(index, body, kind)
+            cr = cpu_answer(base, body)
+            what = f"phase 18 {kind} on {index}"
+            if sorted_:
+                same_sorted(dict(gr, _plane="host"), cr, what)
+            else:
+                same_response(gr, cr, what)
+            same_inner_hits(gr, cr, what)
+            check(index == base or gr["_plane"] == "host",
+                  f"{what}: the host twin answers on the host rung")
+            out[index] = gr
+        return out
+
+    bodies = {}
+    clocks, undo = _timed_wraps(Q)
+    dec0 = dict(ms_nested.decisions)
+    cuda_kernels.reset_launch_counts()
+    t_main = time.perf_counter()
+    sub_s = {}
+    sub = ["18a"]
+
+    def mark(name):
+        now = time.perf_counter()
+        sub_s[sub[0]] = now - sub_s.pop("_t", t_main)
+        sub_s["_t"] = now
+        sub[0] = name
+
+    sub_kdocs = _kernel_table_ptrs(s.nested["answers"].segment
+                                   for s in gsegs)
+    try:
+        with recording_recovered_path(tsc, ssum, knn) as kept:
+            # ---- 18a ----
+            for i, u in enumerate(users):
+                bodies[f"nested_alone_{i}"] = ("sonested", {
+                    "query": nested_user(u), "size": 10})
+                bodies[f"nested_under_match_{i}"] = ("sonested", {
+                    "query": {"bool": {"must": [match(queries[i])],
+                                       "should": [nested_user(u)]}},
+                    "size": 10})
+            # avg, the default, is nested_alone_0's
+            for mode in ("sum", "min", "max", "none"):
+                # "none" scores every hit 0: the size takes them all, so no
+                # tie is cut where the planes order ties apart
+                bodies[f"nested_score_{mode}"] = ("sonested", {
+                    "query": nested_user(users[0], score_mode=mode),
+                    "size": 5000 if mode == "none" else 10})
+            bodies["nested_inner_hits_3"] = ("sonested", {
+                "query": nested_user(users[1], inner_hits={}), "size": 10})
+            bodies["nested_inner_hits_100"] = ("sonested", {
+                "query": nested_user(users[0], inner_hits={"size": 100}),
+                "size": 10})
+            for kind, (base, body) in bodies.items():
+                both(base, body, kind)
+            a_kinds = list(bodies)
+            n_sub = sum(1 for args, _kw, _o in kept[0]
+                        if args[0].data_ptr() in sub_kdocs)
+            report["sub_segment_1a_launches"] = n_sub
+            nseg0 = gsegs[0].nested["answers"].segment
+            inner = Q.parse_query(nested_user(users[0])["nested"]["query"])
+            node0 = inner.to_plan(Q.ShardQueryContext(
+                gnode.indices["sonested"].mapper_service), nseg0)
+
+            def tree(nd):
+                kids = [tree(k) for k in nd.children()]
+                return type(nd).__name__ + (f"({', '.join(kids)})"
+                                            if kids else "")
+            report["inner_plan"] = tree(node0)
+            report["inner_kernel"] = ("1a (tile_scoring)" if "Pallas" in
+                                      report["inner_plan"] else "scatter")
+            n_objs, nd_objs = nseg0.num_docs, nseg0.nd_pad
+            del node0, nseg0  # it holds the sub-segment's tables
+            log(f"[phase 18a] the inner query on a sub-segment "
+                f"({n_objs} objects, nd_pad {nd_objs}): "
+                f"{report['inner_plan']} -> {report['inner_kernel']}; "
+                f"{n_sub} 1a launches on the sub-segments")
+            check(n_sub > 0 or device != "cuda",
+                  "phase 18a: the inner query launched 1a on the "
+                  "sub-segments")
+            for i in range(len(users)):
+                p_alone = planes[(f"nested_alone_{i}", "sonested")]
+                p_match = planes[(f"nested_under_match_{i}", "sonested")]
+                check(p_alone in ("mesh", "host")
+                      and p_match in ("mesh_pallas", "host"),
+                      f"phase 18a user {i}: planes {p_alone} / {p_match}")
+            # ---- 18b ----
+            mark("18b")
+            for kind, spec in (
+                    ("sort_max_desc", {"order": "desc", "mode": "max",
+                                       "nested_path": "answers"}),
+                    ("sort_min_asc", {"order": "asc", "mode": "min",
+                                      "nested": {"path": "answers"}})):
+                body = {"query": match(queries[1]),
+                        "sort": [{"answers.date": spec}], "size": 10}
+                bodies[kind] = ("sonested", body)
+                out = both("sonested", body, kind, sorted_=True)
+                check(out["sonested"]["_plane"] == "host"
+                      and decisions[kind].get("host.sort_ineligible") == 1,
+                      f"phase 18b {kind}: host with sort_ineligible "
+                      f"({out['sonested']['_plane']}, {decisions[kind]})")
+            walk = {"query": match(queries[1]), "sort": [
+                {"answers.date": {"order": "desc",
+                                  "nested_path": "answers"}},
+                {"qid": "asc"}]}
+            whole = gnode.search("sonested", dict(
+                walk, size=SO_PAGE * SO_PAGES))
+            pages, after = [], None
+            for _ in range(SO_PAGES):
+                body = dict(walk, size=SO_PAGE)
+                if after is not None:
+                    body["search_after"] = after
+                page = gnode.search("sonested", body)["hits"]["hits"]
+                if not page:
+                    break
+                pages.extend(page)
+                after = page[-1]["sort"]
+            check([(h["_id"], h["sort"]) for h in pages]
+                  == [(h["_id"], h["sort"]) for h in whole["hits"]["hits"]],
+                  "phase 18b: 10 search_after pages of 100 equal one "
+                  "1,000-hit request, hit for hit")
+            report["walk_hits"] = len(pages)
+            # ---- 18c ----
+            mark("18c")
+            histo = {"a": {"nested": {"path": "answers"}, "aggs": {
+                "m": {"date_histogram": {"field": "answers.date",
+                                         "interval": "month"}}}}}
+            rev = {"a": {"nested": {"path": "answers"}, "aggs": {
+                "u": {"terms": {"field": "answers.user", "size": 10},
+                      "aggs": {"r": {"reverse_nested": {}, "aggs": {
+                          "t": {"terms": {"field": "tag",
+                                          "size": 10}}}}}}}}}
+            for name, aggs in (("nested_histo", histo),
+                               ("nested_terms_reverse", rev)):
+                for scope, q in (("match", match(queries[2])),
+                                 ("all", {"match_all": {}})):
+                    kind = f"{name}_{scope}"
+                    body = {"size": 0, "query": q, "aggs": aggs}
+                    bodies[kind] = ("sonested", body)
+                    both("sonested", body, kind)
+                    check(decisions[kind].get(
+                        "agg_fallback.unsupported_agg") == 1,
+                        f"phase 18c {kind}: the fused plane declines with "
+                        f"unsupported_agg ({decisions[kind]})")
+            # ---- 18d ----
+            mark("18d")
+            for mode in ("none", "max", "sum"):
+                bodies[f"has_child_{mode}"] = ("sojoin", {"query": {
+                    "has_child": {"type": "answer", "score_mode": mode,
+                                  "query": {"term": {"user": users[1]}}}},
+                    "size": 10})
+            bodies["has_child_min2_inner_hits"] = ("sojoin", {"query": {
+                "has_child": {"type": "answer", "score_mode": "sum",
+                              "min_children": 2,
+                              "query": {"term": {"user": users[0]}},
+                              "inner_hits": {"size": 3}}}, "size": 10})
+            bodies["has_parent_score_inner_hits"] = ("sojoin", {"query": {
+                "has_parent": {"parent_type": "question", "score": True,
+                               "query": match(queries[3]),
+                               "inner_hits": {}}}, "size": 10})
+            with_answers = int(np.flatnonzero(cols[1]["k"] > 2)[0])
+            bodies["parent_id"] = ("sojoin", {"query": {"parent_id": {
+                "type": "answer", "id": cols[1]["ids"][with_answers]}},
+                "size": 10})
+            bodies["children_terms"] = ("sojoin", {
+                "size": 0, "query": match(queries[4]),
+                "aggs": {"c": {"children": {"type": "answer"}, "aggs": {
+                    "u": {"terms": {"field": "user", "size": 10}}}}}})
+            # C13: a user who answers only outside the first shard, a
+            # title term only outside it
+            per_shard = [np.bincount(c["auser"], minlength=SO_USERS) > 0
+                         for c in cols]
+            outside = np.flatnonzero(~per_shard[0] & (
+                per_shard[1] | per_shard[2] | per_shard[3]))
+            c13_user = SO_USER_TERMS[int(outside[0])]
+            c13_qids = [cols[2]["ids"][5], cols[3]["ids"][9]]
+            bodies["c13_has_child"] = ("sojoin", {"query": {"has_child": {
+                "type": "answer", "query": {"term": {"user": c13_user}}}}})
+            bodies["c13_has_parent"] = ("sojoin", {"query": {"has_parent": {
+                "parent_type": "question",
+                "query": {"terms": {"qid": c13_qids}}}}})
+            for kind in [k for k in bodies if bodies[k][0] == "sojoin"]:
+                out = both("sojoin", bodies[kind][1], kind)
+                if kind.startswith("c13"):
+                    want = cpu_answer("sojoin", bodies[kind][1])
+                    check(want["hits"]["total"] > 0 and all(
+                        r["hits"]["total"] == want["hits"]["total"]
+                        for r in out.values()),
+                        f"phase 18d {kind}: both indices return the host "
+                        f"rung's answer ({want['hits']['total']} hits; "
+                        f"planes {[r['_plane'] for r in out.values()]})")
+            report["c13"] = {k: {"planes": [planes[(k, i)] for i in (
+                "sojoin", "sojoinh")], "total": cpu_answer(
+                "sojoin", bodies[k][1])["hits"]["total"]}
+                for k in ("c13_has_child", "c13_has_parent")}
+            log(f"[phase 18d] C13 (matches only outside shard 0): "
+                f"{json.dumps(report['c13'])}")
+            # ---- 18e ----
+            mark("18e")
+            count_body = {"size": 0, "aggs": {"a": {"nested": {
+                "path": "answers"}}}}
+            count_kind = "nested_count"
+            before = {i: gnode.search(i, dict(count_body))["aggregations"][
+                "a"]["doc_count"] for i in ("sonested", "sonestedh")}
+            routing = _routing_for_shards(4)
+            dropped = 0
+            n_deleted = 0
+            for sh, c in enumerate(cols):
+                for i in range(0, c["n"], 100):
+                    dropped += int(c["k"][i])
+                    n_deleted += 1
+                    for node, index in ((gnode, "sonested"),
+                                        (gnode, "sonestedh"),
+                                        (cnode, "sonestedh")):
+                        node.delete_doc(index, c["ids"][i],
+                                        routing=routing[sh])
+            tomb0 = ms_nested.tombstone_update_total
+            for node, index in ((gnode, "sonested"), (gnode, "sonestedh"),
+                                (cnode, "sonestedh")):
+                node.refresh(index)
+            cpu_cache.clear()
+            for i in ("sonested", "sonestedh"):
+                after_n = gnode.search(i, dict(count_body))["aggregations"][
+                    "a"]["doc_count"]
+                check(before[i] - after_n == dropped,
+                      f"phase 18e {i}: the nested count dropped by exactly "
+                      f"the deleted questions' objects ({before[i]} -> "
+                      f"{after_n}, want -{dropped})")
+            for kind in [count_kind] + [k for k in a_kinds
+                                        if k.startswith("nested_alone")]:
+                both("sonested", bodies.get(kind, ("", count_body))[1],
+                     kind + "_after_delete", reps=1, twin=False)
+            report["deleted"] = {"questions": n_deleted, "objects": dropped,
+                                 "tombstone_updates":
+                                     ms_nested.tombstone_update_total - tomb0}
+            delta0 = ms_nested.delta_restage_total
+            appended = []
+            for sh in range(4):
+                corpus = build_synthetic_corpus(SO_SEEDS[sh] + 200,
+                                                SO_APPEND)
+                arrays = corpus_segment_arrays(corpus, id_prefix=f"s{sh}n")
+                c = so_columns(sh, SO_APPEND, arrays["doc_ids"],
+                               seed=SO_SEEDS[sh] + 200)
+                nested = so_nested_arrays(arrays, c)
+                for node, dev, twins in ((gnode, device, ("", "h")),
+                                         (cnode, "cpu", ("h",))):
+                    seg = Segment.from_arrays(f"sonested_{sh}_seg_2",
+                                              device=dev, **nested)
+                    for suffix in twins:
+                        node.indices["sonested" + suffix].shards[sh] \
+                            .engine.adopt_segment(seg)
+                appended.append(len(c["parent_of"]))
+            cpu_cache.clear()
+            for kind in a_kinds:
+                if "under_match" not in kind:
+                    both("sonested", bodies[kind][1], kind + "_after_append",
+                         reps=1, twin=False)
+            report["appended"] = {"questions": 4 * SO_APPEND,
+                                  "objects": sum(appended),
+                                  "delta_appends":
+                                      ms_nested.delta_restage_total - delta0}
+            check(device != "cuda"
+                  or ms_nested.delta_restage_total > delta0,
+                  "phase 18e: the appended segments staged as a delta "
+                  "append")
+            log(f"[phase 18e] {json.dumps(report['deleted'])}; appended "
+                f"{json.dumps(report['appended'])}")
+            # ---- 18f ----
+            mark("18f")
+            report["ingest"] = nested_ingest_phase(
+                torch, Node, Segment, device, bodies)
+            mark("end")
+    finally:
+        undo()
+    sync()
+    report["main_s"] = time.perf_counter() - t_main
+    sub_s.pop("_t", None)
+    report["subphase_s"] = sub_s
+    report["join_host_ms"] = (clocks["join_s"] - clocks["inner_s"]) * 1000
+    report["join_inner_ms"] = clocks["inner_s"] * 1000
+    log(f"[phase 18] main path by subphase (s): {json.dumps(sub_s)}; host "
+        f"clock over the main path: the joins' own work "
+        f"{report['join_host_ms']:.1f} ms beside their inner queries' "
+        f"{report['join_inner_ms']:.1f}")
+    p18 = {k: v for k, v in cuda_kernels.LAUNCHES.items() if v}
+    log(f"[phase 18] kernel launches: {p18}")
+    t0 = time.perf_counter()
+    if device == "cuda":
+        held, _here = hold_recovered_path(torch, tsc, ssum, knn, kept, p18,
+                                          errs, "phase 18")
+    else:
+        held = {}
+    plans = (_gather_plans(torch, ssum, kept[1], 10_000)
+             if device == "cuda" else {})
+    report["user_ordinal_plans"] = plans
+    log(f"[phase 18c] kernel-2 plans over 10,000 ordinals or more (the "
+        f"users present in a sub-segment or a join segment, of 200,000): "
+        f"{json.dumps(plans)}")
+    del kept
+    report["hold_s"] = time.perf_counter() - t0
+    if device == "cuda":
+        for k in ("tile_scoring", "segment_sum", "knn_scoring"):
+            check(p18.get(k, 0) > 0, f"phase 18 launched {k}")
+    # p50s: the main path's SO_REPS samples of each kind (before 18e's
+    # deletes and append; their own samples under their own kinds)
+    t0 = time.perf_counter()
+    p50 = {}
+    for kind, (base, body) in bodies.items():
+        row = {}
+        for index in (base, base + "h"):
+            row[index] = {"p50_ms": float(np.median(samples[(kind, index)])),
+                          "plane": planes.get((kind, index)),
+                          "launches": forms.get((kind, index), {})}
+        row["decisions"] = decisions.get(kind, {})
+        p50[kind] = row
+        log(f"[phase 18] {kind}: " + json.dumps(row))
+    report["time_s"] = time.perf_counter() - t0
+    fails = plane_failures(*(gnode.indices[i] for i in (
+        "sonested", "sonestedh", "sojoin", "sojoinh")))
+    check(not any(fails), f"phase 18 zero plane faults (got {fails})")
+    log(f"[phase 18] ladder on sonested: " + json.dumps(
+        {k: v - dec0.get(k, 0) for k, v in ms_nested.decisions.items()
+         if v != dec0.get(k, 0)}))
+    # DELETE: the card's memory and the ledger come back, the answers
+    # sub-segments' scopes with them
+    for node in (gnode, cnode):
+        for name in list(node.indices):
+            node.delete_index(name)
+        node.close()
+    del gsegs, csegs, gjoin, cjoin, gnode, cnode, ms_nested, ms_join
+    gc.unfreeze()
+    mem1 = level()
+    left = [k for k in acct._entries if k[0] in (
+        "sonested", "sonestedh", "sojoin", "sojoinh")]
+    check(not left, f"phase 18e: the ledger released every scope of the "
+                    f"deleted indices ({len(left)} entries left)")
+    check(device != "cuda" or mem1 == mem0,
+          f"phase 18e: memory_allocated back to its level after DELETE "
+          f"({mem1} against {mem0})")
+    if device == "cuda" and mem1 != mem0:
+        # what still holds the card's memory: each live tensor and the
+        # types that refer to it
+        for obj in gc.get_objects():
+            if isinstance(obj, torch.Tensor) and obj.is_cuda:
+                refs = sorted({type(r).__name__
+                               for r in gc.get_referrers(obj)})[:6]
+                log(f"[phase 18e] left on the card: {tuple(obj.shape)} "
+                    f"{obj.dtype} {obj.numel() * obj.element_size()} "
+                    f"bytes, held by {refs}")
+    report["memory"] = {"before": mem0, "after_delete": mem1}
+    report.update(p50=p50, launches=p18, held=held)
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[phase 18] {report['seconds']:.1f} s (build {report['build_s']:.1f}"
+        f", staging {report['stage_s']:.1f}, main path "
+        f"{report['main_s']:.1f}, hold {report['hold_s']:.1f}, timing "
+        f"{report['time_s']:.1f})")
+    return report
+
+
+def nested_ingest_phase(torch, Node, Segment, device, bodies):
+    """18f: sonested questions, its join form and a legacy ``_parent``
+    index through ``bulk`` into a ``Node(data_path=...)``; the malformed
+    docs; a force merge of one shard; a flush, a restart, 18a-18d's kinds
+    and ``stored_fields=_parent`` over HTTP answered as before."""
+    from elasticsearch_tpu_torch.rest.http_server import HttpServer
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="nested18f_")
+    nested_map = json.loads(json.dumps(SO_NESTED_MAPPING))
+    nested_map["_doc"]["properties"]["accepted"] = {
+        "type": "nested", "include_in_parent": True, "properties": {
+            "emb": {"type": "dense_vector", "dims": SO_EMB_DIMS}}}
+    try:
+        node = Node(data_path=tmp, device=device)
+        async_tl = {"index": {"translog": {"durability": "async"}}}
+        for name, mapping in (("soi", nested_map),
+                              ("soj", SO_JOIN_MAPPING)):
+            node.create_index(name, {"settings": {
+                "number_of_shards": 4, **async_tl}, "mappings": mapping})
+        node.create_index("sop", {"settings": {"number_of_shards": 4,
+                                               **async_tl},
+                                  "mappings": {"answer": {
+                                      "_parent": {"type": "question"},
+                                      "properties": {
+                                          "user": {"type": "keyword"}}}}})
+        docs, c = so_bulk_sources(SO_BULK, SO_SEEDS[0] + 300, "b")
+        ops = [("index", {"_index": "soi", "_id": i}, s) for i, s in docs]
+        for i, s in docs[:SO_JOIN_BULK]:
+            q = {k: v for k, v in s.items() if k not in ("answers",
+                                                         "accepted")}
+            ops.append(("index", {"_index": "soj", "_id": i},
+                        {**q, "qa": "question"}))
+            for j, a in enumerate(s.get("answers", [])):
+                ops.append(("index", {"_index": "soj", "_id": f"{i}a{j}",
+                                      "routing": i},
+                            {"qa": {"name": "answer", "parent": i},
+                             "user": a["user"], "date": a["date"]}))
+        for j in range(SO_PARENT_BULK):
+            ops.append(("index", {"_index": "sop", "_id": f"c{j}",
+                                  "parent": f"q{j % 50}"},
+                        {"user": SO_USER_TERMS[j]}))
+        for j, (index, src, routing, _t, _m) in enumerate(SO_BAD_DOCS):
+            meta = {"_index": index, "_id": f"bad{j}"}
+            if routing is not None:
+                meta["routing"] = routing
+            ops.append(("index", meta, src))
+        t0 = time.perf_counter()
+        r = node.bulk(ops)
+        for name in ("soi", "soj", "sop"):
+            node.refresh(name)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out["ingest_s"] = time.perf_counter() - t0
+        good = len(ops) - len(SO_BAD_DOCS)
+        out["docs_per_s"] = good / out["ingest_s"]
+        items = [next(iter(it.values())) for it in r["items"]]
+        check(all(it["status"] in (200, 201) for it in items[:good]),
+              f"phase 18f: every well-formed doc indexed "
+              f"({sum(it['status'] in (200, 201) for it in items[:good])} "
+              f"of {good})")
+        for it, (index, src, _r, etype, msg) in zip(items[good:],
+                                                    SO_BAD_DOCS):
+            err = it.get("error") or {}
+            check(it["status"] == 400 and err.get("type") == etype
+                  and err.get("reason") == msg,
+                  f"phase 18f: {json.dumps(src)} into {index} is a 400 "
+                  f"with the JAX message ({it['status']}, "
+                  f"{err.get('reason')!r})")
+        log(f"[phase 18f] bulk {good} docs ({SO_BULK} nested questions, "
+            f"the join form of {SO_JOIN_BULK}, {SO_PARENT_BULK} _parent "
+            f"children) + {len(SO_BAD_DOCS)} malformed in "
+            f"{out['ingest_s']:.1f} s: {out['docs_per_s']:.0f} docs/s")
+        # the kinds of 18a-18d, on these indices
+        users = sorted(SO_USER_TERMS[int(u)] for u in c["auser"][:3])
+        kinds = {
+            "nested": ("soi", {"query": {"nested": {
+                "path": "answers", "query": {"term": {
+                    "answers.user": users[0]}}, "inner_hits": {}}},
+                "size": 10}),
+            "nested_sort": ("soi", {"query": {"match_all": {}}, "sort": [
+                {"answers.date": {"order": "desc"}}, {"qid": "asc"}],
+                "size": 20}),
+            "nested_aggs": ("soi", {"size": 0, "aggs": bodies[
+                "nested_terms_reverse_all"][1]["aggs"]}),
+            "knn_include_in_parent": ("soi", {"knn": {
+                "field": "accepted.emb",
+                "query_vector": [1.0] * SO_EMB_DIMS, "k": 10}}),
+            "has_child": ("soj", {"query": {"has_child": {
+                "type": "answer", "score_mode": "max",
+                "query": {"term": {"user": users[1]}}}}}),
+            "has_parent": ("soj", {"query": {"has_parent": {
+                "parent_type": "question", "score": True,
+                "query": {"match": {"title": term_token(3)}}}},
+                "size": 10}),
+            "parent_id": ("soj", {"query": {"parent_id": {
+                "type": "answer", "id": docs[int(np.flatnonzero(
+                    c["k"][:SO_JOIN_BULK] > 0)[0])][0]}}}),
+            "children": ("soj", {"size": 0, "aggs": {"c": {
+                "children": {"type": "answer"}, "aggs": {"u": {
+                    "terms": {"field": "user", "size": 5}}}}}}),
+        }
+
+        def answers(n):
+            return {k: _no_took(n.search(i, dict(b)))
+                    for k, (i, b) in kinds.items()}
+
+        before = answers(node)
+        check(all(json.loads(before[k])["hits"]["total"] > 0 for k in (
+            "nested", "knn_include_in_parent", "has_child", "has_parent",
+            "parent_id")), "phase 18f: the ingested indices answer")
+        # a cpu node's host rung over the same segments
+        t0 = time.perf_counter()
+        cnode = Node(device="cpu")
+        for name, mapping in (("soi", nested_map), ("soj", SO_JOIN_MAPPING)):
+            cnode.create_index(name, {"settings": {
+                "number_of_shards": 4, "search": {"mesh": False}},
+                "mappings": mapping})
+            _adopt_copies(node, cnode, name, Segment)
+        for k, (i, b) in kinds.items():
+            gr, cr = node.search(i, dict(b)), cnode.search(i, dict(b))
+            if k == "knn_include_in_parent":
+                same_knn_response(gr, cr, 1e-4, f"phase 18f {k}")
+            elif "sort" in b:
+                same_sorted(dict(gr, _plane="host"), cr, f"phase 18f {k}")
+            else:
+                same_response(gr, cr, f"phase 18f {k}")
+                same_inner_hits(gr, cr, f"phase 18f {k}")
+        cnode.close()
+        out["cpu_twin_s"] = time.perf_counter() - t0
+        # one shard force-merged: the nested answers unchanged
+        nested_kinds = [k for k, (i, _b) in kinds.items() if i == "soi"
+                        and k != "knn_include_in_parent"]
+        svc = node.indices["soi"]
+        node.index_doc("soi", "extra", docs[0][1])
+        node.refresh("soi")
+        node.delete_doc("soi", "extra")
+        node.refresh("soi")
+        segs_before = len(svc.shards[svc._route("extra")].engine.segments)
+        t0 = time.perf_counter()
+        svc.shards[svc._route("extra")].force_merge()
+        out["force_merge_s"] = time.perf_counter() - t0
+        merged = answers(node)
+        check(all(merged[k] == before[k] for k in nested_kinds),
+              f"phase 18f: a force-merged shard ({segs_before} segments -> "
+              f"1) answers the nested kinds unchanged")
+        t0 = time.perf_counter()
+        for name in ("soi", "soj", "sop"):
+            node.flush(name)
+        node.close()
+        out["flush_close_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        node = Node(data_path=tmp, device=device)
+        out["reopen_s"] = time.perf_counter() - t0
+        after = answers(node)
+        check(after == merged, "phase 18f: the reopened node answers every "
+                               "kind as before the restart (the nested and "
+                               "_parent store round trip)")
+        srv = HttpServer(node, port=0)
+        srv.start()
+        try:
+            import http.client
+
+            conn = http.client.HTTPConnection("127.0.0.1", srv.port,
+                                              timeout=60)
+            conn.request("GET", "/sop/answer/c7?stored_fields=_parent"
+                                "&parent=q7")
+            resp = conn.getresponse()
+            got = json.loads(resp.read())
+            conn.close()
+        finally:
+            srv.stop()
+        check(resp.status == 200 and got.get("_parent") == "q7",
+              f"phase 18f: stored_fields=_parent after the restart "
+              f"({resp.status}, {got.get('_parent')!r})")
+        out["kinds"] = len(kinds)
+        log(f"[phase 18f] force merge {out['force_merge_s']:.1f} s; flush "
+            f"and close {out['flush_close_s']:.1f} s, reopen "
+            f"{out['reopen_s']:.1f} s; {len(kinds)} kinds equal after the "
+            f"restart; _parent over HTTP {got.get('_parent')!r}")
         node.close()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -7650,9 +8831,18 @@ def main() -> int:
     clock("phase 17")
     geo_report = geo_fields_phase(
         torch, Node, Segment, cuda_kernels, tsc, ssum, queries, shard_arrays,
-        title_streams, ops, batch_errs)
+        title_streams, ops[:GEO_INGEST_DOCS], batch_errs)
     seg_held["phase 17"] = geo_report["held"].get("segment_sum", 0)
     for k, v in geo_report["launches"].items():
+        launches[k] += v
+
+    # ---------------- phase 18: nested documents and the join field -------
+    clock("phase 18")
+    nested_report = nested_phase(
+        torch, Node, Segment, cuda_kernels, tsc, ssum, knn, queries,
+        shard_arrays, batch_errs)
+    seg_held["phase 18"] = nested_report["held"].get("segment_sum", 0)
+    for k, v in nested_report["launches"].items():
         launches[k] += v
 
     # ---------------- phase 5: latency summary ---------------------------
@@ -7758,7 +8948,7 @@ def main() -> int:
     ], "rest": rest_report, "aggs": aggs_report,
         "durability": durability_report, "staging": staging_report,
         "query_dsl": qdsl_report, "sort_paging": sort_report,
-        "field_types": geo_report}
+        "field_types": geo_report, "nested": nested_report}
     for name, key, replaces, extra in (
             ("tile_scoring_packed", "tile_scoring_packed", 656,
              ("ms_with_counts", "bound_ms_with_counts", "plan")),
@@ -7808,6 +8998,28 @@ def main() -> int:
     return 0
 
 
+def _segment_fields(seg):
+    """A segment's Segment.from_arrays fields over its host arrays: the
+    columns, routings, legacy parents and nested sub-segments too."""
+    return dict(
+        term_keys=seg.term_keys, term_block_start=seg.term_block_start,
+        term_block_count=seg.term_block_count,
+        term_doc_freq=seg.term_doc_freq, block_docs=seg.block_docs,
+        block_tfs=seg.block_tfs, norms=seg.norms, live=seg.live,
+        field_stats=seg.field_stats, field_norm_idx=seg.field_norm_idx,
+        doc_ids=seg.doc_ids, sources=seg.sources, routings=seg.routings,
+        parents=seg.parents,
+        numeric_columns={f: vars(c) for f, c in seg.numeric_columns.items()},
+        ordinal_columns={f: vars(c) for f, c in seg.ordinal_columns.items()},
+        geo_columns={f: vars(c) for f, c in seg.geo_columns.items()},
+        vector_columns={f: vars(c) for f, c in seg.vector_columns.items()},
+        nested={path: dict(_segment_fields(nctx.segment),
+                           parent_of=nctx.parent_of,
+                           offset_of=nctx.offset_of)
+                for path, nctx in seg.nested.items()},
+        seqnos=seg.seqnos, versions=seg.versions, positions=seg.positions)
+
+
 def _adopt_copies(gnode, cnode, index, Segment, device="cpu",
                   index_to=None):
     """Give another node (the cpu node by default) the cuda node's sealed
@@ -7816,20 +9028,8 @@ def _adopt_copies(gnode, cnode, index, Segment, device="cpu",
     for sid, shard in gnode.indices[index].shards.items():
         engine = cnode.indices[index_to or index].shards[sid].engine
         for seg in shard.engine.segments:
-            copy = Segment.from_arrays(
-                seg.name, term_keys=seg.term_keys,
-                term_block_start=seg.term_block_start,
-                term_block_count=seg.term_block_count,
-                term_doc_freq=seg.term_doc_freq, block_docs=seg.block_docs,
-                block_tfs=seg.block_tfs, norms=seg.norms, live=seg.live,
-                field_stats=seg.field_stats, field_norm_idx=seg.field_norm_idx,
-                doc_ids=seg.doc_ids, sources=seg.sources,
-                numeric_columns={f: vars(c) for f, c in seg.numeric_columns.items()},
-                ordinal_columns={f: vars(c) for f, c in seg.ordinal_columns.items()},
-                geo_columns={f: vars(c) for f, c in seg.geo_columns.items()},
-                seqnos=seg.seqnos, versions=seg.versions,
-                positions=seg.positions, device=device)
-            engine.adopt_segment(copy)
+            engine.adopt_segment(Segment.from_arrays(
+                seg.name, device=device, **_segment_fields(seg)))
         engine.mapper_service.merge(shard.engine.mapper_service.mapping_dict())
 
 

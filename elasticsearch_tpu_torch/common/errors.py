@@ -100,6 +100,17 @@ class VersionConflictEngineException(ElasticsearchTpuException):
         )
 
 
+class RoutingMissingException(ElasticsearchTpuException):
+    """A single-doc op on a ``_parent``-mapped type without routing or
+    parent (400)."""
+
+    status_code = 400
+
+    def __init__(self, doc_type: str, doc_id: str):
+        super().__init__(
+            f"routing is required for [{doc_type}]/[{doc_id}]")
+
+
 class InvalidIndexNameException(ElasticsearchTpuException):
     status_code = 400
 

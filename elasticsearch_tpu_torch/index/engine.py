@@ -12,8 +12,10 @@ Lucene's IndexWriter replaced by the block-packing ``SegmentBuilder``):
   translog; ``synced_flush()`` stamps the commit with a sync id, so a
   restart over it replays nothing.
 - ``force_merge()``: rebuild the live docs into one segment (their
-  positions come from the analyzer again, under the new doc ids); the
-  retired segments return their device bytes to the ledger.
+  positions come from the analyzer again, under the new doc ids, and
+  their nested sub-segments from their sources; the legacy ``_parent``
+  values carry over); the retired segments return their device bytes to
+  the ledger.
 - ``recover_from_translog()``: replay the uncommitted ops after a restart
   (the seqno staleness guard makes a replay idempotent).
 - updates/deletes tombstone the old doc; against a sealed segment the
@@ -101,8 +103,11 @@ class Engine:
         self.index_name: Optional[str] = None
 
     def _stamp_owner(self, seg: Segment) -> None:
+        """The ledger owner of a segment and of its nested sub-segments."""
         if self.index_name is not None and seg.owner_index != self.index_name:
             seg.owner_index = self.index_name
+            for nctx in seg.nested.values():
+                self._stamp_owner(nctx.segment)
 
     def _new_builder(self) -> SegmentBuilder:
         self._segment_counter += 1
@@ -145,9 +150,11 @@ class Engine:
               version: Optional[int] = None, op_type: str = "index",
               seqno: Optional[int] = None, add_to_translog: bool = True,
               replicated_version: Optional[int] = None,
-              primary_term: int = 1) -> dict:
+              primary_term: int = 1, parent: Optional[str] = None) -> dict:
         """Index one document (create or update). Returns
         {_id, _version, _seq_no, result: created|updated|noop}.
+        ``parent``: the doc's legacy _parent value, kept with it in the
+        translog and the segment.
 
         ``seqno`` and ``replicated_version``: a replayed op keeps the
         seqno and version it was assigned, with no version check; one
@@ -176,13 +183,14 @@ class Engine:
             created = existing is None or existing.deleted
             if existing is not None and not existing.deleted:
                 self._tombstone(existing)
-            local_doc = self.buffer.add_document(parsed, seqno, new_version)
+            local_doc = self.buffer.add_document(parsed, seqno, new_version,
+                                                 parent=parent)
             self.version_map[doc_id] = VersionEntry(
                 new_version, seqno, None, local_doc, term=primary_term)
             if add_to_translog and self.translog is not None:
                 self.translog.add(TranslogOp(
                     TranslogOp.INDEX, seqno, doc_id, source, routing,
-                    new_version, primary_term))
+                    new_version, primary_term, parent=parent))
             self.indexing_total += 1
             return {
                 "_id": doc_id,
@@ -422,7 +430,8 @@ class Engine:
                         doc_id, seg.sources[local], seg.routings[local])
                     seqno = int(seg.seqnos[local])
                     version = int(seg.versions[local])
-                    new_local = builder.add_document(parsed, seqno, version)
+                    new_local = builder.add_document(
+                        parsed, seqno, version, parent=seg.parents[local])
                     old = self.version_map.get(doc_id)
                     self.version_map[doc_id] = VersionEntry(
                         version, seqno, builder.name, new_local,
@@ -431,7 +440,12 @@ class Engine:
             for old_seg in self.segments:
                 old_seg.release_breaker_charges()
                 old_seg.release_device()
-            merged.stage_reason_initial = stage_reason
+            def mark_restage(seg: Segment) -> None:
+                seg.stage_reason_initial = stage_reason
+                for nctx in seg.nested.values():
+                    mark_restage(nctx.segment)
+
+            mark_restage(merged)
             self._stamp_owner(merged)
             self.segments = [merged] if merged.num_docs else []
 
@@ -446,7 +460,7 @@ class Engine:
                 self.index(op.doc_id, op.source, op.routing, seqno=op.seqno,
                            add_to_translog=False,
                            replicated_version=op.version,
-                           primary_term=op.primary_term)
+                           primary_term=op.primary_term, parent=op.parent)
             elif op.op_type == TranslogOp.DELETE:
                 self.delete(op.doc_id, seqno=op.seqno, add_to_translog=False,
                             replicated_version=op.version,

@@ -59,6 +59,13 @@ shard's failure, so it stands aside while any shard is quarantined);
 the other shards answer. ``flush``, ``synced_flush`` and ``force_merge``
 run on every shard.
 
+A join child (a ``join`` field value with a ``parent``) must be routed
+to its parent's shard: on a multi-shard index one without ``routing`` is
+a 400, on one shard the parent id routes it (``_check_join_routing``).
+A legacy ``_parent`` value (``index_doc(..., parent=)``) rides with the
+doc into the translog and the segment; ``parents`` maps each doc id to it
+for ``stored_fields=_parent`` and is rebuilt from the shards at open.
+
 Compaction (``index.staging.compact.threshold``): after a delta commit the
 mesh plane calls ``maybe_compact_async``, which starts one background
 ``compact_now`` pass (single flight, never on the query path) when a
@@ -108,6 +115,7 @@ from elasticsearch_tpu_torch.common.settings import (
 from elasticsearch_tpu_torch.index.shard import IndexShard
 from elasticsearch_tpu_torch.index.similarity import SimilarityService
 from elasticsearch_tpu_torch.index.store import CorruptIndexException
+from elasticsearch_tpu_torch.mapper.field_types import join_field_of
 from elasticsearch_tpu_torch.mapper.mapping import MapperService
 from elasticsearch_tpu_torch.search.aggregations import parse_aggs, run_aggregations
 from elasticsearch_tpu_torch.search.batching import (
@@ -205,6 +213,10 @@ class IndexService:
                 # of failing the index's open; its searches fail into
                 # _shards.failures, never as empty hits
                 self._quarantine_shard(sid, e, site="load")
+        # legacy _parent values: doc id -> parent id (stored_fields
+        # [_parent]); they persist with each doc and are rebuilt here
+        self.parents: Dict[str, str] = {}
+        self._rebuild_parents()
         self.host_query_total = 0
         self.batch_stats = BatchStats()
         self._batcher = MicroBatcher(
@@ -217,14 +229,57 @@ class IndexService:
     # Routing + document ops
     # ------------------------------------------------------------------
 
+    def _rebuild_parents(self) -> None:
+        """The _parent registry from recovered shard state: the sealed
+        segments' live docs and the translog-replayed buffer."""
+        for shard in self.shards.values():
+            eng = shard.engine
+            for seg in eng.segments:
+                for local, p in enumerate(seg.parents):
+                    if p is not None and seg.live[local]:
+                        self.parents[str(seg.doc_ids[local])] = str(p)
+            for local, p in enumerate(eng.buffer.parents):
+                if p is not None and local not in eng._buffer_deletes:
+                    self.parents[str(eng.buffer.doc_ids[local])] = str(p)
+
     def _route(self, doc_id: str, routing: Optional[str] = None) -> int:
         return shard_id_for(routing if routing is not None else doc_id,
                             self.num_shards)
 
     def index_doc(self, doc_id: str, source: dict, routing: Optional[str] = None,
-                  **kw) -> dict:
-        return self.shards[self._route(doc_id, routing)].index_doc(
-            doc_id, source, routing, **kw)
+                  parent: Optional[str] = None, **kw) -> dict:
+        routing = self._check_join_routing(doc_id, source, routing)
+        r = self.shards[self._route(doc_id, routing)].index_doc(
+            doc_id, source, routing, parent=parent, **kw)
+        if parent is not None:
+            self.parents[str(doc_id)] = str(parent)
+        return r
+
+    def _check_join_routing(self, doc_id: str, source: dict,
+                            routing: Optional[str]) -> Optional[str]:
+        """A join child lives on its parent's shard: on a multi-shard
+        index a child without routing is refused; on one shard the
+        routing defaults to the parent id."""
+        jf = join_field_of(self.mapper_service)
+        if jf is None:
+            return routing
+        value = source.get(jf.name)
+        if not isinstance(value, (str, dict)):
+            return routing
+        try:
+            _name, parent = jf.parse_join(value)
+        except Exception:  # noqa: BLE001 — the mapper reports it, in context
+            return routing
+        if parent is None:
+            return routing
+        if routing is None:
+            if self.num_shards > 1:
+                raise IllegalArgumentException(
+                    f"[routing] is missing for join field [{jf.name}]: "
+                    f"child document [{doc_id}] must be routed to its "
+                    f"parent's shard")
+            routing = parent
+        return routing
 
     def get_doc(self, doc_id: str, routing: Optional[str] = None,
                 realtime: bool = True):

@@ -48,8 +48,18 @@ reads one term's run at a time (``SegmentPositions.term_run``).
 ``term_ttf`` (a term's total frequency, for the DFR, IB and LM
 similarities) sums its tf blocks on first use, cached per term.
 
+``nested`` maps each nested path to a ``NestedContext``: the path's
+objects as a sub-segment of their own (a ``Segment``, with its own
+ledger scope under the same owner, staged when a nested clause first
+runs on it) and ``parent_of`` / ``offset_of``, each object's enclosing
+doc and its index in the doc's array. Deleting a doc tombstones its
+objects at every level (``delete_docs``); ``release_device`` and
+``release_breaker_charges`` recurse. ``parents`` holds each doc's legacy
+``_parent`` value.
+
 ``PinnedSegmentView`` is a scroll's point-in-time view of a segment: the
-segment's immutable tensors, its own frozen live mask and live tensors.
+segment's immutable tensors, its own frozen live mask and live tensors,
+and pinned views of its nested sub-segments.
 
 ``breaker_charges`` holds the fielddata breaker bytes charged for what an
 aggregation built on the segment's host (text fielddata);
@@ -168,6 +178,18 @@ class VectorColumn:
     exists: np.ndarray  # [nd_pad] bool
     dims: int
     count: int  # docs carrying a vector
+
+
+@dataclass
+class NestedContext:
+    """A nested path's sub-segment and its join to the enclosing docs: the
+    nested objects are the rows of a segment of their own (columns keyed
+    by full path), ``parent_of`` points each at its enclosing doc, and a
+    nested clause joins by a scatter over it."""
+
+    segment: "Segment"
+    parent_of: np.ndarray  # [n_objs] int32 local doc in the enclosing segment
+    offset_of: np.ndarray  # [n_objs] int32 index within the parent's array
 
 
 def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -379,6 +401,8 @@ class Segment:
         exists_masks: Optional[Dict[str, np.ndarray]] = None,
         positions: Optional[Mapping] = None,
         geo_columns: Optional[Dict[str, GeoColumn]] = None,
+        nested: Optional[Dict[str, NestedContext]] = None,
+        parents: Optional[Sequence[Optional[str]]] = None,
     ):
         self.name = name
         self.num_docs = num_docs
@@ -386,6 +410,12 @@ class Segment:
         self.doc_ids = doc_ids
         self.sources = sources
         self.routings = routings
+        # the legacy _parent value of each doc (None: no parent)
+        self.parents = (list(parents) if parents is not None
+                        else [None] * num_docs)
+        # nested path -> NestedContext (nested-in-nested paths too, each
+        # joined to this segment's docs)
+        self.nested: Dict[str, NestedContext] = dict(nested or {})
         self.seqnos = seqnos
         self.versions = versions
         self.term_keys = term_keys
@@ -452,7 +482,8 @@ class Segment:
                     sources, numeric_columns=None, ordinal_columns=None,
                     vector_columns=None, geo_columns=None, routings=None,
                     seqnos=None, versions=None, exists_masks=None,
-                    positions=None, device="cuda") -> "Segment":
+                    positions=None, nested=None, parents=None,
+                    device="cuda") -> "Segment":
         """Build a segment from plain host arrays — the fields a store load
         hands the JAX ``Segment`` — staged later on ``device``.
         ``numeric_columns`` / ``ordinal_columns`` / ``vector_columns`` /
@@ -464,7 +495,10 @@ class Segment:
         ``positions`` is a ``SegmentPositions`` or the three flat int32
         columns ``(term_ids, docs, positions)`` sorted by (term, doc,
         position), both taken as they are, or a mapping of a term id to
-        ``{doc: positions}``."""
+        ``{doc: positions}``. ``nested`` maps a nested path to the keyword
+        arguments of its sub-segment's ``from_arrays`` plus ``parent_of``
+        and ``offset_of`` (int32, one entry an object); ``parents`` is each
+        doc's legacy ``_parent`` value."""
         n = len(doc_ids)
         seg = cls(
             name=name, num_docs=n, doc_ids=doc_ids, sources=sources,
@@ -496,7 +530,15 @@ class Segment:
                           if exists_masks is not None else None),
             positions=(SegmentPositions.from_flat(*positions)
                        if isinstance(positions, (tuple, list)) else positions),
+            parents=parents,
         )
+        for path, sub in (nested or {}).items():
+            sub = dict(sub)
+            parent_of = np.asarray(sub.pop("parent_of"), np.int32)
+            offset_of = np.asarray(sub.pop("offset_of"), np.int32)
+            seg.nested[path] = NestedContext(
+                cls.from_arrays(f"{name}#{path}", device=device, **sub),
+                parent_of, offset_of)
         live = np.asarray(live, bool)
         seg.live[: min(len(live), seg.nd_pad)] = live[: seg.nd_pad]
         return seg
@@ -523,6 +565,10 @@ class Segment:
         if locals_.size == 0:
             return
         self.live[locals_] = False
+        for nctx in self.nested.values():
+            # nested objects die with their doc, at every level
+            nctx.segment.delete_docs(
+                np.flatnonzero(np.isin(nctx.parent_of, locals_)))
         dev = self._device
         if dev is None:
             return
@@ -939,10 +985,15 @@ class Segment:
             self.kernel_bfmax = None
             memory_accountant().release_scope(self._owner(),
                                               self.ledger_scope)
+        for nctx in self.nested.values():
+            nctx.segment.release_device()
 
     def release_breaker_charges(self) -> None:
         """The segment is dropped (a merge replaced it, its shard closed):
-        give its fielddata breaker bytes back."""
+        give its fielddata breaker bytes back (its nested sub-segments'
+        too)."""
+        for nctx in self.nested.values():
+            nctx.segment.release_breaker_charges()
         if not self.breaker_charges:
             return
         from elasticsearch_tpu_torch.common.breaker import (
@@ -992,11 +1043,16 @@ class PinnedSegmentView:
     A segment a merge retired (its staging released) is not restaged: the
     view keeps serving the tensors it captured. Dropping the view
     (``clear_scroll``, keep-alive expiry) frees what only it holds; its
-    own tensors are not in the device-memory ledger."""
+    own tensors are not in the device-memory ledger. Its nested contexts
+    are views of the same kind over the sub-segments, frozen at the same
+    moment, so a nested clause pages the snapshot too."""
 
     def __init__(self, seg: "Segment"):
         self._seg = seg
         self.live = seg.live.copy()
+        self.nested = {path: NestedContext(PinnedSegmentView(nctx.segment),
+                                           nctx.parent_of, nctx.offset_of)
+                       for path, nctx in seg.nested.items()}
         self._pin_device: dict = {}
         # device_arrays() returns the same dict every call and grows it in
         # place: a plan built after a caller captured it reads its
@@ -1080,8 +1136,12 @@ class SegmentBuilder:
         self.doc_ids: List[str] = []
         self.sources: List[dict] = []
         self.routings: List[Optional[str]] = []
+        self.parents: List[Optional[str]] = []
         self.seqnos: List[int] = []
         self.versions: List[int] = []
+        # nested path -> {"builder": SegmentBuilder, "parent_of": [...],
+        # "offset_of": [...], "per_parent": {doc: objects so far}}
+        self.nested_builders: Dict[str, dict] = {}
         # term_key -> list[(doc, tf)] — appended in doc order
         self.postings: Dict[str, List[Tuple[int, int]]] = {}
         # field -> {doc: token_count}
@@ -1105,12 +1165,15 @@ class SegmentBuilder:
     def num_docs(self) -> int:
         return len(self.doc_ids)
 
-    def add_document(self, parsed, seqno: int, version: int = 1) -> int:
-        """parsed: mapper.ParsedDocument. Returns the local doc id."""
+    def add_document(self, parsed, seqno: int, version: int = 1,
+                     parent: Optional[str] = None) -> int:
+        """parsed: mapper.ParsedDocument; ``parent``: its legacy _parent
+        value. Returns the local doc id."""
         doc = len(self.doc_ids)
         self.doc_ids.append(parsed.doc_id)
         self.sources.append(parsed.source)
         self.routings.append(parsed.routing)
+        self.parents.append(parent)
         self.seqnos.append(seqno)
         self.versions.append(version)
         for field_name, tokens in parsed.terms.items():
@@ -1146,7 +1209,30 @@ class SegmentBuilder:
                 (doc, lo) for lo, _ in pairs)
             self.numeric_values.setdefault(f"{field_name}#hi", []).extend(
                 (doc, hi) for _, hi in pairs)
+        self._add_nested(parsed.nested, doc)
         return doc
+
+    def _add_nested(self, nested: dict, root_doc: int) -> None:
+        """Each nested path's objects into that path's sub-builder, joined
+        to ``root_doc``. An object's own nested objects go into its
+        sub-builder (joined to the object) and, flattened, into this
+        builder's entry for the inner path (joined to ``root_doc``), so an
+        inner path answers at the root as well."""
+        for path, subdocs in nested.items():
+            entry = self.nested_builders.get(path)
+            if entry is None:
+                entry = self.nested_builders[path] = {
+                    "builder": SegmentBuilder(f"{self.name}#{path}",
+                                              device=self.device),
+                    "parent_of": [], "offset_of": [], "per_parent": {}}
+            for sub in subdocs:
+                offset = entry["per_parent"].get(root_doc, 0)
+                entry["per_parent"][root_doc] = offset + 1
+                entry["builder"].add_document(sub, seqno=-1)
+                entry["parent_of"].append(root_doc)
+                entry["offset_of"].append(offset)
+                if sub.nested:
+                    self._add_nested(sub.nested, root_doc)
 
     def seal(self) -> Segment:
         nd = self.num_docs
@@ -1269,12 +1355,21 @@ class SegmentBuilder:
         positions = SegmentPositions.from_flat(tids[order], pdocs[order],
                                                pat[order])
 
+        nested = {
+            path: NestedContext(
+                entry["builder"].seal(),
+                np.asarray(entry["parent_of"], dtype=np.int32),
+                np.asarray(entry["offset_of"], dtype=np.int32))
+            for path, entry in self.nested_builders.items()}
+
         return Segment(
             name=self.name,
             num_docs=nd,
             doc_ids=list(self.doc_ids),
             sources=list(self.sources),
             routings=list(self.routings),
+            parents=list(self.parents),
+            nested=nested,
             seqnos=np.asarray(self.seqnos, dtype=np.int64),
             versions=np.asarray(self.versions, dtype=np.int64),
             term_keys=term_keys,

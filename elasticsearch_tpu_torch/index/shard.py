@@ -131,9 +131,11 @@ class IndexShard:
     # ------------------------------------------------------------------
 
     def index_doc(self, doc_id: str, source: dict, routing: Optional[str] = None,
-                  version: Optional[int] = None, op_type: str = "index") -> dict:
+                  version: Optional[int] = None, op_type: str = "index",
+                  parent: Optional[str] = None) -> dict:
         self._ensure_started()
-        r = self.engine.index(doc_id, source, routing, version, op_type)
+        r = self.engine.index(doc_id, source, routing, version, op_type,
+                              parent=parent)
         r["_index"] = self.index_name
         r["_shard"] = self.shard_id
         r["_primary_term"] = PRIMARY_TERM

@@ -13,9 +13,14 @@ directory:
   the ``num.<f>.*``, ``ord.<f>.*``, ``geo.<f>.*``, ``vec.<f>.*`` and
   ``exists.<f>`` columns), ``live.npy`` (the tombstone mask, rewritten atomically at
   every commit),
-  ``meta.json``, ``sources.jsonl``, ``positions.json`` and
+  ``meta.json`` (with each doc's legacy ``_parent`` value under
+  ``"parents"``), ``sources.jsonl``, ``positions.json`` and
   ``checksums.json`` (SHA-256 of each file but ``live.npy``, verified on
   every load);
+- ``<segment>/nested/``: ``index.json`` (sub-directory -> nested path)
+  and one sub-directory a path, itself a segment directory with
+  ``parent_of.npy`` and ``offset_of.npy`` beside it (covered by its
+  checksums), nested-in-nested recursively;
 - ``corrupted_*.json``: a corruption marker. A store that carries one
   refuses every load until a verified copy replaces it.
 
@@ -27,12 +32,12 @@ and written from them, so a segment the port writes or merges keeps the
 phrase positions the JAX package's ``match_phrase`` reads. Geo points
 are the ``geo.<f>.*`` arrays with ``"geo_fields"`` counts; range,
 scaled, short, byte, token-count and murmur3 values are numeric columns,
-ip and binary values ordinal columns, as the JAX package writes them. The
-port has no geo_shape, nested or ``_parent`` data: it writes those parts
-empty (``"shapes": {}``) and raises ``CorruptIndexException`` naming the
-field kind for a segment that holds any of them, rather than drop a
-column. Loaded segments are host numpy on the engine's device and stage
-lazily, as sealed ones do.
+ip, binary and join values ordinal columns, as the JAX package writes
+them. The port has no geo_shape data: it writes that part empty
+(``"shapes": {}``) and raises ``CorruptIndexException`` naming the field
+for a segment that holds any, rather than drop a column. Loaded segments
+are host numpy on the engine's device and stage lazily, as sealed ones
+do.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ import numpy as np
 from elasticsearch_tpu_torch.common.errors import ElasticsearchTpuException
 from elasticsearch_tpu_torch.index.segment import (
     GeoColumn,
+    NestedContext,
     NumericColumn,
     OrdinalColumn,
     Segment,
@@ -65,7 +71,7 @@ class CorruptIndexException(ElasticsearchTpuException):
 MARKER_PREFIX = "corrupted_"
 
 # the files a segment directory's checksums cover, in the JAX package's
-# order (the nested join arrays never occur in a segment the port reads)
+# order (a nested sub-directory's join arrays among them)
 _CHECKSUMMED = ("arrays.npz", "meta.json", "sources.jsonl", "positions.json",
                 "parent_of.npy", "offset_of.npy",
                 os.path.join("nested", "index.json"))
@@ -203,7 +209,7 @@ class Store:
             if not os.path.exists(d):
                 self.write_segment(seg)
             else:
-                _write_live(d, seg.live)
+                _refresh_live(seg, d)
         _fsync_path(self.directory)
         commit = {"segments": [s.name for s in segments],
                   "max_seq_no": int(max_seqno)}
@@ -255,174 +261,231 @@ class Store:
     # segment writer
 
     def write_segment(self, seg: Segment) -> None:
-        d = self._seg_dir(seg.name)
-        os.makedirs(d, exist_ok=True)
-        arrays = {
-            "term_block_start": seg.term_block_start,
-            "term_block_count": seg.term_block_count,
-            "term_doc_freq": seg.term_doc_freq,
-            "block_docs": seg.block_docs,
-            "block_tfs": seg.block_tfs,
-            "norms": seg.norms,
-            "seqnos": seg.seqnos,
-            "versions": seg.versions,
-        }
-        for f, col in seg.numeric_columns.items():
-            for key in _NUM_DTYPES:
-                arrays[f"num.{f}.{key}"] = getattr(col, key)
-        for f, col in seg.ordinal_columns.items():
-            for key in _ORD_DTYPES:
-                arrays[f"ord.{f}.{key}"] = getattr(col, key)
-        for f, col in seg.geo_columns.items():
-            for key in _GEO_DTYPES:
-                arrays[f"geo.{f}.{key}"] = getattr(col, key)
-        for f, col in seg.vector_columns.items():
-            # the bf16-grid f32 host mirror as it is: reloading it stages
-            # the same bf16 embeddings
-            arrays[f"vec.{f}.vectors"] = col.vectors
-            arrays[f"vec.{f}.exists"] = col.exists
-        for f, mask in seg.exists_masks.items():
-            arrays[f"exists.{f}"] = mask
-        np.savez(os.path.join(d, "arrays.npz"), **arrays)
-        n = int(seg.num_docs)
-        meta = {
-            "name": seg.name,
-            "num_docs": n,
-            "term_keys": list(seg.term_keys),
-            "field_stats": {f: {k: int(v) for k, v in st.items()}
-                            for f, st in seg.field_stats.items()},
-            "field_norm_idx": {f: int(i)
-                               for f, i in seg.field_norm_idx.items()},
-            "numeric_fields": {f: int(c.count)
-                               for f, c in seg.numeric_columns.items()},
-            "ordinal_fields": {
-                f: {"terms": list(c.terms), "count": int(c.count)}
-                for f, c in seg.ordinal_columns.items()},
-            "geo_fields": {f: int(c.count)
-                           for f, c in seg.geo_columns.items()},
-            "vector_fields": {
-                f: {"dims": int(c.dims), "count": int(c.count)}
-                for f, c in seg.vector_columns.items()},
-            "doc_ids": list(seg.doc_ids),
-            "routings": list(seg.routings),
-            "parents": [None] * n,
-            "shapes": {},
-        }
-        with open(os.path.join(d, "meta.json"), "w", encoding="utf-8") as f:
-            json.dump(meta, f)
-        with open(os.path.join(d, "sources.jsonl"), "w",
-                  encoding="utf-8") as f:
-            for i in range(n):
-                f.write(json.dumps(seg.sources[i], separators=(",", ":"))
-                        + "\n")
-        # positions sidecar (phrase queries): term_id -> {doc: [pos...]}
-        with open(os.path.join(d, "positions.json"), "wb") as f:
-            positions = seg.positions
-            # json.dumps, not json.dump: one pass of the C encoder (dump
-            # runs the pure-Python one, chunk by chunk)
-            f.write(
-                positions.json_bytes()
-                if isinstance(positions, SegmentPositions) else
-                json.dumps({str(tid): {str(doc): np.asarray(pos).tolist()
-                                       for doc, pos in per_doc.items()}
-                            for tid, per_doc in positions.items()}
-                           ).encode("utf-8"))
-        sums = {}
-        for fn in _CHECKSUMMED:
-            p = os.path.join(d, fn)
-            if os.path.exists(p):
-                sums[fn] = _sha256(p)
-        with open(os.path.join(d, "checksums.json"), "w",
-                  encoding="utf-8") as f:
-            json.dump(sums, f)
-        for fn in os.listdir(d):
-            _fsync_path(os.path.join(d, fn))
-        _write_live(d, seg.live)
+        _write_segment_dir(seg, self._seg_dir(seg.name))
 
     # ------------------------------------------------------------------
     # segment reader
 
     def read_segment(self, name: str, device) -> Segment:
         self._check_not_corrupted()
-        d = self._seg_dir(name)
-        _verify_checksums_dir(d)
-        with open(os.path.join(d, "meta.json"), encoding="utf-8") as f:
-            meta = json.load(f)
-        _refuse_unported(name, d, meta)
-        data = np.load(os.path.join(d, "arrays.npz"))
-        sources = []
-        with open(os.path.join(d, "sources.jsonl"), encoding="utf-8") as f:
-            for line in f:
-                if line.strip():
-                    sources.append(json.loads(line))
+        return _read_segment_dir(self._seg_dir(name), device)
 
-        def arr(key, dtype):
-            a = data[key]
-            if a.dtype != dtype:
-                raise CorruptIndexException(
-                    f"segment [{name}] array [{key}] has dtype [{a.dtype}], "
-                    f"expected [{np.dtype(dtype)}]")
-            return a
 
-        numeric_columns = {
-            f: NumericColumn(**{k: arr(f"num.{f}.{k}", t)
-                                for k, t in _NUM_DTYPES.items()},
-                             count=int(count))
-            for f, count in meta["numeric_fields"].items()}
-        ordinal_columns = {
-            f: OrdinalColumn(info["terms"],
-                             **{k: arr(f"ord.{f}.{k}", t)
-                                for k, t in _ORD_DTYPES.items()},
-                             count=int(info["count"]))
-            for f, info in meta["ordinal_fields"].items()}
-        vector_columns = {
-            f: VectorColumn(**{k: arr(f"vec.{f}.{k}", t)
-                               for k, t in _VEC_DTYPES.items()},
-                            dims=int(info["dims"]), count=int(info["count"]))
-            for f, info in (meta.get("vector_fields") or {}).items()}
-        geo_columns = {
-            f: GeoColumn(**{k: arr(f"geo.{f}.{k}", t)
-                            for k, t in _GEO_DTYPES.items()},
+def _refresh_live(seg: Segment, d: str) -> None:
+    """Rewrite a committed segment's live masks, its nested
+    sub-segments' too."""
+    _write_live(d, seg.live)
+    for i, (_path, nctx) in enumerate(sorted(seg.nested.items())):
+        _refresh_live(nctx.segment, os.path.join(d, "nested", str(i)))
+
+
+def _write_segment_dir(seg: Segment, d: str, join=None) -> None:
+    """One segment directory; ``join``: a nested sub-segment's
+    (parent_of, offset_of), written beside its arrays and checksummed
+    with them."""
+    os.makedirs(d, exist_ok=True)
+    arrays = {
+        "term_block_start": seg.term_block_start,
+        "term_block_count": seg.term_block_count,
+        "term_doc_freq": seg.term_doc_freq,
+        "block_docs": seg.block_docs,
+        "block_tfs": seg.block_tfs,
+        "norms": seg.norms,
+        "seqnos": seg.seqnos,
+        "versions": seg.versions,
+    }
+    for f, col in seg.numeric_columns.items():
+        for key in _NUM_DTYPES:
+            arrays[f"num.{f}.{key}"] = getattr(col, key)
+    for f, col in seg.ordinal_columns.items():
+        for key in _ORD_DTYPES:
+            arrays[f"ord.{f}.{key}"] = getattr(col, key)
+    for f, col in seg.geo_columns.items():
+        for key in _GEO_DTYPES:
+            arrays[f"geo.{f}.{key}"] = getattr(col, key)
+    for f, col in seg.vector_columns.items():
+        # the bf16-grid f32 host mirror as it is: reloading it stages
+        # the same bf16 embeddings
+        arrays[f"vec.{f}.vectors"] = col.vectors
+        arrays[f"vec.{f}.exists"] = col.exists
+    for f, mask in seg.exists_masks.items():
+        arrays[f"exists.{f}"] = mask
+    np.savez(os.path.join(d, "arrays.npz"), **arrays)
+    n = int(seg.num_docs)
+    meta = {
+        "name": seg.name,
+        "num_docs": n,
+        "term_keys": list(seg.term_keys),
+        "field_stats": {f: {k: int(v) for k, v in st.items()}
+                        for f, st in seg.field_stats.items()},
+        "field_norm_idx": {f: int(i)
+                           for f, i in seg.field_norm_idx.items()},
+        "numeric_fields": {f: int(c.count)
+                           for f, c in seg.numeric_columns.items()},
+        "ordinal_fields": {
+            f: {"terms": list(c.terms), "count": int(c.count)}
+            for f, c in seg.ordinal_columns.items()},
+        "geo_fields": {f: int(c.count)
+                       for f, c in seg.geo_columns.items()},
+        "vector_fields": {
+            f: {"dims": int(c.dims), "count": int(c.count)}
+            for f, c in seg.vector_columns.items()},
+        "doc_ids": list(seg.doc_ids),
+        "routings": list(seg.routings),
+        "parents": list(seg.parents),
+        "shapes": {},
+    }
+    with open(os.path.join(d, "meta.json"), "w", encoding="utf-8") as f:
+        json.dump(meta, f)
+    with open(os.path.join(d, "sources.jsonl"), "w",
+              encoding="utf-8") as f:
+        for i in range(n):
+            f.write(json.dumps(seg.sources[i], separators=(",", ":"))
+                    + "\n")
+    # positions sidecar (phrase queries): term_id -> {doc: [pos...]}
+    with open(os.path.join(d, "positions.json"), "wb") as f:
+        positions = seg.positions
+        # json.dumps, not json.dump: one pass of the C encoder (dump
+        # runs the pure-Python one, chunk by chunk)
+        f.write(
+            positions.json_bytes()
+            if isinstance(positions, SegmentPositions) else
+            json.dumps({str(tid): {str(doc): np.asarray(pos).tolist()
+                                   for doc, pos in per_doc.items()}
+                        for tid, per_doc in positions.items()}
+                       ).encode("utf-8"))
+    if join is not None:
+        np.save(os.path.join(d, "parent_of.npy"), join[0])
+        np.save(os.path.join(d, "offset_of.npy"), join[1])
+    if seg.nested:
+        # one sub-directory a path, recursively
+        nd = os.path.join(d, "nested")
+        os.makedirs(nd, exist_ok=True)
+        index = {}
+        for i, (path, nctx) in enumerate(sorted(seg.nested.items())):
+            _write_segment_dir(nctx.segment, os.path.join(nd, str(i)),
+                               join=(nctx.parent_of, nctx.offset_of))
+            index[str(i)] = path
+        with open(os.path.join(nd, "index.json"), "w",
+                  encoding="utf-8") as f:
+            json.dump(index, f)
+        _fsync_path(nd)
+    sums = {}
+    for fn in _CHECKSUMMED:
+        p = os.path.join(d, fn)
+        if os.path.exists(p):
+            sums[fn] = _sha256(p)
+    with open(os.path.join(d, "checksums.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(sums, f)
+    for fn in os.listdir(d):
+        if fn != "nested":
+            _fsync_path(os.path.join(d, fn))
+    _write_live(d, seg.live)
+
+
+def _read_segment_dir(d: str, device) -> Segment:
+    """One segment directory, verified, with its nested sub-segments."""
+    name = os.path.basename(d)
+    _verify_checksums_dir(d)
+    with open(os.path.join(d, "meta.json"), encoding="utf-8") as f:
+        meta = json.load(f)
+    _refuse_unported(name, meta)
+    data = np.load(os.path.join(d, "arrays.npz"))
+    sources = []
+    with open(os.path.join(d, "sources.jsonl"), encoding="utf-8") as f:
+        for line in f:
+            if line.strip():
+                sources.append(json.loads(line))
+
+    def arr(key, dtype):
+        a = data[key]
+        if a.dtype != dtype:
+            raise CorruptIndexException(
+                f"segment [{name}] array [{key}] has dtype [{a.dtype}], "
+                f"expected [{np.dtype(dtype)}]")
+        return a
+
+    numeric_columns = {
+        f: NumericColumn(**{k: arr(f"num.{f}.{k}", t)
+                            for k, t in _NUM_DTYPES.items()},
                          count=int(count))
-            for f, count in (meta.get("geo_fields") or {}).items()}
-        exists_masks = {k[len("exists."):]: arr(k, np.bool_)
-                        for k in data.files if k.startswith("exists.")}
-        # kept as read: parsed only when something reads the positions
-        with open(os.path.join(d, "positions.json"), "rb") as f:
-            positions = SegmentPositions.from_json_bytes(f.read())
-        seg = Segment(
-            name=meta["name"],
-            num_docs=meta["num_docs"],
-            doc_ids=meta["doc_ids"],
-            sources=sources,
-            routings=meta["routings"],
-            term_keys=meta["term_keys"],
-            field_stats=meta["field_stats"],
-            field_norm_idx=meta["field_norm_idx"],
-            **{k: arr(k, t) for k, t in _DTYPES.items()},
-            numeric_columns=numeric_columns,
-            ordinal_columns=ordinal_columns,
-            vector_columns=vector_columns,
-            geo_columns=geo_columns,
-            exists_masks=exists_masks,
-            positions=positions,
-            device=device,
-        )
-        live_path = os.path.join(d, "live.npy")
-        if os.path.exists(live_path):
-            try:
-                live = np.load(live_path)
-            except (ValueError, EOFError, OSError) as e:
-                # live.npy carries no checksum: a torn one fails here
-                raise CorruptIndexException(
-                    f"segment [{name}] live mask unreadable: {e}") from e
-            if live.dtype != np.bool_ or live.shape != seg.live.shape:
-                raise CorruptIndexException(
-                    f"segment [{name}] live mask has dtype [{live.dtype}] "
-                    f"and shape {live.shape}, expected bool "
-                    f"{seg.live.shape}")
-            seg.live = live
-        return seg
+        for f, count in meta["numeric_fields"].items()}
+    ordinal_columns = {
+        f: OrdinalColumn(info["terms"],
+                         **{k: arr(f"ord.{f}.{k}", t)
+                            for k, t in _ORD_DTYPES.items()},
+                         count=int(info["count"]))
+        for f, info in meta["ordinal_fields"].items()}
+    vector_columns = {
+        f: VectorColumn(**{k: arr(f"vec.{f}.{k}", t)
+                           for k, t in _VEC_DTYPES.items()},
+                        dims=int(info["dims"]), count=int(info["count"]))
+        for f, info in (meta.get("vector_fields") or {}).items()}
+    geo_columns = {
+        f: GeoColumn(**{k: arr(f"geo.{f}.{k}", t)
+                        for k, t in _GEO_DTYPES.items()},
+                     count=int(count))
+        for f, count in (meta.get("geo_fields") or {}).items()}
+    exists_masks = {k[len("exists."):]: arr(k, np.bool_)
+                    for k in data.files if k.startswith("exists.")}
+    # kept as read: parsed only when something reads the positions
+    with open(os.path.join(d, "positions.json"), "rb") as f:
+        positions = SegmentPositions.from_json_bytes(f.read())
+    seg = Segment(
+        name=meta["name"],
+        num_docs=meta["num_docs"],
+        doc_ids=meta["doc_ids"],
+        sources=sources,
+        routings=meta["routings"],
+        term_keys=meta["term_keys"],
+        field_stats=meta["field_stats"],
+        field_norm_idx=meta["field_norm_idx"],
+        **{k: arr(k, t) for k, t in _DTYPES.items()},
+        numeric_columns=numeric_columns,
+        ordinal_columns=ordinal_columns,
+        vector_columns=vector_columns,
+        geo_columns=geo_columns,
+        exists_masks=exists_masks,
+        positions=positions,
+        parents=meta.get("parents"),
+        device=device,
+    )
+    live_path = os.path.join(d, "live.npy")
+    if os.path.exists(live_path):
+        try:
+            live = np.load(live_path)
+        except (ValueError, EOFError, OSError) as e:
+            # live.npy carries no checksum: a torn one fails here
+            raise CorruptIndexException(
+                f"segment [{name}] live mask unreadable: {e}") from e
+        if live.dtype != np.bool_ or live.shape != seg.live.shape:
+            raise CorruptIndexException(
+                f"segment [{name}] live mask has dtype [{live.dtype}] "
+                f"and shape {live.shape}, expected bool "
+                f"{seg.live.shape}")
+        seg.live = live
+    nested_index = os.path.join(d, "nested", "index.json")
+    if os.path.exists(nested_index):
+        with open(nested_index, encoding="utf-8") as f:
+            index = json.load(f)
+        for i, path in index.items():
+            sub = os.path.join(d, "nested", i)
+            nseg = _read_segment_dir(sub, device)
+            nseg.name = f"{seg.name}#{path}"
+            seg.nested[path] = NestedContext(
+                nseg, _load_join(sub, "parent_of.npy", nseg),
+                _load_join(sub, "offset_of.npy", nseg))
+    return seg
+
+
+def _load_join(d: str, fn: str, nseg: Segment) -> np.ndarray:
+    arr = np.load(os.path.join(d, fn))
+    if arr.dtype != np.int32 or arr.shape != (nseg.num_docs,):
+        raise CorruptIndexException(
+            f"nested segment [{nseg.name}] {fn} has dtype [{arr.dtype}] and "
+            f"shape {arr.shape}, expected int32 ({nseg.num_docs},)")
+    return arr
 
 
 def _sha256(path: str) -> str:
@@ -458,17 +521,10 @@ def _verify_checksums_dir(d: str) -> None:
                 f"(stored={expected[:12]}, actual={actual[:12]})")
 
 
-def _refuse_unported(name: str, d: str, meta: dict) -> None:
+def _refuse_unported(name: str, meta: dict) -> None:
     """A segment holding data the port has no column for fails its load,
     naming the kind, instead of opening without that column."""
-    kinds = []
     if meta.get("shapes"):
-        kinds.append(f"geo_shape {sorted(meta['shapes'])}")
-    if os.path.exists(os.path.join(d, "nested", "index.json")):
-        kinds.append("nested")
-    if any(p is not None for p in meta.get("parents") or []):
-        kinds.append("_parent")
-    if kinds:
         raise CorruptIndexException(
-            f"segment [{name}] holds {', '.join(kinds)} data, which the "
-            f"PyTorch port cannot load yet")
+            f"segment [{name}] holds geo_shape {sorted(meta['shapes'])} "
+            f"data, which the PyTorch port cannot load yet")

@@ -7,9 +7,10 @@ numbers (``long``, ``integer``, ``short``, ``byte``, ``double``,
 ``ip``, ``geo_point``, the range family (``integer_range``,
 ``long_range``, ``float_range``, ``double_range``, ``date_range``,
 ``ip_range``), ``token_count``, ``binary``, ``murmur3`` and
-``dense_vector``. Any other type (``geo_shape``, ``join``, ``nested``,
-``percolator``, ``completion``) raises the JAX package's "No handler for
-type" error.
+``dense_vector`` and ``join`` (``JoinFieldType``: a relation name and a
+parent id, two ordinal columns). ``nested`` is an object path, compiled
+by the mapper. Any other type (``geo_shape``, ``percolator``,
+``completion``) raises the JAX package's "No handler for type" error.
 
 Numeric doc values are float64, as in the JAX package (x64 is on there): a
 ``date`` is its epoch milliseconds (UTC), a ``boolean`` 1.0 or 0.0, a
@@ -665,6 +666,66 @@ class DenseVectorFieldType(FieldType):
         return None
 
 
+class JoinFieldType(FieldType):
+    """join (ParentJoinFieldMapper): the index's one relation field,
+    declaring parent -> child relations. A doc's value is its relation
+    name (a parent) or ``{"name": ..., "parent": id}`` (a child). The name
+    is an inverted-index term and an ordinal column ``<field>``; the
+    parent id an ordinal column ``<field>#parent``. A child must live on
+    its parent's shard (the index checks its routing)."""
+
+    type_name = "join"
+    ordinal_doc_values = True
+
+    def __init__(self, name, params=None):
+        super().__init__(name, params)
+        rel = self.params.get("relations") or {}
+        # parent -> [children]
+        self.relations: dict = {
+            p: (c if isinstance(c, list) else [c]) for p, c in rel.items()}
+        self._parent_of = {c: p for p, cs in self.relations.items()
+                           for c in cs}
+
+    def parent_of(self, child_name: str) -> Optional[str]:
+        return self._parent_of.get(child_name)
+
+    def is_parent(self, name: str) -> bool:
+        return name in self.relations
+
+    def valid_relation(self, name: str) -> bool:
+        return name in self.relations or name in self._parent_of
+
+    def parse_join(self, value) -> tuple:
+        """-> (relation name, parent id or None)."""
+        if isinstance(value, str):
+            name, parent = value, None
+        elif isinstance(value, dict):
+            name = value.get("name")
+            parent = value.get("parent")
+        else:
+            raise MapperParsingException(
+                f"failed to parse join field [{self.name}] value [{value!r}]")
+        if not self.valid_relation(name):
+            raise MapperParsingException(
+                f"unknown join name [{name}] for field [{self.name}]")
+        if name in self._parent_of and parent is None:
+            raise MapperParsingException(
+                f"[parent] is missing for join field [{self.name}]")
+        if (name in self.relations and name not in self._parent_of
+                and parent is not None):
+            raise MapperParsingException(
+                f"[parent] is specified but the join name [{name}] is a "
+                f"parent")
+        return str(name), (str(parent) if parent is not None else None)
+
+    def index_terms(self, value, analyzers):
+        name, _ = self.parse_join(value)
+        return [name]
+
+    def doc_value(self, value):
+        return None  # DocumentMapper._index_single fills both columns
+
+
 FIELD_TYPES = {
     t.type_name: t
     for t in [TextFieldType, KeywordFieldType, LongFieldType,
@@ -674,8 +735,17 @@ FIELD_TYPES = {
               IpFieldType, GeoPointFieldType, IntegerRangeFieldType,
               LongRangeFieldType, FloatRangeFieldType, DoubleRangeFieldType,
               DateRangeFieldType, IpRangeFieldType, TokenCountFieldType,
-              BinaryFieldType, Murmur3FieldType, DenseVectorFieldType]
+              BinaryFieldType, Murmur3FieldType, DenseVectorFieldType,
+              JoinFieldType]
 }
+
+
+def join_field_of(mapper_service) -> Optional[JoinFieldType]:
+    """The index's one join field, if mapped."""
+    for ft in mapper_service.mapper.fields.values():
+        if isinstance(ft, JoinFieldType):
+            return ft
+    return None
 
 
 def create_field_type(name: str, params: dict) -> FieldType:

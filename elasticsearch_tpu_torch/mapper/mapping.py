@@ -15,8 +15,14 @@ field with ``fielddata`` adds its analyzed tokens to the string values.
 One document's analysis is memoized by (analyzer, text): a text field,
 its fielddata and a ``token_count`` multi-field over the same value
 analyze it once.
-Nested objects and the other field types (geo_shape, join, percolator,
-completion) are later slices and raise.
+A ``nested`` path makes each of its objects a sub-document of its own
+(``ParsedDocument.nested``, nested-in-nested too), its fields keyed by
+their full path; ``include_in_parent`` / ``include_in_root`` also copy
+the object's flat fields onto the enclosing document. A ``join`` value
+fills the relation's ordinal column ``<field>`` and, for a child, the
+parent id's ``<field>#parent``. A legacy ``_parent`` meta field names the
+parent type (``MapperService.parent_type``). The other field types
+(geo_shape, percolator, completion) are later slices and raise.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from elasticsearch_tpu_torch.mapper.field_types import (
     DenseVectorFieldType,
     FieldType,
     GeoPointFieldType,
+    JoinFieldType,
     RangeFieldType,
     TextFieldType,
     TokenCountFieldType,
@@ -99,6 +106,8 @@ class ParsedDocument:
     # vector for the same field in one document is a 400)
     vector_values: Dict[str, List[float]] = field(default_factory=dict)
     mapping_update: Optional[dict] = None
+    # nested path -> one sub-document a nested object, in source order
+    nested: Dict[str, List["ParsedDocument"]] = field(default_factory=dict)
     # (analyzer, text) -> tokens while the document parses
     analysis_memo: dict = field(default_factory=dict, repr=False,
                                 compare=False)
@@ -117,6 +126,8 @@ class DocumentMapper:
         self.dense_vector_max_dims = dense_vector_max_dims
         self.fields: Dict[str, FieldType] = {}
         self._object_paths: set = set()
+        # nested object paths ("type": "nested") -> their mapping params
+        self.nested_paths: Dict[str, dict] = {}
         self._compile("", mapping.get("properties", {}))
         if len(self.fields) > total_fields_limit:
             raise IllegalArgumentException(
@@ -126,6 +137,11 @@ class DocumentMapper:
     def _compile(self, prefix: str, properties: dict) -> None:
         for name, params in properties.items():
             path = f"{prefix}{name}"
+            if params.get("type") == "nested":
+                self._object_paths.add(path)
+                self.nested_paths[path] = params
+                self._compile(path + ".", params.get("properties", {}))
+                continue
             if "properties" in params and "type" not in params:
                 self._object_paths.add(path)
                 self._compile(path + ".", params["properties"])
@@ -184,6 +200,10 @@ class DocumentMapper:
             if value is None:
                 self._index_null(path, out)
                 continue
+            if path in self.nested_paths:
+                self._parse_nested(path, key, value, out, props, new_props,
+                                   dynamic)
+                continue
             ft = self.fields.get(path)
             if ft is None and path in self._object_paths and not isinstance(value, dict):
                 raise MapperParsingException(
@@ -237,6 +257,53 @@ class DocumentMapper:
                     )
             self._index_value(ft, value, out)
 
+    def _parse_nested(self, path: str, key: str, value: Any,
+                      out: ParsedDocument, props: dict, new_props: dict,
+                      dynamic: str) -> None:
+        """Each object under a nested path becomes its own sub-document,
+        its fields keyed by full path; a null element is skipped."""
+        objs = value if isinstance(value, list) else [value]
+        sub_props = props.get(key, {}).get("properties", {})
+        params_n = self.nested_paths[path]
+        sub_new = (
+            new_props.setdefault(key, {"type": "nested", "properties": {}})
+            ["properties"] if dynamic == "true" else {})
+        for obj in objs:
+            if obj is None:
+                continue
+            if not isinstance(obj, dict):
+                raise MapperParsingException(
+                    f"object mapping for [{path}] tried to parse field "
+                    f"[{key}] as object, but found a concrete value")
+            sub = ParsedDocument(doc_id=out.doc_id, source=obj, routing=None)
+            self._parse_object(path + ".", obj, sub, sub_props, sub_new,
+                               dynamic)
+            out.nested.setdefault(path, []).append(sub)
+            if params_n.get("include_in_parent") or params_n.get(
+                    "include_in_root"):
+                # the object's flat fields onto the enclosing doc, but not
+                # its inner nested docs (``sub`` carries those)
+                inc = ParsedDocument(doc_id=out.doc_id, source=obj,
+                                     routing=None)
+                self._parse_object(path + ".", obj, inc, sub_props,
+                                   sub_new if dynamic == "true" else {},
+                                   dynamic)
+                for store in ("terms", "numeric_values", "string_values",
+                              "geo_values", "range_values"):
+                    for f, vals in getattr(inc, store).items():
+                        getattr(out, store).setdefault(f, []).extend(vals)
+                for f, vec in inc.vector_values.items():
+                    # one vector a field a doc: two objects carrying the
+                    # same dense_vector path cannot both flatten
+                    if f in out.vector_values:
+                        raise MapperParsingException(
+                            f"Field [{f}] of type [dense_vector] doesn't "
+                            f"support indexing multiple values for the "
+                            f"same field in one document")
+                    out.vector_values[f] = vec
+        if dynamic == "true" and not sub_new:
+            new_props.pop(key, None)
+
     def _dynamic_type_for(self, sample: Any) -> dict:
         """Dynamic mapping rules (DocumentParser.createBuilderFromFieldType)."""
         if isinstance(sample, bool):
@@ -289,6 +356,14 @@ class DocumentMapper:
         analyzers = _DocAnalyzers(self.analyzers, out.analysis_memo)
         if isinstance(ft, GeoPointFieldType):
             out.geo_values.setdefault(ft.name, []).append(ft.parse_point(v))
+            return
+        if isinstance(ft, JoinFieldType):
+            name, parent = ft.parse_join(v)
+            out.terms.setdefault(ft.name, []).append(name)
+            out.string_values.setdefault(ft.name, []).append(name)
+            if parent is not None:
+                out.string_values.setdefault(f"{ft.name}#parent",
+                                             []).append(parent)
             return
         if isinstance(ft, RangeFieldType):
             out.range_values.setdefault(ft.name, []).append(ft.parse_range(v))
@@ -348,6 +423,12 @@ class MapperService:
     @property
     def dynamic(self) -> str:
         return str(self._mapping.get("dynamic", "true")).lower()
+
+    @property
+    def parent_type(self) -> Optional[str]:
+        """The legacy ``_parent`` meta field's type: a single-doc op on
+        the index then needs ``parent`` or ``routing``."""
+        return (self._mapping.get("_parent") or {}).get("type")
 
     def mapping_dict(self) -> dict:
         return copy.deepcopy(self._mapping)

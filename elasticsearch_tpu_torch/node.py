@@ -468,13 +468,20 @@ class Node:
             index = meta.get("_index")
             doc_id = meta.get("_id")
             routing = meta.get("routing") or meta.get("_routing")
+            parent = meta.get("parent") or meta.get("_parent")
+            if parent is not None:
+                parent = str(parent)
+                if routing is None:
+                    # the legacy _parent: the parent id routes the doc
+                    routing = parent
             try:
                 if action == "index":
-                    r = self.index_doc(index, doc_id, source, routing)
+                    r = self.index_doc(index, doc_id, source, routing,
+                                       parent=parent)
                     status = 201 if r.get("result") == "created" else 200
                 elif action == "create":
                     r = self.index_doc(index, doc_id, source, routing,
-                                       op_type="create")
+                                       op_type="create", parent=parent)
                     status = 201
                 elif action == "delete":
                     r = self.delete_doc(index, doc_id, routing)

@@ -123,6 +123,18 @@ string-missing sort to the host rung (``sort_ineligible``), an inexact
 cursor or chained rescorers (``feature_ineligible``) and collapse
 (``unsupported_body``).
 
+Nested and join clauses stack as ``DenseScoreNode`` (two dense columns
+a slot). Their inner queries run on the host rung's executor: a nested
+clause on the path's sub-segment of each slot (which stages on that first
+use under its own ledger scope, owned by the index, and goes with its
+root segment on a tombstone, a compaction, ``close`` and ``DELETE``), a
+join clause over every segment of the slot's shard (its pass memoized by
+shard, see ROADMAP C13). A slot whose plan is ``MatchNoneNode`` beside a
+slot's ``DenseScoreNode`` does not stack (``shape_mismatch``) and the
+host rung serves, as in the JAX package; a nested sort has no root
+column and goes to the host rung (``sort_ineligible``); the nested and
+children aggregations reduce on the host (``unsupported_agg``).
+
 Left for later slices: the compile cache and telemetry, stacking a full
 rebuild on the card instead of through host numpy (a ``perf_opt``), and
 the dynamic update of the pruning, fused-aggregation, delta-staging,
@@ -2244,7 +2256,8 @@ class IndexMeshSearch:
     def _ctx(self, sid: int, session):
         from elasticsearch_tpu_torch.search.query_dsl import ShardQueryContext
 
-        ctx = ShardQueryContext(self.svc.shards[sid].mapper_service)
+        shard = self.svc.shards[sid]
+        ctx = ShardQueryContext(shard.mapper_service, shard.engine)
         ctx.for_mesh = True
         ctx.mesh_kernel = session
         return ctx
@@ -2622,7 +2635,8 @@ class IndexMeshSearch:
                 nd1 = seg.nd_pad + 1
                 views.append(SegmentView(
                     seg, matched[i, :nd1],
-                    ShardQueryContext(self.svc.shards[sid].mapper_service),
+                    ShardQueryContext(self.svc.shards[sid].mapper_service,
+                                      self.svc.shards[sid].engine),
                     scores_all[i, :nd1]))
             aggregations = run_aggregations(agg_specs, views)
             self._note_agg_fallback(agg_reason or "field_ineligible")

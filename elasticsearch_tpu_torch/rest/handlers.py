@@ -7,10 +7,12 @@ whose Node API the port lacks answers ``_unported``: a 400
 ``illegal_argument_exception`` saying the route is not supported by the
 port yet (no route is dropped). Ported here: ``GET /`` and ``HEAD /``,
 document CRUD (index, create, auto-id, get, head, ``_source``, delete;
-``version``, ``op_type``, ``routing``, ``refresh``, ``_source``
-filtering, the typed-path deprecation warning), ``_bulk`` (index, create,
-delete), ``_search`` with the URI parameters (``?scroll=`` opens a
-point-in-time scroll), ``_search/scroll`` (next page, clear), ``_count``,
+``version``, ``op_type``, ``routing``, the legacy ``parent`` (the routing
+of a ``_parent``-mapped index, required there), ``refresh``, ``_source``
+filtering, GET's ``stored_fields`` (``_parent`` too), the typed-path
+deprecation warning), ``_bulk`` (index, create, delete; ``parent``),
+``_search`` with the URI parameters (``?scroll=`` opens a point-in-time
+scroll), ``_search/scroll`` (next page, clear), ``_count``,
 ``_msearch``, ``_refresh``, ``_flush``, ``_flush/synced``,
 ``_forcemerge``, index create/delete/get/head, ``_mapping``,
 ``_settings``, ``_analyze`` over the built-in analyzers, ``_cluster/health`` and the cat
@@ -35,6 +37,7 @@ from elasticsearch_tpu_torch.common.errors import (
     IllegalArgumentException,
     IndexNotFoundException,
     ResourceNotFoundException,
+    RoutingMissingException,
     VersionConflictEngineException,
 )
 from elasticsearch_tpu_torch.common.settings import Settings
@@ -389,14 +392,26 @@ def _record_doc_type(node, req):
         svc.doc_type = t
 
 
-def _routing(req):
-    """The ``routing`` param; ``parent`` (the legacy parent field) and
-    ingest pipelines are not ported."""
-    if req.param("parent") is not None:
-        raise _not_supported("the [parent] parameter")
+def _parent_routing(node, req):
+    """(effective routing, parent): the legacy ``parent`` param acts as the
+    routing, and a ``_parent``-mapped index requires one of the two on
+    every single-doc op (``RoutingMissingException``). Ingest pipelines
+    are not ported."""
     if req.param("pipeline") is not None:
         raise _not_supported("ingest pipelines")
-    return req.param("routing")
+    routing = req.param("routing")
+    parent = req.param("parent")
+    eff = routing if routing is not None else parent
+    if eff is None:
+        svc = node.indices.get(req.param("index"))
+        if svc is not None and svc.mapper_service.parent_type is not None:
+            raise RoutingMissingException(svc.doc_type or "_doc",
+                                          req.param("id") or "")
+    return eff, parent
+
+
+def _routing(node, req):
+    return _parent_routing(node, req)[0]
 
 
 def _version_kw(req) -> dict:
@@ -417,10 +432,11 @@ def _index_doc(node, req, force_create: bool = False):
     kw = _version_kw(req)
     if force_create or req.param("op_type") == "create":
         kw["op_type"] = "create"
+    routing, parent = _parent_routing(node, req)
     r = node.index_doc(req.param("index"), req.param("id"), body,
-                       routing=_routing(req), refresh=req.param("refresh"),
+                       routing=routing, refresh=req.param("refresh"),
                        wait_for_active_shards=req.param(
-                           "wait_for_active_shards"), **kw)
+                           "wait_for_active_shards"), parent=parent, **kw)
     _record_doc_type(node, req)
     _echo_type(req, _forced_refresh(req, _write_shards_header(node, req, r)))
     return (201 if r.get("result") == "created" else 200), r
@@ -440,10 +456,11 @@ def _index_doc_auto_id(node, req):
     if body is None:
         raise ActionRequestValidationException(
             "Validation Failed: 1: source is missing;")
+    routing, parent = _parent_routing(node, req)
     r = node.index_doc(req.param("index"), None, body,
-                       routing=_routing(req), refresh=req.param("refresh"),
+                       routing=routing, refresh=req.param("refresh"),
                        wait_for_active_shards=req.param(
-                           "wait_for_active_shards"))
+                           "wait_for_active_shards"), parent=parent)
     _record_doc_type(node, req)
     _echo_type(req, _forced_refresh(req, _write_shards_header(node, req, r)))
     return 201, r
@@ -479,10 +496,8 @@ def _get_kw(req) -> dict:
 
 def _get_doc(node, req):
     _typed_api_warning(req)
-    if req.param("stored_fields") is not None:
-        raise _not_supported("the [stored_fields] parameter")
-    r = node.get_doc(req.param("index"), req.param("id"), _routing(req),
-                     **_get_kw(req))
+    r = node.get_doc(req.param("index"), req.param("id"),
+                     _routing(node, req), **_get_kw(req))
     if r["found"] and req.param("version") is not None:
         # reading a stale version conflicts: only equality passes
         try:
@@ -493,18 +508,48 @@ def _get_doc(node, req):
         if want != r["_version"]:
             raise VersionConflictEngineException(
                 req.param("id"), r["_version"], want)
+    stored = req.param("stored_fields")
+    if r["found"] and stored is not None:
+        _stored_fields(node, req, r, [f for f in str(stored).split(",") if f])
     _echo_type(req, _apply_source_filtering(req, r), node)
     return (200 if r["found"] else 404), r
 
 
+def _stored_fields(node, req, r: dict, wanted: List[str]) -> None:
+    """GET's ``stored_fields``: ``_parent`` from the index's registry,
+    ``_routing`` as stored, and mapped fields with ``store: true`` from
+    the source under ``fields``; the source only when ``_source`` is
+    asked for."""
+    src = r.get("_source") or {}
+    svc = node.index_service(req.param("index"))
+    fields = {}
+    for f in wanted:
+        if f in ("_source", "_routing"):
+            continue
+        if f == "_parent":
+            p = svc.parents.get(str(req.param("id")))
+            if p is not None:
+                r["_parent"] = p
+            continue
+        ft = svc.mapper_service.field_type(f)
+        if ft is None or not ft.params.get("store", False) or f not in src:
+            continue
+        v = src[f]
+        fields[f] = v if isinstance(v, list) else [v]
+    if fields:
+        r["fields"] = fields
+    if "_source" not in wanted:
+        r.pop("_source", None)
+
+
 def _head_doc(node, req):
-    r = node.get_doc(req.param("index"), req.param("id"), _routing(req),
+    r = node.get_doc(req.param("index"), req.param("id"), _routing(node, req),
                      **_get_kw(req))
     return (200 if r["found"] else 404), {}
 
 
 def _get_source(node, req):
-    r = node.get_doc(req.param("index"), req.param("id"), _routing(req),
+    r = node.get_doc(req.param("index"), req.param("id"), _routing(node, req),
                      **_get_kw(req))
     if not r["found"]:
         return 404, {}
@@ -515,7 +560,7 @@ def _get_source(node, req):
 def _delete_doc(node, req):
     _typed_api_warning(req)
     r = node.delete_doc(req.param("index"), req.param("id"),
-                        routing=_routing(req), refresh=req.param("refresh"),
+                        routing=_routing(node, req), refresh=req.param("refresh"),
                         **_version_kw(req))
     _echo_type(req, _forced_refresh(req, _write_shards_header(node, req, r)))
     return (200 if r.get("found") else 404), r

@@ -39,9 +39,16 @@ bytes charged to the fielddata breaker before the build with the JAX
 estimate and recorded in ``segment.breaker_charges``, the column kept in
 the segment's ``host_cache``.
 
-Not ported, each waiting for its module, and raising ``ParsingException``:
-``nested`` and ``reverse_nested`` (nested objects), ``children`` (the join
-field), ``scripted_metric`` (``script/``). ``run_aggregations`` holds its
+Nested and join buckets: ``nested`` moves the views from the matched
+docs to their objects at ``path`` (the sub-segment's columns, keyed by
+full path), ``reverse_nested`` joins back to the enclosing docs (or
+re-descends into another ``path``; outside a ``nested`` it raises), and
+``children`` moves from the matched parents to their children of
+``type`` in every segment view, through each segment's parent-id
+vocabulary.
+
+Not ported, waiting for its module, and raising ``ParsingException``:
+``scripted_metric`` (``script/``). ``run_aggregations`` holds its
 request estimate on the request circuit breaker (``common/breaker.py``)
 while it runs. The ``CUSTOM_AGGS`` plugin hook waits for ``plugins/``.
 """
@@ -78,7 +85,7 @@ PIPELINE_TYPES = {"derivative", "cumulative_sum", "moving_avg", "avg_bucket",
                   "sum_bucket", "min_bucket", "max_bucket", "stats_bucket",
                   "bucket_script", "bucket_selector", "bucket_sort", "serial_diff"}
 # the JAX package's types whose modules the port does not have yet
-UNPORTED_TYPES = {"nested", "reverse_nested", "children", "scripted_metric"}
+UNPORTED_TYPES = {"scripted_metric"}
 
 
 class AggSpec:
@@ -119,14 +126,20 @@ class SegmentView:
     """One segment + the matched mask for the current (sub-)aggregation."""
 
     def __init__(self, segment, mask: np.ndarray, shard_ctx=None,
-                 scores: Optional[np.ndarray] = None):
+                 scores: Optional[np.ndarray] = None, nested_ctx=None,
+                 root_view: Optional["SegmentView"] = None):
         self.segment = segment
         self.mask = mask  # np bool [nd1], already includes live
         self.shard_ctx = shard_ctx  # ShardQueryContext for filter aggs
         self.scores = scores  # np f32 [nd1] (top_hits)
+        # over a nested sub-segment: its join back to the enclosing view
+        # (reverse_nested)
+        self.nested_ctx = nested_ctx
+        self.root_view = root_view
 
     def with_mask(self, mask: np.ndarray) -> "SegmentView":
-        return SegmentView(self.segment, mask, self.shard_ctx, self.scores)
+        return SegmentView(self.segment, mask, self.shard_ctx, self.scores,
+                           self.nested_ctx, self.root_view)
 
 
 def _resolve_value_field(segment, field: str):
@@ -900,6 +913,15 @@ def _run_one_inner(spec: AggSpec, views: List[SegmentView]) -> dict:
                 return run_aggregations(spec.subs, sub_views)
         return finalize_histogram(spec, merged, is_date, sub_cb)
 
+    if spec.type == "nested":
+        return _run_nested(spec, views)
+
+    if spec.type == "reverse_nested":
+        return _run_reverse_nested(spec, views)
+
+    if spec.type == "children":
+        return _run_children(spec, views)
+
     if spec.type == "significant_terms":
         return _run_significant_terms(spec, views)
 
@@ -945,6 +967,107 @@ def _run_one_inner(spec: AggSpec, views: List[SegmentView]) -> dict:
         return {"buckets": buckets}
 
     raise ParsingException(f"Unsupported aggregation type [{spec.type}]")
+
+
+def _nested_view(v: SegmentView, nctx, root_mask: np.ndarray,
+                 root_view: SegmentView) -> SegmentView:
+    """A view over ``nctx``'s live objects whose doc ``root_mask``
+    holds."""
+    n = nctx.parent_of.shape[0]
+    nseg = nctx.segment
+    m = np.zeros(nseg.nd_pad + 1, dtype=bool)
+    m[:n] = root_mask[nctx.parent_of] & nseg.live[:n]
+    return SegmentView(nseg, m, v.shard_ctx, nested_ctx=nctx,
+                       root_view=root_view)
+
+
+def _with_subs(spec, doc_count: int, sub_views) -> dict:
+    result = {"doc_count": doc_count}
+    if spec.subs:
+        result.update(run_aggregations(spec.subs, sub_views))
+    return result
+
+
+def _run_nested(spec, views) -> dict:
+    """nested: from the matched docs to their objects at ``path``."""
+    path = spec.body.get("path")
+    sub_views = []
+    for v in views:
+        nctx = v.segment.nested.get(path)
+        if nctx is None or nctx.segment.num_docs == 0:
+            continue
+        sub_views.append(_nested_view(v, nctx, v.mask, v))
+    return _with_subs(spec, sum(int(sv.mask.sum()) for sv in sub_views),
+                      sub_views)
+
+
+def _run_reverse_nested(spec, views) -> dict:
+    """reverse_nested: from the objects back to their enclosing docs, or
+    on into another nested ``path`` of those docs."""
+    target_path = spec.body.get("path")
+    sub_views = []
+    for v in views:
+        nctx, rv = v.nested_ctx, v.root_view
+        if nctx is None or rv is None:
+            raise ParsingException(
+                "Reverse nested aggregation must be nested in a nested "
+                "aggregation")
+        n = nctx.parent_of.shape[0]
+        rm = np.zeros(rv.segment.nd_pad + 1, dtype=bool)
+        rm[nctx.parent_of[np.flatnonzero(v.mask[:n])]] = True
+        rm[: rv.segment.nd_pad] &= rv.segment.live
+        if target_path is None:
+            sub_views.append(SegmentView(rv.segment, rm, rv.shard_ctx,
+                                         rv.scores))
+            continue
+        tctx = rv.segment.nested.get(target_path)
+        if tctx is None or tctx.segment.num_docs == 0:
+            continue
+        sub_views.append(_nested_view(rv, tctx, rm, rv))
+    return _with_subs(spec, sum(int(sv.mask.sum()) for sv in sub_views),
+                      sub_views)
+
+
+def _run_children(spec, views) -> dict:
+    """children: from the matched docs to their children of ``type`` in
+    every view (a child may live in any segment). A child counts when its
+    parent id names a matched doc of any view, as the JAX package's id
+    set has it: each segment's parent-id vocabulary maps once (cached) to
+    each view's docs, and the matched masks are read through it."""
+    from elasticsearch_tpu_torch.mapper.field_types import join_field_of
+    from elasticsearch_tpu_torch.search.query_dsl import (
+        _vocab_to_docs,
+        join_children,
+    )
+
+    child_type = spec.body["type"]
+    jf = None
+    for v in views:
+        if v.shard_ctx is not None:
+            jf = join_field_of(v.shard_ctx.mapper_service)
+            if jf is not None:
+                break
+    parents = [v for v in views if v.mask[: v.segment.nd_pad].any()] \
+        if jf is not None else []
+    sub_views = []
+    total = 0
+    for v in views:
+        seg = v.segment
+        mask = np.zeros_like(v.mask)
+        children = (join_children(seg, jf.name, [child_type])
+                    if parents else None)
+        if children is not None:
+            locals_, pords, pcol = children
+            in_set = np.zeros(len(pcol.terms), bool)
+            for pv in parents:
+                docs = _vocab_to_docs(pv.segment, pcol.terms,
+                                      f"joinvocab.{jf.name}.{seg.name}")
+                ok = docs >= 0
+                in_set[ok] |= pv.mask[docs[ok]]
+            mask[locals_[in_set[pords]]] = True
+        total += int(mask[: seg.nd_pad].sum())
+        sub_views.append(v.with_mask(mask))
+    return _with_subs(spec, total, sub_views)
 
 
 def _run_significant_terms(spec, views) -> dict:

@@ -15,8 +15,8 @@ NumericTermsNode, OrdTermsNode, OrdRangeNode, OrdSetNode (ip term and
 range), RangePairNode (range
 fields), GeoDistanceNode and GeoBoxNode (geo points), DenseMaskNode
 (exists, ids, geo_polygon), BoolNode, ConstantScoreNode, BoostNode,
-DisMaxNode and FunctionScoreNode. DenseScoreNode waits for the join and
-nested builders that make it.
+DisMaxNode, FunctionScoreNode and DenseScoreNode (the scores and mask a
+nested or join clause folded on the host).
 
 For the mesh plane (parallel/plan_exec.py) every node declares how its
 arrays pad when per-segment plans of one query are stacked
@@ -677,6 +677,27 @@ class DenseMaskNode(PlanNode):
     def emit(self, ctx):
         (mask,) = ctx.take(1)
         return ctx.zeros_f(), mask
+
+
+class DenseScoreNode(PlanNode):
+    """Precomputed dense [nd1] f32 scores and bool mask: a nested clause's
+    objects or a join clause's other side, folded onto this segment's
+    docs on the host."""
+
+    def __init__(self, scores, mask, label: str = "join"):
+        self.scores = scores
+        self.mask = mask
+        self.label = label
+
+    def arrays(self):
+        return [self.scores, self.mask]
+
+    def pad_kinds(self):
+        return ["dense", "dense"]
+
+    def emit(self, ctx):
+        scores, mask = ctx.take(2)
+        return _where(mask, scores.to(torch.float32)), mask
 
 
 # ---------------------------------------------------------------------------

@@ -8,10 +8,21 @@ queries the port serves: ``match_all``, ``match_none``, ``match``,
 ``dis_max``, ``function_score`` (weight, field_value_factor,
 random_score), ``query_string`` and ``simple_query_string``,
 ``more_like_this``, ``knn``, ``geo_distance``, ``geo_bounding_box`` and
-``geo_polygon``. ``term`` and ``range`` on a range field test its (lo,
+``geo_polygon``, ``nested``, ``has_child``, ``has_parent`` and
+``parent_id``. ``term`` and ``range`` on a range field test its (lo,
 hi) pairs (point containment; ``relation``). Any other query type (span,
-geo_shape, script, percolate, join and nested queries) raises the JAX
-package's ``ParsingException`` for an unknown query.
+geo_shape, script, percolate) raises the JAX package's
+``ParsingException`` for an unknown query.
+
+``nested`` runs its inner query on the path's sub-segment and folds the
+matched objects onto their docs (``DenseScoreNode``); the join queries
+run their inner query over every segment of the shard, restricted to one
+relation, and map the other side through each segment's parent-id
+vocabulary with integer arrays. Their results equal the JAX host rung's;
+a join pass is memoized by shard, where the JAX package memoizes it by
+builder and so loses, on its mesh plane, every match outside the first
+shard (ROADMAP C13). ``collect_inner_hits`` finds the builders whose
+``inner_hits`` the fetch phase answers.
 
 ``term`` and ``range`` on an ``ip`` field answer as Elasticsearch does,
 through the field's ordinal column of formatted addresses: each
@@ -61,6 +72,7 @@ from elasticsearch_tpu_torch.mapper.field_types import (
     NumberFieldType,
     RangeFieldType,
     TextFieldType,
+    join_field_of,
     parse_ip,
 )
 from elasticsearch_tpu_torch.ops.scoring import B, K1, bm25_idf
@@ -73,11 +85,14 @@ MAX_EXPANSIONS = 1024
 
 
 class ShardQueryContext:
-    """Per-shard query context (QueryShardContext): mapper + analyzers."""
+    """Per-shard query context (QueryShardContext): mapper + analyzers,
+    and the shard's engine for the join queries, which read every segment
+    of the shard."""
 
-    def __init__(self, mapper_service):
+    def __init__(self, mapper_service, engine=None):
         self.mapper_service = mapper_service
         self.analyzers = mapper_service.analyzers
+        self.engine = engine
         # mesh plane: plans must stack across segments (one skeleton), and
         # mesh_kernel is the executor's staged kernel session, if any
         self.for_mesh = False
@@ -92,6 +107,13 @@ class ShardQueryContext:
             return None
         ft = self.mapper_service.field_type(field)
         return svc.get(getattr(ft, "similarity_name", None))
+
+    def all_segments(self, fallback_segment) -> List:
+        """Every searchable segment of the shard (the one segment given,
+        without an engine)."""
+        if self.engine is not None:
+            return list(self.engine.searchable_segments())
+        return [fallback_segment]
 
     def default_fields(self) -> List[str]:
         """Every text field: the fields a ``query_string`` without a field
@@ -1409,6 +1431,493 @@ class MoreLikeThisQueryBuilder(QueryBuilder):
 
 
 # ---------------------------------------------------------------------------
+# Nested objects and the parent-join field
+# ---------------------------------------------------------------------------
+
+
+def _require_join_field(ctx):
+    jf = join_field_of(ctx.mapper_service)
+    if jf is None:
+        raise QueryShardException(
+            "no [join] field declared in the mapping of this index")
+    return jf
+
+
+def join_columns(segment, join_field: str):
+    """(relation ordinal column, parent-id ordinal column) or None: the
+    one place that knows the ``<field>#parent`` encoding."""
+    col = segment.ordinal_columns.get(join_field)
+    pcol = segment.ordinal_columns.get(f"{join_field}#parent")
+    if col is None or pcol is None:
+        return None
+    return col, pcol
+
+
+def join_children(segment, join_field: str, child_names):
+    """Live docs whose relation is one of ``child_names`` and that carry a
+    parent id -> (local docs int64, their parent ids as ordinals of the
+    parent-id column, that column), or None when the segment has none."""
+    cols = join_columns(segment, join_field)
+    if cols is None:
+        return None
+    col, pcol = cols
+    child_ords = [o for o in (col.ord_of(c) for c in child_names) if o >= 0]
+    if not child_ords:
+        return None
+    nd = segment.nd_pad
+    sel = (np.isin(col.first_ord, child_ords) & pcol.exists
+           & segment.live[:nd])
+    locals_ = np.flatnonzero(sel)
+    return locals_, pcol.first_ord[locals_].astype(np.int64), pcol
+
+
+def parent_id_of(segment, join_field: str, local: int) -> Optional[str]:
+    cols = join_columns(segment, join_field)
+    if cols is None:
+        return None
+    _, pcol = cols
+    if not pcol.exists[local]:
+        return None
+    return pcol.terms[pcol.first_ord[local]]
+
+
+def _vocab_to_docs(segment, terms: List[str], key: str) -> np.ndarray:
+    """Each term of a parent-id vocabulary as this segment's local doc of
+    that id (-1 when absent, dead docs included as ``id_to_doc`` holds
+    them), cached in the segment's host cache under ``key``, which names
+    the vocabulary's segment (``joinvocab.<field>.<segment>``): both
+    sides are immutable."""
+    hit = segment.host_cache.get(key)
+    if hit is None:
+        id_map = segment.id_to_doc()
+        hit = np.fromiter((id_map.get(t, -1) for t in terms), np.int64,
+                          len(terms))
+        segment.host_cache[key] = hit
+    return hit
+
+
+def _matched_by_relation(ctx, segment, query: "QueryBuilder", jf,
+                         relation_name: str) -> list:
+    """Run ``query`` over every segment of the shard, restricted to live
+    docs of one join relation: [(segment, local docs int64, scores f32)]
+    in segment order, local docs ascending. The inner query runs on the
+    host rung's executor of each segment."""
+    inner_ctx = ShardQueryContext(ctx.mapper_service, ctx.engine)
+    out = []
+    for seg2 in ctx.all_segments(segment):
+        col = seg2.ordinal_columns.get(jf.name)
+        if col is None:
+            continue
+        rel_ord = col.ord_of(relation_name)
+        if rel_ord < 0:
+            continue
+        node = query.to_plan(inner_ctx, seg2)
+        scores_d, matched_d = P.execute(seg2.device_arrays(), node)
+        nd = seg2.nd_pad
+        scores = scores_d.cpu().numpy()
+        matched = matched_d.cpu().numpy()[:nd]
+        sel = matched & seg2.live[:nd] & (col.first_ord == rel_ord)
+        locals_ = np.flatnonzero(sel)
+        out.append((seg2, locals_, scores[locals_]))
+    return out
+
+
+def _shard_key(ctx):
+    """The shard a join pass belongs to: one builder serves every slot of
+    the mesh plane, and each shard must see its own children or parents
+    (the JAX package keys this memo by builder alone; see ROADMAP C13)."""
+    return id(ctx.engine)
+
+
+class HasChildQueryBuilder(QueryBuilder):
+    """has_child (HasChildQueryBuilder): parent docs with min_children ..
+    max_children children of ``type`` matching the inner query; the
+    children's scores fold per ``score_mode``. The child pass runs once a
+    shard a request; each segment then maps the children's parent-id
+    vocabulary to its own docs once and folds with integer arrays."""
+
+    name = "has_child"
+
+    def __init__(self, type_: str, query: QueryBuilder, score_mode: str = "none",
+                 min_children: int = 1, max_children: Optional[int] = None,
+                 inner_hits: Optional[dict] = None, **kw):
+        super().__init__(**kw)
+        self.type = type_
+        self.query = query
+        if score_mode not in ("none", "min", "max", "sum", "avg"):
+            raise ParsingException(
+                f"[has_child] query does not support [score_mode] = "
+                f"[{score_mode}]")
+        self.score_mode = score_mode
+        self.min_children = max(int(min_children), 1)
+        self.max_children = int(max_children) if max_children else None
+        self.inner_hits = inner_hits
+        # shard -> [(segment, child locals, scores, parent-id ords, pcol)]
+        self._memo: dict = {}
+
+    def _child_hits(self, ctx, segment, jf) -> list:
+        key = _shard_key(ctx)
+        hit = self._memo.get(key)
+        if hit is None:
+            hit = []
+            for seg2, locals_, scores in _matched_by_relation(
+                    ctx, segment, self.query, jf, self.type):
+                pcol = seg2.ordinal_columns.get(f"{jf.name}#parent")
+                if pcol is None:
+                    continue
+                has = pcol.exists[locals_]
+                locals_, scores = locals_[has], scores[has]
+                hit.append((seg2, locals_, scores,
+                            pcol.first_ord[locals_].astype(np.int64), pcol))
+            self._memo[key] = hit
+        return hit
+
+    def inner_hits_for(self, ctx, segment, local_doc: int, index_name: str):
+        """The matching children of one parent hit."""
+        spec = self.inner_hits if isinstance(self.inner_hits, dict) else {}
+        jf = _require_join_field(ctx)
+        pid = segment.doc_ids[local_doc]
+        entries = []
+        for seg2, locals_, scores, pords, pcol in self._child_hits(
+                ctx, segment, jf):
+            o = pcol.ord_of(pid)
+            if o < 0:
+                continue
+            for i in np.flatnonzero(pords == o):
+                entries.append((float(scores[i]), seg2, int(locals_[i])))
+        entries.sort(key=lambda e: (-e[0], e[2]))
+        name = spec.get("name", self.type)
+        frm = int(spec.get("from", 0) or 0)
+        size = int(spec.get("size", 3) if spec.get("size") is not None else 3)
+        hits = [{"_index": index_name, "_type": "_doc",
+                 "_id": seg2.doc_ids[loc], "_score": score,
+                 "_source": seg2.sources[loc]}
+                for score, seg2, loc in entries[frm:frm + size]]
+        max_score = entries[0][0] if entries else None
+        return name, {"hits": {"total": len(entries), "max_score": max_score,
+                               "hits": hits}}
+
+    def to_plan(self, ctx, segment):
+        jf = _require_join_field(ctx)
+        parent_name = jf.parent_of(self.type)
+        if parent_name is None:
+            raise QueryShardException(
+                f"[has_child] join relation [{self.type}] is not a child")
+        child_hits = self._child_hits(ctx, segment, jf)
+        col = segment.ordinal_columns.get(jf.name)
+        parent_ord = col.ord_of(parent_name) if col is not None else -1
+        if parent_ord < 0:
+            return P.MatchNoneNode()
+        # every child as its parent's local doc here (-1: elsewhere), in
+        # segment order then local order, as the JAX package folds them
+        targets, scores = [], []
+        for seg2, _locals, sc, pords, pcol in child_hits:
+            vmap = _vocab_to_docs(
+                segment, pcol.terms, f"joinvocab.{jf.name}.{seg2.name}")
+            targets.append(vmap[pords])
+            scores.append(sc.astype(np.float64))
+        if not targets:
+            return P.MatchNoneNode()
+        t = np.concatenate(targets)
+        s = np.concatenate(scores)
+        keep = t >= 0
+        t, s = t[keep], s[keep]
+        # a parent id that names a doc of another relation is no parent
+        ok = col.first_ord[t] == parent_ord
+        t, s = t[ok], s[ok]
+        nd1 = segment.nd_pad + 1
+        counts = np.bincount(t, minlength=nd1)
+        cand = counts >= self.min_children
+        if self.max_children is not None:
+            cand &= counts <= self.max_children
+        mask = cand & (counts > 0)
+        if not mask.any():
+            return P.MatchNoneNode()
+        sc = np.zeros(nd1, dtype=np.float64)
+        mode = self.score_mode
+        if mode in ("sum", "avg"):
+            # sequential float64 in (segment, local) order: the JAX
+            # package's Python sum over the same floats
+            np.add.at(sc, t, s)
+            if mode == "avg":
+                sc = np.where(mask, sc / np.maximum(counts, 1), 0.0)
+        elif mode == "min":
+            sc[:] = np.inf
+            np.minimum.at(sc, t, s)
+        elif mode == "max":
+            sc[:] = -np.inf
+            np.maximum.at(sc, t, s)
+        else:
+            sc[:] = 1.0
+        sc = np.where(mask, sc, 0.0).astype(np.float32)
+        return self._wrap_boost(P.DenseScoreNode(sc, mask, "has_child"))
+
+
+class HasParentQueryBuilder(QueryBuilder):
+    """has_parent (HasParentQueryBuilder): child docs whose parent matches
+    the inner query; ``score: true`` gives each child its parent's
+    score. The parent pass runs once a shard a request and keeps each
+    parent segment's scores by local doc; a segment's children then read
+    them through its parent-id vocabulary mapped once to that segment's
+    docs."""
+
+    name = "has_parent"
+
+    def __init__(self, parent_type: str, query: QueryBuilder,
+                 score: bool = False, inner_hits: Optional[dict] = None, **kw):
+        super().__init__(**kw)
+        self.parent_type = parent_type
+        self.query = query
+        self.score = bool(score)
+        self.inner_hits = inner_hits
+        # shard -> [(segment, f64 score by local doc, nan: no matched
+        # parent)]
+        self._memo: dict = {}
+
+    def _parent_hits(self, ctx, segment, jf) -> list:
+        key = _shard_key(ctx)
+        hit = self._memo.get(key)
+        if hit is None:
+            hit = []
+            for seg2, locals_, scores in _matched_by_relation(
+                    ctx, segment, self.query, jf, self.parent_type):
+                if locals_.size:
+                    by_doc = np.full(seg2.nd_pad, np.nan)
+                    by_doc[locals_] = scores
+                    hit.append((seg2, by_doc))
+            self._memo[key] = hit
+        return hit
+
+    def inner_hits_for(self, ctx, segment, local_doc: int, index_name: str):
+        """The matched parent of one child hit."""
+        spec = self.inner_hits if isinstance(self.inner_hits, dict) else {}
+        jf = _require_join_field(ctx)
+        name = spec.get("name", self.parent_type)
+        pid = parent_id_of(segment, jf.name, local_doc)
+        entry = None
+        for seg2, by_doc in (self._parent_hits(ctx, segment, jf)
+                             if pid else ()):
+            loc = seg2.id_to_doc().get(pid)
+            if loc is not None and not np.isnan(by_doc[loc]):
+                entry = (float(by_doc[loc]), seg2, loc)  # the last wins
+        if entry is None:
+            return name, {"hits": {"total": 0, "max_score": None, "hits": []}}
+        score, seg2, loc = entry
+        hits = [{"_index": index_name, "_type": "_doc",
+                 "_id": seg2.doc_ids[loc], "_score": score,
+                 "_source": seg2.sources[loc]}]
+        return name, {"hits": {"total": 1, "max_score": score, "hits": hits}}
+
+    def to_plan(self, ctx, segment):
+        jf = _require_join_field(ctx)
+        if not jf.is_parent(self.parent_type):
+            raise QueryShardException(
+                f"[has_parent] join relation [{self.parent_type}] is not a "
+                f"parent")
+        parent_hits = self._parent_hits(ctx, segment, jf)
+        if not parent_hits:
+            return P.MatchNoneNode()
+        children = join_children(segment, jf.name,
+                                 jf.relations.get(self.parent_type, []))
+        if children is None:
+            return P.MatchNoneNode()
+        locals_, pords, pcol = children
+        # each child's parent score (nan: no matched parent); a later
+        # segment's parent of the same id wins, as in the JAX package
+        psc = np.full(locals_.size, np.nan)
+        for seg2, by_doc in parent_hits:
+            docs = _vocab_to_docs(seg2, pcol.terms,
+                                  f"joinvocab.{jf.name}.{segment.name}")[pords]
+            ok = docs >= 0
+            got = np.full(locals_.size, np.nan)
+            got[ok] = by_doc[docs[ok]]
+            psc = np.where(np.isnan(got), psc, got)
+        hit = ~np.isnan(psc)
+        if not hit.any():
+            return P.MatchNoneNode()
+        nd1 = segment.nd_pad + 1
+        mask = np.zeros(nd1, dtype=bool)
+        sc = np.zeros(nd1, dtype=np.float32)
+        mask[locals_[hit]] = True
+        sc[locals_[hit]] = psc[hit] if self.score else 1.0
+        return self._wrap_boost(P.DenseScoreNode(sc, mask, "has_parent"))
+
+
+class ParentIdQueryBuilder(QueryBuilder):
+    """parent_id (ParentIdQueryBuilder): children of ``type`` whose parent
+    is exactly ``id``."""
+
+    name = "parent_id"
+
+    def __init__(self, type_: str, id_: str, **kw):
+        super().__init__(**kw)
+        self.type = type_
+        self.id = str(id_)
+
+    def to_plan(self, ctx, segment):
+        jf = _require_join_field(ctx)
+        cols = join_columns(segment, jf.name)
+        if cols is None:
+            return P.MatchNoneNode()
+        col, pcol = cols
+        child_ord = col.ord_of(self.type)
+        pid_ord = pcol.ord_of(self.id)
+        if child_ord < 0 or pid_ord < 0:
+            return P.MatchNoneNode()
+        nd = segment.nd_pad
+        mask = np.zeros(nd + 1, dtype=bool)
+        mask[:nd] = ((col.first_ord == child_ord) & pcol.exists
+                     & (pcol.first_ord == pid_ord) & segment.live[:nd])
+        return P.ConstantScoreNode(P.DenseMaskNode(mask, "parent_id"),
+                                   self.boost)
+
+
+class NestedQueryBuilder(QueryBuilder):
+    """nested (NestedQueryBuilder): the inner query runs over the path's
+    sub-segment (the host rung's executor on the sub-segment's own
+    tables), and the matched objects join to their docs through
+    ``parent_of``: one object must satisfy the whole inner query. The
+    objects' scores fold in float32 on the host in object order (a
+    sequential ``np.add.at``, as the JAX package folds them), so the
+    result is the same bits on every device and every run."""
+
+    name = "nested"
+
+    def __init__(self, path: str, query: QueryBuilder, score_mode: str = "avg",
+                 ignore_unmapped: bool = False,
+                 inner_hits: Optional[dict] = None, **kw):
+        super().__init__(**kw)
+        self.path = path
+        self.query = query
+        if score_mode not in ("none", "min", "max", "sum", "avg"):
+            raise ParsingException(
+                f"[nested] query does not support [score_mode] = "
+                f"[{score_mode}]")
+        self.score_mode = score_mode
+        self.ignore_unmapped = bool(ignore_unmapped)
+        self.inner_hits = inner_hits
+        # id(segment) -> (segment, result): once a segment a request
+        self._cache: dict = {}
+
+    def _nested_matches(self, ctx, segment):
+        """The inner query over the path's objects of ``segment`` ->
+        (NestedContext, matched bool[n_objs], scores f32[n_objs]), or None
+        when the segment holds no object at the path."""
+        hit = self._cache.get(id(segment))
+        if hit is not None and hit[0] is segment:
+            return hit[1]
+        nctx = segment.nested.get(self.path)
+        out = None
+        if nctx is not None and nctx.segment.num_docs > 0:
+            nseg = nctx.segment
+            node = self.query.to_plan(ShardQueryContext(ctx.mapper_service),
+                                      nseg)
+            scores_d, matched_d = P.execute(nseg.device_arrays(), node)
+            n = nctx.parent_of.shape[0]
+            scores = scores_d[:n].cpu().numpy()
+            matched = matched_d[:n].cpu().numpy() & nseg.live[:n]
+            # objects die with their doc
+            matched &= segment.live[nctx.parent_of]
+            out = (nctx, matched, scores)
+        self._cache[id(segment)] = (segment, out)
+        return out
+
+    def to_plan(self, ctx, segment):
+        if self.path not in ctx.mapper_service.mapper.nested_paths:
+            if self.ignore_unmapped:
+                return P.MatchNoneNode()
+            raise QueryShardException(
+                f"[nested] failed to find nested object under path "
+                f"[{self.path}]")
+        res = self._nested_matches(ctx, segment)
+        if res is None:
+            return P.MatchNoneNode()
+        nctx, matched, scores = res
+        objs = np.flatnonzero(matched)
+        if objs.size == 0:
+            return P.MatchNoneNode()
+        parents = nctx.parent_of[objs]
+        nd1 = segment.nd_pad + 1
+        mask = np.zeros(nd1, dtype=bool)
+        mask[parents] = True
+        sc = np.zeros(nd1, dtype=np.float32)
+        obj_scores = scores[objs].astype(np.float32)
+        if self.score_mode == "sum":
+            np.add.at(sc, parents, obj_scores)
+        elif self.score_mode == "avg":
+            counts = np.zeros(nd1, dtype=np.float32)
+            np.add.at(sc, parents, obj_scores)
+            np.add.at(counts, parents, 1.0)
+            sc = np.where(counts > 0, sc / np.maximum(counts, 1.0), 0.0)
+        elif self.score_mode == "min":
+            sc[:] = np.inf
+            np.minimum.at(sc, parents, obj_scores)
+            sc = np.where(mask, sc, 0.0)
+        elif self.score_mode == "max":
+            sc[:] = -np.inf
+            np.maximum.at(sc, parents, obj_scores)
+            sc = np.where(mask, sc, 0.0)
+        # "none": the docs score 0
+        return self._wrap_boost(P.DenseScoreNode(sc.astype(np.float32), mask,
+                                                 "nested"))
+
+    def inner_hits_for(self, ctx, segment, local_doc: int, index_name: str):
+        """The matched objects of one doc hit, each with its
+        ``_nested`` field and offset."""
+        spec = self.inner_hits if isinstance(self.inner_hits, dict) else {}
+        res = (self._nested_matches(ctx, segment)
+               if self.path in ctx.mapper_service.mapper.nested_paths
+               else None)
+        name = spec.get("name", self.path)
+        if res is None:
+            return name, {"hits": {"total": 0, "max_score": None, "hits": []}}
+        nctx, matched, scores = res
+        objs = np.flatnonzero(matched & (nctx.parent_of == local_doc))
+        order = sorted(objs.tolist(),
+                       key=lambda o: (-scores[o], nctx.offset_of[o]))
+        frm = int(spec.get("from", 0) or 0)
+        size = int(spec.get("size", 3) if spec.get("size") is not None else 3)
+        hits = [{"_index": index_name, "_type": "_doc",
+                 "_id": segment.doc_ids[local_doc],
+                 "_nested": {"field": self.path,
+                             "offset": int(nctx.offset_of[o])},
+                 "_score": float(scores[o]),
+                 "_source": nctx.segment.sources[o]}
+                for o in order[frm:frm + size]]
+        max_score = float(scores[order[0]]) if order else None
+        return name, {"hits": {"total": len(order), "max_score": max_score,
+                               "hits": hits}}
+
+
+def sub_queries(qb: QueryBuilder) -> List[QueryBuilder]:
+    """A compound query's immediate child builders."""
+    if isinstance(qb, BoolQueryBuilder):
+        return [*qb.must, *qb.filter, *qb.should, *qb.must_not]
+    if isinstance(qb, ConstantScoreQueryBuilder):
+        return [qb.filter]
+    if isinstance(qb, DisMaxQueryBuilder):
+        return list(qb.queries)
+    if isinstance(qb, (FunctionScoreQueryBuilder, NestedQueryBuilder,
+                       HasChildQueryBuilder, HasParentQueryBuilder)):
+        return [qb.query]
+    return []
+
+
+def collect_inner_hits(qb: Optional[QueryBuilder]) -> List[QueryBuilder]:
+    """The builders anywhere in the tree that carry an ``inner_hits``
+    spec."""
+    if qb is None:
+        return []
+    out = []
+    if getattr(qb, "inner_hits", None) is not None and hasattr(
+            qb, "inner_hits_for"):
+        out.append(qb)
+    for child in sub_queries(qb):
+        out.extend(collect_inner_hits(child))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Parsing (JSON -> builders)
 # ---------------------------------------------------------------------------
 
@@ -1638,5 +2147,32 @@ def parse_query(body) -> QueryBuilder:
             max_query_terms=int(qbody.get("max_query_terms", 25)),
             min_term_freq=int(qbody.get("min_term_freq", 2)),
             minimum_should_match=qbody.get("minimum_should_match", "30%"),
+        )
+    if qtype == "has_child":
+        return HasChildQueryBuilder(
+            qbody["type"], parse_query(qbody.get("query")),
+            score_mode=qbody.get("score_mode", "none"),
+            min_children=int(qbody.get("min_children", 1) or 1),
+            max_children=qbody.get("max_children"),
+            inner_hits=qbody.get("inner_hits"),
+            boost=float(qbody.get("boost", 1.0)),
+        )
+    if qtype == "has_parent":
+        return HasParentQueryBuilder(
+            qbody["parent_type"], parse_query(qbody.get("query")),
+            score=bool(qbody.get("score", False)),
+            inner_hits=qbody.get("inner_hits"),
+            boost=float(qbody.get("boost", 1.0)),
+        )
+    if qtype == "parent_id":
+        return ParentIdQueryBuilder(
+            qbody["type"], qbody["id"], boost=float(qbody.get("boost", 1.0)))
+    if qtype == "nested":
+        return NestedQueryBuilder(
+            qbody["path"], parse_query(qbody["query"]),
+            score_mode=qbody.get("score_mode", "avg"),
+            ignore_unmapped=bool(qbody.get("ignore_unmapped", False)),
+            inner_hits=qbody.get("inner_hits"),
+            boost=float(qbody.get("boost", 1.0)),
         )
     raise ParsingException(f"no [query] registered for [{qtype}]")

@@ -22,9 +22,13 @@ Sort keys, the missing fills and the string sentinels, ``search_after``,
 highlighters follow the JAX package line for line. A ``_geo_distance``
 sort is a float64 haversine on the host (``_geo_distance_sort_values``,
 the 6371008.7714 m radius), a doc without the field +inf in either
-order. Nested sorts, profile, suggest, ``stored_fields``,
-``docvalue_fields`` and ``script_fields`` are later slices, and a
-request carrying one raises.
+order. A sort on a numeric field under a nested path reduces each doc's
+objects with min (asc) or max (desc) (``_nested_sort_values``). The
+fetch phase answers the ``inner_hits`` of nested and join clauses
+(``collect_inner_hits``, the builders parsed once a shard), nested ones
+with ``_nested.field`` and ``offset``. Profile, suggest,
+``stored_fields``, ``docvalue_fields`` and ``script_fields`` are later
+slices, and a request carrying one raises.
 """
 
 from __future__ import annotations
@@ -57,6 +61,7 @@ from elasticsearch_tpu_torch.search.aggregations import (
 )
 from elasticsearch_tpu_torch.search.query_dsl import (
     ShardQueryContext,
+    collect_inner_hits,
     parse_distance,
     parse_query,
 )
@@ -120,7 +125,7 @@ class ShardSearcher:
         self.index_name = index_name
         self.engine = engine
         self.mapper_service = mapper_service
-        self.ctx = ShardQueryContext(mapper_service)
+        self.ctx = ShardQueryContext(mapper_service, engine)
         # slice resolution is shard-count aware (the owner sets both)
         self.num_shards = 1
         self.max_slices = 1024
@@ -351,10 +356,15 @@ class ShardSearcher:
                 raw = _geo_distance_sort_values(seg, missing)
             else:
                 col = seg.numeric_columns.get(field_name)
+                nested_raw = (None if col is not None else
+                              _nested_sort_values(seg, field_name, order,
+                                                  missing))
                 if col is not None:
                     base = col.min_value if order == "asc" else col.max_value
                     fill = _missing_fill(missing, order)
                     raw = np.where(col.exists, base, fill)
+                elif nested_raw is not None:
+                    raw = nested_raw
                 else:
                     ocol = (seg.ordinal_columns.get(field_name)
                             or seg.ordinal_columns.get(f"{field_name}.keyword"))
@@ -456,6 +466,34 @@ def _geo_distance_sort_values(seg, spec: dict) -> np.ndarray:
             vals = tot / np.maximum(cnt, 1.0) if mode == "avg" else tot
             out = np.where(cnt > 0, vals, np.inf)
     return out / float(spec["unit_m"])
+
+
+def _nested_sort_values(seg, field_name: str, order: str, missing):
+    """The sort key of a numeric field under a nested path: each doc's
+    objects' values reduced with min (asc) or max (desc), the default
+    mode; the path is the field's prefix (``nested_path`` and ``nested``
+    are accepted and implied). None when the field is not under a nested
+    path of the segment."""
+    for path, nctx in seg.nested.items():
+        if not field_name.startswith(path + "."):
+            continue
+        ncol = nctx.segment.numeric_columns.get(field_name)
+        if ncol is None:
+            return None
+        n = nctx.parent_of.shape[0]
+        fill = _missing_fill(missing, order)
+        vals = (ncol.min_value if order == "asc" else ncol.max_value)[:n]
+        sel = ncol.exists[:n] & nctx.segment.live[:n]
+        out = np.full(seg.nd_pad, np.inf if order == "asc" else -np.inf,
+                      dtype=np.float64)
+        if order == "asc":
+            np.minimum.at(out, nctx.parent_of[sel], vals[sel])
+        else:
+            np.maximum.at(out, nctx.parent_of[sel], vals[sel])
+        has = np.zeros(seg.nd_pad, dtype=bool)
+        has[nctx.parent_of[sel]] = True
+        return np.where(has, out, fill)
+    return None
 
 
 def slice_mask(seg, sid: int, smax: int) -> np.ndarray:
@@ -697,8 +735,8 @@ def validate_collapse(body: dict) -> Optional[str]:
 def normalize_sort(sort_body) -> Optional[List[Tuple[str, str, Any]]]:
     """-> [(field, order, missing)], or None for relevance (a lone
     ``_score`` sort included). A ``_geo_distance`` entry carries its spec
-    (field, points, ``unit_m``, mode) in the missing slot. Nested sorts
-    raise: their columns are not staged by the port yet."""
+    (field, points, ``unit_m``, mode) in the missing slot. A nested sort's
+    ``nested_path`` / ``nested`` are implied by the field's path."""
     if sort_body is None:
         return None
     if not isinstance(sort_body, list):
@@ -715,10 +753,6 @@ def normalize_sort(sort_body) -> Optional[List[Tuple[str, str, Any]]]:
             if fname == "_geo_distance":
                 out.append(("_geo_distance",) + _geo_sort_spec(spec))
                 continue
-            if isinstance(spec, dict) and (
-                    "nested" in spec or "nested_path" in spec):
-                raise IllegalArgumentException(
-                    "nested sort is not supported by the PyTorch port yet")
             if isinstance(spec, str):
                 out.append((fname, spec, None))
             else:
@@ -831,58 +865,6 @@ def _parse_source_spec(spec):
             True,
         )
     raise ParsingException(f"unsupported _source spec {spec!r}")
-
-
-def _parse_source_spec(spec):
-    """-> (includes, excludes, enabled)."""
-    if spec is True or spec is None:
-        return [], [], True
-    if spec is False:
-        return [], [], False
-    if isinstance(spec, str):
-        return [spec], [], True
-    if isinstance(spec, list):
-        return list(spec), [], True
-    if isinstance(spec, dict):
-        return (
-            list(spec.get("includes") or spec.get("include") or []),
-            list(spec.get("excludes") or spec.get("exclude") or []),
-            True,
-        )
-    raise ParsingException(f"unsupported _source spec {spec!r}")
-
-
-def fetch_hits(refs: List[DocRef], shards: Dict[int, Any], source_body: dict,
-               index_name: str) -> List[dict]:
-    """Fetch phase: materialize hits from doc refs.
-    shards: shard_id -> object with .engine."""
-    source_body = source_body or {}
-    includes, excludes, enabled = _parse_source_spec(
-        source_body.get("_source", True))
-    want_version = bool(source_body.get("version", False))
-    hits = []
-    for ref in refs:
-        shard = shards[ref.shard_id]
-        seg = next((s for s in shard.engine.segments
-                    if s.name == ref.segment_name), ref.segment)
-        if seg is None:
-            continue
-        d = ref.local_doc
-        hit = {
-            "_index": index_name,
-            "_type": "_doc",
-            "_id": seg.doc_ids[d],
-            "_score": ref.score,
-        }
-        if enabled:
-            src = seg.sources[d]
-            if includes or excludes:
-                src = filter_source(src, includes, excludes)
-            hit["_source"] = src
-        if want_version:
-            hit["_version"] = int(seg.versions[d])
-        hits.append(hit)
-    return hits
 
 
 _HL_PRE = "<em>"
@@ -1098,6 +1080,11 @@ def fetch_hits(refs: List[DocRef], shards: Dict[int, Any], source_body: dict,
     highlight_body = source_body.get("highlight")
     sort_spec = normalize_sort(source_body.get("sort"))
     query_terms: Dict[str, set] = {}
+    # builders with inner_hits, one set a shard (the child or nested pass
+    # runs once a shard a request, not once a hit)
+    has_inner_hits = bool(source_body.get("query") and collect_inner_hits(
+        parse_query(source_body["query"])))
+    inner_hits_cache: Dict[int, Tuple] = {}
     hits = []
     for ref in refs:
         shard = shards[ref.shard_id]
@@ -1135,5 +1122,17 @@ def fetch_hits(refs: List[DocRef], shards: Dict[int, Any], source_body: dict,
                                   query_terms, highlight_body)
             if hl:
                 hit["highlight"] = hl
+        if has_inner_hits:
+            if ref.shard_id not in inner_hits_cache:
+                inner_hits_cache[ref.shard_id] = (
+                    ShardQueryContext(shard.mapper_service, shard.engine),
+                    collect_inner_hits(parse_query(source_body["query"])))
+            ih_ctx, ih_builders = inner_hits_cache[ref.shard_id]
+            ih_out = {}
+            for b in ih_builders:
+                name, payload = b.inner_hits_for(ih_ctx, seg, d, index_name)
+                ih_out[name] = payload
+            if ih_out:
+                hit["inner_hits"] = ih_out
         hits.append(hit)
     return hits

@@ -281,8 +281,7 @@ def test_scaled_float_needs_its_factor():
     assert str(te.value) == str(je.value)
 
 
-@pytest.mark.parametrize("typ", ["geo_shape", "join", "percolator",
-                                 "completion"])
+@pytest.mark.parametrize("typ", ["geo_shape", "percolator", "completion"])
 def test_types_of_later_slices_still_raise(typ):
     with pytest.raises(MapperParsingException, match="No handler for type"):
         MapperService(AnalysisRegistry(),
@@ -290,8 +289,30 @@ def test_types_of_later_slices_still_raise(typ):
 
 
 def test_field_type_table_covers_the_jax_scalar_types():
-    later = {"geo_shape", "join", "percolator", "completion"}
+    later = {"geo_shape", "percolator", "completion"}
     assert set(tft.FIELD_TYPES) == set(jft.FIELD_TYPES) - later
+
+
+@pytest.mark.parametrize("value", [
+    "question", {"name": "answer", "parent": "q1"}, "comment",
+    {"name": "answer"}, {"name": "question", "parent": "q1"}, 7,
+    {"name": "answer", "parent": 42}])
+def test_join_field_parses_like_jax(value):
+    """The join field's relation name and parent id, and its four 400s,
+    as the JAX package parses them (the join field joined the types in
+    the nested and join slice)."""
+    params = {"type": "join", "relations": {"question": ["answer"]}}
+    jf = jft.create_field_type("qa", params)
+    tf = tft.create_field_type("qa", params)
+    try:
+        want = jf.parse_join(value)
+    except Exception as e:  # noqa: BLE001 — the JAX message to match
+        with pytest.raises(MapperParsingException) as te:
+            tf.parse_join(value)
+        assert str(te.value) == str(e)
+        return
+    assert tf.parse_join(value) == want
+    assert tf.index_terms(value, None) == jf.index_terms(value, None)
 
 
 def test_scalar_doc_values_equal_jax():

@@ -490,3 +490,46 @@ def test_threaded_knn_burst_through_node_equals_serial():
         assert got[i]["hits"]["total"] == want["hits"]["total"]
     decisions = node.indices["v"]._mesh_search.decisions
     assert decisions.get("mesh_pallas.knn_served_batched", 0) >= 2
+
+
+def test_nested_include_in_parent_vector_searchable():
+    """A vector under an ``include_in_parent`` nested path flattens onto
+    its root doc and answers a kNN query there, as in the JAX package
+    (tests/test_knn.py); two objects carrying the same vector path are
+    the JAX package's 400."""
+    mapping = {"properties": {"obj": {
+        "type": "nested", "include_in_parent": True,
+        "properties": {"emb": {"type": "dense_vector", "dims": 4}}}}}
+    settings = {"index.number_of_shards": 1, "index.refresh_interval": -1}
+    jidx = JIndex("nestv", JSettings({**settings,
+                                      "index.requests.cache.enable": False}),
+                  mapping=mapping)
+    tidx = IndexService("nestv", Settings(settings), mapping=mapping,
+                        device="cpu")
+    try:
+        for idx in (jidx, tidx):
+            idx.index_doc("a", {"obj": [{"emb": [1.0, 0.0, 0.0, 0.0]}]})
+            idx.index_doc("b", {"obj": [{"emb": [0.6, 0.8, 0.0, 0.0]}]})
+            idx.refresh()
+        body = {"query": {"knn": {"field": "obj.emb",
+                                  "query_vector": [1.0, 0.0, 0.0, 0.0]}}}
+        jr, tr = jidx.search(dict(body)), tidx.search(dict(body))
+        assert [h["_id"] for h in tr["hits"]["hits"]] == ["a", "b"]
+        assert ([h["_id"] for h in tr["hits"]["hits"]]
+                == [h["_id"] for h in jr["hits"]["hits"]])
+        np.testing.assert_allclose(
+            [h["_score"] for h in tr["hits"]["hits"]],
+            [h["_score"] for h in jr["hits"]["hits"]], rtol=RTOL_BM25)
+        seg, = tidx.shards[0].engine.segments
+        assert seg.vector_columns["obj.emb"].count == 2
+        assert seg.nested["obj"].segment.vector_columns["obj.emb"].count == 2
+        bad = {"obj": [{"emb": [1, 0, 0, 0]}, {"emb": [0, 1, 0, 0]}]}
+        with pytest.raises(jerr.MapperParsingException) as je:
+            jidx.index_doc("c", bad)
+        with pytest.raises(terr.MapperParsingException) as te:
+            tidx.index_doc("c", bad)
+        assert str(te.value) == str(je.value)
+        assert te.value.status_code == 400
+    finally:
+        jidx.close()
+        tidx.close()

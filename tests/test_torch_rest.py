@@ -266,8 +266,9 @@ def test_search(loaded, name):
 def test_search_dates_and_aggregations(servers):
     """Dates, booleans and the aggregation framework over HTTP: dynamic
     date mapping, ``key_as_string``, a ``date_range`` with string bounds,
-    ``typed_keys`` (both servers ignore it), and an unported aggregation's
-    400."""
+    ``typed_keys`` (both servers ignore it), a ``nested`` aggregation on a
+    path that is not nested (both answer an empty bucket), and an
+    unported aggregation's 400."""
     both(servers, "PUT", "/ev", {"settings": {"number_of_shards": 2,
                                               "refresh_interval": "-1"}},
          status=200)
@@ -293,9 +294,11 @@ def test_search_dates_and_aggregations(servers):
     both(servers, "POST", "/ev/_search?typed_keys=true", aggs, status=200)
     both(servers, "POST", "/ev/_search", {"aggs": {"x": {"no_such": {}}}},
          status=400)
+    both(servers, "POST", "/ev/_search", {
+        "size": 0, "aggs": {"g": {"nested": {"path": "when"}}}}, status=200)
     _jn, tn, _jport, tport = servers
     st, _, r = call(tport, "POST", "/ev/_search", {
-        "aggs": {"g": {"nested": {"path": "when"}}}})
+        "aggs": {"g": {"scripted_metric": {"map_script": "1"}}}})
     assert st == 400 and "PyTorch port" in r["error"]["reason"]
     both(servers, "DELETE", "/ev", status=200)
 
@@ -681,3 +684,133 @@ def test_render_total_hits_same_as_jax(resp, body):
     assert got == want
     if "_pruned" in resp or "_total_relation" in resp:
         assert got["hits"]["total"] == {"value": 9, "relation": "gte"}
+
+
+# ---------------------------------------------------------------------------
+# The legacy _parent field: the parent parameter, its registry across a
+# restart (tests/test_gateway.py's TestParentRegistryRestart)
+# ---------------------------------------------------------------------------
+
+
+def _durable_pair(tmp_path):
+    """A JAX and a port node over their own data paths, each behind its
+    HTTP server: (jn, tn, jport, tport, stop)."""
+    jn = JNode(data_path=str(tmp_path / "j"))
+    tn = Node(data_path=str(tmp_path / "t"), device="cpu")
+    js, ts = JHttpServer(jn, port=0), HttpServer(tn, port=0)
+    js.start()
+    ts.start()
+
+    def stop():
+        js.stop()
+        ts.stop()
+        jn.close()
+        tn.close()
+    return jn, tn, js.port, ts.port, stop
+
+
+def test_parents_survive_flush_restart(tmp_path):
+    jn, tn, _jp, _tp, stop = _durable_pair(tmp_path)
+    try:
+        for n in (jn, tn):
+            n.create_index("join", {"settings": {"index": {
+                "number_of_shards": 2}}})
+            n.index_doc("join", "c1", {"k": "v1"}, routing="p1",
+                        parent="p1")
+            n.index_doc("join", "c2", {"k": "v2"}, routing="p2",
+                        parent="p2")
+            n.index_doc("join", "plain", {"k": "v3"})
+            n.indices["join"].flush()
+            # one more child after the flush: back through the translog
+            n.index_doc("join", "c3", {"k": "v4"}, routing="p3",
+                        parent="p3")
+    finally:
+        stop()
+    jn, tn, _jp, _tp, stop = _durable_pair(tmp_path)
+    try:
+        want = {"c1": "p1", "c2": "p2", "c3": "p3"}
+        assert jn.indices["join"].parents == want
+        assert tn.indices["join"].parents == want
+    finally:
+        stop()
+
+
+def test_parent_surfaces_in_stored_fields_after_restart(tmp_path):
+    """``PUT ?parent=`` routes by the parent; after a flush and a restart
+    ``GET ?stored_fields=_parent`` still returns it, in both servers."""
+    jn, tn, jport, tport, stop = _durable_pair(tmp_path)
+    pair = (jn, tn, jport, tport)
+    try:
+        both(pair, "PUT", "/pidx/_doc/child?parent=par-7", {"msg": "x"},
+             status=201)
+        jn.indices["pidx"].flush()
+        tn.indices["pidx"].flush()
+    finally:
+        stop()
+    jn, tn, jport, tport, stop = _durable_pair(tmp_path)
+    pair = (jn, tn, jport, tport)
+    try:
+        r, _, _ = both(pair, "GET", "/pidx/_doc/child?stored_fields=_parent"
+                       "&routing=par-7", status=200)
+        assert r["_parent"] == "par-7" and "_source" not in r
+        r, _, _ = both(pair, "GET", "/pidx/_doc/child?stored_fields="
+                       "_source,_parent&parent=par-7", status=200)
+        assert r["_parent"] == "par-7" and r["_source"] == {"msg": "x"}
+    finally:
+        stop()
+
+
+def test_deleted_child_drops_from_rebuilt_registry(tmp_path):
+    jn, tn, _jp, _tp, stop = _durable_pair(tmp_path)
+    try:
+        for n in (jn, tn):
+            n.create_index("join2", {})
+            n.index_doc("join2", "c1", {"k": "v"}, routing="p1", parent="p1")
+            n.index_doc("join2", "c2", {"k": "v"}, routing="p1", parent="p1")
+            n.indices["join2"].refresh()
+            n.delete_doc("join2", "c2", routing="p1")
+            n.indices["join2"].refresh()
+            n.indices["join2"].flush()
+    finally:
+        stop()
+    jn, tn, _jp, _tp, stop = _durable_pair(tmp_path)
+    try:
+        assert jn.indices["join2"].parents == {"c1": "p1"}
+        assert tn.indices["join2"].parents == {"c1": "p1"}
+    finally:
+        stop()
+
+
+def test_parent_mapped_index_requires_routing(tmp_path):
+    """A ``_parent``-mapped type needs ``parent`` or ``routing`` on every
+    single-doc op (400 ``routing_missing_exception``); ``parent`` routes
+    the doc; ``_bulk`` takes ``parent`` in the action line."""
+    jn, tn, jport, tport, stop = _durable_pair(tmp_path)
+    pair = (jn, tn, jport, tport)
+    try:
+        both(pair, "PUT", "/legacy", {"settings": {"number_of_shards": 3},
+                                      "mappings": {"answer": {
+                                          "_parent": {"type": "question"},
+                                          "properties": {
+                                              "t": {"type": "text"}}}}},
+             status=200)
+        r, _, _ = both(pair, "PUT", "/legacy/answer/a1", {"t": "x"},
+                       status=400)
+        assert r["error"]["type"] == "routing_missing_exception"
+        both(pair, "PUT", "/legacy/answer/a1?parent=q1", {"t": "x"},
+             status=201)
+        both(pair, "GET", "/legacy/answer/a1", status=400)
+        r, _, _ = both(pair, "GET", "/legacy/answer/a1?parent=q1",
+                       status=200)
+        assert r["_routing"] == "q1"
+        lines = [{"index": {"_index": "legacy", "_id": "a2",
+                            "parent": "q2"}}, {"t": "y"},
+                 {"index": {"_index": "legacy", "_id": "a3",
+                            "_parent": "q2", "routing": "q2"}}, {"t": "z"}]
+        r, _, _ = both(pair, "POST", "/_bulk?refresh=true", ndjson(lines),
+                       "application/x-ndjson", status=200)
+        assert r["errors"] is False
+        assert tn.indices["legacy"].parents == jn.indices["legacy"].parents \
+            == {"a1": "q1", "a2": "q2", "a3": "q2"}
+    finally:
+        stop()

@@ -189,11 +189,11 @@ def test_unported_requests_raise(nodes):
         tn.search("idx", {"query": {"geo_shape": {"loc": {"shape": {
             "type": "point", "coordinates": [0.0, 0.0]}}}}})
     with pytest.raises(ParsingException):
-        tn.search("idx", {"size": 0, "aggs": {"n": {"nested": {
-            "path": "x"}}}})
+        tn.search("idx", {"size": 0, "aggs": {"n": {"scripted_metric": {
+            "map_script": "1"}}}})
     with pytest.raises(IllegalArgumentException):
-        tn.search("idx", {"query": {"match_all": {}}, "sort": [
-            {"year": {"order": "asc", "nested_path": "x"}}]})
+        tn.search("idx", {"query": {"match_all": {}},
+                          "docvalue_fields": ["year"]})
     with pytest.raises(IllegalArgumentException):
         tn.search("idx", {"query": {"match_all": {}}, "profile": True})
 

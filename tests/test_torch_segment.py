@@ -285,7 +285,8 @@ def test_delete_docs_restages_every_live_layout():
 def test_unported_field_type_raises():
     m = MapperService(AnalysisRegistry())
     with pytest.raises(MapperParsingException):
-        MapperService(AnalysisRegistry(), {"properties": {"a": {"type": "join"}}})
+        MapperService(AnalysisRegistry(),
+                      {"properties": {"a": {"type": "percolator"}}})
     with pytest.raises(MapperParsingException):
         MapperService(AnalysisRegistry(), {"properties": {"g": {"type": "geo_shape"}}})
 

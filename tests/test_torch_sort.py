@@ -522,9 +522,7 @@ def test_keyword_sort_merges_by_string_across_shards(seed):
 
 
 def test_geo_and_nested_sorts_raise():
-    from elasticsearch_tpu_torch.common.errors import (
-        IllegalArgumentException,
-    )
+    from elasticsearch_tpu_torch.common.errors import ParsingException
     from elasticsearch_tpu_torch.search.service import normalize_sort
 
     from elasticsearch_tpu.search.service import normalize_sort as jnormalize
@@ -536,8 +534,13 @@ def test_geo_and_nested_sorts_raise():
                   "unit": "km", "mode": "avg", "distance_type": "arc"}):
         assert normalize_sort([{"_geo_distance": dict(spec)}]) == \
             jnormalize([{"_geo_distance": dict(spec)}])
-    with pytest.raises(IllegalArgumentException, match="PyTorch port"):
-        normalize_sort([{"a.b": {"order": "asc", "nested_path": "a"}}])
+    # a nested sort is ported: its path is implied by the field's
+    for entry in ({"a.b": {"order": "asc", "nested_path": "a"}},
+                  {"a.b": {"order": "desc", "nested": {"path": "a"}}}):
+        assert normalize_sort([entry]) == jnormalize([entry])
+    # a malformed geo sort still raises
+    with pytest.raises(ParsingException, match="exactly one field"):
+        normalize_sort([{"a": "asc"}, {"_geo_distance": {}}])
     assert normalize_sort("_score") is None
     assert normalize_sort([{"x": "desc"}]) == [("x", "desc", None)]
 

@@ -11,8 +11,9 @@ half and scaled floats, binary, murmur3 and text fielddata), and a data
 path holding geo and range data serves the same answers in either
 package. Commit points round-trip; a checksum mismatch, a missing or torn
 file and a corruption marker refuse the load with
-``CorruptIndexException``; data the port cannot hold (shapes, nested,
-``_parent``) refuses it naming the kind.
+``CorruptIndexException``; data the port cannot hold (shapes) refuses it
+naming the kind. Nested sub-segments (``nested/``, with ``parent_of`` and
+``offset_of``) and legacy ``_parent`` values round-trip both ways.
 """
 
 import json
@@ -411,8 +412,9 @@ def test_wrong_dtype_raises(tmp_path):
                                   "_parent"])
 def test_unported_columns_refuse_the_load(tmp_path, kind):
     """A JAX segment with a column the port has no type for fails the
-    load naming the kind; it never opens without that column. Geo points
-    are ported: that segment loads with its column."""
+    load naming the kind; it never opens without that column. Geo points,
+    nested objects and ``_parent`` values are ported: those segments load
+    with their column, sub-segment or parents."""
     mapping = {"properties": {"title": {"type": "text"},
                               "loc": {"type": "geo_point"},
                               "area": {"type": "geo_shape"},
@@ -438,6 +440,16 @@ def test_unported_columns_refuse_the_load(tmp_path, kind):
         for k in ("lat", "lon", "flat_docs", "first_lat", "first_lon",
                   "exists"):
             np.testing.assert_array_equal(getattr(col, k), getattr(jcol, k))
+        return
+    if kind in ("nested", "_parent"):
+        back, = tstore.Store(str(tmp_path)).load_segments("cpu")
+        assert back.parents == seg.parents
+        assert sorted(back.nested) == sorted(seg.nested)
+        for path, nctx in seg.nested.items():
+            got = back.nested[path]
+            assert_same_segment(nctx.segment, got.segment)
+            np.testing.assert_array_equal(got.parent_of, nctx.parent_of)
+            np.testing.assert_array_equal(got.offset_of, nctx.offset_of)
         return
     with pytest.raises(tstore.CorruptIndexException, match=kind):
         tstore.Store(str(tmp_path)).load_segments("cpu")
@@ -575,3 +587,106 @@ def test_geo_data_path_serves_the_same_answers_in_both(tmp_path, writer):
         assert want[0]["hits"]["total"] > 0 and want[2]["hits"]["total"] > 0
     finally:
         second.close()
+
+
+NESTED_MAPPING = {"properties": {
+    "title": {"type": "text"},
+    "j": {"type": "join", "relations": {"q": "a"}},
+    "c": {"type": "nested", "include_in_root": True, "properties": {
+        "t": {"type": "text"}, "n": {"type": "long"},
+        "d": {"type": "nested", "properties": {"k": {"type": "keyword"}}}}},
+}}
+
+
+def nested_docs(n=30, seed=41):
+    """(doc id, source, legacy parent) triples: nested objects two levels
+    deep (some null or absent), join parents and children."""
+    rng = np.random.RandomState(seed)
+    docs = []
+    for i in range(n):
+        src = {"title": f"w{i % 4} w{i % 7}"}
+        objs = []
+        for _ in range(int(rng.randint(0, 4))):
+            obj = {"t": f"x{int(rng.randint(5))}", "n": int(rng.randint(90))}
+            if rng.rand() < 0.5:
+                obj["d"] = [{"k": f"k{int(rng.randint(3))}"}
+                            for _ in range(int(rng.randint(1, 3)))]
+            objs.append(obj)
+        if objs:
+            src["c"] = objs + ([None] if i % 6 == 0 else [])
+        src["j"] = ("q" if i % 3 == 0
+                    else {"name": "a", "parent": f"n{i - i % 3}"})
+        docs.append((f"n{i}", src, f"p{i % 5}" if i % 2 else None))
+    return docs
+
+
+def nested_pair():
+    jm = JMapper(JAnalysis(None), NESTED_MAPPING)
+    tm = MapperService(AnalysisRegistry(None), NESTED_MAPPING)
+    jb, tb = JBuilder("i_0_seg_1"), SegmentBuilder("i_0_seg_1", device="cpu")
+    for s, (doc_id, src, parent) in enumerate(nested_docs()):
+        jb.add_document(jm.parse_document(doc_id, src, None), s, 1,
+                        parent=parent)
+        tb.add_document(tm.parse_document(doc_id, src, None), s, 1,
+                        parent=parent)
+    seg_j, seg_t = jb.seal(), tb.seal()
+    for seg in (seg_j, seg_t):
+        seg.delete_docs(np.asarray([3, 7], np.int64))
+    return seg_j, seg_t
+
+
+def assert_same_nested(a, b):
+    """Root arrays, parents, and every nested path's sub-segment (with its
+    live mask) and join arrays, recursively."""
+    assert_same_segment(a, b)
+    assert list(a.parents) == list(b.parents)
+    assert sorted(a.nested) == sorted(b.nested)
+    for path, nctx in a.nested.items():
+        other = b.nested[path]
+        np.testing.assert_array_equal(other.parent_of, nctx.parent_of)
+        np.testing.assert_array_equal(other.offset_of, nctx.offset_of)
+        assert other.parent_of.dtype == nctx.parent_of.dtype == np.int32
+        assert_same_nested(nctx.segment, other.segment)
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_nested_and_parents_round_trip_both_ways(tmp_path, writer):
+    """Nested objects (nested-in-nested, include_in_root, a null element),
+    the join columns and legacy ``_parent`` values seal to the same arrays
+    in both packages; deletes reach every level; a segment one package
+    writes (``nested/index.json``, ``parent_of.npy`` and ``offset_of.npy``
+    under the sub-directory's checksums) reads back whole in the other."""
+    seg_j, seg_t = nested_pair()
+    assert_same_nested(seg_j, seg_t)
+    assert sorted(seg_t.nested) == ["c", "c.d"]
+    assert {"j", "j#parent"} <= set(seg_t.ordinal_columns)
+    if writer == "jax":
+        jstore.Store(str(tmp_path)).commit([seg_j], 40)
+        back, = tstore.Store(str(tmp_path)).load_segments("cpu")
+    else:
+        tstore.Store(str(tmp_path)).commit([seg_t], 40, {})
+        back, = jstore.Store(str(tmp_path)).load_segments()
+    assert_same_nested(seg_j, back)
+    d = tmp_path / "i_0_seg_1" / "nested"
+    index = json.loads((d / "index.json").read_text())
+    assert index == {"0": "c", "1": "c.d"}
+    sums = json.loads((d / "0" / "checksums.json").read_text())
+    assert {"parent_of.npy", "offset_of.npy",
+            os.path.join("nested", "index.json")} <= set(sums)
+
+
+def test_nested_live_masks_refresh_at_commit(tmp_path):
+    """A delete after the first commit reaches the committed nested
+    sub-segments' live masks at the next commit (each level's
+    ``live.npy``), as the JAX store refreshes them."""
+    _seg_j, seg = nested_pair()
+    st = tstore.Store(str(tmp_path))
+    st.commit([seg], 40, {})
+    seg.delete_docs(np.asarray([0, 1, 2], np.int64))
+    st.commit([seg], 41, {})
+    back, = jstore.Store(str(tmp_path)).load_segments()
+    for path in ("c", "c.d"):
+        np.testing.assert_array_equal(back.nested[path].segment.live,
+                                      seg.nested[path].segment.live)
+    killed = np.isin(seg.nested["c"].parent_of, [0, 1, 2])
+    assert not seg.nested["c"].segment.live[np.flatnonzero(killed)].any()
