@@ -339,6 +339,30 @@ then phases 11, 12, 13, 14, 15, 16, 17 and 18):
     doc of each kind, a force merge, a restart and ``stored_fields=
     _parent``. Every 1a, kernel-2 and kernel-3 launch held against plain;
     the summary line's ``nested`` entry holds the numbers.
+19. The rest of the search request on the card, right after phase 12
+    (``search_request_phase``), over indices phases 7, 10 and 12 built:
+    19a Kibana 6.x Discover's body through ``_msearch`` on ``logs-*``
+    (two index names over phase 12's segments, 2,097,152 docs, the host
+    fan-out), equal to the cpu twin and to the single-index answers
+    merged, and on the mesh index ``agg4``; 19b ``timeout`` with a
+    ``SearchDelayScheme`` (a subset of the full answer, the
+    ``allow_partial_search_results: false`` error), and a deadline that
+    expires inside the mesh plane before its launch (``memory_allocated``
+    and the ledger unchanged); 19c one failing shard (``_shards.failed``
+    1, a ``runtime_error``) and every shard failing ("all shards
+    failed"); 19d ``profile`` on ``mesh_pallas``, the host rung and kNN
+    (the plane and the hits of the unprofiled request); 19e ``_explain``
+    of a match's top 10 (the value the ``_score`` bit for bit), a miss,
+    ``_validate/query``; 19f ``track_total_hits`` on the packed + pruned
+    form (an exact total, ``eq``, beside the pruned ``gte``). Each item's
+    p50, plane and launches; every launch held against plain; the
+    summary line's ``search_request`` entry holds the numbers.
+
+Every answer any phase gets from ``Node.search`` (``msearch`` and REST
+through it), ``IndexService.search`` or ``search_batch`` must show
+``_shards.failed == 0`` and ``timed_out: false`` unless the phase injects
+a fault (``install_soundness_guard``): the per-shard failure isolation
+must not hide a kernel fault behind a 200 answer.
 """
 
 from __future__ import annotations
@@ -2600,7 +2624,8 @@ def recording_knn_launches(knn):
 
     def recording(*args, **kw):
         out = orig(*args, **kw)
-        kept.append((args, kw, out))
+        if args[0].is_cuda:
+            kept.append((args, kw, out))
         return out
 
     knn.knn_score_tiles = recording
@@ -2923,7 +2948,8 @@ def pruned_phase(torch, Node, Segment, cuda_kernels, tsc, queries, lat,
       batched rung), and 16 threads at Node.search;
     - deletes, then the match queries again.
     Every 1d / 1e launch of the phase is held bit for bit against its
-    plain version on the inputs the path gave it. Returns the report."""
+    plain version on the inputs the path gave it. Returns the report, the
+    card node and its cpu twin."""
     from elasticsearch_tpu_torch.common.settings import Settings
     from elasticsearch_tpu_torch.search import query_dsl as Q
 
@@ -3243,7 +3269,7 @@ def pruned_phase(torch, Node, Segment, cuda_kernels, tsc, queries, lat,
         report[f"p50_ms {label}"] = float(np.median(xs)) if xs else None
     log(f"[phase 10] report {json.dumps(report)}")
     log(f"[phase 10] planes: {json.dumps(planes)}")
-    return report, gP
+    return report, gP, cP
 
 
 # ----------------------------------------------------------------------
@@ -3888,7 +3914,9 @@ def aggs_phase(torch, Node, Segment, cuda_kernels, tsc, queries, lat,
     launch a slot, and host-clock spans (resolve, program, finalize,
     fetch) of the fused dashboards and bursts. Also runs histogram_counts
     / value_histogram_sums on the card at a shard's ts column against
-    their plain versions. Returns the report."""
+    their plain versions. Returns the report and (the card node, the cpu
+    node, their segments, the mapping) for phase 19, which closes the
+    nodes."""
     import threading
 
     from elasticsearch_tpu_torch.ops import aggs as agg_ops
@@ -3909,7 +3937,7 @@ def aggs_phase(torch, Node, Segment, cuda_kernels, tsc, queries, lat,
                                   "mappings": mapping})
     cnode.create_index("agg4", {"settings": {"number_of_shards": 4},
                                 "mappings": mapping})
-    gsegs = []
+    gsegs, csegs = [], []
     for sh, arrays in enumerate(shard_arrays):
         arrays = dict(arrays)
         nd_pad = arrays["numeric_columns"]["year"]["exists"].shape[0]
@@ -3922,6 +3950,7 @@ def aggs_phase(torch, Node, Segment, cuda_kernels, tsc, queries, lat,
             gnode.indices[name].shards[sh].engine.adopt_segment(gs)
         cnode.indices["agg4"].shards[sh].engine.adopt_segment(cs)
         gsegs.append(gs)
+        csegs.append(cs)
     svc, svch = gnode.indices["agg4"], gnode.indices["agg4h"]
     reqs = agg_requests(queries)
     report = {"p50_ms": {}, "fallbacks": {}}
@@ -4140,10 +4169,11 @@ def aggs_phase(torch, Node, Segment, cuda_kernels, tsc, queries, lat,
                            cnode.indices["agg4"])
     check(not any(fails), f"phase 12: zero plane faults (got {fails})")
 
-    # the p50s: 2 more runs of the dashboard kinds, 1 of the others (cut
-    # from 3 and 2 as phase 18 joined), per index
+    # the p50s: 1 more run of the dashboard kinds, none of the others
+    # beside the main path's two (cut from 3 and 2 as phase 18 joined, and
+    # from 2 and 1 as phase 19 did), per index
     for kind, body, _reason in reqs:
-        reps = 2 if kind.startswith("dashboard") else 1
+        reps = 1 if kind.startswith("dashboard") else 0
         for name in indices:
             xs = []
             for _ in range(reps):
@@ -4212,8 +4242,486 @@ def aggs_phase(torch, Node, Segment, cuda_kernels, tsc, queries, lat,
         srv.stop()
     report["seconds"] = time.perf_counter() - t_phase
     log(f"[phase 12] done in {report['seconds']:.1f} s")
+    return report, (gnode, cnode, gsegs, csegs, mapping)
+
+
+# ----------------------------------------------------------------------
+# The rest of the search request on the card
+# ----------------------------------------------------------------------
+
+# responses that must be sound: every search the script sends answers with
+# _shards.failed == 0 and timed_out false, unless a fault is injected
+SOUND = {"checked": 0, "faults_expected": 0}
+
+
+def _sound(resp, what) -> None:
+    if not isinstance(resp, dict) or SOUND["faults_expected"]:
+        return
+    if "_shards" in resp or "timed_out" in resp:
+        SOUND["checked"] += 1
+        failed = (resp.get("_shards") or {}).get("failed", 0)
+        check(failed == 0 and resp.get("timed_out") is False,
+              f"{what}: a sound answer (_shards.failed {failed}, timed_out "
+              f"{resp.get('timed_out')})")
+
+
+def install_soundness_guard(Node, IndexService) -> None:
+    """Hold every answer of ``Node.search`` (``msearch`` and REST go
+    through it), ``IndexService.search`` and every ``search_batch``
+    member to ``_shards.failed == 0`` and ``timed_out: false``: the
+    per-shard failure isolation must not hide a kernel fault behind a 200
+    answer. ``faults_injected()`` lifts it where a phase injects one."""
+    def wrap(fn, what, many=False):
+        def guarded(*args, **kw):
+            out = fn(*args, **kw)
+            for r in (out if many else [out]):
+                _sound(r, what)
+            return out
+        return guarded
+
+    Node.search = wrap(Node.search, "Node.search")
+    IndexService.search = wrap(IndexService.search, "IndexService.search")
+    IndexService.search_batch = wrap(IndexService.search_batch,
+                                     "IndexService.search_batch", many=True)
+
+
+@contextlib.contextmanager
+def faults_injected():
+    SOUND["faults_expected"] += 1
+    try:
+        yield
+    finally:
+        SOUND["faults_expected"] -= 1
+
+
+def discover_body(queries, size=500):
+    """Kibana 6.x Discover's search body: a match typed in the search bar
+    under the time picker's range on ``ts`` (epoch_millis), the newest
+    first, a daily histogram, every fetch option Discover sends and
+    highlighting on every field."""
+    return {
+        "version": True, "size": size,
+        "sort": [{"ts": {"order": "desc", "unmapped_type": "boolean"}}],
+        "_source": {"excludes": []},
+        "aggs": {"2": {"date_histogram": {"field": "ts", "interval": "1d",
+                                          "min_doc_count": 1}}},
+        "stored_fields": ["*"], "script_fields": {},
+        "docvalue_fields": ["ts"],
+        "query": {"bool": {"must": [
+            {"match": {"title": " ".join(term_token(t)
+                                         for t in queries[0][:2])}},
+            {"range": {"ts": {"gte": AGG_T0 + 30 * AGG_DAY,
+                              "lte": AGG_T0 + 120 * AGG_DAY,
+                              "format": "epoch_millis"}}}],
+            "filter": [], "should": [], "must_not": []}},
+        "highlight": {"pre_tags": ["@kibana-highlighted-field@"],
+                      "post_tags": ["@/kibana-highlighted-field@"],
+                      "fields": {"*": {}}, "fragment_size": 2147483647},
+    }
+
+
+def _hit_keys(resp):
+    return [(h["_index"], h["_id"], h.get("sort"), h.get("_score"),
+             h.get("fields"), h.get("highlight"), h.get("_version"))
+            for h in resp["hits"]["hits"]]
+
+
+def search_request_phase(torch, cuda_kernels, tsc, ssum, knn, p12, g7, c7,
+                         gP, cP, knn_body, queries, errs):
+    """Phase 19: the rest of the search request on the card, over indices
+    earlier phases built (no corpus is built or staged again).
+
+    19a. Discover over ``_msearch`` on ``logs-*``: two index names over
+         phase 12's segments (pmc-4x256k's doc-values form, 4 x 262,144
+         docs each, ``search.mesh: false``: the host fan-out needs no
+         staging of its own), 2,097,152 docs in all, with Kibana 6.x
+         Discover's body; equal to the cpu twin's answer, and to the two
+         single-index answers merged; the same body on ``agg4`` (the
+         mesh index) against the cpu twin.
+    19b. ``timeout``: a ``SearchDelayScheme`` on one shard gives
+         ``timed_out: true`` with a subset of the full answer; with
+         ``allow_partial_search_results: false`` the request raises; a
+         deadline that expires inside the mesh plane before its launch
+         answers ``timed_out``, and ``memory_allocated`` and the ledger
+         stay at their levels.
+    19c. Failure isolation: one failing shard gives ``_shards.failed`` 1
+         and a ``runtime_error``, on one index and across indices; every
+         shard failing raises "all shards failed".
+    19d. ``profile`` on pmc4's ``mesh_pallas``, pmc4h's host rung and a
+         kNN request: the plane and the hits equal the unprofiled
+         request's, ``plane`` and ``phases`` present, equal to the cpu
+         twin.
+    19e. ``_explain`` of a match's top 10 hits on pmc4: the value is the
+         hit's ``_score`` bit for bit; a miss answers ``matched: false``;
+         ``_validate/query`` answers valid and invalid.
+    19f. ``track_total_hits`` on pmc4p (packed + pruned): an exact total,
+         ``relation: eq``, where the pruned request gives ``gte``.
+
+    Every launch of the main path is held against its plain version;
+    every item logs its p50 on the card, its plane and its launches.
+    Closes phase 12's nodes. Returns the report."""
+    from elasticsearch_tpu_torch.common.errors import (
+        SearchPhaseExecutionException,
+    )
+    from elasticsearch_tpu_torch.common.memory import memory_accountant
+    from elasticsearch_tpu_torch.rest.controller import RestController
+    from elasticsearch_tpu_torch.testing.disruption import (
+        SearchDelayScheme,
+        SearchFailScheme,
+        clear_search_disruptions,
+    )
+
+    t_phase = time.perf_counter()
+    gnode, cnode, gsegs, csegs, mapping = p12
+    report = {"items": {}}
+    for node, segs in ((gnode, gsegs), (cnode, csegs)):
+        for name in ("logs-a", "logs-b"):
+            node.create_index(name, {"settings": {
+                "number_of_shards": 4, "search": {"mesh": False}},
+                "mappings": mapping})
+            for sh, seg in enumerate(segs):
+                node.indices[name].shards[sh].engine.adopt_segment(seg)
+    report["logs_docs"] = 2 * sum(s.live_doc_count for s in gsegs)
+
+    def item(name, fn, reps=1):
+        """``fn`` ``reps`` times on the card, synced: its p50, the plane
+        of its answer and the launches of its first run."""
+        before = dict(cuda_kernels.LAUNCHES)
+        xs, out = [], None
+        for i in range(reps):
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            xs.append((time.perf_counter() - t0) * 1000)
+            if i == 0:
+                out = r
+                launched = {k: v - before.get(k, 0) for k, v in
+                            cuda_kernels.LAUNCHES.items()
+                            if v != before.get(k, 0)}
+        first = out[0] if isinstance(out, list) else out
+        plane = (first.get("_plane", "host fan-out")
+                 if isinstance(first, dict) else None)
+        row = {"p50_ms": float(np.median(xs)), "samples": len(xs),
+               "plane": plane, "launches": launched}
+        report["items"][name] = row
+        log(f"[phase 19] {name}: " + json.dumps(row))
+        return out
+
+    tok = term_token
+    match = {"match": {"title": " ".join(tok(t) for t in queries[1])}}
+    disc = discover_body(queries)
+    gctl, pctl = RestController(g7), RestController(gP)
+    cuda_kernels.reset_launch_counts()
+    t_main = time.perf_counter()
+    with recording_recovered_path(tsc, ssum, knn) as kept:
+        # ---- 19a: Discover on a pattern ------------------------------
+        # Discover's request beside a dashboard panel's (the top venues
+        # over the same time range), one _msearch over the pattern
+        panel = {"size": 0, "query": {"bool": {"filter": [
+            disc["query"]["bool"]["must"][1]]}},
+            "aggs": {"venues": {"terms": {"field": "venue", "size": 10}}}}
+
+        def msearch(node):
+            return node.msearch([({"index": "logs-*"}, dict(disc)),
+                                 ({"index": "logs-*"}, dict(panel))])[
+                "responses"]
+
+        gm, gpanel = item("19a msearch logs-* (Discover + a panel)",
+                          lambda: msearch(gnode), reps=3)
+        cm, cpanel = msearch(cnode)
+        check(isinstance(gm, dict) and "hits" in gm
+              and isinstance(gpanel, dict) and "aggregations" in gpanel,
+              f"19a: the msearch entries answered ({str(gm)[:200]})")
+        check(gm["hits"]["total"] == cm["hits"]["total"]
+              and _hit_keys(gm) == _hit_keys(cm)
+              and gm["aggregations"] == cm["aggregations"],
+              "19a: Discover over logs-* equals the cpu twin's answer")
+        check(gpanel["hits"]["total"] == cpanel["hits"]["total"]
+              and gpanel["aggregations"] == cpanel["aggregations"],
+              "19a: the panel's top venues over logs-* equal the cpu "
+              "twin's")
+        # (the corpus keeps the title in its postings only: the stored
+        # sources hold n, venue and year, so the highlighter runs over
+        # every hit and finds no title text)
+        check(gm["_shards"]["total"] == 8 and len(gm["hits"]["hits"]) == 500
+              and all(h["fields"]["ts"] and "_version" in h
+                      and "_source" in h for h in gm["hits"]["hits"]),
+              "19a: 8 shards, 500 hits each with docvalue ts, version and "
+              "_source")
+        singles = [item(f"19a search {n}", lambda n=n: gnode.search(
+            n, dict(disc))) for n in ("logs-a", "logs-b")]
+        merged = sorted(singles[0]["hits"]["hits"]
+                        + singles[1]["hits"]["hits"],
+                        key=lambda h: (-h["sort"][0], h["_index"]))
+        check(gm["hits"]["total"] == sum(s["hits"]["total"]
+                                         for s in singles)
+              and [(h["_index"], h["_id"]) for h in gm["hits"]["hits"]]
+              == [(h["_index"], h["_id"]) for h in merged[:500]],
+              "19a: the merged answer is the single-index answers merged")
+        buckets = {b["key"]: b["doc_count"] for b in
+                   gm["aggregations"]["2"]["buckets"]}
+        want = {}
+        for s in singles:
+            for b in s["aggregations"]["2"]["buckets"]:
+                want[b["key"]] = want.get(b["key"], 0) + b["doc_count"]
+        check(buckets == want, "19a: the histogram's buckets are the two "
+                               "indices' buckets summed")
+        ga = item("19a search agg4 (mesh index)",
+                  lambda: gnode.search("agg4", dict(disc)), reps=2)
+        ca = cnode.search("agg4", dict(disc))
+        check(ga["_plane"] == ca["_plane"] and _hit_keys(ga) == _hit_keys(ca)
+              and ga["aggregations"] == ca["aggregations"]
+              and ga["hits"]["total"] == cm["hits"]["total"] // 2,
+              f"19a: Discover on agg4 ({ga['_plane']}) equals the cpu twin")
+        report["discover"] = {"total": gm["hits"]["total"],
+                              "buckets": len(buckets),
+                              "agg4_plane": ga["_plane"]}
+
+        # ---- 19b: timeout --------------------------------------------
+        # a rare term, so the full answer holds every hit
+        for r in range(1049, 49, -1):
+            rare = {"match": {"title": tok(r)}}
+            full_n = gnode.search("logs-a", {"query": rare, "size": 0})[
+                "hits"]["total"]
+            if 0 < full_n <= 20_000:
+                break
+        full_body = {"query": rare, "size": full_n, "_source": False}
+        full = gnode.search("logs-a", dict(full_body))
+        with faults_injected():
+            delay = SearchDelayScheme(1.0, indices=["logs-a"],
+                                      shards=[1]).install()
+            part = item("19b timeout on logs-a (shard 1 delayed 1 s)",
+                        lambda: gnode.search("logs-a", dict(
+                            full_body, timeout="400ms")))
+            got = {h["_id"] for h in part["hits"]["hits"]}
+            # shard 0 answered; shard 1 stalled past the deadline and
+            # shards 2-3 never ran (shard s holds the docs "s<s>p...")
+            check(part["timed_out"] is True
+                  and part["_shards"]["failed"] == 0
+                  and 0 < part["hits"]["total"] < full_n
+                  and got <= {h["_id"] for h in full["hits"]["hits"]}
+                  and got == {h["_id"] for h in full["hits"]["hits"]
+                              if h["_id"].startswith("s0p")},
+                  f"19b: timed_out with shard 0's share of the full answer "
+                  f"({part['hits']['total']} of {full_n})")
+            mpart = item("19b timeout on logs-* (host fan-out)",
+                         lambda: gnode.search("logs-*", {
+                             "query": match, "size": 10,
+                             "timeout": "400ms"}))
+            check(mpart["timed_out"] is True
+                  and mpart["_shards"]["failed"] == 0,
+                  "19b: the fan-out over logs-* stops at the deadline")
+            try:
+                gnode.search("logs-a", {"query": match, "timeout": "400ms",
+                                        "allow_partial_search_results":
+                                            False})
+                check(False, "19b: allow_partial_search_results false "
+                             "raises")
+            except SearchPhaseExecutionException as e:
+                check("timed out" in e.reason,
+                      f"19b: the request raises 'timed out' ({e.reason})")
+            delay.remove()
+            torch.cuda.synchronize()
+            acct = memory_accountant()
+            mem0, led0 = torch.cuda.memory_allocated(), acct.staged_bytes()
+            ms = gnode.indices["agg4"]._mesh_search
+            dec0 = dict(ms.decisions)
+            mt = item("19b deadline inside the mesh plane (agg4)",
+                      lambda: gnode.search("agg4", {
+                          "query": match, "timeout": "1nanos"}))
+            torch.cuda.synchronize()
+            mem1, led1 = torch.cuda.memory_allocated(), acct.staged_bytes()
+            check(mt["timed_out"] is True and mt["hits"]["total"] == 0
+                  and mt["_shards"]["failed"] == 0
+                  and ms.decisions == dec0,
+                  f"19b: a deadline expired in the mesh plane answers "
+                  f"timed_out before any launch ({mt['hits']['total']} "
+                  f"hits)")
+            check(mem1 == mem0 and led1 == led0,
+                  f"19b: memory_allocated {mem0} -> {mem1} and the ledger "
+                  f"{led0} -> {led1} stay at their levels")
+            report["timeout"] = {"partial_total": part["hits"]["total"],
+                                 "full_total": full_n,
+                                 "memory": [mem0, mem1],
+                                 "ledger": [led0, led1]}
+
+            # ---- 19c: failure isolation (C14) ------------------------
+            SearchFailScheme(indices=["logs-a"], shards=[2]).install()
+            fr = item("19c one shard fails (logs-a)",
+                      lambda: gnode.search("logs-a", {"query": match,
+                                                      "size": 10}))
+            cfr = cnode.search("logs-a", {"query": match, "size": 10})
+            f0 = (fr["_shards"].get("failures") or [{}])[0]
+            check(fr["_shards"]["failed"] == 1
+                  and fr["_shards"]["successful"] == 3
+                  and f0.get("shard") == 2
+                  and f0["reason"]["type"] == "runtime_error"
+                  and fr["timed_out"] is False
+                  and [h["_id"] for h in fr["hits"]["hits"]]
+                  == [h["_id"] for h in cfr["hits"]["hits"]],
+                  f"19c: _shards.failed 1 with a runtime_error, the rest "
+                  f"answered as the cpu twin ({fr['_shards']})")
+            mfr = item("19c one shard fails (logs-*)",
+                       lambda: gnode.search("logs-*", {"query": match,
+                                                       "size": 10}))
+            check(mfr["_shards"]["failed"] == 1
+                  and mfr["_shards"]["total"] == 8,
+                  f"19c: across indices one failure entry "
+                  f"({mfr['_shards']})")
+            clear_search_disruptions()
+            SearchFailScheme(indices=["logs-a"]).install()
+            try:
+                gnode.search("logs-a", {"query": match})
+                check(False, "19c: every shard failing raises")
+            except SearchPhaseExecutionException as e:
+                check(e.reason == "all shards failed"
+                      and len(e.shard_failures) == 4,
+                      f"19c: 'all shards failed' with 4 entries "
+                      f"({e.reason}, {len(e.shard_failures)})")
+            clear_search_disruptions()
+
+        # ---- 19d: profile --------------------------------------------
+        prof = {}
+        for label, index, body, plane in (
+                ("mesh_pallas", "pmc4", {"query": match}, "mesh_pallas"),
+                ("host", "pmc4h", {"query": match}, "host"),
+                ("knn", "pmc4", dict(knn_body), "mesh_pallas")):
+            plain = g7.search(index, dict(body))
+            pr = item(f"19d profile {label} ({index})",
+                      lambda: g7.search(index, dict(body, profile=True)),
+                      reps=2)
+            cr = c7.search(index, dict(body, profile=True))
+            p = pr.get("profile") or {}
+            check(pr["_plane"] == plain["_plane"] == plane
+                  and _same_exact(pr, plain)
+                  and p.get("plane") == plane and p.get("phases")
+                  and (label != "host" or len(p["shards"]) == 4),
+                  f"19d: profiled {label} stays on {plane} with the "
+                  f"unprofiled hits ({pr['_plane']}, {p.get('plane')})")
+            if label == "knn":
+                same_knn_response(pr, cr, 1e-4, "19d profiled knn")
+            else:
+                same_response(pr, cr, f"19d profiled {label}")
+            prof[label] = {s["phase"]: s["time_in_nanos"] / 1e6
+                           for s in p.get("phases", [])}
+        # a profiled burst: the members share the batched fused top-k
+        # launch (1c) and each reports the batch's shape
+        burst = [{"query": {"match": {"title": " ".join(
+            tok(t) for t in q)}}, "size": 10} for q in queries[2:6]]
+        solo = [g7.search("pmc4", dict(b)) for b in burst]
+        out = item("19d profiled burst of 4 (pmc4)",
+                   lambda: g7.indices["pmc4"].search_batch(
+                       [dict(b, profile=True) for b in burst]))
+        check(all(isinstance(r, dict) and r["_plane"] == "mesh_pallas"
+                  and _same_exact(r, want)
+                  and r["profile"]["annotations"].get("batch_size") == 4
+                  and r["profile"]["annotations"].get(
+                      "batch_member_index") == i
+                  for i, (r, want) in enumerate(zip(out, solo))),
+              "19d: each profiled burst member equals its serial answer "
+              "and reports the batch's shape")
+        report["profile_phases_ms"] = prof
+        log(f"[phase 19d] phases (ms, host clock, the kernel span ends at "
+            f"the device sync): {json.dumps(prof)}")
+
+        # ---- 19e: _explain and _validate/query ------------------------
+        top = g7.search("pmc4", {"query": match, "size": 10})
+        cctl = RestController(c7)
+        exact, details = 0, 0
+        t0 = time.perf_counter()
+        for h in top["hits"]["hits"]:
+            raw = json.dumps({"query": match}).encode()
+            st, out = gctl.dispatch("GET", f"/pmc4/_explain/{h['_id']}", {},
+                                    raw)
+            _cst, cout = cctl.dispatch("GET", f"/pmc4/_explain/{h['_id']}",
+                                       {}, raw)
+            exact += int(st == 200 and out["matched"] is True
+                         and out["explanation"]["value"] == h["_score"])
+            details += int(bool(out["explanation"]["details"]))
+            check(abs(out["explanation"]["value"]
+                      - cout["explanation"]["value"])
+                  <= RTOL * abs(cout["explanation"]["value"]),
+                  f"19e: _explain of {h['_id']} equals the cpu twin's")
+        explain_ms = (time.perf_counter() - t0) * 1000 / max(
+            len(top["hits"]["hits"]), 1)
+        check(exact == len(top["hits"]["hits"]) == 10,
+              f"19e: each top hit's explanation value is its _score bit for "
+              f"bit ({exact} of {len(top['hits']['hits'])})")
+        # a miss: the top hit against a rare term its title lacks (an ids
+        # filtered search finds no hit)
+        first = top["hits"]["hits"][0]["_id"]
+        for r in range(VOCAB - 1, VOCAB - 50, -1):
+            absent = {"match": {"title": tok(r)}}
+            if not g7.search("pmc4", {"size": 0, "query": {"bool": {
+                    "must": [absent],
+                    "filter": [{"ids": {"values": [first]}}]}}})[
+                    "hits"]["total"]:
+                break
+        st, out = gctl.dispatch("GET", f"/pmc4/_explain/{first}", {},
+                                json.dumps({"query": absent}).encode())
+        check(st == 200 and out["matched"] is False
+              and out["explanation"]["value"] == 0.0,
+              f"19e: a miss answers matched false ({first}, {absent})")
+        sv, ok = gctl.dispatch("GET", "/pmc4/_validate/query", {},
+                               json.dumps({"query": match}).encode())
+        si, bad = gctl.dispatch("GET", "/pmc4/_validate/query",
+                                {"explain": "true"},
+                                b'{"query": {"no_such_query": {}}}')
+        check(sv == si == 200 and ok["valid"] is True
+              and bad["valid"] is False and bad["explanations"],
+              "19e: _validate/query answers valid and invalid")
+        report["explain"] = {"bit_equal": exact, "with_details": details,
+                             "ms_per_explain": explain_ms}
+        log(f"[phase 19e] {json.dumps(report['explain'])}")
+
+        # ---- 19f: track_total_hits on the pruned form -----------------
+        pbody = {"query": match, "size": 10}
+        pr = item("19f pruned pmc4p", lambda: gP.search("pmc4p",
+                                                        dict(pbody)))
+        tr = item("19f track_total_hits pmc4p", lambda: gP.search(
+            "pmc4p", dict(pbody, track_total_hits=True)), reps=2)
+        exact_n = gP.search("pmc4p", dict(pbody, size=0))["hits"]["total"]
+        ctr = cP.search("pmc4p", dict(pbody, track_total_hits=True))
+        st_p, rp = pctl.dispatch("GET", "/pmc4p/_search", {},
+                                 json.dumps(pbody).encode())
+        st_t, rt = pctl.dispatch("GET", "/pmc4p/_search",
+                                 {"track_total_hits": "true"},
+                                 json.dumps(pbody).encode())
+        check("_pruned" in pr and "_pruned" not in tr
+              and tr["_plane"] == pr["_plane"] == "mesh_pallas"
+              and tr["hits"]["total"] == exact_n == ctr["hits"]["total"]
+              and pr["hits"]["total"] <= exact_n
+              and _same_exact(dict(tr, hits=dict(tr["hits"],
+                                                  total=0)),
+                              dict(pr, hits=dict(pr["hits"], total=0)))
+              and rt["hits"]["total"] == {"value": exact_n, "relation": "eq"}
+              and rp["hits"]["total"]["relation"] == "gte",
+              f"19f: track_total_hits gives the exact total "
+              f"({tr['hits']['total']} of {exact_n}, pruned "
+              f"{pr['hits']['total']} gte)")
+        report["track_total_hits"] = {"pruned_total": pr["hits"]["total"],
+                                      "exact_total": exact_n}
+    torch.cuda.synchronize()
+    report["main_s"] = time.perf_counter() - t_main
+    p19 = {k: v for k, v in cuda_kernels.LAUNCHES.items() if v}
+    log(f"[phase 19] kernel launches: {p19}")
+    t0 = time.perf_counter()
+    held, _here = hold_recovered_path(torch, tsc, ssum, knn, kept, p19,
+                                      errs, "phase 19")
+    del kept
+    report["hold_s"] = time.perf_counter() - t0
+    for k in ("tile_scoring", "segment_sum", "knn_scoring",
+              "tile_scoring_topk", "tile_scoring_topk_sel_packed"):
+        check(p19.get(k, 0) > 0, f"phase 19 launched {k}")
+    fails = plane_failures(*(gnode.indices[n] for n in gnode.indices),
+                           g7.indices["pmc4"], gP.indices["pmc4p"])
+    check(not any(fails), f"phase 19: zero plane faults (got {fails})")
     for node in (gnode, cnode):
         node.close()
+    report.update(launches=p19, held=held)
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[phase 19] {report['seconds']:.1f} s (main path "
+        f"{report['main_s']:.1f}, hold {report['hold_s']:.1f})")
     return report
 
 
@@ -5887,7 +6395,7 @@ def query_dsl_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, queries,
 
 SRT_PAGE = 100  # 16b's page
 SRT_PAGES = 20
-SRT_REPS = 3  # samples a 16a kind and index (the main path's run and two)
+SRT_REPS = 2  # samples a 16a kind and index (the main path's run and one)
 SCROLL_PAGE = 100  # 16e's page
 SCROLL_HITS = 1000
 SCROLL_APPEND = 4096  # docs indexed while 16e's scroll is open
@@ -7306,7 +7814,7 @@ SO_ASKERS = 50_000
 SO_USERS = 200_000  # the answerers' pool (askers are its first 50,000)
 SO_NO_ANSWER = 0.15  # the share of questions without an answer
 SO_MAX_ANSWERS = 8
-SO_REPS = 2  # samples a kind and index (the main path's run and one more)
+SO_REPS = 1  # samples a kind and index (the main path's run alone)
 SO_PAGE, SO_PAGES = 100, 10
 SO_APPEND = 4096  # 18e's appended questions a shard
 SO_BULK = 10_000  # 18f's questions through bulk
@@ -8447,6 +8955,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    from elasticsearch_tpu_torch.index.index_service import IndexService
     from elasticsearch_tpu_torch.index.segment import Segment
     from elasticsearch_tpu_torch.node import Node
     from elasticsearch_tpu_torch.ops import cuda_kernels
@@ -8455,6 +8964,7 @@ def main() -> int:
     from elasticsearch_tpu_torch.search import query_dsl as Q
 
     t_start = time.perf_counter()
+    install_soundness_guard(Node, IndexService)
 
     def clock(phase: str) -> None:
         """Where the script's time goes: the elapsed seconds as a phase
@@ -8766,7 +9276,7 @@ def main() -> int:
 
     # ---------------- phase 10: packed + pruning through Node ------------
     clock("phase 10")
-    pruned_report, gP = pruned_phase(
+    pruned_report, gP, cP = pruned_phase(
         torch, Node, Segment, cuda_kernels, tsc, queries, lat, launches,
         batch_errs, shard_arrays, (g7, c7, g7segs), gnode)
 
@@ -8778,11 +9288,26 @@ def main() -> int:
 
     # ---------------- phase 12: aggregations on the card -----------------
     clock("phase 12")
-    aggs_report = aggs_phase(torch, Node, Segment, cuda_kernels, tsc, queries,
-                             lat, launches, batch_errs, shard_arrays)
+    aggs_report, p12_nodes = aggs_phase(
+        torch, Node, Segment, cuda_kernels, tsc, queries, lat, launches,
+        batch_errs, shard_arrays)
     seg_held["phase 12"] = (aggs_report["launches"]["segment_sum_mask_form"]
                             + aggs_report["launches"]
                             ["segment_sum_gather_form"])
+
+    # ---------------- phase 19: the rest of the search request ------------
+    # (over phase 12's, 7's and 10's indices, before phase 13 needs the
+    # card's memory back)
+    clock("phase 19")
+    from elasticsearch_tpu_torch.ops import knn_scoring as knn
+
+    request_report = search_request_phase(
+        torch, cuda_kernels, tsc, ssum, knn, p12_nodes, g7, c7, gP, cP,
+        knn_bodies[0][1], queries, batch_errs)
+    del p12_nodes
+    seg_held["phase 19"] = request_report["held"].get("segment_sum", 0)
+    for k, v in request_report["launches"].items():
+        launches[k] += v
 
     # ---------------- phase 13: durability on the card -------------------
     clock("phase 13")
@@ -8799,8 +9324,6 @@ def main() -> int:
 
     # ---------------- phase 14: the staging lifecycle on the card --------
     clock("phase 14")
-    from elasticsearch_tpu_torch.ops import knn_scoring as knn
-
     staging_report = staging_phase(
         torch, Segment, cuda_kernels, tsc, ssum, knn, reqs, knn_bodies,
         shard_arrays, knn_vecs, knn_exists, queries, ops, batch_errs)
@@ -8948,7 +9471,9 @@ def main() -> int:
     ], "rest": rest_report, "aggs": aggs_report,
         "durability": durability_report, "staging": staging_report,
         "query_dsl": qdsl_report, "sort_paging": sort_report,
-        "field_types": geo_report, "nested": nested_report}
+        "field_types": geo_report, "nested": nested_report,
+        "search_request": request_report,
+        "sound_answers_checked": SOUND["checked"]}
     for name, key, replaces, extra in (
             ("tile_scoring_packed", "tile_scoring_packed", 656,
              ("ms_with_counts", "bound_ms_with_counts", "plan")),

@@ -147,6 +147,13 @@ class UnavailableShardsException(ElasticsearchTpuException):
     status_code = 503
 
 
+class TaskCancelledException(ElasticsearchTpuException):
+    """The request's task was cancelled: raised at the next checkpoint of
+    its search deadline (``search/cancellation.py``)."""
+
+    status_code = 400
+
+
 class TranslogCorruptedException(ElasticsearchTpuException):
     """Unreadable translog data at or below the checkpointed seqno: acked
     (possibly committed) operations cannot be replayed. A torn final line
@@ -157,7 +164,9 @@ class TranslogCorruptedException(ElasticsearchTpuException):
 
 
 class SearchPhaseExecutionException(ElasticsearchTpuException):
-    """Every shard of a search failed; ``failed_shards`` lists why."""
+    """Every shard of a search failed, or a failure or timeout met
+    ``allow_partial_search_results: false``; ``failed_shards`` lists
+    why."""
 
     status_code = 500
 

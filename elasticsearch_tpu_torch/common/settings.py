@@ -271,8 +271,9 @@ class Setting:
         elif self.kind == "bool":
             return settings.get_bool(self.key, self.default)
         elif self.kind == "time":
-            return settings.get_time(self.key, parse_time_value(
-                self.default, self.key))
+            return settings.get_time(self.key, None if self.default is None
+                                     else parse_time_value(self.default,
+                                                           self.key))
         elif self.kind == "bytes":
             v = settings.get_bytes(self.key, parse_byte_size(
                 self.default, self.key))
@@ -308,6 +309,19 @@ INDEX_SEARCH_MESH_PLANE = Setting(
     choices={"auto", "pallas", "scatter"})
 INDEX_SEARCH_PLANE_QUARANTINE_COOLDOWN = Setting(
     "index.search.plane_quarantine.cooldown", "60s", "time")
+
+# --- the search request's deadline and partial results (node.py,
+# search/cancellation.py); node scope ---
+# the query phase's deadline when a request carries no ``timeout``; unset
+# = no bound. An expired deadline returns what the shards finished, with
+# ``timed_out: true``
+SEARCH_DEFAULT_TIMEOUT = Setting("search.default_search_timeout", None,
+                                 "time")
+# whether a shard failure or an expired deadline gives a partial response
+# (true) or a search_phase_execution_exception (false); a request's
+# ``allow_partial_search_results`` wins
+SEARCH_ALLOW_PARTIAL_RESULTS = Setting(
+    "search.default_allow_partial_results", True, "bool")
 
 # --- cross-query micro-batching (search/batching.py) ---
 SEARCH_BATCH_ENABLED = Setting("search.batch.enabled", True, "bool")

@@ -16,6 +16,22 @@ shards by murmur3 of their id (or routing). A search goes:
    aggregations over every shard's segment views, and fetch. A response
    with ``terminate_after`` says ``terminated_early``.
 
+The host rung isolates each shard: a shard whose query phase raises
+becomes a ``_shards.failures`` entry (``shard_failure_entry``), a request
+error (a 4xx) and a cancellation raise, a corrupt store quarantines its
+shard, and "all shards failed" is raised only when no shard answered and
+none timed out. A request's ``SearchDeadline`` (``search/cancellation.py``;
+``Node.search`` makes one, and so does ``search`` for a direct caller's
+``timeout``) threads through the batcher, the mesh plane and each shard:
+an expired one answers what finished with ``timed_out: true``, or, with
+``allow_partial_search_results: false``, raises
+``SearchPhaseExecutionException``, as a failure does. A ``profile``d
+request carries a ``QueryTracer`` through whichever plane serves it and
+``_finish_query_response`` attaches its ``plane``, ``phases`` and
+``annotations`` (the host rung adds a tree a segment); profiling moves no
+request off its plane. ``track_total_hits`` is outside the pruned path's
+keys, so such a request counts every tile.
+
 ``search(body, pinned_segments=...)`` is a scroll's page: the query
 phase reads the scroll's pinned segment views on the host rung,
 bypassing the micro-batcher, the mesh plane and ``_can_match``.
@@ -72,7 +88,7 @@ mesh plane calls ``maybe_compact_async``, which starts one background
 staged slot's tombstone density or the slot fragmentation reaches the
 threshold; the pass force-merges the dense or fragmented shards and
 restages a compact generation. The request cache, admission control,
-scrubbing and telemetry are later slices.
+scrubbing and the telemetry registry are later slices.
 """
 
 from __future__ import annotations
@@ -86,9 +102,10 @@ from elasticsearch_tpu_torch.analysis.analyzers import AnalysisRegistry
 from elasticsearch_tpu_torch.common.device import resolve_device
 from elasticsearch_tpu_torch.common.memory import memory_accountant
 from elasticsearch_tpu_torch.common.errors import (
+    ElasticsearchTpuException,
     IllegalArgumentException,
     SearchPhaseExecutionException,
-    es_type_name,
+    TaskCancelledException,
 )
 from elasticsearch_tpu_torch.common.settings import (
     INDEX_MAPPING_DENSE_VECTOR_MAX_DIMS,
@@ -124,14 +141,22 @@ from elasticsearch_tpu_torch.search.batching import (
     batchable_body,
     knn_batch_spec,
 )
+from elasticsearch_tpu_torch.search.cancellation import (
+    SearchDeadline,
+    TimeExceededException,
+    parse_search_timeout,
+)
 from elasticsearch_tpu_torch.search.service import (
+    allow_partial_results,
     check_body,
     collapse_refs,
     expand_collapsed_hits,
     fetch_hits,
     merge_refs,
     normalize_sort,
+    shard_failure_entry,
 )
+from elasticsearch_tpu_torch.search.telemetry import NULL_TRACER, tracer_for
 from elasticsearch_tpu_torch.utils.murmur3 import shard_id_for
 
 
@@ -365,26 +390,41 @@ class IndexService:
     # ------------------------------------------------------------------
 
     def search(self, body: Optional[dict] = None,
-               pinned_segments: Optional[Dict[int, list]] = None) -> dict:
+               pinned_segments: Optional[Dict[int, list]] = None,
+               deadline: Optional[SearchDeadline] = None) -> dict:
         """pinned_segments: {shard_id: [PinnedSegmentView]} of an open
         scroll: the query phase reads those views and bypasses the
         micro-batcher, the mesh plane and can_match (all keyed to the
-        live segment set)."""
-        return self._admitted_dispatch(body or {}, pinned_segments)
+        live segment set).
+        deadline: the coordinator's ``SearchDeadline``; a direct caller's
+        ``timeout`` gets its own. Expiry degrades to the partial result
+        with ``timed_out: true``."""
+        body = body or {}
+        if deadline is None and body.get("timeout") is not None:
+            deadline = SearchDeadline(parse_search_timeout(body))
+        return self._admitted_dispatch(body, pinned_segments, deadline)
 
     def _admitted_dispatch(self, body: dict,
-                           pinned_segments: Optional[Dict[int, list]] = None
+                           pinned_segments: Optional[Dict[int, list]] = None,
+                           deadline: Optional[SearchDeadline] = None
                            ) -> dict:
         """Route the query phase through the cross-query micro-batcher
         when eligible: a concurrent burst of compatible queries shares one
-        batched kernel launch; a lone query runs at once."""
+        batched kernel launch; a lone query runs at once. A batch item is
+        (body, deadline, tracer), so each member keeps its own."""
+        tracer = tracer_for(body)
         if (not self._batcher.enabled or pinned_segments is not None
                 or not batchable_body(body)):
             return self._search_uncached(body,
-                                         pinned_segments=pinned_segments)
-        return self._batcher.run(self.name, body,
-                                 single_fn=self._search_uncached,
-                                 batch_fn=self.search_batch)
+                                         pinned_segments=pinned_segments,
+                                         deadline=deadline, tracer=tracer)
+        return self._batcher.run(
+            self.name, (body, deadline, tracer),
+            single_fn=lambda it: self._search_uncached(
+                it[0], deadline=it[1], tracer=it[2]),
+            batch_fn=lambda items: self.search_batch(
+                [it[0] for it in items], [it[1] for it in items],
+                [it[2] for it in items]))
 
     def _mesh_plane(self):
         ms = self._mesh_search
@@ -489,13 +529,31 @@ class IndexService:
         size = int(body.get("size")) if body.get("size") is not None else 10
         return from_, size
 
-    def _mesh_response(self, body: dict, out: dict, t0: float) -> dict:
+    def _finish_query_response(self, resp: dict, body: dict, tracer,
+                               plane: str) -> dict:
+        """The one place a response gets its profile section, whatever
+        plane served it: the plane, the tracer's phase spans and its
+        annotations beside the host rung's per-segment trees."""
+        if body.get("profile"):
+            prof = resp.setdefault("profile", {"shards": []})
+            prof["plane"] = plane
+            prof["phases"] = tracer.spans()
+            prof["annotations"] = tracer.annotations()
+        return resp
+
+    def _mesh_response(self, body: dict, out: dict, t0: float,
+                       tracer=NULL_TRACER, demux: bool = False) -> dict:
         """A response from the mesh plane's query-phase result + the host
-        fetch phase."""
+        fetch phase. ``demux``: the result is a batch member's share."""
+        t_demux = tracer.start("batch_demux") if demux else None
         from_, size = self._window(body)
         refs = out["refs"]
         refs_window = refs[from_: from_ + size] if size >= 0 else refs[from_:]
+        if t_demux is not None:
+            tracer.stop("batch_demux", t_demux)
+        t_fetch = tracer.start("fetch")
         hits = fetch_hits(refs_window, self.shards, body, self.name)
+        tracer.stop("fetch", t_fetch)
         n = len(self.shards)
         resp = {
             "took": int((time.monotonic() - t0) * 1000),
@@ -514,35 +572,55 @@ class IndexService:
             resp["_pruned"] = out["pruned"]
         if out.get("aggregations") is not None:
             resp["aggregations"] = out["aggregations"]
-        return resp
+        return self._finish_query_response(resp, body, tracer, out["plane"])
 
-    def _try_mesh_search(self, body: dict, k: int) -> Optional[dict]:
+    def _try_mesh_search(self, body: dict, k: int, deadline=None,
+                         tracer=NULL_TRACER) -> Optional[dict]:
         """Mesh query phase + host fetch phase. None = ineligible."""
         t0 = time.monotonic()
-        out = self._mesh_plane().query(body, max(k, 1))
+        out = self._mesh_plane().query(body, max(k, 1), deadline=deadline,
+                                       tracer=tracer)
         if out is None:
             return None
-        return self._mesh_response(body, out, t0)
+        return self._mesh_response(body, out, t0, tracer)
 
-    def _try_mesh_knn(self, body: dict, spec: dict, k: int) -> Optional[dict]:
+    def _try_mesh_knn(self, body: dict, spec: dict, k: int, deadline=None,
+                      tracer=NULL_TRACER) -> Optional[dict]:
         """kNN query phase on the mesh plane's kNN rung (kernel 3) + host
         fetch phase. None = ineligible (the caller runs the host rung)."""
         t0 = time.monotonic()
-        out = self._mesh_plane().query_knn(spec, max(k, 1))
+        out = self._mesh_plane().query_knn(spec, max(k, 1), deadline=deadline,
+                                           stats=body.get("stats"),
+                                           tracer=tracer)
         if out is None:
             return None
-        return self._mesh_response(body, out, t0)
+        # assembled as a batch member's (the kNN rung serves Q == 1 as a
+        # batch of one), as in the JAX package
+        return self._mesh_response(body, out, t0, tracer, demux=True)
 
     def _search_uncached(self, body: dict,
                          score_caches: Optional[dict] = None,
                          skip_mesh: bool = False,
-                         pinned_segments: Optional[Dict[int, list]] = None
-                         ) -> dict:
+                         pinned_segments: Optional[Dict[int, list]] = None,
+                         deadline: Optional[SearchDeadline] = None,
+                         tracer=None) -> dict:
         """score_caches: {(shard_id, segment_name): (scores, matched)} from
         a batched kernel launch (search_batch); cached segments skip plan
         execution. skip_mesh: the query already went through the batch's
-        plane ladder. pinned_segments: a scroll's views (host rung
-        only)."""
+        plane ladder. pinned_segments: a scroll's views (host rung only).
+        deadline: checkpointed through the planes; expiry gives the
+        partial result with ``timed_out``. tracer: the request's phase
+        spans (a profiled request's), whichever plane serves.
+
+        Per-shard failure isolation on the host rung: a request error
+        (4xx) raises with its own status, a cancellation raises, an
+        expired deadline stops the fan-out, a corrupt store quarantines
+        its shard, and anything else becomes a ``_shards.failures``
+        entry. "all shards failed" is raised only when no shard answered
+        and none timed out; ``allow_partial_search_results: false`` turns
+        a failure or a timeout into a ``SearchPhaseExecutionException``."""
+        if tracer is None:
+            tracer = tracer_for(body)
         t0 = time.monotonic()
         body = body or {}
         if body.get("knn") is not None:
@@ -553,7 +631,7 @@ class IndexService:
                     "[knn] must be an object with [field] and "
                     "[query_vector]")
             if body.get("query") is not None:
-                return self._search_hybrid(body)
+                return self._search_hybrid(body, deadline=deadline)
             body = dict(body)
             spec = body.pop("knn")
             if body.pop("rank", None) is not None:
@@ -566,15 +644,27 @@ class IndexService:
         from_, size = self._window(body)
         k = from_ + size
         sort_spec = normalize_sort(body.get("sort"))
+        allow_partial = allow_partial_results(body)
+        timed_out = False
         # a pinned (scroll) search stays on the host rung: the mesh plane
         # stages the live segment set
         if (self._mesh_allowed() and not skip_mesh
                 and pinned_segments is None):
-            knn_clause = _pure_knn_mesh_clause(body)
-            if knn_clause is not None:
-                resp = self._try_mesh_knn(body, knn_clause, k)
-            else:
-                resp = self._try_mesh_search(body, k)
+            try:
+                knn_clause = _pure_knn_mesh_clause(body)
+                if knn_clause is not None:
+                    resp = self._try_mesh_knn(body, knn_clause, k,
+                                              deadline=deadline,
+                                              tracer=tracer)
+                else:
+                    resp = self._try_mesh_search(body, k, deadline=deadline,
+                                                 tracer=tracer)
+            except TimeExceededException:
+                # the deadline expired inside the mesh plane (before a
+                # launch): the host loop below stops at once and reports
+                # the empty partial result
+                resp = None
+                timed_out = True
             if resp is not None:
                 return resp
         self.host_query_total += 1
@@ -598,26 +688,53 @@ class IndexService:
         shard_results = []
         failures = []
         for sid in active_ids:
-            if self.shards[sid].store_corrupted:
-                # a quarantined shard fails into _shards.failures, never
-                # as silently empty hits
-                failures.append(_shard_failure_entry(
-                    self.name, sid, CorruptIndexException(
+            if timed_out or (deadline is not None and deadline.expired):
+                # the finished shards stand; the fan-out stops
+                timed_out = True
+                if deadline is not None:
+                    deadline.timed_out = True
+                break
+            try:
+                if self.shards[sid].store_corrupted:
+                    # a quarantined shard fails into _shards.failures,
+                    # never as silently empty hits
+                    raise CorruptIndexException(
                         f"shard [{self.name}][{sid}] store is marked "
                         f"corrupted — awaiting re-recovery from a healthy "
-                        f"copy")))
-                continue
-            shard_cache = None
-            if score_caches:
-                shard_cache = {name: pair for (s, name), pair
-                               in score_caches.items() if s == sid}
-            shard_results.append(self.shards[sid].searcher.query(
-                body, size_hint=max(k, 1), score_cache=shard_cache,
-                segments=(pinned_segments.get(sid, [])
-                          if pinned_segments is not None else None)))
-        if failures and not shard_results:
+                        f"copy")
+                shard_cache = None
+                if score_caches:
+                    shard_cache = {name: pair for (s, name), pair
+                                   in score_caches.items() if s == sid}
+                shard_results.append(self.shards[sid].searcher.query(
+                    body, size_hint=max(k, 1), score_cache=shard_cache,
+                    segments=(pinned_segments.get(sid, [])
+                              if pinned_segments is not None else None),
+                    deadline=deadline, tracer=tracer))
+            except TaskCancelledException:
+                raise
+            except TimeExceededException:
+                timed_out = True
+                break
+            except Exception as e:  # noqa: BLE001 — per-shard isolation
+                if _is_request_error(e):
+                    # deterministic on every shard: its own 4xx status
+                    raise
+                if (isinstance(e, CorruptIndexException)
+                        and not self.shards[sid].store_corrupted):
+                    # first found on the query path: quarantine the copy
+                    self._quarantine_shard(sid, e, site="query")
+                failures.append(shard_failure_entry(self.name, sid, e))
+        timed_out = timed_out or any(r.timed_out for r in shard_results)
+        if failures and not shard_results and not timed_out:
             raise SearchPhaseExecutionException(
                 "query", "all shards failed", failures)
+        if not allow_partial and (failures or timed_out):
+            raise SearchPhaseExecutionException(
+                "query",
+                "Partial shards failure"
+                + (" (request timed out)" if timed_out else ""),
+                failures)
         total = sum(r.total_hits for r in shard_results)
         max_score = None
         for r in shard_results:
@@ -627,28 +744,36 @@ class IndexService:
         collapse_field = collapse_body.get("field")
         # collapse keeps every candidate, then cuts to k groups
         merge_k = 0 if collapse_field else max(k, 0)
+        t_merge = tracer.start("merge")
         all_refs = [ref for r in shard_results for ref in r.refs]
         refs = merge_refs(all_refs, sort_spec, merge_k or len(all_refs))
         if collapse_field:
             refs = collapse_refs(refs, collapse_field)[: max(k, 0)]
         refs_window = refs[from_: from_ + size] if size >= 0 else refs[from_:]
+        tracer.stop("merge", t_merge)
 
         aggregations = None
         agg_specs = parse_aggs(body.get("aggs") or body.get("aggregations"))
         if agg_specs:
+            t_agg = tracer.start("aggregate")
             views = [v for r in shard_results for v in r.agg_views]
             aggregations = run_aggregations(agg_specs, views)
+            tracer.stop("aggregate", t_agg)
 
+        t_fetch = tracer.start("fetch")
         hits = fetch_hits(refs_window, self.shards, body, self.name,
                           pinned_segments=pinned_segments)
+        tracer.stop("fetch", t_fetch)
         if collapse_field:
-            expand_collapsed_hits(hits, refs_window, collapse_body, body,
-                                  self.search)
+            expand_collapsed_hits(
+                hits, refs_window, collapse_body, body,
+                lambda sub: self.search(sub, deadline=deadline))
         resp = {
             "took": int((time.monotonic() - t0) * 1000),
-            "timed_out": False,
+            "timed_out": timed_out,
             "_plane": "host",
             "_shards": {
+                # shards the deadline cut before they ran count successful
                 "total": len(shard_ids),
                 "successful": len(shard_ids) - len(failures),
                 "skipped": skipped,
@@ -667,9 +792,12 @@ class IndexService:
                 bool(r.terminated_early) for r in shard_results)
         if aggregations is not None:
             resp["aggregations"] = aggregations
-        return resp
+        if body.get("profile"):
+            resp["profile"] = {"shards": [
+                s for r in shard_results for s in (r.profile or [])]}
+        return self._finish_query_response(resp, body, tracer, "host")
 
-    def _search_hybrid(self, body: dict) -> dict:
+    def _search_hybrid(self, body: dict, deadline=None) -> dict:
         """Hybrid ranking: the lexical ``query`` and the ``knn`` section
         each retrieve a top-``window`` list through their own plane ladder,
         then fuse:
@@ -731,8 +859,8 @@ class IndexService:
         for key in passthrough:
             if key in body:
                 knn_body[key] = body[key]
-        lex_resp = self._search_uncached(lex_body)
-        knn_resp = self._search_uncached(knn_body)
+        lex_resp = self._search_uncached(lex_body, deadline=deadline)
+        knn_resp = self._search_uncached(knn_body, deadline=deadline)
 
         def ranked(resp):
             return {h["_id"]: (i + 1, h)
@@ -804,22 +932,46 @@ class IndexService:
     # Cross-query micro-batching
     # ------------------------------------------------------------------
 
-    def search_batch(self, bodies: List[dict]) -> list:
+    def search_batch(self, bodies: List[dict],
+                     deadlines: Optional[list] = None,
+                     tracers: Optional[list] = None) -> list:
         """Execute Q concurrent search requests as one micro-batch.
 
         Returns one entry per member: the response dict, or the exception
-        that member alone should raise. Rungs, as in the JAX package:
+        that member alone should raise. ``deadlines`` and ``tracers``:
+        each member's own (None for a direct caller: a tracer a profiled
+        member). Rungs, as in the JAX package:
+        0. a member whose deadline expired (or whose task was cancelled)
+           before dispatch leaves the batch alone: it gets its partial
+           result (or its error) and the others are served;
         1. mesh_pallas: one batched fused top-k launch per slot inside the
            mesh program (IndexMeshSearch.query_batch);
         2. host: one batched dense launch per segment feeds each member's
            per-query pipeline via score caches;
         3. members neither rung can share execute serially."""
         n = len(bodies)
+        deadlines = list(deadlines) if deadlines else [None] * n
+        tracers = (list(tracers) if tracers
+                   else [tracer_for(b) for b in bodies])
         results: list = [None] * n
         live: List[int] = []
         for i, body in enumerate(bodies):
+            dl = deadlines[i]
+            if dl is not None:
+                try:
+                    dl.checkpoint()
+                except TaskCancelledException as e:
+                    results[i] = e
+                    continue
+                except TimeExceededException:
+                    # expired before dispatch: its serial path meets the
+                    # same checkpoint and answers the partial result
+                    results[i] = self._batch_member_single(
+                        body, dl, tracer=tracers[i])
+                    continue
             if not batchable_body(body):
-                results[i] = self._batch_member_single(body)
+                results[i] = self._batch_member_single(body, dl,
+                                                       tracer=tracers[i])
                 continue
             live.append(i)
         # pure-kNN members split off onto one batched kernel-3 launch;
@@ -827,20 +979,24 @@ class IndexService:
         knn_live = [i for i in live if knn_batch_spec(bodies[i])]
         if knn_live:
             live = [i for i in live if i not in set(knn_live)]
-            self._dispatch_knn_batch(bodies, knn_live, results)
+            self._dispatch_knn_batch(bodies, deadlines, tracers, knn_live,
+                                     results)
         if len(live) < 2:
             for i in live:
-                results[i] = self._batch_member_single(bodies[i])
+                results[i] = self._batch_member_single(
+                    bodies[i], deadlines[i], tracer=tracers[i])
             return results
         live_bodies = [bodies[i] for i in live]
         mesh_out = None
         if self._mesh_allowed() and len(self.shards) >= 2:
-            mesh_out = self._mesh_plane().query_batch(live_bodies)
+            mesh_out = self._mesh_plane().query_batch(
+                live_bodies, tracers=[tracers[i] for i in live])
         if mesh_out is not None:
             for j, i in enumerate(live):
                 try:
                     results[i] = self._mesh_response(
-                        bodies[i], mesh_out[j], time.monotonic())
+                        bodies[i], mesh_out[j], time.monotonic(),
+                        tracers[i], demux=True)
                 except Exception as e:  # noqa: BLE001 — per-member fetch
                     results[i] = e  # isolation: raised in its own caller
             self.batch_stats.note_batch(len(live))
@@ -848,10 +1004,15 @@ class IndexService:
         caches, launches = self._host_batch_scores(live_bodies)
         # count only the members that shared a launch
         shared = sum(1 for c in caches if c)
+        member_idx = 0
         for j, i in enumerate(live):
+            if caches[j] and tracers[i].enabled:
+                tracers[i].annotate("batch_size", shared)
+                tracers[i].annotate("batch_member_index", member_idx)
+            member_idx += bool(caches[j])
             results[i] = self._batch_member_single(
-                bodies[i], score_caches=caches[j] or None,
-                skip_mesh=bool(caches[j]))
+                bodies[i], deadlines[i], score_caches=caches[j] or None,
+                skip_mesh=bool(caches[j]), tracer=tracers[i])
         if launches and shared:
             self.batch_stats.note_batch(shared)
         return results
@@ -869,7 +1030,8 @@ class IndexService:
             body["size"] = int(spec["k"])
         return body
 
-    def _dispatch_knn_batch(self, bodies, knn_live, results) -> None:
+    def _dispatch_knn_batch(self, bodies, deadlines, tracers, knn_live,
+                            results) -> None:
         """Serve a burst of pure-kNN members: one batched kernel-3 launch
         when they target one field and the mesh plane serves them, else
         each member's serial pipeline. Fills ``results`` in place."""
@@ -884,7 +1046,8 @@ class IndexService:
             except IllegalArgumentException:
                 # an unsupported request key: the serial path raises the
                 # member's own error
-                results[i] = self._batch_member_single(bodies[i])
+                results[i] = self._batch_member_single(
+                    bodies[i], deadlines[i], tracer=tracers[i])
         specs = [knn_batch_spec(bodies[i]) for i in shared]
         ks = []
         for i in shared:
@@ -894,26 +1057,33 @@ class IndexService:
         if (self._mesh_allowed() and len(self.shards) >= 2
                 and len(shared) >= 2
                 and len({str(s.get("field")) for s in specs}) == 1):
-            mesh_out = self._mesh_plane().query_knn_batch(specs, ks)
+            mesh_out = self._mesh_plane().query_knn_batch(
+                specs, ks, stats=[norm_bodies[i].get("stats")
+                                  for i in shared],
+                tracers=[tracers[i] for i in shared])
         if mesh_out is not None:
             for j, i in enumerate(shared):
                 try:
                     results[i] = self._mesh_response(
-                        norm_bodies[i], mesh_out[j], time.monotonic())
+                        norm_bodies[i], mesh_out[j], time.monotonic(),
+                        tracers[i], demux=True)
                 except Exception as e:  # noqa: BLE001 — per-member fetch
                     results[i] = e  # isolation: raised in its own caller
             self.batch_stats.note_batch(len(shared))
             return
         for i in shared:
-            results[i] = self._batch_member_single(bodies[i])
+            results[i] = self._batch_member_single(
+                bodies[i], deadlines[i], tracer=tracers[i])
 
-    def _batch_member_single(self, body, score_caches=None, skip_mesh=False):
+    def _batch_member_single(self, body, deadline=None, score_caches=None,
+                             skip_mesh=False, tracer=None):
         """One member's serial execution inside a batch: an exception is
         that member's result (raised in its own caller), never its
         peers'."""
         try:
             return self._search_uncached(body, score_caches=score_caches,
-                                         skip_mesh=skip_mesh)
+                                         skip_mesh=skip_mesh,
+                                         deadline=deadline, tracer=tracer)
         except Exception as e:  # noqa: BLE001 — per-member isolation
             return e
 
@@ -1020,11 +1190,13 @@ class IndexService:
                 "memory": memory_accountant().stats(self.name)}
 
 
-def _shard_failure_entry(index: str, shard_id: int, exc) -> dict:
-    """One ``_shards.failures`` entry (ShardSearchFailure's shape)."""
-    return {"shard": shard_id, "index": index,
-            "reason": {"type": es_type_name(type(exc).__name__),
-                       "reason": exc.reason}}
+def _is_request_error(exc: Exception) -> bool:
+    """A 4xx engine exception: a request validation error (a malformed
+    query, an unmapped field, a bad argument) that every shard would raise
+    alike; it keeps its own status instead of becoming a shard
+    failure."""
+    return (isinstance(exc, ElasticsearchTpuException)
+            and exc.status_code < 500)
 
 
 def _pure_knn_mesh_clause(body: dict) -> Optional[dict]:

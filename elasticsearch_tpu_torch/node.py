@@ -2,13 +2,23 @@
 
 Counterpart of ``elasticsearch_tpu/node.py``, cut to this slice's entry
 points: ``create_index``, ``delete_index``, ``index_doc``, ``bulk``,
-``refresh``, ``get_doc``, ``delete_doc``, ``search`` over one index
-(through the index's micro-batcher and mesh plane; ``search.batch.*``,
+``refresh``, ``get_doc``, ``delete_doc``, ``search`` (one index through
+the index's micro-batcher and mesh plane; names, wildcards, comma lists
+and ``_all`` through ``resolve_search_indices``; ``search.batch.*``,
 ``search.knn.*``, ``search.pallas.*`` and ``search.aggs.*`` node settings
 pass to every index: ``search.pallas.*`` is the postings codec's node
 default and block-max pruning, ``search.aggs.fused`` the fused
-aggregations), ``msearch`` (each entry served serially through ``search``) and
-``health``. A search body may carry a top-level ``knn`` section: alone it
+aggregations), ``msearch`` (each entry served serially through ``search``,
+an index pattern in its header too) and ``health``.
+
+A search gets one ``SearchDeadline`` (its ``timeout``, else
+``search.default_search_timeout``) and the node's
+``search.default_allow_partial_results`` when it leaves
+``allow_partial_search_results`` unset. An expression naming more than
+one index is served by ``_multi_index_search``: a per-shard fan-out over
+every index on the host rung, with per-shard failure isolation and the
+deadline, the hits merged by score or by sort (each with its ``_index``),
+collapse and aggregations over every index's views. A search body may carry a top-level ``knn`` section: alone it
 is a vector search, beside ``query`` a hybrid one
 (``IndexService._search_hybrid``). The node owns the named thread pools
 (``common/thread_pool.py``) that the REST layer runs handlers on:
@@ -41,8 +51,8 @@ unchanged, and the JAX package's ``_state/`` directory is left unread.
 
 Scroll is point in time, as in the JAX package: ``search(index, body,
 scroll="1m")`` pins every shard's segment set and live masks
-(``PinnedSegmentView``) before the first page, and every page reads that
-snapshot. The ordered result is a lazily extended prefix
+(``PinnedSegmentView``) of every index the expression names before the
+first page, and every page reads that snapshot. The ordered result is a lazily extended prefix
 (``_extend_pit_entries``): each extension re-queries the pinned views
 with a geometrically growing top-k and appends the refs it has not
 served, so pages neither skip nor repeat a doc, across ties too.
@@ -78,6 +88,7 @@ from elasticsearch_tpu_torch.common.breaker import configure_breaker_service
 from elasticsearch_tpu_torch.common.memory import memory_accountant
 from elasticsearch_tpu_torch.common.settings import (
     PATH_DATA,
+    SEARCH_ALLOW_PARTIAL_RESULTS,
     SEARCH_MEMORY_HBM_BUDGET,
     SEARCH_STAGING_RETRY_BACKOFF_MS,
     SEARCH_STAGING_RETRY_MAX_ATTEMPTS,
@@ -107,6 +118,12 @@ def _unwrap_typed_mapping(mappings):
                 and (not inner or set(inner) & MAPPING_TOP_LEVEL_KEYS)):
             return inner, key
     return mappings, "_doc"
+
+
+def _pins_of(pinned: Dict[tuple, list], name: str) -> Dict[int, list]:
+    """One index's pinned views, {shard: [views]}, out of a scroll's
+    {(index, shard): [views]}."""
+    return {sid: views for (n, sid), views in pinned.items() if n == name}
 
 
 class Node:
@@ -514,32 +531,195 @@ class Node:
     # Search
     # ------------------------------------------------------------------
 
+    def resolve_search_indices(self, expression: Optional[str]
+                               ) -> List[IndexService]:
+        """The indices a search expression names: names, wildcards, comma
+        lists and ``_all`` (``resolve_index_names``; the port has no
+        closed indices and no aliases yet, so a wildcard skips none)."""
+        return [self.indices[n]
+                for n in self.resolve_index_names(expression or "_all")]
+
     def search(self, index: str, body: Optional[dict] = None,
                scroll: Optional[str] = None) -> dict:
-        """One index's search; ``scroll`` (a keep-alive such as "1m")
-        opens a point-in-time scroll and the response carries its
-        ``_scroll_id``."""
-        if "," in index or "*" in index or index == "_all":
-            raise IllegalArgumentException(
-                "multi-index search is not supported by the PyTorch port yet")
+        """A search over an index expression; ``scroll`` (a keep-alive
+        such as "1m") opens a point-in-time scroll and the response
+        carries its ``_scroll_id``. One index goes through its own planes;
+        more go through ``_multi_index_search``."""
+        from elasticsearch_tpu_torch.search.cancellation import (
+            SearchDeadline,
+            parse_search_timeout,
+        )
+
+        svcs = self.resolve_search_indices(index)
         body = body or {}
-        svc = self.index_service(index)
-        if not scroll:
-            return svc.search(body)
-        if body.get("collapse"):
+        if scroll and body.get("collapse"):
             raise IllegalArgumentException(
                 "cannot use `collapse` in a scroll context")
-        if int(body.get("from", 0) or 0):
+        if scroll and int(body.get("from", 0) or 0):
             # paging within a scroll is the scroll itself: an offset would
             # desync the pages
             raise IllegalArgumentException(
                 "using [from] is not allowed in a scroll context")
         # pin every shard's segment set and live masks before the first
         # page, so every page (this one too) reads the same snapshot
-        pinned = self._pin_scroll_segments(svc)
-        resp = svc.search(body, pinned_segments=pinned)
-        resp["_scroll_id"] = self._open_pit_scroll(svc, body, resp, scroll,
-                                                   pinned)
+        pinned = self._pin_scroll_segments(svcs) if scroll else None
+        if ("allow_partial_search_results" not in body
+                and not SEARCH_ALLOW_PARTIAL_RESULTS.get(self.settings)):
+            body = dict(body)
+            body["allow_partial_search_results"] = False
+        deadline = SearchDeadline(parse_search_timeout(body, self.settings))
+        if len(svcs) == 1:
+            svc = svcs[0]
+            resp = svc.search(
+                body, pinned_segments=(_pins_of(pinned, svc.name)
+                                       if pinned else None),
+                deadline=deadline)
+        else:
+            resp = self._multi_index_search(svcs, body, pinned=pinned,
+                                            deadline=deadline)
+        if scroll:
+            resp["_scroll_id"] = self._open_pit_scroll(svcs, body, resp,
+                                                       scroll, pinned)
+        return resp
+
+    def _multi_index_search(self, svcs: List[IndexService], body: dict,
+                            pinned=None, deadline=None) -> dict:
+        """A search over several indices on the host rung: every shard of
+        every index runs its query phase (failure isolation and the
+        deadline as on one index's host rung), the refs merge like one
+        index's shards (ties by index name, shard, doc), each index's
+        window fetches with its own ``_index``, and the aggregations
+        reduce over every index's views. ``pinned``: {(index, shard):
+        [views]} of an open scroll."""
+        from elasticsearch_tpu_torch.common.errors import (
+            SearchPhaseExecutionException,
+            TaskCancelledException,
+        )
+        from elasticsearch_tpu_torch.index.index_service import (
+            _is_request_error,
+        )
+        from elasticsearch_tpu_torch.search.aggregations import (
+            parse_aggs,
+            run_aggregations,
+        )
+        from elasticsearch_tpu_torch.search.cancellation import (
+            TimeExceededException,
+        )
+        from elasticsearch_tpu_torch.search.service import (
+            allow_partial_results,
+            check_body,
+            collapse_refs,
+            expand_collapsed_hits,
+            fetch_hits,
+            merge_refs,
+            normalize_sort,
+            shard_failure_entry,
+            validate_collapse,
+        )
+
+        t0 = time.monotonic()
+        check_body(body)
+        from_ = int(body.get("from", 0) or 0)
+        size = int(body.get("size")) if body.get("size") is not None else 10
+        k = from_ + size
+        sort_spec = normalize_sort(body.get("sort"))
+        collapse_body = body.get("collapse") or {}
+        collapse_field = validate_collapse(body)
+        all_refs = []
+        total = 0
+        max_score = None
+        views = []
+        n_shards = 0
+        n_ok = 0
+        failures = []
+        timed_out = False
+        for svc in svcs:
+            svc_pins = _pins_of(pinned, svc.name) if pinned else None
+            for sid in sorted(svc.shards):
+                n_shards += 1
+                if timed_out or (deadline is not None and deadline.expired):
+                    # the finished shards stand; the rest are skipped
+                    timed_out = True
+                    if deadline is not None:
+                        deadline.timed_out = True
+                    continue
+                try:
+                    res = svc.shards[sid].searcher.query(
+                        body, size_hint=max(k, 1),
+                        segments=(svc_pins.get(sid, [])
+                                  if svc_pins is not None else None),
+                        deadline=deadline)
+                except TaskCancelledException:
+                    raise
+                except TimeExceededException:
+                    timed_out = True
+                    continue
+                except Exception as e:  # noqa: BLE001 — per-shard isolation
+                    if _is_request_error(e):
+                        raise  # a 4xx keeps its own status
+                    failures.append(shard_failure_entry(svc.name, sid, e))
+                    continue
+                n_ok += 1
+                timed_out = timed_out or res.timed_out
+                total += res.total_hits
+                if res.max_score is not None:
+                    max_score = (res.max_score if max_score is None
+                                 else max(max_score, res.max_score))
+                for ref in res.refs:
+                    ref.shard_id = (svc.name, ref.shard_id)
+                    all_refs.append(ref)
+                views.extend(res.agg_views)
+        if failures and n_ok == 0 and not timed_out:
+            raise SearchPhaseExecutionException(
+                "query", "all shards failed", failures)
+        if not allow_partial_results(body) and (failures or timed_out):
+            raise SearchPhaseExecutionException(
+                "query",
+                "Partial shards failure"
+                + (" (request timed out)" if timed_out else ""),
+                failures)
+        shard_map = {(svc.name, sid): shard for svc in svcs
+                     for sid, shard in svc.shards.items()}
+        if collapse_field:
+            refs = merge_refs(all_refs, sort_spec, len(all_refs))
+            refs = collapse_refs(refs, collapse_field)
+            refs = refs[from_: from_ + size]
+        else:
+            refs = merge_refs(all_refs, sort_spec,
+                              max(k, 0))[from_: from_ + size]
+        by_index: Dict[str, list] = {}
+        for ref in refs:
+            by_index.setdefault(ref.shard_id[0], []).append(ref)
+        ordered_hits = {}
+        for idx_name, idx_refs in by_index.items():
+            sub_shards = {r.shard_id: shard_map[r.shard_id] for r in idx_refs}
+            # the refs carry (index, shard) ids here, as the pinned views'
+            # keys do
+            for ref, hit in zip(idx_refs,
+                                fetch_hits(idx_refs, sub_shards, body,
+                                           idx_name,
+                                           pinned_segments=pinned)):
+                ordered_hits[id(ref)] = hit
+        hits = [ordered_hits[id(r)] for r in refs if id(r) in ordered_hits]
+        if collapse_field:
+            expand_collapsed_hits(
+                hits, refs, collapse_body, body,
+                lambda sub: self._multi_index_search(svcs, sub,
+                                                     deadline=deadline))
+        resp = {
+            "took": int((time.monotonic() - t0) * 1000),
+            "timed_out": timed_out,
+            "_shards": {"total": n_shards,
+                        "successful": n_shards - len(failures),
+                        "skipped": 0,
+                        "failed": len(failures)},
+            "hits": {"total": total, "max_score": max_score, "hits": hits},
+        }
+        if failures:
+            resp["_shards"]["failures"] = failures
+        agg_specs = parse_aggs(body.get("aggs") or body.get("aggregations"))
+        if agg_specs:
+            resp["aggregations"] = run_aggregations(agg_specs, views)
         return resp
 
     # ------------------------------------------------------------------
@@ -547,12 +727,15 @@ class Node:
     # ------------------------------------------------------------------
 
     @staticmethod
-    def _pin_scroll_segments(svc: IndexService) -> Dict[int, list]:
+    def _pin_scroll_segments(svcs: List[IndexService]
+                             ) -> Dict[tuple, list]:
+        """{(index, shard): [PinnedSegmentView]} of every index."""
         from elasticsearch_tpu_torch.index.segment import PinnedSegmentView
 
-        return {sid: [PinnedSegmentView(seg) for seg in
-                      svc.shards[sid].engine.searchable_segments()]
-                for sid in sorted(svc.shards)}
+        return {(svc.name, sid): [
+            PinnedSegmentView(seg)
+            for seg in svc.shards[sid].engine.searchable_segments()]
+            for svc in svcs for sid in sorted(svc.shards)}
 
     def _reap_expired_scrolls(self) -> int:
         now = time.time()
@@ -580,14 +763,14 @@ class Node:
             self.scrolls[scroll_id] = ctx
         return scroll_id
 
-    def _open_pit_scroll(self, svc: IndexService, body: dict,
+    def _open_pit_scroll(self, svcs: List[IndexService], body: dict,
                          first_resp: dict, keep_alive: str,
-                         pinned: Dict[int, list]) -> str:
+                         pinned: Dict[tuple, list]) -> str:
         """Register a context whose ordered result is a lazily extended
-        prefix over the pinned snapshot: opening a size-10 scroll over a
-        large index materializes only the first pages' refs. The first
-        page is served from that same prefix, so page boundaries never
-        skip or repeat across ties."""
+        prefix over the pinned snapshot of every index: opening a size-10
+        scroll over a large index materializes only the first pages' refs.
+        The first page is served from that same prefix, so page boundaries
+        never skip or repeat across ties."""
         size = int(body.get("size")) if body.get("size") is not None else 10
         size = max(size, 0)
         # the aggregations came with the first page; the prefix needs only
@@ -597,7 +780,7 @@ class Node:
         nd_total = sum(v.live_doc_count for views in pinned.values()
                        for v in views)
         ctx = {
-            "index": svc.name,
+            "indices": [svc.name for svc in svcs],
             "entries": [],        # the materialized ordered prefix
             "seen": set(),        # identities of the materialized refs
             "nd_total": nd_total,
@@ -618,10 +801,10 @@ class Node:
 
     def _extend_pit_entries(self, ctx: dict, upto: int) -> None:
         """Grow the prefix to cover [0, upto): each round re-queries every
-        pinned shard with a geometrically larger top-k and appends the
-        unseen refs in merged order (identity: shard, segment, local
-        doc), so the re-query work stays O(final depth); a drained target
-        marks the context exhausted."""
+        pinned shard of every index with a geometrically larger top-k and
+        appends the unseen refs in merged order (identity: index, shard,
+        segment, local doc), so the re-query work stays O(final depth); a
+        drained target marks the context exhausted."""
         from elasticsearch_tpu_torch.search.service import (
             merge_refs,
             normalize_sort,
@@ -631,25 +814,29 @@ class Node:
         while len(ctx["entries"]) < upto and not ctx["exhausted"]:
             target = min(ctx["nd_total"],
                          max(upto, 2 * ctx["last_target"], 32))
-            svc = self.indices.get(ctx["index"])
-            refs = []
-            if svc is not None:  # a deleted index's docs drop
+            per_ref = []
+            for name in ctx["indices"]:
+                svc = self.indices.get(name)
+                if svc is None:
+                    continue  # a deleted index's docs drop
                 for sid in sorted(svc.shards):
-                    views = ctx["pinned"].get(sid, [])
+                    views = ctx["pinned"].get((name, sid), [])
                     nd = sum(v.live_doc_count for v in views)
                     if nd == 0:
                         continue
                     res = svc.shards[sid].searcher.query(
                         dict(ctx["q_body"]), size_hint=min(target, nd),
                         segments=views)
-                    refs.extend(res.refs)
-            merged = merge_refs(refs, sort_spec, target)
+                    per_ref.extend((name, r) for r in res.refs)
+            index_of = {id(r): name for name, r in per_ref}
+            merged = merge_refs([r for _n, r in per_ref], sort_spec, target)
             for r in merged:
-                key = (r.shard_id, r.segment_name, r.local_doc)
+                name = index_of[id(r)]
+                key = (name, r.shard_id, r.segment_name, r.local_doc)
                 if key in ctx["seen"]:
                     continue
                 ctx["seen"].add(key)
-                ctx["entries"].append(r)
+                ctx["entries"].append((name, r))
             if target >= ctx["nd_total"] or len(merged) < target:
                 ctx["exhausted"] = True
             ctx["last_target"] = target
@@ -657,11 +844,19 @@ class Node:
     def _fetch_scroll_page(self, ctx: dict, entries: list) -> List[dict]:
         from elasticsearch_tpu_torch.search.service import fetch_hits
 
-        svc = self.indices.get(ctx["index"])
-        if svc is None:
-            return []  # the index was deleted mid-scroll
-        return fetch_hits(entries, svc.shards, ctx["body"], svc.name,
-                          pinned_segments=ctx["pinned"])
+        by_index: Dict[str, list] = {}
+        for name, ref in entries:
+            by_index.setdefault(name, []).append(ref)
+        ordered = {}
+        for name, refs in by_index.items():
+            svc = self.indices.get(name)
+            if svc is None:
+                continue  # the index was deleted mid-scroll
+            hits = fetch_hits(refs, svc.shards, ctx["body"], name,
+                              pinned_segments=_pins_of(ctx["pinned"], name))
+            for ref, hit in zip(refs, hits):
+                ordered[id(ref)] = hit
+        return [ordered[id(r)] for _n, r in entries if id(r) in ordered]
 
     def scroll(self, scroll_id: str, keep_alive: Optional[str] = None) -> dict:
         """The next page of an open scroll; ``keep_alive`` extends it."""
@@ -708,7 +903,8 @@ class Node:
 
     def msearch(self, searches: List[tuple]) -> dict:
         """searches: list of (header, body), each served serially through
-        ``search``; a failed entry answers with its error body."""
+        ``search`` (the header's index expression, ``_all`` by default);
+        a failed entry answers with its error body."""
         responses = []
         for header, body in searches:
             try:

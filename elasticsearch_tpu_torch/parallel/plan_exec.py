@@ -135,7 +135,17 @@ host rung serves, as in the JAX package; a nested sort has no root
 column and goes to the host rung (``sort_ineligible``); the nested and
 children aggregations reduce on the host (``unsupported_agg``).
 
-Left for later slices: the compile cache and telemetry, stacking a full
+A request's deadline is checkpointed before and after the staging and
+before each launch (never between a launch and the read of its output,
+so an expired request leaves no work on the card and the ledger as it
+was); expiry raises ``TimeExceededException`` to the caller, which
+answers ``timed_out``. A profiled request's tracer records the staging,
+plan build, program (to its synchronize), merge and aggregate spans; a
+batch records them once and folds them into each profiled member, with
+the batch's shape (and a pruned launch's tile economy) as annotations.
+The ``stats`` groups of a served request count on every shard.
+
+Left for later slices: the compile cache and telemetry registry, stacking a full
 rebuild on the card instead of through host numpy (a ``perf_opt``), and
 the dynamic update of the pruning, fused-aggregation, delta-staging,
 compaction, budget and retry settings (``PUT _cluster/settings``).
@@ -174,6 +184,8 @@ from elasticsearch_tpu_torch.ops import tile_scoring as tsc
 from elasticsearch_tpu_torch.ops.cuda_kernels import KernelError
 from elasticsearch_tpu_torch.ops.scoring import top_k
 from elasticsearch_tpu_torch.search import plan as P
+from elasticsearch_tpu_torch.search.cancellation import TimeExceededException
+from elasticsearch_tpu_torch.search.telemetry import NULL_TRACER, QueryTracer
 
 _plane_logger = logging.getLogger("elasticsearch_tpu_torch.parallel.plane")
 
@@ -1782,6 +1794,19 @@ class MeshPlanExecutor:
                 n_occ * (n_probe + n_rest))
 
 
+def _annotate_members(members, out, q_batch: int) -> None:
+    """A served batch's shape (and a pruned launch's tile economy) on
+    each profiled member's tracer: the launch the members shared."""
+    if out is None:
+        return
+    for q, tracer in members:
+        tracer.annotate("batch_size", q_batch)
+        tracer.annotate("batch_member_index", q)
+        for key, v in (out[q].get("pruned") or {}).items():
+            if key != "total_relation":
+                tracer.annotate(key, int(v))
+
+
 class IndexMeshSearch:
     """Routes an index's query phase through the stacked one-device mesh
     program. Eligible searches run over all (shard, segment) pairs at once;
@@ -2352,9 +2377,16 @@ class IndexMeshSearch:
         oriented = anchor if order == "desc" else -anchor
         return float(np.clip(oriented, -_SORT_BIG, _SORT_BIG))
 
-    def query(self, body: dict, k: int) -> Optional[dict]:
+    def query(self, body: dict, k: int, deadline=None,
+              tracer=None) -> Optional[dict]:
         """Returns {total, refs, max_score, aggregations, terminated_early,
-        plane} or None when the mesh plane does not serve this request."""
+        plane} or None when the mesh plane does not serve this request.
+        deadline: checkpointed before and after the staging and before each
+        plane's launch, never between a launch and the read of its output;
+        expiry raises ``TimeExceededException`` to the caller's partial
+        result. tracer: the request's phase spans (resolve as
+        parse_rewrite, staging, plan_build, the program as kernel up to its
+        synchronize, finalize as merge and aggregate)."""
         from elasticsearch_tpu_torch.search.aggregations import (
             SegmentView,
             parse_aggs,
@@ -2368,6 +2400,8 @@ class IndexMeshSearch:
             _normalize_rescore,
         )
 
+        if tracer is None:
+            tracer = NULL_TRACER
         body = body or {}
         if any(body.get(key) is not None for key in self.UNSUPPORTED):
             self._note("host", "unsupported_body")
@@ -2375,11 +2409,17 @@ class IndexMeshSearch:
         if len(self.svc.shards) < 2:
             self._note("host", "single_shard")
             return None
+        if deadline is not None:
+            deadline.checkpoint()
+        t_stage = tracer.start("staging")
         executor = self._ensure_staged()
+        tracer.stop("staging", t_stage)
         if executor is None:
             self._note("host", self.staging_denied_reason
                        or "staging_unavailable")
             return None
+        if deadline is not None:
+            deadline.checkpoint()  # the staging may have taken a while
         self.plane_health.cooldown_s = \
             INDEX_SEARCH_PLANE_QUARANTINE_COOLDOWN.get(self.svc.settings)
         pruning_on, _probe = self._pruning_config()
@@ -2394,15 +2434,18 @@ class IndexMeshSearch:
             # relevance-ranked query rides the batched rung's pruned
             # program with Q == 1. Anything needing every tile's dense
             # output (aggs, counts, size 0, post_filter, min_score, a
-            # sort, search_after, slice, rescore, terminate_after) fails
-            # the filter above and runs exhaustively below.
-            out = self.query_batch([body])
+            # sort, search_after, slice, rescore, terminate_after, and
+            # track_total_hits, which asks for the exact total) fails the
+            # filter above and runs exhaustively below.
+            out = self.query_batch([body], deadline=deadline,
+                                   tracers=[tracer])
             if out is not None:
                 r = out[0]
                 return {"total": r["total"], "refs": r["refs"],
                         "max_score": r["max_score"], "aggregations": None,
                         "terminated_early": None, "plane": r["plane"],
                         "pruned": r.get("pruned")}
+        t_parse = tracer.start("parse_rewrite")
         agg_specs = parse_aggs(body.get("aggs") or body.get("aggregations"))
         sort, sort_spec = self._sort_plan(body, executor)
         if sort == "fallback":
@@ -2469,6 +2512,7 @@ class IndexMeshSearch:
         qb = parse_query(body.get("query"))
         pf_qb = (parse_query(body["post_filter"])
                  if body.get("post_filter") else None)
+        tracer.stop("parse_rewrite", t_parse)
 
         admissions: Dict[str, str] = {}
         kernel_session = None
@@ -2476,7 +2520,9 @@ class IndexMeshSearch:
             admissions["mesh_pallas"] = self.plane_health.admit(
                 "mesh_pallas")
             if admissions["mesh_pallas"]:
+                t_stage = tracer.start("staging")
                 kernel_session = executor.ensure_kernel()
+                tracer.stop("staging", t_stage)
                 reason = executor.kernel_denied_reason
                 if kernel_session is None and reason:
                     # the budget or a staging fault turned the kernel
@@ -2498,7 +2544,11 @@ class IndexMeshSearch:
         used_pallas = False
         try:
             for plane, session in attempts:
+                if deadline is not None:
+                    # before committing to this plane's launch
+                    deadline.checkpoint()
                 try:
+                    t_plan = tracer.start("plan_build")
                     plans = []
                     pf_plans = [] if pf_qb is not None else None
                     rs_plans = [] if rs_qb is not None else None
@@ -2514,6 +2564,8 @@ class IndexMeshSearch:
                             rs_plans.append(rs_qb.to_plan(ctx, seg))
                     used_pallas = (session is not None and
                                    executor.harmonize_kernel_nodes(plans) > 0)
+                    tracer.stop("plan_build", t_plan)
+                    t_kernel = tracer.start("kernel")
                     outs = executor.execute(
                         plans, k,
                         with_views=bool(agg_specs) and agg_plan is None,
@@ -2527,6 +2579,7 @@ class IndexMeshSearch:
                         rs_plans=rs_plans, rescore=rescore)
                     if self.svc.device.type == "cuda":
                         torch.cuda.synchronize(self.svc.device)
+                    tracer.stop("kernel", t_kernel)
                     self.plane_health.note_success(plane)
                     break
                 except (PlanStructureMismatch, NotImplementedError):
@@ -2563,6 +2616,11 @@ class IndexMeshSearch:
             if used_pallas:
                 self.pallas_query_total += 1
         self._note(plane, "served")
+        # per-shard search stats stay attributed though the program runs
+        # every shard at once
+        for sid in self.svc.shards:
+            self.svc.shards[sid].searcher.note_query(body.get("stats"))
+        t_merge = tracer.start("merge")
         keys = outs["keys"].cpu().numpy()
         slots = outs["slots"].cpu().numpy()
         docs = outs["docs"].cpu().numpy()
@@ -2609,6 +2667,8 @@ class IndexMeshSearch:
             refs.append(DocRef(sid, seg.name, int(d), score, seg, sv))
             if max_score is None and sort_spec is None:
                 max_score = score
+        tracer.stop("merge", t_merge)
+        t_agg = tracer.start("aggregate")
         aggregations = None
         if agg_plan is not None:
             from elasticsearch_tpu_torch.search.fused_aggs import (
@@ -2640,11 +2700,14 @@ class IndexMeshSearch:
                     scores_all[i, :nd1]))
             aggregations = run_aggregations(agg_specs, views)
             self._note_agg_fallback(agg_reason or "field_ineligible")
+        if agg_specs:
+            tracer.stop("aggregate", t_agg)
         return {"total": total, "refs": refs,
                 "max_score": max_score, "aggregations": aggregations,
                 "terminated_early": terminated_early, "plane": plane}
 
-    def query_batch(self, bodies: List[dict]) -> Optional[list]:
+    def query_batch(self, bodies: List[dict], deadline=None,
+                    tracers: Optional[list] = None) -> Optional[list]:
         """Cross-query micro-batching on the mesh_pallas rung: Q concurrent
         queries scored by one fused top-k launch per slot over the union
         of their lanes, or, with pruning on, by the pruned program (a tile
@@ -2656,20 +2719,32 @@ class IndexMeshSearch:
         aggregations]} dict per
         member, or None when the batch cannot run here (the caller falls
         to the host-batched rung). A plane fault quarantines mesh_pallas
-        once for the whole batch; a ``KernelError`` raises."""
+        once for the whole batch; a ``KernelError`` raises.
+        deadline: the single-query pruned path's (a batch checks each
+        member's deadline before it forms). tracers: each member's; the
+        batch's spans are recorded once and folded into every enabled
+        one."""
         if self.plane_pref not in ("auto", "pallas"):
             return None
         adm = self.plane_health.admit("mesh_pallas")
         if not adm:
             self._note("mesh_pallas", "quarantined", len(bodies))
             return None
+        members = [(q, t) for q, t in enumerate(tracers or [])
+                   if t is not None and t.enabled]
+        bt = QueryTracer() if members else NULL_TRACER
         try:
-            return self._query_batch_admitted(bodies)
+            out = self._query_batch_admitted(bodies, deadline, bt)
         finally:
+            for _q, t in members:
+                t.merge_from(bt)
             if adm == "probe":
                 self.plane_health.release_probe("mesh_pallas")
+        _annotate_members(members, out, len(bodies))
+        return out
 
-    def _query_batch_admitted(self, bodies) -> Optional[list]:
+    def _query_batch_admitted(self, bodies, deadline=None,
+                              tracer=NULL_TRACER) -> Optional[list]:
         from elasticsearch_tpu_torch.search.query_dsl import parse_query
         from elasticsearch_tpu_torch.search.service import DocRef
 
@@ -2684,12 +2759,17 @@ class IndexMeshSearch:
             if any(key not in self.BATCHABLE_KEYS
                    and key not in ("aggs", "aggregations") for key in body):
                 return None
+        t_stage = tracer.start("staging")
         executor = self._ensure_staged()
         if executor is None:
+            tracer.stop("staging", t_stage)
             self._note("host", self.staging_denied_reason
                        or "staging_unavailable", len(bodies))
             return None
         session = executor.ensure_kernel()
+        tracer.stop("staging", t_stage)
+        if deadline is not None:
+            deadline.checkpoint()
         if session is None:
             self._note("host", executor.kernel_denied_reason
                        or "staging_unavailable", len(bodies))
@@ -2714,6 +2794,7 @@ class IndexMeshSearch:
         # the serial mesh path: the plan must be exactly one
         # kernel-scored disjunction. Built outside the fault handler: a
         # malformed body is that member's request error, served serially.
+        t_plan = tracer.start("plan_build")
         try:
             lane_sets = [[None] * q_batch for _ in range(n_pairs)]
             for q, body in enumerate(bodies):
@@ -2760,6 +2841,7 @@ class IndexMeshSearch:
                     return None
                 member_agg_plans[q] = plan
         has_aggs = any(p is not None for p in member_agg_plans)
+        tracer.stop("plan_build", t_plan)
         pruning, probe = self._pruning_config()
         if has_aggs:
             # skipped tiles would drop docs from the buckets: aggregations
@@ -2838,6 +2920,10 @@ class IndexMeshSearch:
                         break
                     plans_p.append(plan)
             agg_raw = None
+            if deadline is not None:
+                # before committing to the launch
+                deadline.checkpoint()
+            t_kernel = tracer.start("kernel")
             if plans_p is not None:
                 (top_s, top_d, top_slot, totals, scored,
                  tiles_total) = executor.execute_batched_pruned(
@@ -2869,11 +2955,14 @@ class IndexMeshSearch:
             docs = top_d.cpu().numpy()
             slots = top_slot.cpu().numpy()
             totals = totals.cpu().numpy()
+            tracer.stop("kernel", t_kernel)
         except (PlanStructureMismatch, NotImplementedError):
             self._note("mesh_pallas", "shape_mismatch", q_batch)
             return None
         except KernelError:
             raise  # a kernel fault is never served by the next rung
+        except TimeExceededException:
+            raise  # the deadline is no plane fault
         except Exception:  # noqa: BLE001 — batch-wide plane fault: bench
             # the plane once (not Q times), serve from the next rung
             _plane_logger.warning(
@@ -2898,6 +2987,10 @@ class IndexMeshSearch:
                    "served_batched" if q_batch > 1 else
                    ("served_pruned" if pruned_stats is not None
                     else "served"), q_batch)
+        for body in bodies:
+            for sid in self.svc.shards:
+                self.svc.shards[sid].searcher.note_query(body.get("stats"))
+        t_merge = tracer.start("merge")
         member_aggs = [None] * q_batch
         if agg_raw is not None:
             from elasticsearch_tpu_torch.search.fused_aggs import (
@@ -2932,6 +3025,7 @@ class IndexMeshSearch:
                 # only, a lower bound: the marker says so
                 result["pruned"] = dict(pruned_stats, total_relation="gte")
             results.append(result)
+        tracer.stop("merge", t_merge)
         return results
 
     # ------------------------------------------------------------------
@@ -2944,34 +3038,50 @@ class IndexMeshSearch:
         return (SEARCH_KNN_ENABLED.get(settings),
                 SEARCH_KNN_TILE_SUB.get(settings))
 
-    def query_knn(self, spec: dict, k: int) -> Optional[dict]:
+    def query_knn(self, spec: dict, k: int, deadline=None, stats=None,
+                  tracer=None) -> Optional[dict]:
         """One kNN query on the mesh plane (the Q == 1 form of
         query_knn_batch). Returns {total, refs, max_score, plane} or None
         when ineligible (the caller runs the host rung)."""
-        out = self.query_knn_batch([spec], [max(k, 1)])
+        out = self.query_knn_batch([spec], [max(k, 1)], deadline=deadline,
+                                   stats=[stats], tracers=[tracer])
         return out[0] if out is not None else None
 
-    def query_knn_batch(self, specs: List[dict],
-                        ks: List[int]) -> Optional[list]:
+    def query_knn_batch(self, specs: List[dict], ks: List[int],
+                        deadline=None, stats: Optional[list] = None,
+                        tracers: Optional[list] = None) -> Optional[list]:
         """Q concurrent vector queries against one dense_vector field,
         scored by one kernel-3 launch per slot (each slot's embeddings are
         read once for the whole batch). Returns one {total, refs,
         max_score, plane} dict per member, or None when the batch cannot
         run here. A plane fault benches mesh_pallas once for the whole
-        batch; a ``KernelError`` raises."""
+        batch; a ``KernelError`` raises. ``deadline``: a single query's,
+        checkpointed after the staging and before the launch. ``stats``:
+        each member's request-body stats groups. ``tracers``: as in
+        ``query_batch``."""
         if self.plane_pref not in ("auto", "pallas"):
             return None
         adm = self.plane_health.admit("mesh_pallas")
         if not adm:
             self._note("mesh_pallas", "quarantined", len(specs))
             return None
+        members = [(q, t) for q, t in enumerate(tracers or [])
+                   if t is not None and t.enabled]
+        bt = QueryTracer() if members else NULL_TRACER
         try:
-            return self._query_knn_batch_admitted(specs, ks)
+            out = self._query_knn_batch_admitted(
+                specs, ks, deadline, stats or [None] * len(specs), bt)
         finally:
+            for _q, t in members:
+                t.merge_from(bt)
             if adm == "probe":
                 self.plane_health.release_probe("mesh_pallas")
+        _annotate_members(members, out, len(specs))
+        return out
 
-    def _query_knn_batch_admitted(self, specs, ks) -> Optional[list]:
+    def _query_knn_batch_admitted(self, specs, ks, deadline=None,
+                                  stats=(), tracer=NULL_TRACER
+                                  ) -> Optional[list]:
         from elasticsearch_tpu_torch.mapper.field_types import (
             DenseVectorFieldType,
         )
@@ -3004,12 +3114,17 @@ class IndexMeshSearch:
                     return None
         except (KeyError, TypeError):
             return None
+        t_stage = tracer.start("staging")
         executor = self._ensure_staged()
         if executor is None:
+            tracer.stop("staging", t_stage)
             self._note("host", self.staging_denied_reason
                        or "knn_staging_unavailable", len(specs))
             return None
         session = executor.ensure_knn(field, ft.dims, ft.similarity)
+        tracer.stop("staging", t_stage)
+        if deadline is not None:
+            deadline.checkpoint()
         if session is None:
             reason = executor.kernel_denied_reason
             self._note("host", reason or "knn_staging_unavailable",
@@ -3029,7 +3144,11 @@ class IndexMeshSearch:
             qmat[q] = knn.normalize_query(
                 np.asarray(spec["query_vector"], np.float32),
                 ft.similarity, d_pad)
+        if deadline is not None:
+            # before committing to the launch
+            deadline.checkpoint()
         try:
+            t_kernel = tracer.start("kernel")
             top_s, top_d, top_slot, total = executor.execute_knn(
                 session, torch.from_numpy(qmat).to(self.svc.device),
                 kk=kk, sub=g.tile_sub)
@@ -3037,6 +3156,7 @@ class IndexMeshSearch:
             docs = top_d.cpu().numpy()
             slots = top_slot.cpu().numpy()
             total = int(total)
+            tracer.stop("kernel", t_kernel)
         except (PlanStructureMismatch, NotImplementedError):
             self._note("mesh_pallas", "shape_mismatch", q_batch)
             return None
@@ -3060,6 +3180,10 @@ class IndexMeshSearch:
         self._note("mesh_pallas",
                    "knn_served_batched" if q_batch > 1 else "knn_served",
                    q_batch)
+        for groups in stats:
+            for sid in self.svc.shards:
+                self.svc.shards[sid].searcher.note_query(groups)
+        t_merge = tracer.start("merge")
         results = []
         for q in range(q_batch):
             refs = []
@@ -3074,4 +3198,5 @@ class IndexMeshSearch:
                     max_score = float(key)
             results.append({"total": total, "refs": refs,
                             "max_score": max_score, "plane": "mesh_pallas"})
+        tracer.stop("merge", t_merge)
         return results

@@ -12,8 +12,12 @@ of a ``_parent``-mapped index, required there), ``refresh``, ``_source``
 filtering, GET's ``stored_fields`` (``_parent`` too), the typed-path
 deprecation warning), ``_bulk`` (index, create, delete; ``parent``),
 ``_search`` with the URI parameters (``?scroll=`` opens a point-in-time
-scroll), ``_search/scroll`` (next page, clear), ``_count``,
-``_msearch``, ``_refresh``, ``_flush``, ``_flush/synced``,
+scroll; ``timeout``, ``allow_partial_search_results`` and
+``track_total_hits`` go into the body) over an index expression (names,
+wildcards, comma lists, ``_all``), ``_search/scroll`` (next page,
+clear), ``_count``, ``_msearch``, ``_explain`` (four routes: ``?q=``,
+the ``_source`` parameters, the per-term BM25 details), ``_validate/query``
+(``?explain``), ``_refresh``, ``_flush``, ``_flush/synced``,
 ``_forcemerge``, index create/delete/get/head, ``_mapping``,
 ``_settings``, ``_analyze`` over the built-in analyzers, ``_cluster/health`` and the cat
 tables ``indices``, ``count``, ``health``, ``nodes``, ``master``,
@@ -73,8 +77,8 @@ def register_all(c) -> None:
     r("POST", "/{index}/{type}/{id}/_create", _create_doc)
     r("PUT", "/{index}/_create/{id}", _create_doc)
     r("POST", "/{index}/_create/{id}", _create_doc)
-    r("GET", "/{index}/{type}/{id}/_explain", _unported)
-    r("POST", "/{index}/{type}/{id}/_explain", _unported)
+    r("GET", "/{index}/{type}/{id}/_explain", _explain)
+    r("POST", "/{index}/{type}/{id}/_explain", _explain)
     r("GET", "/{index}/{type}/{id}/_source", _get_source)
     r("POST", "/_mget", _unported)
     r("POST", "/{index}/_mget", _unported)
@@ -111,14 +115,14 @@ def register_all(c) -> None:
     r("POST", "/_count", _count)
     r("GET", "/{index}/_count", _count)
     r("POST", "/{index}/_count", _count)
-    r("GET", "/{index}/_validate/query", _unported)
-    r("POST", "/{index}/_validate/query", _unported)
+    r("GET", "/{index}/_validate/query", _validate_query)
+    r("POST", "/{index}/_validate/query", _validate_query)
     r("GET", "/_field_caps", _unported)
     r("POST", "/_field_caps", _unported)
     r("GET", "/{index}/_field_caps", _unported)
     r("POST", "/{index}/_field_caps", _unported)
-    r("GET", "/{index}/_explain/{id}", _unported)
-    r("POST", "/{index}/_explain/{id}", _unported)
+    r("GET", "/{index}/_explain/{id}", _explain)
+    r("POST", "/{index}/_explain/{id}", _explain)
 
     # --- templates / termvectors / rollover / shrink / hot_threads ---
     r("GET", "/_search/template", _unported)
@@ -724,6 +728,171 @@ def _count(node, req):
     body["size"] = 0
     resp = node.search(req.param("index", "_all"), body)
     return 200, {"count": resp["hits"]["total"], "_shards": resp["_shards"]}
+
+
+def _validate_query(node, req):
+    """Whether the body's query parses; ``?explain`` adds the error."""
+    from elasticsearch_tpu_torch.search.query_dsl import parse_query
+
+    body = req.json_body({}) or {}
+    shards = {"total": 1, "successful": 1, "failed": 0}
+    try:
+        parse_query(body.get("query"))
+        return 200, {"valid": True, "_shards": shards}
+    except Exception as e:  # noqa: BLE001 — any parse failure is invalid
+        resp = {"valid": False, "_shards": shards}
+        if req.bool_param("explain"):
+            resp["explanations"] = [{"index": req.param("index"),
+                                     "valid": False, "error": str(e)}]
+        return 200, resp
+
+
+def _explain(node, req):
+    """Whether one doc matches a query, and its score: the query AND an
+    ``ids`` filter of the doc, searched through the index's planes, so the
+    value is the score the doc gets in a search; for queries that expand
+    to term lanes, the per-term BM25 breakdown of that score."""
+    body = req.json_body({}) or {}
+    if body and "query" not in body:
+        # a bare query object at the top level is a parse error
+        raise ActionRequestValidationException(
+            "Validation Failed: 1: query is missing;")
+    svc = node.index_service(req.param("index"))
+    doc_id = req.param("id")
+    inner = body.get("query")
+    if inner is None and req.param("q") is not None:
+        # the URI-search form: ?q= with df, default_operator, analyzer and
+        # lenient
+        inner = {"query_string": {
+            "query": req.param("q"),
+            **({"default_field": req.param("df")} if req.param("df")
+               else {}),
+            **({"default_operator": req.param("default_operator")}
+               if req.param("default_operator") else {}),
+            **({"analyzer": req.param("analyzer")}
+               if req.param("analyzer") else {}),
+            **({"lenient": req.bool_param("lenient")}
+               if req.param("lenient") is not None else {}),
+        }}
+    q = dict(body)
+    q["query"] = {"bool": {"must": [inner or {"match_all": {}}],
+                           "filter": [{"ids": {"values": [doc_id]}}]}}
+    q["size"] = 1
+    resp = svc.search(q)
+    matched = resp["hits"]["total"] > 0
+    score = resp["hits"]["hits"][0]["_score"] if matched else 0.0
+    details = _bm25_explanation_details(
+        svc, doc_id, body.get("query")) if matched else []
+    out = {
+        "_index": svc.name,
+        "_id": doc_id,
+        "matched": matched,
+        "explanation": {
+            "value": score,
+            "description": ("sum of:" if details else
+                            "score via the fused query program"),
+            "details": details,
+        },
+    }
+    # the get section carries the (filtered) source when any _source
+    # parameter was given
+    if any(req.param(p) is not None for p in (
+            "_source", "_source_include", "_source_includes",
+            "_source_exclude", "_source_excludes")):
+        g = svc.get_doc(doc_id, routing=req.param("routing"))
+        if g.found:
+            get_out = {"found": True, "_source": dict(g.source)}
+            _apply_source_filtering(req, get_out)
+            out["get"] = get_out
+    _echo_type(req, out)
+    return 200, out
+
+
+def _explanation_leaf(value, description) -> dict:
+    return {"value": value, "description": description, "details": []}
+
+
+def _bm25_explanation_details(svc, doc_id, query_body):
+    """The per-term BM25 breakdown (BM25Similarity.explain's tree: boost
+    x idf x tfNorm with their inputs) of the doc's segment, for queries
+    that expand to term lanes; other shapes keep the summary."""
+    from elasticsearch_tpu_torch.ops.scoring import B, K1, bm25_idf
+    from elasticsearch_tpu_torch.search.query_dsl import (
+        ShardQueryContext,
+        parse_query,
+    )
+
+    try:
+        qb = parse_query(query_body)
+    except Exception:  # noqa: BLE001 — the summary stands
+        return []
+    shard = svc.shards[svc._route(doc_id)]
+    ctx = ShardQueryContext(svc.mapper_service, shard.engine)
+    lanes = qb.explain_terms(ctx)
+    if not lanes:
+        return []
+    entry = shard.engine.version_map.get(doc_id)
+    if entry is None or entry.segment is None:
+        return []
+    segment = next((s for s in shard.engine.searchable_segments()
+                    if s.name == entry.segment), None)
+    if segment is None:
+        return []
+    local = entry.local_doc
+    details = []
+    for field, token, boost in lanes:
+        tid = segment.term_id(field, token)
+        if tid < 0:
+            continue
+        start = int(segment.term_block_start[tid])
+        count = int(segment.term_block_count[tid])
+        blk = segment.block_docs[start:start + count]
+        sel = blk == local
+        if not sel.any():
+            continue
+        freq = float(segment.block_tfs[start:start + count][sel][0])
+        row = segment.field_norm_idx.get(field, 0)
+        dl = float(segment.norms[row][local])
+        avgdl = segment.field_avgdl(field)
+        st = segment.field_stats.get(field, {})
+        n_docs = int(st.get("doc_count", segment.num_docs))
+        df = int(segment.term_doc_freq[tid])
+        idf = bm25_idf(df, n_docs)
+        tf_norm = freq * (K1 + 1) / (freq + K1 * (1 - B + B * dl / avgdl))
+        value = boost * idf * tf_norm
+        leaf = _explanation_leaf
+        details.append({
+            "value": value,
+            "description": f"weight({field}:{token} in {local}) "
+                           f"[PerFieldSimilarity], result of:",
+            "details": [{
+                "value": value,
+                "description": f"score(doc={local}, freq={freq}), "
+                               f"product of:",
+                "details": [
+                    leaf(boost, "boost"),
+                    {"value": idf,
+                     "description": "idf, computed as log(1 + (N - n + 0.5)"
+                                    " / (n + 0.5)) from:",
+                     "details": [
+                         leaf(df, "n, number of documents containing "
+                                  "term"),
+                         leaf(n_docs, "N, total number of documents with "
+                                      "field")]},
+                    {"value": tf_norm,
+                     "description": "tfNorm, computed as (freq * (k1 + 1)) /"
+                                    " (freq + k1 * (1 - b + b * dl / avgdl))"
+                                    " from:",
+                     "details": [
+                         leaf(freq, "termFreq"),
+                         leaf(K1, "parameter k1"),
+                         leaf(B, "parameter b"),
+                         leaf(avgdl, "avgFieldLength"),
+                         leaf(dl, "fieldLength")]},
+                ],
+            }],
+        })
+    return details
 
 
 # ---------------------------------------------------------------------------

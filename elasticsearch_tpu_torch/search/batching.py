@@ -24,7 +24,11 @@ memory; queries in flight at the same time can share that pass. Pieces:
   ``score_cache``.
 
 Nothing here catches a kernel fault: a launch that fails raises (shape
-ineligibility returns None, as in the JAX package). The mesh rung's
+ineligibility returns None, as in the JAX package). A batch item is
+whatever the caller passes (``IndexService`` passes each member's body,
+deadline and tracer), so each member keeps its own deadline: one that
+expired before the batch forms is served alone, its peers share the
+launch. The mesh rung's
 batched launch lives in ``parallel/plan_exec.IndexMeshSearch.query_batch``;
 the rung selection lives in ``IndexService.search_batch``.
 """

@@ -82,6 +82,16 @@ class PlanNode:
         these agree; array lengths may differ (they pad)."""
         return ()
 
+    def describe(self) -> dict:
+        """The profile tree: the node's type, its statics and its
+        children. A plan runs as one pass over the segment, so only the
+        root's breakdown carries measured time."""
+        return {
+            "type": type(self).__name__,
+            "description": f"{type(self).__name__}{list(self.trace_statics())}",
+            "children": [c.describe() for c in self.children()],
+        }
+
 
 def _on_device(x, device: torch.device):
     """Plan arrays arrive as numpy arrays, numpy scalars or tensors:

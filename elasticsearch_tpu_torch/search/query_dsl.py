@@ -69,6 +69,7 @@ from elasticsearch_tpu_torch.mapper.field_types import (
     DenseVectorFieldType,
     GeoPointFieldType,
     IpFieldType,
+    KeywordFieldType,
     NumberFieldType,
     RangeFieldType,
     TextFieldType,
@@ -380,6 +381,12 @@ class QueryBuilder:
     def to_plan(self, ctx: ShardQueryContext, segment) -> P.PlanNode:
         raise NotImplementedError
 
+    def explain_terms(self, ctx) -> Optional[List[tuple]]:
+        """(field, token, boost) lanes for ``_explain``'s per-term BM25
+        breakdown; None when this query has no term-lane expansion (the
+        explanation then stays a summary)."""
+        return None
+
     def _wrap_boost(self, node: P.PlanNode) -> P.PlanNode:
         if self.boost != 1.0:
             return P.BoostNode(node, self.boost)
@@ -498,6 +505,13 @@ class MatchQueryBuilder(QueryBuilder):
         return ft.index_terms(self.query, ctx.analyzers) or [
             ft.term_for_query(self.query, ctx.analyzers)
         ]
+
+    def explain_terms(self, ctx):
+        ft = ctx.field_type(self.field)
+        if ft is None or not isinstance(ft, TextFieldType):
+            return None
+        return [(self.field, t, self.boost)
+                for t in self._analyzed_terms(ctx)]
 
     def to_plan(self, ctx, segment):
         ft = ctx.field_type(self.field)
@@ -759,6 +773,16 @@ class TermQueryBuilder(QueryBuilder):
                  else str(self.value))
         return score_terms_node(segment, [(self.field, token, self.boost)], 1,
                                 ctx=ctx)
+
+    def explain_terms(self, ctx):
+        ft = ctx.field_type(self.field)
+        if isinstance(ft, (KeywordFieldType, BooleanFieldType)) or ft is None:
+            token = (ft.term_for_query(self.value, ctx.analyzers)
+                     if ft is not None else str(self.value))
+            return [(self.field, token, self.boost)]
+        if isinstance(ft, TextFieldType):
+            return [(self.field, str(self.value), self.boost)]
+        return None
 
 
 class TermsQueryBuilder(QueryBuilder):
@@ -1142,6 +1166,14 @@ class BoolQueryBuilder(QueryBuilder):
         self.should = should or []
         self.must_not = must_not or []
         self.minimum_should_match = minimum_should_match
+
+    def explain_terms(self, ctx):
+        lanes = []
+        for child in list(self.must) + list(self.should):
+            sub = child.explain_terms(ctx)
+            if sub:
+                lanes.extend(sub)
+        return lanes or None
 
     def to_plan(self, ctx, segment):
         must = [q.to_plan(ctx, segment) for q in self.must]

@@ -26,9 +26,21 @@ order. A sort on a numeric field under a nested path reduces each doc's
 objects with min (asc) or max (desc) (``_nested_sort_values``). The
 fetch phase answers the ``inner_hits`` of nested and join clauses
 (``collect_inner_hits``, the builders parsed once a shard), nested ones
-with ``_nested.field`` and ``offset``. Profile, suggest,
-``stored_fields``, ``docvalue_fields`` and ``script_fields`` are later
-slices, and a request carrying one raises.
+with ``_nested.field`` and ``offset``. ``stored_fields: "_none_"``
+drops ``_source`` (any other value keeps it, as in the JAX package) and
+``docvalue_fields`` answers numeric columns as float64 values and
+ordinal columns as terms (with the ``.keyword`` fallback).
+
+The query phase checkpoints the request's ``SearchDeadline`` before each
+segment: an expired deadline stops the scan and the shard answers what
+its finished segments found, ``timed_out``. ``profile`` adds a tree a
+segment (the plan's node types, its ``engine``, and a breakdown of
+``build_plan``, ``execute_program`` (to the scores on the host, so the
+device work is in it) and ``select_topk``); a ``QueryTracer`` collects
+the request's phase spans. ``stats`` counts the query against each named
+group. ``allow_partial_results`` and ``shard_failure_entry`` serve the
+coordinators' per-shard failure isolation. Suggest and a non-empty
+``script_fields`` wait for later slices and raise.
 """
 
 from __future__ import annotations
@@ -37,6 +49,7 @@ import bisect
 import fnmatch
 import math
 import re
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
@@ -45,9 +58,11 @@ import numpy as np
 import torch
 
 from elasticsearch_tpu_torch.common.errors import (
+    ElasticsearchTpuException,
     IllegalArgumentException,
     ParsingException,
     QueryPhaseExecutionException,
+    es_type_name,
 )
 from elasticsearch_tpu_torch.mapper.field_types import (
     GeoPointFieldType,
@@ -71,7 +86,10 @@ from elasticsearch_tpu_torch.utils.murmur3 import hash_slice_ids
 SUPPORTED_BODY_KEYS = {"query", "from", "size", "aggs", "aggregations",
                        "_source", "min_score", "post_filter", "version",
                        "sort", "search_after", "slice", "rescore",
-                       "terminate_after", "collapse", "highlight"}
+                       "terminate_after", "collapse", "highlight",
+                       "stored_fields", "docvalue_fields", "script_fields",
+                       "track_total_hits", "timeout",
+                       "allow_partial_search_results", "profile", "stats"}
 
 
 def check_body(body: dict) -> None:
@@ -80,6 +98,11 @@ def check_body(body: dict) -> None:
         raise IllegalArgumentException(
             f"search request parameters {unsupported} are not supported by "
             f"the PyTorch port yet")
+    if body.get("script_fields"):
+        # an empty section (Kibana's Discover sends one) asks for nothing
+        raise IllegalArgumentException(
+            "[script_fields] with scripts is not supported by the PyTorch "
+            "port yet: it needs the scripting module")
 
 
 @dataclass
@@ -106,14 +129,38 @@ class ShardQueryResult:
     refs: List[DocRef]
     max_score: Optional[float] = None
     agg_views: List[SegmentView] = field(default_factory=list)
+    # per-segment profile trees when "profile": true
+    profile: Optional[List[dict]] = None
     # set (true/false) only when terminate_after was requested
     terminated_early: Optional[bool] = None
+    # the deadline expired mid-scan: refs and total cover only the
+    # segments finished before the cut
+    timed_out: bool = False
 
 
 def _plan_uses_kernel(node) -> bool:
     if isinstance(node, P.PallasScoreTermsNode):
         return True
     return any(_plan_uses_kernel(c) for c in node.children())
+
+
+def _mark_fused(tree: dict) -> None:
+    """The child nodes of a plan carry structure only: the root's
+    breakdown owns the measured time."""
+    tree["time_in_nanos"] = 0
+    tree["breakdown"] = {"fused_into_parent_program": 0}
+    for child in tree.get("children", []):
+        _mark_fused(child)
+
+
+def _engine_name(used_kernel: bool, device) -> str:
+    """The route that scored a segment, for the profile: the hand-written
+    tile kernel on the card, its plain version on the CPU, or the scatter
+    program."""
+    if not used_kernel:
+        return "torch_scatter"
+    return ("cuda_tile_kernel" if device.type == "cuda"
+            else "plain_tile_kernel")
 
 
 class ShardSearcher:
@@ -139,19 +186,62 @@ class ShardSearcher:
         self.host_copy_seconds = 0.0
         self.host_copy_bytes = 0
         self.host_copy_segments = 0
+        # the counters take concurrent searches (host threads and the mesh
+        # and batch leaders all attribute per-shard stats here)
+        self._stats_lock = threading.Lock()
+        # per-group search stats ("stats": ["grp"] in a request body)
+        self.group_stats: Dict[str, dict] = {}
+
+    def record_query_groups(self, groups) -> None:
+        """Count one query against each requested stats group (the host
+        rung and the mesh plane both call it)."""
+        with self._stats_lock:
+            for g in groups or []:
+                gs = self.group_stats.setdefault(str(g), {
+                    "query_total": 0, "query_time_in_millis": 0,
+                    "fetch_total": 0, "fetch_time_in_millis": 0})
+                gs["query_total"] += 1
+
+    def note_query(self, groups=None) -> None:
+        """Attribute one query the mesh plane served to this shard: the
+        mesh runs every shard as one program, and the per-shard stats stay
+        true."""
+        with self._stats_lock:
+            self.query_total += 1
+        self.record_query_groups(groups)
 
     def query(self, source: dict, size_hint: Optional[int] = None,
-              segments=None, score_cache: Optional[Dict[str, Tuple]] = None
-              ) -> ShardQueryResult:
+              segments=None, score_cache: Optional[Dict[str, Tuple]] = None,
+              deadline=None, tracer=None) -> ShardQueryResult:
         """segments: an explicit segment list (a scroll's pinned views);
         None searches the engine's current segments.
         score_cache: {segment_name: (scores [nd1] f32, matched [nd1]
         bool)} on the segment's device, from a cross-query batched kernel
         launch (search/batching.py): a cached segment skips plan execution
-        and feeds the same downstream pipeline."""
-        self.query_total += 1
+        and feeds the same downstream pipeline (a profiled request runs its
+        own plans, so its tree times them).
+        deadline: the request's ``SearchDeadline``, checkpointed before
+        each segment: an expired one stops the scan and the result holds
+        the finished segments with ``timed_out``.
+        tracer: the request's ``QueryTracer`` (phase spans)."""
+        from elasticsearch_tpu_torch.search.cancellation import (
+            TimeExceededException,
+        )
+        from elasticsearch_tpu_torch.search.telemetry import NULL_TRACER
+        from elasticsearch_tpu_torch.testing.disruption import (
+            on_shard_search,
+        )
+
+        if tracer is None:
+            tracer = NULL_TRACER
+        with self._stats_lock:
+            self.query_total += 1
+        # query-path fault injection (SearchDelayScheme, SearchFailScheme)
+        on_shard_search(self.index_name, self.shard_id)
         source = source or {}
         check_body(source)
+        self.record_query_groups(source.get("stats"))
+        t_parse = tracer.start("parse_rewrite")
         from_ = int(source.get("from", 0) or 0)
         size = int(source.get("size", 10) if source.get("size") is not None else 10)
         k = size_hint if size_hint is not None else from_ + size
@@ -170,28 +260,57 @@ class ShardSearcher:
         if rescore_specs:
             k_select = max(k, max(r["window_size"] for r in rescore_specs))
         agg_specs = parse_aggs(source.get("aggs") or source.get("aggregations"))
+        profile = bool(source.get("profile", False))
+        tracer.stop("parse_rewrite", t_parse)
 
         refs: List[DocRef] = []
         total = 0
         max_score = None
         agg_views: List[SegmentView] = []
+        profile_shards: List[dict] = []
+        timed_out = False
         for seg in (segments if segments is not None
                     else self.engine.searchable_segments()):
+            if deadline is not None:
+                try:
+                    deadline.checkpoint()
+                except TimeExceededException:
+                    # the finished segments stand; the scan stops here
+                    timed_out = True
+                    break
+            t_seg = time.monotonic()
+            t_stage = tracer.start("staging")
             dev = seg.device_arrays()
-            cached = score_cache.get(seg.name) if score_cache else None
+            tracer.stop("staging", t_stage)
+            cached = (score_cache.get(seg.name)
+                      if score_cache and not profile else None)
+            t_kernel = None
             if cached is not None:
                 # scored by a batched launch shared with the other members
                 # of this query's micro-batch
                 scores_d, matched_d = cached
-                self.kernel_segments_total += 1
-            else:
-                node = qb.to_plan(self.ctx, seg)
-                if _plan_uses_kernel(node):
+                with self._stats_lock:
                     self.kernel_segments_total += 1
-                else:
-                    self.scatter_segments_total += 1
+                t_build = time.monotonic()
+            else:
+                t_plan = tracer.start("plan_build")
+                node = qb.to_plan(self.ctx, seg)
+                tracer.stop("plan_build", t_plan)
+                used_kernel = _plan_uses_kernel(node)
+                with self._stats_lock:
+                    if used_kernel:
+                        self.kernel_segments_total += 1
+                    else:
+                        self.scatter_segments_total += 1
+                t_build = time.monotonic()
+                t_kernel = tracer.start("kernel")
                 scores_d, matched_d = P.execute(dev, node)
+            # the copy waits for the device: the kernel span and
+            # execute_program end with the scores on the host
             scores, matched = self._to_host(seg.device, scores_d, matched_d)
+            if t_kernel is not None:
+                tracer.stop("kernel", t_kernel)
+            t_exec = time.monotonic()
             live1 = np.concatenate([seg.live, np.zeros(1, bool)])
             matched = matched & live1
             if min_score is not None:
@@ -212,6 +331,7 @@ class ShardSearcher:
                 _, post_m = P.execute(dev, post_qb.to_plan(self.ctx, seg))
                 matched = matched & post_m.cpu().numpy()
             total += int(matched[: seg.num_docs].sum())
+            t_merge = tracer.start("merge")
             if collapse_field:
                 seg_refs = self._select_all(seg, scores, matched, sort_spec)
             else:
@@ -219,16 +339,22 @@ class ShardSearcher:
                                         search_after, k_select)
             if rescore_specs and sort_spec is None:
                 seg_refs = self._rescore(seg, dev, seg_refs, rescore_specs)
+            tracer.stop("merge", t_merge)
             refs.extend(seg_refs)
             if seg_refs and sort_spec is None:
                 m = max(r.score for r in seg_refs)
                 max_score = m if max_score is None else max(max_score, m)
+            if profile:
+                profile_shards.append(self._profile_entry(
+                    seg, node, used_kernel, source, t_seg, t_build, t_exec))
+        t_merge = tracer.start("merge")
         if collapse_field:
             refs = merge_refs(refs, sort_spec, len(refs))
             refs = collapse_refs(refs, collapse_field)[:k]
         else:
             refs = merge_refs(refs, sort_spec,
                               k_select if rescore_specs else k)
+        tracer.stop("merge", t_merge)
         if rescore_specs and sort_spec is None:
             refs.sort(key=lambda r: (-r.score, r.local_doc))
             refs = refs[:k]
@@ -241,8 +367,41 @@ class ShardSearcher:
             # whether the cap was reached (the observable contract)
             terminated_early = total >= int(terminate_after)
             total = min(total, int(terminate_after))
-        return ShardQueryResult(self.shard_id, total, refs, max_score,
-                                agg_views, terminated_early=terminated_early)
+        return ShardQueryResult(
+            self.shard_id, total, refs, max_score, agg_views,
+            profile=profile_shards if profile else None,
+            terminated_early=terminated_early, timed_out=timed_out)
+
+    def _profile_entry(self, seg, node, used_kernel: bool, source: dict,
+                       t_seg: float, t_build: float, t_exec: float) -> dict:
+        """One segment's profile: the plan tree (children fused into the
+        root), which engine scored it, and the root's breakdown."""
+        t_end = time.monotonic()
+        tree = node.describe()
+        for child in tree.get("children", []):
+            _mark_fused(child)
+        tree.update({
+            "engine": _engine_name(used_kernel, seg.device),
+            "description": str(source.get("query", {"match_all": {}})),
+            "time_in_nanos": int((t_exec - t_build) * 1e9),
+            "breakdown": {
+                "build_plan": int((t_build - t_seg) * 1e9),
+                "execute_program": int((t_exec - t_build) * 1e9),
+                "select_topk": int((t_end - t_exec) * 1e9),
+            },
+        })
+        return {
+            "id": f"[{self.shard_id}][{seg.name}]",
+            "plane": "host",
+            "searches": [{
+                "query": [tree],
+                "collector": [{
+                    "name": "TopKSelector",
+                    "reason": "search_top_hits",
+                    "time_in_nanos": int((t_end - t_exec) * 1e9),
+                }],
+            }],
+        }
 
     def _to_host(self, device, scores_d, matched_d):
         if device.type == "cuda":
@@ -795,6 +954,34 @@ def _geo_sort_spec(spec: dict) -> tuple:
                    "unit_m": parse_distance(f"1{unit}"), "mode": mode}
 
 
+def allow_partial_results(body: dict) -> bool:
+    """The request's ``allow_partial_search_results``. ``Node.search``
+    sets the node default (``search.default_allow_partial_results``) when
+    the request leaves it unset; a direct caller defaults to true."""
+    v = (body or {}).get("allow_partial_search_results")
+    if v is None:
+        return True
+    if isinstance(v, str):
+        return v.lower() != "false"
+    return bool(v)
+
+
+def shard_failure_entry(index: str, shard_id, exc: Exception,
+                        node: Optional[str] = None) -> dict:
+    """One ``_shards.failures`` entry (ShardSearchFailure's shape): the
+    shard's exception with its type and reason, so a partial response
+    says which shard failed and why."""
+    if isinstance(exc, ElasticsearchTpuException):
+        reason = {"type": exc.error_type, "reason": exc.reason}
+    else:
+        reason = {"type": es_type_name(type(exc).__name__),
+                  "reason": str(exc)}
+    entry = {"shard": shard_id, "index": index, "reason": reason}
+    if node is not None:
+        entry["node"] = node
+    return entry
+
+
 def merge_refs(refs: List[DocRef], sort_spec, k: int) -> List[DocRef]:
     """Coordinator-side top-k merge (SearchPhaseController.sortDocs): by
     score, or by sort values; ties by (shard, doc)."""
@@ -1076,6 +1263,10 @@ def fetch_hits(refs: List[DocRef], shards: Dict[int, Any], source_body: dict,
     source_body = source_body or {}
     includes, excludes, enabled = _parse_source_spec(
         source_body.get("_source", True))
+    # "_none_" drops _source; any other stored_fields value keeps it (the
+    # JAX package's contract)
+    enabled = enabled and source_body.get("stored_fields") != "_none_"
+    docvalue_fields = source_body.get("docvalue_fields") or []
     want_version = bool(source_body.get("version", False))
     highlight_body = source_body.get("highlight")
     sort_spec = normalize_sort(source_body.get("sort"))
@@ -1111,6 +1302,10 @@ def fetch_hits(refs: List[DocRef], shards: Dict[int, Any], source_body: dict,
             hit["_source"] = src
         if want_version:
             hit["_version"] = int(seg.versions[d])
+        if docvalue_fields:
+            fields_out = _docvalue_fields(seg, d, docvalue_fields)
+            if fields_out:
+                hit["fields"] = fields_out
         if sort_spec is not None:
             hit["sort"] = [_sort_value_out(v) for v in ref.sort_values]
         if highlight_body:
@@ -1136,3 +1331,26 @@ def fetch_hits(refs: List[DocRef], shards: Dict[int, Any], source_body: dict,
                 hit["inner_hits"] = ih_out
         hits.append(hit)
     return hits
+
+
+def _docvalue_fields(seg, d: int, specs) -> Dict[str, list]:
+    """A hit's ``docvalue_fields``: a numeric column's values as float64
+    (in column order), else an ordinal column's terms (the field or its
+    ``.keyword`` subfield); a field the doc lacks is left out. A spec is
+    a name or ``{"field": name, "format": ...}`` (the format is read past,
+    as in the JAX package)."""
+    out: Dict[str, list] = {}
+    for fspec in specs:
+        fname = fspec if isinstance(fspec, str) else fspec.get("field")
+        col = seg.numeric_columns.get(fname)
+        if col is not None and col.exists[d]:
+            sel = col.flat_docs[: col.count] == d
+            out[fname] = [float(v) for v in col.flat_values[: col.count][sel]]
+            continue
+        ocol = (seg.ordinal_columns.get(fname)
+                or seg.ordinal_columns.get(f"{fname}.keyword"))
+        if ocol is not None and ocol.exists[d]:
+            sel = ocol.flat_docs[: ocol.count] == d
+            out[fname] = [ocol.terms[o]
+                          for o in ocol.flat_ords[: ocol.count][sel]]
+    return out

@@ -1,10 +1,15 @@
-"""Device-staging fault injection.
+"""Query-path and device-staging fault injection.
 
-The slice of ``elasticsearch_tpu/testing/disruption.py`` that the staging
-lifecycle needs: a process-global registry of query-path schemes, the
-``on_device_staging`` hook that every device staging site calls just
-before its transfer group, and ``StagingFailScheme``, which makes the Nth
-matching staging raise a transient or a deterministic fault. The
+The slice of ``elasticsearch_tpu/testing/disruption.py`` that the port's
+search path needs: a process-global registry of query-path schemes and
+two hooks. ``on_shard_search`` runs at the start of every shard's query
+phase on the host rung (``ShardSearcher.query``): ``SearchDelayScheme``
+stalls a shard (the straggler that trips a ``timeout``) and
+``SearchFailScheme`` makes it raise (a ``_shards.failures`` entry).
+``on_device_staging`` runs just before every device staging site's
+transfer group: ``StagingFailScheme`` makes the Nth matching staging
+raise a transient or a deterministic fault. The mesh plane runs every
+shard as one program and calls ``on_shard_search`` for none of them. The
 transport, plane and launch schemes of the JAX module are not ported.
 """
 
@@ -17,11 +22,13 @@ _SEARCH_SCHEMES: list = []
 
 
 class ShardSearchScheme:
-    """Base for query-path schemes. ``indices`` filters the indices the
-    scheme touches (None = any)."""
+    """Base for query-path schemes. ``indices`` and ``shards`` filter the
+    (index, shard) query phases the scheme touches (None = any)."""
 
-    def __init__(self, indices: Optional[Iterable[str]] = None):
+    def __init__(self, indices: Optional[Iterable[str]] = None,
+                 shards: Optional[Iterable[int]] = None):
         self.indices = set(indices) if indices else None
+        self.shards = set(shards) if shards is not None else None
         self.hits = 0
 
     def install(self) -> "ShardSearchScheme":
@@ -32,6 +39,16 @@ class ShardSearchScheme:
         if self in _SEARCH_SCHEMES:
             _SEARCH_SCHEMES.remove(self)
 
+    def applies(self, index: str, shard_id) -> bool:
+        if self.indices is not None and index not in self.indices:
+            return False
+        if self.shards is not None and shard_id not in self.shards:
+            return False
+        return True
+
+    def on_search(self, index: str, shard_id: int) -> None:
+        """Effect hook for a shard's query phase on the host rung."""
+
     def on_staging(self, index: str, kind: str, table: str) -> None:
         """Effect hook for a device staging boundary: called right before
         a staging site's transfer group with the ledger kind
@@ -41,6 +58,16 @@ class ShardSearchScheme:
 
 def clear_search_disruptions() -> None:
     del _SEARCH_SCHEMES[:]
+
+
+def on_shard_search(index: str, shard_id: int) -> None:
+    """Called by ``ShardSearcher.query`` before its segments run; runs
+    every installed matching scheme in installation order."""
+    if not _SEARCH_SCHEMES:
+        return
+    for scheme in list(_SEARCH_SCHEMES):
+        if scheme.applies(index, shard_id):
+            scheme.on_search(index, shard_id)
 
 
 def on_device_staging(index: str, kind: str, table: str) -> None:
@@ -107,3 +134,36 @@ class StagingFailScheme(ShardSearchScheme):
         raise ValueError(
             f"[{index}] shape error staging [{kind}/{table}] "
             f"(injected deterministic)")
+
+
+class SearchDelayScheme(ShardSearchScheme):
+    """Every matching shard query phase stalls ``seconds`` before it runs:
+    the straggler shard that drives a ``timeout`` deterministically (its
+    first segment checkpoint finds the deadline expired)."""
+
+    def __init__(self, seconds: float, **filters):
+        super().__init__(**filters)
+        self.seconds = float(seconds)
+
+    def on_search(self, index, shard_id) -> None:
+        import time
+
+        self.hits += 1
+        time.sleep(self.seconds)
+
+
+class SearchFailScheme(ShardSearchScheme):
+    """Every matching shard query phase raises: a ``_shards.failures``
+    entry with ``_shards.failed``, never a 500, unless
+    ``allow_partial_search_results`` is false or every shard fails."""
+
+    def __init__(self, exception: Optional[Exception] = None, **filters):
+        super().__init__(**filters)
+        self.exception = exception
+
+    def on_search(self, index, shard_id) -> None:
+        self.hits += 1
+        if self.exception is not None:
+            raise self.exception
+        raise RuntimeError(
+            f"[{index}][{shard_id}] query phase failed (injected)")

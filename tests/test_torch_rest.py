@@ -515,14 +515,20 @@ def test_unported_route_answers_400():
         for method, path in (("POST", "/i/_update/1"),
                              ("GET", "/_nodes/stats"),
                              ("GET", "/_mget"),
-                             ("GET", "/i/_search?track_total_hits=true"),
-                             ("GET", "/i/_explain/1"),
-                             ("GET", "/_search")):
+                             ("GET", "/_field_caps"),
+                             ("GET", "/i/_termvectors/1"),
+                             ("GET", "/_search/template")):
             st, _, b = call(srv.port, method, path, {})
             assert st == 400, (path, b)
             assert b["error"]["type"] == "illegal_argument_exception"
             assert "not supported by the PyTorch port yet" in \
                 b["error"]["reason"], (path, b)
+        # ported since: track_total_hits, _explain and _all search answer
+        for method, path in (("GET", "/i/_search?track_total_hits=true"),
+                             ("GET", "/i/_explain/1"),
+                             ("GET", "/_search")):
+            st, _, b = call(srv.port, method, path, {})
+            assert st == 200, (path, b)
         st, _, b = call(srv.port, "POST", "/_bulk", ndjson([
             {"update": {"_index": "i", "_id": "1"}}, {"doc": {"a": 1}}]),
             "application/x-ndjson")

@@ -193,9 +193,11 @@ def test_unported_requests_raise(nodes):
             "map_script": "1"}}}})
     with pytest.raises(IllegalArgumentException):
         tn.search("idx", {"query": {"match_all": {}},
-                          "docvalue_fields": ["year"]})
+                          "suggest": {"s": {"text": "w1", "term": {
+                              "field": "title"}}}})
     with pytest.raises(IllegalArgumentException):
-        tn.search("idx", {"query": {"match_all": {}}, "profile": True})
+        tn.search("idx", {"query": {"match_all": {}}, "script_fields": {
+            "y": {"script": {"source": "doc['year'].value"}}}})
 
 
 def test_can_match_skips_shards_like_jax():

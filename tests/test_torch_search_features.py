@@ -254,20 +254,38 @@ def test_sliced_scan_partitions(idx):
 
 
 def test_slice_over_the_limit_raises():
+    """A slice count over index.max_slices_per_scroll fails the query phase
+    of every shard: both packages raise "all shards failed" with one
+    failure entry a shard (ROADMAP C14)."""
+    from elasticsearch_tpu.common.errors import (
+        SearchPhaseExecutionException as JSearchPhaseExecution,
+    )
     from elasticsearch_tpu_torch.common.errors import (
-        QueryPhaseExecutionException,
+        SearchPhaseExecutionException,
     )
 
-    t = IndexService("sl", Settings({"index.number_of_shards": 1,
-                                     "index.max_slices_per_scroll": 4}),
-                     device="cpu")
+    common = {"index.number_of_shards": 2, "index.max_slices_per_scroll": 4,
+              "index.search.mesh": False}
+    j = JIndex("sl", JSettings({**common,
+                                "index.requests.cache.enable": False}))
+    t = IndexService("sl", Settings(common), device="cpu")
     try:
-        t.index_doc("a", {"n": 1})
-        t.refresh()
-        with pytest.raises(QueryPhaseExecutionException, match="too large"):
-            t.search({"query": {"match_all": {}},
-                      "slice": {"id": 0, "max": 5}})
+        for svc in (j, t):
+            for d in range(4):
+                svc.index_doc(str(d), {"n": d})
+            svc.refresh()
+        body = {"query": {"match_all": {}}, "slice": {"id": 0, "max": 5}}
+        with pytest.raises(JSearchPhaseExecution) as je:
+            j.search(dict(body))
+        with pytest.raises(SearchPhaseExecutionException,
+                           match="all shards failed") as te:
+            t.search(dict(body))
+        same(je.value.to_dict(), te.value.to_dict(), "error")
+        failed = te.value.to_dict()["error"]["failed_shards"]
+        assert [f["shard"] for f in failed] == [0, 1]
+        assert all("too large" in f["reason"]["reason"] for f in failed)
     finally:
+        j.close()
         t.close()
 
 
