@@ -71,11 +71,12 @@ prints no result, when there is no GPU or any check fails. Phases:
 6. The kernel summary line (with phase 11's ``rest`` entry, phase 12's
    ``aggs`` entry, phase 13's ``durability`` entry, phase 14's
    ``staging`` entry, phase 15's ``query_dsl`` entry, phase 16's
-   ``sort_paging`` entry, phase 17's ``field_types`` entry and phase 18's
-   ``nested`` entry), then the device line.
+   ``sort_paging`` entry, phase 17's ``field_types`` entry, phase 18's
+   ``nested`` entry, phase 19's ``search_request`` entry and phase 20's
+   ``scripting`` entry), then the device line.
 
 Run between phases 2 and 3, and after phase 4 (phase 10 after phase 9,
-then phases 11, 12, 13, 14, 15, 16, 17 and 18):
+then phases 11, 12, 19, 20, 13, 14, 15, 16, 17 and 18):
 
 2b. Kernels 1b (dense, q_batch=16, with and without counts) and 1c (fused
     per-tile top-k, q_batch 1 and 16, k=16) on the 1M-doc corpus, for 16
@@ -357,6 +358,21 @@ then phases 11, 12, 13, 14, 15, 16, 17 and 18):
     form (an exact total, ``eq``, beside the pruned ``gte``). Each item's
     p50, plane and launches; every launch held against plain; the
     summary line's ``search_request`` entry holds the numbers.
+20. Scripting, the update API and mget on the card, right after phase 19
+    (``scripting_phase``), over phase 12's doc-values segments (scr4, a
+    mesh index with slot headroom; agg4x, the host rung; the cpu twin)
+    and phase 3's ingest-20k: 20a the script query (a threshold on
+    ``citations`` under a match and alone, ``.length``, a division by an
+    absent field, a constant), totals equal to numpy counts; 20b
+    ``script_fields`` (an expression with ``_score``, a painless string);
+    20c ``scripted_metric`` with and without a reduce, exactly twice the
+    sum of citations; 20d a painless script query's ms per 1,000 docs;
+    20e 10,000 bulk updates over HTTP at ``async`` durability beside the
+    bulk index rate, 200 single ``_update``s at ``request`` durability, a
+    reopen replaying them, and a 1% update of scr4 whose first answer
+    takes the delta append; 20f ``mget`` of 100 ids over two indices, the
+    gets merged. Each item's p50 and plane; every launch held against
+    plain; the summary line's ``scripting`` entry.
 
 Every answer any phase gets from ``Node.search`` (``msearch`` and REST
 through it), ``IndexService.search`` or ``search_batch`` must show
@@ -4359,7 +4375,8 @@ def search_request_phase(torch, cuda_kernels, tsc, ssum, knn, p12, g7, c7,
 
     Every launch of the main path is held against its plain version;
     every item logs its p50 on the card, its plane and its launches.
-    Closes phase 12's nodes. Returns the report."""
+    Phase 20 runs next over phase 12's nodes and closes them. Returns the
+    report."""
     from elasticsearch_tpu_torch.common.errors import (
         SearchPhaseExecutionException,
     )
@@ -4716,13 +4733,534 @@ def search_request_phase(torch, cuda_kernels, tsc, ssum, knn, p12, g7, c7,
     fails = plane_failures(*(gnode.indices[n] for n in gnode.indices),
                            g7.indices["pmc4"], gP.indices["pmc4p"])
     check(not any(fails), f"phase 19: zero plane faults (got {fails})")
-    for node in (gnode, cnode):
-        node.close()
     report.update(launches=p19, held=held)
     report["seconds"] = time.perf_counter() - t_phase
     log(f"[phase 19] {report['seconds']:.1f} s (main path "
         f"{report['main_s']:.1f}, hold {report['hold_s']:.1f})")
     return report
+
+
+# ----------------------------------------------------------------------
+# Phase 20: scripting, the update API and mget on the card
+# ----------------------------------------------------------------------
+
+# 20a's threshold on citations (a zipf count: about a sixth of the docs
+# are above it)
+SCRIPT_T = 5
+# 20e: the durable index holds the first 10,000 docs of ingest-20k, and
+# every one of them is updated once; 200 single updates at request
+# durability
+UPDATE_DOCS = 10_000
+SINGLE_UPDATES = 200
+# 20e: every 100th doc of each mesh shard is updated (about 1%)
+MESH_UPDATE_EVERY = 100
+
+
+def scripting_phase(torch, cuda_kernels, tsc, ssum, knn, p12, g3, c3, ops,
+                    queries, errs):
+    """Phase 20: scripting, the update API and mget on the card.
+
+    The numeric forms run on phase 12's pmc-4x256k doc-values form
+    (4 x 262,144 docs with ``ts``, ``citations``, 3% missing, and
+    ``venue``): scr4, a new mesh index over phase 12's segments with slot
+    headroom (``max_slots_per_device`` 8) for 20e's append; agg4x, phase
+    12's host-rung twin on the card; and the cpu twin (phase 12's cpu
+    node's agg4).
+
+    20a. The script query: ``doc['citations'].value > params.t`` under a
+         BM25 match and alone, ``doc['citations'].length``, a division
+         by an absent field and a constant script. Hits and totals equal
+         the cpu twin's on both planes; the totals equal a numpy count
+         over the segments' citations columns and live masks. A burst of
+         four (script filters, script fields) equals its serial answers.
+    20b. ``script_fields`` on 10 hits: an expression over citations and
+         ``_score``, a painless script returning venue's string; equal to
+         the cpu twin's.
+    20c. ``scripted_metric`` (``doc['citations'].value * 2``, with and
+         without a reduce script) under a match beside a ``terms`` on
+         venue and a ``sum`` of citations: exactly twice the sum; with no
+         query, twice the numpy sum over the live docs. Served by the host
+         reduce (the fused plane's ``unsupported_agg``).
+    20d. A painless script query on ingest-20k (phase 3's index, 5
+         shards, and its cpu twin): its ms per 1,000 docs; equal to the
+         cpu twin and to a numpy count over the year columns.
+    20e. Over HTTP on a durable node: bulk-index 10,000 docs of
+         ingest-20k at ``async`` durability, flush, then bulk-update all
+         of them (half partial ``doc`` merges, half scripted
+         ``ctx._source.year += params.n``): docs/s of both. 200 single
+         ``_update``s at ``request`` durability (noop, ``ctx.op =
+         'delete'``, ``scripted_upsert``, a version conflict (409), a
+         missing doc (404)). A second node opened over the data path
+         (the first one dropped, not closed) replays the updates from the
+         translog: sources and versions read back. Then on scr4 one bulk
+         request updates every 100th doc's citations (about 1%) and a
+         refresh follows: the first 20a answer takes the delta append, no
+         rebuild, and equals the cpu twin's.
+    20f. ``mget`` of 100 ids across both durable indices, one missing,
+         in process and over HTTP: the gets merged.
+
+    Every answer is sound (``_shards.failed == 0``, ``timed_out``
+    false) and every launch is held against its plain version. Closes
+    phase 12's nodes. Returns the report."""
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.rest.http_server import HttpServer
+
+    t_phase = time.perf_counter()
+    gnode, cnode, gsegs, _csegs, mapping = p12
+    report = {"items": {}}
+    routing = _routing_for_shards(4)
+    gnode.create_index("scr4", {"settings": {
+        "number_of_shards": 4,
+        "search": {"mesh": {"max_slots_per_device": 8}},
+        # no background compaction: a merge re-parses the stored sources,
+        # which hold no title here
+        "staging": {"compact": {"threshold": 0}}}, "mappings": mapping})
+    for sh, seg in enumerate(gsegs):
+        gnode.indices["scr4"].shards[sh].engine.adopt_segment(seg)
+    ms = gnode.indices["scr4"]._mesh_plane()
+
+    def item(name, fn, reps=1):
+        """``fn`` ``reps`` times on the card, synced: its p50, the plane
+        of its answer and the launches of its first run."""
+        before = dict(cuda_kernels.LAUNCHES)
+        xs, out, launched = [], None, {}
+        for i in range(reps):
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            xs.append((time.perf_counter() - t0) * 1000)
+            if i == 0:
+                out = r
+                launched = {k: v - before.get(k, 0) for k, v in
+                            cuda_kernels.LAUNCHES.items()
+                            if v != before.get(k, 0)}
+        plane = out.get("_plane") if isinstance(out, dict) else None
+        row = {"p50_ms": float(np.median(xs)), "samples": len(xs),
+               "plane": plane, "launches": launched}
+        report["items"][name] = row
+        log(f"[phase 20] {name}: " + json.dumps(row))
+        return out
+
+    def numpy_count(pred):
+        """Live docs of phase 12's segments whose citations satisfy
+        ``pred(exists, value)``."""
+        n = 0
+        for seg in gsegs:
+            col = seg.numeric_columns["citations"]
+            nd = seg.num_docs
+            n += int((seg.live[:nd] & pred(col.exists[:nd],
+                                           col.first_value[:nd])).sum())
+        return n
+
+    def sc(source, **params):
+        return {"script": {"script": {"source": source, **(
+            {"params": params} if params else {})}}}
+
+    tok = term_token
+    match = {"match": {"title": " ".join(tok(t) for t in queries[1])}}
+    gt = sc("doc['citations'].value > params.t", t=SCRIPT_T)
+    forms = {
+        "script under match": (
+            {"query": {"bool": {"must": [match], "filter": [gt]}},
+             "size": 10}, None),
+        "script alone": ({"query": gt, "size": 10},
+                         lambda e, v: e & (v > SCRIPT_T)),
+        "length": ({"query": sc("doc['citations'].length > 0"),
+                    "size": 10}, lambda e, v: e),
+        "absent divisor": (
+            {"query": sc("doc['citations'].value / doc['absent'].value > 1"),
+             "size": 10}, lambda e, v: e & (v > 0)),
+        "constant": ({"query": sc("1"), "size": 10},
+                     lambda e, v: np.ones_like(e)),
+    }
+    cuda_kernels.reset_launch_counts()
+    t_main = time.perf_counter()
+    with recording_recovered_path(tsc, ssum, knn) as kept:
+        # ---- 20a: the script query -----------------------------------
+        planes = {}
+        for name, (body, pred) in forms.items():
+            gm = item(f"20a {name} (scr4)",
+                      lambda: gnode.search("scr4", dict(body)), reps=3)
+            gh = item(f"20a {name} (agg4x, host rung)",
+                      lambda: gnode.search("agg4x", dict(body)), reps=3)
+            cr = cnode.search("agg4", dict(body))
+            same_response(gm, cr, f"20a {name} on scr4 ({gm['_plane']})")
+            same_response(gh, cr, f"20a {name} on agg4x")
+            check(gh["_plane"] == "host" and gm["_plane"] != "host",
+                  f"20a {name}: agg4x on the host rung, scr4 on the mesh "
+                  f"({gh['_plane']}, {gm['_plane']})")
+            if pred is not None:
+                want = numpy_count(pred)
+                check(gm["hits"]["total"] == gh["hits"]["total"] == want,
+                      f"20a {name}: the total is the numpy count "
+                      f"({gm['hits']['total']}, {want})")
+            planes[name] = gm["_plane"]
+        report["planes"] = planes
+        report["decisions"] = dict(ms.decisions)
+        # a burst: members with a script filter (served one by one on the
+        # mesh) beside members with script fields (one batched dense
+        # launch a slot, 1b), each equal to its serial answer
+        burst = [{"query": {"bool": {"must": [{"match": {"title": tok(t)}}],
+                                     "filter": [gt]}}, "size": 10}
+                 for t in queries[2][:2]]
+        burst += [{"query": {"match": {"title": tok(t)}}, "size": 10,
+                   "script_fields": {"e": {"script":
+                                           "doc['citations'].value + _score"}}}
+                  for t in queries[3][:2]]
+        serial = [gnode.search("scr4", dict(b)) for b in burst]
+        got = item("20a burst of 4 (scr4)",
+                   lambda: gnode.indices["scr4"].search_batch(
+                       [dict(b) for b in burst]))
+        check(all(isinstance(r, dict) and _same_exact(r, w)
+                  and r["hits"]["hits"] == w["hits"]["hits"]
+                  for r, w in zip(got, serial)),
+              "20a: each burst member equals its serial answer")
+
+        # ---- 20b: script_fields --------------------------------------
+        fbody = {"query": match, "size": 10, "script_fields": {
+            "e": {"script": "doc['citations'].value * 2 + _score"},
+            "v": {"script": {"source": "if (doc['venue'].size() == 0) "
+                                       "{ return null } "
+                                       "return doc['venue'].value"}}}}
+        for index in ("scr4", "agg4x"):
+            gf = item(f"20b script_fields ({index})",
+                      lambda: gnode.search(index, dict(fbody)), reps=3)
+            cf = cnode.search("agg4", dict(fbody))
+            same_response(gf, cf, f"20b script_fields on {index}")
+            ok = len(gf["hits"]["hits"]) == 10
+            for h, c in zip(gf["hits"]["hits"], cf["hits"]["hits"]):
+                e, ce = h["fields"]["e"][0], c["fields"]["e"][0]
+                ok = ok and abs(e - ce) <= RTOL * abs(ce)
+                ok = ok and h["fields"]["v"] == c["fields"]["v"]
+                ok = ok and isinstance(h["fields"]["v"][0], str)
+            check(ok, f"20b: {index}'s script fields equal the cpu twin's")
+
+        # ---- 20c: scripted_metric ------------------------------------
+        twice = "doc['citations'].value * 2"
+        aggs = {"m": {"scripted_metric": {"map_script": twice}},
+                "mr": {"scripted_metric": {"map_script": twice,
+                                           "reduce_script": "params._agg / 2"}},
+                "s": {"sum": {"field": "citations"}},
+                "v": {"terms": {"field": "venue", "size": 10}}}
+        for label, query in (("under a match", match), ("every doc", None)):
+            body = {"size": 0, "aggs": aggs}
+            if query is not None:
+                body["query"] = query
+            by0 = dict(ms.agg_host_fallback_by_reason)
+            gr = item(f"20c scripted_metric {label} (scr4)",
+                      lambda: gnode.search("scr4", dict(body)))
+            by = {k: v - by0.get(k, 0) for k, v in
+                  ms.agg_host_fallback_by_reason.items()
+                  if v != by0.get(k, 0)}
+            hr = gnode.search("agg4x", dict(body))
+            cr = cnode.search("agg4", dict(body))
+            a = gr["aggregations"]
+            check(a == hr["aggregations"] == cr["aggregations"]
+                  and a["m"]["value"] == 2 * a["s"]["value"]
+                  and a["mr"]["value"] == a["s"]["value"]
+                  and by == {"unsupported_agg": 1},
+                  f"20c {label}: twice the sum of citations exactly, equal "
+                  f"on every index ({a['m']['value']}, {a['s']['value']}, "
+                  f"{by})")
+            if query is None:
+                want = 0.0
+                for seg in gsegs:
+                    col = seg.numeric_columns["citations"]
+                    nd = seg.num_docs
+                    keep = seg.live[:nd] & col.exists[:nd]
+                    want += float(col.first_value[:nd][keep].sum())
+                check(a["m"]["value"] == 2 * want,
+                      f"20c: twice the numpy sum over the live docs "
+                      f"({a['m']['value']}, {2 * want})")
+            report[f"scripted_metric_{label.replace(' ', '_')}"] = \
+                a["m"]["value"]
+
+        # ---- 20d: a painless script query on ingest-20k ---------------
+        pbody = {"query": sc(
+            "if (doc['year'].size() == 0) { return false } "
+            "def y = doc['year'].value; "
+            "return y % params.m == 0 || y > params.hi", m=4, hi=2020),
+            "size": 10}
+        gp = item("20d painless script query (docs, ingest-20k)",
+                  lambda: g3.search("docs", dict(pbody)), reps=2)
+        cp = c3.search("docs", dict(pbody))
+        same_response(gp, cp, "20d painless script query")
+        want, n_docs = 0, 0
+        for shard in g3.indices["docs"].shards.values():
+            for seg in shard.engine.segments:
+                nd = seg.num_docs
+                col = seg.numeric_columns["year"]
+                y = col.first_value[:nd]
+                live = seg.live[:nd]
+                n_docs += int(live.sum())
+                want += int((live & col.exists[:nd]
+                             & ((y % 4 == 0) | (y > 2020))).sum())
+        check(gp["hits"]["total"] == want,
+              f"20d: the total is the numpy count ({gp['hits']['total']}, "
+              f"{want})")
+        report["painless_ms_per_1000_docs"] = (
+            report["items"]["20d painless script query (docs, ingest-20k)"]
+            ["p50_ms"] / (n_docs / 1000))
+        log(f"[phase 20d] painless over {n_docs} docs: "
+            f"{report['painless_ms_per_1000_docs']:.3f} ms per 1,000 docs")
+
+        # ---- 20e: updates over HTTP on a durable node ------------------
+        path = tempfile.mkdtemp(prefix="chip_smoke_p20_")
+        try:
+            report["updates"] = _durable_updates(Node, HttpServer, ops,
+                                                 path)
+        finally:
+            shutil.rmtree(path, ignore_errors=True)
+
+        # ---- 20e: a 1% update on the mesh index, then the delta path --
+        alone = forms["script alone"][0]
+        count0 = numpy_count(forms["script alone"][1])
+        bulk, n_old_gt = [], 0
+        for sh, seg in enumerate(gsegs):
+            col = seg.numeric_columns["citations"]
+            local = seg.id_to_doc()
+            for i in range(0, MESH_SHARD_DOCS, MESH_UPDATE_EVERY):
+                d = local[f"s{sh}p{i}"]
+                if not seg.live[d]:
+                    continue  # deleted in phase 12e
+                old = col.first_value[d] if col.exists[d] else 0.0
+                n_old_gt += int(bool(col.exists[d]) and old > SCRIPT_T)
+                bulk.append(("update", {"_index": "scr4", "_id": f"s{sh}p{i}",
+                                        "routing": routing[sh]},
+                             {"doc": {"citations": int(old) + 1000}}))
+        t0 = time.perf_counter()
+        r = gnode.bulk(bulk)
+        bulk_s = time.perf_counter() - t0
+        check(not r["errors"], "20e: the mesh index's bulk update")
+        gnode.refresh("scr4")
+        cbulk = [(a, dict(m, _index="agg4"), s) for a, m, s in bulk]
+        check(not cnode.bulk(cbulk)["errors"], "20e: the cpu twin's update")
+        cnode.refresh("agg4")
+        restage0, delta0 = ms.restage_total, ms.delta_restage_total
+        # the first answer after the refresh: 20a's form under a match
+        # (BM25 scores, so no tie order between the planes decides it)
+        under = forms["script under match"][0]
+        first = item("20e first script query after the 1% update (scr4)",
+                     lambda: gnode.search("scr4", dict(under)))
+        same_response(first, cnode.search("agg4", dict(under)),
+                      "20e the first answer after the update")
+        check(ms.delta_restage_total == delta0 + 1
+              and ms.restage_total == restage0
+              and first["_plane"] != "host",
+              f"20e: the delta append served it on the mesh, no rebuild "
+              f"(delta {delta0} -> {ms.delta_restage_total}, rebuilds "
+              f"{restage0} -> {ms.restage_total}, {first['_plane']})")
+        # the script alone: the updated docs' new values counted (a total
+        # only: every hit ties at the constant score, and the host rung's
+        # order of ties across a shard's two segments is not the mesh's)
+        gu = item("20e script alone after the update (scr4)",
+                  lambda: gnode.search("scr4", dict(alone, size=0)), reps=3)
+        cu = cnode.search("agg4", dict(alone, size=0))
+        check(gu["hits"]["total"] == cu["hits"]["total"]
+              == count0 - n_old_gt + len(bulk),
+              f"20e: the total moved by the updated docs "
+              f"({gu['hits']['total']}, cpu {cu['hits']['total']}, "
+              f"{count0} - {n_old_gt} + {len(bulk)})")
+        report["mesh_update"] = {
+            "docs": len(bulk), "bulk_s": bulk_s,
+            "docs_per_s": len(bulk) / bulk_s,
+            "first_answer_ms": report["items"][
+                "20e first script query after the 1% update (scr4)"]["p50_ms"],
+            "first_answer_plane": first["_plane"],
+            "alone_plane": gu["_plane"]}
+        log(f"[phase 20e] mesh update: {json.dumps(report['mesh_update'])}")
+    torch.cuda.synchronize()
+    report["main_s"] = time.perf_counter() - t_main
+    p20 = {k: v for k, v in cuda_kernels.LAUNCHES.items() if v}
+    log(f"[phase 20] kernel launches: {p20}")
+    t0 = time.perf_counter()
+    held, _here = hold_recovered_path(torch, tsc, ssum, knn, kept, p20,
+                                      errs, "phase 20")
+    del kept
+    report["hold_s"] = time.perf_counter() - t0
+    # (a serial request's mesh_pallas program scores each slot with the
+    # dense form, 1a; the burst's script-field members share 1b)
+    for k in ("tile_scoring", "tile_scoring_batched", "segment_sum"):
+        check(p20.get(k, 0) > 0, f"phase 20 launched {k}")
+    fails = plane_failures(gnode.indices["scr4"], gnode.indices["agg4x"],
+                           g3.indices["docs"])
+    check(not any(fails), f"phase 20: zero plane faults (got {fails})")
+    for node in (gnode, cnode):
+        node.close()
+    report.update(launches=p20, held=held)
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[phase 20] {report['seconds']:.1f} s (main path "
+        f"{report['main_s']:.1f}, hold {report['hold_s']:.1f})")
+    return report
+
+
+def _durable_updates(Node, HttpServer, ops, path):
+    """Phase 20e's HTTP half on a durable node at ``path``; 20f's mget
+    on the node reopened over it. Returns the report entry."""
+    out = {}
+    node = Node(data_path=path, device="cuda")
+    srv = HttpServer(node, port=0)
+    srv.start()
+    client = HttpClient(srv.port)
+    mapping = {"_doc": {"properties": {
+        "title": {"type": "text"}, "venue": {"type": "keyword"},
+        "year": {"type": "long"}}}}
+    try:
+        st, _ = client.call("PUT", "/upd", {"settings": {
+            "number_of_shards": 5, "translog": {"durability": "async"}},
+            "mappings": mapping})
+        st2, _ = client.call("PUT", "/updr", {"settings": {
+            "number_of_shards": 5}, "mappings": mapping})
+        check(st == st2 == 200, "20e: the durable indices created")
+        docs = ops[:UPDATE_DOCS]
+
+        def ndjson(lines):
+            return ("\n".join(json.dumps(x) for x in lines) + "\n").encode()
+
+        def bulk(lines, what):
+            st, r = client.call("POST", "/_bulk", ndjson(lines),
+                                "application/x-ndjson")
+            check(st == 200 and not r["errors"], f"20e: {what}")
+            return r
+
+        t0 = time.perf_counter()
+        for b in range(0, len(docs), 2000):
+            lines = []
+            for _a, meta, src in docs[b: b + 2000]:
+                lines += [{"index": {"_index": "upd", "_id": meta["_id"]}},
+                          src]
+            bulk(lines, "bulk index")
+        out["bulk_index_docs_per_s"] = len(docs) / (time.perf_counter() - t0)
+        client.call("POST", "/upd/_flush")
+        t0 = time.perf_counter()
+        for b in range(0, len(docs), 2000):
+            lines = []
+            for i in range(b, min(b + 2000, len(docs))):
+                lines.append({"update": {"_index": "upd", "_id": f"d{i}"}})
+                lines.append({"doc": {"venue": f"u{i % 7}"}} if i % 2 == 0
+                             else {"script": {
+                                 "source": "ctx._source.year += params.n",
+                                 "params": {"n": 3}}})
+            r = bulk(lines, "bulk update")
+            check(all(it["update"]["result"] == "updated"
+                      for it in r["items"]), "20e: every update applied")
+        out["bulk_update_docs_per_s"] = (len(docs)
+                                         / (time.perf_counter() - t0))
+        client.call("POST", "/upd/_refresh")
+        st, c = client.call("POST", "/upd/_count",
+                            {"query": {"term": {"venue": "u3"}}})
+        check(c["count"] == sum(1 for i in range(0, len(docs), 2)
+                                if i % 7 == 3),
+              f"20e: the merged venues count ({c['count']})")
+        st, g = client.call("GET", "/upd/_doc/d1")
+        check(g["_version"] == 2
+              and g["_source"]["year"] == docs[1][2]["year"] + 3,
+              f"20e: a scripted update read back ({g})")
+        log(f"[phase 20e] bulk index {out['bulk_index_docs_per_s']:.0f} "
+            f"docs/s, bulk update {out['bulk_update_docs_per_s']:.0f} "
+            f"docs/s ({len(docs):,} docs over HTTP, async durability)")
+
+        # 200 single updates at request durability
+        lines = []
+        for _a, meta, src in ops[:SINGLE_UPDATES]:
+            lines += [{"index": {"_index": "updr", "_id": meta["_id"]}}, src]
+        bulk(lines, "bulk index at request durability")
+        want = {"noop": (200, "noop"), "delete": (200, "deleted"),
+                "upsert": (200, "created"), "conflict": (409, None),
+                "missing": (404, None)}
+        got, lat = {k: 0 for k in want}, []
+        for i in range(SINGLE_UPDATES):
+            kind = ("noop", "delete", "upsert", "conflict",
+                    "missing")[i * 5 // SINGLE_UPDATES]
+            year = ops[i][2]["year"]
+            path_, body = {
+                "noop": (f"/updr/_update/d{i}", {"doc": {"year": year}}),
+                "delete": (f"/updr/_update/d{i}",
+                           {"script": "ctx.op = 'delete'"}),
+                "upsert": (f"/updr/_update/new{i}", {
+                    "scripted_upsert": True, "upsert": {"year": 0},
+                    "script": {"source": "ctx._source.year += params.n",
+                               "params": {"n": i}}}),
+                "conflict": (f"/updr/_update/d{i}?version=99",
+                             {"doc": {"year": 1}}),
+                "missing": (f"/updr/_update/missing{i}",
+                            {"doc": {"year": 1}}),
+            }[kind]
+            t0 = time.perf_counter()
+            st, r = client.call("POST", path_, body)
+            lat.append((time.perf_counter() - t0) * 1000)
+            status, result = want[kind]
+            got[kind] += int(st == status and (
+                result is None or r.get("result") == result))
+        check(all(v == SINGLE_UPDATES // 5 for v in got.values()),
+              f"20e: every single update answered as its kind ({got})")
+        out["single_update_p50_ms"] = float(np.median(lat))
+        log(f"[phase 20e] {SINGLE_UPDATES} single _updates at request "
+            f"durability: p50 {out['single_update_p50_ms']:.3f} ms, "
+            f"answers {json.dumps(got)}")
+        sample = ([("upd", f"d{i}") for i in range(0, len(docs), 50)]
+                  + [("updr", f"d{i}") for i in range(
+                      0, 2 * SINGLE_UPDATES // 5)]
+                  + [("updr", f"new{i}") for i in range(
+                      2 * SINGLE_UPDATES // 5, 3 * SINGLE_UPDATES // 5)])
+        before = {k: node.get_doc(*k) for k in sample}
+        # the async translog's next sync (the port has no sync interval
+        # yet: an async op reaches the file at a sync, a flush or a close)
+        for shard in node.indices["upd"].shards.values():
+            shard.engine.translog.sync()
+    finally:
+        client.close()
+        srv.stop()
+    # the node is dropped without a close: a second one replays the
+    # translogs (upd since its flush; updr whole)
+    t0 = time.perf_counter()
+    node2 = Node(data_path=path, device="cuda")
+    out["reopen_s"] = time.perf_counter() - t0
+    try:
+        replayed = {n: sum(node2.indices[n].recovered_ops.values())
+                    for n in ("upd", "updr")}
+        out["replayed_ops"] = replayed
+        check(replayed == {"upd": len(docs),
+                           "updr": SINGLE_UPDATES + 2 * SINGLE_UPDATES // 5},
+              f"20e: the reopen replayed the updates ({replayed})")
+        after = {k: node2.get_doc(*k) for k in sample}
+        check(after == before,
+              f"20e: {len(sample)} updated sources and versions read back "
+              f"after the reopen")
+        # ---- 20f: mget across both indices ---------------------------
+        ids = ([{"_index": "upd", "_id": f"d{i}"}
+                for i in range(0, len(docs), max(len(docs) // 49, 1))][:49]
+               + [{"_index": "upd", "_id": "nope"}]
+               + [{"_index": "updr", "_id": f"d{i}"} for i in range(25)]
+               + [{"_index": "updr", "_id": f"new{i}"}
+                  for i in range(2 * SINGLE_UPDATES // 5,
+                                 2 * SINGLE_UPDATES // 5 + 25)])
+        t0 = time.perf_counter()
+        m = node2.mget({"docs": ids})
+        out["mget_ms"] = (time.perf_counter() - t0) * 1000
+        merged = [node2.get_doc(d["_index"], d["_id"]) for d in ids]
+        srv2 = HttpServer(node2, port=0)
+        srv2.start()
+        c2 = HttpClient(srv2.port)
+        try:
+            st, mh = c2.call("POST", "/_mget", {"docs": ids})
+        finally:
+            c2.close()
+            srv2.stop()
+        missing = sum(not d["found"] for d in m["docs"])
+        check(len(ids) == 100 and m["docs"] == merged and missing == 1
+              and st == 200 and mh == _as_json(m),
+              f"20f: mget of 100 ids over both indices is the gets merged, "
+              f"in process and over HTTP ({len(ids)} ids, {missing} "
+              f"missing, merged {m['docs'] == merged}, HTTP {st} "
+              f"{mh == _as_json(m)})")
+        log(f"[phase 20f] mget of {len(ids)} ids: {out['mget_ms']:.3f} ms "
+            f"in process; reopen {out['reopen_s']:.2f} s, replayed "
+            f"{json.dumps(replayed)}")
+    finally:
+        node2.close()
+        node.close()
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -8189,9 +8727,10 @@ def nested_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, knn,
     same questions segment as ``question`` parents beside a segment a
     shard of the answers as ``answer`` child docs routed by their
     question's qid (about 2.8M docs). Every request runs twice on the
-    mesh index (its p50's samples) and once on the host twin, each held
-    against the same request on a cpu node's host-rung twin over the
-    same host arrays:
+    mesh index (its p50's samples) and once on the host twin, the mesh
+    index's answers held against the host twin's (the twin runs first;
+    no cpu node copies the corpus: the host rung's 1a and kernel-2
+    launches are held against their plain versions as every launch is):
 
     18a. Rally's randomized nested queries (``term`` answers.user and
          ``range`` answers.date in one object) alone and under a match,
@@ -8212,7 +8751,7 @@ def nested_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, knn,
          shard answer the host rung's answer on both indices. The join's
          own host ms apart from its inner query's.
     18e. 1% of the questions deleted (a nested count drops by exactly
-         their objects; it and the nested queries alone equal the cpu
+         their objects; it and the nested queries alone equal the host
          twin's), 4 x 4,096 questions appended (a delta append), 18a's
          nested clauses again; after ``DELETE`` ``memory_allocated`` and
          the ledger back to their levels with the sub-segments' scopes
@@ -8251,9 +8790,8 @@ def nested_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, knn,
 
     mem0 = level()
     gnode = Node(Settings.EMPTY, device=device)
-    cnode = Node(Settings.EMPTY, device="cpu")
     names = {"sonested": SO_NESTED_MAPPING, "sojoin": SO_JOIN_MAPPING}
-    for node, twins in ((gnode, ("", "h")), (cnode, ("h",))):
+    for node, twins in ((gnode, ("", "h")),):
         for base, mapping in names.items():
             for suffix in twins:
                 # the mesh twin: slot headroom for 18e's append, and no
@@ -8274,7 +8812,7 @@ def nested_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, knn,
         split[key] += time.perf_counter() - t1
         return out
 
-    cols, gsegs, csegs, gjoin, cjoin = [], [], [], [], []
+    cols, gsegs, gjoin = [], [], []
     # millions of long-lived objects (version-map entries, lists): no
     # cycle collection while they are made
     gc.disable()
@@ -8286,8 +8824,7 @@ def nested_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, knn,
             nested = clocked("nested_arrays", so_nested_arrays, arrays, c)
             answers = clocked("join_arrays", so_answer_arrays, c, sh)
             for node, dev, segs, jsegs, twins in (
-                    (gnode, device, gsegs, gjoin, ("", "h")),
-                    (cnode, "cpu", csegs, cjoin, ("h",))):
+                    (gnode, device, gsegs, gjoin, ("", "h")),):
                 seg = clocked("segments", Segment.from_arrays,
                               f"sonested_{sh}_seg_1", device=dev, **nested)
                 jseg = clocked("segments", Segment.from_arrays,
@@ -8319,7 +8856,7 @@ def nested_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, knn,
     # sub-segment under its own ledger scope)
     t0 = time.perf_counter()
     stage_split = {}
-    for label, segs in (("card", gsegs + gjoin), ("cpu", csegs + cjoin)):
+    for label, segs in (("card", gsegs + gjoin),):
         t1 = time.perf_counter()
         for seg in segs:
             seg.device_arrays()
@@ -8357,18 +8894,23 @@ def nested_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, knn,
             "filter": [{"range": {"answers.date": {"gte": d0}}}]}}}}
 
     samples, planes, decisions, forms = {}, {}, {}, {}
-    cpu_cache = {}
+    ref_cache = {}
     ms_nested = gnode.indices["sonested"]._mesh_plane()
     ms_join = gnode.indices["sojoin"]._mesh_plane()
 
-    def cpu_answer(index, body):
-        key = (index, json.dumps(body, sort_keys=True))
-        if key not in cpu_cache:
-            cpu_cache[key] = cnode.search(index + "h", dict(body))
-            check(cpu_cache[key]["_plane"] == "host",
-                  f"phase 18: the cpu twin answers on its host rung "
-                  f"({cpu_cache[key]['_plane']})")
-        return cpu_cache[key]
+    def ref_key(index, body):
+        return (index, json.dumps(body, sort_keys=True))
+
+    def host_answer(index, body):
+        """The reference: the card's host-rung twin's answer (the twin's
+        timed one where ``both`` ran it)."""
+        key = ref_key(index, body)
+        if key not in ref_cache:
+            ref_cache[key] = gnode.search(index + "h", dict(body))
+            check(ref_cache[key]["_plane"] == "host",
+                  f"phase 18: the host twin answers on its host rung "
+                  f"({ref_cache[key]['_plane']})")
+        return ref_cache[key]
 
     def timed(index, body, kind):
         """One request on the card node, timed; the first of a kind and
@@ -8399,15 +8941,17 @@ def nested_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, knn,
         return r
 
     def both(base, body, kind, sorted_=False, reps=SO_REPS, twin=True):
-        """The request ``reps`` times on the mesh index (the p50's samples)
-        and once on the host twin (``twin``), every answer held against
-        the cpu twin's."""
+        """Once on the host twin (``twin``: the reference), then ``reps``
+        times on the mesh index (the p50's samples), held against the host
+        twin's answer."""
         out = {}
-        for index in (base, base + "h") if twin else (base,):
+        for index in (base + "h", base) if twin else (base,):
             gr = timed(index, body, kind)
             for _ in range(reps - 1 if index == base else 0):
                 timed(index, body, kind)
-            cr = cpu_answer(base, body)
+            if index != base:
+                ref_cache[ref_key(base, body)] = gr
+            cr = host_answer(base, body)
             what = f"phase 18 {kind} on {index}"
             if sorted_:
                 same_sorted(dict(gr, _plane="host"), cr, what)
@@ -8588,7 +9132,7 @@ def nested_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, knn,
             for kind in [k for k in bodies if bodies[k][0] == "sojoin"]:
                 out = both("sojoin", bodies[kind][1], kind)
                 if kind.startswith("c13"):
-                    want = cpu_answer("sojoin", bodies[kind][1])
+                    want = host_answer("sojoin", bodies[kind][1])
                     check(want["hits"]["total"] > 0 and all(
                         r["hits"]["total"] == want["hits"]["total"]
                         for r in out.values()),
@@ -8596,7 +9140,7 @@ def nested_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, knn,
                         f"rung's answer ({want['hits']['total']} hits; "
                         f"planes {[r['_plane'] for r in out.values()]})")
             report["c13"] = {k: {"planes": [planes[(k, i)] for i in (
-                "sojoin", "sojoinh")], "total": cpu_answer(
+                "sojoin", "sojoinh")], "total": host_answer(
                 "sojoin", bodies[k][1])["hits"]["total"]}
                 for k in ("c13_has_child", "c13_has_parent")}
             log(f"[phase 18d] C13 (matches only outside shard 0): "
@@ -8615,16 +9159,13 @@ def nested_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, knn,
                 for i in range(0, c["n"], 100):
                     dropped += int(c["k"][i])
                     n_deleted += 1
-                    for node, index in ((gnode, "sonested"),
-                                        (gnode, "sonestedh"),
-                                        (cnode, "sonestedh")):
-                        node.delete_doc(index, c["ids"][i],
-                                        routing=routing[sh])
+                    for index in ("sonested", "sonestedh"):
+                        gnode.delete_doc(index, c["ids"][i],
+                                         routing=routing[sh])
             tomb0 = ms_nested.tombstone_update_total
-            for node, index in ((gnode, "sonested"), (gnode, "sonestedh"),
-                                (cnode, "sonestedh")):
-                node.refresh(index)
-            cpu_cache.clear()
+            for index in ("sonested", "sonestedh"):
+                gnode.refresh(index)
+            ref_cache.clear()
             for i in ("sonested", "sonestedh"):
                 after_n = gnode.search(i, dict(count_body))["aggregations"][
                     "a"]["doc_count"]
@@ -8648,15 +9189,13 @@ def nested_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, knn,
                 c = so_columns(sh, SO_APPEND, arrays["doc_ids"],
                                seed=SO_SEEDS[sh] + 200)
                 nested = so_nested_arrays(arrays, c)
-                for node, dev, twins in ((gnode, device, ("", "h")),
-                                         (cnode, "cpu", ("h",))):
-                    seg = Segment.from_arrays(f"sonested_{sh}_seg_2",
-                                              device=dev, **nested)
-                    for suffix in twins:
-                        node.indices["sonested" + suffix].shards[sh] \
-                            .engine.adopt_segment(seg)
+                seg = Segment.from_arrays(f"sonested_{sh}_seg_2",
+                                          device=device, **nested)
+                for suffix in ("", "h"):
+                    gnode.indices["sonested" + suffix].shards[sh] \
+                        .engine.adopt_segment(seg)
                 appended.append(len(c["parent_of"]))
-            cpu_cache.clear()
+            ref_cache.clear()
             for kind in a_kinds:
                 if "under_match" not in kind:
                     both("sonested", bodies[kind][1], kind + "_after_append",
@@ -8729,11 +9268,10 @@ def nested_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, knn,
          if v != dec0.get(k, 0)}))
     # DELETE: the card's memory and the ledger come back, the answers
     # sub-segments' scopes with them
-    for node in (gnode, cnode):
-        for name in list(node.indices):
-            node.delete_index(name)
-        node.close()
-    del gsegs, csegs, gjoin, cjoin, gnode, cnode, ms_nested, ms_join
+    for name in list(gnode.indices):
+        gnode.delete_index(name)
+    gnode.close()
+    del gsegs, gjoin, gnode, ms_nested, ms_join
     gc.unfreeze()
     mem1 = level()
     left = [k for k in acct._entries if k[0] in (
@@ -9304,9 +9842,19 @@ def main() -> int:
     request_report = search_request_phase(
         torch, cuda_kernels, tsc, ssum, knn, p12_nodes, g7, c7, gP, cP,
         knn_bodies[0][1], queries, batch_errs)
-    del p12_nodes
     seg_held["phase 19"] = request_report["held"].get("segment_sum", 0)
     for k, v in request_report["launches"].items():
+        launches[k] += v
+
+    # ---------------- phase 20: scripting, update and mget ----------------
+    # (over phase 12's and phase 3's indices; closes phase 12's nodes)
+    clock("phase 20")
+    script_report = scripting_phase(
+        torch, cuda_kernels, tsc, ssum, knn, p12_nodes, gnode, cnode, ops,
+        queries, batch_errs)
+    del p12_nodes
+    seg_held["phase 20"] = script_report["held"].get("segment_sum", 0)
+    for k, v in script_report["launches"].items():
         launches[k] += v
 
     # ---------------- phase 13: durability on the card -------------------
@@ -9472,7 +10020,7 @@ def main() -> int:
         "durability": durability_report, "staging": staging_report,
         "query_dsl": qdsl_report, "sort_paging": sort_report,
         "field_types": geo_report, "nested": nested_report,
-        "search_request": request_report,
+        "search_request": request_report, "scripting": script_report,
         "sound_answers_checked": SOUND["checked"]}
     for name, key, replaces, extra in (
             ("tile_scoring_packed", "tile_scoring_packed", 656,

@@ -57,10 +57,25 @@ class IndexAlreadyExistsException(ElasticsearchTpuException):
         super().__init__(f"index [{index}] already exists", index=index)
 
 
+class DocumentMissingException(ElasticsearchTpuException):
+    """An update of a document that does not exist and has no upsert
+    (404)."""
+
+    status_code = 404
+
+    def __init__(self, index: str, doc_id: str):
+        super().__init__(f"[{index}]: document missing [{doc_id}]", index=index)
+
+
 class ParsingException(ElasticsearchTpuException):
     """Malformed query DSL / request body (ES: ParsingException, 400)."""
 
     status_code = 400
+
+
+class ScriptException(ParsingException):
+    """A script failed to compile or run (``script/painless.py``): a 400,
+    as the reference's script_exception."""
 
 
 class QueryShardException(ElasticsearchTpuException):

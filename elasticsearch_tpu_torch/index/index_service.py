@@ -82,6 +82,11 @@ A legacy ``_parent`` value (``index_doc(..., parent=)``) rides with the
 doc into the translog and the segment; ``parents`` maps each doc id to it
 for ``stored_fields=_parent`` and is rebuilt from the shards at open.
 
+``update_doc`` is the update API (a partial ``doc`` merge, upserts, a
+painless script over a deep copy of ``ctx._source`` with ``ctx.op``, the
+internal version check); it writes through ``index_doc`` or
+``delete_doc``.
+
 Compaction (``index.staging.compact.threshold``): after a delta commit the
 mesh plane calls ``maybe_compact_async``, which starts one background
 ``compact_now`` pass (single flight, never on the query path) when a
@@ -93,6 +98,7 @@ scrubbing and the telemetry registry are later slices.
 
 from __future__ import annotations
 
+import copy
 import os
 import threading
 import time
@@ -102,10 +108,12 @@ from elasticsearch_tpu_torch.analysis.analyzers import AnalysisRegistry
 from elasticsearch_tpu_torch.common.device import resolve_device
 from elasticsearch_tpu_torch.common.memory import memory_accountant
 from elasticsearch_tpu_torch.common.errors import (
+    DocumentMissingException,
     ElasticsearchTpuException,
     IllegalArgumentException,
     SearchPhaseExecutionException,
     TaskCancelledException,
+    VersionConflictEngineException,
 )
 from elasticsearch_tpu_torch.common.settings import (
     INDEX_MAPPING_DENSE_VECTOR_MAX_DIMS,
@@ -134,6 +142,8 @@ from elasticsearch_tpu_torch.index.similarity import SimilarityService
 from elasticsearch_tpu_torch.index.store import CorruptIndexException
 from elasticsearch_tpu_torch.mapper.field_types import join_field_of
 from elasticsearch_tpu_torch.mapper.mapping import MapperService
+from elasticsearch_tpu_torch.script.expression import compile_script
+from elasticsearch_tpu_torch.script.painless import execute_update_script
 from elasticsearch_tpu_torch.search.aggregations import parse_aggs, run_aggregations
 from elasticsearch_tpu_torch.search.batching import (
     BatchStats,
@@ -313,6 +323,67 @@ class IndexService:
 
     def delete_doc(self, doc_id: str, routing: Optional[str] = None, **kw) -> dict:
         return self.shards[self._route(doc_id, routing)].delete_doc(doc_id, **kw)
+
+    def update_doc(self, doc_id: str, body: dict, routing: Optional[str] = None,
+                   version: Optional[int] = None) -> dict:
+        """The update API (action/update/TransportUpdateAction): a partial
+        ``doc`` merge (``detect_noop``), ``upsert``, ``doc_as_upsert``
+        and ``scripted_upsert``; a scripted update runs painless over
+        ``ctx._source`` with ``ctx.op`` (``none`` / ``noop`` / ``delete``).
+        ``version``: the internal optimistic-concurrency check against
+        the doc's current version. Every write goes through ``index_doc``
+        or ``delete_doc``, so an update takes the join routing check, the
+        translog and the staging an index op takes."""
+        shard = self.shards[self._route(doc_id, routing)]
+        existing = shard.get_doc(doc_id)
+        if version is not None and existing.found \
+                and existing.version != version:
+            raise VersionConflictEngineException(
+                doc_id, existing.version, version)
+        if not existing.found:
+            if body.get("doc_as_upsert") and "doc" in body:
+                return self.index_doc(doc_id, body["doc"], routing)
+            if "upsert" in body:
+                if "script" in body and body.get("scripted_upsert"):
+                    return self._scripted_update(
+                        doc_id, body, dict(body["upsert"]), routing,
+                        version=0)
+                return self.index_doc(doc_id, body["upsert"], routing)
+            raise DocumentMissingException(self.name, doc_id)
+        if "script" in body:
+            # a deep copy: the engine hands out the stored source itself,
+            # and a script that mutates a nested object and then sets
+            # ctx.op = 'none' must leave the stored doc untouched
+            return self._scripted_update(
+                doc_id, body, copy.deepcopy(existing.source), routing,
+                version=existing.version)
+        if "doc" in body:
+            merged = _deep_merge(dict(existing.source), body["doc"])
+            if merged == existing.source and body.get("detect_noop", True):
+                return {"_index": self.name, "_id": doc_id,
+                        "_version": existing.version, "result": "noop"}
+            return self.index_doc(doc_id, merged, routing)
+        raise DocumentMissingException(self.name, doc_id)
+
+    def _scripted_update(self, doc_id: str, body: dict, source: dict,
+                         routing: Optional[str], version: int) -> dict:
+        spec = body["script"]
+        script = compile_script(spec)
+        if not hasattr(script, "run"):
+            raise IllegalArgumentException(
+                "update scripts must be painless (the numeric expression "
+                "engine has no ctx mutation surface)")
+        params = (spec.get("params") if isinstance(spec, dict) else None) or {}
+        new_source, op = execute_update_script(
+            script, source, params,
+            doc_meta={"_index": self.name, "_id": doc_id,
+                      "_version": version})
+        if op == "none":
+            return {"_index": self.name, "_id": doc_id,
+                    "_version": version, "result": "noop"}
+        if op == "delete":
+            return self.delete_doc(doc_id, routing=routing)
+        return self.index_doc(doc_id, new_source, routing)
 
     def refresh(self) -> None:
         for shard in self.shards.values():
@@ -1188,6 +1259,15 @@ class IndexService:
         }
         return {"planes": planes, "batch": self.batch_stats.as_dict(),
                 "memory": memory_accountant().stats(self.name)}
+
+
+def _deep_merge(base: dict, patch: dict) -> dict:
+    for key, value in patch.items():
+        if isinstance(value, dict) and isinstance(base.get(key), dict):
+            base[key] = _deep_merge(dict(base[key]), value)
+        else:
+            base[key] = value
+    return base
 
 
 def _is_request_error(exc: Exception) -> bool:

@@ -1,8 +1,9 @@
 """Node: the in-process server API.
 
 Counterpart of ``elasticsearch_tpu/node.py``, cut to this slice's entry
-points: ``create_index``, ``delete_index``, ``index_doc``, ``bulk``,
-``refresh``, ``get_doc``, ``delete_doc``, ``search`` (one index through
+points: ``create_index``, ``delete_index``, ``index_doc``, ``bulk``
+(index, create, update and delete lines), ``refresh``, ``get_doc``,
+``mget``, ``delete_doc``, ``update_doc``, ``search`` (one index through
 the index's micro-batcher and mesh plane; names, wildcards, comma lists
 and ``_all`` through ``resolve_search_indices``; ``search.batch.*``,
 ``search.knn.*``, ``search.pallas.*`` and ``search.aggs.*`` node settings
@@ -464,8 +465,12 @@ class Node:
             out["_version"] = g.version
             out["_seq_no"] = g.seqno
             out["_source"] = g.source
+            # the stored routing (a parent-only write stores the parent as
+            # routing), else the request's
             if g.routing is not None:
                 out["_routing"] = g.routing
+            elif routing is not None:
+                out["_routing"] = routing
         return out
 
     def delete_doc(self, index: str, doc_id: str, routing=None, refresh=None,
@@ -474,6 +479,114 @@ class Node:
         r = svc.delete_doc(doc_id, routing, **kw)
         self._maybe_refresh(svc, refresh, doc_id, routing)
         return r
+
+    def update_doc(self, index: str, doc_id: str, body: dict, routing=None,
+                   refresh=None, version=None) -> dict:
+        """The update API (``IndexService.update_doc``); an upsert
+        creates a missing index as every other write does."""
+        auto = "upsert" in (body or {}) or (body or {}).get("doc_as_upsert")
+        svc = self.index_service(index, auto_create=bool(auto))
+        r = svc.update_doc(doc_id, body, routing, version=version)
+        self._maybe_refresh(svc, refresh, doc_id, routing)
+        self._maybe_update_mapping_meta(svc)
+        return r
+
+    def mget(self, body: dict, default_index: Optional[str] = None,
+             default_type: Optional[str] = None, realtime: bool = True,
+             refresh=None, stored_fields=None) -> dict:
+        """Multi-get: ``docs`` (each with its ``_index``, ``_type``,
+        ``routing`` or legacy ``parent``, ``stored_fields`` and
+        ``_source``) or ``ids`` against the default index. A bad item
+        fails the whole request (MultiGetRequest.validate); a missing
+        index is that item's error."""
+        specs = body.get("docs")
+        if specs is None and "ids" in body:
+            specs = [{"_id": i} for i in body["ids"]]
+        problems = []
+        if not specs:
+            problems.append("no documents to get")
+        for spec in specs or []:
+            if "_id" not in spec:
+                problems.append("id is missing")
+            if spec.get("_index", default_index) is None:
+                problems.append("index is missing")
+        if problems:
+            raise ActionRequestValidationException(
+                "Validation Failed: " + " ".join(
+                    f"{i + 1}: {p};" for i, p in enumerate(problems)))
+        docs = []
+        for spec in specs:
+            index = spec.get("_index", default_index)
+            try:
+                docs.append(self._mget_item(spec, index, default_type,
+                                            realtime, refresh,
+                                            stored_fields))
+            except IndexNotFoundException:
+                docs.append({
+                    "_index": index, "_id": str(spec["_id"]),
+                    "_type": spec.get("_type", default_type) or "_doc",
+                    "error": {"type": "index_not_found_exception",
+                              "reason": f"no such index [{index}]"},
+                })
+        return {"docs": docs}
+
+    def _mget_item(self, spec: dict, index: str, default_type, realtime,
+                   refresh, stored_fields) -> dict:
+        from elasticsearch_tpu_torch.search.service import (
+            _parse_source_spec,
+            filter_source,
+        )
+
+        routing = spec.get("routing", spec.get("_routing"))
+        if routing is None:
+            # the legacy _parent: the parent id routes the doc
+            routing = spec.get("parent", spec.get("_parent"))
+        if routing is not None:
+            routing = str(routing)
+        d = self.get_doc(index, str(spec["_id"]), routing,
+                         realtime=realtime, refresh=refresh)
+        svc = self.indices.get(index)
+        stored = (spec.get("stored_fields") or spec.get("fields")
+                  or stored_fields)
+        if isinstance(stored, str):
+            # a single field name or a comma list
+            stored = [f for f in stored.split(",") if f]
+        if d.get("found") and stored and svc is not None:
+            if "_parent" in stored:
+                p = svc.parents.get(str(spec["_id"]))
+                if p is not None:
+                    d["_parent"] = p
+            src = d.get("_source") or {}
+            fields = {}
+            for f in stored:
+                if f in ("_source", "_parent", "_routing"):
+                    continue
+                ft = svc.mapper_service.field_type(f)
+                if (ft is None or not ft.params.get("store", False)
+                        or f not in src):
+                    continue
+                v = src[f]
+                fields[f] = v if isinstance(v, list) else [v]
+            if fields:
+                d["fields"] = fields
+            if "_source" not in stored:
+                d.pop("_source", None)
+        if d.get("found") and "_source" in spec:
+            # per-doc source filtering (FetchSourceContext)
+            inc, exc, enabled = _parse_source_spec(spec["_source"])
+            if not enabled:
+                d.pop("_source", None)
+            elif "_source" in d:
+                d["_source"] = filter_source(d["_source"], inc, exc)
+        want_type = spec.get("_type", default_type)
+        d["_type"] = want_type or "_doc"
+        if want_type not in (None, "_all", "_doc"):
+            # a typed request matches only the index's own type
+            actual = getattr(svc, "doc_type", "_doc") or "_doc"
+            if want_type != actual:
+                d = {"_index": index, "_type": want_type,
+                     "_id": str(spec["_id"]), "found": False}
+        return d
 
     def bulk(self, operations: List[tuple], refresh=None) -> dict:
         """operations: list of (action, meta, source_or_None)."""
@@ -500,25 +613,34 @@ class Node:
                     r = self.index_doc(index, doc_id, source, routing,
                                        op_type="create", parent=parent)
                     status = 201
+                elif action == "update":
+                    r = self.update_doc(index, doc_id, source, routing)
+                    status = 200
+                    if parent is not None and r.get("_id"):
+                        # the legacy _parent of an update line, as the
+                        # index and create lines record theirs
+                        self.indices[index].parents[str(r["_id"])] = parent
                 elif action == "delete":
                     r = self.delete_doc(index, doc_id, routing)
                     status = 200 if r.get("found") else 404
-                elif action == "update":
-                    raise IllegalArgumentException(
-                        "bulk [update] is not supported by the PyTorch port "
-                        "yet")
                 else:
                     raise ActionRequestValidationException(
                         f"Malformed action/metadata line, expected one of "
-                        f"[create, delete, index] but found [{action}]")
+                        f"[create, delete, index, update] but found "
+                        f"[{action}]")
                 touched.add(r.get("_index", index))
                 item = {action: {**{k: v for k, v in r.items() if k != "found"},
                                  "status": status}}
-            except ElasticsearchTpuException as e:  # per-item failure
+            except Exception as e:  # noqa: BLE001 — a per-item failure
                 errors = True
+                if isinstance(e, ElasticsearchTpuException):
+                    err, status = e.to_dict()["error"], e.status_code
+                else:
+                    # a script's own fault (the JAX package's shape)
+                    err = {"type": type(e).__name__, "reason": str(e)}
+                    status = 500
                 item = {action: {"_index": index, "_id": doc_id,
-                                 "status": e.status_code,
-                                 "error": e.to_dict()["error"]}}
+                                 "status": status, "error": err}}
             items.append(item)
         if refresh in (True, "true", ""):
             for name in touched:

@@ -10,7 +10,11 @@ document CRUD (index, create, auto-id, get, head, ``_source``, delete;
 ``version``, ``op_type``, ``routing``, the legacy ``parent`` (the routing
 of a ``_parent``-mapped index, required there), ``refresh``, ``_source``
 filtering, GET's ``stored_fields`` (``_parent`` too), the typed-path
-deprecation warning), ``_bulk`` (index, create, delete; ``parent``),
+deprecation warning), ``_update`` (``version`` with the internal
+``version_type`` only, ``routing`` and ``parent``, ``refresh``, the
+``get`` section for ``_source`` and ``fields``), ``_mget`` (``realtime``,
+``refresh``, ``stored_fields``), ``_bulk`` (index, create, update,
+delete; ``parent``),
 ``_search`` with the URI parameters (``?scroll=`` opens a point-in-time
 scroll; ``timeout``, ``allow_partial_search_results`` and
 ``track_total_hits`` go into the body) over an index expression (names,
@@ -65,14 +69,14 @@ def register_all(c) -> None:
     r("GET", "/{index}/_doc/{id}", _get_doc)
     r("HEAD", "/{index}/_doc/{id}", _head_doc)
     r("DELETE", "/{index}/_doc/{id}", _delete_doc)
-    r("POST", "/{index}/_update/{id}", _unported)
+    r("POST", "/{index}/_update/{id}", _update_doc)
     r("GET", "/{index}/_source/{id}", _get_source)
     r("PUT", "/{index}/{type}/{id}", _index_doc)
     r("POST", "/{index}/{type}/{id}", _index_doc)
     r("GET", "/{index}/{type}/{id}", _get_doc)
     r("HEAD", "/{index}/{type}/{id}", _head_doc)
     r("DELETE", "/{index}/{type}/{id}", _delete_doc)
-    r("POST", "/{index}/{type}/{id}/_update", _unported)
+    r("POST", "/{index}/{type}/{id}/_update", _update_doc)
     r("PUT", "/{index}/{type}/{id}/_create", _create_doc)
     r("POST", "/{index}/{type}/{id}/_create", _create_doc)
     r("PUT", "/{index}/_create/{id}", _create_doc)
@@ -80,13 +84,13 @@ def register_all(c) -> None:
     r("GET", "/{index}/{type}/{id}/_explain", _explain)
     r("POST", "/{index}/{type}/{id}/_explain", _explain)
     r("GET", "/{index}/{type}/{id}/_source", _get_source)
-    r("POST", "/_mget", _unported)
-    r("POST", "/{index}/_mget", _unported)
-    r("POST", "/{index}/{type}/_mget", _unported)
-    r("POST", "/{index}/_doc/_mget", _unported)
-    r("GET", "/_mget", _unported)
-    r("GET", "/{index}/{type}/_mget", _unported)
-    r("GET", "/{index}/_doc/_mget", _unported)
+    r("POST", "/_mget", _mget)
+    r("POST", "/{index}/_mget", _mget)
+    r("POST", "/{index}/{type}/_mget", _mget)
+    r("POST", "/{index}/_doc/_mget", _mget)
+    r("GET", "/_mget", _mget)
+    r("GET", "/{index}/{type}/_mget", _mget)
+    r("GET", "/{index}/_doc/_mget", _mget)
 
     # --- bulk ---
     r("POST", "/_bulk", _bulk)
@@ -568,6 +572,54 @@ def _delete_doc(node, req):
                         **_version_kw(req))
     _echo_type(req, _forced_refresh(req, _write_shards_header(node, req, r)))
     return (200 if r.get("found") else 404), r
+
+
+def _update_doc(node, req):
+    _typed_api_warning(req)
+    routing, parent = _parent_routing(node, req)
+    version = req.param("version")
+    if version is not None and req.param(
+            "version_type", "internal") != "internal":
+        # UpdateRequest.validate(): only internal versioning applies
+        raise ActionRequestValidationException(
+            "Validation Failed: 1: version type [force/external] is not "
+            "supported by the update API;")
+    r = node.update_doc(req.param("index"), req.param("id"), req.json_body({}),
+                        routing=routing, refresh=req.param("refresh"),
+                        version=int(version) if version is not None else None)
+    if parent is not None and r.get("_id") is not None:
+        svc = node.indices.get(req.param("index"))
+        if svc is not None:
+            svc.parents[str(r["_id"])] = str(parent)
+    _echo_type(req, _forced_refresh(req, _write_shards_header(node, req, r)))
+    # the "get" section: the updated source (filtered) and fields
+    src_param = req.param("_source")
+    want_get = (req.param("fields")
+                or (src_param is not None and src_param.lower() != "false"))
+    if want_get and r.get("result") != "noop":
+        g = node.get_doc(req.param("index"), req.param("id"),
+                         req.param("routing"))
+        if g.get("found"):
+            src = g["_source"]
+            if src_param and src_param.lower() != "true":
+                src = filter_source(src, src_param.split(","), None)
+            get_sec = {"found": True, "_source": src}
+            if req.param("fields"):
+                want = req.param("fields").split(",")
+                get_sec["fields"] = {f: [g["_source"][f]]
+                                     for f in want if f in g["_source"]}
+            r["get"] = get_sec
+    return 200, r
+
+
+def _mget(node, req):
+    rp = _get_kw(req)
+    stored = req.param("stored_fields")
+    return 200, node.mget(req.json_body({}), req.param("index"),
+                          req.param("type"), realtime=rp["realtime"],
+                          refresh=rp["refresh"],
+                          stored_fields=([f for f in str(stored).split(",")
+                                          if f] if stored else None))
 
 
 def _bulk(node, req):

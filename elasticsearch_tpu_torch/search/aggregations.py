@@ -47,10 +47,12 @@ re-descends into another ``path``; outside a ``nested`` it raises), and
 ``type`` in every segment view, through each segment's parent-id
 vocabulary.
 
-Not ported, waiting for its module, and raising ``ParsingException``:
-``scripted_metric`` (``script/``). ``run_aggregations`` holds its
-request estimate on the request circuit breaker (``common/breaker.py``)
-while it runs. The ``CUSTOM_AGGS`` plugin hook waits for ``plugins/``.
+``scripted_metric`` is the JAX package's numeric form
+(``_run_scripted_metric``): the map script over the segment's columns on
+its device, a float64 sum of the matched docs a view, the optional reduce
+script over ``params._agg``. ``run_aggregations`` holds its request
+estimate on the request circuit breaker (``common/breaker.py``) while it
+runs. The ``CUSTOM_AGGS`` plugin hook waits for ``plugins/``.
 """
 
 from __future__ import annotations
@@ -68,6 +70,10 @@ from elasticsearch_tpu_torch.mapper.field_types import (
     parse_date,
 )
 from elasticsearch_tpu_torch.ops import aggs as agg_ops
+from elasticsearch_tpu_torch.script.expression import (
+    compile_script,
+    segment_columns,
+)
 
 # ---------------------------------------------------------------------------
 # Specs (parse)
@@ -84,8 +90,6 @@ METRIC_TYPES = {"min", "max", "sum", "avg", "stats", "extended_stats",
 PIPELINE_TYPES = {"derivative", "cumulative_sum", "moving_avg", "avg_bucket",
                   "sum_bucket", "min_bucket", "max_bucket", "stats_bucket",
                   "bucket_script", "bucket_selector", "bucket_sort", "serial_diff"}
-# the JAX package's types whose modules the port does not have yet
-UNPORTED_TYPES = {"scripted_metric"}
 
 
 class AggSpec:
@@ -109,10 +113,6 @@ def parse_aggs(aggs_body: Optional[dict]) -> List[AggSpec]:
         t = types[0]
         if t not in BUCKET_TYPES | METRIC_TYPES | PIPELINE_TYPES:
             raise ParsingException(f"Unknown aggregation type [{t}] for [{name}]")
-        if t in UNPORTED_TYPES:
-            raise ParsingException(
-                f"[{t}] aggregation [{name}] is not supported by the PyTorch "
-                f"port yet")
         specs.append(AggSpec(name, t, spec[t], parse_aggs(sub_body)))
     return specs
 
@@ -931,6 +931,9 @@ def _run_one_inner(spec: AggSpec, views: List[SegmentView]) -> dict:
     if spec.type == "adjacency_matrix":
         return _run_adjacency_matrix(spec, views)
 
+    if spec.type == "scripted_metric":
+        return _run_scripted_metric(spec, views)
+
     if spec.type == "geohash_grid":
         merged: Dict[str, int] = {}
         for p in (compute_partial(spec, v) for v in views):
@@ -1154,6 +1157,41 @@ def _run_sampler(spec, views) -> dict:
     if spec.subs:
         out.update(run_aggregations(spec.subs, sub_views))
     return out
+
+
+def _run_scripted_metric(spec, views) -> dict:
+    """scripted_metric (metrics/scripted/), the JAX package's numeric
+    form: ``map_script`` maps every doc of a view's segment to a value
+    over its columns on the segment's device (``execute_columns``; a
+    painless map runs once a doc on the host), each view sums its matched
+    docs' values in float64 on that device, the partials add up on the
+    host, and an optional ``reduce_script`` folds the total
+    (``params._agg``). A map that divides by zero between scalars skips
+    the view, as in the JAX package."""
+    map_spec = spec.body.get("map_script")
+    if map_spec is None:
+        raise ParsingException("[scripted_metric] requires [map_script]")
+    script = compile_script(map_spec)
+    params = dict(spec.body.get("params") or {})
+    partials = []
+    for v in views:
+        seg = v.segment
+        nd = seg.nd_pad
+        vals = script.execute_columns(
+            segment_columns(seg, script.doc_fields), params)
+        if vals is None:
+            continue
+        vals = torch.as_tensor(vals).to(seg.device, torch.float64)
+        vals = vals.expand(nd) if vals.dim() == 0 else vals[:nd]
+        mask = torch.from_numpy(np.ascontiguousarray(v.mask[:nd])).to(
+            seg.device)
+        partials.append(float(torch.where(mask, vals, 0.0).sum()))
+    total = float(sum(partials))
+    reduce_spec = spec.body.get("reduce_script")
+    if reduce_spec is not None:
+        total = compile_script(reduce_spec).execute(
+            {}, {**params, "_agg": total})
+    return {"value": total}
 
 
 def _run_adjacency_matrix(spec, views) -> dict:

@@ -8,11 +8,14 @@ queries the port serves: ``match_all``, ``match_none``, ``match``,
 ``dis_max``, ``function_score`` (weight, field_value_factor,
 random_score), ``query_string`` and ``simple_query_string``,
 ``more_like_this``, ``knn``, ``geo_distance``, ``geo_bounding_box`` and
-``geo_polygon``, ``nested``, ``has_child``, ``has_parent`` and
-``parent_id``. ``term`` and ``range`` on a range field test its (lo,
-hi) pairs (point containment; ``relation``). Any other query type (span,
-geo_shape, script, percolate) raises the JAX package's
-``ParsingException`` for an unknown query.
+``geo_polygon``, ``nested``, ``has_child``, ``has_parent``,
+``parent_id`` and ``script`` (a dense mask from ``script/``: a numeric
+script over the segment's columns on its device, a painless one per doc
+on the host). ``term`` and ``range`` on a range field test its (lo, hi)
+pairs (point containment; ``relation``). Any other query type (span,
+geo_shape, percolate) raises the JAX package's ``ParsingException`` for
+an unknown query; so does ``function_score``'s ``script_score``, which
+the JAX package collects and then refuses as well.
 
 ``nested`` runs its inner query on the path's sub-segment and folds the
 matched objects onto their docs (``DenseScoreNode``); the join queries
@@ -56,6 +59,7 @@ import re
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from elasticsearch_tpu_torch.common.errors import (
     IllegalArgumentException,
@@ -77,6 +81,10 @@ from elasticsearch_tpu_torch.mapper.field_types import (
     parse_ip,
 )
 from elasticsearch_tpu_torch.ops.scoring import B, K1, bm25_idf
+from elasticsearch_tpu_torch.script.expression import (
+    compile_script,
+    segment_columns,
+)
 from elasticsearch_tpu_torch.search import plan as P
 
 _DEFAULT_BM25 = BM25Similarity(k1=K1, b=B)
@@ -1023,6 +1031,39 @@ class GeoPolygonQueryBuilder(QueryBuilder):
         mask[segment.nd_pad] = False
         return P.ConstantScoreNode(P.DenseMaskNode(mask, "geo_polygon"),
                                    self.boost)
+
+
+class ScriptQueryBuilder(QueryBuilder):
+    """script query: the docs whose script is true (non-zero and not
+    nan). The script compiles once (``compile_script``); a numeric one
+    evaluates once a segment over the segment's columns on its device
+    (``execute_columns``), a painless one once a doc on the host. The
+    mask is built on the segment's device; a constant result fills the
+    segment's rows, and the sentinel row stays false."""
+
+    name = "script"
+
+    def __init__(self, script_spec, **kw):
+        super().__init__(**kw)
+        self.script = compile_script(script_spec)
+        self.params = (script_spec.get("params") or {}
+                       if isinstance(script_spec, dict) else {})
+
+    def to_plan(self, ctx, segment):
+        nd = segment.nd_pad
+        result = self.script.execute_columns(
+            segment_columns(segment, self.script.doc_fields), self.params)
+        if result is None:
+            return P.MatchNoneNode()
+        mask = torch.zeros(nd + 1, dtype=torch.bool, device=segment.device)
+        if isinstance(result, np.ndarray):
+            result = torch.from_numpy(result).to(segment.device)
+        if not isinstance(result, torch.Tensor) or result.dim() == 0:
+            mask[:nd] = bool(result)  # a constant expression
+        else:
+            r = result[:nd]
+            mask[:nd] = (r != 0) & ~torch.isnan(r)
+        return P.ConstantScoreNode(P.DenseMaskNode(mask, "script"), self.boost)
 
 
 def _prefix_terms(segment, field: str, prefix: str) -> List[str]:
@@ -2173,6 +2214,10 @@ def parse_query(body) -> QueryBuilder:
             raise ParsingException("[geo_polygon] requires exactly one field")
         field, spec = next(iter(params.items()))
         return GeoPolygonQueryBuilder(field, spec.get("points") or [])
+    if qtype == "script":
+        return ScriptQueryBuilder(
+            qbody.get("script", qbody), boost=float(qbody.get("boost", 1.0))
+        )
     if qtype == "more_like_this":
         return MoreLikeThisQueryBuilder(
             qbody.get("fields", []), qbody.get("like", []),

@@ -39,8 +39,11 @@ segment (the plan's node types, its ``engine``, and a breakdown of
 device work is in it) and ``select_topk``); a ``QueryTracer`` collects
 the request's phase spans. ``stats`` counts the query against each named
 group. ``allow_partial_results`` and ``shard_failure_entry`` serve the
-coordinators' per-shard failure isolation. Suggest and a non-empty
-``script_fields`` wait for later slices and raise.
+coordinators' per-shard failure isolation. ``script_fields`` compile
+once a request and evaluate once a hit on the host: a painless script
+over the hit's typed doc values (keyword strings stay strings), a numeric
+one over ``doc_values_for``, ``_score`` bound to the hit's score (0.0
+under a sort). Suggest waits for a later slice and raises.
 """
 
 from __future__ import annotations
@@ -69,6 +72,14 @@ from elasticsearch_tpu_torch.mapper.field_types import (
     TextFieldType,
 )
 from elasticsearch_tpu_torch.ops.scoring import select_topk
+from elasticsearch_tpu_torch.script.expression import (
+    compile_script,
+    doc_values_for,
+)
+from elasticsearch_tpu_torch.script.painless import (
+    DocMap,
+    segment_doc_resolver,
+)
 from elasticsearch_tpu_torch.search import plan as P
 from elasticsearch_tpu_torch.search.aggregations import (
     SegmentView,
@@ -98,11 +109,6 @@ def check_body(body: dict) -> None:
         raise IllegalArgumentException(
             f"search request parameters {unsupported} are not supported by "
             f"the PyTorch port yet")
-    if body.get("script_fields"):
-        # an empty section (Kibana's Discover sends one) asks for nothing
-        raise IllegalArgumentException(
-            "[script_fields] with scripts is not supported by the PyTorch "
-            "port yet: it needs the scripting module")
 
 
 @dataclass
@@ -1270,6 +1276,8 @@ def fetch_hits(refs: List[DocRef], shards: Dict[int, Any], source_body: dict,
     want_version = bool(source_body.get("version", False))
     highlight_body = source_body.get("highlight")
     sort_spec = normalize_sort(source_body.get("sort"))
+    compiled_scripts = _compile_script_fields(
+        source_body.get("script_fields") or {})
     query_terms: Dict[str, set] = {}
     # builders with inner_hits, one set a shard (the child or nested pass
     # runs once a shard a request, not once a hit)
@@ -1306,6 +1314,11 @@ def fetch_hits(refs: List[DocRef], shards: Dict[int, Any], source_body: dict,
             fields_out = _docvalue_fields(seg, d, docvalue_fields)
             if fields_out:
                 hit["fields"] = fields_out
+        if compiled_scripts:
+            fields_out = hit.setdefault("fields", {})
+            for fname, (script, sparams) in compiled_scripts.items():
+                fields_out[fname] = [_script_field_value(
+                    script, sparams, seg, d, ref.score or 0.0)]
         if sort_spec is not None:
             hit["sort"] = [_sort_value_out(v) for v in ref.sort_values]
         if highlight_body:
@@ -1331,6 +1344,29 @@ def fetch_hits(refs: List[DocRef], shards: Dict[int, Any], source_body: dict,
                 hit["inner_hits"] = ih_out
         hits.append(hit)
     return hits
+
+
+def _compile_script_fields(script_fields: dict) -> Dict[str, tuple]:
+    """{name: (compiled script, params)}: each script compiled once a
+    request."""
+    out = {}
+    for fname, spec in script_fields.items():
+        sc = spec.get("script", spec)
+        out[fname] = (compile_script(sc),
+                      (sc.get("params") if isinstance(sc, dict) else None)
+                      or {})
+    return out
+
+
+def _script_field_value(script, params: dict, seg, d: int, score: float):
+    """One hit's script field: a painless script runs over the doc's
+    typed values (strings stay strings), the expression engine over its
+    numbers."""
+    if hasattr(script, "run"):
+        return script.run({"doc": DocMap(segment_doc_resolver(seg, d)),
+                           "params": dict(params), "_score": score})
+    return script.execute(doc_values_for(seg, d, script.doc_fields), params,
+                          score)
 
 
 def _docvalue_fields(seg, d: int, specs) -> Dict[str, list]:

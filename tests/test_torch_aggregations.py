@@ -364,15 +364,15 @@ def test_date_and_boolean_mapping(nodes):
 
 
 def test_unported_aggregations_raise(nodes):
-    """scripted_metric waits for ``script/``; a reverse_nested outside a
-    nested raises as in the JAX package; nested (a path the index lacks)
-    and children (no join field) answer as the JAX package does."""
+    """A reverse_nested outside a nested raises as in the JAX package;
+    scripted_metric (ported with ``script/``), nested (a path the index
+    lacks) and children (no join field) answer as the JAX package
+    does."""
     jn, tn = nodes
-    for aggs in ({"r": {"reverse_nested": {}}},
-                 {"s": {"scripted_metric": {"map_script": "1"}}}):
-        with pytest.raises(ParsingException):
-            tn.search("aggs", {"size": 0, "aggs": aggs})
+    with pytest.raises(ParsingException):
+        tn.search("aggs", {"size": 0, "aggs": {"r": {"reverse_nested": {}}}})
     for aggs in ({"n": {"nested": {"path": "x"}}},
+                 {"s": {"scripted_metric": {"map_script": "1"}}},
                  {"v": {"terms": {"field": "venue"},
                         "aggs": {"c": {"children": {"type": "x"}}}}}):
         body = {"size": 0, "aggs": aggs}

@@ -296,10 +296,8 @@ def test_search_dates_and_aggregations(servers):
          status=400)
     both(servers, "POST", "/ev/_search", {
         "size": 0, "aggs": {"g": {"nested": {"path": "when"}}}}, status=200)
-    _jn, tn, _jport, tport = servers
-    st, _, r = call(tport, "POST", "/ev/_search", {
-        "aggs": {"g": {"scripted_metric": {"map_script": "1"}}}})
-    assert st == 400 and "PyTorch port" in r["error"]["reason"]
+    both(servers, "POST", "/ev/_search", {
+        "aggs": {"g": {"scripted_metric": {"map_script": "1"}}}}, status=200)
     both(servers, "DELETE", "/ev", status=200)
 
 
@@ -512,9 +510,8 @@ def test_unported_route_answers_400():
     srv.start()
     try:
         tn.create_index("i", {"settings": {"number_of_shards": 1}})
-        for method, path in (("POST", "/i/_update/1"),
+        for method, path in (("GET", "/_scripts/s1"),
                              ("GET", "/_nodes/stats"),
-                             ("GET", "/_mget"),
                              ("GET", "/_field_caps"),
                              ("GET", "/i/_termvectors/1"),
                              ("GET", "/_search/template")):
@@ -529,12 +526,18 @@ def test_unported_route_answers_400():
                              ("GET", "/_search")):
             st, _, b = call(srv.port, method, path, {})
             assert st == 200, (path, b)
+        # ported since: _update and _mget (a missing doc is a 404, an
+        # empty mget a validation error) and a bulk update line
+        st, _, b = call(srv.port, "POST", "/i/_update/1", {"doc": {"a": 1}})
+        assert st == 404 and b["error"]["type"] == "document_missing_exception"
+        st, _, b = call(srv.port, "GET", "/_mget", {})
+        assert st == 400 and \
+            b["error"]["type"] == "action_request_validation_exception"
         st, _, b = call(srv.port, "POST", "/_bulk", ndjson([
             {"update": {"_index": "i", "_id": "1"}}, {"doc": {"a": 1}}]),
             "application/x-ndjson")
         assert st == 200 and b["errors"]
-        assert "not supported by the PyTorch port yet" in \
-            b["items"][0]["update"]["error"]["reason"]
+        assert b["items"][0]["update"]["status"] == 404
         st, h, _ = call(srv.port, "GET", "/", headers={"X-Opaque-Id": "c7"})
         assert st == 200 and h["X-Opaque-Id"] == "c7"
     finally:

@@ -182,22 +182,27 @@ def test_documents_and_routing(nodes):
 
 
 def test_unported_requests_raise(nodes):
-    _, tn = nodes
+    """Unported query types and suggest raise; scripted_metric and
+    script_fields (ported with ``script/``) answer as the JAX package."""
+    jn, tn = nodes
     with pytest.raises(ParsingException):
         tn.search("idx", {"query": {"span_term": {"title": "w1"}}})
     with pytest.raises(ParsingException):
         tn.search("idx", {"query": {"geo_shape": {"loc": {"shape": {
             "type": "point", "coordinates": [0.0, 0.0]}}}}})
-    with pytest.raises(ParsingException):
-        tn.search("idx", {"size": 0, "aggs": {"n": {"scripted_metric": {
-            "map_script": "1"}}}})
+    body = {"size": 0, "aggs": {"n": {"scripted_metric": {
+        "map_script": "1"}}}}
+    assert (tn.search("idx", dict(body))["aggregations"]
+            == jn.search("idx", dict(body))["aggregations"])
     with pytest.raises(IllegalArgumentException):
         tn.search("idx", {"query": {"match_all": {}},
                           "suggest": {"s": {"text": "w1", "term": {
                               "field": "title"}}}})
-    with pytest.raises(IllegalArgumentException):
-        tn.search("idx", {"query": {"match_all": {}}, "script_fields": {
-            "y": {"script": {"source": "doc['year'].value"}}}})
+    body = {"query": {"match_all": {}}, "sort": [{"year": "asc"}],
+            "script_fields": {"y": {"script": {"source": "doc['year'].value"}}}}
+    jr, tr = jn.search("idx", dict(body)), tn.search("idx", dict(body))
+    assert ([h["fields"] for h in tr["hits"]["hits"]]
+            == [h["fields"] for h in jr["hits"]["hits"]])
 
 
 def test_can_match_skips_shards_like_jax():
