@@ -209,7 +209,7 @@ then phases 11, 12, 19, 20, 13, 14, 15, 16, 17 and 18):
 13. Durability on the card, after phase 12 (``durability_phase``), every
     data path under a fresh ``tempfile.mkdtemp()`` removed at the end.
     13a: a ``Node(data_path=..., device="cuda")`` takes phase 3's first
-    5,000 docs under ``index.translog.durability: async`` and 1,000
+    5,000 docs under ``index.translog.durability: async`` and 400
     under ``request`` (docs/s beside phase 3's), ``_flush``, every 100th
     doc deleted,
     ``close()``; reopened, phase 3's requests answer byte for byte as
@@ -217,7 +217,8 @@ then phases 11, 12, 19, 20, 13, 14, 15, 16, 17 and 18):
     plain), seqnos
     continue, deletes stay, ``_forcemerge`` keeps totals and buckets and
     equals a cpu node over the same path. 13b: a child ``python3`` on the
-    card is killed with SIGKILL mid-bulk under ``request`` durability;
+    card is killed with SIGKILL mid-bulk under ``request`` durability
+    (bulks of 400 docs, cut from 1,000 to pay for phase 21);
     reopened, every acknowledged doc is found (GET, ``terms`` on its id),
     none twice, totals equal an in-memory node over the recovered docs.
     13c: pmc-4x256k at full width (``ts``, ``citations``, ``emb``) in one
@@ -270,7 +271,7 @@ then phases 11, 12, 19, 20, 13, 14, 15, 16, 17 and 18):
     and every kernel-2 call (with its combine) replayed through its plain
     version; then p50 per kind on pmcq and pmcqh over two runs, each
     phrase kind's host intersection ms apart from the rest, and each
-    multi-term kind's expanded lanes. 15b: phase 3's first 5,000 docs
+    multi-term kind's expanded lanes. 15b: phase 3's first 2,500 docs
     into an
     index with a custom analyzer (html_strip, standard, lowercase, stop,
     stemmer) on ``title`` and ``english`` on ``title.en`` (docs/s beside
@@ -312,7 +313,7 @@ then phases 11, 12, 19, 20, 13, 14, 15, 16, 17 and 18):
     breaker bytes, the kernel-2 gather plans over about 50,000
     ordinals, ``field_ineligible`` on the fused plane, and after
     ``DELETE`` the fielddata breaker and ``memory_allocated`` back to
-    their levels; 17f ingest-20k's first 5,000 docs over ``bulk`` with
+    their levels; 17f ingest-20k's first 2,500 docs over ``bulk`` with
     every new type in each accepted form and one malformed value of each
     kind (a 400 with the JAX package's message), a flush and a restart
     through ``Node(data_path=...)`` answering as before. Every 1a (and
@@ -367,12 +368,38 @@ then phases 11, 12, 19, 20, 13, 14, 15, 16, 17 and 18):
     ``script_fields`` (an expression with ``_score``, a painless string);
     20c ``scripted_metric`` with and without a reduce, exactly twice the
     sum of citations; 20d a painless script query's ms per 1,000 docs;
-    20e 10,000 bulk updates over HTTP at ``async`` durability beside the
+    20e 2,000 bulk updates over HTTP at ``async`` durability beside the
     bulk index rate, 200 single ``_update``s at ``request`` durability, a
     reopen replaying them, and a 1% update of scr4 whose first answer
     takes the delta append; 20f ``mget`` of 100 ids over two indices, the
     gets merged. Each item's p50 and plane; every launch held against
     plain; the summary line's ``scripting`` entry.
+21. Cluster metadata on the card, right after phase 20
+    (``cluster_metadata_phase``), over REST through an ``HttpServer`` on
+    phase 7's node: 21a an index template with an alias, the log pattern
+    (logs-a and logs-b over phase 12's doc-values segments, logs-c made
+    through the template), ``_aliases``, a match with a ``terms`` through
+    an alias, a pattern and the names (the same hits and buckets), an
+    alias to one mesh index on ``mesh_pallas``, a filtered alias as
+    ROADMAP C19 says, ``_cat/aliases`` and ``_cat/templates``; 21b a
+    stored mustache template by id and inline, ``_render/template``; 21c
+    transient cluster settings set and cleared: pruning (1e packed on a
+    packed index over phase 10's segments), fused aggregations (kernel 2's
+    gather form, then its mask form), kNN (the host rung, then kernel 3)
+    and the HBM budget (the host rung, ``_nodes/stats``, then the mesh
+    again); 21d ``refresh=wait_for`` writes at a 1 s interval (the delta
+    append) and at -1, ``_close`` / ``_open``, ``PUT _mapping``,
+    ``_stats``, ``_segments``, ``_cat/shards`` and ``_cat/segments``; 21e
+    a small durable node whose template, persistent settings, stored
+    script and alias survive a restart, pruning after it. Each item's
+    p50, plane and launches; the ms from a ``PUT _cluster/settings`` to
+    the changed answer; every launch held against plain; the summary
+    line's ``cluster_metadata`` entry.
+
+Every index a phase builds pins ``index.refresh_interval: -1`` (the
+port's scheduled refresh runs every second by default): its segment
+layout, and the ingest rates and restage counts the checks read, stay
+those of one explicit refresh. Only 21d runs the schedule.
 
 Every answer any phase gets from ``Node.search`` (``msearch`` and REST
 through it), ``IndexService.search`` or ``search_batch`` must show
@@ -407,15 +434,15 @@ F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 RTOL = 1e-5
 INGEST_DOCS = 20_000
 # 13a's request-durability index: the first of phase 3's docs, one fsync
-# pair an op (its rate needs no more)
-REQUEST_DURABLE_DOCS = 1_000
+# pair an op (its rate needs no more; cut from 1,000 as phase 21 joined)
+REQUEST_DURABLE_DOCS = 400
 # 13a's async ingest, 15b's analyzed ingest and 17f's ingest with the
-# field types: phase 3's first 5,000 docs (cut from 20,000 to 10,000 as
-# phase 17 joined, and to 5,000 as phase 18 joined, to keep the script's
-# time)
+# field types: phase 3's first docs (cut from 20,000 to 10,000 as phase
+# 17 joined, to 5,000 as phase 18 joined, and 15b's and 17f's to 2,500 as
+# phase 21 joined, to keep the script's time)
 ASYNC_DURABLE_DOCS = 5_000
-ANALYZED_DOCS = 5_000
-GEO_INGEST_DOCS = 5_000
+ANALYZED_DOCS = 2_500
+GEO_INGEST_DOCS = 2_500
 # pmc-4x256k: four shards of one 262,144-doc segment each (seeds 7-10)
 MESH_SHARD_DOCS = 262_144
 MESH_SEEDS = (7, 8, 9, 10)
@@ -717,7 +744,7 @@ def query_draws(seed=11, n=24):
 # ----------------------------------------------------------------------
 
 
-def same_response(gr, cr, what):
+def same_response(gr, cr, what, claim="cuda response equals cpu response"):
     """Totals and buckets exact, scores within RTOL, ids exact except
     among hits tied within RTOL (compared as sets)."""
     ok = gr["hits"]["total"] == cr["hits"]["total"]
@@ -735,7 +762,7 @@ def same_response(gr, cr, what):
             ok = {h["_id"] for h in gh[i:j]} == {h["_id"] for h in ch[i:j]}
             i = j
     ok = ok and gr.get("aggregations") == cr.get("aggregations")
-    check(ok, f"cuda response equals cpu response: {what}")
+    check(ok, f"{claim}: {what}")
 
 
 def requests_for(queries, top_rank_term, venue_term, year_lo):
@@ -818,7 +845,7 @@ def serve(gnode, cnode, index, reqs, label, lat, ref=None,
 def node_with_mapping(Node, device, shards):
     n = Node(device=device)
     n.create_index("docs" if shards > 1 else "pmc", {
-        "settings": {"number_of_shards": shards},
+        "settings": {"number_of_shards": shards, "refresh_interval": "-1"},
         "mappings": {"_doc": {"properties": {
             "title": {"type": "text"}, "venue": {"type": "keyword"},
             "year": {"type": "long"}}}}})
@@ -2181,10 +2208,12 @@ def mesh_phase(torch, Node, Segment, cuda_kernels, queries, top_rank_term,
                 "similarity": "cosine"}}}}
     gnode, cnode = Node(device="cuda"), Node(device="cpu")
     for node in (gnode, cnode):
-        node.create_index("pmc4", {"settings": {"number_of_shards": 4},
+        node.create_index("pmc4", {"settings": {"number_of_shards": 4,
+                                                "refresh_interval": "-1"},
                                    "mappings": mapping})
         node.create_index("pmc4h", {"settings": {
-            "number_of_shards": 4, "search": {"mesh": False}},
+            "number_of_shards": 4, "refresh_interval": "-1",
+            "search": {"mesh": False}},
             "mappings": mapping})
     gsegs, csegs, shard_arrays = [], [], []
     for sh, corpus in enumerate(corpora):
@@ -2651,7 +2680,8 @@ def recording_knn_launches(knn):
         knn.knn_score_tiles = orig
 
 
-def same_knn_response(gr, cr, tol, what):
+def same_knn_response(gr, cr, tol, what,
+                      claim="cuda response equals cpu response"):
     """Totals exact, scores within ``tol`` (absolute), ids exact except
     among hits whose scores tie within ``tol`` (the host rung sums in
     cuBLAS's order on the card and BLAS's on the host)."""
@@ -2669,7 +2699,7 @@ def same_knn_response(gr, cr, tol, what):
                 j += 1
             ok = {h["_id"] for h in gh[i:j]} == {h["_id"] for h in ch[i:j]}
             i = j
-    check(ok, f"cuda response equals cpu response within {tol}: {what}")
+    check(ok, f"{claim} within {tol}: {what}")
 
 
 def knn_phase(torch, cuda_kernels, gnode, cnode, gsegs, csegs, vecs, exists,
@@ -2689,7 +2719,8 @@ def knn_phase(torch, cuda_kernels, gnode, cnode, gsegs, csegs, vecs, exists,
         "emb": {"type": "dense_vector", "dims": KNN_DIMS,
                 "similarity": "cosine"}}}}
     for node, segs in ((gnode, gsegs), (cnode, csegs)):
-        node.create_index("pmc1", {"settings": {"number_of_shards": 1},
+        node.create_index("pmc1", {"settings": {"number_of_shards": 1,
+                                                "refresh_interval": "-1"},
                                    "mappings": mapping})
         node.indices["pmc1"].shards[0].engine.adopt_segment(segs[0])
     svc = gnode.indices["pmc4"]
@@ -2985,6 +3016,7 @@ def pruned_phase(torch, Node, Segment, cuda_kernels, tsc, queries, lat,
         settings = {"number_of_shards": shards}
         if not mesh:
             settings["search"] = {"mesh": False}
+        settings["refresh_interval"] = "-1"
         node.create_index(index, {"settings": settings, "mappings": mapping})
         return node.indices[index]
 
@@ -3439,7 +3471,7 @@ def rest_phase(torch, Node, cuda_kernels, ops, inproc_rate, reqs, g7, c7, gP,
     try:
         t0 = time.perf_counter()
         st, r = client.call("PUT", "/docs_http", {
-            "settings": {"number_of_shards": 5},
+            "settings": {"number_of_shards": 5, "refresh_interval": "-1"},
             "mappings": {"_doc": {"properties": {
                 "title": {"type": "text"}, "venue": {"type": "keyword"},
                 "year": {"type": "long"}}}}})
@@ -3949,9 +3981,11 @@ def aggs_phase(torch, Node, Segment, cuda_kernels, tsc, queries, lat,
     gnode, cnode = Node(device="cuda"), Node(device="cpu")
     for name, extra in indices.items():
         gnode.create_index(name, {"settings": {"number_of_shards": 4,
+                                               "refresh_interval": "-1",
                                                **extra},
                                   "mappings": mapping})
-    cnode.create_index("agg4", {"settings": {"number_of_shards": 4},
+    cnode.create_index("agg4", {"settings": {"number_of_shards": 4,
+                                             "refresh_interval": "-1"},
                                 "mappings": mapping})
     gsegs, csegs = [], []
     for sh, arrays in enumerate(shard_arrays):
@@ -4079,7 +4113,7 @@ def aggs_phase(torch, Node, Segment, cuda_kernels, tsc, queries, lat,
         there, and their aggregations equal agg4's (the same matched
         docs)."""
         gnode.create_index("agg4p", {"settings": {
-            "number_of_shards": 4,
+            "number_of_shards": 4, "refresh_interval": "-1",
             "search": {"pallas": {"postings_codec": "packed"}}},
             "mappings": mapping})
         for sh, gs in enumerate(gsegs):
@@ -4394,7 +4428,8 @@ def search_request_phase(torch, cuda_kernels, tsc, ssum, knn, p12, g7, c7,
     for node, segs in ((gnode, gsegs), (cnode, csegs)):
         for name in ("logs-a", "logs-b"):
             node.create_index(name, {"settings": {
-                "number_of_shards": 4, "search": {"mesh": False}},
+                "number_of_shards": 4, "refresh_interval": "-1",
+                "search": {"mesh": False}},
                 "mappings": mapping})
             for sh, seg in enumerate(segs):
                 node.indices[name].shards[sh].engine.adopt_segment(seg)
@@ -4747,10 +4782,10 @@ def search_request_phase(torch, cuda_kernels, tsc, ssum, knn, p12, g7, c7,
 # 20a's threshold on citations (a zipf count: about a sixth of the docs
 # are above it)
 SCRIPT_T = 5
-# 20e: the durable index holds the first 10,000 docs of ingest-20k, and
-# every one of them is updated once; 200 single updates at request
-# durability
-UPDATE_DOCS = 10_000
+# 20e: the durable index holds the first 2,000 docs of ingest-20k (cut
+# from 10,000 to pay for phase 21), and every one of them is updated once;
+# 200 single updates at request durability
+UPDATE_DOCS = 2_000
 SINGLE_UPDATES = 200
 # 20e: every 100th doc of each mesh shard is updated (about 1%)
 MESH_UPDATE_EVERY = 100
@@ -4784,7 +4819,7 @@ def scripting_phase(torch, cuda_kernels, tsc, ssum, knn, p12, g3, c3, ops,
     20d. A painless script query on ingest-20k (phase 3's index, 5
          shards, and its cpu twin): its ms per 1,000 docs; equal to the
          cpu twin and to a numpy count over the year columns.
-    20e. Over HTTP on a durable node: bulk-index 10,000 docs of
+    20e. Over HTTP on a durable node: bulk-index 2,000 docs of
          ingest-20k at ``async`` durability, flush, then bulk-update all
          of them (half partial ``doc`` merges, half scripted
          ``ctx._source.year += params.n``): docs/s of both. 200 single
@@ -4810,7 +4845,7 @@ def scripting_phase(torch, cuda_kernels, tsc, ssum, knn, p12, g3, c3, ops,
     report = {"items": {}}
     routing = _routing_for_shards(4)
     gnode.create_index("scr4", {"settings": {
-        "number_of_shards": 4,
+        "number_of_shards": 4, "refresh_interval": "-1",
         "search": {"mesh": {"max_slots_per_device": 8}},
         # no background compaction: a merge re-parses the stored sources,
         # which hold no title here
@@ -5107,10 +5142,12 @@ def _durable_updates(Node, HttpServer, ops, path):
         "year": {"type": "long"}}}}
     try:
         st, _ = client.call("PUT", "/upd", {"settings": {
-            "number_of_shards": 5, "translog": {"durability": "async"}},
+            "number_of_shards": 5, "refresh_interval": "-1",
+            "translog": {"durability": "async"}},
             "mappings": mapping})
         st2, _ = client.call("PUT", "/updr", {"settings": {
-            "number_of_shards": 5}, "mappings": mapping})
+            "number_of_shards": 5, "refresh_interval": "-1"},
+            "mappings": mapping})
         check(st == st2 == 200, "20e: the durable indices created")
         docs = ops[:UPDATE_DOCS]
 
@@ -5275,7 +5312,8 @@ import json, sys
 sys.path.insert(0, sys.argv[3])
 from elasticsearch_tpu_torch.node import Node
 node = Node(data_path=sys.argv[1], device="cuda")
-node.create_index("docs", {"settings": {"number_of_shards": 5},
+node.create_index("docs", {"settings": {"number_of_shards": 5,
+                                        "refresh_interval": "-1"},
                            "mappings": {"_doc": {"properties": {
                                "id": {"type": "keyword"},
                                "title": {"type": "text"},
@@ -5284,14 +5322,17 @@ node.create_index("docs", {"settings": {"number_of_shards": 5},
 print(json.dumps({"ready": True}), flush=True)
 with open(sys.argv[2], encoding="utf-8") as f:
     docs = [json.loads(line) for line in f]
-for b in range(0, len(docs), 1000):
+step = int(sys.argv[4])
+for b in range(0, len(docs), step):
     r = node.bulk([("index", {"_index": "docs", "_id": d["id"]}, d)
-                   for d in docs[b: b + 1000]])
+                   for d in docs[b: b + step]])
     assert not r["errors"]
     print(json.dumps([next(iter(it.values()))["_id"] for it in r["items"]]),
           flush=True)
 """
 CRASH_ACKED_BULKS = 2
+# the child's bulk size (each op fsynced at request durability)
+CRASH_BULK_DOCS = 400
 
 
 def _readline(proc, timeout=600.0):
@@ -5375,7 +5416,7 @@ def durability_phase(torch, Node, cuda_kernels, tsc, ops, inproc_rate, reqs3,
     13a. A ``Node(data_path=..., device="cuda")`` takes phase 3's first
          5,000 docs in bulks of 1,000 under
          ``index.translog.durability: async``
-         and the first 1,000 into a second index under ``request`` (one
+         and the first 400 into a second index under ``request`` (one
          fsync per op): docs/s for each beside phase 3's in-memory rate.
          ``_flush``, every 100th doc deleted, phase 3's requests
          recorded, ``close()``;
@@ -5439,9 +5480,11 @@ def _durable_ingest(torch, Node, cuda_kernels, tsc, ssum, knn, ops,
         "year": {"type": "long"}}}}
     g = Node(data_path=path, device="cuda")
     g.create_index("docs", {"settings": {
-        "number_of_shards": 5, "translog": {"durability": "async"}},
+        "number_of_shards": 5, "refresh_interval": "-1",
+        "translog": {"durability": "async"}},
         "mappings": mapping})
-    g.create_index("docs_req", {"settings": {"number_of_shards": 5},
+    g.create_index("docs_req", {"settings": {"number_of_shards": 5,
+                                             "refresh_interval": "-1"},
                                 "mappings": mapping})
     rates = {}
     for index, docs in (("docs", ops[:ASYNC_DURABLE_DOCS]),
@@ -5558,8 +5601,8 @@ def _crash_recovery(torch, Node, ops, reqs, path):
     data = os.path.join(path, "node")
     root = os.path.dirname(os.path.abspath(__file__))
     proc = subprocess.Popen([sys.executable, "-c", CRASH_CHILD, data,
-                             docs_file, root], stdout=subprocess.PIPE,
-                            text=True)
+                             docs_file, root, str(CRASH_BULK_DOCS)],
+                            stdout=subprocess.PIPE, text=True)
     acked = []
     t0 = time.perf_counter()
     bulk_s = []
@@ -5583,7 +5626,7 @@ def _crash_recovery(torch, Node, ops, reqs, path):
         proc.wait()
     child_s = time.perf_counter() - t0
     sent = {meta["_id"] for _a, meta, _s in
-            ops[: (CRASH_ACKED_BULKS + 1) * 1000]}
+            ops[: (CRASH_ACKED_BULKS + 1) * CRASH_BULK_DOCS]}
     in_flight = sent - set(acked)
     t0 = time.perf_counter()
     g = Node(data_path=data, device="cuda")
@@ -5592,7 +5635,7 @@ def _crash_recovery(torch, Node, ops, reqs, path):
     g.refresh("docs")
     replayed = sum(svc.recovered_ops.values())
     found = sum(g.get_doc("docs", d)["found"] for d in acked)
-    check(found == len(acked) == CRASH_ACKED_BULKS * 1000,
+    check(found == len(acked) == CRASH_ACKED_BULKS * CRASH_BULK_DOCS,
           f"phase 13b every acknowledged doc found by GET ({found} of "
           f"{len(acked)})")
     by_terms = 0
@@ -5623,7 +5666,8 @@ def _crash_recovery(torch, Node, ops, reqs, path):
               f"phase 13b shard {sid} local checkpoint {s}")
     # an in-memory node that took exactly the recovered docs, in seqno order
     mem = Node(device="cuda")
-    mem.create_index("docs", {"settings": {"number_of_shards": 5},
+    mem.create_index("docs", {"settings": {"number_of_shards": 5,
+                                           "refresh_interval": "-1"},
                               "mappings": {"_doc": {"properties": {
                                   "id": {"type": "keyword"},
                                   "title": {"type": "text"},
@@ -5758,7 +5802,8 @@ def _recover_full_width(torch, Node, cuda_kernels, tsc, ssum, knn, reqs7,
     mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     g = Node(data_path=path, device="cuda")
-    g.create_index("dur4", {"settings": {"number_of_shards": 4},
+    g.create_index("dur4", {"settings": {"number_of_shards": 4,
+                                         "refresh_interval": "-1"},
                             "mappings": mapping})
     for sh, arrays in enumerate(shard_arrays):
         arrays = dict(arrays)
@@ -6687,9 +6732,10 @@ def query_dsl_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, queries,
     gnode, cnode = Node(device="cuda"), Node(device="cpu")
     for node in (gnode, cnode):
         node.create_index("pmcq", {"settings": {
-            "number_of_shards": 4, "similarity": sim}, "mappings": mapping})
+            "number_of_shards": 4, "refresh_interval": "-1",
+            "similarity": sim}, "mappings": mapping})
     gnode.create_index("pmcqh", {"settings": {
-        "number_of_shards": 4, "similarity": sim,
+        "number_of_shards": 4, "refresh_interval": "-1", "similarity": sim,
         "search": {"mesh": False}}, "mappings": mapping})
     for sh, a in enumerate(arrays):
         gs = Segment.from_arrays(f"pmcq_{sh}_seg_1", device="cuda", **a)
@@ -6867,7 +6913,8 @@ def query_dsl_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, queries,
                     "type": "custom", "char_filter": ["html_strip"],
                     "tokenizer": "standard",
                     "filter": ["lowercase", "en_stop", "stemmer"]}}}
-    body = {"settings": {"number_of_shards": 5, "analysis": analysis},
+    body = {"settings": {"number_of_shards": 5, "refresh_interval": "-1",
+                         "analysis": analysis},
             "mappings": {"_doc": {"properties": {
                 "title": {"type": "text", "analyzer": "prose", "fields": {
                     "en": {"type": "text", "analyzer": "english"}}},
@@ -7046,9 +7093,11 @@ def sort_paging_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, queries,
         for name, extra in (("srt4", {}),
                             ("srt4h", {"search": {"mesh": False}})):
             node.create_index(name, {"settings": {"number_of_shards": 4,
+                                                  "refresh_interval": "-1",
                                                   **extra},
                                      "mappings": mapping})
-        node.create_index("scr", {"settings": {"number_of_shards": 5},
+        node.create_index("scr", {"settings": {"number_of_shards": 5,
+                                               "refresh_interval": "-1"},
                                   "mappings": {"_doc": {"properties": {
                                       "title": {"type": "text"},
                                       "venue": {"type": "keyword"},
@@ -7681,7 +7730,7 @@ def geo_fields_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, queries,
          every doc: the fielddata breaker's bytes, each segment's build
          ms, the kernel-2 plans of the gather over about 50,000
          ordinals; the fused plane declines with ``field_ineligible``.
-    17f. ingest-20k's first 5,000 docs over ``bulk`` with every new type
+    17f. ingest-20k's first 2,500 docs over ``bulk`` with every new type
          in each accepted
          form and one malformed value of each kind (a 400 with the JAX
          package's message), a flush and a restart through
@@ -7728,6 +7777,7 @@ def geo_fields_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, queries,
         for name in names:
             extra = {"search": {"mesh": False}} if name == "geo4h" else {}
             node.create_index(name, {"settings": {"number_of_shards": 4,
+                                                  "refresh_interval": "-1",
                                                   **extra},
                                      "mappings": mapping})
     t0 = time.perf_counter()
@@ -8180,7 +8230,7 @@ GEO_BAD_VALUES = [
 
 
 def geo_ingest_phase(torch, Node, Segment, ingest_ops, bodies, device):
-    """17f: phase 3's first 5,000 docs (``ingest_ops``) with the new types in
+    """17f: phase 3's first 2,500 docs (``ingest_ops``) with the new types in
     each accepted form through ``bulk`` into a ``Node(data_path=...)``;
     the malformed values; a flush, a restart, and the request kinds of
     17a-17d answered as before and as a cpu node holding the same
@@ -8249,7 +8299,7 @@ def geo_ingest_phase(torch, Node, Segment, ingest_ops, bodies, device):
         # per-op fsyncs would time the disk, not the parsing (phase 13a
         # measures the durability's cost)
         node.create_index("gi", {"settings": {
-            "number_of_shards": 5,
+            "number_of_shards": 5, "refresh_interval": "-1",
             "index": {"translog": {"durability": "async"}}},
             "mappings": mapping})
         t0 = time.perf_counter()
@@ -8304,7 +8354,8 @@ def geo_ingest_phase(torch, Node, Segment, ingest_ops, bodies, device):
         out["answers_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         cnode = Node(device="cpu")
-        cnode.create_index("gi", {"settings": {"number_of_shards": 5},
+        cnode.create_index("gi", {"settings": {"number_of_shards": 5,
+                                               "refresh_interval": "-1"},
                                   "mappings": mapping})
         _adopt_copies(node, cnode, "gi", Segment)
         for k, b in kinds.items():
@@ -8801,7 +8852,8 @@ def nested_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, knn,
                          {"search": {"mesh": {"max_slots_per_device": 8}},
                           "staging": {"compact": {"threshold": 0}}})
                 node.create_index(base + suffix, {"settings": {
-                    "number_of_shards": 4, **extra}, "mappings": mapping})
+                    "number_of_shards": 4, "refresh_interval": "-1",
+                    **extra}, "mappings": mapping})
     t0 = time.perf_counter()
     split = {"columns": 0.0, "nested_arrays": 0.0, "join_arrays": 0.0,
              "segments": 0.0, "adopt": 0.0}
@@ -9320,8 +9372,10 @@ def nested_ingest_phase(torch, Node, Segment, device, bodies):
         for name, mapping in (("soi", nested_map),
                               ("soj", SO_JOIN_MAPPING)):
             node.create_index(name, {"settings": {
-                "number_of_shards": 4, **async_tl}, "mappings": mapping})
+                "number_of_shards": 4, "refresh_interval": "-1",
+                **async_tl}, "mappings": mapping})
         node.create_index("sop", {"settings": {"number_of_shards": 4,
+                                               "refresh_interval": "-1",
                                                **async_tl},
                                   "mappings": {"answer": {
                                       "_parent": {"type": "question"},
@@ -9417,7 +9471,8 @@ def nested_ingest_phase(torch, Node, Segment, device, bodies):
         cnode = Node(device="cpu")
         for name, mapping in (("soi", nested_map), ("soj", SO_JOIN_MAPPING)):
             cnode.create_index(name, {"settings": {
-                "number_of_shards": 4, "search": {"mesh": False}},
+                "number_of_shards": 4, "refresh_interval": "-1",
+                "search": {"mesh": False}},
                 "mappings": mapping})
             _adopt_copies(node, cnode, name, Segment)
         for k, (i, b) in kinds.items():
@@ -9484,6 +9539,571 @@ def nested_ingest_phase(torch, Node, Segment, device, bodies):
         node.close()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+# ----------------------------------------------------------------------
+# Phase 21: cluster metadata on the card
+# ----------------------------------------------------------------------
+
+# 21d: wait_for writes at each refresh interval
+WAIT_FOR_WRITES = 3
+# 21e: the small durable node's packed index (docs whose terms cluster by
+# position, so tile bounds differ and pruning fires)
+SMALL_DOCS = 2000
+
+
+def small_prune_docs(n, seed=3):
+    """Docs over a 20-term vocabulary that drifts with the doc position,
+    a few terms repeated: block-max bounds differ between tiles."""
+    rng = np.random.RandomState(seed)
+    vocab = [f"t{i}" for i in range(20)]
+    out = []
+    for d in range(n):
+        base = (d * len(vocab)) // n
+        toks = [vocab[(base + int(rng.zipf(2.0)) - 1) % len(vocab)]
+                for _ in range(rng.randint(3, 12))]
+        out.append((str(d), {"body": " ".join(toks), "n": d}))
+    return out
+
+
+def cluster_metadata_phase(torch, Node, HttpServer, cuda_kernels, tsc, ssum,
+                           knn, g7, pk_segs, dv_segs, dv_mapping, queries,
+                           knn_body, errs, smi, device="cuda"):
+    """Phase 21: cluster metadata on the card, over indices earlier phases
+    built (no corpus is built): phase 7's node (pmc4, its host twin pmc4h
+    and the kNN vectors), phase 12's doc-values segments (pmc-4x256k with
+    ``ts``, ``citations`` and ``venue``, adopted again), and phase 10's
+    packed segments (``pk_segs``: each shard's list) under a packed index.
+    Every request goes over REST through an ``HttpServer`` on the card's
+    node.
+
+    21a. ``PUT _template/logs`` (``logs-*``: 4 shards, a mesh with slot
+         headroom, the doc-values mapping, an alias ``logs``); logs-a and
+         logs-b (``search.mesh: false``, phase 19's log pattern, 2,097,152
+         docs) made before it, logs-c through it. ``POST _aliases`` adds
+         ``logs`` to logs-a and logs-b and ``kibana`` to logs-c. A match
+         with a ``terms`` through ``logs``, ``logs-*`` and the three names
+         gives the same hits, totals and buckets; through ``kibana`` it
+         runs on logs-c's ``mesh_pallas`` and equals logs-c by name and
+         logs-a's host rung (the same segments). A filtered alias answers
+         as the index does (ROADMAP C19). ``_cat/aliases``,
+         ``_cat/templates``, ``GET _alias/logs``.
+    21b. ``PUT _scripts/q`` (a mustache match); ``_search/template`` by
+         id and inline through ``kibana`` equal the plain body's answer;
+         ``_render/template`` renders the plain body.
+    21c. Dynamic cluster settings, each set transient then cleared:
+         ``search.pallas.pruning.enabled`` on pk4 (phase 10's packed
+         segments, their tables staged): 1e packed launches, the top 10 equal
+         the exhaustive ones, and clearing stops them;
+         ``search.aggs.fused: false`` on logs-c: the host reduce (reason
+         ``disabled``, kernel 2's gather form), cleared the fused mask
+         form; ``search.knn.enabled: false`` on pmc4: the host rung,
+         cleared kernel 3 on the mesh; ``search.memory.hbm_budget_bytes``
+         1b: logs-c demotes to the host rung with the same hits,
+         ``_nodes/stats`` shows the budget and the evictions, cleared the
+         mesh serves again. ``_cluster/settings`` and ``_cluster/state``
+         show each value while set.
+    21d. logs-c's ``index.refresh_interval`` 1s, then writes with
+         ``refresh=wait_for``: each visible to the next search with no
+         explicit refresh, the first answer through the delta append;
+         then -1, where ``wait_for`` forces a refresh. ``_close`` of
+         logs-b: ``logs-*`` skips it, by name it is a 400; ``_open`` brings
+         back the same answers. ``PUT _mapping`` adds a field. ``_stats``
+         on logs-a and logs-b, ``_segments``, ``_cat/shards`` and
+         ``_cat/segments``: doc counts equal the engines'.
+    21e. A small durable node: a template, persistent settings (pruning
+         on, 2 probe tiles), a stored script and an alias survive a close
+         and a reopen, and the reopened node's pruned request launches 1e
+         packed.
+
+    Every answer is sound and every launch of the main path is held
+    against its plain version. Prints each item's p50 on the card, its
+    plane and its launches, and the ms from a settings change to the
+    changed answer, the ``wait_for`` p50s and the ``_stats`` ms.
+    Returns the report."""
+    import shutil
+    import tempfile
+
+    from elasticsearch_tpu_torch.common.memory import memory_accountant
+
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    report = {"items": {}}
+    tok = term_token
+    srv = HttpServer(g7, port=0)
+    srv.start()
+    client = HttpClient(srv.port)
+
+    def call(method, path, body=None, want=200,
+             ctype="application/json"):
+        st, r = client.call(method, path, body, ctype)
+        check(st == want, f"21: {method} {path} answered {st} (want {want}: "
+                          f"{str(r)[:300]})")
+        return r
+
+    def item(name, fn, reps=1):
+        """``fn`` ``reps`` times, synced: its p50, the plane of its answer
+        and the launches of its first run."""
+        before = dict(cuda_kernels.LAUNCHES)
+        xs, out, launched = [], None, {}
+        for i in range(reps):
+            t0 = time.perf_counter()
+            r = fn()
+            if on_card:
+                torch.cuda.synchronize()
+            xs.append((time.perf_counter() - t0) * 1000)
+            if i == 0:
+                out = r
+                launched = {k: v - before.get(k, 0) for k, v in
+                            cuda_kernels.LAUNCHES.items()
+                            if v != before.get(k, 0)}
+        plane = (out.get("_plane", "host fan-out")
+                 if isinstance(out, dict) and "hits" in out else None)
+        row = {"p50_ms": float(np.median(xs)), "samples": len(xs),
+               "plane": plane, "launches": launched}
+        report["items"][name] = row
+        log(f"[phase 21] {name}: {json.dumps(row)} ({smi})")
+        return out
+
+    def search(expr, body, name=None, reps=1):
+        fn = lambda: call("POST", f"/{expr}/_search", body)  # noqa: E731
+        return item(name, fn, reps) if name else fn()
+
+    def keys(r):
+        return [(h["_index"], h["_id"], h["_score"]) for h in
+                r["hits"]["hits"]]
+
+    def transient(values):
+        return call("PUT", "/_cluster/settings", {"transient": values})
+
+    def committed():
+        return call("GET", "/_cluster/settings")["transient"]
+
+    match = {"match": {"title": " ".join(tok(t) for t in queries[1])}}
+    body_mt = {"query": match, "size": 10,
+               "aggs": {"v": {"terms": {"field": "venue", "size": 10}}}}
+    body_agg = {"size": 0, "query": match,
+                "aggs": {"v": {"terms": {"field": "venue", "size": 10}}}}
+    cuda_kernels.reset_launch_counts()
+    t_main = time.perf_counter()
+    with recording_recovered_path(tsc, ssum, knn) as kept:
+        # ---- 21a: aliases and templates ------------------------------
+        for name in ("logs-a", "logs-b"):
+            call("PUT", f"/{name}", {"settings": {
+                "number_of_shards": 4, "refresh_interval": "-1",
+                "search": {"mesh": False}}, "mappings": dv_mapping})
+        call("PUT", "/_template/logs", {
+            "index_patterns": ["logs-*"], "order": 1,
+            "settings": {"number_of_shards": 4, "refresh_interval": "-1",
+                         # headroom for 21d's appended segments; no
+                         # compaction (a merge re-parses the stored
+                         # sources, which hold no title here)
+                         "search": {"mesh": {"max_slots_per_device": 8}},
+                         "staging": {"compact": {"threshold": 0}}},
+            "mappings": dv_mapping, "aliases": {"logs": {}}})
+        call("PUT", "/logs-c")
+        for name in ("logs-a", "logs-b", "logs-c"):
+            for sh, seg in enumerate(dv_segs):
+                g7.indices[name].shards[sh].engine.adopt_segment(seg)
+        report["logs_docs"] = 3 * sum(s.live_doc_count for s in dv_segs)
+        call("POST", "/_aliases", {"actions": [
+            {"add": {"indices": ["logs-a", "logs-b"], "alias": "logs"}},
+            {"add": {"index": "logs-c", "alias": "kibana"}},
+            {"add": {"index": "logs-c", "alias": "v1",
+                     "filter": {"term": {"venue": "v0001"}},
+                     "search_routing": "1"}}]})
+        md = g7.cluster_service.state.indices["logs-c"]
+        check(md.settings.get_int("index.search.mesh.max_slots_per_device")
+              == 8 and set(md.aliases) == {"logs", "kibana", "v1"},
+              f"21a: logs-c took the template's settings and alias "
+              f"({sorted(md.aliases)})")
+        by_alias = search("logs", body_mt, "21a match+terms through logs "
+                                           "(3 indices)", reps=3)
+        by_glob = search("logs-*", body_mt, "21a match+terms through logs-*")
+        by_names = search("logs-a,logs-b,logs-c", body_mt,
+                          "21a match+terms by the three names", reps=3)
+        check(keys(by_alias) == keys(by_glob) == keys(by_names)
+              and by_alias["hits"]["total"] == by_glob["hits"]["total"]
+              == by_names["hits"]["total"]
+              and by_alias["aggregations"] == by_glob["aggregations"]
+              == by_names["aggregations"]
+              and by_alias["_shards"]["total"] == 12,
+              "21a: logs, logs-* and the three names give the same hits, "
+              "totals and buckets")
+        kib = search("kibana", body_mt, "21a match+terms through kibana "
+                                        "(logs-c)", reps=3)
+        by_c = search("logs-c", body_mt, "21a match+terms on logs-c by "
+                                         "name", reps=3)
+        host_a = search("logs-a", body_mt, "21a match+terms on logs-a "
+                                           "(host rung)")
+        check(kib.get("_plane") == by_c.get("_plane") == "mesh_pallas"
+              and keys(kib) == keys(by_c),
+              f"21a: kibana answers on logs-c's mesh_pallas as logs-c does "
+              f"({kib.get('_plane')})")
+        same_response(kib, host_a, "21a kibana (mesh_pallas) against the "
+                                   "host rung over the same segments",
+                      claim="answers equal")
+        # the log pattern's totals: three indices over one set of segments
+        check(by_alias["hits"]["total"] == 3 * host_a["hits"]["total"],
+              "21a: the pattern's total is three times one index's")
+        filtered = search("v1", {"query": match, "size": 0},
+                          "21a filtered alias v1 (ROADMAP C19)")
+        check(filtered["hits"]["total"] == by_c["hits"]["total"],
+              f"21a: the filtered alias answers as the index does "
+              f"({filtered['hits']['total']}, C19)")
+        rows = call("GET", "/_cat/aliases?format=json")
+        check(sorted((r["alias"], r["index"], r["filter"]) for r in rows)
+              == [("kibana", "logs-c", "-"), ("logs", "logs-a", "-"),
+                  ("logs", "logs-b", "-"), ("logs", "logs-c", "-"),
+                  ("v1", "logs-c", "*")], f"21a: _cat/aliases ({rows})")
+        rows = call("GET", "/_cat/templates?format=json")
+        check([(r["name"], r["index_patterns"]) for r in rows]
+              == [("logs", "[logs-*]")], f"21a: _cat/templates ({rows})")
+        check(set(call("GET", "/_alias/logs"))
+              == {"logs-a", "logs-b", "logs-c"}, "21a: GET _alias/logs")
+
+        # ---- 21b: stored scripts and search templates ----------------
+        # a string source: the size goes in unquoted, as a number
+        source = ('{"query": {"match": {"title": "{{q}}"}}, "size": {{n}}, '
+                  '"aggs": {"v": {"terms": {"field": "venue", "size": 10}}}}')
+        params = {"q": match["match"]["title"], "n": 10}
+        call("PUT", "/_scripts/q", {"script": {"lang": "mustache",
+                                               "source": source}})
+        by_id = item("21b _search/template by id (kibana)", lambda: call(
+            "POST", "/kibana/_search/template", {"id": "q",
+                                                 "params": params}), reps=3)
+        inline = item("21b _search/template inline (kibana)", lambda: call(
+            "POST", "/kibana/_search/template", {"source": source,
+                                                 "params": params}))
+        rendered = call("POST", "/_render/template", {"id": "q",
+                                                      "params": params})
+        check(rendered["template_output"] == body_mt,
+              "21b: _render/template gives the plain body")
+        check(keys(by_id) == keys(inline) == keys(kib)
+              and by_id["aggregations"] == kib["aggregations"]
+              and by_id.get("_plane") == "mesh_pallas",
+              "21b: the template's hits equal the plain body's")
+
+        # ---- 21c: dynamic cluster settings on the card's planes ------
+        call("PUT", "/pk4", {"settings": {
+            "number_of_shards": 4, "refresh_interval": "-1",
+            "search": {"pallas": {"postings_codec": "packed"}}},
+            "mappings": {"_doc": {"properties": {
+                "title": {"type": "text"}, "venue": {"type": "keyword"},
+                "year": {"type": "long"}}}}})
+        for sh, segs in enumerate(pk_segs):
+            for seg in segs:
+                g7.indices["pk4"].shards[sh].engine.adopt_segment(seg)
+        pr_body = {"query": {"match": {"title": " ".join(
+            tok(t) for t in queries[0])}}, "size": 10}
+        sel = "tile_scoring_topk_sel_packed"
+        exhaustive = search("pk4", pr_body, "21c pk4 exhaustive (packed)")
+        t0 = time.perf_counter()
+        transient({"search.pallas.pruning.enabled": True})
+        pruned = search("pk4", pr_body, "21c pk4 pruned (transient)",
+                        reps=3)
+        report["pruning_toggle_ms"] = (time.perf_counter() - t0) * 1000
+        check(committed() == {"search": {"pallas": {"pruning": {
+            "enabled": True}}}}, "21c: _cluster/settings shows pruning")
+        check("_pruned" in pruned, "21c: the transient setting prunes")
+        # (a pruned total is a lower bound: the hits are held)
+        same_response({"hits": dict(pruned["hits"], total=0)},
+                      {"hits": dict(exhaustive["hits"], total=0)},
+                      "21c the pruned top 10 against the exhaustive ones",
+                      claim="answers equal")
+        if on_card:
+            check(report["items"]["21c pk4 pruned (transient)"][
+                "launches"].get(sel, 0) > 0, "21c: pruning launched 1e packed")
+        transient({"search.pallas.pruning.enabled": None})
+        cleared = search("pk4", pr_body, "21c pk4 pruning cleared")
+        check("_pruned" not in cleared and keys(cleared) == keys(exhaustive)
+              and not report["items"]["21c pk4 pruning cleared"][
+                  "launches"].get(sel) and committed() == {},
+              "21c: clearing pruning stops 1e and answers exhaustively")
+        # fused aggregations on logs-c's mesh
+        ms = g7.indices["logs-c"]._mesh_plane()
+        fused0 = ms.agg_fused_query_total
+        by0 = dict(ms.agg_host_fallback_by_reason)
+        g0, m0 = len(kept[1]), len(kept[2])
+        transient({"search.aggs.fused": False})
+        host_red = search("logs-c", body_agg, "21c logs-c terms, "
+                                              "aggs.fused false (host "
+                                              "reduce)")
+        g1, m1 = len(kept[1]), len(kept[2])
+        check(ms.agg_fused_query_total == fused0
+              and ms.agg_host_fallback_by_reason.get("disabled", 0)
+              == by0.get("disabled", 0) + 1,
+              f"21c: aggs.fused false takes the host reduce (reason "
+              f"disabled: {ms.agg_host_fallback_by_reason})")
+        transient({"search.aggs.fused": None})
+        fused = search("logs-c", body_agg, "21c logs-c terms, fused again")
+        g2, m2 = len(kept[1]), len(kept[2])
+        check(ms.agg_fused_query_total == fused0 + 1
+              and host_red["aggregations"] == fused["aggregations"]
+              == kib["aggregations"],
+              "21c: cleared, the fused plane serves the same buckets")
+        if on_card:
+            check(g1 > g0 and m1 == m0 and m2 > m1 and g2 == g1,
+                  f"21c: kernel 2's gather form on the host reduce, the mask "
+                  f"form fused (gather {g0}->{g1}->{g2}, mask {m0}->{m1}->"
+                  f"{m2})")
+        # kNN on pmc4
+        knn_mesh = search("pmc4", knn_body, "21c pmc4 kNN (mesh)")
+        t0 = time.perf_counter()
+        transient({"search.knn.enabled": False})
+        knn_host = search("pmc4", knn_body, "21c pmc4 kNN, knn.enabled "
+                                            "false")
+        report["knn_toggle_ms"] = (time.perf_counter() - t0) * 1000
+        check(knn_mesh.get("_plane") == "mesh_pallas"
+              and knn_host.get("_plane") == "host",
+              f"21c: knn.enabled false serves kNN on the host rung "
+              f"({knn_host.get('_plane')})")
+        same_knn_response(knn_host, knn_mesh, 2e-6, "21c kNN on the host "
+                                                    "rung against the mesh",
+                          claim="answers equal")
+        transient({"search.knn.enabled": None})
+        knn_back = search("pmc4", knn_body, "21c pmc4 kNN, cleared")
+        check(knn_back.get("_plane") == "mesh_pallas"
+              and keys(knn_back) == keys(knn_mesh),
+              "21c: cleared, kNN is back on the mesh")
+        if on_card:
+            check(report["items"]["21c pmc4 kNN, cleared"]["launches"].get(
+                "knn_scoring", 0) > 0 and not report["items"][
+                "21c pmc4 kNN, knn.enabled false"]["launches"].get(
+                "knn_scoring"), "21c: kernel 3 only on the mesh")
+        # the HBM budget below what is staged
+        staged = memory_accountant().stats(None)["staged_bytes_total"]
+        ev0 = memory_accountant().evictions_total
+        t0 = time.perf_counter()
+        transient({"search.memory.hbm_budget_bytes": "1b"})
+        demoted = search("logs-c", body_mt, "21c logs-c, budget 1b")
+        report["budget_toggle_ms"] = (time.perf_counter() - t0) * 1000
+        stats = next(iter(call("GET", "/_nodes/stats")["nodes"].values()))
+        mem = stats["indices"]["search"]["memory"]
+        check(demoted.get("_plane") == "host",
+              f"21c: over budget logs-c demotes to the host rung "
+              f"({demoted.get('_plane')})")
+        same_response(demoted, by_c, "21c the demoted answer against the "
+                                     "mesh's", claim="answers equal")
+        check(mem["hbm_budget_bytes"] == 1
+              and stats["breakers"]["accounting"]["limit_size_in_bytes"] == 1
+              and mem["evictions_total"] > ev0,
+              f"21c: _nodes/stats shows the budget and the evictions "
+              f"({mem['evictions_total']} after {ev0}; {staged} B staged)")
+        state = call("GET", "/_cluster/state")
+        check(state["metadata"]["cluster_settings"]["transient"] == {
+            "search": {"memory": {"hbm_budget_bytes": "1b"}}},
+            "21c: _cluster/state shows the budget")
+        transient({"search.memory.hbm_budget_bytes": None})
+        back = search("logs-c", body_mt, "21c logs-c, budget cleared")
+        check(back.get("_plane") == "mesh_pallas"
+              and memory_accountant().budget_bytes == 0 and committed() == {},
+              "21c: cleared, the mesh serves logs-c again")
+        same_response(back, by_c, "21c the restaged answer against the "
+                                  "first", claim="answers equal")
+
+        # ---- 21d: index settings, open/close, stats ------------------
+        call("PUT", "/logs-c/_settings", {"index.refresh_interval": "1s"})
+        check(g7.indices["logs-c"].refresh_interval == 1.0,
+              "21d: logs-c's refresh interval is 1s")
+        restage0, delta0 = ms.restage_total, ms.delta_restage_total
+        waits = {}
+        for interval in ("1s", "-1"):
+            if interval == "-1":
+                call("PUT", "/logs-c/_settings",
+                     {"index": {"refresh_interval": "-1"}})
+            lat = []
+            for i in range(WAIT_FOR_WRITES):
+                doc_id = f"w{interval}-{i}"
+                t0 = time.perf_counter()
+                # (no keyword: its norm row would exceed the staged
+                # generation's one and force a rebuild)
+                call("PUT", f"/logs-c/_doc/{doc_id}?refresh=wait_for",
+                     {"title": f"{tok(3)} fresh{i}", "year": 2020,
+                      "ts": AGG_T0, "citations": i}, want=201)
+                lat.append((time.perf_counter() - t0) * 1000)
+                if interval == "1s" and i == 0:
+                    first = search("kibana", body_mt, "21d first answer "
+                                                      "after a wait_for "
+                                                      "write")
+                    check(ms.delta_restage_total > delta0
+                          and ms.restage_total == restage0
+                          and first.get("_plane") == "mesh_pallas",
+                          f"21d: the first answer took the delta append "
+                          f"(delta {delta0}->{ms.delta_restage_total}, "
+                          f"rebuilds {restage0}->{ms.restage_total})")
+                seen = search("logs-c", {"query": {"ids": {
+                    "values": [doc_id]}}})
+                check(seen["hits"]["total"] == 1,
+                      f"21d: the wait_for write {doc_id} is visible")
+            waits[interval] = float(np.median(lat))
+        report["wait_for_p50_ms"] = waits
+        check(g7.indices["logs-c"]._refresh_thread is None,
+              "21d: -1 stopped logs-c's refresh thread")
+        before = search("logs-*", body_mt)
+        call("POST", "/logs-b/_close")
+        closed = search("logs-*", body_mt, "21d logs-* with logs-b closed")
+        check(closed["_shards"]["total"] == 8
+              and all(h["_index"] != "logs-b"
+                      for h in closed["hits"]["hits"]),
+              "21d: logs-* skips the closed logs-b")
+        call("POST", "/logs-b/_search", body_mt, want=400)
+        call("POST", "/logs-b/_open")
+        after = search("logs-*", body_mt, "21d logs-* after _open")
+        check(keys(after) == keys(before)
+              and after["hits"]["total"] == before["hits"]["total"]
+              and after["aggregations"] == before["aggregations"],
+              "21d: _open brings back the same answers")
+        call("PUT", "/logs-c/_mapping", {"properties": {
+            "tag": {"type": "keyword"}}})
+        check(call("GET", "/logs-c/_mapping")["logs-c"]["mappings"]["_doc"][
+            "properties"]["tag"] == {"type": "keyword"},
+              "21d: PUT _mapping added a field")
+        stats = item("21d _stats on logs-a,logs-b (2,097,152 docs)",
+                     lambda: call("GET", "/logs-a,logs-b/_stats"), reps=3)
+        engines = {n: sum(sh.engine.num_docs for sh in
+                          g7.indices[n].shards.values())
+                   for n in ("logs-a", "logs-b", "logs-c")}
+        check(all(stats["indices"][n]["total"]["docs"]["count"] == engines[n]
+                  for n in ("logs-a", "logs-b"))
+              and stats["_all"]["total"]["docs"]["count"]
+              == engines["logs-a"] + engines["logs-b"],
+              f"21d: _stats doc counts equal the engines' ({engines})")
+        segs = call("GET", "/logs-c/_segments")
+        check(sum(s["num_docs"] - s["deleted_docs"]
+                  for copies in segs["indices"]["logs-c"]["shards"].values()
+                  for c in copies for s in c["segments"].values())
+              == engines["logs-c"], "21d: _segments' live docs")
+        rows = call("GET", "/_cat/shards/logs-c?format=json")
+        check(sum(int(r["docs"]) for r in rows) == engines["logs-c"]
+              and len(rows) == 4, "21d: _cat/shards' docs")
+        rows = call("GET", "/_cat/segments?format=json&h=index,docs.count,"
+                           "docs.deleted")
+        check(sum(int(r["docs.count"]) - int(r["docs.deleted"])
+                  for r in rows if r["index"] == "logs-c")
+              == engines["logs-c"], "21d: _cat/segments' live docs")
+
+        # ---- 21e: the global _state across a restart -----------------
+        path = tempfile.mkdtemp(prefix="p21_")
+        try:
+            report["restart"] = _metadata_restart(Node, HttpServer, path,
+                                                  device, item)
+        finally:
+            shutil.rmtree(path, ignore_errors=True)
+        if on_card:
+            check(report["items"]["21e pruned request after the reopen"][
+                "launches"].get(sel, 0) > 0,
+                "21e: the reopened node's pruned request launched 1e packed")
+    if on_card:
+        torch.cuda.synchronize()
+    report["main_s"] = time.perf_counter() - t_main
+    p21 = {k: v for k, v in cuda_kernels.LAUNCHES.items() if v}
+    log(f"[phase 21] kernel launches: {p21}")
+    client.close()
+    srv.stop()
+    t0 = time.perf_counter()
+    if on_card:
+        held, report["max_abs_err"] = hold_recovered_path(
+            torch, tsc, ssum, knn, kept, p21, errs, "phase 21")
+        for k in ("tile_scoring", sel, "segment_sum", "knn_scoring"):
+            check(p21.get(k, 0) > 0, f"phase 21 launched {k}")
+        report["forms"] = {"segment_sum_gather_form": len(kept[1]),
+                           "segment_sum_mask_form": len(kept[2])}
+    else:
+        held = {}
+    report["held"] = held
+    del kept
+    report["hold_s"] = time.perf_counter() - t0
+    for name in ("logs-a", "logs-b", "logs-c", "pk4"):
+        g7.delete_index(name)
+    call_fails = plane_failures(g7.indices["pmc4"])
+    check(not any(call_fails), f"phase 21: zero plane faults "
+                               f"({call_fails})")
+    report["launches"] = p21
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[phase 21] {report['seconds']:.1f} s (main path "
+        f"{report['main_s']:.1f}, hold {report['hold_s']:.1f}); " + json.dumps(
+            {k: report.get(k) for k in (
+                "pruning_toggle_ms", "knn_toggle_ms", "budget_toggle_ms",
+                "wait_for_p50_ms", "held", "max_abs_err", "forms")})
+        + f" ({smi})")
+    return report
+
+
+def _metadata_restart(Node, HttpServer, path, device, item):
+    """21e on a durable node at ``path``: the global metadata and an alias
+    across a close and a reopen."""
+    out = {}
+    mapping = {"_doc": {"properties": {
+        "body": {"type": "text", "analyzer": "whitespace"},
+        "n": {"type": "long"}}}}
+    node = Node(data_path=path, device=device)
+    srv = HttpServer(node, port=0)
+    srv.start()
+    client = HttpClient(srv.port)
+    try:
+        for method, p, body in (
+                ("PUT", "/_template/sm", {"index_patterns": ["sm-*"],
+                                          "order": 2, "settings": {
+                                              "number_of_shards": 2}}),
+                ("PUT", "/_cluster/settings", {"persistent": {
+                    "search.pallas.pruning.enabled": True,
+                    "search.pallas.pruning.probe_tiles": 2}}),
+                ("PUT", "/_scripts/s1", {"script": {
+                    "lang": "mustache", "source": {"query": {"match": {
+                        "body": "{{q}}"}}}}}),
+                ("PUT", "/small", {"settings": {
+                    "number_of_shards": 2, "refresh_interval": "-1",
+                    "search": {"pallas": {"postings_codec": "packed"}}},
+                    "mappings": mapping, "aliases": {"sm": {}}})):
+            st, r = client.call(method, p, body)
+            check(st == 200, f"21e: {method} {p} ({st} {str(r)[:200]})")
+        lines = []
+        for doc_id, src in small_prune_docs(SMALL_DOCS):
+            lines += [{"index": {"_index": "small", "_id": doc_id}}, src]
+        st, r = client.call(
+            "POST", "/_bulk?refresh=true",
+            ("\n".join(json.dumps(x) for x in lines) + "\n").encode(),
+            "application/x-ndjson")
+        check(st == 200 and not r["errors"], "21e: the bulk")
+    finally:
+        client.close()
+        srv.stop()
+    t0 = time.perf_counter()
+    node.close()
+    out["close_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    node2 = Node(data_path=path, device=device)
+    out["reopen_s"] = time.perf_counter() - t0
+    srv = HttpServer(node2, port=0)
+    srv.start()
+    client = HttpClient(srv.port)
+    try:
+        st, s = client.call("GET", "/_cluster/settings")
+        check(st == 200 and s["persistent"] == {"search": {"pallas": {
+            "pruning": {"enabled": True, "probe_tiles": 2}}}},
+              f"21e: the persistent settings came back ({s})")
+        st, t = client.call("GET", "/_template/sm")
+        check(st == 200 and t["sm"]["order"] == 2, "21e: the template")
+        st, sc = client.call("GET", "/_scripts/s1")
+        check(st == 200 and sc["found"], "21e: the stored script")
+        st, a = client.call("GET", "/_alias/sm")
+        check(st == 200 and set(a) == {"small"}, "21e: the alias")
+        body = {"query": {"match": {"body": "t0 t3 t7"}}, "size": 10}
+        r = item("21e pruned request after the reopen", lambda: client.call(
+            "POST", "/sm/_search", body)[1])
+        check("_pruned" in r and r["hits"]["hits"],
+              f"21e: the reopened node prunes ({str(r)[:200]})")
+        st, r2 = client.call("POST", "/sm/_search/template", {
+            "id": "s1", "params": {"q": "t0 t3 t7"}})
+        check(st == 200 and [h["_id"] for h in r2["hits"]["hits"]]
+              == [h["_id"] for h in r["hits"]["hits"]],
+              "21e: the stored template after the reopen")
+    finally:
+        client.close()
+        srv.stop()
+        node2.close()
     return out
 
 
@@ -9849,12 +10469,29 @@ def main() -> int:
     # ---------------- phase 20: scripting, update and mget ----------------
     # (over phase 12's and phase 3's indices; closes phase 12's nodes)
     clock("phase 20")
+    dv_segs, dv_mapping = p12_nodes[2], p12_nodes[4]
     script_report = scripting_phase(
         torch, cuda_kernels, tsc, ssum, knn, p12_nodes, gnode, cnode, ops,
         queries, batch_errs)
     del p12_nodes
     seg_held["phase 20"] = script_report["held"].get("segment_sum", 0)
     for k, v in script_report["launches"].items():
+        launches[k] += v
+
+    # ---------------- phase 21: cluster metadata -------------------------
+    # (over phase 7's node and phase 12's doc-values segments, adopted
+    # again; before phase 13 needs the card's memory back)
+    clock("phase 21")
+    from elasticsearch_tpu_torch.rest.http_server import HttpServer
+
+    pk_segs = [list(sh.engine.segments) for _sid, sh in
+               sorted(gP.indices["pmc4p"].shards.items())]
+    meta_report = cluster_metadata_phase(
+        torch, Node, HttpServer, cuda_kernels, tsc, ssum, knn, g7, pk_segs,
+        dv_segs, dv_mapping, queries, knn_bodies[0][1], batch_errs, smi)
+    del dv_segs
+    seg_held["phase 21"] = meta_report["held"].get("segment_sum", 0)
+    for k, v in meta_report["launches"].items():
         launches[k] += v
 
     # ---------------- phase 13: durability on the card -------------------
@@ -10021,6 +10658,7 @@ def main() -> int:
         "query_dsl": qdsl_report, "sort_paging": sort_report,
         "field_types": geo_report, "nested": nested_report,
         "search_request": request_report, "scripting": script_report,
+        "cluster_metadata": meta_report,
         "sound_answers_checked": SOUND["checked"]}
     for name, key, replaces, extra in (
             ("tile_scoring_packed", "tile_scoring_packed", 656,

@@ -25,10 +25,10 @@ no staging fault: ``run_staged`` re-raises it untouched and unrecorded,
 and it raises to the caller; no rung serves in a kernel's place.
 
 The retry knobs are node settings: the node seeds the process-level
-config at startup (``configure_staging_retry``). Their dynamic update
-through ``PUT _cluster/settings`` waits for the port's cluster settings
-API, and the JAX package's cancellation pass-through waits for the
-port's task cancellation.
+config at startup (``configure_staging_retry``), and ``PUT
+_cluster/settings`` updates it (an explicit cluster value wins, clearing
+it reverts to the node's). The JAX package's cancellation pass-through
+waits for the port's task cancellation.
 """
 
 from __future__ import annotations

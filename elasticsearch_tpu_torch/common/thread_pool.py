@@ -147,6 +147,17 @@ class _Executor:
                 raise exc from None
         return future
 
+    def resize_queue(self, queue_size: int) -> None:
+        """A dynamic queue bound (``search.queue.size``): the stdlib queue
+        checks ``maxsize`` at each put, so changing it under the queue's
+        mutex bounds every later submit; queued work is never dropped by
+        a shrink."""
+        queue_size = max(1, int(queue_size))
+        with self._queue.mutex:
+            self._queue.maxsize = queue_size
+            self._queue.not_full.notify_all()
+        self.queue_size = queue_size
+
     def stats(self) -> PoolStats:
         with self._lock:
             return PoolStats(

@@ -16,6 +16,8 @@ Lucene's IndexWriter replaced by the block-packing ``SegmentBuilder``):
   their nested sub-segments from their sources; the legacy ``_parent``
   values carry over); the retired segments return their device bytes to
   the ledger.
+- ``add_refresh_listener()``: a callable fired by the refresh that makes
+  the pending ops visible (``refresh=wait_for``).
 - ``recover_from_translog()``: replay the uncommitted ops after a restart
   (the seqno staleness guard makes a replay idempotent).
 - updates/deletes tombstone the old doc; against a sealed segment the
@@ -94,6 +96,9 @@ class Engine:
         self.flush_count = 0
         self.indexing_total = 0
         self.delete_total = 0
+        # refresh=wait_for: callables fired by the refresh that makes the
+        # pending ops visible
+        self._refresh_listeners: List = []
         # postings-codec preference stamped on each searchable segment
         # (IndexService sets both from the index settings)
         self.postings_codec: Optional[str] = None
@@ -374,6 +379,8 @@ class Engine:
                         seg.delete_docs(np.asarray(locals_, dtype=np.int64))
                 self._pending_seg_deletes = []
             if self.buffer.num_docs == 0:
+                if applied_deletes:
+                    self._fire_refresh_listeners()
                 return applied_deletes
             seg = self.buffer.seal()
             self._stamp_owner(seg)
@@ -385,7 +392,23 @@ class Engine:
             self.segments.append(seg)
             self.buffer = self._new_builder()
             self._buffer_deletes = set()
+            self._fire_refresh_listeners()
             return True
+
+    def _fire_refresh_listeners(self) -> None:
+        for listener in self._refresh_listeners:
+            listener()
+        self._refresh_listeners = []
+
+    def add_refresh_listener(self, listener) -> None:
+        """``refresh=wait_for``: fire ``listener`` once the pending ops are
+        visible, at once when nothing is pending (neither buffered docs
+        nor deletes against sealed segments), else at the next refresh."""
+        with self._lock:
+            if self.buffer.num_docs == 0 and not self._pending_seg_deletes:
+                listener()
+            else:
+                self._refresh_listeners.append(listener)
 
     # ------------------------------------------------------------------
     # Flush / merge / translog replay

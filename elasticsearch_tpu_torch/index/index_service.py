@@ -94,11 +94,21 @@ staged slot's tombstone density or the slot fragmentation reaches the
 threshold; the pass force-merges the dense or fragmented shards and
 restages a compact generation. The request cache, admission control,
 scrubbing and the telemetry registry are later slices.
+
+The scheduled refresh: a thread refreshes every shard each
+``index.refresh_interval`` (1 s by default, none at -1; a failed refresh
+is logged and the timer goes on); ``update_settings`` restarts it on a
+new interval, and ``close`` stops and joins it. The ``*_override``
+attributes hold the cluster-level values of the dynamic pruning, kNN,
+fused-aggregation and delta-staging knobs while ``PUT
+_cluster/settings`` sets them (``Node.put_cluster_settings``); the mesh
+plane reads them first. ``stats`` gives the ``_stats`` sections.
 """
 
 from __future__ import annotations
 
 import copy
+import logging
 import os
 import threading
 import time
@@ -118,7 +128,9 @@ from elasticsearch_tpu_torch.common.errors import (
 from elasticsearch_tpu_torch.common.settings import (
     INDEX_MAPPING_DENSE_VECTOR_MAX_DIMS,
     INDEX_NUMBER_OF_REPLICAS,
+    INDEX_MAX_SLICES_PER_SCROLL,
     INDEX_NUMBER_OF_SHARDS,
+    INDEX_REFRESH_INTERVAL,
     INDEX_SEARCH_MESH,
     INDEX_SEARCH_MESH_MAX_SLOTS,
     INDEX_SEARCH_MESH_PLANE,
@@ -169,6 +181,8 @@ from elasticsearch_tpu_torch.search.service import (
 from elasticsearch_tpu_torch.search.telemetry import NULL_TRACER, tracer_for
 from elasticsearch_tpu_torch.utils.murmur3 import shard_id_for
 
+_refresh_log = logging.getLogger("elasticsearch_tpu_torch.index.refresh")
+
 
 class IndexService:
     def __init__(self, name: str, settings: Settings = Settings.EMPTY,
@@ -192,8 +206,28 @@ class IndexService:
                         SEARCH_PALLAS_PRUNING_ENABLED,
                         SEARCH_PALLAS_PRUNING_PROBE_TILES,
                         INDEX_STAGING_DELTA_ENABLED,
-                        INDEX_STAGING_COMPACT_THRESHOLD):
+                        INDEX_STAGING_COMPACT_THRESHOLD,
+                        INDEX_MAX_SLICES_PER_SCROLL):
             setting.get(settings)
+        # the scheduled refresh's period in seconds; <= 0: none
+        self.refresh_interval = INDEX_REFRESH_INTERVAL.get(settings)
+        # the _stats counters of index-level calls (a scheduled refresh
+        # goes to the shards and counts in their engines only)
+        self._stats_lock = threading.Lock()
+        self._get_total = 0
+        self._refresh_total = 0
+        self._flush_total = 0
+        # cluster-level overrides of dynamic index settings (Node's
+        # put_cluster_settings sets them while the cluster setting is
+        # explicitly set, and clears them back to None): the index's own
+        # settings win while one is None
+        self.pruning_enabled_override: Optional[bool] = None
+        self.pruning_probe_override: Optional[int] = None
+        self.knn_enabled_override: Optional[bool] = None
+        self.knn_tile_sub_override: Optional[int] = None
+        self.aggs_fused_override: Optional[bool] = None
+        self.staging_delta_enabled_override: Optional[bool] = None
+        self.staging_compact_threshold_override: Optional[float] = None
         self.analyzers = AnalysisRegistry(settings)
         self.mapper_service = MapperService(
             self.analyzers, mapping,
@@ -201,10 +235,6 @@ class IndexService:
             dense_vector_max_dims=INDEX_MAPPING_DENSE_VECTOR_MAX_DIMS.get(
                 settings))
         self.data_path = data_path
-        # a durable node's _meta.json keeps these as it read them (the port
-        # has no alias API), and the mapping it last wrote
-        self.aliases: dict = {}
-        self.persisted_mapping: Optional[dict] = None
         durability = INDEX_TRANSLOG_DURABILITY.get(settings)
         # the postings codec of the tile kernel's staging: the index's
         # preference ("default" follows the node's search.pallas.
@@ -235,8 +265,8 @@ class IndexService:
             shard.engine.postings_codec_default = self.postings_codec_default
             # slice resolution is shard-count aware (SliceBuilder)
             shard.searcher.num_shards = self.num_shards
-            shard.searcher.max_slices = settings.get_int(
-                "index.max_slices_per_scroll", 1024)
+            shard.searcher.max_slices = INDEX_MAX_SLICES_PER_SCROLL.get(
+                settings)
             self.shards[sid] = shard
             try:
                 if not shard.has_disk_state():
@@ -259,6 +289,67 @@ class IndexService:
             max_queries=SEARCH_BATCH_MAX_QUERIES.get(settings),
             enabled=SEARCH_BATCH_ENABLED.get(settings),
             stats=self.batch_stats)
+        self._refresh_stop: Optional[threading.Event] = None
+        self._refresh_thread: Optional[threading.Thread] = None
+        self._start_refresh_timer()
+
+    # ------------------------------------------------------------------
+    # The scheduled refresh and dynamic settings
+    # ------------------------------------------------------------------
+
+    def _start_refresh_timer(self) -> None:
+        """Refresh every shard each ``index.refresh_interval`` on a
+        thread of its own (none at -1); a failed refresh is logged and
+        the timer goes on."""
+        interval = self.refresh_interval
+        if interval is None or interval <= 0:
+            return
+        stop = threading.Event()
+
+        def refresh_loop():
+            while not stop.wait(interval):
+                for shard in list(self.shards.values()):
+                    try:
+                        shard.refresh()
+                    except Exception:  # noqa: BLE001 — the timer goes on
+                        _refresh_log.warning(
+                            "[%s][%s] scheduled refresh failed", self.name,
+                            shard.shard_id, exc_info=True)
+
+        self._refresh_stop = stop
+        self._refresh_thread = threading.Thread(
+            target=refresh_loop, daemon=True, name=f"refresh[{self.name}]")
+        self._refresh_thread.start()
+
+    def _stop_refresh_timer(self) -> None:
+        """Stop the scheduled refresh and join its thread."""
+        if self._refresh_stop is None:
+            return
+        self._refresh_stop.set()
+        self._refresh_thread.join()
+        self._refresh_stop = self._refresh_thread = None
+
+    def update_settings(self, update: Settings) -> None:
+        """Apply a dynamic update of the index's settings (validated by
+        the node): the merged settings serve every later request; a new
+        ``index.refresh_interval`` restarts the timer, and
+        ``index.max_slices_per_scroll`` reaches the shards' searchers. The
+        write responses' replica count stays as created, as in the JAX
+        package (the cluster state's metadata holds the new one)."""
+        self.settings = self.settings.merged_with(update)
+        for shard in self.shards.values():
+            shard.searcher.max_slices = INDEX_MAX_SLICES_PER_SCROLL.get(
+                self.settings)
+        if INDEX_REFRESH_INTERVAL.key in update:
+            self._stop_refresh_timer()
+            self.refresh_interval = INDEX_REFRESH_INTERVAL.get(self.settings)
+            if not self._closing:
+                self._start_refresh_timer()
+
+    def put_mapping(self, mapping: dict) -> None:
+        """Merge new fields into the mapping (``PUT /{index}/_mapping``);
+        a conflicting type is a 400."""
+        self.mapper_service.merge(mapping)
 
     # ------------------------------------------------------------------
     # Routing + document ops
@@ -318,6 +409,8 @@ class IndexService:
 
     def get_doc(self, doc_id: str, routing: Optional[str] = None,
                 realtime: bool = True):
+        with self._stats_lock:
+            self._get_total += 1
         return self.shards[self._route(doc_id, routing)].get_doc(
             doc_id, realtime=realtime)
 
@@ -386,6 +479,8 @@ class IndexService:
         return self.index_doc(doc_id, new_source, routing)
 
     def refresh(self) -> None:
+        with self._stats_lock:
+            self._refresh_total += 1
         for shard in self.shards.values():
             shard.refresh()
 
@@ -397,12 +492,16 @@ class IndexService:
                 if not s.store_corrupted]
 
     def flush(self) -> None:
+        with self._stats_lock:
+            self._flush_total += 1
         for shard in self._healthy_shards():
             shard.flush()
 
     def synced_flush(self) -> Dict[int, str]:
         """Flush with a synced-flush marker on every healthy shard;
         returns {shard_id: sync_id}."""
+        with self._stats_lock:
+            self._flush_total += 1
         return {shard.shard_id: shard.synced_flush()
                 for shard in self._healthy_shards()}
 
@@ -446,6 +545,7 @@ class IndexService:
         self._batcher.enabled = False
         self._mesh_enabled = False
         self._closing = True
+        self._stop_refresh_timer()
         # a compaction pass in flight finishes its shard and stops
         with self._compact_lock:
             pass
@@ -515,8 +615,10 @@ class IndexService:
     # ------------------------------------------------------------------
 
     def _compact_threshold(self) -> float:
-        """``index.staging.compact.threshold``; <= 0 turns compaction off
-        (its dynamic update waits for the cluster settings API)."""
+        """``index.staging.compact.threshold``, the cluster-level override
+        first; <= 0 turns compaction off."""
+        if self.staging_compact_threshold_override is not None:
+            return float(self.staging_compact_threshold_override)
         return float(INDEX_STAGING_COMPACT_THRESHOLD.get(self.settings))
 
     def _compaction_due(self) -> bool:
@@ -1259,6 +1361,73 @@ class IndexService:
         }
         return {"planes": planes, "batch": self.batch_stats.as_dict(),
                 "memory": memory_accountant().stats(self.name)}
+
+    def stats(self) -> dict:
+        """The ``_stats`` sections (the JAX package's ``IndexService.stats``):
+        every section present, so a metric filter can subset; a counter
+        the port does not keep (times, merges, warmers, the query and
+        request caches it has no module for) reports zero."""
+        shard_stats = {sid: s.stats() for sid, s in self.shards.items()}
+
+        def total(section, key):
+            return sum(s[section][key] for s in shard_stats.values())
+
+        index_total = total("indexing", "index_total")
+        delete_total = total("indexing", "delete_total")
+        mem_bytes = total("segments", "memory_in_bytes")
+        fielddata_bytes = sum(
+            sum(seg.breaker_charges.values())
+            for sh in self.shards.values()
+            for seg in sh.engine.searchable_segments())
+        groups: Dict[str, dict] = {}
+        for st in shard_stats.values():
+            for g, gs in (st["search"].get("groups") or {}).items():
+                agg = groups.setdefault(g, {k: 0 for k in gs})
+                for k, v in gs.items():
+                    agg[k] += v
+        search = {"open_contexts": 0,
+                  "query_total": total("search", "query_total"),
+                  **self.search_stats()}
+        if groups:
+            search["groups"] = groups
+        totals = {
+            "docs": {"count": self.num_docs(), "deleted": 0},
+            "store": {"size_in_bytes": mem_bytes,
+                      "throttle_time_in_millis": 0},
+            "indexing": {
+                "index_total": index_total, "index_time_in_millis": 0,
+                "delete_total": delete_total, "index_failed": 0,
+                "types": {self.doc_type or "_doc": {
+                    "index_total": index_total, "index_time_in_millis": 0,
+                    "delete_total": delete_total}},
+            },
+            "get": {"total": self._get_total, "time_in_millis": 0,
+                    "exists_total": 0, "missing_total": 0, "current": 0},
+            "search": search,
+            "merges": {"current": 0, "current_docs": 0, "total": 0,
+                       "total_time_in_millis": 0, "total_docs": 0},
+            "refresh": {"total": self._refresh_total,
+                        "total_time_in_millis": 0, "listeners": 0},
+            "flush": {"total": self._flush_total,
+                      "total_time_in_millis": 0},
+            "warmer": {"current": 0, "total": 0, "total_time_in_millis": 0},
+            "query_cache": {"memory_size_in_bytes": 0, "total_count": 0,
+                            "hit_count": 0, "miss_count": 0,
+                            "cache_count": 0, "evictions": 0},
+            "fielddata": {"memory_size_in_bytes": fielddata_bytes,
+                          "evictions": 0},
+            "completion": {"size_in_bytes": 0},
+            "segments": {"count": total("segments", "count"),
+                         "memory_in_bytes": mem_bytes},
+            "translog": {"operations": total("translog", "operations"),
+                         "size_in_bytes": total("translog",
+                                                "size_in_bytes")},
+            "recovery": {"current_as_source": 0, "current_as_target": 0,
+                         "throttle_time_in_millis": 0},
+            "request_cache": {"memory_size_in_bytes": 0, "evictions": 0,
+                              "hit_count": 0, "miss_count": 0},
+        }
+        return {"primaries": totals, "total": totals, "shards": shard_stats}
 
 
 def _deep_merge(base: dict, patch: dict) -> dict:

@@ -1020,6 +1020,17 @@ class Segment:
             total += c.vectors.nbytes // 2 + c.exists.nbytes
         return total
 
+    def stats(self) -> dict:
+        """One ``_segments`` entry (the JAX package's ``Segment.stats``)."""
+        return {
+            "name": self.name,
+            "num_docs": self.num_docs,
+            "deleted_docs": self.num_docs - self.live_doc_count,
+            "num_terms": len(self.term_keys),
+            "num_posting_blocks": int(self.block_docs.shape[0]),
+            "memory_in_bytes": self.memory_bytes(),
+        }
+
     def staged_bytes(self) -> int:
         """Bytes this segment holds on its device."""
         tensors = {id(t): t for t in (

@@ -16,6 +16,7 @@ the slow logs and the ``_cat/recovery`` rows are later slices.
 
 from __future__ import annotations
 
+import base64
 import os
 from typing import Optional
 
@@ -178,6 +179,38 @@ class IndexShard:
             "local_checkpoint": self.engine.local_checkpoint,
             "global_checkpoint": self.engine.local_checkpoint,
         }
+
+    def stats(self) -> dict:
+        """The engine's counters with the searcher's, the routing state
+        and the seqno stats (the JAX package's ``IndexShard.stats``; a
+        shard without a data path reports an empty translog)."""
+        s = self.engine.stats()
+        if s["translog"] is None:
+            s["translog"] = {"operations": 0, "size_in_bytes": 0,
+                             "uncommitted_operations": 0}
+        searcher = self.searcher
+        s["search"] = {
+            "query_total": searcher.query_total,
+            "planes": {
+                "kernel_segments_total": searcher.kernel_segments_total,
+                "scatter_segments_total": searcher.scatter_segments_total,
+            },
+        }
+        if searcher.group_stats:
+            s["search"]["groups"] = {g: dict(v) for g, v
+                                     in searcher.group_stats.items()}
+        s["routing"] = {"state": self.state, "primary": True}
+        s["seq_no"] = self.seq_no_stats()
+        # the commit identity: stable per (shard, translog generation)
+        gen = s["translog"].get("generation", 0)
+        s["commit"] = {
+            "id": base64.b64encode(
+                f"{self.index_name}/{self.shard_id}/{gen}".encode()).decode(),
+            "generation": gen,
+            "user_data": {},
+            "num_docs": s["docs"]["count"],
+        }
+        return s
 
     def close(self) -> None:
         self.engine.close()

@@ -1,16 +1,37 @@
 """Node: the in-process server API.
 
 Counterpart of ``elasticsearch_tpu/node.py``, cut to this slice's entry
-points: ``create_index``, ``delete_index``, ``index_doc``, ``bulk``
-(index, create, update and delete lines), ``refresh``, ``get_doc``,
-``mget``, ``delete_doc``, ``update_doc``, ``search`` (one index through
-the index's micro-batcher and mesh plane; names, wildcards, comma lists
-and ``_all`` through ``resolve_search_indices``; ``search.batch.*``,
-``search.knn.*``, ``search.pallas.*`` and ``search.aggs.*`` node settings
-pass to every index: ``search.pallas.*`` is the postings codec's node
-default and block-max pruning, ``search.aggs.fused`` the fused
-aggregations), ``msearch`` (each entry served serially through ``search``,
-an index pattern in its header too) and ``health``.
+points: ``create_index``, ``delete_index``, ``close_index``,
+``open_index``, ``index_doc``, ``bulk`` (index, create, update and delete
+lines), ``refresh``, ``get_doc``, ``mget``, ``delete_doc``,
+``update_doc``, ``search`` (one index through the index's micro-batcher
+and mesh plane; names, aliases, wildcards, comma lists and ``_all``
+through ``resolve_search_indices``; ``search.batch.*``, ``search.knn.*``,
+``search.pallas.*`` and ``search.aggs.*`` node settings pass to every
+index: ``search.pallas.*`` is the postings codec's node default and
+block-max pruning, ``search.aggs.fused`` the fused aggregations),
+``msearch`` (each entry served serially through ``search``, an index
+pattern in its header too) and ``health``.
+
+Cluster metadata lives in a ``ClusterState`` behind a ``ClusterService``
+(``cluster/state.py``): each index's settings, mapping, aliases and
+open/close state, the index templates (applied at create time, lowest
+``order`` first), the persistent and transient cluster settings, and the
+stored scripts (``search/templates.py`` renders search templates from
+them). ``put_cluster_settings`` keeps the JAX package's explicitness
+contract: while a cluster value of a dynamic knob is set it overrides
+every index's own (``IndexService.*_override``), and clearing it with a
+null hands control back; the HBM budget, the staging retry and the
+search pool's queue follow the node's settings again once cleared.
+``update_index_settings`` changes an index's dynamic settings in place
+(a new ``index.refresh_interval`` restarts its scheduled refresh). An
+alias's ``filter`` and ``search_routing`` are stored and shown, and a
+search through the alias ignores both, as the JAX package's does
+(ROADMAP C19).
+
+A write's ``refresh=true`` refreshes the written shard; ``wait_for``
+blocks until the index's scheduled refresh has made it visible, and
+forces a refresh where the schedule is off (``-1``).
 
 A search gets one ``SearchDeadline`` (its ``timeout``, else
 ``search.default_search_timeout``) and the node's
@@ -39,16 +60,18 @@ tests.
 ``Node(settings, data_path=..., device=...)`` (or a ``path.data``
 setting) is durable, in the JAX package's layout: each index keeps
 ``<data_path>/indices/<name>/_meta.json`` (its settings, mapping and
-aliases) and one translog and store a shard under it. Opening a node over
-an existing data path recovers every index before it returns, and a
-recovered index stages its segments on the node's device lazily, as a
-new one does. ``flush``, ``synced_flush`` and ``force_merge`` take an
-index expression; ``close`` synced-flushes every index of a durable node
-before it releases them, so the next open replays nothing. Without a data
-path nothing is kept on disk (no translog either). There is no cluster
-state beside the ``indices`` dict, so no aliases or templates: a
-``_meta.json``'s ``aliases`` are kept as read and written back
-unchanged, and the JAX package's ``_state/`` directory is left unread.
+aliases) and one translog and store a shard under it, and
+``<data_path>/_state/global-meta.json`` holds the global metadata (the
+templates, the persistent cluster settings, the stored scripts, and the
+ingest pipelines and snapshot repositories, which the port reads back
+and writes again unchanged), rewritten atomically on every change of
+it. Opening a node over an existing data path recovers the global
+metadata, then every index, before it returns; a recovered index stages
+its segments on the node's device lazily, as a new one does. ``flush``,
+``synced_flush`` and ``force_merge`` take an index expression; ``close``
+synced-flushes every index of a durable node before it releases them, so
+the next open replays nothing. Without a data path nothing is kept on
+disk (no translog either).
 
 Scroll is point in time, as in the JAX package: ``search(index, body,
 scroll="1m")`` pins every shard's segment set and live masks
@@ -75,6 +98,14 @@ import time
 import uuid as _uuid
 from typing import Dict, List, Optional
 
+from elasticsearch_tpu_torch.cluster.state import (
+    ClusterService,
+    ClusterState,
+    DiscoveryNode,
+    IndexMetadata,
+    cluster_health,
+)
+from elasticsearch_tpu_torch.common import monitor
 from elasticsearch_tpu_torch.common.device import resolve_device
 from elasticsearch_tpu_torch.common.errors import (
     ActionRequestValidationException,
@@ -88,18 +119,34 @@ from elasticsearch_tpu_torch.common.errors import (
 from elasticsearch_tpu_torch.common.breaker import configure_breaker_service
 from elasticsearch_tpu_torch.common.memory import memory_accountant
 from elasticsearch_tpu_torch.common.settings import (
+    CLUSTER_NAME,
+    INDEX_STAGING_COMPACT_THRESHOLD,
+    INDEX_STAGING_DELTA_ENABLED,
+    NODE_NAME,
     PATH_DATA,
+    SEARCH_AGGS_FUSED,
     SEARCH_ALLOW_PARTIAL_RESULTS,
+    SEARCH_BATCH_ENABLED,
+    SEARCH_BATCH_MAX_QUERIES,
+    SEARCH_BATCH_WINDOW_MS,
+    SEARCH_KNN_ENABLED,
+    SEARCH_KNN_TILE_SUB,
     SEARCH_MEMORY_HBM_BUDGET,
+    SEARCH_PALLAS_PRUNING_ENABLED,
+    SEARCH_PALLAS_PRUNING_PROBE_TILES,
+    SEARCH_QUEUE_SIZE,
     SEARCH_STAGING_RETRY_BACKOFF_MS,
     SEARCH_STAGING_RETRY_MAX_ATTEMPTS,
     Settings,
+    cluster_settings,
+    index_scoped_settings,
     parse_time_value,
 )
 from elasticsearch_tpu_torch.common.staging import configure_staging_retry
 from elasticsearch_tpu_torch.common.thread_pool import ThreadPool
 from elasticsearch_tpu_torch.index.index_service import IndexService
 from elasticsearch_tpu_torch.index.seqno import check_active_shards
+from elasticsearch_tpu_torch.version import __version__
 
 _INVALID_INDEX_CHARS = set(' "*\\<>|,/?#')
 
@@ -136,17 +183,44 @@ class Node:
         self.persistent_path = (data_path is not None
                                 or settings.get("path.data") is not None)
         self.node_id = _uuid.uuid4().hex[:20]
-        self.node_name = settings.get_str("node.name", "node-0")
-        self.cluster_name = settings.get_str("cluster.name",
-                                             "elasticsearch-tpu")
+        self.node_name = NODE_NAME.get(settings)
+        self.cluster_name = CLUSTER_NAME.get(settings)
+        self.start_time = time.time()
+        self._closed = False
+        # the registries PUT _cluster/settings and PUT /{index}/_settings
+        # go through
+        self.cluster_settings = cluster_settings()
+        self.index_scoped_settings = index_scoped_settings()
         self.indices: Dict[str, IndexService] = {}
+
+        # the micro-batching knobs reach every live batcher on a cluster
+        # settings update
+        def batchers(apply):
+            def consume(value):
+                for svc in self.indices.values():
+                    apply(svc._batcher, value)
+            return consume
+
+        self.cluster_settings.add_settings_update_consumer(
+            SEARCH_BATCH_ENABLED,
+            batchers(lambda b, v: setattr(b, "enabled", bool(v))))
+        self.cluster_settings.add_settings_update_consumer(
+            SEARCH_BATCH_WINDOW_MS,
+            batchers(lambda b, v: setattr(b, "window_s", float(v) / 1000.0)))
+        self.cluster_settings.add_settings_update_consumer(
+            SEARCH_BATCH_MAX_QUERIES,
+            batchers(lambda b, v: setattr(b, "max_queries", int(v))))
+        self.cluster_service = ClusterService(ClusterState(
+            self.cluster_name,
+            nodes={self.node_id: DiscoveryNode(self.node_id, self.node_name,
+                                               "127.0.0.1:9300")},
+            master_node_id=self.node_id))
         # named bounded executors: the REST layer runs handler work on the
         # action's pool, and a full queue rejects with 429.
         # search.queue.size bounds the search pool's queue, as in
         # elasticsearch_tpu/node.py. Workers start on the first submit.
         self.thread_pool = ThreadPool(overrides={
-            "search": {"queue_size": settings.get_int(
-                "search.queue.size", 1000)}})
+            "search": {"queue_size": SEARCH_QUEUE_SIZE.get(settings)}})
         # the hierarchical memory breakers (indices.breaker.*): one
         # process-wide accounting, this node's limits
         self.breaker_service = configure_breaker_service(settings)
@@ -168,13 +242,20 @@ class Node:
             name=f"scroll-reaper[{self.node_name}]", daemon=True)
         self._reaper.start()
         if self.persistent_path:
+            # the global metadata first, then each index; from then on the
+            # applier keeps the global file current
+            self._recover_global_meta()
+            self.cluster_service.add_applier(self._persist_global_meta)
             self._recover_indices_from_disk()
 
     def close(self) -> None:
         """Stop and join the scroll reaper and drop every scroll context;
         synced-flush every index of a durable node (its metadata first),
         so a restart replays nothing; then stop the thread pools and
-        release every index's device memory."""
+        release every index's device memory and refresh thread."""
+        if self._closed:
+            return
+        self._closed = True
         self._reaper_stop.set()
         self._reaper.join()
         with self._scroll_lock:
@@ -188,13 +269,68 @@ class Node:
             self.indices.pop(name).close()
 
     # ------------------------------------------------------------------
-    # Data path (the gateway: per-index metadata and shard recovery)
+    # Data path (the gateway: global metadata, per-index metadata and
+    # shard recovery)
     # ------------------------------------------------------------------
 
     def _index_data_path(self, name: str) -> Optional[str]:
         if not self.persistent_path:
             return None
         return os.path.join(self.data_path, "indices", name)
+
+    @staticmethod
+    def _global_meta_slice(state: ClusterState) -> dict:
+        """What a full restart brings back besides the indices; transient
+        settings are not kept."""
+        return {
+            "templates": state.templates,
+            "persistent_settings": state.persistent_settings.as_nested_dict(),
+            "stored_scripts": state.stored_scripts,
+            "ingest_pipelines": state.ingest_pipelines,
+            "repositories": state.repositories,
+        }
+
+    def _persist_global_meta(self, old: ClusterState,
+                             new: ClusterState) -> None:
+        """Cluster-state applier: rewrite ``_state/global-meta.json``
+        atomically (a temporary file, fsync, rename) when the global slice
+        changed."""
+        payload = self._global_meta_slice(new)
+        if old is not None and self._global_meta_slice(old) == payload:
+            return
+        state_dir = os.path.join(self.data_path, "_state")
+        os.makedirs(state_dir, exist_ok=True)
+        tmp = os.path.join(state_dir, "global-meta.json.tmp")
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump(payload, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, os.path.join(state_dir, "global-meta.json"))
+
+    def _recover_global_meta(self) -> None:
+        """Restore the global slice through the normal write paths (the
+        persistent settings through ``put_cluster_settings``, so their
+        consumers fire); the ingest pipelines and repositories come back
+        as read, to be written again unchanged."""
+        path = os.path.join(self.data_path, "_state", "global-meta.json")
+        if not os.path.exists(path):
+            return
+        with open(path, encoding="utf-8") as f:
+            data = json.load(f)
+        if data.get("persistent_settings"):
+            self.put_cluster_settings(
+                {"persistent": data["persistent_settings"]})
+
+        def update(state: ClusterState) -> ClusterState:
+            new = state.copy()
+            new.templates.update(data.get("templates") or {})
+            new.stored_scripts.update(data.get("stored_scripts") or {})
+            new.ingest_pipelines.update(data.get("ingest_pipelines") or {})
+            new.repositories.update(data.get("repositories") or {})
+            return new
+
+        self.cluster_service.submit_state_update_task(
+            "recover global metadata", update)
 
     def _recover_indices_from_disk(self) -> None:
         """Open every index under ``<data_path>/indices`` that has a
@@ -209,40 +345,64 @@ class Node:
                 continue
             with open(meta_path, encoding="utf-8") as f:
                 meta = json.load(f)
-            svc = IndexService(name, Settings(meta.get("settings", {})),
-                               meta.get("mappings"), device=self.device,
+            settings = Settings(meta.get("settings", {}))
+            svc = IndexService(name, settings, meta.get("mappings"),
+                               device=self.device,
                                data_path=self._index_data_path(name))
-            svc.aliases = meta.get("aliases", {})
             self.indices[name] = svc
-            # replayed ops may have grown the mapping
-            self._maybe_update_mapping_meta(svc)
+            self._apply_cluster_overrides(svc)
+
+            def update(state: ClusterState, name=name, settings=settings,
+                       svc=svc, meta=meta) -> ClusterState:
+                new = state.copy()
+                new.indices[name] = IndexMetadata(
+                    name, settings, meta.get("mappings") or {},
+                    meta.get("aliases", {}),
+                    creation_date=svc.creation_date)
+                return new
+
+            self.cluster_service.submit_state_update_task(
+                f"recover [{name}]", update)
+            # the mapping as written; replayed ops may have grown it
+            self._maybe_update_mapping_meta(name)
 
     def _persist_index_meta(self, name: str) -> None:
         """Write ``_meta.json`` atomically: the index's settings, its
-        current mapping and the aliases it was opened with."""
+        current mapping and its aliases."""
+        md = self.cluster_service.state.indices.get(name)
         svc = self.indices.get(name)
-        if not self.persistent_path or svc is None:
+        if not self.persistent_path or md is None or svc is None:
             return
         path = self._index_data_path(name)
         os.makedirs(path, exist_ok=True)
-        mapping = svc.mapping_dict()
         tmp = os.path.join(path, "_meta.json.tmp")
         with open(tmp, "w", encoding="utf-8") as f:
-            json.dump({"settings": svc.settings.as_dict(),
-                       "mappings": mapping,
-                       "aliases": svc.aliases}, f)
+            json.dump({"settings": md.settings.as_dict(),
+                       "mappings": svc.mapping_dict(),
+                       "aliases": md.aliases}, f)
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, os.path.join(path, "_meta.json"))
-        svc.persisted_mapping = mapping
 
-    def _maybe_update_mapping_meta(self, svc: IndexService) -> None:
-        """A write that grew the mapping (dynamic fields) rewrites the
-        index's ``_meta.json``."""
-        if (self.persistent_path
-                and not svc.mapper_service.mapping_equals(
-                    svc.persisted_mapping)):
-            self._persist_index_meta(svc.name)
+    def _maybe_update_mapping_meta(self, index: str) -> None:
+        """A write that grew the mapping (dynamic fields) updates the
+        index's metadata in the cluster state and rewrites its
+        ``_meta.json``."""
+        svc = self.indices.get(index)
+        md = self.cluster_service.state.indices.get(index)
+        if svc is None or md is None or svc.mapper_service.mapping_equals(
+                md.mappings):
+            return
+
+        def update(state: ClusterState) -> ClusterState:
+            new = state.copy()
+            new.indices[index].mappings = svc.mapping_dict()
+            new.indices[index].version += 1
+            return new
+
+        self.cluster_service.submit_state_update_task(
+            f"update-mapping [{index}]", update)
+        self._persist_index_meta(index)
 
     # ------------------------------------------------------------------
     # Index APIs
@@ -259,71 +419,113 @@ class Node:
             raise InvalidIndexNameException(
                 name, "must not contain special characters")
 
+    def _committed_cluster_settings(self) -> Settings:
+        state = self.cluster_service.state
+        return state.persistent_settings.merged_with(state.transient_settings)
+
     def create_index(self, name: str, body: Optional[dict] = None) -> dict:
         body = body or {}
         self._validate_index_name(name)
-        if name in self.indices:
+        state = self.cluster_service.state
+        if name in self.indices or any(
+                name in md.aliases for md in state.indices.values()):
             raise IndexAlreadyExistsException(name)
-        unknown = sorted(set(body) - {"settings", "mappings"})
+        unknown = sorted(set(body) - {"settings", "mappings", "aliases"})
         if unknown:
             raise IllegalArgumentException(
                 f"create-index sections {unknown} are not supported by the "
                 f"PyTorch port yet")
-        settings = Settings.from_dict(body.get("settings") or {}).with_index_prefix()
-        # node-level micro-batching, kNN, postings-codec, pruning and
-        # fused-aggregation config (search.batch.*, search.knn.*,
-        # search.pallas.*, search.aggs.*, node scope) seeds each index at
-        # the lowest precedence; the index's own settings
-        # (index.search.pallas.postings_codec, index.search.aggs.fused,
-        # index.mapping.dense_vector.max_dims, ...) come with the body
-        for prefix in ("search.batch.", "search.knn.", "search.pallas.",
-                       "search.aggs."):
-            settings = self.settings.filtered_by_prefix(prefix).merged_with(
-                settings)
+        settings = Settings.from_dict(
+            body.get("settings") or {}).with_index_prefix()
         mappings, doc_type = _unwrap_typed_mapping(body.get("mappings") or {})
-        svc = IndexService(name, settings, mappings, device=self.device,
+        aliases = {a: (spec or {})
+                   for a, spec in (body.get("aliases") or {}).items()}
+        # the matching templates, lowest order first; the body wins
+        merged_settings = Settings.EMPTY
+        merged_mappings: dict = {}
+        for t in sorted((t for t in state.templates.values()
+                         if _template_matches(t, name)),
+                        key=lambda t: t.get("order", 0)):
+            merged_settings = merged_settings.merged_with(Settings.from_dict(
+                t.get("settings") or {}).with_index_prefix())
+            t_map = t.get("mappings") or {}
+            if "_doc" in t_map:
+                t_map = t_map["_doc"]
+            _merge_mapping_dicts(merged_mappings, t_map)
+            for a, spec in (t.get("aliases") or {}).items():
+                aliases.setdefault(a, spec or {})
+        merged_settings = merged_settings.merged_with(settings)
+        _merge_mapping_dicts(merged_mappings, mappings)
+        # the node's settings of the cluster-dynamic families seed each
+        # index at the lowest precedence, with the live cluster settings
+        # over them (an index created after PUT _cluster/settings follows
+        # the live value); the index's own settings
+        # (index.search.pallas.postings_codec, index.search.aggs.fused,
+        # ...) come with the body and the templates
+        committed = self._committed_cluster_settings()
+        for prefix in ("search.batch.", "search.pallas.", "search.knn.",
+                       "search.aggs.", "search.telemetry.", "search.queue.",
+                       "search.admission.", "search.drain.",
+                       "index.staging."):
+            merged_settings = self.settings.filtered_by_prefix(
+                prefix).merged_with(committed.filtered_by_prefix(
+                    prefix)).merged_with(merged_settings)
+        self.index_scoped_settings.validate(merged_settings,
+                                            allow_unknown=True)
+        svc = IndexService(name, merged_settings, merged_mappings,
+                           device=self.device,
                            data_path=self._index_data_path(name))
         svc.doc_type = doc_type
+        self._apply_cluster_overrides(svc)
         self.indices[name] = svc
+
+        def update(state: ClusterState) -> ClusterState:
+            new = state.copy()
+            new.indices[name] = IndexMetadata(
+                name, merged_settings, svc.mapping_dict(), aliases,
+                creation_date=svc.creation_date)
+            return new
+
+        self.cluster_service.submit_state_update_task(
+            f"create-index [{name}]", update)
         # written at creation, so that an index survives a crash before
         # its first flush
         self._persist_index_meta(name)
         return {"acknowledged": True, "shards_acknowledged": True, "index": name}
 
     def resolve_index_names(self, expression: Optional[str]) -> List[str]:
-        """Index-name expressions: names, wildcards, comma lists, ``_all``
-        (the JAX package's ``ClusterState.resolve_index_names``, without
-        aliases: the port has none). A missing concrete name raises 404;
-        a wildcard may match nothing."""
-        if expression in ("_all", "*", "", None):
-            return sorted(self.indices)
-        out: List[str] = []
-        for part in str(expression).split(","):
-            part = part.strip()
-            if not part:
-                continue
-            if "*" in part:
-                out.extend(n for n in sorted(self.indices)
-                           if fnmatch.fnmatchcase(n, part))
-            elif part in self.indices:
-                out.append(part)
-            else:
-                raise IndexNotFoundException(part)
-        return list(dict.fromkeys(out))
+        """Index-name expressions: names, aliases, wildcards over names and
+        aliases, comma lists, ``_all`` (``ClusterState.
+        resolve_index_names``). A missing concrete name raises 404; a
+        wildcard may match nothing."""
+        return self.cluster_service.state.resolve_index_names(expression)
 
     def delete_index(self, expression: str, ignore_unavailable: bool = False,
                      allow_no_indices: bool = True) -> dict:
-        """Delete concrete indices, wildcards or ``_all``
-        (``elasticsearch_tpu/node.py``'s ``delete_index`` without
-        aliases). Each deleted index is closed: its device memory is
-        released before the call returns."""
+        """Delete concrete indices, wildcards or ``_all``. An alias is
+        refused (skipped with ``ignore_unavailable``), and a wildcard
+        expands over index names only. Each deleted index is closed: its
+        refresh thread joined and its device memory released before the
+        call returns."""
+        state = self.cluster_service.state
+        alias_parts = set()
+        for part in str(expression).split(","):
+            for md in state.indices.values():
+                if part and part in md.aliases:
+                    if ignore_unavailable:
+                        alias_parts.add(part)
+                        break
+                    raise IllegalArgumentException(
+                        f"The provided expression [{part}] matches an "
+                        f"alias, specify the corresponding concrete "
+                        f"indices instead.")
         names = []
         for p in str(expression).split(","):
-            if not p:
+            if not p or p in alias_parts:
                 continue
             if "*" in p or p == "_all":
                 pat = "*" if p == "_all" else p
-                matched = [n for n in sorted(self.indices)
+                matched = [n for n in state.indices
                            if fnmatch.fnmatchcase(n, pat)]
                 if not matched and not allow_no_indices:
                     # a dead wildcard fails the whole request before any
@@ -332,13 +534,15 @@ class Node:
                 names.extend(matched)
             else:
                 try:
-                    names.extend(self.resolve_index_names(p))
+                    names.extend(state.resolve_index_names(p))
                 except IndexNotFoundException:
                     if not ignore_unavailable:
                         raise
         names = list(dict.fromkeys(names))
-        if not names and not allow_no_indices:
-            raise IndexNotFoundException(str(expression))
+        if not names:
+            if not allow_no_indices:
+                raise IndexNotFoundException(str(expression))
+            return {"acknowledged": True}
         for name in names:
             svc = self.indices.pop(name, None)
             if svc is not None:
@@ -346,39 +550,79 @@ class Node:
             path = self._index_data_path(name)
             if path is not None and os.path.exists(path):
                 shutil.rmtree(path)
+
+        def update(state: ClusterState) -> ClusterState:
+            new = state.copy()
+            for name in names:
+                new.indices.pop(name, None)
+            return new
+
+        self.cluster_service.submit_state_update_task(
+            f"delete-index {names}", update)
         return {"acknowledged": True}
 
+    def _set_index_state(self, expression: str, value: str) -> dict:
+        names = self.resolve_index_names(expression)
+
+        def update(state: ClusterState) -> ClusterState:
+            new = state.copy()
+            for n in names:
+                new.indices[n].state = value
+            return new
+
+        self.cluster_service.submit_state_update_task(
+            f"{value}-index {names}", update)
+        return {"acknowledged": True}
+
+    def close_index(self, expression: str) -> dict:
+        """Mark the named indices closed: a search by name is a 400 and a
+        wildcard skips them. The index keeps its shards and staging, as in
+        the JAX package."""
+        return self._set_index_state(expression, "close")
+
+    def open_index(self, expression: str) -> dict:
+        return self._set_index_state(expression, "open")
+
     def index_metadata(self, name: str) -> dict:
-        """One index's ``GET /{index}`` entry: its create-time settings
-        (nested), its current mapping, aliases (none) and state."""
-        svc = self.index_service(name)
-        return {"settings": svc.settings.as_nested_dict(),
+        """One index's ``GET /{index}`` entry: its settings (nested), its
+        current mapping, its aliases and its state."""
+        md = self.cluster_service.state.index_metadata(name)
+        svc = self.indices[name]
+        return {"settings": md.settings.as_nested_dict(),
                 "mappings": {"_doc": svc.mapping_dict()},
-                "aliases": {}, "state": "open"}
+                "aliases": md.aliases, "state": md.state}
 
     def index_settings(self, name: str) -> Dict[str, object]:
         """One index's flat settings with the defaults ``GET _settings``
         shows (shard and replica counts, uuid)."""
-        svc = self.index_service(name)
-        settings = svc.settings.as_dict()
-        settings.setdefault("index.number_of_shards", svc.num_shards)
-        settings.setdefault("index.number_of_replicas", svc.num_replicas)
-        settings.setdefault("index.uuid", svc.uuid)
+        md = self.cluster_service.state.index_metadata(name)
+        settings = md.settings.as_dict()
+        settings.setdefault("index.number_of_shards", md.num_shards)
+        settings.setdefault("index.number_of_replicas", md.num_replicas)
+        settings.setdefault("index.uuid", self.indices[name].uuid)
         return settings
 
     def index_mapping(self, name: str) -> dict:
         """One index's ``{type: mapping}`` (the 6.x typed shape)."""
-        svc = self.index_service(name)
+        svc = self.indices[name]
         return {svc.doc_type: svc.mapping_dict()}
 
     def index_service(self, name: str, auto_create: bool = False) -> IndexService:
-        svc = self.indices.get(name)
-        if svc is None:
-            if not auto_create:
-                raise IndexNotFoundException(name)
-            self.create_index(name)
-            svc = self.indices[name]
-        return svc
+        """The index a write or a single-index request names: by name, or
+        the first index an alias points at; a closed index is a 400."""
+        state = self.cluster_service.state
+        if name in self.indices:
+            md = state.indices.get(name)
+            if md is not None and md.state == "close":
+                raise IllegalArgumentException(f"index [{name}] is closed")
+            return self.indices[name]
+        for idx_name, md in state.indices.items():
+            if name in md.aliases:
+                return self.indices[idx_name]
+        if not auto_create:
+            raise IndexNotFoundException(name)
+        self.create_index(name)
+        return self.indices[name]
 
     def refresh(self, index: str) -> dict:
         svc = self.index_service(index)
@@ -441,16 +685,31 @@ class Node:
             kw.setdefault("op_type", "create")
         r = svc.index_doc(doc_id, source, routing, **kw)
         self._maybe_refresh(svc, refresh, doc_id, routing)
-        self._maybe_update_mapping_meta(svc)
+        self._maybe_update_mapping_meta(svc.name)
         return r
 
     def _maybe_refresh(self, svc: IndexService, refresh, doc_id, routing) -> None:
-        """refresh=true refreshes only the written shard."""
+        """A write's refresh policy: ``true`` refreshes only the written
+        shard (another shard's buffered deletes stay invisible);
+        ``wait_for`` blocks until the scheduled refresh has made every
+        shard's pending ops visible, forcing a refresh where the schedule
+        is off or a shard has not refreshed within twice its interval."""
         if refresh in (True, "true", ""):
             svc.shards[svc._route(doc_id, routing)].refresh()
-        elif refresh not in (None, False, "false"):
-            raise IllegalArgumentException(
-                f"refresh [{refresh}] is not supported by the PyTorch port yet")
+        elif refresh == "wait_for":
+            interval = svc.refresh_interval
+            if not interval or interval <= 0:
+                svc.shards[svc._route(doc_id, routing)].refresh()
+                return
+            events = []
+            for shard in svc.shards.values():
+                ev = threading.Event()
+                shard.engine.add_refresh_listener(ev.set)
+                events.append(ev)
+            for ev in events:
+                if not ev.wait(interval * 2 + 0.5):
+                    svc.refresh()
+                    break
 
     def get_doc(self, index: str, doc_id: str, routing=None,
                 realtime=True, refresh=None) -> dict:
@@ -488,7 +747,7 @@ class Node:
         svc = self.index_service(index, auto_create=bool(auto))
         r = svc.update_doc(doc_id, body, routing, version=version)
         self._maybe_refresh(svc, refresh, doc_id, routing)
-        self._maybe_update_mapping_meta(svc)
+        self._maybe_update_mapping_meta(svc.name)
         return r
 
     def mget(self, body: dict, default_index: Optional[str] = None,
@@ -642,7 +901,7 @@ class Node:
                 item = {action: {"_index": index, "_id": doc_id,
                                  "status": status, "error": err}}
             items.append(item)
-        if refresh in (True, "true", ""):
+        if refresh in (True, "true", "", "wait_for"):
             for name in touched:
                 if name in self.indices:
                     self.indices[name].refresh()
@@ -655,11 +914,28 @@ class Node:
 
     def resolve_search_indices(self, expression: Optional[str]
                                ) -> List[IndexService]:
-        """The indices a search expression names: names, wildcards, comma
-        lists and ``_all`` (``resolve_index_names``; the port has no
-        closed indices and no aliases yet, so a wildcard skips none)."""
-        return [self.indices[n]
-                for n in self.resolve_index_names(expression or "_all")]
+        """The open indices a search expression names: names, aliases,
+        wildcards, comma lists and ``_all``. A wildcard skips a closed
+        index; a closed index named (or reached through an alias) is a
+        400."""
+        state = self.cluster_service.state
+        out: List[IndexService] = []
+        seen = set()
+        parts = [p for p in str(expression or "_all").split(",") if p] \
+            or ["_all"]
+        for part in parts:
+            wildcard = "*" in part or part == "_all"
+            for n in state.resolve_index_names(part):
+                if n in seen:
+                    continue
+                if state.indices[n].state != "open":
+                    if wildcard:
+                        continue
+                    raise IllegalArgumentException(
+                        f"closed index [{n}] - IndexClosedException")
+                seen.add(n)
+                out.append(self.indices[n])
+        return out
 
     def search(self, index: str, body: Optional[dict] = None,
                scroll: Optional[str] = None) -> dict:
@@ -1043,27 +1319,272 @@ class Node:
     # ------------------------------------------------------------------
 
     def health(self) -> dict:
-        """_cluster/health on one node: every primary active, no replica
-        assignable, so yellow unless every index has 0 replicas."""
-        n_shards = sum(s.num_shards for s in self.indices.values())
-        unassigned = sum(s.num_shards * s.num_replicas
-                         for s in self.indices.values())
-        total = n_shards + unassigned
+        """_cluster/health on one node: every primary of an open index
+        active, no replica assignable, so yellow unless every open index
+        has 0 replicas."""
+        return cluster_health(self.cluster_service.state)
+
+    def cluster_stats(self) -> dict:
+        state = self.cluster_service.state
         return {
-            "cluster_name": self.cluster_name,
-            "status": "green" if unassigned == 0 else "yellow",
-            "timed_out": False,
-            "number_of_nodes": 1,
-            "number_of_data_nodes": 1,
-            "active_primary_shards": n_shards,
-            "active_shards": n_shards,
-            "relocating_shards": 0,
-            "initializing_shards": 0,
-            "unassigned_shards": unassigned,
-            "delayed_unassigned_shards": 0,
-            "number_of_pending_tasks": 0,
-            "number_of_in_flight_fetch": 0,
-            "task_max_waiting_in_queue_millis": 0,
-            "active_shards_percent_as_number": (
-                100.0 * n_shards / total if total else 100.0),
+            "cluster_name": state.cluster_name,
+            "status": self.health()["status"],
+            "indices": {
+                "count": len(self.indices),
+                "docs": {"count": sum(s.num_docs()
+                                      for s in self.indices.values())},
+                "shards": {"total": sum(s.num_shards
+                                        for s in self.indices.values())},
+            },
+            "nodes": {
+                "count": {"total": 1, "data": 1, "master": 1, "ingest": 1},
+                "versions": [__version__],
+            },
         }
+
+    def node_info(self) -> dict:
+        return {
+            "cluster_name": self.cluster_service.state.cluster_name,
+            "nodes": {self.node_id: {
+                "name": self.node_name,
+                "version": __version__,
+                "roles": ["master", "data", "ingest"],
+                "settings": self.settings.as_nested_dict(),
+                "plugins": [],
+                "http": {"publish_address": getattr(
+                    self, "http_publish_address", None)},
+            }},
+        }
+
+    def node_stats(self) -> dict:
+        """The node's stats: docs, the per-index ``search`` blocks merged
+        into one with the node-wide device-memory ledger as its
+        ``memory``, the OS, process and filesystem probes, the thread
+        pools and the breakers. The JAX package's ``compile`` and
+        ``transport`` sections wait for their modules."""
+        from elasticsearch_tpu_torch.search.telemetry import merge_phase_stats
+
+        search = merge_phase_stats(
+            [svc.search_stats() for svc in self.indices.values()])
+        # the ledger is a node resource: its node-wide view, not a sum
+        search["memory"] = memory_accountant().stats(None)
+        return {
+            "cluster_name": self.cluster_service.state.cluster_name,
+            "nodes": {self.node_id: {
+                "name": self.node_name,
+                "indices": {
+                    "docs": {"count": sum(s.num_docs()
+                                          for s in self.indices.values())},
+                    "search": search,
+                },
+                "jvm": {"uptime_in_millis": int(
+                    (time.time() - self.start_time) * 1000)},
+                "os": monitor.os_stats(),
+                "process": monitor.process_stats(),
+                "fs": monitor.fs_stats(
+                    self.data_path if self.persistent_path else "."),
+                "thread_pool": self.thread_pool.stats(),
+                "breakers": self.breaker_service.stats(),
+            }},
+        }
+
+    def put_template(self, name: str, body: dict) -> dict:
+        body = dict(body)
+        body.setdefault("index_patterns", body.pop("template", None) or [])
+        if isinstance(body["index_patterns"], str):
+            body["index_patterns"] = [body["index_patterns"]]
+
+        def update(state: ClusterState) -> ClusterState:
+            new = state.copy()
+            new.templates[name] = body
+            return new
+
+        self.cluster_service.submit_state_update_task(
+            f"put-template [{name}]", update)
+        return {"acknowledged": True}
+
+    def delete_template(self, name: str) -> dict:
+        if name not in self.cluster_service.state.templates:
+            raise ResourceNotFoundException(f"index_template [{name}] missing")
+
+        def update(state: ClusterState) -> ClusterState:
+            new = state.copy()
+            new.templates.pop(name, None)
+            return new
+
+        self.cluster_service.submit_state_update_task(
+            f"delete-template [{name}]", update)
+        return {"acknowledged": True}
+
+    def update_aliases(self, actions: List[dict]) -> dict:
+        """``add`` and ``remove`` actions over index expressions, applied
+        as one state update; an alias keeps its ``filter`` and routing
+        (stored, not applied by a search: ROADMAP C19)."""
+        def update(state: ClusterState) -> ClusterState:
+            new = state.copy()
+            for action in actions:
+                ((verb, spec),) = action.items()
+                indices = spec.get("indices") or [spec.get("index")]
+                aliases = spec.get("aliases") or [spec.get("alias")]
+                for idx_expr in indices:
+                    for idx in new.resolve_index_names(idx_expr):
+                        for alias in aliases:
+                            if verb == "add":
+                                new.indices[idx].aliases[alias] = {
+                                    k: spec[k] for k in (
+                                        "filter", "routing", "index_routing",
+                                        "search_routing") if k in spec}
+                            elif verb == "remove":
+                                new.indices[idx].aliases.pop(alias, None)
+                            else:
+                                raise IllegalArgumentException(
+                                    f"[aliases] unknown action [{verb}]")
+            return new
+
+        old = self.cluster_service.state
+        new = self.cluster_service.submit_state_update_task(
+            "update-aliases", update)
+        for name, md in new.indices.items():
+            if md.aliases != old.indices[name].aliases:
+                self._persist_index_meta(name)
+        return {"acknowledged": True}
+
+    def put_cluster_settings(self, body: dict) -> dict:
+        """Merge ``persistent`` and ``transient`` settings (a null clears
+        a key), fire the update consumers, then sync every knob that
+        follows the explicitness contract: the cluster value while one is
+        set, else the index's own settings (the per-index overrides) or
+        the node's (the budget, the staging retry, the search queue)."""
+        persistent = Settings.from_dict(body.get("persistent") or {})
+        transient = Settings.from_dict(body.get("transient") or {})
+
+        def update(state: ClusterState) -> ClusterState:
+            new = state.copy()
+            old_merged = state.persistent_settings.merged_with(
+                state.transient_settings)
+            new.persistent_settings = state.persistent_settings.merged_with(
+                persistent)
+            new.transient_settings = state.transient_settings.merged_with(
+                transient)
+            self.cluster_settings.apply_settings(
+                old_merged, new.persistent_settings.merged_with(
+                    new.transient_settings))
+            return new
+
+        self.cluster_service.submit_state_update_task("update-settings", update)
+        state = self.cluster_service.state
+        for svc in self.indices.values():
+            self._apply_cluster_overrides(svc)
+        committed = self._committed_cluster_settings()
+
+        def source(setting):
+            return (committed if committed.get(setting.key) is not None
+                    else self.settings)
+
+        self.thread_pool.executor("search").resize_queue(
+            SEARCH_QUEUE_SIZE.get(source(SEARCH_QUEUE_SIZE)))
+        # lowering the budget evicts at once
+        memory_accountant().set_budget(SEARCH_MEMORY_HBM_BUDGET.get(
+            source(SEARCH_MEMORY_HBM_BUDGET)))
+        configure_staging_retry(
+            max_attempts=SEARCH_STAGING_RETRY_MAX_ATTEMPTS.get(
+                source(SEARCH_STAGING_RETRY_MAX_ATTEMPTS)),
+            backoff_ms=SEARCH_STAGING_RETRY_BACKOFF_MS.get(
+                source(SEARCH_STAGING_RETRY_BACKOFF_MS)))
+        return {
+            "acknowledged": True,
+            "persistent": state.persistent_settings.as_nested_dict(),
+            "transient": state.transient_settings.as_nested_dict(),
+        }
+
+    def _apply_cluster_overrides(self, svc: IndexService) -> None:
+        """Set (or clear back to None) each cluster-level override of a
+        dynamic index knob on ``svc`` from the committed cluster
+        settings."""
+        committed = self._committed_cluster_settings()
+        for setting, attr in (
+                (SEARCH_PALLAS_PRUNING_ENABLED, "pruning_enabled_override"),
+                (SEARCH_PALLAS_PRUNING_PROBE_TILES, "pruning_probe_override"),
+                (SEARCH_KNN_ENABLED, "knn_enabled_override"),
+                (SEARCH_KNN_TILE_SUB, "knn_tile_sub_override"),
+                (SEARCH_AGGS_FUSED, "aggs_fused_override"),
+                (INDEX_STAGING_DELTA_ENABLED,
+                 "staging_delta_enabled_override"),
+                (INDEX_STAGING_COMPACT_THRESHOLD,
+                 "staging_compact_threshold_override")):
+            explicit = committed.get(setting.key) is not None
+            setattr(svc, attr, setting.get(committed) if explicit else None)
+
+    def update_index_settings(self, expression: str, body: dict) -> dict:
+        """``PUT /{index}/_settings``: only registered dynamic settings;
+        each named index takes the update in place."""
+        normalized = Settings.from_dict(
+            body.get("settings", body) or {}).with_index_prefix()
+        self.index_scoped_settings.validate_dynamic_update(normalized)
+        names = self.resolve_index_names(expression)
+
+        def update(state: ClusterState) -> ClusterState:
+            new = state.copy()
+            for n in names:
+                md = new.indices[n]
+                md.settings = md.settings.merged_with(normalized)
+                md.version += 1
+            return new
+
+        self.cluster_service.submit_state_update_task(
+            "update-index-settings", update)
+        for n in names:
+            self.indices[n].update_settings(normalized)
+            self._persist_index_meta(n)
+        return {"acknowledged": True}
+
+    def put_mapping(self, index: str, mapping: dict) -> dict:
+        """``PUT /{index}/_mapping``: merge new fields into the index's
+        mapping (a conflicting type is a 400)."""
+        svc = self.index_service(index)
+        svc.put_mapping(mapping)
+        self._maybe_update_mapping_meta(svc.name)
+        return {"acknowledged": True}
+
+    def put_stored_script(self, script_id: str, body: dict) -> dict:
+        def update(state: ClusterState) -> ClusterState:
+            new = state.copy()
+            new.stored_scripts[script_id] = body.get("script", body)
+            return new
+
+        self.cluster_service.submit_state_update_task(
+            f"put-script [{script_id}]", update)
+        return {"acknowledged": True}
+
+    def get_stored_script(self, script_id: str) -> dict:
+        script = self.cluster_service.state.stored_scripts.get(script_id)
+        if script is None:
+            raise ResourceNotFoundException(
+                f"unable to find script [{script_id}]")
+        return {"_id": script_id, "found": True, "script": script}
+
+    def delete_stored_script(self, script_id: str) -> dict:
+        self.get_stored_script(script_id)  # 404 if missing
+
+        def update(state: ClusterState) -> ClusterState:
+            new = state.copy()
+            new.stored_scripts.pop(script_id, None)
+            return new
+
+        self.cluster_service.submit_state_update_task("delete-script", update)
+        return {"acknowledged": True}
+
+
+def _template_matches(template: dict, index_name: str) -> bool:
+    patterns = template.get("index_patterns") or []
+    if isinstance(patterns, str):
+        patterns = [patterns]
+    return any(fnmatch.fnmatchcase(index_name, p) for p in patterns)
+
+
+def _merge_mapping_dicts(base: dict, incoming: dict) -> None:
+    for k, v in incoming.items():
+        if isinstance(v, dict) and isinstance(base.get(k), dict):
+            _merge_mapping_dicts(base[k], v)
+        else:
+            base[k] = v

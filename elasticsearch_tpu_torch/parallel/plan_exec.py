@@ -145,10 +145,15 @@ batch records them once and folds them into each profiled member, with
 the batch's shape (and a pruned launch's tile economy) as annotations.
 The ``stats`` groups of a served request count on every shard.
 
-Left for later slices: the compile cache and telemetry registry, stacking a full
-rebuild on the card instead of through host numpy (a ``perf_opt``), and
-the dynamic update of the pruning, fused-aggregation, delta-staging,
-compaction, budget and retry settings (``PUT _cluster/settings``).
+The pruning, kNN, fused-aggregation and delta-staging knobs are read
+per request: a cluster-level override on the index (``Node``'s
+``put_cluster_settings`` sets it while the cluster setting is explicit)
+wins over the index's settings, which ``PUT /{index}/_settings`` may
+change.
+
+Left for later slices: the compile cache and telemetry registry, and
+stacking a full rebuild on the card instead of through host numpy (a
+``perf_opt``).
 """
 
 from __future__ import annotations
@@ -1860,7 +1865,6 @@ class IndexMeshSearch:
         settings = index_service.settings
         self.max_slots = INDEX_SEARCH_MESH_MAX_SLOTS.get(settings)
         self.plane_pref = INDEX_SEARCH_MESH_PLANE.get(settings)
-        self.delta_enabled = INDEX_STAGING_DELTA_ENABLED.get(settings)
         self.plane_health = PlaneHealth(
             INDEX_SEARCH_PLANE_QUARANTINE_COOLDOWN.get(settings))
         self._counter_lock = threading.Lock()
@@ -1928,9 +1932,13 @@ class IndexMeshSearch:
         return "delete_invalidation"
 
     def _delta_enabled(self) -> bool:
-        """``index.staging.delta.enabled`` (its dynamic update waits for
-        the cluster settings API)."""
-        return bool(self.delta_enabled)
+        """``index.staging.delta.enabled``: the cluster-level override while
+        one is set (``put_cluster_settings``), else the index's settings
+        as they stand (``PUT /{index}/_settings`` changes them)."""
+        override = self.svc.staging_delta_enabled_override
+        if override is not None:
+            return bool(override)
+        return bool(INDEX_STAGING_DELTA_ENABLED.get(self.svc.settings))
 
     def _classify_delta(self, old: MeshPlanExecutor, pairs):
         """Whether the staged-key change can be served as a delta on the
@@ -2240,15 +2248,23 @@ class IndexMeshSearch:
         return False
 
     def _pruning_config(self):
-        """(enabled, probe_tiles) from the index settings
+        """(enabled, probe_tiles): each the cluster-level override while
+        one is set (``PUT _cluster/settings``), else the index settings
         (search.pallas.pruning.*, seeded from the node)."""
         settings = self.svc.settings
-        return (SEARCH_PALLAS_PRUNING_ENABLED.get(settings),
-                SEARCH_PALLAS_PRUNING_PROBE_TILES.get(settings))
+        enabled = self.svc.pruning_enabled_override
+        probe = self.svc.pruning_probe_override
+        return (SEARCH_PALLAS_PRUNING_ENABLED.get(settings)
+                if enabled is None else bool(enabled),
+                SEARCH_PALLAS_PRUNING_PROBE_TILES.get(settings)
+                if probe is None else int(probe))
 
     def _fused_aggs_enabled(self) -> bool:
-        """The index's ``index.search.aggs.fused`` ("default" follows the
-        node's ``search.aggs.fused``, seeded into the index settings)."""
+        """A cluster-level ``search.aggs.fused`` while one is set, then the
+        index's ``index.search.aggs.fused`` ("default" follows the node's
+        ``search.aggs.fused``, seeded into the index settings)."""
+        if self.svc.aggs_fused_override is not None:
+            return bool(self.svc.aggs_fused_override)
         settings = self.svc.settings
         idx = settings.get(INDEX_SEARCH_AGGS_FUSED.key)
         if isinstance(idx, bool):  # a body's boolean through with_index_prefix
@@ -3033,10 +3049,14 @@ class IndexMeshSearch:
     # ------------------------------------------------------------------
 
     def _knn_config(self):
-        """(enabled, tile_sub preference) from the index settings."""
+        """(enabled, tile_sub preference): each the cluster-level override
+        while one is set, else the index settings."""
         settings = self.svc.settings
-        return (SEARCH_KNN_ENABLED.get(settings),
-                SEARCH_KNN_TILE_SUB.get(settings))
+        enabled = self.svc.knn_enabled_override
+        sub = self.svc.knn_tile_sub_override
+        return (SEARCH_KNN_ENABLED.get(settings)
+                if enabled is None else bool(enabled),
+                SEARCH_KNN_TILE_SUB.get(settings) if sub is None else int(sub))
 
     def query_knn(self, spec: dict, k: int, deadline=None, stats=None,
                   tracer=None) -> Optional[dict]:

@@ -18,14 +18,20 @@ delete; ``parent``),
 ``_search`` with the URI parameters (``?scroll=`` opens a point-in-time
 scroll; ``timeout``, ``allow_partial_search_results`` and
 ``track_total_hits`` go into the body) over an index expression (names,
-wildcards, comma lists, ``_all``), ``_search/scroll`` (next page,
-clear), ``_count``, ``_msearch``, ``_explain`` (four routes: ``?q=``,
+aliases, wildcards, comma lists, ``_all``), ``_search/scroll`` (next
+page, clear), ``_search/template`` and ``_render/template`` (inline or
+stored), ``_count``, ``_msearch``, ``_explain`` (four routes: ``?q=``,
 the ``_source`` parameters, the per-term BM25 details), ``_validate/query``
 (``?explain``), ``_refresh``, ``_flush``, ``_flush/synced``,
-``_forcemerge``, index create/delete/get/head, ``_mapping``,
-``_settings``, ``_analyze`` over the built-in analyzers, ``_cluster/health`` and the cat
+``_forcemerge``, index create (with ``aliases`` and the matching
+templates)/delete/get/head, ``_open`` and ``_close``, ``_stats[/{metric}]``
+and ``_segments``, ``_mapping`` GET and PUT, ``_settings`` GET and PUT
+(dynamic settings), ``_aliases`` and ``_alias`` in every form,
+``_template``, ``_scripts``, ``_analyze`` over the built-in analyzers,
+``_cluster/health|state|stats|settings``, ``_nodes[/stats]`` and the cat
 tables ``indices``, ``count``, ``health``, ``nodes``, ``master``,
-``thread_pool`` and the empty ones. Handlers are (node, request) ->
+``shards``, ``aliases``, ``templates``, ``segments``, ``thread_pool``
+and the empty ones. Writes take ``refresh=wait_for``. Handlers are (node, request) ->
 (status, payload); the cat API returns text tables unless
 ``?format=json``.
 """
@@ -42,6 +48,7 @@ from elasticsearch_tpu_torch.analysis.analyzers import AnalysisRegistry
 from elasticsearch_tpu_torch.common.deprecation import DeprecationLogger
 from elasticsearch_tpu_torch.common.errors import (
     ActionRequestValidationException,
+    ElasticsearchTpuException,
     IllegalArgumentException,
     IndexNotFoundException,
     ResourceNotFoundException,
@@ -129,12 +136,12 @@ def register_all(c) -> None:
     r("POST", "/{index}/_explain/{id}", _explain)
 
     # --- templates / termvectors / rollover / shrink / hot_threads ---
-    r("GET", "/_search/template", _unported)
-    r("POST", "/_search/template", _unported)
-    r("GET", "/{index}/_search/template", _unported)
-    r("POST", "/{index}/_search/template", _unported)
-    r("GET", "/_render/template", _unported)
-    r("POST", "/_render/template", _unported)
+    r("GET", "/_search/template", _search_template)
+    r("POST", "/_search/template", _search_template)
+    r("GET", "/{index}/_search/template", _search_template)
+    r("POST", "/{index}/_search/template", _search_template)
+    r("GET", "/_render/template", _render_template)
+    r("POST", "/_render/template", _render_template)
     r("GET", "/{index}/_termvectors/{id}", _unported)
     r("POST", "/{index}/_termvectors/{id}", _unported)
     r("GET", "/{index}/{type}/{id}/_termvectors", _unported)
@@ -157,8 +164,10 @@ def register_all(c) -> None:
     r("DELETE", "/{index}", _delete_index)
     r("GET", "/{index}", _get_index)
     r("HEAD", "/{index}", _head_index)
-    r("POST", "/{index}/_open", _unported)
-    r("POST", "/{index}/_close", _unported)
+    r("POST", "/{index}/_open", lambda n, q: (200, n.open_index(
+        q.param("index"))))
+    r("POST", "/{index}/_close", lambda n, q: (200, n.close_index(
+        q.param("index"))))
     r("POST", "/{index}/_refresh", _refresh)
     r("GET", "/{index}/_refresh", _refresh)
     r("POST", "/_refresh", _refresh)
@@ -170,20 +179,20 @@ def register_all(c) -> None:
     r("GET", "/{index}/_flush/synced", _flush_synced)
     r("POST", "/{index}/_forcemerge", _forcemerge)
     r("POST", "/_forcemerge", _forcemerge)
-    r("GET", "/{index}/_stats", _unported)
-    r("GET", "/_stats", _unported)
-    r("GET", "/{index}/_stats/{metric}", _unported)
-    r("GET", "/_stats/{metric}", _unported)
-    r("GET", "/{index}/_segments", _unported)
-    r("GET", "/_segments", _unported)
-    r("PUT", "/{index}/_mapping", _unported)
-    r("PUT", "/{index}/_mapping/{type}", _unported)
-    r("POST", "/{index}/_mapping", _unported)
+    r("GET", "/{index}/_stats", _index_stats)
+    r("GET", "/_stats", _index_stats)
+    r("GET", "/{index}/_stats/{metric}", _index_stats)
+    r("GET", "/_stats/{metric}", _index_stats)
+    r("GET", "/{index}/_segments", _segments)
+    r("GET", "/_segments", _segments)
+    r("PUT", "/{index}/_mapping", _put_mapping)
+    r("PUT", "/{index}/_mapping/{type}", _put_mapping)
+    r("POST", "/{index}/_mapping", _put_mapping)
     r("GET", "/{index}/_mapping", _get_mapping)
     r("GET", "/_mapping", _get_mapping)
     r("GET", "/{index}/_mapping/{type}", _get_mapping)
-    r("PUT", "/{index}/_settings", _unported)
-    r("PUT", "/_settings", _unported)
+    r("PUT", "/{index}/_settings", _put_index_settings)
+    r("PUT", "/_settings", _put_index_settings)
     r("GET", "/{index}/_settings", _get_index_settings)
     r("GET", "/_settings", _get_index_settings)
     r("GET", "/{index}/_settings/{setting}", _get_index_settings)
@@ -192,41 +201,46 @@ def register_all(c) -> None:
     r("POST", "/_analyze", _analyze)
     r("GET", "/{index}/_analyze", _analyze)
     r("POST", "/{index}/_analyze", _analyze)
-    r("POST", "/_aliases", _unported)
-    r("GET", "/_alias", _unported)
-    r("GET", "/_alias/{name}", _unported)
-    r("GET", "/{index}/_alias", _unported)
-    r("GET", "/{index}/_alias/{name}", _unported)
-    r("PUT", "/{index}/_alias/{name}", _unported)
-    r("DELETE", "/{index}/_alias/{name}", _unported)
-    r("HEAD", "/_alias/{name}", _unported)
-    r("HEAD", "/{index}/_alias/{name}", _unported)
-    r("PUT", "/_template/{name}", _unported)
-    r("GET", "/_template", _unported)
-    r("GET", "/_template/{name}", _unported)
-    r("DELETE", "/_template/{name}", _unported)
-    r("HEAD", "/_template/{name}", _unported)
+    r("POST", "/_aliases", _update_aliases)
+    r("GET", "/_alias", _get_alias)
+    r("GET", "/_alias/{name}", _get_alias)
+    r("GET", "/{index}/_alias", _get_alias)
+    r("GET", "/{index}/_alias/{name}", _get_alias)
+    r("PUT", "/{index}/_alias/{name}", _put_alias)
+    r("DELETE", "/{index}/_alias/{name}", _delete_alias)
+    r("HEAD", "/_alias/{name}", _head_alias)
+    r("HEAD", "/{index}/_alias/{name}", _head_alias)
+    r("PUT", "/_template/{name}", _put_template)
+    r("GET", "/_template", _get_template)
+    r("GET", "/_template/{name}", _get_template)
+    r("DELETE", "/_template/{name}", lambda n, q: (200, n.delete_template(
+        q.param("name"))))
+    r("HEAD", "/_template/{name}", _head_template)
     r("POST", "/{index}/_cache/clear", _unported)
     r("POST", "/_cache/clear", _unported)
 
     # --- cluster admin ---
     r("GET", "/_cluster/health", lambda n, q: (200, n.health()))
     r("GET", "/_cluster/health/{index}", lambda n, q: (200, n.health()))
-    r("GET", "/_cluster/state", _unported)
-    r("GET", "/_cluster/state/{metrics}", _unported)
-    r("GET", "/_cluster/stats", _unported)
-    r("GET", "/_cluster/settings", _unported)
-    r("PUT", "/_cluster/settings", _unported)
+    r("GET", "/_cluster/state", _cluster_state)
+    r("GET", "/_cluster/state/{metrics}", _cluster_state)
+    r("GET", "/_cluster/stats", lambda n, q: (200, n.cluster_stats()))
+    r("GET", "/_cluster/settings", _get_cluster_settings)
+    r("PUT", "/_cluster/settings", lambda n, q: (200, n.put_cluster_settings(
+        q.json_body({}))))
     r("POST", "/_cluster/reroute", _unported)
     r("GET", "/_cluster/allocation/explain", _unported)
-    r("GET", "/_nodes", _unported)
-    r("GET", "/_nodes/stats", _unported)
-    r("GET", "/_nodes/stats/{metric}", _unported)
-    r("GET", "/_nodes/stats/{metric}/{index_metric}", _unported)
-    r("GET", "/_nodes/{node_id}", _unported)
-    r("GET", "/_nodes/{node_id}/stats", _unported)
-    r("GET", "/_nodes/{node_id}/stats/{metric}", _unported)
-    r("GET", "/_nodes/{node_id}/stats/{metric}/{index_metric}", _unported)
+    r("GET", "/_nodes", lambda n, q: (200, n.node_info()))
+    r("GET", "/_nodes/stats", lambda n, q: (200, n.node_stats()))
+    r("GET", "/_nodes/stats/{metric}", lambda n, q: (200, n.node_stats()))
+    r("GET", "/_nodes/stats/{metric}/{index_metric}",
+      lambda n, q: (200, n.node_stats()))
+    r("GET", "/_nodes/{node_id}", lambda n, q: (200, n.node_info()))
+    r("GET", "/_nodes/{node_id}/stats", lambda n, q: (200, n.node_stats()))
+    r("GET", "/_nodes/{node_id}/stats/{metric}",
+      lambda n, q: (200, n.node_stats()))
+    r("GET", "/_nodes/{node_id}/stats/{metric}/{index_metric}",
+      lambda n, q: (200, n.node_stats()))
     r("GET", "/_remote/info", _unported)
 
     # --- tasks ---
@@ -235,9 +249,12 @@ def register_all(c) -> None:
     r("POST", "/_tasks/{task_id}/_cancel", _unported)
 
     # --- scripts ---
-    r("PUT", "/_scripts/{id}", _unported)
-    r("GET", "/_scripts/{id}", _unported)
-    r("DELETE", "/_scripts/{id}", _unported)
+    r("PUT", "/_scripts/{id}", lambda n, q: (200, n.put_stored_script(
+        q.param("id"), q.json_body({}))))
+    r("GET", "/_scripts/{id}", lambda n, q: (200, n.get_stored_script(
+        q.param("id"))))
+    r("DELETE", "/_scripts/{id}", lambda n, q: (200, n.delete_stored_script(
+        q.param("id"))))
 
     # --- ingest ---
     r("PUT", "/_ingest/pipeline/{id}", _unported)
@@ -268,17 +285,17 @@ def register_all(c) -> None:
     r("GET", "/_cat/indices/{index}", _cat_indices)
     r("GET", "/_cat/health", _cat_health)
     r("GET", "/_cat/nodes", _cat_nodes)
-    r("GET", "/_cat/shards", _unported)
-    r("GET", "/_cat/shards/{index}", _unported)
+    r("GET", "/_cat/shards", _cat_shards)
+    r("GET", "/_cat/shards/{index}", _cat_shards)
     r("GET", "/_cat/staging", _cat_staging)
     r("GET", "/_cat/count", _cat_count)
     r("GET", "/_cat/count/{index}", _cat_count)
-    r("GET", "/_cat/aliases", _unported)
-    r("GET", "/_cat/aliases/{name}", _unported)
-    r("GET", "/_cat/templates", _unported)
-    r("GET", "/_cat/templates/{name}", _unported)
+    r("GET", "/_cat/aliases", _cat_aliases)
+    r("GET", "/_cat/aliases/{name}", _cat_aliases)
+    r("GET", "/_cat/templates", _cat_templates)
+    r("GET", "/_cat/templates/{name}", _cat_templates)
     r("GET", "/_cat/master", _cat_master)
-    r("GET", "/_cat/segments", _unported)
+    r("GET", "/_cat/segments", _cat_segments)
     r("GET", "/_cat/plugins", _unported)
     r("GET", "/_cat/tasks", _unported)
     r("GET", "/_cat/pending_tasks", lambda n, q: _cat_table(
@@ -367,8 +384,10 @@ def _write_shards_header(node, req, r):
     """Single-doc write responses carry the replication-group header:
     total = 1 primary + replicas."""
     if "_shards" not in r:
-        svc = node.indices.get(req.param("index"))
-        total = 1 + svc.num_replicas if svc is not None else 1
+        try:
+            total = 1 + node.index_service(req.param("index")).num_replicas
+        except ElasticsearchTpuException:
+            total = 1
         r["_shards"] = {"total": total, "successful": 1, "failed": 0}
     return r
 
@@ -395,8 +414,11 @@ def _record_doc_type(node, req):
     t = req.param("type")
     if t in (None, "_doc", "_all"):
         return
-    svc = node.indices.get(req.param("index"))
-    if svc is not None and svc.doc_type == "_doc":
+    try:
+        svc = node.index_service(req.param("index"))
+    except ElasticsearchTpuException:
+        return
+    if svc.doc_type == "_doc":
         svc.doc_type = t
 
 
@@ -947,6 +969,22 @@ def _bm25_explanation_details(svc, doc_id, query_body):
     return details
 
 
+def _search_template(node, req):
+    """``_search/template``: an inline or stored mustache template
+    rendered into the search body, then searched as ``_search`` is."""
+    from elasticsearch_tpu_torch.search.templates import resolve_template
+
+    body = resolve_template(node, req.json_body({}) or {})
+    return 200, node.search(req.param("index", "_all"), body)
+
+
+def _render_template(node, req):
+    from elasticsearch_tpu_torch.search.templates import resolve_template
+
+    return 200, {"template_output": resolve_template(
+        node, req.json_body({}) or {})}
+
+
 # ---------------------------------------------------------------------------
 # Index admin
 # ---------------------------------------------------------------------------
@@ -1047,6 +1085,165 @@ def _get_index_settings(node, req):
     return 200, out
 
 
+_STATS_METRICS = {
+    "docs": "docs", "store": "store", "indexing": "indexing", "get": "get",
+    "search": "search", "merge": "merges", "refresh": "refresh",
+    "flush": "flush", "warmer": "warmer", "query_cache": "query_cache",
+    "fielddata": "fielddata", "completion": "completion",
+    "segments": "segments", "translog": "translog", "recovery": "recovery",
+    "request_cache": "request_cache", "suggest": "search",
+}
+
+
+def _filter_named(entries, param):
+    """``groups=`` / ``types=`` filtering: comma lists, ``_all`` and
+    ``*`` wildcards."""
+    if not param or not entries:
+        return None
+    wanted = param if isinstance(param, list) else str(param).split(",")
+    if "_all" in wanted:
+        return dict(entries)
+    return {k: v for k, v in entries.items()
+            if any(fnmatch.fnmatchcase(k, w) for w in wanted if w)}
+
+
+def _sum_stats(dicts):
+    """Element-wise numeric merge of section dicts (nested)."""
+    out = {}
+    for d in dicts:
+        for k, v in d.items():
+            if isinstance(v, dict):
+                out[k] = _sum_stats([out.get(k, {}), v])
+            elif isinstance(v, (int, float)):
+                out[k] = out.get(k, 0) + v
+            else:
+                out[k] = v
+    return out
+
+
+def _stats_sections(req):
+    """The sections a ``{metric}`` path names (None: all); an unknown one
+    is a 400 with the nearest names."""
+    import difflib
+
+    metric_param = req.param("metric")
+    if not metric_param or metric_param == "_all":
+        return None
+    sections = set()
+    for m in str(metric_param).split(","):
+        if not m or m == "_all":
+            return None
+        if m not in _STATS_METRICS:
+            near = difflib.get_close_matches(m, _STATS_METRICS, n=3)
+            hint = (" -> did you mean " + (
+                f"[{near[0]}]" if len(near) == 1
+                else "any of [" + ", ".join(near) + "]") + "?") \
+                if near else ""
+            raise IllegalArgumentException(
+                f"request [{req.path}] contains unrecognized metric: "
+                f"[{m}]{hint}")
+        sections.add(_STATS_METRICS[m])
+    return sections
+
+
+def _index_stats(node, req):
+    """``_stats[/{metric}]``: each index's sections (``IndexService.
+    stats``), filtered by metric, ``groups`` and ``types``, at the
+    ``level`` asked (cluster, indices or shards)."""
+    names = node.resolve_index_names(req.param("index", "_all"))
+    sections = _stats_sections(req)
+    level = req.param("level", "indices")
+    if level not in ("cluster", "indices", "shards"):
+        raise IllegalArgumentException(
+            f"level parameter must be one of [cluster] or [indices] or "
+            f"[shards] but was [{level}]")
+    groups_param = req.param("groups")
+    types_param = req.param("types")
+
+    def shape(stats_pair):
+        out = {}
+        for side in ("primaries", "total"):
+            side_out = {}
+            for key, val in stats_pair[side].items():
+                if sections is not None and key not in sections:
+                    continue
+                val = dict(val) if isinstance(val, dict) else val
+                if key == "search" and isinstance(val, dict):
+                    kept = _filter_named(val.pop("groups", None), groups_param)
+                    if kept:
+                        val["groups"] = kept
+                if key == "indexing" and isinstance(val, dict):
+                    kept = _filter_named(val.pop("types", None), types_param)
+                    if kept:
+                        val["types"] = kept
+                side_out[key] = val
+            out[side] = side_out
+        return out
+
+    state = node.cluster_service.state
+    indices = {}
+    shards_total = shards_ok = 0
+    for name in names:
+        svc = node.indices[name]
+        # total counts every copy, the unassigned replicas too
+        shards_total += svc.num_shards * (1 + state.indices[name].num_replicas)
+        shards_ok += svc.num_shards
+        raw = svc.stats()
+        if req.bool_param("include_segment_file_sizes"):
+            for side in ("primaries", "total"):
+                seg = raw[side].get("segments")
+                if seg is not None:
+                    seg["file_sizes"] = {"postings": {
+                        "size_in_bytes": seg.get("memory_in_bytes", 0),
+                        "description": "block-packed postings arrays"}}
+        entry = shape(raw)
+        if level == "shards":
+            entry["shards"] = {str(sid): [{
+                k: v for k, v in s.items()
+                if sections is None or k in sections
+                or k in ("routing", "commit", "seq_no")}]
+                for sid, s in raw["shards"].items()}
+        indices[name] = entry
+    resp = {
+        "_shards": {"total": shards_total, "successful": shards_ok,
+                    "failed": 0},
+        "_all": {
+            "primaries": _sum_stats([i["primaries"] for i in indices.values()]),
+            "total": _sum_stats([i["total"] for i in indices.values()]),
+        },
+    }
+    if level != "cluster":
+        resp["indices"] = indices
+    return 200, resp
+
+
+def _segments(node, req):
+    indices = {}
+    total = 0
+    for name in node.resolve_index_names(req.param("index", "_all")):
+        shards = {}
+        for sid, shard in node.indices[name].shards.items():
+            shards[str(sid)] = [{"segments": {
+                s.name: s.stats() for s in shard.engine.segments}}]
+            total += 1
+        indices[name] = {"shards": shards}
+    return 200, {"indices": indices,
+                 "_shards": {"total": total, "successful": total,
+                             "failed": 0}}
+
+
+def _put_mapping(node, req):
+    body = req.json_body({}) or {}
+    if "properties" not in body and len(body) == 1:
+        body = next(iter(body.values()))  # the typed form {"_doc": {...}}
+    return 200, node.put_mapping(req.param("index"), body)
+
+
+def _put_index_settings(node, req):
+    return 200, node.update_index_settings(req.param("index", "_all"),
+                                           req.json_body({}) or {})
+
+
 def _analyze(node, req):
     body = req.json_body({}) or {}
     text = body.get("text") or req.param("text")
@@ -1070,6 +1267,128 @@ def _analyze(node, req):
                            "end_offset": end, "type": "<ALPHANUM>",
                            "position": pos})
     return 200, {"tokens": tokens}
+
+
+def _render_settings(settings, flat: bool):
+    """Settings as a response: ``index.``-prefixed, flat or nested, every
+    value a string."""
+    if isinstance(settings, dict):
+        settings = Settings.from_dict(settings)
+    settings = settings.with_index_prefix()
+    return _settings_values_as_strings(
+        settings.as_dict() if flat else settings.as_nested_dict())
+
+
+def _update_aliases(node, req):
+    body = req.json_body({}) or {}
+    return 200, node.update_aliases(body.get("actions", []))
+
+
+def _get_alias(node, req):
+    state = node.cluster_service.state
+    name_filter = req.param("name")
+    patterns = ([p for p in str(name_filter).split(",") if p]
+                if name_filter and name_filter != "_all" else None)
+    out = {}
+    for idx in node.resolve_index_names(req.param("index", "_all")):
+        aliases = state.indices[idx].aliases
+        if patterns is not None:
+            aliases = {a: v for a, v in aliases.items()
+                       if any(fnmatch.fnmatchcase(a, p) for p in patterns)}
+            if not aliases:
+                continue
+        out[idx] = {"aliases": aliases}
+    if patterns is not None:
+        # a named (not wildcard) alias that matched nothing is a 404; the
+        # body still carries what did match
+        found = {a for v in out.values() for a in v["aliases"]}
+        missing = [p for p in patterns if "*" not in p and p not in found]
+        if missing:
+            return 404, {**out, "error": f"aliases {missing} missing",
+                         "status": 404}
+    return 200, out
+
+
+def _put_alias(node, req):
+    spec = req.json_body({}) or {}
+    return 200, node.update_aliases([{"add": {
+        "index": req.param("index"), "alias": req.param("name"), **spec}}])
+
+
+def _delete_alias(node, req):
+    return 200, node.update_aliases([{"remove": {
+        "index": req.param("index"), "alias": req.param("name")}}])
+
+
+def _head_alias(node, req):
+    state = node.cluster_service.state
+    index = req.param("index")
+    names = node.resolve_index_names(index) if index else list(state.indices)
+    found = any(req.param("name") in state.indices[n].aliases for n in names)
+    return (200 if found else 404), {}
+
+
+def _put_template(node, req):
+    name = req.param("name")
+    if req.bool_param("create") and \
+            name in node.cluster_service.state.templates:
+        raise IllegalArgumentException(
+            f"index_template [{name}] already exists")
+    return 200, node.put_template(name, req.json_body({}) or {})
+
+
+def _get_template(node, req):
+    templates = node.cluster_service.state.templates
+    name = req.param("name")
+    flat = req.bool_param("flat_settings")
+
+    def render(t):
+        t = dict(t)
+        if "settings" in t:
+            t["settings"] = _render_settings(t["settings"] or {}, flat)
+        if t.get("aliases"):
+            # an alias's routing shows as index_routing and search_routing
+            out = {}
+            for a, spec in t["aliases"].items():
+                spec = dict(spec or {})
+                routing = spec.pop("routing", None)
+                if routing is not None:
+                    spec.setdefault("index_routing", routing)
+                    spec.setdefault("search_routing", routing)
+                out[a] = spec
+            t["aliases"] = out
+        return t
+
+    if name:
+        matched = {k: render(v) for k, v in templates.items()
+                   if fnmatch.fnmatchcase(k, name)}
+        if not matched:
+            return 404, {"error": f"index_template [{name}] missing",
+                         "status": 404}
+        return 200, matched
+    return 200, {k: render(v) for k, v in templates.items()}
+
+
+def _head_template(node, req):
+    found = req.param("name") in node.cluster_service.state.templates
+    return (200 if found else 404), {}
+
+
+# ---------------------------------------------------------------------------
+# Cluster admin
+# ---------------------------------------------------------------------------
+
+
+def _cluster_state(node, req):
+    return 200, node.cluster_service.state.to_dict()
+
+
+def _get_cluster_settings(node, req):
+    state = node.cluster_service.state
+    return 200, {
+        "persistent": state.persistent_settings.as_nested_dict(),
+        "transient": state.transient_settings.as_nested_dict(),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -1130,6 +1449,7 @@ def _cat_help(node, req):
 
 
 def _cat_indices(node, req):
+    state = node.cluster_service.state
     rows = []
     for name in node.resolve_index_names(req.param("index", "_all")):
         svc = node.indices[name]
@@ -1137,9 +1457,10 @@ def _cat_indices(node, req):
                     for seg in shard.engine.segments]
         deleted = sum(seg.num_docs - seg.live_doc_count for seg in segments)
         store = sum(seg.memory_bytes() for seg in segments)
+        md = state.indices[name]
         rows.append([
-            "green" if svc.num_replicas == 0 else "yellow", "open", name,
-            svc.uuid, svc.num_shards, svc.num_replicas, svc.num_docs(),
+            "green" if md.num_replicas == 0 else "yellow", md.state, name,
+            svc.uuid, md.num_shards, md.num_replicas, svc.num_docs(),
             deleted, f"{store}b", f"{store}b",
         ])
     return _cat_table(req, rows, [
@@ -1228,3 +1549,60 @@ def _cat_thread_pool(node, req):
     rows = [[node.node_name, pool, st["active"], st["queue"], st["rejected"]]
             for pool, st in stats.items()]
     return _cat_table(req, rows, ["node_name", "name", "active", "queue", "rejected"])
+
+
+def _cat_shards(node, req):
+    rows = []
+    for name in node.resolve_index_names(req.param("index", "_all")):
+        for sid, shard in node.indices[name].shards.items():
+            store = shard.stats()["segments"]["memory_in_bytes"]
+            # the integrity column: the port keeps no corruption markers
+            # beside a quarantined shard's state
+            rows.append([name, sid, "p", shard.state, shard.num_docs,
+                         f"{store}b", "127.0.0.1", node.node_name, "-"])
+    return _cat_table(req, rows, ["index", "shard", "prirep", "state", "docs",
+                                  "store", "ip", "node", "integrity"])
+
+
+def _cat_aliases(node, req):
+    rows = []
+    for name, md in node.cluster_service.state.indices.items():
+        for alias, spec in md.aliases.items():
+            spec = spec or {}
+            routing = spec.get("routing")
+            rows.append([
+                alias, name, "*" if spec.get("filter") else "-",
+                spec.get("index_routing") or routing or "-",
+                spec.get("search_routing") or routing or "-",
+            ])
+    return _cat_table(req, rows, ["alias", "index", "filter", "routing.index",
+                                  "routing.search"])
+
+
+def _cat_templates(node, req):
+    pat = req.param("name")
+    rows = []
+    for name, t in node.cluster_service.state.templates.items():
+        if pat and not fnmatch.fnmatchcase(name, pat):
+            continue
+        rows.append([name, "[" + ", ".join(t.get("index_patterns", [])) + "]",
+                     t.get("order", 0), t.get("version", "")])
+    return _cat_table(req, rows, ["name", "index_patterns", "order", "version"])
+
+
+def _cat_segments(node, req):
+    rows = []
+    for name, svc in node.indices.items():
+        for sid, shard in svc.shards.items():
+            for seg in shard.engine.segments:
+                st = seg.stats()
+                rows.append([name, sid, "p", "127.0.0.1", node.node_id,
+                             seg.name, 1, st["num_docs"], st["deleted_docs"],
+                             f"{st['memory_in_bytes']}b",
+                             f"{st['memory_in_bytes']}b", "true", "true",
+                             __version__, "false"])
+    return _cat_table(req, rows, ["index", "shard", "prirep", "ip", "id",
+                                  "segment", "generation", "docs.count",
+                                  "docs.deleted", "size", "size.memory",
+                                  "committed", "searchable", "version",
+                                  "compound"])

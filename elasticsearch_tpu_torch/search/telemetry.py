@@ -6,7 +6,8 @@ host-clock spans over a fixed phase taxonomy (``PHASES``): one
 accumulator a phase and a capped ring of detail records, so a shard of
 many segments records at most one accumulator a phase. ``NULL_TRACER``
 is the shared no-op tracer that an unprofiled request carries, so call
-sites stay unconditional and add nothing to it.
+sites stay unconditional and add nothing to it. ``merge_phase_stats``
+merges the per-index ``search`` stats blocks for ``_nodes/stats``.
 
 On the card the device runs behind the host: a span that closes before a
 device sync times only the launch. The places that open a ``kernel``
@@ -134,3 +135,28 @@ def tracer_for(body) -> object:
     """A ``QueryTracer`` for a profiled request, else ``NULL_TRACER``: an
     unprofiled request records nothing."""
     return QueryTracer() if (body or {}).get("profile") else NULL_TRACER
+
+
+def merge_phase_stats(blocks: List[dict]) -> dict:
+    """Merge per-index ``search`` stats blocks into one node-level block
+    for ``_nodes/stats``: numbers sum, booleans or, lists concatenate
+    unless equal, strings keep the first non-null value."""
+
+    def merge(a, b):
+        if isinstance(a, dict) and isinstance(b, dict):
+            out = dict(a)
+            for k, v in b.items():
+                out[k] = merge(out[k], v) if k in out else v
+            return out
+        if isinstance(a, bool) or isinstance(b, bool):
+            return a or b
+        if isinstance(a, (int, float)) and isinstance(b, (int, float)):
+            return a + b
+        if isinstance(a, list) and isinstance(b, list):
+            return a if a == b else a + b
+        return a if a is not None else b
+
+    out: dict = {}
+    for block in blocks:
+        out = merge(out, block) if out else dict(block)
+    return out

@@ -93,7 +93,7 @@ def nodes():
         "settings": {"number_of_shards": 5, "refresh_interval": "-1"},
         "mappings": MAPPING}, seeded_docs())
     yield jn, tn
-    jn.indices["aggs"].close()
+    jn.close()
     tn.close()
     mp.undo()
 
@@ -395,7 +395,7 @@ def sample_nodes():
                                      "v": {"type": "double"},
                                      "k": {"type": "keyword"}}}}}, docs)
     yield jn, tn
-    jn.indices["big"].close()
+    jn.close()
     tn.close()
     mp.undo()
 

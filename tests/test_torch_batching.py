@@ -161,8 +161,17 @@ def test_batchable_body_filter():
 
 def test_threaded_burst_through_node_equals_serial():
     node = Node(Settings({"search.batch.window_ms": 150.0}), device="cpu")
+    try:
+        _threaded_burst(node)
+    finally:
+        node.close()
+
+
+def _threaded_burst(node):
+    # a fixed segment layout: no scheduled refresh between the serial
+    # answers and the burst
     node.create_index("b", {
-        "settings": {"number_of_shards": 3},
+        "settings": {"number_of_shards": 3, "refresh_interval": "-1"},
         "mappings": {"_doc": {"properties": {
             "body": {"type": "text", "analyzer": "whitespace"}}}}})
     rng = np.random.RandomState(4)

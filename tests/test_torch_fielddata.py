@@ -232,6 +232,7 @@ def test_fielddata_breaker_accounts_text_fielddata():
     finally:
         jn.delete_index("logs")
         tn.delete_index("logs")
+        jn.close()
         tn.close()
     assert fielddata_bytes() == before
 
@@ -261,6 +262,7 @@ def test_low_fielddata_limit_trips_before_the_build():
     finally:
         jn.delete_index("logs")
         tn.delete_index("logs")
+        jn.close()
         tn.close()
 
 

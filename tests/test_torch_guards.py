@@ -82,7 +82,10 @@ def test_no_gpu_raises_with_mesh_plane_and_batcher_on():
     # and the CPU index with both on serves from the mesh plane, not a
     # silent fallback of the default device
     svc = IndexService("i", Settings(on), device="cpu")
-    assert svc.device.type == "cpu" and svc._batcher.enabled
+    try:
+        assert svc.device.type == "cpu" and svc._batcher.enabled
+    finally:
+        svc.close()
 
 
 def test_kernel_sources_present_and_not_built_on_import():
@@ -111,7 +114,9 @@ def _knn_index(n_shards=3):
     from elasticsearch_tpu_torch.index.index_service import IndexService
 
     rng = np.random.RandomState(1)
-    svc = IndexService("v", Settings({"index.number_of_shards": n_shards}),
+    # one segment a shard: no scheduled refresh during the ingest
+    svc = IndexService("v", Settings({"index.number_of_shards": n_shards,
+                                      "index.refresh_interval": -1}),
                        mapping={"properties": {"emb": {
                            "type": "dense_vector", "dims": 8}}},
                        device="cpu")
@@ -129,18 +134,23 @@ def test_knn_kernel_fault_raises_and_is_not_served_by_the_host(
     from elasticsearch_tpu_torch.ops.cuda_kernels import KernelError
 
     svc, bodies = _knn_index()
-    assert svc.search(dict(bodies[0]))["_plane"] == "mesh_pallas"
+    try:
+        assert svc.search(dict(bodies[0]))["_plane"] == "mesh_pallas"
 
-    def broken(*args, **kwargs):
-        raise KernelError("knn_scoring kernel launch failed: CUDA error 700")
+        def broken(*args, **kwargs):
+            raise KernelError(
+                "knn_scoring kernel launch failed: CUDA error 700")
 
-    monkeypatch.setattr(knn_scoring, "knn_score_tiles", broken)
-    with pytest.raises(KernelError):
-        if how == "serial":
-            svc.search(dict(bodies[0]))
-        else:
-            svc.search_batch([dict(b) for b in bodies])
-    planes = svc.search_stats()["planes"]
-    assert planes["plane_failures_total"] == {"mesh_pallas": 0, "mesh": 0}
-    assert planes["plane_quarantined"] == []
-    assert planes["host_query_total"] == 0
+        monkeypatch.setattr(knn_scoring, "knn_score_tiles", broken)
+        with pytest.raises(KernelError):
+            if how == "serial":
+                svc.search(dict(bodies[0]))
+            else:
+                svc.search_batch([dict(b) for b in bodies])
+        planes = svc.search_stats()["planes"]
+        assert planes["plane_failures_total"] == {"mesh_pallas": 0,
+                                                  "mesh": 0}
+        assert planes["plane_quarantined"] == []
+        assert planes["host_query_total"] == 0
+    finally:
+        svc.close()

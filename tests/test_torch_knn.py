@@ -80,8 +80,9 @@ def pairs():
     mp.setenv("ES_TPU_PALLAS", "interpret")
     built = {n: build_pair(n) for n in (1, 3)}
     yield built
-    for jidx, _tidx, _vecs in built.values():
+    for jidx, tidx, _vecs in built.values():
         jidx.close()
+        tidx.close()
     mp.undo()
 
 
@@ -274,6 +275,7 @@ def test_knn_disabled_serves_host_on_both():
         assert tidx._mesh_search.decisions.get("host.knn_disabled") == 1
     finally:
         jidx.close()
+        tidx.close()
         mp.undo()
 
 
@@ -338,7 +340,10 @@ def test_max_dims_setting_raises_the_bound():
         "index.number_of_shards": 1,
         "index.mapping.dense_vector.max_dims": 2048}), mapping=mapping,
         device="cpu")
-    assert svc.mapper_service.field_type("v").dims == 2000
+    try:
+        assert svc.mapper_service.field_type("v").dims == 2000
+    finally:
+        svc.close()
 
 
 BAD_DOCS = {
@@ -368,6 +373,7 @@ def test_bad_vector_doc_rejected_like_jax(name):
         assert str(te.value) == str(je.value)
     finally:
         jidx.close()
+        tidx.close()
 
 
 BAD_REQUESTS = {
@@ -443,26 +449,41 @@ def test_node_seeds_knn_settings_and_validates_them():
     from elasticsearch_tpu_torch.node import Node
 
     node = Node(Settings({"search.knn.enabled": False}), device="cpu")
-    node.create_index("v", {"settings": {"number_of_shards": 3},
-                            "mappings": {"_doc": MAPPING}})
-    docs, _vecs = seeded_docs()
-    node.bulk([("index", {"_index": "v", "_id": d, "routing": r}, src)
-               for d, src, r in docs], refresh=True)
-    r = node.search("v", {"knn": {"field": "emb",
-                                  "query_vector": qvec("emb", 0)}})
-    assert r["_plane"] == "host" and len(r["hits"]["hits"]) == 10
     bad = Node(Settings({"search.knn.tile_sub": 12}), device="cpu")
-    with pytest.raises(terr.IllegalArgumentException):
-        bad.create_index("w", {})
+    try:
+        node.create_index("v", {"settings": {"number_of_shards": 3,
+                                             "refresh_interval": "-1"},
+                                "mappings": {"_doc": MAPPING}})
+        docs, _vecs = seeded_docs()
+        node.bulk([("index", {"_index": "v", "_id": d, "routing": r}, src)
+                   for d, src, r in docs], refresh=True)
+        r = node.search("v", {"knn": {"field": "emb",
+                                      "query_vector": qvec("emb", 0)}})
+        assert r["_plane"] == "host" and len(r["hits"]["hits"]) == 10
+        with pytest.raises(terr.IllegalArgumentException):
+            bad.create_index("w", {})
+    finally:
+        node.close()
+        bad.close()
 
 
 def test_threaded_knn_burst_through_node_equals_serial():
-    import threading
-
     from elasticsearch_tpu_torch.node import Node
 
     node = Node(Settings({"search.batch.window_ms": 150.0}), device="cpu")
-    node.create_index("v", {"settings": {"number_of_shards": 3},
+    try:
+        _threaded_knn_burst(node)
+    finally:
+        node.close()
+
+
+def _threaded_knn_burst(node):
+    import threading
+
+    # a fixed segment layout: no scheduled refresh between the serial
+    # answers and the burst
+    node.create_index("v", {"settings": {"number_of_shards": 3,
+                                         "refresh_interval": "-1"},
                             "mappings": {"_doc": MAPPING}})
     docs, _vecs = seeded_docs()
     node.bulk([("index", {"_index": "v", "_id": d, "routing": r}, src)

@@ -67,7 +67,9 @@ def nodes():
     for seed, (name, (shards, mapping)) in enumerate(INDICES.items()):
         docs = _docs(name, 60, seed)
         for n in (jn, tn):
-            n.create_index(name, {"settings": {"number_of_shards": shards},
+            # a fixed segment layout in both packages
+            n.create_index(name, {"settings": {"number_of_shards": shards,
+                                               "refresh_interval": "-1"},
                                   "mappings": mapping})
             for doc_id, src in docs:
                 n.index_doc(name, doc_id, src)
@@ -218,7 +220,8 @@ def test_scroll_across_two_indices_under_writes():
         for seed, name in enumerate(("sa", "sb")):
             docs = _docs("logs-a", 40, seed + 7)
             for n in (jn, tn):
-                n.create_index(name, {"settings": {"number_of_shards": 2},
+                n.create_index(name, {"settings": {"number_of_shards": 2,
+                                                   "refresh_interval": "-1"},
                                       "mappings": INDICES["logs-a"][1]})
                 for doc_id, src in docs:
                     n.index_doc(name, doc_id, src)

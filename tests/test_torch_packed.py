@@ -320,6 +320,7 @@ def host_pair():
     tidx.refresh()
     yield jidx, tidx
     jidx.close()
+    tidx.close()
     mp.undo()
 
 
@@ -369,9 +370,11 @@ def test_packed_host_batched_rung_equals_jax(host_pair):
 
 def test_packed_staging_halves_the_posting_bytes(host_pair):
     _, tidx = host_pair
+    # the packed index's segment layout: no scheduled refresh during the
+    # ingest
     raw = IndexService("codec-raw", Settings({
-        "index.number_of_shards": 2, "index.search.mesh": False}),
-        mapping=MAPPING, device="cpu")
+        "index.number_of_shards": 2, "index.search.mesh": False,
+        "index.refresh_interval": -1}), mapping=MAPPING, device="cpu")
     for doc_id, src in _docs(400, seed=2):
         raw.index_doc(doc_id, src)
     raw.refresh()
@@ -379,6 +382,7 @@ def test_packed_staging_halves_the_posting_bytes(host_pair):
     raw.search(dict(body))
     tidx.search(dict(body))
     b_raw = raw.search_stats()["planes"]["postings_bytes_staged"]
+    raw.close()
     b_packed = tidx.search_stats()["planes"]["postings_bytes_staged"]
     assert 0 < b_packed and 2 * b_packed == b_raw
 
@@ -392,6 +396,15 @@ def test_node_settings_reach_the_index():
                           "search.pallas.pruning.enabled": True,
                           "search.pallas.pruning.probe_tiles": 4}),
                 device="cpu")
+    try:
+        _node_settings_reach_the_index(node)
+    finally:
+        node.close()
+
+
+def _node_settings_reach_the_index(node):
+    from elasticsearch_tpu_torch.node import Node
+
     node.create_index("a", {"settings": {"number_of_shards": 1}})
     node.create_index("b", {"settings": {
         "number_of_shards": 1, "search.pallas.postings_codec": "raw"}})
@@ -411,9 +424,13 @@ def test_node_settings_reach_the_index():
         IllegalArgumentException,
     )
 
-    with pytest.raises(IllegalArgumentException):
-        Node(Settings({"search.pallas.pruning.probe_tiles": 3}),
-             device="cpu").create_index("c", {})
+    bad = Node(Settings({"search.pallas.pruning.probe_tiles": 3}),
+               device="cpu")
+    try:
+        with pytest.raises(IllegalArgumentException):
+            bad.create_index("c", {})
+    finally:
+        bad.close()
     with pytest.raises(IllegalArgumentException):
         node.create_index("d", {"settings": {
             "search.pallas.postings_codec": "bitpacked"}})

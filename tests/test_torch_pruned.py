@@ -403,13 +403,15 @@ def pruned_pair():
     jidx, tidx = build_pair("prune-on", **PRUNE_SETTINGS)
     yield jidx, tidx
     jidx.close()
+    tidx.close()
     mp.undo()
 
 
 def _port_index(name, n_docs=700, seed=3, **extra):
+    # a fixed segment layout: no scheduled refresh during the ingest
     tidx = IndexService(name, Settings({
-        "index.number_of_shards": 2, **extra}), mapping=MAPPING,
-        device="cpu")
+        "index.number_of_shards": 2, "index.refresh_interval": -1,
+        **extra}), mapping=MAPPING, device="cpu")
     for doc_id, src in _docs(n_docs, seed):
         tidx.index_doc(doc_id, src)
     tidx.refresh()
@@ -605,6 +607,7 @@ def test_mixed_codec_stages_a_second_copy_only_where_needed(monkeypatch):
     for name, extra in (("mixed", {"index.search.pallas.postings_codec":
                                    "packed"}), ("allraw", {})):
         svc = IndexService(name, Settings({"index.number_of_shards": 2,
+                                           "index.refresh_interval": -1,
                                            **extra}),
                            mapping=MAPPING, device="cpu")
         for n, (doc_id, src) in enumerate(docs):

@@ -510,11 +510,11 @@ def test_unported_route_answers_400():
     srv.start()
     try:
         tn.create_index("i", {"settings": {"number_of_shards": 1}})
-        for method, path in (("GET", "/_scripts/s1"),
-                             ("GET", "/_nodes/stats"),
+        for method, path in (("POST", "/_reindex"),
+                             ("GET", "/_ingest/pipeline"),
                              ("GET", "/_field_caps"),
                              ("GET", "/i/_termvectors/1"),
-                             ("GET", "/_search/template")):
+                             ("POST", "/i/_rollover")):
             st, _, b = call(srv.port, method, path, {})
             assert st == 400, (path, b)
             assert b["error"]["type"] == "illegal_argument_exception"
@@ -540,6 +540,13 @@ def test_unported_route_answers_400():
         assert b["items"][0]["update"]["status"] == 404
         st, h, _ = call(srv.port, "GET", "/", headers={"X-Opaque-Id": "c7"})
         assert st == 200 and h["X-Opaque-Id"] == "c7"
+        # ported since: the cluster metadata (a missing stored script is a
+        # 404, the node's stats a 200)
+        st, _, b = call(srv.port, "GET", "/_scripts/s1", {})
+        assert st == 404 and b["error"]["type"] == \
+            "resource_not_found_exception"
+        st, _, b = call(srv.port, "GET", "/_nodes/stats", {})
+        assert st == 200 and len(b["nodes"]) == 1
     finally:
         srv.stop()
         tn.close()

@@ -87,6 +87,8 @@ def nodes():
     assert not jn.bulk(ops, refresh=True)["errors"]
     assert not tn.bulk(ops, refresh=True)["errors"]
     yield jn, tn
+    jn.close()
+    tn.close()
     mp.undo()
 
 
@@ -235,4 +237,6 @@ def test_can_match_skips_shards_like_jax():
         jr = jn.search("yr", {"query": {"range": {"year": {"gte": 2000}}}})
         assert jr["_shards"]["skipped"] == 3
     finally:
+        jn.close()
+        tn.close()
         mp.undo()
