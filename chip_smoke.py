@@ -166,7 +166,8 @@ then phases 11, 12, 19, 20, 13, 14, 15, 16, 17 and 18):
    masks) beside the segments' own vector arrays.
 11. REST on the card, after phase 10: the port's ``HttpServer`` on
     127.0.0.1 (ephemeral ports) and an ``http.client`` client. 11a: a
-    fresh ``Node(device="cuda")`` takes phase 3's 20,000 docs as NDJSON
+    fresh ``Node(device="cuda")`` takes phase 3's first 2,000 docs (cut
+    from 20,000 as phase 22 joined) as NDJSON
     ``_bulk`` bodies of 1,000 (docs/s beside phase 3's in-process rate),
     ``_cat/count`` and a document GET; 11b: phase 3's requests on that
     index (host rung), phase 7's on pmc4 through ``HttpServer(g7)``
@@ -209,7 +210,8 @@ then phases 11, 12, 19, 20, 13, 14, 15, 16, 17 and 18):
 13. Durability on the card, after phase 12 (``durability_phase``), every
     data path under a fresh ``tempfile.mkdtemp()`` removed at the end.
     13a: a ``Node(data_path=..., device="cuda")`` takes phase 3's first
-    5,000 docs under ``index.translog.durability: async`` and 400
+    1,000 docs (cut from 5,000 as phase 22 joined) under
+    ``index.translog.durability: async`` and 400
     under ``request`` (docs/s beside phase 3's), ``_flush``, every 100th
     doc deleted,
     ``close()``; reopened, phase 3's requests answer byte for byte as
@@ -271,7 +273,7 @@ then phases 11, 12, 19, 20, 13, 14, 15, 16, 17 and 18):
     and every kernel-2 call (with its combine) replayed through its plain
     version; then p50 per kind on pmcq and pmcqh over two runs, each
     phrase kind's host intersection ms apart from the rest, and each
-    multi-term kind's expanded lanes. 15b: phase 3's first 2,500 docs
+    multi-term kind's expanded lanes. 15b: phase 3's first 1,000 docs
     into an
     index with a custom analyzer (html_strip, standard, lowercase, stop,
     stemmer) on ``title`` and ``english`` on ``title.en`` (docs/s beside
@@ -313,7 +315,7 @@ then phases 11, 12, 19, 20, 13, 14, 15, 16, 17 and 18):
     breaker bytes, the kernel-2 gather plans over about 50,000
     ordinals, ``field_ineligible`` on the fused plane, and after
     ``DELETE`` the fielddata breaker and ``memory_allocated`` back to
-    their levels; 17f ingest-20k's first 2,500 docs over ``bulk`` with
+    their levels; 17f ingest-20k's first 1,000 docs over ``bulk`` with
     every new type in each accepted form and one malformed value of each
     kind (a 400 with the JAX package's message), a flush and a restart
     through ``Node(data_path=...)`` answering as before. Every 1a (and
@@ -395,6 +397,29 @@ then phases 11, 12, 19, 20, 13, 14, 15, 16, 17 and 18):
     p50, plane and launches; the ms from a ``PUT _cluster/settings`` to
     the changed answer; every launch held against plain; the summary
     line's ``cluster_metadata`` entry.
+22. Data movement on the card, right after phase 21
+    (``data_movement_phase``), over REST on phase 7's node: dm4, a new
+    mesh index over pmc-4x256k's arrays (ids routed by their own hash,
+    sources with the title, slot headroom); 22a ``_reindex`` of a match
+    selecting about 5,000 docs (the scan's four 1a launches, its ms apart
+    from the bulk, docs/s, the destination's count and ids, the task's
+    status while it runs); 22b ``_update_by_query`` (painless) over about
+    1% and the first answer through the delta append,
+    ``_delete_by_query`` over another 1% held to the numpy postings count
+    while a writer thread indexes into dm4 (point in time); 22c searches
+    held on
+    the host rung and on the mesh plane, listed by ``_tasks`` and
+    cancelled (ms to the 400, no launch after, memory back); 22d 2,000
+    ingest-20k docs as access-log lines through an nginx-shaped pipeline
+    (``_bulk?pipeline=`` beside plain, ``_simulate`` equal to what is
+    indexed); 22f rollover, shrink, ``_field_caps`` and ``_termvectors``
+    p50s. 22e (``snapshot_restore_phase``) runs inside 13c on its
+    recovered pmc-4x256k: snapshot and incremental snapshot (seconds,
+    bytes), restore with ``rename_pattern`` (seconds, staging, first
+    answer), 40 requests equal byte for byte, a corrupt blob failing its
+    index alone. ``memory_allocated`` back after each by-query call and
+    each cancel; every launch held against plain; the summary line's
+    ``data_movement`` entry.
 
 Every index a phase builds pins ``index.refresh_interval: -1`` (the
 port's scheduled refresh runs every second by default): its segment
@@ -433,16 +458,20 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 RTOL = 1e-5
 INGEST_DOCS = 20_000
+# 11a's bulk over HTTP: phase 3's first docs (cut from 20,000 as phase 22
+# joined; its rate needs no more)
+HTTP_INGEST_DOCS = 2_000
 # 13a's request-durability index: the first of phase 3's docs, one fsync
 # pair an op (its rate needs no more; cut from 1,000 as phase 21 joined)
 REQUEST_DURABLE_DOCS = 400
 # 13a's async ingest, 15b's analyzed ingest and 17f's ingest with the
 # field types: phase 3's first docs (cut from 20,000 to 10,000 as phase
-# 17 joined, to 5,000 as phase 18 joined, and 15b's and 17f's to 2,500 as
-# phase 21 joined, to keep the script's time)
-ASYNC_DURABLE_DOCS = 5_000
-ANALYZED_DOCS = 2_500
-GEO_INGEST_DOCS = 2_500
+# 17 joined, to 5,000 as phase 18 joined, 15b's and 17f's to 2,500 as
+# phase 21 joined, and all three to 1,000 as phase 22 joined, to keep
+# the script's time)
+ASYNC_DURABLE_DOCS = 1_000
+ANALYZED_DOCS = 1_000
+GEO_INGEST_DOCS = 1_000
 # pmc-4x256k: four shards of one 262,144-doc segment each (seeds 7-10)
 MESH_SHARD_DOCS = 262_144
 MESH_SEEDS = (7, 8, 9, 10)
@@ -3463,6 +3492,7 @@ def rest_phase(torch, Node, cuda_kernels, ops, inproc_rate, reqs, g7, c7, gP,
         return got
 
     # ---- 11a: the write path over HTTP ----
+    ops = ops[:HTTP_INGEST_DOCS]
     mem0 = torch.cuda.memory_allocated()
     gH = Node(device="cuda")
     srv = HttpServer(gH, port=0)
@@ -5409,12 +5439,12 @@ def hold_recovered_path(torch, tsc, ssum, knn, kept, launches, errs, label):
 
 def durability_phase(torch, Node, cuda_kernels, tsc, ops, inproc_rate, reqs3,
                      reqs7, knn_bodies, shard_arrays, vecs, exists, queries,
-                     errs):
+                     errs, smi=""):
     """Phase 13: durability on the card, every data path under a fresh
     ``tempfile.mkdtemp()``, removed at the end.
 
     13a. A ``Node(data_path=..., device="cuda")`` takes phase 3's first
-         5,000 docs in bulks of 1,000 under
+         1,000 docs in bulks of 1,000 under
          ``index.translog.durability: async``
          and the first 400 into a second index under ``request`` (one
          fsync per op): docs/s for each beside phase 3's in-memory rate.
@@ -5448,7 +5478,9 @@ def durability_phase(torch, Node, cuda_kernels, tsc, ops, inproc_rate, reqs3,
          every recorded response equal bit for bit with ``_plane``
          unchanged, and every launch (1a, 1b, 1c, kernel 2 and its
          combine pass, kernel 3) held against plain, with 13c's own
-         largest difference per kernel.
+         largest difference per kernel. Then phase 22e on the same
+         recovered node (``snapshot_restore_phase``: its ``path.repo`` is
+         ``<root>/repos``); its report goes under ``13c``'s ``22e``.
     Returns the report (the summary line's ``durability`` entry)."""
     from elasticsearch_tpu_torch.ops import knn_scoring as knn
     from elasticsearch_tpu_torch.ops import segment_sum as ssum
@@ -5465,7 +5497,7 @@ def durability_phase(torch, Node, cuda_kernels, tsc, ops, inproc_rate, reqs3,
         report["13c"] = _recover_full_width(
             torch, Node, cuda_kernels, tsc, ssum, knn, reqs7, knn_bodies,
             shard_arrays, vecs, exists, queries, errs,
-            os.path.join(root, "c"))
+            os.path.join(root, "c"), os.path.join(root, "repos"), smi)
     finally:
         shutil.rmtree(root)
     report["seconds"] = time.perf_counter() - t_phase
@@ -5763,7 +5795,8 @@ def _device_split(torch, fn):
 
 def _recover_full_width(torch, Node, cuda_kernels, tsc, ssum, knn, reqs7,
                         knn_bodies, shard_arrays, vecs, exists, queries, errs,
-                        path):
+                        path, repo_root, smi):
+    from elasticsearch_tpu_torch.common.settings import Settings
     from elasticsearch_tpu_torch.index.segment import Segment
 
     mapping = {"_doc": {"properties": {
@@ -5852,7 +5885,8 @@ def _recover_full_width(torch, Node, cuda_kernels, tsc, ssum, knn, reqs7,
     # the reopen: construction (load, checksums, version maps), staging,
     # the first answer
     t0 = time.perf_counter()
-    g2 = Node(data_path=path, device="cuda")
+    g2 = Node(Settings({"path.repo": [repo_root]}), data_path=path,
+              device="cuda")
     load_s = time.perf_counter() - t0
     svc = g2.indices["dur4"]
     check(sum(svc.recovered_ops.values()) == 0,
@@ -5901,6 +5935,8 @@ def _recover_full_width(torch, Node, cuda_kernels, tsc, ssum, knn, reqs7,
              "knn_scoring": launches["knn_scoring"]}
     for k, v in moved.items():
         check(v > 0, f"phase 13c launched {k} on the recovered path ({v})")
+    snap = snapshot_restore_phase(torch, cuda_kernels, tsc, ssum, knn, g2,
+                                  bodies, repo_root, errs, smi)
     g2.close()
     torch.cuda.synchronize()
     mem_end = torch.cuda.memory_allocated()
@@ -5924,6 +5960,7 @@ def _recover_full_width(torch, Node, cuda_kernels, tsc, ssum, knn, reqs7,
                                 "after_recovered_close": mem_end},
            "launches": launches, "held": held, "kernels": kernels}
     log(f"[phase 13c] {json.dumps(out)}")
+    out["22e"] = snap
     return out
 
 
@@ -7730,7 +7767,7 @@ def geo_fields_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, queries,
          every doc: the fielddata breaker's bytes, each segment's build
          ms, the kernel-2 plans of the gather over about 50,000
          ordinals; the fused plane declines with ``field_ineligible``.
-    17f. ingest-20k's first 2,500 docs over ``bulk`` with every new type
+    17f. ingest-20k's first 1,000 docs over ``bulk`` with every new type
          in each accepted
          form and one malformed value of each kind (a 400 with the JAX
          package's message), a flush and a restart through
@@ -8230,7 +8267,7 @@ GEO_BAD_VALUES = [
 
 
 def geo_ingest_phase(torch, Node, Segment, ingest_ops, bodies, device):
-    """17f: phase 3's first 2,500 docs (``ingest_ops``) with the new types in
+    """17f: phase 3's first 1,000 docs (``ingest_ops``) with the new types in
     each accepted form through ``bulk`` into a ``Node(data_path=...)``;
     the malformed values; a flush, a restart, and the request kinds of
     17a-17d answered as before and as a cpu node holding the same
@@ -8406,7 +8443,8 @@ SO_MAX_ANSWERS = 8
 SO_REPS = 1  # samples a kind and index (the main path's run alone)
 SO_PAGE, SO_PAGES = 100, 10
 SO_APPEND = 4096  # 18e's appended questions a shard
-SO_BULK = 10_000  # 18f's questions through bulk
+# 18f's questions through bulk (cut from 10,000 as phase 22 joined)
+SO_BULK = 4_000
 SO_JOIN_BULK = 2_000  # 18f's join-form questions through bulk
 SO_PARENT_BULK = 500  # 18f's legacy _parent children
 SO_EMB_DIMS = 16
@@ -10107,6 +10145,866 @@ def _metadata_restart(Node, HttpServer, path, device, item):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 22: data movement (reindex, by query, tasks, ingest, index admin;
+# the snapshot and restore, 22e, run inside 13c over its recovered node)
+# ----------------------------------------------------------------------
+
+# dm4's slots: a generation holds one refresh's worth of headroom (one
+# segment a shard); the cap leaves room for it
+DM_SLOTS = 16
+REINDEX_DOCS = 5_000  # 22a's source query selects about this many docs
+REINDEX_BATCH = 1_000  # 22a's scroll size: the task shows its status after each
+BYQUERY_DOCS = 2_621  # 22b's update and delete each select about 1%
+WRITER_DOCS = 40  # 22b's concurrent writer (one refresh)
+PIPELINE_DOCS = 2_000  # 22d: ingest-20k's first docs through the pipeline
+ADMIN_DOCS = 2_000  # 22f's shrink source
+CANCEL_HOLD_S = 0.3  # 22c: how long a held search waits at its checkpoint
+
+
+class _DMSources:
+    """pmc-4x256k's stored sources for phase 22: the title rebuilt from
+    its token stream, ``n`` and ``year``. No ``venue``: a keyword adds a
+    norm row, and a segment with one more norm row than the staged
+    generation cannot append into it (the by-query writes re-index from
+    the source)."""
+
+    def __init__(self, base, title_stream):
+        self._titled = _TitledSources(base, title_stream)
+
+    def __len__(self):
+        return len(self._titled)
+
+    def __getitem__(self, d):
+        src = self._titled[d]
+        src.pop("venue", None)
+        return src
+
+
+def routed_ids(n_shards, per_shard, prefix="m"):
+    """Doc ids for each shard that route to it by their own hash (the
+    by-query writes carry no routing): candidates ``<prefix><7 digits>``
+    hashed as ``shard_id_for`` does (murmur3 over the UTF-16LE bytes), all
+    at once, then bucketed by shard."""
+    from elasticsearch_tpu_torch.utils.murmur3 import _murmur3_32_same_length
+
+    width = 7
+    m = per_shard * n_shards * 21 // 20 + 1024
+    while True:
+        j = np.arange(m, dtype=np.int64)
+        rows = np.zeros((m, 2 * (1 + width)), np.uint8)
+        rows[:, 0] = ord(prefix)
+        for k in range(width):
+            rows[:, 2 * (k + 1)] = ord("0") + (j // 10 ** (width - 1 - k)) % 10
+        shard = np.mod(_murmur3_32_same_length(rows, 0), n_shards)
+        picks = [np.flatnonzero(shard == s)[:per_shard]
+                 for s in range(n_shards)]
+        if min(len(p) for p in picks) == per_shard:
+            return [[f"{prefix}{x:0{width}d}" for x in p.tolist()]
+                    for p in picks]
+        m *= 2
+
+
+def term_docs(arrays, tid):
+    """The local docs of term ``tid`` in one shard's segment arrays."""
+    s = int(arrays["term_block_start"][tid])
+    c = int(arrays["term_block_count"][tid])
+    docs = arrays["block_docs"][s: s + c].reshape(-1)
+    return np.unique(docs[docs < len(arrays["doc_ids"])])
+
+
+def term_near(shard_arrays, lives, target, skip=()):
+    """The title term whose live document frequency over every shard is
+    closest to ``target`` (a few hundred candidates near it by the
+    segments' own frequencies, then counted exactly)."""
+    df = sum(a["term_doc_freq"].astype(np.int64) for a in shard_arrays)
+    order = np.argsort(np.abs(df - target))
+    best, best_n = None, None
+    for tid in order[:40].tolist():
+        if tid in skip:
+            continue
+        n = sum(int(live[term_docs(a, tid)].sum())
+                for a, live in zip(shard_arrays, lives))
+        if best is None or abs(n - target) < abs(best_n - target):
+            best, best_n = tid, n
+    return best, best_n
+
+
+@contextlib.contextmanager
+def timed_scan(trx, stats):
+    """While the block runs, every by-query scan (``_scan_batches``) adds
+    the host-clock seconds it spends producing batches (the plans, the
+    launches and each segment's mask to the host: the scan apart from
+    the writes that consume its batches) to ``stats["s"]``, and the
+    segments it pins to ``stats["segments"]``."""
+    orig = trx._scan_batches
+
+    def timed(*args, **kw):
+        inner = orig(*args, **kw)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(inner)
+                except StopIteration:
+                    return
+                finally:
+                    stats["s"] = stats.get("s", 0.0) + (time.perf_counter()
+                                                        - t0)
+                yield batch
+        finally:
+            inner.close()
+
+    trx._scan_batches = timed
+    try:
+        yield stats
+    finally:
+        trx._scan_batches = orig
+
+
+@contextlib.contextmanager
+def held_block(torch, cuda_kernels, tsc, ssum, knn, errs, label, acc,
+               on_card=True):
+    """Record every kernel call of the block; then hold each against its
+    plain version on its inputs, check that every launch was held, and
+    drop the records (they keep the launches' inputs alive). ``acc``
+    takes the launches by name; the yielded dict takes this block's."""
+    before = dict(cuda_kernels.LAUNCHES)
+    mine = {}
+    if not on_card:
+        yield mine
+        return
+    with recording_recovered_path(tsc, ssum, knn) as kept:
+        yield mine
+    torch.cuda.synchronize()
+    mine.update({k: v - before.get(k, 0) for k, v in
+                 cuda_kernels.LAUNCHES.items() if v != before.get(k, 0)})
+    hold_recovered_path(torch, tsc, ssum, knn, kept, mine, errs, label)
+    for k, v in mine.items():
+        acc[k] = acc.get(k, 0) + v
+    del kept
+
+
+def data_movement_phase(torch, Node, HttpServer, cuda_kernels, tsc, ssum,
+                        knn, g7, shard_arrays, title_streams, ops, queries,
+                        errs, smi, device="cuda"):
+    """Phase 22: data movement on the card, over REST through an
+    ``HttpServer`` on phase 7's node.
+
+    dm4 is a new 4-shard mesh index over pmc-4x256k's arrays (new
+    segments, their own live masks; ids that route to their shard by
+    their hash, since the by-query writes carry no routing; sources with
+    the title; ``max_slots_per_device`` 24 and no compaction).
+
+    22a. ``_reindex`` of a ``match`` on one title term selecting about
+         5,000 docs into a 1-shard index: the scan's 1a launches (one a
+         segment, held against plain), the scan's host-clock ms apart
+         from the bulk, docs/s; the destination's ``_count`` and ids equal
+         the source's for the same query and the numpy postings count;
+         ``memory_allocated`` back to its level; the reindex seen in
+         ``_tasks`` with its ``status`` while it runs.
+    22b. ``_update_by_query`` with a painless script over a term of about
+         1% of the docs: it updates the numpy postings count, and the
+         first answer after it takes the delta append (no rebuild).
+         ``_delete_by_query`` over another 1% term while a writer thread
+         indexes 40 docs holding that term into dm4 and refreshes, after
+         the scan pinned its snapshot: deleted equals the numpy count
+         (point in time: none of the writer's docs), the term then
+         matches the writer's docs alone and ``match_all`` counts the
+         rest exactly (the path of that answer is reported: the update's
+         append used the generation's headroom). ``memory_allocated``
+         back after each call.
+    22c. A search held on the host rung (pmc4h, ``SearchDelayScheme``) and
+         one held on the mesh plane (dm4, ``MeshPlaneDelayScheme`` before
+         the plane attempt's checkpoint) are listed by ``GET
+         _tasks?actions=*search*`` and cancelled by ``POST
+         _tasks/{id}/_cancel``: the ms from the cancel to the 400
+         ``task_cancelled_exception``, no launch after the cancel,
+         ``memory_allocated`` at its level.
+    22d. ingest-20k's first 2,000 docs as combined-log lines through a
+         pipeline shaped like Filebeat's nginx access log (grok, date,
+         geoip on the built-in table, user_agent, convert, remove) with
+         ``_bulk?pipeline=`` beside the same bulk without it; the
+         ``_simulate`` of all 2,000 docs; every indexed source equals its
+         simulated one.
+    22f. On small host-rung indices: rollover of a ``logs-000001`` write
+         alias by ``max_docs`` (a ``dry_run`` moves nothing), a shrink of
+         a 4-shard 2,000-doc index to 1 (equal answers), ``_field_caps``
+         over ``logs-*``, ``_termvectors`` of one doc against the
+         segment's postings. The p50 of each.
+
+    Every launch is held against its plain version; dm4 and every index
+    made here is deleted at the end. Returns the report."""
+    from elasticsearch_tpu_torch.index import reindex as trx
+    from elasticsearch_tpu_torch.index.segment import Segment
+    from elasticsearch_tpu_torch.testing import disruption as tdis
+
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    report = {"items": {}}
+    acc = {}
+    tok = term_token
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def mem():
+        sync()
+        return torch.cuda.memory_allocated() if on_card else 0
+
+    srv = HttpServer(g7, port=0)
+    srv.start()
+    client = HttpClient(srv.port)
+
+    def call(method, path, body=None, want=200, ctype="application/json",
+             cl=None):
+        st, r = (cl or client).call(method, path, body, ctype)
+        check(st == want, f"22: {method} {path} answered {st} (want {want}: "
+                          f"{str(r)[:300]})")
+        return r
+
+    def timed(name, fn, reps=1):
+        xs, out = [], None
+        for i in range(reps):
+            t0 = time.perf_counter()
+            r = fn()
+            sync()
+            xs.append((time.perf_counter() - t0) * 1000)
+            if i == 0:
+                out = r
+        row = {"p50_ms": float(np.median(xs)), "samples": len(xs)}
+        report["items"][name] = row
+        log(f"[phase 22] {name}: {json.dumps(row)} ({smi})")
+        return out
+
+    def bulk_lines(index, docs, extra=""):
+        lines = []
+        for doc_id, src in docs:
+            lines.append(json.dumps({"index": {"_index": index,
+                                               "_id": doc_id}}))
+            lines.append(json.dumps(src))
+        return ("\n".join(lines) + "\n").encode()
+
+    # ---- dm4 ---------------------------------------------------------
+    t0 = time.perf_counter()
+    per_shard = len(shard_arrays[0]["doc_ids"])
+    ids = routed_ids(len(shard_arrays), per_shard)
+    mapping = {"_doc": {"properties": {
+        "title": {"type": "text"}, "venue": {"type": "keyword"},
+        "year": {"type": "long"}, "n": {"type": "long"}}}}
+    call("PUT", "/dm4", {"settings": {
+        "number_of_shards": len(shard_arrays), "refresh_interval": "-1",
+        "search": {"mesh": {"max_slots_per_device": DM_SLOTS}},
+        "staging": {"compact": {"threshold": 0}}}, "mappings": mapping})
+    lives = []
+    for sh, arrays in enumerate(shard_arrays):
+        arrays = dict(arrays, doc_ids=ids[sh], live=arrays["live"].copy(),
+                      sources=_DMSources(arrays["sources"],
+                                         title_streams[sh]))
+        lives.append(arrays["live"].copy())
+        # (a name of its own: the engine's first sealed buffer is
+        # dm4_<shard>_seg_1, and the write-backs seal one)
+        g7.indices["dm4"].shards[sh].engine.adopt_segment(
+            Segment.from_arrays(f"dm4src_{sh}_seg_1", device=device,
+                                **arrays))
+    ms = g7.indices["dm4"]._mesh_plane()
+    n_live = int(sum(int(lv[:per_shard].sum()) for lv in lives))
+
+    def expected(tid):
+        return {ids[sh][d] for sh, a in enumerate(shard_arrays)
+                for d in term_docs(a, tid).tolist() if lives[sh][d]}
+
+    ta, na = term_near(shard_arrays, lives, REINDEX_DOCS)
+    tu, nu = term_near(shard_arrays, lives, BYQUERY_DOCS, skip=(ta,))
+    td, nd = term_near(shard_arrays, lives, BYQUERY_DOCS, skip=(ta, tu))
+    warm = call("POST", "/dm4/_search", {
+        "query": {"match": {"title": tok(tu)}}, "size": 10})
+    check(warm.get("_plane") == "mesh_pallas",
+          f"22: dm4 serves on mesh_pallas ({warm.get('_plane')})")
+    report["dm4"] = {"docs": n_live, "build_s": time.perf_counter() - t0,
+                     "terms": {"reindex": [tok(ta), na],
+                               "update": [tok(tu), nu],
+                               "delete": [tok(td), nd]}}
+    log(f"[phase 22] dm4: {json.dumps(report['dm4'])}")
+
+    # ---- 22a: reindex ------------------------------------------------
+    q_a = {"match": {"title": tok(ta)}}
+    want_a = expected(ta)
+    call("PUT", "/dm1", {"settings": {"number_of_shards": 1,
+                                      "refresh_interval": "-1"},
+                         "mappings": mapping})
+    seen = []
+    stop = threading.Event()
+
+    def watch():
+        cl = HttpClient(srv.port)
+        try:
+            while not stop.is_set():
+                st, t = cl.call("GET", "/_tasks?actions=*reindex")
+                for node_tasks in (t or {}).get("nodes", {}).values():
+                    for entry in node_tasks["tasks"].values():
+                        if entry.get("status"):
+                            seen.append(entry)
+                time.sleep(0.01)
+        finally:
+            cl.close()
+
+    watcher = threading.Thread(target=watch)
+    mem0 = mem()
+    with held_block(torch, cuda_kernels, tsc, ssum, knn, errs, "phase 22a",
+                    acc, on_card) as la, timed_scan(trx, {}) as scan:
+        watcher.start()
+        t0 = time.perf_counter()
+        out_a = call("POST", "/_reindex", {
+            "source": {"index": "dm4", "query": q_a, "size": REINDEX_BATCH},
+            "dest": {"index": "dm1"}})
+        call_s = time.perf_counter() - t0
+        stop.set()
+        watcher.join()
+    mem1 = mem()
+    got = call("POST", "/dm1/_search", {"query": q_a, "size": len(want_a)})
+    src = call("POST", "/dm4/_search", {"query": q_a, "size": len(want_a)})
+    count = call("POST", "/dm1/_count", {"query": q_a})
+    check(out_a["created"] == out_a["total"] == len(want_a)
+          and not out_a["failures"],
+          f"22a: reindex created every matched doc ({out_a['created']} of "
+          f"{len(want_a)})")
+    check(count["count"] == got["hits"]["total"] == src["hits"]["total"]
+          == len(want_a)
+          and {h["_id"] for h in got["hits"]["hits"]}
+          == {h["_id"] for h in src["hits"]["hits"]} == want_a,
+          "22a: the destination's _count and ids equal the source's and the "
+          "numpy postings'")
+    check(abs(mem1 - mem0) <= 1 << 20,
+          f"22a: memory_allocated back to its level ({mem0} -> {mem1})")
+    check(bool(seen) and seen[0]["action"] == "indices:data/write/reindex"
+          and seen[0]["status"]["total"] > 0,
+          f"22a: the reindex listed in _tasks with its status "
+          f"({seen[:1]})")
+    if on_card:
+        check(la.get("tile_scoring", 0) == len(shard_arrays),
+              f"22a: the scan launched 1a once a segment ({la})")
+    report["22a"] = {
+        "docs": out_a["created"], "call_s": call_s,
+        "docs_per_s": out_a["created"] / call_s,
+        "scan_ms": scan["s"] * 1000,
+        "bulk_and_rest_ms": (call_s - scan["s"]) * 1000,
+        "launches": la, "memory_allocated": [mem0, mem1],
+        "task_status_seen": seen[0]["status"] if seen else None}
+    log(f"[phase 22a] {json.dumps(report['22a'])} ({smi})")
+
+    # ---- 22b: update and delete by query, a writer alongside ----------
+    q_u = {"match": {"title": tok(tu)}}
+    want_u = expected(tu)
+    restage0, delta0 = ms.restage_total, ms.delta_restage_total
+    mem0 = mem()
+    with held_block(torch, cuda_kernels, tsc, ssum, knn, errs, "phase 22b",
+                    acc, on_card) as lu, timed_scan(trx, {}) as scan_u:
+        t0 = time.perf_counter()
+        out_u = call("POST", "/dm4/_update_by_query", {
+            "query": q_u, "script": {"source": "ctx._source.year += params.d",
+                                     "params": {"d": 1000}}})
+        upd_s = time.perf_counter() - t0
+    mem1 = mem()
+    check(out_u["total"] == out_u["updated"] == len(want_u)
+          and not out_u["failures"],
+          f"22b: the update updated the numpy count ({out_u['total']} of "
+          f"{len(want_u)})")
+    check(abs(mem1 - mem0) <= 1 << 20,
+          f"22b: memory_allocated back after the update ({mem0} -> {mem1})")
+    body_u = {"query": q_u, "size": 10}
+    with held_block(torch, cuda_kernels, tsc, ssum, knn, errs,
+                    "phase 22b first answer", acc, on_card) as lf:
+        t0 = time.perf_counter()
+        first = call("POST", "/dm4/_search", body_u)
+        sync()
+        first_ms = (time.perf_counter() - t0) * 1000
+    check(first.get("_plane") == "mesh_pallas"
+          and ms.delta_restage_total == delta0 + 1
+          and ms.restage_total == restage0,
+          f"22b: the first answer after the update took the delta append "
+          f"(delta {delta0} -> {ms.delta_restage_total}, rebuilds "
+          f"{restage0} -> {ms.restage_total}, {first.get('_plane')})")
+    check(first["hits"]["total"] == len(want_u)
+          and all(h["_source"]["year"] >= 2990
+                  for h in first["hits"]["hits"]),
+          f"22b: the term's docs carry the update ({first['hits']['total']}"
+          f" of {len(want_u)})")
+    # the delete, with a writer thread indexing docs of the deleted term
+    # into dm4 (a refresh after them) once the scan has pinned its
+    # snapshot: the scan must not see them
+    q_d = {"match": {"title": tok(td)}}
+    want_d = expected(td)
+    pinned, written = threading.Event(), threading.Event()
+    writer_ids = []
+    orig_scan = trx._scan_batches
+
+    def signalling_scan(*args, **kw):
+        inner = orig_scan(*args, **kw)
+        try:
+            for i, batch in enumerate(inner):
+                yield batch
+                if i == 0:
+                    # the run goes on once the writer is done
+                    pinned.set()
+                    written.wait(60)
+        finally:
+            inner.close()
+
+    def writer():
+        try:
+            if not pinned.wait(60):
+                return
+            for i in range(WRITER_DOCS):
+                doc_id = f"writer{i}"
+                g7.index_doc("dm4", doc_id, {"title": f"{tok(td)} fresh{i}",
+                                             "year": 5000, "n": -1})
+                writer_ids.append(doc_id)
+            g7.refresh("dm4")
+        finally:
+            written.set()
+
+    tomb0, delta1 = ms.tombstone_update_total, ms.delta_restage_total
+    mem0 = mem()
+    trx._scan_batches = signalling_scan
+    try:
+        with held_block(torch, cuda_kernels, tsc, ssum, knn, errs,
+                        "phase 22b delete", acc, on_card) as ld:
+            w = threading.Thread(target=writer)
+            w.start()
+            t0 = time.perf_counter()
+            out_d = call("POST", "/dm4/_delete_by_query", {"query": q_d})
+            del_s = time.perf_counter() - t0
+            pinned.set()
+            w.join()
+    finally:
+        trx._scan_batches = orig_scan
+    mem1 = mem()
+    check(len(writer_ids) == WRITER_DOCS, "22b: the writer wrote its docs")
+    check(out_d["deleted"] == out_d["total"] == len(want_d),
+          f"22b: delete by query removed the numpy count, none of the "
+          f"writer's docs ({out_d['deleted']} of {len(want_d)}, "
+          f"{WRITER_DOCS} written meanwhile)")
+    check(abs(mem1 - mem0) <= 1 << 20,
+          f"22b: memory_allocated back after the delete ({mem0} -> {mem1})")
+    with held_block(torch, cuda_kernels, tsc, ssum, knn, errs,
+                    "phase 22b after delete", acc, on_card) as lt:
+        t0 = time.perf_counter()
+        left = call("POST", "/dm4/_search", {"query": q_d, "size": 10})
+        sync()
+        tomb_ms = (time.perf_counter() - t0) * 1000
+        rest = call("POST", "/dm4/_count", {"query": {"match_all": {}}})
+    # (the update's append filled the generation's one refresh of
+    # headroom, so the writer's segments make this answer a rebuild)
+    check(left["hits"]["total"] == WRITER_DOCS
+          and {h["_id"] for h in left["hits"]["hits"]} <= set(writer_ids)
+          and left.get("_plane") == "mesh_pallas",
+          f"22b: the deleted term matches the writer's docs alone "
+          f"({left['hits']['total']}, {left.get('_plane')})")
+    check(rest["count"] == n_live - len(want_d) + WRITER_DOCS,
+          f"22b: match_all counts the rest exactly ({rest['count']} = "
+          f"{n_live} - {len(want_d)} + {WRITER_DOCS})")
+    report["22b"] = {
+        "update": {"docs": out_u["updated"], "s": upd_s,
+                   "docs_per_s": out_u["updated"] / upd_s,
+                   "scan_ms": scan_u["s"] * 1000, "launches": lu,
+                   "first_answer_ms": first_ms, "first_answer_launches": lf},
+        "delete": {"docs": out_d["deleted"], "s": del_s,
+                   "docs_per_s": out_d["deleted"] / del_s, "launches": ld,
+                   "writer_docs": len(writer_ids),
+                   "answer_after_ms": tomb_ms, "answer_launches": lt,
+                   "answer_after_path": {
+                       "rebuilds": ms.restage_total - restage0,
+                       "delta_appends": ms.delta_restage_total - delta1,
+                       "tombstone_updates":
+                           ms.tombstone_update_total - tomb0}}}
+    log(f"[phase 22b] {json.dumps(report['22b'])} ({smi})")
+
+    # ---- 22c: tasks: cancel a held search on each plane ---------------
+    report["22c"] = {}
+    for plane, index, scheme in (
+            ("host", "pmc4h", tdis.SearchDelayScheme(
+                CANCEL_HOLD_S, indices=["pmc4h"])),
+            ("mesh_pallas", "dm4", tdis.MeshPlaneDelayScheme(
+                CANCEL_HOLD_S, indices=["dm4"]))):
+        body = {"query": {"match": {"title": " ".join(
+            tok(t) for t in queries[2])}}, "size": 10}
+        call("POST", f"/{index}/_search", body)  # warm: nothing new stages
+        mem0 = mem()
+        scheme.install()
+        got, when = [], []
+        cl = HttpClient(srv.port)
+
+        def held_search():
+            got.append(cl.call("POST", f"/{index}/_search", body))
+            when.append(time.perf_counter())
+
+        th = threading.Thread(target=held_search)
+        with held_block(torch, cuda_kernels, tsc, ssum, knn, errs,
+                        f"phase 22c {plane}", acc, on_card) as lc:
+            th.start()
+            task_id, deadline = None, time.perf_counter() + 10
+            while task_id is None and time.perf_counter() < deadline:
+                t = call("GET", "/_tasks?actions=*search*")
+                tasks = next(iter(t["nodes"].values()))["tasks"]
+                task_id = next(iter(tasks), None)
+            # cancel while the search sits in its hold
+            while scheme.hits == 0 and time.perf_counter() < deadline:
+                time.sleep(0.001)
+            t_held = time.perf_counter()
+            at_cancel = dict(cuda_kernels.LAUNCHES)
+            t_cancel = time.perf_counter()
+            r = call("POST", f"/_tasks/{task_id}/_cancel")
+            th.join()
+            sync()
+            after = dict(cuda_kernels.LAUNCHES)
+        cl.close()
+        tdis.clear_search_disruptions()
+        mem1 = mem()
+        st, body_c = got[0]
+        check(task_id is not None and task_id in next(iter(
+            r["nodes"].values()))["tasks"],
+            f"22c {plane}: the held search was listed and cancelled")
+        check(st == 400 and body_c["error"]["type"]
+              == "task_cancelled_exception"
+              and body_c["error"]["reason"]
+              == "task cancelled [by user request]",
+              f"22c {plane}: the search answered 400 task_cancelled "
+              f"({st} {str(body_c)[:200]})")
+        check(after == at_cancel,
+              f"22c {plane}: no launch after the cancel")
+        check(abs(mem1 - mem0) <= 1 << 20,
+              f"22c {plane}: memory_allocated at its level ({mem0} -> "
+              f"{mem1})")
+        row = {"cancel_to_400_ms": (when[0] - t_cancel) * 1000,
+               "hold_s": CANCEL_HOLD_S,
+               "cancelled_after_hold_began_ms": (t_cancel - t_held) * 1000,
+               "launches": lc, "held_at": ("the shard query phase"
+                                           if plane == "host" else
+                                           "the plane attempt's checkpoint"),
+               "memory_allocated": [mem0, mem1]}
+        report["22c"][plane] = row
+        log(f"[phase 22c] {plane}: {json.dumps(row)} ({smi})")
+
+    # ---- 22d: an nginx access-log pipeline ----------------------------
+    uas = [("Mozilla/5.0 (Windows NT 10.0; Win64; x64) AppleWebKit/537.36 "
+            "(KHTML, like Gecko) Chrome/70.0.3538.77 Safari/537.36"),
+           "curl/7.54.0",
+           ("Mozilla/5.0 (iPhone; CPU iPhone OS 12_0 like Mac OS X) "
+            "AppleWebKit/605.1.15 (KHTML, like Gecko) Version/12.0 "
+            "Mobile/15E148 Safari/604.1")]
+    ips = ["8.8.8.8", "1.1.1.1", "81.2.69.144", "10.0.0.7", "81.2.69.160"]
+    rng = np.random.RandomState(22)
+    docs = []
+    for i, (_a, meta, s) in enumerate(ops[:PIPELINE_DOCS]):
+        words = s["title"].split()
+        line = (f'{ips[i % len(ips)]} - {s["venue"]} '
+                f'[{1 + i % 28:02d}/{1 + i % 12:02d}/{s["year"]}:'
+                f'{i % 24:02d}:{i % 60:02d}:{(7 * i) % 60:02d}] '
+                f'"GET /{s["venue"]}/{words[0]} HTTP/1.1" '
+                f'{[200, 200, 304, 404, 500][int(rng.randint(5))]} '
+                f'{len(s["title"])} "-" "{uas[i % len(uas)]}"')
+        docs.append((meta["_id"], {"message": line}))
+    pipeline = {"description": "nginx access log (Filebeat's shape)",
+                "processors": [
+                    {"grok": {"field": "message", "patterns": [
+                        '%{IP:source.ip} - %{DATA:user.name} '
+                        '\\[%{DATA:nginx.access.time}\\] "%{WORD:http.method}'
+                        ' %{DATA:url.original} HTTP/%{NUMBER:http.version}" '
+                        '%{NUMBER:http.response.status_code} '
+                        '%{NUMBER:http.response.body.bytes} '
+                        '"%{DATA:http.referrer}" '
+                        '"%{DATA:user_agent.original}"']}},
+                    {"date": {"field": "nginx.access.time",
+                              "formats": ["dd/MM/yyyy:HH:mm:ss"]}},
+                    {"geoip": {"field": "source.ip",
+                               "target_field": "source.geo"}},
+                    {"user_agent": {"field": "user_agent.original"}},
+                    {"convert": {"field": "http.response.status_code",
+                                 "type": "integer"}},
+                    {"convert": {"field": "http.response.body.bytes",
+                                 "type": "long"}},
+                    {"remove": {"field": ["message", "nginx.access.time"]}}]}
+    call("PUT", "/_ingest/pipeline/nginx", pipeline)
+    rates = {}
+    for name, qs in (("weblogs-n", ""), ("weblogs-p", "?pipeline=nginx")):
+        call("PUT", f"/{name}", {"settings": {"number_of_shards": 5,
+                                              "refresh_interval": "-1"}})
+        t0 = time.perf_counter()
+        errors = False
+        for lo in range(0, len(docs), 1000):
+            r = call("POST", f"/_bulk{qs}",
+                     bulk_lines(name, docs[lo: lo + 1000]),
+                     ctype="application/x-ndjson")
+            errors = errors or r["errors"]
+        call("POST", f"/{name}/_refresh")
+        rates[name] = len(docs) / (time.perf_counter() - t0)
+        check(not errors, f"22d: the bulk into {name}")
+    t0 = time.perf_counter()
+    sim = call("POST", "/_ingest/pipeline/nginx/_simulate", {
+        "docs": [{"_id": i, "_source": s} for i, s in docs]})
+    sim_ms = (time.perf_counter() - t0) * 1000
+    same = sum(
+        1 for (doc_id, _s), d in zip(docs, sim["docs"])
+        if "doc" in d
+        and g7.get_doc("weblogs-p", doc_id)["_source"] == d["doc"]["_source"])
+    geo = sum(1 for d in sim["docs"] if "source" in d.get("doc", {}).get(
+        "_source", {}) and "geo" in d["doc"]["_source"]["source"])
+    check(same == len(docs),
+          f"22d: every indexed source equals its _simulate output ({same} "
+          f"of {len(docs)})")
+    check(call("GET", "/weblogs-p/_count")["count"] == len(docs)
+          and geo > 0, f"22d: {len(docs)} docs, {geo} with a geo block")
+    report["22d"] = {"docs": len(docs),
+                     "pipeline_docs_per_s": rates["weblogs-p"],
+                     "plain_docs_per_s": rates["weblogs-n"],
+                     "simulate_ms": sim_ms, "simulated_equal": same,
+                     "geo_resolved": geo}
+    log(f"[phase 22d] {json.dumps(report['22d'])} ({smi})")
+
+    # ---- 22f: rollover, shrink, _field_caps, _termvectors -------------
+    with held_block(torch, cuda_kernels, tsc, ssum, knn, errs, "phase 22f",
+                    acc, on_card) as lad:
+        small_map = {"_doc": {"properties": {"title": {"type": "text"},
+                                             "venue": {"type": "keyword"},
+                                             "year": {"type": "long"}}}}
+        call("PUT", "/logs-000001", {
+            "settings": {"number_of_shards": 1, "refresh_interval": "-1"},
+            "mappings": small_map, "aliases": {"logs": {}}})
+        src_docs = [(m["_id"], s) for _a, m, s in ops[:ADMIN_DOCS]]
+        call("POST", "/_bulk?refresh=true", bulk_lines("logs",
+                                                       src_docs[:60]),
+             ctype="application/x-ndjson")
+        dry = timed("22f rollover dry_run", lambda: call(
+            "POST", "/logs/_rollover?dry_run",
+            {"conditions": {"max_docs": 50}}), reps=3)
+        check(dry["dry_run"] and not dry["rolled_over"]
+              and set(call("GET", "/_alias/logs")) == {"logs-000001"},
+              "22f: dry_run moves nothing")
+        xs = []
+        for k in range(2, 5):
+            if k > 2:
+                call("POST", "/_bulk?refresh=true", bulk_lines(
+                    "logs", src_docs[60 * k: 60 * k + 60]),
+                    ctype="application/x-ndjson")
+            t0 = time.perf_counter()
+            r = call("POST", "/logs/_rollover",
+                     {"conditions": {"max_docs": 50}})
+            xs.append((time.perf_counter() - t0) * 1000)
+            check(r["rolled_over"] and r["new_index"] == f"logs-{k:06d}"
+                  and set(call("GET", "/_alias/logs")) == {r["new_index"]},
+                  f"22f: rollover to logs-{k:06d} moved the alias")
+        report["items"]["22f rollover"] = {"p50_ms": float(np.median(xs)),
+                                           "samples": len(xs)}
+        call("PUT", "/big4", {"settings": {"number_of_shards": 4,
+                                           "refresh_interval": "-1"},
+                              "mappings": small_map})
+        for lo in range(0, len(src_docs), 1000):
+            call("POST", "/_bulk", bulk_lines("big4", src_docs[lo: lo + 1000]),
+                 ctype="application/x-ndjson")
+        call("POST", "/big4/_refresh")
+        xs = []
+        for k in range(2):
+            t0 = time.perf_counter()
+            call("POST", f"/big4/_shrink/small{k}", {"settings": {
+                "index.number_of_shards": 1}})
+            xs.append((time.perf_counter() - t0) * 1000)
+        report["items"]["22f shrink 4 -> 1"] = {"p50_ms": float(np.median(xs)),
+                                                "samples": len(xs)}
+        for q in ([queries[0][0]], queries[1][:2], [queries[3][0]]):
+            body = {"query": {"match": {"title": " ".join(tok(t)
+                                                          for t in q)}},
+                    "size": ADMIN_DOCS}
+            a = call("POST", "/big4/_search", body)
+            b = call("POST", "/small0/_search", body)
+            check(a["hits"]["total"] == b["hits"]["total"]
+                  and {h["_id"] for h in a["hits"]["hits"]}
+                  == {h["_id"] for h in b["hits"]["hits"]},
+                  f"22f: the shrunk index answers {q} as the source does")
+        caps = timed("22f _field_caps logs-*", lambda: call(
+            "GET", "/logs-*/_field_caps?fields=*"), reps=5)
+        check(caps["fields"]["title"] == {"text": {
+            "type": "text", "searchable": True, "aggregatable": False}}
+            and "venue" in caps["fields"], "22f: _field_caps over logs-*")
+        doc_id, src0 = src_docs[0]
+        tv = timed("22f _termvectors", lambda: call(
+            "GET", f"/big4/_termvectors/{doc_id}"), reps=5)
+        svc = g7.indices["big4"]
+        shard = svc.shards[svc._route(doc_id)]
+        seg = next(s for s in shard.engine.searchable_segments()
+                   if doc_id in s.id_to_doc())
+        words = src0["title"].split()
+        terms = tv["term_vectors"]["title"]["terms"]
+        check(tv["found"] and set(terms) == set(words) and all(
+            terms[w]["term_freq"] == words.count(w)
+            and terms[w]["doc_freq"] == int(seg.term_doc_freq[
+                seg.term_id("title", w)])
+            and [t["position"] for t in terms[w]["tokens"]]
+            == [i for i, x in enumerate(words) if x == w]
+            for w in set(words)),
+            "22f: _termvectors equal the segment's postings and the text")
+    log(f"[phase 22f] items: " + json.dumps(
+        {k: v for k, v in report["items"].items() if k.startswith("22f")})
+        + f" launches {lad} ({smi})")
+    for name in ("dm4", "dm1", "weblogs-n", "weblogs-p", "big4", "small0",
+                 "small1", "logs-000001", "logs-000002", "logs-000003",
+                 "logs-000004"):
+        call("DELETE", f"/{name}")
+    call("DELETE", "/_ingest/pipeline/nginx")
+    client.close()
+    srv.stop()
+    fails = plane_failures(g7.indices["pmc4"], g7.indices["pmc4h"])
+    check(not any(fails), f"phase 22: zero plane faults ({fails})")
+    report["launches"] = acc
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[phase 22] {report['seconds']:.1f} s, launches {acc} ({smi})")
+    return report
+
+
+def snapshot_restore_phase(torch, cuda_kernels, tsc, ssum, knn, g2, bodies,
+                           repo_root, errs, smi):
+    """22e, on 13c's recovered node (pmc-4x256k, durable, synced-flushed,
+    its ``path.repo`` the run's temporary ``repo_root``): a 200-doc index
+    beside it; ``PUT _snapshot/r`` (fs, relative location) and snapshot
+    ``s1`` of both (seconds and bytes), then ``s2`` (incremental: 0 new
+    bytes); ``_restore`` of dur4 with ``rename_pattern`` (seconds), the
+    restored index's staging and first answer (ms, 1a launches); 40 of
+    13c's requests equal byte for byte between dur4 and the restored
+    index; one blob of dur4 corrupted in a hard-linked copy of the
+    repository: its restore fails dur4 alone. Restored indices deleted.
+    Every launch held against plain. Returns the report."""
+    from elasticsearch_tpu_torch.rest.controller import RestController
+
+    report = {}
+    acc = {}
+    t_phase = time.perf_counter()
+    rc = RestController(g2)
+
+    def call(method, path, body=None, want=200, params=None):
+        raw = b"" if body is None else json.dumps(body).encode()
+        st, r = rc.dispatch(method, path, dict(params or {}), raw,
+                            "application/json")
+        check(st == want, f"22e: {method} {path} answered {st} (want "
+                          f"{want}: {str(r)[:300]})")
+        return r
+
+    g2.create_index("tiny", {"settings": {
+        "number_of_shards": 1, "refresh_interval": "-1",
+        "translog": {"durability": "async"}}})
+    g2.bulk([("index", {"_index": "tiny", "_id": str(i)},
+              {"n": i, "msg": f"w{i % 7}"}) for i in range(200)],
+            refresh=True)
+    call("PUT", "/_snapshot/r", {"type": "fs", "settings": {"location": "r"}})
+    call("POST", "/_snapshot/r/_verify")
+    snaps = {}
+    for name in ("s1", "s2"):
+        t0 = time.perf_counter()
+        r = call("PUT", f"/_snapshot/r/{name}", {"indices": "dur4,tiny"},
+                 params={"wait_for_completion": "true"})
+        snaps[name] = {"s": time.perf_counter() - t0,
+                       "bytes_written": g2.snapshots.bytes_written,
+                       "bytes_reused": g2.snapshots.bytes_reused,
+                       "state": r["snapshot"]["state"]}
+    check(snaps["s1"]["state"] == snaps["s2"]["state"] == "SUCCESS"
+          and snaps["s1"]["bytes_written"] > 0
+          and snaps["s2"]["bytes_written"] == 0
+          and snaps["s2"]["bytes_reused"] == snaps["s1"]["bytes_written"],
+          f"22e: s1 wrote the index, s2 no new byte ({snaps})")
+    repo_dir = os.path.join(repo_root, "r")
+    report["snapshots"] = snaps
+    # (s2's blobs are hard links to s1's: each file counted once)
+    inodes = {}
+    for d, _s, files in os.walk(repo_dir):
+        for f in files:
+            st = os.stat(os.path.join(d, f))
+            inodes[(st.st_dev, st.st_ino)] = st.st_size
+    report["repository_bytes"] = sum(inodes.values())
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = call("POST", "/_snapshot/r/s1/_restore", {
+        "indices": "dur4", "rename_pattern": "dur4",
+        "rename_replacement": "dur4r"})
+    restore_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    check(out["snapshot"]["indices"] == ["dur4r"]
+          and out["snapshot"]["shards"]["failed"] == 0,
+          f"22e: dur4 restored as dur4r ({out})")
+    svc = g2.indices["dur4r"]
+    check(mem1 - mem0 <= 1 << 20,
+          f"22e: the restore staged nothing on the card ({mem0} -> {mem1})")
+    t0 = time.perf_counter()
+    for sh in svc.shards.values():
+        for seg in sh.engine.searchable_segments():
+            seg.device_arrays()
+            seg.ensure_vector_staged("emb")
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    label, first_body = bodies[0]
+    with held_block(torch, cuda_kernels, tsc, ssum, knn, errs,
+                    "phase 22e first answer", acc) as lf:
+        first, first_ms, spans = _first_answer(
+            torch, lambda: g2.search("dur4r", dict(first_body)))
+    check(first.get("_plane") == "mesh_pallas",
+          f"22e: the restored index's first answer on the mesh "
+          f"({first.get('_plane')})")
+    chosen = bodies[:40]
+    same = 0
+    with held_block(torch, cuda_kernels, tsc, ssum, knn, errs,
+                    "phase 22e requests", acc) as lr:
+        for label, body in chosen:
+            a = _no_took(g2.search("dur4", dict(body)))
+            b = _no_took(g2.search("dur4r", dict(body))).replace(
+                '"dur4r"', '"dur4"')
+            same += a == b
+    check(same == len(chosen),
+          f"22e: {same} of {len(chosen)} requests equal byte for byte "
+          f"between dur4 and the restored dur4r")
+    # the corrupt copy: every blob hard-linked, one replaced by a flipped
+    # copy (the original repository keeps its bytes)
+    copy_dir = os.path.join(repo_root, "rc")
+    for d, _s, files in os.walk(repo_dir):
+        rel = os.path.relpath(d, repo_dir)
+        os.makedirs(os.path.join(copy_dir, rel), exist_ok=True)
+        for f in files:
+            os.link(os.path.join(d, f), os.path.join(copy_dir, rel, f))
+    manifest = g2.snapshots._repo("r").read_manifest("s1")
+    blob = next(iter(manifest["indices"]["dur4"]["shards"]["0"]["digests"]))
+    target = os.path.join(copy_dir, "snapshots", "s1", "indices", "dur4",
+                          "0", blob)
+    with open(target, "rb") as f:
+        data = bytearray(f.read())
+    data[0] ^= 0x01
+    os.unlink(target)
+    with open(target, "wb") as f:
+        f.write(data)
+    call("PUT", "/_snapshot/rc", {"type": "fs",
+                                  "settings": {"location": "rc"}})
+    t0 = time.perf_counter()
+    bad = call("POST", "/_snapshot/rc/s1/_restore", {
+        "rename_pattern": "^", "rename_replacement": "c-"})
+    bad_ms = (time.perf_counter() - t0) * 1000
+    snap = bad["snapshot"]
+    check(snap["indices"] == ["c-tiny"] and snap["shards"]["failed"] == 1
+          and snap["failures"][0]["index"] == "dur4"
+          and snap["failures"][0]["type"] == "corrupted_snapshot_exception"
+          and "c-dur4" not in g2.indices
+          and g2.search("c-tiny", {"size": 0})["hits"]["total"] == 200,
+          f"22e: the corrupt blob failed dur4 alone ({str(snap)[:300]})")
+    for name in ("dur4r", "c-tiny", "tiny"):
+        g2.delete_index(name)
+    report.update({
+        "docs": 4 * MESH_SHARD_DOCS, "restore_s": restore_s,
+        "restored_stage_s": stage_s, "first_answer_ms": first_ms,
+        "first_answer_spans_ms": spans, "first_answer_launches": lf,
+        "requests_equal": same, "requests": len(chosen),
+        "request_launches": lr, "corrupt_restore_ms": bad_ms,
+        "launches": acc, "seconds": time.perf_counter() - t_phase})
+    log(f"[phase 22e] {json.dumps(report)} ({smi})")
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -10494,18 +11392,31 @@ def main() -> int:
     for k, v in meta_report["launches"].items():
         launches[k] += v
 
+    # ---------------- phase 22: data movement -----------------------------
+    # (over phase 7's node; 22e, the snapshot and restore, runs in 13c)
+    clock("phase 22")
+    move_report = data_movement_phase(
+        torch, Node, HttpServer, cuda_kernels, tsc, ssum, knn, g7,
+        shard_arrays, title_streams, ops, queries, batch_errs, smi)
+    seg_held["phase 22"] = move_report["launches"].get("segment_sum", 0)
+    for k, v in move_report["launches"].items():
+        launches[k] += v
+
     # ---------------- phase 13: durability on the card -------------------
     clock("phase 13")
     durability_report = durability_phase(
         torch, Node, cuda_kernels, tsc, ops, INGEST_DOCS / ingest_s, reqs,
         reqs, knn_bodies, shard_arrays, knn_vecs, knn_exists, queries,
-        batch_errs)
+        batch_errs, smi)
     seg_held["phase 13"] = (durability_report["13a"]["held"]["segment_sum"]
                             + durability_report["13c"]["held"]
                             ["segment_sum"])
     for part in ("13a", "13c"):
         for k, v in durability_report[part]["launches"].items():
             launches[k] += v
+    move_report["22e"] = durability_report["13c"].pop("22e")
+    for k, v in move_report["22e"]["launches"].items():
+        launches[k] += v
 
     # ---------------- phase 14: the staging lifecycle on the card --------
     clock("phase 14")
@@ -10658,7 +11569,7 @@ def main() -> int:
         "query_dsl": qdsl_report, "sort_paging": sort_report,
         "field_types": geo_report, "nested": nested_report,
         "search_request": request_report, "scripting": script_report,
-        "cluster_metadata": meta_report,
+        "cluster_metadata": meta_report, "data_movement": move_report,
         "sound_answers_checked": SOUND["checked"]}
     for name, key, replaces, extra in (
             ("tile_scoring_packed", "tile_scoring_packed", 656,

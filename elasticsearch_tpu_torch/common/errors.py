@@ -137,6 +137,18 @@ class ResourceNotFoundException(ElasticsearchTpuException):
     status_code = 404
 
 
+class ResourceAlreadyExistsException(ElasticsearchTpuException):
+    status_code = 400
+
+
+class CorruptedSnapshotException(ElasticsearchTpuException):
+    """Snapshot blob bytes no longer match the per-file digests the
+    create recorded in the manifest: the restore of that index fails
+    rather than install unverified bytes."""
+
+    status_code = 500
+
+
 class EsRejectedExecutionException(ElasticsearchTpuException):
     """A named thread pool's queue is full: HTTP 429
     (RestStatus.TOO_MANY_REQUESTS). ``retry_after_s``, where set, becomes

@@ -562,17 +562,21 @@ class IndexService:
 
     def search(self, body: Optional[dict] = None,
                pinned_segments: Optional[Dict[int, list]] = None,
-               deadline: Optional[SearchDeadline] = None) -> dict:
+               deadline: Optional[SearchDeadline] = None,
+               task=None) -> dict:
         """pinned_segments: {shard_id: [PinnedSegmentView]} of an open
         scroll: the query phase reads those views and bypasses the
         micro-batcher, the mesh plane and can_match (all keyed to the
         live segment set).
         deadline: the coordinator's ``SearchDeadline``; a direct caller's
-        ``timeout`` gets its own. Expiry degrades to the partial result
-        with ``timed_out: true``."""
+        ``timeout`` or ``task`` (a registered ``tasks.task_manager.Task``)
+        gets its own. Expiry degrades to the partial result with
+        ``timed_out: true``; a cancelled task raises
+        ``TaskCancelledException`` at the next checkpoint."""
         body = body or {}
-        if deadline is None and body.get("timeout") is not None:
-            deadline = SearchDeadline(parse_search_timeout(body))
+        if deadline is None and (body.get("timeout") is not None
+                                  or task is not None):
+            deadline = SearchDeadline(parse_search_timeout(body), task)
         return self._admitted_dispatch(body, pinned_segments, deadline)
 
     def _admitted_dispatch(self, body: dict,

@@ -305,6 +305,25 @@ class SegmentPositions(Mapping):
             self._terms[tid] = nested
         return nested
 
+    def doc_terms(self, doc: int) -> Dict[int, np.ndarray]:
+        """``{term_id: positions}`` of one doc (a term vector), term ids
+        ascending: one mask over the flat doc column, or a walk of the
+        store's form."""
+        if self._flat is not None:
+            tids, docs, at = self._flat
+            sel = np.flatnonzero(docs == doc)
+            out: Dict[int, np.ndarray] = {}
+            for tid in np.unique(tids[sel]).tolist():
+                out[tid] = at[sel[tids[sel] == tid]]
+            return out
+        if self._text is None:
+            return {}
+        key = str(int(doc))
+        return {int(t): np.asarray(per_doc[key], np.int32)
+                for t, per_doc in sorted(self.json_dict().items(),
+                                         key=lambda kv: int(kv[0]))
+                if key in per_doc}
+
     def term_ids(self) -> List[int]:
         """The term ids that hold positions, ascending."""
         if self._tids is None:
@@ -987,6 +1006,21 @@ class Segment:
                                               self.ledger_scope)
         for nctx in self.nested.values():
             nctx.segment.release_device()
+
+    def release_base_arrays(self) -> None:
+        """Drop the host rung's base tables (postings, norms, live masks)
+        and return their ledger bytes, keeping the kernel tables and the
+        columns another plane staged: what a one-off scan staged on a
+        segment whose base tables were not staged before it."""
+        with self._stage_lock:
+            dev, self._device = self._device, None
+            if not dev:
+                return
+            tables = ["base_postings", "norms"] + [
+                key for key in dev
+                if key in ("live", "live1") or key.startswith("k_live_t")]
+            memory_accountant().release_tables(self._owner(),
+                                               self.ledger_scope, tables)
 
     def release_breaker_charges(self) -> None:
         """The segment is dropped (a merge replaced it, its shard closed):

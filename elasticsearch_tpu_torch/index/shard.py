@@ -9,8 +9,11 @@ recovery from the store.
 With a ``data_path`` the shard keeps its translog in
 ``<data_path>/translog`` and its store in ``<data_path>/index``: the JAX
 package's layout, so either package opens the other's shard. Without one
-it keeps nothing on disk (the JAX package opens a translog in a temporary
-directory there; nothing on one node reads it back). Operation permits,
+it keeps nothing on disk (the JAX package opens a translog and a store in
+a temporary directory there; nothing on one node reads it back, and a
+snapshot of such a shard writes its segments straight into the
+repository, ``snapshots/service.py``). ``restore_from_snapshot`` installs
+a snapshot's copy of a shard store. Operation permits,
 the slow logs and the ``_cat/recovery`` rows are later slices.
 """
 
@@ -18,6 +21,7 @@ from __future__ import annotations
 
 import base64
 import os
+import shutil
 from typing import Optional
 
 from elasticsearch_tpu_torch.common.errors import IllegalArgumentException
@@ -74,15 +78,18 @@ class IndexShard:
             or os.path.exists(os.path.join(
                 self.data_path, "translog", "translog.ckp")))
 
-    def recover_from_store(self) -> int:
+    def recover_from_store(self, store: Optional[Store] = None) -> int:
         """Load the committed segments (checksums verified), rebuild the
         version map from their live docs, re-adopt the commit's delete
         tombstones, then replay the translog's uncommitted
         ops. Returns the ops replayed. Raises ``CorruptIndexException``
-        for a store that fails verification."""
+        for a store that fails verification. ``store``: another store to
+        load from (a snapshot's shard directory, for a shard that has no
+        store of its own)."""
         self.state = ShardState.RECOVERING
         engine = self.engine
-        segments = engine.store.load_segments(engine.device)
+        store = store if store is not None else engine.store
+        segments = store.load_segments(engine.device)
         engine.segments = segments
         # advance the segment-name counter past every recovered name: a
         # later seal reusing one would skip writing its segment at the
@@ -94,7 +101,7 @@ class IndexShard:
                                               int(tail))
         if engine.buffer.num_docs == 0:
             engine.buffer = engine._new_builder()
-        commit = engine.store.read_commit() or {}
+        commit = store.read_commit() or {}
         doc_terms = commit.get("doc_terms", {})
         max_seq = -1
         for seg in segments:
@@ -117,6 +124,27 @@ class IndexShard:
         replayed = engine.recover_from_translog()
         self.state = ShardState.STARTED
         return replayed
+
+    def restore_from_snapshot(self, directory: str) -> None:
+        """Replace the shard's contents with a snapshot's copy of a shard
+        store: the current segments (their device arrays released) and
+        version map are dropped, then the shard recovers from the copy.
+        A shard with a store of its own takes the files into it first; a
+        store-less shard reads the snapshot's directory in place."""
+        engine = self.engine
+        with engine._lock:
+            for seg in engine.segments:
+                seg.release_breaker_charges()
+                seg.release_device()
+            engine.segments = []
+            engine.version_map = {}
+        if engine.store is None:
+            self.recover_from_store(Store(directory))
+            return
+        dst = engine.store.directory
+        shutil.rmtree(dst, ignore_errors=True)
+        shutil.copytree(directory, dst)
+        self.recover_from_store()
 
     def start_fresh(self) -> None:
         self.state = ShardState.STARTED

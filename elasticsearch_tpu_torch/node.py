@@ -92,11 +92,14 @@ from __future__ import annotations
 import fnmatch
 import json
 import os
+import re
 import shutil
 import threading
 import time
 import uuid as _uuid
 from typing import Dict, List, Optional
+
+import numpy as np
 
 from elasticsearch_tpu_torch.cluster.state import (
     ClusterService,
@@ -140,12 +143,16 @@ from elasticsearch_tpu_torch.common.settings import (
     Settings,
     cluster_settings,
     index_scoped_settings,
+    parse_byte_size,
     parse_time_value,
 )
 from elasticsearch_tpu_torch.common.staging import configure_staging_retry
 from elasticsearch_tpu_torch.common.thread_pool import ThreadPool
 from elasticsearch_tpu_torch.index.index_service import IndexService
 from elasticsearch_tpu_torch.index.seqno import check_active_shards
+from elasticsearch_tpu_torch.ingest.pipeline import IngestService
+from elasticsearch_tpu_torch.snapshots.service import SnapshotsService
+from elasticsearch_tpu_torch.tasks.task_manager import TaskManager
 from elasticsearch_tpu_torch.version import __version__
 
 _INVALID_INDEX_CHARS = set(' "*\\<>|,/?#')
@@ -241,6 +248,9 @@ class Node:
             target=self._reap_expired_scrolls_loop,
             name=f"scroll-reaper[{self.node_name}]", daemon=True)
         self._reaper.start()
+        self.tasks = TaskManager(self.node_id)
+        self.ingest = IngestService(self)
+        self.snapshots = SnapshotsService(self)
         if self.persistent_path:
             # the global metadata first, then each index; from then on the
             # applier keeps the global file current
@@ -265,6 +275,7 @@ class Node:
                 self._persist_index_meta(name)
                 self.indices[name].synced_flush()
         self.thread_pool.shutdown()
+        self.snapshots.close()
         for name in list(self.indices):
             self.indices.pop(name).close()
 
@@ -308,10 +319,12 @@ class Node:
         os.replace(tmp, os.path.join(state_dir, "global-meta.json"))
 
     def _recover_global_meta(self) -> None:
-        """Restore the global slice through the normal write paths (the
-        persistent settings through ``put_cluster_settings``, so their
-        consumers fire); the ingest pipelines and repositories come back
-        as read, to be written again unchanged."""
+        """Restore the global slice through the normal write paths: the
+        persistent settings through ``put_cluster_settings`` (so their
+        consumers fire) and each repository through
+        ``SnapshotsService.put_repository`` (so its object is built); the
+        templates, stored scripts and ingest pipelines come back as
+        read."""
         path = os.path.join(self.data_path, "_state", "global-meta.json")
         if not os.path.exists(path):
             return
@@ -326,11 +339,18 @@ class Node:
             new.templates.update(data.get("templates") or {})
             new.stored_scripts.update(data.get("stored_scripts") or {})
             new.ingest_pipelines.update(data.get("ingest_pipelines") or {})
-            new.repositories.update(data.get("repositories") or {})
             return new
 
         self.cluster_service.submit_state_update_task(
             "recover global metadata", update)
+        for name, body in (data.get("repositories") or {}).items():
+            try:
+                self.snapshots.put_repository(name, body)
+            except Exception:  # noqa: BLE001 — e.g. an unknown type
+                # an unregisterable repository does not block the boot
+                # (as in the JAX package): a snapshot into it fails with
+                # repository-missing at use time
+                pass
 
     def _recover_indices_from_disk(self) -> None:
         """Open every index under ``<data_path>/indices`` that has a
@@ -665,6 +685,7 @@ class Node:
 
     def index_doc(self, index: str, doc_id: Optional[str], source: dict,
                   routing: Optional[str] = None, refresh=None,
+                  pipeline: Optional[str] = None,
                   wait_for_active_shards=None, **kw) -> dict:
         if doc_id is not None:
             if doc_id == "":
@@ -680,6 +701,10 @@ class Node:
             # one node: each shard has its primary active and no replica
             check_active_shards(wait_for_active_shards, 1,
                                 1 + svc.num_replicas, f"[{svc.name}]")
+        if pipeline:
+            source = self.ingest.run_pipeline(pipeline, source, doc_id, index)
+            if source is None:  # the pipeline dropped the doc
+                return {"_index": index, "_id": doc_id, "result": "noop"}
         if doc_id is None:
             doc_id = _uuid.uuid4().hex[:20]
             kw.setdefault("op_type", "create")
@@ -847,8 +872,11 @@ class Node:
                      "_id": str(spec["_id"]), "found": False}
         return d
 
-    def bulk(self, operations: List[tuple], refresh=None) -> dict:
-        """operations: list of (action, meta, source_or_None)."""
+    def bulk(self, operations: List[tuple], refresh=None,
+             pipeline: Optional[str] = None) -> dict:
+        """operations: list of (action, meta, source_or_None). ``pipeline``
+        runs on every index and create line whose meta names none of its
+        own (a doc the pipeline drops is a ``noop`` item)."""
         t0 = time.monotonic()
         items = []
         errors = False
@@ -863,14 +891,16 @@ class Node:
                 if routing is None:
                     # the legacy _parent: the parent id routes the doc
                     routing = parent
+            item_pipeline = meta.get("pipeline", pipeline)
             try:
                 if action == "index":
                     r = self.index_doc(index, doc_id, source, routing,
-                                       parent=parent)
+                                       pipeline=item_pipeline, parent=parent)
                     status = 201 if r.get("result") == "created" else 200
                 elif action == "create":
                     r = self.index_doc(index, doc_id, source, routing,
-                                       op_type="create", parent=parent)
+                                       op_type="create",
+                                       pipeline=item_pipeline, parent=parent)
                     status = 201
                 elif action == "update":
                     r = self.update_doc(index, doc_id, source, routing)
@@ -965,16 +995,24 @@ class Node:
                 and not SEARCH_ALLOW_PARTIAL_RESULTS.get(self.settings)):
             body = dict(body)
             body["allow_partial_search_results"] = False
-        deadline = SearchDeadline(parse_search_timeout(body, self.settings))
-        if len(svcs) == 1:
-            svc = svcs[0]
-            resp = svc.search(
-                body, pinned_segments=(_pins_of(pinned, svc.name)
-                                       if pinned else None),
-                deadline=deadline)
-        else:
-            resp = self._multi_index_search(svcs, body, pinned=pinned,
-                                            deadline=deadline)
+        # the registered task trips the deadline's checkpoints when
+        # _tasks/{id}/_cancel sets its flag
+        task = self.tasks.register("indices:data/read/search",
+                                   f"search [{index}]")
+        deadline = SearchDeadline(parse_search_timeout(body, self.settings),
+                                  task)
+        try:
+            if len(svcs) == 1:
+                svc = svcs[0]
+                resp = svc.search(
+                    body, pinned_segments=(_pins_of(pinned, svc.name)
+                                           if pinned else None),
+                    deadline=deadline)
+            else:
+                resp = self._multi_index_search(svcs, body, pinned=pinned,
+                                                deadline=deadline)
+        finally:
+            self.tasks.unregister(task)
         if scroll:
             resp["_scroll_id"] = self._open_pit_scroll(svcs, body, resp,
                                                        scroll, pinned)
@@ -1573,6 +1611,141 @@ class Node:
 
         self.cluster_service.submit_state_update_task("delete-script", update)
         return {"acknowledged": True}
+
+    # ------------------------------------------------------------------
+    # Index admin: term vectors, rollover, shrink
+    # ------------------------------------------------------------------
+
+    def termvectors(self, index: str, doc_id: str,
+                    fields: Optional[List[str]] = None) -> dict:
+        """One doc's terms per field, each with its frequency, document
+        frequency and positions, and the field's statistics, read from
+        the segment that holds the doc (after a refresh of its shard)."""
+        svc = self.index_service(index)
+        shard = svc.shards[svc._route(doc_id)]
+        shard.refresh()
+        term_vectors: Dict[str, dict] = {}
+        found = False
+        for seg in shard.engine.searchable_segments():
+            local = seg.id_to_doc().get(doc_id)
+            if local is None or not seg.live[local]:
+                continue
+            found = True
+            by_field: Dict[str, dict] = {}
+            for tid, positions in seg.positions.doc_terms(local).items():
+                fname, token = seg.term_keys[tid].split("\x1f", 1)
+                if fields and fname not in fields:
+                    continue
+                f = by_field.setdefault(fname, {"terms": {}})
+                f["terms"][token] = {
+                    "term_freq": int(len(positions)),
+                    "doc_freq": int(seg.term_doc_freq[tid]),
+                    "tokens": [{"position": int(p)} for p in positions],
+                }
+            for fname, f in by_field.items():
+                st = seg.field_stats.get(fname, {})
+                f["field_statistics"] = {
+                    "sum_ttf": st.get("sum_ttf", 0),
+                    "doc_count": st.get("doc_count", 0),
+                }
+                term_vectors[fname] = f
+            break
+        return {"_index": svc.name, "_id": doc_id, "found": found,
+                "term_vectors": term_vectors}
+
+    def rollover(self, alias: str, body: Optional[dict] = None) -> dict:
+        """When a condition is met (``max_docs``, ``max_age``,
+        ``max_size``; none given is met), create the next index of the
+        series (``new_index``, else the source's ``-NNNNNN`` suffix plus
+        one, else ``-000002``) and move the alias to it. ``dry_run``
+        evaluates and moves nothing."""
+        body = body or {}
+        state = self.cluster_service.state
+        sources = [n for n, md in state.indices.items() if alias in md.aliases]
+        if len(sources) != 1:
+            raise IllegalArgumentException(
+                f"source alias [{alias}] must point to exactly one index, "
+                f"found {sources}")
+        source = sources[0]
+        m = re.search(r"-(\d+)$", source)
+        if body.get("new_index"):
+            target = body["new_index"]
+        elif m:
+            target = f"{source[:m.start()]}-{int(m.group(1)) + 1:06d}"
+        else:
+            target = f"{source}-000002"
+        svc = self.indices[source]
+        conditions = body.get("conditions") or {}
+        results = {}
+        met = not conditions
+        if "max_docs" in conditions:
+            ok = svc.num_docs() >= int(conditions["max_docs"])
+            results[f"[max_docs: {conditions['max_docs']}]"] = ok
+            met = met or ok
+        if "max_age" in conditions:
+            age = time.time() - svc.creation_date / 1000.0
+            ok = age >= parse_time_value(conditions["max_age"], "max_age")
+            results[f"[max_age: {conditions['max_age']}]"] = ok
+            met = met or ok
+        if "max_size" in conditions:
+            size = sum(s.stats()["segments"]["memory_in_bytes"]
+                       for s in svc.shards.values())
+            ok = size >= parse_byte_size(conditions["max_size"], "max_size")
+            results[f"[max_size: {conditions['max_size']}]"] = ok
+            met = met or ok
+        resp = {
+            "old_index": source,
+            "new_index": target,
+            "rolled_over": False,
+            "dry_run": bool(body.get("dry_run", False)),
+            "conditions": results,
+            "acknowledged": False,
+            "shards_acknowledged": False,
+        }
+        if not met or body.get("dry_run"):
+            return resp
+        self.create_index(target, {k: v for k, v in body.items()
+                                   if k in ("settings", "mappings",
+                                            "aliases")})
+        self.update_aliases([
+            {"remove": {"index": source, "alias": alias}},
+            {"add": {"index": target, "alias": alias}},
+        ])
+        resp.update({"rolled_over": True, "acknowledged": True,
+                     "shards_acknowledged": True})
+        return resp
+
+    def shrink_index(self, source: str, target: str,
+                     body: Optional[dict] = None) -> dict:
+        """Re-partition an index into fewer shards (a divisor of its
+        count): a new index with the source's mapping, the shard count
+        pinned in its settings (the index default is 5), and every live
+        doc re-routed into it from the stored sources."""
+        body = body or {}
+        svc = self.index_service(source)
+        settings = dict(body.get("settings") or {})
+        target_shards = int(Settings.from_dict(settings).with_index_prefix()
+                            .get("index.number_of_shards", 1))
+        settings.setdefault("index.number_of_shards", target_shards)
+        if svc.num_shards % target_shards != 0:
+            raise IllegalArgumentException(
+                f"the number of source shards [{svc.num_shards}] must be a "
+                f"multiple of [{target_shards}]")
+        svc.refresh()
+        self.create_index(target, {
+            "settings": settings,
+            "mappings": svc.mapping_dict(),
+            "aliases": body.get("aliases") or {},
+        })
+        tgt = self.indices[target]
+        for shard in svc.shards.values():
+            for seg in shard.engine.searchable_segments():
+                for local in np.flatnonzero(seg.live[: seg.num_docs]):
+                    tgt.index_doc(seg.doc_ids[local], seg.sources[local],
+                                  seg.routings[local])
+        tgt.refresh()
+        return {"acknowledged": True, "shards_acknowledged": True,
+                "index": target}
 
 
 def _template_matches(template: dict, index_name: str) -> bool:

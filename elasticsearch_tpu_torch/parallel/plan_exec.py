@@ -190,6 +190,7 @@ from elasticsearch_tpu_torch.ops.cuda_kernels import KernelError
 from elasticsearch_tpu_torch.ops.scoring import top_k
 from elasticsearch_tpu_torch.search import plan as P
 from elasticsearch_tpu_torch.search.cancellation import TimeExceededException
+from elasticsearch_tpu_torch.testing.disruption import on_mesh_plane
 from elasticsearch_tpu_torch.search.telemetry import NULL_TRACER, QueryTracer
 
 _plane_logger = logging.getLogger("elasticsearch_tpu_torch.parallel.plane")
@@ -2560,6 +2561,9 @@ class IndexMeshSearch:
         used_pallas = False
         try:
             for plane, session in attempts:
+                # fault injection (MeshPlaneDelayScheme holds the request
+                # here, before the checkpoint)
+                on_mesh_plane(self.svc.name, plane)
                 if deadline is not None:
                     # before committing to this plane's launch
                     deadline.checkpoint()

@@ -31,7 +31,17 @@ and ``_segments``, ``_mapping`` GET and PUT, ``_settings`` GET and PUT
 ``_cluster/health|state|stats|settings``, ``_nodes[/stats]`` and the cat
 tables ``indices``, ``count``, ``health``, ``nodes``, ``master``,
 ``shards``, ``aliases``, ``templates``, ``segments``, ``thread_pool``
-and the empty ones. Writes take ``refresh=wait_for``. Handlers are (node, request) ->
+and the empty ones. The data-movement routes: ``_reindex``,
+``_update_by_query`` and ``_delete_by_query`` (``index/reindex.py``),
+``_tasks`` (list, get, ``_cancel``), ``_ingest/pipeline`` (CRUD and
+``_simulate``; ``?pipeline=`` on index and ``_bulk``), ``_snapshot``
+(repositories, create, status, get, delete, restore, ``_verify``),
+``_rollover``, ``_shrink``, ``_field_caps`` over an index expression,
+``_termvectors``, and the cat tables ``tasks``, ``repositories`` and
+``snapshots``. Twelve routes still answer ``_unported`` (hot threads,
+drain, ``_cache/clear``, reroute, allocation explain, ``_remote/info``,
+``_cat/plugins``, ``_cat/allocation``, ``_cat/recovery``). Writes take
+``refresh=wait_for``. Handlers are (node, request) ->
 (status, payload); the cat API returns text tables unless
 ``?format=json``.
 """
@@ -128,10 +138,10 @@ def register_all(c) -> None:
     r("POST", "/{index}/_count", _count)
     r("GET", "/{index}/_validate/query", _validate_query)
     r("POST", "/{index}/_validate/query", _validate_query)
-    r("GET", "/_field_caps", _unported)
-    r("POST", "/_field_caps", _unported)
-    r("GET", "/{index}/_field_caps", _unported)
-    r("POST", "/{index}/_field_caps", _unported)
+    r("GET", "/_field_caps", _field_caps)
+    r("POST", "/_field_caps", _field_caps)
+    r("GET", "/{index}/_field_caps", _field_caps)
+    r("POST", "/{index}/_field_caps", _field_caps)
     r("GET", "/{index}/_explain/{id}", _explain)
     r("POST", "/{index}/_explain/{id}", _explain)
 
@@ -142,22 +152,22 @@ def register_all(c) -> None:
     r("POST", "/{index}/_search/template", _search_template)
     r("GET", "/_render/template", _render_template)
     r("POST", "/_render/template", _render_template)
-    r("GET", "/{index}/_termvectors/{id}", _unported)
-    r("POST", "/{index}/_termvectors/{id}", _unported)
-    r("GET", "/{index}/{type}/{id}/_termvectors", _unported)
-    r("POST", "/{index}/_rollover", _unported)
-    r("POST", "/{index}/_rollover/{new_index}", _unported)
-    r("POST", "/{index}/_shrink/{target}", _unported)
-    r("PUT", "/{index}/_shrink/{target}", _unported)
+    r("GET", "/{index}/_termvectors/{id}", _termvectors)
+    r("POST", "/{index}/_termvectors/{id}", _termvectors)
+    r("GET", "/{index}/{type}/{id}/_termvectors", _termvectors)
+    r("POST", "/{index}/_rollover", _rollover)
+    r("POST", "/{index}/_rollover/{new_index}", _rollover)
+    r("POST", "/{index}/_shrink/{target}", _shrink)
+    r("PUT", "/{index}/_shrink/{target}", _shrink)
     r("GET", "/_nodes/hot_threads", _unported)
     r("GET", "/_nodes/{node_id}/hot_threads", _unported)
     r("POST", "/_nodes/_local/_drain", _unported)
     r("DELETE", "/_nodes/_local/_drain", _unported)
 
     # --- reindex family ---
-    r("POST", "/_reindex", _unported)
-    r("POST", "/{index}/_update_by_query", _unported)
-    r("POST", "/{index}/_delete_by_query", _unported)
+    r("POST", "/_reindex", _reindex)
+    r("POST", "/{index}/_update_by_query", _update_by_query)
+    r("POST", "/{index}/_delete_by_query", _delete_by_query)
 
     # --- index admin ---
     r("PUT", "/{index}", _create_index)
@@ -244,9 +254,10 @@ def register_all(c) -> None:
     r("GET", "/_remote/info", _unported)
 
     # --- tasks ---
-    r("GET", "/_tasks", _unported)
-    r("GET", "/_tasks/{task_id}", _unported)
-    r("POST", "/_tasks/{task_id}/_cancel", _unported)
+    r("GET", "/_tasks", lambda n, q: (200, n.tasks.list_tasks(
+        q.param("actions"))))
+    r("GET", "/_tasks/{task_id}", _get_task)
+    r("POST", "/_tasks/{task_id}/_cancel", _cancel_task)
 
     # --- scripts ---
     r("PUT", "/_scripts/{id}", lambda n, q: (200, n.put_stored_script(
@@ -257,27 +268,49 @@ def register_all(c) -> None:
         q.param("id"))))
 
     # --- ingest ---
-    r("PUT", "/_ingest/pipeline/{id}", _unported)
-    r("GET", "/_ingest/pipeline", _unported)
-    r("GET", "/_ingest/pipeline/{id}", _unported)
-    r("DELETE", "/_ingest/pipeline/{id}", _unported)
-    r("POST", "/_ingest/pipeline/_simulate", _unported)
-    r("GET", "/_ingest/pipeline/_simulate", _unported)
-    r("POST", "/_ingest/pipeline/{id}/_simulate", _unported)
+    r("PUT", "/_ingest/pipeline/{id}", lambda n, q: (
+        200, n.ingest.put_pipeline(q.param("id"), q.json_body({}))))
+    r("GET", "/_ingest/pipeline", lambda n, q: (200, n.ingest.get_pipeline()))
+    r("GET", "/_ingest/pipeline/{id}", lambda n, q: (
+        200, n.ingest.get_pipeline(q.param("id"))))
+    r("DELETE", "/_ingest/pipeline/{id}", lambda n, q: (
+        200, n.ingest.delete_pipeline(q.param("id"))))
+    r("POST", "/_ingest/pipeline/_simulate", lambda n, q: (
+        200, n.ingest.simulate(q.json_body({}))))
+    r("GET", "/_ingest/pipeline/_simulate", lambda n, q: (
+        200, n.ingest.simulate(q.json_body({}))))
+    r("POST", "/_ingest/pipeline/{id}/_simulate", _simulate_pipeline_by_id)
 
     # --- snapshots ---
-    r("PUT", "/_snapshot/{repo}", _unported)
-    r("POST", "/_snapshot/{repo}", _unported)
-    r("GET", "/_snapshot", _unported)
-    r("GET", "/_snapshot/{repo}", _unported)
-    r("DELETE", "/_snapshot/{repo}", _unported)
-    r("PUT", "/_snapshot/{repo}/{snapshot}", _unported)
-    r("GET", "/_snapshot/{repo}/_status", _unported)
-    r("GET", "/_snapshot/{repo}/{snapshot}/_status", _unported)
-    r("GET", "/_snapshot/{repo}/{snapshot}", _unported)
-    r("DELETE", "/_snapshot/{repo}/{snapshot}", _unported)
-    r("POST", "/_snapshot/{repo}/{snapshot}/_restore", _unported)
-    r("POST", "/_snapshot/{repo}/_verify", _unported)
+    r("PUT", "/_snapshot/{repo}", lambda n, q: (
+        200, n.snapshots.put_repository(q.param("repo"), q.json_body({}))))
+    r("POST", "/_snapshot/{repo}", lambda n, q: (
+        200, n.snapshots.put_repository(q.param("repo"), q.json_body({}))))
+    r("GET", "/_snapshot", lambda n, q: (200, n.snapshots.get_repository()))
+    r("GET", "/_snapshot/{repo}", lambda n, q: (
+        200, n.snapshots.get_repository(q.param("repo"))))
+    r("DELETE", "/_snapshot/{repo}", lambda n, q: (
+        200, n.snapshots.delete_repository(q.param("repo"))))
+    r("PUT", "/_snapshot/{repo}/{snapshot}", lambda n, q: (
+        200, n.snapshots.create_snapshot(
+            q.param("repo"), q.param("snapshot"), q.json_body({}),
+            wait_for_completion=q.bool_param("wait_for_completion", True))))
+    r("GET", "/_snapshot/{repo}/_status", lambda n, q: (
+        200, n.snapshots.snapshot_status(q.param("repo"))))
+    r("GET", "/_snapshot/{repo}/{snapshot}/_status", lambda n, q: (
+        200, n.snapshots.snapshot_status(q.param("repo"),
+                                         q.param("snapshot"))))
+    r("GET", "/_snapshot/{repo}/{snapshot}", lambda n, q: (
+        200, n.snapshots.get_snapshot(q.param("repo"), q.param("snapshot"))))
+    r("DELETE", "/_snapshot/{repo}/{snapshot}", lambda n, q: (
+        200, n.snapshots.delete_snapshot(q.param("repo"),
+                                         q.param("snapshot"))))
+    r("POST", "/_snapshot/{repo}/{snapshot}/_restore", lambda n, q: (
+        200, n.snapshots.restore_snapshot(q.param("repo"),
+                                          q.param("snapshot"),
+                                          q.json_body({}))))
+    r("POST", "/_snapshot/{repo}/_verify", lambda n, q: (
+        200, n.snapshots.verify_repository(q.param("repo"))))
 
     # --- cat API (rest/action/cat/, 22 handlers in the reference) ---
     r("GET", "/_cat", _cat_help)
@@ -297,7 +330,7 @@ def register_all(c) -> None:
     r("GET", "/_cat/master", _cat_master)
     r("GET", "/_cat/segments", _cat_segments)
     r("GET", "/_cat/plugins", _unported)
-    r("GET", "/_cat/tasks", _unported)
+    r("GET", "/_cat/tasks", _cat_tasks)
     r("GET", "/_cat/pending_tasks", lambda n, q: _cat_table(
         q, [], ["insertOrder", "timeInQueue", "priority", "source"]))
     r("GET", "/_cat/allocation", _unported)
@@ -309,8 +342,8 @@ def register_all(c) -> None:
         q, [], ["id", "host", "ip", "node", "field", "size"]))
     r("GET", "/_cat/nodeattrs", lambda n, q: _cat_table(
         q, [], ["node", "id", "pid", "host", "ip", "port", "attr", "value"]))
-    r("GET", "/_cat/repositories", _unported)
-    r("GET", "/_cat/snapshots/{repo}", _unported)
+    r("GET", "/_cat/repositories", _cat_repositories)
+    r("GET", "/_cat/snapshots/{repo}", _cat_snapshots)
 
 
 def _unported(node, req):
@@ -425,10 +458,7 @@ def _record_doc_type(node, req):
 def _parent_routing(node, req):
     """(effective routing, parent): the legacy ``parent`` param acts as the
     routing, and a ``_parent``-mapped index requires one of the two on
-    every single-doc op (``RoutingMissingException``). Ingest pipelines
-    are not ported."""
-    if req.param("pipeline") is not None:
-        raise _not_supported("ingest pipelines")
+    every single-doc op (``RoutingMissingException``)."""
     routing = req.param("routing")
     parent = req.param("parent")
     eff = routing if routing is not None else parent
@@ -465,6 +495,7 @@ def _index_doc(node, req, force_create: bool = False):
     routing, parent = _parent_routing(node, req)
     r = node.index_doc(req.param("index"), req.param("id"), body,
                        routing=routing, refresh=req.param("refresh"),
+                       pipeline=req.param("pipeline"),
                        wait_for_active_shards=req.param(
                            "wait_for_active_shards"), parent=parent, **kw)
     _record_doc_type(node, req)
@@ -489,6 +520,7 @@ def _index_doc_auto_id(node, req):
     routing, parent = _parent_routing(node, req)
     r = node.index_doc(req.param("index"), None, body,
                        routing=routing, refresh=req.param("refresh"),
+                       pipeline=req.param("pipeline"),
                        wait_for_active_shards=req.param(
                            "wait_for_active_shards"), parent=parent)
     _record_doc_type(node, req)
@@ -645,8 +677,6 @@ def _mget(node, req):
 
 
 def _bulk(node, req):
-    if req.param("pipeline") is not None:
-        raise _not_supported("ingest pipelines")
     lines = req.ndjson_lines()
     if not lines:
         raise ActionRequestValidationException("request body is required")
@@ -671,7 +701,8 @@ def _bulk(node, req):
             i += 1
         else:
             ops.append((action, meta, None))
-    return 200, node.bulk(ops, refresh=req.param("refresh"))
+    return 200, node.bulk(ops, refresh=req.param("refresh"),
+                          pipeline=req.param("pipeline"))
 
 
 # ---------------------------------------------------------------------------
@@ -967,6 +998,86 @@ def _bm25_explanation_details(svc, doc_id, query_body):
             }],
         })
     return details
+
+
+def _field_caps(node, req):
+    """Each field the ``fields`` patterns match, over the indices the
+    index expression names, by type: searchable and aggregatable."""
+    fields_param = (req.param("fields")
+                    or (req.json_body({}) or {}).get("fields", "*"))
+    if isinstance(fields_param, str):
+        fields_param = fields_param.split(",")
+    out: dict = {}
+    for svc in node.resolve_search_indices(req.param("index", "_all")):
+        mapper = svc.mapper_service
+        for pattern in fields_param:
+            for fname in mapper.mapper.simple_match_to_fields(pattern):
+                ft = mapper.field_type(fname)
+                t = ft.type_name
+                out.setdefault(fname, {}).setdefault(t, {
+                    "type": t,
+                    "searchable": bool(ft.index),
+                    "aggregatable": (bool(ft.doc_values)
+                                     or t == "text" and ft.fielddata),
+                })
+    return 200, {"fields": out}
+
+
+def _termvectors(node, req):
+    _typed_api_warning(req)
+    body = req.json_body({}) or {}
+    fields = body.get("fields") or (
+        req.param("fields").split(",") if req.param("fields") else None)
+    return 200, node.termvectors(req.param("index"), req.param("id"), fields)
+
+
+def _rollover(node, req):
+    body = req.json_body({}) or {}
+    if req.param("new_index"):
+        body["new_index"] = req.param("new_index")
+    if req.bool_param("dry_run"):
+        body["dry_run"] = True
+    return 200, node.rollover(req.param("index"), body)
+
+
+def _shrink(node, req):
+    return 200, node.shrink_index(req.param("index"), req.param("target"),
+                                  req.json_body({}))
+
+
+def _reindex(node, req):
+    from elasticsearch_tpu_torch.index.reindex import reindex
+
+    return 200, reindex(node, req.json_body({}))
+
+
+def _update_by_query(node, req):
+    from elasticsearch_tpu_torch.index.reindex import update_by_query
+
+    return 200, update_by_query(node, req.param("index"), req.json_body({}))
+
+
+def _delete_by_query(node, req):
+    from elasticsearch_tpu_torch.index.reindex import delete_by_query
+
+    return 200, delete_by_query(node, req.param("index"), req.json_body({}))
+
+
+def _get_task(node, req):
+    task = node.tasks.get(req.param("task_id"))
+    return 200, {"completed": False, "task": task.to_dict()}
+
+
+def _cancel_task(node, req):
+    task = node.tasks.cancel(req.param("task_id"))
+    return 200, {"nodes": {node.node_id: {"tasks": {
+        task.id_string: task.to_dict()}}}}
+
+
+def _simulate_pipeline_by_id(node, req):
+    body = req.json_body({}) or {}
+    body["id"] = req.param("id")
+    return 200, node.ingest.simulate(body)
 
 
 def _search_template(node, req):
@@ -1549,6 +1660,41 @@ def _cat_thread_pool(node, req):
     rows = [[node.node_name, pool, st["active"], st["queue"], st["rejected"]]
             for pool, st in stats.items()]
     return _cat_table(req, rows, ["node_name", "name", "active", "queue", "rejected"])
+
+
+def _cat_tasks(node, req):
+    rows = []
+    for data in node.tasks.list_tasks()["nodes"].values():
+        for tid, t in data["tasks"].items():
+            rows.append([t["action"], tid, "-", t["type"],
+                         t["start_time_in_millis"],
+                         t["running_time_in_nanos"]])
+    return _cat_table(req, rows, ["action", "task_id", "parent_task_id",
+                                  "type", "start_time", "running_time"])
+
+
+def _cat_repositories(node, req):
+    rows = [[name, body.get("type", "fs")]
+            for name, body in node.cluster_service.state.repositories.items()]
+    return _cat_table(req, rows, ["id", "type"])
+
+
+def _cat_snapshots(node, req):
+    snaps = node.snapshots.get_snapshot(req.param("repo"))["snapshots"]
+    rows = []
+    for s in snaps:
+        t0 = int(s.get("start_time_in_millis", 0) // 1000)
+        t1 = int(s.get("end_time_in_millis", 0) // 1000)
+        ns = s.get("shards_total", len(s["indices"]))
+        rows.append([s["snapshot"], s["state"], t0,
+                     time.strftime("%H:%M:%S", time.gmtime(t0)), t1,
+                     time.strftime("%H:%M:%S", time.gmtime(t1)),
+                     f"{max(t1 - t0, 0)}s", len(s["indices"]),
+                     ns, 0, ns, "-"])
+    return _cat_table(req, rows, ["id", "status", "start_epoch",
+                                  "start_time", "end_epoch", "end_time",
+                                  "duration", "indices", "successful_shards",
+                                  "failed_shards", "total_shards", "reason"])
 
 
 def _cat_shards(node, req):

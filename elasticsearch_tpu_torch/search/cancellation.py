@@ -14,8 +14,10 @@ of work (shards, segments, staging steps, before a launch):
   ``timed_out: true`` with the hits gathered so far.
 
 A checkpoint never falls between a launch and the read of its output, so
-an expired request leaves no device work in flight. The port has no task
-registry yet: ``task`` stays None and only the deadline trips.
+an expired or cancelled request leaves no device work in flight.
+``Node.search`` registers an ``indices:data/read/search`` task
+(``tasks/task_manager.py``) and hands it to the deadline, so
+``_tasks/{id}/_cancel`` trips the same checkpoints.
 """
 
 from __future__ import annotations

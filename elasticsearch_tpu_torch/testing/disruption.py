@@ -9,7 +9,10 @@ stalls a shard (the straggler that trips a ``timeout``) and
 ``on_device_staging`` runs just before every device staging site's
 transfer group: ``StagingFailScheme`` makes the Nth matching staging
 raise a transient or a deterministic fault. The mesh plane runs every
-shard as one program and calls ``on_shard_search`` for none of them. The
+shard as one program and calls ``on_shard_search`` for none of them;
+``on_mesh_plane`` runs before each plane attempt of a serial mesh query,
+just ahead of its deadline checkpoint, and ``MeshPlaneDelayScheme``
+stalls it there (a search held on the mesh plane, for a cancel). The
 transport, plane and launch schemes of the JAX module are not ported.
 """
 
@@ -49,6 +52,10 @@ class ShardSearchScheme:
     def on_search(self, index: str, shard_id: int) -> None:
         """Effect hook for a shard's query phase on the host rung."""
 
+    def on_plane(self, index: str, plane: str) -> None:
+        """Effect hook for a serial mesh query's plane attempt
+        (``mesh_pallas`` or ``mesh``), before its deadline checkpoint."""
+
     def on_staging(self, index: str, kind: str, table: str) -> None:
         """Effect hook for a device staging boundary: called right before
         a staging site's transfer group with the ledger kind
@@ -68,6 +75,15 @@ def on_shard_search(index: str, shard_id: int) -> None:
     for scheme in list(_SEARCH_SCHEMES):
         if scheme.applies(index, shard_id):
             scheme.on_search(index, shard_id)
+
+
+def on_mesh_plane(index: str, plane: str) -> None:
+    """Called by ``IndexMeshSearch.query`` before each plane attempt."""
+    if not _SEARCH_SCHEMES:
+        return
+    for scheme in list(_SEARCH_SCHEMES):
+        if scheme.indices is None or index in scheme.indices:
+            scheme.on_plane(index, plane)
 
 
 def on_device_staging(index: str, kind: str, table: str) -> None:
@@ -167,3 +183,19 @@ class SearchFailScheme(ShardSearchScheme):
             raise self.exception
         raise RuntimeError(
             f"[{index}][{shard_id}] query phase failed (injected)")
+
+
+class MeshPlaneDelayScheme(ShardSearchScheme):
+    """Every matching mesh plane attempt stalls ``seconds`` before its
+    deadline checkpoint: a request held on the mesh plane, so a cancel
+    (or a deadline) lands on that checkpoint before any launch."""
+
+    def __init__(self, seconds: float, **filters):
+        super().__init__(**filters)
+        self.seconds = float(seconds)
+
+    def on_plane(self, index, plane) -> None:
+        import time
+
+        self.hits += 1
+        time.sleep(self.seconds)

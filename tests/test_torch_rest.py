@@ -510,11 +510,11 @@ def test_unported_route_answers_400():
     srv.start()
     try:
         tn.create_index("i", {"settings": {"number_of_shards": 1}})
-        for method, path in (("POST", "/_reindex"),
-                             ("GET", "/_ingest/pipeline"),
-                             ("GET", "/_field_caps"),
-                             ("GET", "/i/_termvectors/1"),
-                             ("POST", "/i/_rollover")):
+        for method, path in (("GET", "/_nodes/hot_threads"),
+                             ("POST", "/_cache/clear"),
+                             ("POST", "/_cluster/reroute"),
+                             ("GET", "/_remote/info"),
+                             ("GET", "/_cat/plugins")):
             st, _, b = call(srv.port, method, path, {})
             assert st == 400, (path, b)
             assert b["error"]["type"] == "illegal_argument_exception"
