@@ -256,8 +256,9 @@ then phases 11, 12, 19, 20, 13, 14, 15, 16, 17 and 18):
 15. The query DSL beyond ``match`` on the card, after phase 14
     (``query_dsl_phase``). 15a: pmcq, pmc-4x256k's title (phase 7's
     corpora and token streams) beside an ``abstract`` from the same
-    generator (seeds 17-20, empty on 3% of docs) under an LM-Dirichlet
-    similarity (mu 2000), both with positions as flat columns, venue,
+    generator (seeds 17-20, a median of 40 tokens, empty on 3% of docs)
+    under an LM-Dirichlet similarity (mu 2000), both with positions as
+    flat columns, venue,
     year and emb as phase 7's, in three twins: ``pmcq`` on the card node
     (the mesh plane), ``pmcqh`` on it with ``search.mesh: false`` (the host
     rung) and ``pmcq`` on a cpu node. multi_match (best_fields over
@@ -420,11 +421,33 @@ then phases 11, 12, 19, 20, 13, 14, 15, 16, 17 and 18):
     index alone. ``memory_allocated`` back after each by-query call and
     each cancel; every launch held against plain; the summary line's
     ``data_movement`` entry.
+23. The field-type and query remainder on the card, right after phase 15
+    (``remainder_phase``), over pmcq (which it closes) and phase 12's
+    doc-values segments: 23a geo4, 4 x 65,536 docs with 262,144 shapes
+    in Rally geoshape's mix, each relation alone on the host rung and
+    beside a match on ``mesh_pallas``, totals equal to a numpy oracle,
+    the prefilter's device ms apart from the host relation's; 23b
+    logs-sorted (phase 12's arrays in ``ts`` desc by
+    ``index_sorted_fields``): Discover terminates early with logs-a's
+    hits; 23c the request cache on logs-a
+    (a miss launches kernel 2, a hit nothing, a write misses again,
+    ``_stats`` and ``_cache/clear``); 23d 1,000 stored queries, 20
+    candidates percolated against a plain evaluation; 23e term and
+    phrase suggest on pmcq, completion with contexts on 5,000 bulked
+    docs; 23f each span kind alone and beside a match with its host
+    enumeration ms, ``type``, ``_size``. Every launch held against
+    plain; the summary line's ``remainder`` entry. A faster store load
+    (13c's reopen and 22e's restore parse ``sources.jsonl`` in one pass)
+    pays for part of its time.
 
 Every index a phase builds pins ``index.refresh_interval: -1`` (the
 port's scheduled refresh runs every second by default): its segment
 layout, and the ingest rates and restage counts the checks read, stay
-those of one explicit refresh. Only 21d runs the schedule.
+those of one explicit refresh. Only 21d runs the schedule. Beside it
+each pins ``index.requests.cache.enable: false`` (the shard request
+cache is on by default and would answer a repeated ``size: 0`` body
+from memory): every request a phase repeats runs the query path and
+its launches are held. Only 23c's logs-a keeps the cache on.
 
 Every answer any phase gets from ``Node.search`` (``msearch`` and REST
 through it), ``IndexService.search`` or ``search_batch`` must show
@@ -437,6 +460,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import select
 import shutil
@@ -542,16 +566,17 @@ def unique_counts(keys):
 
 
 def build_synthetic_corpus(seed=7, n_docs=N_DOCS, empty_share=0.0,
-                           keep_stream=False):
+                           keep_stream=False, avg_len=AVG_DOC_LEN):
     """``empty_share``: the share of docs drawn empty (no token: the field
     is missing there). ``keep_stream``: also return the token stream
-    (``tokens``, in doc order) and ``doc_len``, the positions' source."""
+    (``tokens``, in doc order) and ``doc_len``, the positions' source.
+    ``avg_len``: the docs' median token count."""
     rng = np.random.RandomState(seed)
     nd_pad = 1
     while nd_pad < n_docs:
         nd_pad *= 2
     doc_len = np.clip(
-        rng.lognormal(np.log(AVG_DOC_LEN), 0.4, n_docs), 5, 500
+        rng.lognormal(np.log(avg_len), 0.4, n_docs), 5, 500
     ).astype(np.int64)
     if empty_share:
         doc_len[rng.rand(n_docs) < empty_share] = 0
@@ -874,7 +899,8 @@ def serve(gnode, cnode, index, reqs, label, lat, ref=None,
 def node_with_mapping(Node, device, shards):
     n = Node(device=device)
     n.create_index("docs" if shards > 1 else "pmc", {
-        "settings": {"number_of_shards": shards, "refresh_interval": "-1"},
+        "settings": {"number_of_shards": shards, "refresh_interval": "-1",
+                     "requests.cache.enable": False},
         "mappings": {"_doc": {"properties": {
             "title": {"type": "text"}, "venue": {"type": "keyword"},
             "year": {"type": "long"}}}}})
@@ -2237,11 +2263,12 @@ def mesh_phase(torch, Node, Segment, cuda_kernels, queries, top_rank_term,
                 "similarity": "cosine"}}}}
     gnode, cnode = Node(device="cuda"), Node(device="cpu")
     for node in (gnode, cnode):
-        node.create_index("pmc4", {"settings": {"number_of_shards": 4,
-                                                "refresh_interval": "-1"},
-                                   "mappings": mapping})
+        node.create_index("pmc4", {"settings": {
+            "number_of_shards": 4, "refresh_interval": "-1",
+            "requests.cache.enable": False}, "mappings": mapping})
         node.create_index("pmc4h", {"settings": {
             "number_of_shards": 4, "refresh_interval": "-1",
+            "requests.cache.enable": False,
             "search": {"mesh": False}},
             "mappings": mapping})
     gsegs, csegs, shard_arrays = [], [], []
@@ -2748,9 +2775,9 @@ def knn_phase(torch, cuda_kernels, gnode, cnode, gsegs, csegs, vecs, exists,
         "emb": {"type": "dense_vector", "dims": KNN_DIMS,
                 "similarity": "cosine"}}}}
     for node, segs in ((gnode, gsegs), (cnode, csegs)):
-        node.create_index("pmc1", {"settings": {"number_of_shards": 1,
-                                                "refresh_interval": "-1"},
-                                   "mappings": mapping})
+        node.create_index("pmc1", {"settings": {
+            "number_of_shards": 1, "refresh_interval": "-1",
+            "requests.cache.enable": False}, "mappings": mapping})
         node.indices["pmc1"].shards[0].engine.adopt_segment(segs[0])
     svc = gnode.indices["pmc4"]
     routing = _routing_for_shards(4)
@@ -3046,6 +3073,7 @@ def pruned_phase(torch, Node, Segment, cuda_kernels, tsc, queries, lat,
         if not mesh:
             settings["search"] = {"mesh": False}
         settings["refresh_interval"] = "-1"
+        settings["requests.cache.enable"] = False
         node.create_index(index, {"settings": settings, "mappings": mapping})
         return node.indices[index]
 
@@ -3501,7 +3529,8 @@ def rest_phase(torch, Node, cuda_kernels, ops, inproc_rate, reqs, g7, c7, gP,
     try:
         t0 = time.perf_counter()
         st, r = client.call("PUT", "/docs_http", {
-            "settings": {"number_of_shards": 5, "refresh_interval": "-1"},
+            "settings": {"number_of_shards": 5, "refresh_interval": "-1",
+                         "requests.cache.enable": False},
             "mappings": {"_doc": {"properties": {
                 "title": {"type": "text"}, "venue": {"type": "keyword"},
                 "year": {"type": "long"}}}}})
@@ -4012,10 +4041,12 @@ def aggs_phase(torch, Node, Segment, cuda_kernels, tsc, queries, lat,
     for name, extra in indices.items():
         gnode.create_index(name, {"settings": {"number_of_shards": 4,
                                                "refresh_interval": "-1",
+                                               "requests.cache.enable": False,
                                                **extra},
                                   "mappings": mapping})
     cnode.create_index("agg4", {"settings": {"number_of_shards": 4,
-                                             "refresh_interval": "-1"},
+                                             "refresh_interval": "-1",
+                                             "requests.cache.enable": False},
                                 "mappings": mapping})
     gsegs, csegs = [], []
     for sh, arrays in enumerate(shard_arrays):
@@ -4144,6 +4175,7 @@ def aggs_phase(torch, Node, Segment, cuda_kernels, tsc, queries, lat,
         docs)."""
         gnode.create_index("agg4p", {"settings": {
             "number_of_shards": 4, "refresh_interval": "-1",
+            "requests.cache.enable": False,
             "search": {"pallas": {"postings_codec": "packed"}}},
             "mappings": mapping})
         for sh, gs in enumerate(gsegs):
@@ -4459,6 +4491,7 @@ def search_request_phase(torch, cuda_kernels, tsc, ssum, knn, p12, g7, c7,
         for name in ("logs-a", "logs-b"):
             node.create_index(name, {"settings": {
                 "number_of_shards": 4, "refresh_interval": "-1",
+                "requests.cache.enable": False,
                 "search": {"mesh": False}},
                 "mappings": mapping})
             for sh, seg in enumerate(segs):
@@ -4876,6 +4909,7 @@ def scripting_phase(torch, cuda_kernels, tsc, ssum, knn, p12, g3, c3, ops,
     routing = _routing_for_shards(4)
     gnode.create_index("scr4", {"settings": {
         "number_of_shards": 4, "refresh_interval": "-1",
+        "requests.cache.enable": False,
         "search": {"mesh": {"max_slots_per_device": 8}},
         # no background compaction: a merge re-parses the stored sources,
         # which hold no title here
@@ -5173,10 +5207,12 @@ def _durable_updates(Node, HttpServer, ops, path):
     try:
         st, _ = client.call("PUT", "/upd", {"settings": {
             "number_of_shards": 5, "refresh_interval": "-1",
+            "requests.cache.enable": False,
             "translog": {"durability": "async"}},
             "mappings": mapping})
         st2, _ = client.call("PUT", "/updr", {"settings": {
-            "number_of_shards": 5, "refresh_interval": "-1"},
+            "number_of_shards": 5, "refresh_interval": "-1",
+            "requests.cache.enable": False},
             "mappings": mapping})
         check(st == st2 == 200, "20e: the durable indices created")
         docs = ops[:UPDATE_DOCS]
@@ -5343,7 +5379,8 @@ sys.path.insert(0, sys.argv[3])
 from elasticsearch_tpu_torch.node import Node
 node = Node(data_path=sys.argv[1], device="cuda")
 node.create_index("docs", {"settings": {"number_of_shards": 5,
-                                        "refresh_interval": "-1"},
+                                        "refresh_interval": "-1",
+                                        "requests.cache.enable": False},
                            "mappings": {"_doc": {"properties": {
                                "id": {"type": "keyword"},
                                "title": {"type": "text"},
@@ -5513,10 +5550,12 @@ def _durable_ingest(torch, Node, cuda_kernels, tsc, ssum, knn, ops,
     g = Node(data_path=path, device="cuda")
     g.create_index("docs", {"settings": {
         "number_of_shards": 5, "refresh_interval": "-1",
+        "requests.cache.enable": False,
         "translog": {"durability": "async"}},
         "mappings": mapping})
     g.create_index("docs_req", {"settings": {"number_of_shards": 5,
-                                             "refresh_interval": "-1"},
+                                             "refresh_interval": "-1",
+                                             "requests.cache.enable": False},
                                 "mappings": mapping})
     rates = {}
     for index, docs in (("docs", ops[:ASYNC_DURABLE_DOCS]),
@@ -5699,7 +5738,8 @@ def _crash_recovery(torch, Node, ops, reqs, path):
     # an in-memory node that took exactly the recovered docs, in seqno order
     mem = Node(device="cuda")
     mem.create_index("docs", {"settings": {"number_of_shards": 5,
-                                           "refresh_interval": "-1"},
+                                           "refresh_interval": "-1",
+                                           "requests.cache.enable": False},
                               "mappings": {"_doc": {"properties": {
                                   "id": {"type": "keyword"},
                                   "title": {"type": "text"},
@@ -5836,7 +5876,8 @@ def _recover_full_width(torch, Node, cuda_kernels, tsc, ssum, knn, reqs7,
     t0 = time.perf_counter()
     g = Node(data_path=path, device="cuda")
     g.create_index("dur4", {"settings": {"number_of_shards": 4,
-                                         "refresh_interval": "-1"},
+                                         "refresh_interval": "-1",
+                                         "requests.cache.enable": False},
                             "mappings": mapping})
     for sh, arrays in enumerate(shard_arrays):
         arrays = dict(arrays)
@@ -6134,6 +6175,7 @@ def staging_phase(torch, Segment, cuda_kernels, tsc, ssum, knn, reqs7,
     def make(name, device, delta):
         svc = IndexService(name, Settings({
             "index.number_of_shards": 4, "index.refresh_interval": -1,
+            "index.requests.cache.enable": False,
             "index.search.mesh.max_slots_per_device": STAGING_MAX_SLOTS,
             "index.staging.delta.enabled": delta,
             "index.staging.compact.threshold": 0,
@@ -6317,6 +6359,7 @@ def staging_phase(torch, Segment, cuda_kernels, tsc, ssum, knn, reqs7,
         t_small = time.perf_counter()
         cp = IndexService("stgc", Settings({
             "index.number_of_shards": 4, "index.refresh_interval": -1,
+            "index.requests.cache.enable": False,
             "index.search.mesh.max_slots_per_device": STAGING_MAX_SLOTS,
             "index.staging.compact.threshold": 0,
             "index.search.plane_quarantine.cooldown": "200ms"}),
@@ -6770,9 +6813,11 @@ def query_dsl_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, queries,
     for node in (gnode, cnode):
         node.create_index("pmcq", {"settings": {
             "number_of_shards": 4, "refresh_interval": "-1",
+            "requests.cache.enable": False,
             "similarity": sim}, "mappings": mapping})
     gnode.create_index("pmcqh", {"settings": {
-        "number_of_shards": 4, "refresh_interval": "-1", "similarity": sim,
+        "number_of_shards": 4, "refresh_interval": "-1",
+        "requests.cache.enable": False, "similarity": sim,
         "search": {"mesh": False}}, "mappings": mapping})
     for sh, a in enumerate(arrays):
         gs = Segment.from_arrays(f"pmcq_{sh}_seg_1", device="cuda", **a)
@@ -6938,8 +6983,7 @@ def query_dsl_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, queries,
     report.update(planes=planes, p50_ms=p50, phrase_ms=phrase_ms,
                   cpu_ms={k: v for k, v in cpu_ms.items()},
                   launches=dict(p15), held=held)
-    gnode.close()
-    cnode.close()
+    # pmcq's nodes stay open for phase 23, which closes them
     del arrays, abstracts
 
     # 15b: custom analysis on phase 3's docs
@@ -6951,6 +6995,7 @@ def query_dsl_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, queries,
                     "tokenizer": "standard",
                     "filter": ["lowercase", "en_stop", "stemmer"]}}}
     body = {"settings": {"number_of_shards": 5, "refresh_interval": "-1",
+                         "requests.cache.enable": False,
                          "analysis": analysis},
             "mappings": {"_doc": {"properties": {
                 "title": {"type": "text", "analyzer": "prose", "fields": {
@@ -7008,7 +7053,7 @@ def query_dsl_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, queries,
         f"{report['build_s']:.1f}, serve {report['serve_s']:.1f}, hold "
         f"{report['hold_s']:.1f}, timing {report['time_s']:.1f}, 15b "
         f"{report['analysis']['seconds']:.1f})")
-    return report
+    return report, (gnode, cnode)
 
 
 # ----------------------------------------------------------------------
@@ -7129,12 +7174,13 @@ def sort_paging_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, queries,
     for node in (gnode, cnode):
         for name, extra in (("srt4", {}),
                             ("srt4h", {"search": {"mesh": False}})):
-            node.create_index(name, {"settings": {"number_of_shards": 4,
-                                                  "refresh_interval": "-1",
-                                                  **extra},
-                                     "mappings": mapping})
+            node.create_index(name, {"settings": {
+                "number_of_shards": 4, "refresh_interval": "-1",
+                "requests.cache.enable": False, **extra},
+                "mappings": mapping})
         node.create_index("scr", {"settings": {"number_of_shards": 5,
-                                               "refresh_interval": "-1"},
+                                               "refresh_interval": "-1",
+                                               "requests.cache.enable": False},
                                   "mappings": {"_doc": {"properties": {
                                       "title": {"type": "text"},
                                       "venue": {"type": "keyword"},
@@ -7813,10 +7859,10 @@ def geo_fields_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, queries,
     for node, names in twins.items():
         for name in names:
             extra = {"search": {"mesh": False}} if name == "geo4h" else {}
-            node.create_index(name, {"settings": {"number_of_shards": 4,
-                                                  "refresh_interval": "-1",
-                                                  **extra},
-                                     "mappings": mapping})
+            node.create_index(name, {"settings": {
+                "number_of_shards": 4, "refresh_interval": "-1",
+                "requests.cache.enable": False, **extra},
+                "mappings": mapping})
     t0 = time.perf_counter()
     centres, pool = geo_centres(), ip_pool()
     gsegs, csegs, pidx_of = [], [], []
@@ -8337,6 +8383,7 @@ def geo_ingest_phase(torch, Node, Segment, ingest_ops, bodies, device):
         # measures the durability's cost)
         node.create_index("gi", {"settings": {
             "number_of_shards": 5, "refresh_interval": "-1",
+            "requests.cache.enable": False,
             "index": {"translog": {"durability": "async"}}},
             "mappings": mapping})
         t0 = time.perf_counter()
@@ -8392,7 +8439,8 @@ def geo_ingest_phase(torch, Node, Segment, ingest_ops, bodies, device):
         t0 = time.perf_counter()
         cnode = Node(device="cpu")
         cnode.create_index("gi", {"settings": {"number_of_shards": 5,
-                                               "refresh_interval": "-1"},
+                                               "refresh_interval": "-1",
+                                               "requests.cache.enable": False},
                                   "mappings": mapping})
         _adopt_copies(node, cnode, "gi", Segment)
         for k, b in kinds.items():
@@ -8891,6 +8939,7 @@ def nested_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, knn,
                           "staging": {"compact": {"threshold": 0}}})
                 node.create_index(base + suffix, {"settings": {
                     "number_of_shards": 4, "refresh_interval": "-1",
+                    "requests.cache.enable": False,
                     **extra}, "mappings": mapping})
     t0 = time.perf_counter()
     split = {"columns": 0.0, "nested_arrays": 0.0, "join_arrays": 0.0,
@@ -9411,9 +9460,11 @@ def nested_ingest_phase(torch, Node, Segment, device, bodies):
                               ("soj", SO_JOIN_MAPPING)):
             node.create_index(name, {"settings": {
                 "number_of_shards": 4, "refresh_interval": "-1",
+                "requests.cache.enable": False,
                 **async_tl}, "mappings": mapping})
         node.create_index("sop", {"settings": {"number_of_shards": 4,
                                                "refresh_interval": "-1",
+                                               "requests.cache.enable": False,
                                                **async_tl},
                                   "mappings": {"answer": {
                                       "_parent": {"type": "question"},
@@ -9510,6 +9561,7 @@ def nested_ingest_phase(torch, Node, Segment, device, bodies):
         for name, mapping in (("soi", nested_map), ("soj", SO_JOIN_MAPPING)):
             cnode.create_index(name, {"settings": {
                 "number_of_shards": 4, "refresh_interval": "-1",
+                "requests.cache.enable": False,
                 "search": {"mesh": False}},
                 "mappings": mapping})
             _adopt_copies(node, cnode, name, Segment)
@@ -9730,10 +9782,12 @@ def cluster_metadata_phase(torch, Node, HttpServer, cuda_kernels, tsc, ssum,
         for name in ("logs-a", "logs-b"):
             call("PUT", f"/{name}", {"settings": {
                 "number_of_shards": 4, "refresh_interval": "-1",
+                "requests.cache.enable": False,
                 "search": {"mesh": False}}, "mappings": dv_mapping})
         call("PUT", "/_template/logs", {
             "index_patterns": ["logs-*"], "order": 1,
             "settings": {"number_of_shards": 4, "refresh_interval": "-1",
+                         "requests.cache.enable": False,
                          # headroom for 21d's appended segments; no
                          # compaction (a merge re-parses the stored
                          # sources, which hold no title here)
@@ -9826,6 +9880,7 @@ def cluster_metadata_phase(torch, Node, HttpServer, cuda_kernels, tsc, ssum,
         # ---- 21c: dynamic cluster settings on the card's planes ------
         call("PUT", "/pk4", {"settings": {
             "number_of_shards": 4, "refresh_interval": "-1",
+            "requests.cache.enable": False,
             "search": {"pallas": {"postings_codec": "packed"}}},
             "mappings": {"_doc": {"properties": {
                 "title": {"type": "text"}, "venue": {"type": "keyword"},
@@ -10093,6 +10148,7 @@ def _metadata_restart(Node, HttpServer, path, device, item):
                         "body": "{{q}}"}}}}}),
                 ("PUT", "/small", {"settings": {
                     "number_of_shards": 2, "refresh_interval": "-1",
+                    "requests.cache.enable": False,
                     "search": {"pallas": {"postings_codec": "packed"}}},
                     "mappings": mapping, "aliases": {"sm": {}}})):
             st, r = client.call(method, p, body)
@@ -10395,6 +10451,7 @@ def data_movement_phase(torch, Node, HttpServer, cuda_kernels, tsc, ssum,
         "year": {"type": "long"}, "n": {"type": "long"}}}}
     call("PUT", "/dm4", {"settings": {
         "number_of_shards": len(shard_arrays), "refresh_interval": "-1",
+        "requests.cache.enable": False,
         "search": {"mesh": {"max_slots_per_device": DM_SLOTS}},
         "staging": {"compact": {"threshold": 0}}}, "mappings": mapping})
     lives = []
@@ -10432,7 +10489,8 @@ def data_movement_phase(torch, Node, HttpServer, cuda_kernels, tsc, ssum,
     q_a = {"match": {"title": tok(ta)}}
     want_a = expected(ta)
     call("PUT", "/dm1", {"settings": {"number_of_shards": 1,
-                                      "refresh_interval": "-1"},
+                                      "refresh_interval": "-1",
+                                      "requests.cache.enable": False},
                          "mappings": mapping})
     seen = []
     stop = threading.Event()
@@ -10730,7 +10788,8 @@ def data_movement_phase(torch, Node, HttpServer, cuda_kernels, tsc, ssum,
     rates = {}
     for name, qs in (("weblogs-n", ""), ("weblogs-p", "?pipeline=nginx")):
         call("PUT", f"/{name}", {"settings": {"number_of_shards": 5,
-                                              "refresh_interval": "-1"}})
+                                              "refresh_interval": "-1",
+                                              "requests.cache.enable": False}})
         t0 = time.perf_counter()
         errors = False
         for lo in range(0, len(docs), 1000):
@@ -10770,7 +10829,8 @@ def data_movement_phase(torch, Node, HttpServer, cuda_kernels, tsc, ssum,
                                              "venue": {"type": "keyword"},
                                              "year": {"type": "long"}}}}
         call("PUT", "/logs-000001", {
-            "settings": {"number_of_shards": 1, "refresh_interval": "-1"},
+            "settings": {"number_of_shards": 1, "refresh_interval": "-1",
+                         "requests.cache.enable": False},
             "mappings": small_map, "aliases": {"logs": {}}})
         src_docs = [(m["_id"], s) for _a, m, s in ops[:ADMIN_DOCS]]
         call("POST", "/_bulk?refresh=true", bulk_lines("logs",
@@ -10798,7 +10858,8 @@ def data_movement_phase(torch, Node, HttpServer, cuda_kernels, tsc, ssum,
         report["items"]["22f rollover"] = {"p50_ms": float(np.median(xs)),
                                            "samples": len(xs)}
         call("PUT", "/big4", {"settings": {"number_of_shards": 4,
-                                           "refresh_interval": "-1"},
+                                           "refresh_interval": "-1",
+                                           "requests.cache.enable": False},
                               "mappings": small_map})
         for lo in range(0, len(src_docs), 1000):
             call("POST", "/_bulk", bulk_lines("big4", src_docs[lo: lo + 1000]),
@@ -10891,6 +10952,7 @@ def snapshot_restore_phase(torch, cuda_kernels, tsc, ssum, knn, g2, bodies,
 
     g2.create_index("tiny", {"settings": {
         "number_of_shards": 1, "refresh_interval": "-1",
+        "requests.cache.enable": False,
         "translog": {"durability": "async"}}})
     g2.bulk([("index", {"_index": "tiny", "_id": str(i)},
               {"n": i, "msg": f"w{i % 7}"}) for i in range(200)],
@@ -11002,6 +11064,1124 @@ def snapshot_restore_phase(torch, cuda_kernels, tsc, ssum, knn, g2, bodies,
         "request_launches": lr, "corrupt_restore_ms": bad_ms,
         "launches": acc, "seconds": time.perf_counter() - t_phase})
     log(f"[phase 22e] {json.dumps(report)} ({smi})")
+    return report
+
+
+# ----------------------------------------------------------------------
+# Phase 23: the field-type and query remainder (geo_shape, index sorting,
+# the request cache, percolate, suggest, spans)
+# ----------------------------------------------------------------------
+
+# 23a: geo4's shapes, one set a shard, over a 200 x 100 degree box
+GEO23_SHARD_DOCS = 65_536
+GEO23_SEEDS = (41, 42, 43, 44)
+# geo4's titles: the corpus generator at a median of 20 tokens (a match
+# beside the shape filter needs the postings, not the 80-token length)
+GEO23_TITLE_LEN = 20
+# an envelope over about 1% of that box (14.14 degrees square); the query
+# coordinates carry 7 decimals, the shapes' 6, so no vertex lies on a
+# query edge
+GEO23_ENV = [[-7.0710681, 7.0710679], [7.0710677, -7.0710683]]
+GEO23_ENV_B = [[-57.0710681, -12.9289321], [-42.9289319, -27.0710679]]
+GEO23_HEX = [[round(40.0000003 + 6 * math.cos(a), 7),
+              round(10.0000007 + 6 * math.sin(a), 7)]
+             for a in (k * math.pi / 3 for k in range(6))]
+GEO23_POINT = [0.5000001, 0.5000003]
+# 23d: an alerting rule set (its own vocabulary of 200 words) and its
+# candidate documents
+PERC23_QUERIES = 1_000
+PERC23_CANDIDATES = 20
+PERC23_WORDS = [f"w{i:03d}" for i in range(200)]
+# 23e: the search-as-you-type index; 23f: _size's small index
+COMPL23_DOCS = 5_000
+SIZE23_DOCS = 2_000
+
+
+def geoshape_set(seed, n):
+    """``n`` shapes in the mix of Rally's ``geoshape`` track (OpenStreetMap
+    ways and relations): 60% linestrings of 2-16 vertices, 30% polygons of
+    5-32 ring points (a quarter of those with 5 or more vertices carry a
+    square hole, 0.2% of them country-sized), 10% points, centred over a
+    200 x 100 degree box, coordinates at 6 decimals. Returns the GeoJSON
+    of each and the flat arrays ``geo_oracle`` reads: every ring (closed),
+    every segment, and the points ``utils/geometry`` relates (a line's
+    vertices, a shell's without its closing one, the point)."""
+    rng = np.random.RandomState(seed)
+    kind = rng.choice(3, n, p=[0.1, 0.6, 0.3])  # point, line, polygon
+    cx = rng.uniform(-100, 100, n)
+    cy = rng.uniform(-50, 50, n)
+    nv = np.where(kind == 1, rng.randint(2, 17, n),
+                  np.where(kind == 2, rng.randint(4, 32, n), 1))
+    owner = np.repeat(np.arange(n), nv)
+    start = np.cumsum(nv) - nv
+    k_in = np.arange(len(owner)) - np.repeat(start, nv)
+    # lines: a random walk; polygons: stratified angles around the centre
+    step = rng.randn(len(owner), 2) * 0.3
+    step[k_in == 0] = 0.0
+    walk = np.cumsum(step, axis=0)
+    walk -= np.repeat(walk[start], nv, axis=0)
+    big = rng.rand(n) < 0.002
+    r0 = np.where(big, rng.uniform(10, 20, n), rng.uniform(0.2, 1.5, n))
+    ang = 2 * np.pi * (k_in + rng.rand(len(owner))) / np.repeat(nv, nv)
+    rad = np.repeat(r0, nv) * rng.uniform(0.7, 1.0, len(owner))
+    is_line = np.repeat(kind == 1, nv)
+    is_poly = np.repeat(kind == 2, nv)
+    vx = np.repeat(cx, nv) + np.where(is_line, walk[:, 0],
+                                      np.where(is_poly, rad * np.cos(ang), 0))
+    vy = np.repeat(cy, nv) + np.where(is_line, walk[:, 1],
+                                      np.where(is_poly, rad * np.sin(ang), 0))
+    vx, vy = np.round(vx, 6), np.round(vy, 6)
+    holed = (kind == 2) & (nv >= 5) & (rng.rand(n) < 0.25)
+    # rings: every shell (its vertices, then the first again), then every
+    # hole (a square of half-side 0.2 r0 around the centre)
+    polys = np.flatnonzero(kind == 2)
+    slen = nv[polys] + 1
+    sown = np.repeat(polys, slen)
+    soff = np.arange(slen.sum()) - np.repeat(np.cumsum(slen) - slen, slen)
+    soff[soff == np.repeat(nv[polys], slen)] = 0
+    sidx = start[sown] + soff
+    holes = np.flatnonzero(holed)
+    h = 0.2 * r0[holes]
+    hx = np.round(cx[holes, None] + np.array([-1, 1, 1, -1, -1]) * h[:, None],
+                  6).ravel()
+    hy = np.round(cy[holes, None] + np.array([-1, -1, 1, 1, -1])
+                  * h[:, None], 6).ravel()
+    rx = np.concatenate([vx[sidx], hx])
+    ry = np.concatenate([vy[sidx], hy])
+    rlen = np.concatenate([slen, np.full(len(holes), 5)])
+    ring_owner = np.concatenate([polys, holes])
+    ring_hole = np.concatenate([np.zeros(len(polys), bool),
+                                np.ones(len(holes), bool)])
+    # GeoJSON, a shape at a time over Python lists
+    allpts = np.stack([vx, vy], 1).tolist()
+    hpts = np.stack([hx, hy], 1).tolist()
+    hole_of = {int(o): k for k, o in enumerate(holes.tolist())}
+    geojson = []
+    for i, (kd, lo, cnt) in enumerate(zip(kind.tolist(), start.tolist(),
+                                          nv.tolist())):
+        pts = allpts[lo: lo + cnt]
+        if kd == 0:
+            geojson.append({"type": "point", "coordinates": pts[0]})
+        elif kd == 1:
+            geojson.append({"type": "linestring", "coordinates": pts})
+        else:
+            rings = [pts + [pts[0]]]
+            k = hole_of.get(i)
+            if k is not None:
+                rings.append(hpts[5 * k: 5 * k + 5])
+            geojson.append({"type": "polygon", "coordinates": rings})
+    # segments: a line's consecutive vertices, every ring's edges
+    lines = np.flatnonzero(is_line & (k_in + 1 < np.repeat(nv, nv)))
+    rstart = np.cumsum(rlen) - rlen
+    edge = np.ones(len(rx), bool)
+    edge[rstart + rlen - 1] = False
+    redges = np.flatnonzero(edge)
+    shell_pts = np.flatnonzero(edge & ~np.repeat(ring_hole, rlen))
+    pts = np.flatnonzero(~is_poly)
+    bbox = np.stack([np.minimum.reduceat(vx, start),
+                     np.minimum.reduceat(vy, start),
+                     np.maximum.reduceat(vx, start),
+                     np.maximum.reduceat(vy, start)], 1)
+    return {
+        "geojson": geojson, "kind": kind, "bbox": bbox,
+        "ring_owner": ring_owner, "ring_hole": ring_hole,
+        "edge_x1": rx[redges], "edge_y1": ry[redges],
+        "edge_x2": rx[redges + 1], "edge_y2": ry[redges + 1],
+        "edge_ring": np.repeat(np.arange(len(rlen)), rlen - 1),
+        "seg_x1": np.concatenate([vx[lines], rx[redges]]),
+        "seg_y1": np.concatenate([vy[lines], ry[redges]]),
+        "seg_x2": np.concatenate([vx[lines + 1], rx[redges + 1]]),
+        "seg_y2": np.concatenate([vy[lines + 1], ry[redges + 1]]),
+        "seg_owner": np.concatenate([owner[lines],
+                                     np.repeat(ring_owner, rlen - 1)]),
+        "pt_x": np.concatenate([vx[pts], rx[shell_pts]]),
+        "pt_y": np.concatenate([vy[pts], ry[shell_pts]]),
+        "pt_owner": np.concatenate([owner[pts],
+                                    np.repeat(ring_owner, rlen)[shell_pts]]),
+    }
+
+
+def _subset(sset, keep):
+    """The flat arrays of the docs ``keep`` marks (their owner ids kept)."""
+    out = dict(sset)
+    for prefix, owner in (("edge_", "edge_ring"), ("seg_", "seg_owner"),
+                          ("pt_", "pt_owner")):
+        if prefix == "edge_":
+            sel = keep[sset["ring_owner"][sset["edge_ring"]]]
+        else:
+            sel = keep[sset[owner]]
+        for key in sset:
+            if key.startswith(prefix) or key == owner:
+                out[key] = sset[key][sel]
+    return out
+
+
+def _ray_parity(px, py, x1, y1, x2, y2):
+    """[points, edges] crossings of ``utils/geometry._point_in_ring``'s
+    ray cast, in its arithmetic order."""
+    px, py = px[:, None], py[:, None]
+    straddle = (y1 > py) != (y2 > py)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        xin = (x2 - x1) * (py - y1) / (y2 - y1) + x1
+    return straddle & (px < xin)
+
+
+def _orient(ax, ay, bx, by, cx, cy):
+    v = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax)
+    return np.where(np.abs(v) < 1e-12, 0, np.sign(v))
+
+
+def _segments_cross(ax, ay, bx, by, cx, cy, dx, dy):
+    """``utils/geometry._seg_intersect`` for every pair (broadcast)."""
+    o1, o2 = _orient(ax, ay, bx, by, cx, cy), _orient(ax, ay, bx, by, dx, dy)
+    o3, o4 = _orient(cx, cy, dx, dy, ax, ay), _orient(cx, cy, dx, dy, bx, by)
+
+    def on(px, py, qx, qy, rx, ry):
+        return ((np.minimum(px, qx) - 1e-12 <= rx)
+                & (rx <= np.maximum(px, qx) + 1e-12)
+                & (np.minimum(py, qy) - 1e-12 <= ry)
+                & (ry <= np.maximum(py, qy) + 1e-12))
+
+    return (((o1 != o2) & (o3 != o4)) | ((o1 == 0) & on(ax, ay, bx, by, cx, cy))
+            | ((o2 == 0) & on(ax, ay, bx, by, dx, dy))
+            | ((o3 == 0) & on(cx, cy, dx, dy, ax, ay))
+            | ((o4 == 0) & on(cx, cy, dx, dy, bx, by)))
+
+
+def geo_oracle(sset, shape, relation):
+    """The docs whose shape holds ``relation`` to the query ``shape`` (a
+    GeoJSON point, envelope or polygon), computed with numpy over the
+    set's flat arrays as ``utils/geometry`` decides it (a shape point in
+    the query's area, a query point in a polygon's area with its holes,
+    an edge crossing; within: every point and segment midpoint in the
+    other's area). Boundary contacts are left out: no shape coordinate
+    lies on a query edge."""
+    from elasticsearch_tpu_torch.utils.geometry import parse_shape
+
+    q = parse_shape(shape)
+    n = len(sset["kind"])
+    # only the docs the bbox prefilter keeps can hold the relation (but
+    # disjoint, its complement): the arrays shrink to theirs
+    qb = q.bbox()
+    b = sset["bbox"]
+    overlap = ~((b[:, 0] > qb[2]) | (qb[0] > b[:, 2])
+                | (b[:, 1] > qb[3]) | (qb[1] > b[:, 3]))
+    cand = overlap
+    if relation == "contains":
+        cand = ((b[:, 0] <= qb[0]) & (b[:, 1] <= qb[1])
+                & (b[:, 2] >= qb[2]) & (b[:, 3] >= qb[3]))
+    sset = _subset(sset, cand)
+    qpts = np.asarray(q.points(), np.float64).reshape(-1, 2)
+    qsegs = np.asarray(q.segments(), np.float64).reshape(-1, 4)
+    qring = np.asarray(q.rings()[0].shell, np.float64) if q.rings() else None
+
+    def in_query(px, py):
+        if qring is None:
+            return np.zeros(len(px), bool)
+        return _ray_parity(px, py, qring[:-1, 0], qring[:-1, 1],
+                           qring[1:, 0], qring[1:, 1]).sum(1) % 2 == 1
+
+    def in_shapes(px, py):
+        """[query points, docs]: the point in the doc's polygon area."""
+        par = _ray_parity(px, py, sset["edge_x1"], sset["edge_y1"],
+                          sset["edge_x2"], sset["edge_y2"])
+        n_rings = len(sset["ring_owner"])
+        ring_in = np.stack([np.bincount(sset["edge_ring"], weights=row,
+                                        minlength=n_rings) % 2 == 1
+                            for row in par])
+        out = np.zeros((len(px), n), bool)
+        shell = ~sset["ring_hole"]
+        for k in range(len(px)):
+            inside = np.zeros(n, bool)
+            inside[sset["ring_owner"][shell]] = ring_in[k][shell]
+            in_hole = np.zeros(n, bool)
+            np.logical_or.at(in_hole, sset["ring_owner"][~shell],
+                             ring_in[k][~shell])
+            out[k] = inside & ~in_hole
+        return out
+
+    def per_doc_any(flags, owner):
+        out = np.zeros(n, bool)
+        np.logical_or.at(out, owner, flags)
+        return out
+
+    def per_doc_all(flags, owner):
+        bad = np.zeros(n, bool)
+        np.logical_or.at(bad, owner, ~flags)
+        return ~bad
+
+    px, py, po = sset["pt_x"], sset["pt_y"], sset["pt_owner"]
+    sx1, sy1, sx2, sy2 = (sset[k] for k in ("seg_x1", "seg_y1", "seg_x2",
+                                            "seg_y2"))
+    if relation in ("intersects", "disjoint"):
+        hit = per_doc_any(in_query(px, py), po)
+        if len(qpts):
+            hit |= in_shapes(qpts[:, 0], qpts[:, 1]).any(0)
+        for x1, y1, x2, y2 in qsegs:
+            hit |= per_doc_any(_segments_cross(sx1, sy1, sx2, sy2,
+                                               x1, y1, x2, y2),
+                               sset["seg_owner"])
+        hit &= overlap
+        return ~hit if relation == "disjoint" else hit
+    if relation == "within":
+        ok = per_doc_all(in_query(px, py), po)
+        mx, my = (sx1 + sx2) / 2.0, (sy1 + sy2) / 2.0
+        return (ok & per_doc_all(in_query(mx, my), sset["seg_owner"])
+                & cand)
+    # contains: the query's points and segment midpoints in the doc's area
+    tests = [qpts] + ([(qsegs[:, :2] + qsegs[:, 2:]) / 2.0]
+                      if len(qsegs) else [])
+    pts = np.concatenate(tests)
+    return in_shapes(pts[:, 0], pts[:, 1]).all(0) & cand
+
+
+class _ShapeSources:
+    """Stored sources made on demand: the corpus's fields and the doc's
+    shape."""
+
+    def __init__(self, base, geojson):
+        self._base, self._geojson = base, geojson
+
+    def __len__(self):
+        return len(self._geojson)
+
+    def __getitem__(self, d):
+        return dict(self._base[d], region=self._geojson[d])
+
+
+class _PermutedSources:
+    """Stored sources in a new doc order: ``perm[new] = old``."""
+
+    def __init__(self, base, perm):
+        self._base, self._perm = base, perm
+
+    def __len__(self):
+        return len(self._perm)
+
+    def __getitem__(self, d):
+        return self._base[int(self._perm[d])]
+
+    def __iter__(self):
+        return (self._base[i] for i in self._perm.tolist())
+
+
+def index_sorted_fields(torch, isort, fields, spec, device="cuda"):
+    """``Segment.from_arrays`` fields with their docs in the index sort
+    ``spec``: the order ``SegmentBuilder(index_sort=spec).seal()`` gives
+    the same documents. The permutation is the port's
+    ``isort.index_sort_permutation`` over the fields' doc-value columns of
+    the sort fields; each posting list is re-sorted by its new doc ids on
+    ``device`` (its block layout stays: a term's doc count does not
+    change). Takes what phase 12's doc-values segments carry (postings,
+    norms, live docs, ids, sources, numeric and ordinal columns, and
+    routings, parents, seqnos and versions where given); refuses
+    positions, nested objects, exists masks, geo, vector and shape
+    columns."""
+    from types import SimpleNamespace
+
+    for key in ("positions", "nested", "exists_masks", "geo_columns",
+                "vector_columns", "shapes"):
+        if fields.get(key):
+            raise ValueError(f"index_sorted_fields: {key} not permuted")
+    n = len(fields["doc_ids"])
+    num = fields.get("numeric_columns") or {}
+    ords = fields.get("ordinal_columns") or {}
+    sort_fields = {f for f, *_ in spec}
+    view = SimpleNamespace(
+        num_docs=n,
+        numeric_values={
+            f: (np.asarray(c["flat_docs"][: c["count"]], np.int64),
+                np.asarray(c["flat_values"][: c["count"]], np.float64))
+            for f, c in num.items() if f in sort_fields},
+        string_values={
+            f: [(d, c["terms"][o]) for d, o in zip(
+                c["flat_docs"][: c["count"]].tolist(),
+                c["flat_ords"][: c["count"]].tolist())]
+            for f, c in ords.items() if f in sort_fields})
+    perm = isort.index_sort_permutation(view, spec)
+    if perm is None:
+        return dict(fields)
+    inv = np.empty(n, np.int64)
+    inv[perm] = np.arange(n)
+
+    def per_doc(a):
+        a = np.array(a)
+        a[:n] = a[:n][perm]
+        return a
+
+    def flat(c, per_doc_keys, flat_keys):
+        """A column's flat entries sorted stably by their new doc (a doc's
+        values keep their order), its per-doc arrays permuted."""
+        out = dict(c)
+        cnt = c["count"]
+        new_docs = inv[np.asarray(c["flat_docs"][:cnt], np.int64)]
+        order = np.argsort(new_docs, kind="stable")
+        out["flat_docs"] = np.array(c["flat_docs"])
+        out["flat_docs"][:cnt] = new_docs[order]
+        for k in flat_keys:
+            out[k] = np.array(c[k])
+            out[k][:cnt] = np.asarray(c[k][:cnt])[order]
+        for k in per_doc_keys:
+            out[k] = per_doc(c[k])
+        return out
+
+    out = dict(fields)
+    # postings: a term's entries fill its blocks in order, so the valid
+    # lanes row by row are every term's list in term order
+    block_docs = np.asarray(fields["block_docs"], np.int32)
+    block_tfs = np.asarray(fields["block_tfs"], np.float32)
+    valid = np.flatnonzero(block_docs.reshape(-1) < n)
+    df = np.asarray(fields["term_doc_freq"], np.int64)
+    term = np.repeat(np.arange(len(df), dtype=np.int64), df)
+    docs = inv[block_docs.reshape(-1)[valid]]
+    key = torch.from_numpy(term * n + docs).to(device)
+    order = torch.argsort(key, stable=True).cpu().numpy()
+    bd, bt = block_docs.reshape(-1).copy(), block_tfs.reshape(-1).copy()
+    bd[valid] = docs[order]
+    bt[valid] = block_tfs.reshape(-1)[valid][order]
+    out["block_docs"] = bd.reshape(block_docs.shape)
+    out["block_tfs"] = bt.reshape(block_tfs.shape)
+    norms = np.array(fields["norms"], np.float32)
+    norms[:, :n] = norms[:, :n][:, perm]
+    out["norms"] = norms
+    out["live"] = per_doc(fields["live"])
+    out["doc_ids"] = list(map(fields["doc_ids"].__getitem__, perm.tolist()))
+    out["sources"] = _PermutedSources(fields["sources"], perm)
+    for key in ("routings", "parents"):
+        if fields.get(key) is not None:
+            out[key] = list(map(fields[key].__getitem__, perm.tolist()))
+    for key in ("seqnos", "versions"):
+        if fields.get(key) is not None:
+            out[key] = np.asarray(fields[key])[perm]
+    out["numeric_columns"] = {
+        f: flat(c, ("first_value", "min_value", "max_value", "exists"),
+                ("flat_values",)) for f, c in num.items()}
+    out["ordinal_columns"] = {
+        f: flat(c, ("first_ord", "exists"), ("flat_ords",))
+        for f, c in ords.items()}
+    return out
+
+
+@contextlib.contextmanager
+def no_cycle_collection():
+    """The block makes hundreds of thousands of objects that live to the
+    phase's end (shapes, version-map entries): no cycle collection while
+    it runs, and what it made frozen after it (a full collection walks the
+    whole, by then large, heap), as phase 18 does with its corpus."""
+    import gc
+
+    gc.disable()
+    try:
+        yield
+    finally:
+        gc.enable()
+        gc.freeze()
+
+
+@contextlib.contextmanager
+def timing_calls(module, names, sync):
+    """While the block runs, the host seconds of each named function of
+    ``module`` (ending in ``sync()``, a device sync) add to
+    ``spent[name]``."""
+    spent = {name: 0.0 for name in names}
+    orig = {name: getattr(module, name) for name in names}
+
+    def timed(name):
+        def fn(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return orig[name](*args, **kw)
+            finally:
+                sync()
+                spent[name] += time.perf_counter() - t0
+        return fn
+
+    for name in names:
+        setattr(module, name, timed(name))
+    try:
+        yield spent
+    finally:
+        for name in names:
+            setattr(module, name, orig[name])
+
+
+def alert_queries(n, seed):
+    """An alerting rule set: a third ``match`` of two words, a third a
+    ``bool`` with a ``match`` and a ``range`` on ``year``, a third a
+    ``term`` on ``venue``."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        kind = i % 3
+        if kind == 0:
+            q = {"match": {"title": " ".join(rng.choice(PERC23_WORDS, 2))}}
+        elif kind == 1:
+            q = {"bool": {"must": [{"match": {"title": str(
+                rng.choice(PERC23_WORDS))}}], "filter": [{"range": {"year": {
+                    "gte": int(rng.randint(1990, 2024))}}}]}}
+        else:
+            q = {"term": {"venue": f"v{int(rng.randint(0, 20)):04d}"}}
+        out.append((f"rule{i}", {"q": q}))
+    return out
+
+
+def alert_match(q, doc):
+    """The stored query evaluated in plain Python."""
+    words = set(doc["title"].split())
+    if "match" in q:
+        return bool(words & set(q["match"]["title"].split()))
+    if "term" in q:
+        return doc["venue"] == q["term"]["venue"]
+    return (q["bool"]["must"][0]["match"]["title"] in words
+            and doc["year"] >= q["bool"]["filter"][0]["range"]["year"]["gte"])
+
+
+def misspell(word, rng):
+    """One edit of ``word``: a deletion, a substitution or a repeat."""
+    i = int(rng.randint(1, len(word)))
+    op = int(rng.randint(3))
+    if op == 0:
+        return word[:i] + word[i + 1:]
+    if op == 1:
+        return word[:i] + str((int(word[i]) + 1) % 10) + word[i + 1:] \
+            if word[i].isdigit() else word[:i] + "x" + word[i + 1:]
+    return word[:i] + word[i] + word[i:]
+
+
+def remainder_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, knn,
+                    pmcq, dv_segs, dv_mapping, queries, errs, smi,
+                    device="cuda"):
+    """Phase 23: the field-type and query remainder on the card.
+
+    23a. geo4: a 4-shard index of 4 x 65,536 docs (the corpus generator's
+         title, venue and year, seeds 41-44) with a ``region`` geo_shape
+         on every doc, 262,144 shapes in Rally geoshape's mix
+         (``geoshape_set``); geo4h the same segments with ``search.mesh:
+         false``. An envelope over about 1% of the docs under
+         ``intersects``, ``within``, ``contains`` and ``disjoint``, a
+         point under ``contains``, a hexagon under ``intersects`` and
+         ``within``, and an ``indexed_shape`` (a second envelope stored in
+         ``zones``): each alone on geo4h (host rung) and in a bool beside
+         a ``match`` on geo4 (``mesh_pallas``). Totals equal the numpy
+         oracle (``geo_oracle``; beside the match, the oracle and the
+         match's postings), geo4 equals geo4h hit for hit. Logs the shape
+         columns' build, the bbox tables' staged bytes, the prefilter's
+         device ms apart from the host relation's ms.
+    23b. logs-sorted: phase 12's doc-values arrays permuted into
+         ``ts`` desc by the port's ``index_sort_permutation``
+         (``index_sorted_fields``) and adopted as a 4-shard index sorted
+         by ``ts`` desc; logs-a phase 12's segments unsorted
+         (``search.mesh: false``). Discover's body (a match
+         sorted by ``ts`` desc, size 500): ``terminated_early`` on
+         logs-sorted with the exact total, the hits, sort values and
+         buckets equal logs-a's; the p50 of both.
+    23c. The request cache on logs-a (``index.requests.cache.enable``):
+         a dashboard panel (``size: 0``, a ``terms`` and a
+         ``date_histogram``): the miss launches kernel 2, the hit launches
+         nothing and answers the miss's hits and buckets, a write and a
+         refresh make the next request a miss; ``_stats``' counts and
+         ``_cache/clear``'s answer over REST.
+    23d. alerts: a 1-shard index of 1,000 stored queries
+         (``alert_queries``); 20 candidate documents percolated, the
+         matched ids equal the plain Python evaluation; the ms a candidate
+         and the 1a launches on the one-doc segment.
+    23e. The term and phrase suggesters on pmcq's title with seeded
+         misspellings (card node against the cpu twin), and a
+         ``completion`` field with a category and a geo context on a
+         5,000-doc bulk-ingested index (against a plain Python
+         evaluation); the p50s.
+    23f. Each span kind on pmcq's title and abstract alone on pmcqh (the
+         host rung) and in a bool beside a match on pmcq (``mesh_pallas``),
+         equal to the cpu twin's, with the span enumeration's host ms
+         apart from the rest; ``type`` answers as ``match_all``; ``_size``
+         under a range, a sort and a ``max`` on a 2,000-doc index against
+         the sources' byte counts.
+
+    Every 1a and kernel-2 launch of the main path is held against its
+    plain version. Closes ``pmcq``'s nodes and its own. Returns the
+    report."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from elasticsearch_tpu_torch.index import index_sort as isort
+    from elasticsearch_tpu_torch.index.segment import tensor_bytes
+    from elasticsearch_tpu_torch.rest.controller import RestController
+    from elasticsearch_tpu_torch.search import query_dsl as Q
+    from elasticsearch_tpu_torch.search import spans as S
+    from elasticsearch_tpu_torch.utils.geohash import encode
+
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    gq, cq = pmcq
+    report = {"items": {}}
+    tok = term_token
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def item(name, fn, reps=1):
+        """``fn`` ``reps`` times on the card, synced: its p50, the plane of
+        its answer and the launches of its first run."""
+        before = dict(cuda_kernels.LAUNCHES)
+        xs, out, launched = [], None, {}
+        for i in range(reps):
+            t0 = time.perf_counter()
+            r = fn()
+            sync()
+            xs.append((time.perf_counter() - t0) * 1000)
+            if i == 0:
+                out = r
+                launched = {k: v - before.get(k, 0) for k, v in
+                            cuda_kernels.LAUNCHES.items()
+                            if v != before.get(k, 0)}
+        plane = out.get("_plane") if isinstance(out, dict) else None
+        row = {"p50_ms": float(np.median(xs)), "samples": len(xs),
+               "plane": plane, "launches": launched}
+        report["items"][name] = row
+        log(f"[phase 23] {name}: {json.dumps(row)} ({smi})")
+        return out
+
+    # ---- build: geo4 -----------------------------------------------------
+    t0 = time.perf_counter()
+    g = Node(device=device)
+    geo_mapping = {"_doc": {"properties": {
+        "title": {"type": "text"}, "venue": {"type": "keyword"},
+        "year": {"type": "long"}, "region": {"type": "geo_shape"}}}}
+    g.create_index("geo4", {"settings": {
+        "number_of_shards": 4, "refresh_interval": "-1",
+        "requests.cache.enable": False},
+        "mappings": geo_mapping})
+    g.create_index("geo4h", {"settings": {
+        "number_of_shards": 4, "refresh_interval": "-1",
+        "requests.cache.enable": False,
+        "search": {"mesh": False}}, "mappings": geo_mapping})
+    sets, match_docs = [], []
+    mterms = [tok(t) for t in queries[2][:2]]
+    with ThreadPoolExecutor(4) as pool:
+        corpora = list(pool.map(lambda seed: build_synthetic_corpus(
+            seed, n_docs=GEO23_SHARD_DOCS, avg_len=GEO23_TITLE_LEN),
+            GEO23_SEEDS))
+    with no_cycle_collection():
+        for sh, seed in enumerate(GEO23_SEEDS):
+            corpus = corpora[sh]
+            sset = geoshape_set(seed, GEO23_SHARD_DOCS)
+            arrays = corpus_segment_arrays(corpus, id_prefix=f"g{sh}p")
+            arrays["sources"] = _ShapeSources(arrays["sources"],
+                                              sset["geojson"])
+            seg = Segment.from_arrays(
+                f"geo4_{sh}_seg_1", device=device,
+                shapes={"region": {d: [gj] for d, gj in
+                                   enumerate(sset["geojson"])}}, **arrays)
+            for index in ("geo4", "geo4h"):
+                g.indices[index].shards[sh].engine.adopt_segment(seg)
+            # the docs of the match's terms, from the corpus's postings
+            m = np.zeros(GEO23_SHARD_DOCS, bool)
+            for t in queries[2][:2]:
+                lo = int(corpus["term_block_start"][t])
+                rows = corpus["block_docs"][lo: lo + int(
+                    corpus["n_blocks_per_term"][t])].ravel()
+                m[rows[rows < GEO23_SHARD_DOCS]] = True
+            sets.append(sset)
+            match_docs.append(m)
+    g.create_index("zones", {"settings": {"number_of_shards": 1},
+                             "mappings": {"_doc": {"properties": {
+                                 "shape": {"type": "geo_shape"}}}}})
+    g.index_doc("zones", "z1", {"shape": {"type": "envelope",
+                                          "coordinates": GEO23_ENV_B}},
+                refresh=True)
+    report["geo_build_s"] = time.perf_counter() - t0
+    counts = np.bincount(np.concatenate([s["kind"] for s in sets]),
+                         minlength=3)
+    log(f"[phase 23] geo4 built in {report['geo_build_s']:.1f} s: "
+        f"{int(counts.sum())} shapes (points {int(counts[0])}, lines "
+        f"{int(counts[1])}, polygons {int(counts[2])})")
+
+    env = {"type": "envelope", "coordinates": GEO23_ENV}
+    hexagon = {"type": "polygon",
+               "coordinates": [GEO23_HEX + [GEO23_HEX[0]]]}
+    point = {"type": "point", "coordinates": GEO23_POINT}
+    cases = [("env_intersects", env, "intersects"),
+             ("env_within", env, "within"),
+             ("env_contains", env, "contains"),
+             ("env_disjoint", env, "disjoint"),
+             ("point_contains", point, "contains"),
+             ("hexagon_intersects", hexagon, "intersects"),
+             ("indexed_shape_intersects", None, "intersects")]
+
+    def shape_clause(shape, relation):
+        if shape is None:
+            return {"geo_shape": {"region": {"indexed_shape": {
+                "index": "zones", "id": "z1", "path": "shape"},
+                "relation": relation}}}
+        return {"geo_shape": {"region": {"shape": shape,
+                                         "relation": relation}}}
+
+    # the shape columns (bbox table a segment) build on the first
+    # geo_shape query of each segment: timed apart
+    t0 = time.perf_counter()
+    with no_cycle_collection():
+        for sh in range(4):
+            g.indices["geo4"].shards[sh].engine.segments[0].shape_column(
+                "region")
+    report["shape_columns_s"] = time.perf_counter() - t0
+    log(f"[phase 23] 23a shape columns (the bbox tables of 262,144 shapes; "
+        f"a shape is parsed when a query first reads it) in "
+        f"{report['shape_columns_s']:.1f} s")
+
+    cuda_kernels.reset_launch_counts()
+    t_main = time.perf_counter()
+    geo = {}
+    steps = report["steps_s"] = {}
+    t_step = [time.perf_counter()]
+
+    def step(name):
+        """The seconds since the previous step ended."""
+        now = time.perf_counter()
+        steps[name] = now - t_step[0]
+        t_step[0] = now
+
+    with recording_recovered_path(tsc, ssum, knn) as kept:
+        # ---- 23a: geo_shape ----------------------------------------------
+        with timing_calls(Q, ("shape_prefilter", "shape_relation"),
+                          sync) as spent:
+            for name, shape, relation in cases:
+                oracle_shape = ({"type": "envelope",
+                                 "coordinates": GEO23_ENV_B}
+                                if shape is None else shape)
+                want = [geo_oracle(s, oracle_shape, relation) for s in sets]
+                clause = shape_clause(shape, relation)
+                for k in spent:
+                    spent[k] = 0.0
+                alone = item(f"23a {name} alone on geo4h", lambda: g.search(
+                    "geo4h", {"query": clause, "size": 10}))
+                split = dict(spent)
+                for k in spent:
+                    spent[k] = 0.0
+                body = {"query": {"bool": {
+                    "must": [{"match": {"title": " ".join(mterms)}}],
+                    "filter": [clause]}}, "size": 10}
+                mixed = item(f"23a {name} beside a match on geo4",
+                             lambda: g.search("geo4", dict(body)))
+                # the host rung's answer beside the match, hit for hit
+                host = (g.search("geo4h", dict(body))
+                        if name == "env_intersects" else mixed)
+                n_want = int(sum(w.sum() for w in want))
+                n_both = int(sum((w & m).sum()
+                                 for w, m in zip(want, match_docs)))
+                check(alone["_plane"] == "host"
+                      and alone["hits"]["total"] == n_want,
+                      f"23a {name} alone: host rung, total "
+                      f"{alone['hits']['total']} = the oracle's {n_want}")
+                check(mixed["_plane"] == "mesh_pallas"
+                      and mixed["hits"]["total"] == n_both
+                      and _same_exact(mixed, host),
+                      f"23a {name} beside a match: {mixed['_plane']}, total "
+                      f"{mixed['hits']['total']} = the oracle's {n_both}, "
+                      f"equal to geo4h's answer")
+                geo[name] = {"total": n_want, "beside_match": n_both,
+                             "prefilter_ms": split["shape_prefilter"] * 1000,
+                             "relation_ms": split["shape_relation"] * 1000}
+                log(f"[phase 23] 23a {name}: {json.dumps(geo[name])}")
+        bbox_bytes = sum(
+            tensor_bytes(t) for sh in range(4) for key, t in
+            g.indices["geo4"].shards[sh].engine.segments[0].dev_cache.items()
+            if key.startswith("shape.region."))
+        report["geo"] = {"cases": geo, "bbox_table_bytes": bbox_bytes,
+                         "shapes": int(counts.sum())}
+        log(f"[phase 23] 23a bbox tables staged: {bbox_bytes} bytes "
+            f"(float64 [nd_pad, 4] and the exists mask, 4 segments)")
+        check(0.004 <= geo["env_intersects"]["total"] / counts.sum() <= 0.03,
+              f"23a the envelope matches about 1% of the docs "
+              f"({geo['env_intersects']['total']})")
+
+        step("23a")
+        # ---- 23b: index sorting ------------------------------------------
+        t0 = time.perf_counter()
+        # the one index with the request cache on (the port's default):
+        # 23c measures it
+        g.create_index("logs-a", {"settings": {
+            "number_of_shards": 4, "refresh_interval": "-1",
+            "requests.cache.enable": True, "search": {"mesh": False}},
+            "mappings": dv_mapping})
+        g.create_index("logs-sorted", {"settings": {
+            "number_of_shards": 4, "refresh_interval": "-1",
+            "requests.cache.enable": False,
+            "sort": {"field": ["ts"], "order": ["desc"]}},
+            "mappings": dv_mapping})
+        with no_cycle_collection():
+            for sh, seg in enumerate(dv_segs):
+                g.indices["logs-a"].shards[sh].engine.adopt_segment(seg)
+        t1 = time.perf_counter()
+        # phase 12's arrays in the index sort (the port's
+        # index_sort_permutation; tests/test_torch_index_sort.py holds the
+        # route against SegmentBuilder.seal), a segment a shard, each
+        # shard's beside the others' (the sorts release the interpreter)
+        spec = g.indices["logs-sorted"].shards[0].engine.index_sort
+
+        def sorted_segment(sh):
+            fields = index_sorted_fields(
+                torch, isort, _segment_fields(dv_segs[sh]), spec, device)
+            seg = Segment.from_arrays(f"logs-sorted_{sh}_seg_1",
+                                      device=device, **fields)
+            g.indices["logs-sorted"].shards[sh].engine.adopt_segment(seg)
+            return seg
+
+        with timing_calls(isort, ("index_sort_permutation",), sync) as \
+                spent, ThreadPoolExecutor(4) as pool, no_cycle_collection():
+            sorted_segs = list(pool.map(sorted_segment, range(4)))
+        report["sort_build_s"] = time.perf_counter() - t1
+        report["sort_permutation_s"] = spent["index_sort_permutation"]
+        ts_sorted = all(
+            bool(np.all(np.diff(s.numeric_columns["ts"].first_value[
+                : s.num_docs]) <= 0)) for s in sorted_segs)
+        same_docs = all(sorted(s.doc_ids) == sorted(d.doc_ids)
+                        for s, d in zip(sorted_segs, dv_segs))
+        check(ts_sorted and same_docs,
+              "23b logs-sorted's segments hold logs-a's docs in ts desc")
+        log(f"[phase 23] 23b logs-sorted: 4 x {dv_segs[0].num_docs} docs "
+            f"sorted and adopted in {report['sort_build_s']:.1f} s (the four "
+            f"permutations {report['sort_permutation_s']:.1f} s of thread "
+            f"time); logs-a's adopted in {t1 - t0:.1f} s")
+        disc = discover_body(queries)
+        # (three samples: the median leaves out the first answer, which
+        # stages the index's segments)
+        a = item("23b Discover on logs-a", lambda: g.search(
+            "logs-a", dict(disc)), reps=3)
+        s = item("23b Discover on logs-sorted", lambda: g.search(
+            "logs-sorted", dict(disc)), reps=3)
+
+        def by_ties(r):
+            groups = {}
+            for h in r["hits"]["hits"]:
+                groups.setdefault(tuple(h["sort"]), set()).add(h["_id"])
+            return ([tuple(h["sort"]) for h in r["hits"]["hits"]], groups)
+
+        check(s.get("terminated_early") is True
+              and a.get("terminated_early") is None
+              and s["hits"]["total"] == a["hits"]["total"]
+              and by_ties(s) == by_ties(a)
+              and s["aggregations"] == a["aggregations"]
+              and len(s["hits"]["hits"]) == min(500, s["hits"]["total"]),
+              f"23b logs-sorted terminates early with the exact total "
+              f"({s['hits']['total']}) and logs-a's hits and buckets")
+        decisions = g.indices["logs-sorted"].search_stats()["planes"][
+            "decisions"]
+        check(decisions.get("host.index_sorted", 0) >= 3,
+              f"23b the mesh plane declines logs-sorted ({decisions})")
+        report["sort"] = {"total": s["hits"]["total"],
+                          "p50_sorted_ms": report["items"][
+                              "23b Discover on logs-sorted"]["p50_ms"],
+                          "p50_unsorted_ms": report["items"][
+                              "23b Discover on logs-a"]["p50_ms"]}
+
+        step("23b")
+        # ---- 23c: the request cache ----------------------------------------
+        ctl = RestController(g)
+        panel = {"size": 0, "query": {"range": {"ts": {
+            "gte": AGG_T0 + 30 * AGG_DAY, "lte": AGG_T0 + 120 * AGG_DAY}}},
+            "aggs": {"venues": {"terms": {"field": "venue", "size": 10}},
+                     "per_day": {"date_histogram": {"field": "ts",
+                                                    "interval": "1d"}}}}
+        svc = g.indices["logs-a"]
+        svc.request_cache.clear()
+        miss = item("23c panel on logs-a (miss)",
+                    lambda: g.search("logs-a", dict(panel)))
+        hit = item("23c panel on logs-a (hit)",
+                   lambda: g.search("logs-a", dict(panel)), reps=5)
+        rows = report["items"]
+        check(rows["23c panel on logs-a (miss)"]["launches"].get(
+            "segment_sum", 0) > 0 or not on_card,
+            "23c the miss launches kernel 2")
+        check(not rows["23c panel on logs-a (hit)"]["launches"]
+              and hit["hits"] == miss["hits"]
+              and hit["aggregations"] == miss["aggregations"],
+              f"23c a hit launches nothing "
+              f"({rows['23c panel on logs-a (hit)']['launches']}) and "
+              f"answers the miss's hits and buckets")
+        g.index_doc("logs-a", "late-1", {
+            "venue": "v0001", "year": 2023,
+            "ts": AGG_T0 + 60 * AGG_DAY, "citations": 1}, refresh=True)
+        after = item("23c panel after a write and a refresh",
+                     lambda: g.search("logs-a", dict(panel)))
+        stats = svc.stats()["total"]["request_cache"]
+        check(after["hits"]["total"] == miss["hits"]["total"] + 1
+              and stats["miss_count"] == 2 and stats["hit_count"] == 5
+              and (rows["23c panel after a write and a refresh"][
+                  "launches"].get("segment_sum", 0) > 0 or not on_card),
+              f"23c the write makes the next request a miss ({stats})")
+        st, rest_stats = ctl.dispatch("GET", "/logs-a/_stats/request_cache",
+                                      {}, b"", "application/json")
+        st2, cleared = ctl.dispatch("POST", "/logs-a/_cache/clear", {}, b"",
+                                    "application/json")
+        check(st == 200 and st2 == 200 and cleared == {"_shards": {
+            "total": 0, "successful": 0, "failed": 0}}
+            and svc.request_cache.stats()["entries"] == 0,
+            f"23c _stats ({st}) and _cache/clear ({st2}: {cleared})")
+        report["request_cache"] = {
+            "stats": rest_stats["indices"]["logs-a"]["total"][
+                "request_cache"] if st == 200 else stats,
+            "cache_clear": cleared,
+            "miss_ms": rows["23c panel on logs-a (miss)"]["p50_ms"],
+            "hit_ms": rows["23c panel on logs-a (hit)"]["p50_ms"]}
+        log(f"[phase 23] 23c {json.dumps(report['request_cache'])}")
+
+        step("23c")
+        # ---- 23d: percolate ------------------------------------------------
+        g.create_index("alerts", {"settings": {
+            "number_of_shards": 1, "refresh_interval": "-1",
+            "requests.cache.enable": False},
+            "mappings": {"_doc": {"properties": {
+                "q": {"type": "percolator"}, "title": {"type": "text"},
+                "year": {"type": "long"}, "venue": {"type": "keyword"}}}}})
+        rules = alert_queries(PERC23_QUERIES, seed=51)
+        g.bulk([("index", {"_index": "alerts", "_id": rid}, src)
+                for rid, src in rules], refresh=True)
+        crng = np.random.RandomState(52)
+        cands = [{"title": " ".join(crng.choice(PERC23_WORDS, 12)),
+                  "year": int(crng.randint(1990, 2024)),
+                  "venue": f"v{int(crng.randint(0, 20)):04d}"}
+                 for _ in range(PERC23_CANDIDATES)]
+        before = cuda_kernels.LAUNCHES.get("tile_scoring", 0)
+        t0 = time.perf_counter()
+        ok = True
+        for doc in cands:
+            r = g.search("alerts", {"query": {"percolate": {
+                "field": "q", "document": doc}}, "size": PERC23_QUERIES})
+            want = {rid for rid, src in rules if alert_match(src["q"], doc)}
+            ok = ok and {h["_id"] for h in r["hits"]["hits"]} == want \
+                and r["hits"]["total"] == len(want)
+        sync()
+        perc_ms = (time.perf_counter() - t0) * 1000 / len(cands)
+        perc_1a = cuda_kernels.LAUNCHES.get("tile_scoring", 0) - before
+        check(ok, "23d every candidate's matched rules equal the plain "
+                  "evaluation")
+        check(perc_1a > 0 or not on_card,
+              f"23d 1a launched on the one-doc segments ({perc_1a})")
+        report["percolate"] = {"ms_per_candidate": perc_ms,
+                               "launches_1a": perc_1a,
+                               "candidates": len(cands),
+                               "stored_queries": len(rules)}
+        log(f"[phase 23] 23d percolate: {json.dumps(report['percolate'])} "
+            f"({smi})")
+
+        step("23d")
+        # ---- 23e: suggest --------------------------------------------------
+        srng = np.random.RandomState(53)
+        sugs = []
+        for q in queries[:2]:
+            words = [tok(t) for t in q]
+            text = " ".join(misspell(w, srng) if srng.rand() < 0.7 else w
+                            for w in words)
+            sugs.append({"size": 0, "suggest": {
+                "t": {"text": text, "term": {"field": "title"}},
+                "p": {"text": text, "phrase": {"field": "title"}}}})
+        for i, body in enumerate(sugs):
+            gr = item(f"23e term+phrase suggest {i} on pmcq",
+                      lambda: gq.search("pmcq", dict(body)))
+            cr = cq.search("pmcq", dict(body))
+            check(gr["suggest"] == cr["suggest"],
+                  f"23e suggestions {i} equal the cpu twin's "
+                  f"({body['suggest']['t']['text']})")
+        step("23e term and phrase")
+        g.create_index("places", {"settings": {
+            "number_of_shards": 1, "refresh_interval": "-1",
+            "requests.cache.enable": False},
+            "mappings": {"_doc": {"properties": {"suggest": {
+                "type": "completion", "contexts": [
+                    {"name": "cat", "type": "category"},
+                    {"name": "loc", "type": "geo", "precision": 4}]}}}}})
+        crng = np.random.RandomState(54)
+        stems = ["star", "stack", "stamp", "steam", "stone", "store",
+                 "storm", "strap", "straw", "stream"]
+        places = []
+        for i in range(COMPL23_DOCS):
+            name = f"{crng.choice(stems)}{crng.choice(stems)} {i}"
+            lat, lon = crng.uniform(40, 50), crng.uniform(-10, 10)
+            places.append((f"pl{i}", {"suggest": {
+                "input": [name], "weight": int(crng.randint(1, 100)),
+                "contexts": {"cat": [str(crng.choice(["cafe", "shop",
+                                                      "bar"]))],
+                             "loc": [{"lat": float(lat),
+                                      "lon": float(lon)}]}}}))
+        t0 = time.perf_counter()
+        r = g.bulk([("index", {"_index": "places", "_id": pid}, src)
+                    for pid, src in places], refresh=True)
+        bulk_s = time.perf_counter() - t0
+        check(not r["errors"], "23e the completion bulk without errors")
+        compl = [("st", None), ("stor", {"cat": ["cafe"]}),
+                 ("strea", {"loc": [{"context": {"lat": 45.0, "lon": 0.0},
+                                     "precision": 2}]})]
+        for prefix, ctx in compl:
+            cfg = {"field": "suggest", "size": 10}
+            if ctx:
+                cfg["contexts"] = ctx
+            body = {"size": 0, "suggest": {"c": {"prefix": prefix,
+                                                 "completion": cfg}}}
+            gr = item(f"23e completion {prefix!r} "
+                      f"{'with ' + next(iter(ctx)) if ctx else 'plain'}",
+                      lambda: g.search("places", dict(body)), reps=3)
+            want = []
+            for d, (pid, src) in enumerate(places):
+                s_ = src["suggest"]
+                text = s_["input"][0]
+                if not text.startswith(prefix):
+                    continue
+                if ctx and "cat" in ctx and s_["contexts"]["cat"][0] not in \
+                        ctx["cat"]:
+                    continue
+                if ctx and "loc" in ctx:
+                    p = s_["contexts"]["loc"][0]
+                    want_prefix = encode(45.0, 0.0, 2)
+                    if not encode(p["lat"], p["lon"], 12).startswith(
+                            want_prefix):
+                        continue
+                want.append((-float(s_["weight"]), text, d, pid))
+            want = [(pid, -w) for w, text, d, pid in sorted(want)[:10]]
+            got = [(o["_id"], o["_score"])
+                   for o in gr["suggest"]["c"][0]["options"]]
+            check(got == want, f"23e completion {prefix!r} equals the plain "
+                               f"evaluation ({got[:3]} vs {want[:3]})")
+        report["completion"] = {"docs": COMPL23_DOCS,
+                                "bulk_docs_per_s": COMPL23_DOCS / bulk_s}
+
+        step("23e completion")
+        # ---- 23f: spans, type, _size -----------------------------------------
+        # terms of ranks 201-221 (about 8,000 positions a shard): a top
+        # term's span lists would be millions of host tuples a shard
+        t1, t2, t3 = "t00200", "t00210", "t00220"
+        span_kinds = {
+            "span_term": {"span_term": {"title": t1}},
+            "span_or": {"span_or": {"clauses": [
+                {"span_term": {"title": t1}}, {"span_term": {"title": t2}}]}},
+            "span_near": {"span_near": {"clauses": [
+                {"span_term": {"title": t1}},
+                {"span_term": {"title": t2}}], "slop": 5,
+                "in_order": False}},
+            "span_first": {"span_first": {"match": {"span_term": {
+                "title": t2}}, "end": 5}},
+            "span_multi": {"span_multi": {"match": {"prefix": {
+                "title": "t0310"}}}},
+            "span_not": {"span_not": {"include": {"span_term": {
+                "title": t1}}, "exclude": {"span_term": {
+                    "title": t2}}, "dist": 1}},
+            "span_containing": {"span_containing": {
+                "little": {"span_term": {"title": t3}},
+                "big": {"span_near": {"clauses": [
+                    {"span_term": {"title": t1}},
+                    {"span_term": {"title": t2}}], "slop": 8,
+                    "in_order": False}}}},
+            "span_within": {"span_within": {
+                "little": {"span_term": {"title": t3}},
+                "big": {"span_near": {"clauses": [
+                    {"span_term": {"title": t1}},
+                    {"span_term": {"title": t2}}], "slop": 8,
+                    "in_order": False}}}},
+            "field_masking_span": {"span_near": {"clauses": [
+                {"span_term": {"abstract": t1}},
+                {"field_masking_span": {"query": {"span_term": {
+                    "abstract": t2}}, "field": "abstract"}}],
+                "slop": 5, "in_order": False}},
+        }
+        span_ms = {}
+        mt = {"match": {"title": " ".join(tok(t) for t in queries[4])}}
+        with timing_calls(S, ("enumerate_spans",), sync) as spent:
+            for kind, q in span_kinds.items():
+                spent["enumerate_spans"] = 0.0
+                hr = item(f"23f {kind} alone on pmcqh", lambda: gq.search(
+                    "pmcqh", {"query": q, "size": 10}))
+                span_ms[kind] = {"host_enumeration_ms":
+                                 spent["enumerate_spans"] * 1000}
+                cr = cq.search("pmcq", {"query": q, "size": 10})
+                same_response(hr, cr, f"23f {kind} alone",
+                              "pmcqh's answer equals the cpu twin's")
+                check(hr["_plane"] == "host" and (
+                    hr["hits"]["total"] > 0
+                    or kind in ("span_containing", "span_within")),
+                    f"23f {kind} alone: host rung, "
+                    f"{hr['hits']['total']} hits")
+                body = {"query": {"bool": {"must": [mt, q]}}, "size": 10}
+                spent["enumerate_spans"] = 0.0
+                mr = item(f"23f {kind} beside a match on pmcq",
+                          lambda: gq.search("pmcq", dict(body)))
+                span_ms[kind]["beside_match_enumeration_ms"] = \
+                    spent["enumerate_spans"] * 1000
+                cr = cq.search("pmcq", dict(body))
+                same_response(mr, cr, f"23f {kind} beside a match",
+                              "pmcq's answer equals the cpu twin's")
+                span_ms[kind]["beside_match_plane"] = mr["_plane"]
+                span_ms[kind]["total"] = hr["hits"]["total"]
+        report["spans"] = span_ms
+        log(f"[phase 23] 23f span enumeration host ms: "
+            f"{json.dumps(span_ms)}")
+        check(sum(v["beside_match_plane"] == "mesh_pallas"
+                  for v in span_ms.values()) >= 5,
+              f"23f span kinds beside a match on mesh_pallas "
+              f"({ {k: v['beside_match_plane'] for k, v in span_ms.items()} })")
+        step("23f spans")
+        ty = item("23f type on pmcq", lambda: gq.search("pmcq", {
+            "query": {"type": {"value": "_doc"}}, "size": 0}))
+        ma = gq.search("pmcq", {"query": {"match_all": {}}, "size": 0})
+        check(ty["hits"]["total"] == ma["hits"]["total"] > 0,
+              "23f type answers as match_all")
+        g.create_index("sized", {"settings": {
+            "number_of_shards": 1, "refresh_interval": "-1",
+            "requests.cache.enable": False},
+            "mappings": {"_doc": {"_size": {"enabled": True},
+                                  "properties": {"title": {
+                                      "type": "text"}}}}})
+        zrng = np.random.RandomState(55)
+        sized = [(f"z{i}", {"title": " ".join(tok(int(t)) for t in
+                                              zrng.randint(0, 500, int(
+                                                  zrng.randint(1, 60))))})
+                 for i in range(SIZE23_DOCS)]
+        g.bulk([("index", {"_index": "sized", "_id": sid}, src)
+                for sid, src in sized], refresh=True)
+        nbytes = {sid: len(json.dumps(src, separators=(",", ":")))
+                  for sid, src in sized}
+        rng_hit = item("23f _size range", lambda: g.search("sized", {
+            "query": {"range": {"_size": {"gt": 200}}}, "size": 0}))
+        srt = item("23f _size sort", lambda: g.search("sized", {
+            "query": {"match_all": {}}, "size": 5,
+            "sort": [{"_size": "desc"}]}))
+        mx = item("23f _size max", lambda: g.search("sized", {
+            "size": 0, "aggs": {"m": {"max": {"field": "_size"}}}}))
+        top = sorted(nbytes.values(), reverse=True)[:5]
+        check(rng_hit["hits"]["total"] == sum(v > 200 for v in
+                                              nbytes.values())
+              and [h["sort"][0] for h in srt["hits"]["hits"]] == top
+              and mx["aggregations"]["m"]["value"] == max(nbytes.values()),
+              "23f _size's range, sort and max equal the sources' byte "
+              "counts")
+        step("23f type and _size")
+    sync()
+    p23 = dict(cuda_kernels.LAUNCHES)
+    report["main_s"] = time.perf_counter() - t_main
+    log(f"[phase 23] kernel launches: {p23}")
+    t0 = time.perf_counter()
+    held, report["max_abs_err"] = ({}, {})
+    if on_card:
+        held, report["max_abs_err"] = hold_recovered_path(
+            torch, tsc, ssum, knn, kept, p23, errs, "phase 23")
+        for k in ("tile_scoring", "segment_sum"):
+            check(p23.get(k, 0) > 0, f"phase 23 launched {k}")
+    del kept
+    report["hold_s"] = time.perf_counter() - t0
+    report["held"] = held
+    report["launches"] = p23
+    fails = plane_failures(*(g.indices[i] for i in ("geo4", "geo4h",
+                                                    "logs-a", "logs-sorted")),
+                           gq.indices["pmcq"], gq.indices["pmcqh"])
+    check(not any(fails), f"phase 23 zero plane faults ({fails})")
+    g.close()
+    gq.close()
+    cq.close()
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[phase 23] {report['seconds']:.1f} s (geo build "
+        f"{report['geo_build_s']:.1f}, shape columns "
+        f"{report['shape_columns_s']:.1f}, main path {report['main_s']:.1f}, "
+        f"hold {report['hold_s']:.1f}); main path by item "
+        f"{json.dumps({k: round(v, 2) for k, v in steps.items()})}; held "
+        f"{json.dumps(held)} ({smi})")
     return report
 
 
@@ -11387,7 +12567,6 @@ def main() -> int:
     meta_report = cluster_metadata_phase(
         torch, Node, HttpServer, cuda_kernels, tsc, ssum, knn, g7, pk_segs,
         dv_segs, dv_mapping, queries, knn_bodies[0][1], batch_errs, smi)
-    del dv_segs
     seg_held["phase 21"] = meta_report["held"].get("segment_sum", 0)
     for k, v in meta_report["launches"].items():
         launches[k] += v
@@ -11429,12 +12608,24 @@ def main() -> int:
 
     # ---------------- phase 15: the query DSL on the card -----------------
     clock("phase 15")
-    qdsl_report = query_dsl_phase(
+    qdsl_report, pmcq_nodes = query_dsl_phase(
         torch, Node, Segment, cuda_kernels, tsc, ssum, queries, shard_arrays,
         title_streams, knn_vecs, knn_exists, ops, INGEST_DOCS / ingest_s,
         batch_errs)
     seg_held["phase 15"] = qdsl_report["held"].get("segment_sum", 0)
     for k, v in qdsl_report["launches"].items():
+        launches[k] += v
+
+    # ---------------- phase 23: the field-type and query remainder -------
+    # (over phase 15's pmcq, which it closes, and phase 12's doc-values
+    # segments)
+    clock("phase 23")
+    remainder_report = remainder_phase(
+        torch, Node, Segment, cuda_kernels, tsc, ssum, knn, pmcq_nodes,
+        dv_segs, dv_mapping, queries, batch_errs, smi)
+    del pmcq_nodes, dv_segs
+    seg_held["phase 23"] = remainder_report["held"].get("segment_sum", 0)
+    for k, v in remainder_report["launches"].items():
         launches[k] += v
 
     # ---------------- phase 16: sort and paging on the card --------------
@@ -11570,6 +12761,7 @@ def main() -> int:
         "field_types": geo_report, "nested": nested_report,
         "search_request": request_report, "scripting": script_report,
         "cluster_metadata": meta_report, "data_movement": move_report,
+        "remainder": remainder_report,
         "sound_answers_checked": SOUND["checked"]}
     for name, key, replaces, extra in (
             ("tile_scoring_packed", "tile_scoring_packed", 656,

@@ -18,6 +18,12 @@ Lucene's IndexWriter replaced by the block-packing ``SegmentBuilder``):
   the ledger.
 - ``add_refresh_listener()``: a callable fired by the refresh that makes
   the pending ops visible (``refresh=wait_for``).
+- ``index_sort``: the index sort spec each sealed segment's docs are
+  permuted by; a seal's ``seal_doc_remap`` re-homes the version map's and
+  the buffered deletes' local docs.
+- ``visibility_epoch``: moves at every refresh that changes what a search
+  sees (new docs or applied deletes), the request cache's reader identity
+  beside the segment names and the write counters.
 - ``recover_from_translog()``: replay the uncommitted ops after a restart
   (the seqno staleness guard makes a replay idempotent).
 - updates/deletes tombstone the old doc; against a sealed segment the
@@ -73,7 +79,7 @@ class GetResult:
 class Engine:
     def __init__(self, shard_id, mapper_service, segment_prefix: str = "seg",
                  device="cuda", translog: Optional[Translog] = None,
-                 store=None):
+                 store=None, index_sort=None):
         self.shard_id = shard_id
         self.mapper_service = mapper_service
         self.device = resolve_device(device)
@@ -83,6 +89,8 @@ class Engine:
         self.store = store
         self._segment_prefix = segment_prefix
         self._segment_counter = 0
+        # index.sort.* spec, applied by every builder at seal
+        self.index_sort = index_sort
         self.segments: List[Segment] = []
         self.buffer = self._new_builder()
         self._buffer_deletes: set = set()
@@ -96,6 +104,10 @@ class Engine:
         self.flush_count = 0
         self.indexing_total = 0
         self.delete_total = 0
+        # moves at every refresh that changes the searchable view (the
+        # request cache's epoch: a delete-only refresh keeps the segment
+        # names and the write counters)
+        self.visibility_epoch = 0
         # refresh=wait_for: callables fired by the refresh that makes the
         # pending ops visible
         self._refresh_listeners: List = []
@@ -117,7 +129,7 @@ class Engine:
     def _new_builder(self) -> SegmentBuilder:
         self._segment_counter += 1
         return SegmentBuilder(f"{self._segment_prefix}_{self._segment_counter}",
-                              device=self.device)
+                              device=self.device, index_sort=self.index_sort)
 
     def _next_seqno(self) -> int:
         self._seqno += 1
@@ -380,18 +392,26 @@ class Engine:
                 self._pending_seg_deletes = []
             if self.buffer.num_docs == 0:
                 if applied_deletes:
+                    self.visibility_epoch += 1
                     self._fire_refresh_listeners()
                 return applied_deletes
             seg = self.buffer.seal()
             self._stamp_owner(seg)
+            # an index sort permuted the docs at seal: the buffered deletes
+            # and the version map hold pre-seal local docs
+            remap = self.buffer.seal_doc_remap
             for local_doc in self._buffer_deletes:
-                seg.delete_doc(local_doc)
+                seg.delete_doc(int(remap[local_doc]) if remap is not None
+                               else local_doc)
             for entry in self.version_map.values():
                 if entry.segment is None and entry.local_doc >= 0:
                     entry.segment = seg.name
+                    if remap is not None:
+                        entry.local_doc = int(remap[entry.local_doc])
             self.segments.append(seg)
             self.buffer = self._new_builder()
             self._buffer_deletes = set()
+            self.visibility_epoch += 1
             self._fire_refresh_listeners()
             return True
 
@@ -460,6 +480,11 @@ class Engine:
                         version, seqno, builder.name, new_local,
                         term=old.term if old is not None else 1)
             merged = builder.seal()
+            remap = builder.seal_doc_remap
+            if remap is not None:
+                for entry in self.version_map.values():
+                    if entry.segment == builder.name:
+                        entry.local_doc = int(remap[entry.local_doc])
             for old_seg in self.segments:
                 old_seg.release_breaker_charges()
                 old_seg.release_device()

@@ -92,8 +92,19 @@ mesh plane calls ``maybe_compact_async``, which starts one background
 ``compact_now`` pass (single flight, never on the query path) when a
 staged slot's tombstone density or the slot fragmentation reaches the
 threshold; the pass force-merges the dense or fragmented shards and
-restages a compact generation. The request cache, admission control,
-scrubbing and the telemetry registry are later slices.
+restages a compact generation. Admission control, scrubbing and the
+telemetry registry are later slices.
+
+The shard request cache (``index/request_cache.py``,
+``index.requests.cache.enable``, ``index.requests.cache.size_in_bytes``):
+``search`` answers a cacheable (``size: 0``) request from the cache when
+its body and every shard's visibility epoch match an entry, launching
+nothing; a complete miss (not timed out, no shard failure) is stored.
+``stats`` reports its counters under ``request_cache``. A ``suggest``
+section runs ``search/suggest.run_suggest`` over every shard's searchable
+segments beside the query phase, on whichever plane served it. An index
+sort (``index.sort.*``, validated by ``index/index_sort.parse_index_sort``
+at creation) reaches every shard's engine.
 
 The scheduled refresh: a thread refreshes every shard each
 ``index.refresh_interval`` (1 s by default, none at -1; a failed refresh
@@ -149,6 +160,12 @@ from elasticsearch_tpu_torch.common.settings import (
     SEARCH_PALLAS_PRUNING_PROBE_TILES,
     Settings,
 )
+from elasticsearch_tpu_torch.index.index_sort import parse_index_sort
+from elasticsearch_tpu_torch.index.request_cache import (
+    RequestCache,
+    cacheable,
+    shard_epoch,
+)
 from elasticsearch_tpu_torch.index.shard import IndexShard
 from elasticsearch_tpu_torch.index.similarity import SimilarityService
 from elasticsearch_tpu_torch.index.store import CorruptIndexException
@@ -157,6 +174,7 @@ from elasticsearch_tpu_torch.mapper.mapping import MapperService
 from elasticsearch_tpu_torch.script.expression import compile_script
 from elasticsearch_tpu_torch.script.painless import execute_update_script
 from elasticsearch_tpu_torch.search.aggregations import parse_aggs, run_aggregations
+from elasticsearch_tpu_torch.search.suggest import run_suggest
 from elasticsearch_tpu_torch.search.batching import (
     BatchStats,
     MicroBatcher,
@@ -235,6 +253,15 @@ class IndexService:
             dense_vector_max_dims=INDEX_MAPPING_DENSE_VECTOR_MAX_DIMS.get(
                 settings))
         self.data_path = data_path
+        # index.sort.*: validated against the mapping now, applied by
+        # every builder at seal
+        self.index_sort = parse_index_sort(settings, self.mapper_service)
+        # the shard request cache: size 0 responses against the shards'
+        # visibility epochs
+        self._request_cache_enabled = settings.get_bool(
+            "index.requests.cache.enable", True)
+        self.request_cache = RequestCache(max_bytes=settings.get_int(
+            "index.requests.cache.size_in_bytes", 8 * 1024 * 1024))
         durability = INDEX_TRANSLOG_DURABILITY.get(settings)
         # the postings codec of the tile kernel's staging: the index's
         # preference ("default" follows the node's search.pallas.
@@ -260,7 +287,7 @@ class IndexService:
                 name, sid, self.mapper_service, device=self.device,
                 data_path=(os.path.join(data_path, str(sid))
                            if data_path else None),
-                durability=durability)
+                durability=durability, index_sort=self.index_sort)
             shard.engine.postings_codec = self.postings_codec
             shard.engine.postings_codec_default = self.postings_codec_default
             # slice resolution is shard-count aware (SliceBuilder)
@@ -573,11 +600,28 @@ class IndexService:
         gets its own. Expiry degrades to the partial result with
         ``timed_out: true``; a cancelled task raises
         ``TaskCancelledException`` at the next checkpoint."""
+        t0 = time.monotonic()
         body = body or {}
         if deadline is None and (body.get("timeout") is not None
                                   or task is not None):
             deadline = SearchDeadline(parse_search_timeout(body), task)
-        return self._admitted_dispatch(body, pinned_segments, deadline)
+        cache_key = None
+        if (self._request_cache_enabled and pinned_segments is None
+                and cacheable(body)):
+            epochs = [shard_epoch(self.shards[sid])
+                      for sid in sorted(self.shards)]
+            cache_key = RequestCache.key_for(body, epochs)
+            if cache_key is not None:
+                cached = self.request_cache.get(cache_key)
+                if cached is not None:
+                    cached["took"] = int((time.monotonic() - t0) * 1000)
+                    return cached
+        resp = self._admitted_dispatch(body, pinned_segments, deadline)
+        if (cache_key is not None and not resp.get("timed_out")
+                and not resp["_shards"].get("failed")):
+            # a partial answer never enters the cache
+            self.request_cache.put(cache_key, resp)
+        return resp
 
     def _admitted_dispatch(self, body: dict,
                            pinned_segments: Optional[Dict[int, list]] = None,
@@ -749,6 +793,9 @@ class IndexService:
             resp["_pruned"] = out["pruned"]
         if out.get("aggregations") is not None:
             resp["aggregations"] = out["aggregations"]
+        if body.get("suggest"):
+            resp["suggest"] = run_suggest(body["suggest"], self.shards,
+                                          self.mapper_service)
         return self._finish_query_response(resp, body, tracer, out["plane"])
 
     def _try_mesh_search(self, body: dict, k: int, deadline=None,
@@ -972,6 +1019,9 @@ class IndexService:
         if body.get("profile"):
             resp["profile"] = {"shards": [
                 s for r in shard_results for s in (r.profile or [])]}
+        if body.get("suggest"):
+            resp["suggest"] = run_suggest(body["suggest"], self.shards,
+                                          self.mapper_service)
         return self._finish_query_response(resp, body, tracer, "host")
 
     def _search_hybrid(self, body: dict, deadline=None) -> dict:
@@ -1099,10 +1149,11 @@ class IndexService:
                      "max_score": (page[0]["_score"] if page else None),
                      "hits": page},
         }
-        # aggregations are computed by the lexical side, whose window
-        # query saw the full matched set
-        if "aggregations" in lex_resp:
-            resp["aggregations"] = lex_resp["aggregations"]
+        # aggregations and suggestions are computed by the lexical side,
+        # whose window query saw the full matched set
+        for key in ("aggregations", "suggest"):
+            if key in lex_resp:
+                resp[key] = lex_resp[key]
         return resp
 
     # ------------------------------------------------------------------
@@ -1369,8 +1420,8 @@ class IndexService:
     def stats(self) -> dict:
         """The ``_stats`` sections (the JAX package's ``IndexService.stats``):
         every section present, so a metric filter can subset; a counter
-        the port does not keep (times, merges, warmers, the query and
-        request caches it has no module for) reports zero."""
+        the port does not keep (times, merges, warmers, the query cache it
+        has no module for) reports zero."""
         shard_stats = {sid: s.stats() for sid, s in self.shards.items()}
 
         def total(section, key):
@@ -1428,8 +1479,7 @@ class IndexService:
                                                 "size_in_bytes")},
             "recovery": {"current_as_source": 0, "current_as_target": 0,
                          "throttle_time_in_millis": 0},
-            "request_cache": {"memory_size_in_bytes": 0, "evictions": 0,
-                              "hit_count": 0, "miss_count": 0},
+            "request_cache": self.request_cache.stats(),
         }
         return {"primaries": totals, "total": totals, "shards": shard_stats}
 

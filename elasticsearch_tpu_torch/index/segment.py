@@ -13,6 +13,11 @@ Counterpart of ``elasticsearch_tpu/index/segment.py``:
   the bf16 grid once at seal (``VectorColumn``).
 - Geo points are float32 (lat, lon) CSR columns (``GeoColumn``); a range
   field is two aligned numeric columns ``<f>#lo`` / ``<f>#hi``.
+- Geo shapes stay raw a doc (``shapes``: field -> {doc: [GeoJSON / WKT]});
+  ``shape_column`` builds on first use a float64 ``[nd_pad, 4]`` bbox
+  table (NaN where a doc has none), which the ``geo_shape`` query stages
+  on the device for its prefilter, and parses a doc's shapes into
+  geometry objects when a query first reads them (its candidates).
 - Stored fields (_source) stay on the host.
 
 ``device_arrays()`` stages the query tables on the segment's device once:
@@ -56,6 +61,12 @@ doc and its index in the doc's array. Deleting a doc tombstones its
 objects at every level (``delete_docs``); ``release_device`` and
 ``release_breaker_charges`` recurse. ``parents`` holds each doc's legacy
 ``_parent`` value.
+
+An index sort (``index.sort.*``, ``index/index_sort.py``) permutes the
+builder's docs at seal (``SegmentBuilder(index_sort=...)``): doc order is
+then sort order in every array, and ``seal_doc_remap`` maps each
+pre-seal local doc to its sealed one for the engine's version map and
+buffered deletes.
 
 ``PinnedSegmentView`` is a scroll's point-in-time view of a segment: the
 segment's immutable tensors, its own frozen live mask and live tensors,
@@ -391,6 +402,23 @@ def tensor_bytes(t: torch.Tensor) -> int:
 _LEDGER_SEQ = itertools.count(1)
 
 
+class _ParsedShapes:
+    """doc -> its parsed geo shapes, each doc's parsed on first read (a
+    query's exact relation reads only its prefilter's candidates)."""
+
+    def __init__(self, per_doc: Dict[int, list]):
+        self._raw = per_doc
+        self._parsed: Dict[int, list] = {}
+
+    def __getitem__(self, doc: int) -> list:
+        gs = self._parsed.get(doc)
+        if gs is None:
+            from elasticsearch_tpu_torch.utils.geometry import parse_shape
+
+            gs = self._parsed[doc] = [parse_shape(v) for v in self._raw[doc]]
+        return gs
+
+
 class Segment:
     """An immutable sealed segment: host numpy arrays, staged once to
     ``device`` by ``device_arrays()``."""
@@ -422,6 +450,7 @@ class Segment:
         geo_columns: Optional[Dict[str, GeoColumn]] = None,
         nested: Optional[Dict[str, NestedContext]] = None,
         parents: Optional[Sequence[Optional[str]]] = None,
+        shapes: Optional[Dict[str, Dict[int, list]]] = None,
     ):
         self.name = name
         self.num_docs = num_docs
@@ -450,6 +479,10 @@ class Segment:
         self.ordinal_columns = ordinal_columns
         self.vector_columns = vector_columns or {}
         self.geo_columns = geo_columns or {}
+        # geo_shape field -> {doc: [raw GeoJSON / WKT]}; the geometry and
+        # bbox table build on first use (shape_column)
+        self.shapes: Dict[str, Dict[int, list]] = shapes or {}
+        self._shape_cols: Dict[str, dict] = {}
         # fielddata breaker bytes charged for host structures built on this
         # segment (key -> bytes), released with the segment
         self.breaker_charges: Dict[str, int] = {}
@@ -502,7 +535,7 @@ class Segment:
                     vector_columns=None, geo_columns=None, routings=None,
                     seqnos=None, versions=None, exists_masks=None,
                     positions=None, nested=None, parents=None,
-                    device="cuda") -> "Segment":
+                    shapes=None, device="cuda") -> "Segment":
         """Build a segment from plain host arrays — the fields a store load
         hands the JAX ``Segment`` — staged later on ``device``.
         ``numeric_columns`` / ``ordinal_columns`` / ``vector_columns`` /
@@ -517,7 +550,8 @@ class Segment:
         ``{doc: positions}``. ``nested`` maps a nested path to the keyword
         arguments of its sub-segment's ``from_arrays`` plus ``parent_of``
         and ``offset_of`` (int32, one entry an object); ``parents`` is each
-        doc's legacy ``_parent`` value."""
+        doc's legacy ``_parent`` value; ``shapes`` maps a geo_shape field
+        to ``{doc: [raw values]}``."""
         n = len(doc_ids)
         seg = cls(
             name=name, num_docs=n, doc_ids=doc_ids, sources=sources,
@@ -550,6 +584,8 @@ class Segment:
             positions=(SegmentPositions.from_flat(*positions)
                        if isinstance(positions, (tuple, list)) else positions),
             parents=parents,
+            shapes={f: {int(d): list(v) for d, v in per_doc.items()}
+                    for f, per_doc in (shapes or {}).items()},
         )
         for path, sub in (nested or {}).items():
             sub = dict(sub)
@@ -658,8 +694,38 @@ class Segment:
                         f = f[:-3]
                     masks[f] = (masks[f] | col.exists if f in masks
                                 else col.exists.copy())
+            for f, per_doc in self.shapes.items():
+                m = np.zeros(self.nd_pad, bool)
+                m[list(per_doc)] = True
+                masks[f] = masks[f] | m if f in masks else m
             self._exists_masks = masks
         return masks
+
+    def shape_column(self, field_name: str) -> Optional[dict]:
+        """A geo_shape field's column, built on first use: ``geoms`` (doc
+        -> its parsed shapes, each doc parsed when first read), ``bbox``
+        (float64 ``[nd_pad, 4]``: min_lon, min_lat, max_lon, max_lat of
+        each doc's shapes together, NaN for a doc without one) and
+        ``exists`` (``[nd_pad]`` bool). None when no doc of the segment
+        holds the field."""
+        per_doc = self.shapes.get(field_name)
+        if not per_doc:
+            return None
+        col = self._shape_cols.get(field_name)
+        if col is None:
+            from elasticsearch_tpu_torch.utils.geometry import shape_bbox
+
+            bbox = np.full((self.nd_pad, 4), np.nan, np.float64)
+            exists = np.zeros(self.nd_pad, bool)
+            for doc, vals in per_doc.items():
+                bs = [shape_bbox(v) for v in vals]
+                bbox[doc] = (min(b[0] for b in bs), min(b[1] for b in bs),
+                             max(b[2] for b in bs), max(b[3] for b in bs))
+                exists[doc] = True
+            col = self._shape_cols[field_name] = {
+                "geoms": _ParsedShapes(per_doc), "bbox": bbox,
+                "exists": exists}
+        return col
 
     def term_id(self, field_name: str, token: str) -> int:
         key = f"{field_name}{FIELD_SEP}{token}"
@@ -975,6 +1041,18 @@ class Segment:
                       duration_ms=(_time.monotonic() - t0) * 1000.0)
         return t
 
+    def clear_column_cache(self) -> int:
+        """Drop the staged doc-value columns (``dev_cache``) and their
+        ledger bytes, its nested sub-segments' too (``_cache/clear``); a
+        query restages what it reads. Returns the bytes released."""
+        with self._stage_lock:
+            keys, self.dev_cache = list(self.dev_cache), {}
+        freed = memory_accountant().release_tables(
+            self._owner(), self.ledger_scope, [f"col:{k}" for k in keys])
+        for nctx in self.nested.values():
+            freed += nctx.segment.clear_column_cache()
+        return freed
+
     def _evict_staging(self) -> None:
         """The ledger's eviction callback (run under the accountant's
         lock, so it takes no segment lock; plain rebinds): drop every
@@ -1175,9 +1253,13 @@ class SegmentBuilder:
     """Accumulates parsed documents, seals into a Segment (the in-memory
     indexing buffer; ``seal()`` is the flush to a segment)."""
 
-    def __init__(self, name: str, device="cuda"):
+    def __init__(self, name: str, device="cuda", index_sort=None):
         self.name = name
         self.device = resolve_device(device)
+        # the index sort spec [(field, order, missing, mode)], applied as a
+        # doc permutation at seal; the old -> new doc map of the last seal
+        self.index_sort = index_sort
+        self.seal_doc_remap: Optional[np.ndarray] = None
         self.doc_ids: List[str] = []
         self.sources: List[dict] = []
         self.routings: List[Optional[str]] = []
@@ -1198,6 +1280,8 @@ class SegmentBuilder:
         self.vector_dims: Dict[str, int] = {}
         # geo_point field -> [(doc, lat, lon)]
         self.geo_values: Dict[str, List[Tuple[int, float, float]]] = {}
+        # geo_shape field -> {doc: [raw GeoJSON / WKT values]}
+        self.shape_values: Dict[str, Dict[int, list]] = {}
         # each token's index in its field's analyzed token list, as the JAX
         # builder records them: flat (term key id, doc, position) columns
         self._pos_keys: Dict[str, int] = {}
@@ -1247,6 +1331,9 @@ class SegmentBuilder:
         for field_name, pts in parsed.geo_values.items():
             self.geo_values.setdefault(field_name, []).extend(
                 (doc, lat, lon) for lat, lon in pts)
+        for field_name, vals in parsed.shape_values.items():
+            self.shape_values.setdefault(field_name, {}).setdefault(
+                doc, []).extend(vals)
         for field_name, pairs in parsed.range_values.items():
             # two aligned numeric columns: both appended once a value, in
             # the same order (the seal's doc sort is stable)
@@ -1279,7 +1366,59 @@ class SegmentBuilder:
                 if sub.nested:
                     self._add_nested(sub.nested, root_doc)
 
+    def _remap_docs(self, perm: np.ndarray) -> np.ndarray:
+        """Reorder the docs by ``perm`` (new position -> old doc) and
+        rewrite every doc reference (postings, positions, lengths, doc
+        values, vectors, points, shapes, nested parents) so doc order is
+        the sort order. Returns the old -> new map."""
+        inv = np.empty(len(perm), np.int64)
+        inv[perm] = np.arange(len(perm))
+        order = perm.tolist()
+        new = inv.tolist()
+
+        def reorder(lst):
+            return [lst[p] for p in order]
+
+        self.doc_ids = reorder(self.doc_ids)
+        self.sources = reorder(self.sources)
+        self.routings = reorder(self.routings)
+        self.parents = reorder(self.parents)
+        self.seqnos = reorder(self.seqnos)
+        self.versions = reorder(self.versions)
+        self.postings = {k: sorted((new[d], tf) for d, tf in plist)
+                         for k, plist in self.postings.items()}
+        self._pos_doc = array("i", inv[np.frombuffer(
+            self._pos_doc, np.int32)].astype(np.int32).tobytes())
+        self.field_lengths = {
+            f: {new[d]: ln for d, ln in per_doc.items()}
+            for f, per_doc in self.field_lengths.items()}
+        # the seal's stable doc sort keeps each doc's value order (and the
+        # #lo / #hi alignment)
+        for store in (self.numeric_values, self.string_values):
+            for f, vals in store.items():
+                store[f] = [(new[d],) + tuple(rest) for d, *rest in vals]
+        for f, vals in self.geo_values.items():
+            self.geo_values[f] = [(new[d], lat, lon) for d, lat, lon in vals]
+        self.shape_values = {
+            f: {new[d]: vals for d, vals in per_doc.items()}
+            for f, per_doc in self.shape_values.items()}
+        self.vector_values = {
+            f: {new[d]: vec for d, vec in per_doc.items()}
+            for f, per_doc in self.vector_values.items()}
+        for entry in self.nested_builders.values():
+            entry["parent_of"] = [new[d] for d in entry["parent_of"]]
+        return inv
+
     def seal(self) -> Segment:
+        self.seal_doc_remap = None
+        if self.index_sort and self.num_docs > 1:
+            from elasticsearch_tpu_torch.index.index_sort import (
+                index_sort_permutation,
+            )
+
+            perm = index_sort_permutation(self, self.index_sort)
+            if perm is not None:
+                self.seal_doc_remap = self._remap_docs(perm)
         nd = self.num_docs
         nd_pad = next_pow2(max(nd, 1))
         term_keys = sorted(self.postings.keys())
@@ -1432,6 +1571,8 @@ class SegmentBuilder:
             device=self.device,
             positions=positions,
             geo_columns=geo_columns,
+            shapes={f: dict(per_doc)
+                    for f, per_doc in self.shape_values.items()},
         )
 
 

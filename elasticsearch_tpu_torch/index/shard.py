@@ -44,7 +44,8 @@ class ShardState:
 class IndexShard:
     def __init__(self, index_name: str, shard_id: int, mapper_service,
                  device="cuda", data_path: Optional[str] = None,
-                 durability: str = Translog.DURABILITY_REQUEST):
+                 durability: str = Translog.DURABILITY_REQUEST,
+                 index_sort=None):
         self.index_name = index_name
         self.shard_id = shard_id
         self.mapper_service = mapper_service
@@ -58,7 +59,8 @@ class IndexShard:
             store = Store(os.path.join(data_path, "index"))
         self.engine = Engine(f"{index_name}[{shard_id}]", mapper_service,
                              segment_prefix=f"{index_name}_{shard_id}_seg",
-                             device=device, translog=translog, store=store)
+                             device=device, translog=translog, store=store,
+                             index_sort=index_sort)
         # the device-memory ledger attributes the segments' stagings here
         self.engine.index_name = index_name
         self.searcher = ShardSearcher(shard_id, self.engine, mapper_service,
@@ -91,6 +93,9 @@ class IndexShard:
         store = store if store is not None else engine.store
         segments = store.load_segments(engine.device)
         engine.segments = segments
+        # a loaded segment may reuse a name the engine held before (a
+        # restore): the request cache's epoch moves
+        engine.visibility_epoch += 1
         # advance the segment-name counter past every recovered name: a
         # later seal reusing one would skip writing its segment at the
         # next commit and overwrite the old one's live mask

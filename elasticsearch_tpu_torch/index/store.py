@@ -33,9 +33,9 @@ phrase positions the JAX package's ``match_phrase`` reads. Geo points
 are the ``geo.<f>.*`` arrays with ``"geo_fields"`` counts; range,
 scaled, short, byte, token-count and murmur3 values are numeric columns,
 ip, binary and join values ordinal columns, as the JAX package writes
-them. The port has no geo_shape data: it writes that part empty
-(``"shapes": {}``) and raises ``CorruptIndexException`` naming the field
-for a segment that holds any, rather than drop a column. Loaded segments
+them. Geo shapes are ``meta.json``'s ``"shapes"`` (field -> {doc as a
+string: [raw GeoJSON / WKT]}), as the JAX package writes them; the
+geometry and bbox table rebuild on first use. Loaded segments
 are host numpy on the engine's device and stage lazily, as sealed ones
 do.
 """
@@ -333,20 +333,20 @@ def _write_segment_dir(seg: Segment, d: str, join=None) -> None:
         "doc_ids": list(seg.doc_ids),
         "routings": list(seg.routings),
         "parents": list(seg.parents),
-        "shapes": {},
+        "shapes": {f: {str(doc): vals for doc, vals in per_doc.items()}
+                   for f, per_doc in seg.shapes.items()},
     }
+    # json.dumps, not json.dump: one pass of the C encoder (dump runs the
+    # pure-Python one, chunk by chunk); the bytes are the same
     with open(os.path.join(d, "meta.json"), "w", encoding="utf-8") as f:
-        json.dump(meta, f)
+        f.write(json.dumps(meta))
     with open(os.path.join(d, "sources.jsonl"), "w",
               encoding="utf-8") as f:
-        for i in range(n):
-            f.write(json.dumps(seg.sources[i], separators=(",", ":"))
-                    + "\n")
+        f.write("".join(json.dumps(seg.sources[i], separators=(",", ":"))
+                        + "\n" for i in range(n)))
     # positions sidecar (phrase queries): term_id -> {doc: [pos...]}
     with open(os.path.join(d, "positions.json"), "wb") as f:
         positions = seg.positions
-        # json.dumps, not json.dump: one pass of the C encoder (dump
-        # runs the pure-Python one, chunk by chunk)
         f.write(
             positions.json_bytes()
             if isinstance(positions, SegmentPositions) else
@@ -390,13 +390,11 @@ def _read_segment_dir(d: str, device) -> Segment:
     _verify_checksums_dir(d)
     with open(os.path.join(d, "meta.json"), encoding="utf-8") as f:
         meta = json.load(f)
-    _refuse_unported(name, meta)
     data = np.load(os.path.join(d, "arrays.npz"))
-    sources = []
-    with open(os.path.join(d, "sources.jsonl"), encoding="utf-8") as f:
-        for line in f:
-            if line.strip():
-                sources.append(json.loads(line))
+    # one parse of every line at once (the C decoder over one array)
+    with open(os.path.join(d, "sources.jsonl"), "rb") as f:
+        lines = [ln for ln in f.read().split(b"\n") if ln.strip()]
+    sources = json.loads(b"[" + b",".join(lines) + b"]")
 
     def arr(key, dtype):
         a = data[key]
@@ -449,6 +447,8 @@ def _read_segment_dir(d: str, device) -> Segment:
         exists_masks=exists_masks,
         positions=positions,
         parents=meta.get("parents"),
+        shapes={f: {int(doc): vals for doc, vals in per_doc.items()}
+                for f, per_doc in (meta.get("shapes") or {}).items()},
         device=device,
     )
     live_path = os.path.join(d, "live.npy")
@@ -519,12 +519,3 @@ def _verify_checksums_dir(d: str) -> None:
             raise CorruptIndexException(
                 f"checksum failed for [{name}/{fn}] "
                 f"(stored={expected[:12]}, actual={actual[:12]})")
-
-
-def _refuse_unported(name: str, meta: dict) -> None:
-    """A segment holding data the port has no column for fails its load,
-    naming the kind, instead of opening without that column."""
-    if meta.get("shapes"):
-        raise CorruptIndexException(
-            f"segment [{name}] holds geo_shape {sorted(meta['shapes'])} "
-            f"data, which the PyTorch port cannot load yet")

@@ -8,9 +8,13 @@ numbers (``long``, ``integer``, ``short``, ``byte``, ``double``,
 ``long_range``, ``float_range``, ``double_range``, ``date_range``,
 ``ip_range``), ``token_count``, ``binary``, ``murmur3`` and
 ``dense_vector`` and ``join`` (``JoinFieldType``: a relation name and a
-parent id, two ordinal columns). ``nested`` is an object path, compiled
-by the mapper. Any other type (``geo_shape``, ``percolator``,
-``completion``) raises the JAX package's "No handler for type" error.
+parent id, two ordinal columns), ``geo_shape`` (the raw GeoJSON or WKT
+kept a doc, validated at index time), ``percolator`` (a stored query,
+kept in ``_source`` only) and ``completion`` (its inputs an ordinal
+column, its weight ``<field>#weight`` and each context
+``<field>#ctx.<name>``, a geo context as 12-character geohashes).
+``nested`` is an object path, compiled by the mapper. Any other type
+raises the JAX package's "No handler for type" error.
 
 Numeric doc values are float64, as in the JAX package (x64 is on there): a
 ``date`` is its epoch milliseconds (UTC), a ``boolean`` 1.0 or 0.0, a
@@ -726,6 +730,110 @@ class JoinFieldType(FieldType):
         return None  # DocumentMapper._index_single fills both columns
 
 
+class PercolatorFieldType(FieldType):
+    """percolator: a stored query DSL object for inverse search. The query
+    lives in ``_source``; the ``percolate`` query runs every stored query
+    against a one-doc segment of the candidate document."""
+
+    type_name = "percolator"
+    has_doc_values = False
+
+    def index_terms(self, value, analyzers):
+        return []
+
+    def doc_value(self, value):
+        return None
+
+
+class CompletionFieldType(FieldType):
+    """completion: autocomplete inputs in the field's sorted ordinal
+    column, the weight in a parallel ``<field>#weight`` numeric column,
+    context values in ``<field>#ctx.<name>`` ordinal columns."""
+
+    type_name = "completion"
+    ordinal_doc_values = True
+
+    def __init__(self, name, params=None):
+        super().__init__(name, params)
+        # [{"name": ..., "type": "category" | "geo", "precision": int}]
+        self.contexts = {c["name"]: c for c in self.params.get("contexts", [])}
+
+    def parse_completion(self, value):
+        """-> (inputs: [str], weight: float, contexts: {name: [str]}); a
+        geo context value encodes to a 12-character geohash."""
+        if isinstance(value, str):
+            return [value], 1.0, {}
+        if isinstance(value, list):
+            return [str(v) for v in value], 1.0, {}
+        if isinstance(value, dict):
+            inputs = value.get("input", [])
+            inputs = [inputs] if isinstance(inputs, str) else [str(v) for v in inputs]
+            ctx_out = {}
+            for cname, cvals in (value.get("contexts") or {}).items():
+                cdef = self.contexts.get(cname)
+                if cdef is None:
+                    raise MapperParsingException(
+                        f"context [{cname}] is not defined on completion "
+                        f"field [{self.name}]")
+                if not isinstance(cvals, list):
+                    cvals = [cvals]
+                if cdef.get("type", "category") == "geo":
+                    from elasticsearch_tpu_torch.utils.geohash import encode
+
+                    encoded = []
+                    for p in cvals:
+                        try:
+                            if isinstance(p, dict):
+                                encoded.append(
+                                    encode(float(p["lat"]), float(p["lon"]), 12))
+                            elif isinstance(p, str) and "," in p:
+                                lat, lon = p.split(",", 1)
+                                encoded.append(
+                                    encode(float(lat), float(lon), 12))
+                            else:  # a raw geohash
+                                encoded.append(str(p))
+                        except (KeyError, TypeError, ValueError) as e:
+                            raise MapperParsingException(
+                                f"failed to parse geo context [{cname}] of "
+                                f"completion field [{self.name}]: {p!r}"
+                            ) from e
+                    ctx_out[cname] = encoded
+                else:
+                    ctx_out[cname] = [str(c) for c in cvals]
+            return inputs, float(value.get("weight", 1.0)), ctx_out
+        raise MapperParsingException(
+            f"failed to parse completion field [{self.name}] value [{value!r}]"
+        )
+
+    def index_terms(self, value, analyzers):
+        return []
+
+    def doc_value(self, value):
+        return None
+
+
+class GeoShapeFieldType(FieldType):
+    """geo_shape: GeoJSON or WKT geometries kept per doc on the host, with
+    a dense bbox table for the query's prefilter (``utils/geometry.py``)."""
+
+    type_name = "geo_shape"
+    has_doc_values = False
+
+    def index_terms(self, value, analyzers):
+        return []
+
+    def doc_value(self, value):
+        return None
+
+    def parse_shape_value(self, value):
+        """Validate at index time; the raw value is stored and its
+        geometry built when a query first reads the segment's column."""
+        from elasticsearch_tpu_torch.utils.geometry import parse_shape
+
+        parse_shape(value)  # raises MapperParsingException on bad input
+        return value
+
+
 FIELD_TYPES = {
     t.type_name: t
     for t in [TextFieldType, KeywordFieldType, LongFieldType,
@@ -736,7 +844,8 @@ FIELD_TYPES = {
               LongRangeFieldType, FloatRangeFieldType, DoubleRangeFieldType,
               DateRangeFieldType, IpRangeFieldType, TokenCountFieldType,
               BinaryFieldType, Murmur3FieldType, DenseVectorFieldType,
-              JoinFieldType]
+              JoinFieldType, GeoShapeFieldType, CompletionFieldType,
+              PercolatorFieldType]
 }
 
 

@@ -21,13 +21,19 @@ their full path; ``include_in_parent`` / ``include_in_root`` also copy
 the object's flat fields onto the enclosing document. A ``join`` value
 fills the relation's ordinal column ``<field>`` and, for a child, the
 parent id's ``<field>#parent``. A legacy ``_parent`` meta field names the
-parent type (``MapperService.parent_type``). The other field types
-(geo_shape, percolator, completion) are later slices and raise.
+parent type (``MapperService.parent_type``). A ``geo_shape`` value
+lands in ``shape_values`` as given (validated); a ``completion`` value's
+inputs, weight and contexts become the ordinal column ``<field>``, the
+numeric ``<field>#weight`` and the ordinal ``<field>#ctx.<name>``; a
+``percolator`` value stays in ``_source`` only. ``{"_size": {"enabled":
+true}}`` indexes the source's byte count, ``len(json.dumps(source,
+separators=(",", ":"), default=str))``, as the long field ``_size``.
 """
 
 from __future__ import annotations
 
 import copy
+import json
 import re
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
@@ -38,10 +44,13 @@ from elasticsearch_tpu_torch.common.errors import (
     MapperParsingException,
 )
 from elasticsearch_tpu_torch.mapper.field_types import (
+    CompletionFieldType,
     DenseVectorFieldType,
     FieldType,
     GeoPointFieldType,
+    GeoShapeFieldType,
     JoinFieldType,
+    LongFieldType,
     RangeFieldType,
     TextFieldType,
     TokenCountFieldType,
@@ -100,6 +109,8 @@ class ParsedDocument:
     string_values: Dict[str, List[str]] = field(default_factory=dict)
     # geo points: field -> [(lat, lon)]
     geo_values: Dict[str, List[Tuple[float, float]]] = field(default_factory=dict)
+    # geo shapes: field -> raw GeoJSON dicts / WKT strings
+    shape_values: Dict[str, List[Any]] = field(default_factory=dict)
     # range fields: field -> [(lo, hi)], inclusive float bounds
     range_values: Dict[str, List[Tuple[float, float]]] = field(default_factory=dict)
     # dense vectors: field -> ONE [dims] float list per doc (a second
@@ -128,6 +139,10 @@ class DocumentMapper:
         self._object_paths: set = set()
         # nested object paths ("type": "nested") -> their mapping params
         self.nested_paths: Dict[str, dict] = {}
+        # the _size meta field: the source's byte count as a long field
+        self.size_enabled = bool((mapping.get("_size") or {}).get("enabled"))
+        if self.size_enabled:
+            self.fields["_size"] = LongFieldType("_size", {})
         self._compile("", mapping.get("properties", {}))
         if len(self.fields) > total_fields_limit:
             raise IllegalArgumentException(
@@ -186,6 +201,9 @@ class DocumentMapper:
                            new_props, dynamic)
         if new_props:
             out.mapping_update = {"properties": new_props}
+        if self.size_enabled:
+            out.numeric_values["_size"] = [float(len(json.dumps(
+                source, separators=(",", ":"), default=str)))]
         return out
 
     def _parse_object(self, prefix: str, obj: dict, out: ParsedDocument,
@@ -289,7 +307,7 @@ class DocumentMapper:
                                    sub_new if dynamic == "true" else {},
                                    dynamic)
                 for store in ("terms", "numeric_values", "string_values",
-                              "geo_values", "range_values"):
+                              "geo_values", "range_values", "shape_values"):
                     for f, vals in getattr(inc, store).items():
                         getattr(out, store).setdefault(f, []).extend(vals)
                 for f, vec in inc.vector_values.items():
@@ -357,6 +375,10 @@ class DocumentMapper:
         if isinstance(ft, GeoPointFieldType):
             out.geo_values.setdefault(ft.name, []).append(ft.parse_point(v))
             return
+        if isinstance(ft, GeoShapeFieldType):
+            out.shape_values.setdefault(ft.name, []).append(
+                ft.parse_shape_value(v))
+            return
         if isinstance(ft, JoinFieldType):
             name, parent = ft.parse_join(v)
             out.terms.setdefault(ft.name, []).append(name)
@@ -371,6 +393,15 @@ class DocumentMapper:
         if isinstance(ft, TokenCountFieldType):
             out.numeric_values.setdefault(ft.name, []).append(
                 ft.count_tokens(v, analyzers))
+            return
+        if isinstance(ft, CompletionFieldType):
+            inputs, weight, ctxs = ft.parse_completion(v)
+            out.string_values.setdefault(ft.name, []).extend(inputs)
+            out.numeric_values.setdefault(f"{ft.name}#weight", []).append(
+                weight)
+            for cname, cvals in ctxs.items():
+                out.string_values.setdefault(
+                    f"{ft.name}#ctx.{cname}", []).extend(cvals)
             return
         if ft.index:
             terms = ft.index_terms(v, analyzers)
@@ -447,8 +478,9 @@ class MapperService:
             copy.deepcopy(new_mapping.get("properties", {})),
             "",
         )
-        if "dynamic" in new_mapping:
-            merged["dynamic"] = new_mapping["dynamic"]
+        for meta_key in ("dynamic", "_size"):
+            if meta_key in new_mapping:
+                merged[meta_key] = new_mapping[meta_key]
         self._mapper = DocumentMapper(merged, self.analyzers, self.total_fields_limit,
                                       self.dense_vector_max_dims)
         self._mapping = merged

@@ -85,6 +85,11 @@ served, so pages neither skip nor repeat a doc, across ties too.
 ``close`` stops and joins it. Dropping a context frees its pinned live
 tensors. The JAX package's cursor scroll serves cross-cluster search
 only, and the port has no remote clusters.
+
+A ``geo_shape`` query's ``indexed_shape`` is inlined by ``search``
+before any shard sees it (``_rewrite_indexed_shapes``, the referenced
+document's shape at ``path``, ``shape`` by default); a missing document
+is a 404. ``clear_cache`` serves ``_cache/clear``.
 """
 
 from __future__ import annotations
@@ -967,6 +972,63 @@ class Node:
                 out.append(self.indices[n])
         return out
 
+    def clear_cache(self, expression: str = "_all") -> None:
+        """``POST [/{index}]/_cache/clear``: every searched index drops its
+        segments' staged doc-value columns (restaged on next use), as the
+        JAX package's route does, and its request cache, which the JAX
+        package's route keeps (ROADMAP C20)."""
+        for svc in self.resolve_search_indices(expression):
+            svc.request_cache.clear()
+            for shard in svc.shards.values():
+                for seg in shard.engine.segments:
+                    seg.clear_column_cache()
+
+    def _rewrite_indexed_shapes(self, body: dict) -> dict:
+        """The coordinator's rewrite of a ``geo_shape`` query's
+        ``indexed_shape`` (``{"index", "id", "path": "shape"}``): the
+        referenced document's shape is fetched and inlined before any
+        shard sees the query."""
+        if "indexed_shape" not in json.dumps(body.get("query") or {}):
+            return body
+        import copy as _copy
+
+        body = _copy.deepcopy(body)
+
+        def walk(obj):
+            if isinstance(obj, dict):
+                gs = obj.get("geo_shape")
+                if isinstance(gs, dict):
+                    for spec in gs.values():
+                        if isinstance(spec, dict) and "indexed_shape" in spec:
+                            ref = spec.pop("indexed_shape")
+                            if (not isinstance(ref, dict) or "index" not in ref
+                                    or "id" not in ref):
+                                raise IllegalArgumentException(
+                                    "[indexed_shape] requires index and id")
+                            g = self.get_doc(ref["index"], ref["id"])
+                            if not g.get("found"):
+                                raise ResourceNotFoundException(
+                                    f"indexed document [{ref['index']}/"
+                                    f"{ref['id']}] not found")
+                            val = g["_source"]
+                            path = str(ref.get("path", "shape"))
+                            for part in path.split("."):
+                                if not isinstance(val, dict) or part not in val:
+                                    raise IllegalArgumentException(
+                                        f"field [{path}] not found in indexed "
+                                        f"document [{ref['index']}/"
+                                        f"{ref['id']}]")
+                                val = val[part]
+                            spec["shape"] = val
+                for v in obj.values():
+                    walk(v)
+            elif isinstance(obj, list):
+                for v in obj:
+                    walk(v)
+
+        walk(body.get("query"))
+        return body
+
     def search(self, index: str, body: Optional[dict] = None,
                scroll: Optional[str] = None) -> dict:
         """A search over an index expression; ``scroll`` (a keep-alive
@@ -979,7 +1041,7 @@ class Node:
         )
 
         svcs = self.resolve_search_indices(index)
-        body = body or {}
+        body = self._rewrite_indexed_shapes(body or {})
         if scroll and body.get("collapse"):
             raise IllegalArgumentException(
                 "cannot use `collapse` in a scroll context")

@@ -151,6 +151,10 @@ per request: a cluster-level override on the index (``Node``'s
 wins over the index's settings, which ``PUT /{index}/_settings`` may
 change.
 
+An index with ``index.sort.*`` is served by the host rung, whose
+selection takes each segment's first k matching docs (decision
+``index_sorted``), as in the JAX package.
+
 Left for later slices: the compile cache and telemetry registry, and
 stacking a full rebuild on the card instead of through host numpy (a
 ``perf_opt``).
@@ -2426,6 +2430,11 @@ class IndexMeshSearch:
         if len(self.svc.shards) < 2:
             self._note("host", "single_shard")
             return None
+        if self.svc.index_sort:
+            # index-sorted early termination on the host rung beats a
+            # top-k over the stacked slots
+            self._note("host", "index_sorted")
+            return None
         if deadline is not None:
             deadline.checkpoint()
         t_stage = tracer.start("staging")
@@ -2779,6 +2788,8 @@ class IndexMeshSearch:
             if any(key not in self.BATCHABLE_KEYS
                    and key not in ("aggs", "aggregations") for key in body):
                 return None
+        if self.svc.index_sort:
+            return None
         t_stage = tracer.start("staging")
         executor = self._ensure_staged()
         if executor is None:

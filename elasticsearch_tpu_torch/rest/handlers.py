@@ -38,8 +38,10 @@ and the empty ones. The data-movement routes: ``_reindex``,
 (repositories, create, status, get, delete, restore, ``_verify``),
 ``_rollover``, ``_shrink``, ``_field_caps`` over an index expression,
 ``_termvectors``, and the cat tables ``tasks``, ``repositories`` and
-``snapshots``. Twelve routes still answer ``_unported`` (hot threads,
-drain, ``_cache/clear``, reroute, allocation explain, ``_remote/info``,
+``snapshots``. ``_cache/clear`` (both routes) drops the segments'
+staged doc-value columns, as the JAX package's does, and the request
+cache too (ROADMAP C20). Ten routes still answer ``_unported`` (hot
+threads, drain, reroute, allocation explain, ``_remote/info``,
 ``_cat/plugins``, ``_cat/allocation``, ``_cat/recovery``). Writes take
 ``refresh=wait_for``. Handlers are (node, request) ->
 (status, payload); the cat API returns text tables unless
@@ -226,8 +228,8 @@ def register_all(c) -> None:
     r("DELETE", "/_template/{name}", lambda n, q: (200, n.delete_template(
         q.param("name"))))
     r("HEAD", "/_template/{name}", _head_template)
-    r("POST", "/{index}/_cache/clear", _unported)
-    r("POST", "/_cache/clear", _unported)
+    r("POST", "/{index}/_cache/clear", _clear_cache)
+    r("POST", "/_cache/clear", _clear_cache)
 
     # --- cluster admin ---
     r("GET", "/_cluster/health", lambda n, q: (200, n.health()))
@@ -344,6 +346,11 @@ def register_all(c) -> None:
         q, [], ["node", "id", "pid", "host", "ip", "port", "attr", "value"]))
     r("GET", "/_cat/repositories", _cat_repositories)
     r("GET", "/_cat/snapshots/{repo}", _cat_snapshots)
+
+
+def _clear_cache(node, req):
+    node.clear_cache(req.param("index", "_all"))
+    return 200, {"_shards": {"total": 0, "successful": 0, "failed": 0}}
 
 
 def _unported(node, req):

@@ -9,13 +9,28 @@ queries the port serves: ``match_all``, ``match_none``, ``match``,
 random_score), ``query_string`` and ``simple_query_string``,
 ``more_like_this``, ``knn``, ``geo_distance``, ``geo_bounding_box`` and
 ``geo_polygon``, ``nested``, ``has_child``, ``has_parent``,
-``parent_id`` and ``script`` (a dense mask from ``script/``: a numeric
+``parent_id``, ``script`` (a dense mask from ``script/``: a numeric
 script over the segment's columns on its device, a painless one per doc
-on the host). ``term`` and ``range`` on a range field test its (lo, hi)
-pairs (point containment; ``relation``). Any other query type (span,
-geo_shape, percolate) raises the JAX package's ``ParsingException`` for
-an unknown query; so does ``function_score``'s ``script_score``, which
-the JAX package collects and then refuses as well.
+on the host), ``geo_shape``, ``percolate``, ``type`` (``match_all``: one
+doc type in 6.x) and the span family (``search/spans.py``). ``term`` and
+``range`` on a range field test its (lo, hi) pairs (point containment;
+``relation``). Any other query type raises the JAX package's
+``ParsingException`` for an unknown query; so does ``function_score``'s
+``script_score``, which the JAX package collects and then refuses as
+well.
+
+``geo_shape`` relates the query shape to each doc's shapes
+(``intersects``, ``disjoint``, ``within``, ``contains``): the prefilter
+(``shape_prefilter``) is float64 tensor compares over the segment's bbox
+table staged on its device (NaN rows for docs without a shape), and the
+exact planar relation of the candidates runs on the host
+(``shape_relation``, ``utils/geometry.py``). A segment without shapes
+gives an all-false mask, so the plan keeps one skeleton on the mesh. An
+``indexed_shape`` is inlined by the coordinator (``Node.search``) before
+any shard sees it. ``percolate`` indexes the candidate document into a
+one-doc segment on the searched segment's device and runs every stored
+query's plan there; a stored query that fails to parse or plan does not
+match (a ``KernelError`` raises).
 
 ``nested`` runs its inner query on the path's sub-segment and folds the
 matched objects onto their docs (``DenseScoreNode``); the join queries
@@ -1030,6 +1045,162 @@ class GeoPolygonQueryBuilder(QueryBuilder):
         mask[col.flat_docs[:n][inside]] = True
         mask[segment.nd_pad] = False
         return P.ConstantScoreNode(P.DenseMaskNode(mask, "geo_polygon"),
+                                   self.boost)
+
+
+def shape_prefilter(segment, field: str, col: dict, qbox, relation: str):
+    """The bbox prefilter on the segment's device: float64 compares of the
+    query shape's bbox against the staged ``[nd_pad, 4]`` table. Returns
+    (mask, candidates): the dense ``[nd_pad + 1]`` bool mask of the docs
+    the prefilter alone decides (``disjoint``: a shape whose bbox misses
+    the query's), and the docs whose exact relation the host decides."""
+    bbox = segment.device_column(f"shape.{field}.bbox", lambda: col["bbox"])
+    exists = segment.device_column(f"shape.{field}.exists",
+                                   lambda: col["exists"])
+    q0, q1, q2, q3 = (float(v) for v in qbox)
+    # NaN rows (no shape) compare False, and exists drops them
+    overlap = exists & ~((bbox[:, 0] > q2) | (q0 > bbox[:, 2])
+                         | (bbox[:, 1] > q3) | (q1 > bbox[:, 3]))
+    mask = torch.zeros(segment.nd_pad + 1, dtype=torch.bool,
+                       device=bbox.device)
+    if relation == "disjoint":
+        mask[: segment.nd_pad] = exists & ~overlap
+        cand = overlap
+    elif relation == "contains":
+        # a containing shape's bbox covers the query's, so the doc's
+        # combined bbox does too
+        cand = exists & ((bbox[:, 0] <= q0) & (bbox[:, 1] <= q1)
+                         & (bbox[:, 2] >= q2) & (bbox[:, 3] >= q3))
+    else:
+        # intersects and within: any one of a doc's shapes may qualify,
+        # so the combined bbox only has to overlap
+        cand = overlap
+    return mask, torch.nonzero(cand).flatten().cpu().numpy()
+
+
+def shape_relation(col: dict, candidates: np.ndarray, shape,
+                   relation: str) -> np.ndarray:
+    """The exact planar relation of each candidate doc's shapes to the
+    query shape, on the host: a doc matches when any of its shapes holds
+    the relation (``disjoint``: none intersects)."""
+    out = np.zeros(len(candidates), dtype=bool)
+    for i, doc in enumerate(candidates.tolist()):
+        gs = col["geoms"][doc]
+        if relation == "disjoint":
+            out[i] = not any(g.intersects(shape) for g in gs)
+        else:
+            out[i] = any(g.relate(shape, relation) for g in gs)
+    return out
+
+
+class GeoShapeQueryBuilder(QueryBuilder):
+    """geo_shape: relate the query shape to each doc's indexed shapes
+    (``intersects`` by default, ``disjoint``, ``within``, ``contains``):
+    the device prefilter over the bbox table, the exact relation of the
+    candidates on the host, one dense mask."""
+
+    name = "geo_shape"
+
+    def __init__(self, field: str, shape=None, relation: str = "intersects",
+                 ignore_unmapped: bool = False, **kw):
+        from elasticsearch_tpu_torch.utils.geometry import parse_shape
+
+        super().__init__(**kw)
+        self.field = field
+        self.shape = shape
+        self.relation = str(relation).lower()
+        self.ignore_unmapped = ignore_unmapped
+        if self.relation not in ("intersects", "disjoint", "within",
+                                 "contains"):
+            raise ParsingException(
+                f"Unknown geo_shape relation [{relation}]")
+        if shape is None:
+            raise ParsingException(
+                "[geo_shape] requires a shape or indexed_shape")
+        self._geom = parse_shape(shape)  # once a query, not a segment
+
+    def to_plan(self, ctx, segment):
+        from elasticsearch_tpu_torch.mapper.field_types import (
+            GeoShapeFieldType,
+        )
+
+        ft = ctx.field_type(self.field)
+        if not isinstance(ft, GeoShapeFieldType):
+            if self.ignore_unmapped:
+                return P.MatchNoneNode()
+            raise QueryShardException(
+                f"failed to find geo_shape field [{self.field}]")
+        col = segment.shape_column(self.field)
+        if col is None:
+            mask = np.zeros(segment.nd_pad + 1, dtype=bool)
+        else:
+            mask, candidates = shape_prefilter(
+                segment, self.field, col, self._geom.bbox(), self.relation)
+            if len(candidates):
+                hit = shape_relation(col, candidates, self._geom,
+                                     self.relation)
+                mask[torch.from_numpy(candidates).to(mask.device)] = \
+                    torch.from_numpy(hit).to(mask.device)
+        return P.ConstantScoreNode(
+            P.DenseMaskNode(mask, label=f"geo_shape.{self.field}"),
+            self.boost)
+
+
+class PercolateQueryBuilder(QueryBuilder):
+    """percolate: the stored queries (a ``percolator`` field) that match a
+    candidate document. The candidate is indexed into a one-doc segment on
+    the searched segment's device, with a scratch mapper over the index's
+    mapping (dynamic mapping on); each live doc's stored query plans and
+    runs against it there, and the matching docs form a dense mask."""
+
+    name = "percolate"
+
+    def __init__(self, field: str, document: dict, **kw):
+        super().__init__(**kw)
+        self.field = field
+        self.document = document
+
+    def to_plan(self, ctx, segment):
+        from elasticsearch_tpu_torch.analysis.analyzers import (
+            AnalysisRegistry,
+        )
+        from elasticsearch_tpu_torch.index.segment import SegmentBuilder
+        from elasticsearch_tpu_torch.mapper.mapping import MapperService
+
+        scratch = MapperService(AnalysisRegistry(),
+                                ctx.mapper_service.mapping_dict())
+        builder = SegmentBuilder("_percolate", device=segment.device)
+        builder.add_document(
+            scratch.parse_document("_candidate", self.document), 0)
+        temp_seg = builder.seal()
+        temp_ctx = ShardQueryContext(scratch)
+        locals_, flags = [], []
+        try:
+            temp_dev = temp_seg.device_arrays()
+            for local in np.flatnonzero(segment.live[: segment.num_docs]):
+                stored = segment.sources[int(local)].get(self.field)
+                if not isinstance(stored, dict):
+                    continue
+                try:
+                    node = parse_query(stored).to_plan(temp_ctx, temp_seg)
+                except Exception:  # noqa: BLE001 — a malformed stored
+                    continue  # query never matches
+                # outside the guard: a device or kernel fault is an error,
+                # never a stored query that does not match
+                _, m = P.execute(temp_dev, node)
+                locals_.append(int(local))
+                flags.append(m[0])
+            # one read of every stored query's flag
+            hit = (torch.stack(flags).cpu().numpy() if flags
+                   else np.zeros(0, bool))
+        finally:
+            temp_seg.release_device()
+        matching = [d for d, ok in zip(locals_, hit.tolist()) if ok]
+        if not matching:
+            return P.MatchNoneNode()
+        mask = np.zeros(segment.nd_pad + 1, dtype=bool)
+        mask[matching] = True
+        return P.ConstantScoreNode(P.DenseMaskNode(mask, "percolate"),
                                    self.boost)
 
 
@@ -2214,10 +2385,30 @@ def parse_query(body) -> QueryBuilder:
             raise ParsingException("[geo_polygon] requires exactly one field")
         field, spec = next(iter(params.items()))
         return GeoPolygonQueryBuilder(field, spec.get("points") or [])
+    if qtype == "geo_shape":
+        params = dict(qbody)
+        ignore_unmapped = bool(params.pop("ignore_unmapped", False))
+        boost = float(params.pop("boost", 1.0))
+        if len(params) != 1:
+            raise ParsingException("[geo_shape] requires exactly one field")
+        field, spec = next(iter(params.items()))
+        if "indexed_shape" in spec:
+            raise ParsingException(
+                "[geo_shape] indexed_shape must be resolved by the "
+                "coordinator rewrite before shard execution")
+        return GeoShapeQueryBuilder(
+            field, shape=spec.get("shape"),
+            relation=spec.get("relation", "intersects"),
+            ignore_unmapped=ignore_unmapped, boost=boost)
     if qtype == "script":
         return ScriptQueryBuilder(
             qbody.get("script", qbody), boost=float(qbody.get("boost", 1.0))
         )
+    if qtype == "percolate":
+        doc = qbody.get("document")
+        if doc is None and "documents" in qbody:
+            doc = qbody["documents"][0]
+        return PercolateQueryBuilder(qbody["field"], doc or {})
     if qtype == "more_like_this":
         return MoreLikeThisQueryBuilder(
             qbody.get("fields", []), qbody.get("like", []),
@@ -2252,4 +2443,13 @@ def parse_query(body) -> QueryBuilder:
             inner_hits=qbody.get("inner_hits"),
             boost=float(qbody.get("boost", 1.0)),
         )
+    if qtype == "type":
+        return MatchAllQueryBuilder()  # one doc type in 6.x
+    from elasticsearch_tpu_torch.search.spans import (
+        SPAN_TYPES,
+        parse_span_query,
+    )
+
+    if qtype in SPAN_TYPES:
+        return parse_span_query(body)
     raise ParsingException(f"no [query] registered for [{qtype}]")

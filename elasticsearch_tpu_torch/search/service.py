@@ -43,7 +43,16 @@ coordinators' per-shard failure isolation. ``script_fields`` compile
 once a request and evaluate once a hit on the host: a painless script
 over the hit's typed doc values (keyword strings stay strings), a numeric
 one over ``doc_values_for``, ``_score`` bound to the hit's score (0.0
-under a sort). Suggest waits for a later slice and raises.
+under a sort). A ``suggest`` section is read by the index's
+coordinator (``search/suggest.py``); the shard query phase ignores it.
+
+Index-sort early termination: on an index with ``index.sort.*`` whose
+query sort is a prefix of the index sort (``index/index_sort.
+query_sort_matches_index_sort``, no ``search_after``), each segment's
+doc order is its sort order, so the selection takes the first k matching
+docs in doc order (their sort values still read for the merge); the
+total stays exact and the shard reports ``terminated_early`` when more
+than k docs matched.
 """
 
 from __future__ import annotations
@@ -66,6 +75,9 @@ from elasticsearch_tpu_torch.common.errors import (
     ParsingException,
     QueryPhaseExecutionException,
     es_type_name,
+)
+from elasticsearch_tpu_torch.index.index_sort import (
+    query_sort_matches_index_sort,
 )
 from elasticsearch_tpu_torch.mapper.field_types import (
     GeoPointFieldType,
@@ -100,7 +112,8 @@ SUPPORTED_BODY_KEYS = {"query", "from", "size", "aggs", "aggregations",
                        "terminate_after", "collapse", "highlight",
                        "stored_fields", "docvalue_fields", "script_fields",
                        "track_total_hits", "timeout",
-                       "allow_partial_search_results", "profile", "stats"}
+                       "allow_partial_search_results", "profile", "stats",
+                       "suggest"}
 
 
 def check_body(body: dict) -> None:
@@ -267,6 +280,13 @@ class ShardSearcher:
             k_select = max(k, max(r["window_size"] for r in rescore_specs))
         agg_specs = parse_aggs(source.get("aggs") or source.get("aggregations"))
         profile = bool(source.get("profile", False))
+        # index-sort early termination: doc order is sort order in every
+        # segment of a sorted index
+        index_sorted = (search_after is None
+                        and query_sort_matches_index_sort(
+                            sort_spec, getattr(self.engine, "index_sort",
+                                               None),
+                            mapper_service=self.mapper_service))
         tracer.stop("parse_rewrite", t_parse)
 
         refs: List[DocRef] = []
@@ -342,7 +362,8 @@ class ShardSearcher:
                 seg_refs = self._select_all(seg, scores, matched, sort_spec)
             else:
                 seg_refs = self._select(seg, scores, matched, sort_spec,
-                                        search_after, k_select)
+                                        search_after, k_select,
+                                        index_sorted=index_sorted)
             if rescore_specs and sort_spec is None:
                 seg_refs = self._rescore(seg, dev, seg_refs, rescore_specs)
             tracer.stop("merge", t_merge)
@@ -373,6 +394,10 @@ class ShardSearcher:
             # whether the cap was reached (the observable contract)
             terminated_early = total >= int(terminate_after)
             total = min(total, int(terminate_after))
+        elif index_sorted and total > k:
+            # the first k docs of each segment were taken in doc order;
+            # the total is still exact
+            terminated_early = True
         return ShardQueryResult(
             self.shard_id, total, refs, max_score, agg_views,
             profile=profile_shards if profile else None,
@@ -469,7 +494,15 @@ class ShardSearcher:
         return out
 
     def _select(self, seg, scores, matched, sort_spec, search_after,
-                k) -> List[DocRef]:
+                k, index_sorted: bool = False) -> List[DocRef]:
+        if index_sorted and sort_spec is not None:
+            # doc order is sort order: the first k matching docs, their
+            # sort values read for the cross-segment merge
+            idx = np.flatnonzero(matched[: seg.nd_pad] & seg.live)[:k]
+            _, all_key_arrays = self._sort_keys(seg, scores, sort_spec)
+            return [DocRef(self.shard_id, seg.name, int(d), float(scores[d]),
+                           seg, tuple(arr[d] for arr in all_key_arrays))
+                    for d in idx]
         if sort_spec is None:
             # relevance: top-k by score on the host copy, ties by
             # ascending doc id

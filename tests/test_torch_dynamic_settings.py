@@ -80,10 +80,13 @@ def pair():
 
 @pytest.fixture()
 def mesh_pair(pair):
-    """A 2-shard mesh index on both nodes, filled with 40 seeded docs."""
+    """A 2-shard mesh index on both nodes, filled with 40 seeded docs. The
+    shard request cache is off: the plane counters these tests read must
+    see every repeated ``size: 0`` request served by a plane."""
     pair.same("PUT", "/m", {"settings": {
         "number_of_shards": 2, "refresh_interval": "-1",
-        "search": {"mesh": True}}, "mappings": MAPPING})
+        "search": {"mesh": True},
+        "requests": {"cache": {"enable": False}}}, "mappings": MAPPING})
     fill(pair, "m", seeded_docs(7, 40))
     return pair
 

@@ -3,9 +3,9 @@
 Every processor runs through ``_ingest/pipeline/_simulate`` on both
 packages with the same pipeline and documents, and the outputs must be
 equal (a failing processor's error too, by type and reason). Then the
-geoip and user_agent cases of tests/test_ingest_plugins.py (the other
-eight cases of that file test the ``_size`` field and the phrase and
-completion suggesters, which the port has not yet), the pipeline CRUD
+geoip and user_agent cases of tests/test_ingest_plugins.py (its other
+eight cases, the ``_size`` field and the phrase and completion
+suggesters, are in tests/test_torch_percolate_suggest.py), the pipeline CRUD
 routes, ``?pipeline=`` on a single index request and on ``_bulk``
 (request-level and per item, a dropped doc a ``noop``), and pipelines
 surviving a restart through a durable node's global ``_state``.

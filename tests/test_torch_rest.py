@@ -511,7 +511,7 @@ def test_unported_route_answers_400():
     try:
         tn.create_index("i", {"settings": {"number_of_shards": 1}})
         for method, path in (("GET", "/_nodes/hot_threads"),
-                             ("POST", "/_cache/clear"),
+                             ("POST", "/_nodes/_local/_drain"),
                              ("POST", "/_cluster/reroute"),
                              ("GET", "/_remote/info"),
                              ("GET", "/_cat/plugins")):
@@ -520,10 +520,13 @@ def test_unported_route_answers_400():
             assert b["error"]["type"] == "illegal_argument_exception"
             assert "not supported by the PyTorch port yet" in \
                 b["error"]["reason"], (path, b)
-        # ported since: track_total_hits, _explain and _all search answer
+        # ported since: track_total_hits, _explain, _all search and
+        # _cache/clear answer
         for method, path in (("GET", "/i/_search?track_total_hits=true"),
                              ("GET", "/i/_explain/1"),
-                             ("GET", "/_search")):
+                             ("GET", "/_search"),
+                             ("POST", "/_cache/clear"),
+                             ("POST", "/i/_cache/clear")):
             st, _, b = call(srv.port, method, path, {})
             assert st == 200, (path, b)
         # ported since: _update and _mget (a missing doc is a 404, an

@@ -184,22 +184,33 @@ def test_documents_and_routing(nodes):
 
 
 def test_unported_requests_raise(nodes):
-    """Unported query types and suggest raise; scripted_metric and
+    """An unknown query type raises; the span and geo_shape queries and
+    suggest (the field-type and query remainder), scripted_metric and
     script_fields (ported with ``script/``) answer as the JAX package."""
     jn, tn = nodes
     with pytest.raises(ParsingException):
-        tn.search("idx", {"query": {"span_term": {"title": "w1"}}})
-    with pytest.raises(ParsingException):
-        tn.search("idx", {"query": {"geo_shape": {"loc": {"shape": {
-            "type": "point", "coordinates": [0.0, 0.0]}}}}})
+        tn.search("idx", {"query": {"span_bogus": {"title": "w1"}}})
+    body = {"query": {"span_term": {"title": "w1"}}}
+    jr, tr = jn.search("idx", dict(body)), tn.search("idx", dict(body))
+    assert tr["hits"]["total"] == jr["hits"]["total"]
+    assert [h["_id"] for h in tr["hits"]["hits"]] == \
+        [h["_id"] for h in jr["hits"]["hits"]]
+    body = {"query": {"geo_shape": {"loc": {"shape": {
+        "type": "point", "coordinates": [0.0, 0.0]}}}}}
+    with pytest.raises(Exception) as je:
+        jn.search("idx", dict(body))
+    with pytest.raises(Exception) as te:
+        tn.search("idx", dict(body))
+    assert (type(te.value).__name__, str(te.value)) == \
+        (type(je.value).__name__, str(je.value))
     body = {"size": 0, "aggs": {"n": {"scripted_metric": {
         "map_script": "1"}}}}
     assert (tn.search("idx", dict(body))["aggregations"]
             == jn.search("idx", dict(body))["aggregations"])
-    with pytest.raises(IllegalArgumentException):
-        tn.search("idx", {"query": {"match_all": {}},
-                          "suggest": {"s": {"text": "w1", "term": {
-                              "field": "title"}}}})
+    body = {"query": {"match_all": {}},
+            "suggest": {"s": {"text": "w1", "term": {"field": "title"}}}}
+    assert (tn.search("idx", dict(body))["suggest"]
+            == jn.search("idx", dict(body))["suggest"])
     body = {"query": {"match_all": {}}, "sort": [{"year": "asc"}],
             "script_fields": {"y": {"script": {"source": "doc['year'].value"}}}}
     jr, tr = jn.search("idx", dict(body)), tn.search("idx", dict(body))

@@ -411,10 +411,11 @@ def test_wrong_dtype_raises(tmp_path):
 @pytest.mark.parametrize("kind", ["geo_point", "geo_shape", "nested",
                                   "_parent"])
 def test_unported_columns_refuse_the_load(tmp_path, kind):
-    """A JAX segment with a column the port has no type for fails the
-    load naming the kind; it never opens without that column. Geo points,
-    nested objects and ``_parent`` values are ported: those segments load
-    with their column, sub-segment or parents."""
+    """A JAX segment with a column the port has no type for would fail
+    the load naming the kind; it never opens without that column. Every
+    kind is ported now: geo points, geo shapes, nested objects and
+    ``_parent`` values load with their column, shapes, sub-segment or
+    parents."""
     mapping = {"properties": {"title": {"type": "text"},
                               "loc": {"type": "geo_point"},
                               "area": {"type": "geo_shape"},
@@ -440,6 +441,12 @@ def test_unported_columns_refuse_the_load(tmp_path, kind):
         for k in ("lat", "lon", "flat_docs", "first_lat", "first_lon",
                   "exists"):
             np.testing.assert_array_equal(getattr(col, k), getattr(jcol, k))
+        return
+    if kind == "geo_shape":
+        back, = tstore.Store(str(tmp_path)).load_segments("cpu")
+        assert back.shapes == seg.shapes
+        np.testing.assert_array_equal(back.exists_masks["area"],
+                                      seg.exists_masks["area"])
         return
     if kind in ("nested", "_parent"):
         back, = tstore.Store(str(tmp_path)).load_segments("cpu")
