@@ -76,7 +76,7 @@ prints no result, when there is no GPU or any check fails. Phases:
    ``scripting`` entry), then the device line.
 
 Run between phases 2 and 3, and after phase 4 (phase 10 after phase 9,
-then phases 11, 12, 19, 20, 13, 14, 15, 16, 17 and 18):
+then phases 11, 12, 19, 20, 21, 22, 24, 13, 14, 15, 23, 16, 17 and 18):
 
 2b. Kernels 1b (dense, q_batch=16, with and without counts) and 1c (fused
     per-tile top-k, q_batch 1 and 16, k=16) on the 1M-doc corpus, for 16
@@ -296,7 +296,8 @@ then phases 11, 12, 19, 20, 13, 14, 15, 16, 17 and 18):
     kernel-2 call of its main path held against plain; the summary line's
     ``sort_paging`` entry holds the numbers.
 17. Field types and text fielddata on the card, after phase 16
-    (``geo_fields_phase``): pmc-4x256k's doc-values form with ``loc``
+    (``geo_fields_phase``): two of pmc-4x256k's shards in their
+    doc-values form with ``loc``
     (geo_point: one point for 93% of docs, two for 5%, none for 2%,
     around 500 zipf-weighted centres over the land masses, Rally
     geonames' shape), ``clientip`` (ip: 50,000 zipf-weighted addresses,
@@ -323,14 +324,15 @@ then phases 11, 12, 19, 20, 13, 14, 15, 16, 17 and 18):
     mesh tile-form) launch and kernel-2 call held against plain; the
     summary line's ``field_types`` entry holds the numbers.
 18. Nested documents and the parent-join field on the card, after phase
-    17 (``nested_phase``): sonested-4x256k, the shape of Rally's
-    ``nested`` track (pmc-4x256k's titles as StackOverflow questions with
-    ``qid``, ``user``, 1-5 zipf ``tag``s and ``creationDate``; 0-8
-    ``answers`` as nested objects, about 1.78M, each with a zipf
+    17 (``nested_phase``): sonested-2x256k, the shape of Rally's
+    ``nested`` track (two of pmc-4x256k's shards' titles as StackOverflow
+    questions with ``qid``, ``user``, 1-5 zipf ``tag``s and
+    ``creationDate``; 0-8
+    ``answers`` as nested objects, about 0.89M, each with a zipf
     ``answers.user`` of 200,000 and an ``answers.date``), in ``sonested``
     (the mesh plane) and ``sonestedh`` (the host rung), and its join form
     (the same questions as ``question`` parents and a segment a shard of
-    ``answer`` children routed by qid, about 2.8M docs) in ``sojoin`` /
+    ``answer`` children routed by qid, about 1.4M docs) in ``sojoin`` /
     ``sojoinh``, each request against a cpu node's twin. 18a nested
     queries alone and under a match, every score_mode, inner_hits; 18b
     nested sorts (host rung, ``sort_ineligible``) and 10 search_after
@@ -439,6 +441,26 @@ then phases 11, 12, 19, 20, 13, 14, 15, 16, 17 and 18):
     plain; the summary line's ``remainder`` entry. A faster store load
     (13c's reopen and 22e's restore parse ``sources.jsonl`` in one pass)
     pays for part of its time.
+24. The device-side infrastructure on the card, right after phase 22
+    (``infrastructure_phase``), on phase 7's pmc-4x256k over REST, every
+    answer equal to the cpu node's: 24a telemetry (``search.phases`` in
+    ``_stats`` and ``_nodes/stats`` counts every request, a slowlog line
+    a request with its X-Opaque-Id, ``hot_threads``); 24b admission (a
+    24-client burst of two tenants against a queue of 6: admitted,
+    rejected and pool-rejected partition what was sent, 429s carry
+    ``Retry-After``; the brownout forces the pruned kernel 1e and sheds
+    aggregations; the widened window batches an aggregation burst, 1b);
+    24c the drain (in-flight searches finish, new ones get 503 with
+    ``Retry-After``, a compaction aborts, undrain answers as before); 24e
+    the fault schemes (a plane fault served by the next rung; a 1a and a
+    kernel-3 launch fault answering 500 with nothing benched; an eviction
+    storm: the answers equal, the kernel serving the next request); 24f the scrubber over pmc4h's staged tables (drift 0,
+    then one flipped byte on the card: drift 1, restaged with the
+    ``scrub`` reason). 24d runs in 13c: its durable index reopened with
+    ``search.compile.warm_on_start``, the warm replay joined, the first
+    answer beside 13c's cold one, every answer as before the close. The
+    other phases' reopens are cold (``cold_reopen``). Every launch held
+    against plain; the summary line's ``infrastructure`` entry.
 
 Every index a phase builds pins ``index.refresh_interval: -1`` (the
 port's scheduled refresh runs every second by default): its segment
@@ -496,6 +518,9 @@ REQUEST_DURABLE_DOCS = 400
 ASYNC_DURABLE_DOCS = 1_000
 ANALYZED_DOCS = 1_000
 GEO_INGEST_DOCS = 1_000
+# phase 17's geo4 / geo4h: two of pmc-4x256k's shards (cut from four: a
+# depth cut, the coverage is a multi-shard mesh's)
+GEO_SHARDS = 2
 # pmc-4x256k: four shards of one 262,144-doc segment each (seeds 7-10)
 MESH_SHARD_DOCS = 262_144
 MESH_SEEDS = (7, 8, 9, 10)
@@ -565,6 +590,23 @@ def unique_counts(keys):
     return u.cpu().numpy(), c.cpu().numpy()
 
 
+def draw_tokens(rng, n, probs, threads=8):
+    """``rng.choice(len(probs), n, p=probs)`` drawn the way RandomState
+    draws it (one ``random_sample(n)`` against the cumulated
+    probabilities, so the values and the generator's state after it are
+    the same), with the search over the cdf split across threads (numpy
+    releases the GIL there): tens of millions of tokens a corpus."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    cdf = probs.cumsum()
+    cdf /= cdf[-1]
+    uniform = rng.random_sample(n)
+    with ThreadPoolExecutor(threads) as pool:
+        parts = list(pool.map(lambda u: cdf.searchsorted(u, side="right"),
+                              np.array_split(uniform, threads)))
+    return np.concatenate(parts)
+
+
 def build_synthetic_corpus(seed=7, n_docs=N_DOCS, empty_share=0.0,
                            keep_stream=False, avg_len=AVG_DOC_LEN):
     """``empty_share``: the share of docs drawn empty (no token: the field
@@ -584,7 +626,7 @@ def build_synthetic_corpus(seed=7, n_docs=N_DOCS, empty_share=0.0,
     ranks = np.arange(1, VOCAB + 1)
     probs = 1.0 / ranks
     probs /= probs.sum()
-    tokens = rng.choice(VOCAB, total_tokens, p=probs).astype(np.int32)
+    tokens = draw_tokens(rng, total_tokens, probs).astype(np.int32)
     doc_of_token = np.repeat(np.arange(n_docs, dtype=np.int32), doc_len)
     keys = tokens.astype(np.int64) * n_docs + doc_of_token
     uniq, counts = unique_counts(keys)
@@ -2247,13 +2289,15 @@ def mesh_phase(torch, Node, Segment, cuda_kernels, queries, top_rank_term,
     the card's segments, the cpu node's segments, each shard's
     Segment.from_arrays fields without the vectors, the held segment-sum
     launches, each shard's title token stream and doc lengths)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from elasticsearch_tpu_torch.ops import tile_scoring as tsc
     from elasticsearch_tpu_torch.search import query_dsl as Q
 
     t0 = time.perf_counter()
-    corpora = [build_synthetic_corpus(seed, MESH_SHARD_DOCS,
-                                      keep_stream=True)
-               for seed in MESH_SEEDS]
+    with ThreadPoolExecutor(len(MESH_SEEDS)) as pool:
+        corpora = list(pool.map(lambda seed: build_synthetic_corpus(
+            seed, MESH_SHARD_DOCS, keep_stream=True), MESH_SEEDS))
     log(f"[phase 7] pmc-4x256k corpora: {[c['block_docs'].shape[0] for c in corpora]} "
         f"posting blocks ({time.perf_counter() - t0:.1f} s)")
     mapping = {"_doc": {"properties": {
@@ -2367,6 +2411,18 @@ def mesh_phase(torch, Node, Segment, cuda_kernels, queries, top_rank_term,
     streams = [(c["tokens"], c["doc_len"]) for c in corpora]
     return (gnode, cnode, gsegs, csegs, shard_arrays, held["segment_sum"],
             streams)
+
+
+def cold_reopen(Node, path, device, settings=None):
+    """A durable node reopened without the warm replay
+    (``search.compile.warm_on_start: false``): the cold reopen the
+    recovery phases time and hold their launches on; phase 24d reopens
+    warm."""
+    from elasticsearch_tpu_torch.common.settings import Settings
+
+    return Node(Settings({**(settings or {}),
+                          "search.compile.warm_on_start": False}),
+                data_path=path, device=device)
 
 
 def _same_exact(got, want):
@@ -3098,8 +3154,9 @@ def pruned_phase(torch, Node, Segment, cuda_kernels, tsc, queries, lat,
     log(f"[phase 10] indices built in {time.perf_counter() - t0:.1f} s")
     svc = gP.indices["pmc4p"]
     tok = term_token
+    # four match queries (cut from eight: a depth cut, each kind is kept)
     matches = [{"query": {"match": {"title": " ".join(tok(t) for t in q)}},
-                "size": 10} for q in queries[:8]]
+                "size": 10} for q in queries[:4]]
     bools = [{"query": {"bool": {"must": [{"match": {"title": " ".join(
         tok(t) for t in q)}}], "filter": [{"range": {"year": {
             "gte": 2000}}}]}}, "size": 10} for q in queries[8:10]]
@@ -3400,13 +3457,27 @@ class HttpClient:
 
     def call(self, method, path, body=None, ctype="application/json"):
         """-> (status, decoded body); the body is JSON or NDJSON bytes."""
+        status, _headers, out = self.request(method, path, body, ctype)
+        return status, out
+
+    def request(self, method, path, body=None, ctype="application/json",
+                headers=None):
+        """-> (status, response headers, body): JSON decoded, text as a
+        string; ``headers`` go with the request (an X-Opaque-Id)."""
         if body is not None and not isinstance(body, bytes):
             body = json.dumps(body).encode()
-        headers = {"Content-Type": ctype} if body is not None else {}
-        self.conn.request(method, path, body=body, headers=headers)
+        hdrs = dict(headers or {})
+        if body is not None:
+            hdrs["Content-Type"] = ctype
+        self.conn.request(method, path, body=body, headers=hdrs)
         resp = self.conn.getresponse()
         raw = resp.read()
-        return resp.status, (json.loads(raw) if raw else None)
+        got = {k: v for k, v in resp.getheaders()}
+        if not raw:
+            return resp.status, got, None
+        if (resp.getheader("Content-Type") or "").startswith("text/"):
+            return resp.status, got, raw.decode()
+        return resp.status, got, json.loads(raw)
 
     def close(self):
         self.conn.close()
@@ -5846,9 +5917,18 @@ def _recover_full_width(torch, Node, cuda_kernels, tsc, ssum, knn, reqs7,
         "emb": {"type": "dense_vector", "dims": KNN_DIMS,
                 "similarity": "cosine"}}}}
     aggs12 = agg_requests(queries)
-    bodies = ([(f"7/{i}/{k}", b) for i, (k, b, _t) in enumerate(reqs7)]
-              + [(f"9/{k}", b) for k, b in knn_bodies]
-              + [(f"12/{i}/{k}", b) for i, (k, b, _r) in enumerate(aggs12)])
+    # one body of each kind of phases 7, 9 and 12 (cut from every body as
+    # phase 24 joined: the kinds, and so the paths, are the same)
+    kinds, bodies = set(), []
+    for label, body in ([(f"7/{i}/{k}", b)
+                         for i, (k, b, _t) in enumerate(reqs7)]
+                        + [(f"9/{k}", b) for k, b in knn_bodies]
+                        + [(f"12/{i}/{k}", b)
+                           for i, (k, b, _r) in enumerate(aggs12)]):
+        kind = (label.split("/")[0], label.rsplit("/", 1)[-1])
+        if kind not in kinds:
+            kinds.add(kind)
+            bodies.append((label, body))
     # phase 8's match burst (one batched fused top-k launch a slot, 1c)
     # and phase 12's agg burst (one batched dense launch a slot, 1b)
     dash = aggs12[0][1]["aggs"]
@@ -5926,8 +6006,7 @@ def _recover_full_width(torch, Node, cuda_kernels, tsc, ssum, knn, reqs7,
     # the reopen: construction (load, checksums, version maps), staging,
     # the first answer
     t0 = time.perf_counter()
-    g2 = Node(Settings({"path.repo": [repo_root]}), data_path=path,
-              device="cuda")
+    g2 = cold_reopen(Node, path, "cuda", {"path.repo": [repo_root]})
     load_s = time.perf_counter() - t0
     svc = g2.indices["dur4"]
     check(sum(svc.recovered_ops.values()) == 0,
@@ -5984,6 +6063,13 @@ def _recover_full_width(torch, Node, cuda_kernels, tsc, ssum, knn, reqs7,
     check(abs(mem_end - mem0) <= 1 << 20,
           f"phase 13c close after the recovery returned device memory "
           f"({mem0} -> {mem_end} bytes)")
+    # phase 24d: the same index reopened warm
+    warm = warm_reopen(torch, Node, cuda_kernels, tsc, ssum, knn, path,
+                       repo_root, bodies, before, first_ms, errs, smi)
+    mem_warm = torch.cuda.memory_allocated()
+    check(abs(mem_warm - mem0) <= 1 << 20,
+          f"phase 24d close after the warm reopen returned device memory "
+          f"({mem0} -> {mem_warm} bytes)")
     # every launched kernel was held (hold_recovered_path checks it), so
     # each has its held count and its largest difference of 13c alone
     kernels = [{"name": k, "launches": v, "held": held[k],
@@ -6002,6 +6088,7 @@ def _recover_full_width(torch, Node, cuda_kernels, tsc, ssum, knn, reqs7,
            "launches": launches, "held": held, "kernels": kernels}
     log(f"[phase 13c] {json.dumps(out)}")
     out["22e"] = snap
+    out["24d"] = warm
     return out
 
 
@@ -7786,7 +7873,7 @@ def geo_fields_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, queries,
                      shard_arrays, title_streams, ingest_ops, errs,
                      device="cuda"):
     """Phase 17: the field types and text fielddata at full width, on
-    pmc-4x256k's doc-values form (phase 16's ``ts``, ``citations``,
+    two of pmc-4x256k's shards in their doc-values form (phase 16's ``ts``, ``citations``,
     ``venue``) with ``loc`` (geo_point), ``clientip`` (ip), ``active``
     (date_range), ``title.length`` (token_count) and text fielddata on
     ``title``, in ``geo4`` (the mesh plane) and ``geo4h`` (the host rung)
@@ -7852,6 +7939,7 @@ def geo_fields_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, queries,
         "ts": {"type": "date"}, "citations": {"type": "long"},
         "loc": {"type": "geo_point"}, "clientip": {"type": "ip"},
         "active": {"type": "date_range"}}}}
+    shard_arrays = shard_arrays[:GEO_SHARDS]
     settings = Settings(GEO_BREAKER)
     gnode = Node(settings, device=device)
     cnode = Node(settings, device="cpu")
@@ -7860,7 +7948,7 @@ def geo_fields_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, queries,
         for name in names:
             extra = {"search": {"mesh": False}} if name == "geo4h" else {}
             node.create_index(name, {"settings": {
-                "number_of_shards": 4, "refresh_interval": "-1",
+                "number_of_shards": GEO_SHARDS, "refresh_interval": "-1",
                 "requests.cache.enable": False, **extra},
                 "mappings": mapping})
     t0 = time.perf_counter()
@@ -8457,7 +8545,7 @@ def geo_ingest_phase(torch, Node, Segment, ingest_ops, bodies, device):
         node.close()
         out["flush_close_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        node = Node(data_path=tmp, device=device)
+        node = cold_reopen(Node, tmp, device)
         out["reopen_s"] = time.perf_counter() - t0
         after = answers(node)
         check(after == before, "phase 17f: the reopened node answers every "
@@ -8477,9 +8565,11 @@ def geo_ingest_phase(torch, Node, Segment, ingest_ops, bodies, device):
 # Phase 18: nested documents and the parent-join field
 # ----------------------------------------------------------------------
 
-# sonested-4x256k: Rally's nested track (StackOverflow questions with their
-# answers as nested objects), one shard a pmc-4x256k segment's title
+# sonested-2x256k: Rally's nested track (StackOverflow questions with their
+# answers as nested objects), one shard a pmc-4x256k segment's title; two
+# shards (cut from four: a depth cut, the coverage is a multi-shard mesh's)
 SO_SEEDS = (21, 22, 23, 24)
+SO_SHARDS = 2
 SO_T0 = 1_199_145_600_000  # 2008-01-01T00:00:00Z
 SO_T1 = 1_483_228_800_000  # 2017-01-01T00:00:00Z
 SO_DAY = 86_400_000
@@ -8855,15 +8945,15 @@ def _timed_wraps(Q):
 def nested_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, knn,
                  queries, shard_arrays, errs, device="cuda"):
     """Phase 18: nested documents and the parent-join field at full width,
-    on sonested-4x256k (Rally's ``nested`` track: pmc-4x256k's titles as
+    on sonested-2x256k (two of pmc-4x256k's shards; Rally's ``nested`` track: pmc-4x256k's titles as
     StackOverflow questions with ``qid``, ``user``, 1-5 zipf ``tag``s of
     5,000 and ``creationDate``, and 0-8 ``answers`` as nested objects,
-    about 1.8M, each with a zipf ``answers.user`` of 200,000 and an
+    about 0.9M, each with a zipf ``answers.user`` of 200,000 and an
     ``answers.date``) in ``sonested`` (the mesh plane) and ``sonestedh``
     (the host rung), and its join form in ``sojoin`` / ``sojoinh``: the
     same questions segment as ``question`` parents beside a segment a
     shard of the answers as ``answer`` child docs routed by their
-    question's qid (about 2.8M docs). Every request runs twice on the
+    question's qid (about 1.4M docs). Every request runs twice on the
     mesh index (its p50's samples) and once on the host twin, the mesh
     index's answers held against the host twin's (the twin runs first;
     no cpu node copies the corpus: the host rung's 1a and kernel-2
@@ -8889,7 +8979,7 @@ def nested_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, knn,
          own host ms apart from its inner query's.
     18e. 1% of the questions deleted (a nested count drops by exactly
          their objects; it and the nested queries alone equal the host
-         twin's), 4 x 4,096 questions appended (a delta append), 18a's
+         twin's), 2 x 4,096 questions appended (a delta append), 18a's
          nested clauses again; after ``DELETE`` ``memory_allocated`` and
          the ledger back to their levels with the sub-segments' scopes
          released.
@@ -8904,6 +8994,7 @@ def nested_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, knn,
     Every 1a (and tile-form), kernel-2 and kernel-3 launch of the phase's
     main path is held against its plain version. Returns the report."""
     import gc
+    from concurrent.futures import ThreadPoolExecutor
 
     from elasticsearch_tpu_torch.common.memory import memory_accountant
     from elasticsearch_tpu_torch.common.settings import Settings
@@ -8912,6 +9003,7 @@ def nested_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, knn,
     t_phase = time.perf_counter()
     report = {}
     tok = term_token
+    shard_arrays = shard_arrays[:SO_SHARDS]
     acct = memory_accountant()
 
     def level():
@@ -8938,12 +9030,12 @@ def nested_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, knn,
                          {"search": {"mesh": {"max_slots_per_device": 8}},
                           "staging": {"compact": {"threshold": 0}}})
                 node.create_index(base + suffix, {"settings": {
-                    "number_of_shards": 4, "refresh_interval": "-1",
+                    "number_of_shards": SO_SHARDS,
+                    "refresh_interval": "-1",
                     "requests.cache.enable": False,
                     **extra}, "mappings": mapping})
     t0 = time.perf_counter()
-    split = {"columns": 0.0, "nested_arrays": 0.0, "join_arrays": 0.0,
-             "segments": 0.0, "adopt": 0.0}
+    split = {"arrays": 0.0, "segments": 0.0, "adopt": 0.0}
 
     def clocked(key, fn, *a, **kw):
         t1 = time.perf_counter()
@@ -8951,17 +9043,23 @@ def nested_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, knn,
         split[key] += time.perf_counter() - t1
         return out
 
+    def shard_build(sh):
+        """A shard's columns, nested form and join answers (numpy over
+        the shard's own seed: the shards build on threads at once)."""
+        arrays = shard_arrays[sh]
+        c = so_columns(sh, len(arrays["doc_ids"]), arrays["doc_ids"])
+        return c, so_nested_arrays(arrays, c), so_answer_arrays(c, sh)
+
     cols, gsegs, gjoin = [], [], []
-    # millions of long-lived objects (version-map entries, lists): no
-    # cycle collection while they are made
+    # millions of long-lived objects (lists, column arrays): no cycle
+    # collection while they are made
     gc.disable()
     try:
-        for sh, arrays in enumerate(shard_arrays):
-            n = len(arrays["doc_ids"])
-            c = clocked("columns", so_columns, sh, n, arrays["doc_ids"])
+        with ThreadPoolExecutor(len(shard_arrays)) as pool:
+            built = clocked("arrays", lambda: list(pool.map(
+                shard_build, range(len(shard_arrays)))))
+        for sh, (c, nested, answers) in enumerate(built):
             cols.append(c)
-            nested = clocked("nested_arrays", so_nested_arrays, arrays, c)
-            answers = clocked("join_arrays", so_answer_arrays, c, sh)
             for node, dev, segs, jsegs, twins in (
                     (gnode, device, gsegs, gjoin, ("", "h")),):
                 seg = clocked("segments", Segment.from_arrays,
@@ -8986,7 +9084,8 @@ def nested_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, knn,
     report["answers"] = sum(len(c["parent_of"]) for c in cols)
     report["join_docs"] = sum(s.num_docs for s in gsegs + gjoin)
     report["build_s"] = time.perf_counter() - t0
-    log(f"[phase 18] sonested-4x256k: {report['questions']} questions, "
+    log(f"[phase 18] sonested-{SO_SHARDS}x256k: {report['questions']} "
+        f"questions, "
         f"{report['answers']} answers as nested objects (mean "
         f"{report['answers'] / report['questions']:.3f}), the join form "
         f"{report['join_docs']} docs; built in {report['build_s']:.1f} s "
@@ -9259,10 +9358,10 @@ def nested_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, knn,
             # title term only outside it
             per_shard = [np.bincount(c["auser"], minlength=SO_USERS) > 0
                          for c in cols]
-            outside = np.flatnonzero(~per_shard[0] & (
-                per_shard[1] | per_shard[2] | per_shard[3]))
+            outside = np.flatnonzero(~per_shard[0] & np.logical_or.reduce(
+                per_shard[1:]))
             c13_user = SO_USER_TERMS[int(outside[0])]
-            c13_qids = [cols[2]["ids"][5], cols[3]["ids"][9]]
+            c13_qids = [cols[-1]["ids"][5], cols[-1]["ids"][9]]
             bodies["c13_has_child"] = ("sojoin", {"query": {"has_child": {
                 "type": "answer", "query": {"term": {"user": c13_user}}}}})
             bodies["c13_has_parent"] = ("sojoin", {"query": {"has_parent": {
@@ -9291,7 +9390,7 @@ def nested_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, knn,
             count_kind = "nested_count"
             before = {i: gnode.search(i, dict(count_body))["aggregations"][
                 "a"]["doc_count"] for i in ("sonested", "sonestedh")}
-            routing = _routing_for_shards(4)
+            routing = _routing_for_shards(SO_SHARDS)
             dropped = 0
             n_deleted = 0
             for sh, c in enumerate(cols):
@@ -9321,7 +9420,7 @@ def nested_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, knn,
                                      ms_nested.tombstone_update_total - tomb0}
             delta0 = ms_nested.delta_restage_total
             appended = []
-            for sh in range(4):
+            for sh in range(SO_SHARDS):
                 corpus = build_synthetic_corpus(SO_SEEDS[sh] + 200,
                                                 SO_APPEND)
                 arrays = corpus_segment_arrays(corpus, id_prefix=f"s{sh}n")
@@ -9339,7 +9438,7 @@ def nested_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, knn,
                 if "under_match" not in kind:
                     both("sonested", bodies[kind][1], kind + "_after_append",
                          reps=1, twin=False)
-            report["appended"] = {"questions": 4 * SO_APPEND,
+            report["appended"] = {"questions": SO_SHARDS * SO_APPEND,
                                   "objects": sum(appended),
                                   "delta_appends":
                                       ms_nested.delta_restage_total - delta0}
@@ -9598,7 +9697,7 @@ def nested_ingest_phase(torch, Node, Segment, device, bodies):
         node.close()
         out["flush_close_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        node = Node(data_path=tmp, device=device)
+        node = cold_reopen(Node, tmp, device)
         out["reopen_s"] = time.perf_counter() - t0
         after = answers(node)
         check(after == merged, "phase 18f: the reopened node answers every "
@@ -10168,7 +10267,7 @@ def _metadata_restart(Node, HttpServer, path, device, item):
     node.close()
     out["close_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    node2 = Node(data_path=path, device=device)
+    node2 = cold_reopen(Node, path, device)
     out["reopen_s"] = time.perf_counter() - t0
     srv = HttpServer(node2, port=0)
     srv.start()
@@ -12185,6 +12284,672 @@ def remainder_phase(torch, Node, Segment, cuda_kernels, tsc, ssum, knn,
     return report
 
 
+# ----------------------------------------------------------------------
+# phase 24: the device-side infrastructure (telemetry, admission and the
+# drain, the warm replay, the device fault schemes, the scrubber)
+# ----------------------------------------------------------------------
+
+
+def infrastructure_phase(torch, HttpServer, cuda_kernels, tsc, ssum, knn,
+                         g7, c7, reqs, knn_body, rest_report, errs, smi,
+                         device="cuda"):
+    """Phase 24: the device-side infrastructure on pmc-4x256k (phase 7's
+    ``pmc4``, ``mesh_pallas``, and ``pmc4h``, the same segments on the host
+    rung), over REST through an ``HttpServer`` on phase 7's node; every
+    answer against phase 7's cpu node with ``_shards.failed == 0``.
+
+    24a. Telemetry: phase 3's requests (matches, a bool filter, a terms
+         aggregation) and phase 9's kNN body, each with its own
+         ``X-Opaque-Id``, at a 0 ms slowlog threshold: ``_stats``'
+         ``search.phases`` and ``_nodes/stats``' ``indices.search.phases``
+         count every request (``queries_recorded``, the fetch span's
+         histogram counts), the slowlog has one line a request carrying
+         its id, ``GET /_nodes/hot_threads`` answers 200.
+    24b. Admission: a burst of 24 HTTP clients (two tenants, 16 and 8)
+         against ``search.queue.size: 6`` and ``max_concurrent: 2`` (PUT
+         ``_cluster/settings``): the admission counters and the search
+         pool's rejections partition what was sent, every 429 carries
+         ``Retry-After``, both tenants are admitted; the admitted p50
+         beside the serial p50 and phase 11's HTTP p50. Then synthetic
+         pressure (``QueuePressureScheme``): at the first brownout step a
+         match runs the pruned kernel (1e) marked ``_degraded``; at the
+         third a terms aggregation is shed; at the second a concurrent
+         aggregation burst forms batches under the widened window (1b).
+    24c. The drain: clients searching in a loop, ``POST
+         /_nodes/_local/_drain`` in the middle: the searches in flight
+         finish, new ones answer 503 with ``Retry-After``, a compaction
+         aborts (``draining``); ``DELETE`` ends it and the same body
+         answers the same hits as before. The drain's seconds.
+    24e. Faults over REST: ``PlaneFailScheme`` on ``mesh_pallas`` serves
+         from the scatter mesh and benches the plane;
+         ``KernelLaunchFailScheme`` on the 1a launch and on ``knn``
+         (kernel 3) raises ``KernelError`` as a real launch failure does:
+         a 500, no rung serves in the kernel's place, nothing benched;
+         ``EvictionStormScheme`` evicts the coldest staging and the plane
+         restages; each answer equals the cpu node's, each scheme's
+         decisions and restages counted, and the kernel serves the next
+         request.
+    24f. The scrubber on pmc4h: a pass over the staged base tables
+         (``block_docs``, ``block_tfs``, ``norms`` copied back and hashed):
+         bytes verified, drift 0, seconds per GB; one byte flipped in a
+         staged ``block_docs`` on the card: drift 1, the segment restaged
+         with the ``scrub`` reason, the next answer equal.
+
+    24d (the warm reopen) runs inside phase 13c, on its durable index.
+    Every launch is held against its plain version. Returns the report."""
+    import copy
+    import logging
+
+    from elasticsearch_tpu_torch.common.memory import memory_accountant
+    from elasticsearch_tpu_torch.rest.handlers import _render_total_hits
+    from elasticsearch_tpu_torch.testing import disruption as tdis
+
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    report = {}
+    acc = {}
+    gsvc, hsvc = g7.indices["pmc4"], g7.indices["pmc4h"]
+    srv = HttpServer(g7, port=0)
+    srv.start()
+    client = HttpClient(srv.port)
+    match = reqs[0][1]
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def held(label):
+        return held_block(torch, cuda_kernels, tsc, ssum, knn, errs, label,
+                          acc, on_card=on_card)
+
+    def sound(r, what):
+        check(isinstance(r, dict) and r["_shards"]["failed"] == 0,
+              f"{what}: answered with no failed shard ({str(r)[:200]})")
+
+    def stats(path="/pmc4/_stats"):
+        st, _h, r = client.request("GET", path)
+        check(st == 200, f"24: GET {path} answered {st}")
+        if path.startswith("/_nodes"):
+            return next(iter(r["nodes"].values()))["indices"]["search"]
+        return r["indices"]["pmc4"]["total"]["search"]
+
+    def reset_health(*svcs):
+        for svc in svcs:
+            ms = svc._mesh_search
+            if ms is not None:
+                with ms.plane_health._lock:
+                    ms.plane_health._quarantined_until.clear()
+                    ms.plane_health._probe_until.clear()
+
+    try:
+        # -------- 24a: telemetry --------
+        t0 = time.perf_counter()
+        lines = []
+
+        class Lines(logging.Handler):
+            def emit(self, record):
+                lines.append(record.getMessage())
+
+        slog = logging.getLogger("elasticsearch_tpu_torch.index.search.slowlog")
+        handler, level0 = Lines(), slog.level
+        slog.addHandler(handler)
+        slog.setLevel(logging.INFO)
+        g7.update_index_settings("pmc4", {
+            "index.search.slowlog.threshold.query.info": "0ms"})
+        # one request of each kind of phase 3's, and phase 9's kNN body
+        bodies = list({k: b for k, b, _t in reversed(reqs)}.values())
+        bodies.append(dict(knn_body))
+        base_i, base_n = stats(), stats("/_nodes/stats")
+        with held("phase 24a") as mine:
+            for i, body in enumerate(bodies):
+                st, _h, r = client.request("POST", "/pmc4/_search", body,
+                                           headers={"X-Opaque-Id": f"t24-{i}"})
+                check(st == 200, f"24a request {i} answered {st}")
+                sound(r, f"24a request {i}")
+                same_response(r, c7.search("pmc4", dict(body)),
+                              f"24a request {i}")
+        after_i, after_n = stats(), stats("/_nodes/stats")
+        g7.update_index_settings("pmc4", {
+            "index.search.slowlog.threshold.query.info": "-1"})
+        slog.removeHandler(handler)
+        slog.setLevel(level0)
+
+        def fetch_count(block):
+            return sum(sum(per["fetch"].values()) for per in
+                       block["phases"]["histogram_us"].values()
+                       if "fetch" in per)
+
+        n = len(bodies)
+        rec_i = (after_i["phases"]["queries_recorded"]
+                 - base_i["phases"]["queries_recorded"])
+        rec_n = (after_n["phases"]["queries_recorded"]
+                 - base_n["phases"]["queries_recorded"])
+        fetch_i = fetch_count(after_i) - fetch_count(base_i)
+        check(rec_i == rec_n == fetch_i == n,
+              f"24a search.phases counts every request ({rec_i} index, "
+              f"{rec_n} node, {fetch_i} fetch spans; {n} sent)")
+        ids = [f"t24-{i}" for i in range(n)]
+        tagged = {i: [ln for ln in lines if f"id[{i}]" in ln] for i in ids}
+        check(all(len(v) == 1 for v in tagged.values()),
+              f"24a one slowlog line a request with its X-Opaque-Id "
+              f"({ {k: len(v) for k, v in tagged.items()} })")
+        st, _h, text = client.request("GET", "/_nodes/hot_threads")
+        check(st == 200 and "Hot threads sampled" in (text or ""),
+              f"24a hot_threads answered {st}")
+        report["24a"] = {
+            "sent": n, "queries_recorded": rec_i, "node_queries_recorded":
+            rec_n, "fetch_spans": fetch_i, "slowlog_lines": len(lines),
+            "planes": sorted(after_i["phases"]["histogram_us"]),
+            "decisions": {k: v - base_i["phases"]["decisions"].get(k, 0)
+                          for k, v in after_i["phases"]["decisions"].items()
+                          if v != base_i["phases"]["decisions"].get(k, 0)},
+            "launches": dict(mine), "seconds": time.perf_counter() - t0}
+        log(f"[phase 24a] {json.dumps(report['24a'])} ({smi})")
+
+        # -------- 24b: admission --------
+        t0 = time.perf_counter()
+        want = c7.search("pmc4", dict(match))
+        serial = []
+        for _ in range(8):
+            t1 = time.perf_counter()
+            st, _h, r = client.request("POST", "/pmc4/_search", match)
+            serial.append((time.perf_counter() - t1) * 1000)
+        # the cpu node's answer under brownout step 1 (forced pruning):
+        # what a browned-out answer of the burst must equal
+        qsize = gsvc.admission._queue_size()
+        qp = tdis.QueuePressureScheme(occupancy=int(0.3 * qsize),
+                                      indices=["pmc4"]).install()
+        try:
+            c7.indices["pmc4"].admission.refresh_level()
+            want_pruned = c7.search("pmc4", dict(match))
+        finally:
+            qp.remove()
+        c7.indices["pmc4"].admission.refresh_level()
+        gsvc.admission.refresh_level()
+        # as REST renders it: the pruned total is a lower bound
+        want_pruned_http = copy.deepcopy(want_pruned)
+        _render_total_hits(want_pruned_http, match)
+        check(want_pruned.get("_degraded") == ["forced_pruned"]
+              and want_pruned.get("_pruned") is not None,
+              f"24b the cpu node's browned-out answer is marked and pruned "
+              f"({want_pruned.get('_degraded')}, "
+              f"{want_pruned.get('_pruned')})")
+        client.call("PUT", "/_cluster/settings", {"transient": {
+            "search.queue.size": 6, "search.admission.max_concurrent": 2}})
+        adm0 = gsvc.admission.stats_dict()
+        pool0 = g7.thread_pool.stats()["search"]["rejected"]
+        n_clients, per_client = 24, 2
+        go = threading.Barrier(n_clients)
+        out, lock = [], threading.Lock()
+
+        def burst_client(i):
+            cl = HttpClient(srv.port)
+            tenant = "tenant-a" if i < 16 else "tenant-b"
+            try:
+                go.wait(300)
+                for _ in range(per_client):
+                    t1 = time.perf_counter()
+                    st, hdrs, r = cl.request(
+                        "POST", "/pmc4/_search", match,
+                        headers={"X-Opaque-Id": tenant})
+                    ms = (time.perf_counter() - t1) * 1000
+                    with lock:
+                        out.append((tenant, st, hdrs.get("Retry-After"), r,
+                                    ms))
+            finally:
+                cl.close()
+
+        with held("phase 24b burst") as mine_b:
+            threads = [threading.Thread(target=burst_client, args=(i,))
+                       for i in range(n_clients)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(600)
+        check(not any(th.is_alive() for th in threads), "24b clients done")
+        adm1 = gsvc.admission.stats_dict()
+        pool1 = g7.thread_pool.stats()["search"]["rejected"]
+        client.call("PUT", "/_cluster/settings", {"transient": {
+            "search.queue.size": None,
+            "search.admission.max_concurrent": None}})
+        sent = n_clients * per_client
+        oks = [o for o in out if o[1] == 200]
+        rej = [o for o in out if o[1] == 429]
+        d = {k: adm1[k] - adm0[k] for k in (
+            "admitted_total", "rejected_total", "expired_in_queue_total")}
+        pool_rej = pool1 - pool0
+        check(len(out) == sent and len(oks) + len(rej) == sent,
+              f"24b every request answered 200 or 429 ({len(oks)} + "
+              f"{len(rej)} of {sent}: "
+              f"{sorted({o[1] for o in out})})")
+        check(d["admitted_total"] + d["rejected_total"]
+              + d["expired_in_queue_total"] + pool_rej == sent,
+              f"24b admitted {d['admitted_total']} + rejected "
+              f"{d['rejected_total']} + shed {d['expired_in_queue_total']} "
+              f"+ pool-rejected {pool_rej} == sent {sent}")
+        check(all(o[2] is not None and int(o[2]) >= 1 for o in rej),
+              "24b every 429 carries Retry-After")
+        tenants = {t: {k: b[k] - adm0["tenants"].get(t, {}).get(k, 0)
+                       for k in ("admitted_total", "rejected_total")}
+                   for t, b in adm1["tenants"].items()
+                   if t.startswith("tenant-")}
+        check(all(tenants.get(t, {}).get("admitted_total", 0) > 0
+                  for t in ("tenant-a", "tenant-b")),
+              f"24b both tenants admitted ({tenants})")
+        degraded = 0
+        for o in oks:
+            sound(o[3], "24b admitted answer")
+            marked = o[3].get("_degraded") == ["forced_pruned"]
+            pruned = o[3].get("_pruned") is not None
+            check(not o[3].get("_degraded") or marked,
+                  f"24b a browned-out answer is marked forced_pruned "
+                  f"({o[3].get('_degraded')})")
+            # the burst's own queue pressure may reach the brownout: the
+            # request's admission token decides both the marker and the
+            # pruning, so a marked answer is pruned and a pruned one marked
+            check(marked == pruned,
+                  f"24b marked {marked} and pruned {pruned} agree "
+                  f"({o[3].get('_degraded')}, {o[3].get('_pruned')})")
+            if pruned:
+                degraded += 1
+                same_response(o[3], want_pruned_http,
+                              "24b browned-out admitted answer")
+            else:
+                same_response(o[3], want, "24b admitted answer")
+        p11 = (rest_report.get("latency", {}).get("match_or pmc4", {})
+               .get("http_p50_ms"))
+        b_row = {"sent": sent, "ok": len(oks), "rejected_429": len(rej),
+                 "ok_browned_out": degraded,
+                 "admission": d, "pool_rejected": pool_rej,
+                 "tenants": tenants,
+                 "admitted_p50_ms": (float(np.median([o[4] for o in oks]))
+                                     if oks else None),
+                 "serial_p50_ms": float(np.median(serial)),
+                 "phase11_http_p50_ms": p11,
+                 "retry_after_s": sorted({int(o[2]) for o in rej}),
+                 "launches": dict(mine_b)}
+        # the brownout: step 1 forces the pruned kernel (1e)
+        qp = tdis.QueuePressureScheme(occupancy=int(0.3 * qsize),
+                                      indices=["pmc4"]).install()
+        try:
+            gsvc.admission.refresh_level()
+            c7.indices["pmc4"].admission.refresh_level()
+            with held("phase 24b brownout") as mine_p:
+                pr = g7.search("pmc4", dict(match))
+                sync()
+            cr = c7.search("pmc4", dict(match))
+        finally:
+            qp.remove()
+        sound(pr, "24b forced pruning")
+        check(pr.get("_degraded") == ["forced_pruned"]
+              and pr.get("_pruned") is not None
+              and pr["_pruned"] == cr.get("_pruned"),
+              f"24b the first brownout step ran the pruned program on both "
+              f"({pr.get('_degraded')}, {pr.get('_pruned')}, "
+              f"{cr.get('_pruned')})")
+        same_response(pr, cr, "24b forced pruning")
+        check(not on_card or mine_p.get("tile_scoring_topk_sel", 0)
+              + mine_p.get("tile_scoring_topk_sel_packed", 0) > 0,
+              f"24b forced pruning launched 1e ({mine_p})")
+        agg = next(b for k, b, _t in reqs if k == "terms_agg")
+        qp = tdis.QueuePressureScheme(occupancy=int(0.8 * qsize),
+                                      indices=["pmc4"]).install()
+        try:
+            gsvc.admission.refresh_level()
+            shed = g7.search("pmc4", dict(agg))
+            cshed = c7.search("pmc4", dict(agg))
+        finally:
+            qp.remove()
+        check("aggs" in (shed.get("_degraded") or [])
+              and "aggregations" not in shed
+              and shed.get("_degraded") == cshed.get("_degraded"),
+              f"24b the third step shed the aggregation "
+              f"({shed.get('_degraded')})")
+        same_response(shed, cshed, "24b shed aggregation")
+        # the second step: a concurrent aggregation burst under the
+        # widened window (the batched dense agg program, 1b)
+        base_w = gsvc._batcher.window_s
+        qp = tdis.QueuePressureScheme(occupancy=int(0.55 * qsize),
+                                      indices=["pmc4"]).install()
+        aggs = [b for k, b, _t in reqs if k == "terms_agg"]
+        got = {}
+        go2 = threading.Barrier(len(aggs))
+
+        def agg_client(i):
+            go2.wait(300)
+            got[i] = g7.search("pmc4", dict(aggs[i]))
+
+        try:
+            gsvc.admission.refresh_level()
+            window = gsvc.admission.effective_batch_window_s(base_w)
+            batches0 = gsvc.batch_stats.as_dict()["batched_query_total"]
+            with held("phase 24b window") as mine_w:
+                threads = [threading.Thread(target=agg_client, args=(i,))
+                           for i in range(len(aggs))]
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join(600)
+        finally:
+            qp.remove()
+        gsvc.admission.refresh_level()
+        c7.indices["pmc4"].admission.refresh_level()
+        for i, b in enumerate(aggs):
+            sound(got.get(i), f"24b window member {i}")
+            same_response(got[i], c7.search("pmc4", dict(b)),
+                          f"24b window member {i}")
+        bstats = gsvc.batch_stats.as_dict()
+        check(window > base_w and bstats["batch_window_effective_ms"]
+              >= window * 1000 * 0.999,
+              f"24b the window widened under pressure ({base_w} -> "
+              f"{window} s, gauge {bstats['batch_window_effective_ms']} ms)")
+        check((not on_card or mine_w.get("tile_scoring_batched", 0)
+               + mine_w.get("tile_scoring_batched_packed", 0) > 0)
+              and bstats["batched_query_total"] > batches0,
+              f"24b the burst ran batched (1b) under the widened window "
+              f"({mine_w})")
+        b_row.update(brownout_pruned=pr["_pruned"],
+                     brownout_launches=dict(mine_p),
+                     window_ms={"base": base_w * 1000,
+                                "effective": window * 1000},
+                     window_batched_members=(bstats["batched_query_total"]
+                                             - batches0),
+                     window_launches=dict(mine_w),
+                     brownout=gsvc.admission.stats_dict()["brownout"],
+                     seconds=time.perf_counter() - t0)
+        report["24b"] = b_row
+        log(f"[phase 24b] {json.dumps(b_row)} ({smi})")
+
+        # -------- 24c: the drain --------
+        t0 = time.perf_counter()
+        before = g7.search("pmc4", dict(match))
+        stop, started = threading.Event(), threading.Event()
+        statuses, lock = [], threading.Lock()
+
+        def loop_client():
+            cl = HttpClient(srv.port)
+            try:
+                while not stop.is_set():
+                    st, hdrs, r = cl.request("POST", "/pmc4/_search", match)
+                    with lock:
+                        statuses.append((st, hdrs.get("Retry-After"), r))
+                    started.set()
+            finally:
+                cl.close()
+
+        d0 = gsvc.admission.stats_dict()["drain_rejected_total"]
+        with held("phase 24c") as mine_c:
+            threads = [threading.Thread(target=loop_client)
+                       for _ in range(6)]
+            for th in threads:
+                th.start()
+            check(started.wait(300), "24c clients searching")
+            t1 = time.perf_counter()
+            st, _h, rep = client.request("POST", "/_nodes/_local/_drain")
+            drain_s = time.perf_counter() - t1
+            check(st == 200 and rep["drained"] and
+                  rep["in_flight_remaining"] == 0,
+                  f"24c the drain answered {st} {rep}")
+            compacted = gsvc.compact_now()
+            st503, hdrs, body503 = client.request("POST", "/pmc4/_search",
+                                                  match)
+            stop.set()
+            for th in threads:
+                th.join(600)
+            st_un, _h, un = client.request("DELETE", "/_nodes/_local/_drain")
+            after = g7.search("pmc4", dict(match))
+            sync()
+        check(compacted == {"ran": False, "reason": "draining"},
+              f"24c a compaction aborts while draining ({compacted})")
+        check(st503 == 503 and hdrs.get("Retry-After") is not None
+              and body503["error"]["type"] == "node_draining_exception",
+              f"24c a search while drained answered {st503} "
+              f"{str(body503)[:200]}")
+        check(st_un == 200 and un == {"draining": False},
+              f"24c the undrain answered {st_un} {un}")
+        refused = [s for s in statuses if s[0] == 503]
+        served = [s for s in statuses if s[0] == 200]
+        check(len(refused) + len(served) == len(statuses)
+              and all(s[1] is not None for s in refused),
+              f"24c every search answered 200, or 503 with Retry-After "
+              f"({sorted({s[0] for s in statuses})})")
+        for s in served:
+            sound(s[2], "24c in-flight answer")
+            same_response(s[2], want, "24c in-flight answer")
+        d1 = gsvc.admission.stats_dict()["drain_rejected_total"]
+        check(d1 - d0 == len(refused) + 1,
+              f"24c every refused search counted ({d1 - d0}, "
+              f"{len(refused)} + 1)")
+        check(_same_exact(after, before),
+              "24c after the undrain the same body answers the same hits")
+        same_response(after, want, "24c after the undrain")
+        report["24c"] = {"drain_s": drain_s, "drain_report": rep,
+                         "served": len(served), "refused_503": len(refused),
+                         "compaction": compacted, "launches": dict(mine_c),
+                         "seconds": time.perf_counter() - t0}
+        log(f"[phase 24c] {json.dumps(report['24c'])} ({smi})")
+
+        # -------- 24e: the device fault schemes --------
+        # a plane fault benches the plane and the next rung serves; a
+        # kernel launch fault (KernelError) answers a 500 over REST, no
+        # rung serves in the kernel's place and nothing is benched; the
+        # eviction storm restages. ``plane`` None: the 500 is wanted.
+        t0 = time.perf_counter()
+        cases = [
+            ("plane_fail_mesh_pallas", dict(match), "mesh",
+             lambda: tdis.PlaneFailScheme(planes=["mesh_pallas"],
+                                          indices=["pmc4"])),
+            ("kernel_launch_fail_1a", dict(match), None,
+             lambda: tdis.KernelLaunchFailScheme(
+                 rungs=["mesh_pallas"], times=1, indices=["pmc4"])),
+            ("kernel_launch_fail_knn", dict(knn_body), None,
+             lambda: tdis.KernelLaunchFailScheme(
+                 rungs=["knn"], times=1, indices=["pmc4"])),
+            ("eviction_storm", dict(match), "mesh_pallas",
+             lambda: tdis.EvictionStormScheme(period=1, scopes=1,
+                                              indices=["pmc4"])),
+        ]
+        e_rows = {}
+        with held("phase 24e") as mine_e:
+            for name, body, plane, make in cases:
+                want_e = c7.search("pmc4", dict(body))
+                g7.search("pmc4", dict(body))  # warm: staged, healthy
+                f0 = gsvc._mesh_search.plane_health.stats()
+                dec0 = dict(gsvc.telemetry.phases_dict()["decisions"])
+                mark = int(time.time() * 1000)
+                restage0 = gsvc._mesh_search.restage_total
+                scheme = make().install()
+                try:
+                    st, _h, r = client.request("POST", "/pmc4/_search",
+                                               dict(body))
+                    sync()
+                finally:
+                    scheme.remove()
+                f1 = gsvc._mesh_search.plane_health.stats()
+                dec1 = gsvc.telemetry.phases_dict()["decisions"]
+                if plane is None:
+                    check(st == 500 and "kernel launch" in json.dumps(r),
+                          f"24e {name}: the launch failure answers 500 "
+                          f"({st}, {str(r)[:200]})")
+                    check(f1["plane_quarantined"] == [],
+                          f"24e {name}: no plane benched "
+                          f"({f1['plane_quarantined']})")
+                else:
+                    check(st == 200, f"24e {name} answered {st}")
+                    sound(r, f"24e {name}")
+                    same_response(r, want_e, f"24e {name}")
+                    check(r["_plane"] == plane,
+                          f"24e {name} served from {r['_plane']} "
+                          f"(want {plane})")
+                reset_health(gsvc)
+                back = g7.search("pmc4", dict(body))
+                check(back["_plane"] == "mesh_pallas",
+                      f"24e {name}: the kernel serves the next request "
+                      f"({back['_plane']})")
+                same_response(back, want_e, f"24e {name} after")
+                e_rows[name] = {
+                    "status": st,
+                    "plane": r.get("_plane") if st == 200 else None,
+                    "hits": scheme.hits,
+                    "failures": {
+                        k: v - f0["plane_failures_total"].get(k, 0)
+                        for k, v in f1["plane_failures_total"].items()},
+                    "decisions": {k: v - dec0.get(k, 0)
+                                  for k, v in dec1.items()
+                                  if v != dec0.get(k, 0)},
+                    "staging_events": len(staging_events_since(
+                        memory_accountant(), None, mark)),
+                    "restages": gsvc._mesh_search.restage_total - restage0,
+                    "evicted_bytes": getattr(scheme, "evicted_bytes", None)}
+                check(scheme.hits >= 1, f"24e {name} fired ({scheme.hits})")
+        check(e_rows["plane_fail_mesh_pallas"]["failures"].get(
+                  "mesh_pallas", 0) == 1
+              and all(e_rows[k]["failures"].get("mesh_pallas", 0) == 0
+                      and e_rows[k]["hits"] == 1
+                      for k in ("kernel_launch_fail_1a",
+                                "kernel_launch_fail_knn")),
+              f"24e the plane fault benched mesh_pallas once, each launch "
+              f"fault fired once and benched nothing ({e_rows})")
+        check(e_rows["eviction_storm"]["evicted_bytes"] > 0,
+              "24e the eviction storm evicted a staging")
+        report["24e"] = {"cases": e_rows, "launches": dict(mine_e),
+                         "seconds": time.perf_counter() - t0}
+        log(f"[phase 24e] {json.dumps(report['24e'])} ({smi})")
+
+        # -------- 24f: the scrubber --------
+        t0 = time.perf_counter()
+        want_h = c7.search("pmc4h", dict(match))
+        with held("phase 24f") as mine_f:
+            g7.search("pmc4h", dict(match))  # the base tables staged
+            t1 = time.perf_counter()
+            clean = hsvc.scrub_now()
+            clean_s = time.perf_counter() - t1
+            seg = next(s for sh in hsvc.shards.values()
+                       for s in sh.engine.segments if s._device)
+            # one byte flipped in a copy of the staged table on the card
+            # (on the CPU the staged tensor may share the host array)
+            table = seg._device["block_docs"].clone()
+            flat = table.view(torch.uint8).view(-1)
+            flat[flat.numel() // 3] ^= 1
+            seg._device["block_docs"] = table
+            sync()
+            drifted = hsvc.scrub_now()
+            mark = int(time.time() * 1000)
+            r = g7.search("pmc4h", dict(match))
+            sync()
+        events = staging_events_since(memory_accountant(), None, mark)
+        check(clean["drift"] == 0 and clean["bytes_verified"] > 0,
+              f"24f the clean pass ({clean})")
+        check(drifted["drift"] == 1 and seg.stage_reason_initial == "scrub",
+              f"24f the flipped byte drifted ({drifted})")
+        check(any(e.get("reason") == "scrub" for e in events),
+              f"24f the restage is recorded with the scrub reason "
+              f"({[e.get('reason') for e in events]})")
+        sound(r, "24f after the scrub")
+        same_response(r, want_h, "24f after the scrub")
+        report["24f"] = {
+            "clean": clean, "clean_s": clean_s,
+            "s_per_gb": clean_s / (clean["bytes_verified"] / 1e9),
+            "drifted": drifted, "restage_reasons": sorted(
+                {e.get("reason") for e in events}),
+            "launches": dict(mine_f), "seconds": time.perf_counter() - t0}
+        log(f"[phase 24f] {json.dumps(report['24f'])} ({smi})")
+    finally:
+        tdis.clear_search_disruptions()
+        client.close()
+        srv.stop()
+    report["launches"] = acc
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[phase 24] {report['seconds']:.1f} s, launches {acc}")
+    return report
+
+
+def staging_events_since(acct, index, mark_ms):
+    """The ledger's staging events (of ``index``, or all) stamped at or
+    after ``mark_ms``: the ring is bounded, so a count by length would
+    drift once it is full."""
+    return [e for e in acct.stats(index)["staging_events"]
+            if e["timestamp_ms"] >= mark_ms]
+
+
+def warm_reopen(torch, Node, cuda_kernels, tsc, ssum, knn, path, repo_root,
+                bodies, before, cold_ms, errs, smi, device="cuda"):
+    """Phase 24d, on phase 13c's durable pmc-4x256k after its cold reopen
+    closed: reopen it with ``search.compile.warm_on_start``. The warm
+    thread replays the bodies the first life recorded
+    (``compile_variants.json`` under ``_state``) under ``warming()``: the
+    staging and each variant's first launch happen there. Then the first
+    answer (13c's first body) on the host clock beside 13c's cold first
+    answer; every answer equal to the index's before the close; the
+    ``compile`` block's warmed and query-path counts (the first-run table
+    emptied first, as a restarted process has it); every launch, warm
+    replay included, held against plain."""
+    from elasticsearch_tpu_torch.common import compile_cache as cc
+    from elasticsearch_tpu_torch.common.settings import Settings
+
+    on_card = device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    acc = {}
+    # a restarted process has run no variant yet; this script is one
+    # process, so the reopen starts from an empty first-run table as a new
+    # process would (the kernel library stays loaded)
+    cc._PROGRAMS.clear()
+    c0 = cc.compile_stats().stats()
+    with held_block(torch, cuda_kernels, tsc, ssum, knn, errs, "phase 24d",
+                    acc, on_card=on_card) as mine:
+        t0 = time.perf_counter()
+        g3 = Node(Settings({"path.repo": [repo_root],
+                            "search.compile.warm_on_start": True}),
+                  data_path=path, device=device)
+        load_s = time.perf_counter() - t0
+        specs = len(cc.variant_registry().warm_entries("dur4"))
+        check(g3._warm_thread is not None and specs > 0,
+              f"24d the reopen started the warm replay ({specs} specs)")
+        t0 = time.perf_counter()
+        g3._warm_thread.join()
+        sync()
+        warm_s = time.perf_counter() - t0
+        c1 = cc.compile_stats().stats()
+        first_label, first_body = bodies[0]
+        first, first_ms, first_spans = _first_answer(
+            torch, lambda: g3.search("dur4", dict(first_body)))
+        c2 = cc.compile_stats().stats()
+        after = {first_label: _no_took(first)}
+        for label, body in bodies[1:]:
+            after[label] = _no_took(g3.search("dur4", dict(body)))
+        sync()
+    same = [k for k in after if after[k] == before[k]]
+    check(len(same) == len(bodies),
+          f"24d {len(same)} of {len(bodies)} answers after the warm reopen "
+          f"equal those before the close")
+    warmed = c1["programs_warmed_total"] - c0["programs_warmed_total"]
+    check(warmed > 0, f"24d the replay warmed {warmed} first runs")
+    check(c2["query_path_first_compile_total"]
+          == c1["query_path_first_compile_total"],
+          "24d the first answer met no first run on the query path")
+    t0 = time.perf_counter()
+    g3.close()
+    sync()
+    out = {"load_s": load_s, "warm_s": warm_s, "warm_specs": specs,
+           "programs_warmed": warmed,
+           "warm_events": [e for e in c1["first_compile_events"]
+                           if e["warmed"]][-8:],
+           "first_answer_ms": first_ms, "first_answer_spans_ms":
+           first_spans, "cold_first_answer_ms": cold_ms,
+           "query_path_first_runs": (c2["query_path_first_compile_total"]
+                                     - c1["query_path_first_compile_total"]),
+           "answers_equal": len(same), "close_s": time.perf_counter() - t0,
+           "launches": dict(mine), "seconds": time.perf_counter() - t_phase}
+    log(f"[phase 24d] {json.dumps(out)} ({smi})")
+    return out
+
+
+
 def main() -> int:
     import torch
 
@@ -12581,6 +13346,15 @@ def main() -> int:
     for k, v in move_report["launches"].items():
         launches[k] += v
 
+    # ---------------- phase 24: the device-side infrastructure -----------
+    # (over phase 7's node; 24d, the warm reopen, runs in 13c)
+    clock("phase 24")
+    infra_report = infrastructure_phase(
+        torch, HttpServer, cuda_kernels, tsc, ssum, knn, g7, c7, reqs,
+        knn_bodies[0][1], rest_report, batch_errs, smi)
+    for k, v in infra_report["launches"].items():
+        launches[k] += v
+
     # ---------------- phase 13: durability on the card -------------------
     clock("phase 13")
     durability_report = durability_phase(
@@ -12596,6 +13370,11 @@ def main() -> int:
     move_report["22e"] = durability_report["13c"].pop("22e")
     for k, v in move_report["22e"]["launches"].items():
         launches[k] += v
+    infra_report["24d"] = durability_report["13c"].pop("24d")
+    for k, v in infra_report["24d"]["launches"].items():
+        launches[k] += v
+        infra_report["launches"][k] = infra_report["launches"].get(k, 0) + v
+    seg_held["phase 24"] = infra_report["launches"].get("segment_sum", 0)
 
     # ---------------- phase 14: the staging lifecycle on the card --------
     clock("phase 14")
@@ -12761,7 +13540,7 @@ def main() -> int:
         "field_types": geo_report, "nested": nested_report,
         "search_request": request_report, "scripting": script_report,
         "cluster_metadata": meta_report, "data_movement": move_report,
-        "remainder": remainder_report,
+        "remainder": remainder_report, "infrastructure": infra_report,
         "sound_answers_checked": SOUND["checked"]}
     for name, key, replaces, extra in (
             ("tile_scoring_packed", "tile_scoring_packed", 656,

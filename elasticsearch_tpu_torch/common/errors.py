@@ -157,6 +157,14 @@ class EsRejectedExecutionException(ElasticsearchTpuException):
     status_code = 429
 
 
+class NodeDrainingException(ElasticsearchTpuException):
+    """The node is draining for a restart: new searches get a clean 503,
+    and ``retry_after_s`` becomes the Retry-After header, as on a 429;
+    searches in flight finish within the drain deadline."""
+
+    status_code = 503
+
+
 class CircuitBreakingException(ElasticsearchTpuException):
     """A memory circuit breaker tripped (``common/breaker.py``): HTTP 429."""
 

@@ -31,7 +31,14 @@ port's path reads, each with the JAX package's default and validator:
   ``index.staging.delta.enabled`` (true) and
   ``index.staging.compact.threshold`` (0.25; <= 0 turns compaction off);
 - the scheduled refresh ``index.refresh_interval`` (1s; -1 off),
-  ``index.max_result_window`` and ``index.max_slices_per_scroll``.
+  ``index.max_result_window`` and ``index.max_slices_per_scroll``;
+- the device-side infrastructure: admission (``search.queue.size``
+  1000, ``search.admission.*``, ``search.drain.deadline`` 30s,
+  ``search.batch.max_window_ms`` 5.0), telemetry's kill switch
+  ``search.telemetry.enabled`` (true), the variant registry
+  ``search.compile.cache_path`` ("") and ``search.compile.warm_on_start``
+  (true), the scrubber ``index.scrub.interval`` (none: off) and the search
+  slowlog ``index.search.slowlog.threshold.query.{warn,info}`` (none).
 
 Each ``Setting`` has a scope (node or index) and may be dynamic. The
 registries ``cluster_settings()`` and ``index_scoped_settings()``
@@ -40,9 +47,9 @@ registers, with its flags. ``PUT /{index}/_settings`` takes only
 registered dynamic keys (``validate_dynamic_update``), create-index
 validates the registered keys it is given, and ``PUT _cluster/settings``
 stores any key, as the JAX package's does, firing the update consumers.
-A setting whose consumer module is not ported yet (admission control,
-telemetry, the compile cache, the scrubber, the multi-node control
-plane: ROADMAP A.3 lists them) is stored like any other.
+A setting whose consumer module is not ported yet (the multi-node
+control plane and the other host-only modules: ROADMAP A.6 lists them)
+is stored like any other.
 ``Settings.merged_with`` drops a key mapped to None (a cleared cluster
 setting).
 """
@@ -526,8 +533,8 @@ TRANSPORT_SETTINGS = [
     Setting("indices.recovery.internal_action_timeout", "30s", "time",
             dynamic=True),
 ]
-# admission control and drain (search/admission.py, ROADMAP A.5); the
-# search pool's queue already follows search.queue.size
+# admission control and the drain (search/admission.py); the search
+# pool's queue follows search.queue.size too
 SEARCH_BATCH_MAX_WINDOW_MS = Setting("search.batch.max_window_ms", 5.0,
                                      "float", min_value=0.0, dynamic=True)
 SEARCH_QUEUE_SIZE = Setting("search.queue.size", 1000, "int", min_value=1,
@@ -548,23 +555,27 @@ ADMISSION_SETTINGS = [
 # the TPU kernel's DMA buffering depth: the CUDA kernels have no such knob
 SEARCH_PALLAS_TILES_PER_STEP = Setting("search.pallas.tiles_per_step", 1,
                                        "int", choices={1, 2, 4, 8})
-# the compile cache (common/compile_cache.py) and telemetry's kill switch
-# (search/telemetry.py's registry, ROADMAP A.5)
+# the variant registry's path and the warm replay at start
+# (common/compile_cache.py, Node), and telemetry's kill switch
+# (search/telemetry.py's registry)
 SEARCH_COMPILE_CACHE_PATH = Setting("search.compile.cache_path", "", "str")
 SEARCH_COMPILE_WARM_ON_START = Setting("search.compile.warm_on_start", True,
                                        "bool")
 SEARCH_TELEMETRY_ENABLED = Setting("search.telemetry.enabled", True, "bool",
                                    dynamic=True)
-# index scope: the scrubber (common/integrity.py), the slow logs, the TPU
-# posting block width, the default field and the field limit
+# index scope: the scrubber (IndexService.scrub_now) and the search
+# slowlog (search/service.emit_search_slowlog)
 INDEX_SCRUB_INTERVAL = Setting("index.scrub.interval", None, "time",
                                scope=Scope.INDEX, dynamic=True)
-INDEX_UNCONSUMED_SETTINGS = [
-    INDEX_SCRUB_INTERVAL,
+INDEX_SEARCH_SLOWLOG_SETTINGS = [
     Setting("index.search.slowlog.threshold.query.warn", None, "time",
             scope=Scope.INDEX, dynamic=True),
     Setting("index.search.slowlog.threshold.query.info", None, "time",
             scope=Scope.INDEX, dynamic=True),
+]
+# index scope without a reader: the TPU posting block width, the default
+# field and the field limit
+INDEX_UNCONSUMED_SETTINGS = [
     Setting("index.tpu.posting_block_size", 128, "int", min_value=128,
             scope=Scope.INDEX),
     Setting("index.query.default_field", "_all", "str", scope=Scope.INDEX,
@@ -594,7 +605,8 @@ INDEX_SETTINGS = [
     INDEX_SEARCH_MESH, INDEX_SEARCH_MESH_MAX_SLOTS, INDEX_SEARCH_MESH_PLANE,
     INDEX_SEARCH_PALLAS_POSTINGS_CODEC, INDEX_SEARCH_AGGS_FUSED,
     INDEX_SEARCH_PLANE_QUARANTINE_COOLDOWN, INDEX_STAGING_DELTA_ENABLED,
-    INDEX_STAGING_COMPACT_THRESHOLD, *INDEX_UNCONSUMED_SETTINGS,
+    INDEX_STAGING_COMPACT_THRESHOLD, INDEX_SCRUB_INTERVAL,
+    *INDEX_SEARCH_SLOWLOG_SETTINGS, *INDEX_UNCONSUMED_SETTINGS,
     INDEX_NUMBER_OF_SHARDS, INDEX_NUMBER_OF_REPLICAS, INDEX_REFRESH_INTERVAL,
     INDEX_MAX_RESULT_WINDOW, INDEX_MAX_SLICES_PER_SCROLL,
     INDEX_TRANSLOG_DURABILITY, INDEX_TRANSLOG_FLUSH_THRESHOLD,

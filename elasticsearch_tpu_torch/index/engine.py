@@ -96,7 +96,12 @@ class Engine:
         self._buffer_deletes: set = set()
         # deletes against sealed segments, applied at the next refresh
         self._pending_seg_deletes: List[tuple] = []
-        self.version_map: Dict[str, VersionEntry] = {}
+        self._version_map: Dict[str, VersionEntry] = {}
+        # sealed segments whose live docs enter the version map on its
+        # first read (adopt_segment, store recovery): a search never reads
+        # it, so building a quarter million entries a segment waits for
+        # the first write, get or commit
+        self._deferred_entries: List[tuple] = []
         self._seqno = -1
         self._local_checkpoint = -1
         self._lock = threading.RLock()
@@ -118,6 +123,44 @@ class Engine:
         # the index the device-memory ledger attributes stagings to
         # (IndexShard sets it)
         self.index_name: Optional[str] = None
+
+    @property
+    def version_map(self) -> Dict[str, VersionEntry]:
+        """Doc id -> its latest ``VersionEntry``; the deferred segments'
+        entries are built first, in the order they were deferred, so the
+        map reads as if each had been built at once."""
+        if self._deferred_entries:
+            with self._lock:
+                # the list empties only once the map is whole: a reader
+                # that finds it empty finds every entry
+                for seg, lives, terms in self._deferred_entries:
+                    at = lives.tolist()
+                    self._version_map.update(zip(
+                        map(seg.doc_ids.__getitem__, at),
+                        map(VersionEntry, seg.versions[lives].tolist(),
+                            seg.seqnos[lives].tolist(),
+                            itertools.repeat(seg.name), at,
+                            itertools.repeat(False),
+                            (map(terms.get, map(seg.doc_ids.__getitem__, at),
+                                 itertools.repeat(1))
+                             if terms else itertools.repeat(1)))))
+                self._deferred_entries = []
+        return self._version_map
+
+    @version_map.setter
+    def version_map(self, value: Dict[str, VersionEntry]) -> None:
+        with self._lock:
+            self._deferred_entries = []
+            self._version_map = value
+
+    def defer_version_entries(self, seg: Segment,
+                              terms: Optional[Dict[str, int]] = None) -> None:
+        """Enter ``seg``'s live docs into the version map on its first
+        read (their lives taken now), each with its primary term from
+        ``terms`` (default 1)."""
+        with self._lock:
+            self._deferred_entries.append(
+                (seg, np.flatnonzero(seg.live[: seg.num_docs]), terms))
 
     def _stamp_owner(self, seg: Segment) -> None:
         """The ledger owner of a segment and of its nested sub-segments."""
@@ -270,23 +313,16 @@ class Engine:
 
     def adopt_segment(self, seg: Segment) -> None:
         """Add a sealed segment built elsewhere (``Segment.from_arrays``),
-        the way store recovery adopts a loaded segment: its live docs
-        enter the version map and it becomes searchable at once."""
+        the way store recovery adopts a loaded segment: it becomes
+        searchable at once, and its live docs enter the version map on
+        the map's first read."""
         if seg.device != self.device:
             raise ValueError(
                 f"segment [{seg.name}] lives on {seg.device}, the engine on "
                 f"{self.device}")
         with self._lock:
             self._stamp_owner(seg)
-            # one entry a live doc, built by C-level maps (a full-width
-            # segment holds 262,144 of them)
-            lives = np.flatnonzero(seg.live[: seg.num_docs])
-            at = lives.tolist()
-            self.version_map.update(zip(
-                map(seg.doc_ids.__getitem__, at),
-                map(VersionEntry, seg.versions[lives].tolist(),
-                    seg.seqnos[lives].tolist(), itertools.repeat(seg.name),
-                    at)))
+            self.defer_version_entries(seg)
             if seg.num_docs:
                 self.note_external_seqno(int(seg.seqnos.max()))
             self.segments.append(seg)

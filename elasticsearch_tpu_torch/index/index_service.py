@@ -92,8 +92,27 @@ mesh plane calls ``maybe_compact_async``, which starts one background
 ``compact_now`` pass (single flight, never on the query path) when a
 staged slot's tombstone density or the slot fragmentation reaches the
 threshold; the pass force-merges the dense or fragmented shards and
-restages a compact generation. Admission control, scrubbing and the
-telemetry registry are later slices.
+restages a compact generation; a drain aborts it between shards.
+
+Admission control (``search/admission.py``): ``search`` takes an
+admission slot before any staging or launch (``_search_dispatch``): an
+overflow is the 429 with ``Retry-After``, a drain the 503, a deadline
+that expires while queued answers its timed-out partial result unrun,
+and the brownout ladder shapes what runs (forced pruning, shed
+``rescore``, shed aggregations and suggesters, marked ``_degraded``; a
+``_degraded`` answer never enters the request cache). The batcher's
+window is admission's adaptive one. Telemetry: every request carries a
+tracer (``NULL_TRACER`` under ``search.telemetry.enabled: false``)
+annotated with its X-Opaque-Id; ``_finish_query_response`` drains it
+into ``telemetry`` (``search.phases``), records a mesh-served body as a
+warm spec (``warm_compile_variants`` replays them under
+``compile_cache.warming()``) and writes the mesh plane's slowlog line
+(``index.search.slowlog.threshold.query.*``; the host rung's shards
+write their own). The scrubber (``index.scrub.interval``, off by
+default; ``scrub_now``) checks every committed segment's checksums and
+every staged base table's digest: a corrupt store is quarantined with
+``site="scrub"``, a drifted staging released and restaged with the
+``scrub`` reason.
 
 The shard request cache (``index/request_cache.py``,
 ``index.requests.cache.enable``, ``index.requests.cache.size_in_bytes``):
@@ -119,14 +138,21 @@ plane reads them first. ``stats`` gives the ``_stats`` sections.
 from __future__ import annotations
 
 import copy
+import hashlib
+import json
 import logging
 import os
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional
 
+import numpy as np
+
 from elasticsearch_tpu_torch.analysis.analyzers import AnalysisRegistry
+from elasticsearch_tpu_torch.common import compile_cache as cc
 from elasticsearch_tpu_torch.common.device import resolve_device
+from elasticsearch_tpu_torch.common.integrity import integrity_service
 from elasticsearch_tpu_torch.common.memory import memory_accountant
 from elasticsearch_tpu_torch.common.errors import (
     DocumentMissingException,
@@ -142,6 +168,7 @@ from elasticsearch_tpu_torch.common.settings import (
     INDEX_MAX_SLICES_PER_SCROLL,
     INDEX_NUMBER_OF_SHARDS,
     INDEX_REFRESH_INTERVAL,
+    INDEX_SCRUB_INTERVAL,
     INDEX_SEARCH_MESH,
     INDEX_SEARCH_MESH_MAX_SLOTS,
     INDEX_SEARCH_MESH_PLANE,
@@ -158,6 +185,7 @@ from elasticsearch_tpu_torch.common.settings import (
     SEARCH_PALLAS_POSTINGS_CODEC,
     SEARCH_PALLAS_PRUNING_ENABLED,
     SEARCH_PALLAS_PRUNING_PROBE_TILES,
+    SEARCH_TELEMETRY_ENABLED,
     Settings,
 )
 from elasticsearch_tpu_torch.index.index_sort import parse_index_sort
@@ -173,6 +201,11 @@ from elasticsearch_tpu_torch.mapper.field_types import join_field_of
 from elasticsearch_tpu_torch.mapper.mapping import MapperService
 from elasticsearch_tpu_torch.script.expression import compile_script
 from elasticsearch_tpu_torch.script.painless import execute_update_script
+from elasticsearch_tpu_torch.search.admission import (
+    SearchAdmissionController,
+    forced_pruning,
+    scoped_forced_pruning,
+)
 from elasticsearch_tpu_torch.search.aggregations import parse_aggs, run_aggregations
 from elasticsearch_tpu_torch.search.suggest import run_suggest
 from elasticsearch_tpu_torch.search.batching import (
@@ -190,16 +223,26 @@ from elasticsearch_tpu_torch.search.service import (
     allow_partial_results,
     check_body,
     collapse_refs,
+    emit_search_slowlog,
     expand_collapsed_hits,
+    expired_queue_response,
     fetch_hits,
     merge_refs,
     normalize_sort,
     shard_failure_entry,
+    slowlog_threshold,
 )
-from elasticsearch_tpu_torch.search.telemetry import NULL_TRACER, tracer_for
+from elasticsearch_tpu_torch.search.telemetry import (
+    NULL_TRACER,
+    SearchTelemetry,
+    get_opaque_id,
+    scoped_opaque_id,
+)
+from elasticsearch_tpu_torch.testing.disruption import on_query_begin
 from elasticsearch_tpu_torch.utils.murmur3 import shard_id_for
 
 _refresh_log = logging.getLogger("elasticsearch_tpu_torch.index.refresh")
+_scrub_log = logging.getLogger("elasticsearch_tpu_torch.index.scrub")
 
 
 class IndexService:
@@ -263,6 +306,14 @@ class IndexService:
         self.request_cache = RequestCache(max_bytes=settings.get_int(
             "index.requests.cache.size_in_bytes", 8 * 1024 * 1024))
         durability = INDEX_TRANSLOG_DURABILITY.get(settings)
+        # the search slowlog's thresholds (seconds; negative or unset:
+        # off): each shard's host-rung line and the index's mesh-plane line
+        slow_warn = settings.get_time(
+            "index.search.slowlog.threshold.query.warn")
+        slow_info = settings.get_time(
+            "index.search.slowlog.threshold.query.info")
+        self._slowlog_warn_s = slowlog_threshold(slow_warn)
+        self._slowlog_info_s = slowlog_threshold(slow_info)
         # the postings codec of the tile kernel's staging: the index's
         # preference ("default" follows the node's search.pallas.
         # postings_codec), stamped on each segment by its engine
@@ -287,7 +338,8 @@ class IndexService:
                 name, sid, self.mapper_service, device=self.device,
                 data_path=(os.path.join(data_path, str(sid))
                            if data_path else None),
-                durability=durability, index_sort=self.index_sort)
+                durability=durability, index_sort=self.index_sort,
+                slowlog_warn_s=slow_warn, slowlog_info_s=slow_info)
             shard.engine.postings_codec = self.postings_codec
             shard.engine.postings_codec_default = self.postings_codec_default
             # slice resolution is shard-count aware (SliceBuilder)
@@ -295,16 +347,32 @@ class IndexService:
             shard.searcher.max_slices = INDEX_MAX_SLICES_PER_SCROLL.get(
                 settings)
             self.shards[sid] = shard
+        # the shards with disk state recover: their committed segments
+        # load (read, checksums verified) on a thread a shard, the rest of
+        # each recovery (tombstones, the translog replay) in shard order
+        # a corrupt or marked store quarantines its shard instead of
+        # failing the index's open: its searches fail into
+        # _shards.failures, never as empty hits
+        recovering = []
+        for sid, shard in sorted(self.shards.items()):
             try:
                 if not shard.has_disk_state():
                     shard.start_fresh()
                     continue
-                self.recovered_ops[sid] = shard.recover_from_store()
             except CorruptIndexException as e:
-                # a corrupt or marked store: quarantine the shard instead
-                # of failing the index's open; its searches fail into
-                # _shards.failures, never as empty hits
                 self._quarantine_shard(sid, e, site="load")
+                continue
+            recovering.append(sid)
+        with ThreadPoolExecutor(max_workers=max(len(recovering), 1)) as pool:
+            loads = {sid: pool.submit(self.shards[sid].engine.store
+                                      .load_segments, self.device)
+                     for sid in recovering}
+            for sid in recovering:
+                try:
+                    self.recovered_ops[sid] = self.shards[
+                        sid].recover_from_store(segments=loads[sid].result())
+                except CorruptIndexException as e:
+                    self._quarantine_shard(sid, e, site="load")
         # legacy _parent values: doc id -> parent id (stored_fields
         # [_parent]); they persist with each doc and are rebuilt here
         self.parents: Dict[str, str] = {}
@@ -316,9 +384,29 @@ class IndexService:
             max_queries=SEARCH_BATCH_MAX_QUERIES.get(settings),
             enabled=SEARCH_BATCH_ENABLED.get(settings),
             stats=self.batch_stats)
+        # phase telemetry: every request's spans drain into the
+        # per-plane x per-phase histograms; search.telemetry.enabled is
+        # the kill switch (the cluster-level override first)
+        self.telemetry = SearchTelemetry()
+        self.telemetry_enabled_override: Optional[bool] = None
+        # admission control in front of every search's staging and
+        # launches; it also sizes the batcher's adaptive window
+        self.admission = SearchAdmissionController(name, settings)
+        self._batcher.window_fn = (
+            lambda: self.admission.effective_batch_window_s(
+                self._batcher.window_s))
+        self._batcher.annotate = self._annotate_batch_member
         self._refresh_stop: Optional[threading.Event] = None
         self._refresh_thread: Optional[threading.Thread] = None
         self._start_refresh_timer()
+        # the store and device scrubber (index.scrub.interval, off by
+        # default): one thread that polls idle while the interval is off,
+        # so turning it on needs no thread lifecycle
+        self.scrub_interval_override: Optional[float] = None
+        self._scrub_stop = threading.Event()
+        self._scrub_thread = threading.Thread(
+            target=self._scrub_loop, daemon=True, name=f"scrub[{name}]")
+        self._scrub_thread.start()
 
     # ------------------------------------------------------------------
     # The scheduled refresh and dynamic settings
@@ -364,9 +452,15 @@ class IndexService:
         write responses' replica count stays as created, as in the JAX
         package (the cluster state's metadata holds the new one)."""
         self.settings = self.settings.merged_with(update)
+        self._slowlog_warn_s = slowlog_threshold(self.settings.get_time(
+            "index.search.slowlog.threshold.query.warn"))
+        self._slowlog_info_s = slowlog_threshold(self.settings.get_time(
+            "index.search.slowlog.threshold.query.info"))
         for shard in self.shards.values():
             shard.searcher.max_slices = INDEX_MAX_SLICES_PER_SCROLL.get(
                 self.settings)
+            shard.searcher.slowlog_warn_s = self._slowlog_warn_s
+            shard.searcher.slowlog_info_s = self._slowlog_info_s
         if INDEX_REFRESH_INTERVAL.key in update:
             self._stop_refresh_timer()
             self.refresh_interval = INDEX_REFRESH_INTERVAL.get(self.settings)
@@ -518,19 +612,26 @@ class IndexService:
         return [s for _sid, s in sorted(self.shards.items())
                 if not s.store_corrupted]
 
+    def _each_healthy_shard(self, fn) -> Dict[int, object]:
+        """``fn(shard)`` on every healthy shard, a thread a shard (a
+        shard's flush writes and fsyncs its own store and translog);
+        {shard_id: result}; the first failure raises."""
+        shards = self._healthy_shards()
+        with ThreadPoolExecutor(max_workers=max(len(shards), 1)) as pool:
+            return dict(zip([s.shard_id for s in shards],
+                            pool.map(fn, shards)))
+
     def flush(self) -> None:
         with self._stats_lock:
             self._flush_total += 1
-        for shard in self._healthy_shards():
-            shard.flush()
+        self._each_healthy_shard(IndexShard.flush)
 
     def synced_flush(self) -> Dict[int, str]:
         """Flush with a synced-flush marker on every healthy shard;
         returns {shard_id: sync_id}."""
         with self._stats_lock:
             self._flush_total += 1
-        return {shard.shard_id: shard.synced_flush()
-                for shard in self._healthy_shards()}
+        return self._each_healthy_shard(IndexShard.synced_flush)
 
     def force_merge(self) -> None:
         for shard in self._healthy_shards():
@@ -542,12 +643,120 @@ class IndexService:
         marker (once; the first cause wins), flag the shard, and release
         its device arrays and the mesh plane's staging."""
         shard = self.shards[sid]
-        shard.engine.store.mark_corrupted(str(exc), site=site)
+        store = shard.engine.store
+        integ = integrity_service()
+        integ.record_corruption(self.name, sid, site, str(exc))
+        already = store.is_corrupted()
+        marker = store.mark_corrupted(str(exc), site=site)
+        if not already:
+            integ.record_marker(self.name, sid, marker, action="marked")
         shard.store_corrupted = True
         for seg in shard.engine.segments:
             seg.release_device()
         if self._mesh_search is not None:
             self._mesh_search._drop_staging()
+
+    def unquarantine_shard(self, sid: int) -> None:
+        """A verified byte set replaced the quarantined copy: clear its
+        markers and flag (the only way out of quarantine; a load never
+        calls it)."""
+        shard = self.shards[sid]
+        store = shard.engine.store
+        for marker in store.corruption_markers():
+            integrity_service().record_marker(self.name, sid, marker,
+                                              action="cleared")
+        store.clear_corruption_markers()
+        shard.store_corrupted = False
+
+    # ------------------------------------------------------------------
+    # The store and device scrubber
+    # ------------------------------------------------------------------
+
+    def _scrub_effective_interval(self) -> Optional[float]:
+        """The cluster-level override while one is set, else
+        ``index.scrub.interval``; None or <= 0 is off."""
+        if self.scrub_interval_override is not None:
+            return self.scrub_interval_override
+        return INDEX_SCRUB_INTERVAL.get(self.settings)
+
+    def _scrub_loop(self) -> None:
+        while True:
+            iv = self._scrub_effective_interval()
+            if self._scrub_stop.wait(iv if iv is not None and iv > 0
+                                     else 5.0):
+                return
+            iv = self._scrub_effective_interval()
+            if iv is None or iv <= 0:
+                continue  # off (or turned off while waiting)
+            try:
+                self.scrub_now()
+            except Exception:  # noqa: BLE001 — the loop goes on
+                _scrub_log.warning("[%s] scrub pass failed", self.name,
+                                   exc_info=True)
+
+    def scrub_now(self) -> dict:
+        """One scrub pass (the thread's body; tests call it directly).
+        For each healthy shard:
+
+        - the disk: every committed segment's checksums again, nested
+          sub-segments too (sealed files never change, so a mismatch is
+          corruption at rest): the shard is quarantined, ``site="scrub"``;
+        - the card: each staged base table (``block_docs``,
+          ``block_tfs``, ``norms``) copied back and hashed against the
+          host truth cast to the staged dtype (the staging made the same
+          cast, so a clean table matches bit for bit): a drift releases
+          the segment's staging, whose restage the ledger records with
+          the ``scrub`` reason, and counts; drifted bytes never serve.
+
+        Returns {bytes_verified, checksum_failures, drift}."""
+        bytes_verified = 0
+        checksum_failures = 0
+        drift = 0
+        for sid, shard in sorted(self.shards.items()):
+            store = shard.engine.store
+            if shard.store_corrupted or (store is not None
+                                         and store.is_corrupted()):
+                continue  # quarantined: healed, not verified again
+            commit = (store.read_commit() if store is not None else None) \
+                or {}
+            for seg_name in commit.get("segments", []):
+                try:
+                    bytes_verified += store.verify_segment(seg_name)
+                except CorruptIndexException as e:
+                    checksum_failures += 1
+                    self._quarantine_shard(sid, e, site="scrub")
+                    break
+                except OSError:
+                    continue  # raced a merge's or a commit's cleanup
+            if shard.store_corrupted:
+                continue
+            for seg in list(shard.engine.segments):
+                dev = seg._device
+                if not dev:
+                    continue
+                for key, host in (("block_docs", seg.block_docs),
+                                  ("block_tfs", seg.block_tfs),
+                                  ("norms", seg.norms)):
+                    staged = dev.get(key)
+                    if staged is None:
+                        continue
+                    dev_np = staged.cpu().numpy()
+                    bytes_verified += int(dev_np.nbytes)
+                    host_np = np.asarray(host).astype(dev_np.dtype,
+                                                      copy=False)
+                    if (hashlib.sha256(dev_np.tobytes()).digest()
+                            != hashlib.sha256(host_np.tobytes()).digest()):
+                        drift += 1
+                        integrity_service().record_scrub_drift(
+                            self.name, sid, seg.name, key)
+                        # the restage adopts host truth again, recorded
+                        # with the scrub reason
+                        seg.stage_reason_initial = "scrub"
+                        seg.release_device()
+                        break
+        integrity_service().record_scrub_run(bytes_verified)
+        return {"bytes_verified": bytes_verified,
+                "checksum_failures": checksum_failures, "drift": drift}
 
     def _mesh_allowed(self) -> bool:
         """The mesh plane serves every shard as one program and cannot
@@ -573,6 +782,11 @@ class IndexService:
         self._mesh_enabled = False
         self._closing = True
         self._stop_refresh_timer()
+        self._scrub_stop.set()
+        self._scrub_thread.join()
+        # queued searches wake with a clean rejection: none hangs on a
+        # closing index
+        self.admission.shutdown()
         # a compaction pass in flight finishes its shard and stops
         with self._compact_lock:
             pass
@@ -616,12 +830,39 @@ class IndexService:
                 if cached is not None:
                     cached["took"] = int((time.monotonic() - t0) * 1000)
                     return cached
-        resp = self._admitted_dispatch(body, pinned_segments, deadline)
+        resp = self._search_dispatch(body, pinned_segments, deadline)
         if (cache_key is not None and not resp.get("timed_out")
-                and not resp["_shards"].get("failed")):
-            # a partial answer never enters the cache
+                and not resp["_shards"].get("failed")
+                and not resp.get("_degraded")):
+            # neither a partial nor a browned-out answer enters the cache:
+            # once the pressure drains the same body answers in full
             self.request_cache.put(cache_key, resp)
         return resp
+
+    def _search_dispatch(self, body: dict,
+                         pinned_segments: Optional[Dict[int, list]] = None,
+                         deadline: Optional[SearchDeadline] = None) -> dict:
+        """Admission control's choke point: every search takes an
+        admission slot here, before any staging or launch. An overflow
+        raises the 429; a deadline that expired while queued answers its
+        timed-out partial result without running; an admitted search runs
+        shaped by the brownout ladder (forced pruning, shed rescore, shed
+        aggregations and suggesters), its answer marked ``_degraded``."""
+        token = self.admission.acquire(deadline=deadline)
+        if token.shed_expired:
+            if deadline is not None:
+                deadline.timed_out = True
+            return expired_queue_response(self.name, len(self.shards), body)
+        try:
+            shaped, degraded = self.admission.apply_brownout(body, token)
+            with scoped_forced_pruning(token):
+                resp = self._admitted_dispatch(shaped, pinned_segments,
+                                               deadline)
+            if degraded:
+                resp["_degraded"] = degraded
+            return resp
+        finally:
+            self.admission.release(token)
 
     def _admitted_dispatch(self, body: dict,
                            pinned_segments: Optional[Dict[int, list]] = None,
@@ -630,20 +871,52 @@ class IndexService:
         """Route the query phase through the cross-query micro-batcher
         when eligible: a concurrent burst of compatible queries shares one
         batched kernel launch; a lone query runs at once. A batch item is
-        (body, deadline, tracer), so each member keeps its own."""
-        tracer = tracer_for(body)
+        (body, deadline, tracer, X-Opaque-Id), so each member keeps its
+        own: the batch runs on its leader's thread."""
+        tracer = self._tracer()
         if (not self._batcher.enabled or pinned_segments is not None
                 or not batchable_body(body)):
             return self._search_uncached(body,
                                          pinned_segments=pinned_segments,
                                          deadline=deadline, tracer=tracer)
+        # requests admitted with and without forced pruning never share a
+        # batch: the batch prunes by its leader's token
         return self._batcher.run(
-            self.name, (body, deadline, tracer),
+            (self.name, forced_pruning()),
+            (body, deadline, tracer, get_opaque_id()),
             single_fn=lambda it: self._search_uncached(
                 it[0], deadline=it[1], tracer=it[2]),
             batch_fn=lambda items: self.search_batch(
                 [it[0] for it in items], [it[1] for it in items],
-                [it[2] for it in items]))
+                [it[2] for it in items], [it[3] for it in items]))
+
+    def _telemetry_enabled(self) -> bool:
+        """``search.telemetry.enabled``: the cluster-level override while
+        one is set, else the index's settings."""
+        if self.telemetry_enabled_override is not None:
+            return bool(self.telemetry_enabled_override)
+        return SEARCH_TELEMETRY_ENABLED.get(self.settings)
+
+    def _tracer(self):
+        """One request's tracer (``NULL_TRACER`` while telemetry is off),
+        annotated with the request's X-Opaque-Id, so the id survives the
+        batch leader's thread."""
+        tracer = self.telemetry.tracer(self._telemetry_enabled())
+        oid = get_opaque_id()
+        if oid:
+            tracer.annotate("opaque_id", oid)
+        return tracer
+
+    @staticmethod
+    def _annotate_batch_member(item, wait_s: float, batch_size: int,
+                               member_index: int) -> None:
+        """The batcher's hook: a member's collection-window wait on its
+        tracer. The launch sites own ``batch_size``: a member that falls
+        to serial execution claims no batch shape."""
+        tracer = item[2]
+        if tracer.enabled:
+            tracer.annotate("batch_window_wait_ms",
+                            round(wait_s * 1000.0, 3))
 
     def _mesh_plane(self):
         ms = self._mesh_search
@@ -692,7 +965,8 @@ class IndexService:
         """The delta-commit hook (the mesh plane calls it, possibly under
         its stage lock): decide cheaply, then run the pass on a background
         thread, never on the query path. True when a pass started."""
-        if self._closing or not self._compaction_due():
+        if (self._closing or self.admission.draining
+                or not self._compaction_due()):
             return False
         if self._compact_lock.locked():
             return False  # single flight: a pass is already running
@@ -705,20 +979,24 @@ class IndexService:
         tests call it directly): force-merge the tombstone-dense and the
         fragmented shards (expunging deletes), then restage a fresh
         generation with fresh slot headroom and release the old one.
-        Single flight through ``_compact_lock``. The JAX package also
-        aborts between shards when the node starts to drain; the port has
-        no admission control yet, so only ``close`` (``_closing``) aborts
-        a pass."""
+        Single flight through ``_compact_lock``. A ``close`` or a drain
+        that begins mid-pass aborts it between shards, leaving a
+        consistent (merely uncompacted) staging."""
         if not self._compact_lock.acquire(blocking=False):
             return {"ran": False, "reason": "already_running"}
         try:
             if self._closing:
                 return {"ran": False, "reason": "closing"}
+            if self.admission.draining:
+                return {"ran": False, "reason": "draining"}
             threshold = self._compact_threshold()
             merged_shards = []
             for sid, shard in sorted(self.shards.items()):
                 if self._closing:
                     return {"ran": False, "reason": "closing",
+                            "merged_shards": merged_shards}
+                if self.admission.draining:
+                    return {"ran": False, "reason": "draining",
                             "merged_shards": merged_shards}
                 if shard.store_corrupted:
                     continue
@@ -751,10 +1029,19 @@ class IndexService:
         return from_, size
 
     def _finish_query_response(self, resp: dict, body: dict, tracer,
-                               plane: str) -> dict:
-        """The one place a response gets its profile section, whatever
-        plane served it: the plane, the tracer's phase spans and its
-        annotations beside the host rung's per-segment trees."""
+                               plane: str, t0: float) -> dict:
+        """One choke point for a query's observability, whatever plane
+        served it: the tracer drains into the phase histograms, a
+        mesh-served body joins the warm variants, a profiled request gets
+        its plane, phase spans and annotations (beside the host rung's
+        per-segment trees), and a mesh-served query its slowlog line (the
+        host rung's shards log their own)."""
+        self.telemetry.record_query(plane, tracer)
+        self._record_warm_variant("search", [body], plane)
+        if plane != "host":
+            emit_search_slowlog(self._slowlog_warn_s, self._slowlog_info_s,
+                                time.monotonic() - t0, "index", self.name,
+                                plane, tracer, body)
         if body.get("profile"):
             prof = resp.setdefault("profile", {"shards": []})
             prof["plane"] = plane
@@ -796,7 +1083,8 @@ class IndexService:
         if body.get("suggest"):
             resp["suggest"] = run_suggest(body["suggest"], self.shards,
                                           self.mapper_service)
-        return self._finish_query_response(resp, body, tracer, out["plane"])
+        return self._finish_query_response(resp, body, tracer, out["plane"],
+                                           t0)
 
     def _try_mesh_search(self, body: dict, k: int, deadline=None,
                          tracer=NULL_TRACER) -> Optional[dict]:
@@ -844,9 +1132,12 @@ class IndexService:
         and none timed out; ``allow_partial_search_results: false`` turns
         a failure or a timeout into a ``SearchPhaseExecutionException``."""
         if tracer is None:
-            tracer = tracer_for(body)
+            tracer = self._tracer()
         t0 = time.monotonic()
         body = body or {}
+        # fault injection at dispatch (EvictionStormScheme forces the
+        # ledger's evictor here, under real query load)
+        on_query_begin(self.name)
         if body.get("knn") is not None:
             # the top-level knn section: alone, a pure vector search (the
             # knn query clause); beside ``query``, hybrid ranking
@@ -1022,7 +1313,7 @@ class IndexService:
         if body.get("suggest"):
             resp["suggest"] = run_suggest(body["suggest"], self.shards,
                                           self.mapper_service)
-        return self._finish_query_response(resp, body, tracer, "host")
+        return self._finish_query_response(resp, body, tracer, "host", t0)
 
     def _search_hybrid(self, body: dict, deadline=None) -> dict:
         """Hybrid ranking: the lexical ``query`` and the ``knn`` section
@@ -1162,13 +1453,15 @@ class IndexService:
 
     def search_batch(self, bodies: List[dict],
                      deadlines: Optional[list] = None,
-                     tracers: Optional[list] = None) -> list:
+                     tracers: Optional[list] = None,
+                     oids: Optional[list] = None) -> list:
         """Execute Q concurrent search requests as one micro-batch.
 
         Returns one entry per member: the response dict, or the exception
-        that member alone should raise. ``deadlines`` and ``tracers``:
-        each member's own (None for a direct caller: a tracer a profiled
-        member). Rungs, as in the JAX package:
+        that member alone should raise. ``deadlines``, ``tracers`` and
+        ``oids`` (X-Opaque-Ids): each member's own (None for a direct
+        caller: a fresh tracer a member, the caller's id); every member's
+        answer is built under its own id. Rungs, as in the JAX package:
         0. a member whose deadline expired (or whose task was cancelled)
            before dispatch leaves the batch alone: it gets its partial
            result (or its error) and the others are served;
@@ -1180,7 +1473,8 @@ class IndexService:
         n = len(bodies)
         deadlines = list(deadlines) if deadlines else [None] * n
         tracers = (list(tracers) if tracers
-                   else [tracer_for(b) for b in bodies])
+                   else [self._tracer() for _ in bodies])
+        oids = list(oids) if oids else [get_opaque_id()] * n
         results: list = [None] * n
         live: List[int] = []
         for i, body in enumerate(bodies):
@@ -1195,11 +1489,11 @@ class IndexService:
                     # expired before dispatch: its serial path meets the
                     # same checkpoint and answers the partial result
                     results[i] = self._batch_member_single(
-                        body, dl, tracer=tracers[i])
+                        body, dl, tracer=tracers[i], oid=oids[i])
                     continue
             if not batchable_body(body):
-                results[i] = self._batch_member_single(body, dl,
-                                                       tracer=tracers[i])
+                results[i] = self._batch_member_single(
+                    body, dl, tracer=tracers[i], oid=oids[i])
                 continue
             live.append(i)
         # pure-kNN members split off onto one batched kernel-3 launch;
@@ -1207,12 +1501,12 @@ class IndexService:
         knn_live = [i for i in live if knn_batch_spec(bodies[i])]
         if knn_live:
             live = [i for i in live if i not in set(knn_live)]
-            self._dispatch_knn_batch(bodies, deadlines, tracers, knn_live,
-                                     results)
+            self._dispatch_knn_batch(bodies, deadlines, tracers, oids,
+                                     knn_live, results)
         if len(live) < 2:
             for i in live:
                 results[i] = self._batch_member_single(
-                    bodies[i], deadlines[i], tracer=tracers[i])
+                    bodies[i], deadlines[i], tracer=tracers[i], oid=oids[i])
             return results
         live_bodies = [bodies[i] for i in live]
         mesh_out = None
@@ -1221,13 +1515,13 @@ class IndexService:
                 live_bodies, tracers=[tracers[i] for i in live])
         if mesh_out is not None:
             for j, i in enumerate(live):
-                try:
-                    results[i] = self._mesh_response(
-                        bodies[i], mesh_out[j], time.monotonic(),
-                        tracers[i], demux=True)
-                except Exception as e:  # noqa: BLE001 — per-member fetch
-                    results[i] = e  # isolation: raised in its own caller
+                results[i] = self._batch_member_response(
+                    bodies[i], mesh_out[j], tracers[i], oids[i])
             self.batch_stats.note_batch(len(live))
+            # the burst's shape joins the warm variants: the batched
+            # launch is another variant than the serial one
+            self._record_warm_variant("search_batch", live_bodies,
+                                      "mesh_pallas")
             return results
         caches, launches = self._host_batch_scores(live_bodies)
         # count only the members that shared a launch
@@ -1240,7 +1534,7 @@ class IndexService:
             member_idx += bool(caches[j])
             results[i] = self._batch_member_single(
                 bodies[i], deadlines[i], score_caches=caches[j] or None,
-                skip_mesh=bool(caches[j]), tracer=tracers[i])
+                skip_mesh=bool(caches[j]), tracer=tracers[i], oid=oids[i])
         if launches and shared:
             self.batch_stats.note_batch(shared)
         return results
@@ -1258,8 +1552,8 @@ class IndexService:
             body["size"] = int(spec["k"])
         return body
 
-    def _dispatch_knn_batch(self, bodies, deadlines, tracers, knn_live,
-                            results) -> None:
+    def _dispatch_knn_batch(self, bodies, deadlines, tracers, oids,
+                            knn_live, results) -> None:
         """Serve a burst of pure-kNN members: one batched kernel-3 launch
         when they target one field and the mesh plane serves them, else
         each member's serial pipeline. Fills ``results`` in place."""
@@ -1275,7 +1569,7 @@ class IndexService:
                 # an unsupported request key: the serial path raises the
                 # member's own error
                 results[i] = self._batch_member_single(
-                    bodies[i], deadlines[i], tracer=tracers[i])
+                    bodies[i], deadlines[i], tracer=tracers[i], oid=oids[i])
         specs = [knn_batch_spec(bodies[i]) for i in shared]
         ks = []
         for i in shared:
@@ -1291,29 +1585,94 @@ class IndexService:
                 tracers=[tracers[i] for i in shared])
         if mesh_out is not None:
             for j, i in enumerate(shared):
-                try:
-                    results[i] = self._mesh_response(
-                        norm_bodies[i], mesh_out[j], time.monotonic(),
-                        tracers[i], demux=True)
-                except Exception as e:  # noqa: BLE001 — per-member fetch
-                    results[i] = e  # isolation: raised in its own caller
+                results[i] = self._batch_member_response(
+                    norm_bodies[i], mesh_out[j], tracers[i], oids[i])
             self.batch_stats.note_batch(len(shared))
+            self._record_warm_variant(
+                "search_batch", [bodies[i] for i in shared], "mesh_pallas")
             return
         for i in shared:
             results[i] = self._batch_member_single(
-                bodies[i], deadlines[i], tracer=tracers[i])
+                bodies[i], deadlines[i], tracer=tracers[i], oid=oids[i])
+
+    def _batch_member_response(self, body, out, tracer, oid):
+        """A member's answer from its share of a batched mesh launch,
+        built under its own X-Opaque-Id; a fetch error is that member's
+        result, never its peers'."""
+        with scoped_opaque_id(oid):
+            try:
+                return self._mesh_response(body, out, time.monotonic(),
+                                           tracer, demux=True)
+            except Exception as e:  # noqa: BLE001 — per-member isolation
+                return e
 
     def _batch_member_single(self, body, deadline=None, score_caches=None,
-                             skip_mesh=False, tracer=None):
-        """One member's serial execution inside a batch: an exception is
-        that member's result (raised in its own caller), never its
-        peers'."""
+                             skip_mesh=False, tracer=None, oid=None):
+        """One member's serial execution inside a batch, under its own
+        X-Opaque-Id: an exception is that member's result (raised in its
+        own caller), never its peers'."""
+        with scoped_opaque_id(oid):
+            try:
+                return self._search_uncached(
+                    body, score_caches=score_caches, skip_mesh=skip_mesh,
+                    deadline=deadline, tracer=tracer)
+            except Exception as e:  # noqa: BLE001 — per-member isolation
+                return e
+
+    # ------------------------------------------------------------------
+    # The warm variants (common/compile_cache.py)
+    # ------------------------------------------------------------------
+
+    def _record_warm_variant(self, kind: str, bodies: List[dict],
+                             plane: str) -> None:
+        """Record a mesh-served body (or burst) as a replayable warm spec,
+        once a shape (``body_skeleton``): the next process replays it
+        before its first user request. A warm replay records nothing."""
+        if plane not in ("mesh_pallas", "mesh") or not bodies:
+            return
+        if cc.in_warming():
+            return
         try:
-            return self._search_uncached(body, score_caches=score_caches,
-                                         skip_mesh=skip_mesh,
-                                         deadline=deadline, tracer=tracer)
-        except Exception as e:  # noqa: BLE001 — per-member isolation
-            return e
+            # the steady state: the variant is known, one skeleton hash
+            # and one dict probe
+            key = (kind + "|" + str(min(len(bodies), 16)) + "|"
+                   + "|".join(sorted({cc.body_skeleton(b)
+                                      for b in bodies[:16]})))
+            registry = cc.variant_registry()
+            if registry.has_warm(self.name, key):
+                return
+            clean = [{k: v for k, v in (b or {}).items()
+                      if k not in ("profile", "preference")}
+                     for b in bodies[:16]]
+            json.dumps(clean)  # only JSON-serializable bodies persist
+            registry.record_warm(self.name, key,
+                                 {"kind": kind, "bodies": clean})
+        except (TypeError, ValueError):
+            pass  # an unserializable body: this variant is not warmable
+
+    def warm_compile_variants(self) -> int:
+        """Replay this index's recorded warm specs under
+        ``compile_cache.warming()``: the staging and each variant's first
+        launch land in ``programs_warmed_total``, off the query path. The
+        node runs it on a background thread at start; returns how many
+        specs replayed cleanly (a stale one, a deleted field say, warms
+        nothing)."""
+        warmed = 0
+        for spec in cc.variant_registry().warm_entries(self.name):
+            bodies = [dict(b) for b in spec.get("bodies") or []]
+            if not bodies:
+                continue
+            try:
+                with cc.warming():
+                    if spec.get("kind") == "search_batch":
+                        self.search_batch(bodies)
+                    else:
+                        for body in bodies:
+                            self._search_uncached(body)
+                warmed += 1
+            except Exception:  # noqa: BLE001 — warming never fails the
+                continue  # node
+        return warmed
 
     def _host_batch_scores(self, bodies: List[dict]):
         """Per-segment batched kernel launches for the host rung.
@@ -1375,9 +1734,11 @@ class IndexService:
         bytes staged, the fused aggregations and the host reduce's
         fallbacks by reason, the staging lifecycle's counters (rebuilds,
         delta appends, tombstone updates, compaction passes), the
-        batcher's counters, and the ``memory`` block: the index's
-        device-memory ledger (bytes by kind, restage amplification, the
-        event rings and the budget's and retries' counters)."""
+        batcher's counters, the ``admission`` block, the telemetry's
+        ``phases`` block, the ``memory`` block (the index's device-memory
+        ledger: bytes by kind, restage amplification, the event rings and
+        the budget's and retries' counters), and the process-wide
+        ``compile`` and ``integrity`` blocks."""
         from elasticsearch_tpu_torch.parallel.plan_exec import PlaneHealth
 
         ms = self._mesh_search
@@ -1415,7 +1776,11 @@ class IndexService:
             **(ms.plane_health.stats() if ms else PlaneHealth().stats()),
         }
         return {"planes": planes, "batch": self.batch_stats.as_dict(),
-                "memory": memory_accountant().stats(self.name)}
+                "admission": self.admission.stats_dict(),
+                "phases": self.telemetry.phases_dict(),
+                "memory": memory_accountant().stats(self.name),
+                "compile": cc.compile_stats().stats(),
+                "integrity": integrity_service().stats(self.name)}
 
     def stats(self) -> dict:
         """The ``_stats`` sections (the JAX package's ``IndexService.stats``):

@@ -45,7 +45,7 @@ class IndexShard:
     def __init__(self, index_name: str, shard_id: int, mapper_service,
                  device="cuda", data_path: Optional[str] = None,
                  durability: str = Translog.DURABILITY_REQUEST,
-                 index_sort=None):
+                 index_sort=None, slowlog_warn_s=None, slowlog_info_s=None):
         self.index_name = index_name
         self.shard_id = shard_id
         self.mapper_service = mapper_service
@@ -64,7 +64,9 @@ class IndexShard:
         # the device-memory ledger attributes the segments' stagings here
         self.engine.index_name = index_name
         self.searcher = ShardSearcher(shard_id, self.engine, mapper_service,
-                                      index_name=index_name)
+                                      index_name=index_name,
+                                      slowlog_warn_s=slowlog_warn_s,
+                                      slowlog_info_s=slowlog_info_s)
         # set when the store carries a corruption marker: the query path
         # fails the shard into _shards.failures
         self.store_corrupted = False
@@ -80,18 +82,21 @@ class IndexShard:
             or os.path.exists(os.path.join(
                 self.data_path, "translog", "translog.ckp")))
 
-    def recover_from_store(self, store: Optional[Store] = None) -> int:
-        """Load the committed segments (checksums verified), rebuild the
-        version map from their live docs, re-adopt the commit's delete
-        tombstones, then replay the translog's uncommitted
-        ops. Returns the ops replayed. Raises ``CorruptIndexException``
-        for a store that fails verification. ``store``: another store to
-        load from (a snapshot's shard directory, for a shard that has no
-        store of its own)."""
+    def recover_from_store(self, store: Optional[Store] = None,
+                           segments: Optional[list] = None) -> int:
+        """Load the committed segments (checksums verified), defer their
+        live docs' version-map entries to the map's first read, re-adopt
+        the commit's delete tombstones, then replay the translog's
+        uncommitted ops. Returns the ops replayed. Raises
+        ``CorruptIndexException`` for a store that fails verification.
+        ``store``: another store to load from (a snapshot's shard
+        directory, for a shard that has no store of its own);
+        ``segments``: the committed segments, loaded already."""
         self.state = ShardState.RECOVERING
         engine = self.engine
         store = store if store is not None else engine.store
-        segments = store.load_segments(engine.device)
+        if segments is None:
+            segments = store.load_segments(engine.device)
         engine.segments = segments
         # a loaded segment may reuse a name the engine held before (a
         # restore): the request cache's epoch moves
@@ -110,11 +115,8 @@ class IndexShard:
         doc_terms = commit.get("doc_terms", {})
         max_seq = -1
         for seg in segments:
-            for local, doc_id in enumerate(seg.doc_ids):
-                if seg.live[local]:
-                    engine.version_map[doc_id] = VersionEntry(
-                        int(seg.versions[local]), int(seg.seqnos[local]),
-                        seg.name, local, term=doc_terms.get(doc_id, 1))
+            # the live docs enter the version map on its first read
+            engine.defer_version_entries(seg, doc_terms)
             if seg.num_docs:
                 max_seq = max(max_seq, int(seg.seqnos.max()))
         # without the tombstones a replayed older op could resurrect a

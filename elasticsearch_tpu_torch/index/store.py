@@ -22,7 +22,9 @@ directory:
   ``parent_of.npy`` and ``offset_of.npy`` beside it (covered by its
   checksums), nested-in-nested recursively;
 - ``corrupted_*.json``: a corruption marker. A store that carries one
-  refuses every load until a verified copy replaces it.
+  refuses every load until a verified copy replaces it
+  (``clear_corruption_markers``). ``verify_segment`` checks a committed
+  segment's checksums again, nested ones too: the scrubber's disk pass.
 
 The names, npz keys, ``meta.json`` keys and dtypes are the JAX package's,
 so a store one package wrote opens in the other for the field types both
@@ -177,6 +179,18 @@ class Store:
         _fsync_json(os.path.join(self.directory, marker["marker"]), marker)
         return marker
 
+    def clear_corruption_markers(self) -> int:
+        """Remove the markers: legal only after a verified byte set
+        replaced the copy (``IndexService.unquarantine_shard``)."""
+        cleared = 0
+        for marker in self.corruption_markers():
+            try:
+                os.remove(os.path.join(self.directory, marker["marker"]))
+                cleared += 1
+            except OSError:
+                pass
+        return cleared
+
     def _check_not_corrupted(self) -> None:
         markers = self.corruption_markers()
         if markers:
@@ -269,6 +283,13 @@ class Store:
     def read_segment(self, name: str, device) -> Segment:
         self._check_not_corrupted()
         return _read_segment_dir(self._seg_dir(name), device)
+
+    def verify_segment(self, name: str) -> int:
+        """Verify a sealed segment's checksums again, its nested
+        sub-segments too (the scrubber's disk pass); returns the bytes
+        verified, raises ``CorruptIndexException`` at the first
+        mismatch."""
+        return _verify_segment_dir(self._seg_dir(name))
 
 
 def _refresh_live(seg: Segment, d: str) -> None:
@@ -494,6 +515,21 @@ def _sha256(path: str) -> str:
         for chunk in iter(lambda: f.read(1 << 24), b""):
             h.update(chunk)
     return h.hexdigest()
+
+
+def _verify_segment_dir(d: str) -> int:
+    _verify_checksums_dir(d)
+    total = 0
+    with open(os.path.join(d, "checksums.json"), encoding="utf-8") as f:
+        for fn in json.load(f):
+            total += os.path.getsize(os.path.join(d, fn))
+    nested = os.path.join(d, "nested")
+    if os.path.isdir(nested):
+        for entry in sorted(os.listdir(nested)):
+            sub = os.path.join(nested, entry)
+            if os.path.isdir(sub):
+                total += _verify_segment_dir(sub)
+    return total
 
 
 def _verify_checksums_dir(d: str) -> None:

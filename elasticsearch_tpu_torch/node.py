@@ -90,12 +90,26 @@ A ``geo_shape`` query's ``indexed_shape`` is inlined by ``search``
 before any shard sees it (``_rewrite_indexed_shapes``, the referenced
 document's shape at ``path``, ``shape`` by default); a missing document
 is a 404. ``clear_cache`` serves ``_cache/clear``.
+
+``drain`` (``POST /_nodes/_local/_drain``) stops every index's admission
+(new searches answer 503 with ``Retry-After``, queued ones are shed the
+same way), waits up to ``search.drain.deadline`` for the searches in
+flight, then synced-flushes a durable node's indices; ``undrain`` ends
+it, an index created meanwhile joins it, and ``close`` drains first.
+``hot_threads`` samples each thread's CPU time and stack. The variant
+registry (``common/compile_cache.py``) lives under
+``search.compile.cache_path``, else beside a durable node's store, and a
+durable node replays its recorded bodies on a background thread at start
+(``search.compile.warm_on_start``; ``close`` joins it). ``node_stats``
+merges the indices' ``search`` blocks (the phase histograms, admission)
+beside the process-wide ``memory``, ``compile`` and ``integrity`` blocks.
 """
 
 from __future__ import annotations
 
 import fnmatch
 import json
+import logging
 import os
 import re
 import shutil
@@ -113,6 +127,7 @@ from elasticsearch_tpu_torch.cluster.state import (
     IndexMetadata,
     cluster_health,
 )
+from elasticsearch_tpu_torch.common import compile_cache as cc
 from elasticsearch_tpu_torch.common import monitor
 from elasticsearch_tpu_torch.common.device import resolve_device
 from elasticsearch_tpu_torch.common.errors import (
@@ -128,6 +143,7 @@ from elasticsearch_tpu_torch.common.breaker import configure_breaker_service
 from elasticsearch_tpu_torch.common.memory import memory_accountant
 from elasticsearch_tpu_torch.common.settings import (
     CLUSTER_NAME,
+    INDEX_SCRUB_INTERVAL,
     INDEX_STAGING_COMPACT_THRESHOLD,
     INDEX_STAGING_DELTA_ENABLED,
     NODE_NAME,
@@ -137,6 +153,8 @@ from elasticsearch_tpu_torch.common.settings import (
     SEARCH_BATCH_ENABLED,
     SEARCH_BATCH_MAX_QUERIES,
     SEARCH_BATCH_WINDOW_MS,
+    SEARCH_COMPILE_CACHE_PATH,
+    SEARCH_COMPILE_WARM_ON_START,
     SEARCH_KNN_ENABLED,
     SEARCH_KNN_TILE_SUB,
     SEARCH_MEMORY_HBM_BUDGET,
@@ -145,6 +163,7 @@ from elasticsearch_tpu_torch.common.settings import (
     SEARCH_QUEUE_SIZE,
     SEARCH_STAGING_RETRY_BACKOFF_MS,
     SEARCH_STAGING_RETRY_MAX_ATTEMPTS,
+    SEARCH_TELEMETRY_ENABLED,
     Settings,
     cluster_settings,
     index_scoped_settings,
@@ -161,6 +180,7 @@ from elasticsearch_tpu_torch.tasks.task_manager import TaskManager
 from elasticsearch_tpu_torch.version import __version__
 
 _INVALID_INDEX_CHARS = set(' "*\\<>|,/?#')
+_node_log = logging.getLogger("elasticsearch_tpu_torch.node")
 
 MAPPING_TOP_LEVEL_KEYS = {
     "properties", "dynamic", "dynamic_templates", "_source", "_meta",
@@ -256,18 +276,34 @@ class Node:
         self.tasks = TaskManager(self.node_id)
         self.ingest = IngestService(self)
         self.snapshots = SnapshotsService(self)
+        # the drain: set while the node refuses new searches
+        self._draining = False
+        # the variant registry: under search.compile.cache_path, else
+        # beside the store; the process's registry follows the last node
+        # constructed
+        cache_path = SEARCH_COMPILE_CACHE_PATH.get(settings)
+        if cache_path:
+            cc.configure_compile_cache(cache_path)
+        elif self.persistent_path:
+            cc.set_variant_registry(cc.VariantRegistry(os.path.join(
+                self.data_path, "_state", cc.REGISTRY_FILE)))
+        self._warm_thread: Optional[threading.Thread] = None
         if self.persistent_path:
             # the global metadata first, then each index; from then on the
             # applier keeps the global file current
             self._recover_global_meta()
             self.cluster_service.add_applier(self._persist_global_meta)
             self._recover_indices_from_disk()
+            if SEARCH_COMPILE_WARM_ON_START.get(settings):
+                self._start_compile_warming()
 
     def close(self) -> None:
         """Stop and join the scroll reaper and drop every scroll context;
-        synced-flush every index of a durable node (its metadata first),
-        so a restart replays nothing; then stop the thread pools and
-        release every index's device memory and refresh thread."""
+        drain (new searches refused, queued ones shed, those in flight
+        finished, then every index of a durable node synced-flushed with
+        its metadata, so a restart replays nothing); join the warm
+        thread; then stop the thread pools and release every index's
+        device memory and its threads."""
         if self._closed:
             return
         self._closed = True
@@ -275,10 +311,9 @@ class Node:
         self._reaper.join()
         with self._scroll_lock:
             self.scrolls.clear()
-        if self.persistent_path:
-            for name in list(self.indices):
-                self._persist_index_meta(name)
-                self.indices[name].synced_flush()
+        self.drain()
+        if self._warm_thread is not None:
+            self._warm_thread.join()
         self.thread_pool.shutdown()
         self.snapshots.close()
         for name in list(self.indices):
@@ -502,6 +537,9 @@ class Node:
                            data_path=self._index_data_path(name))
         svc.doc_type = doc_type
         self._apply_cluster_overrides(svc)
+        if self._draining:
+            # an index created while the node drains joins the drain
+            svc.admission.begin_drain()
         self.indices[name] = svc
 
         def update(state: ClusterState) -> ClusterState:
@@ -1458,16 +1496,21 @@ class Node:
 
     def node_stats(self) -> dict:
         """The node's stats: docs, the per-index ``search`` blocks merged
-        into one with the node-wide device-memory ledger as its
-        ``memory``, the OS, process and filesystem probes, the thread
-        pools and the breakers. The JAX package's ``compile`` and
-        ``transport`` sections wait for their modules."""
+        into one (the phase histograms, the plane and admission counters)
+        with the node-wide device-memory ledger as its ``memory`` and the
+        process-wide ``compile`` and ``integrity`` blocks, the OS, process
+        and filesystem probes, the thread pools and the breakers. The JAX
+        package's ``transport`` section waits for its module."""
+        from elasticsearch_tpu_torch.common.integrity import integrity_service
         from elasticsearch_tpu_torch.search.telemetry import merge_phase_stats
 
         search = merge_phase_stats(
             [svc.search_stats() for svc in self.indices.values()])
-        # the ledger is a node resource: its node-wide view, not a sum
+        # the ledger, the compile plane and the integrity counters are
+        # process resources: their node-wide views, not sums
         search["memory"] = memory_accountant().stats(None)
+        search["compile"] = cc.compile_stats().stats()
+        search["integrity"] = integrity_service().stats(None)
         return {
             "cluster_name": self.cluster_service.state.cluster_name,
             "nodes": {self.node_id: {
@@ -1608,12 +1651,19 @@ class Node:
                 (SEARCH_KNN_ENABLED, "knn_enabled_override"),
                 (SEARCH_KNN_TILE_SUB, "knn_tile_sub_override"),
                 (SEARCH_AGGS_FUSED, "aggs_fused_override"),
+                (SEARCH_TELEMETRY_ENABLED, "telemetry_enabled_override"),
+                (INDEX_SCRUB_INTERVAL, "scrub_interval_override"),
                 (INDEX_STAGING_DELTA_ENABLED,
                  "staging_delta_enabled_override"),
                 (INDEX_STAGING_COMPACT_THRESHOLD,
                  "staging_compact_threshold_override")):
             explicit = committed.get(setting.key) is not None
             setattr(svc, attr, setting.get(committed) if explicit else None)
+        # the admission knobs (search.queue.*, search.admission.*,
+        # search.drain.*, search.batch.max_window_ms): the controller
+        # takes the explicit cluster keys as overrides and reads its
+        # config live
+        svc.admission.set_cluster_overrides(committed)
 
     def update_index_settings(self, expression: str, body: dict) -> dict:
         """``PUT /{index}/_settings``: only registered dynamic settings;
@@ -1809,6 +1859,151 @@ class Node:
         return {"acknowledged": True, "shards_acknowledged": True,
                 "index": target}
 
+
+    # ------------------------------------------------------------------
+    # Hot threads, the drain and the warm replay
+    # ------------------------------------------------------------------
+
+    HOT_THREADS_INTERVAL_S = 0.05
+
+    @staticmethod
+    def _thread_cpu_seconds() -> dict:
+        """{thread ident: CPU seconds} from ``/proc/self/task``, for the
+        threads of the ``threading`` module; {} where it cannot be read."""
+        out = {}
+        try:
+            tick = os.sysconf("SC_CLK_TCK")
+        except (ValueError, OSError, AttributeError):
+            return out
+        for th in threading.enumerate():
+            tid = getattr(th, "native_id", None)
+            if tid is None:
+                continue
+            try:
+                with open(f"/proc/self/task/{tid}/stat", "rb") as f:
+                    # the name may hold spaces and parens: split after the
+                    # closing paren; utime and stime are then fields 11, 12
+                    parts = f.read().rpartition(b")")[2].split()
+                out[th.ident] = (int(parts[11]) + int(parts[12])) / tick
+            except (OSError, IndexError, ValueError):
+                continue
+        return out
+
+    def hot_threads(self) -> str:
+        """``_nodes/hot_threads``: each thread's CPU share over a short
+        interval (two CPU-time samples around a sleep), its name and its
+        stack, busiest first; a waiter on a lock shows 0% with the
+        acquire frame on top."""
+        import sys
+        import traceback
+
+        interval = self.HOT_THREADS_INTERVAL_S
+        cpu0 = self._thread_cpu_seconds()
+        time.sleep(interval)
+        cpu1 = self._thread_cpu_seconds()
+        frames = sys._current_frames()
+        rows = []
+        known = set()
+        for th in threading.enumerate():
+            cpu = max(cpu1.get(th.ident, 0.0) - cpu0.get(th.ident, 0.0),
+                      0.0)
+            rows.append((cpu, th.ident, th.name, th.daemon))
+            known.add(th.ident)
+        # threads running Python that the threading module never saw
+        for ident in frames.keys() - known:
+            rows.append((0.0, ident, "<non-threading>", False))
+        rows.sort(key=lambda r: (-r[0], r[2]))
+        out = [
+            f"::: {{{self.node_name}}}{{{self.node_id}}}",
+            f"   Hot threads sampled over {interval * 1000:.0f}ms, "
+            f"{len(rows)} live threads, busiest first:",
+        ]
+        for cpu, ident, name, daemon in rows:
+            pct = cpu / interval * 100.0 if interval else 0.0
+            flags = " (daemon)" if daemon else ""
+            out.append(
+                f"\n   {pct:6.1f}% ({cpu * 1000:.1f}ms out of "
+                f"{interval * 1000:.0f}ms) cpu usage by thread id "
+                f"[{ident}] '{name}'{flags}:")
+            frame = frames.get(ident)
+            if frame is None:
+                out.append("     <no stack available>")
+                continue
+            out.extend("     " + line.rstrip("\n") for line in
+                       traceback.format_stack(frame, limit=12))
+        return "\n".join(out)
+
+    def _start_compile_warming(self) -> None:
+        """Replay every recovered index's recorded warm specs on a
+        background thread (``IndexService.warm_compile_variants``): the
+        boot never waits for it, and a query finds the variants warm."""
+        targets = [svc for svc in self.indices.values()
+                   if cc.variant_registry().warm_entries(svc.name)]
+        if not targets:
+            return
+
+        def warm():
+            for svc in targets:
+                svc.warm_compile_variants()
+
+        self._warm_thread = threading.Thread(
+            target=warm, daemon=True,
+            name=f"compile-warm[{self.node_name}]")
+        self._warm_thread.start()
+
+    def _drain_deadline_s(self) -> float:
+        committed = self._committed_cluster_settings()
+        source = (committed if committed.get("search.drain.deadline")
+                  is not None else self.settings)
+        v = source.get_time("search.drain.deadline", 30.0)
+        return float(v) if v is not None else 30.0
+
+    def drain(self, deadline_s: Optional[float] = None) -> dict:
+        """Enter the drain (``POST /_nodes/_local/_drain``): every index's
+        admission stops admitting (a clean 503 with Retry-After; queued
+        searches shed the same way), the searches in flight finish within
+        ``search.drain.deadline``, then every index of a durable node is
+        synced-flushed with its metadata, so a restart replays nothing.
+        Idempotent; ``undrain`` ends it. Returns the drain's report."""
+        t0 = time.monotonic()
+        deadline_s = (self._drain_deadline_s() if deadline_s is None
+                      else float(deadline_s))
+        self._draining = True
+        shed = 0
+        for svc in self.indices.values():
+            shed += svc.admission.begin_drain()
+        deadline_at = time.monotonic() + deadline_s
+        drained = True
+        for svc in self.indices.values():
+            remaining = max(deadline_at - time.monotonic(), 0.0)
+            drained = svc.admission.await_drained(remaining) and drained
+        # after the searches in flight finished: the commit covers every
+        # acknowledged op
+        if self.persistent_path:
+            for name in list(self.indices):
+                self._persist_index_meta(name)
+                try:
+                    self.indices[name].synced_flush()
+                except Exception:  # noqa: BLE001 — a failed flush does not
+                    # block the drain; the translog replay covers it
+                    _node_log.warning("[%s] synced flush in the drain "
+                                      "failed", name, exc_info=True)
+        return {
+            "draining": True,
+            "drained": drained,
+            "queued_shed": shed,
+            "in_flight_remaining": sum(
+                svc.admission.in_flight for svc in self.indices.values()),
+            "took_ms": int((time.monotonic() - t0) * 1000),
+        }
+
+    def undrain(self) -> dict:
+        """End a drain (``DELETE /_nodes/_local/_drain``): every index
+        admits again."""
+        self._draining = False
+        for svc in self.indices.values():
+            svc.admission.end_drain()
+        return {"draining": False}
 
 def _template_matches(template: dict, index_name: str) -> bool:
     patterns = template.get("index_patterns") or []

@@ -14,6 +14,12 @@ Every build, load and launch failure raises ``KernelError``, which the
 search planes let through: a kernel fault is never served by another
 rung.
 
+The library's build and load is a first-use cost of its own: the first
+``library()`` call of a process records it in the compile block
+(``common/compile_cache.py``, family ``kernel_library``) as a hit when the
+``.so`` in ``build/`` was current and no ``nvcc`` ran, and as warmed when
+it ran under ``compile_cache.warming()``.
+
 ``LAUNCHES`` counts kernel launches per kernel name. Wrappers add one
 where they launch their kernel and nowhere else, so a caller can show that
 a run went through the kernels (``reset_launch_counts`` zeroes them).
@@ -27,6 +33,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import Dict, List, Optional
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -144,13 +151,17 @@ def _digest() -> str:
 def build() -> str:
     """Compile the kernels if the library is missing or stale; returns its
     path. Raises with the compiler's output when a build fails."""
+    return _build(_digest())[0]
+
+
+def _build(digest: str):
+    """(library path, whether ``nvcc`` ran)."""
     lib_path = os.path.join(BUILD_DIR, LIB_NAME)
     stamp_path = lib_path + ".sha256"
-    digest = _digest()
     if os.path.exists(lib_path) and os.path.exists(stamp_path):
         with open(stamp_path) as f:
             if f.read().strip() == digest:
-                return lib_path
+                return lib_path, False
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     units = [p for p in sources() if p.endswith(".cu")]
@@ -180,7 +191,7 @@ def build() -> str:
     with open(stamp_path, "w") as f:
         f.write(digest)
     build_log[:] = log
-    return lib_path
+    return lib_path, True
 
 
 def library() -> ctypes.CDLL:
@@ -188,7 +199,11 @@ def library() -> ctypes.CDLL:
     global _lib
     with _build_lock:
         if _lib is None:
-            path = build()
+            from elasticsearch_tpu_torch.common import compile_cache as cc
+
+            t0 = time.perf_counter()
+            digest = _digest()
+            path, compiled = _build(digest)
             try:
                 lib = ctypes.CDLL(path)
             except OSError as e:
@@ -200,6 +215,11 @@ def library() -> ctypes.CDLL:
             lib.estpu_error_string.argtypes = [_c_int]
             lib.estpu_error_string.restype = ctypes.c_char_p
             _lib = lib
+            key = cc.variant_key("kernel_library", digest)
+            cc.variant_registry().record_program(key)
+            cc.compile_stats().record_first_call(
+                "kernel_library", key, time.perf_counter() - t0,
+                warmed=cc.in_warming(), cache_hit=not compiled)
         return _lib
 
 

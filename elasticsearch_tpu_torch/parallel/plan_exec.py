@@ -80,8 +80,11 @@ bound marked by the member's ``pruned`` entry (``total_relation:
 "gte"``). The JAX package shrinks the tile for pruning (to reach ``2 *
 probe`` tiles) down to ``sub = 8`` on a TPU (a mosaic sublane bound) and
 to 1 in interpret mode; the port has no such bound and takes 1, what the
-JAX package does as its tests run it. The brownout that forces pruning
-under admission pressure waits for admission control.
+JAX package does as its tests run it. Under admission pressure the
+brownout's first step forces pruning on for the requests it admitted
+(``_pruning_config`` reads ``search.admission.forced_pruning``, the
+request's own token, where the JAX package reads the live level at the
+launch).
 
 The kNN plane stages no second copy of the embeddings: each slot reads
 its segment's own staged ``k_vec_*`` (and ``k_vecnorm_*`` for cosine,
@@ -155,9 +158,23 @@ An index with ``index.sort.*`` is served by the host rung, whose
 selection takes each segment's first k matching docs (decision
 ``index_sorted``), as in the JAX package.
 
-Left for later slices: the compile cache and telemetry registry, and
-stacking a full rebuild on the card instead of through host numpy (a
-``perf_opt``).
+Telemetry, fault injection and first-use accounting: every plane-ladder
+decision also counts in the index's ``SearchTelemetry``
+(``search.phases.decisions``), and each batched or kNN launch adds its
+posting or embedding traffic once (``add_counters``). Before each plane
+attempt ``testing/disruption.on_plane_execute`` runs, before each launch
+``on_kernel_launch`` with its rung (``mesh_pallas``, ``mesh``,
+``batched``, ``pruned``, ``knn``): a ``KernelError`` raised there
+reaches the caller as a real launch failure does, and any other raise is
+a plane fault, which quarantines the plane (``PlaneHealth``) and serves
+from the next rung.
+Each launch runs as one variant of ``common/compile_cache.run_variant``
+(families ``serial``, ``batched``, ``batched_agg``, ``pruned``, ``knn``,
+keyed by their shapes), whose first run in a process counts in the
+``compile`` block, as warmed under a warm replay.
+
+Left for later slices: stacking a full rebuild on the card instead of
+through host numpy (a ``perf_opt``).
 """
 
 from __future__ import annotations
@@ -172,6 +189,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from elasticsearch_tpu_torch.common.compile_cache import run_variant
 from elasticsearch_tpu_torch.common.errors import ElasticsearchTpuException
 from elasticsearch_tpu_torch.common.memory import memory_accountant
 from elasticsearch_tpu_torch.common.settings import (
@@ -193,8 +211,12 @@ from elasticsearch_tpu_torch.ops import tile_scoring as tsc
 from elasticsearch_tpu_torch.ops.cuda_kernels import KernelError
 from elasticsearch_tpu_torch.ops.scoring import top_k
 from elasticsearch_tpu_torch.search import plan as P
+from elasticsearch_tpu_torch.search.admission import forced_pruning
 from elasticsearch_tpu_torch.search.cancellation import TimeExceededException
-from elasticsearch_tpu_torch.testing.disruption import on_mesh_plane
+from elasticsearch_tpu_torch.testing.disruption import (
+    on_kernel_launch,
+    on_plane_execute,
+)
 from elasticsearch_tpu_torch.search.telemetry import NULL_TRACER, QueryTracer
 
 _plane_logger = logging.getLogger("elasticsearch_tpu_torch.parallel.plane")
@@ -1896,9 +1918,13 @@ class IndexMeshSearch:
         self._denied.reason = value
 
     def _note(self, plane: str, reason: str, n: int = 1) -> None:
+        """A plane-ladder decision, counted per query (``n``: a batch's
+        members), here and in the index's telemetry
+        (``search.phases.decisions``)."""
         key = f"{plane}.{reason}"
         with self._counter_lock:
             self.decisions[key] = self.decisions.get(key, 0) + n
+        self.svc.telemetry.note_decision(plane, reason, n)
 
     def _current_pairs(self) -> List[Tuple[int, object]]:
         pairs = []
@@ -2255,12 +2281,19 @@ class IndexMeshSearch:
     def _pruning_config(self):
         """(enabled, probe_tiles): each the cluster-level override while
         one is set (``PUT _cluster/settings``), else the index settings
-        (search.pallas.pruning.*, seeded from the node)."""
+        (search.pallas.pruning.*, seeded from the node); a request
+        admitted under the brownout's first step forces ``enabled``."""
         settings = self.svc.settings
         enabled = self.svc.pruning_enabled_override
         probe = self.svc.pruning_probe_override
-        return (SEARCH_PALLAS_PRUNING_ENABLED.get(settings)
-                if enabled is None else bool(enabled),
+        enabled = (SEARCH_PALLAS_PRUNING_ENABLED.get(settings)
+                   if enabled is None else bool(enabled))
+        # brownout step 1: under admission pressure the pruned kernel (1e)
+        # serves what it can, cheaper tiles before shedding features; the
+        # request's admission token decided it, as it marked the answer
+        if not enabled and forced_pruning():
+            enabled = True
+        return (enabled,
                 SEARCH_PALLAS_PRUNING_PROBE_TILES.get(settings)
                 if probe is None else int(probe))
 
@@ -2570,13 +2603,14 @@ class IndexMeshSearch:
         used_pallas = False
         try:
             for plane, session in attempts:
-                # fault injection (MeshPlaneDelayScheme holds the request
-                # here, before the checkpoint)
-                on_mesh_plane(self.svc.name, plane)
-                if deadline is not None:
-                    # before committing to this plane's launch
-                    deadline.checkpoint()
                 try:
+                    # fault injection: PlaneFailScheme raises here (a
+                    # fault of this plane), MeshPlaneDelayScheme holds the
+                    # request here, before the checkpoint
+                    on_plane_execute(self.svc.name, plane)
+                    if deadline is not None:
+                        # before committing to this plane's launch
+                        deadline.checkpoint()
                     t_plan = tracer.start("plan_build")
                     plans = []
                     pf_plans = [] if pf_qb is not None else None
@@ -2594,18 +2628,24 @@ class IndexMeshSearch:
                     used_pallas = (session is not None and
                                    executor.harmonize_kernel_nodes(plans) > 0)
                     tracer.stop("plan_build", t_plan)
+                    on_kernel_launch(self.svc.name, plane)
                     t_kernel = tracer.start("kernel")
-                    outs = executor.execute(
-                        plans, k,
-                        with_views=bool(agg_specs) and agg_plan is None,
-                        pf_plans=pf_plans, min_score=min_score,
-                        agg_static=(agg_plan.statics
-                                    if agg_plan is not None else ()),
-                        columns=columns,
-                        sort_keys=((sort["key"], sort["raw"])
-                                   if sort is not None else None),
-                        slice_col=slice_col, search_after=after_key,
-                        rs_plans=rs_plans, rescore=rescore)
+                    outs = run_variant(
+                        "serial",
+                        (plane, executor.n_slots, executor.nd_pad,
+                         executor.postings_codec, agg_plan is not None,
+                         sort is not None, rescore is not None),
+                        lambda: executor.execute(
+                            plans, k,
+                            with_views=bool(agg_specs) and agg_plan is None,
+                            pf_plans=pf_plans, min_score=min_score,
+                            agg_static=(agg_plan.statics
+                                        if agg_plan is not None else ()),
+                            columns=columns,
+                            sort_keys=((sort["key"], sort["raw"])
+                                       if sort is not None else None),
+                            slice_col=slice_col, search_after=after_key,
+                            rs_plans=rs_plans, rescore=rescore))
                     if self.svc.device.type == "cuda":
                         torch.cuda.synchronize(self.svc.device)
                     tracer.stop("kernel", t_kernel)
@@ -2614,9 +2654,10 @@ class IndexMeshSearch:
                 except (PlanStructureMismatch, NotImplementedError):
                     self._note(plane, "shape_mismatch")
                     continue
-                except KernelError:
+                except (KernelError, TimeExceededException):
                     # a kernel that fails to build or launch raises: no
-                    # other rung serves in its place
+                    # other rung serves in its place; an expired deadline
+                    # is no plane fault
                     raise
                 except Exception as e:  # noqa: BLE001 — plane fault:
                     # bench the plane for the cooldown, serve from the
@@ -2887,6 +2928,7 @@ class IndexMeshSearch:
         codec = session["codec"]
         pruned_stats = None
         try:
+            on_plane_execute(self.svc.name, "mesh_pallas")
             # shared batched tables: per-slot unions on one collective
             # geometry (a dense union on any slot shrinks every tile)
             unions = [tsc.union_query_lanes(lane_sets[slot])[0]
@@ -2954,12 +2996,18 @@ class IndexMeshSearch:
             if deadline is not None:
                 # before committing to the launch
                 deadline.checkpoint()
+            rung = "pruned" if plans_p is not None else "batched"
+            on_kernel_launch(self.svc.name, rung)
+            shape = (n_slots, q_pad, kk, t_pad, g.tile_sub, codec)
             t_kernel = tracer.start("kernel")
             if plans_p is not None:
                 (top_s, top_d, top_slot, totals, scored,
-                 tiles_total) = executor.execute_batched_pruned(
-                    live_key, plans_p, w_all, q_pad=q_pad, q_real=q_batch,
-                    kk=kk, t_pad=t_pad, cb=cb, sub=g.tile_sub)
+                 tiles_total) = run_variant(
+                    "pruned", shape + (probe,),
+                    lambda: executor.execute_batched_pruned(
+                        live_key, plans_p, w_all, q_pad=q_pad,
+                        q_real=q_batch, kk=kk, t_pad=t_pad, cb=cb,
+                        sub=g.tile_sub))
                 scored = int(scored)
                 pruned_stats = {"tiles_scored": scored,
                                 "tiles_pruned": tiles_total - scored}
@@ -2970,18 +3018,20 @@ class IndexMeshSearch:
                     member_agg_plans[q].statics
                     if q < q_batch and member_agg_plans[q] is not None
                     else () for q in range(q_pad))
-                top_s, top_d, top_slot, totals, agg_parts = \
-                    executor.execute_batched_dense_agg(
+                top_s, top_d, top_slot, totals, agg_parts = run_variant(
+                    "batched_agg", shape + (agg_statics,),
+                    lambda: executor.execute_batched_dense_agg(
                         live_key, rl, rh, w_all, q_pad=q_pad, kk=kk,
                         t_pad=t_pad, cb=cb, sub=g.tile_sub,
-                        agg_statics=agg_statics)
+                        agg_statics=agg_statics))
                 agg_raw = [[o.cpu().numpy() for o in parts]
                            for parts in agg_parts]
             else:
-                top_s, top_d, top_slot, totals = \
-                    executor.execute_batched_topk(
+                top_s, top_d, top_slot, totals = run_variant(
+                    "batched", shape,
+                    lambda: executor.execute_batched_topk(
                         live_key, rl, rh, w_all, q_pad=q_pad, kk=kk,
-                        t_pad=t_pad, cb=cb, sub=g.tile_sub)
+                        t_pad=t_pad, cb=cb, sub=g.tile_sub))
             keys = top_s.cpu().numpy()
             docs = top_d.cpu().numpy()
             slots = top_slot.cpu().numpy()
@@ -3018,6 +3068,25 @@ class IndexMeshSearch:
                    "served_batched" if q_batch > 1 else
                    ("served_pruned" if pruned_stats is not None
                     else "served"), q_batch)
+        # the launch's posting traffic, once a launch (not once a member):
+        # each scored tile streams t_pad windows of cb blocks, a pruned
+        # tile skips them
+        tile_bytes = t_pad * cb * tsc.LANE * (4 if codec == "packed" else 8)
+        if pruned_stats is not None:
+            launch_adds = {
+                "postings_bytes_streamed":
+                    pruned_stats["tiles_scored"] * tile_bytes,
+                "postings_bytes_skipped":
+                    pruned_stats["tiles_pruned"] * tile_bytes,
+                "tiles_scored": pruned_stats["tiles_scored"],
+                "tiles_pruned": pruned_stats["tiles_pruned"]}
+        else:
+            launch_adds = {
+                "postings_bytes_streamed": n_tiles * n_pairs * tile_bytes}
+        self.svc.telemetry.add_counters(launch_adds)
+        # and on every profiled member: the launch they shared
+        for key, v in launch_adds.items():
+            tracer.annotate(key, int(v))
         for body in bodies:
             for sid in self.svc.shards:
                 self.svc.shards[sid].searcher.note_query(body.get("stats"))
@@ -3183,10 +3252,15 @@ class IndexMeshSearch:
             # before committing to the launch
             deadline.checkpoint()
         try:
+            on_plane_execute(self.svc.name, "mesh_pallas")
+            on_kernel_launch(self.svc.name, "knn")
             t_kernel = tracer.start("kernel")
-            top_s, top_d, top_slot, total = executor.execute_knn(
-                session, torch.from_numpy(qmat).to(self.svc.device),
-                kk=kk, sub=g.tile_sub)
+            top_s, top_d, top_slot, total = run_variant(
+                "knn", (executor.n_slots, q_pad, kk, g.tile_sub, d_pad,
+                        nd_knn, session["metric"]),
+                lambda: executor.execute_knn(
+                    session, torch.from_numpy(qmat).to(self.svc.device),
+                    kk=kk, sub=g.tile_sub))
             keys = top_s.cpu().numpy()
             docs = top_d.cpu().numpy()
             slots = top_slot.cpu().numpy()
@@ -3215,6 +3289,10 @@ class IndexMeshSearch:
         self._note("mesh_pallas",
                    "knn_served_batched" if q_batch > 1 else "knn_served",
                    q_batch)
+        # the batch streams each slot's bf16 embedding rows once
+        streamed = executor.n_slots * nd_knn * d_pad * 2
+        self.svc.telemetry.add_counters({"embedding_bytes_streamed": streamed})
+        tracer.annotate("embedding_bytes_streamed", streamed)
         for groups in stats:
             for sid in self.svc.shards:
                 self.svc.shards[sid].searcher.note_query(groups)

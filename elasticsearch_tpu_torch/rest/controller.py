@@ -28,6 +28,7 @@ from elasticsearch_tpu_torch.common.errors import (
 from elasticsearch_tpu_torch.common.thread_pool import retry_after_header_value
 from elasticsearch_tpu_torch.common.xcontent import XContentParseError, parse
 from elasticsearch_tpu_torch.rest import handlers
+from elasticsearch_tpu_torch.search.telemetry import set_opaque_id
 
 Handler = Callable[..., Tuple[int, Any]]
 
@@ -53,6 +54,16 @@ def collect_response_headers() -> Dict[str, str]:
     out = dict(_resp_headers_var.get() or {})
     _resp_headers_var.set({})
     return out
+
+
+def header_value(headers: Optional[Dict[str, str]], name: str,
+                 default=None):
+    """A request header by name, case-insensitively."""
+    lowered = name.lower()
+    for k, v in (headers or {}).items():
+        if k.lower() == lowered:
+            return v
+    return default
 
 
 class RestRequest:
@@ -164,9 +175,15 @@ class RestController:
 
     def dispatch(self, method: str, path: str, query: Dict[str, str],
                  body: Optional[bytes],
-                 content_type: Optional[str] = None) -> Tuple[int, Any]:
+                 content_type: Optional[str] = None,
+                 headers: Optional[Dict[str, str]] = None
+                 ) -> Tuple[int, Any]:
         begin_request()  # per-request Warning-header collector
-        begin_response_headers()  # Retry-After on a 429
+        begin_response_headers()  # Retry-After on a 429 or a 503
+        # X-Opaque-Id rides the request's context (copied into the
+        # executor thread below): tasks, slowlog lines, admission's
+        # tenant and the profile read it back
+        set_opaque_id(header_value(headers, "x-opaque-id"))
         path = unquote(path.split("?")[0])
         for route in self.routes:
             if route.method != method:

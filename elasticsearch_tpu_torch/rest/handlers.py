@@ -40,9 +40,12 @@ and the empty ones. The data-movement routes: ``_reindex``,
 ``_termvectors``, and the cat tables ``tasks``, ``repositories`` and
 ``snapshots``. ``_cache/clear`` (both routes) drops the segments'
 staged doc-value columns, as the JAX package's does, and the request
-cache too (ROADMAP C20). Ten routes still answer ``_unported`` (hot
-threads, drain, reroute, allocation explain, ``_remote/info``,
-``_cat/plugins``, ``_cat/allocation``, ``_cat/recovery``). Writes take
+cache too (ROADMAP C20). ``GET /_nodes/hot_threads`` (and
+``/_nodes/{node_id}/hot_threads``) answers ``Node.hot_threads`` as text,
+``POST`` and ``DELETE /_nodes/_local/_drain`` the node's drain and
+undrain. Six routes still answer ``_unported`` (reroute, allocation
+explain, ``_remote/info``, ``_cat/plugins``, ``_cat/allocation``,
+``_cat/recovery``). Writes take
 ``refresh=wait_for``. Handlers are (node, request) ->
 (status, payload); the cat API returns text tables unless
 ``?format=json``.
@@ -161,10 +164,11 @@ def register_all(c) -> None:
     r("POST", "/{index}/_rollover/{new_index}", _rollover)
     r("POST", "/{index}/_shrink/{target}", _shrink)
     r("PUT", "/{index}/_shrink/{target}", _shrink)
-    r("GET", "/_nodes/hot_threads", _unported)
-    r("GET", "/_nodes/{node_id}/hot_threads", _unported)
-    r("POST", "/_nodes/_local/_drain", _unported)
-    r("DELETE", "/_nodes/_local/_drain", _unported)
+    r("GET", "/_nodes/hot_threads", lambda n, q: (200, n.hot_threads()))
+    r("GET", "/_nodes/{node_id}/hot_threads",
+      lambda n, q: (200, n.hot_threads()))
+    r("POST", "/_nodes/_local/_drain", lambda n, q: (200, n.drain()))
+    r("DELETE", "/_nodes/_local/_drain", lambda n, q: (200, n.undrain()))
 
     # --- reindex family ---
     r("POST", "/_reindex", _reindex)
@@ -1709,10 +1713,15 @@ def _cat_shards(node, req):
     for name in node.resolve_index_names(req.param("index", "_all")):
         for sid, shard in node.indices[name].shards.items():
             store = shard.stats()["segments"]["memory_in_bytes"]
-            # the integrity column: the port keeps no corruption markers
-            # beside a quarantined shard's state
+            # the integrity column: the newest corruption marker's name,
+            # "-" for a healthy (or store-less) copy
+            markers = (shard.engine.store.corruption_markers()
+                       if shard.engine.store is not None else [])
+            integrity = (markers[0].get("marker", "corrupted")
+                         if markers else "-")
             rows.append([name, sid, "p", shard.state, shard.num_docs,
-                         f"{store}b", "127.0.0.1", node.node_name, "-"])
+                         f"{store}b", "127.0.0.1", node.node_name,
+                         integrity])
     return _cat_table(req, rows, ["index", "shard", "prirep", "state", "docs",
                                   "store", "ip", "node", "integrity"])
 

@@ -4,8 +4,10 @@ Counterpart of ``elasticsearch_tpu/rest/http_server.py``: a threading
 HTTP/1.1 server (keep-alive; one thread per connection) in front of
 ``RestController``. Bodies are negotiated by ``common/xcontent.py`` (JSON,
 YAML, CBOR; ``?pretty`` indents JSON); the cat API answers text/plain
-unless ``?format=json``. ``X-Opaque-Id`` is echoed back; deprecation
-warnings leave as ``Warning`` headers and a 429 carries ``Retry-After``.
+unless ``?format=json``. ``X-Opaque-Id`` reaches the controller (the
+request's context: tasks, slowlog, admission's tenant) and is echoed
+back; deprecation warnings leave as ``Warning`` headers, and a 429 or a
+drain's 503 carries ``Retry-After``.
 ``port=0`` binds an ephemeral port (``HttpServer.port`` says which).
 
     node = Node(device="cuda")
@@ -48,7 +50,8 @@ class _Handler(BaseHTTPRequestHandler):
         body = self.rfile.read(length) if length else b""
         status, payload = self.controller.dispatch(
             method, parsed.path, query, body,
-            content_type=self.headers.get("Content-Type"))
+            content_type=self.headers.get("Content-Type"),
+            headers=dict(self.headers.items()))
         warnings = collect_warnings()
         if isinstance(payload, str):
             data = payload.encode("utf-8")

@@ -124,10 +124,17 @@ class BatchStats:
         self.batched_query_total = 0
         self.batch_window_waits_total = 0
         self.batch_size_histogram: Dict[int, int] = {}
+        # the collection window a leader last used, in ms: it widens with
+        # admission-queue pressure and narrows back as the queue drains
+        self.batch_window_effective_ms = 0.0
 
     def note_window_wait(self) -> None:
         with self._lock:
             self.batch_window_waits_total += 1
+
+    def note_effective_window(self, window_s: float) -> None:
+        with self._lock:
+            self.batch_window_effective_ms = round(window_s * 1000.0, 4)
 
     def note_batch(self, size: int) -> None:
         """One batched dispatch of ``size`` members served via a shared
@@ -142,6 +149,7 @@ class BatchStats:
             return {
                 "batched_query_total": self.batched_query_total,
                 "batch_window_waits_total": self.batch_window_waits_total,
+                "batch_window_effective_ms": self.batch_window_effective_ms,
                 "batch_size_histogram": {
                     str(size): count for size, count
                     in sorted(self.batch_size_histogram.items())},
@@ -162,13 +170,15 @@ def counts_safe_for_union(node) -> bool:
 
 
 class _Group:
-    __slots__ = ("items", "results", "done", "sealed")
+    __slots__ = ("items", "results", "done", "sealed", "opened_at")
 
     def __init__(self):
         self.items: List[Any] = []
         self.results: Optional[List[Any]] = None
         self.done = threading.Event()
         self.sealed = False
+        # how long the leader held the group open (the window-wait span)
+        self.opened_at = time.monotonic()
 
 
 class MicroBatcher:
@@ -183,6 +193,12 @@ class MicroBatcher:
       ``batch_fn(items) -> [result | Exception, ...]`` and publishes each
       member's entry. Exception entries re-raise in their own caller's
       thread.
+
+    ``window_fn``, when set, sizes the leader's wait instead of
+    ``window_s`` (``IndexService`` points it at admission's adaptive
+    window); ``annotate(item, wait_s, batch_size, index)`` runs once a
+    member before the leader dispatches (``IndexService`` stamps the
+    window wait on each member's tracer). A lone query never waits.
     """
 
     # a follower whose leader never publishes (a wedged leader) runs alone
@@ -198,6 +214,9 @@ class MicroBatcher:
         self._cv = threading.Condition()
         self._groups: Dict[Any, _Group] = {}
         self._inflight = 0
+        self.window_fn: Optional[Callable[[], float]] = None
+        self.annotate: Optional[Callable[[Any, float, int, int],
+                                         None]] = None
 
     def run(self, key, item, single_fn: Callable[[Any], Any],
             batch_fn: Callable[[List[Any]], List[Any]]):
@@ -231,7 +250,14 @@ class MicroBatcher:
                 return single_fn(item)
             if leader:
                 self.stats.note_window_wait()
-                deadline = time.monotonic() + self.window_s
+                window_s = self.window_s
+                if self.window_fn is not None:
+                    try:
+                        window_s = max(float(self.window_fn()), 0.0)
+                    except Exception:  # noqa: BLE001 — sizing is advisory
+                        pass
+                self.stats.note_effective_window(window_s)
+                deadline = time.monotonic() + window_s
                 with self._cv:
                     while (not group.sealed
                            and len(group.items) < self.max_queries):
@@ -246,6 +272,13 @@ class MicroBatcher:
                     if self._groups.get(key) is group:
                         self._groups.pop(key)
                     items = list(group.items)
+                if self.annotate is not None:
+                    wait_s = time.monotonic() - group.opened_at
+                    for idx, it in enumerate(items):
+                        try:
+                            self.annotate(it, wait_s, len(items), idx)
+                        except Exception:  # noqa: BLE001 — telemetry
+                            pass  # never fails the query
                 try:
                     if len(items) == 1:
                         try:

@@ -31,6 +31,13 @@ drops ``_source`` (any other value keeps it, as in the JAX package) and
 ``docvalue_fields`` answers numeric columns as float64 values and
 ordinal columns as terms (with the ``.keyword`` fallback).
 
+``emit_search_slowlog`` writes the one search slowlog line (took, scope,
+plane, the request's X-Opaque-Id, the top phase spans, the source) at
+``index.search.slowlog.threshold.query.{warn,info}``: each shard's
+query phase on the host rung writes its own, the index writes the mesh
+plane's. ``expired_queue_response`` is the answer of a search shed by
+admission before it ran.
+
 The query phase checkpoints the request's ``SearchDeadline`` before each
 segment: an expired deadline stops the scan and the shard answers what
 its finished segments found, ``timed_out``. ``profile`` adds a tree a
@@ -59,6 +66,7 @@ from __future__ import annotations
 
 import bisect
 import fnmatch
+import logging
 import math
 import re
 import threading
@@ -74,6 +82,7 @@ from elasticsearch_tpu_torch.common.errors import (
     IllegalArgumentException,
     ParsingException,
     QueryPhaseExecutionException,
+    SearchPhaseExecutionException,
     es_type_name,
 )
 from elasticsearch_tpu_torch.index.index_sort import (
@@ -103,6 +112,7 @@ from elasticsearch_tpu_torch.search.query_dsl import (
     parse_distance,
     parse_query,
 )
+from elasticsearch_tpu_torch.search.telemetry import get_opaque_id
 from elasticsearch_tpu_torch.utils.murmur3 import hash_slice_ids
 
 # request-body keys the port serves; anything else raises
@@ -182,13 +192,77 @@ def _engine_name(used_kernel: bool, device) -> str:
             else "plain_tile_kernel")
 
 
+_slow_logger = logging.getLogger(
+    "elasticsearch_tpu_torch.index.search.slowlog")
+
+
+def _request_opaque_id(tracer=None) -> Optional[str]:
+    """The request's X-Opaque-Id: the tracer's annotation where it carries
+    one (a batch member's, across the leader's thread), else the REST
+    layer's contextvar."""
+    if tracer is not None:
+        oid = getattr(tracer, "_annotations", {}).get("opaque_id")
+        if oid:
+            return str(oid)
+    return get_opaque_id()
+
+
+def emit_search_slowlog(warn_s, info_s, took_s: float, scope: str,
+                        scope_id, plane: str, tracer, source) -> None:
+    """The one search slowlog line: a shard's host-rung line and an
+    index's mesh-plane line differ only in their scope. Thresholds in
+    seconds, None off; warn wins over info."""
+    warn = warn_s is not None and took_s >= warn_s
+    info = not warn and info_s is not None and took_s >= info_s
+    if not (warn or info):
+        return
+    log = _slow_logger.warning if warn else _slow_logger.info
+    log("took[%dms], %s[%s], plane[%s], id[%s], phases[%s], source[%s]",
+        int(took_s * 1000), scope, scope_id, plane,
+        _request_opaque_id(tracer) or "",
+        tracer.top_phases() if tracer is not None else "",
+        str(source)[:512])
+
+
+def slowlog_threshold(value) -> Optional[float]:
+    """A slowlog threshold in seconds; a negative one (or none) is off."""
+    return value if value is not None and value >= 0 else None
+
+
+def expired_queue_response(index_name: str, n_shards: int,
+                           body: dict) -> dict:
+    """The answer of a search whose deadline expired while it was queued
+    for admission: shed before any staging or launch, it answers the
+    timed-out partial result the first checkpoint would give (every
+    shard successful, none ran), marked ``_degraded: ["expired_in_queue"]``;
+    ``allow_partial_search_results: false`` raises instead."""
+    if not allow_partial_results(body):
+        raise SearchPhaseExecutionException(
+            "query",
+            "Partial shards failure (request timed out in the search "
+            "admission queue)", [])
+    return {
+        "took": 0,
+        "timed_out": True,
+        "_plane": "none",
+        "_degraded": ["expired_in_queue"],
+        "_shards": {"total": n_shards, "successful": n_shards,
+                    "skipped": 0, "failed": 0},
+        "hits": {"total": 0, "max_score": None, "hits": []},
+    }
+
+
 class ShardSearcher:
     """Query-phase execution for one shard."""
 
     def __init__(self, shard_id: int, engine, mapper_service,
-                 index_name: str = ""):
+                 index_name: str = "", slowlog_warn_s=None,
+                 slowlog_info_s=None):
         self.shard_id = shard_id
         self.index_name = index_name
+        # the search slowlog's thresholds in seconds (None: off)
+        self.slowlog_warn_s = slowlog_threshold(slowlog_warn_s)
+        self.slowlog_info_s = slowlog_threshold(slowlog_info_s)
         self.engine = engine
         self.mapper_service = mapper_service
         self.ctx = ShardQueryContext(mapper_service, engine)
@@ -253,6 +327,7 @@ class ShardSearcher:
 
         if tracer is None:
             tracer = NULL_TRACER
+        t_query = time.monotonic()
         with self._stats_lock:
             self.query_total += 1
         # query-path fault injection (SearchDelayScheme, SearchFailScheme)
@@ -398,6 +473,9 @@ class ShardSearcher:
             # the first k docs of each segment were taken in doc order;
             # the total is still exact
             terminated_early = True
+        emit_search_slowlog(self.slowlog_warn_s, self.slowlog_info_s,
+                            time.monotonic() - t_query, "shard",
+                            self.shard_id, "host", tracer, source)
         return ShardQueryResult(
             self.shard_id, total, refs, max_score, agg_views,
             profile=profile_shards if profile else None,

@@ -9,8 +9,9 @@ holds its task, so a cancel trips the next checkpoint of the request
 (``search/cancellation.py``); a by-query run checks its task between
 batches. Task ids are ``node_id:number``, as in the JAX package.
 
-The port's REST layer carries no ``X-Opaque-Id`` thread context, so a
-task registered without ``headers`` has none.
+A task registered without ``headers`` carries the request's
+``X-Opaque-Id`` (``search/telemetry.get_opaque_id``), as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -89,6 +90,14 @@ class TaskManager:
     def register(self, action: str, description: str,
                  cancellable: bool = True, parent: Optional[str] = None,
                  headers: Optional[Dict[str, str]] = None) -> Task:
+        if headers is None:
+            # the request's X-Opaque-Id, off the REST layer's context
+            from elasticsearch_tpu_torch.search.telemetry import (
+                get_opaque_id,
+            )
+
+            oid = get_opaque_id()
+            headers = {"X-Opaque-Id": oid} if oid else None
         with self._lock:
             self._counter += 1
             task = Task(self._counter, self.node_id, action, description,

@@ -166,8 +166,9 @@ def test_nodes_stats_sections(pair, path):
     assert set(tn["breakers"]) == set(jn["breakers"])
     for section in ("os", "process", "fs"):
         assert set(tn[section]) == set(jn[section]), section
-    assert set(jn["indices"]["search"]) - set(tn["indices"]["search"]) >= {
-        "compile"}
+    for block in ("compile", "phases", "admission", "integrity"):
+        assert set(tn["indices"]["search"][block]) == set(
+            jn["indices"]["search"][block]), block
     assert set(tn["indices"]["search"]["memory"]) == set(
         jn["indices"]["search"]["memory"])
     assert tn["name"] == jn["name"]

@@ -514,3 +514,91 @@ def test_acked_writes_survive_sigkill_mid_bulk(tmp_path):
         mem.close()
     finally:
         node.close()
+
+
+def test_recovered_version_map_waits_for_its_first_read(tmp_path):
+    """A recovered shard defers its version map until the first read: a
+    search leaves it deferred, and the map then read equals the JAX
+    package's, built at once (versions, seqnos, segment, local doc,
+    deleted and term, doc for doc); the next write versions from it."""
+    paths = {"t": str(tmp_path / "t"), "j": str(tmp_path / "j")}
+    t = Node(data_path=paths["t"], device="cpu")
+    j = JNode(JSettings({}), data_path=paths["j"])
+    for node, settings in ((t, SETTINGS), (j, JAX_SETTINGS)):
+        node.create_index("vm", {"settings": settings, "mappings": MAPPING})
+        for i in range(40):
+            node.index_doc("vm", f"d{i}", {"title": f"w{i % 5}", "year": i})
+        node.indices["vm"].refresh()
+        node.index_doc("vm", "d3", {"title": "w1 again", "year": 3})
+        node.delete_doc("vm", "d7")
+        node.indices["vm"].flush()
+        node.close()
+    t = Node(data_path=paths["t"], device="cpu")
+    j = JNode(JSettings({}), data_path=paths["j"])
+    try:
+        # the shard whose commit holds d7's tombstone built its map to
+        # add it; the other still defers
+        deferred = [sh.engine for _sid, sh in
+                    sorted(t.indices["vm"].shards.items())
+                    if sh.engine._deferred_entries]
+        assert len(deferred) == 1
+        t.search("vm", {"query": {"match": {"title": "w1"}}})
+        assert deferred[0]._deferred_entries
+        for (sid, tsh), (_s, jsh) in zip(
+                sorted(t.indices["vm"].shards.items()),
+                sorted(j.indices["vm"].shards.items())):
+            got = {k: (e.version, e.seqno, e.local_doc, e.deleted, e.term)
+                   for k, e in tsh.engine.version_map.items()}
+            want = {k: (e.version, e.seqno, e.local_doc, e.deleted,
+                        getattr(e, "term", 1))
+                    for k, e in jsh.engine.version_map.items()}
+            assert got == want, sid
+            assert not tsh.engine._deferred_entries
+        assert t.get_doc("vm", "d3")["_version"] == 2
+        assert t.index_doc("vm", "d3", {"title": "w2"})["_version"] == \
+            j.index_doc("vm", "d3", {"title": "w2"})["_version"] == 3
+    finally:
+        t.close()
+        j.close()
+
+
+def test_deferred_version_map_reads_are_whole_under_threads(tmp_path):
+    """Readers racing the first read of a deferred version map each see
+    every entry: the deferred list empties only once the map is whole
+    (16 threads, a short switch interval)."""
+    import threading
+
+    node = Node(data_path=str(tmp_path / "n"), device="cpu")
+    node.create_index("idx", {"settings": {**SETTINGS,
+                                          "number_of_shards": 1},
+                             "mappings": MAPPING})
+    ids = [f"d{i}" for i in range(3000)]
+    bulk(node, ids, seeded_docs(len(ids), seed=4))
+    node.indices["idx"].flush()
+    node.close()
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    node = Node(data_path=str(tmp_path / "n"), device="cpu")
+    try:
+        engine = node.indices["idx"].shards[0].engine
+        assert engine._deferred_entries
+        go = threading.Barrier(16)
+        seen = []
+
+        def reader(i):
+            go.wait(60)
+            seen.append(len(engine.version_map)
+                        if i % 2 else engine.get(ids[-1 - i]).found)
+
+        threads = [threading.Thread(target=reader, args=(i,))
+                   for i in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        assert not any(t.is_alive() for t in threads)
+        assert sorted(seen, key=str) == sorted(
+            [True] * 8 + [len(ids)] * 8, key=str)
+    finally:
+        sys.setswitchinterval(old)
+        node.close()

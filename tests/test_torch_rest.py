@@ -510,9 +510,7 @@ def test_unported_route_answers_400():
     srv.start()
     try:
         tn.create_index("i", {"settings": {"number_of_shards": 1}})
-        for method, path in (("GET", "/_nodes/hot_threads"),
-                             ("POST", "/_nodes/_local/_drain"),
-                             ("POST", "/_cluster/reroute"),
+        for method, path in (("POST", "/_cluster/reroute"),
                              ("GET", "/_remote/info"),
                              ("GET", "/_cat/plugins")):
             st, _, b = call(srv.port, method, path, {})
@@ -543,6 +541,14 @@ def test_unported_route_answers_400():
         assert b["items"][0]["update"]["status"] == 404
         st, h, _ = call(srv.port, "GET", "/", headers={"X-Opaque-Id": "c7"})
         assert st == 200 and h["X-Opaque-Id"] == "c7"
+        # ported since: hot threads (text) and the drain and undrain
+        st, h, b = call(srv.port, "GET", "/_nodes/hot_threads")
+        assert st == 200 and h["Content-Type"].startswith("text/plain")
+        assert "Hot threads sampled" in b
+        st, _, b = call(srv.port, "POST", "/_nodes/_local/_drain")
+        assert st == 200 and b["draining"] and b["drained"]
+        st, _, b = call(srv.port, "DELETE", "/_nodes/_local/_drain")
+        assert st == 200 and b == {"draining": False}
         # ported since: the cluster metadata (a missing stored script is a
         # 404, the node's stats a 200)
         st, _, b = call(srv.port, "GET", "/_scripts/s1", {})
