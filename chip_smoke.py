@@ -51,7 +51,7 @@ prints no result, when there is no GPU or any check fails. Phases:
    plain version. Every fused top-k timing logs its plan (cluster size C,
    band docs, query group, CTAs).
 3. The write path through ``Node(device="cuda")``: ``bulk`` ~20k zipfian
-   docs into 5 shards, ``refresh``, ~50 requests (match or/and/
+   docs into 5 shards, ``refresh``, ~40 requests (match or/and/
    minimum_should_match, bool with term + range filters, match_all, a
    terms aggregation), deletes, refresh, requests again.
 4. Real size through ``Node(device="cuda")``: a 1-shard index whose engine
@@ -76,7 +76,8 @@ prints no result, when there is no GPU or any check fails. Phases:
    ``scripting`` entry), then the device line.
 
 Run between phases 2 and 3, and after phase 4 (phase 10 after phase 9,
-then phases 11, 12, 19, 20, 21, 22, 24, 13, 14, 15, 23, 16, 17 and 18):
+then phases 11, 12, 19, 20, 21, 22, 24, 25, 13, 14, 15, 23, 16, 17 and
+18):
 
 2b. Kernels 1b (dense, q_batch=16, with and without counts) and 1c (fused
     per-tile top-k, q_batch 1 and 16, k=16) on the 1M-doc corpus, for 16
@@ -219,8 +220,10 @@ then phases 11, 12, 19, 20, 21, 22, 24, 13, 14, 15, 23, 16, 17 and 18):
     plain), seqnos
     continue, deletes stay, ``_forcemerge`` keeps totals and buckets and
     equals a cpu node over the same path. 13b: a child ``python3`` on the
-    card is killed with SIGKILL mid-bulk under ``request`` durability
-    (bulks of 400 docs, cut from 1,000 to pay for phase 21);
+    card (started ahead of 13a, so its interpreter, torch and node start
+    while 13a runs; it waits for the parent's go) is killed with SIGKILL
+    mid-bulk under ``request`` durability (bulks of 400 docs, cut from
+    1,000 to pay for phase 21);
     reopened, every acknowledged doc is found (GET, ``terms`` on its id),
     none twice, totals equal an in-memory node over the recovered docs.
     13c: pmc-4x256k at full width (``ts``, ``citations``, ``emb``) in one
@@ -461,6 +464,25 @@ then phases 11, 12, 19, 20, 21, 22, 24, 13, 14, 15, 23, 16, 17 and 18):
     answer beside 13c's cold one, every answer as before the close. The
     other phases' reopens are cold (``cold_reopen``). Every launch held
     against plain; the summary line's ``infrastructure`` entry.
+25. The cluster on the card, right after phase 24 (``cluster_phase``):
+    three ``ClusterNode``s on one in-process ``TransportHub`` (strict JSON
+    payloads), index pmcc with pmc-4x256k's first two shards as adopted,
+    flushed primaries and one replica each by phase-1 file recovery: 25a
+    the recovery's seconds, bytes, files and ``_cat/recovery`` rows and
+    the replicas' staging; 25b phase 10's match queries through
+    ``ClusterClient.search`` against a cpu node, primary and replica
+    answers bit-equal, the p50 beside a single card node's; 25c 1,000
+    replicated writes (ops/s, seqnos equal on both copies, a replica get,
+    the answers after a refresh); 25e a delayed copy avoided by adaptive
+    replica selection, a blackholed replica failed and re-recovered
+    through an in-flight corrupt chunk healed by the retry; 25d a primary's
+    node closed without grace, ``check_nodes``, the promotion with its
+    term bump and warm search, the first correct answer, the new
+    replica's recovery; 25f ``_cluster/reroute``,
+    ``_cluster/allocation/explain``, ``_cat/allocation`` and
+    ``_cat/recovery`` over ``HttpServer``; every node closed,
+    ``memory_allocated`` and the ledger back. Every launch held against
+    plain; the summary line's ``cluster`` entry.
 
 Every index a phase builds pins ``index.refresh_interval: -1`` (the
 port's scheduled refresh runs every second by default): its segment
@@ -884,8 +906,8 @@ def requests_for(queries, top_rank_term, venue_term, year_lo):
     ladder = [top_rank_term] + list(queries[0][:2])
     reqs.append(("match_ladder", {"query": {"match": {"title": " ".join(
         tok(t) for t in ladder)}}}, ladder))
-    for _ in range(3):
-        reqs.append(("match_all", {"query": {"match_all": {}}}, None))
+    # one match_all (three before: cut to pay for phase 25)
+    reqs.append(("match_all", {"query": {"match_all": {}}}, None))
     for q in queries[:5]:
         reqs.append(("terms_agg", {"size": 0, "query": {"match": {
             "title": " ".join(tok(t) for t in q)}},
@@ -2353,7 +2375,8 @@ def mesh_phase(torch, Node, Segment, cuda_kernels, queries, top_rank_term,
     def plane_of(kind):
         return "mesh" if kind == "match_all" else "mesh_pallas"
 
-    reqs = requests_for(queries[:12], top_rank_term, "v0001", 2000)
+    # six match queries (twelve before: cut to pay for phase 25)
+    reqs = requests_for(queries[:6], top_rank_term, "v0001", 2000)
     svc = gnode.indices["pmc4"]
     zero_searcher_counters(gnode)
     cuda_kernels.reset_launch_counts()
@@ -2908,12 +2931,15 @@ def knn_phase(torch, cuda_kernels, gnode, cnode, gsegs, csegs, vecs, exists,
             same_knn_response(gr, gnode.search("pmc4h", dict(body)), tol,
                               f"phase 9{tag} {kind}: mesh vs host rung")
             if qi is not None:
-                ref_s, ref_i = knn.reference_knn_topk(
-                    vecs, exists & live_mask(), qs[qi], 10, "cosine")
-                got = [index_of(h["_id"]) for h in gr["hits"]["hits"][:10]]
+                # the oracle's scores once (reference_knn_topk scores the
+                # whole corpus again): its 10th best over the live docs
                 ref = knn.reference_knn_scores(vecs, qs[qi], "cosine")
-                hit = sum(1 for d in got if ref[d] >= ref_s[-1] - tol)
-                recalls.append(hit / len(ref_i))
+                masked = np.where((exists & live_mask())[: len(ref)], ref,
+                                  -np.inf)
+                kth = np.partition(masked, len(masked) - 10)[len(masked) - 10]
+                got = [index_of(h["_id"]) for h in gr["hits"]["hits"][:10]]
+                hit = sum(1 for d in got if ref[d] >= kth - tol)
+                recalls.append(hit / 10)
             out[kind] = gr
         for kind, body, _ in filtered:
             gr = timed(gnode, "pmc4", body, kind)
@@ -5441,8 +5467,9 @@ def _durable_updates(Node, HttpServer, ops, path):
 # Durability on the card: translog, store, restart recovery
 # ----------------------------------------------------------------------
 
-# 13b's child: indexes the docs of a JSON-lines file into a durable node on
-# the card, one bulk of 1,000 at a time under the default request
+# 13b's child: started ahead of 13a, it says it is ready and waits for the
+# parent's go; then it indexes the docs of a JSON-lines file into a
+# durable node on the card, one bulk at a time under the default request
 # durability, and prints each bulk's acknowledged ids
 CRASH_CHILD = r"""
 import json, sys
@@ -5457,9 +5484,10 @@ node.create_index("docs", {"settings": {"number_of_shards": 5,
                                "title": {"type": "text"},
                                "venue": {"type": "keyword"},
                                "year": {"type": "long"}}}}})
-print(json.dumps({"ready": True}), flush=True)
 with open(sys.argv[2], encoding="utf-8") as f:
     docs = [json.loads(line) for line in f]
+print(json.dumps({"ready": True}), flush=True)
+sys.stdin.readline()  # the parent's go
 step = int(sys.argv[4])
 for b in range(0, len(docs), step):
     r = node.bulk([("index", {"_index": "docs", "_id": d["id"]}, d)
@@ -5596,17 +5624,20 @@ def durability_phase(torch, Node, cuda_kernels, tsc, ops, inproc_rate, reqs3,
     t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix="estpu-durable-")
     report = {"data_root_free_bytes": shutil.disk_usage(root).free}
+    child = _start_crash_child(ops, os.path.join(root, "b"))
     try:
         report["13a"] = _durable_ingest(torch, Node, cuda_kernels, tsc, ssum,
                                         knn, ops, inproc_rate, reqs3, errs,
                                         os.path.join(root, "a"))
-        report["13b"] = _crash_recovery(torch, Node, ops, reqs3,
-                                        os.path.join(root, "b"))
+        report["13b"] = _crash_recovery(torch, Node, ops, reqs3, child)
         report["13c"] = _recover_full_width(
             torch, Node, cuda_kernels, tsc, ssum, knn, reqs7, knn_bodies,
             shard_arrays, vecs, exists, queries, errs,
             os.path.join(root, "c"), os.path.join(root, "repos"), smi)
     finally:
+        if child[0].poll() is None:  # 13a failed before 13b killed it
+            child[0].kill()
+            child[0].wait()
         shutil.rmtree(root)
     report["seconds"] = time.perf_counter() - t_phase
     log(f"[phase 13] done in {report['seconds']:.1f} s")
@@ -5734,7 +5765,11 @@ def _durable_ingest(torch, Node, cuda_kernels, tsc, ssum, knn, ops,
     return out
 
 
-def _crash_recovery(torch, Node, ops, reqs, path):
+def _start_crash_child(ops, path):
+    """13b's child, started ahead of 13a so that its interpreter, torch
+    and its Node start while 13a runs: it says it is ready, then waits
+    for the parent's go before its first bulk. Returns (the process, its
+    data path)."""
     os.makedirs(path)
     docs_file = os.path.join(path, "docs.jsonl")
     with open(docs_file, "w", encoding="utf-8") as f:
@@ -5744,13 +5779,22 @@ def _crash_recovery(torch, Node, ops, reqs, path):
     root = os.path.dirname(os.path.abspath(__file__))
     proc = subprocess.Popen([sys.executable, "-c", CRASH_CHILD, data,
                              docs_file, root, str(CRASH_BULK_DOCS)],
-                            stdout=subprocess.PIPE, text=True)
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            text=True)
+    return proc, data
+
+
+def _crash_recovery(torch, Node, ops, reqs, child):
+    proc, data = child
     acked = []
     t0 = time.perf_counter()
     bulk_s = []
     try:
         check(json.loads(_readline(proc) or "{}").get("ready", False),
               "phase 13b child ready")
+        ready_s = time.perf_counter() - t0
+        proc.stdin.write("go\n")
+        proc.stdin.flush()
         t_bulk = time.perf_counter()
         for _ in range(CRASH_ACKED_BULKS):
             line = _readline(proc)
@@ -5832,7 +5876,7 @@ def _crash_recovery(torch, Node, ops, reqs, path):
     out = {"acked": len(acked), "recovered": len(got),
            "recovered_of_bulk_in_flight": len(set(got) & in_flight),
            "replayed_ops": replayed, "child_s": child_s,
-           "bulk_s": bulk_s, "reopen_s": reopen_s}
+           "ready_wait_s": ready_s, "bulk_s": bulk_s, "reopen_s": reopen_s}
     log(f"[phase 13b] {json.dumps(out)}")
     return out
 
@@ -12381,6 +12425,17 @@ def infrastructure_phase(torch, HttpServer, cuda_kernels, tsc, ssum, knn,
                     ms.plane_health._quarantined_until.clear()
                     ms.plane_health._probe_until.clear()
 
+    cpu_answers = {}
+
+    def cpu_answer(body):
+        """The cpu node's answer to ``body`` on pmc4, searched once a
+        body: no step of the phase writes to pmc4, and no scheme is
+        installed where it is asked."""
+        key = json.dumps(body, sort_keys=True)
+        if key not in cpu_answers:
+            cpu_answers[key] = c7.search("pmc4", dict(body))
+        return cpu_answers[key]
+
     try:
         # -------- 24a: telemetry --------
         t0 = time.perf_counter()
@@ -12406,8 +12461,7 @@ def infrastructure_phase(torch, HttpServer, cuda_kernels, tsc, ssum, knn,
                                            headers={"X-Opaque-Id": f"t24-{i}"})
                 check(st == 200, f"24a request {i} answered {st}")
                 sound(r, f"24a request {i}")
-                same_response(r, c7.search("pmc4", dict(body)),
-                              f"24a request {i}")
+                same_response(r, cpu_answer(body), f"24a request {i}")
         after_i, after_n = stats(), stats("/_nodes/stats")
         g7.update_index_settings("pmc4", {
             "index.search.slowlog.threshold.query.info": "-1"})
@@ -12448,7 +12502,7 @@ def infrastructure_phase(torch, HttpServer, cuda_kernels, tsc, ssum, knn,
 
         # -------- 24b: admission --------
         t0 = time.perf_counter()
-        want = c7.search("pmc4", dict(match))
+        want = cpu_answer(match)
         serial = []
         for _ in range(8):
             t1 = time.perf_counter()
@@ -12636,8 +12690,7 @@ def infrastructure_phase(torch, HttpServer, cuda_kernels, tsc, ssum, knn,
         c7.indices["pmc4"].admission.refresh_level()
         for i, b in enumerate(aggs):
             sound(got.get(i), f"24b window member {i}")
-            same_response(got[i], c7.search("pmc4", dict(b)),
-                          f"24b window member {i}")
+            same_response(got[i], cpu_answer(b), f"24b window member {i}")
         bstats = gsvc.batch_stats.as_dict()
         check(window > base_w and bstats["batch_window_effective_ms"]
               >= window * 1000 * 0.999,
@@ -12752,7 +12805,7 @@ def infrastructure_phase(torch, HttpServer, cuda_kernels, tsc, ssum, knn,
         e_rows = {}
         with held("phase 24e") as mine_e:
             for name, body, plane, make in cases:
-                want_e = c7.search("pmc4", dict(body))
+                want_e = cpu_answer(body)
                 g7.search("pmc4", dict(body))  # warm: staged, healthy
                 f0 = gsvc._mesh_search.plane_health.stats()
                 dec0 = dict(gsvc.telemetry.phases_dict()["decisions"])
@@ -12950,6 +13003,541 @@ def warm_reopen(torch, Node, cuda_kernels, tsc, ssum, knn, path, repo_root,
 
 
 
+def cluster_phase(torch, Node, HttpServer, cuda_kernels, tsc, ssum, knn,
+                  shard_arrays, queries, errs, smi, device="cuda"):
+    """Phase 25: the cluster on the card. Three ``ClusterNode``s (n1-n3,
+    ``min_master_nodes`` 2) on one ``TransportHub`` in the process (strict:
+    every payload makes a JSON round trip, so no tensor can cross it) and
+    one card. Index pmcc: 2 primaries, each adopting one of pmc-4x256k's
+    shards (phase 7's arrays, seeds 7-8, seqnos 0..n-1) as a sealed
+    segment and flushed; ``number_of_replicas: 1`` then brings the
+    replicas by phase-1 file recovery over the hub.
+
+    25a. Recovery: seconds, bytes and files a replica, ``_cat/recovery``'s
+         rows, the ops phase 2 replayed (none: the commit covers every
+         seqno), the replicas' staging seconds and bytes, seqno stats
+         equal on both copies.
+    25b. Phase 10's four match queries through ``ClusterClient.search``,
+         each answered five times for a p50, held against a
+         ``device="cpu"`` port ``Node`` over the same segments; each
+         shard's primary and replica answers bit-equal; the same bodies'
+         p50 on a single card ``Node`` (host rung, as each cluster shard
+         serves) beside them, so the transport hop's cost shows.
+    25c. 1,000 replicated writes (800 index, 200 delete) with their ops/s;
+         seqnos and checkpoints equal on both copies, a get from the
+         replica, a refresh, the answers again (the cpu node took the same
+         writes).
+    25e. Faults: ``NetworkDelay`` on one copy with adaptive replica
+         selection routing away (the share of shard requests that avoid
+         it); an ``ActionBlackhole``d replica write (the replica failed
+         and rerouted while the primary acks) whose re-recovery meets an
+         in-flight ``StoreCorruptionScheme``: the corrupt chunk is caught
+         by the digest check and the retried session heals.
+    25d. Failover: the node of a primary closed without grace, then
+         ``check_nodes``: the first correct answer after the kill (the
+         coordinator fails over along the ranked copies), the promotion
+         with its term bump, the warm search on the promoted copy, the
+         re-recovery of the new replica, the answers again.
+    25f. The four REST routes over ``HttpServer`` (on the single card
+         node): ``_cluster/reroute`` (dry run with explain, then applied),
+         ``_cluster/allocation/explain``, ``_cat/allocation`` and
+         ``_cat/recovery`` with the peer rows of 25a, 25e and 25d.
+    Then every node closed: ``memory_allocated`` and the device-memory
+    ledger back to their level before the phase. Every kernel launch is
+    held against its plain version (largest difference 0 for 1a)."""
+    from elasticsearch_tpu_torch.cluster.multinode import (
+        ACTION_QUERY,
+        ACTION_WRITE_REPLICA,
+        ClusterClient,
+        ClusterNode,
+        clear_recovery_progress,
+        recovery_progress_rows,
+    )
+    from elasticsearch_tpu_torch.common.integrity import integrity_service
+    from elasticsearch_tpu_torch.common.memory import memory_accountant
+    from elasticsearch_tpu_torch.common.settings import Settings
+    from elasticsearch_tpu_torch.index.segment import Segment
+    from elasticsearch_tpu_torch.testing import disruption as tdis
+    from elasticsearch_tpu_torch.transport.local import TransportHub
+    from elasticsearch_tpu_torch.utils.murmur3 import shard_id_for
+
+    import gc
+    from concurrent.futures import ThreadPoolExecutor
+
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    report = {"card": smi}
+    acc, errs25 = {}, {}
+    acct = memory_accountant()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def held(label):
+        return held_block(torch, cuda_kernels, tsc, ssum, knn, errs25, label,
+                          acc, on_card=on_card)
+
+    def ms_since(t0):
+        sync()
+        return (time.perf_counter() - t0) * 1e3
+
+    gc.collect()  # an earlier phase's cyclic garbage holds no tensor here
+    sync()
+    mem0 = torch.cuda.memory_allocated() if on_card else 0
+    led0 = acct.staged_bytes()
+    clear_recovery_progress()
+    tok = term_token
+    bodies = [{"query": {"match": {"title": " ".join(tok(t) for t in q)}},
+               "size": 10} for q in queries[:4]]
+    mapping = {"properties": {"title": {"type": "text"},
+                              "venue": {"type": "keyword"},
+                              "year": {"type": "long"}}}
+    settings = Settings({"cluster.replication.timeout": "2s",
+                         "transport.request.timeout": "120s",
+                         "discovery.zen.fd.ping_timeout": "2s",
+                         "indices.recovery.retry_delay_network": "20ms",
+                         "indices.recovery.internal_action_timeout": "120s"})
+    hub = TransportHub(strict_serialization=True)
+    names = ("n1", "n2", "n3")
+    nodes = {n: ClusterNode(n, hub, min_master_nodes=2, settings=settings,
+                            device=device) for n in names}
+    nodes["n1"].bootstrap_cluster()
+    for n in names[1:]:
+        nodes[n].join("n1")
+    master = nodes["n1"]
+    master.create_index("pmcc", {"index": {"number_of_shards": 2,
+                                           "number_of_replicas": 0}},
+                        mapping)
+
+    def arrays_of(sh):
+        n = len(shard_arrays[sh]["doc_ids"])
+        return dict(shard_arrays[sh], seqnos=np.arange(n, dtype=np.int64))
+
+    def copies(sid):
+        return {c.node_id: c for c in master.routing["pmcc"][sid]}
+
+    def shard_on(node_id, sid):
+        return nodes[node_id].shards[("pmcc", sid)]
+
+    def primary_of(sid):
+        return next(n for n, c in copies(sid).items() if c.primary)
+
+    def replica_of(sid):
+        return next(n for n, c in copies(sid).items() if not c.primary)
+
+    def seqnos(shard):
+        """A copy's max seqno and local checkpoint (a replica learns the
+        global checkpoint with the primary's next write)."""
+        st = shard.seq_no_stats()
+        return st["max_seq_no"], st["local_checkpoint"]
+
+    t0 = time.perf_counter()
+    for sid in (0, 1):
+        shard = shard_on(primary_of(sid), sid)
+        shard.engine.adopt_segment(Segment.from_arrays(
+            f"pmcc_{sid}_seg_1", device=device, **arrays_of(sid)))
+    adopt_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:  # a thread a shard, as Node's flush
+        list(pool.map(lambda sid: shard_on(primary_of(sid), sid).flush(),
+                      (0, 1)))
+    flush_s = time.perf_counter() - t0
+    n_docs = [len(shard_arrays[sid]["doc_ids"]) for sid in (0, 1)]
+    for sid in (0, 1):
+        st = shard_on(primary_of(sid), sid).seq_no_stats()
+        check(st["local_checkpoint"] == st["max_seq_no"] == n_docs[sid] - 1,
+              f"25a primary {sid} built by adoption and a flush reports a "
+              f"local checkpoint covering its seqnos ({st})")
+
+    # ---------------- 25a: replicas by phase-1 file recovery ----------
+    t0 = time.perf_counter()
+    md = master.indices_meta["pmcc"]
+    md.settings = md.settings.merged_with(
+        Settings({"index.number_of_replicas": 1}))
+    master.reroute()
+    recover_s = time.perf_counter() - t0
+    check(all(c.state == "STARTED" for sid in (0, 1)
+              for c in copies(sid).values()) and all(
+        len(copies(sid)) == 2 for sid in (0, 1)),
+        f"25a every copy STARTED ({master.routing['pmcc']})")
+    rows = [r for r in recovery_progress_rows() if r["index"] == "pmcc"]
+    per_replica = {}
+    for sid in (0, 1):
+        rep, pri = replica_of(sid), primary_of(sid)
+        row = next(r for r in rows if r["shard"] == sid
+                   and r["target"] == rep and r["type"] == "peer")
+        check(row["stage"] == "done" and row["source"] == pri
+              and row["files_total"] > 0
+              and row["files_recovered"] == row["files_total"]
+              and row["bytes_recovered"] == row["bytes_total"] > 0
+              and row["ops_total"] == 0,
+              f"25a replica of shard {sid} recovered by files, no op "
+              f"replayed ({row})")
+        rs, ps = shard_on(rep, sid), shard_on(pri, sid)
+        check(seqnos(rs) == seqnos(ps)
+              and rs.num_docs == ps.num_docs == n_docs[sid],
+              f"25a shard {sid}: replica seqno stats and docs equal the "
+              f"primary's ({rs.seq_no_stats()}, {ps.seq_no_stats()})")
+        t1 = time.perf_counter()
+        staged = 0
+        for seg in rs.engine.segments:
+            seg.device_arrays()
+            staged += seg.staged_bytes()
+        per_replica[f"{sid}@{rep}"] = {
+            "source": pri, "files": row["files_total"],
+            "bytes": row["bytes_total"],
+            "seconds": (row["stop_ms"] - row["start_ms"]) / 1e3,
+            "staging_s": ms_since(t1) / 1e3, "staged_bytes": staged}
+    report["25a"] = {"adopt_s": adopt_s, "flush_s": flush_s,
+                     "recover_s": recover_s, "replicas": per_replica,
+                     "cat_recovery": [{k: v for k, v in r.items()
+                                       if k not in ("start_ms", "stop_ms")}
+                                      for r in rows]}
+    log(f"[phase 25a] {json.dumps(report['25a'])} ({smi})")
+
+    # ---------------- 25b: searches through ClusterClient -------------
+    ref = Node(device="cpu")
+    single = Node(device=device)
+    for node, name in ((ref, "pmccr"), (single, "pmcc1")):
+        node.create_index(name, {"settings": {
+            "number_of_shards": 2, "refresh_interval": "-1",
+            "requests.cache.enable": False, "search": {"mesh": False}},
+            "mappings": {"_doc": mapping}})
+    for sid in (0, 1):
+        for node, name, dev in ((ref, "pmccr", "cpu"),
+                                (single, "pmcc1", device)):
+            node.indices[name].shards[sid].engine.adopt_segment(
+                Segment.from_arrays(f"pmcc_{sid}_seg_1", device=dev,
+                                    **arrays_of(sid)))
+    client = ClusterClient(nodes["n2"])
+    # the cpu node's answer a body, until the next write reaches it
+    wants = {}
+
+    def want_of(body):
+        key = json.dumps(body, sort_keys=True)
+        if key not in wants:
+            wants[key] = ref.search("pmccr", dict(body))
+        return wants[key]
+
+    def same_copies(label):
+        """Each shard's primary and replica answer a body bit-equal."""
+        for sid in (0, 1):
+            for body in bodies:
+                payload = {"index": "pmcc", "shard": sid, "body": body,
+                           "k": 10}
+                pr = master.transport.send_request(
+                    primary_of(sid), ACTION_QUERY, payload)
+                rr = master.transport.send_request(
+                    replica_of(sid), ACTION_QUERY, payload)
+                check(pr == rr, f"{label} shard {sid}: primary and replica "
+                                f"answers bit-equal ({json.dumps(body)})")
+
+    def answers(label, reps=1):
+        """Every body through the cluster (timed) against the cpu node."""
+        lat = []
+        for body in bodies:
+            want = want_of(body)
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                got = client.search("pmcc", dict(body))
+                lat.append(ms_since(t0))
+                same_response(got, want, f"{label} {json.dumps(body)}",
+                              claim="cluster answer equals the cpu node's")
+                check(got["_shards"]["failed"] == 0,
+                      f"{label}: no failed shard ({got['_shards']})")
+        return lat
+
+    with held("phase 25b") as mine:
+        lat = answers("25b", reps=5)
+        same_copies("25b")
+        single_lat = []
+        for body in bodies:
+            want = want_of(body)
+            for _ in range(5):
+                t0 = time.perf_counter()
+                got = single.search("pmcc1", dict(body))
+                single_lat.append(ms_since(t0))
+                same_response(got, want, f"25b single node {json.dumps(body)}")
+    report["25b"] = {"cluster_p50_ms": float(np.median(lat)),
+                     "single_node_p50_ms": float(np.median(single_lat)),
+                     "requests": len(lat), "launches": dict(mine)}
+    log(f"[phase 25b] ClusterClient.search p50 "
+        f"{report['25b']['cluster_p50_ms']:.3f} ms beside a single card "
+        f"Node's (host rung) {report['25b']['single_node_p50_ms']:.3f} ms "
+        f"over {len(lat)} requests; launches {dict(mine)} ({smi})")
+
+    # ---------------- 25c: replicated writes ---------------------------
+    rng = np.random.RandomState(25)
+    words = rng.randint(50, 2050, size=(800, 12))
+    adopted_dels = []
+    for sid in (0, 1):
+        i = 3
+        while len([d for d in adopted_dels if d[1] == sid]) < 50:
+            doc = f"s{sid}p{i}"
+            if shard_id_for(doc, 2) == sid:
+                adopted_dels.append((doc, sid))
+            i += 11
+    ops = [("index", f"c{i}", {"title": " ".join(tok(int(t)) for t in w),
+                               "venue": f"v{i % 40:04d}",
+                               "year": 1990 + i % 35})
+           for i, w in enumerate(words)]
+    ops += [("delete", f"c{i}", None) for i in range(0, 800, 8)]
+    ops += [("delete", d, None) for d, _sid in adopted_dels]
+    with held("phase 25c") as mine:
+        t0 = time.perf_counter()
+        wclient = ClusterClient(master)
+        for op, doc, src in ops:
+            r = (wclient.index("pmcc", doc, src) if op == "index"
+                 else wclient.delete("pmcc", doc))
+            check(r["_shards"]["failed"] == 0 and r["_shards"][
+                "successful"] == 2,
+                f"25c {op} {doc} acked by both copies ({r['_shards']})")
+        write_s = time.perf_counter() - t0
+        r = ref.bulk([(op, {"_index": "pmccr", "_id": doc}, src)
+                      for op, doc, src in ops])
+        check(not r["errors"], "25c the cpu node took the same writes")
+        for sid in (0, 1):
+            ps, rs = shard_on(primary_of(sid), sid), shard_on(
+                replica_of(sid), sid)
+            pst, rst = ps.seq_no_stats(), rs.seq_no_stats()
+            check(seqnos(ps) == seqnos(rs)
+                  and pst["global_checkpoint"] == pst["local_checkpoint"]
+                  and rst["global_checkpoint"] >= pst["global_checkpoint"]
+                  - 1,
+                  f"25c shard {sid}: seqnos equal on both copies, the "
+                  f"primary's global checkpoint at its local one, the "
+                  f"replica's one op behind at most ({pst}, {rst})")
+        g = client.get("pmcc", "c1", prefer_replica=True)
+        check(g["found"] and g["_source"] == ops[1][2],
+              f"25c get from the replica ({g})")
+        t0 = time.perf_counter()
+        client.refresh("pmcc")
+        refresh_ms = ms_since(t0)
+        ref.refresh("pmccr")
+        wants.clear()
+        after_lat = answers("25c after the writes")
+        same_copies("25c after the writes")
+    report["25c"] = {"ops": len(ops), "seconds": write_s,
+                     "ops_per_s": len(ops) / write_s,
+                     "refresh_ms": refresh_ms,
+                     "p50_ms_after": float(np.median(after_lat)),
+                     "launches": dict(mine)}
+    log(f"[phase 25c] {len(ops)} replicated writes in {write_s:.2f} s: "
+        f"{len(ops) / write_s:.1f} ops/s; refresh {refresh_ms:.1f} ms; "
+        f"{json.dumps(report['25c'])} ({smi})")
+
+    # ---------------- 25e: transport faults ----------------------------
+    # a coordinator that holds no copy of a shard: its requests for that
+    # shard cross the hub to the primary or to the delayed replica
+    coord, far = next((n, sid) for n in names for sid in (0, 1)
+                      if n not in copies(sid))
+    slow = replica_of(far)
+    delay = tdis.NetworkDelay(0.05, dst=[slow]).apply_to(hub)
+    ars = ClusterClient(nodes[coord])
+    try:
+        with held("phase 25e delay") as mine_d:
+            hub.requests_log.clear()
+            for _ in range(5):
+                for body in bodies:
+                    want = want_of(body)
+                    same_response(ars.search("pmcc", dict(body)), want,
+                                  f"25e under NetworkDelay on {slow}")
+            to_slow = sum(1 for _s, d, a in hub.requests_log
+                          if a == ACTION_QUERY and d == slow)
+            sent = 5 * len(bodies)
+    finally:
+        delay.remove()
+    avoided = 1.0 - to_slow / sent
+    check(avoided >= 0.75, f"25e adaptive replica selection routes shard "
+                           f"{far}'s requests from {coord} away from the "
+                           f"delayed copy on {slow} ({to_slow} of {sent})")
+    # the replica of shard 1: its write blackholed, then the re-recovery
+    # meets a corrupt chunk
+    rep1, pri1 = replica_of(1), primary_of(1)
+    base = integrity_service().stats()
+    blackhole = tdis.ActionBlackhole([ACTION_WRITE_REPLICA], max_block_s=30,
+                                     dst=[rep1]).apply_to(hub)
+    corrupt = tdis.StoreCorruptionScheme(
+        "bitflip", seed=25, source_node=nodes[pri1]).apply_to(hub)
+    doc1 = next(f"f{i}" for i in range(1000) if shard_id_for(f"f{i}", 2) == 1)
+    try:
+        with held("phase 25e faults") as mine_f:
+            t0 = time.perf_counter()
+            r = ClusterClient(master).index("pmcc", doc1, {
+                "title": f"{tok(60)} {tok(61)}", "venue": "v0001",
+                "year": 2001})
+            ack_s = time.perf_counter() - t0
+            blackhole.remove()
+            check(r["result"] == "created" and r["_shards"]["failed"] == 1
+                  and r["_shards"]["failures"][0]["_node"] == rep1,
+                  f"25e the primary acked past its blackholed replica "
+                  f"({r['_shards']})")
+            ref.index_doc("pmccr", doc1, {"title": f"{tok(60)} {tok(61)}",
+                                         "venue": "v0001", "year": 2001})
+            for _ in range(200):
+                if len(copies(1)) == 2 and all(
+                        c.state == "STARTED" for c in copies(1).values()):
+                    break
+                master.reroute()
+                time.sleep(0.05)
+            heal_s = time.perf_counter() - t0
+            after = integrity_service().stats()
+            client.refresh("pmcc")
+            ref.refresh("pmccr")
+            wants.clear()
+            answers("25e after the heal")
+            same_copies("25e after the heal")
+    finally:
+        blackhole.remove()
+        corrupt.remove()
+    detected = (after["corruption_detected_by_site"].get("recovery", 0)
+                - base["corruption_detected_by_site"].get("recovery", 0))
+    check(corrupt.hits == 1 and detected == 1,
+          f"25e the in-flight corrupt chunk was caught once by the digest "
+          f"check ({corrupt.hits} injected, {detected} detected)")
+    healed_rep = replica_of(1)
+    check(primary_of(1) == pri1 and seqnos(shard_on(healed_rep, 1))
+          == seqnos(shard_on(pri1, 1)),
+          "25e the failed replica re-recovered and holds every acked write")
+    row = next(r for r in recovery_progress_rows() if r["index"] == "pmcc"
+               and r["shard"] == 1 and r["target"] == healed_rep)
+    report["25e"] = {"coordinator": coord, "shard": far,
+                     "delayed_copy": slow, "shard_requests": sent,
+                     "to_delayed": to_slow, "avoided_share": avoided,
+                     "blackholed_ack_s": ack_s, "heal_s": heal_s,
+                     "corrupt_injected": corrupt.hits,
+                     "corrupt_detected": detected,
+                     "re_recovery": {k: row[k] for k in (
+                         "stage", "files_total", "bytes_total",
+                         "ops_total")},
+                     "launches": {**mine_d, **{
+                         k: mine_d.get(k, 0) + v for k, v in mine_f.items()}}}
+    log(f"[phase 25e] {json.dumps(report['25e'])} ({smi})")
+
+    # ---------------- 25d: failover --------------------------------------
+    fsid = next(sid for sid in (0, 1) if primary_of(sid) != master.node_id)
+    victim, survivor = primary_of(fsid), replica_of(fsid)
+    term0 = master.primary_terms[("pmcc", fsid)]
+    body = bodies[0]
+    want = want_of(body)
+    fclient = ClusterClient(master)
+    with held("phase 25d") as mine:
+        t_kill = time.perf_counter()
+        nodes[victim].close(graceful=False)
+        first = fclient.search("pmcc", dict(body))
+        first_ms = ms_since(t_kill)
+        same_response(first, want, "25d first answer after the kill")
+        check(first["_shards"]["failed"] == 0,
+              f"25d the first answer after the kill is whole "
+              f"({first['_shards']})")
+        t0 = time.perf_counter()
+        departed = master.check_nodes()
+        check_s = time.perf_counter() - t0
+        promoted = shard_on(survivor, fsid)
+        nodes[survivor].join_background()
+        term1 = master.primary_terms[("pmcc", fsid)]
+        check(departed == [victim] and primary_of(fsid) == survivor
+              and promoted.primary and promoted.primary_term == term1
+              == term0 + 1,
+              f"25d {victim} departed, {survivor} promoted under term "
+              f"{term0} -> {term1}")
+        check(nodes[survivor].warm_runs >= 1
+              and nodes[survivor].warm_failures == 0
+              and not nodes[survivor].background_errors,
+              f"25d the promotion's warm search ran on the card "
+              f"({nodes[survivor].warm_runs} runs, "
+              f"{nodes[survivor].background_errors})")
+        t0 = time.perf_counter()
+        promoted_answer = fclient.search("pmcc", dict(body))
+        promoted_ms = ms_since(t0)
+        same_response(promoted_answer, want, "25d answer after the promotion")
+        check(all(c.state == "STARTED" for sid in (0, 1)
+                  for c in copies(sid).values())
+              and len(copies(fsid)) == 2 and victim not in copies(fsid),
+              f"25d the new replica of shard {fsid} recovered "
+              f"({master.routing['pmcc'][fsid]})")
+        new_rep = replica_of(fsid)
+        rerow = next(r for r in recovery_progress_rows()
+                     if r["index"] == "pmcc" and r["shard"] == fsid
+                     and r["target"] == new_rep)
+        client = fclient  # the victim coordinated 25b-25e
+        same_copies("25d after the failover")
+        answers("25d after the failover")
+    report["25d"] = {
+        "shard": fsid, "victim": victim, "promoted": survivor, "term": [term0, term1],
+        "first_answer_ms": first_ms, "check_nodes_s": check_s,
+        "answer_after_promotion_ms": promoted_ms,
+        "warm_runs": nodes[survivor].warm_runs,
+        "warm_failures": nodes[survivor].warm_failures,
+        "new_replica": new_rep,
+        "re_recovery": {k: rerow[k] for k in ("stage", "files_total",
+                                               "bytes_total", "ops_total")}
+        | {"seconds": (rerow["stop_ms"] - rerow["start_ms"]) / 1e3},
+        "launches": dict(mine)}
+    log(f"[phase 25d] {json.dumps(report['25d'])} ({smi})")
+
+    # ---------------- 25f: the four REST routes -------------------------
+    srv = HttpServer(single, port=0)
+    srv.start()
+    rc = HttpClient(srv.port)
+    try:
+        st, dry = rc.call("POST", "/_cluster/reroute?dry_run=true&explain=true",
+                          {"commands": []})
+        check(st == 200 and dry["acknowledged"] and "explanations" in dry,
+              f"25f POST _cluster/reroute dry run ({st})")
+        st, applied = rc.call("POST", "/_cluster/reroute", {})
+        check(st == 200 and applied["state"]["routing_table"]["indices"][
+            "pmcc1"]["shards"]["0"][0]["state"] == "STARTED",
+            f"25f POST _cluster/reroute ({st})")
+        st, explain = rc.call("GET", "/_cluster/allocation/explain")
+        check(st == 200 and explain["can_allocate"] == "yes",
+              f"25f GET _cluster/allocation/explain ({st}, {explain})")
+        st, alloc = rc.call("GET", "/_cat/allocation?format=json")
+        check(st == 200 and str(alloc[0]["shards"]) == "2",
+              f"25f GET _cat/allocation ({st}, {alloc})")
+        st, cat = rc.call("GET", "/_cat/recovery?format=json")
+        peers = [r for r in cat if r["index"] == "pmcc"
+                 and r["type"] == "peer"]
+        check(st == 200 and len(peers) >= 3 and all(
+            r["stage"] == "done" and r["bytes_percent"] == "100.0%"
+            for r in peers), f"25f GET _cat/recovery peer rows ({peers})")
+    finally:
+        rc.close()
+        srv.stop()
+    report["25f"] = {"cat_recovery_peer_rows": peers}
+    log(f"[phase 25f] _cat/recovery: {json.dumps(peers)}")
+
+    # ---------------- close: memory back --------------------------------
+    for node in nodes.values():
+        node.close(graceful=False)
+    single.close()
+    ref.close()
+    gc.collect()
+    sync()
+    mem_end = torch.cuda.memory_allocated() if on_card else 0
+    led_end = acct.staged_bytes()
+    check(abs(mem_end - mem0) <= 1 << 20 and led_end == led0,
+          f"25 every node closed: memory_allocated {mem0} -> {mem_end}, "
+          f"the ledger {led0} -> {led_end}")
+    for k, v in errs25.items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    if on_card:
+        check(acc.get("tile_scoring", 0) > 0 and errs25.get(
+            "tile_scoring", 0.0) == 0.0,
+            f"25 every 1a launch held against plain, largest difference 0 "
+            f"({acc.get('tile_scoring', 0)} launches, "
+            f"{errs25.get('tile_scoring', 0.0)})")
+    report["memory_allocated"] = [mem0, mem_end]
+    report["ledger"] = [led0, led_end]
+    report["launches"] = acc
+    report["max_abs_err"] = errs25
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[phase 25] {report['seconds']:.1f} s; launches {acc}; largest "
+        f"differences {errs25} ({smi})")
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -13018,7 +13606,9 @@ def main() -> int:
 
     tile_err = 0.0
     tile_entries = []
-    for qi, terms in enumerate([queries[0], queries[1], queries[2],
+    # the summary's query and the ladder query (queries[1] and [2] too
+    # before: cut to pay for phase 25)
+    for qi, terms in enumerate([queries[0],
                                 [top_rank_term] + queries[0][:2]]):
         node, arrs = kernel_node(terms)
         check(node is not None, f"kernel node for query {terms}")
@@ -13149,7 +13739,8 @@ def main() -> int:
         f"{INGEST_DOCS / ingest_s:.0f} docs/s")
     # the cpu node holds the same host arrays (each sealed segment adopted)
     _adopt_copies(gnode, cnode, "docs", Segment)
-    reqs = requests_for(queries[:12], top_rank_term, "v0001", 2000)
+    # six match queries (twelve before: cut to pay for phase 25)
+    reqs = requests_for(queries[:6], top_rank_term, "v0001", 2000)
     held = {"tile_scoring": 0}
     serve_held(torch, tsc, batch_errs, held, gnode, cnode, "docs", reqs,
                "phase 3", lat)
@@ -13203,7 +13794,7 @@ def main() -> int:
         s[~gseg.live] = 0.0
         return s, lambda doc_id: int(doc_id[1:])
 
-    reqs4 = requests_for(queries[12:24], top_rank_term, "v0000", 2005)
+    reqs4 = requests_for(queries[12:18], top_rank_term, "v0000", 2005)
     zero_searcher_counters(g4)
     cuda_kernels.reset_launch_counts()
     held = {"tile_scoring": 0}
@@ -13354,6 +13945,17 @@ def main() -> int:
         knn_bodies[0][1], rest_report, batch_errs, smi)
     for k, v in infra_report["launches"].items():
         launches[k] += v
+
+    # ---------------- phase 25: the cluster on the card -----------------
+    # (three ClusterNodes over phase 7's arrays; everything it stages is
+    # returned before phase 13 needs the card's memory)
+    clock("phase 25")
+    cluster_report = cluster_phase(
+        torch, Node, HttpServer, cuda_kernels, tsc, ssum, knn, shard_arrays,
+        queries, batch_errs, smi)
+    for k, v in cluster_report["launches"].items():
+        launches[k] += v
+    seg_held["phase 25"] = cluster_report["launches"].get("segment_sum", 0)
 
     # ---------------- phase 13: durability on the card -------------------
     clock("phase 13")
@@ -13541,6 +14143,7 @@ def main() -> int:
         "search_request": request_report, "scripting": script_report,
         "cluster_metadata": meta_report, "data_movement": move_report,
         "remainder": remainder_report, "infrastructure": infra_report,
+        "cluster": cluster_report,
         "sound_answers_checked": SOUND["checked"]}
     for name, key, replaces, extra in (
             ("tile_scoring_packed", "tile_scoring_packed", 656,

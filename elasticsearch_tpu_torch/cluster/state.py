@@ -11,8 +11,9 @@ and ``_all``. State changes go through
 ``ClusterService.submit_state_update_task`` (one task at a time under a
 lock; appliers see the old and the new state, listeners the new). One
 node is always its own master; ``routing_table`` puts every primary on
-it (the JAX package's explicit overlay of ``_cluster/reroute`` waits for
-the multi-node control plane).
+it, and ``routing`` (set by ``_cluster/reroute``) overlays it per index.
+The multi-node cluster (``multinode.py``) keeps its own routing table of
+``ShardRouting`` copies in ``ShardRoutingState``s.
 """
 
 from __future__ import annotations
@@ -26,22 +27,36 @@ from elasticsearch_tpu_torch.common.errors import IndexNotFoundException
 from elasticsearch_tpu_torch.common.settings import Settings
 
 
+class ShardRoutingState:
+    UNASSIGNED = "UNASSIGNED"
+    INITIALIZING = "INITIALIZING"
+    STARTED = "STARTED"
+    RELOCATING = "RELOCATING"
+
+
 @dataclass
 class ShardRouting:
     index: str
     shard_id: int
     node_id: Optional[str]
     primary: bool
-    state: str = "STARTED"
+    state: str = ShardRoutingState.STARTED
+    # the explicit relocation link (a RELOCATING source -> its target
+    # node): the allocator retires the source only once THIS target has
+    # started (ShardRouting.relocatingNodeId)
+    relocating_to: Optional[str] = None
 
     def to_dict(self) -> dict:
-        return {
+        d = {
             "index": self.index,
             "shard": self.shard_id,
             "node": self.node_id,
             "primary": self.primary,
             "state": self.state,
         }
+        if self.relocating_to is not None:
+            d["relocating_node"] = self.relocating_to
+        return d
 
 
 @dataclass
@@ -98,7 +113,8 @@ class ClusterState:
                  transient_settings: Optional[Settings] = None,
                  stored_scripts: Optional[Dict[str, dict]] = None,
                  ingest_pipelines: Optional[Dict[str, dict]] = None,
-                 repositories: Optional[Dict[str, dict]] = None):
+                 repositories: Optional[Dict[str, dict]] = None,
+                 routing: Optional[dict] = None):
         self.cluster_name = cluster_name
         self.version = version
         self.indices = dict(indices or {})
@@ -110,6 +126,9 @@ class ClusterState:
         self.stored_scripts = dict(stored_scripts or {})
         self.ingest_pipelines = dict(ingest_pipelines or {})
         self.repositories = dict(repositories or {})
+        # the explicit routing table ({index: {shard_id: [ShardRouting]}})
+        # that _cluster/reroute sets; None: every primary on the master
+        self.routing = routing
 
     def copy(self, **overrides) -> "ClusterState":
         kw = dict(
@@ -124,6 +143,7 @@ class ClusterState:
             stored_scripts=dict(self.stored_scripts),
             ingest_pipelines=copy.deepcopy(self.ingest_pipelines),
             repositories=copy.deepcopy(self.repositories),
+            routing=copy.deepcopy(self.routing),
         )
         kw.update(overrides)
         return ClusterState(**kw)
@@ -181,6 +201,22 @@ class ClusterState:
             table[name] = shards
         return table
 
+    def _routing_table_dict(self) -> dict:
+        """The routing table against the current metadata: the explicit
+        table is a per-index overlay (an index created after the last
+        reroute gets its default routing, a deleted one drops out)."""
+        explicit = self.routing or {}
+        out = {}
+        for n, shards in self.routing_table().items():
+            if n in explicit:
+                out[n] = {"shards": {
+                    str(sid): [c.to_dict() for c in copies]
+                    for sid, copies in explicit[n].items()}}
+            else:
+                out[n] = {"shards": {str(s.shard_id): [s.to_dict()]
+                                     for s in shards}}
+        return out
+
     def to_dict(self) -> dict:
         return {
             "cluster_name": self.cluster_name,
@@ -195,10 +231,7 @@ class ClusterState:
                     "transient": self.transient_settings.as_nested_dict(),
                 },
             },
-            "routing_table": {"indices": {
-                n: {"shards": {str(s.shard_id): [s.to_dict()]
-                               for s in shards}}
-                for n, shards in self.routing_table().items()}},
+            "routing_table": {"indices": self._routing_table_dict()},
         }
 
 

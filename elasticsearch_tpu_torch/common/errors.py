@@ -216,3 +216,20 @@ class SearchPhaseExecutionException(ElasticsearchTpuException):
              "reason": f.get("reason")}
             for f in self.shard_failures]
         return d
+
+
+class NodeNotConnectedException(ElasticsearchTpuException):
+    status_code = 500
+
+
+class ConnectTransportException(NodeNotConnectedException):
+    """Connection-level failure before the request reached the peer: the
+    connection-health tracker fast-fails to a node it holds dead. A
+    ``NodeNotConnectedException``, so every failover path takes it as a
+    connection loss."""
+
+
+class ReceiveTimeoutTransportException(NodeNotConnectedException):
+    """The request was sent and no response came within its deadline. A
+    ``NodeNotConnectedException``: an unresponsive peer trips the same
+    failover and fault-detection paths as a disconnected one."""

@@ -47,9 +47,10 @@ registers, with its flags. ``PUT /{index}/_settings`` takes only
 registered dynamic keys (``validate_dynamic_update``), create-index
 validates the registered keys it is given, and ``PUT _cluster/settings``
 stores any key, as the JAX package's does, firing the update consumers.
-A setting whose consumer module is not ported yet (the multi-node
-control plane and the other host-only modules: ROADMAP A.6 lists them)
-is stored like any other.
+A setting whose consumer module is not ported yet (the host-only modules
+ROADMAP A.6 lists) is stored like any other. The cluster
+(``cluster/multinode.py``) reads ``transport.*``, ``discovery.zen.*``,
+``cluster.replication.timeout`` and ``indices.recovery.*``.
 ``Settings.merged_with`` drops a key mapped to None (a cleared cluster
 setting).
 """
@@ -59,70 +60,10 @@ from __future__ import annotations
 from typing import Any, Dict, Iterable, Optional
 
 from elasticsearch_tpu_torch.common.errors import IllegalArgumentException
-
-_BYTE_UNITS = {
-    "b": 1,
-    "kb": 1024,
-    "mb": 1024**2,
-    "gb": 1024**3,
-    "tb": 1024**4,
-    "pb": 1024**5,
-}
-
-_TIME_UNITS = {
-    "nanos": 1e-9,
-    "micros": 1e-6,
-    "ms": 1e-3,
-    "s": 1.0,
-    "m": 60.0,
-    "h": 3600.0,
-    "d": 86400.0,
-}
-
-
-def parse_time_value(value, setting_name: str = "") -> float:
-    """Parse '30s' / '1m' / '500ms' / -1 into seconds (float). -1 => -1.0."""
-    if isinstance(value, (int, float)):
-        if value == -1:
-            return -1.0
-        raise IllegalArgumentException(
-            f"failed to parse setting [{setting_name}] with value [{value}] "
-            "as a time value: unit is missing or unrecognized")
-    s = str(value).strip().lower()
-    if s in ("-1", "-1ms"):
-        return -1.0
-    for unit in sorted(_TIME_UNITS, key=len, reverse=True):
-        if s.endswith(unit):
-            num = s[: -len(unit)].strip()
-            try:
-                return float(num) * _TIME_UNITS[unit]
-            except ValueError:
-                break
-    raise IllegalArgumentException(
-        f"failed to parse setting [{setting_name}] with value [{value}] as a "
-        "time value")
-
-
-def parse_byte_size(value, setting_name: str = "") -> int:
-    """Parse '10gb' / '512mb' / a bare int (bytes) into bytes."""
-    if isinstance(value, int) and not isinstance(value, bool):
-        return value
-    s = str(value).strip().lower()
-    if s == "-1":
-        return -1
-    for unit in sorted(_BYTE_UNITS, key=len, reverse=True):
-        if s.endswith(unit):
-            num = s[: -len(unit)].strip()
-            try:
-                return int(float(num) * _BYTE_UNITS[unit])
-            except ValueError:
-                break
-    try:
-        return int(s)
-    except ValueError:
-        raise IllegalArgumentException(
-            f"failed to parse setting [{setting_name}] with value [{value}] "
-            "as a size in bytes") from None
+from elasticsearch_tpu_torch.common.units import (  # noqa: F401 (re-exported)
+    parse_byte_size,
+    parse_time_value,
+)
 
 
 class Settings:
@@ -509,29 +450,46 @@ SEARCH_MAX_BUCKETS = Setting("search.max_buckets", 65536, "int", min_value=1,
 SEARCH_KEEPALIVE = Setting("search.default_keep_alive", "5m", "time",
                            dynamic=True)
 # transport, discovery, replication and recovery: the multi-node control
-# plane (ROADMAP A.6)
+# plane (cluster/multinode.py reads them)
+TRANSPORT_REQUEST_TIMEOUT = Setting("transport.request.timeout", "30s",
+                                    "time", dynamic=True)
+TRANSPORT_RETRY_MAX_ATTEMPTS = Setting("transport.retry.max_attempts", 3,
+                                       "int", min_value=1, dynamic=True)
+TRANSPORT_RETRY_INITIAL_BACKOFF = Setting("transport.retry.initial_backoff",
+                                          "50ms", "time", dynamic=True)
+TRANSPORT_RETRY_BACKOFF_MULTIPLIER = Setting(
+    "transport.retry.backoff_multiplier", 2.0, "float", min_value=1.0,
+    dynamic=True)
+TRANSPORT_RETRY_MAX_BACKOFF = Setting("transport.retry.max_backoff", "2s",
+                                      "time", dynamic=True)
+TRANSPORT_HEALTH_FAILURE_THRESHOLD = Setting(
+    "transport.health.failure_threshold", 3, "int", min_value=1,
+    dynamic=True)
+TRANSPORT_HEALTH_QUARANTINE = Setting("transport.health.quarantine", "1s",
+                                      "time", dynamic=True)
+FD_PING_TIMEOUT = Setting("discovery.zen.fd.ping_timeout", "5s", "time",
+                          dynamic=True)
+FD_PING_RETRIES = Setting("discovery.zen.fd.ping_retries", 3, "int",
+                          min_value=1, dynamic=True)
+PUBLISH_TIMEOUT = Setting("discovery.zen.publish_timeout", "30s", "time",
+                          dynamic=True)
+# the per-replica write fan-out deadline: a blackholed replica is failed
+# (and rerouted by the master) instead of blocking the primary
+REPLICATION_TIMEOUT = Setting("cluster.replication.timeout", "30s", "time",
+                              dynamic=True)
+RECOVERY_RETRY_DELAY_NETWORK = Setting(
+    "indices.recovery.retry_delay_network", "500ms", "time", dynamic=True)
+RECOVERY_MAX_RETRIES = Setting("indices.recovery.max_retries", 5, "int",
+                               min_value=1, dynamic=True)
+RECOVERY_ACTION_TIMEOUT = Setting(
+    "indices.recovery.internal_action_timeout", "30s", "time", dynamic=True)
 TRANSPORT_SETTINGS = [
-    Setting("transport.request.timeout", "30s", "time", dynamic=True),
-    Setting("transport.retry.max_attempts", 3, "int", min_value=1,
-            dynamic=True),
-    Setting("transport.retry.initial_backoff", "50ms", "time", dynamic=True),
-    Setting("transport.retry.backoff_multiplier", 2.0, "float",
-            min_value=1.0, dynamic=True),
-    Setting("transport.retry.max_backoff", "2s", "time", dynamic=True),
-    Setting("transport.health.failure_threshold", 3, "int", min_value=1,
-            dynamic=True),
-    Setting("transport.health.quarantine", "1s", "time", dynamic=True),
-    Setting("discovery.zen.fd.ping_timeout", "5s", "time", dynamic=True),
-    Setting("discovery.zen.fd.ping_retries", 3, "int", min_value=1,
-            dynamic=True),
-    Setting("discovery.zen.publish_timeout", "30s", "time", dynamic=True),
-    Setting("cluster.replication.timeout", "30s", "time", dynamic=True),
-    Setting("indices.recovery.retry_delay_network", "500ms", "time",
-            dynamic=True),
-    Setting("indices.recovery.max_retries", 5, "int", min_value=1,
-            dynamic=True),
-    Setting("indices.recovery.internal_action_timeout", "30s", "time",
-            dynamic=True),
+    TRANSPORT_REQUEST_TIMEOUT, TRANSPORT_RETRY_MAX_ATTEMPTS,
+    TRANSPORT_RETRY_INITIAL_BACKOFF, TRANSPORT_RETRY_BACKOFF_MULTIPLIER,
+    TRANSPORT_RETRY_MAX_BACKOFF, TRANSPORT_HEALTH_FAILURE_THRESHOLD,
+    TRANSPORT_HEALTH_QUARANTINE, FD_PING_TIMEOUT, FD_PING_RETRIES,
+    PUBLISH_TIMEOUT, REPLICATION_TIMEOUT, RECOVERY_RETRY_DELAY_NETWORK,
+    RECOVERY_MAX_RETRIES, RECOVERY_ACTION_TIMEOUT,
 ]
 # admission control and the drain (search/admission.py); the search
 # pool's queue follows search.queue.size too

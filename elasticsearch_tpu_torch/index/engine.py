@@ -66,6 +66,28 @@ class VersionEntry:
     term: int = 1
 
 
+def _live_local(seg: Segment, lives: np.ndarray,
+                doc_id: str) -> Optional[int]:
+    """The highest local doc of ``seg`` among ``lives`` (ascending) that
+    holds ``doc_id``, as a whole build of the segment's entries finds it;
+    None if no live doc holds it."""
+    by_id = seg.id_to_doc()
+    local = by_id.get(doc_id)
+    if local is None:
+        return None
+    at = int(np.searchsorted(lives, local))
+    if at < len(lives) and lives[at] == local:
+        return local
+    if len(by_id) == seg.num_docs:
+        return None  # the id's one doc is dead
+    # a segment that sealed an update holds the id twice, and a sort may
+    # have put the dead doc last
+    for at in reversed(lives.tolist()):
+        if seg.doc_ids[at] == doc_id:
+            return at
+    return None
+
+
 @dataclass
 class GetResult:
     found: bool
@@ -98,12 +120,19 @@ class Engine:
         self._pending_seg_deletes: List[tuple] = []
         self._version_map: Dict[str, VersionEntry] = {}
         # sealed segments whose live docs enter the version map on its
-        # first read (adopt_segment, store recovery): a search never reads
-        # it, so building a quarter million entries a segment waits for
-        # the first write, get or commit
+        # first whole read (adopt_segment, store recovery): a search never
+        # reads it, and a write or a get looks its one id up
+        # (``lookup_version``), so building a quarter million entries a
+        # segment waits for a commit, a merge or an ops recovery
         self._deferred_entries: List[tuple] = []
+        # ids whose entry in ``_version_map`` was looked up or written
+        # while segments were deferred: newer than any deferred entry
+        self._settled: set = set()
         self._seqno = -1
         self._local_checkpoint = -1
+        # a replica's global checkpoint, learned from the primary's
+        # replicated writes (a replicated primary's tracker owns its own)
+        self.global_checkpoint = -1
         self._lock = threading.RLock()
         self.refresh_count = 0
         self.flush_count = 0
@@ -128,11 +157,14 @@ class Engine:
     def version_map(self) -> Dict[str, VersionEntry]:
         """Doc id -> its latest ``VersionEntry``; the deferred segments'
         entries are built first, in the order they were deferred, so the
-        map reads as if each had been built at once."""
+        map reads as if each had been built at once (an id looked up or
+        written since keeps its entry)."""
         if self._deferred_entries:
             with self._lock:
                 # the list empties only once the map is whole: a reader
                 # that finds it empty finds every entry
+                settled = {k: self._version_map[k] for k in self._settled
+                           if k in self._version_map}
                 for seg, lives, terms in self._deferred_entries:
                     at = lives.tolist()
                     self._version_map.update(zip(
@@ -144,6 +176,8 @@ class Engine:
                             (map(terms.get, map(seg.doc_ids.__getitem__, at),
                                  itertools.repeat(1))
                              if terms else itertools.repeat(1)))))
+                self._version_map.update(settled)
+                self._settled = set()
                 self._deferred_entries = []
         return self._version_map
 
@@ -151,16 +185,70 @@ class Engine:
     def version_map(self, value: Dict[str, VersionEntry]) -> None:
         with self._lock:
             self._deferred_entries = []
+            self._settled = set()
             self._version_map = value
 
     def defer_version_entries(self, seg: Segment,
                               terms: Optional[Dict[str, int]] = None) -> None:
         """Enter ``seg``'s live docs into the version map on its first
-        read (their lives taken now), each with its primary term from
-        ``terms`` (default 1)."""
+        whole read (their lives taken now), each with its primary term
+        from ``terms`` (default 1)."""
         with self._lock:
             self._deferred_entries.append(
                 (seg, np.flatnonzero(seg.live[: seg.num_docs]), terms))
+
+    def lookup_version(self, doc_id: str) -> Optional[VersionEntry]:
+        """``version_map.get(doc_id)`` without building the deferred
+        segments' entries whole: an id settled since, else the newest
+        deferred segment that holds it live (through the segment's id
+        map), else the map."""
+        with self._lock:
+            if not self._deferred_entries or doc_id in self._settled:
+                return self._version_map.get(doc_id)
+            entry = None
+            for seg, lives, terms in reversed(self._deferred_entries):
+                local = _live_local(seg, lives, doc_id)
+                if local is not None:
+                    entry = VersionEntry(
+                        int(seg.versions[local]), int(seg.seqnos[local]),
+                        seg.name, local,
+                        term=terms.get(doc_id, 1) if terms else 1)
+                    break
+            if entry is None:
+                entry = self._version_map.get(doc_id)
+            if entry is not None:
+                self._version_map[doc_id] = entry
+                self._settled.add(doc_id)
+            return entry
+
+    def put_version(self, doc_id: str, entry: VersionEntry) -> None:
+        """``version_map[doc_id] = entry`` without building the deferred
+        segments' entries whole: the id's entry wins over theirs."""
+        with self._lock:
+            self._version_map[doc_id] = entry
+            if self._deferred_entries:
+                self._settled.add(doc_id)
+
+    def commit_entries(self) -> Dict[str, VersionEntry]:
+        """The entries a commit point keeps (delete tombstones and
+        primary terms other than 1: ``Store.commit``), without building
+        the deferred segments' entries whole: a deferred entry is never a
+        tombstone, and its term other than 1 stands in its ``terms``."""
+        with self._lock:
+            if not self._deferred_entries:
+                return self._version_map
+            # the map's order first, as a whole map would keep it
+            ids = dict.fromkeys(self._version_map)
+            for _seg, _lives, terms in self._deferred_entries:
+                if terms:
+                    ids.update(dict.fromkeys(
+                        k for k, t in terms.items() if t != 1))
+            out = {}
+            for doc_id in ids:
+                entry = self.lookup_version(doc_id)
+                if entry is not None and (entry.deleted or entry.term != 1):
+                    out[doc_id] = entry
+            return out
 
     def _stamp_owner(self, seg: Segment) -> None:
         """The ledger owner of a segment and of its nested sub-segments."""
@@ -220,7 +308,7 @@ class Engine:
         seqno and version it was assigned, with no version check; one
         that is stale against the version map is a no-op."""
         with self._lock:
-            existing = self.version_map.get(doc_id)
+            existing = self.lookup_version(doc_id)
             if self._stale(existing, seqno, primary_term):
                 self.note_external_seqno(seqno)
                 return {"_id": doc_id, "_version": existing.version,
@@ -245,8 +333,8 @@ class Engine:
                 self._tombstone(existing)
             local_doc = self.buffer.add_document(parsed, seqno, new_version,
                                                  parent=parent)
-            self.version_map[doc_id] = VersionEntry(
-                new_version, seqno, None, local_doc, term=primary_term)
+            self.put_version(doc_id, VersionEntry(
+                new_version, seqno, None, local_doc, term=primary_term))
             if add_to_translog and self.translog is not None:
                 self.translog.add(TranslogOp(
                     TranslogOp.INDEX, seqno, doc_id, source, routing,
@@ -264,7 +352,7 @@ class Engine:
                replicated_version: Optional[int] = None,
                primary_term: int = 1) -> dict:
         with self._lock:
-            existing = self.version_map.get(doc_id)
+            existing = self.lookup_version(doc_id)
             if self._stale(existing, seqno, primary_term):
                 self.note_external_seqno(seqno)
                 return {"_id": doc_id, "_version": existing.version,
@@ -283,15 +371,15 @@ class Engine:
                            else current_version + 1)
             if found:
                 self._tombstone(existing)
-                self.version_map[doc_id] = VersionEntry(
+                self.put_version(doc_id, VersionEntry(
                     new_version, seqno, existing.segment, existing.local_doc,
-                    deleted=True, term=primary_term)
+                    deleted=True, term=primary_term))
             else:
                 # a tombstone even for a missing doc: the staleness guard
                 # needs it to refuse an older index op replayed after it
-                self.version_map[doc_id] = VersionEntry(
+                self.put_version(doc_id, VersionEntry(
                     new_version, seqno, None, -1, deleted=True,
-                    term=primary_term)
+                    term=primary_term))
             if add_to_translog and self.translog is not None:
                 self.translog.add(TranslogOp(
                     TranslogOp.DELETE, seqno, doc_id, version=new_version,
@@ -326,6 +414,15 @@ class Engine:
             if seg.num_docs:
                 self.note_external_seqno(int(seg.seqnos.max()))
             self.segments.append(seg)
+            # the next seal must not reuse the adopted name: a delete
+            # addresses its segment by name
+            tail = seg.name.rsplit("_", 1)[-1]
+            if tail.isdigit() and int(tail) >= self._segment_counter:
+                self._segment_counter = int(tail) + 1
+                # the buffer's docs (if any) are addressed by name only
+                # once it seals
+                self.buffer.name = (f"{self._segment_prefix}_"
+                                    f"{self._segment_counter}")
 
     # ------------------------------------------------------------------
     # Read path
@@ -333,7 +430,7 @@ class Engine:
 
     def get(self, doc_id: str, realtime: bool = True) -> GetResult:
         with self._lock:
-            entry = self.version_map.get(doc_id)
+            entry = self.lookup_version(doc_id)
             if entry is None or entry.deleted:
                 return GetResult(False, doc_id)
             if entry.segment is None:
@@ -439,7 +536,9 @@ class Engine:
             for local_doc in self._buffer_deletes:
                 seg.delete_doc(int(remap[local_doc]) if remap is not None
                                else local_doc)
-            for entry in self.version_map.values():
+            # a buffered doc's entry is never deferred: the map need not
+            # be whole
+            for entry in self._version_map.values():
                 if entry.segment is None and entry.local_doc >= 0:
                     entry.segment = seg.name
                     if remap is not None:
@@ -478,7 +577,7 @@ class Engine:
             self.refresh()
             if self.store is not None:
                 self.store.commit(self.segments, self.max_seqno,
-                                  self.version_map, sync_id=sync_id)
+                                  self.commit_entries(), sync_id=sync_id)
             if self.translog is not None:
                 self.translog.mark_committed(self.max_seqno)
                 self.translog.roll_generation()

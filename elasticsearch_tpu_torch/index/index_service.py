@@ -339,7 +339,13 @@ class IndexService:
                 data_path=(os.path.join(data_path, str(sid))
                            if data_path else None),
                 durability=durability, index_sort=self.index_sort,
-                slowlog_warn_s=slow_warn, slowlog_info_s=slow_info)
+                slowlog_warn_s=slow_warn, slowlog_info_s=slow_info,
+                indexing_slowlog_warn_s=settings.get_time(
+                    "index.indexing.slowlog.threshold.index.warn"),
+                indexing_slowlog_info_s=settings.get_time(
+                    "index.indexing.slowlog.threshold.index.info"),
+                indexing_slowlog_source_chars=settings.get_int(
+                    "index.indexing.slowlog.source", 1000))
             shard.engine.postings_codec = self.postings_codec
             shard.engine.postings_codec_default = self.postings_codec_default
             # slice resolution is shard-count aware (SliceBuilder)

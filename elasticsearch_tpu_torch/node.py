@@ -1462,6 +1462,60 @@ class Node:
         has 0 replicas."""
         return cluster_health(self.cluster_service.state)
 
+    def reroute(self, body: Optional[dict] = None, dry_run: bool = False,
+                explain: bool = False) -> dict:
+        """_cluster/reroute: apply each command of the body to the routing
+        table (``cluster/allocation.apply_command``), then let the
+        allocator normalize it (fill unassigned copies, keep placements,
+        retire finished relocations) and commit it to the cluster state
+        unless ``dry_run``. Answers the resulting state; ``explain`` adds
+        each command's decisions."""
+        import copy as _copy
+
+        from elasticsearch_tpu_torch.cluster import allocation as alloc
+
+        state = self.cluster_service.state
+        data_nodes = [nid for nid, n in state.nodes.items()
+                      if "data" in n.roles]
+        # a node is named by its id or its name
+        node_ids = {nid: nid for nid in state.nodes}
+        node_ids.update({n.name: nid for nid, n in state.nodes.items()})
+        open_meta = dict(state.indices)
+        table = state.routing
+        if table is None:
+            table = alloc.allocate(open_meta, data_nodes)
+        table = _copy.deepcopy(table)
+        explanations = []
+        for cmd in (body or {}).get("commands") or []:
+            if not isinstance(cmd, dict) or len(cmd) != 1:
+                raise IllegalArgumentException(
+                    f"malformed reroute command {cmd!r}")
+            (name, args), = cmd.items()
+            try:
+                explanations.append(alloc.apply_command(
+                    table, open_meta, node_ids, name, dict(args or {})))
+            except alloc.RerouteException as e:
+                raise IllegalArgumentException(str(e)) from None
+        new_table = alloc.allocate(open_meta, data_nodes, previous=table)
+        # one node: a primary routed here is backed by a live local shard,
+        # so it is STARTED
+        for shards in new_table.values():
+            for copies in shards.values():
+                for c in copies:
+                    if c.primary and c.node_id == self.node_id:
+                        c.state = "STARTED"
+        if dry_run:
+            preview = state.copy(routing=new_table)
+            resp = {"acknowledged": True, "state": preview.to_dict()}
+        else:
+            new_state = self.cluster_service.submit_state_update_task(
+                "cluster_reroute (api)",
+                lambda s: s.copy(routing=new_table))
+            resp = {"acknowledged": True, "state": new_state.to_dict()}
+        if explain:
+            resp["explanations"] = explanations
+        return resp
+
     def cluster_stats(self) -> dict:
         state = self.cluster_service.state
         return {
@@ -1499,10 +1553,14 @@ class Node:
         into one (the phase histograms, the plane and admission counters)
         with the node-wide device-memory ledger as its ``memory`` and the
         process-wide ``compile`` and ``integrity`` blocks, the OS, process
-        and filesystem probes, the thread pools and the breakers. The JAX
-        package's ``transport`` section waits for its module."""
+        and filesystem probes, the thread pools, the breakers and the
+        transport counters summed over every live ``TransportService`` of
+        the process (zeros on a node without a cluster)."""
         from elasticsearch_tpu_torch.common.integrity import integrity_service
         from elasticsearch_tpu_torch.search.telemetry import merge_phase_stats
+        from elasticsearch_tpu_torch.transport.local import (
+            aggregate_transport_stats,
+        )
 
         search = merge_phase_stats(
             [svc.search_stats() for svc in self.indices.values()])
@@ -1528,6 +1586,7 @@ class Node:
                     self.data_path if self.persistent_path else "."),
                 "thread_pool": self.thread_pool.stats(),
                 "breakers": self.breaker_service.stats(),
+                "transport": aggregate_transport_stats(),
             }},
         }
 

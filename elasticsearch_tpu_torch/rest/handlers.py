@@ -43,10 +43,13 @@ staged doc-value columns, as the JAX package's does, and the request
 cache too (ROADMAP C20). ``GET /_nodes/hot_threads`` (and
 ``/_nodes/{node_id}/hot_threads``) answers ``Node.hot_threads`` as text,
 ``POST`` and ``DELETE /_nodes/_local/_drain`` the node's drain and
-undrain. Six routes still answer ``_unported`` (reroute, allocation
-explain, ``_remote/info``, ``_cat/plugins``, ``_cat/allocation``,
-``_cat/recovery``). Writes take
-``refresh=wait_for``. Handlers are (node, request) ->
+undrain. The cluster routes: ``_cluster/reroute`` (``Node.reroute``:
+the commands, ``dry_run``, ``explain``), ``_cluster/allocation/explain``
+(the corrupted copies' markers), ``_cat/allocation`` and
+``_cat/recovery`` (the store rows and the cluster's peer-recovery
+rows, ``index/recovery_progress.recovery_progress_rows``). Two routes
+still answer ``_unported``: ``_remote/info`` and ``_cat/plugins``.
+Writes take ``refresh=wait_for``. Handlers are (node, request) ->
 (status, payload); the cat API returns text tables unless
 ``?format=json``.
 """
@@ -60,6 +63,7 @@ from typing import List, Tuple
 import torch
 
 from elasticsearch_tpu_torch.analysis.analyzers import AnalysisRegistry
+from elasticsearch_tpu_torch.common import monitor
 from elasticsearch_tpu_torch.common.deprecation import DeprecationLogger
 from elasticsearch_tpu_torch.common.errors import (
     ActionRequestValidationException,
@@ -244,8 +248,11 @@ def register_all(c) -> None:
     r("GET", "/_cluster/settings", _get_cluster_settings)
     r("PUT", "/_cluster/settings", lambda n, q: (200, n.put_cluster_settings(
         q.json_body({}))))
-    r("POST", "/_cluster/reroute", _unported)
-    r("GET", "/_cluster/allocation/explain", _unported)
+    r("POST", "/_cluster/reroute", lambda n, q: (200, n.reroute(
+        q.json_body({}) or {},
+        dry_run=q.bool_param("dry_run", False),
+        explain=q.bool_param("explain", False))))
+    r("GET", "/_cluster/allocation/explain", _allocation_explain)
     r("GET", "/_nodes", lambda n, q: (200, n.node_info()))
     r("GET", "/_nodes/stats", lambda n, q: (200, n.node_stats()))
     r("GET", "/_nodes/stats/{metric}", lambda n, q: (200, n.node_stats()))
@@ -339,8 +346,8 @@ def register_all(c) -> None:
     r("GET", "/_cat/tasks", _cat_tasks)
     r("GET", "/_cat/pending_tasks", lambda n, q: _cat_table(
         q, [], ["insertOrder", "timeInQueue", "priority", "source"]))
-    r("GET", "/_cat/allocation", _unported)
-    r("GET", "/_cat/recovery", _unported)
+    r("GET", "/_cat/allocation", _cat_allocation)
+    r("GET", "/_cat/recovery", _cat_recovery)
     r("GET", "/_cat/thread_pool", _cat_thread_pool)
     r("GET", "/_cat/fielddata", lambda n, q: _cat_table(
         q, [], ["id", "host", "ip", "node", "field", "size"]))
@@ -947,7 +954,7 @@ def _bm25_explanation_details(svc, doc_id, query_body):
     lanes = qb.explain_terms(ctx)
     if not lanes:
         return []
-    entry = shard.engine.version_map.get(doc_id)
+    entry = shard.engine.lookup_version(doc_id)
     if entry is None or entry.segment is None:
         return []
     segment = next((s for s in shard.engine.searchable_segments()
@@ -1516,6 +1523,89 @@ def _get_cluster_settings(node, req):
 # ---------------------------------------------------------------------------
 # cat API
 # ---------------------------------------------------------------------------
+
+
+def _allocation_explain(node, req):
+    """Every marked (index, shard) copy: a corrupted copy is unusable for
+    allocation until it is re-recovered from a healthy copy."""
+    corrupted = []
+    for name, svc in node.indices.items():
+        for sid, shard in svc.shards.items():
+            store = shard.engine.store  # None: a shard without a data path
+            for marker in store.corruption_markers() if store else []:
+                corrupted.append({
+                    "index": name, "shard": sid,
+                    "marker": marker.get("marker", "corrupted"),
+                    "site": marker.get("site", "load"),
+                    "reason": marker.get("reason", ""),
+                })
+    out = {
+        "note": "single-node cluster: all primaries allocated locally",
+        "can_allocate": "yes",
+    }
+    if corrupted:
+        out["can_allocate"] = "no"
+        out["note"] = ("corrupted store copies are unusable for "
+                       "allocation until re-recovered from a healthy "
+                       "copy (docs/RESILIENCE.md \"Data integrity\")")
+        out["corrupted_copies"] = corrupted
+    return 200, out
+
+
+def _cat_allocation(node, req):
+    n_shards = sum(s.num_shards for s in node.indices.values())
+    fs = monitor.fs_stats(node.data_path if node.persistent_path else ".")
+    tot = fs.get("total", {})
+    total_b = tot.get("total_in_bytes", 0)
+    free_b = tot.get("free_in_bytes", 0)
+    used_b = max(total_b - free_b, 0)
+    rows = [[n_shards, "0b", f"{used_b // (1 << 30)}gb",
+             f"{free_b // (1 << 30)}gb", f"{total_b // (1 << 30)}gb",
+             int(used_b * 100 / total_b) if total_b else 0,
+             "127.0.0.1", "127.0.0.1", node.node_name]]
+    return _cat_table(req, rows, ["shards", "disk.indices", "disk.used",
+                                  "disk.avail", "disk.total", "disk.percent",
+                                  "host", "ip", "node"])
+
+
+def _cat_recovery(node, req):
+    """Per shard copy: the local store recoveries, then every tracked
+    recovery (store rows of cold boots, the cluster's peer recoveries:
+    stage init -> index -> translog -> finalize -> done, the file, byte
+    and op progress, source -> target)."""
+    from elasticsearch_tpu_torch.index.recovery_progress import (
+        recovery_progress_rows,
+    )
+
+    def pct(done, total):
+        if not total:
+            return "100.0%" if done == total else "0.0%"
+        return f"{min(done / total, 1.0) * 100:.1f}%"
+
+    rows = []
+    for name, svc in node.indices.items():
+        for sid in svc.shards:
+            rows.append([name, sid, "0ms", "store", "done", "-",
+                         node.node_name, 0, "100.0%", "0b", "100.0%",
+                         0, 0, "100.0%"])
+    now_ms = int(time.time() * 1000)
+    for r in recovery_progress_rows():
+        took_ms = (r["stop_ms"] or now_ms) - (r["start_ms"] or now_ms)
+        rows.append([
+            r["index"], r["shard"], f"{max(took_ms, 0)}ms", r["type"],
+            r["stage"], r["source"] or "-", r["target"],
+            r["files_total"],
+            pct(r["files_recovered"], r["files_total"]),
+            f"{r['bytes_total']}b",
+            pct(r["bytes_recovered"], r["bytes_total"]),
+            r["ops_total"], r["ops_recovered"],
+            pct(r["ops_recovered"], r["ops_total"]),
+        ])
+    return _cat_table(req, rows, [
+        "index", "shard", "time", "type", "stage", "source_node",
+        "target_node", "files", "files_percent", "bytes",
+        "bytes_percent", "translog_ops", "translog_ops_recovered",
+        "translog_ops_percent"])
 
 
 def _cat_table(req, rows: List[List], headers: List[str]) -> Tuple[int, object]:

@@ -684,7 +684,7 @@ class SnapshotsService:
         engine = shard.engine
         with engine._lock:
             Store(dst).commit(engine.segments, engine.max_seqno,
-                              engine.version_map)
+                              engine.commit_entries())
         digests = {}
         for root, _dirs, fnames in os.walk(dst):
             for fn in fnames:

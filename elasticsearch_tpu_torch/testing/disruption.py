@@ -1,7 +1,17 @@
-"""Query-path, device and store fault injection.
+"""Transport, query-path, device and store fault injection.
 
-The slice of ``elasticsearch_tpu/testing/disruption.py`` that one node
-needs: a process-global registry of query-path schemes and their hooks.
+Counterpart of ``elasticsearch_tpu/testing/disruption.py``.
+
+The transport schemes are installed on a ``TransportHub``
+(``transport/local.py``) with ``apply_to(hub)`` and run on every delivery
+they match (``applies(src, dst, action)``, then ``disrupt``):
+``NetworkDelay`` sleeps, ``NetworkDrop`` (seeded) and
+``NetworkPartition`` (two node sets, optionally one way) raise
+``NodeNotConnectedException``, ``UnresponsiveNode`` and
+``ActionBlackhole`` block until the caller's deadline fires. ``remove()``
+uninstalls a scheme and unblocks its parked deliveries.
+
+The query-path schemes live in a process-global registry with hooks:
 
 - ``on_shard_search`` runs at the start of every shard's query phase on
   the host rung (``ShardSearcher.query``): ``SearchDelayScheme`` stalls a
@@ -32,18 +42,191 @@ needs: a process-global registry of query-path schemes and their hooks.
 
 ``StoreCorruptionScheme`` corrupts a committed segment at rest (a flipped
 bit, a truncated file, a torn or missing ``checksums.json``): the next
-load, scrub or restore must catch it. Its in-flight form, which corrupts
-a peer recovery's file chunks, and the transport schemes need the
-multi-node cluster and are not ported.
+load, scrub or restore must catch it. In flight, installed on a hub with
+``source_node`` set, it flips a bit in the source's recovery-session
+snapshot at the first matching file-chunk delivery: the target's digest
+check must catch it, and the retried session heals.
 """
 
 from __future__ import annotations
 
+import fnmatch
 import random
 import threading
+import time
 from typing import Iterable, Optional, Sequence
 
+from elasticsearch_tpu_torch.common.errors import NodeNotConnectedException
 from elasticsearch_tpu_torch.ops.cuda_kernels import KernelError
+
+
+# ---------------------------------------------------------------------------
+# Transport schemes (deliveries between the nodes of a TransportHub)
+# ---------------------------------------------------------------------------
+
+
+class DisruptionScheme:
+    """Base scheme: optional link and action filters + the effect hook.
+
+    ``src``/``dst``: deliveries from/to these node ids (None = any).
+    ``nodes``: deliveries touching any of these nodes either way.
+    ``actions``: fnmatch patterns over the action name
+    (``internal:cluster/*``).
+    """
+
+    def __init__(self, src: Optional[Iterable[str]] = None,
+                 dst: Optional[Iterable[str]] = None,
+                 nodes: Optional[Iterable[str]] = None,
+                 actions: Optional[Sequence[str]] = None):
+        self.src = set(src) if src else None
+        self.dst = set(dst) if dst else None
+        self.nodes = set(nodes) if nodes else None
+        self.actions = list(actions) if actions else None
+        self.hub = None
+
+    def apply_to(self, hub) -> "DisruptionScheme":
+        hub.add_disruption(self)
+        self.hub = hub
+        return self
+
+    def remove(self) -> None:
+        if self.hub is not None:
+            self.hub.remove_disruption(self)
+            self.hub = None
+
+    def applies(self, src: str, dst: str, action: str) -> bool:
+        if self.src is not None and src not in self.src:
+            return False
+        if self.dst is not None and dst not in self.dst:
+            return False
+        if self.nodes is not None and not ({src, dst} & self.nodes):
+            return False
+        if self.actions is not None and not any(
+                # exact match first: action names hold [s][r] suffixes
+                # that fnmatch would read as character classes
+                action == pat or fnmatch.fnmatch(action, pat)
+                for pat in self.actions):
+            return False
+        return True
+
+    def disrupt(self, src: str, dst: str, action: str) -> None:
+        """The effect; runs outside the hub lock. May sleep or raise."""
+        raise NotImplementedError
+
+
+class NetworkDelay(DisruptionScheme):
+    """A fixed, or uniformly random, delay a delivery."""
+
+    def __init__(self, seconds: float, max_seconds: Optional[float] = None,
+                 seed: Optional[int] = None, **filters):
+        super().__init__(**filters)
+        self.seconds = float(seconds)
+        self.max_seconds = float(max_seconds) if max_seconds else None
+        self._rng = random.Random(seed)
+        self._rng_lock = threading.Lock()
+
+    def delay(self) -> float:
+        if self.max_seconds is None:
+            return self.seconds
+        with self._rng_lock:
+            return self._rng.uniform(self.seconds, self.max_seconds)
+
+    def disrupt(self, src, dst, action) -> None:
+        time.sleep(self.delay())
+
+
+class NetworkDrop(DisruptionScheme):
+    """Each matching delivery fails with probability ``p`` (a
+    connection-level error, so retries and failover engage); ``seed``
+    makes the sequence reproducible."""
+
+    def __init__(self, p: float, seed: Optional[int] = None, **filters):
+        super().__init__(**filters)
+        if not 0.0 <= p <= 1.0:
+            raise ValueError("drop probability must be in [0, 1]")
+        self.p = float(p)
+        self._rng = random.Random(seed)
+        self._rng_lock = threading.Lock()
+        self.dropped = 0
+
+    def disrupt(self, src, dst, action) -> None:
+        with self._rng_lock:
+            hit = self._rng.random() < self.p
+        if hit:
+            self.dropped += 1
+            raise NodeNotConnectedException(
+                f"[{dst}] dropped [{action}] from [{src}] (injected)")
+
+
+class NetworkPartition(DisruptionScheme):
+    """A partition between two node sets; ``one_way=True`` drops only
+    side1 -> side2 (a deposed master can still hear the cluster that no
+    longer hears it)."""
+
+    def __init__(self, side1: Iterable[str], side2: Iterable[str],
+                 one_way: bool = False, **filters):
+        super().__init__(**filters)
+        self.side1 = set(side1)
+        self.side2 = set(side2)
+        self.one_way = bool(one_way)
+
+    def disrupt(self, src, dst, action) -> None:
+        forward = src in self.side1 and dst in self.side2
+        backward = src in self.side2 and dst in self.side1
+        if forward or (backward and not self.one_way):
+            raise NodeNotConnectedException(
+                f"[{dst}] partitioned from [{src}] (injected)")
+
+
+class UnresponsiveNode(DisruptionScheme):
+    """The node takes requests and never answers: a delivery blocks
+    until the caller's timeout fires (or ``max_block_s``, a leak guard),
+    then fails; ``remove()`` unblocks the parked deliveries at once."""
+
+    def __init__(self, node: str, max_block_s: float = 60.0, **filters):
+        filters.setdefault("nodes", [node])
+        super().__init__(**filters)
+        self.node = node
+        self.max_block_s = float(max_block_s)
+        self._healed = threading.Event()
+
+    def remove(self) -> None:
+        self._healed.set()
+        super().remove()
+
+    def disrupt(self, src, dst, action) -> None:
+        self._healed.wait(self.max_block_s)
+        raise NodeNotConnectedException(
+            f"[{self.node}] unresponsive, [{action}] never answered "
+            f"(injected)")
+
+
+class ActionBlackhole(DisruptionScheme):
+    """Requests matching the action patterns vanish: the delivery blocks
+    until the caller's deadline. Scope with ``dst=[...]`` to blackhole one
+    replica's writes while the node stays reachable otherwise."""
+
+    def __init__(self, actions: Sequence[str], max_block_s: float = 60.0,
+                 **filters):
+        super().__init__(actions=list(actions), **filters)
+        self.max_block_s = float(max_block_s)
+        self._healed = threading.Event()
+        self.swallowed = 0
+
+    def remove(self) -> None:
+        self._healed.set()
+        super().remove()
+
+    def disrupt(self, src, dst, action) -> None:
+        self.swallowed += 1
+        self._healed.wait(self.max_block_s)
+        raise NodeNotConnectedException(
+            f"[{dst}] blackholed [{action}] from [{src}] (injected)")
+
+
+# ---------------------------------------------------------------------------
+# Query-path, device and store schemes
+# ---------------------------------------------------------------------------
 
 _SEARCH_SCHEMES: list = []
 
@@ -377,8 +560,8 @@ def queue_pressure(index: str, count_hit: bool = True):
 
 
 class StoreCorruptionScheme:
-    """Deterministic at-rest store corruption; every injection is logged
-    in ``corrupted`` (each must be detected).
+    """Deterministic at-rest or in-flight store corruption; every
+    injection is logged in ``corrupted`` (each must be detected).
 
     Kinds: ``bitflip`` (one bit of one byte of a checksummed file,
     ``target`` or ``arrays.npz``), ``truncate`` (the last byte of a
@@ -386,19 +569,29 @@ class StoreCorruptionScheme:
     ``missing_checksums`` (``checksums.json`` deleted).
     ``corrupt_store(store)`` corrupts one committed segment (the newest
     by default), ``corrupt_segment(dir)`` one segment directory; ``seed``
-    makes the file, byte and bit reproducible."""
+    makes the file, byte and bit reproducible.
+
+    In flight: ``apply_to(hub)`` with ``source_node`` (the recovery
+    source's ``ClusterNode``) flips one bit of a file in the source's
+    open recovery sessions at a file-chunk delivery to it, after the
+    manifest's digests were taken, ``times`` times; the target's install
+    verification must catch it and the retried session heals."""
 
     KINDS = ("bitflip", "truncate", "torn_checksums", "missing_checksums")
 
     def __init__(self, kind: str = "bitflip",
                  target: Optional[str] = None,
-                 seed: Optional[int] = None):
+                 seed: Optional[int] = None,
+                 source_node=None, times: int = 1):
         if kind not in self.KINDS:
             raise ValueError(f"unknown corruption kind [{kind}]")
         self.kind = kind
         self.target = target
+        self.source_node = source_node
+        self.times = max(1, int(times))
         self._rng = random.Random(seed)
         self._lock = threading.Lock()
+        self.hub = None
         self.hits = 0
         self.corrupted: list = []  # (path, description) per injection
 
@@ -464,3 +657,51 @@ class StoreCorruptionScheme:
         with self._lock:
             self.hits += 1
             self.corrupted.append((path, f"{self.kind}: {what}"))
+
+    # --- in flight (the peer-recovery file stream) ---------------------
+    #
+    # The hub's scheme protocol (apply_to / applies / disrupt), duck-typed:
+    # the effect mutates the source's session bytes, it fails no delivery
+
+    def apply_to(self, hub) -> "StoreCorruptionScheme":
+        if self.source_node is None:
+            raise ValueError(
+                "in-flight corruption needs source_node (the recovery "
+                "source's ClusterNode)")
+        hub.add_disruption(self)
+        self.hub = hub
+        return self
+
+    def remove(self) -> None:
+        if self.hub is not None:
+            self.hub.remove_disruption(self)
+            self.hub = None
+
+    def applies(self, src: str, dst: str, action: str) -> bool:
+        return (self.source_node is not None
+                and action == "internal:index/shard/recovery/files/chunk"
+                and dst == self.source_node.node_id)
+
+    def disrupt(self, src: str, dst: str, action: str) -> None:
+        """Flip one bit of one file in every open recovery session on the
+        source (its digests already in the manifest), ``times``
+        deliveries; then inert (the retried session re-reads clean
+        disk)."""
+        with self._lock:
+            if self.hits >= self.times:
+                return
+            sessions = getattr(self.source_node, "_recovery_sessions", {})
+            for sess in list(sessions.values()):
+                files = sess.get("files", {})
+                rel = next((r for r in sorted(files) if files[r]), None)
+                if rel is None:
+                    continue
+                data = files[rel]
+                offset = self._rng.randrange(len(data))
+                bit = 1 << self._rng.randrange(8)
+                files[rel] = (data[:offset] + bytes([data[offset] ^ bit])
+                              + data[offset + 1:])
+                self.hits += 1
+                self.corrupted.append(
+                    (rel, f"in-flight bitflip at offset {offset}"))
+                break

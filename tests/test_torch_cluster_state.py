@@ -161,7 +161,13 @@ def test_nodes_stats_sections(pair, path):
     assert js == ts == 200
     assert list(tb["nodes"]) == ["<node>"]
     jn, tn = jb["nodes"]["<node>"], tb["nodes"]["<node>"]
-    assert set(jn) - set(tn) == {"transport"}
+    assert set(jn) == set(tn)
+    # the transport counters, summed over each package's live services
+    assert set(tn["transport"]) == set(jn["transport"]) == {
+        "services", "requests_sent", "retries", "timeouts", "fast_fails",
+        "failures"}
+    assert all(isinstance(v, int) and v >= 0
+               for v in tn["transport"].values())
     assert tn["indices"]["docs"] == jn["indices"]["docs"] == {"count": 1}
     assert set(tn["breakers"]) == set(jn["breakers"])
     for section in ("os", "process", "fs"):

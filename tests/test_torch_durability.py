@@ -517,10 +517,11 @@ def test_acked_writes_survive_sigkill_mid_bulk(tmp_path):
 
 
 def test_recovered_version_map_waits_for_its_first_read(tmp_path):
-    """A recovered shard defers its version map until the first read: a
-    search leaves it deferred, and the map then read equals the JAX
-    package's, built at once (versions, seqnos, segment, local doc,
-    deleted and term, doc for doc); the next write versions from it."""
+    """A recovered shard defers its version map until the first whole
+    read: the commit's tombstone and a search leave it deferred, and the
+    map then read equals the JAX package's, built at once (versions,
+    seqnos, segment, local doc, deleted and term, doc for doc); the next
+    write versions from it."""
     paths = {"t": str(tmp_path / "t"), "j": str(tmp_path / "j")}
     t = Node(data_path=paths["t"], device="cpu")
     j = JNode(JSettings({}), data_path=paths["j"])
@@ -536,12 +537,12 @@ def test_recovered_version_map_waits_for_its_first_read(tmp_path):
     t = Node(data_path=paths["t"], device="cpu")
     j = JNode(JSettings({}), data_path=paths["j"])
     try:
-        # the shard whose commit holds d7's tombstone built its map to
-        # add it; the other still defers
+        # the shard whose commit holds d7's tombstone put it by its id:
+        # both still defer
         deferred = [sh.engine for _sid, sh in
                     sorted(t.indices["vm"].shards.items())
                     if sh.engine._deferred_entries]
-        assert len(deferred) == 1
+        assert len(deferred) == 2
         t.search("vm", {"query": {"match": {"title": "w1"}}})
         assert deferred[0]._deferred_entries
         for (sid, tsh), (_s, jsh) in zip(
@@ -557,6 +558,89 @@ def test_recovered_version_map_waits_for_its_first_read(tmp_path):
         assert t.get_doc("vm", "d3")["_version"] == 2
         assert t.index_doc("vm", "d3", {"title": "w2"})["_version"] == \
             j.index_doc("vm", "d3", {"title": "w2"})["_version"] == 3
+    finally:
+        t.close()
+        j.close()
+
+
+def test_deferred_version_map_writes_and_gets_by_id(tmp_path):
+    """Writes and gets against a recovered shard look their one id up in
+    the deferred segments (the map stays deferred): each answers as the
+    JAX package's node over the same store, and the map read whole after
+    them equals the JAX package's, entry for entry; a flush writes its
+    commit with the map still deferred. The index sort puts an updated
+    doc's dead copy after its live one in the sealed segment, so the
+    id's last doc there is dead."""
+    settings = {**SETTINGS, "index": {"sort": {"field": ["year"],
+                                               "order": ["asc"]}}}
+    paths = {"t": str(tmp_path / "t"), "j": str(tmp_path / "j")}
+    t = Node(data_path=paths["t"], device="cpu")
+    j = JNode(JSettings({}), data_path=paths["j"])
+    for node, extra in ((t, {}), (j, {"search": {"mesh": False}})):
+        node.create_index("vm", {"settings": {**settings, **extra},
+                                 "mappings": MAPPING})
+        for i in range(60):
+            node.index_doc("vm", f"d{i}", {"title": f"w{i % 7}",
+                                           "year": 2000 + i})
+        node.index_doc("vm", "d4", {"title": "w4 again", "year": 1900})
+        node.indices["vm"].refresh()
+        for i in range(60, 80):
+            node.index_doc("vm", f"d{i}", {"title": "w2", "year": 3000 + i})
+        node.index_doc("vm", "d9", {"title": "w9 moved", "year": 1950})
+        node.delete_doc("vm", "d13")
+        node.indices["vm"].flush()
+        node.close()
+    t = Node(data_path=paths["t"], device="cpu")
+    j = JNode(JSettings({}), data_path=paths["j"])
+    try:
+        engines = [sh.engine for _sid, sh in
+                   sorted(t.indices["vm"].shards.items())]
+        assert all(e._deferred_entries for e in engines)
+        ids = ["d4", "d9", "d13", "d0", "d59", "d61", "d79", "nope"]
+        for node in (t, j):
+            node.index_doc("vm", "d61", {"title": "w1 updated", "year": 1})
+            node.delete_doc("vm", "d0")
+        got = [t.get_doc("vm", i) for i in ids]
+        assert got == [j.get_doc("vm", i) for i in ids]
+        assert [g["_version"] for g in got if g["found"]] == [2, 2, 1, 2, 1]
+        for node in (t, j):
+            with pytest.raises(Exception) as e:
+                node.index_doc("vm", "d4", {"title": "w4"}, version=1)
+            assert type(e.value).__name__ == \
+                "VersionConflictEngineException"
+        assert [t.delete_doc("vm", i) for i in ("d4", "d13", "d79")] == \
+            [j.delete_doc("vm", i) for i in ("d4", "d13", "d79")]
+        assert all(e._deferred_entries for e in engines)
+        # a flush writes the commit's tombstones and terms from the entries
+        # looked up by id: the map stays deferred, and the reopened node
+        # answers as the JAX package's
+        for node in (t, j):
+            node.index_doc("vm", "d62", {"title": "w3", "year": 5})
+            node.indices["vm"].flush()
+            node.close()
+        assert all(e._deferred_entries for e in engines)
+        t = Node(data_path=paths["t"], device="cpu")
+        j = JNode(JSettings({}), data_path=paths["j"])
+        assert [t.get_doc("vm", i) for i in ids] == \
+            [j.get_doc("vm", i) for i in ids]
+        for node in (t, j):
+            node.index_doc("vm", "d9", {"title": "w9 back", "year": 2})
+            node.delete_doc("vm", "d59")
+        for (sid, tsh), (_s, jsh) in zip(
+                sorted(t.indices["vm"].shards.items()),
+                sorted(j.indices["vm"].shards.items())):
+            got = {k: (e.version, e.seqno, e.segment, e.local_doc,
+                       e.deleted, e.term)
+                   for k, e in tsh.engine.version_map.items()}
+            want = {k: (e.version, e.seqno, e.segment, e.local_doc,
+                        e.deleted, getattr(e, "term", 1))
+                    for k, e in jsh.engine.version_map.items()}
+            assert got == want, sid
+        t.refresh("vm")
+        j.indices["vm"].refresh()
+        body = {"query": {"match": {"title": "w1 w2 w4 w9"}}, "size": 100}
+        assert_same_hits(j.search("vm", dict(body)),
+                         t.search("vm", dict(body)))
     finally:
         t.close()
         j.close()

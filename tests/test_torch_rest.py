@@ -504,20 +504,80 @@ def test_route_table_equals_jax():
     assert len(got.pairs) > 200
 
 
+def held_cluster_routes_against_jax():
+    """``_cluster/reroute`` (a no-op, a dry run with ``explain``, a
+    refused cancel of a primary), ``_cluster/allocation/explain`` (with a
+    corrupted copy's marker), ``_cat/allocation`` and ``_cat/recovery``
+    on a JAX node and a port node with the same index."""
+    import tempfile
+
+    from elasticsearch_tpu.cluster.multinode import (
+        clear_recovery_progress as j_clear,
+    )
+    from elasticsearch_tpu_torch.cluster.multinode import (
+        clear_recovery_progress as t_clear,
+    )
+    from torch_pair import NodePair
+
+    j_clear()
+    t_clear()
+    with tempfile.TemporaryDirectory() as d:
+        pair = NodePair(data_paths=(f"{d}/j", f"{d}/t"))
+        try:
+            pair.same("PUT", "/r", {"settings": {"number_of_shards": 2,
+                                                 "number_of_replicas": 0}})
+            pair.same("POST", "/_cluster/reroute", {}, status=200)
+            body = {"commands": [{"cancel": {
+                "index": "r", "shard": 0, "node": pair.t.node_id}}]}
+            (js, jb), (ts, tb) = pair.call("POST", "/_cluster/reroute", body)
+            assert js == ts == 400 and jb["error"]["type"] == \
+                tb["error"]["type"] == "illegal_argument_exception"
+            pair.same("POST", "/_cluster/reroute", {"commands": []},
+                      params={"dry_run": "true", "explain": "true"},
+                      status=200)
+            pair.same("GET", "/_cluster/allocation/explain", status=200)
+            for node in (pair.j, pair.t):
+                node.indices["r"].shards[1].engine.store.mark_corrupted(
+                    "torn checksums", site="load")
+            (js, jb), (ts, out) = pair.call("GET",
+                                             "/_cluster/allocation/explain")
+            assert js == ts == 200
+            # a marker's file name is random (corrupted_<uuid>.json)
+            for b in (jb, out):
+                for c in b["corrupted_copies"]:
+                    assert c.pop("marker").startswith("corrupted_")
+            assert_same_body(jb, out, "allocation explain, marked")
+            assert out["can_allocate"] == "no"
+            assert [(c["index"], c["shard"], c["site"])
+                    for c in out["corrupted_copies"]] == [("r", 1, "load")]
+            pair.same("GET", "/_cat/allocation", params={"format": "json"},
+                      status=200)
+            rows = pair.same("GET", "/_cat/recovery",
+                             params={"format": "json"}, status=200)
+            assert [(r["index"], r["type"]) for r in rows] == [
+                ("r", "store"), ("r", "store")]
+        finally:
+            pair.close()
+            j_clear()
+            t_clear()
+
+
 def test_unported_route_answers_400():
     tn = Node(device="cpu")
     srv = HttpServer(tn, port=0)
     srv.start()
     try:
         tn.create_index("i", {"settings": {"number_of_shards": 1}})
-        for method, path in (("POST", "/_cluster/reroute"),
-                             ("GET", "/_remote/info"),
+        for method, path in (("GET", "/_remote/info"),
                              ("GET", "/_cat/plugins")):
             st, _, b = call(srv.port, method, path, {})
             assert st == 400, (path, b)
             assert b["error"]["type"] == "illegal_argument_exception"
             assert "not supported by the PyTorch port yet" in \
                 b["error"]["reason"], (path, b)
+        # ported since: the cluster's four routes answer as JAX's do,
+        # status for status and body for body
+        held_cluster_routes_against_jax()
         # ported since: track_total_hits, _explain, _all search and
         # _cache/clear answer
         for method, path in (("GET", "/i/_search?track_total_hits=true"),
